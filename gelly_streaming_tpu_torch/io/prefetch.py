@@ -1,0 +1,152 @@
+"""Prepare and upload items ahead of the device consumer.
+
+Port of ``Prefetcher`` from ``gelly_streaming_tpu/io/wire.py``.  One
+thread runs ``prepare(item) -> (meta, host_arrays)`` (host packing); a
+second uploads ``host_arrays`` (a tuple of numpy arrays, or None) so that
+packing item k+1 overlaps uploading item k.  On CUDA the upload copies
+from pinned host memory with ``non_blocking=True`` on a side stream and
+records an event; the consumer's stream waits on that event when the item
+is handed over, and the tensors are marked as used by that stream so the
+caching allocator cannot recycle them early.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def upload(host_arrays, device: torch.device, stream=None):
+    """Copy a tuple of numpy arrays to ``device``.
+
+    CPU: zero-copy tensors over the arrays.  CUDA: pinned staging and
+    non-blocking copies on ``stream`` (the current stream when None); the
+    caller orders later work after them (same stream, or an event)."""
+    if host_arrays is None:
+        return None
+    tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays)
+    if device.type == "cpu":
+        return tensors
+    with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
+        return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
+
+
+class Prefetcher:
+    """Yields ``(meta, device_arrays)`` in order with up to ``depth``
+    results in flight per stage.  ``close()`` (or the context manager)
+    stops both threads and drops queued buffers if the consumer stops
+    early; exhausting the iterator closes implicitly.  A failure on either
+    thread is raised on the consumer's thread."""
+
+    _SENTINEL = object()
+
+    def __init__(
+        self, items: Iterable, prepare, device: torch.device, depth: int = 4
+    ):
+        self._prepare = prepare
+        self._device = device
+        self._side = (
+            torch.cuda.Stream(device=device) if device.type == "cuda" else None
+        )
+        self._midq: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(target=self._run_pack, args=(iter(items),), daemon=True),
+            threading.Thread(target=self._run_put, daemon=True),
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _put(self, q: "queue.Queue", item) -> bool:
+        """Bounded put that gives up when the consumer has closed."""
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _get(self, q: "queue.Queue"):
+        while not self._stop.is_set():
+            try:
+                return q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return self._SENTINEL
+
+    def _run_pack(self, it: Iterator):
+        try:
+            for item in it:
+                if self._stop.is_set():
+                    return
+                if not self._put(self._midq, self._prepare(item)):
+                    return
+        except BaseException as e:  # raised again on the consumer thread
+            if self._error is None:
+                self._error = e
+        finally:
+            self._put(self._midq, self._SENTINEL)
+
+    def _run_put(self):
+        try:
+            while True:
+                got = self._get(self._midq)
+                if got is self._SENTINEL:
+                    return
+                meta, host = got
+                dev = upload(host, self._device, self._side)
+                ready = None
+                if self._side is not None and dev is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self._side)
+                if not self._put(self._q, (meta, dev, ready)):
+                    return
+        except BaseException as e:
+            if self._error is None:
+                self._error = e
+        finally:
+            self._put(self._q, self._SENTINEL)
+
+    def close(self):
+        """Stop the producers and drop queued buffers (idempotent).  Joins
+        before draining so no in-flight put can refill a queue."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        for q in (self._midq, self._q):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __iter__(self) -> Iterator[Tuple[object, Optional[tuple]]]:
+        try:
+            while True:
+                item = self._q.get()
+                if item is self._SENTINEL:
+                    if self._error is not None:
+                        raise self._error
+                    return
+                meta, dev, ready = item
+                if ready is not None:
+                    consumer = torch.cuda.current_stream(self._device)
+                    consumer.wait_event(ready)
+                    for t in dev:
+                        t.record_stream(consumer)
+                yield meta, dev
+        finally:
+            self.close()

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under
+``gelly_streaming_tpu_torch/build/`` (git-ignored), then loaded with
+ctypes.  A library's file name carries a hash of its source and flags, so
+an edited source is rebuilt and a built one is reused.  Nothing is built
+when the module is imported: the first kernel call builds what it needs,
+and ``build_all`` builds every source at once, one ``nvcc`` process each,
+all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, NamedTuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# C entry points of each source: name -> argtypes (all return an int
+# cudaError_t from cudaGetLastError after the launch)
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "pane_triangles.cu": {
+        # words, n_ptr, cap, bits, k, stream
+        "pane_adjacency_launch": [_P, _P, _I, _P, _I, _P],
+        # bits, k, total, stream
+        "dense_triangles_launch": [_P, _I, _P, _P],
+    },
+}
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when an existing build was reused
+    log: str  # nvcc's output (ptxas register/shared-memory report)
+
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return path
+
+
+def _target(source: str) -> Path:
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(sources: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, BuildResult]:
+    """Build every listed source that has no current library, one ``nvcc``
+    per source, all running at once.  Raises ``RuntimeError`` with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results: Dict[str, BuildResult] = {}
+    running = {}
+    for src in sources:
+        out = _target(src)
+        if out.exists():
+            results[src] = BuildResult(out, 0.0, "")
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running[src] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for src, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        results[src] = BuildResult(out, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return results
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source`` (built on first use), with every
+    entry point's argtypes and restype declared."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            path = build_all([source])[source].path
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

@@ -1,0 +1,86 @@
+"""Capacity-bounded neighbor tables (port of ``gelly_streaming_tpu/ops/neighbors.py``).
+
+State is a dense table ``nbrs: int32[C, D]`` (-1 = empty slot) plus
+``deg: int32[C]`` and an overflow counter, updated for a whole batch in
+one vectorized pass: rank rows within their source group, scatter to
+``deg[src] + rank``.  Functions return new tables and leave their inputs
+unchanged, as the JAX versions do.  The windowed triangle count's CSR
+fallback is built on these.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from gelly_streaming_tpu_torch.ops import segments
+
+
+class NeighborTable(NamedTuple):
+    """Padded adjacency rows + row occupancy + overflow counter."""
+
+    nbrs: torch.Tensor  # int32[C, D], -1 = empty
+    deg: torch.Tensor  # int32[C]
+    dropped: torch.Tensor  # int32[] rows lost to capacity overflow
+
+
+def init_table(capacity: int, max_degree: int, device: torch.device) -> NeighborTable:
+    return NeighborTable(
+        nbrs=torch.full((capacity, max_degree), -1, dtype=torch.int32, device=device),
+        deg=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        dropped=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def contains_batch(
+    table: NeighborTable, src: torch.Tensor, dst: torch.Tensor
+) -> torch.Tensor:
+    """For each row i: is dst[i] already in N(src[i])?  [B, D] compare."""
+    rows = table.nbrs[src.long()]
+    return (rows == dst[:, None]).any(dim=1)
+
+
+def insert_batch(
+    table: NeighborTable,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: torch.Tensor,
+) -> NeighborTable:
+    """Append dst[i] to N(src[i]) for every masked row, in one pass.
+
+    The caller dedups; this appends unconditionally.  Rows past a row's
+    capacity D are dropped and counted in ``dropped``.
+    """
+    capacity, max_degree = table.nbrs.shape
+    src_l = src.long()
+    rank = segments.occurrence_rank(src, mask)
+    pos = table.deg[src_l] + rank
+    ok = mask & (pos < max_degree)
+    # flat scatter; masked/overflow rows land in one sacrificial slot past
+    # the end, which is cut off afterwards
+    sink = capacity * max_degree
+    flat_idx = torch.where(ok, src_l * max_degree + pos.long(), sink)
+    flat = torch.cat(
+        [
+            table.nbrs.reshape(-1),
+            torch.full((1,), -1, dtype=torch.int32, device=table.nbrs.device),
+        ]
+    )
+    flat[flat_idx] = torch.where(ok, dst, -1).to(torch.int32)
+    nbrs = flat[:sink].reshape(capacity, max_degree)
+    deg = table.deg.clone()
+    deg.index_add_(0, torch.where(ok, src_l, 0), ok.to(torch.int32))
+    dropped = table.dropped + (mask & ~ok).sum(dtype=torch.int32)
+    return NeighborTable(nbrs=nbrs, deg=deg, dropped=dropped)
+
+
+def gather_rows(
+    table: NeighborTable, vertices: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(neighbors [B, D], valid [B, D]) for a batch of vertices."""
+    v = vertices.long()
+    rows = table.nbrs[v]
+    slots = torch.arange(table.nbrs.shape[1], device=rows.device)
+    valid = slots[None, :] < table.deg[v][:, None]
+    return rows, valid

@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+its CUDA entry points match their ctypes declarations, and chip_smoke.py
+refuses to report a result without a GPU."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+# subprocess tests
+pytestmark = pytest.mark.timeout_cap(120)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "gelly_streaming_tpu_torch")
+
+
+def _port_sources():
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gelly_streaming_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'gelly_streaming_tpu' or m.startswith('gelly_streaming_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 20, mods\n"
+        "print('ok', len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=100
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()), ids=os.path.basename)
+def test_port_source_imports_neither_jax_nor_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "gelly_streaming_tpu"), (path, name)
+
+
+def test_cuda_entry_points_match_their_ctypes_declarations():
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    for source, entries in _cuda.SIGNATURES.items():
+        with open(os.path.join(_cuda.CSRC_DIR, source)) as f:
+            text = f.read()
+        extern = text[text.index('extern "C" {') :]
+        found = dict(re.findall(r"^int (\w+)\(([^)]*)\)", extern, re.M | re.S))
+        assert set(found) == set(entries), source
+        for name, argtypes in entries.items():
+            assert len(found[name].split(",")) == len(argtypes), name
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, env=env, capture_output=True, text=True, timeout=100
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # alone in a directory, without the package beside it
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, str(lone)], cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=100
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
