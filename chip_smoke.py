@@ -1,25 +1,42 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (gelly_streaming_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch twin on the card, then drives the port's
-main path, ``window_triangles`` over an event-time ``EdgeStream``, at the
-size of the repo's triangle bench (16 windows of 2^17 edges over 4096
-vertices, plus one 8192-vertex window and one sparse-id window that takes
-the CSR path), and checks every window's count.  Tolerance: none; both
-kernels compute integers and must equal their twins exactly
-(``max_abs_err`` 0).  It prints timings, a
-``{"kernels": [...]}`` JSON line, the GPU's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
-non-zero without that line; so does a machine without CUDA.
+kernel against its plain PyTorch twin on the card (random panes from 32 to
+16384 vertices, a star, a Zipf-skewed pane, a complete graph whose total
+passes 2^32, an empty pane, edges on bit 31 and on word boundaries, and
+unaligned inputs), then drives the port's main path, ``window_triangles``
+over an event-time ``EdgeStream``, at the size of the repo's triangle bench
+(16 windows of 2^17 edges over 4096 vertices, plus one 8192-vertex window
+and one sparse-id window that takes the CSR path), checks every window's
+count and holds both kernels against their twins on every dense window.
+Tolerance: none; both kernels compute integers and must equal their twins
+exactly (``max_abs_err`` 0).
+
+Phase 5 times each kernel three ways: CUDA events around back-to-back
+calls (``ms``, the host's enqueue time included when it is the longer),
+events around calls enqueued while ``torch.cuda._sleep`` holds the stream
+(``device_ms``, the device alone), and the host's enqueue time per call
+(``host_us``).  ``--baseline-cu`` names another build of
+``pane_triangles.cu`` with the C interface of the first port slice (caller
+zeroes the outputs); its two kernels are then timed the same way, in turns
+with the current ones (baseline, current, current, baseline).
+
+It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failed phase exits non-zero without that line; so does a machine without
+CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -34,6 +51,7 @@ WINDOW_MS = 1000
 PANE_EDGES = 1 << 17
 PANE_VERTICES = 4096
 DENSE_WINDOWS = 16
+TIMED_REPS = 200
 
 
 def log(msg: str) -> None:
@@ -51,8 +69,13 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# timing
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean ms per call of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events: the device's time, or the host's when it enqueues slower."""
     import torch
 
     for _ in range(warmup):
@@ -68,6 +91,83 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sleep_cycles_per_ms() -> float:
+    """Rate of ``torch.cuda._sleep``'s spin, in cycles per ms of the card."""
+    import torch
+
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int, cycles_per_ms: float, warmup: int = 3):
+    """(device ms per call, host enqueue us per call) of ``fn``.
+
+    A ``torch.cuda._sleep`` holds the stream while all ``reps`` calls are
+    enqueued; events recorded after the sleep and after the last call then
+    bracket the device's work alone.  The hold is checked: if the sleep
+    had ended before the last call was enqueued, it is lengthened and the
+    run repeated."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    hold_ms = max(2.0, 3e3 * reps * (time.perf_counter() - t0) / warmup)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0
+        end.record()
+        held = not start.query()  # the sleep still ran after the last enqueue
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e6
+        hold_ms *= 4
+    raise RuntimeError("the host could not enqueue the timed calls inside the hold")
+
+
+def profiler_device_us(fn, reps: int):
+    """torch.profiler's device time per call of each kernel or memset that
+    ``fn`` runs: {name: (us per call, calls)}; empty when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us and evt.count:
+            rows[evt.key] = (us / evt.count, evt.count)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# inputs
+
+
 def to_dev(arrays, dev):
     import torch
 
@@ -77,19 +177,57 @@ def to_dev(arrays, dev):
 def seeded_pane_words(rng, k: int, edges: int):
     """Packed words of a random pane over [0, k) with duplicates, both
     orientations and self-loops, plus garbage words past n."""
-    from gelly_streaming_tpu_torch.ops import dense_triangles as dt
-
     u = rng.integers(0, k, edges)
     v = rng.integers(0, k, edges)
     dup = rng.integers(0, edges, edges // 4)
     loops = rng.integers(0, k, 16)
-    uu = np.concatenate([u, v[dup], loops])
-    vv = np.concatenate([v, u[dup], loops])
-    w, n = dt.pack_pane(uu, vv)
+    return edge_words(rng, k, np.concatenate([u, v[dup], loops]), np.concatenate([v, u[dup], loops]))
+
+
+def edge_words(rng, k: int, u, v):
+    """Host (int32 words, int32[1] n) of an edge list, with garbage words
+    past n that the kernel must ignore."""
+    from gelly_streaming_tpu_torch.ops import dense_triangles as dt
+
+    w, n = dt.pack_pane(np.asarray(u), np.asarray(v))
     if int(n) == len(w):  # make room for padding that must be ignored
         w = np.concatenate([w, np.zeros_like(w)])
     w[int(n):] = (rng.integers(0, k, len(w) - int(n)) | (1 << 14)).astype(np.uint32)
     return dt.packed_host_arrays(w, n)
+
+
+def star_edges(rng, k: int):
+    """Vertex 0 joined to every other vertex (a row of degree k - 1, all
+    of it oriented work), plus 2k random edges among the leaves."""
+    leaves = np.arange(1, k)
+    u = np.concatenate([np.zeros(k - 1, np.int64), rng.integers(1, k, 2 * k)])
+    v = np.concatenate([leaves, rng.integers(1, k, 2 * k)])
+    return u, v
+
+
+def zipf_edges(rng, k: int, edges: int, a: float = 1.2):
+    """Edges whose endpoints follow a Zipf law over the ids: hub rows at
+    low ids, so their neighbours are nearly all above them."""
+    p = 1.0 / np.arange(1, k + 1) ** a
+    p /= p.sum()
+    return rng.choice(k, edges, p=p), rng.choice(k, edges, p=p)
+
+
+def boundary_edges(k: int):
+    """A complete graph on vertices at bit 0 and bit 31 of words and at the
+    ends of the row."""
+    ids = sorted({x for x in (0, 1, 30, 31, 32, 33, 63, 64, 95, 96, 127, 128,
+                              k - 33, k - 32, k - 31, k - 2, k - 1) if 0 <= x < k})
+    pairs = [(a, b) for a in ids for b in ids if a < b]
+    return np.array([a for a, _ in pairs]), np.array([b for _, b in pairs])
+
+
+def adjacency(k: int, u, v) -> np.ndarray:
+    adj = np.zeros((k, k), bool)
+    adj[u, v] = True
+    adj[v, u] = True
+    np.fill_diagonal(adj, False)
+    return adj
 
 
 def numpy_six_triangles(adj: np.ndarray) -> int:
@@ -108,20 +246,35 @@ def word_err(got, want) -> int:
     return int(((got.long() & mask) - (want.long() & mask)).abs().max())
 
 
+# ---------------------------------------------------------------------------
+# phases 2-3: each kernel against its twin
+
+
 def phase_adjacency(dev, rng) -> int:
     from gelly_streaming_tpu_torch.ops import dense_triangles as dt
 
+    cases = [(f"K={k}", k, seeded_pane_words(rng, k, 8 * k + 3))
+             for k in (32, 96, 128, 4096, 8192, 16384)]
+    cases += [
+        ("star K=4096", 4096, edge_words(rng, 4096, *star_edges(rng, 4096))),
+        ("Zipf K=4096, 2^17 edges", 4096, edge_words(rng, 4096, *zipf_edges(rng, 4096, PANE_EDGES))),
+        ("bit 31 / word edges K=4096", 4096, edge_words(rng, 4096, *boundary_edges(4096))),
+        ("bit 31 / word edges K=96", 96, edge_words(rng, 96, *boundary_edges(96))),
+        ("empty pane K=4096", 4096, edge_words(rng, 4096, [], [])),
+    ]
     worst = 0
-    for k in (128, 4096, 8192, 16384):
-        words, n = to_dev(seeded_pane_words(rng, k, 8 * k + 3), dev)
-        got = dt.pane_adjacency(words, n, k)
-        want = dt.pane_adjacency_plain(words, n, k)
-        err = word_err(got, want)
-        worst = max(worst, err)
-        if err:
-            bad = int((got != want).sum())
-            raise RuntimeError(f"pane_adjacency K={k}: {bad} words differ from the twin")
-        log(f"  pane_adjacency K={k:5d}: bit-equal to the plain twin (n={int(n[0])})")
+    for name, k, host in cases:
+        words, n = to_dev(host, dev)
+        views = [("", words, n)]
+        if len(words) > 1:  # a view 4 B off alignment takes the scalar loads
+            views.append((", unaligned", words[1:], n - 1 if int(n[0]) > 0 else n))
+        for tag, w, nn in views:
+            got = dt.pane_adjacency(w, nn, k)
+            err = word_err(got, dt.pane_adjacency_plain(w, nn, k))
+            worst = max(worst, err)
+            if err:
+                raise RuntimeError(f"pane_adjacency {name}{tag}: differs from the twin")
+        log(f"  pane_adjacency {name}: bit-equal to the plain twin (n={int(n[0])}, aligned and unaligned)")
     return worst
 
 
@@ -135,24 +288,37 @@ def phase_dense(dev, rng) -> int:
     def check(name, adj_np, expect=None, with_numpy=True):
         adj = torch.from_numpy(adj_np).to(dev)
         bits = dt.pack_bits(adj)
-        got = int(dt.dense_triangles(bits)[0])
         twin = int(dt.dense_triangles_plain(bits)[0])
         ref = numpy_six_triangles(adj_np) if with_numpy else twin
         if expect is not None and ref != expect:
             raise RuntimeError(f"dense_triangles {name}: reference {ref} != {expect}")
-        errs.append(abs(got - twin))
-        if not got == twin == ref:
-            raise RuntimeError(
-                f"dense_triangles {name}: kernel {got}, twin {twin}, numpy {ref}"
-            )
-        log(f"  dense_triangles {name}: total {got} exact (twin, {'numpy' if with_numpy else 'twin only'})")
+        # the same bits 4 B off alignment take the scalar loads
+        flat = torch.empty(bits.numel() + 1, dtype=torch.int32, device=dev)
+        shifted = flat[1:].view(bits.shape)
+        shifted.copy_(bits)
+        for tag, b in (("", bits), (" unaligned", shifted)):
+            got = int(dt.dense_triangles(b)[0])
+            errs.append(abs(got - twin))
+            if not got == twin == ref:
+                raise RuntimeError(
+                    f"dense_triangles {name}{tag}: kernel {got}, twin {twin}, reference {ref}"
+                )
+        log(f"  dense_triangles {name}: total {twin} exact "
+            f"(twin, {'numpy' if with_numpy else 'twin only'}; aligned and unaligned)")
 
-    for k, p in ((128, 0.2), (4096, 0.01), (8192, 0.004)):
+    for k, p in ((32, 0.4), (96, 0.2), (128, 0.2), (4096, 0.01), (8192, 0.004)):
         upper = np.triu(rng.random((k, k), dtype=np.float32) < p, 1)
-        check(f"K={k}", upper | upper.T)
+        check(f"K={k}", upper | upper.T, with_numpy=k <= 4096)
     kc = 2048
-    complete = ~np.eye(kc, dtype=bool)
-    check("complete K=2048", complete, expect=kc * (kc - 1) * (kc - 2))
+    check("complete K=2048", ~np.eye(kc, dtype=bool), expect=kc * (kc - 1) * (kc - 2))
+    check("star K=4096", adjacency(4096, *star_edges(rng, 4096)))
+    check("Zipf K=4096, 2^17 edges", adjacency(4096, *zipf_edges(rng, 4096, PANE_EDGES)),
+          with_numpy=False)
+    for k in (4096, 96):
+        u, v = boundary_edges(k)
+        m = len(set(u) | set(v))
+        check(f"bit 31 / word edges K={k}", adjacency(k, u, v), expect=m * (m - 1) * (m - 2))
+    check("empty K=4096", np.zeros((4096, 4096), bool), expect=0, with_numpy=False)
     k = 16384
     src = rng.integers(0, k, 16 * k)
     dst = rng.integers(0, k, 16 * k)
@@ -163,6 +329,10 @@ def phase_dense(dev, rng) -> int:
     adj.fill_diagonal_(False)
     check("K=16384", adj.cpu().numpy(), with_numpy=False)
     return max(errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
 
 
 def main_path_stream(rng, dev):
@@ -208,7 +378,88 @@ def plain_pane_count(src, dst, dev) -> int:
     return int(dt.dense_triangles_plain(bits)[0]) // 6
 
 
-def main() -> int:
+def check_windows(panes, dev):
+    """Both kernels against their twins on every dense window of the main
+    path, as the path prepares it: (windows checked, adjacency err, total err)."""
+    from gelly_streaming_tpu_torch.io.prefetch import upload
+    from gelly_streaming_tpu_torch.library import triangles as tri
+    from gelly_streaming_tpu_torch.ops import dense_triangles as dt
+
+    checked, adj_err, tri_err = 0, 0, 0
+    for w, (src, dst) in enumerate(panes):
+        meta, arrays = tri._pane_prepare((src, dst), dev)
+        if meta[0] != "packed":
+            continue
+        words, nn = upload(arrays, dev)
+        k = dt.pane_k(meta[1])
+        bits = dt.pane_adjacency(words, nn, k)
+        twin_bits = dt.pane_adjacency_plain(words, nn, k)
+        twin = int(dt.dense_triangles_plain(twin_bits)[0])
+        e_adj = word_err(bits, twin_bits)
+        e_tri = max(abs(int(dt.dense_triangles(twin_bits)[0]) - twin),
+                    abs(int(dt.pane_triangles(words, nn, k)[0]) - twin))
+        if e_adj or e_tri:
+            raise RuntimeError(f"window {w} (K={k}): kernels differ from the twins "
+                               f"({e_adj}, {e_tri})")
+        adj_err, tri_err = max(adj_err, e_adj), max(tri_err, e_tri)
+        checked += 1
+    return checked, adj_err, tri_err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the first port slice's kernels, for the in-turn comparison
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BASELINE_SIGNATURES = {
+    "pane_adjacency_launch": [_P, _P, _I, _P, _I, _P],
+    "dense_triangles_launch": [_P, _I, _P, _P],
+}
+
+
+def load_baseline(path: str):
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(_cuda.build_all([path])[path].path))
+    for name, argtypes in BASELINE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def baseline_wrappers(lib):
+    """The first slice's two wrappers over ``lib``: they zero the outputs
+    with ``torch.zeros`` and launch."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def adjacency(words, n, k):
+        bits = torch.zeros((k, k // 32), dtype=torch.int32, device=words.device)
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        _cuda.check(lib.pane_adjacency_launch(words.data_ptr(), n.data_ptr(),
+                                              words.shape[0], bits.data_ptr(), k, stream),
+                    "baseline pane_adjacency")
+        return bits
+
+    def dense(bits):
+        total = torch.zeros((1,), dtype=torch.int64, device=bits.device)
+        stream = torch.cuda.current_stream(bits.device).cuda_stream
+        _cuda.check(lib.dense_triangles_launch(bits.data_ptr(), bits.shape[0],
+                                               total.data_ptr(), stream),
+                    "baseline dense_triangles")
+        return total
+
+    return adjacency, dense
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline-cu", default=None,
+                        help="a pane_triangles.cu with the first slice's C interface, "
+                             "timed in turns with the current kernels")
+    args = parser.parse_args(argv)
+    baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     import torch
 
     if not torch.cuda.is_available():
@@ -235,7 +486,8 @@ def main() -> int:
 
     log("phase 1: build kernels")
     t0 = time.perf_counter()
-    built = _cuda.build_all()
+    sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else [])]
+    built = _cuda.build_all(sources)
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
     for src, res in built.items():
         for line in res.log.splitlines():
@@ -285,6 +537,10 @@ def main() -> int:
     log(f"  launches on the main path: {launches}")
     log(f"  window_triangles: {main_s * 1e3:.1f} ms for {len(panes)} windows, "
         f"{len(panes) / main_s:.1f} panes/s, {n_edges / main_s:.4g} edges/s")
+    checked, e_adj, e_tri = check_windows(panes, dev)
+    adj_err, tri_err = max(adj_err, e_adj), max(tri_err, e_tri)
+    log(f"  {checked} dense windows: pane_adjacency, dense_triangles and pane_triangles "
+        f"bit-equal to the twins ({len(panes) - checked} CSR window runs no kernel)")
 
     # where a window's time goes: the host time plane (batches read back
     # and cut into panes), host pane prep, then upload + kernels + readback
@@ -315,8 +571,11 @@ def main() -> int:
         f"p95 {rec.percentile(95):.3f} ms, close->device p50 {dev_rec.percentile(50):.3f} ms")
 
     log("phase 5: kernel times at the main path's shapes")
+    cpm = sleep_cycles_per_ms()
+    log(f"  torch.cuda._sleep: {cpm:.0f} cycles per ms")
     src0, dst0 = panes[0]
-    k = dt.pane_k(int(max(src0.max(), dst0.max())) + 1)
+    num_vertices = int(max(src0.max(), dst0.max())) + 1
+    k = dt.pane_k(num_vertices)
     w, n = dt.pack_pane(src0, dst0)
     words, nn = to_dev(dt.packed_host_arrays(w, n), dev)
     bits = dt.pane_adjacency(words, nn, k)
@@ -325,12 +584,47 @@ def main() -> int:
     tri_err = max(tri_err, abs(total - int(dt.dense_triangles_plain(bits)[0])))
     if adj_err or tri_err:
         raise RuntimeError(f"kernels disagree with their twins: {adj_err}, {tri_err}")
-    nnz = int(dt.unpack_bits(bits).sum())
-    adj_ms = cuda_ms(lambda: dt.pane_adjacency(words, nn, k), 50)
+    adj = dt.unpack_bits(bits)
+    nnz = int(adj.sum())
+    # the oriented count's work: for each edge i < j, 2 ops a column above
+    # j, and the bytes of row j from word j/32 on
+    deg_below = torch.triu(adj, 1).sum(0, dtype=torch.int64)
+    cols = torch.arange(k, device=dev)
+    oriented_ops = int((2 * deg_below * (k - 1 - cols)).sum())
+    suffix_bytes = int((deg_below * 4 * (k // 32 - cols // 32)).sum())
+
+    def adj_fn():
+        return dt.pane_adjacency(words, nn, k)
+
+    def tri_fn():
+        return dt.dense_triangles(bits)
+
+    def pane_fn():
+        return dt.pane_triangles(words, nn, k)
+
+    def submit_fn():
+        return dt.pane_triangles_submit_packed(words, nn, num_vertices)
+
+    timed = {}
+    for name, fn in (("pane_adjacency", adj_fn), ("dense_triangles", tri_fn),
+                     ("pane_triangles", pane_fn)):
+        d_ms, h_us = device_ms(fn, TIMED_REPS, cpm)
+        timed[name] = (cuda_ms(fn, TIMED_REPS), d_ms, h_us)
+        log(f"  K={k} {name}: device {d_ms:.5f} ms, host enqueue {h_us:.2f} us/call, "
+            f"back-to-back events {timed[name][0]:.5f} ms")
+    # the main path's call: its pinned readback buffer is not held under a
+    # stalled stream, so it is timed back to back only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_REPS):
+        submit_fn()
+    submit_us = (time.perf_counter() - t0) / TIMED_REPS * 1e6
+    torch.cuda.synchronize()
+    log(f"  K={k} pane_triangles_submit_packed (one C call + readback): host "
+        f"{submit_us:.2f} us/call, back-to-back events {cuda_ms(submit_fn, TIMED_REPS):.5f} ms")
     adj_plain_ms = cuda_ms(lambda: dt.pane_adjacency_plain(words, nn, k), 10)
-    tri_ms = cuda_ms(lambda: dt.dense_triangles(bits), 50)
     tri_plain_ms = cuda_ms(lambda: dt.dense_triangles_plain(bits), 10)
-    a8 = dt.unpack_bits(bits).to(torch.int8)
+    a8 = adj.to(torch.int8)
 
     def int_mm():
         return (torch._int_mm(a8, a8) * a8).sum(dtype=torch.int64)
@@ -338,20 +632,62 @@ def main() -> int:
     if int(int_mm()) != total:
         raise RuntimeError("the _int_mm yardstick disagrees with the kernel")
     lib_ms = cuda_ms(int_mm, 20)
-    adj_bytes = int(n) * 4 + 4 + k * k // 8
-    adj_bound = adj_bytes / HBM_BYTES_PER_S * 1e3
+    adj_bound = (int(n) * 4 + 4 + k * k // 8) / HBM_BYTES_PER_S * 1e3
     tri_bytes_ms = (k * k // 8 + 8) / HBM_BYTES_PER_S * 1e3
-    tri_ops_ms = 2.0 * nnz * k / INT8_OPS_PER_S * 1e3
-    log(f"  pane K={k}, n={int(n)} words, nnz(A)={nnz}, total={total}")
-    kernel_share = (adj_ms + tri_ms) * launches["dense_triangles"] / (main_s * 1e3)
-    log(f"  the two kernels at K={k} x {launches['dense_triangles']} launches = "
-        f"{kernel_share * 100:.2f}% of window_triangles' wall time")
+    tri_ops_ms = oriented_ops / INT8_OPS_PER_S * 1e3
+    log(f"  pane K={k}, n={int(n)} words, nnz(A)={nnz}, total={total}, oriented ops "
+        f"{oriented_ops} (all ordered pairs: 2*nnz*K = {2 * nnz * k}, "
+        f"{2.0 * nnz * k / INT8_OPS_PER_S * 1e3:.6f} ms at the int8 peak), "
+        f"row-j suffix bytes of the oriented count {suffix_bytes}")
+    log(f"  plain twins: pane_adjacency {adj_plain_ms:.4f} ms, dense_triangles "
+        f"{tri_plain_ms:.4f} ms; _int_mm yardstick {lib_ms:.4f} ms")
+    dev_share = (timed["pane_triangles"][1] * launches["dense_triangles"]) / (main_s * 1e3)
+    log(f"  the pane count's device time at K={k} x {launches['dense_triangles']} launches = "
+        f"{dev_share * 100:.3f}% of window_triangles' wall time")
+    try:
+        rows = profiler_device_us(pane_fn, 20)
+        if rows:
+            for key, (us, calls) in sorted(rows.items(), key=lambda r: -r[1][0])[:6]:
+                log(f"  torch.profiler: {us:.3f} us/call device time, {calls} calls: {key[:90]}")
+        else:
+            log("  torch.profiler: key_averages() shows no device time")
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+
+    # other widths and skewed panes: (name, words, n, K)
+    panes5 = [(f"K={k}", words, nn, k)]
     for kk in (8192, 16384):
-        wk, nk = to_dev(seeded_pane_words(rng, kk, PANE_EDGES), dev)
+        panes5.append((f"K={kk}", *to_dev(seeded_pane_words(rng, kk, PANE_EDGES), dev), kk))
+    panes5.append(("star K=4096", *to_dev(edge_words(rng, 4096, *star_edges(rng, 4096)), dev), 4096))
+    panes5.append(("Zipf K=4096", *to_dev(
+        edge_words(rng, 4096, *zipf_edges(rng, 4096, PANE_EDGES)), dev), 4096))
+    for name, wk, nk, kk in panes5[1:]:
         bk = dt.pane_adjacency(wk, nk, kk)
-        log(f"  K={kk}: pane_adjacency {cuda_ms(lambda: dt.pane_adjacency(wk, nk, kk), 20):.4f} ms, "
-            f"dense_triangles {cuda_ms(lambda: dt.dense_triangles(bk), 20):.4f} ms "
+        a_ms, _ = device_ms(lambda: dt.pane_adjacency(wk, nk, kk), 50, cpm)
+        t_ms, _ = device_ms(lambda: dt.dense_triangles(bk), 50, cpm)
+        log(f"  {name}: device pane_adjacency {a_ms:.5f} ms, dense_triangles {t_ms:.5f} ms "
             f"(nnz {int(dt.unpack_bits(bk).sum())})")
+
+    if baseline_cu:
+        log(f"phase 5b: in turns with the baseline build {args.baseline_cu}")
+        old_adj, old_tri = baseline_wrappers(load_baseline(baseline_cu))
+        for label, wk, nk, kk in panes5:
+            bk = dt.pane_adjacency(wk, nk, kk)
+            if word_err(old_adj(wk, nk, kk), bk) or int(old_tri(bk)[0]) != int(dt.dense_triangles(bk)[0]):
+                raise RuntimeError(f"baseline and current kernels disagree on {label}")
+            pairs = {
+                "pane_adjacency": (lambda: old_adj(wk, nk, kk), lambda: dt.pane_adjacency(wk, nk, kk)),
+                "dense_triangles": (lambda: old_tri(bk), lambda: dt.dense_triangles(bk)),
+            }
+            for name, (old_fn, new_fn) in pairs.items():
+                turns = []
+                for tag, fn in (("baseline", old_fn), ("current", new_fn),
+                                ("current", new_fn), ("baseline", old_fn)):
+                    d_ms, h_us = device_ms(fn, TIMED_REPS, cpm)
+                    turns.append((tag, d_ms, h_us, cuda_ms(fn, TIMED_REPS)))
+                log(f"  {label} {name}: " + "; ".join(
+                    f"{tag} device {d:.5f} ms host {h:.2f} us events {e:.5f} ms"
+                    for tag, d, h, e in turns))
 
     kernels = [
         {
@@ -361,7 +697,9 @@ def main() -> int:
             "replaces": "gelly_streaming_tpu/ops/pallas_triangles.py:134",
             "launches": launches["pane_adjacency"],
             "max_abs_err": adj_err,
-            "ms": adj_ms,
+            "ms": timed["pane_adjacency"][0],
+            "device_ms": timed["pane_adjacency"][1],
+            "host_us": timed["pane_adjacency"][2],
             "plain_ms": adj_plain_ms,
             "bound_ms": adj_bound,
             "bound_by": "bytes",
@@ -374,7 +712,9 @@ def main() -> int:
             "replaces": "gelly_streaming_tpu/ops/pallas_triangles.py:38",
             "launches": launches["dense_triangles"],
             "max_abs_err": tri_err,
-            "ms": tri_ms,
+            "ms": timed["dense_triangles"][0],
+            "device_ms": timed["dense_triangles"][1],
+            "host_us": timed["dense_triangles"][2],
             "plain_ms": tri_plain_ms,
             "bound_ms": max(tri_bytes_ms, tri_ops_ms),
             "bound_by": "operations" if tri_ops_ms >= tri_bytes_ms else "bytes",

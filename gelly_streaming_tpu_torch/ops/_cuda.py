@@ -48,6 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pane_adjacency_launch": [_P, _P, _I, _P, _I, _P],
         # bits, k, total, stream
         "dense_triangles_launch": [_P, _I, _P, _P],
+        # words, n_ptr, cap, bits, k, total, stream: both of the above
+        "pane_triangles_launch": [_P, _P, _I, _P, _I, _P, _P],
     },
 }
 

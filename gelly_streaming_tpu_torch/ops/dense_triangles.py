@@ -15,6 +15,8 @@ device does the rest in two kernels (``csrc/pane_triangles.cu``):
 * ``dense_triangles``: bitset -> one int64 total ``sum(A * (A @ A))``
   (replaces the Pallas ``_kernel``/``_count_halves``).
 
+``pane_triangles`` runs both in one C call; the main path uses it.
+
 Each kernel has a plain PyTorch twin here (``*_plain``).  A wrapper runs
 the twin only for tensors that lie on the CPU; for CUDA tensors it
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
@@ -148,6 +150,15 @@ def _check_adjacency_args(words: torch.Tensor, n: torch.Tensor, k: int) -> None:
         raise ValueError(f"k must be a positive multiple of 32 <= {MAX_K}, got {k}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {t.device}")
+
+
 def pane_adjacency(words: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
     """Packed pane words -> int32 [k, k/32] symmetric bitset adjacency.
 
@@ -156,13 +167,11 @@ def pane_adjacency(words: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor
     _check_adjacency_args(words, n, k)
     if words.device.type == "cpu":
         return pane_adjacency_plain(words, n, k)
-    if words.device.type != "cuda":
-        raise ValueError(f"no pane_adjacency kernel for device {words.device}")
+    _check_cuda(words, "pane_adjacency")
     lib = _cuda.library(_SOURCE)
-    bits = torch.zeros((k, k // 32), dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
+    bits = torch.empty((k, k // 32), dtype=torch.int32, device=words.device)
     err = lib.pane_adjacency_launch(
-        words.data_ptr(), n.data_ptr(), words.shape[0], bits.data_ptr(), k, stream
+        words.data_ptr(), n.data_ptr(), words.shape[0], bits.data_ptr(), k, _stream(words)
     )
     _cuda.check(err, "pane_adjacency")
     LAUNCHES["pane_adjacency"] += 1
@@ -195,13 +204,31 @@ def dense_triangles(bits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"K must be a multiple of 32 <= {MAX_K}, got {k}")
     if bits.device.type == "cpu":
         return dense_triangles_plain(bits)
-    if bits.device.type != "cuda":
-        raise ValueError(f"no dense_triangles kernel for device {bits.device}")
+    _check_cuda(bits, "dense_triangles")
     lib = _cuda.library(_SOURCE)
-    total = torch.zeros((1,), dtype=torch.int64, device=bits.device)
-    stream = torch.cuda.current_stream(bits.device).cuda_stream
-    err = lib.dense_triangles_launch(bits.data_ptr(), k, total.data_ptr(), stream)
+    total = torch.empty((1,), dtype=torch.int64, device=bits.device)
+    err = lib.dense_triangles_launch(bits.data_ptr(), k, total.data_ptr(), _stream(bits))
     _cuda.check(err, "dense_triangles")
+    LAUNCHES["dense_triangles"] += 1
+    return total
+
+
+def pane_triangles(words: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
+    """``dense_triangles(pane_adjacency(words, n, k))``: on CUDA one C call
+    enqueues both kernels (and the clears of their outputs)."""
+    _check_adjacency_args(words, n, k)
+    if words.device.type == "cpu":
+        return dense_triangles_plain(pane_adjacency_plain(words, n, k))
+    _check_cuda(words, "pane_triangles")
+    lib = _cuda.library(_SOURCE)
+    bits = torch.empty((k, k // 32), dtype=torch.int32, device=words.device)
+    total = torch.empty((1,), dtype=torch.int64, device=words.device)
+    err = lib.pane_triangles_launch(
+        words.data_ptr(), n.data_ptr(), words.shape[0], bits.data_ptr(), k,
+        total.data_ptr(), _stream(words),
+    )
+    _cuda.check(err, "pane_triangles")
+    LAUNCHES["pane_adjacency"] += 1
     LAUNCHES["dense_triangles"] += 1
     return total
 
@@ -263,7 +290,7 @@ def pane_triangles_submit_packed(w, n, num_vertices: int, device: DeviceLike = N
     k = pane_k(num_vertices)
     if isinstance(w, np.ndarray):
         w, n = upload(packed_host_arrays(w, n), resolve_device(device))
-    return start_readback(dense_triangles(pane_adjacency(w, n, k)))
+    return start_readback(pane_triangles(w, n, k))
 
 
 def pane_triangles_submit(

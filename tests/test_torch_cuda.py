@@ -47,6 +47,75 @@ def test_dense_triangles_kernel_matches_twin(cuda_device, k, p):
     assert int(got[0]) == int(dt.dense_triangles_plain(bits)[0])
 
 
+# adversarial panes: (name, k, edge list maker)
+def _star(rng, k):
+    """Vertex 0 joined to all others, plus leaf edges: a row of degree k - 1."""
+    u = np.concatenate([np.zeros(k - 1, np.int64), rng.integers(1, k, 2 * k)])
+    return u, np.concatenate([np.arange(1, k), rng.integers(1, k, 2 * k)])
+
+
+def _zipf(rng, k, edges=1 << 17):
+    p = 1.0 / np.arange(1, k + 1) ** 1.2
+    p /= p.sum()
+    return rng.choice(k, edges, p=p), rng.choice(k, edges, p=p)
+
+
+def _word_boundaries(rng, k):
+    """A complete graph on vertices at bit 0/31 of words and the row's end."""
+    ids = sorted({x for x in (0, 1, 30, 31, 32, 33, 63, 64, 95, 96, k - 33, k - 1) if x < k})
+    u, v = zip(*[(a, b) for a in ids for b in ids if a < b])
+    return np.array(u), np.array(v)
+
+
+def _uniform(rng, k):
+    return rng.integers(0, k, 8 * k), rng.integers(0, k, 8 * k)
+
+
+def _empty(rng, k):
+    return np.zeros(0, np.int64), np.zeros(0, np.int64)
+
+
+ADVERSARIAL = [
+    ("star", 4096, _star),
+    ("zipf", 4096, _zipf),
+    ("word-boundaries", 4096, _word_boundaries),
+    ("word-boundaries", 96, _word_boundaries),
+    ("empty", 4096, _empty),
+    ("uniform", 32, _uniform),
+    ("uniform", 96, _uniform),
+    ("uniform", 16384, _uniform),
+]
+
+
+def _pane_words(rng, k, u, v, dev):
+    """Device (words, n) of an edge list, with garbage words past n."""
+    w, n = dt.pack_pane(u, v)
+    w = np.concatenate([w, (rng.integers(0, k, 5) | (1 << 14)).astype(np.uint32)])
+    return tuple(torch.from_numpy(a).to(dev) for a in dt.packed_host_arrays(w, n))
+
+
+@pytest.mark.parametrize("name,k,make", ADVERSARIAL, ids=[f"{c[0]}-{c[1]}" for c in ADVERSARIAL])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pane_kernels_match_twins_on_adversarial_panes(cuda_device, name, k, make, aligned):
+    rng = np.random.default_rng(k)
+    words, n = _pane_words(rng, k, *make(rng, k), cuda_device)
+    if not aligned:  # 4 B off a 16 B boundary: the kernels' scalar loads
+        words, n = words[1:], torch.clamp(n - 1, min=0)
+    bits = dt.pane_adjacency(words, n, k)
+    want_bits = dt.pane_adjacency_plain(words, n, k)
+    assert torch.equal(bits, want_bits)
+    counted = bits
+    if not aligned:
+        flat = torch.empty(bits.numel() + 1, dtype=torch.int32, device=cuda_device)
+        counted = flat[1:].view(bits.shape)
+        counted.copy_(bits)
+    want = int(dt.dense_triangles_plain(bits)[0])
+    assert int(dt.dense_triangles(counted)[0]) == want
+    assert int(dt.pane_triangles(words, n, k)[0]) == want
+    if name == "empty":
+        assert want == 0 and not bits.any()
+
+
 def test_window_triangles_on_gpu_matches_cpu(cuda_device):
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream

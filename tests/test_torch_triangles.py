@@ -165,6 +165,83 @@ def test_dense_triangles_twin_matches_numpy(k, p, seed):
     assert int(total[0]) == int(np.trace(a @ a @ a)) == 6 * _dense_reference(adj)
 
 
+def _above(b: int) -> np.uint32:
+    """Mask of the bits strictly above bit b of a uint32 word."""
+    return np.uint32(0 if b == 31 else (0xFFFFFFFF << (b + 1)) & 0xFFFFFFFF)
+
+
+def _oriented_count_model(bits: torch.Tensor) -> int:
+    """The dense_triangles kernel's arithmetic in numpy: work items (row i,
+    slab of 32 words), candidate columns j > i of the slab, and for each
+    the popcount of row_i & row_j over row j's words from j // 32 on, with
+    the bits at or below j masked in word j // 32; six times the sum."""
+    words = bits.numpy().view(np.uint32)
+    k, wpr = words.shape
+    total = 0
+    for i in range(k):
+        for w0 in range(0, wpr, 32):
+            if 32 * (w0 + 32) <= i + 1:  # every column of the slab is <= i
+                continue
+            slab = np.unpackbits(words[i, w0 : w0 + 32].view(np.uint8), bitorder="little")
+            for j in np.nonzero(slab)[0] + 32 * w0:
+                if j <= i:
+                    continue
+                jw, jb = divmod(int(j), 32)
+                both = words[i, jw:] & words[j, jw:]
+                both[0] &= _above(jb)
+                total += int(np.unpackbits(both.view(np.uint8)).sum())
+    return 6 * total
+
+
+def _boundary_clique(k: int) -> np.ndarray:
+    """Complete graph on vertices at bit 0/31 of words and at the ends."""
+    ids = sorted({v for v in (0, 1, 30, 31, 32, 33, 63, 64, 95, k - 33, k - 32, k - 1) if v < k})
+    adj = np.zeros((k, k), bool)
+    adj[np.ix_(ids, ids)] = True
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def _star_with_leaf_edges(k: int, seed: int) -> np.ndarray:
+    """Vertex 0 adjacent to every other vertex, plus random leaf edges."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((k, k), bool)
+    adj[0, 1:] = adj[1:, 0] = True
+    u, v = rng.integers(1, k, 2 * k), rng.integers(1, k, 2 * k)
+    adj[u, v] = adj[v, u] = True
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def _random_adjacency(k: int, p: float, seed: int) -> np.ndarray:
+    upper = np.triu(np.random.default_rng(seed).random((k, k)) < p, 1)
+    return upper | upper.T
+
+
+@pytest.mark.parametrize(
+    "case,adj",
+    [
+        ("K=32", _random_adjacency(32, 0.4, 40)),
+        ("K=96", _random_adjacency(96, 0.2, 41)),
+        ("K=256", _random_adjacency(256, 0.1, 42)),
+        ("K=384", _random_adjacency(384, 0.05, 43)),
+        ("star K=256", _star_with_leaf_edges(256, 44)),
+        ("bit 31 K=160", _boundary_clique(160)),
+        ("bit 31 K=96", _boundary_clique(96)),
+        ("empty K=64", np.zeros((64, 64), bool)),
+    ],
+)
+def test_oriented_count_model_matches_twin_numpy_and_pallas(case, adj):
+    k = adj.shape[0]
+    bits = dt.pack_bits(torch.from_numpy(adj))
+    model = _oriented_count_model(bits)
+    a = adj.astype(np.int64)
+    assert model == int(dt.dense_triangles_plain(bits)[0]) == int(np.trace(a @ a @ a))
+    pad = -k % jpal.TILE  # isolated padding vertices add no triangle
+    padded = np.pad(adj, ((0, pad), (0, pad))).astype(np.float32)
+    assert model == 6 * jpal.triangle_count_dense(padded, interpret=True)
+
+
 def test_kernel_wrappers_check_arguments():
     w = torch.zeros(8, dtype=torch.int32)
     n = torch.tensor([3], dtype=torch.int32)
