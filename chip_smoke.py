@@ -25,6 +25,23 @@ events around calls enqueued while ``torch.cuda._sleep`` holds the stream
 zeroes the outputs); its two kernels are then timed the same way, in turns
 with the current ones (baseline, current, current, baseline).
 
+Phase 6 holds the union-find kernels (``csrc/unionfind.cu``) against their
+plain twin on the card at 2^20 vertices: uniform, star, Zipf, a 2^20-vertex
+path inserted in reverse order and shuffled, self-loops, a masked tail,
+ids at capacity - 1, an incoming forest whose roots are not the smallest
+ids, and ``merge_parents`` of two such forests; parent and seen must be
+equal exactly.  Phase 7 drives the streaming CC main path at the size of
+the repo's CC bench (bench.py): 50 batches of 2^21 uniform edges over 2^20
+vertices (seed 0), packed EF40 by ``pack_stream`` (untimed), through
+``EdgeStream.from_wire(...).aggregate(ConnectedComponents())`` on the
+card; the final labels must equal both the plain twin folding the same
+batches on the card and scipy's connected components (smallest id per
+component).  A ``from_arrays`` stream with ``ingest_window_edges`` set
+checks every running emission the same way.  The two union-find kernels
+are timed on the main path's last batch: ``ms`` by torch.profiler where it
+shows them, and ``device_ms``/``host_us`` on a held stream, compress as
+the call with no edges and the union kernel as the whole call minus it.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -52,6 +69,14 @@ PANE_EDGES = 1 << 17
 PANE_VERTICES = 4096
 DENSE_WINDOWS = 16
 TIMED_REPS = 200
+
+# the streaming CC main path at bench.py's size (bench.py:2190-2192, 2276-2306)
+CC_VERTICES = 1 << 20
+CC_BATCH = 1 << 21
+CC_BATCHES = 50
+CC_EMIT_BATCHES = 8  # from_arrays prefix with running emissions
+CC_EMIT_EVERY = 2  # batches per emission on that prefix
+UF_REPS = 20
 
 
 def log(msg: str) -> None:
@@ -453,6 +478,315 @@ def baseline_wrappers(lib):
     return adjacency, dense
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the union-find kernels and the streaming CC main path
+
+
+def uf_bound_ms(n_edges: int, capacity: int) -> tuple:
+    """Least device time (ms) of each kernel of one fold of n_edges into a
+    capacity-C state at the HBM rate: (union kernel, compress kernel).  The
+    union kernel reads src/dst (8 B an edge) and parent (4 B a vertex) and
+    writes seen (1 B a vertex); the entries it lowers are few on a late
+    batch and are counted in compress's row, which reads and writes parent
+    (4 B a vertex each way).  The whole call's bound is the sum."""
+    union = (8 * n_edges + 5 * capacity) / HBM_BYTES_PER_S * 1e3
+    return union, 8 * capacity / HBM_BYTES_PER_S * 1e3
+
+
+def uf_forest(rng, c: int) -> np.ndarray:
+    """A forest over [0, c) whose roots are not the smallest ids of their
+    trees: in a random order, 70% of the vertices join under a random
+    earlier vertex."""
+    order = rng.permutation(c)
+    parent = np.arange(c, dtype=np.int32)
+    k = np.nonzero(rng.random(c) < 0.7)[0]
+    k = k[k > 0]
+    parent[order[k]] = order[(rng.random(len(k)) * k).astype(np.int64)]
+    return parent
+
+
+def uf_cases(rng, c: int, n: int):
+    """(name, src, dst, mask | None, starting parent) of each adversarial
+    fold, at the main path's shapes."""
+    ident = np.arange(c, dtype=np.int32)
+    mask = np.ones(n, bool)
+    mask[n - 3 * n // 8 :] = False
+    hub = int(rng.integers(0, c))
+    top = np.full(n // 2, c - 1)
+    path = np.arange(c - 1)
+    order = rng.permutation(c - 1)
+    zipf = lambda: (rng.zipf(1.3, n) - 1) % c  # noqa: E731
+    loops = rng.integers(0, c, n)
+    return [
+        ("uniform", rng.integers(0, c, n), rng.integers(0, c, n), None, ident),
+        ("star", np.full(c - 1, hub), np.delete(np.arange(c), hub), None, ident),
+        ("Zipf", zipf(), zipf(), None, ident),
+        (f"{c}-vertex path, reverse order", path[::-1], path[::-1] + 1, None, ident),
+        (f"{c}-vertex path, shuffled", order, order + 1, None, ident),
+        ("self-loops", loops, loops, None, ident),
+        ("masked tail", rng.integers(0, c, n), rng.integers(0, c, n), mask, ident),
+        ("ids at capacity - 1", np.concatenate([top, rng.integers(0, c, n // 2)]),
+         np.concatenate([rng.integers(0, c, n // 2), top]), None, ident),
+        ("non-minimum-root forest", rng.integers(0, c, n), rng.integers(0, c, n), None, uf_forest(rng, c)),
+    ]
+
+
+def phase_union(dev, rng):
+    """The union kernel against its twin on every adversarial case; returns
+    (max |parent err| + |seen err|, per-case kernel ms)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c, n = CC_VERTICES, CC_BATCH
+    uf.compress(uf.init_parent(16, dev))  # load the library outside the timed calls
+    worst = 0
+    for name, u, v, m, parent0 in uf_cases(rng, c, n):
+        s, d = to_dev((np.ascontiguousarray(u, np.int32), np.ascontiguousarray(v, np.int32)), dev)
+        mask = None if m is None else to_dev((m,), dev)[0]
+        p0 = torch.from_numpy(parent0).to(dev)
+        seen0 = torch.zeros(c, dtype=torch.bool, device=dev)
+        want = {}
+        twin_ms = cuda_ms(lambda: want.update(r=uf.union_edges_with_seen_plain(p0, seen0, s, d, mask)), 1, 0)
+        p, sn = p0.clone(), seen0.clone()
+        kern_ms = cuda_ms(lambda: uf.union_edges_with_seen(p, sn, s, d, mask), 1, 0)
+        err = int((p.long() - want["r"][0].long()).abs().max()) + int((sn != want["r"][1]).sum())
+        worst = max(worst, err)
+        if err:
+            raise RuntimeError(f"union kernel {name}: differs from the twin ({err})")
+        log(f"  union {name}: {len(u)} edges, parent and seen equal to the twin; kernel "
+            f"{kern_ms:.4f} ms, twin {twin_ms:.3f} ms, {len(torch.unique(p))} roots")
+    a0 = torch.from_numpy(uf_forest(rng, c)).to(dev)
+    b0 = torch.from_numpy(uf_forest(rng, c)).to(dev)
+    want = uf.merge_parents_plain(a0, b0)
+    a = a0.clone()
+    kern_ms = cuda_ms(lambda: uf.merge_parents(a, b0), 1, 0)
+    err = int((a.long() - want.long()).abs().max())
+    worst = max(worst, err)
+    if err:
+        raise RuntimeError("merge_parents kernel differs from the twin")
+    log(f"  merge_parents of two non-minimum-root forests: equal to the twin; kernel {kern_ms:.4f} ms")
+    return worst
+
+
+def union_device_ms(parent, seen, s, d, reps: int, cycles_per_ms: float):
+    """(device ms, host enqueue us) per ``union_edges_with_seen`` call,
+    each call folding (s, d) into its own fresh copy of (parent, seen);
+    the calls are enqueued while ``torch.cuda._sleep`` holds the stream."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    hold_ms = 2.0
+    for _ in range(4):
+        copies = [(parent.clone(), seen.clone()) for _ in range(reps)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        start.record()
+        t0 = time.perf_counter()
+        for p, sn in copies:
+            uf.union_edges_with_seen(p, sn, s, d)
+        host_s = time.perf_counter() - t0
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps, host_s / reps * 1e6
+        hold_ms *= 4
+    raise RuntimeError("the host could not enqueue the timed folds inside the hold")
+
+
+def union_kernel_profile(parent, seen, s, d, reps: int):
+    """torch.profiler device us per launch of the union and compress
+    kernels over ``reps`` folds into fresh state copies: {kernel: us}."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    copies = iter([(parent.clone(), seen.clone()) for _ in range(reps + 1)])
+    rows = profiler_device_us(lambda: uf.union_edges_with_seen(*next(copies), s, d), reps)
+    found = {}
+    for key, (us, _calls) in rows.items():
+        for kernel in ("union_kernel", "compress_kernel"):
+            if kernel in key:
+                found[kernel] = us
+    return found
+
+
+def cc_oracle(src, dst, capacity: int):
+    """(parent, seen) the CC fold must reach, by scipy: every vertex labelled
+    with the smallest id of its component; seen = touched by an edge."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    g = coo_matrix((np.ones(len(src), np.int32), (src, dst)), shape=(capacity, capacity)).tocsr()
+    _, labels = connected_components(g, directed=False)
+    smallest = np.full(labels.max() + 1, capacity, np.int64)
+    np.minimum.at(smallest, labels, np.arange(capacity))
+    seen = np.zeros(capacity, bool)
+    seen[src] = True
+    seen[dst] = True
+    return smallest[labels].astype(np.int32), seen
+
+
+def phase_cc_main(dev, cycles_per_ms: float) -> dict:
+    """The streaming CC main path at bench.py's size, checked against the
+    twin and scipy; returns the numbers for the report."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.io.prefetch import upload
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    num_edges = nb * batch
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, c, num_edges).astype(np.int32)
+    dst = rng.integers(0, c, num_edges).astype(np.int32)
+    width = wire.replay_width(c, batch)
+    t0 = time.perf_counter()
+    bufs, tail = wire.pack_stream(src, dst, batch, width)
+    pack_s = time.perf_counter() - t0
+    if tail is not None:
+        raise RuntimeError("the bench stream is whole batches")
+    wire_bytes = sum(b.nbytes for b in bufs)
+    log(f"  {nb} batches of {batch} edges over {c} vertices, width {width}: {wire_bytes / num_edges:.4f} "
+        f"wire B/edge, packed in {pack_s:.1f} s (host numpy, untimed)")
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch)
+    agg = ConnectedComponents()
+    # warm the path (allocator, pinned pool, the library's first load)
+    EdgeStream.from_wire(bufs[:1], batch, width, cfg, device=dev).aggregate(agg).collect()
+    torch.cuda.synchronize()
+    stream = EdgeStream.from_wire(bufs, batch, width, cfg, device=dev)
+    if not agg._wire_eligible(stream):
+        raise RuntimeError("the main path must ride the wire path")
+
+    uf.reset_launches()
+    t0 = time.perf_counter()
+    records = stream.aggregate(agg).collect()
+    ds = records[-1][0]
+    parent, seen = ds.parent.cpu().numpy(), ds.seen.cpu().numpy()
+    wall_s = time.perf_counter() - t0
+    launches = dict(uf.LAUNCHES)
+    if len(records) != 1:
+        raise RuntimeError(f"expected one end-of-stream record, got {len(records)}")
+    if min(launches.values()) < nb:
+        raise RuntimeError(f"the union-find kernels were not launched per batch: {launches}")
+    log(f"  from_wire(...).aggregate(ConnectedComponents()): {wall_s:.3f} s first buffer -> host "
+        f"labels, {num_edges / wall_s:.6g} edges/s end to end")
+    log(f"  launches on the main path: {launches}")
+
+    # upload alone: the same buffers through the path's pinned H2D copies
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in bufs:
+        upload((b,), dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    log(f"  upload alone: {wire_bytes / upload_s / 1e9:.3f} GB/s ({wire_bytes} B in {upload_s:.3f} s)")
+
+    # reference 1: the plain twin folding the same batches (host-decoded)
+    # on the card; its states at the emission points and before the last
+    # batch are kept
+    t_parent = uf.init_parent(c, dev)
+    t_seen = torch.zeros(c, dtype=torch.bool, device=dev)
+    snaps = {}
+    t0 = time.perf_counter()
+    for i, b in enumerate(bufs):
+        if i == nb - 1:
+            snaps["late"] = (t_parent.clone(), t_seen.clone())
+        s, d = to_dev(wire.unpack_edges_host(b, batch, width), dev)
+        t_parent, t_seen = uf.union_edges_with_seen_plain(t_parent, t_seen, s, d)
+        if (i + 1) % CC_EMIT_EVERY == 0 and i + 1 <= CC_EMIT_BATCHES:
+            snaps[i + 1] = (t_parent.clone(), t_seen.clone())
+    torch.cuda.synchronize()
+    twin_fold_s = time.perf_counter() - t0
+    err = int(np.abs(parent.astype(np.int64) - t_parent.cpu().numpy()).max())
+    err += int((seen != t_seen.cpu().numpy()).sum())
+    if err:
+        raise RuntimeError(f"final labels differ from the twin's fold ({err})")
+    # reference 2: scipy, independent of both
+    t0 = time.perf_counter()
+    o_parent, o_seen = cc_oracle(src, dst, c)
+    oracle_s = time.perf_counter() - t0
+    if not (np.array_equal(parent, o_parent) and np.array_equal(seen, o_seen)):
+        raise RuntimeError("final labels differ from scipy's connected components")
+    n_comp = len(np.unique(parent[seen]))
+    log(f"  final labels exact: equal to the twin's fold on the card ({twin_fold_s:.1f} s) and to "
+        f"scipy ({oracle_s:.1f} s); {int(seen.sum())} seen vertices in {n_comp} components")
+
+    # running emissions: a from_arrays prefix, packed on the path's thread
+    k = CC_EMIT_BATCHES * batch
+    ecfg = StreamConfig(vertex_capacity=c, batch_size=batch, ingest_window_edges=CC_EMIT_EVERY * batch)
+    estream = EdgeStream.from_arrays(src[:k], dst[:k], ecfg, device=dev)
+    if not agg._wire_eligible(estream):
+        raise RuntimeError("the running-emission stream must ride the wire path")
+    emitted = estream.aggregate(agg).collect()
+    if len(emitted) != CC_EMIT_BATCHES // CC_EMIT_EVERY:
+        raise RuntimeError(f"expected {CC_EMIT_BATCHES // CC_EMIT_EVERY} emissions, got {len(emitted)}")
+    for j, (rec,) in enumerate(emitted):
+        want_p, want_s = snaps[(j + 1) * CC_EMIT_EVERY]
+        if not (torch.equal(rec.parent, want_p) and torch.equal(rec.seen, want_s)):
+            raise RuntimeError(f"running emission {j} differs from the twin's fold")
+    log(f"  from_arrays + ingest_window_edges={ecfg.ingest_window_edges}: {len(emitted)} running emissions, each equal "
+        f"to the twin's fold of its prefix (width {agg._wire_width(ecfg, batch)})")
+
+    # device time of one batch's fold, first and late
+    s0, d0 = wire.unpack_edges(to_dev((bufs[0],), dev)[0], batch, width)
+    sl, dl = wire.unpack_edges(to_dev((bufs[-1],), dev)[0], batch, width)
+    init = (uf.init_parent(c, dev), torch.zeros(c, dtype=torch.bool, device=dev))
+    late = snaps["late"]
+    first_ms, first_us = union_device_ms(*init, s0, d0, UF_REPS, cycles_per_ms)
+    late_ms, late_us = union_device_ms(*late, sl, dl, UF_REPS, cycles_per_ms)
+    twin_first_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*init, s0, d0), 1, 0)
+    twin_late_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*late, sl, dl), 1, 0)
+    compress_twin_ms = cuda_ms(lambda: uf.compress_plain(late[0]), 1, 0)
+    # each kernel's held-stream time: the call with no edges is compress
+    # alone, and the union kernel is the rest of the call
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    comp_ms, comp_us = union_device_ms(*late, none, none, UF_REPS, cycles_per_ms)
+    held = {"union_kernel": (late_ms - comp_ms, late_us - comp_us), "compress_kernel": (comp_ms, comp_us)}
+    per_kernel, split_by = {}, "torch.profiler"
+    try:
+        per_kernel = union_kernel_profile(*late, sl, dl, 10)
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    if len(per_kernel) < 2:
+        per_kernel = {k: ms * 1e3 for k, (ms, _) in held.items()}
+        split_by = "held-stream times (the profiler showed no kernel rows)"
+    buf_dev = to_dev((bufs[-1],), dev)[0]
+    unpack_ms, unpack_us = device_ms(lambda: wire.unpack_edges(buf_dev, batch, width), UF_REPS, cycles_per_ms)
+    b_union, b_compress = uf_bound_ms(batch, c)
+    share = (first_ms + (nb - 1) * late_ms) / (wall_s * 1e3)
+    busy = share + nb * unpack_ms / (wall_s * 1e3)
+    log(f"  one batch's fold (uf_union_launch: union + compress), device only: first batch "
+        f"{first_ms:.4f} ms, late batch {late_ms:.4f} ms; host enqueue {first_us:.2f} / {late_us:.2f} us; "
+        f"bound {b_union + b_compress:.5f} ms (bytes)")
+    log(f"  per kernel on the late batch, by {split_by}: union_kernel "
+        f"{per_kernel['union_kernel']:.2f} us, compress_kernel {per_kernel['compress_kernel']:.2f} us a launch; "
+        f"held stream: compress alone {comp_ms * 1e3:.2f} us, the call minus it "
+        f"{held['union_kernel'][0] * 1e3:.2f} us; bounds {b_union * 1e3:.3f} / {b_compress * 1e3:.3f} us")
+    log(f"  plain twin: first batch {twin_first_ms:.3f} ms, late batch {twin_late_ms:.3f} ms, "
+        f"compress_plain {compress_twin_ms:.3f} ms (host loop, syncs included)")
+    log(f"  the kernels' share of the wall time: {share * 100:.2f}% (the first batch's fold + "
+        f"{nb - 1} x the late batch's, over the wall time)")
+    log(f"  EF40 unpack (PyTorch ops) a batch: device {unpack_ms:.4f} ms, host enqueue {unpack_us:.1f} us; "
+        f"device busy (unpack + fold) ~{busy * 100:.1f}% of the wall time, idle ~{(1 - busy) * 100:.1f}%")
+    return {
+        "launches": launches,
+        "union_ms": per_kernel["union_kernel"] / 1e3,
+        "compress_ms": per_kernel["compress_kernel"] / 1e3,
+        "held": held,
+        "union_plain_ms": twin_late_ms,
+        "compress_plain_ms": compress_twin_ms,
+        "union_bound_ms": b_union,
+        "compress_bound_ms": b_compress,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -689,6 +1023,11 @@ def main(argv=None) -> int:
                     f"{tag} device {d:.5f} ms host {h:.2f} us events {e:.5f} ms"
                     for tag, d, h, e in turns))
 
+    log("phase 6: union-find kernels vs plain twin at 2^20 vertices")
+    uf_err = phase_union(dev, rng)
+    log("phase 7: main path, streaming CC over the EF40 wire replay on the card")
+    cc = phase_cc_main(dev, cpm)
+
     kernels = [
         {
             "name": "pane_adjacency",
@@ -719,6 +1058,36 @@ def main(argv=None) -> int:
             "bound_ms": max(tri_bytes_ms, tri_ops_ms),
             "bound_by": "operations" if tri_ops_ms >= tri_bytes_ms else "bytes",
             "library_ms": lib_ms,
+        },
+        {
+            "name": "union_kernel",
+            "route": "cuda",
+            "source": "gelly_streaming_tpu_torch/csrc/unionfind.cu",
+            "replaces": "gelly_streaming_tpu/ops/unionfind.py:59",
+            "launches": cc["launches"]["union_kernel"],
+            "max_abs_err": uf_err,
+            "ms": cc["union_ms"],
+            "device_ms": cc["held"]["union_kernel"][0],
+            "host_us": cc["held"]["union_kernel"][1],
+            "plain_ms": cc["union_plain_ms"],
+            "bound_ms": cc["union_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "compress_kernel",
+            "route": "cuda",
+            "source": "gelly_streaming_tpu_torch/csrc/unionfind.cu",
+            "replaces": "gelly_streaming_tpu/ops/unionfind.py:27",
+            "launches": cc["launches"]["compress_kernel"],
+            "max_abs_err": uf_err,
+            "ms": cc["compress_ms"],
+            "device_ms": cc["held"]["compress_kernel"][0],
+            "host_us": cc["held"]["compress_kernel"][1],
+            "plain_ms": cc["compress_plain_ms"],
+            "bound_ms": cc["compress_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")

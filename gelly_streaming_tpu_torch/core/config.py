@@ -1,7 +1,7 @@
 """Typed configuration for the port's stream pipelines.
 
 The port's own copy of ``gelly_streaming_tpu/core/config.py``'s
-``StreamConfig``, cut to the fields the ported slice reads, with the same
+``StreamConfig``, cut to the fields the ported slices read, with the same
 defaults and the same validation for each.  ``interop.config_from_dict``
 carries a JAX-package config across.
 """
@@ -9,6 +9,10 @@ carries a JAX-package config across.
 from __future__ import annotations
 
 import dataclasses
+
+# BDV ids are bounded at 2^28 (io/wire.py; repeated here so the config
+# imports nothing of the port's io)
+BDV_MAX_ID_BITS = 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,6 +24,18 @@ class StreamConfig:
         [0, C) and checked against it at the sources.
       max_degree: per-vertex neighbor-table capacity D (ops/neighbors.py).
       batch_size: edges per micro-batch (padded).
+      num_shards: partitions a window pane is folded in (round robin) before
+        the partials are combined; the port folds them one after another
+        on one device.
+      window_ms: default tumbling-window length of an aggregation.
+      tree_degree: fan-in of the tree combine (SummaryTreeAggregation).
+      prefetch_depth: wire buffers kept in flight ahead of the device
+        fold (io/prefetch.Prefetcher).
+      wire_encoding: wire format of the fold's fast path over array-backed
+        streams: "plain" ships arrival order at the narrowest fixed width,
+        "ef40" the sorted Elias-Fano multiset (order-free folds, capacity
+        <= 2^20), "auto" picks ef40 when it is legal, smaller, and the
+        host has at least two cores to sort on.
       out_of_orderness_ms: bounded event-time out-of-orderness.  0 keeps
         the ascending-timestamp contract; positive values trail the
         watermark behind the max seen time by the bound and route
@@ -28,23 +44,37 @@ class StreamConfig:
       ingest_window_edges / ingest_window_ms: ingestion-time pane cut
         (close a pane every N arrivals, or by wall clock at batch
         boundaries).  When set, event timestamps are ignored.
-      superbatch: panes coalesced per device dispatch.  0/1 = off; the
-        port's window_triangles does not implement > 1 yet.
+      superbatch: wire buffers (or panes) coalesced per transfer.  0/1 =
+        off.  The wire path folds a group's rows one after another; the
+        windowed planes do not implement > 1 yet.
       async_windows: closed windows kept in flight by the asynchronous
         window pipeline.  0 = synchronous; the port's window_triangles
         does not implement > 0 yet.
+      binned_ingest / wire_compress: the JAX package's destination-binned
+        and BDV-compressed ingest of array-backed streams; 1 forces on, 0
+        off, -1 (default) is off here (the port has no env switch).  Not
+        ported: forcing either on raises NotImplementedError at aggregate().
     """
 
     vertex_capacity: int = 1 << 16
     max_degree: int = 64
     batch_size: int = 1 << 10
+    num_shards: int = 1
+    window_ms: int = 1000
+    tree_degree: int = 2
+    prefetch_depth: int = 8
+    wire_encoding: str = "auto"
     out_of_orderness_ms: int = 0
     ingest_window_edges: int = 0
     ingest_window_ms: int = 0
     superbatch: int = 0
     async_windows: int = 0
+    binned_ingest: int = -1
+    wire_compress: int = -1
 
     def __post_init__(self):
+        if self.wire_encoding not in ("auto", "plain", "ef40"):
+            raise ValueError(f"unknown wire_encoding {self.wire_encoding!r}")
         if self.out_of_orderness_ms < 0:
             raise ValueError("out_of_orderness_ms must be >= 0")
         if self.out_of_orderness_ms and (
@@ -64,6 +94,26 @@ class StreamConfig:
             raise ValueError("superbatch must be >= 0")
         if self.async_windows < 0:
             raise ValueError("async_windows must be >= 0")
+        if self.binned_ingest not in (-1, 0, 1):
+            raise ValueError("binned_ingest must be -1 (auto), 0, or 1")
+        if self.wire_compress not in (-1, 0, 1):
+            raise ValueError("wire_compress must be -1 (auto), 0, or 1")
+        if self.wire_compress == 1 and self.binned_ingest == 0:
+            raise ValueError(
+                "wire_compress=1 needs binned batches (delta encoding rides "
+                "the sorted bins); don't force binned_ingest=0 with it"
+            )
+        if self.wire_compress == 1 and self.vertex_capacity > 1 << BDV_MAX_ID_BITS:
+            raise ValueError(
+                f"wire_compress needs vertex_capacity <= 2^{BDV_MAX_ID_BITS} (BDV varints)"
+            )
         if self.vertex_capacity <= 0:
             raise ValueError("vertex_capacity must be positive")
+        if self.num_shards <= 0:
+            raise ValueError("num_shards must be positive")
+        if self.vertex_capacity % self.num_shards != 0:
+            raise ValueError(
+                f"vertex_capacity ({self.vertex_capacity}) must be divisible by "
+                f"num_shards ({self.num_shards}) for even sharding"
+            )
 

@@ -10,10 +10,13 @@ reference's CSV rendering.  The port's examples also take
 from __future__ import annotations
 
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.core.output import OutputStream
+from gelly_streaming_tpu_torch.core.stream import EdgeStream
+from gelly_streaming_tpu_torch.device import DeviceLike
+from gelly_streaming_tpu_torch.io.sources import file_stream, generated_stream
 
 DEFAULT_CFG = StreamConfig(vertex_capacity=1 << 16, max_degree=256, batch_size=1 << 12)
 
@@ -58,6 +61,21 @@ def parse_argv(
         print("Executing example with default parameters and built-in default data.")
         print(f"  Provide parameters to read input data from a file.\n  Usage: {usage}")
     return args
+
+
+def input_stream(
+    args: List[str],
+    cfg: StreamConfig = DEFAULT_CFG,
+    generated_edges: int = 1000,
+    device: DeviceLike = None,
+) -> Tuple[EdgeStream, Optional[str]]:
+    """(stream, output_path) from positional [input [output ...]] args."""
+    if args:
+        stream, _ = file_stream(args[0], cfg, device=device)
+    else:
+        stream = generated_stream(cfg, generated_edges, num_vertices=100, device=device)
+    output = args[1] if len(args) > 1 else None
+    return stream, output
 
 
 def emit(out: OutputStream, output_path: Optional[str]) -> None:

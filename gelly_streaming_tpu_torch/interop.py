@@ -2,8 +2,9 @@
 
 Nothing here imports the JAX package: a caller that has one exports its
 state (``dataclasses.asdict`` of a ``StreamConfig``, ``np.asarray`` of a
-``NeighborTable``'s fields) and hands the plain values over.  Packed pane
-words (``pack_pane``) are already a shared numpy format.
+``NeighborTable``'s or a ``CCState``'s fields) and hands the plain values
+over.  Packed pane words (``pack_pane``) and wire buffers (``io/wire.py``)
+are already a shared numpy format.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
+from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
+from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
 _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(StreamConfig))
 
@@ -46,3 +49,24 @@ def neighbor_table_from_numpy(
         deg=torch.from_numpy(deg.copy()).to(dev),
         dropped=torch.tensor(int(np.asarray(dropped)), dtype=torch.int32, device=dev),
     )
+
+
+def cc_state_from_numpy(parent, seen, device: DeviceLike = None) -> CCState:
+    """A ``CCState`` on ``device`` from host arrays: ``parent`` int32 [C]
+    (a forest over [0, C)), ``seen`` bool [C]."""
+    parent = np.asarray(parent, np.int32)
+    seen = np.asarray(seen, bool)
+    if parent.ndim != 1 or seen.shape != parent.shape:
+        raise ValueError(f"expected parent [C] and seen [C], got {parent.shape} and {seen.shape}")
+    if len(parent) and (parent.min() < 0 or parent.max() >= len(parent)):
+        raise ValueError("parent entries must be vertex ids in [0, C)")
+    dev = resolve_device(device)
+    return CCState(
+        parent=torch.from_numpy(parent.copy()).to(dev), seen=torch.from_numpy(seen.copy()).to(dev)
+    )
+
+
+def disjoint_set_from_numpy(parent, seen, device: DeviceLike = None) -> DisjointSet:
+    """A ``DisjointSet`` on ``device`` from host ``parent``/``seen`` arrays."""
+    state = cc_state_from_numpy(parent, seen, device)
+    return DisjointSet(len(state.parent), parent=state.parent, seen=state.seen)

@@ -1,14 +1,14 @@
 """Edge sources: edge-list files, batched host arrays and generated streams.
 
-Port of the parts of ``gelly_streaming_tpu/io/sources.py`` the windowed
-triangle path uses.  ``parse_edge_file`` is the pure-numpy parser (the
-JAX package's fallback when its C++ ingest parser is not built); it
-returns the same arrays.  The C++ parser is not ported.
+Port of the parts of ``gelly_streaming_tpu/io/sources.py`` the ported
+slices use.  ``parse_edge_file`` is the pure-numpy parser (the JAX
+package's fallback when its C++ ingest parser is not built); it returns
+the same arrays.  The C++ parser and the network source are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -16,6 +16,7 @@ from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.core.stream import EdgeStream
 from gelly_streaming_tpu_torch.core.types import EdgeBatch
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
+from gelly_streaming_tpu_torch.io.interning import IdentityInterner, VertexInterner
 
 
 def parse_edge_file(path: str):
@@ -83,6 +84,38 @@ def _batched(
     return factory
 
 
+def file_stream(
+    path: str,
+    cfg: StreamConfig,
+    interner=None,
+    batch_size: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Tuple[EdgeStream, object]:
+    """EdgeStream over an edge-list file; returns (stream, interner).
+
+    With no interner given, ids are checked-identity (dense ints) unless
+    any id falls outside [0, capacity), in which case a VertexInterner is
+    built.  Value-less untimed files become array-backed streams (the
+    aggregation wire path); the rest batch sources."""
+    src, dst, val, tim, sign = parse_edge_file(path)
+    if interner is None:
+        if len(src) and (
+            min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= cfg.vertex_capacity
+        ):
+            interner = VertexInterner(cfg.vertex_capacity)
+        else:
+            interner = IdentityInterner(cfg.vertex_capacity)
+    src_i = interner.intern_ints(src)
+    dst_i = interner.intern_ints(dst)
+    bs = batch_size or cfg.batch_size
+    if val is None and tim is None and sign is None:
+        return EdgeStream.from_arrays(src_i, dst_i, cfg, batch_size=bs, device=device), interner
+    stream = EdgeStream.from_batches(
+        _batched(src_i, dst_i, val, tim, sign, bs, device), cfg, device=device
+    )
+    return stream, interner
+
+
 def generated_stream(
     cfg: StreamConfig,
     num_edges: int,
@@ -98,3 +131,29 @@ def generated_stream(
     src = rng.integers(0, n_v, num_edges).astype(np.int32)
     dst = rng.integers(0, n_v, num_edges).astype(np.int32)
     return EdgeStream.from_arrays(src, dst, cfg, batch_size=batch_size, device=device)
+
+
+def unbounded_generated_stream(
+    cfg: StreamConfig,
+    num_vertices: Optional[int] = None,
+    seed: int = 0,
+    max_batches: Optional[int] = None,
+    device: DeviceLike = None,
+) -> EdgeStream:
+    """Unbounded uniform random untimed edge stream of ``cfg.batch_size``
+    batches (pair it with ``cfg.ingest_window_edges`` for running
+    emissions); ``max_batches`` bounds it, None streams forever.  The
+    same edges as the JAX package's for the same seed."""
+    n_v = num_vertices or cfg.vertex_capacity
+    dev = resolve_device(device)
+
+    def factory():
+        rng = np.random.default_rng(seed)
+        k = 0
+        while max_batches is None or k < max_batches:
+            src = rng.integers(0, n_v, cfg.batch_size).astype(np.int32)
+            dst = rng.integers(0, n_v, cfg.batch_size).astype(np.int32)
+            yield EdgeBatch.from_arrays(src, dst, device=dev)
+            k += 1
+
+    return EdgeStream.from_batches(factory, cfg, device=dev)

@@ -1,0 +1,371 @@
+"""Compact host->device wire format: packers on the host, unpack on the card.
+
+Port of the parts of ``gelly_streaming_tpu/io/wire.py`` that the streaming
+CC path uses.  The packers are the JAX package's numpy fallbacks (its
+native C++ packers are not ported), so a buffer packed here is the same
+bytes; the device unpack (``unpack_edges``) is PyTorch ops on the buffer's
+device, standing in for the JAX package's jitted unpack.
+
+Encodings (``width``):
+
+* 2 / 3 / 4: the src block then the dst block, each id truncated to its
+  low ``width`` little-endian bytes;
+* ``PAIR40``: each edge as one 5-byte 20+20-bit pair (capacity <= 2^20);
+* ``(EF40, capacity)``: the src-grouped Elias-Fano multiset, a unary src
+  histogram of ``n + capacity`` bits then 20-bit dsts two per 5 bytes;
+* ``(BDV, capacity)``: the (dst, src)-sorted group-varint delta stream
+  (ops/wire_decode.py), bucket-padded.
+
+EF40 and BDV ship a multiset, not the arrival order: order-free folds only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+PAIR40 = "pair40"  # 5-byte (src, dst) pair packing for capacities <= 2^20
+EF40 = "ef40"  # sorted Elias-Fano multiset packing (order-free folds only)
+BDV = "bdv"  # destination-binned delta/varint packing (order-free folds only)
+
+# BDV ids (and zigzag values) are bounded so every varint fits 4 bytes
+BDV_MAX_ID_BITS = 28
+
+
+def width_for_capacity(capacity: int):
+    """Tightest fixed encoding covering ids in [0, capacity): a byte width
+    (2/3/4) or ``PAIR40`` for capacities in (2^16, 2^20]."""
+    if capacity <= 1 << 16:
+        return 2  # 4 bytes/edge
+    if capacity <= 1 << 20:
+        return PAIR40  # 5 bytes/edge
+    if capacity <= 1 << 24:
+        return 3  # 6 bytes/edge
+    return 4
+
+
+def wire_nbytes(n: int, width) -> int:
+    """Wire bytes for an n-edge batch (BDV: the worst-case bound)."""
+    if width == PAIR40:
+        return 5 * n
+    if isinstance(width, tuple):
+        if width[0] == BDV:
+            return bdv_max_nbytes(n)
+        return ef40_nbytes(n, width[1])
+    return 2 * n * width
+
+
+def ef40_nbytes(n: int, capacity: int) -> int:
+    """Wire bytes for an EF40-packed batch of n edges over ``capacity`` ids."""
+    return (n + capacity + 7) // 8 + ((n + 1) // 2) * 5
+
+
+def replay_width(capacity: int, batch: int, order_free: bool = True):
+    """Whichever legal encoding ships the fewest bytes for this (capacity,
+    batch): EF40 for order-free folds with ids in 20 bits when its unary
+    bitvector is outweighed by the 2.5 B/edge dst stream, else the fixed
+    width."""
+    fixed = width_for_capacity(capacity)
+    if (
+        order_free
+        and capacity <= 1 << 20
+        and ef40_nbytes(batch, capacity) < wire_nbytes(batch, fixed)
+    ):
+        return (EF40, capacity)
+    return fixed
+
+
+# ---------------------------------------------------------------------------
+# host packers (numpy)
+
+
+def _pack_edges40(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    w = (src.astype(np.uint64) & 0xFFFFF) | ((dst.astype(np.uint64) & 0xFFFFF) << np.uint64(20))
+    return np.ascontiguousarray(w.view(np.uint8).reshape(-1, 8)[:, :5]).reshape(-1)
+
+
+def _pack_edges_ef40(src: np.ndarray, dst: np.ndarray, capacity: int) -> np.ndarray:
+    """Src-grouped Elias-Fano multiset pack: the i-th grouped edge's one
+    bit sits at position src_i + i of an (n + capacity)-bit vector, then
+    the grouped dsts (stable within a group), 20 bits each, two per 5
+    bytes."""
+    n = src.shape[0]
+    out = np.empty(ef40_nbytes(n, capacity), np.uint8)
+    order = np.argsort(src, kind="stable")
+    s_grouped = src[order].astype(np.int64)
+    d_grouped = dst[order].astype(np.int64) & 0xFFFFF
+    bits = np.zeros((n + capacity,), np.uint8)
+    bits[s_grouped + np.arange(n, dtype=np.int64)] = 1
+    bv = np.packbits(bits, bitorder="little")
+    pad = d_grouped if n % 2 == 0 else np.append(d_grouped, 0)
+    pairs = pad[0::2].astype(np.uint64) | (pad[1::2].astype(np.uint64) << np.uint64(20))
+    low = np.ascontiguousarray(pairs.view(np.uint8).reshape(-1, 8)[:, :5]).reshape(-1)
+    out[: bv.nbytes] = bv
+    out[bv.nbytes :] = low
+    return out
+
+
+def pack_edges(src: np.ndarray, dst: np.ndarray, width) -> np.ndarray:
+    """Pack an edge batch into a uint8 wire buffer at ``width``."""
+    if width not in (2, 3, 4, PAIR40) and not (
+        isinstance(width, tuple) and width[0] in (EF40, BDV)
+    ):
+        raise ValueError(f"unsupported wire width {width}")
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    if dst.shape[0] != src.shape[0]:
+        raise ValueError("src/dst length mismatch")
+    if isinstance(width, tuple):
+        if width[0] == BDV:
+            return pack_edges_bdv(src, dst, width[1])
+        return _pack_edges_ef40(src, dst, width[1])
+    if width == PAIR40:
+        return _pack_edges40(src, dst)
+
+    def low_bytes(x: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(x.view(np.uint8).reshape(-1, 4)[:, :width]).reshape(-1)
+
+    return np.concatenate([low_bytes(src), low_bytes(dst)])
+
+
+def pack_stream(
+    src: np.ndarray, dst: np.ndarray, batch: int, width
+) -> Tuple[list, Optional[Tuple[np.ndarray, np.ndarray]]]:
+    """Pre-pack a finite edge stream into per-batch wire buffers: returns
+    ``(bufs, tail)``, the full-batch buffers plus the raw ``(src, dst)``
+    remainder (or None).  The producer side of ``EdgeStream.from_wire``."""
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    n_full = len(src) // batch
+    bufs = [
+        pack_edges(src[i * batch : (i + 1) * batch], dst[i * batch : (i + 1) * batch], width)
+        for i in range(n_full)
+    ]
+    tail = (src[n_full * batch :], dst[n_full * batch :]) if len(src) > n_full * batch else None
+    return bufs, tail
+
+
+# ---------------------------------------------------------------------------
+# BDV producer (numpy)
+
+
+def bdv_max_nbytes(n: int, valued: bool = False) -> int:
+    """Worst-case BDV bytes for an n-edge batch: a 4-byte dst-delta varint
+    plus a 5-byte zigzag src-delta varint per edge (plus a 5-byte zigzag
+    value when valued)."""
+    return (14 if valued else 9) * max(int(n), 1)
+
+
+def _sort_edges_bdv(src: np.ndarray, dst: np.ndarray, capacity: int, val=None):
+    """(dst, src)-stable-sorted copy of a batch (numpy lexsort)."""
+    order = np.lexsort((src, dst))
+    return src[order], dst[order], None if val is None else np.asarray(val)[order]
+
+
+def _varint_encode_np(vals: np.ndarray) -> np.ndarray:
+    """Values -> group-varint bytes: a control block of 2-bit lengths, then
+    the little-endian value bytes."""
+    vals = np.asarray(vals, np.uint64)
+    count = len(vals)
+    ctrl = (count + 3) // 4
+    lens = np.ones(count, np.int64)
+    for k in (8, 16, 24):
+        lens += vals >= (np.uint64(1) << np.uint64(k))
+    ends = np.cumsum(lens)
+    out = np.zeros(ctrl + (int(ends[-1]) if count else 0), np.uint8)
+    k = np.arange(count)
+    np.bitwise_or.at(out, k >> 2, ((lens - 1) << (2 * (k & 3))).astype(np.uint8))
+    starts = ctrl + ends - lens
+    for j in range(4):
+        sel = lens > j
+        if not sel.any():
+            break
+        out[starts[sel] + j] = ((vals[sel] >> np.uint64(8 * j)) & np.uint64(0xFF)).astype(np.uint8)
+    return out
+
+
+def _varint_decode_np(buf: np.ndarray, count: int) -> np.ndarray:
+    """Host twin of ``ops.wire_decode.decode_varints``; refuses a buffer
+    shorter than its control block + payload."""
+    b = np.asarray(buf, np.uint8).astype(np.int64)
+    ctrl = (count + 3) // 4
+    nb = len(b)
+    if nb < ctrl:
+        raise ValueError(
+            f"BDV buffer truncated: {count} varints need a {ctrl}-byte "
+            f"control block, got {nb} bytes total"
+        )
+    k = np.arange(count)
+    lens = ((b[k >> 2] >> (2 * (k & 3))) & 3) + 1 if count else np.zeros(0, np.int64)
+    needed = ctrl + (int(lens.sum()) if count else 0)
+    if nb < needed:
+        raise ValueError(f"BDV buffer truncated: control block declares {needed} bytes, got {nb}")
+    starts = ctrl + np.cumsum(lens) - lens
+    vals = np.zeros(count, np.int64)
+    for j in range(4):
+        idx = np.minimum(starts + j, nb - 1)
+        vals |= np.where(lens > j, b[idx] << (8 * j), 0)
+    return vals
+
+
+def _zigzag_encode_np(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, np.int64)
+    return np.asarray((v << 1) ^ (v >> 63), np.uint64)
+
+
+def _encode_bdv_np(src_s, dst_s, val_i32=None) -> np.ndarray:
+    """Varint-encode a dst-sorted batch: unsigned dst deltas interleaved
+    with global zigzag src deltas (src[-1] = 0), so the decode is a pair
+    of cumsums."""
+    n = len(src_s)
+    per = 2 if val_i32 is None else 3
+    s = np.asarray(src_s, np.int64)
+    d = np.asarray(dst_s, np.int64)
+    d_delta = np.empty(n, np.int64)
+    s_delta = np.empty(n, np.int64)
+    if n:
+        d_delta[0] = d[0]
+        d_delta[1:] = np.diff(d)
+        s_delta[0] = s[0]
+        s_delta[1:] = np.diff(s)
+    stream = np.empty(per * n, np.uint64)
+    stream[0::per] = d_delta.astype(np.uint64)
+    stream[1::per] = _zigzag_encode_np(s_delta) & np.uint64(0xFFFFFFFF)
+    if val_i32 is not None:
+        stream[2::per] = _zigzag_encode_np(np.asarray(val_i32, np.int64))
+    return _varint_encode_np(stream)
+
+
+def bdv_bucket_nbytes(payload_nbytes: int) -> int:
+    """Shape bucket for a BDV payload: the next size of form {4,5,6,7}<<k."""
+    n = max(int(payload_nbytes), 4)
+    k = max((n - 1).bit_length() - 3, 0)
+    return -(-n >> k) << k
+
+
+def pack_edges_bdv(
+    src: np.ndarray,
+    dst: np.ndarray,
+    capacity: int,
+    val_i32: Optional[np.ndarray] = None,
+    sort: bool = True,
+) -> np.ndarray:
+    """Bin (sort by (dst, src) unless ``sort=False``), varint-encode and
+    zero-pad to the byte bucket, clamped at the worst-case bound."""
+    if capacity <= 0 or capacity > (1 << BDV_MAX_ID_BITS):
+        raise ValueError(f"BDV needs 0 < capacity <= 2^{BDV_MAX_ID_BITS} (got {capacity})")
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    if dst.shape[0] != src.shape[0]:
+        raise ValueError("src/dst length mismatch")
+    if sort:
+        src, dst, val_i32 = _sort_edges_bdv(src, dst, capacity, val_i32)
+    payload = _encode_bdv_np(src, dst, val_i32)
+    bucket = min(
+        bdv_bucket_nbytes(len(payload)), bdv_max_nbytes(src.shape[0], val_i32 is not None)
+    )
+    buf = np.zeros(bucket, np.uint8)
+    buf[: len(payload)] = payload
+    return buf
+
+
+def unpack_edges_bdv_host(buf: np.ndarray, n: int, valued: bool = False):
+    """Host (numpy) BDV decode -> (src, dst[, val]) int32[n] in the packed
+    (dst, src)-sorted order."""
+    per = 3 if valued else 2
+    vals = _varint_decode_np(np.asarray(buf, np.uint8), per * n)
+    dst = np.cumsum(vals[0::per]).astype(np.int32)
+    s_enc = vals[1::per].astype(np.uint64)
+    s_delta = ((s_enc >> np.uint64(1)).astype(np.int64)) ^ -(s_enc & np.uint64(1)).astype(np.int64)
+    src = np.cumsum(s_delta).astype(np.int32)
+    if not valued:
+        return src, dst
+    z = vals[2::per].astype(np.uint64)
+    val = ((z >> np.uint64(1)).astype(np.int64)) ^ -(z & np.uint64(1)).astype(np.int64)
+    return src, dst, val.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# decoders
+
+
+def _pair40_fields(b):
+    """(lo 20 bits, hi 20 bits) of [m, 5] pair bytes, widened to int64
+    (numpy or torch)."""
+    lo = (b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) & 0xFFFFF
+    hi = (b[:, 2] >> 4) | (b[:, 3] << 4) | (b[:, 4] << 12)
+    return lo, hi
+
+
+def unpack_edges_ef40(wire: torch.Tensor, n: int, capacity: int):
+    """Device EF40 unpack: wire uint8 -> src-grouped (src, dst) int32[n].
+
+    Bit expansion and one cumsum recover the unary src ranks: the grouped
+    src of rank i is ``pos - i``, pos the position of the i-th one, found
+    by binary search in the cumsum (ranks the bitvector lacks decode to 0,
+    as the JAX scatter leaves them).  The JAX decode scatters every
+    position instead, the zeros into one dropped slot: on the H100 those
+    ~C atomics on one address serialize, and with them the bench's 50
+    batches took 1.74 s end to end against 0.11 s with the search
+    (chip_smoke.py phase 7)."""
+    dev = wire.device
+    bvbytes = (n + capacity + 7) // 8
+    shifts = torch.arange(8, dtype=torch.int32, device=dev)
+    bits = ((wire[:bvbytes].to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[: n + capacity]
+    ones_upto = torch.cumsum(bits, 0)  # int64, non-decreasing
+    rank = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = torch.searchsorted(ones_upto, rank + 1)
+    src = torch.where(pos < n + capacity, pos - rank, 0).to(torch.int32)
+    npairs = (n + 1) // 2
+    b = wire[bvbytes : bvbytes + 5 * npairs].reshape(npairs, 5).to(torch.int64)
+    lo, hi = _pair40_fields(b)
+    dst = torch.stack([lo, hi], dim=1).reshape(-1)[:n].to(torch.int32)
+    return src, dst
+
+
+def unpack_edges(wire: torch.Tensor, n: int, width):
+    """Device unpack: wire uint8 tensor -> (src, dst) int32[n] tensors on
+    the same device."""
+    if isinstance(width, tuple):
+        if width[0] == BDV:
+            from gelly_streaming_tpu_torch.ops import wire_decode
+
+            return wire_decode.decode_bdv(wire, n)
+        return unpack_edges_ef40(wire, n, width[1])
+    if width == PAIR40:
+        lo, hi = _pair40_fields(wire[: 5 * n].reshape(n, 5).to(torch.int64))
+        return lo.to(torch.int32), hi.to(torch.int32)
+    b = wire[: 2 * n * width].reshape(2, n, width).to(torch.int64)
+    v = b[..., 0]
+    for k in range(1, width):
+        v = v | (b[..., k] << (8 * k))
+    v = v.to(torch.int32)
+    return v[0], v[1]
+
+
+def unpack_edges_host(buf: np.ndarray, n: int, width):
+    """Host (numpy) decode of one wire buffer -> (src, dst) int32[n]; EF40
+    decodes to src-grouped order, BDV to (dst, src)-sorted order."""
+    buf = np.asarray(buf, np.uint8)
+    if isinstance(width, tuple) and width[0] == BDV:
+        return unpack_edges_bdv_host(buf, n)
+    if isinstance(width, tuple):
+        capacity = width[1]
+        bvbytes = (n + capacity + 7) // 8
+        bits = np.unpackbits(buf[:bvbytes], bitorder="little")[: n + capacity]
+        src = (np.flatnonzero(bits) - np.arange(n, dtype=np.int64)).astype(np.int32)
+        npairs = (n + 1) // 2
+        lo, hi = _pair40_fields(buf[bvbytes : bvbytes + 5 * npairs].reshape(npairs, 5).astype(np.int64))
+        dst = np.stack([lo, hi], axis=1).reshape(-1)[:n]
+        return src, dst.astype(np.int32)
+    if width == PAIR40:
+        lo, hi = _pair40_fields(buf[: 5 * n].reshape(n, 5).astype(np.int64))
+        return lo.astype(np.int32), hi.astype(np.int32)
+    b = buf[: 2 * n * width].reshape(2, n, width).astype(np.int64)
+    v = b[..., 0]
+    for k in range(1, width):
+        v = v | (b[..., k] << (8 * k))
+    v = v.astype(np.uint32).view(np.int32)
+    return v[0], v[1]

@@ -51,6 +51,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # words, n_ptr, cap, bits, k, total, stream: both of the above
         "pane_triangles_launch": [_P, _P, _I, _P, _I, _P, _P],
     },
+    "unionfind.cu": {
+        # parent, seen | None, src | None, dst, mask | None, n, capacity,
+        # scratch uint8[24 + n], stream: the compress kernel, then the union kernel
+        "uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    },
 }
 
 

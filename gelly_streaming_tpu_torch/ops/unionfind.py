@@ -1,0 +1,215 @@
+"""Batched array union-find: the wrappers of the port's CUDA union kernel.
+
+Port of ``gelly_streaming_tpu/ops/unionfind.py`` (the parity variants wait
+for the bipartiteness slice).  A summary is a dense ``parent: int32[C]``
+forest, ``parent[r] == r`` marking a root; a batch of edges merges the
+components of its endpoints and compresses, so that every vertex points at
+its root.  The fixed point is the JAX package's: a merged component ends
+at the smallest of the roots it came in with (after ``init_parent`` and
+unions, its smallest vertex id), and every vertex points at it.
+
+Unlike the JAX functions, these update ``parent`` (and ``seen``) IN PLACE
+and return the same tensors: a caller that keeps an old state clones it
+first.  On CUDA tensors ``union_edges``, ``union_edges_with_seen``,
+``merge_parents`` and ``compress`` are one C call each
+(``csrc/unionfind.cu: uf_union_launch``: the compress kernel, then the
+union kernel unless the batch is empty; each runs its rounds on the device
+with no host sync); ``LAUNCHES`` counts the launches of each kernel.  On CPU
+tensors they run the plain twins (``*_plain``): the JAX algorithm written
+as PyTorch ops (scatter-min hooks, ``p = p[p]`` doubling, a host loop
+until converged), which return new tensors and never launch anything.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
+from gelly_streaming_tpu_torch.ops import _cuda
+
+_SOURCE = "unionfind.cu"
+_MAX_INT32 = (1 << 31) - 1
+
+# kernel launches made by uf_union_launch since the last reset_launches()
+# (only calls on CUDA tensors count, never the plain twins)
+LAUNCHES: Dict[str, int] = {"union_kernel": 0, "compress_kernel": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def init_parent(capacity: int, device: DeviceLike = None) -> torch.Tensor:
+    """Every vertex its own singleton root."""
+    return torch.arange(capacity, dtype=torch.int32, device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# plain twins (the JAX algorithm; new tensors out, inputs untouched)
+
+
+def compress_plain(parent: torch.Tensor) -> torch.Tensor:
+    """Pointer doubling ``p = p[p]`` until no entry changes."""
+    p = parent
+    while True:
+        p2 = p[p.long()]
+        if torch.equal(p2, p):
+            return p2
+        p = p2
+
+
+def union_edges_plain(
+    parent: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Until every edge's endpoints share a root: hook each larger endpoint
+    root under the smallest root it meets (scatter-min), then compress.
+    Masked rows become (0, 0) self-loops."""
+    if mask is not None:
+        src = torch.where(mask, src, 0)
+        dst = torch.where(mask, dst, 0)
+    s, d = src.long(), dst.long()
+    p = compress_plain(parent)
+    while True:
+        rs, rd = p[s], p[d]
+        if torch.equal(rs, rd):
+            return p
+        lo = torch.minimum(rs, rd)
+        hi = torch.maximum(rs, rd)
+        p = compress_plain(p.scatter_reduce(0, hi.long(), lo, "amin"))
+
+
+def merge_parents_plain(parent_a: torch.Tensor, parent_b: torch.Tensor) -> torch.Tensor:
+    """b's pointers as edges (v, parent_b[v]) applied to a."""
+    v = torch.arange(parent_a.shape[0], dtype=torch.int32, device=parent_a.device)
+    return union_edges_plain(parent_a, v, parent_b)
+
+
+def union_edges_with_seen_plain(
+    parent: torch.Tensor,
+    seen: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = union_edges_plain(parent, src, dst, mask)
+    live = slice(None) if mask is None else mask
+    seen = seen.clone()
+    seen[src[live].long()] = True
+    seen[dst[live].long()] = True
+    return p, seen
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel on CUDA tensors, the twin on CPU tensors
+
+
+def _check_vector(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
+
+
+def _check_args(parent, seen, src, dst, mask) -> None:
+    _check_vector(parent, torch.int32, "parent")
+    if parent.shape[0] > _MAX_INT32:
+        raise ValueError("capacity must fit int32")
+    if seen is not None:
+        _check_vector(seen, torch.bool, "seen")
+        if seen.shape != parent.shape:
+            raise ValueError("seen and parent must have the same shape")
+    _check_vector(dst, torch.int32, "dst")
+    if dst.shape[0] > _MAX_INT32:
+        raise ValueError("an edge batch must hold fewer than 2^31 edges")
+    for t, name in ((src, "src"), (mask, "mask")):
+        if t is not None:
+            _check_vector(t, torch.bool if name == "mask" else torch.int32, name)
+            if t.shape != dst.shape:
+                raise ValueError(f"{name} and dst must have the same shape")
+    for t in (seen, src, dst, mask):
+        if t is not None and t.device != parent.device:
+            raise ValueError("all tensors must be on parent's device")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(parent, seen, src, dst, mask, n: int) -> None:
+    """One ``uf_union_launch`` on the current stream: compress, then the
+    union of n edges (none for compress alone)."""
+    if parent.device.type != "cuda":
+        raise ValueError(f"no uf_union_launch kernel for device {parent.device}")
+    lib = _cuda.library(_SOURCE)
+    # the kernels' round flags (6 int32) and a done byte per edge
+    scratch = torch.empty((24 + n,), dtype=torch.uint8, device=parent.device)
+    err = lib.uf_union_launch(
+        parent.data_ptr(), _ptr(seen), _ptr(src), _ptr(dst), _ptr(mask), n,
+        parent.shape[0], scratch.data_ptr(), torch.cuda.current_stream(parent.device).cuda_stream,
+    )
+    _cuda.check(err, "uf_union_launch")
+    if n > 0:
+        LAUNCHES["union_kernel"] += 1
+    LAUNCHES["compress_kernel"] += 1
+
+
+def compress(parent: torch.Tensor) -> torch.Tensor:
+    """Point every entry at its root, in place; returns ``parent``."""
+    _check_vector(parent, torch.int32, "parent")
+    if parent.device.type == "cpu":
+        return parent.copy_(compress_plain(parent))
+    _launch(parent, None, None, None, None, 0)
+    return parent
+
+
+def find_roots(parent: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    """Roots of ``vertices`` (``parent`` is not changed)."""
+    return compress(parent.clone())[vertices.long()]
+
+
+def union_edges(
+    parent: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Merge the components of every valid (src, dst) edge, in place;
+    returns ``parent``, compressed."""
+    _check_args(parent, None, src, dst, mask)
+    if parent.device.type == "cpu":
+        return parent.copy_(union_edges_plain(parent, src, dst, mask))
+    _launch(parent, None, src, dst, mask, dst.shape[0])
+    return parent
+
+
+def merge_parents(parent_a: torch.Tensor, parent_b: torch.Tensor) -> torch.Tensor:
+    """Combine two summaries over the same vertex space: b's pointers
+    (v, parent_b[v]) are unioned into ``parent_a`` in place; returns it."""
+    _check_args(parent_a, None, None, parent_b, None)
+    if parent_b.shape != parent_a.shape:
+        raise ValueError("merge_parents needs two parents of the same shape")
+    if parent_a.device.type == "cpu":
+        return parent_a.copy_(merge_parents_plain(parent_a, parent_b))
+    _launch(parent_a, None, None, parent_b, None, parent_b.shape[0])
+    return parent_a
+
+
+def union_edges_with_seen(
+    parent: torch.Tensor,
+    seen: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``union_edges`` plus marking every valid endpoint in ``seen``, both
+    in place; returns ``(parent, seen)``."""
+    _check_args(parent, seen, src, dst, mask)
+    if parent.device.type == "cpu":
+        p, s = union_edges_with_seen_plain(parent, seen, src, dst, mask)
+        return parent.copy_(p), seen.copy_(s)
+    _launch(parent, seen, src, dst, mask, dst.shape[0])
+    return parent, seen

@@ -133,3 +133,102 @@ def test_window_triangles_on_gpu_matches_cpu(cuda_device):
         return window_triangles(s, 1000, slide_ms=500).collect()
 
     assert run(cuda_device) == run("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the union-find kernel (csrc/unionfind.cu) against its twin
+
+
+def _forest(rng, c):
+    """A forest whose roots are not the smallest ids of their trees."""
+    order = rng.permutation(c)
+    parent = np.arange(c, dtype=np.int32)
+    k = np.nonzero(rng.random(c) < 0.7)[0]
+    k = k[k > 0]
+    parent[order[k]] = order[(rng.random(len(k)) * k).astype(np.int64)]
+    return parent
+
+
+def _uf_edges(rng, c, case):
+    n = 2 * c
+    if case == "uniform":
+        return rng.integers(0, c, n), rng.integers(0, c, n), None
+    if case == "star":
+        return np.full(c - 1, c - 1), np.arange(c - 1), None
+    if case == "zipf":
+        return (rng.zipf(1.3, n) - 1) % c, (rng.zipf(1.3, n) - 1) % c, None
+    if case == "reverse-path":
+        return np.arange(c - 1)[::-1], np.arange(1, c)[::-1], None
+    if case == "shuffled-path":
+        order = rng.permutation(c - 1)
+        return order, order + 1, None
+    if case == "self-loops":
+        ids = rng.integers(0, c, n)
+        return ids, ids, None
+    if case == "masked-tail":
+        mask = np.ones(n, bool)
+        mask[n // 2 :] = False
+        return rng.integers(0, c, n), rng.integers(0, c, n), mask
+    raise ValueError(case)
+
+
+UF_CASES = ["uniform", "star", "zipf", "reverse-path", "shuffled-path", "self-loops", "masked-tail"]
+
+
+@pytest.mark.parametrize("case", UF_CASES)
+@pytest.mark.parametrize("start", ["identity", "forest"])
+def test_union_kernel_matches_twin(cuda_device, case, start):
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c = 1 << 16
+    rng = np.random.default_rng(UF_CASES.index(case))
+    u, v, m = _uf_edges(rng, c, case)
+    s, d = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (u, v))
+    mask = None if m is None else torch.from_numpy(m).to(cuda_device)
+    parent0 = np.arange(c, dtype=np.int32) if start == "identity" else _forest(rng, c)
+    parent = torch.from_numpy(parent0).to(cuda_device)
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    want_p, want_s = uf.union_edges_with_seen_plain(parent, seen, s, d, mask)
+    before = dict(uf.LAUNCHES)
+    got_p, got_s = uf.union_edges_with_seen(parent, seen, s, d, mask)
+    torch.cuda.synchronize()
+    assert got_p is parent and got_s is seen
+    assert uf.LAUNCHES["union_kernel"] == before["union_kernel"] + 1
+    assert uf.LAUNCHES["compress_kernel"] == before["compress_kernel"] + 1
+    assert torch.equal(parent, want_p) and torch.equal(seen, want_s)
+
+
+def test_merge_and_compress_kernels_match_twins(cuda_device):
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c = 1 << 16
+    rng = np.random.default_rng(42)
+    a0 = torch.from_numpy(_forest(rng, c)).to(cuda_device)
+    b0 = torch.from_numpy(_forest(rng, c)).to(cuda_device)
+    assert torch.equal(uf.merge_parents(a0.clone(), b0), uf.merge_parents_plain(a0, b0))
+    assert torch.equal(uf.compress(a0.clone()), uf.compress_plain(a0))
+    top = torch.tensor([c - 1, 0], dtype=torch.int32, device=cuda_device)
+    p = uf.union_edges(uf.init_parent(c, cuda_device), top, top.flip(0))
+    assert int(p[c - 1]) == 0 and int(p[1]) == 1
+
+
+def test_cc_wire_path_on_gpu_matches_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 1 << 14, 70000)
+    dst = rng.integers(0, 1 << 14, 70000)
+    cfg = StreamConfig(vertex_capacity=1 << 14, ingest_window_edges=1 << 14, superbatch=2)
+
+    def run(dev):
+        bufs, tail = wire.pack_stream(src, dst, 1 << 13, (wire.EF40, 1 << 14))
+        s = EdgeStream.from_wire(bufs, 1 << 13, (wire.EF40, 1 << 14), cfg, tail=tail, device=dev)
+        return [(r[0].parent.cpu(), r[0].seen.cpu()) for r in s.aggregate(ConnectedComponents()).collect()]
+
+    got, want = run(cuda_device), run("cpu")
+    assert len(got) == len(want) == 5
+    for (gp, gs), (wp, ws) in zip(got, want):
+        assert torch.equal(gp, wp) and torch.equal(gs, ws)
