@@ -42,6 +42,26 @@ are timed on the main path's last batch: ``ms`` by torch.profiler where it
 shows them, and ``device_ms``/``host_us`` on a held stream, compress as
 the call with no edges and the union kernel as the whole call minus it.
 
+Phases 8-10 drive the GraphStream surface on the same stream (packing
+runs on host threads, untimed).  Phase 8: ``EdgeStream.from_arrays(...)
+.get_degrees()`` over all 104,857,600 edges (209,715,200 records,
+downloaded packed); every vertex's final degree must equal ``np.bincount``
+and the first batches' records the twin's; ``get_in_degrees``,
+``number_of_vertices``, ``number_of_edges`` and ``get_vertices`` on an
+8-batch prefix and ``undirected().distinct()`` on a 2-batch prefix must
+equal numpy.  Phase 9: ``DegreeDistributionSummary`` over the EF40 replay
+(deg equal to ``np.bincount``), ``DegreeDistribution`` over 2^20 signed
+events on 2^16 vertices (equal to a host oracle written as the reference's
+three keyed stages) and over a run at capacity 2^10 whose hubs pass it
+(equal to the twin).  Phase 10: ``BipartitenessCheck`` over an even -> odd
+EF40 stream of the bench's shape (bipartite; sides differ across every
+edge; components equal to scipy's) and over the uniform stream
+(``(false,{})``), and a timed windowed run whose every emission must equal
+the CPU path's.  Each new kernel (``degree_trace``, ``degree_fold``,
+``degree_dist_scan``, ``parity_union_kernel``) must launch once a batch on
+its main path and equal its twin; ``index_add_`` is timed beside
+``degree_fold`` as the library call.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -77,6 +97,18 @@ CC_BATCHES = 50
 CC_EMIT_BATCHES = 8  # from_arrays prefix with running emissions
 CC_EMIT_EVERY = 2  # batches per emission on that prefix
 UF_REPS = 20
+
+# phases 8-10 on the CC bench's stream, and the signed degree-distribution runs
+PROP_TWIN_BATCHES = 4  # degree trace batches held against the twin
+PROP_PREFIX_BATCHES = 8  # prefix for the other property streams
+PROP_DISTINCT_BATCHES = 2  # prefix for undirected().distinct()
+DD_EVENTS = 1 << 20  # signed events of the DegreeDistribution run
+DD_VERTICES = 1 << 16
+DD_BATCH = 1 << 15
+DD_CAP = 1 << 10  # the capacity run: hubs' degrees pass it
+DD_CAP_EVENTS = 1 << 16
+BP_WINDOW_EDGES = 1 << 18  # the timed windowed bipartiteness run
+BP_WINDOW_VERTICES = 1 << 16
 
 
 def log(msg: str) -> None:
@@ -569,13 +601,11 @@ def phase_union(dev, rng):
     return worst
 
 
-def union_device_ms(parent, seen, s, d, reps: int, cycles_per_ms: float):
-    """(device ms, host enqueue us) per ``union_edges_with_seen`` call,
+def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float):
+    """(device ms, host enqueue us) per ``fold(parent, seen, s, d)`` call,
     each call folding (s, d) into its own fresh copy of (parent, seen);
     the calls are enqueued while ``torch.cuda._sleep`` holds the stream."""
     import torch
-
-    from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     hold_ms = 2.0
     for _ in range(4):
@@ -587,7 +617,7 @@ def union_device_ms(parent, seen, s, d, reps: int, cycles_per_ms: float):
         start.record()
         t0 = time.perf_counter()
         for p, sn in copies:
-            uf.union_edges_with_seen(p, sn, s, d)
+            fold(p, sn, s, d)
         host_s = time.perf_counter() - t0
         end.record()
         held = not start.query()
@@ -598,13 +628,15 @@ def union_device_ms(parent, seen, s, d, reps: int, cycles_per_ms: float):
     raise RuntimeError("the host could not enqueue the timed folds inside the hold")
 
 
-def union_kernel_profile(parent, seen, s, d, reps: int):
+def union_kernel_profile(parent, seen, s, d, reps: int, fold=None):
     """torch.profiler device us per launch of the union and compress
-    kernels over ``reps`` folds into fresh state copies: {kernel: us}."""
+    kernels over ``reps`` calls of ``fold`` (default the CC fold) into
+    fresh state copies: {kernel: us}."""
     from gelly_streaming_tpu_torch.ops import unionfind as uf
 
+    fold = fold or uf.union_edges_with_seen
     copies = iter([(parent.clone(), seen.clone()) for _ in range(reps + 1)])
-    rows = profiler_device_us(lambda: uf.union_edges_with_seen(*next(copies), s, d), reps)
+    rows = profiler_device_us(lambda: fold(*next(copies), s, d), reps)
     found = {}
     for key, (us, _calls) in rows.items():
         for kernel in ("union_kernel", "compress_kernel"):
@@ -629,7 +661,37 @@ def cc_oracle(src, dst, capacity: int):
     return smallest[labels].astype(np.int32), seen
 
 
-def phase_cc_main(dev, cycles_per_ms: float) -> dict:
+def pack_batches(src, dst, batch: int, width) -> list:
+    """Wire buffers of every whole batch, packed by ``io.wire.pack_edges``
+    on a pool of host threads (numpy's sorts and copies release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gelly_streaming_tpu_torch.io import wire
+
+    def one(i):
+        return wire.pack_edges(src[i * batch : (i + 1) * batch], dst[i * batch : (i + 1) * batch], width)
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(one, range(len(src) // batch)))
+
+
+def cc_bench_stream() -> dict:
+    """The CC bench's stream (bench.py:2190-2192): 50 batches of 2^21
+    uniform edges over 2^20 vertices from numpy's default_rng(0), packed
+    at ``replay_width`` (EF40) for the wire replay.  Phases 7-10 share it."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, c, nb * batch).astype(np.int32)
+    dst = rng.integers(0, c, nb * batch).astype(np.int32)
+    width = wire.replay_width(c, batch)
+    t0 = time.perf_counter()
+    bufs = pack_batches(src, dst, batch, width)
+    return {"src": src, "dst": dst, "width": width, "bufs": bufs, "pack_s": time.perf_counter() - t0}
+
+
+def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     """The streaming CC main path at bench.py's size, checked against the
     twin and scipy; returns the numbers for the report."""
     import torch
@@ -643,18 +705,10 @@ def phase_cc_main(dev, cycles_per_ms: float) -> dict:
 
     c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
     num_edges = nb * batch
-    rng = np.random.default_rng(0)
-    src = rng.integers(0, c, num_edges).astype(np.int32)
-    dst = rng.integers(0, c, num_edges).astype(np.int32)
-    width = wire.replay_width(c, batch)
-    t0 = time.perf_counter()
-    bufs, tail = wire.pack_stream(src, dst, batch, width)
-    pack_s = time.perf_counter() - t0
-    if tail is not None:
-        raise RuntimeError("the bench stream is whole batches")
+    src, dst, width, bufs = data["src"], data["dst"], data["width"], data["bufs"]
     wire_bytes = sum(b.nbytes for b in bufs)
     log(f"  {nb} batches of {batch} edges over {c} vertices, width {width}: {wire_bytes / num_edges:.4f} "
-        f"wire B/edge, packed in {pack_s:.1f} s (host numpy, untimed)")
+        f"wire B/edge, packed in {data['pack_s']:.1f} s (host numpy threads, untimed)")
     cfg = StreamConfig(vertex_capacity=c, batch_size=batch)
     agg = ConnectedComponents()
     # warm the path (allocator, pinned pool, the library's first load)
@@ -673,7 +727,7 @@ def phase_cc_main(dev, cycles_per_ms: float) -> dict:
     launches = dict(uf.LAUNCHES)
     if len(records) != 1:
         raise RuntimeError(f"expected one end-of-stream record, got {len(records)}")
-    if min(launches.values()) < nb:
+    if min(launches["union_kernel"], launches["compress_kernel"]) < nb:
         raise RuntimeError(f"the union-find kernels were not launched per batch: {launches}")
     log(f"  from_wire(...).aggregate(ConnectedComponents()): {wall_s:.3f} s first buffer -> host "
         f"labels, {num_edges / wall_s:.6g} edges/s end to end")
@@ -739,15 +793,16 @@ def phase_cc_main(dev, cycles_per_ms: float) -> dict:
     sl, dl = wire.unpack_edges(to_dev((bufs[-1],), dev)[0], batch, width)
     init = (uf.init_parent(c, dev), torch.zeros(c, dtype=torch.bool, device=dev))
     late = snaps["late"]
-    first_ms, first_us = union_device_ms(*init, s0, d0, UF_REPS, cycles_per_ms)
-    late_ms, late_us = union_device_ms(*late, sl, dl, UF_REPS, cycles_per_ms)
+    fold = uf.union_edges_with_seen
+    first_ms, first_us = fold_device_ms(fold, *init, s0, d0, UF_REPS, cycles_per_ms)
+    late_ms, late_us = fold_device_ms(fold, *late, sl, dl, UF_REPS, cycles_per_ms)
     twin_first_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*init, s0, d0), 1, 0)
     twin_late_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*late, sl, dl), 1, 0)
     compress_twin_ms = cuda_ms(lambda: uf.compress_plain(late[0]), 1, 0)
     # each kernel's held-stream time: the call with no edges is compress
     # alone, and the union kernel is the rest of the call
     none = torch.zeros(0, dtype=torch.int32, device=dev)
-    comp_ms, comp_us = union_device_ms(*late, none, none, UF_REPS, cycles_per_ms)
+    comp_ms, comp_us = fold_device_ms(fold, *late, none, none, UF_REPS, cycles_per_ms)
     held = {"union_kernel": (late_ms - comp_ms, late_us - comp_us), "compress_kernel": (comp_ms, comp_us)}
     per_kernel, split_by = {}, "torch.profiler"
     try:
@@ -785,6 +840,467 @@ def phase_cc_main(dev, cycles_per_ms: float) -> dict:
         "union_bound_ms": b_union,
         "compress_bound_ms": b_compress,
     }
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the GraphStream surface, the degree kernels and the parity union
+
+
+def trace_launcher(counts, v, m):
+    """A callable making one raw ``degree_trace_launch`` (packed records)
+    over pre-sorted keys: the kernel alone, without the sort."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    lib = _cuda.library("degrees.cu")
+    keys, order = torch.sort((v << 1) | (~m).to(torch.int32), stable=True)
+    n = v.shape[0]
+    rec = torch.empty(6 * n, dtype=torch.uint8, device=v.device)
+    bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+
+    def launch():
+        _cuda.check(lib.degree_trace_launch(m.data_ptr(), keys.data_ptr(), order.data_ptr(), n, counts.data_ptr(),
+                                            counts.shape[0], rec.data_ptr(), bits.data_ptr(), None, stream),
+                    "degree_trace_launch")
+
+    return launch
+
+
+def block_columns(out, limit=None):
+    """The concatenated columns of an OutputStream's record blocks."""
+    cols = None
+    for k, blk in enumerate(out.blocks()):
+        if limit is not None and k >= limit:
+            break
+        arrs = [c for c in blk.columns if isinstance(c, np.ndarray)]
+        cols = [[a] for a in arrs] if cols is None else [cs + [a] for cs, a in zip(cols, arrs)]
+    return [np.concatenate(cs) for cs in cols]
+
+
+def phase_properties(dev, cycles_per_ms: float, data: dict) -> dict:
+    """Phase 8: the degree property stream over the CC bench's 104,857,600
+    edges (209,715,200 records, downloaded packed), checked against
+    np.bincount and, on its first batches, the twin; the other property
+    streams and ``undirected().distinct()`` on prefixes, checked against
+    numpy."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream, _interleave_endpoints
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    src, dst = data["src"], data["dst"]
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch)
+    # warm the path (the library's first load, the pinned pool)
+    EdgeStream.from_arrays(src[:batch], dst[:batch], cfg, device=dev).get_degrees().collect_last()
+    torch.cuda.synchronize()
+
+    final = np.zeros(c, np.int64)
+    first_blocks, records, check_s = [], 0, 0.0
+    degrees.reset_launches()
+    t0 = time.perf_counter()
+    for k, blk in enumerate(EdgeStream.from_arrays(src, dst, cfg, device=dev).get_degrees().blocks()):
+        t_check = time.perf_counter()
+        ids, vals = blk.columns
+        np.maximum.at(final, ids, vals)
+        records += len(ids)
+        if k < PROP_TWIN_BATCHES:
+            first_blocks.append((ids.copy(), vals.copy()))
+        check_s += time.perf_counter() - t_check
+    # the stream's own time: the smoke's checks run inside the loop
+    wall_s = time.perf_counter() - t0 - check_s
+    launches = degrees.LAUNCHES["degree_trace"]
+    want = np.bincount(src, minlength=c) + np.bincount(dst, minlength=c)
+    if launches != nb:
+        raise RuntimeError(f"degree_trace launched {launches} times for {nb} batches")
+    if records != 2 * nb * batch or not np.array_equal(final, want):
+        raise RuntimeError("the degree trace's final degrees differ from np.bincount")
+    down_bytes = nb * (6 * 2 * batch + (2 * batch + 7) // 8)
+    log(f"  get_degrees over {nb * batch} edges: {records} records in {wall_s:.3f} s (the smoke's checks, "
+        f"{check_s:.3f} s more, excluded), "
+        f"{nb * batch / wall_s:.6g} edges/s, {records / wall_s:.6g} records/s, "
+        f"{down_bytes / wall_s / 1e9:.3f} GB/s of packed records downloaded; every vertex's final "
+        f"degree equal to np.bincount; degree_trace launched {launches} times")
+
+    # the first batches' records against the twin on the card
+    counts = torch.zeros(c, dtype=torch.int32, device=dev)
+    worst = 0
+    for k, (ids, vals) in enumerate(first_blocks):
+        b = EdgeBatch.from_arrays(src[k * batch : (k + 1) * batch], dst[k * batch : (k + 1) * batch], device=dev)
+        v, m = _interleave_endpoints(b)
+        counts, (rec, bits) = degrees.degree_trace_plain(counts, v, m, True)
+        w_ids, w_vals, w_m = wire.unpack_records48(rec.cpu().numpy(), bits.cpu().numpy(), len(v))
+        if len(ids) != int(w_m.sum()):
+            raise RuntimeError(f"batch {k}: {len(ids)} records, the twin {int(w_m.sum())}")
+        worst = max(worst, int(np.abs(ids - w_ids[w_m]).max()), int(np.abs(vals - w_vals[w_m]).max()))
+    if worst:
+        raise RuntimeError(f"the degree trace differs from the twin on its first batches ({worst})")
+    log(f"  the first {len(first_blocks)} batches' trace equal to the twin's, record for record")
+
+    # times at the main path's shapes: the last batch, unpacked on the card
+    bs, bd = src[-batch:], dst[-batch:]
+    buf = torch.from_numpy(wire.pack_edges(bs, bd, wire.PAIR40)).to(dev)
+    s, d = wire.unpack_edges(buf, batch, wire.PAIR40)
+    v, m = _interleave_endpoints(EdgeBatch(src=s, dst=d, mask=torch.ones(batch, dtype=torch.bool, device=dev)))
+    counts = torch.zeros(c, dtype=torch.int32, device=dev)
+    launch = trace_launcher(counts, v, m)
+    k_ms, k_us = device_ms(launch, UF_REPS, cycles_per_ms)
+    k_events = cuda_ms(launch, UF_REPS)
+    call_ms, call_us = device_ms(lambda: degrees.degree_trace(counts, v, m, True), UF_REPS, cycles_per_ms)
+
+    def step():
+        s2, d2 = wire.unpack_edges(buf, batch, wire.PAIR40)
+        v2, m2 = _interleave_endpoints(EdgeBatch(src=s2, dst=d2, mask=m[:batch]))
+        return degrees.degree_trace(counts, v2, m2, True)
+
+    step_ms, step_us = device_ms(step, UF_REPS, cycles_per_ms)
+    plain_ms = cuda_ms(lambda: degrees.degree_trace_plain(counts, v, m, True), 3, 1)
+    n = 2 * batch
+    # the kernel's own inputs: sorted keys + order read (12 B a row), the
+    # mask read (1 B), record + mask bit written (6 + 1/8 B), counts read and
+    # written once a vertex this batch touches (8 B)
+    touched = int(torch.unique(v).numel())
+    bound = (12 * n + n + 6 * n + n / 8 + 8 * touched) / HBM_BYTES_PER_S * 1e3
+    rec_dev = torch.empty(6 * n + (n + 7) // 8, dtype=torch.uint8, device=dev)
+    host = torch.empty(rec_dev.shape, dtype=torch.uint8, pin_memory=True)
+    d2h_ms = cuda_ms(lambda: host.copy_(rec_dev, non_blocking=True), 10)
+    rec_h, bits_h = (t.cpu().numpy() for t in degrees.degree_trace(counts, v, m, True))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        wire.unpack_records48(rec_h, bits_h, n)
+    decode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    busy = nb * step_ms / (wall_s * 1e3)
+    log(f"  degree_trace kernel alone (after the sort), device only: {k_ms:.4f} ms a batch of {n} rows, "
+        f"host enqueue {k_us:.2f} us, back-to-back events {k_events:.4f} ms; bound {bound:.5f} ms (bytes, "
+        f"{touched} vertices touched)")
+    log(f"  degree_trace call (keys, torch.sort, kernel): device {call_ms:.4f} ms, host enqueue {call_us:.1f} us; "
+        f"the whole batch step (PAIR40 unpack, interleave, call): device {step_ms:.4f} ms, host {step_us:.1f} us")
+    log(f"  plain twin {plain_ms:.3f} ms; one batch's packed records D2H alone {d2h_ms:.4f} ms "
+        f"({rec_dev.numel() / d2h_ms / 1e6:.3f} GB/s)")
+    log(f"  host decode of one batch's records (numpy unpack_records48): {decode_ms:.2f} ms, "
+        f"{nb * decode_ms / (wall_s * 1e3) * 100:.1f}% of the wall time over {nb} batches")
+    log(f"  device busy ~{busy * 100:.2f}% of the get_degrees wall time, idle ~{(1 - busy) * 100:.2f}%")
+
+    # the other property streams over a prefix of 8 batches
+    k = PROP_PREFIX_BATCHES * batch
+    ps, pd = src[:k], dst[:k]
+    stream = EdgeStream.from_arrays(ps, pd, cfg, device=dev)
+    inter = np.stack([ps, pd], axis=1).reshape(-1)
+    _, first_idx = np.unique(inter, return_index=True)
+    order_v = inter[np.sort(first_idx)]
+    t0 = time.perf_counter()
+    ids, vals = block_columns(stream.get_in_degrees())
+    fin = np.zeros(c, np.int64)
+    np.maximum.at(fin, ids, vals)
+    if len(ids) != k or not np.array_equal(fin, np.bincount(pd, minlength=c)):
+        raise RuntimeError("get_in_degrees differs from np.bincount")
+    (nv,) = block_columns(stream.number_of_vertices())
+    if not np.array_equal(nv, np.arange(1, len(order_v) + 1)):
+        raise RuntimeError("number_of_vertices differs from numpy")
+    (ne,) = block_columns(stream.number_of_edges())
+    if not np.array_equal(ne, np.arange(1, k + 1)):
+        raise RuntimeError("number_of_edges differs from numpy")
+    (gv,) = block_columns(stream.get_vertices())
+    if not np.array_equal(gv, order_v):
+        raise RuntimeError("get_vertices differs from numpy's first appearances")
+    log(f"  get_in_degrees, number_of_vertices, number_of_edges, get_vertices over {PROP_PREFIX_BATCHES} "
+        f"batches: equal to numpy ({len(order_v)} vertices) in {time.perf_counter() - t0:.1f} s")
+
+    # undirected().distinct() over 2 batches against a numpy set
+    k = PROP_DISTINCT_BATCHES * batch
+    t0 = time.perf_counter()
+    got = []
+    for b in EdgeStream.from_arrays(src[:k], dst[:k], cfg, device=dev).undirected().distinct().batches():
+        keep = b.mask.cpu().numpy()
+        got.append(b.src.cpu().numpy()[keep].astype(np.int64) * c + b.dst.cpu().numpy()[keep])
+    got = np.concatenate(got)
+    seq = []
+    for i in range(PROP_DISTINCT_BATCHES):
+        s_i, d_i = src[i * batch : (i + 1) * batch].astype(np.int64), dst[i * batch : (i + 1) * batch].astype(np.int64)
+        seq += [s_i * c + d_i, d_i * c + s_i]
+    seq = np.concatenate(seq)
+    _, first_idx = np.unique(seq, return_index=True)
+    if not np.array_equal(got, seq[np.sort(first_idx)]):
+        raise RuntimeError("undirected().distinct() differs from numpy's first occurrences")
+    log(f"  undirected().distinct() over {PROP_DISTINCT_BATCHES} batches: {len(got)} distinct directed edges "
+        f"of {len(seq)}, equal to numpy's first occurrences, in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "ms": k_events, "device_ms": k_ms, "host_us": k_us, "plain_ms": plain_ms,
+            "bound_ms": bound, "err": worst}
+
+
+def degree_dist_oracle(src, dst, sign):
+    """The reference's three keyed stages (DegreeDistribution.java:70-132)
+    as host dicts, event by event: (degree, count) records."""
+    degs, hist, out = {}, {}, []
+    for u, v, g in zip(src.tolist(), dst.tolist(), sign.tolist()):
+        for x in (u, v):
+            old = degs.get(x, 0)
+            if g < 0 and old <= 0:
+                continue  # deleting an absent vertex
+            new = old + g
+            if new > 0:
+                degs[x] = new
+                hist[new] = hist.get(new, 0) + 1
+                out.append((new, hist[new]))
+            else:
+                degs.pop(x, None)
+            if old > 0:
+                hist[old] -= 1
+                out.append((old, hist[old]))
+    return out
+
+
+def signed_events(rng, n: int, vertices: int, hubs: int = 0):
+    """Signed events, about 30% deletions (some of absent vertices), a few
+    self-loops, and with ``hubs`` a quarter of the rows on ``hubs`` vertices."""
+    src = rng.integers(0, vertices, n).astype(np.int32)
+    dst = rng.integers(0, vertices, n).astype(np.int32)
+    dst[::97] = src[::97]
+    if hubs:
+        sel = rng.random(n) < 0.25
+        src[sel] = rng.integers(0, hubs, int(sel.sum()))
+    sign = np.where(rng.random(n) < 0.3, -1, 1).astype(np.int8)
+    return src, dst, sign
+
+
+def signed_stream(src, dst, sign, cfg, batch: int, dev):
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io.sources import _batched
+
+    return EdgeStream.from_batches(_batched(src, dst, None, None, sign, batch, dev), cfg, device=dev)
+
+
+def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
+    """Phase 9: DegreeDistributionSummary over the EF40 replay (degree_fold)
+    and DegreeDistribution over signed streams (degree_dist_scan)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistribution, DegreeDistributionSummary
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    src, dst, width, bufs = data["src"], data["dst"], data["width"], data["bufs"]
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch)
+    agg = DegreeDistributionSummary()
+    EdgeStream.from_wire(bufs[:1], batch, width, cfg, device=dev).aggregate(agg).collect()
+    torch.cuda.synchronize()
+    degrees.reset_launches()
+    t0 = time.perf_counter()
+    (deg,), = EdgeStream.from_wire(bufs, batch, width, cfg, device=dev).aggregate(agg).collect()
+    deg = deg.cpu().numpy()
+    wall_s = time.perf_counter() - t0
+    fold_launches = degrees.LAUNCHES["degree_fold"]
+    want = np.bincount(src, minlength=c) + np.bincount(dst, minlength=c)
+    if fold_launches != nb or not np.array_equal(deg, want):
+        raise RuntimeError(f"DegreeDistributionSummary: {fold_launches} launches, deg equal: {np.array_equal(deg, want)}")
+    log(f"  from_wire(...).aggregate(DegreeDistributionSummary()): {wall_s:.3f} s, {nb * batch / wall_s:.6g} edges/s; "
+        f"deg equal to np.bincount; degree_fold launched {fold_launches} times")
+    s, d = wire.unpack_edges(torch.from_numpy(bufs[-1]).to(dev), batch, width)
+    base = torch.from_numpy(want.astype(np.int32)).to(dev)
+    fold_err = int((degrees.degree_fold(base.clone(), s, d) - degrees.degree_fold_plain(base, s, d)).abs().max())
+    acc = base.clone()
+    f_ms, f_us = device_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS, cycles_per_ms)
+    f_events = cuda_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS)
+    f_plain = cuda_ms(lambda: degrees.degree_fold_plain(base, s, d), 5)
+    idx = torch.cat([s, d]).long()
+    ones = torch.ones(idx.shape, dtype=torch.int32, device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, ones), UF_REPS)
+    f_bound = (8 * batch + 8 * c) / HBM_BYTES_PER_S * 1e3
+    log(f"  degree_fold a batch: device {f_ms:.4f} ms, host enqueue {f_us:.2f} us, events {f_events:.4f} ms; "
+        f"index_add_ (int64 index of both endpoints) {lib_ms:.4f} ms; plain twin {f_plain:.4f} ms; "
+        f"bound {f_bound:.5f} ms (bytes); max |err| vs twin {fold_err}")
+
+    # the fully-dynamic distribution: 2^20 signed events over 2^16 vertices
+    rng = np.random.default_rng(1)
+    n_ev, nv, ev_batch = DD_EVENTS, DD_VERTICES, DD_BATCH
+    es, ed, eg = signed_events(rng, n_ev, nv)
+    dcfg = StreamConfig(vertex_capacity=nv)
+    degrees.reset_launches()
+    t0 = time.perf_counter()
+    dd = DegreeDistribution()
+    ids, counts = block_columns(dd.run(signed_stream(es, ed, eg, dcfg, ev_batch, dev)))
+    dd_s = time.perf_counter() - t0
+    scan_launches = degrees.LAUNCHES["degree_dist_scan"]
+    t0 = time.perf_counter()
+    oracle = np.array(degree_dist_oracle(es, ed, eg), np.int64).reshape(-1, 2)
+    oracle_s = time.perf_counter() - t0
+    if scan_launches != n_ev // ev_batch:
+        raise RuntimeError(f"degree_dist_scan launched {scan_launches} times for {n_ev // ev_batch} batches")
+    if len(ids) != len(oracle) or not (np.array_equal(ids, oracle[:, 0]) and np.array_equal(counts, oracle[:, 1])):
+        raise RuntimeError("DegreeDistribution differs from the keyed-stage oracle")
+    deletes = int((eg < 0).sum())
+    log(f"  DegreeDistribution over {n_ev} signed events ({deletes} deletions) on {nv} vertices, batches of "
+        f"{ev_batch}: {len(ids)} records in {dd_s:.3f} s, equal to the three-stage dict oracle ({oracle_s:.1f} s); "
+        f"degree_dist_scan launched {scan_launches} times")
+    # the twin on the first batch, and a run at capacity 2^10 past which hubs' degrees go
+    sl = slice(0, ev_batch)
+    args = [torch.from_numpy(a[sl]).to(dev) for a in (es, ed, eg)] + [torch.ones(ev_batch, dtype=torch.bool, device=dev)]
+    z = torch.zeros(nv, dtype=torch.int32, device=dev)
+    got = degrees.degree_dist_scan(z.clone(), z.clone(), *args)
+    t0 = time.perf_counter()
+    want_t = degrees.degree_dist_scan_plain(z, z, *args)
+    scan_plain_ms = (time.perf_counter() - t0) * 1e3
+    scan_err = max(int((got[0] - want_t[2]).abs().max()), int((got[1] != want_t[3]).sum()))
+    cs, cd, cg = signed_events(rng, DD_CAP_EVENTS, DD_CAP, hubs=4)
+    ccfg = StreamConfig(vertex_capacity=DD_CAP)
+    cap_dd = DegreeDistribution()
+    cap_got = block_columns(cap_dd.run(signed_stream(cs, cd, cg, ccfg, ev_batch, dev)))
+    cpu_dd = DegreeDistribution()
+    cap_want = block_columns(cpu_dd.run(signed_stream(cs, cd, cg, ccfg, ev_batch, torch.device("cpu"))))
+    top = int(cap_dd.final_state.deg.max())
+    if top < DD_CAP or not all(np.array_equal(a, b) for a, b in zip(cap_got, cap_want)):
+        raise RuntimeError(f"capacity run: max degree {top}, records equal to the twin's: "
+                           f"{all(np.array_equal(a, b) for a, b in zip(cap_got, cap_want))}")
+    scan_err = max(scan_err, int(not torch.equal(cap_dd.final_state.hist.cpu(), cpu_dd.final_state.hist)))
+    if scan_err:
+        raise RuntimeError(f"degree_dist_scan differs from its twin ({scan_err})")
+    state = (z.clone(), z.clone())
+    s_ms, s_us = device_ms(lambda: degrees.degree_dist_scan(*state, *args), 3, cycles_per_ms, warmup=1)
+    s_events = cuda_ms(lambda: degrees.degree_dist_scan(*state, *args), 3, 1)
+    # per event: src, dst (4 B each), sign, mask read; 8 int32 and 4 flags
+    # written; deg and hist read and written for both endpoints (4 x 4 B)
+    s_bound = ev_batch * (10 + 36 + 16) / HBM_BYTES_PER_S * 1e3
+    log(f"  degree_dist_scan a batch of {ev_batch} events: device {s_ms:.3f} ms ({s_ms * 1e6 / ev_batch:.1f} ns "
+        f"an event), host enqueue {s_us:.1f} us; plain twin (host loop) {scan_plain_ms:.1f} ms; bound "
+        f"{s_bound:.5f} ms (bytes); first batch equal to the twin; capacity {DD_CAP} run ({DD_CAP_EVENTS} events, "
+        f"max degree {top}) equal to the twin's")
+    return {
+        "fold": {"launches": fold_launches, "ms": f_events, "device_ms": f_ms, "host_us": f_us, "plain_ms": f_plain,
+                 "bound_ms": f_bound, "library_ms": lib_ms, "err": fold_err},
+        "scan": {"launches": scan_launches, "ms": s_events, "device_ms": s_ms, "host_us": s_us,
+                 "plain_ms": scan_plain_ms, "bound_ms": s_bound, "err": scan_err},
+    }
+
+
+def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
+    """Phase 10: BipartitenessCheck over an even -> odd EF40 stream of the
+    bench's shape (bipartite: sides differ across every edge, components
+    equal to scipy's) and over the uniform stream ((false,{})); a timed
+    windowed run against the CPU path."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.io.sources import _batched
+    from gelly_streaming_tpu_torch.library.bipartiteness import BipartitenessCheck
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    width = data["width"]
+    bsrc = data["src"] & ~np.int32(1)
+    bdst = data["dst"] | np.int32(1)
+    t0 = time.perf_counter()
+    bbufs = pack_batches(bsrc, bdst, batch, width)
+    log(f"  even -> odd stream packed in {time.perf_counter() - t0:.1f} s (host numpy threads, untimed)")
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch)
+    agg = BipartitenessCheck()
+    EdgeStream.from_wire(bbufs[:1], batch, width, cfg, device=dev).aggregate(agg).collect()
+    torch.cuda.synchronize()
+    runs = {}
+    for name, bufs in (("bipartite", bbufs), ("uniform", data["bufs"])):
+        uf.reset_launches()
+        t0 = time.perf_counter()
+        (cand,), = EdgeStream.from_wire(bufs, batch, width, cfg, device=dev).aggregate(agg).collect()
+        verdict = cand.is_bipartite()
+        wall_s = time.perf_counter() - t0
+        runs[name] = (cand, verdict, wall_s, uf.LAUNCHES["parity_union_kernel"], uf.LAUNCHES["compress_kernel"])
+        log(f"  {name}: from_wire(...).aggregate(BipartitenessCheck()) {wall_s:.3f} s first buffer -> verdict, "
+            f"{nb * batch / wall_s:.6g} edges/s; is_bipartite {verdict}; launches {dict(uf.LAUNCHES)}")
+    cand, verdict, _, launches, compress_launches = runs["bipartite"]
+    if not verdict or launches != nb:
+        raise RuntimeError(f"the even -> odd stream: is_bipartite {verdict}, {launches} launches")
+    p = cand.parent2.cpu().numpy()
+    seen = cand.seen.cpu().numpy()
+    if not np.all(p[2 * bsrc] != p[2 * bdst]):
+        raise RuntimeError("a bipartite edge joins two vertices on one side")
+    o_parent, o_seen = cc_oracle(bsrc, bdst, c)
+    label = np.minimum(p[0::2], p[1::2]) // 2
+    if not (np.array_equal(seen, o_seen) and np.array_equal(label[seen], o_parent[seen])):
+        raise RuntimeError("the bipartite stream's components differ from scipy's")
+    cand_u, verdict_u, _, launches_u, _ = runs["uniform"]
+    if verdict_u or str(cand_u) != "(false,{})" or launches_u != nb:
+        raise RuntimeError(f"the uniform stream: {str(cand_u)[:40]}, {launches_u} launches")
+    log(f"  bipartite: sides differ across all {nb * batch} edges, {len(np.unique(label[seen]))} components equal "
+        f"to scipy's; uniform: (false,{{}})")
+
+    # one batch's parity fold: device time, twin, bound
+    s, d = wire.unpack_edges(torch.from_numpy(bbufs[-1]).to(dev), batch, width)
+    late = (cand.parent2.clone(), cand.seen.clone())
+    init = (uf.init_parity_parent(c, dev), torch.zeros(c, dtype=torch.bool, device=dev))
+    got = uf.parity_union_edges_with_seen(init[0].clone(), init[1].clone(), s, d)
+    want = uf.parity_union_edges_with_seen_plain(*init, s, d)
+    err = int((got[0] - want[0]).abs().max()) + int((got[1] != want[1]).sum())
+    if err:
+        raise RuntimeError(f"the parity union differs from its twin ({err})")
+    fold = uf.parity_union_edges_with_seen
+    first_ms, first_us = fold_device_ms(fold, *init, s, d, UF_REPS, cycles_per_ms)
+    late_ms, late_us = fold_device_ms(fold, *late, s, d, UF_REPS, cycles_per_ms)
+    copies = iter([(late[0].clone(), late[1].clone()) for _ in range(UF_REPS + 2)])
+    ev_ms = cuda_ms(lambda: uf.parity_union_edges_with_seen(*next(copies), s, d), UF_REPS)
+    plain_first = cuda_ms(lambda: uf.parity_union_edges_with_seen_plain(*init, s, d), 1, 0)
+    plain_late = cuda_ms(lambda: uf.parity_union_edges_with_seen_plain(*late, s, d), 1, 0)
+    # each kernel's held-stream time: the call with no edges is compress
+    # over the 2C doubled nodes alone, and the parity union is the rest
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    comp_ms, comp_us = fold_device_ms(fold, *late, none, none, UF_REPS, cycles_per_ms)
+    union_ms, union_us = late_ms - comp_ms, late_us - comp_us
+    per_kernel, split_by = {}, "torch.profiler"
+    try:
+        per_kernel = union_kernel_profile(*late, s, d, 10, fold=fold)
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    if len(per_kernel) < 2:
+        per_kernel = {"union_kernel": union_ms * 1e3, "compress_kernel": comp_ms * 1e3}
+        split_by = "held-stream times (the profiler showed no kernel rows)"
+    # the parity union alone: src/dst read (8 B a row), parent2 read (4 B a
+    # doubled node, 2C of them), seen written (1 B a vertex); compress of the
+    # doubled space reads and writes parent2 (16 B a vertex)
+    bound = (8 * batch + 9 * c) / HBM_BYTES_PER_S * 1e3
+    compress_bound = 16 * c / HBM_BYTES_PER_S * 1e3
+    log(f"  parity fold a batch (compress + parity union, one C call), device only: first {first_ms:.4f} ms, "
+        f"late {late_ms:.4f} ms; host enqueue {first_us:.1f} / {late_us:.1f} us; events (late) {ev_ms:.4f} ms; "
+        f"plain twin {plain_first:.2f} / {plain_late:.2f} ms")
+    log(f"  per kernel on the late batch, by {split_by}: parity union_kernel "
+        f"{per_kernel['union_kernel']:.2f} us, compress_kernel (2C nodes) {per_kernel['compress_kernel']:.2f} us "
+        f"a launch; held stream: compress alone {comp_ms * 1e3:.2f} us, the call minus it {union_ms * 1e3:.2f} us, "
+        f"host {union_us:.1f} us; bounds {bound * 1e3:.3f} / {compress_bound * 1e3:.3f} us (bytes)")
+
+    # the windowed path at a smaller depth: panes folded in two partitions,
+    # combined and merged by merge_parents on the doubled space
+    rng = np.random.default_rng(3)
+    wn, wc = BP_WINDOW_EDGES, BP_WINDOW_VERTICES
+    ws = (rng.integers(0, wc // 2, wn) * 2).astype(np.int32)
+    wd = (rng.integers(0, wc // 2, wn) * 2 + 1).astype(np.int32)
+    odd = rng.choice(np.arange(wn // 2, wn), 3, replace=False)  # odd cycles after half the stream
+    ws[odd] = wd[odd] - 2 * rng.integers(1, 4, 3).astype(np.int32)
+    tim = np.sort(rng.integers(0, 4 * 1000, wn))
+    wcfg = StreamConfig(vertex_capacity=wc, num_shards=2)
+
+    def windowed(device):
+        stream = EdgeStream.from_batches(_batched(ws, wd, None, tim, None, 1 << 14, device), wcfg, device=device)
+        return [(r[0].parent2.cpu(), r[0].seen.cpu(), r[0].is_bipartite())
+                for r in stream.aggregate(BipartitenessCheck(window_ms=1000)).collect()]
+
+    t0 = time.perf_counter()
+    on_card = windowed(dev)
+    card_s = time.perf_counter() - t0
+    on_cpu = windowed(torch.device("cpu"))
+    if len(on_card) != 4 or any(not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2])
+                                for a, b in zip(on_card, on_cpu)):
+        raise RuntimeError("the windowed bipartiteness check differs from the CPU path")
+    log(f"  windowed: {wn} timed edges over {wc} vertices, 4 windows of 1000 ms, 2 partitions: every emission "
+        f"equal to the CPU path ({card_s:.2f} s on the card); verdicts {[r[2] for r in on_card]}")
+    return {"launches": launches, "compress_launches": compress_launches, "ms": per_kernel["union_kernel"] / 1e3,
+            "device_ms": union_ms, "host_us": union_us, "plain_ms": plain_late, "bound_ms": bound, "err": err}
 
 
 def main(argv=None) -> int:
@@ -1026,7 +1542,14 @@ def main(argv=None) -> int:
     log("phase 6: union-find kernels vs plain twin at 2^20 vertices")
     uf_err = phase_union(dev, rng)
     log("phase 7: main path, streaming CC over the EF40 wire replay on the card")
-    cc = phase_cc_main(dev, cpm)
+    data = cc_bench_stream()
+    cc = phase_cc_main(dev, cpm, data)
+    log("phase 8: property streams over the CC bench's stream on the card")
+    props = phase_properties(dev, cpm, data)
+    log("phase 9: degree distribution: the EF40 summary fold and the signed scan")
+    dd = phase_degree_dist(dev, cpm, data)
+    log("phase 10: bipartiteness over the EF40 replay, and the windowed path")
+    bp = phase_bipartite(dev, cpm, data)
 
     kernels = [
         {
@@ -1079,7 +1602,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/unionfind.cu",
             "replaces": "gelly_streaming_tpu/ops/unionfind.py:27",
-            "launches": cc["launches"]["compress_kernel"],
+            # the CC fold's and the parity fold's (each C call compresses first)
+            "launches": cc["launches"]["compress_kernel"] + bp["compress_launches"],
             "max_abs_err": uf_err,
             "ms": cc["compress_ms"],
             "device_ms": cc["held"]["compress_kernel"][0],
@@ -1089,6 +1613,20 @@ def main(argv=None) -> int:
             "bound_by": "bytes",
             "library_ms": None,
         },
+    ]
+
+    def entry(name, source, replaces, r, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"gelly_streaming_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+                "device_ms": r["device_ms"], "host_us": r["host_us"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": library_ms}
+
+    kernels += [
+        entry("degree_trace", "degrees.cu", "gelly_streaming_tpu/core/stream.py:869", props),
+        entry("degree_fold", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:247", dd["fold"],
+              dd["fold"]["library_ms"]),
+        entry("degree_dist_scan", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:43", dd["scan"]),
+        entry("parity_union_kernel", "unionfind.cu", "gelly_streaming_tpu/ops/unionfind.py:145", bp),
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

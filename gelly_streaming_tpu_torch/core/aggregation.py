@@ -8,8 +8,9 @@ rounds of ``degree``-ary groups) and ``run()``'s routing:
 
 * **the wire path** (array-backed or ``from_wire`` streams folded by one
   partition, no wall-clock panes): every wire buffer is uploaded by
-  ``io/prefetch.Prefetcher`` (pinned memory, a side stream, an event) and
-  unpacked and folded into the running state on the device, batch after
+  ``io/prefetch.Prefetcher`` (pinned memory, a side stream, an event),
+  unpacked, run through the stream's stages and folded into the running
+  state on the device, batch after
   batch, with no host sync; the running state is emitted every
   ``ingest_window_edges / batch`` batches and at stream end.  With
   ``superbatch > 1`` a group of buffers travels as one transfer and its
@@ -40,7 +41,7 @@ import torch
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.core.output import OutputStream
 from gelly_streaming_tpu_torch.core.stream import plan_superbatch_groups
-from gelly_streaming_tpu_torch.core.types import tree_map
+from gelly_streaming_tpu_torch.core.types import EdgeBatch, tree_map
 from gelly_streaming_tpu_torch.core.windows import WindowPane, stream_panes
 from gelly_streaming_tpu_torch.io import wire
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
@@ -214,13 +215,23 @@ class SummaryAggregation:
             return g, (arena,)
 
         state = self.initial_state(cfg, dev)
+        # the stream's stages run on each unpacked batch before the fold
+        stage_states = stream._init_stage_states()
+        ones = torch.ones((batch,), dtype=torch.bool, device=dev) if stream._stages else None
+
+        def fold(state, s, d, m):
+            if not stream._stages:
+                return self.update(state, s, d, None, m)
+            b = stream._apply_stages(stage_states, EdgeBatch(src=s, dst=d, mask=ones if m is None else m))
+            return self.update(state, b.src, b.dst, b.val, b.mask)
+
         pending_final = True
         pos = 0
         with Prefetcher(offsets, prep, dev, depth=cfg.prefetch_depth) as pf:
             for g, (buf,) in pf:
                 for row in [buf] if g == 1 else buf.unbind(0):
                     s, d = wire.unpack_edges(row, batch, width)
-                    state = self.update(state, s, d, None, None)
+                    state = fold(state, s, d, None)
                 pos += g
                 if emit_every and pos % emit_every == 0:
                     # the running state IS the merged summary; clone it,
@@ -236,7 +247,7 @@ class SummaryAggregation:
             pad_d[:rem] = tail_pair[1]
             mask[:rem] = True
             s, d, m = upload((pad_s, pad_d, mask), dev)
-            state = self.update(state, s, d, None, m)
+            state = fold(state, s, d, m)
         if total_edges and pending_final:
             yield _as_record(self.transform(state))
 

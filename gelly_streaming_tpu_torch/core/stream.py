@@ -1,15 +1,32 @@
-"""EdgeStream: the graph-stream API, as far as the ported slices use it.
+"""EdgeStream: the graph-stream API (reference: GraphStream.java + SimpleEdgeStream.java).
 
-Port of the ``EdgeStream`` subset of ``gelly_streaming_tpu/core/stream.py``
-that ``window_triangles`` and the streaming aggregations read: the
-constructors ``from_collection``, ``from_batches``, ``from_arrays`` (with
-its vertex-id bounds check) and ``from_wire`` (a replay of buffers already
-in the wire format, with its guards), ``batches()``, ``cfg``,
-``num_edges_hint``, ``aggregate``, the late-record sink, and the backing
-host arrays that feed the aggregation wire path and let count-cut panes
-slice straight off an array-backed stream.  A stream also carries the
-torch device its batches are built on.  Transformation stages
-(map/filter/distinct/...) are not ported yet.
+Port of ``gelly_streaming_tpu/core/stream.py``'s ``EdgeStream`` without the
+keyed aggregates, ``slice`` and the superbatch planes.  A stream is a lazy
+pipeline of stages over padded COO micro-batches; each stage is a
+``(state, batch) -> (state, batch)`` function run eagerly on the stream's
+torch device (the JAX package composes and jits them; there is no jit
+here), and its state (dense per-vertex tensors) threads through the run.
+
+API parity map (reference file:line):
+  map_edges            SimpleEdgeStream.java:217   (value transform per edge)
+  filter_edges         SimpleEdgeStream.java:290
+  filter_vertices      SimpleEdgeStream.java:257-281 (predicate on both endpoints)
+  distinct             SimpleEdgeStream.java:301-323 (stateful seen-table)
+  reverse              SimpleEdgeStream.java:328
+  undirected           SimpleEdgeStream.java:350-361 (emit edge + reverse)
+  union                SimpleEdgeStream.java:343
+  get_vertices         SimpleEdgeStream.java:116-129 (first-occurrence emission)
+  get_degrees/in/out   SimpleEdgeStream.java:413-478 (running degree trace)
+  number_of_vertices   SimpleEdgeStream.java:366-383 (running distinct count)
+  number_of_edges      SimpleEdgeStream.java:388-404 (running edge count)
+  aggregate            SimpleEdgeStream.java:100-102 -> core/aggregation.py
+
+The property streams run their kernel after the stages on the device and
+download each batch's outputs through ``io/prefetch.prefetch_to_host``;
+array-backed streams upload packed wire buffers and unpack them on the
+device first.  The degree trace's kernel is ``ops/degrees.degree_trace``
+(``csrc/degrees.cu`` on the GPU); the vertex and edge counters are PyTorch
+ops on the device.
 """
 
 from __future__ import annotations
@@ -17,11 +34,148 @@ from __future__ import annotations
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from gelly_streaming_tpu_torch.core.config import StreamConfig
-from gelly_streaming_tpu_torch.core.types import EdgeBatch
+from gelly_streaming_tpu_torch.core.output import NULL, OutputStream, RecordBlock
+from gelly_streaming_tpu_torch.core.types import EdgeBatch, EdgeDirection, tree_leaves
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io import wire as _wire
+from gelly_streaming_tpu_torch.io.prefetch import WirePrefetcher, prefetch_to_host
+from gelly_streaming_tpu_torch.ops import degrees, neighbors, segments
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages
+
+
+class Stage:
+    """A pipeline stage: ``init`` builds its state on a device, ``apply``
+    maps (state, batch) to (state, batch)."""
+
+    def init(self, cfg: StreamConfig, device: torch.device):
+        return ()
+
+    def apply(self, state, batch: EdgeBatch):
+        raise NotImplementedError
+
+
+class _Stateless(Stage):
+    def __init__(self, fn: Callable[[EdgeBatch], EdgeBatch]):
+        self.fn = fn
+
+    def apply(self, state, batch):
+        return state, self.fn(batch)
+
+
+def _value_bits(val) -> torch.Tensor:
+    """Lossless int32 view of a per-edge scalar value for whole-edge dedup.
+
+    Values of <= 32 bits are bit-cast (floats) or cast (integers, bools)
+    without collision; multi-leaf or wider values have no sound dense form
+    (a hash could collide and drop distinct edges) and are refused."""
+    leaves = tree_leaves(val)
+    if len(leaves) != 1 or leaves[0].dim() != 1:
+        raise ValueError(
+            "whole-edge distinct needs a single scalar value per edge; "
+            "use distinct(by='endpoints') or map the values into one "
+            "<=32-bit scalar first (map_edges)"
+        )
+    leaf = leaves[0]
+    size = leaf.element_size()
+    if size > 4:
+        raise ValueError(
+            f"whole-edge distinct supports values of <= 32 bits (got {leaf.dtype}); "
+            "use distinct(by='endpoints') or narrow the values (map_edges)"
+        )
+    if leaf.dtype.is_floating_point:
+        # a bit-cast: a cast would truncate (1.5 and 1.0 both -> 1)
+        width_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}[size]
+        return leaf.view(width_int).to(torch.int32)
+    if not leaf.dtype.is_complex:
+        return leaf.to(torch.int32)
+    raise ValueError(
+        f"whole-edge distinct cannot form exact bits for dtype {leaf.dtype}; "
+        "use distinct(by='endpoints') or map the values (map_edges)"
+    )
+
+
+class _DistinctStage(Stage):
+    """Stateful distinct with the reference's per-key HashSet semantics
+    (SimpleEdgeStream.java:309-323) in device neighbor tables.  ``edge``
+    mode dedupes (src, dst, value) triples through two slot-aligned tables
+    (value-less batches carry the value bits 0); ``endpoints`` mode dedupes
+    (src, dst) pairs in one table, the first value winning."""
+
+    def __init__(self, mode: str):
+        assert mode in ("edge", "endpoints"), mode
+        self.mode = mode
+
+    def init(self, cfg, device):
+        table = neighbors.init_table(cfg.vertex_capacity, cfg.max_degree, device)
+        if self.mode == "endpoints":
+            return table
+        return (table, neighbors.init_table(cfg.vertex_capacity, cfg.max_degree, device))
+
+    def apply(self, state, batch):
+        if self.mode == "endpoints":
+            table, is_new = neighbors.insert_unique_batch(state, batch.src, batch.dst, batch.mask)
+            return table, batch.replace(mask=is_new)
+        table, vtable = state
+        bits = (
+            torch.zeros(batch.src.shape, dtype=torch.int32, device=batch.src.device)
+            if batch.val is None
+            else _value_bits(batch.val)
+        )
+        table, vtable, is_new = neighbors.insert_unique_valued_batch(
+            table, vtable, batch.src, batch.dst, bits, batch.mask
+        )
+        return (table, vtable), batch.replace(mask=is_new)
+
+
+class _FanoutLateHolder:
+    """Late-sink holder of ``union()``: one logical sink over the unioned
+    chain and both input chains.  Reads fall through to the parents;
+    writes fan out to them."""
+
+    def __init__(self, *parents):
+        self._parents = parents
+        self._own = {"sink": None}
+
+    def __getitem__(self, key):
+        if self._own[key] is not None:
+            return self._own[key]
+        for parent in self._parents:
+            value = parent[key]
+            if value is not None:
+                return value
+        return None
+
+    def __setitem__(self, key, value):
+        self._own[key] = value
+        for parent in self._parents:
+            parent[key] = value
+
+
+def _interleave_endpoints(batch: EdgeBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-edge (src, dst) emission order, flattened to [2B] (EmitSrcAndTarget
+    / DegreeTypeSeparator order, SimpleEdgeStream.java:181-188,450-458)."""
+    v = torch.stack([batch.src, batch.dst], dim=1).reshape(-1)
+    m = torch.stack([batch.mask, batch.mask], dim=1).reshape(-1)
+    return v, m
+
+
+def _round_robin(iterators: List[Iterator]) -> Iterator:
+    iterators = list(iterators)
+    while iterators:
+        nxt = []
+        for it in iterators:
+            try:
+                yield next(it)
+                nxt.append(it)
+            except StopIteration:
+                pass
+        iterators = nxt
 
 
 def plan_superbatch_groups(n: int, k: int, boundaries=()) -> List[int]:
@@ -119,17 +273,26 @@ class EdgeStream:
         device: DeviceLike = None,
         wire_arrays: Optional[Tuple[np.ndarray, np.ndarray, int]] = None,
         wire_packed: Optional[tuple] = None,
+        stages: Tuple[Stage, ...] = (),
+        valued: Optional[bool] = None,
     ):
         self._source_factory = source_factory
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._stages = stages
+        # does the stream carry edge values: True / False when the source
+        # knows, None for opaque batch sources (distinct's auto mode reads it)
+        self._valued = valued
         # (src, dst, batch_size) host arrays backing an array-built stream
-        # (the aggregation wire path packs them; core/windows.stream_panes
-        # slices count-cut panes off them)
+        # (the aggregation wire path and the property streams pack them;
+        # core/windows.stream_panes slices count-cut panes off them); kept
+        # through stages, which run after the device unpack
         self._wire_arrays = wire_arrays
         # (bufs, batch_size, width, tail) of a from_wire replay: buffers
         # already in the wire format, uploaded as they are
         self._wire_packed = wire_packed
+        # shared by every stream derived with _with: on_late() anywhere in a
+        # transform chain is seen by the whole chain
         self._late_holder = {"sink": None}
 
     @property
@@ -180,7 +343,7 @@ class EdgeStream:
                     chunk, pad_to=bs, with_time=with_time, device=dev
                 )
 
-        return EdgeStream(factory, cfg, device=dev)
+        return EdgeStream(factory, cfg, device=dev, valued=bool(edges) and len(edges[0]) >= 3)
 
     @staticmethod
     def from_batches(
@@ -227,7 +390,7 @@ class EdgeStream:
                     chunk_s, dst[i : i + bs], pad_to=bs, device=dev
                 )
 
-        return EdgeStream(factory, cfg, device=dev, wire_arrays=(src, dst, bs))
+        return EdgeStream(factory, cfg, device=dev, wire_arrays=(src, dst, bs), valued=False)
 
     @staticmethod
     def from_wire(
@@ -287,13 +450,282 @@ class EdgeStream:
             if tail is not None:
                 yield EdgeBatch.from_arrays(tail[0], tail[1], pad_to=batch_size, device=dev)
 
-        return EdgeStream(factory, cfg, device=dev, wire_packed=(bufs, batch_size, width, tail))
+        return EdgeStream(
+            factory, cfg, device=dev, wire_packed=(bufs, batch_size, width, tail), valued=False
+        )
+
+    def _with(self, stage: Stage, valued: Optional[bool] = None) -> "EdgeStream":
+        out = EdgeStream(
+            self._source_factory,
+            self.cfg,
+            device=self.device,
+            wire_arrays=self._wire_arrays,
+            wire_packed=self._wire_packed,
+            stages=self._stages + (stage,),
+            valued=self._valued if valued is None else valued,
+        )
+        out._late_holder = self._late_holder  # alias: one sink per chain
+        return out
+
+    # ---- transformations (lazy) --------------------------------------------
+
+    def map_edges(self, fn: Callable) -> "EdgeStream":
+        """Transform each edge's value: ``fn(src, dst, val) -> new val`` on
+        the batch's tensors (a tuple of tensors is a tuple value)
+        (SimpleEdgeStream.java:217)."""
+
+        def tx(batch: EdgeBatch) -> EdgeBatch:
+            return batch.replace(val=fn(batch.src, batch.dst, batch.val))
+
+        return self._with(_Stateless(tx), valued=True)
+
+    def filter_edges(self, pred: Callable) -> "EdgeStream":
+        """Keep edges where ``pred(src, dst, val)`` is True (SimpleEdgeStream.java:290)."""
+
+        def tx(batch: EdgeBatch) -> EdgeBatch:
+            return batch.replace(mask=batch.mask & pred(batch.src, batch.dst, batch.val))
+
+        return self._with(_Stateless(tx))
+
+    def filter_vertices(self, pred: Callable) -> "EdgeStream":
+        """Keep edges whose BOTH endpoints satisfy ``pred(vertex_ids)``
+        (SimpleEdgeStream.java:264-281)."""
+
+        def tx(batch: EdgeBatch) -> EdgeBatch:
+            return batch.replace(mask=batch.mask & pred(batch.src) & pred(batch.dst))
+
+        return self._with(_Stateless(tx))
+
+    def reverse(self) -> "EdgeStream":
+        """Swap src/dst (SimpleEdgeStream.java:328)."""
+        return self._with(_Stateless(lambda b: b.reversed()))
+
+    def undirected(self) -> "EdgeStream":
+        """Emit each edge in both directions (SimpleEdgeStream.java:350-361).
+        Doubles the static batch size."""
+        return self._with(_Stateless(lambda b: b.concat(b.reversed())))
+
+    def distinct(self, by: str = "auto") -> "EdgeStream":
+        """Drop duplicate edges (SimpleEdgeStream.java:301-323).  ``auto``
+        dedupes whole edges (value included) unless the source is known to
+        be value-less, where endpoint pairs are the same thing at half the
+        state; ``edge`` and ``endpoints`` force either mode.  A new edge
+        past its source's ``cfg.max_degree`` table slots is emitted but not
+        remembered, so a later duplicate of it passes again."""
+        if by not in ("auto", "edge", "endpoints"):
+            raise ValueError(f"unknown distinct mode {by!r}")
+        if by == "auto":
+            by = "endpoints" if self._valued is False else "edge"
+        return self._with(_DistinctStage(by))
+
+    def union(self, other: "EdgeStream") -> "EdgeStream":
+        """Merge two edge streams (SimpleEdgeStream.java:343); batches of
+        both (fully transformed) streams interleave round robin."""
+        if other.cfg.vertex_capacity != self.cfg.vertex_capacity:
+            raise ValueError("union requires matching vertex_capacity")
+        if other.device != self.device:
+            raise ValueError("union requires both streams on one device")
+        left, right = self, other
+
+        def factory():
+            yield from _round_robin([left.batches(), right.batches()])
+
+        if left._valued is None or right._valued is None:
+            merged_valued = True if (left._valued or right._valued) else None
+        else:
+            merged_valued = left._valued or right._valued
+        out = EdgeStream(factory, self.cfg, device=self.device, valued=merged_valued)
+        out._late_holder = _FanoutLateHolder(left._late_holder, right._late_holder)
+        return out
 
     # ---- execution ----------------------------------------------------------
 
+    def _init_stage_states(self) -> list:
+        return [stage.init(self.cfg, self.device) for stage in self._stages]
+
+    def _apply_stages(self, states: list, batch: EdgeBatch) -> EdgeBatch:
+        """Run the stage chain over one batch, updating ``states``."""
+        for k, stage in enumerate(self._stages):
+            states[k], batch = stage.apply(states[k], batch)
+        return batch
+
     def batches(self) -> Iterator[EdgeBatch]:
-        """The stream's micro-batches."""
-        return self._source_factory()
+        """The stream's micro-batches, through the stage chain."""
+        if not self._stages:
+            return self._source_factory()
+
+        def run():
+            states = self._init_stage_states()
+            for batch in self._source_factory():
+                yield self._apply_stages(states, batch)
+
+        return run()
+
+    def _kernel_stream(self, init_fn, kernel) -> Iterator:
+        """Run a terminal op's kernel after the stages, batch by batch.
+
+        ``kernel(op_state, batch) -> (op_state, outs)``, ``outs`` a tensor
+        or a tuple of tensors; ``init_fn(cfg, device)`` builds the op
+        state.  Yields each batch's ``outs`` as numpy arrays, downloaded
+        ahead of the consumer (io/prefetch.prefetch_to_host)."""
+        yield from prefetch_to_host(
+            self._kernel_stream_device(init_fn, kernel), self.device, depth=self.cfg.prefetch_depth
+        )
+
+    def _kernel_stream_device(self, init_fn, kernel) -> Iterator:
+        """``_kernel_stream``'s device plane: yields per-batch device outs.
+        An array-backed stream packs its batches at the fixed width of its
+        capacity on the prefetcher's thread, uploads them and unpacks them
+        on the device (the remainder is one padded batch); any other source
+        is read as EdgeBatches."""
+        cfg, dev = self.cfg, self.device
+        states = self._init_stage_states()
+        op_state = init_fn(cfg, dev)
+
+        def step(batch):
+            nonlocal op_state
+            op_state, outs = kernel(op_state, self._apply_stages(states, batch))
+            return outs
+
+        if self._wire_arrays is None:
+            for batch in self._source_factory():
+                yield step(batch)
+            return
+        src, dst, batch_size = self._wire_arrays
+        bs = min(batch_size, max(len(src), 1))
+        n_full = len(src) // bs
+        width = _wire.width_for_capacity(cfg.vertex_capacity)
+        full = ((src[i * bs : (i + 1) * bs], dst[i * bs : (i + 1) * bs]) for i in range(n_full))
+        ones = torch.ones((bs,), dtype=torch.bool, device=dev)
+        with WirePrefetcher(full, width, dev, depth=cfg.prefetch_depth) as pf:
+            for buf, _ in pf:
+                s, d = _wire.unpack_edges(buf, bs, width)
+                yield step(EdgeBatch(src=s, dst=d, mask=ones))
+        if len(src) > n_full * bs:
+            yield step(EdgeBatch.from_arrays(src[n_full * bs :], dst[n_full * bs :], pad_to=bs, device=dev))
+
+    def collect_edges(self) -> List[tuple]:
+        out: List[tuple] = []
+        for b in self.batches():
+            out.extend(b.to_tuples())
+        return out
+
+    def edges_csv_lines(self) -> List[str]:
+        return OutputStream(lambda: iter(self.collect_edges())).lines()
+
+    # ---- continuous property streams ---------------------------------------
+
+    def get_vertices(self) -> OutputStream:
+        """(vertex, NullValue) on each vertex's first appearance
+        (SimpleEdgeStream.java:116-129: EmitSrcAndTarget + FilterDistinctVertices)."""
+
+        def init(cfg, dev):
+            return torch.zeros((cfg.vertex_capacity,), dtype=torch.bool, device=dev)
+
+        def kernel(seen, batch):
+            v, m = _interleave_endpoints(batch)
+            new = segments.first_occurrence_mask(v, m) & ~seen[v.long()] & m
+            seen[v[m].long()] = True
+            return seen, (v, new)
+
+        def blocks():
+            for v, new in self._kernel_stream(init, kernel):
+                yield RecordBlock((v[np.nonzero(new)[0]], NULL))
+
+        return OutputStream(blocks_fn=blocks)
+
+    def get_degrees(self) -> OutputStream:
+        """Running (vertex, degree) trace over both endpoints
+        (SimpleEdgeStream.java:413-415, DegreeTypeSeparator both flags true)."""
+        return self._degree_stream(EdgeDirection.ALL)
+
+    def get_in_degrees(self) -> OutputStream:
+        return self._degree_stream(EdgeDirection.IN)
+
+    def get_out_degrees(self) -> OutputStream:
+        return self._degree_stream(EdgeDirection.OUT)
+
+    def _degree_stream(self, direction: EdgeDirection) -> OutputStream:
+        """The continuous degree property stream: the k-th valid occurrence
+        of vertex v in a batch emits ``counts[v] + k + 1`` (DegreeMapFunction's
+        per-record HashMap update, SimpleEdgeStream.java:461-478), by
+        ``ops/degrees.degree_trace``.  Vertex spaces up to 2^20 download
+        records packed (48 bits and a mask bit a row, degrees clipped at
+        2^28 - 1); wider ones download raw int32 columns and a bool mask."""
+        packed = self.cfg.vertex_capacity <= 1 << 20
+
+        def init(cfg, dev):
+            return torch.zeros((cfg.vertex_capacity,), dtype=torch.int32, device=dev)
+
+        def kernel(counts, batch):
+            if direction == EdgeDirection.ALL:
+                v, m = _interleave_endpoints(batch)
+            elif direction == EdgeDirection.OUT:
+                v, m = batch.src, batch.mask
+            else:
+                v, m = batch.dst, batch.mask
+            return counts, degrees.degree_trace(counts, v.contiguous(), m.contiguous(), packed)
+
+        def blocks():
+            for outs in self._kernel_stream(init, kernel):
+                if packed:
+                    records, maskbits = outs
+                    ids, vals, m = _wire.unpack_records48(records, maskbits, len(records) // 6)
+                else:
+                    ids, vals, m = outs
+                if m.all():  # every row valid: the compaction would copy
+                    yield RecordBlock((ids, vals))
+                else:
+                    idx = np.nonzero(m)[0]
+                    yield RecordBlock((ids[idx], vals[idx]))
+
+        return OutputStream(blocks_fn=blocks)
+
+    def number_of_vertices(self) -> OutputStream:
+        """Running distinct-vertex count, emitted on change
+        (SimpleEdgeStream.java:366-383 via GlobalAggregateMapper :562-576)."""
+
+        def init(cfg, dev):
+            return torch.zeros((cfg.vertex_capacity,), dtype=torch.bool, device=dev)
+
+        def kernel(seen, batch):
+            v, m = _interleave_endpoints(batch)
+            new = segments.first_occurrence_mask(v, m) & ~seen[v.long()] & m
+            running = seen.sum(dtype=torch.int32) + torch.cumsum(new.to(torch.int32), 0, dtype=torch.int32)
+            seen[v[m].long()] = True
+            return seen, (running, new)
+
+        def blocks():
+            for running, new in self._kernel_stream(init, kernel):
+                yield RecordBlock((running[np.nonzero(new)[0]],))
+
+        return OutputStream(blocks_fn=blocks)
+
+    def number_of_edges(self) -> OutputStream:
+        """Running edge count, one record per arriving edge
+        (parallelism-1 counter, SimpleEdgeStream.java:388-404)."""
+
+        def init(cfg, dev):
+            return torch.zeros((), dtype=torch.int32, device=dev)
+
+        def kernel(total, batch):
+            running = total + torch.cumsum(batch.mask.to(torch.int32), 0, dtype=torch.int32)
+            return total + batch.num_valid(), (running, batch.mask)
+
+        def blocks():
+            for running, m in self._kernel_stream(init, kernel):
+                yield RecordBlock((running[np.nonzero(m)[0]],))
+
+        return OutputStream(blocks_fn=blocks)
+
+    def get_edges(self) -> OutputStream:
+        """The edge stream itself as records (GraphStream.getEdges)."""
+
+        def records():
+            for batch in self.batches():
+                yield from batch.to_tuples()
+
+        return OutputStream(records)
 
     def aggregate(self, summary_aggregation, checkpoint_path: Optional[str] = None):
         """Run a summary aggregation over this stream

@@ -1,4 +1,4 @@
-"""Core value types: padded COO edge micro-batches.
+"""Core value types: padded COO edge micro-batches and enums.
 
 Port of ``gelly_streaming_tpu/core/types.py``.  An ``EdgeBatch`` holds
 torch tensors on one device: int32 ``src``/``dst``, a bool ``mask``
@@ -10,12 +10,45 @@ JAX type: pad rows are masked out, ``sign`` pads with +1, the rest with 0.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
+
+
+class EventType(enum.Enum):
+    """Edge event kind (reference: EventType.java:24-27)."""
+
+    EDGE_ADDITION = 1
+    EDGE_DELETION = -1
+
+
+class EdgeDirection(enum.Enum):
+    """Neighborhood direction for degree ops (Flink's EdgeDirection)."""
+
+    IN = "in"
+    OUT = "out"
+    ALL = "all"
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a value column (see ``tree_map``), in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _tree_unflatten_like(tree, leaves: list):
+    """``tree``'s structure with ``leaves`` (consumed in order) as leaves."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -33,6 +66,22 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+# value columns take the JAX package's default (32-bit) widths
+_CANONICAL = {
+    torch.int64: torch.int32,
+    torch.float64: torch.float32,
+    torch.complex128: torch.complex64,
+}
+
+
+def _value_tensor(x, device: torch.device) -> torch.Tensor:
+    """A value leaf on ``device`` at the width the JAX package gives it
+    (64-bit leaves become 32-bit, as jnp.asarray makes them)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=_CANONICAL.get(x.dtype, x.dtype))
+
+
 def _tensor(x, dtype: Optional[torch.dtype], device: torch.device) -> torch.Tensor:
     """``x`` (array or tensor) on ``device``, cast to ``dtype`` unless None."""
     if not isinstance(x, torch.Tensor):
@@ -46,7 +95,8 @@ class EdgeBatch:
 
       src, dst: interned (dense) vertex ids, int32.
       mask:     validity; False rows are padding and must be ignored.
-      val:      optional edge values; ``None`` for NullValue graphs.
+      val:      optional edge values (32-bit leaves, as in the JAX package);
+                ``None`` for NullValue graphs.
       time:     optional event-time timestamps, int64 ms.
       sign:     optional +1/-1 event sign, int8; ``None`` = all additions.
     """
@@ -82,7 +132,7 @@ class EdgeBatch:
         else:
             mask = _tensor(mask, torch.bool, dev)
         if val is not None:
-            val = tree_map(lambda a: _tensor(a, None, dev), val)
+            val = tree_map(lambda a: _value_tensor(a, dev), val)
         if time is not None:
             time = _tensor(time, torch.int64, dev)
         if sign is not None:
@@ -185,3 +235,69 @@ class EdgeBatch:
             time=_pad(self.time),
             sign=_pad(self.sign, fill=1),
         )
+
+    def num_valid(self) -> torch.Tensor:
+        """Number of valid rows, an int32 scalar tensor."""
+        return self.mask.sum(dtype=torch.int32)
+
+    # ---- transforms used by the stream API ---------------------------------
+
+    def reversed(self) -> "EdgeBatch":
+        """Swap src/dst (reference: SimpleEdgeStream.java:328)."""
+        return dataclasses.replace(self, src=self.dst, dst=self.src)
+
+    def replace(self, **kw) -> "EdgeBatch":
+        return dataclasses.replace(self, **kw)
+
+    def concat(self, other: "EdgeBatch") -> "EdgeBatch":
+        """Rows of ``self`` then ``other``.  A field present on one side
+        only gets its semantic default on the other (sign: +1 for "all
+        additions", val: zeros); a one-sided time is an error."""
+
+        def _cat(a, b, field, fill=None):
+            if a is None and b is None:
+                return None
+            if (a is None) != (b is None):
+                if fill is None:
+                    raise ValueError(f"cannot concat batches where only one side has {field!r}")
+                length = (self.src if a is None else other.src).shape[0]
+
+                def synth(leaf):
+                    return torch.full(
+                        (length,) + tuple(leaf.shape[1:]), fill, dtype=leaf.dtype, device=leaf.device
+                    )
+
+                if a is None:
+                    a = tree_map(synth, b)
+                else:
+                    b = tree_map(synth, a)
+            return tree_map(lambda x, y: torch.cat([x, y]), a, b)
+
+        return EdgeBatch(
+            src=torch.cat([self.src, other.src]),
+            dst=torch.cat([self.dst, other.dst]),
+            mask=torch.cat([self.mask, other.mask]),
+            val=_cat(self.val, other.val, "val", fill=0),
+            time=_cat(self.time, other.time, "time"),
+            sign=_cat(self.sign, other.sign, "sign", fill=1),
+        )
+
+    # ---- host-side inspection ----------------------------------------------
+
+    def to_tuples(self) -> list:
+        """Valid edges as host tuples, ``(src, dst)`` or ``(src, dst,
+        val)``; a tuple/dict-valued ``val`` renders as a nested value per
+        row (Flink's Tuple CSV rendering)."""
+        src = self.src.cpu().tolist()
+        dst = self.dst.cpu().tolist()
+        mask = self.mask.cpu().tolist()
+        leaves = [leaf.cpu().tolist() for leaf in tree_leaves(self.val)]
+        out = []
+        for i, ok in enumerate(mask):
+            if not ok:
+                continue
+            if self.val is None:
+                out.append((src[i], dst[i]))
+            else:
+                out.append((src[i], dst[i], _tree_unflatten_like(self.val, [leaf[i] for leaf in leaves])))
+        return out

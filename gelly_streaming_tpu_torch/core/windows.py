@@ -342,7 +342,8 @@ def stream_panes(stream, window_ms: int) -> Iterator[WindowPane]:
     cfg = stream.cfg
     if cfg.ingest_window_edges or cfg.ingest_window_ms:
         arrays = getattr(stream, "_wire_arrays", None)
-        if cfg.ingest_window_edges and arrays is not None:
+        if cfg.ingest_window_edges and arrays is not None and not getattr(stream, "_stages", ()):
+            # stages change the edges: transformed streams take the batches
             return _array_backed_panes(arrays[0], arrays[1], cfg.ingest_window_edges)
         return assign_ingestion_windows(
             stream.batches(),

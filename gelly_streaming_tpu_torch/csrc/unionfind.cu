@@ -56,6 +56,16 @@
 // (chip_smoke.py phase 6).  Rounds bound every find to one load, and the
 // work by the number of rounds.
 //
+// The parity union (uf_parity_union_launch) is the same union kernel on the
+// doubled vertex space of the bipartiteness check: node 2v is "v on side A",
+// 2v + 1 "v on side B", and a row (u, w) asserts opposite sides, the edges
+// (2u, 2w + 1) and (2u + 1, 2w).  The JAX package concatenates those into
+// two [2n] arrays before its union; here each thread forms its edge from the
+// row it reads, and seen is marked in the original space.  Its fixed point
+// is the JAX one for the same reason as above.  Bound (bytes), 2^21 rows at
+// C = 2^20: src and dst read once (8 B a row), parent2 read (8 B a vertex),
+// seen written (1 B a vertex): 26.2 MB, 7.8 us.
+//
 // Bound on the H100 (bytes), for a 2^21-edge batch at C = 2^20 and 3.35
 // TB/s: union_kernel reads src and dst (8 B an edge) and parent (4 B a
 // vertex) and writes seen (1 B a vertex): 16.8 MB + 4.2 MB + 1.0 MB = 22.0
@@ -133,45 +143,56 @@ compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ flags)
   flatten(grid, parent, capacity, flags, round, first, stride);
 }
 
-// done: uint8[n] scratch, written by the first hook round for every edge
-// (1 = skipped row or agreeing roots), then read and set by later rounds.
+// done: uint8[items] scratch, written by the first hook round for every
+// edge (1 = skipped row or agreeing roots), then read and set by later
+// rounds.  kParity: the doubled space of the bipartiteness check, where
+// parent has 2 * vcap entries and each row (u, w) is two edges, (2u, 2w + 1)
+// at item row and (2u + 1, 2w) at item n + row, formed here from one read of
+// the row; seen stays in the original space.  Otherwise items = n and
+// vcap = capacity.
+template <bool kParity>
 __global__ void __launch_bounds__(kThreads)
 union_kernel(int* __restrict__ parent, uint8_t* __restrict__ seen,
              const int* __restrict__ src, const int* __restrict__ dst,
-             const uint8_t* __restrict__ mask, int n, int capacity, int* __restrict__ flags,
+             const uint8_t* __restrict__ mask, int n, int vcap, int* __restrict__ flags,
              uint8_t* __restrict__ done) {
   cg::grid_group grid = cg::this_grid();
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t items = kParity ? 2 * static_cast<int64_t>(n) : n;
   int round = 0;
   for (bool first_pass = true;; first_pass = false) {
     round_begin(flags, round, first);
     bool differ = false;
-    for (int64_t i = first; i < n; i += stride) {
+    for (int64_t i = first; i < items; i += stride) {
       if (!first_pass && done[i]) continue;
+      const int side = kParity && i >= n ? 1 : 0;
+      const int64_t row = i - side * static_cast<int64_t>(n);
       // src == nullptr: the edges (v, dst[v]) of merge_parents
-      const int u = src != nullptr ? __ldg(src + i) : static_cast<int>(i);
-      const int v = __ldg(dst + i);
-      if ((mask != nullptr && mask[i] == 0) ||
-          static_cast<unsigned>(u) >= static_cast<unsigned>(capacity) ||
-          static_cast<unsigned>(v) >= static_cast<unsigned>(capacity)) {
+      const int u = src != nullptr ? __ldg(src + row) : static_cast<int>(row);
+      const int v = __ldg(dst + row);
+      if ((mask != nullptr && mask[row] == 0) ||
+          static_cast<unsigned>(u) >= static_cast<unsigned>(vcap) ||
+          static_cast<unsigned>(v) >= static_cast<unsigned>(vcap)) {
         done[i] = 1;
         continue;
       }
-      if (first_pass && seen != nullptr) {
+      if (first_pass && seen != nullptr && side == 0) {
         seen[u] = 1;
         seen[v] = 1;
       }
-      const int ru = load_relaxed(parent + u);
-      const int rv = load_relaxed(parent + v);
-      if (ru != rv) {
+      const int a = kParity ? 2 * u + side : u;
+      const int b = kParity ? 2 * v + 1 - side : v;
+      const int ra = load_relaxed(parent + a);
+      const int rb = load_relaxed(parent + b);
+      if (ra != rb) {
         differ = true;
-        atomicMin(parent + max(ru, rv), min(ru, rv));
+        atomicMin(parent + max(ra, rb), min(ra, rb));
       }
-      if (first_pass || ru == rv) done[i] = ru == rv;
+      if (first_pass || ra == rb) done[i] = ra == rb;
     }
     if (!round_end(grid, flags, round, differ)) return;
-    flatten(grid, parent, capacity, flags, round, first, stride);
+    flatten(grid, parent, kParity ? 2 * vcap : vcap, flags, round, first, stride);
   }
 }
 
@@ -193,20 +214,11 @@ cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, c
                                      args, 0, s);
 }
 
-}  // namespace
-
-extern "C" {
-
-// parent: int32[capacity], updated in place; seen: uint8[capacity] or null;
-// src: int32[n] or null (then src[i] = i); dst: int32[n]; mask: uint8[n]
-// or null; scratch: 24 + n bytes of device memory, 4-byte aligned (the
-// kernels' round flags, cleared here, then the union kernel's done bytes).
-// Enqueues the compress kernel and, when n > 0, the union kernel on the
-// stream, with no host sync.  n = 0 is compress alone.
-int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
-                    const void* mask, int n, int capacity, void* scratch, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (capacity <= 0) return static_cast<int>(cudaGetLastError());
+// The compress kernel over `capacity` entries, then (items > 0) the union
+// kernel; flags in the caller's scratch are cleared first.
+template <bool kParity>
+int union_launch(void* parent, void* seen, const void* src, const void* dst, const void* mask,
+                 int n, int vcap, int capacity, void* scratch, cudaStream_t s) {
   int* p = static_cast<int*>(parent);
   int* flags = static_cast<int*>(scratch);
   cudaError_t err = cudaMemsetAsync(flags, 0, 2 * kFlagsPerKernel * sizeof(int), s);
@@ -222,11 +234,44 @@ int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
   auto* mask_b = static_cast<const uint8_t*>(mask);
   int* union_flags = flags + kFlagsPerKernel;
   auto* done = reinterpret_cast<uint8_t*>(flags + 2 * kFlagsPerKernel);
-  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &capacity, &union_flags, &done};
-  err = launch_cooperative(reinterpret_cast<const void*>(union_kernel),
-                           n > capacity ? n : capacity, union_args, s);
+  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &vcap, &union_flags, &done};
+  const int64_t items = kParity ? 2 * static_cast<int64_t>(n) : n;
+  err = launch_cooperative(reinterpret_cast<const void*>(union_kernel<kParity>),
+                           items > capacity ? items : capacity, union_args, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// parent: int32[capacity], updated in place; seen: uint8[capacity] or null;
+// src: int32[n] or null (then src[i] = i); dst: int32[n]; mask: uint8[n]
+// or null; scratch: 24 + n bytes of device memory, 4-byte aligned (the
+// kernels' round flags, cleared here, then the union kernel's done bytes).
+// Enqueues the compress kernel and, when n > 0, the union kernel on the
+// stream, with no host sync.  n = 0 is compress alone.
+int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
+                    const void* mask, int n, int capacity, void* scratch, void* stream) {
+  if (capacity <= 0) return static_cast<int>(cudaGetLastError());
+  return union_launch<false>(parent, seen, src, dst, mask, n, capacity, capacity, scratch,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The parity union of the bipartiteness check (replaces the JAX package's
+// parity_union_edges, gelly_streaming_tpu/ops/unionfind.py:145-162, and the
+// seen update of BipartitenessCheck.update): parent2: int32[2 * capacity],
+// updated in place; seen: uint8[capacity] or null, marked in the original
+// vertex space; src, dst: int32[n]; mask: uint8[n] or null (masked rows are
+// the JAX fold's (0, 0) self-unions, which change nothing); scratch: 24 + 2n
+// bytes.  The concatenated [2n] edge arrays of the JAX function are never
+// built: the kernel forms both doubled edges of a row from one read.
+int uf_parity_union_launch(void* parent2, void* seen, const void* src, const void* dst,
+                           const void* mask, int n, int capacity, void* scratch, void* stream) {
+  if (capacity <= 0) return static_cast<int>(cudaGetLastError());
+  return union_launch<true>(parent2, seen, src, dst, mask, n, capacity, 2 * capacity, scratch,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 Nothing here imports the JAX package: a caller that has one exports its
 state (``dataclasses.asdict`` of a ``StreamConfig``, ``np.asarray`` of a
 ``NeighborTable``'s or a ``CCState``'s fields) and hands the plain values
-over.  Packed pane words (``pack_pane``) and wire buffers (``io/wire.py``)
+over (``DegreeDistState``, ``DegreeSummaryState`` and ``BPState`` likewise,
+so that both packages can start from the same mid-stream state).  Packed
+pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.
 """
 
@@ -17,7 +19,9 @@ import torch
 
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
+from gelly_streaming_tpu_torch.library.bipartiteness import BPState
 from gelly_streaming_tpu_torch.library.connected_components import CCState
+from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
 from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
@@ -70,3 +74,38 @@ def disjoint_set_from_numpy(parent, seen, device: DeviceLike = None) -> Disjoint
     """A ``DisjointSet`` on ``device`` from host ``parent``/``seen`` arrays."""
     state = cc_state_from_numpy(parent, seen, device)
     return DisjointSet(len(state.parent), parent=state.parent, seen=state.seen)
+
+
+def _int32_vector(x, name: str) -> np.ndarray:
+    a = np.asarray(x, np.int32)
+    if a.ndim != 1:
+        raise ValueError(f"expected {name} [C], got shape {a.shape}")
+    return a
+
+
+def degree_dist_state_from_numpy(deg, hist, device: DeviceLike = None) -> DegreeDistState:
+    """A ``DegreeDistState`` on ``device`` from host ``deg`` and ``hist``
+    int32 [C] arrays."""
+    deg, hist = _int32_vector(deg, "deg"), _int32_vector(hist, "hist")
+    if hist.shape != deg.shape:
+        raise ValueError(f"deg and hist differ in shape: {deg.shape} and {hist.shape}")
+    dev = resolve_device(device)
+    return DegreeDistState(deg=torch.from_numpy(deg.copy()).to(dev), hist=torch.from_numpy(hist.copy()).to(dev))
+
+
+def degree_summary_state_from_numpy(deg, device: DeviceLike = None) -> DegreeSummaryState:
+    """A ``DegreeSummaryState`` on ``device`` from a host int32 [C] ``deg``."""
+    return DegreeSummaryState(deg=torch.from_numpy(_int32_vector(deg, "deg").copy()).to(resolve_device(device)))
+
+
+def bp_state_from_numpy(parent2, seen, device: DeviceLike = None) -> BPState:
+    """A ``BPState`` on ``device`` from host arrays: ``parent2`` int32 [2C]
+    (a forest over the doubled space), ``seen`` bool [C]."""
+    parent2 = _int32_vector(parent2, "parent2")
+    seen = np.asarray(seen, bool)
+    if seen.ndim != 1 or parent2.shape != (2 * seen.shape[0],):
+        raise ValueError(f"expected parent2 [2C] and seen [C], got {parent2.shape} and {seen.shape}")
+    if len(parent2) and (parent2.min() < 0 or parent2.max() >= len(parent2)):
+        raise ValueError("parent2 entries must be node ids in [0, 2C)")
+    dev = resolve_device(device)
+    return BPState(parent2=torch.from_numpy(parent2.copy()).to(dev), seen=torch.from_numpy(seen.copy()).to(dev))

@@ -1,19 +1,24 @@
-"""Prepare and upload items ahead of the device consumer.
+"""Move items to the device ahead of its consumer, and results back.
 
-Port of ``Prefetcher`` from ``gelly_streaming_tpu/io/wire.py``.  One
+Port of ``Prefetcher``, ``WirePrefetcher`` and ``prefetch_to_host`` from
+``gelly_streaming_tpu/io/wire.py``.  One
 thread runs ``prepare(item) -> (meta, host_arrays)`` (host packing); a
 second uploads ``host_arrays`` (a tuple of numpy arrays, or None) so that
 packing item k+1 overlaps uploading item k.  On CUDA the upload copies
 from pinned host memory with ``non_blocking=True`` on a side stream and
 records an event; the consumer's stream waits on that event when the item
 is handed over, and the tensors are marked as used by that stream so the
-caching allocator cannot recycle them early.
+caching allocator cannot recycle them early.  ``prefetch_to_host`` is the
+mirror for the emission plane: device outputs go to pinned host buffers by
+non-blocking copies on a side stream, one event a batch, a bounded number
+of batches in flight.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import collections
 from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -150,3 +155,79 @@ class Prefetcher:
                 yield meta, dev
         finally:
             self.close()
+
+
+class WirePrefetcher(Prefetcher):
+    """Pack ``(src, dst)`` numpy batches at ``width`` on the pack thread and
+    upload them; yields ``(device wire buffer, batch length)`` in order."""
+
+    def __init__(
+        self,
+        batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+        width,
+        device: torch.device,
+        depth: int = 4,
+    ):
+        from gelly_streaming_tpu_torch.io import wire
+
+        def prepare(item):
+            src, dst = item
+            return src.shape[0], (wire.pack_edges(src, dst, width),)
+
+        super().__init__(batches, prepare, device, depth=depth)
+
+    def __iter__(self):
+        for n, (buf,) in super().__iter__():
+            yield buf, n
+
+
+def _host_leaves(outs, fn):
+    """``outs`` (a tensor, or a tuple of them) with ``fn`` applied to each."""
+    if isinstance(outs, tuple):
+        return tuple(fn(t) for t in outs)
+    return fn(outs)
+
+
+def prefetch_to_host(device_iter, device: torch.device, depth: int = 4):
+    """Yield each item of ``device_iter`` (a tensor or a tuple of tensors
+    on ``device``) as numpy arrays, in order, with up to ``depth`` downloads
+    in flight ahead of the consumer.
+
+    On CUDA every output is copied into a fresh pinned host tensor by a
+    non-blocking copy on a side stream that first waits for the producing
+    stream; one event is recorded after a batch's copies, and the consumer
+    waits on that event alone, never on the whole device.  On the CPU the
+    outputs are already on the host."""
+    if device.type != "cuda":
+        for outs in device_iter:
+            yield _host_leaves(outs, lambda t: t.numpy())
+        return
+    side = torch.cuda.Stream(device=device)
+    pending = collections.deque()
+
+    def start(outs):
+        side.wait_stream(torch.cuda.current_stream(device))
+
+        def copy(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with torch.cuda.stream(side):
+                host.copy_(t, non_blocking=True)
+            t.record_stream(side)
+            return host
+
+        host = _host_leaves(outs, copy)
+        done = torch.cuda.Event()
+        done.record(side)
+        return host, done
+
+    def finish(item):
+        host, done = item
+        done.synchronize()
+        return _host_leaves(host, lambda t: t.numpy())
+
+    for outs in device_iter:
+        pending.append(start(outs))
+        if len(pending) > depth:
+            yield finish(pending.popleft())
+    while pending:
+        yield finish(pending.popleft())

@@ -55,6 +55,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # parent, seen | None, src | None, dst, mask | None, n, capacity,
         # scratch uint8[24 + n], stream: the compress kernel, then the union kernel
         "uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+        # parent2, seen | None, src, dst, mask | None, n, capacity C (parent2
+        # holds 2C), scratch uint8[24 + 2n], stream: compress, then the
+        # parity union
+        "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    },
+    "degrees.cu": {
+        # m, sorted keys, order (int64), n, counts, capacity, packed | None,
+        # maskbits | None, emitted | None, stream
+        "degree_trace_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
+        # deg, src, dst, mask | None, n, capacity, stream
+        "degree_fold_launch": [_P, _P, _P, _P, _I, _I, _P],
+        # deg, hist, capacity, src, dst, sign | None, mask | None, n, recs,
+        # rmask, stream
+        "degree_dist_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     },
 }
 

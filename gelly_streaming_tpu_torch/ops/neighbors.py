@@ -5,12 +5,12 @@ State is a dense table ``nbrs: int32[C, D]`` (-1 = empty slot) plus
 one vectorized pass: rank rows within their source group, scatter to
 ``deg[src] + rank``.  Functions return new tables and leave their inputs
 unchanged, as the JAX versions do.  The windowed triangle count's CSR
-fallback is built on these.
+fallback and the ``distinct`` stage are built on these.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -84,3 +84,50 @@ def gather_rows(
     slots = torch.arange(table.nbrs.shape[1], device=rows.device)
     valid = slots[None, :] < table.deg[v][:, None]
     return rows, valid
+
+
+def insert_unique_batch(
+    table: NeighborTable,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[NeighborTable, torch.Tensor]:
+    """Insert only rows not already present (in the table or earlier in the
+    batch); returns (new table, is_new), the analog of the reference's
+    ``HashSet.add`` returning true (SimpleEdgeStream.java:313-320).
+
+    A new row past its source's capacity D is dropped from the table and
+    counted in ``dropped`` but still reported ``is_new``, so a later
+    duplicate of it is new again: the JAX overflow semantics."""
+    if mask is None:
+        mask = torch.ones(src.shape, dtype=torch.bool, device=src.device)
+    present = contains_batch(table, src, dst)
+    first = segments.first_occurrence_mask_pairs(src, dst, mask)
+    is_new = mask & ~present & first
+    return insert_batch(table, src, dst, is_new), is_new
+
+
+def insert_unique_valued_batch(
+    table: NeighborTable,
+    vtable: NeighborTable,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    val_bits: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[NeighborTable, NeighborTable, torch.Tensor]:
+    """Whole-edge distinct: a row is new iff its (src, dst, value bits)
+    triple is.  ``table`` holds the dst ids and ``vtable`` the values'
+    int32 bits in the same slots (one insert mask drives both), so
+    presence is a same-slot conjunction."""
+    if mask is None:
+        mask = torch.ones(src.shape, dtype=torch.bool, device=src.device)
+    rows_d, valid = gather_rows(table, src)
+    rows_v = vtable.nbrs[src.long()]
+    present = ((rows_d == dst[:, None]) & (rows_v == val_bits[:, None]) & valid).any(dim=1)
+    first = segments.first_occurrence_mask_triples(src, dst, val_bits, mask)
+    is_new = mask & ~present & first
+    return (
+        insert_batch(table, src, dst, is_new),
+        insert_batch(vtable, src, val_bits, is_new),
+        is_new,
+    )

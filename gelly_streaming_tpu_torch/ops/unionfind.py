@@ -1,7 +1,6 @@
 """Batched array union-find: the wrappers of the port's CUDA union kernel.
 
-Port of ``gelly_streaming_tpu/ops/unionfind.py`` (the parity variants wait
-for the bipartiteness slice).  A summary is a dense ``parent: int32[C]``
+Port of ``gelly_streaming_tpu/ops/unionfind.py``.  A summary is a dense ``parent: int32[C]``
 forest, ``parent[r] == r`` marking a root; a batch of edges merges the
 components of its endpoints and compresses, so that every vertex points at
 its root.  The fixed point is the JAX package's: a merged component ends
@@ -14,7 +13,10 @@ first.  On CUDA tensors ``union_edges``, ``union_edges_with_seen``,
 ``merge_parents`` and ``compress`` are one C call each
 (``csrc/unionfind.cu: uf_union_launch``: the compress kernel, then the
 union kernel unless the batch is empty; each runs its rounds on the device
-with no host sync); ``LAUNCHES`` counts the launches of each kernel.  On CPU
+with no host sync); the parity union of the bipartiteness check on the
+doubled space ``parent2: int32[2C]`` is ``uf_parity_union_launch``, the
+same two kernels with the doubled edges formed inside the union kernel.
+``LAUNCHES`` counts the launches of each kernel.  On CPU
 tensors they run the plain twins (``*_plain``): the JAX algorithm written
 as PyTorch ops (scatter-min hooks, ``p = p[p]`` doubling, a host loop
 until converged), which return new tensors and never launch anything.
@@ -34,7 +36,7 @@ _MAX_INT32 = (1 << 31) - 1
 
 # kernel launches made by uf_union_launch since the last reset_launches()
 # (only calls on CUDA tensors count, never the plain twins)
-LAUNCHES: Dict[str, int] = {"union_kernel": 0, "compress_kernel": 0}
+LAUNCHES: Dict[str, int] = {"union_kernel": 0, "compress_kernel": 0, "parity_union_kernel": 0}
 
 
 def reset_launches() -> None:
@@ -139,21 +141,25 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(parent, seen, src, dst, mask, n: int) -> None:
-    """One ``uf_union_launch`` on the current stream: compress, then the
-    union of n edges (none for compress alone)."""
+def _launch(parent, seen, src, dst, mask, n: int, parity: bool = False) -> None:
+    """One ``uf_union_launch`` (``uf_parity_union_launch`` with ``parity``)
+    on the current stream: compress, then the union of n edges (none for
+    compress alone)."""
     if parent.device.type != "cuda":
         raise ValueError(f"no uf_union_launch kernel for device {parent.device}")
     lib = _cuda.library(_SOURCE)
-    # the kernels' round flags (6 int32) and a done byte per edge
-    scratch = torch.empty((24 + n,), dtype=torch.uint8, device=parent.device)
-    err = lib.uf_union_launch(
+    # the kernels' round flags (6 int32) and a done byte per (doubled) edge
+    items = 2 * n if parity else n
+    scratch = torch.empty((24 + items,), dtype=torch.uint8, device=parent.device)
+    entry = lib.uf_parity_union_launch if parity else lib.uf_union_launch
+    err = entry(
         parent.data_ptr(), _ptr(seen), _ptr(src), _ptr(dst), _ptr(mask), n,
-        parent.shape[0], scratch.data_ptr(), torch.cuda.current_stream(parent.device).cuda_stream,
+        parent.shape[0] // 2 if parity else parent.shape[0], scratch.data_ptr(),
+        torch.cuda.current_stream(parent.device).cuda_stream,
     )
-    _cuda.check(err, "uf_union_launch")
+    _cuda.check(err, "uf_parity_union_launch" if parity else "uf_union_launch")
     if n > 0:
-        LAUNCHES["union_kernel"] += 1
+        LAUNCHES["parity_union_kernel" if parity else "union_kernel"] += 1
     LAUNCHES["compress_kernel"] += 1
 
 
@@ -213,3 +219,96 @@ def union_edges_with_seen(
         return parent.copy_(p), seen.copy_(s)
     _launch(parent, seen, src, dst, mask, dst.shape[0])
     return parent, seen
+
+
+# ---------------------------------------------------------------------------
+# the parity (signed) union-find of the bipartiteness check: vertex v becomes
+# nodes 2v ("v on side A") and 2v + 1 ("v on side B"); an edge (u, w) asserts
+# opposite sides, union(2u, 2w + 1) and union(2u + 1, 2w); the graph is not
+# bipartite iff some seen vertex's two nodes share a component
+
+
+def init_parity_parent(capacity: int, device: DeviceLike = None) -> torch.Tensor:
+    return init_parent(2 * capacity, device)
+
+
+def parity_union_edges_plain(
+    parent2: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The JAX function: both doubled edges of every row concatenated, then
+    one union; masked rows become (0, 0) self-unions."""
+    a1, b1, a2, b2 = 2 * src, 2 * dst + 1, 2 * src + 1, 2 * dst
+    if mask is not None:
+        a1, b1, a2, b2 = (torch.where(mask, x, 0) for x in (a1, b1, a2, b2))
+    return union_edges_plain(parent2, torch.cat([a1, a2]), torch.cat([b1, b2]))
+
+
+def parity_union_edges_with_seen_plain(
+    parent2: torch.Tensor,
+    seen: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = parity_union_edges_plain(parent2, src, dst, mask)
+    live = slice(None) if mask is None else mask
+    seen = seen.clone()
+    seen[src[live].long()] = True
+    seen[dst[live].long()] = True
+    return p, seen
+
+
+def _check_parity(parent2, seen, src, dst, mask) -> None:
+    _check_args(parent2, None, src, dst, mask)
+    if parent2.shape[0] % 2:
+        raise ValueError("parent2 must have an even length (two nodes a vertex)")
+    if seen is not None:
+        _check_vector(seen, torch.bool, "seen")
+        if 2 * seen.shape[0] != parent2.shape[0] or seen.device != parent2.device:
+            raise ValueError("seen must hold one flag a vertex, on parent2's device")
+
+
+def parity_union_edges(
+    parent2: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Apply the opposite-side constraints of every valid row to the
+    doubled space, in place; returns ``parent2``, compressed."""
+    _check_parity(parent2, None, src, dst, mask)
+    if parent2.device.type == "cpu":
+        return parent2.copy_(parity_union_edges_plain(parent2, src, dst, mask))
+    _launch(parent2, None, src, dst, mask, dst.shape[0], parity=True)
+    return parent2
+
+
+def parity_union_edges_with_seen(
+    parent2: torch.Tensor,
+    seen: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``parity_union_edges`` plus marking every valid endpoint in ``seen``
+    (original space), both in place, in one kernel call on CUDA."""
+    _check_parity(parent2, seen, src, dst, mask)
+    if parent2.device.type == "cpu":
+        p, s = parity_union_edges_with_seen_plain(parent2, seen, src, dst, mask)
+        return parent2.copy_(p), seen.copy_(s)
+    _launch(parent2, seen, src, dst, mask, dst.shape[0], parity=True)
+    return parent2, seen
+
+
+def parity_conflicts(parent2: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
+    """True where a seen vertex's two sides collapsed (an odd cycle
+    through it); ``parent2`` must be compressed, as the unions leave it."""
+    return seen & (parent2[0::2] == parent2[1::2])
+
+
+def is_bipartite(parent2: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
+    """A bool scalar tensor: no seen vertex has collapsed sides."""
+    return ~parity_conflicts(parent2, seen).any()

@@ -232,3 +232,153 @@ def test_cc_wire_path_on_gpu_matches_cpu(cuda_device):
     assert len(got) == len(want) == 5
     for (gp, gs), (wp, ws) in zip(got, want):
         assert torch.equal(gp, wp) and torch.equal(gs, ws)
+
+
+# ---------------------------------------------------------------------------
+# the degree kernels (csrc/degrees.cu) and the parity union against their twins
+
+
+def _endpoints(rng, c, n, case):
+    if case == "uniform":
+        v = rng.integers(0, c, n)
+    elif case == "hub":
+        v = np.where(rng.random(n) < 0.6, c - 1, rng.integers(0, c, n))
+    else:  # zipf
+        v = (rng.zipf(1.3, n) - 1) % c
+    m = rng.random(n) < 0.8
+    return np.ascontiguousarray(v, np.int32), m
+
+
+@pytest.mark.parametrize("case", ["uniform", "hub", "zipf"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_degree_trace_kernel_matches_twin(cuda_device, case, packed):
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, n = 1 << 12, 50_001
+    rng = np.random.default_rng(7)
+    v, m = _endpoints(rng, c, n, case)
+    counts0 = rng.integers(0, 1 << 10, c).astype(np.int32)
+    counts0[5] = (1 << 31) - 3  # int32 wrap and the 2^28 - 1 clip
+    tv, tm, tc = (torch.from_numpy(a).to(cuda_device) for a in (v, m, counts0))
+    want_counts, want = degrees.degree_trace_plain(tc, tv, tm, packed)
+    before = degrees.LAUNCHES["degree_trace"]
+    got = degrees.degree_trace(tc, tv, tm, packed)
+    assert degrees.LAUNCHES["degree_trace"] == before + 1
+    assert torch.equal(tc, want_counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_degree_fold_kernel_matches_twin(cuda_device, masked):
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, n = 1 << 14, 1 << 17
+    rng = np.random.default_rng(3)
+    s, d = (torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).to(cuda_device) for _ in range(2))
+    mask = torch.from_numpy(rng.random(n) < 0.5).to(cuda_device) if masked else None
+    deg = torch.from_numpy(rng.integers(0, 9, c).astype(np.int32)).to(cuda_device)
+    want = degrees.degree_fold_plain(deg, s, d, mask)
+    assert degrees.degree_fold(deg, s, d, mask) is deg
+    assert torch.equal(deg, want)
+
+
+@pytest.mark.parametrize("capacity", [64, 1 << 12])
+def test_degree_dist_scan_kernel_matches_twin(cuda_device, capacity):
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    n = 3000
+    rng = np.random.default_rng(capacity)
+    nv = min(capacity, 40)  # few vertices: degrees pass a capacity of 64
+    src = rng.integers(0, nv, n).astype(np.int32)
+    dst = rng.integers(0, nv, n).astype(np.int32)
+    dst[::17] = src[::17]  # self-loops
+    sign = np.where(rng.random(n) < 0.3, -1, 1).astype(np.int8)
+    mask = rng.random(n) < 0.95
+    args = [torch.from_numpy(a).to(cuda_device) for a in (src, dst, sign, mask)]
+    deg = torch.zeros(capacity, dtype=torch.int32, device=cuda_device)
+    hist = torch.zeros(capacity, dtype=torch.int32, device=cuda_device)
+    for lo in range(0, n, 1000):
+        part = [a[lo : lo + 1000] for a in args]
+        wd, wh, wr, wm = degrees.degree_dist_scan_plain(deg, hist, *part)
+        recs, rmask = degrees.degree_dist_scan(deg, hist, *part)
+        assert torch.equal(deg, wd) and torch.equal(hist, wh)
+        assert torch.equal(recs, wr) and torch.equal(rmask, wm)
+    assert int(deg.max()) >= 64
+
+
+@pytest.mark.parametrize("start", ["identity", "forest"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_parity_union_kernel_matches_twin(cuda_device, start, masked):
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c, n = 1 << 14, 1 << 15
+    rng = np.random.default_rng(11)
+    # a bipartite half (even -> odd) and a few odd cycles
+    src = rng.integers(0, c // 2, n) * 2
+    dst = rng.integers(0, c // 2, n) * 2 + 1
+    src[: n // 64] = rng.integers(0, c, n // 64)
+    s, d = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (src, dst))
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(cuda_device) if masked else None
+    p0 = np.arange(2 * c, dtype=np.int32) if start == "identity" else _forest(rng, 2 * c)
+    parent2 = torch.from_numpy(p0).to(cuda_device)
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    want_p, want_s = uf.parity_union_edges_with_seen_plain(parent2, seen, s, d, mask)
+    before = uf.LAUNCHES["parity_union_kernel"]
+    uf.parity_union_edges_with_seen(parent2, seen, s, d, mask)
+    assert uf.LAUNCHES["parity_union_kernel"] == before + 1
+    assert torch.equal(parent2, want_p) and torch.equal(seen, want_s)
+    assert bool(uf.is_bipartite(parent2, seen)) == bool(uf.is_bipartite(want_p, want_s))
+
+
+def test_property_streams_on_gpu_match_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 3000, 20000)
+    dst = rng.integers(0, 3000, 20000)
+    for cap in (1 << 12, (1 << 20) + 8):  # packed records, then raw columns
+        cfg = StreamConfig(vertex_capacity=cap, batch_size=4096)
+
+        def run(dev, op):
+            return getattr(EdgeStream.from_arrays(src, dst, cfg, device=dev), op)().collect()
+
+        for op in ("get_degrees", "get_in_degrees", "get_vertices", "number_of_vertices", "number_of_edges"):
+            assert run(cuda_device, op) == run("cpu", op), op
+
+
+def test_degree_and_bipartite_aggregations_on_gpu_match_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io.sources import _batched
+    from gelly_streaming_tpu_torch.library.bipartiteness import BipartitenessCheck
+    from gelly_streaming_tpu_torch.library.degree_distribution import (
+        DegreeDistribution,
+        DegreeDistributionSummary,
+    )
+
+    rng = np.random.default_rng(9)
+    n = 6000
+    src = rng.integers(0, 500, n)
+    dst = rng.integers(0, 500, n)
+    sign = np.where(rng.random(n) < 0.3, -1, 1)
+    tim = np.sort(rng.integers(0, 4000, n))
+    cfg = StreamConfig(vertex_capacity=1 << 10, batch_size=1024)
+
+    def run(dev):
+        degs = [r[0].cpu() for r in EdgeStream.from_arrays(src, dst, cfg, device=dev)
+                .aggregate(DegreeDistributionSummary()).collect()]
+        signed = EdgeStream.from_batches(_batched(src, dst, None, None, sign, 1000, dev), cfg, device=dev)
+        dist = DegreeDistribution().run(signed).collect()
+        timed = EdgeStream.from_batches(_batched(src, dst, None, tim, None, 1000, dev), cfg, device=dev)
+        bip = [str(r[0]) for r in timed.aggregate(BipartitenessCheck(window_ms=1000)).collect()]
+        even = EdgeStream.from_batches(
+            _batched(src - src % 2, dst | 1, None, tim, None, 1000, dev), cfg, device=dev)
+        bip += [str(r[0]) for r in even.aggregate(BipartitenessCheck(window_ms=1000)).collect()]
+        return degs, dist, bip
+
+    (g_deg, g_dist, g_bip), (c_deg, c_dist, c_bip) = run(cuda_device), run("cpu")
+    assert all(torch.equal(a, b) for a, b in zip(g_deg, c_deg)) and len(g_deg) == len(c_deg)
+    assert g_dist == c_dist and g_bip == c_bip
+    assert g_bip[-1].startswith("(true,")
