@@ -51,9 +51,15 @@ and the first batches' records the twin's; ``get_in_degrees``,
 8-batch prefix and ``undirected().distinct()`` on a 2-batch prefix must
 equal numpy.  Phase 9: ``DegreeDistributionSummary`` over the EF40 replay
 (deg equal to ``np.bincount``), ``DegreeDistribution`` over 2^20 signed
-events on 2^16 vertices (equal to a host oracle written as the reference's
-three keyed stages) and over a run at capacity 2^10 whose hubs pass it
-(equal to the twin).  Phase 10: ``BipartitenessCheck`` over an even -> odd
+events on 2^16 vertices in batches of 2^15 (equal to a host oracle written
+as the reference's three keyed stages) and over a run at capacity 2^10
+whose hubs pass it (equal to the CPU path), then uncut over the CC bench's
+stream with signs (about 30% deletions) in batches of 2^21: events/s and
+records/s end to end, every batch's records equal to the twin on the card,
+the first batch's to the one-thread kernel, the final histogram to
+``np.bincount`` of the final degrees.  The two-stage scan and the one-thread
+kernel are timed in turns at 2^15 and 2^21 events, the two stable sorts
+apart.  Phase 10: ``BipartitenessCheck`` over an even -> odd
 EF40 stream of the bench's shape (bipartite; sides differ across every
 edge; components equal to scipy's) and over the uniform stream
 (``(false,{})``), and a timed windowed run whose every emission must equal
@@ -1140,15 +1146,15 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     log(f"  DegreeDistribution over {n_ev} signed events ({deletes} deletions) on {nv} vertices, batches of "
         f"{ev_batch}: {len(ids)} records in {dd_s:.3f} s, equal to the three-stage dict oracle ({oracle_s:.1f} s); "
         f"degree_dist_scan launched {scan_launches} times")
-    # the twin on the first batch, and a run at capacity 2^10 past which hubs' degrees go
+    # the twin and the one-thread kernel on the first batch, and a run at
+    # capacity 2^10 past which hubs' degrees go
     sl = slice(0, ev_batch)
     args = [torch.from_numpy(a[sl]).to(dev) for a in (es, ed, eg)] + [torch.ones(ev_batch, dtype=torch.bool, device=dev)]
     z = torch.zeros(nv, dtype=torch.int32, device=dev)
     got = degrees.degree_dist_scan(z.clone(), z.clone(), *args)
-    t0 = time.perf_counter()
+    serial = degrees.degree_dist_scan_serial(z.clone(), z.clone(), *args)
     want_t = degrees.degree_dist_scan_plain(z, z, *args)
-    scan_plain_ms = (time.perf_counter() - t0) * 1e3
-    scan_err = max(int((got[0] - want_t[2]).abs().max()), int((got[1] != want_t[3]).sum()))
+    scan_err = max(scan_diff(got, want_t[2:]), scan_diff(got, serial))
     cs, cd, cg = signed_events(rng, DD_CAP_EVENTS, DD_CAP, hubs=4)
     ccfg = StreamConfig(vertex_capacity=DD_CAP)
     cap_dd = DegreeDistribution()
@@ -1161,23 +1167,161 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
                            f"{all(np.array_equal(a, b) for a, b in zip(cap_got, cap_want))}")
     scan_err = max(scan_err, int(not torch.equal(cap_dd.final_state.hist.cpu(), cpu_dd.final_state.hist)))
     if scan_err:
-        raise RuntimeError(f"degree_dist_scan differs from its twin ({scan_err})")
-    state = (z.clone(), z.clone())
-    s_ms, s_us = device_ms(lambda: degrees.degree_dist_scan(*state, *args), 3, cycles_per_ms, warmup=1)
-    s_events = cuda_ms(lambda: degrees.degree_dist_scan(*state, *args), 3, 1)
-    # per event: src, dst (4 B each), sign, mask read; 8 int32 and 4 flags
-    # written; deg and hist read and written for both endpoints (4 x 4 B)
-    s_bound = ev_batch * (10 + 36 + 16) / HBM_BYTES_PER_S * 1e3
-    log(f"  degree_dist_scan a batch of {ev_batch} events: device {s_ms:.3f} ms ({s_ms * 1e6 / ev_batch:.1f} ns "
-        f"an event), host enqueue {s_us:.1f} us; plain twin (host loop) {scan_plain_ms:.1f} ms; bound "
-        f"{s_bound:.5f} ms (bytes); first batch equal to the twin; capacity {DD_CAP} run ({DD_CAP_EVENTS} events, "
-        f"max degree {top}) equal to the twin's")
+        raise RuntimeError(f"degree_dist_scan differs from its twin or the one-thread kernel ({scan_err})")
+    log(f"  first batch equal to the twin and to the one-thread kernel; capacity {DD_CAP} run ({DD_CAP_EVENTS} "
+        f"events, max degree {top}) equal to the CPU path's")
+    small = scan_turns(dev, cycles_per_ms, es[sl], ed[sl], eg[sl], nv, reps=UF_REPS)
+
+    # the uncut run: the CC bench's stream, signed, in batches of 2^21
+    uncut = phase_degree_dist_uncut(dev, data)
+    big = scan_turns(dev, cycles_per_ms, data["src"][:CC_BATCH], data["dst"][:CC_BATCH], uncut["sign"][:CC_BATCH],
+                     CC_VERTICES, reps=UF_REPS)
+    share = big["device_ms"] * uncut["launches"] / (uncut["wall_s"] * 1e3)
+    log(f"  the scan's device time x {uncut['launches']} launches = {share * 100:.2f}% of the uncut run's wall")
     return {
         "fold": {"launches": fold_launches, "ms": f_events, "device_ms": f_ms, "host_us": f_us, "plain_ms": f_plain,
                  "bound_ms": f_bound, "library_ms": lib_ms, "err": fold_err},
-        "scan": {"launches": scan_launches, "ms": s_events, "device_ms": s_ms, "host_us": s_us,
-                 "plain_ms": scan_plain_ms, "bound_ms": s_bound, "err": scan_err},
+        "scan": {"launches": uncut["launches"], "ms": big["ms"], "device_ms": big["device_ms"],
+                 "host_us": big["host_us"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                 "err": max(scan_err, uncut["err"]), "sort_ms": big["sort_ms"], "serial_ms": big["serial_ms"],
+                 "batch_events": CC_BATCH, "cut_launches": scan_launches,
+                 "small": {k: small[k] for k in ("ms", "device_ms", "sort_ms", "serial_ms", "plain_ms", "bound_ms")},
+                 "events_per_s": uncut["events_per_s"], "records_per_s": uncut["records_per_s"]},
     }
+
+
+def scan_diff(a, b) -> int:
+    """Records differing by most, or flags differing, between two
+    (records, record mask) pairs; 0 when equal."""
+    return max(int((a[0] - b[0]).abs().max()), int((a[1] != b[1]).sum()))
+
+
+def scan_turns(dev, cycles_per_ms: float, src, dst, sign, capacity: int, reps: int) -> dict:
+    """degree_dist_scan on one batch at the main path's shapes: the
+    two-stage kernels and the one-thread kernel in turns (two-stage,
+    one-thread, one-thread, two-stage; each on its own state), the two
+    stable sorts alone on this batch's keys, the twin, and the bound.  A
+    call is some 25 launches (each sort several), so ``reps`` stays near
+    20: more would fill the device's launch queue behind the held stream
+    and block the host."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    n = len(src)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (src, dst, sign)]
+    args.append(torch.ones(n, dtype=torch.bool, device=dev))
+    fresh = lambda: torch.zeros(capacity, dtype=torch.int32, device=dev)  # noqa: E731
+    par_state, ser_state = (fresh(), fresh()), (fresh(), fresh())
+    recs, _ = degrees.degree_dist_scan(fresh(), fresh(), *args)
+    par = lambda: degrees.degree_dist_scan(*par_state, *args)  # noqa: E731
+    ser = lambda: degrees.degree_dist_scan_serial(*ser_state, *args)  # noqa: E731
+    turns = {"parallel": [], "serial": []}
+    for tag, fn, r in (("parallel", par, reps), ("serial", ser, 1), ("serial", ser, 1), ("parallel", par, reps)):
+        turns[tag].append(device_ms(fn, r, cycles_per_ms, warmup=1))
+    x = torch.stack([args[0], args[1]], 1).reshape(-1)
+    k1 = torch.where(x < 0, x + capacity, x).clamp(0, capacity - 1)
+    k2 = recs[..., 0].reshape(-1).clamp(0, capacity - 1)
+    sort_ms, _ = device_ms(lambda: (torch.sort(k1, stable=True), torch.sort(k2, stable=True)), reps, cycles_per_ms)
+    plain_ms = cuda_ms(lambda: degrees.degree_dist_scan_plain(*par_state, *args), 3, 1)
+    events_ms = cuda_ms(par, reps, 1)
+    # per event: src, dst (4 B each), sign, mask read; 8 int32 and 4 flags
+    # written; then deg read and written once a touched vertex and hist
+    # once a touched degree (4 + 4 B each), counted from this batch's keys
+    touched_v, touched_d = int(torch.unique(k1).numel()), int(torch.unique(k2).numel())
+    bound = (n * (10 + 36) + 8 * touched_v + 8 * touched_d) / HBM_BYTES_PER_S * 1e3
+    d_ms = min(t[0] for t in turns["parallel"])
+    h_us = min(t[1] for t in turns["parallel"])
+    s_ms = min(t[0] for t in turns["serial"])
+    log(f"  degree_dist_scan, {n} events over {capacity} vertices, in turns: two-stage device "
+        + ", ".join(f"{t[0]:.4f}" for t in turns["parallel"]) + " ms; one-thread kernel "
+        + ", ".join(f"{t[0]:.3f}" for t in turns["serial"]) + f" ms ({s_ms / d_ms:.0f}x); the two stable "
+        f"torch.sorts alone {sort_ms:.4f} ms (kernels {d_ms - sort_ms:.4f} ms); host enqueue {h_us:.1f} us; "
+        f"back-to-back events {events_ms:.4f} ms; twin on the card {plain_ms:.3f} ms; bound {bound:.5f} ms (bytes; "
+        f"{touched_v} vertices and {touched_d} degrees touched)")
+    try:
+        rows = profiler_device_us(par, 5)
+        for key, (us, calls) in sorted(rows.items(), key=lambda r: -r[1][0])[:8]:
+            log(f"    torch.profiler: {us:.2f} us/call, {calls} calls: {key[:80]}")
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"    torch.profiler failed: {type(e).__name__}: {e}")
+    return {"ms": events_ms, "device_ms": d_ms, "host_us": h_us, "sort_ms": sort_ms, "serial_ms": s_ms,
+            "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def phase_degree_dist_uncut(dev, data: dict) -> dict:
+    """DegreeDistribution over the CC bench's 104,857,600 edges with signs
+    (about 30% deletions, numpy's default_rng(2)) in batches of 2^21 over
+    2^20 vertices, end to end; then every batch again through the kernels
+    and the twin on the card, records and state compared, the first batch
+    also against the one-thread kernel, and the final histogram against
+    np.bincount of the final degrees."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistribution
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    src, dst = data["src"], data["dst"]
+    rng = np.random.default_rng(2)
+    sign = np.empty(len(src), np.int8)
+    for i in range(nb):
+        sign[i * batch : (i + 1) * batch] = np.where(rng.random(batch) < 0.3, -1, 1)
+    cfg = StreamConfig(vertex_capacity=c)
+    # warm the allocator and the sorts outside the counted run
+    DegreeDistribution().run(signed_stream(src[:batch], dst[:batch], sign[:batch], cfg, batch, dev)).collect()
+    torch.cuda.synchronize()
+    degrees.reset_launches()
+    t0 = time.perf_counter()
+    dd = DegreeDistribution()
+    n_rec, id_sum, count_sum = 0, 0, 0
+    for blk in dd.run(signed_stream(src, dst, sign, cfg, batch, dev)).blocks():
+        ids, counts = blk.columns
+        n_rec += len(ids)
+        id_sum += int(ids.sum())
+        count_sum += int(counts.sum())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = degrees.LAUNCHES["degree_dist_scan"]
+    if launches != nb:
+        raise RuntimeError(f"uncut run: degree_dist_scan launched {launches} times for {nb} batches")
+    log(f"  DegreeDistribution over the CC bench's {nb * batch} signed events ({int((sign < 0).sum())} "
+        f"deletions) on {c} vertices, batches of {batch}: {n_rec} records in {wall_s:.3f} s, "
+        f"{nb * batch / wall_s:.6g} events/s, {n_rec / wall_s:.6g} records/s; degree_dist_scan launched "
+        f"{launches} times")
+
+    t0 = time.perf_counter()
+    zero = lambda: torch.zeros(c, dtype=torch.int32, device=dev)  # noqa: E731
+    kern, twin = (zero(), zero()), (zero(), zero())
+    err, t_rec, t_id, t_count = 0, 0, 0, 0
+    for i in range(nb):
+        sl = slice(i * batch, (i + 1) * batch)
+        args = [torch.from_numpy(a[sl]).to(dev) for a in (src, dst, sign)]
+        args.append(torch.ones(batch, dtype=torch.bool, device=dev))
+        if i == 0:
+            serial = degrees.degree_dist_scan_serial(zero(), zero(), *args)
+        got = degrees.degree_dist_scan(*kern, *args)
+        new_deg, new_hist, w_recs, w_mask = degrees.degree_dist_scan_plain(*twin, *args)
+        twin = (new_deg, new_hist)
+        err = max(err, scan_diff(got, (w_recs, w_mask)), scan_diff(got, serial) if i == 0 else 0)
+        kept = w_recs.reshape(-1, 2)[w_mask.reshape(-1)].long()
+        t_rec += int(kept.shape[0])
+        t_id += int(kept[:, 0].sum())
+        t_count += int(kept[:, 1].sum())
+    deg, hist = kern[0].cpu().numpy(), kern[1].cpu().numpy()
+    state_equal = all(torch.equal(a, b) for a, b in zip(kern, twin)) and \
+        torch.equal(dd.final_state.deg, kern[0]) and torch.equal(dd.final_state.hist, kern[1])
+    hist_equal = np.array_equal(hist[1:], np.bincount(deg, minlength=c)[1:c])
+    sums_equal = (n_rec, id_sum, count_sum) == (t_rec, t_id, t_count)
+    if err or not (state_equal and hist_equal and sums_equal):
+        raise RuntimeError(f"uncut run: records differ by {err}, state equal {state_equal}, hist equal to "
+                           f"np.bincount {hist_equal}, record sums equal {sums_equal}")
+    log(f"  every batch's records and flags equal to the twin on the card, the first batch's to the one-thread "
+        f"kernel; final deg/hist equal to the twin's and the end-to-end run's; hist[1:] equal to "
+        f"np.bincount(deg); max degree {int(deg.max())} ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "wall_s": wall_s, "events_per_s": nb * batch / wall_s,
+            "records_per_s": n_rec / wall_s, "err": err, "sign": sign}
 
 
 def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
@@ -1625,7 +1769,10 @@ def main(argv=None) -> int:
         entry("degree_trace", "degrees.cu", "gelly_streaming_tpu/core/stream.py:869", props),
         entry("degree_fold", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:247", dd["fold"],
               dd["fold"]["library_ms"]),
-        entry("degree_dist_scan", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:43", dd["scan"]),
+        {**entry("degree_dist_scan", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:43",
+                 dd["scan"]),
+         **{k: dd["scan"][k] for k in ("batch_events", "sort_ms", "serial_ms", "cut_launches", "small",
+                                       "events_per_s", "records_per_s")}},
         entry("parity_union_kernel", "unionfind.cu", "gelly_streaming_tpu/ops/unionfind.py:145", bp),
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")

@@ -33,19 +33,64 @@
 // vector, which stays in the 50 MB L2.  Bound: src and dst read once (8 B an
 // edge), deg read and written once.
 //
-// degree_dist_scan_kernel replaces the lax.scan of degree_dist_update
+// The degree_dist_* kernels replace the lax.scan of degree_dist_update
 // (gelly_streaming_tpu/library/degree_distribution.py:43-84): per event in
 // order, the u then v vertex change, each emitting a (new degree, count) and
-// an (old degree, count) histogram record.  The scan is inherently
-// sequential (each event reads the histogram the previous one wrote), so
-// this first design is one thread walking the batch with deg and hist in
-// global memory: its time is a chain of dependent L2 round trips, about ten
-// an event.  JAX's index semantics are kept at the edge of the array: the
-// histogram scatter-add of a degree >= capacity is dropped and its gather
-// clamps to hist[C - 1]; deleting an absent vertex is a no-op; a transition
+// an (old degree, count) histogram record.  JAX's index semantics are kept
+// at the edge of the arrays: an index below 0 counts from the end once
+// (i + C), a gather then clamps into [0, C) and a scatter outside it is
+// dropped; so the histogram add of a degree >= C is dropped and its read
+// clamps to hist[C - 1].  Deleting an absent vertex is a no-op; a transition
 // to degree 0 emits only the old-degree record; a self-loop changes u, then
-// v.  A parallel form (per-vertex clamped scans, per-degree prefix sums over
-// the record order) is later work.
+// v.
+//
+// The scan looks sequential, but each event touches the state only through
+// two keyed cells, so it is two segmented scans.  Rows r = 2e + j (j = 0 for
+// u, 1 for v) go through f_r(d) = max(d + a, 0): a is the event's sign, or 0
+// where the row is masked or its vertex lies outside [0, C) (such a row
+// still reads deg at its clamped index and writes nothing).  Grouped by
+// that index, stably, f composes in closed form: with T the segmented
+// inclusive sum of a seeded with d0 = deg[key] at the group's head and M the
+// running minimum of T, the degree after a row is T - min(0, M).
+//   degree_dist_keys_kernel: the grouping key of every row and a word of
+//   its sign, mask bit and range bit; torch.sort (stable) groups the keys.
+//   degree_dist_rows_kernel (stage 1): one 1024-row tile a block, 4 sorted
+//   rows a thread in registers.  The block scans the (T, M, Q, head)
+//   prefix with __shfl_up_sync and warp totals in shared memory; tiles are
+//   chained by a decoupled look-back (tiles taken by ticket, each
+//   publishing its aggregate, then its inclusive prefix), so a hub's group
+//   may cross any number of tiles and the input is read once.  A tile that
+//   holds a group head publishes its inclusive prefix at once, so the
+//   look-back stops at the nearest such tile.  Each row gets its old and
+//   new degrees and two emit flags, written in arrival order with the
+//   records' degree fields and stage 2's keys.  deg is read at
+//   each group head and written once at each group end, without atomics:
+//   the end's tile waits on the head's tile, which read the cell before it
+//   published.
+//   degree_dist_counts_kernel (stage 2): the same skeleton over the 4B
+//   record slots s = 4e + 2j + {0 new, 1 old}, grouped by their clamped
+//   degree after a second stable torch.sort: each record's count is
+//   hist[key] plus the segmented inclusive sum of the adds (+1 or -1
+//   where stage 1 flagged the record, 0 for a degree >= C), in int32 with
+//   wrap, and hist is written once at each group end.
+// JAX adds in int32 and wraps at 2^31 before clamping to 0, which the
+// closed form (int64) does not.  Q, d0 plus the group's additions, bounds
+// every degree a group reaches; a group whose Q passes 2^31 - 1, or whose
+// d0 is negative, is listed and walked in order by one thread after the
+// scan (degree_dist_walk_kernel, the serial vertex change), so the result
+// stays JAX's bit for bit there too.
+//   Bound on the H100 (bytes): src, dst, sign and mask read (10 B an
+// event), 8 int32 and 4 flags written (36 B an event), deg read and
+// written once a touched vertex and hist once a touched degree (8 B each).
+// For the bench's 2^21-event batch over 2^20 vertices (about 1.03M touched)
+// that is about 105 MB, 31 us at 3.35 TB/s.  The two sorts, the sorted keys
+// and the gathers through the sorts' permutations are the design's overhead
+// over that bound.
+//
+// degree_dist_scan_serial_kernel is the first design: one thread walking
+// the batch with deg and hist in global memory, a chain of dependent L2
+// round trips, about ten an event.  It is on no main path; chip_smoke.py
+// and the CUDA tests hold the two-stage kernels against it.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -156,40 +201,375 @@ degree_fold_kernel(int* __restrict__ deg, const int* __restrict__ src,
   }
 }
 
+// JAX's index normalisation: i < 0 counts from the end once
+__device__ __forceinline__ int jax_index(int i, int size) { return i < 0 ? i + size : i; }
+
+// One vertex change of degree_dist_update on the degree cell alone: the
+// old and new degrees, whether the cell takes the new one, the emit flags.
+struct Change {
+  int old, next;
+  bool ok, emit_new, emit_old;
+};
+
+__device__ __forceinline__ Change degree_change(int old, int delta, bool ok) {
+  ok = ok && !(delta < 0 && old <= 0);
+  int next = wrap_add(old, delta);
+  next = next < 0 ? 0 : next;
+  return {old, next, ok, ok && next > 0, ok && old > 0};
+}
+
 // One vertex change of degree_dist_update: recs gets (new, hist[new]) then
 // (old, hist[old]); rmask their emit flags.
 __device__ __forceinline__ void vertex_change(int* __restrict__ deg, int* __restrict__ hist,
                                               int capacity, int v, int delta, bool ok,
                                               int* __restrict__ recs, uint8_t* __restrict__ rmask) {
+  v = jax_index(v, capacity);
   const int old = deg[clamp_index(v, capacity)];
-  ok = ok && !(delta < 0 && old <= 0);
-  int next = wrap_add(old, delta);
-  next = next < 0 ? 0 : next;
-  if (static_cast<unsigned>(v) < static_cast<unsigned>(capacity)) deg[v] = ok ? next : old;
-  const bool emit_new = ok && next > 0;
-  const bool emit_old = ok && old > 0;
-  if (emit_new && next < capacity) hist[next] = wrap_add(hist[next], 1);
-  recs[0] = next;
-  recs[1] = hist[clamp_index(next, capacity)];
-  if (emit_old && old < capacity) hist[old] = wrap_add(hist[old], -1);
+  const Change c = degree_change(old, delta, ok);
+  if (static_cast<unsigned>(v) < static_cast<unsigned>(capacity))
+    deg[v] = c.ok ? c.next : old;
+  if (c.emit_new && c.next < capacity) hist[c.next] = wrap_add(hist[c.next], 1);
+  recs[0] = c.next;
+  recs[1] = hist[clamp_index(c.next, capacity)];
+  if (c.emit_old && old < capacity) hist[old] = wrap_add(hist[old], -1);
   recs[2] = old;
-  recs[3] = hist[clamp_index(old, capacity)];
-  rmask[0] = emit_new;
-  rmask[1] = emit_old;
+  recs[3] = hist[clamp_index(jax_index(old, capacity), capacity)];
+  rmask[0] = c.emit_new;
+  rmask[1] = c.emit_old;
 }
 
 // recs: int32[n, 4, 2]; rmask: uint8[n, 4]; sign: int8[n] or null (all +1);
 // mask: uint8[n] or null (all valid).  One thread.
-__global__ void degree_dist_scan_kernel(int* __restrict__ deg, int* __restrict__ hist, int capacity,
-                                        const int* __restrict__ src, const int* __restrict__ dst,
-                                        const int8_t* __restrict__ sign,
-                                        const uint8_t* __restrict__ mask, int n,
-                                        int* __restrict__ recs, uint8_t* __restrict__ rmask) {
+__global__ void degree_dist_scan_serial_kernel(int* __restrict__ deg, int* __restrict__ hist, int capacity,
+                                               const int* __restrict__ src, const int* __restrict__ dst,
+                                               const int8_t* __restrict__ sign,
+                                               const uint8_t* __restrict__ mask, int n,
+                                               int* __restrict__ recs, uint8_t* __restrict__ rmask) {
   for (int64_t e = 0; e < n; ++e) {
     const bool ok = mask == nullptr || mask[e] != 0;
     const int delta = sign == nullptr ? 1 : static_cast<int>(sign[e]);
     vertex_change(deg, hist, capacity, src[e], delta, ok, recs + 8 * e, rmask + 4 * e);
     vertex_change(deg, hist, capacity, dst[e], delta, ok, recs + 8 * e + 4, rmask + 4 * e + 2);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the two-stage scan
+
+constexpr int kScanItems = 4;                     // sorted rows a thread holds
+constexpr int kTile = kThreads * kScanItems;      // rows a block scans
+constexpr int kWarps = kThreads / 32;
+constexpr long long kInf = 1LL << 62;             // the empty prefix's minimum
+constexpr long long kUnsafe = 1LL << 40;          // Q of a group with d0 < 0
+constexpr long long kInt32Max = 2147483647LL;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Stage 1's prefix: t = T (seeded with d0 at the head), m = min T, q = Q,
+// h = a head lies inside.  combine(a, b) is a followed by b.
+struct Walk {
+  long long t, m, q;
+  int h;
+};
+
+__device__ __forceinline__ Walk walk_identity() { return {0, kInf, 0, 0}; }
+
+__device__ __forceinline__ Walk combine(const Walk& a, const Walk& b) {
+  if (b.h) return b;
+  return {a.t + b.t, a.m < a.t + b.m ? a.m : a.t + b.m, a.q + b.q, a.h};
+}
+
+__device__ __forceinline__ Walk shfl_up(const Walk& v, int d) {
+  return {__shfl_up_sync(kFull, v.t, d), __shfl_up_sync(kFull, v.m, d), __shfl_up_sync(kFull, v.q, d),
+          __shfl_up_sync(kFull, v.h, d)};
+}
+
+// a tile status written by another block: read past the L1
+__device__ __forceinline__ Walk load_cg(const Walk* p) {
+  return {__ldcg(&p->t), __ldcg(&p->m), __ldcg(&p->q), __ldcg(&p->h)};
+}
+
+// the degree after a prefix that holds its group's head
+__device__ __forceinline__ long long walk_degree(const Walk& w) { return w.t - (w.m < 0 ? w.m : 0); }
+
+// Stage 2's prefix: the segmented int32 sum (seeded with hist[key]).
+struct Count {
+  int s, h;
+};
+
+__device__ __forceinline__ Count count_identity() { return {0, 0}; }
+
+__device__ __forceinline__ Count combine(const Count& a, const Count& b) {
+  if (b.h) return b;
+  return {wrap_add(a.s, b.s), a.h};
+}
+
+__device__ __forceinline__ Count shfl_up(const Count& v, int d) {
+  return {__shfl_up_sync(kFull, v.s, d), __shfl_up_sync(kFull, v.h, d)};
+}
+
+__device__ __forceinline__ Count load_cg(const Count* p) { return {__ldcg(&p->s), __ldcg(&p->h)}; }
+
+// Exclusive scan of one value a thread across the block, in thread order;
+// *total gets the block's reduction.  warp_tot: shared, kWarps entries.
+template <typename S>
+__device__ __forceinline__ S block_exclusive(S v, S identity, S* warp_tot, S* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  S inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const S up = shfl_up(inc, d);
+    if (lane >= d) inc = combine(up, inc);
+  }
+  S exc = shfl_up(inc, 1);
+  if (lane == 0) exc = identity;
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  S pre = identity;
+  S all = identity;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w == warp) pre = all;
+    all = combine(all, warp_tot[w]);
+  }
+  *total = all;
+  return combine(pre, exc);
+}
+
+// The tiles' statuses for the decoupled look-back, in the caller's scratch
+// (flags zeroed before the launch): flag 1 = aggregate published, 2 =
+// inclusive prefix published.
+template <typename S>
+struct Tiles {
+  int* ticket;  // the next tile to hand out, in launch order
+  int* flags;
+  S* aggs;
+  S* incls;
+};
+
+// Thread 0 of each block: publish the tile's total and return the prefix
+// of the tiles before it.  A tile holding a group head publishes its
+// inclusive prefix at once (a head resets the scan), so the look-back
+// stops at the nearest such tile; only a group across many tiles (a hub)
+// walks further.  Tiles are taken by ticket, so every tile waited on is
+// held by a block that already runs.
+template <typename S>
+__device__ S tile_prefix(const Tiles<S>& st, int tile, const S& total, S identity) {
+  volatile int* flags = st.flags;
+  if (tile == 0 || total.h) {
+    st.incls[tile] = total;
+    __threadfence();
+    flags[tile] = 2;
+    if (tile == 0) return identity;
+  } else {
+    st.aggs[tile] = total;
+    __threadfence();
+    flags[tile] = 1;
+  }
+  S prefix = identity;
+  for (int j = tile - 1; j >= 0; --j) {
+    int f;
+    while ((f = flags[j]) == 0) {
+    }
+    __threadfence();
+    if (f == 2) {
+      prefix = combine(load_cg(st.incls + j), prefix);
+      break;
+    }
+    prefix = combine(load_cg(st.aggs + j), prefix);
+  }
+  if (!total.h) {
+    st.incls[tile] = combine(prefix, total);
+    __threadfence();
+    flags[tile] = 2;
+  }
+  return prefix;
+}
+
+// One sorted row of stage 1.  words[r]: the row's sign (low byte), mask
+// (bit 8) and whether its vertex lies in [0, C) (bit 9).
+struct Row {
+  int key, r, a, d0;
+  bool valid, ok_mask, in_range, head, end;
+};
+
+__device__ __forceinline__ Row load_row(int64_t p, int rows, const int* __restrict__ keys,
+                                        const int64_t* __restrict__ order, const int* __restrict__ words,
+                                        const int* __restrict__ deg, bool read_head) {
+  Row w{};
+  w.valid = p < rows;
+  if (!w.valid) return w;
+  w.key = __ldg(keys + p);
+  w.r = static_cast<int>(__ldg(order + p));
+  const int word = __ldg(words + w.r);
+  w.a = static_cast<int>(static_cast<int8_t>(word & 0xff));
+  w.ok_mask = (word & 0x100) != 0;
+  w.in_range = (word & 0x200) != 0;
+  w.head = p == 0 || __ldg(keys + p - 1) != w.key;
+  w.end = p + 1 == rows || __ldg(keys + p + 1) != w.key;
+  w.d0 = (read_head && w.head) ? deg[w.key] : 0;
+  return w;
+}
+
+__device__ __forceinline__ Walk row_walk(const Row& w) {
+  if (!w.valid) return walk_identity();
+  const long long a = (w.ok_mask && w.in_range) ? w.a : 0;
+  const long long seed = w.head ? w.d0 : 0;
+  const long long qseed = w.head ? (w.d0 < 0 ? kUnsafe : w.d0) : 0;
+  return {a + seed, a + seed, (a > 0 ? a : 0) + qseed, w.head ? 1 : 0};
+}
+
+// A row's outputs: the records' degree fields (the count fields are stage
+// 2's, written later) and flags in arrival order, and stage 2's keys.
+__device__ __forceinline__ void row_out(const Row& w, const Change& c, int capacity, int* __restrict__ recs,
+                                        uint8_t* __restrict__ rmask, int* __restrict__ key2) {
+  const int r = w.r;
+  reinterpret_cast<int4*>(recs)[r] = make_int4(c.next, 0, c.old, 0);
+  reinterpret_cast<uint16_t*>(rmask)[r] =
+      static_cast<uint16_t>((c.emit_new ? 1u : 0u) | (c.emit_old ? 0x100u : 0u));
+  reinterpret_cast<int2*>(key2)[r] =
+      make_int2(clamp_index(c.next, capacity), clamp_index(jax_index(c.old, capacity), capacity));
+}
+
+// Stage 1, one tile a block.  keys: int32[rows] sorted, order: int64[rows]
+// the sort's permutation of the rows r = 2e + j; words: int32[rows];
+// recs/rmask as the serial kernel's; key2: int32[2 * rows]; list: int32[rows], the last sorted positions of the
+// groups left to degree_dist_walk_kernel, *listed of them.
+__global__ void __launch_bounds__(kThreads)
+degree_dist_rows_kernel(int* __restrict__ deg, int capacity, const int* __restrict__ keys,
+                        const int64_t* __restrict__ order, const int* __restrict__ words, int rows,
+                        int* __restrict__ recs, uint8_t* __restrict__ rmask, int* __restrict__ key2,
+                        Tiles<Walk> st, int* __restrict__ listed,
+                        int* __restrict__ list) {
+  __shared__ Walk warp_tot[kWarps];
+  __shared__ Walk prefix;
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = atomicAdd(st.ticket, 1);
+  __syncthreads();
+  const int64_t base = static_cast<int64_t>(tile_s) * kTile + threadIdx.x * kScanItems;
+  Row w[kScanItems];
+  Walk mine = walk_identity();
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    w[i] = load_row(base + i, rows, keys, order, words, deg, true);
+    mine = combine(mine, row_walk(w[i]));
+  }
+  Walk total;
+  const Walk exc = block_exclusive(mine, walk_identity(), warp_tot, &total);
+  if (threadIdx.x == 0) prefix = tile_prefix(st, tile_s, total, walk_identity());
+  __syncthreads();
+  Walk state = combine(prefix, exc);
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    if (!w[i].valid) continue;
+    const int old = w[i].head ? w[i].d0 : static_cast<int>(walk_degree(state));
+    state = combine(state, row_walk(w[i]));
+    row_out(w[i], degree_change(old, w[i].a, w[i].ok_mask), capacity, recs, rmask, key2);
+    if (!w[i].end) continue;
+    // the group's head tile read deg[key] before it published, and this
+    // tile saw that publication: the one write comes after the one read
+    if (state.q > kInt32Max)
+      list[atomicAdd(listed, 1)] = static_cast<int>(base + i);
+    else
+      deg[w[i].key] = static_cast<int>(walk_degree(state));
+  }
+}
+
+// The groups degree_dist_rows_kernel listed, each walked in order by one
+// thread from its deg cell, which no one wrote: JAX's int32 vertex change.
+__global__ void __launch_bounds__(kThreads)
+degree_dist_walk_kernel(int* __restrict__ deg, int capacity, const int* __restrict__ keys,
+                        const int64_t* __restrict__ order, const int* __restrict__ words, int rows,
+                        int* __restrict__ recs, uint8_t* __restrict__ rmask, int* __restrict__ key2,
+                        const int* __restrict__ listed, const int* __restrict__ list) {
+  const int count = *listed;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < count; g += gridDim.x * kThreads) {
+    const int64_t last = list[g];
+    const int key = __ldg(keys + last);
+    int d = deg[key];
+    for (int64_t p = segment_start(keys, last, key); p <= last; ++p) {
+      const Row w = load_row(p, rows, keys, order, words, deg, false);
+      const Change c = degree_change(d, w.a, w.ok_mask);
+      row_out(w, c, capacity, recs, rmask, key2);
+      if (w.in_range && c.ok) d = c.next;
+    }
+    deg[key] = d;
+  }
+}
+
+// A slot's histogram add: +1 (new) or -1 (old) where emitted, 0 where the
+// degree is >= C (JAX drops the scatter); the degree is read only where
+// the clamped key leaves it open.
+__device__ __forceinline__ int slot_add(int s, int key, int capacity, const uint8_t* __restrict__ rmask,
+                                        const int* __restrict__ recs) {
+  if (__ldg(rmask + s) == 0) return 0;
+  if (key == capacity - 1 && recs[2 * s] >= capacity) return 0;
+  return (s & 1) ? -1 : 1;
+}
+
+// Stage 2, one tile a block.  keys: int32[slots] sorted (the clamped
+// degrees), order: int64[slots] the sort's permutation of the slots; rmask:
+// stage 1's flags; recs: stage 1's degree fields read, the count fields
+// written here.
+__global__ void __launch_bounds__(kThreads)
+degree_dist_counts_kernel(int* __restrict__ hist, int capacity, const int* __restrict__ keys,
+                          const int64_t* __restrict__ order, const uint8_t* __restrict__ rmask, int slots,
+                          int* __restrict__ recs, Tiles<Count> st) {
+  __shared__ Count warp_tot[kWarps];
+  __shared__ Count prefix;
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = atomicAdd(st.ticket, 1);
+  __syncthreads();
+  const int64_t base = static_cast<int64_t>(tile_s) * kTile + threadIdx.x * kScanItems;
+  int key[kScanItems], s[kScanItems];
+  bool end[kScanItems];
+  Count c[kScanItems];
+  Count mine = count_identity();
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const int64_t p = base + i;
+    c[i] = count_identity();
+    end[i] = false;
+    if (p < slots) {
+      key[i] = __ldg(keys + p);
+      s[i] = static_cast<int>(__ldg(order + p));
+      const bool head = p == 0 || __ldg(keys + p - 1) != key[i];
+      end[i] = p + 1 == slots || __ldg(keys + p + 1) != key[i];
+      c[i] = {wrap_add(slot_add(s[i], key[i], capacity, rmask, recs), head ? hist[key[i]] : 0), head ? 1 : 0};
+    }
+    mine = combine(mine, c[i]);
+  }
+  Count total;
+  const Count exc = block_exclusive(mine, count_identity(), warp_tot, &total);
+  if (threadIdx.x == 0) prefix = tile_prefix(st, tile_s, total, count_identity());
+  __syncthreads();
+  Count state = combine(prefix, exc);
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    if (base + i >= slots) continue;
+    state = combine(state, c[i]);
+    recs[2 * s[i] + 1] = state.s;
+    if (end[i]) hist[key[i]] = state.s;
+  }
+}
+
+__device__ __forceinline__ int range_bit(int x, int size) {
+  return static_cast<unsigned>(x) < static_cast<unsigned>(size) ? 0x200 : 0;
+}
+
+// grouping keys and row words of the rows r = 2e + j
+__global__ void __launch_bounds__(kThreads)
+degree_dist_keys_kernel(const int* __restrict__ src, const int* __restrict__ dst, const int8_t* __restrict__ sign,
+                        const uint8_t* __restrict__ mask, int n, int capacity, int* __restrict__ keys,
+                        int* __restrict__ words) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; e < n; e += stride) {
+    const int u = jax_index(__ldg(src + e), capacity);
+    const int v = jax_index(__ldg(dst + e), capacity);
+    const int a = (sign == nullptr ? 1 : static_cast<int>(__ldg(sign + e))) & 0xff;
+    const int m = (mask == nullptr || __ldg(mask + e) != 0) ? 0x100 : 0;
+    reinterpret_cast<int2*>(keys)[e] = make_int2(clamp_index(u, capacity), clamp_index(v, capacity));
+    reinterpret_cast<int2*>(words)[e] = make_int2(a | m | range_bit(u, capacity), a | m | range_bit(v, capacity));
   }
 }
 
@@ -205,6 +585,41 @@ int grid_for(const void* kernel, int64_t items, bool cooperative, cudaError_t* e
   int64_t blocks = (items + kThreads - 1) / kThreads;
   blocks = blocks < fit ? blocks : fit;
   return static_cast<int>(blocks > 0 ? blocks : 1);
+}
+
+// The look-back scratch of a scan over `items`: the ticket and the listed
+// count (8 B), one flag a tile, then (32 B aligned) the tiles' aggregates
+// and inclusive prefixes.  header: the bytes to zero before the launch;
+// used: where the caller's own part (stage 1's list) starts.
+struct Layout {
+  int64_t tiles, header, used;
+};
+
+template <typename S>
+Layout layout_of(int64_t items) {
+  const int64_t tiles = (items + kTile - 1) / kTile;
+  const int64_t header = (8 + 4 * tiles + 31) / 32 * 32;
+  return {tiles, header, header + 2 * tiles * static_cast<int64_t>(sizeof(S))};
+}
+
+template <typename S>
+Layout tiles_in(void* scratch, int64_t items, Tiles<S>* st, int** listed) {
+  const Layout l = layout_of<S>(items);
+  auto* base = static_cast<uint8_t*>(scratch);
+  st->ticket = reinterpret_cast<int*>(base);
+  *listed = reinterpret_cast<int*>(base + 4);
+  st->flags = reinterpret_cast<int*>(base + 8);
+  st->aggs = reinterpret_cast<S*>(base + l.header);
+  st->incls = st->aggs + l.tiles;
+  return l;
+}
+
+// The scratch both stages of n events need: stage 1's look-back over 2n
+// rows and its list of up to 2n rows, or stage 2's over 4n slots.
+int64_t scan_scratch_bytes(int64_t n) {
+  const int64_t one = layout_of<Walk>(2 * n).used + 4 * (2 * n);
+  const int64_t two = layout_of<Count>(4 * n).used;
+  return one > two ? one : two;
 }
 
 }  // namespace
@@ -255,16 +670,88 @@ int degree_fold_launch(void* deg, const void* src, const void* dst, const void* 
 
 // deg, hist: int32[capacity], updated in place; src, dst: int32[n]; sign:
 // int8[n] or null; mask: uint8[n] or null; recs: int32[n * 8]; rmask:
-// uint8[n * 4].
-int degree_dist_scan_launch(void* deg, void* hist, int capacity, const void* src, const void* dst,
-                            const void* sign, const void* mask, int n, void* recs, void* rmask,
-                            void* stream) {
+// uint8[n * 4].  The first design, one thread.
+int degree_dist_scan_serial_launch(void* deg, void* hist, int capacity, const void* src, const void* dst,
+                                   const void* sign, const void* mask, int n, void* recs, void* rmask,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
-  degree_dist_scan_kernel<<<1, 1, 0, s>>>(
+  degree_dist_scan_serial_kernel<<<1, 1, 0, s>>>(
       static_cast<int*>(deg), static_cast<int*>(hist), capacity, static_cast<const int*>(src),
       static_cast<const int*>(dst), static_cast<const int8_t*>(sign),
       static_cast<const uint8_t*>(mask), n, static_cast<int*>(recs), static_cast<uint8_t*>(rmask));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 1: the keys and row words, then (after the caller's stable sort
+// of the keys) the scan.  src, dst: int32[n]; sign: int8[n] or null; mask:
+// uint8[n] or null; keys, words: int32[2n].
+int degree_dist_keys_launch(const void* src, const void* dst, const void* sign, const void* mask, int n,
+                            int capacity, void* keys, void* words, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  const int blocks = grid_for(reinterpret_cast<const void*>(degree_dist_keys_kernel), n, false, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  degree_dist_keys_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(src), static_cast<const int*>(dst), static_cast<const int8_t*>(sign),
+      static_cast<const uint8_t*>(mask), n, capacity, static_cast<int*>(keys), static_cast<int*>(words));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bytes of scratch that degree_dist_rows_launch and
+// degree_dist_counts_launch need for a batch of n events.
+long long degree_dist_scratch_bytes(int n) { return n > 0 ? scan_scratch_bytes(n) : 0; }
+
+// deg: int32[capacity], updated in place; keys: int32[2n] sorted, order:
+// int64[2n] the stable sort's permutation; words: int32[2n]; recs, rmask as
+// the serial launch's (the degree fields and the flags written here);
+// key2: int32[4n]; scratch: degree_dist_scratch_bytes(n) bytes.
+int degree_dist_rows_launch(void* deg, int capacity, const void* keys, const void* order, const void* words,
+                            int n, void* recs, void* rmask, void* key2, void* scratch,
+                            long long scratch_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
+  if (scratch_bytes < scan_scratch_bytes(n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = 2 * n;
+  Tiles<Walk> st;
+  int* listed;
+  const Layout l = tiles_in(scratch, rows, &st, &listed);
+  int* list = reinterpret_cast<int*>(static_cast<uint8_t*>(scratch) + l.used);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, l.header, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* deg_i = static_cast<int*>(deg);
+  auto* keys_i = static_cast<const int*>(keys);
+  auto* order_l = static_cast<const int64_t*>(order);
+  auto* words_i = static_cast<const int*>(words);
+  auto* recs_i = static_cast<int*>(recs);
+  auto* rmask_b = static_cast<uint8_t*>(rmask);
+  auto* key2_i = static_cast<int*>(key2);
+  degree_dist_rows_kernel<<<(rows + kTile - 1) / kTile, kThreads, 0, s>>>(
+      deg_i, capacity, keys_i, order_l, words_i, rows, recs_i, rmask_b, key2_i, st, listed, list);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  degree_dist_walk_kernel<<<4, kThreads, 0, s>>>(deg_i, capacity, keys_i, order_l, words_i, rows, recs_i,
+                                                 rmask_b, key2_i, listed, list);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2.  hist: int32[capacity], updated in place; keys: int32[4n] the
+// sorted key2, order: int64[4n] the stable sort's permutation; rmask and
+// recs: stage 1's, the count fields written here; scratch as stage 1's.
+int degree_dist_counts_launch(void* hist, int capacity, const void* keys, const void* order, const void* rmask,
+                              int n, void* recs, void* scratch, long long scratch_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
+  if (scratch_bytes < scan_scratch_bytes(n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = 4 * n;
+  Tiles<Count> st;
+  int* listed;
+  const Layout l = tiles_in(scratch, slots, &st, &listed);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, l.header, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  degree_dist_counts_kernel<<<(slots + kTile - 1) / kTile, kThreads, 0, s>>>(
+      static_cast<int*>(hist), capacity, static_cast<const int*>(keys), static_cast<const int64_t*>(order),
+      static_cast<const uint8_t*>(rmask), slots, static_cast<int*>(recs), st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,10 +38,11 @@ NVCC_FLAGS = (
     "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# C entry points of each source: name -> argtypes (all return an int
-# cudaError_t from cudaGetLastError after the launch)
+# C entry points of each source: name -> argtypes (each returns an int
+# cudaError_t from cudaGetLastError after the launch, unless RESTYPES says
+# otherwise)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "pane_triangles.cu": {
         # words, n_ptr, cap, bits, k, stream
@@ -67,10 +68,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # deg, src, dst, mask | None, n, capacity, stream
         "degree_fold_launch": [_P, _P, _P, _P, _I, _I, _P],
         # deg, hist, capacity, src, dst, sign | None, mask | None, n, recs,
-        # rmask, stream
-        "degree_dist_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        # rmask, stream: the one-thread kernel
+        "degree_dist_scan_serial_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        # src, dst, sign | None, mask | None, n, capacity, keys int32[2n],
+        # words int32[2n], stream
+        "degree_dist_keys_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+        # deg, capacity, sorted keys, order (int64), words, n, recs, rmask,
+        # key2, scratch, scratch bytes, stream: stage 1
+        "degree_dist_rows_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _L, _P],
+        # hist, capacity, sorted key2, order2 (int64), rmask, n, recs,
+        # scratch, scratch bytes, stream: stage 2
+        "degree_dist_counts_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _L, _P],
+        # n: the scratch bytes both stages need for n events
+        "degree_dist_scratch_bytes": [_I],
     },
 }
+
+# entry points that return something other than a cudaError_t
+RESTYPES: Dict[str, type] = {"degree_dist_scratch_bytes": _L}
 
 
 class BuildResult(NamedTuple):
@@ -142,7 +157,7 @@ def library(source: str) -> ctypes.CDLL:
             for name, argtypes in SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _libs[source] = lib
         return lib
 

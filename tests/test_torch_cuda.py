@@ -307,6 +307,58 @@ def test_degree_dist_scan_kernel_matches_twin(cuda_device, capacity):
     assert int(deg.max()) >= 64
 
 
+def _scan_batch(rng, n, case, c):
+    src = rng.integers(0, c, n).astype(np.int32)
+    dst = rng.integers(0, c, n).astype(np.int32)
+    dst[::13] = src[::13]
+    sign = np.where(rng.random(n) < 0.3, -1, 1).astype(np.int8)
+    if case == "one_vertex":  # one group across hundreds of blocks
+        src[:] = 5
+        dst[:] = 5
+        sign = np.where(rng.random(n) < 0.2, -1, 1).astype(np.int8)
+    elif case == "out_of_range":
+        src[rng.random(n) < 0.1] = -1
+        dst[rng.random(n) < 0.1] = c
+        dst[rng.random(n) < 0.05] = c + 5
+        sign = rng.choice(np.array([-128, -3, -1, 0, 1, 2, 127], np.int8), n)
+    return src, dst, sign, rng.random(n) < 0.9
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000, (1 << 18) + 3])
+@pytest.mark.parametrize("case,capacity", [("uniform", 1 << 12), ("uniform", 64), ("one_vertex", 1 << 12),
+                                           ("out_of_range", 1 << 10)])
+def test_degree_dist_scan_two_stage_kernels_match_serial_and_twin(cuda_device, n, case, capacity):
+    """The two-stage kernels against the one-thread kernel and the twin,
+    bit for bit, over two in-place calls on one state."""
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    rng = np.random.default_rng(n)
+    deg0 = rng.integers(0, 4, capacity).astype(np.int32)
+    deg0[7] = (1 << 31) - 3  # a group at the int32 wrap
+    hist0 = np.bincount(np.minimum(deg0, capacity - 1), minlength=capacity).astype(np.int32)
+    states = [(torch.from_numpy(deg0.copy()).to(cuda_device), torch.from_numpy(hist0.copy()).to(cuda_device))
+              for _ in range(3)]
+    for call in range(2):
+        src, dst, sign, mask = _scan_batch(rng, n, case, capacity)
+        if call == 1:
+            src[: min(n, 5)] = 7
+        args = [torch.from_numpy(a).to(cuda_device) for a in (src, dst, sign, mask)]
+        twin = degrees.degree_dist_scan_plain(*states[2], *args)
+        states[2][0].copy_(twin[0])
+        states[2][1].copy_(twin[1])
+        before = degrees.LAUNCHES["degree_dist_scan"]
+        got = degrees.degree_dist_scan(*states[0], *args)
+        assert degrees.LAUNCHES["degree_dist_scan"] == before + 1
+        serial = degrees.degree_dist_scan_serial(*states[1], *args)
+        torch.cuda.synchronize()
+        for g, s, w in zip(got, serial, twin[2:]):
+            assert torch.equal(g, s) and torch.equal(g, w)
+        for (gd, gh), (sd, sh) in zip(states[:2], states[1:]):
+            assert torch.equal(gd, sd) and torch.equal(gh, sh)
+    if case == "uniform" and capacity == 64 and n >= 3000:
+        assert int(states[0][0].max()) >= 64  # degrees pass the capacity
+
+
 @pytest.mark.parametrize("start", ["identity", "forest"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_parity_union_kernel_matches_twin(cuda_device, start, masked):

@@ -123,6 +123,91 @@ def test_degree_dist_update_from_a_shared_mid_stream_state():
         interop.degree_dist_state_from_numpy(np.zeros(4), np.zeros(5), device=CPU)
 
 
+def _scan_case(name):
+    """(deg, hist, src, dst, sign | None, mask) of one adversarial batch."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    c, n = 32, 300
+    src = rng.integers(0, c, n).astype(np.int32)
+    dst = rng.integers(0, c, n).astype(np.int32)
+    dst[::11] = src[::11]  # self-loops
+    sign = np.where(rng.random(n) < 0.3, -1, 1).astype(np.int8)
+    mask = np.ones(n, bool)
+    deg = np.zeros(c, np.int32)
+    hist = np.zeros(c, np.int32)
+    if name == "out_of_range_ids":
+        src[rng.random(n) < 0.2] = -1
+        dst[rng.random(n) < 0.1] = c
+        dst[rng.random(n) < 0.1] = c + 5
+        src[rng.random(n) < 0.05] = -c - 2
+    elif name == "int8_signs":
+        sign = rng.choice(np.array([-128, -3, -1, 0, 1, 2, 127], np.int8), n)
+    elif name == "hub":
+        src[rng.random(n) < 0.6] = 7
+    elif name == "past_capacity":
+        src, dst = src % 3, dst % 4  # degrees pass the capacity
+        sign = np.where(rng.random(n) < 0.1, -1, 1).astype(np.int8)
+    elif name == "masked":
+        mask = rng.random(n) < 0.6
+    elif name == "all_additions":
+        sign = None
+    elif name == "wrap":
+        deg[5] = (1 << 31) - 3
+        src, dst, sign = np.full(5, 5, np.int32), np.full(5, 9, np.int32), np.ones(5, np.int8)
+        mask = np.ones(5, bool)
+    return deg, hist, src, dst, sign, mask
+
+
+def _jax_scan(deg, hist, src, dst, sign, mask):
+    state = jdd.DegreeDistState(jnp.asarray(deg), jnp.asarray(hist))
+    args = (src, dst, None if sign is None else sign, mask)
+    state, recs, rmask = jdd.degree_dist_update(state, *(None if a is None else jnp.asarray(a) for a in args))
+    return [np.asarray(a) for a in (state.deg, state.hist, recs, rmask)]
+
+
+def _assert_scan_matches_jax(deg, hist, src, dst, sign, mask):
+    """The two-stage twin and degree_dist_update on the CPU, bit for bit
+    against JAX's lax.scan in deg, hist, records and record mask."""
+    want = _jax_scan(deg, hist, src, dst, sign, mask)
+    t = [None if a is None else torch.from_numpy(np.array(a)) for a in (deg, hist, src, dst, sign, mask)]
+    for got in (
+        degrees.degree_dist_scan_plain(*t),
+        (lambda st, r, m: (st.deg, st.hist, r, m))(
+            *tdd.degree_dist_update(interop.degree_dist_state_from_numpy(deg, hist, device=CPU), *t[2:])),
+    ):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+SCAN_CASES = ["out_of_range_ids", "int8_signs", "hub", "past_capacity", "masked", "all_additions"]
+
+
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_degree_dist_scan_twin_matches_jax_on_edge_cases(name):
+    _assert_scan_matches_jax(*_scan_case(name))
+
+
+def test_degree_dist_scan_twin_wraps_like_jax_at_int32():
+    """deg[v] = 2^31 - 3, then five +1 events on v: JAX's int32 add wraps
+    past 2^31 - 1 and clamps to 0, and the twin walks that group in order."""
+    deg, hist, src, dst, sign, mask = _scan_case("wrap")
+    _assert_scan_matches_jax(deg, hist, src, dst, sign, mask)
+    recs = degrees.degree_dist_scan_plain(*(torch.from_numpy(a) for a in (deg, hist, src, dst, sign, mask)))[2]
+    assert recs[:, 0, 0].tolist() == [(1 << 31) - 2, (1 << 31) - 1, 0, 1, 2]
+
+
+def test_degree_dist_scan_twin_matches_jax_from_a_mid_stream_state():
+    """Random state from a JAX run, then an adversarial batch: every case
+    above, started from interop.degree_dist_state_from_numpy."""
+    rng = np.random.default_rng(12)
+    c = 32
+    ev = _events(4, 500, c, delete_share=0.25)
+    s, d, g = (np.array([e[k] for e in ev], dtype) for k, dtype in enumerate((np.int32, np.int32, np.int8)))
+    deg0, hist0, _, _ = _jax_scan(np.zeros(c, np.int32), np.zeros(c, np.int32), s, d, g, rng.random(500) < 0.9)
+    for name in SCAN_CASES:
+        _, _, src, dst, sign, mask = _scan_case(name)
+        _assert_scan_matches_jax(deg0, hist0, src, dst, sign, mask)
+
+
 @pytest.mark.parametrize("packed", [True, False])
 def test_degree_trace_twin_matches_jax_kernel(packed):
     """The twin of the degree-trace kernel against JAX's _degree_stream

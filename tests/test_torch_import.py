@@ -74,7 +74,7 @@ def test_cuda_entry_points_match_their_ctypes_declarations():
         with open(os.path.join(_cuda.CSRC_DIR, source)) as f:
             text = f.read()
         extern = text[text.index('extern "C" {') :]
-        found = dict(re.findall(r"^int (\w+)\(([^)]*)\)", extern, re.M | re.S))
+        found = dict(re.findall(r"^(?:int|long long) (\w+)\(([^)]*)\)", extern, re.M | re.S))
         assert set(found) == set(entries), source
         for name, argtypes in entries.items():
             assert len(found[name].split(",")) == len(argtypes), name

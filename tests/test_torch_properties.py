@@ -20,6 +20,7 @@ from gelly_streaming_tpu.core.config import StreamConfig as JConfig
 from gelly_streaming_tpu.core.stream import EdgeStream as JStream
 from gelly_streaming_tpu.core.types import EdgeBatch as JBatch
 from gelly_streaming_tpu.io import wire as jwire
+from gelly_streaming_tpu.library import degree_distribution as jdd
 from gelly_streaming_tpu.ops import neighbors as jnb
 from gelly_streaming_tpu.ops import segments as jseg
 from gelly_streaming_tpu_torch import interop
@@ -30,6 +31,8 @@ from gelly_streaming_tpu_torch.core.types import EdgeBatch as TBatch
 from gelly_streaming_tpu_torch.core.types import EdgeDirection, EventType
 from gelly_streaming_tpu_torch.io import prefetch as tprefetch
 from gelly_streaming_tpu_torch.io import wire as twire
+from gelly_streaming_tpu_torch.library import degree_distribution as tdd
+from gelly_streaming_tpu_torch.ops import degrees
 from gelly_streaming_tpu_torch.ops import neighbors as tnb
 from gelly_streaming_tpu_torch.ops import segments as tseg
 
@@ -329,3 +332,28 @@ def test_insert_unique_matches_jax_from_a_shared_state():
     for tab_t, tab_j in zip(got[:2], want[:2]):
         for a, b in zip(tab_t, tab_j):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# the fully-dynamic degree distribution, in batches
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_degree_dist_update_in_batches_matches_jax(seed):
+    """Repeated in-place updates of one state, against JAX's scan."""
+    rng = np.random.default_rng(seed)
+    c, n, bs = 48, 600, 150
+    src = rng.integers(-2, c + 3, n).astype(np.int32)
+    dst = np.where(rng.random(n) < 0.5, 3, rng.integers(0, c, n)).astype(np.int32)
+    sign = rng.choice(np.array([-2, -1, 1, 1, 3], np.int8), n)
+    mask = rng.random(n) < 0.85
+    jstate = jdd.init_state(JConfig(vertex_capacity=c))
+    tstate = tdd.init_state(TConfig(vertex_capacity=c), device=CPU)
+    for lo in range(0, n, bs):
+        part = [a[lo : lo + bs] for a in (src, dst, sign, mask)]
+        jstate, j_recs, j_mask = jdd.degree_dist_update(jstate, *map(jnp.asarray, part))
+        tstate, t_recs, t_mask = tdd.degree_dist_update(tstate, *map(_t, part))
+        np.testing.assert_array_equal(t_recs.numpy(), np.asarray(j_recs))
+        np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
+    np.testing.assert_array_equal(tstate.deg.numpy(), np.asarray(jstate.deg))
+    np.testing.assert_array_equal(tstate.hist.numpy(), np.asarray(jstate.hist))
