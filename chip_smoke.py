@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (gelly_streaming_tpu_torch).
 
-    python3 chip_smoke.py [--baseline-cu PATH]
+    python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -68,6 +68,21 @@ the CPU path's.  Each new kernel (``degree_trace``, ``degree_fold``,
 its main path and equal its twin; ``index_add_`` is timed beside
 ``degree_fold`` as the library call.
 
+Phases 6-10 also hold the kernels against their twins with ids -1, C and
+C + 5 on some rows of the main path's batches (unvalidated streams may
+carry them; the port follows JAX's index rules), and print the union
+calls' hook and doubling round counts on a first and a late batch.  The
+main path's first fold compresses the fresh state; later folds find it
+known flat and skip the compress kernel.  Phase 11, with
+``--parent-degrees-cu`` / ``--parent-unionfind-cu`` (those sources as they
+were before their redesign, with that C interface), times the parent's
+degree_trace (kernel alone and the whole call) and union calls (first and
+late batch, CC and parity) in turns with the current ones on the held
+stream, and splits the parent's degree_trace kernel: variants built from
+its source with one part taken out each (the scattered record stores, the
+segment searches, the int64 order read, the mask-bit loop, the counts
+gather, phase 2 and its grid sync), each timed in turns with it.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -80,6 +95,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -479,11 +495,13 @@ BASELINE_SIGNATURES = {
 }
 
 
-def load_baseline(path: str):
+def load_baseline(path: str, signatures=None):
+    """``path`` built (or its build reused) and loaded, with the entry
+    points of ``signatures`` (default: the first slice's pane kernels)."""
     from gelly_streaming_tpu_torch.ops import _cuda
 
     lib = ctypes.CDLL(str(_cuda.build_all([path])[path].path))
-    for name, argtypes in BASELINE_SIGNATURES.items():
+    for name, argtypes in (signatures or BASELINE_SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -514,6 +532,107 @@ def baseline_wrappers(lib):
         return total
 
     return adjacency, dense
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the parent commit's degrees.cu and unionfind.cu (before their
+# redesign), for the in-turn comparison, and the split of its degree_trace
+
+PARENT_SIGNATURES = {
+    # m, sorted keys, order (int64), n, counts, capacity, packed, maskbits, emitted, stream
+    "degrees": {"degree_trace_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P]},
+    # parent, seen, src, dst, mask, n, capacity, scratch uint8[24 + items], stream
+    "unionfind": {"uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+                  "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P]},
+}
+
+# The parent's degree_trace_kernel with one part taken out: (old text, new
+# text) substitutions in its source, each applied exactly once.
+TRACE_SPLIT = {
+    "scattered record stores (written at the sorted position)": [
+        ("auto* rec = reinterpret_cast<uint16_t*>(packed + 6 * i);",
+         "auto* rec = reinterpret_cast<uint16_t*>(packed + 6 * (p + (i < 0)));")],
+    "segment searches (rank 0, length 1)": [
+        ("const int rank = static_cast<int>(p - segment_start(keys, p, key));", "const int rank = 0;"),
+        ("const int len = static_cast<int>(p - segment_start(keys, p, key) + 1);", "const int len = 1;")],
+    "int64 order read (a multiplicative permutation of 2^k rows)": [
+        ("const int64_t i = __ldg(order + p);", "const int64_t i = (p * 2654435761LL) & (n - 1);")],
+    "mask-bit loop": [("if (maskbits != nullptr) {", "if (false) {")],
+    "counts gather": [("counts[clamp_index(id, capacity)]", "id")],
+    "phase 2 and its grid sync": [
+        ("grid.sync();\n  for (int64_t p = first; p < n; p += stride) {\n    const int key = __ldg(keys + p);\n"
+         "    if ((key & 1) != 0) continue;",
+         "return;\n  for (int64_t p = first; p < n; p += stride) {\n    const int key = __ldg(keys + p);\n"
+         "    if ((key & 1) != 0) continue;")],
+}
+
+
+def trace_split_sources(parent_cu: str) -> dict:
+    """{part removed: path of the variant's source}, written under the
+    port's build directory."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    text = open(parent_cu).read()
+    out_dir = _cuda.BUILD_DIR / "trace_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for k, (part, subs) in enumerate(TRACE_SPLIT.items()):
+        variant = text
+        for old, new in subs:
+            if variant.count(old) != 1:
+                raise RuntimeError(f"trace split {part!r}: {old[:40]!r} found {variant.count(old)} times")
+            variant = variant.replace(old, new)
+        path = out_dir / f"degrees_split_{k}.cu"
+        path.write_text(variant)
+        paths[part] = str(path)
+    return paths
+
+
+def parent_trace(lib, counts, v, m):
+    """(kernel alone after a sort made once, the whole call: keys, stable
+    sort, kernel) of the parent's degree_trace, packed records."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    n = v.shape[0]
+    rec = torch.empty(6 * n, dtype=torch.uint8, device=v.device)
+    bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+
+    def launch(keys, order):
+        _cuda.check(lib.degree_trace_launch(m.data_ptr(), keys.data_ptr(), order.data_ptr(), n, counts.data_ptr(),
+                                            counts.shape[0], rec.data_ptr(), bits.data_ptr(), None, stream),
+                    "parent degree_trace_launch")
+        return rec, bits
+
+    keys, order = torch.sort((v << 1) | (~m).to(torch.int32), stable=True)
+
+    def call():
+        k, o = torch.sort((v << 1) | (~m).to(torch.int32), stable=True)
+        return launch(k, o)
+
+    return (lambda: launch(keys, order)), call
+
+
+def parent_union_fold(lib, parity: bool):
+    """The parent's fold (compress, then the union) with its own scratch,
+    as its wrapper called it: fold(parent, seen, src, dst)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    entry = lib.uf_parity_union_launch if parity else lib.uf_union_launch
+
+    def fold(parent, seen, s, d):
+        n = d.shape[0]
+        scratch = torch.empty(24 + (2 * n if parity else n), dtype=torch.uint8, device=parent.device)
+        _cuda.check(entry(parent.data_ptr(), seen.data_ptr(), s.data_ptr(), d.data_ptr(), None, n,
+                          parent.shape[0] // 2 if parity else parent.shape[0], scratch.data_ptr(),
+                          torch.cuda.current_stream(parent.device).cuda_stream), "parent union")
+        return parent, seen
+
+    return fold
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +685,18 @@ def uf_cases(rng, c: int, n: int):
         ("ids at capacity - 1", np.concatenate([top, rng.integers(0, c, n // 2)]),
          np.concatenate([rng.integers(0, c, n // 2), top]), None, ident),
         ("non-minimum-root forest", rng.integers(0, c, n), rng.integers(0, c, n), None, uf_forest(rng, c)),
+        ("ids -1, C and C + 5 (JAX's index rules)", oor_ids(rng.integers(0, c, n), c),
+         oor_ids(rng.integers(0, c, n), c, 5), None, ident),
     ]
+
+
+def oor_ids(ids, c: int, shift: int = 0):
+    """``ids`` with a spread of rows set to -1, C and C + 5 (what an
+    unvalidated stream may carry; JAX's gather and scatter rules apply)."""
+    ids = np.array(ids, dtype=np.int64)
+    for k, x in enumerate((-1, c, c + 5)):
+        ids[shift + k :: 997] = x
+    return ids
 
 
 def phase_union(dev, rng):
@@ -607,15 +737,19 @@ def phase_union(dev, rng):
     return worst
 
 
-def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float):
+def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float, flat: bool = False):
     """(device ms, host enqueue us) per ``fold(parent, seen, s, d)`` call,
     each call folding (s, d) into its own fresh copy of (parent, seen);
-    the calls are enqueued while ``torch.cuda._sleep`` holds the stream."""
+    the calls are enqueued while ``torch.cuda._sleep`` holds the stream.
+    ``flat``: the copies are marked flat, as the state a fold left is on
+    the main path (the port's fold then skips compress)."""
     import torch
+
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     hold_ms = 2.0
     for _ in range(4):
-        copies = [(parent.clone(), seen.clone()) for _ in range(reps)]
+        copies = [((uf.mark_flat(parent.clone()) if flat else parent.clone()), seen.clone()) for _ in range(reps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -733,8 +867,10 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     launches = dict(uf.LAUNCHES)
     if len(records) != 1:
         raise RuntimeError(f"expected one end-of-stream record, got {len(records)}")
-    if min(launches["union_kernel"], launches["compress_kernel"]) < nb:
-        raise RuntimeError(f"the union-find kernels were not launched per batch: {launches}")
+    # the first batch compresses the fresh state; every later one finds it
+    # known flat
+    if launches["union_kernel"] != nb or launches["compress_kernel"] != 1:
+        raise RuntimeError(f"the union-find kernels were not launched once a batch: {launches}")
     log(f"  from_wire(...).aggregate(ConnectedComponents()): {wall_s:.3f} s first buffer -> host "
         f"labels, {num_edges / wall_s:.6g} edges/s end to end")
     log(f"  launches on the main path: {launches}")
@@ -800,8 +936,16 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     init = (uf.init_parent(c, dev), torch.zeros(c, dtype=torch.bool, device=dev))
     late = snaps["late"]
     fold = uf.union_edges_with_seen
+    # the main path's calls: the first batch on a fresh state (compress, then
+    # the union), a late one on a state the last fold left flat (the union)
     first_ms, first_us = fold_device_ms(fold, *init, s0, d0, UF_REPS, cycles_per_ms)
-    late_ms, late_us = fold_device_ms(fold, *late, sl, dl, UF_REPS, cycles_per_ms)
+    late_ms, late_us = fold_device_ms(fold, *late, sl, dl, UF_REPS, cycles_per_ms, flat=True)
+    rounds = {}
+    for name, (p0, sn0), (s_, d_), flat in (("first", init, (s0, d0), False), ("late", late, (sl, dl), True)):
+        p1 = uf.mark_flat(p0.clone()) if flat else p0.clone()
+        fold(p1, sn0.clone(), s_, d_)
+        rounds[name] = uf.last_rounds()
+    log(f"  the union call's rounds: first batch {rounds['first']}, late batch {rounds['late']}")
     twin_first_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*init, s0, d0), 1, 0)
     twin_late_ms = cuda_ms(lambda: uf.union_edges_with_seen_plain(*late, sl, dl), 1, 0)
     compress_twin_ms = cuda_ms(lambda: uf.compress_plain(late[0]), 1, 0)
@@ -809,7 +953,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     # alone, and the union kernel is the rest of the call
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     comp_ms, comp_us = fold_device_ms(fold, *late, none, none, UF_REPS, cycles_per_ms)
-    held = {"union_kernel": (late_ms - comp_ms, late_us - comp_us), "compress_kernel": (comp_ms, comp_us)}
+    held = {"union_kernel": (late_ms, late_us), "compress_kernel": (comp_ms, comp_us)}
     per_kernel, split_by = {}, "torch.profiler"
     try:
         per_kernel = union_kernel_profile(*late, sl, dl, 10)
@@ -823,13 +967,13 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     b_union, b_compress = uf_bound_ms(batch, c)
     share = (first_ms + (nb - 1) * late_ms) / (wall_s * 1e3)
     busy = share + nb * unpack_ms / (wall_s * 1e3)
-    log(f"  one batch's fold (uf_union_launch: union + compress), device only: first batch "
-        f"{first_ms:.4f} ms, late batch {late_ms:.4f} ms; host enqueue {first_us:.2f} / {late_us:.2f} us; "
-        f"bound {b_union + b_compress:.5f} ms (bytes)")
+    log(f"  one batch's fold (uf_union_launch), device only: first batch (compress + union) "
+        f"{first_ms:.4f} ms, late batch (union, the state known flat) {late_ms:.4f} ms; host enqueue "
+        f"{first_us:.2f} / {late_us:.2f} us; bounds {b_union + b_compress:.5f} / {b_union:.5f} ms (bytes)")
     log(f"  per kernel on the late batch, by {split_by}: union_kernel "
         f"{per_kernel['union_kernel']:.2f} us, compress_kernel {per_kernel['compress_kernel']:.2f} us a launch; "
-        f"held stream: compress alone {comp_ms * 1e3:.2f} us, the call minus it "
-        f"{held['union_kernel'][0] * 1e3:.2f} us; bounds {b_union * 1e3:.3f} / {b_compress * 1e3:.3f} us")
+        f"held stream: compress alone (a call with no edges) {comp_ms * 1e3:.2f} us; bounds "
+        f"{b_union * 1e3:.3f} / {b_compress * 1e3:.3f} us")
     log(f"  plain twin: first batch {twin_first_ms:.3f} ms, late batch {twin_late_ms:.3f} ms, "
         f"compress_plain {compress_twin_ms:.3f} ms (host loop, syncs included)")
     log(f"  the kernels' share of the wall time: {share * 100:.2f}% (the first batch's fold + "
@@ -838,6 +982,10 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
         f"device busy (unpack + fold) ~{busy * 100:.1f}% of the wall time, idle ~{(1 - busy) * 100:.1f}%")
     return {
         "launches": launches,
+        "first_ms": first_ms,
+        "late_ms": late_ms,
+        "rounds": rounds,
+        "turns": {"init": init, "late": late, "first_batch": (s0, d0), "late_batch": (sl, dl)},
         "union_ms": per_kernel["union_kernel"] / 1e3,
         "compress_ms": per_kernel["compress_kernel"] / 1e3,
         "held": held,
@@ -854,7 +1002,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
 
 def trace_launcher(counts, v, m):
     """A callable making one raw ``degree_trace_launch`` (packed records)
-    over pre-sorted keys: the kernel alone, without the sort."""
+    over pre-sorted keys: the two kernels alone, without the sort."""
     import torch
 
     from gelly_streaming_tpu_torch.ops import _cuda
@@ -864,12 +1012,16 @@ def trace_launcher(counts, v, m):
     n = v.shape[0]
     rec = torch.empty(6 * n, dtype=torch.uint8, device=v.device)
     bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=v.device)
+    nbytes = lib.degree_trace_scratch_bytes(n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
 
     def launch():
-        _cuda.check(lib.degree_trace_launch(m.data_ptr(), keys.data_ptr(), order.data_ptr(), n, counts.data_ptr(),
-                                            counts.shape[0], rec.data_ptr(), bits.data_ptr(), None, stream),
+        _cuda.check(lib.degree_trace_launch(v.data_ptr(), m.data_ptr(), keys.data_ptr(), order.data_ptr(), n,
+                                            counts.data_ptr(), counts.shape[0], rec.data_ptr(), bits.data_ptr(),
+                                            None, scratch.data_ptr(), nbytes, stream),
                     "degree_trace_launch")
+        return rec, bits
 
     return launch
 
@@ -981,9 +1133,15 @@ def phase_properties(dev, cycles_per_ms: float, data: dict) -> dict:
         wire.unpack_records48(rec_h, bits_h, n)
     decode_ms = (time.perf_counter() - t0) / 3 * 1e3
     busy = nb * step_ms / (wall_s * 1e3)
-    log(f"  degree_trace kernel alone (after the sort), device only: {k_ms:.4f} ms a batch of {n} rows, "
+    log(f"  degree_trace kernels alone (after the sort), device only: {k_ms:.4f} ms a batch of {n} rows, "
         f"host enqueue {k_us:.2f} us, back-to-back events {k_events:.4f} ms; bound {bound:.5f} ms (bytes, "
         f"{touched} vertices touched)")
+    try:
+        split = {(re.search(r"(\w+)\(", key) or re.search(r"(.*)", key)).group(1): round(us, 2)
+                 for key, (us, _) in profiler_device_us(launch, 10).items()}
+        log(f"  degree_trace by torch.profiler, us a launch: {split}")
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
     log(f"  degree_trace call (keys, torch.sort, kernel): device {call_ms:.4f} ms, host enqueue {call_us:.1f} us; "
         f"the whole batch step (PAIR40 unpack, interleave, call): device {step_ms:.4f} ms, host {step_us:.1f} us")
     log(f"  plain twin {plain_ms:.3f} ms; one batch's packed records D2H alone {d2h_ms:.4f} ms "
@@ -991,6 +1149,24 @@ def phase_properties(dev, cycles_per_ms: float, data: dict) -> dict:
     log(f"  host decode of one batch's records (numpy unpack_records48): {decode_ms:.2f} ms, "
         f"{nb * decode_ms / (wall_s * 1e3) * 100:.1f}% of the wall time over {nb} batches")
     log(f"  device busy ~{busy * 100:.2f}% of the get_degrees wall time, idle ~{(1 - busy) * 100:.2f}%")
+
+    # the kernels against the twin at the main path's shape, with ids -1, C
+    # and C + 5 on some rows (JAX's index rules), packed and raw
+    v_oor = torch.from_numpy(oor_ids(v.cpu().numpy(), c).astype(np.int32)).to(dev)
+    m_oor = m.clone()
+    m_oor[1::7] = False
+    c0 = torch.from_numpy(np.random.default_rng(8).integers(0, 1 << 10, c).astype(np.int32)).to(dev)
+    for packed in (True, False):
+        got_c = c0.clone()
+        got = degrees.degree_trace(got_c, v_oor, m_oor, packed)
+        want_c, want = degrees.degree_trace_plain(c0, v_oor, m_oor, packed)
+        oor_err = int((got_c - want_c).abs().max()) + sum(int((g.long() - w.long()).abs().max())
+                                                          for g, w in zip(got, want))
+        if oor_err:
+            raise RuntimeError(f"degree_trace with out-of-range ids differs from the twin ({oor_err}, packed {packed})")
+        worst = max(worst, oor_err)
+    log(f"  degree_trace with ids -1, C, C + 5 on every 997th row and a mask: counts and records equal to the "
+        f"twin's (packed and raw), {n} rows")
 
     # the other property streams over a prefix of 8 batches
     k = PROP_PREFIX_BATCHES * batch
@@ -1036,7 +1212,7 @@ def phase_properties(dev, cycles_per_ms: float, data: dict) -> dict:
     log(f"  undirected().distinct() over {PROP_DISTINCT_BATCHES} batches: {len(got)} distinct directed edges "
         f"of {len(seq)}, equal to numpy's first occurrences, in {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "ms": k_events, "device_ms": k_ms, "host_us": k_us, "plain_ms": plain_ms,
-            "bound_ms": bound, "err": worst}
+            "bound_ms": bound, "err": worst, "call_ms": call_ms, "turns": (v, m)}
 
 
 def degree_dist_oracle(src, dst, sign):
@@ -1112,6 +1288,11 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     s, d = wire.unpack_edges(torch.from_numpy(bufs[-1]).to(dev), batch, width)
     base = torch.from_numpy(want.astype(np.int32)).to(dev)
     fold_err = int((degrees.degree_fold(base.clone(), s, d) - degrees.degree_fold_plain(base, s, d)).abs().max())
+    # ids -1, C and C + 5 on some rows: JAX's scatter rule
+    so, do = (torch.from_numpy(oor_ids(x.cpu().numpy(), c, k).astype(np.int32)).to(dev) for k, x in enumerate((s, d)))
+    oor_err = int((degrees.degree_fold(base.clone(), so, do) - degrees.degree_fold_plain(base, so, do)).abs().max())
+    if oor_err:
+        raise RuntimeError(f"degree_fold with out-of-range ids differs from the twin ({oor_err})")
     acc = base.clone()
     f_ms, f_us = device_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS, cycles_per_ms)
     f_events = cuda_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS)
@@ -1122,7 +1303,7 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     f_bound = (8 * batch + 8 * c) / HBM_BYTES_PER_S * 1e3
     log(f"  degree_fold a batch: device {f_ms:.4f} ms, host enqueue {f_us:.2f} us, events {f_events:.4f} ms; "
         f"index_add_ (int64 index of both endpoints) {lib_ms:.4f} ms; plain twin {f_plain:.4f} ms; "
-        f"bound {f_bound:.5f} ms (bytes); max |err| vs twin {fold_err}")
+        f"bound {f_bound:.5f} ms (bytes); max |err| vs twin {fold_err}, with ids -1, C, C + 5 {oor_err}")
 
     # the fully-dynamic distribution: 2^20 signed events over 2^16 vertices
     rng = np.random.default_rng(1)
@@ -1360,7 +1541,7 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
         log(f"  {name}: from_wire(...).aggregate(BipartitenessCheck()) {wall_s:.3f} s first buffer -> verdict, "
             f"{nb * batch / wall_s:.6g} edges/s; is_bipartite {verdict}; launches {dict(uf.LAUNCHES)}")
     cand, verdict, _, launches, compress_launches = runs["bipartite"]
-    if not verdict or launches != nb:
+    if not verdict or launches != nb or compress_launches != 1:
         raise RuntimeError(f"the even -> odd stream: is_bipartite {verdict}, {launches} launches")
     p = cand.parent2.cpu().numpy()
     seen = cand.seen.cpu().numpy()
@@ -1380,15 +1561,24 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     s, d = wire.unpack_edges(torch.from_numpy(bbufs[-1]).to(dev), batch, width)
     late = (cand.parent2.clone(), cand.seen.clone())
     init = (uf.init_parity_parent(c, dev), torch.zeros(c, dtype=torch.bool, device=dev))
-    got = uf.parity_union_edges_with_seen(init[0].clone(), init[1].clone(), s, d)
-    want = uf.parity_union_edges_with_seen_plain(*init, s, d)
-    err = int((got[0] - want[0]).abs().max()) + int((got[1] != want[1]).sum())
+    so, do = (torch.from_numpy(oor_ids(x.cpu().numpy(), c, k).astype(np.int32)).to(dev) for k, x in enumerate((s, d)))
+    err = 0
+    for a, b in ((s, d), (so, do)):  # the stream's rows; ids -1, C and C + 5 on some rows
+        got = uf.parity_union_edges_with_seen(init[0].clone(), init[1].clone(), a, b)
+        want = uf.parity_union_edges_with_seen_plain(*init, a, b)
+        err += int((got[0] - want[0]).abs().max()) + int((got[1] != want[1]).sum())
     if err:
         raise RuntimeError(f"the parity union differs from its twin ({err})")
     fold = uf.parity_union_edges_with_seen
     first_ms, first_us = fold_device_ms(fold, *init, s, d, UF_REPS, cycles_per_ms)
-    late_ms, late_us = fold_device_ms(fold, *late, s, d, UF_REPS, cycles_per_ms)
-    copies = iter([(late[0].clone(), late[1].clone()) for _ in range(UF_REPS + 2)])
+    late_ms, late_us = fold_device_ms(fold, *late, s, d, UF_REPS, cycles_per_ms, flat=True)
+    rounds = {}
+    for name, (p0, sn0), flat in (("first", init, False), ("late", late, True)):
+        fold(uf.mark_flat(p0.clone()) if flat else p0.clone(), sn0.clone(), s, d)
+        rounds[name] = uf.last_rounds()
+    log(f"  the parity call's rounds: first batch {rounds['first']}, late batch {rounds['late']}; "
+        f"equal to the twin with ids -1, C, C + 5 on every 997th row")
+    copies = iter([(uf.mark_flat(late[0].clone()), late[1].clone()) for _ in range(UF_REPS + 2)])
     ev_ms = cuda_ms(lambda: uf.parity_union_edges_with_seen(*next(copies), s, d), UF_REPS)
     plain_first = cuda_ms(lambda: uf.parity_union_edges_with_seen_plain(*init, s, d), 1, 0)
     plain_late = cuda_ms(lambda: uf.parity_union_edges_with_seen_plain(*late, s, d), 1, 0)
@@ -1396,7 +1586,7 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     # over the 2C doubled nodes alone, and the parity union is the rest
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     comp_ms, comp_us = fold_device_ms(fold, *late, none, none, UF_REPS, cycles_per_ms)
-    union_ms, union_us = late_ms - comp_ms, late_us - comp_us
+    union_ms, union_us = late_ms, late_us
     per_kernel, split_by = {}, "torch.profiler"
     try:
         per_kernel = union_kernel_profile(*late, s, d, 10, fold=fold)
@@ -1410,13 +1600,13 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     # doubled space reads and writes parent2 (16 B a vertex)
     bound = (8 * batch + 9 * c) / HBM_BYTES_PER_S * 1e3
     compress_bound = 16 * c / HBM_BYTES_PER_S * 1e3
-    log(f"  parity fold a batch (compress + parity union, one C call), device only: first {first_ms:.4f} ms, "
-        f"late {late_ms:.4f} ms; host enqueue {first_us:.1f} / {late_us:.1f} us; events (late) {ev_ms:.4f} ms; "
-        f"plain twin {plain_first:.2f} / {plain_late:.2f} ms")
+    log(f"  parity fold a batch (one C call), device only: first (compress + parity union) {first_ms:.4f} ms, "
+        f"late (parity union, the state known flat) {late_ms:.4f} ms; host enqueue {first_us:.1f} / "
+        f"{late_us:.1f} us; events (late) {ev_ms:.4f} ms; plain twin {plain_first:.2f} / {plain_late:.2f} ms")
     log(f"  per kernel on the late batch, by {split_by}: parity union_kernel "
         f"{per_kernel['union_kernel']:.2f} us, compress_kernel (2C nodes) {per_kernel['compress_kernel']:.2f} us "
-        f"a launch; held stream: compress alone {comp_ms * 1e3:.2f} us, the call minus it {union_ms * 1e3:.2f} us, "
-        f"host {union_us:.1f} us; bounds {bound * 1e3:.3f} / {compress_bound * 1e3:.3f} us (bytes)")
+        f"a launch; held stream: compress alone (a call with no edges) {comp_ms * 1e3:.2f} us; bounds "
+        f"{bound * 1e3:.3f} / {compress_bound * 1e3:.3f} us (bytes)")
 
     # the windowed path at a smaller depth: panes folded in two partitions,
     # combined and merged by merge_parents on the doubled space
@@ -1444,7 +1634,81 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     log(f"  windowed: {wn} timed edges over {wc} vertices, 4 windows of 1000 ms, 2 partitions: every emission "
         f"equal to the CPU path ({card_s:.2f} s on the card); verdicts {[r[2] for r in on_card]}")
     return {"launches": launches, "compress_launches": compress_launches, "ms": per_kernel["union_kernel"] / 1e3,
-            "device_ms": union_ms, "host_us": union_us, "plain_ms": plain_late, "bound_ms": bound, "err": err}
+            "device_ms": union_ms, "host_us": union_us, "plain_ms": plain_late, "bound_ms": bound, "err": err,
+            "first_ms": first_ms, "late_ms": late_ms, "rounds": rounds,
+            "turns": {"init": init, "late": late, "first_batch": (s, d), "late_batch": (s, d)}}
+
+
+def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, props: dict, cc: dict,
+                bp: dict) -> dict:
+    """Phase 11: the redesigned degree_trace and union calls in turns with
+    the parent commit's builds on the main path's inputs (parent, current,
+    current, parent; device only, on the held stream), and the split of the
+    parent's degree_trace kernel (each part removed in turn)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import degrees
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    libs = {k: load_baseline(path, PARENT_SIGNATURES[k]) for k, path in parent_cu.items()}
+    out = {}
+
+    def turns(label, old_fn, new_fn, reps=UF_REPS):
+        got = []
+        for tag, fn in (("parent", old_fn), ("current", new_fn), ("current", new_fn), ("parent", old_fn)):
+            got.append((tag, *fn(reps)))
+        log(f"  {label}: " + "; ".join(f"{tag} {ms:.4f} ms" for tag, ms, _ in got))
+        old = (got[0][1] + got[3][1]) / 2
+        new = (got[1][1] + got[2][1]) / 2
+        log(f"    mean parent {old:.4f} ms, current {new:.4f} ms, {old / new:.2f}x")
+        return {"parent_ms": old, "current_ms": new, "turns": [ms for _, ms, _ in got]}
+
+    if "degrees" in libs:
+        v, m = props["turns"]
+        counts = torch.zeros(CC_VERTICES, dtype=torch.int32, device=dev)
+        p_kernel, p_call = parent_trace(libs["degrees"], counts, v, m)
+        # both kernels' records agree on the main path's rows (ids in range)
+        c_a, c_b = counts.clone(), counts.clone()
+        rec_new = degrees.degree_trace(c_a, v, m, True)
+        counts.copy_(c_b)
+        rec_old = p_call()
+        torch.cuda.synchronize()
+        if not (torch.equal(rec_new[0], rec_old[0]) and torch.equal(rec_new[1], rec_old[1]) and torch.equal(c_a, counts)):
+            raise RuntimeError("the parent's degree_trace and the current one disagree on the main path's rows")
+        n_kernel = trace_launcher(counts, v, m)
+        held = lambda fn: lambda reps: device_ms(fn, reps, cycles_per_ms)  # noqa: E731
+        out["trace_kernel"] = turns(f"degree_trace kernels alone, {v.shape[0]} rows", held(p_kernel), held(n_kernel))
+        out["trace_call"] = turns("degree_trace call (keys, stable sort, kernels)", held(p_call),
+                                  held(lambda: degrees.degree_trace(counts, v, m, True)))
+        sort_ms, _ = device_ms(lambda: torch.sort((v << 1) | (~m).to(torch.int32), stable=True), UF_REPS,
+                               cycles_per_ms)
+        out["trace_sort_ms"] = sort_ms
+        log(f"  the keys and the stable torch.sort alone: {sort_ms:.4f} ms")
+        if split_cu:
+            if v.shape[0] & (v.shape[0] - 1):
+                raise RuntimeError("the split's permutation variant needs 2^k rows")
+            split = {}
+            for part, path in split_cu.items():
+                k_fn, _ = parent_trace(load_baseline(path, PARENT_SIGNATURES["degrees"]), counts, v, m)
+                r = turns(f"split: parent kernel without {part}", held(p_kernel), held(k_fn))
+                split[part] = {"full_ms": r["parent_ms"], "without_ms": r["current_ms"]}
+            out["trace_split"] = split
+    if "unionfind" in libs:
+        for name, res, parity, fold in (("CC", cc, False, uf.union_edges_with_seen),
+                                        ("parity", bp, True, uf.parity_union_edges_with_seen)):
+            t = res["turns"]
+            old_fold = parent_union_fold(libs["unionfind"], parity)
+            for batch, state, edges, flat in (("first", t["init"], t["first_batch"], False),
+                                              ("late", t["late"], t["late_batch"], True)):
+                want = fold(uf.mark_flat(state[0].clone()) if flat else state[0].clone(), state[1].clone(), *edges)
+                got = old_fold(state[0].clone(), state[1].clone(), *edges)
+                if not (torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])):
+                    raise RuntimeError(f"the parent's {name} union and the current one disagree ({batch} batch)")
+                out[f"{name}_{batch}"] = turns(
+                    f"{name} union call, {batch} batch",
+                    lambda reps, f=old_fold, st=state, e=edges: fold_device_ms(f, *st, *e, reps, cycles_per_ms),
+                    lambda reps, st=state, e=edges, fl=flat: fold_device_ms(fold, *st, *e, reps, cycles_per_ms, flat=fl))
+    return out
 
 
 def main(argv=None) -> int:
@@ -1452,8 +1716,16 @@ def main(argv=None) -> int:
     parser.add_argument("--baseline-cu", default=None,
                         help="a pane_triangles.cu with the first slice's C interface, "
                              "timed in turns with the current kernels")
+    parser.add_argument("--parent-degrees-cu", default=None,
+                        help="degrees.cu of the commit before the degree_trace redesign (its C interface): "
+                             "its degree_trace is timed in turns with the current one and split")
+    parser.add_argument("--parent-unionfind-cu", default=None,
+                        help="unionfind.cu of the commit before the union redesign (its C interface), "
+                             "timed in turns with the current one")
     args = parser.parse_args(argv)
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
+    parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
+                                                           ("unionfind", args.parent_unionfind_cu)) if path}
     import torch
 
     if not torch.cuda.is_available():
@@ -1480,10 +1752,13 @@ def main(argv=None) -> int:
 
     log("phase 1: build kernels")
     t0 = time.perf_counter()
-    sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else [])]
+    split_cu = trace_split_sources(parent_cu["degrees"]) if "degrees" in parent_cu else {}
+    sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values()]
     built = _cuda.build_all(sources)
-    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    log(f"  built {len(built)} sources in {time.perf_counter() - t0:.2f} s: {sorted(built)}")
     for src, res in built.items():
+        if src not in _cuda.SIGNATURES:
+            continue
         for line in res.log.splitlines():
             if "ptxas" in line:
                 log(f"  {src}: {line.strip()}")
@@ -1694,6 +1969,10 @@ def main(argv=None) -> int:
     dd = phase_degree_dist(dev, cpm, data)
     log("phase 10: bipartiteness over the EF40 replay, and the windowed path")
     bp = phase_bipartite(dev, cpm, data)
+    turned = {}
+    if parent_cu:
+        log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
+        turned = phase_turns(dev, cpm, parent_cu, split_cu, props, cc, bp)
 
     kernels = [
         {
@@ -1740,6 +2019,10 @@ def main(argv=None) -> int:
             "bound_ms": cc["union_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "first_call_ms": cc["first_ms"],
+            "late_call_ms": cc["late_ms"],
+            "rounds": cc["rounds"],
+            **{f"turns_{b}": turned[f"CC_{b}"] for b in ("first", "late") if f"CC_{b}" in turned},
         },
         {
             "name": "compress_kernel",
@@ -1766,14 +2049,18 @@ def main(argv=None) -> int:
                 "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": library_ms}
 
     kernels += [
-        entry("degree_trace", "degrees.cu", "gelly_streaming_tpu/core/stream.py:869", props),
+        {**entry("degree_trace", "degrees.cu", "gelly_streaming_tpu/core/stream.py:869", props),
+         "call_ms": props["call_ms"],
+         **{k: turned[k] for k in ("trace_kernel", "trace_call", "trace_sort_ms", "trace_split") if k in turned}},
         entry("degree_fold", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:247", dd["fold"],
               dd["fold"]["library_ms"]),
         {**entry("degree_dist_scan", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:43",
                  dd["scan"]),
          **{k: dd["scan"][k] for k in ("batch_events", "sort_ms", "serial_ms", "cut_launches", "small",
                                        "events_per_s", "records_per_s")}},
-        entry("parity_union_kernel", "unionfind.cu", "gelly_streaming_tpu/ops/unionfind.py:145", bp),
+        {**entry("parity_union_kernel", "unionfind.cu", "gelly_streaming_tpu/ops/unionfind.py:145", bp),
+         "first_call_ms": bp["first_ms"], "late_call_ms": bp["late_ms"], "rounds": bp["rounds"],
+         **{f"turns_{b}": turned[f"parity_{b}"] for b in ("first", "late") if f"parity_{b}" in turned}},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

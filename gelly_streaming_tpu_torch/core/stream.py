@@ -42,7 +42,7 @@ from gelly_streaming_tpu_torch.core.types import EdgeBatch, EdgeDirection, tree_
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io import wire as _wire
 from gelly_streaming_tpu_torch.io.prefetch import WirePrefetcher, prefetch_to_host
-from gelly_streaming_tpu_torch.ops import degrees, neighbors, segments
+from gelly_streaming_tpu_torch.ops import degrees, indexing, neighbors, segments
 
 
 # ---------------------------------------------------------------------------
@@ -624,9 +624,8 @@ class EdgeStream:
 
         def kernel(seen, batch):
             v, m = _interleave_endpoints(batch)
-            new = segments.first_occurrence_mask(v, m) & ~seen[v.long()] & m
-            seen[v[m].long()] = True
-            return seen, (v, new)
+            new = segments.first_occurrence_mask(v, m) & ~seen[indexing.gather_index(v, seen.shape[0])] & m
+            return indexing.scatter_true_(seen, v[m]), (v, new)
 
         def blocks():
             for v, new in self._kernel_stream(init, kernel):
@@ -690,10 +689,9 @@ class EdgeStream:
 
         def kernel(seen, batch):
             v, m = _interleave_endpoints(batch)
-            new = segments.first_occurrence_mask(v, m) & ~seen[v.long()] & m
+            new = segments.first_occurrence_mask(v, m) & ~seen[indexing.gather_index(v, seen.shape[0])] & m
             running = seen.sum(dtype=torch.int32) + torch.cumsum(new.to(torch.int32), 0, dtype=torch.int32)
-            seen[v[m].long()] = True
-            return seen, (running, new)
+            return indexing.scatter_true_(seen, v[m]), (running, new)
 
         def blocks():
             for running, new in self._kernel_stream(init, kernel):

@@ -1,31 +1,51 @@
 // Degree kernels on Hopper (sm_90a) behind a plain C interface, loaded with
 // ctypes (gelly_streaming_tpu_torch/ops/_cuda.py, ops/degrees.py).
 //
-// degree_trace_kernel replaces the kernel of the continuous degree stream
+// degree_trace replaces the kernel of the continuous degree stream
 // (gelly_streaming_tpu/core/stream.py:869-884, EdgeStream._degree_stream),
 // an XLA loop of the JAX package: the within-key occurrence rank of every
 // endpoint (occurrence_rank: a stable argsort, segment heads, a cummax and
 // a scatter), emitted = counts[v] + rank + 1, the scatter-add of the counts,
 // then pack_records48 and pack_mask_bits.  The sort of the grouping keys
-// stays a library sort (torch.sort, stable), as the JAX package leaves it to
-// XLA's argsort; everything after the sort is this one cooperative launch.
-//   Phase 1, one thread a sorted position p: the segment start is found by a
-//   galloping search back from p over the sorted keys (one load when the key
-//   changes at p, O(log rank) on a hub), so no scan runs; the vertex id is the
-//   key's upper bits (key >> 1), so v itself is never read; the record of the
-//   row order[p] is written at its place in arrival order (6 bytes as three
-//   16-bit stores, or the raw emitted int32), and the mask bits are packed
-//   one byte a thread from m, read in order.  Phase 2, after a grid-wide
-//   sync: the last position of every valid segment writes counts[v] += its
-//   length, one write a vertex and no atomics; the sync keeps every read of
-//   counts in phase 1 before it.
+// 2v + !m stays a library sort (torch.sort, stable), as the JAX package
+// leaves it to XLA's argsort; after it come two kernels.
+//   degree_trace_scan_kernel, in sorted order: one 1024-row tile a block, 4
+//   rows a thread.  The rank is a segmented count and counts[v] a value
+//   carried from the head of v's rows (valid and padding rows of one id are
+//   adjacent), so the block scans (base, count, id head, key head) with
+//   __shfl_up_sync and warp totals, and tiles are chained by a decoupled
+//   look-back (degree_dist_rows_kernel's skeleton), which stops at the
+//   nearest tile holding an id head; a hub's rows may span any number of
+//   tiles.  counts[v] is read once, at v's head, and written once, at the
+//   end of v's valid rows, with no atomics: the end's tile saw the head's
+//   tile publish, which read the cell before.  emitted goes to arrival
+//   order by one aligned 4-byte store a row (order[p] is the sort's
+//   permutation), into an int32[n] staging buffer (16 MiB at 2^22 rows)
+//   or, for raw records, the output itself.  Those scattered stores set
+//   the pace (taking the three 2-byte scattered stores a row out of the
+//   one-kernel design this replaced took 71% of its time, PERF.md §6), so
+//   they carry an L2 evict-last hint and the streamed inputs evict-first
+//   loads, which keeps the staging buffer in the 50 MB L2 for the pack
+//   kernel.
+//   degree_trace_pack_kernel, in arrival order: 8 rows a thread; it reads v,
+//   the staged emitted values and m coalesced and writes the 48 records as
+//   three 16-byte stores and their mask byte.
+// JAX's index rules hold for ids outside [0, C) (streams that validate
+// nothing): the gather of counts counts an id below 0 from the end once and
+// then clamps, the scatter-add drops what is still outside, the rank groups
+// by the raw id and the record packs it (-1 packs as (2^20 - 1, 4095)).
+// Two ids may then share a cell (-1 and C - 1; C, C + 5 and the clamp to C -
+// 1), so when the sorted keys show any id outside [0, C) the scan writes no
+// counts and the pack kernel adds every valid row by atomicAdd (the raw form
+// launches it for that alone), after every read of the scan.
 //   Bound on the H100 (bytes), for the bench's 2^21-edge batch in the ALL
-//   direction (n = 2^22 endpoints, about 2^20 vertices touched): keys and
-//   order read (12 B a row), the mask read (1 B), 6 B of record and 1/8 B of
-//   mask bit written, counts read and written once a touched vertex (8 B):
-//   about 88 MB, 26 us at 3.35 TB/s.  The record writes land scattered
-//   (order[p] is a permutation), so each 6-byte record costs a 32-byte L2
-//   sector write; that is the known slack.
+//   direction (n = 2^22 endpoint rows, about 2^20 vertices touched), counted
+//   on the kernels' own inputs: keys and order read (12 B
+//   a row), the mask read (1 B), 6 B of record and 1/8 B of mask bit
+//   written, counts read and written once a touched vertex (8 B): about 88
+//   MB, 26 us at 3.35 TB/s.  The design moves more: v read again (4 B a
+//   row) and the staging buffer written at random and read back (8 B a row,
+//   in L2).
 //
 // degree_fold_kernel replaces DegreeDistributionSummary.update
 // (gelly_streaming_tpu/library/degree_distribution.py:247-251): deg[src] += 1
@@ -92,11 +112,8 @@
 // round trips, about ten an event.  It is on no main path; chip_smoke.py
 // and the CUDA tests hold the two-stage kernels against it.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -107,6 +124,9 @@ constexpr int kMaxRecordValue = (1 << 28) - 1;
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
+
+// JAX's index normalisation: i < 0 counts from the end once
+__device__ __forceinline__ int jax_index(int i, int size) { return i < 0 ? i + size : i; }
 
 __device__ __forceinline__ int clamp_index(int i, int size) {
   return i < 0 ? 0 : (i >= size ? size - 1 : i);
@@ -137,56 +157,6 @@ __device__ __forceinline__ int64_t segment_start(const int* __restrict__ keys, i
   return hi;
 }
 
-// packed: uint8[6n] records (id | (val & 0xFFF) << 20, val >> 12), or null;
-// maskbits: uint8[(n + 7) / 8], or null; emitted: int32[n] raw, or null.
-__global__ void __launch_bounds__(kThreads)
-degree_trace_kernel(const uint8_t* __restrict__ m, const int* __restrict__ keys, const int64_t* __restrict__ order, int n,
-                    int* __restrict__ counts, int capacity, uint8_t* __restrict__ packed,
-                    uint8_t* __restrict__ maskbits, int* __restrict__ emitted) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t p = first; p < n; p += stride) {
-    const int key = __ldg(keys + p);
-    const int rank = static_cast<int>(p - segment_start(keys, p, key));
-    const int64_t i = __ldg(order + p);
-    const int id = key >> 1;  // the row's vertex id (keys are 2 * v + !m)
-    const int e = wrap_add(wrap_add(counts[clamp_index(id, capacity)], rank), 1);
-    if (packed != nullptr) {
-      const unsigned val = static_cast<unsigned>(e < 0 ? 0 : (e > kMaxRecordValue ? kMaxRecordValue : e));
-      const unsigned lo = static_cast<unsigned>(id) | ((val & 0xFFFu) << 20);
-      const unsigned hi = val >> 12;
-      auto* rec = reinterpret_cast<uint16_t*>(packed + 6 * i);
-      rec[0] = static_cast<uint16_t>(lo & 0xFFFFu);
-      rec[1] = static_cast<uint16_t>(lo >> 16);
-      rec[2] = static_cast<uint16_t>(hi & 0xFFFFu);
-    } else {
-      emitted[i] = e;
-    }
-  }
-  if (maskbits != nullptr) {
-    const int64_t nbytes = (static_cast<int64_t>(n) + 7) / 8;
-    for (int64_t j = first; j < nbytes; j += stride) {
-      unsigned byte = 0;
-      for (int b = 0; b < 8; ++b) {
-        const int64_t i = 8 * j + b;
-        if (i < n && m[i] != 0) byte |= 1u << b;
-      }
-      maskbits[j] = static_cast<uint8_t>(byte);
-    }
-  }
-  grid.sync();
-  for (int64_t p = first; p < n; p += stride) {
-    const int key = __ldg(keys + p);
-    if ((key & 1) != 0) continue;  // padding rows count nothing
-    if (p + 1 < n && __ldg(keys + p + 1) == key) continue;
-    const int id = key >> 1;
-    if (id < 0 || id >= capacity) continue;  // XLA drops out-of-range scatters
-    const int len = static_cast<int>(p - segment_start(keys, p, key) + 1);
-    counts[id] = wrap_add(counts[id], len);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 degree_fold_kernel(int* __restrict__ deg, const int* __restrict__ src,
                    const int* __restrict__ dst, const uint8_t* __restrict__ mask, int n,
@@ -194,15 +164,13 @@ degree_fold_kernel(int* __restrict__ deg, const int* __restrict__ src,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
     if (mask != nullptr && mask[i] == 0) continue;
-    const int s = __ldg(src + i);
-    const int d = __ldg(dst + i);
+    // JAX's scatter rule: below 0 counts from the end once, then drop
+    const int s = jax_index(__ldg(src + i), capacity);
+    const int d = jax_index(__ldg(dst + i), capacity);
     if (static_cast<unsigned>(s) < static_cast<unsigned>(capacity)) atomicAdd(deg + s, 1);
     if (static_cast<unsigned>(d) < static_cast<unsigned>(capacity)) atomicAdd(deg + d, 1);
   }
 }
-
-// JAX's index normalisation: i < 0 counts from the end once
-__device__ __forceinline__ int jax_index(int i, int size) { return i < 0 ? i + size : i; }
 
 // One vertex change of degree_dist_update on the degree cell alone: the
 // old and new degrees, whether the cell takes the new one, the emit flags.
@@ -573,15 +541,203 @@ degree_dist_keys_kernel(const int* __restrict__ src, const int* __restrict__ dst
   }
 }
 
-int grid_for(const void* kernel, int64_t items, bool cooperative, cudaError_t* err) {
+// ---------------------------------------------------------------------------
+// the degree trace
+
+// The trace scan's prefix: base = counts[v] read at the last id head, c =
+// rows since the last key head (the rank + 1), h / k = an id head / a key
+// head lies inside.  combine(a, b) is a followed by b.
+struct Trace {
+  int base, c, h, k;
+};
+
+__device__ __forceinline__ Trace trace_identity() { return {0, 0, 0, 0}; }
+
+__device__ __forceinline__ Trace combine(const Trace& a, const Trace& b) {
+  return {b.h ? b.base : a.base, b.k ? b.c : a.c + b.c, a.h | b.h, a.k | b.k};
+}
+
+__device__ __forceinline__ Trace shfl_up(const Trace& v, int d) {
+  return {__shfl_up_sync(kFull, v.base, d), __shfl_up_sync(kFull, v.c, d), __shfl_up_sync(kFull, v.h, d),
+          __shfl_up_sync(kFull, v.k, d)};
+}
+
+__device__ __forceinline__ Trace load_cg(const Trace* p) {
+  return {__ldcg(&p->base), __ldcg(&p->c), __ldcg(&p->h), __ldcg(&p->k)};
+}
+
+// Every id of the sorted keys lies in [0, C): no two ids share a counts
+// cell, and the scan may write counts itself.
+__device__ __forceinline__ bool ids_in_range(const int* __restrict__ keys, int n, int capacity) {
+  return __ldg(keys) >= 0 && (__ldg(keys + n - 1) >> 1) < capacity;
+}
+
+// keys: int32[n], the grouping keys 2v + !m in stable sorted order; order:
+// int64[n], the sort's permutation; counts: int32[capacity], read at each
+// id's head and (ids in range) written at the end of its valid rows;
+// emitted: int32[n] in arrival order.
+__global__ void __launch_bounds__(kThreads)
+degree_trace_scan_kernel(const int* __restrict__ keys, const int64_t* __restrict__ order, int n,
+                         int* __restrict__ counts, int capacity, int* __restrict__ emitted, Tiles<Trace> st) {
+  __shared__ Trace warp_tot[kWarps];
+  __shared__ Trace prefix;
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = atomicAdd(st.ticket, 1);
+  __syncthreads();
+  const bool write = ids_in_range(keys, n, capacity);
+  const int64_t base = static_cast<int64_t>(tile_s) * kTile + threadIdx.x * kScanItems;
+  int key[kScanItems + 1];  // key[i + 1] is row base + i's; key[0] the row before
+  key[0] = base > 0 && base <= n ? __ldg(keys + base - 1) : 0;
+  if (base + kScanItems <= n && (reinterpret_cast<uintptr_t>(keys) & 15) == 0) {
+    const int4 k4 = __ldg(reinterpret_cast<const int4*>(keys + base));
+    key[1] = k4.x, key[2] = k4.y, key[3] = k4.z, key[4] = k4.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) key[i + 1] = base + i < n ? __ldg(keys + base + i) : 0;
+  }
+  uint64_t keep;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
+  int64_t ord[kScanItems];
+  if (base + kScanItems <= n && (reinterpret_cast<uintptr_t>(order) & 15) == 0) {
+    const longlong2 o0 = __ldcs(reinterpret_cast<const longlong2*>(order + base));
+    const longlong2 o1 = __ldcs(reinterpret_cast<const longlong2*>(order + base + 2));
+    ord[0] = o0.x, ord[1] = o0.y, ord[2] = o1.x, ord[3] = o1.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) ord[i] = base + i < n ? __ldcs(order + base + i) : 0;
+  }
+  Trace t[kScanItems];
+  Trace mine = trace_identity();
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const int64_t p = base + i;
+    t[i] = trace_identity();
+    if (p < n) {
+      const int k = key[i + 1];
+      const bool id_head = p == 0 || (key[i] >> 1) != (k >> 1);
+      t[i] = {id_head ? counts[clamp_index(jax_index(k >> 1, capacity), capacity)] : 0, 1, id_head ? 1 : 0,
+              (p == 0 || key[i] != k) ? 1 : 0};
+    }
+    mine = combine(mine, t[i]);
+  }
+  Trace total;
+  const Trace exc = block_exclusive(mine, trace_identity(), warp_tot, &total);
+  if (threadIdx.x == 0) prefix = tile_prefix(st, tile_s, total, trace_identity());
+  __syncthreads();
+  Trace state = combine(prefix, exc);
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const int64_t p = base + i;
+    if (p >= n) break;
+    state = combine(state, t[i]);
+    const int e = wrap_add(state.base, state.c);  // counts[v] + rank + 1
+    asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;" ::"l"(emitted + ord[i]), "r"(e), "l"(keep) : "memory");
+    // the last valid row of an id: its cell takes the rows' count; the
+    // id's head tile read the cell before it published, and this tile saw
+    // that publication
+    const int k = key[i + 1];
+    if (write && (k & 1) == 0 && (p + 1 == n || __ldg(keys + p + 1) != k)) counts[k >> 1] = e;
+  }
+}
+
+__device__ __forceinline__ unsigned record_lo(int id, int e) {
+  const unsigned val = static_cast<unsigned>(e < 0 ? 0 : (e > kMaxRecordValue ? kMaxRecordValue : e));
+  return static_cast<unsigned>(id) | ((val & 0xFFFu) << 20);
+}
+
+__device__ __forceinline__ unsigned record_hi(int e) {
+  return static_cast<unsigned>(e < 0 ? 0 : (e > kMaxRecordValue ? kMaxRecordValue : e)) >> 12;
+}
+
+// In arrival order, 8 rows a thread: the records (packed: uint8[6n], or
+// null for the raw form) and mask bits (uint8[(n + 7) / 8]) of v, m and the
+// scan's emitted values; with an id outside [0, C) in the batch, the counts
+// adds (JAX's scatter rule) after every read of the scan.
+__global__ void __launch_bounds__(kThreads)
+degree_trace_pack_kernel(const int* __restrict__ v, const uint8_t* __restrict__ m, const int* __restrict__ keys,
+                         const int* __restrict__ emitted, int n, int* __restrict__ counts, int capacity,
+                         uint8_t* __restrict__ packed, uint8_t* __restrict__ maskbits) {
+  const bool add = !ids_in_range(keys, n, capacity);
+  if (packed == nullptr && !add) return;
+  const bool vec = ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(emitted)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(m) & 7) == 0;
+  const int64_t groups = (static_cast<int64_t>(n) + 7) / 8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+    const int64_t r0 = 8 * g;
+    int id[8], e[8];
+    uint8_t mb[8];
+    if (vec && r0 + 8 <= n) {
+      const int4 v0 = __ldcs(reinterpret_cast<const int4*>(v + r0));
+      const int4 v1 = __ldcs(reinterpret_cast<const int4*>(v + r0 + 4));
+      const int4 e0 = __ldcs(reinterpret_cast<const int4*>(emitted + r0));
+      const int4 e1 = __ldcs(reinterpret_cast<const int4*>(emitted + r0 + 4));
+      const uint2 m8 = __ldcs(reinterpret_cast<const uint2*>(m + r0));
+      id[0] = v0.x, id[1] = v0.y, id[2] = v0.z, id[3] = v0.w, id[4] = v1.x, id[5] = v1.y, id[6] = v1.z, id[7] = v1.w;
+      e[0] = e0.x, e[1] = e0.y, e[2] = e0.z, e[3] = e0.w, e[4] = e1.x, e[5] = e1.y, e[6] = e1.z, e[7] = e1.w;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        mb[b] = static_cast<uint8_t>(m8.x >> (8 * b));
+        mb[b + 4] = static_cast<uint8_t>(m8.y >> (8 * b));
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const bool in = r0 + b < n;
+        id[b] = in ? __ldg(v + r0 + b) : 0;
+        e[b] = in ? __ldcg(emitted + r0 + b) : 0;
+        mb[b] = in ? __ldg(m + r0 + b) : 0;
+      }
+    }
+    if (add) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int c = jax_index(id[b], capacity);
+        if (mb[b] != 0 && static_cast<unsigned>(c) < static_cast<unsigned>(capacity)) atomicAdd(counts + c, 1);
+      }
+    }
+    if (packed == nullptr) continue;
+    unsigned bits = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) bits |= (mb[b] != 0 ? 1u : 0u) << b;
+    maskbits[g] = static_cast<uint8_t>(bits);
+    if (r0 + 8 <= n) {
+      // records 2j and 2j + 1 fill three 32-bit words: lo0, hi0 | lo1 << 16,
+      // lo1 >> 16 | hi1 << 16
+      unsigned w[12];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned lo0 = record_lo(id[2 * j], e[2 * j]), lo1 = record_lo(id[2 * j + 1], e[2 * j + 1]);
+        w[3 * j] = lo0;
+        w[3 * j + 1] = record_hi(e[2 * j]) | (lo1 << 16);
+        w[3 * j + 2] = (lo1 >> 16) | (record_hi(e[2 * j + 1]) << 16);
+      }
+      auto* out = reinterpret_cast<uint4*>(packed + 6 * r0);
+      __stcs(out, make_uint4(w[0], w[1], w[2], w[3]));
+      __stcs(out + 1, make_uint4(w[4], w[5], w[6], w[7]));
+      __stcs(out + 2, make_uint4(w[8], w[9], w[10], w[11]));
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (r0 + b >= n) break;
+        const unsigned lo = record_lo(id[b], e[b]), hi = record_hi(e[b]);
+        uint8_t* rec = packed + 6 * (r0 + b);
+        rec[0] = lo & 0xFF, rec[1] = (lo >> 8) & 0xFF, rec[2] = (lo >> 16) & 0xFF, rec[3] = lo >> 24;
+        rec[4] = hi & 0xFF, rec[5] = hi >> 8;
+      }
+    }
+  }
+}
+
+int grid_for(const void* kernel, int64_t items, cudaError_t* err) {
   int device = 0, sms = 0, per_sm = 0;
   if ((*err = cudaGetDevice(&device)) != cudaSuccess ||
       (*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
       (*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
           cudaSuccess)
     return 0;
-  // a cooperative grid must be co-resident; a plain one loops over the rest
-  const int64_t fit = static_cast<int64_t>(sms) * (cooperative ? per_sm : 4 * per_sm);
+  // a grid-stride loop covers what does not fit
+  const int64_t fit = static_cast<int64_t>(sms) * 4 * per_sm;
   int64_t blocks = (items + kThreads - 1) / kThreads;
   blocks = blocks < fit ? blocks : fit;
   return static_cast<int>(blocks > 0 ? blocks : 1);
@@ -626,30 +782,43 @@ int64_t scan_scratch_bytes(int64_t n) {
 
 extern "C" {
 
-// m: uint8[n]; keys: int32[n], the grouping keys 2 * v + !m of the vertex
-// ids v (|v| < 2^30) in stable sorted order; order: int64[n], the sort's
-// permutation; counts:
-// int32[capacity], updated in place; packed: uint8[6n] and maskbits:
-// uint8[(n + 7) / 8] (both null for the raw form); emitted: int32[n] (null
-// for the packed form).  One cooperative launch on the stream, no host sync.
-int degree_trace_launch(const void* m, const void* keys, const void* order, int n, void* counts,
-                        int capacity, void* packed, void* maskbits, void* emitted, void* stream) {
+// The bytes of scratch degree_trace_launch needs for n rows: the scan's
+// look-back, then the staged emitted values (int32[n]).
+long long degree_trace_scratch_bytes(int n) {
+  return n > 0 ? layout_of<Trace>(n).used + 4 * static_cast<int64_t>(n) : 0;
+}
+
+// v: int32[n] (|v| < 2^30); m: uint8[n]; keys: int32[n], the grouping keys
+// 2v + !m in stable sorted order; order: int64[n], the sort's permutation;
+// counts: int32[capacity], updated in place; packed: uint8[6n] and
+// maskbits: uint8[(n + 7) / 8] (both null for the raw form); emitted:
+// int32[n] (null for the packed form); scratch: degree_trace_scratch_bytes(n)
+// bytes.  The scan kernel, then the pack kernel, on the stream, no host
+// sync.
+int degree_trace_launch(const void* v, const void* m, const void* keys, const void* order, int n, void* counts,
+                        int capacity, void* packed, void* maskbits, void* emitted, void* scratch,
+                        long long scratch_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err;
-  const void* kernel = reinterpret_cast<const void*>(degree_trace_kernel);
-  const int blocks = grid_for(kernel, n, true, &err);
+  if (scratch_bytes < degree_trace_scratch_bytes(n) || (packed == nullptr) == (emitted == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tiles<Trace> st;
+  int* unused;
+  const Layout l = tiles_in(scratch, n, &st, &unused);
+  int* out = packed != nullptr ? reinterpret_cast<int*>(static_cast<uint8_t*>(scratch) + l.used)
+                               : static_cast<int*>(emitted);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, l.header, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* m_b = static_cast<const uint8_t*>(m);
-  auto* k_i = static_cast<const int*>(keys);
-  auto* o_l = static_cast<const int64_t*>(order);
-  auto* c_i = static_cast<int*>(counts);
-  auto* p_b = static_cast<uint8_t*>(packed);
-  auto* mb_b = static_cast<uint8_t*>(maskbits);
-  auto* e_i = static_cast<int*>(emitted);
-  void* args[] = {&m_b, &k_i, &o_l, &n, &c_i, &capacity, &p_b, &mb_b, &e_i};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, 0, s);
+  auto* keys_i = static_cast<const int*>(keys);
+  auto* counts_i = static_cast<int*>(counts);
+  degree_trace_scan_kernel<<<(n + kTile - 1) / kTile, kThreads, 0, s>>>(
+      keys_i, static_cast<const int64_t*>(order), n, counts_i, capacity, out, st);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int blocks = grid_for(reinterpret_cast<const void*>(degree_trace_pack_kernel), (n + 7) / 8, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
+  degree_trace_pack_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(v), static_cast<const uint8_t*>(m), keys_i, out, n, counts_i, capacity,
+      static_cast<uint8_t*>(packed), static_cast<uint8_t*>(maskbits));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,7 +829,7 @@ int degree_fold_launch(void* deg, const void* src, const void* dst, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
-  const int blocks = grid_for(reinterpret_cast<const void*>(degree_fold_kernel), n, false, &err);
+  const int blocks = grid_for(reinterpret_cast<const void*>(degree_fold_kernel), n, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   degree_fold_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<int*>(deg), static_cast<const int*>(src), static_cast<const int*>(dst),
@@ -691,7 +860,7 @@ int degree_dist_keys_launch(const void* src, const void* dst, const void* sign, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
-  const int blocks = grid_for(reinterpret_cast<const void*>(degree_dist_keys_kernel), n, false, &err);
+  const int blocks = grid_for(reinterpret_cast<const void*>(degree_dist_keys_kernel), n, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   degree_dist_keys_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const int*>(src), static_cast<const int*>(dst), static_cast<const int8_t*>(sign),

@@ -9,71 +9,98 @@
 // device-side loop, and a host loop would sync on every hook round and
 // every doubling round; here each loop lives inside one cooperative launch
 // (a persistent grid of co-resident blocks) whose rounds are separated by
-// grid-wide syncs, and a flag in the caller's scratch says whether a round
+// grid-wide syncs, and counters in the caller's scratch say whether a round
 // changed anything, so no round trip to the host decides when to stop.
 // One C call folds a whole batch.
 //
 // State: parent int32[C] (a forest; parent[r] == r marks a root) and seen
 // uint8[C] (the bool tensor's bytes).  Both are updated in place.
 //
+// Ids outside [0, C) (streams that validate nothing) follow JAX's index
+// rules: an endpoint's root is read at the index JAX's gather reads (below
+// 0 counts from the end once, then clamps into [0, C)), and seen is a
+// scatter (below 0 counts from the end, an index still outside is dropped).
+//
 // compress_kernel: doubling rounds, parent[v] = parent[parent[v]] for all
 // v, until a round moves nothing.  Rounds are in place (a read may see an
 // entry another thread already advanced in the same round, which only
 // jumps further), so a forest of depth d is flat after at most
-// ceil(log2 d) + 1 rounds: two on the forests a live stream leaves, about
-// 21 on a 2^20-vertex path.
+// ceil(log2 d) + 1 rounds.  It runs only when the caller does not know the
+// state to be flat: every union call leaves it flat, and the wrappers skip
+// it on a state no one else wrote since (ops/unionfind.py).
 //
-// union_kernel: the JAX loop on a flat forest (compress_kernel runs first,
-// as the JAX loop compresses first).  A hook round reads both endpoints'
-// roots (one load each: the forest is flat) for every edge and, where they
-// differ, lowers the larger root's entry to the smaller root with
-// atomicMin, the scatter-min of the JAX body; then doubling rounds flatten
-// the forest again; rounds repeat until no edge's roots differ.  Rows whose
-// mask byte is 0 are skipped (the JAX fold turns them into (0, 0)
-// self-loops, which change nothing), as are edges with an id outside
-// [0, C); the first hook round marks seen for both endpoints.  Entries
-// only ever decrease and only to ids of the same component, so the loop
-// ends, and the smallest root a component came in with is never lowered:
-// every vertex ends pointing at it, the JAX fixed point bit for bit (after
-// init_parent and unions, the component's smallest vertex id).  A hook
-// round may see a root lowered earlier in the same round and lower its
-// stale entry, cutting the link that lowering made; the edge that made it
-// differed in that round, so it is looked at again and relinks the two
-// trees: the loop stops only when no edge it looks at differs.
-//
-// An edge whose roots agree is marked done in a scratch byte and skipped
-// by later rounds: it stays agreed, because a link older than the current
-// round is never cut (only a round's own roots are lowered), and a link
-// the round made is restored as above.  So the last round of a batch of a
-// live stream, which finds nothing to do, reads one byte an edge instead
-// of the edge and two roots.
+// union_kernel: the JAX loop on a flat forest, in rounds.
+//   Round 0 is one pass over every item (edge): it reads both endpoints'
+//   roots (one load each: the forest is flat), marks seen (a byte read
+//   first and written only where it is 0: on a late batch nearly every
+//   vertex is seen, and a read costs less than a scattered store), and
+//   where the roots differ lowers the larger root's entry to the smaller
+//   with atomicMin (the scatter-min of the JAX body), issued only where a
+//   read shows it would lower: many edges of a round may meet one root, and
+//   atomics on one address serialize.  Items whose roots differ are
+//   compacted into a worklist as node pairs, and roots an atomicMin takes
+//   from root to non-root into a list of lowered roots (one atomicAdd a
+//   block and 256 items, offsets by warp ballots); order is free, as the
+//   fixed point is unique.
+//   Between rounds, doubling runs until nothing moves, over the lowered
+//   roots alone, or over every node in order (coalesced) once the lowered
+//   roots are more than a quarter of the nodes (a fresh state's first
+//   batch).  Only roots are ever lowered, so a vertex that was not a root
+//   when the call began still points at an old root, and every lowered
+//   root points at a current root after the doubling: a find is two loads,
+//   vertex -> old root -> its root, and no pass over all C entries is
+//   needed between rounds on a late batch.
+//   Round r > 0 hooks only round r - 1's worklist and compacts the pairs
+//   that still differ.  The loop ends when a round finds no pair whose
+//   roots differ; one full pass then points every entry at its root (two
+//   levels at most), so the state leaves the call flat.  A call that lowers
+//   nothing (a late batch of a live stream) is one pass over the items.
+//   Rows whose mask byte is 0 are skipped (the JAX fold turns them into
+//   (0, 0) self-loops, which change nothing).
+// Why the fixed point is JAX's, bit for bit: entries only ever decrease and
+// only to ids of the same component, so the loop ends, and the smallest
+// root a component came in with is never lowered: every vertex ends
+// pointing at it (after init_parent and unions, the component's smallest
+// vertex id).  Why the worklist loses no edge: a find in round r returns a
+// root of round r's start or a root lowered during round r, never an entry
+// lowered in an earlier round (doubling made those point past themselves).
+// So a round lowers only its own roots, and a link older than the round is
+// never cut.  A hook may lower a root that another hook of the same round
+// already lowered, cutting the link that lowering made; the item that made
+// it differed in that round, so it is on the worklist, is looked at again
+// and relinks the two trees.  An item whose roots agreed therefore stays
+// agreed once every link its agreement rests on is re-examined, and the
+// loop stops only when no item on the worklist differs.
 //
 // The first design hooked by atomicCAS from find walks with path halving
 // (ECL-CC's scheme).  It was exact, but a walk can start at the top of a
 // chain that other threads built one link each, and one thread then walks
 // the whole chain: a 2^20-vertex path inserted in reverse order took 25 ms
-// on the H100 against 0.25 ms shuffled; in rounds it takes 0.43 ms
-// (chip_smoke.py phase 6).  Rounds bound every find to one load, and the
+// on the H100 against 0.25 ms shuffled; in rounds it took 0.43 ms
+// (chip_smoke.py phase 6).  Rounds bound every find to two loads, and the
 // work by the number of rounds.
+// The hook and doubling round counts land in the scratch header
+// (chip_smoke.py prints them): a fresh 2^20-vertex state's first 2^21-edge
+// batch takes 4 hook rounds and 10-13 doubling rounds, a late batch one
+// hook round and none.
 //
 // The parity union (uf_parity_union_launch) is the same union kernel on the
 // doubled vertex space of the bipartiteness check: node 2v is "v on side A",
 // 2v + 1 "v on side B", and a row (u, w) asserts opposite sides, the edges
 // (2u, 2w + 1) and (2u + 1, 2w).  The JAX package concatenates those into
-// two [2n] arrays before its union; here each thread forms its edge from the
-// row it reads, and seen is marked in the original space.  Its fixed point
-// is the JAX one for the same reason as above.  Bound (bytes), 2^21 rows at
-// C = 2^20: src and dst read once (8 B a row), parent2 read (8 B a vertex),
-// seen written (1 B a vertex): 26.2 MB, 7.8 us.
+// two [2n] arrays before its union; here each item forms its edge from the
+// row it reads (int32 arithmetic with wrap, then JAX's gather rule over the
+// 2C nodes), and seen is marked in the original space.
 //
 // Bound on the H100 (bytes), for a 2^21-edge batch at C = 2^20 and 3.35
-// TB/s: union_kernel reads src and dst (8 B an edge) and parent (4 B a
+// TB/s: the union reads src and dst (8 B an edge) and parent (4 B a
 // vertex) and writes seen (1 B a vertex): 16.8 MB + 4.2 MB + 1.0 MB = 22.0
-// MB, 6.57 us.  The few entries a late batch lowers are left to
-// compress_kernel's bound, which reads and writes parent: 8.4 MB, 2.50 us.
-// The whole call's bound is 9.08 us.  Each extra round re-reads src and
-// dst (hook) or parent (doubling); parent (4 MiB) and seen (1 MiB) stay
-// resident in the 50 MB L2, where the root loads and atomics land.
+// MB, 6.57 us.  The parity union: src and dst (8 B a row), parent2 read (8
+// B a vertex), seen (1 B): 26.2 MB, 7.83 us.  compress reads and writes
+// parent: 8.4 MB, 2.50 us (2C nodes: 5.01 us).  Each later round reads
+// its worklist (8 B a pair) and the lowered roots; parent (4 MiB, 8 MiB doubled)
+// and seen (1 MiB) stay resident in the 50 MB L2, where the root loads and
+// atomics land.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -84,7 +111,21 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFlagsPerKernel = 3;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The scratch header (int32 slots, cleared by the launcher), then the
+// lowered roots (one slot a node), then two worklists (one slot an item).
+enum Slot {
+  kCompressFlags = 0,  // 3 round flags of compress_kernel
+  kUnionFlags = 3,     // 3 round flags of the union's doubling rounds
+  kCounts = 6,         // 3 worklist counts, used in turn
+  kLowered = 9,        // roots lowered so far
+  kHookRounds = 10,    // written at the end: hook rounds run
+  kDoublingRounds = 11,
+  kCompressRounds = 12,
+  kHeaderInts = 16,
+};
 
 __device__ __forceinline__ int load_relaxed(const int* p) {
   int v;
@@ -96,12 +137,20 @@ __device__ __forceinline__ void store_relaxed(int* p, int v) {
   asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// JAX's index rules: below 0 counts from the end once; a gather then
+// clamps into [0, size)
+__device__ __forceinline__ int jax_index(int i, int size) { return i < 0 ? i + size : i; }
+
+__device__ __forceinline__ int clamp_index(int i, int size) {
+  return i < 0 ? 0 : (i >= size ? size - 1 : i);
+}
+
 // One round's bookkeeping (every phase of a kernel counts rounds with one
-// counter).  flags: int32[3] with flags[0] cleared before the launch.
-// Round r clears flags[(r + 1) % 3], the slot of round r - 2, which every
-// thread read before the sync that ended round r - 1; a thread that changed
-// anything sets flags[r % 3]; after the grid-wide sync every thread reads
-// it, so all agree whether the round changed anything.
+// counter).  flags: int32[3], cleared before the launch.  Round r clears
+// flags[(r + 1) % 3], the slot of round r - 2, which every thread read
+// before the sync that ended round r - 1; a thread that changed anything
+// sets flags[r % 3]; after the grid-wide sync every thread reads it, so all
+// agree whether the round changed anything.
 __device__ __forceinline__ void round_begin(int* flags, int round, int64_t first) {
   if (first == 0) store_relaxed(flags + (round + 1) % 3, 0);
 }
@@ -115,11 +164,14 @@ __device__ __forceinline__ bool round_end(cg::grid_group& grid, int* flags, int&
   return any;
 }
 
-// Doubling rounds until one moves nothing.
-__device__ void flatten(cg::grid_group& grid, int* parent, int capacity, int* flags, int& round,
-                        int64_t first, int64_t stride) {
-  bool moved_any = true;
-  while (moved_any) {
+__global__ void __launch_bounds__(kThreads)
+compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ header) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int* flags = header + kCompressFlags;
+  int round = 0;
+  for (bool moved_any = true; moved_any;) {
     round_begin(flags, round, first);
     bool moved = false;
     for (int64_t i = first; i < capacity; i += stride) {
@@ -132,67 +184,190 @@ __device__ void flatten(cg::grid_group& grid, int* parent, int capacity, int* fl
     }
     moved_any = round_end(grid, flags, round, moved);
   }
+  if (first == 0) header[kCompressRounds] = round;
 }
 
-__global__ void __launch_bounds__(kThreads)
-compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ flags) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  int round = 0;
-  flatten(grid, parent, capacity, flags, round, first, stride);
+// Append x where take, to list at *count: one atomicAdd for the block, the
+// offsets from warp ballots.  Every thread of the block calls it.  s:
+// shared, kWarps + 1 ints.
+template <typename T>
+__device__ __forceinline__ void block_append(bool take, T x, T* list, int* count, int* s) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned bal = __ballot_sync(kFull, take);
+  if (lane == 0) s[warp] = __popc(bal);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s[w];
+      s[w] = total;
+      total += c;
+    }
+    s[kWarps] = total > 0 ? atomicAdd(count, total) : 0;
+  }
+  __syncthreads();
+  if (take) list[s[kWarps] + s[warp] + __popc(bal & ((1u << lane) - 1u))] = x;
+  __syncthreads();
 }
 
-// done: uint8[items] scratch, written by the first hook round for every
-// edge (1 = skipped row or agreeing roots), then read and set by later
-// rounds.  kParity: the doubled space of the bipartiteness check, where
-// parent has 2 * vcap entries and each row (u, w) is two edges, (2u, 2w + 1)
-// at item row and (2u + 1, 2w) at item n + row, formed here from one read of
-// the row; seen stays in the original space.  Otherwise items = n and
-// vcap = capacity.
+// Item i's edge in node space: a, b, and whether the row is live.  kParity:
+// rows are 2-item pairs, (2u, 2w + 1) at item row and (2u + 1, 2w) at item
+// n + row; nodes = 2 * vcap.  Otherwise nodes = vcap.
+struct Edge {
+  int u, w, a, b;
+  bool live, side0;
+};
+
+template <bool kParity>
+__device__ __forceinline__ Edge item_edge(int64_t i, const int* __restrict__ src,
+                                          const int* __restrict__ dst,
+                                          const uint8_t* __restrict__ mask, int n, int nodes) {
+  Edge e;
+  const int side = kParity && i >= n ? 1 : 0;
+  const int64_t row = i - side * static_cast<int64_t>(n);
+  e.side0 = side == 0;
+  e.live = mask == nullptr || mask[row] != 0;
+  // src == nullptr: the edges (v, dst[v]) of merge_parents
+  e.u = src != nullptr ? __ldg(src + row) : static_cast<int>(row);
+  e.w = __ldg(dst + row);
+  int a = e.u, b = e.w;
+  if (kParity) {  // int32 arithmetic with wrap, as the JAX function's
+    a = static_cast<int>(2u * static_cast<unsigned>(e.u) + side);
+    b = static_cast<int>(2u * static_cast<unsigned>(e.w) + 1 - side);
+  }
+  e.a = clamp_index(jax_index(a, nodes), nodes);
+  e.b = clamp_index(jax_index(b, nodes), nodes);
+  return e;
+}
+
+// One hook: the roots of a and b (one load each on a flat forest, else
+// two); where they differ, the larger lowered to the smaller.  *lowered:
+// whether this hook took a root to a non-root (it is listed once).
+__device__ __forceinline__ bool hook(int* parent, int a, int b, bool flat, bool* lowered, int* hi) {
+  int ra = load_relaxed(parent + a);
+  int rb = load_relaxed(parent + b);
+  if (!flat) {
+    ra = load_relaxed(parent + ra);
+    rb = load_relaxed(parent + rb);
+  }
+  *lowered = false;
+  if (ra == rb) return false;
+  *hi = max(ra, rb);
+  const int lo = min(ra, rb);
+  // the atomic only where it lowers: many edges of one round may meet the
+  // same root, and a read does not serialize on it as an atomic does
+  if (load_relaxed(parent + *hi) > lo) *lowered = atomicMin(parent + *hi, lo) == *hi;
+  return true;
+}
+
+// Where the two worklists start: after the header and the lowered list,
+// 8-byte aligned.
+__host__ __device__ __forceinline__ int64_t work_offset(int64_t nodes) {
+  return (kHeaderInts + nodes + 1) / 2 * 2;
+}
+
+// items: n, or 2n for kParity; nodes: vcap, or 2 * vcap.  header:
+// kHeaderInts cleared slots, then the lowered list (nodes) and the two
+// worklists (items edges each, as node pairs).
 template <bool kParity>
 __global__ void __launch_bounds__(kThreads)
 union_kernel(int* __restrict__ parent, uint8_t* __restrict__ seen,
              const int* __restrict__ src, const int* __restrict__ dst,
-             const uint8_t* __restrict__ mask, int n, int vcap, int* __restrict__ flags,
-             uint8_t* __restrict__ done) {
+             const uint8_t* __restrict__ mask, int n, int vcap, int* __restrict__ header) {
+  __shared__ int s_work[kWarps + 1];
+  __shared__ int s_low[kWarps + 1];
   cg::grid_group grid = cg::this_grid();
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t items = kParity ? 2 * static_cast<int64_t>(n) : n;
-  int round = 0;
-  for (bool first_pass = true;; first_pass = false) {
-    round_begin(flags, round, first);
-    bool differ = false;
-    for (int64_t i = first; i < items; i += stride) {
-      if (!first_pass && done[i]) continue;
-      const int side = kParity && i >= n ? 1 : 0;
-      const int64_t row = i - side * static_cast<int64_t>(n);
-      // src == nullptr: the edges (v, dst[v]) of merge_parents
-      const int u = src != nullptr ? __ldg(src + row) : static_cast<int>(row);
-      const int v = __ldg(dst + row);
-      if ((mask != nullptr && mask[row] == 0) ||
-          static_cast<unsigned>(u) >= static_cast<unsigned>(vcap) ||
-          static_cast<unsigned>(v) >= static_cast<unsigned>(vcap)) {
-        done[i] = 1;
-        continue;
+  const int nodes = kParity ? 2 * vcap : vcap;
+  const int items = kParity ? 2 * n : n;
+  int* flags = header + kUnionFlags;
+  int* counts = header + kCounts;
+  int* lowered = header + kHeaderInts;
+  int2* work0 = reinterpret_cast<int2*>(header + work_offset(nodes));
+  int2* work1 = work0 + items;
+
+  // round 0: every item, on the flat forest
+  for (int64_t c = blockIdx.x; c * kThreads < items; c += gridDim.x) {
+    const int64_t i = c * kThreads + threadIdx.x;
+    bool differ = false, low = false;
+    int hi = 0;
+    Edge e{};
+    if (i < items) {
+      e = item_edge<kParity>(i, src, dst, mask, n, nodes);
+      if (e.live) {
+        if (seen != nullptr && e.side0) {  // JAX's scatter rule
+          const int su = jax_index(e.u, vcap), sw = jax_index(e.w, vcap);
+          if (static_cast<unsigned>(su) < static_cast<unsigned>(vcap) && seen[su] == 0) seen[su] = 1;
+          if (static_cast<unsigned>(sw) < static_cast<unsigned>(vcap) && seen[sw] == 0) seen[sw] = 1;
+        }
+        differ = hook(parent, e.a, e.b, true, &low, &hi);
       }
-      if (first_pass && seen != nullptr && side == 0) {
-        seen[u] = 1;
-        seen[v] = 1;
-      }
-      const int a = kParity ? 2 * u + side : u;
-      const int b = kParity ? 2 * v + 1 - side : v;
-      const int ra = load_relaxed(parent + a);
-      const int rb = load_relaxed(parent + b);
-      if (ra != rb) {
-        differ = true;
-        atomicMin(parent + max(ra, rb), min(ra, rb));
-      }
-      if (first_pass || ra == rb) done[i] = ra == rb;
     }
-    if (!round_end(grid, flags, round, differ)) return;
-    flatten(grid, parent, kParity ? 2 * vcap : vcap, flags, round, first, stride);
+    block_append(differ, make_int2(e.a, e.b), work1, counts + 1, s_work);
+    block_append(low, hi, lowered, header + kLowered, s_low);
+  }
+  grid.sync();
+
+  int r = 0;          // the hook round just run
+  int dround = 0;     // doubling rounds run
+  bool flat = false;  // the last doubling rounds went over every node
+  for (;;) {
+    const int pending = __ldcg(counts + (r + 1) % 3);  // round r's items that differed
+    if (pending == 0) break;
+    // doubling until none moves: over the lowered roots, or over every node
+    // (in order, coalesced) once they are more than a quarter of them
+    const int nl = __ldcg(header + kLowered);
+    flat = nl > nodes / 4;
+    for (bool moved_any = true; moved_any;) {
+      round_begin(flags, dround, first);
+      bool moved = false;
+      for (int64_t k = first; k < (flat ? nodes : nl); k += stride) {
+        const int x = flat ? static_cast<int>(k) : __ldcg(lowered + k);
+        const int p = load_relaxed(parent + x);
+        const int gp = load_relaxed(parent + p);
+        if (gp != p) {
+          store_relaxed(parent + x, gp);
+          moved = true;
+        }
+      }
+      moved_any = round_end(grid, flags, dround, moved);
+    }
+    // hook round r over round r - 1's worklist; counts[(r + 2) % 3], which
+    // round r + 1 fills, was last read before round r - 1 ended
+    ++r;
+    if (first == 0) store_relaxed(counts + (r + 2) % 3, 0);
+    const int2* in = r % 2 ? work1 : work0;
+    int2* out = r % 2 ? work0 : work1;
+    for (int64_t c = blockIdx.x; c * kThreads < pending; c += gridDim.x) {
+      const int64_t k = c * kThreads + threadIdx.x;
+      bool differ = false, low = false;
+      int hi = 0;
+      int2 ab = make_int2(0, 0);
+      if (k < pending) {
+        ab = __ldcg(in + k);
+        differ = hook(parent, ab.x, ab.y, flat, &low, &hi);
+      }
+      block_append(differ, ab, out, counts + (r + 1) % 3, s_work);
+      block_append(low, hi, lowered, header + kLowered, s_low);
+    }
+    grid.sync();
+  }
+  // every entry to its root: a lowered root points at one, any other entry
+  // at an old root (nothing to do when nothing was lowered, or when the
+  // last doubling rounds went over every node and the hook round after
+  // them lowered nothing)
+  if (!flat && __ldcg(header + kLowered) > 0) {
+    for (int64_t v = first; v < nodes; v += stride) {
+      const int p = load_relaxed(parent + v);
+      const int gp = load_relaxed(parent + p);
+      if (gp != p) store_relaxed(parent + v, gp);
+    }
+  }
+  if (first == 0) {
+    header[kHookRounds] = r + 1;
+    header[kDoublingRounds] = dround;
   }
 }
 
@@ -214,30 +389,40 @@ cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, c
                                      args, 0, s);
 }
 
-// The compress kernel over `capacity` entries, then (items > 0) the union
-// kernel; flags in the caller's scratch are cleared first.
+int64_t scratch_bytes_for(int64_t items, int64_t nodes) {
+  return 4 * work_offset(nodes) + 2 * items * static_cast<int64_t>(sizeof(int2));
+}
+
+// The header cleared, the compress kernel over `nodes` entries unless the
+// caller knows them flat, then (items > 0) the union kernel.
 template <bool kParity>
 int union_launch(void* parent, void* seen, const void* src, const void* dst, const void* mask,
-                 int n, int vcap, int capacity, void* scratch, cudaStream_t s) {
+                 int n, int vcap, int flat, void* scratch, long long scratch_bytes,
+                 cudaStream_t s) {
+  const int64_t nodes = kParity ? 2 * static_cast<int64_t>(vcap) : vcap;
+  const int64_t items = kParity ? 2 * static_cast<int64_t>(n) : n;
+  if (n < 0 || nodes > 0x7fffffff || items > 0x7fffffff ||
+      scratch_bytes < scratch_bytes_for(items, nodes))
+    return static_cast<int>(cudaErrorInvalidValue);
   int* p = static_cast<int*>(parent);
-  int* flags = static_cast<int*>(scratch);
-  cudaError_t err = cudaMemsetAsync(flags, 0, 2 * kFlagsPerKernel * sizeof(int), s);
+  int* header = static_cast<int*>(scratch);
+  int nodes_i = static_cast<int>(nodes);
+  cudaError_t err = cudaMemsetAsync(header, 0, kHeaderInts * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* compress_args[] = {&p, &capacity, &flags};
-  err = launch_cooperative(reinterpret_cast<const void*>(compress_kernel), capacity,
-                           compress_args, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (!flat) {
+    void* compress_args[] = {&p, &nodes_i, &header};
+    err = launch_cooperative(reinterpret_cast<const void*>(compress_kernel), nodes,
+                             compress_args, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
   auto* seen_b = static_cast<uint8_t*>(seen);
   auto* src_i = static_cast<const int*>(src);
   auto* dst_i = static_cast<const int*>(dst);
   auto* mask_b = static_cast<const uint8_t*>(mask);
-  int* union_flags = flags + kFlagsPerKernel;
-  auto* done = reinterpret_cast<uint8_t*>(flags + 2 * kFlagsPerKernel);
-  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &vcap, &union_flags, &done};
-  const int64_t items = kParity ? 2 * static_cast<int64_t>(n) : n;
+  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &vcap, &header};
   err = launch_cooperative(reinterpret_cast<const void*>(union_kernel<kParity>),
-                           items > capacity ? items : capacity, union_args, s);
+                           items > nodes ? items : nodes, union_args, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,17 +431,26 @@ int union_launch(void* parent, void* seen, const void* src, const void* dst, con
 
 extern "C" {
 
+// The scratch bytes of one call: `items` edges (n, or 2n for the parity
+// union) into `nodes` entries (C, or 2C).
+long long uf_scratch_bytes(long long items, long long nodes) {
+  return scratch_bytes_for(items, nodes);
+}
+
 // parent: int32[capacity], updated in place; seen: uint8[capacity] or null;
 // src: int32[n] or null (then src[i] = i); dst: int32[n]; mask: uint8[n]
-// or null; scratch: 24 + n bytes of device memory, 4-byte aligned (the
-// kernels' round flags, cleared here, then the union kernel's done bytes).
-// Enqueues the compress kernel and, when n > 0, the union kernel on the
-// stream, with no host sync.  n = 0 is compress alone.
+// or null; flat: nonzero when the caller knows parent is flat (the compress
+// kernel is then skipped); scratch: uf_scratch_bytes(n, capacity) bytes of
+// device memory, 4-byte aligned (its header holds the round counts after
+// the call: int32 slots 10, 11, 12 = hook, doubling and compress rounds).
+// Enqueues the compress kernel (unless flat) and, when n > 0, the union
+// kernel on the stream, with no host sync.  n = 0 is compress alone.
 int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
-                    const void* mask, int n, int capacity, void* scratch, void* stream) {
+                    const void* mask, int n, int capacity, int flat, void* scratch,
+                    long long scratch_bytes, void* stream) {
   if (capacity <= 0) return static_cast<int>(cudaGetLastError());
-  return union_launch<false>(parent, seen, src, dst, mask, n, capacity, capacity, scratch,
-                             static_cast<cudaStream_t>(stream));
+  return union_launch<false>(parent, seen, src, dst, mask, n, capacity, flat, scratch,
+                             scratch_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // The parity union of the bipartiteness check (replaces the JAX package's
@@ -264,14 +458,16 @@ int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
 // seen update of BipartitenessCheck.update): parent2: int32[2 * capacity],
 // updated in place; seen: uint8[capacity] or null, marked in the original
 // vertex space; src, dst: int32[n]; mask: uint8[n] or null (masked rows are
-// the JAX fold's (0, 0) self-unions, which change nothing); scratch: 24 + 2n
-// bytes.  The concatenated [2n] edge arrays of the JAX function are never
-// built: the kernel forms both doubled edges of a row from one read.
+// the JAX fold's (0, 0) self-unions, which change nothing); scratch:
+// uf_scratch_bytes(2n, 2 * capacity) bytes.  The concatenated [2n] edge
+// arrays of the JAX function are never built: each item forms its doubled
+// edge from the row it reads.
 int uf_parity_union_launch(void* parent2, void* seen, const void* src, const void* dst,
-                           const void* mask, int n, int capacity, void* scratch, void* stream) {
+                           const void* mask, int n, int capacity, int flat, void* scratch,
+                           long long scratch_bytes, void* stream) {
   if (capacity <= 0) return static_cast<int>(cudaGetLastError());
-  return union_launch<true>(parent2, seen, src, dst, mask, n, capacity, 2 * capacity, scratch,
-                            static_cast<cudaStream_t>(stream));
+  return union_launch<true>(parent2, seen, src, dst, mask, n, capacity, flat, scratch,
+                            scratch_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

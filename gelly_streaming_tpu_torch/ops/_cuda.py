@@ -53,18 +53,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pane_triangles_launch": [_P, _P, _I, _P, _I, _P, _P],
     },
     "unionfind.cu": {
+        # items, nodes: the scratch bytes of one call
+        "uf_scratch_bytes": [_L, _L],
         # parent, seen | None, src | None, dst, mask | None, n, capacity,
-        # scratch uint8[24 + n], stream: the compress kernel, then the union kernel
-        "uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+        # flat, scratch, scratch bytes, stream: the compress kernel (unless
+        # flat), then the union kernel
+        "uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _L, _P],
         # parent2, seen | None, src, dst, mask | None, n, capacity C (parent2
-        # holds 2C), scratch uint8[24 + 2n], stream: compress, then the
-        # parity union
-        "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+        # holds 2C), flat, scratch, scratch bytes, stream: compress (unless
+        # flat), then the parity union
+        "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _L, _P],
     },
     "degrees.cu": {
-        # m, sorted keys, order (int64), n, counts, capacity, packed | None,
-        # maskbits | None, emitted | None, stream
-        "degree_trace_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
+        # n: the scratch bytes degree_trace_launch needs for n rows
+        "degree_trace_scratch_bytes": [_I],
+        # v, m, sorted keys, order (int64), n, counts, capacity, packed |
+        # None, maskbits | None, emitted | None, scratch, scratch bytes,
+        # stream: the scan kernel, then the pack kernel
+        "degree_trace_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _L, _P],
         # deg, src, dst, mask | None, n, capacity, stream
         "degree_fold_launch": [_P, _P, _P, _P, _I, _I, _P],
         # deg, hist, capacity, src, dst, sign | None, mask | None, n, recs,
@@ -85,7 +91,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 # entry points that return something other than a cudaError_t
-RESTYPES: Dict[str, type] = {"degree_dist_scratch_bytes": _L}
+RESTYPES: Dict[str, type] = {
+    "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "uf_scratch_bytes": _L,
+}
 
 
 class BuildResult(NamedTuple):

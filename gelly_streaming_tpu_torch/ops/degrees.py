@@ -18,7 +18,8 @@
 
 The wrappers update their state tensors in place.  On CUDA tensors each is
 one C call (``degree_trace`` after a stable ``torch.sort`` of the grouping
-keys; ``degree_dist_scan`` three, the two scans each after a stable sort)
+keys, a scan kernel and a pack kernel; ``degree_dist_scan`` three, the two
+scans each after a stable sort)
 and ``LAUNCHES`` counts it once; on CPU tensors they run the plain twins
 (``*_plain``: the same algorithm in PyTorch ops), which return new tensors
 and launch nothing.
@@ -31,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from gelly_streaming_tpu_torch.io import wire
-from gelly_streaming_tpu_torch.ops import _cuda, segments
+from gelly_streaming_tpu_torch.ops import _cuda, indexing, segments
 
 _SOURCE = "degrees.cu"
 _MAX_KEY_CAPACITY = 1 << 30  # grouping keys 2 * v + 1 must fit int32
@@ -75,9 +76,8 @@ def degree_trace_plain(
     """(new counts, outs): outs is ``(records uint8[6n], mask bits
     uint8[ceil(n/8)])`` when ``packed``, else ``(v, emitted int32, m)``."""
     rank = segments.occurrence_rank(v, m)
-    emitted = counts[v.long()] + rank + 1
-    counts = counts.clone()
-    counts.index_add_(0, torch.where(m, v, 0).long(), m.to(torch.int32))
+    emitted = counts[indexing.gather_index(v, counts.shape[0])] + rank + 1
+    counts = indexing.scatter_add_(counts.clone(), torch.where(m, v, 0), m.to(torch.int32))
     if packed:
         return counts, (wire.pack_records48(v, emitted), wire.pack_mask_bits(m))
     return counts, (v, emitted, m)
@@ -111,10 +111,13 @@ def degree_trace(counts: torch.Tensor, v: torch.Tensor, m: torch.Tensor, packed:
         records = maskbits = None
         emitted = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        err = _cuda.library(_SOURCE).degree_trace_launch(
-            m.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(), n,
+        lib = _cuda.library(_SOURCE)
+        scratch_bytes = lib.degree_trace_scratch_bytes(n)
+        scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
+        err = lib.degree_trace_launch(
+            v.data_ptr(), m.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(), n,
             counts.data_ptr(), counts.shape[0], _ptr(records), _ptr(maskbits), _ptr(emitted),
-            _stream(counts),
+            scratch.data_ptr(), scratch_bytes, _stream(counts),
         )
         _cuda.check(err, "degree_trace_launch")
         LAUNCHES["degree_trace"] += 1
@@ -132,10 +135,7 @@ def degree_fold_plain(
     ones = torch.ones(src.shape, dtype=torch.int32, device=src.device) if mask is None else mask.to(torch.int32)
     s = src if mask is None else torch.where(mask, src, 0)
     d = dst if mask is None else torch.where(mask, dst, 0)
-    deg = deg.clone()
-    deg.index_add_(0, s.long(), ones)
-    deg.index_add_(0, d.long(), ones)
-    return deg
+    return indexing.scatter_add_(indexing.scatter_add_(deg.clone(), s, ones), d, ones)
 
 
 def degree_fold(
@@ -191,11 +191,6 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-def _jax_index(i: torch.Tensor, size: int) -> torch.Tensor:
-    """JAX's index normalisation: below 0 counts from the end once."""
-    return torch.where(i < 0, i + size, i)
-
-
 def _groups(keys: torch.Tensor):
     """(sorted keys, order, head, end, group id, first sorted position of
     each row's group) of a stable grouping."""
@@ -235,7 +230,7 @@ def degree_dist_scan_plain(
     x = torch.stack([src, dst], 1).reshape(-1).long()
     a = torch.ones_like(x) if sign is None else sign.long().repeat_interleave(2)
     m = mask.repeat_interleave(2)
-    xn = _jax_index(x, cap)
+    xn = indexing.normalize(x, cap)
     in_range = (xn >= 0) & (xn < cap)
     new_deg, new_hist = deg.clone(), hist.clone()
     if n == 0:
@@ -285,7 +280,7 @@ def degree_dist_scan_plain(
     # stage 2, in sorted order
     step = torch.tensor([1, -1], dtype=torch.int64, device=dev).repeat(2 * n)
     add = torch.where(emit & (val < cap), step, 0)
-    sk2, order2, _, end2, _, start2 = _groups(_jax_index(val, cap).clamp(0, cap - 1))
+    sk2, order2, _, end2, _, start2 = _groups(indexing.normalize(val, cap).clamp(0, cap - 1))
     count_s = _wrap32(hist.long()[sk2] + _segmented_sum(add[order2], start2))
     new_hist[sk2[end2]] = count_s[end2]
     count = torch.empty((4 * n,), dtype=torch.int32, device=dev)

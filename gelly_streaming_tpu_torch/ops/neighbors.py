@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from gelly_streaming_tpu_torch.ops import segments
+from gelly_streaming_tpu_torch.ops import indexing, segments
 
 
 class NeighborTable(NamedTuple):
@@ -37,7 +37,7 @@ def contains_batch(
     table: NeighborTable, src: torch.Tensor, dst: torch.Tensor
 ) -> torch.Tensor:
     """For each row i: is dst[i] already in N(src[i])?  [B, D] compare."""
-    rows = table.nbrs[src.long()]
+    rows = table.nbrs[indexing.gather_index(src, table.nbrs.shape[0])]
     return (rows == dst[:, None]).any(dim=1)
 
 
@@ -53,14 +53,16 @@ def insert_batch(
     capacity D are dropped and counted in ``dropped``.
     """
     capacity, max_degree = table.nbrs.shape
-    src_l = src.long()
     rank = segments.occurrence_rank(src, mask)
-    pos = table.deg[src_l] + rank
+    pos = table.deg[indexing.gather_index(src, capacity)] + rank
     ok = mask & (pos < max_degree)
-    # flat scatter; masked/overflow rows land in one sacrificial slot past
-    # the end, which is cut off afterwards
+    # flat scatter in JAX's int32 index arithmetic and scatter rule (an id
+    # below 0 lands in the last rows, one past the end is dropped); masked,
+    # overflow and dropped rows land in one sacrificial slot past the end,
+    # which is cut off afterwards
     sink = capacity * max_degree
-    flat_idx = torch.where(ok, src_l * max_degree + pos.long(), sink)
+    flat_idx, kept = indexing.scatter_index(src * max_degree + pos, sink)
+    flat_idx = torch.where(ok & kept, flat_idx, sink)
     flat = torch.cat(
         [
             table.nbrs.reshape(-1),
@@ -69,8 +71,7 @@ def insert_batch(
     )
     flat[flat_idx] = torch.where(ok, dst, -1).to(torch.int32)
     nbrs = flat[:sink].reshape(capacity, max_degree)
-    deg = table.deg.clone()
-    deg.index_add_(0, torch.where(ok, src_l, 0), ok.to(torch.int32))
+    deg = indexing.scatter_add_(table.deg.clone(), torch.where(ok, src, 0), ok.to(torch.int32))
     dropped = table.dropped + (mask & ~ok).sum(dtype=torch.int32)
     return NeighborTable(nbrs=nbrs, deg=deg, dropped=dropped)
 
@@ -79,7 +80,7 @@ def gather_rows(
     table: NeighborTable, vertices: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neighbors [B, D], valid [B, D]) for a batch of vertices."""
-    v = vertices.long()
+    v = indexing.gather_index(vertices, table.nbrs.shape[0])
     rows = table.nbrs[v]
     slots = torch.arange(table.nbrs.shape[1], device=rows.device)
     valid = slots[None, :] < table.deg[v][:, None]
@@ -122,7 +123,7 @@ def insert_unique_valued_batch(
     if mask is None:
         mask = torch.ones(src.shape, dtype=torch.bool, device=src.device)
     rows_d, valid = gather_rows(table, src)
-    rows_v = vtable.nbrs[src.long()]
+    rows_v = vtable.nbrs[indexing.gather_index(src, vtable.nbrs.shape[0])]
     present = ((rows_d == dst[:, None]) & (rows_v == val_bits[:, None]) & valid).any(dim=1)
     first = segments.first_occurrence_mask_triples(src, dst, val_bits, mask)
     is_new = mask & ~present & first

@@ -10,6 +10,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from gelly_streaming_tpu_torch.ops import indexing
+
 
 def _grouping_key(keys: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Composite key where padding rows never join a valid group: valid
@@ -65,7 +67,7 @@ def segment_sum(
         values = torch.where(mask, values, torch.zeros_like(values))
         keys = torch.where(mask, keys, 0)
     out = torch.zeros((num_groups,), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, keys.long(), values)
+    return indexing.scatter_add_(out, keys, values)
 
 
 def group_counts(keys: torch.Tensor, num_groups: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -11,9 +11,9 @@ Unlike the JAX functions, these update ``parent`` (and ``seen``) IN PLACE
 and return the same tensors: a caller that keeps an old state clones it
 first.  On CUDA tensors ``union_edges``, ``union_edges_with_seen``,
 ``merge_parents`` and ``compress`` are one C call each
-(``csrc/unionfind.cu: uf_union_launch``: the compress kernel, then the
-union kernel unless the batch is empty; each runs its rounds on the device
-with no host sync); the parity union of the bipartiteness check on the
+(``csrc/unionfind.cu: uf_union_launch``: the compress kernel unless the
+state is known flat, then the union kernel unless the batch is empty; each
+runs its rounds on the device with no host sync); the parity union of the bipartiteness check on the
 doubled space ``parent2: int32[2C]`` is ``uf_parity_union_launch``, the
 same two kernels with the doubled edges formed inside the union kernel.
 ``LAUNCHES`` counts the launches of each kernel.  On CPU
@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
-from gelly_streaming_tpu_torch.ops import _cuda
+from gelly_streaming_tpu_torch.ops import _cuda, indexing
 
 _SOURCE = "unionfind.cu"
 _MAX_INT32 = (1 << 31) - 1
@@ -71,11 +71,12 @@ def union_edges_plain(
 ) -> torch.Tensor:
     """Until every edge's endpoints share a root: hook each larger endpoint
     root under the smallest root it meets (scatter-min), then compress.
-    Masked rows become (0, 0) self-loops."""
+    Masked rows become (0, 0) self-loops; an id outside [0, C) reads the
+    entry JAX's gather reads (below 0 counts from the end, then clamps)."""
     if mask is not None:
         src = torch.where(mask, src, 0)
         dst = torch.where(mask, dst, 0)
-    s, d = src.long(), dst.long()
+    s, d = indexing.gather_index(src, parent.shape[0]), indexing.gather_index(dst, parent.shape[0])
     p = compress_plain(parent)
     while True:
         rs, rd = p[s], p[d]
@@ -92,6 +93,14 @@ def merge_parents_plain(parent_a: torch.Tensor, parent_b: torch.Tensor) -> torch
     return union_edges_plain(parent_a, v, parent_b)
 
 
+def _mark_seen(seen, src, dst, mask) -> torch.Tensor:
+    """A new seen vector: every valid endpoint marked by JAX's scatter
+    rule (below 0 counts from the end, past the end is dropped)."""
+    live = slice(None) if mask is None else mask
+    seen = indexing.scatter_true_(seen.clone(), src[live])
+    return indexing.scatter_true_(seen, dst[live])
+
+
 def union_edges_with_seen_plain(
     parent: torch.Tensor,
     seen: torch.Tensor,
@@ -100,11 +109,7 @@ def union_edges_with_seen_plain(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     p = union_edges_plain(parent, src, dst, mask)
-    live = slice(None) if mask is None else mask
-    seen = seen.clone()
-    seen[src[live].long()] = True
-    seen[dst[live].long()] = True
-    return p, seen
+    return p, _mark_seen(seen, src, dst, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -141,26 +146,66 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# The flat-state flag: a union call leaves ``parent`` flat, and the wrapper
+# records the tensor's version counter on it.  PyTorch bumps that counter on
+# every in-place write through any view (``copy_``, indexing, ``add_``), so a
+# tensor whose counter still matches was written by nothing but this
+# module's kernels since, and is flat: its call skips the compress kernel.
+# A new tensor (``init_parent``, a clone, a caller's own) has no mark and is
+# compressed first.
+_FLAT_MARK = "_uf_flat_version"
+
+# the scratch of the last CUDA call, whose header holds its round counts
+_last_scratch: Optional[torch.Tensor] = None
+
+
+def _known_flat(parent: torch.Tensor) -> bool:
+    return getattr(parent, _FLAT_MARK, None) == parent._version
+
+
+def mark_flat(parent: torch.Tensor) -> torch.Tensor:
+    """Declare ``parent`` flat (e.g. a copy of a state a union call left
+    flat), so the next call skips the compress kernel; returns it."""
+    setattr(parent, _FLAT_MARK, parent._version)
+    return parent
+
+
+def last_rounds() -> Dict[str, int]:
+    """The round counts of the last CUDA call (hook, doubling and compress
+    rounds; compress 0 when it was skipped).  Synchronizes."""
+    if _last_scratch is None:
+        raise RuntimeError("no union-find kernel call yet")
+    hook, doubling, comp = _last_scratch[40:52].view(torch.int32).tolist()
+    return {"hook": hook, "doubling": doubling, "compress": comp}
+
+
 def _launch(parent, seen, src, dst, mask, n: int, parity: bool = False) -> None:
     """One ``uf_union_launch`` (``uf_parity_union_launch`` with ``parity``)
-    on the current stream: compress, then the union of n edges (none for
-    compress alone)."""
+    on the current stream: compress unless ``parent`` is known flat, then
+    the union of n edges (none for compress alone)."""
+    global _last_scratch
     if parent.device.type != "cuda":
         raise ValueError(f"no uf_union_launch kernel for device {parent.device}")
     lib = _cuda.library(_SOURCE)
-    # the kernels' round flags (6 int32) and a done byte per (doubled) edge
     items = 2 * n if parity else n
-    scratch = torch.empty((24 + items,), dtype=torch.uint8, device=parent.device)
+    if items > _MAX_INT32:
+        raise ValueError("a parity batch must hold fewer than 2^30 edges")
+    nbytes = lib.uf_scratch_bytes(items, parent.shape[0])
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=parent.device)
+    flat = _known_flat(parent)
     entry = lib.uf_parity_union_launch if parity else lib.uf_union_launch
     err = entry(
         parent.data_ptr(), _ptr(seen), _ptr(src), _ptr(dst), _ptr(mask), n,
-        parent.shape[0] // 2 if parity else parent.shape[0], scratch.data_ptr(),
+        parent.shape[0] // 2 if parity else parent.shape[0], int(flat), scratch.data_ptr(), nbytes,
         torch.cuda.current_stream(parent.device).cuda_stream,
     )
     _cuda.check(err, "uf_parity_union_launch" if parity else "uf_union_launch")
+    mark_flat(parent)
+    _last_scratch = scratch
     if n > 0:
         LAUNCHES["parity_union_kernel" if parity else "union_kernel"] += 1
-    LAUNCHES["compress_kernel"] += 1
+    if not flat:
+        LAUNCHES["compress_kernel"] += 1
 
 
 def compress(parent: torch.Tensor) -> torch.Tensor:
@@ -174,7 +219,7 @@ def compress(parent: torch.Tensor) -> torch.Tensor:
 
 def find_roots(parent: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
     """Roots of ``vertices`` (``parent`` is not changed)."""
-    return compress(parent.clone())[vertices.long()]
+    return compress(parent.clone())[indexing.gather_index(vertices, parent.shape[0])]
 
 
 def union_edges(
@@ -254,11 +299,7 @@ def parity_union_edges_with_seen_plain(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     p = parity_union_edges_plain(parent2, src, dst, mask)
-    live = slice(None) if mask is None else mask
-    seen = seen.clone()
-    seen[src[live].long()] = True
-    seen[dst[live].long()] = True
-    return p, seen
+    return p, _mark_seen(seen, src, dst, mask)
 
 
 def _check_parity(parent2, seen, src, dst, mask) -> None:

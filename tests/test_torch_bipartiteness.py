@@ -16,12 +16,14 @@ import jax.numpy as jnp
 
 from gelly_streaming_tpu.core.config import StreamConfig as JConfig
 from gelly_streaming_tpu.core.stream import EdgeStream as JStream
+from gelly_streaming_tpu.io import sources as jsources
 from gelly_streaming_tpu.library import bipartiteness as jbp
 from gelly_streaming_tpu.ops import unionfind as juf
 from gelly_streaming_tpu.summaries.candidates import Candidates as JCandidates
 from gelly_streaming_tpu_torch import interop
 from gelly_streaming_tpu_torch.core.config import StreamConfig as TConfig
 from gelly_streaming_tpu_torch.core.stream import EdgeStream as TStream
+from gelly_streaming_tpu_torch.io import sources as tsources
 from gelly_streaming_tpu_torch.io import wire as twire
 from gelly_streaming_tpu_torch.library import bipartiteness as tbp
 from gelly_streaming_tpu_torch.ops import unionfind as tuf
@@ -163,3 +165,28 @@ def test_bipartiteness_example_matches_jax(tmp_path, capsys, with_file):
         t_lines = capsys.readouterr().out.splitlines()
         j_example.main([])
         assert t_lines[3:] == capsys.readouterr().out.splitlines()[3:] == ["(false,{})"]
+
+
+# ids outside [0, C) on the streams that validate nothing: the doubled ids
+# 2u, 2u + 1 clamp into [0, 2C) after a negative wrap, so both sides of an
+# id >= C land on node 2C - 1 and -1 maps to 2C - 2 / 2C - 1
+OOR_EDGES = {
+    "bipartite": [(1, 2), (3, 16), (-1, 4), (5, 21), (6, 7)],
+    "odd": [(1, 2), (16, 3), (-1, 4), (21, 1), (5, -1), (15, 16), (2, 5)],
+}
+
+
+@pytest.mark.parametrize("edges", sorted(OOR_EDGES))
+@pytest.mark.parametrize("source,bs", [("collection", None), ("batches", 3)])
+def test_out_of_range_ids_follow_jax_index_rules(edges, source, bs):
+    edges = OOR_EDGES[edges]
+    if source == "collection":
+        t = TStream.from_collection(edges, TConfig(**KW), device=CPU)
+        j = JStream.from_collection(edges, JConfig(**KW))
+    else:
+        src, dst = (np.array([e[k] for e in edges], np.int32) for k in (0, 1))
+        t = TStream.from_batches(tsources._batched(src, dst, None, None, None, bs, CPU), TConfig(**KW), device=CPU)
+        j = JStream.from_batches(jsources._batched(src, dst, None, None, None, bs), JConfig(**KW))
+    t_recs = t.aggregate(tbp.BipartitenessCheck(window_ms=500)).collect()
+    _assert_same_records(t_recs, j.aggregate(jbp.BipartitenessCheck(window_ms=500)).collect())
+

@@ -16,11 +16,13 @@ import torch
 
 from gelly_streaming_tpu.core.config import StreamConfig as JConfig
 from gelly_streaming_tpu.core.stream import EdgeStream as JStream
+from gelly_streaming_tpu.io import sources as jsources
 from gelly_streaming_tpu.library import connected_components as jcc
 from gelly_streaming_tpu_torch import interop
 from gelly_streaming_tpu_torch.core.aggregation import SummaryBulkAggregation
 from gelly_streaming_tpu_torch.core.config import StreamConfig as TConfig
 from gelly_streaming_tpu_torch.core.stream import EdgeStream as TStream
+from gelly_streaming_tpu_torch.io import sources as tsources
 from gelly_streaming_tpu_torch.io import wire as tw
 from gelly_streaming_tpu_torch.library import connected_components as tcc
 from gelly_streaming_tpu_torch.ops import unionfind as tuf
@@ -263,3 +265,28 @@ def test_example_generated_input_matches_jax(capsys):
     # the usage banner differs by the port's --device flag; the records not
     assert got[0] == want[0] and "--device=cuda|cpu" in got[2]
     assert got[3:] == want[3:] and len(want) > 3
+
+
+# ids outside [0, C) on the streams that validate nothing: -1, C and C + 5
+# at C = 16.  JAX's gather clamps after a negative wrap, so (16, 3) joins 15
+# and 3; seen is a scatter, which drops 16 and 21 and marks -1 as 15.
+OOR_EDGES = [(1, 2), (16, 3), (-1, 4), (21, 1), (5, -1), (7, 16), (8, 21), (-1, -1), (9, 10), (16, 16)]
+
+
+@pytest.mark.parametrize("algo", ["ConnectedComponents", "ConnectedComponentsTree"])
+@pytest.mark.parametrize("source,bs", [("collection", None), ("batches", 3)])
+def test_out_of_range_ids_follow_jax_index_rules(algo, source, bs):
+    kw = dict(vertex_capacity=16, max_degree=16)
+    if source == "collection":
+        t = TStream.from_collection(OOR_EDGES, TConfig(**kw), device=CPU)
+        j = JStream.from_collection(OOR_EDGES, JConfig(**kw))
+    else:
+        src, dst = (np.array([e[k] for e in OOR_EDGES], np.int32) for k in (0, 1))
+        t = TStream.from_batches(tsources._batched(src, dst, None, None, None, bs, CPU), TConfig(**kw), device=CPU)
+        j = JStream.from_batches(jsources._batched(src, dst, None, None, None, bs), JConfig(**kw))
+    t_recs = t.aggregate(getattr(tcc, algo)(window_ms=500)).collect()
+    _assert_same_records(t_recs, j.aggregate(getattr(jcc, algo)(window_ms=500)).collect())
+    final = t_recs[-1][0]
+    assert int(final.parent[15]) == int(final.parent[3]) == 1  # 16 and 21 read entry 15
+    assert bool(final.seen[15]) and not bool(final.seen[6])
+

@@ -434,3 +434,128 @@ def test_degree_and_bipartite_aggregations_on_gpu_match_cpu(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(g_deg, c_deg)) and len(g_deg) == len(c_deg)
     assert g_dist == c_dist and g_bip == c_bip
     assert g_bip[-1].startswith("(true,")
+
+
+# ---------------------------------------------------------------------------
+# the redesigned degree trace and union kernels, and JAX's index rules for
+# ids outside [0, C) on the card
+
+TRACE_CASES = ["hub-2^20", "all-masked", "one-row", "ragged", "out-of-range"]
+
+
+def _trace_case(rng, case):
+    """(v, m, capacity) of each degree-trace case."""
+    if case == "hub-2^20":  # one vertex's rows span about 1000 tiles
+        n, c = (1 << 20) + 4096, 1 << 12
+        v = np.where(np.arange(n) < 1 << 20, 7, rng.integers(0, c, n))
+        return v[rng.permutation(n)], rng.random(n) < 0.9, c
+    if case == "all-masked":
+        return rng.integers(0, 1 << 10, 5000), np.zeros(5000, bool), 1 << 10
+    if case == "one-row":
+        return np.array([3]), np.array([True]), 16
+    if case == "ragged":  # n not a multiple of the tile or of 8
+        return rng.integers(0, 300, 3 * 1024 + 5), rng.random(3 * 1024 + 5) < 0.8, 300
+    c = 16  # -1, C, C + 5 and -C - 2 beside C - 1
+    return rng.choice(np.array([-1, c, c + 5, -c - 2, c - 1, 0, 3]), 4099), rng.random(4099) < 0.7, c
+
+
+@pytest.mark.parametrize("case", TRACE_CASES)
+@pytest.mark.parametrize("packed", [True, False])
+def test_degree_trace_redesign_matches_twin(cuda_device, case, packed):
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    rng = np.random.default_rng(TRACE_CASES.index(case))
+    v, m, c = _trace_case(rng, case)
+    counts0 = rng.integers(0, 1 << 10, c).astype(np.int32)
+    tv = torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(cuda_device)
+    tm = torch.from_numpy(np.ascontiguousarray(m)).to(cuda_device)
+    tc = torch.from_numpy(counts0).to(cuda_device)
+    want_counts, want = degrees.degree_trace_plain(tc, tv, tm, packed)
+    got = degrees.degree_trace(tc, tv, tm, packed)
+    assert torch.equal(tc, want_counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_degree_fold_follows_jax_index_rules(cuda_device):
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, n = 16, 1 << 12
+    rng = np.random.default_rng(5)
+    ids = np.array([-1, c, c + 5, -c - 2, c - 1, 0, 3], np.int32)
+    s, d = (torch.from_numpy(rng.choice(ids, n)).to(cuda_device) for _ in range(2))
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+    deg = torch.zeros(c, dtype=torch.int32, device=cuda_device)
+    want = degrees.degree_fold_plain(deg, s, d, mask)
+    assert torch.equal(degrees.degree_fold(deg, s, d, mask), want)
+
+
+def _state(case, c, rng, dev, parity):
+    """(parent, src, dst, mask) of each union case, parent on the card."""
+    nodes = 2 * c if parity else c
+    ident = torch.arange(nodes, dtype=torch.int32, device=dev)
+    if case == "reverse-path":
+        s, d = np.arange(c - 1)[::-1], np.arange(1, c)[::-1]
+    elif case == "star":
+        s, d = np.full(c - 1, c // 2), np.delete(np.arange(c), c // 2)
+    elif case == "out-of-range":
+        ids = np.array([-1, c, c + 5, -c - 2, c - 1, 0, 3, 9])
+        s, d = rng.choice(ids, 4 * c), rng.integers(0, c, 4 * c)
+    else:
+        s, d = rng.integers(0, c, 2 * c), rng.integers(0, c, 2 * c)
+    s, d = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev) for a in (s, d))
+    return ident, s, d, None
+
+
+UNION_CASES = ["reverse-path", "star", "out-of-range", "uniform"]
+
+
+@pytest.mark.parametrize("case", UNION_CASES)
+@pytest.mark.parametrize("parity", [False, True])
+def test_union_redesign_matches_twin_and_skips_compress_on_a_flat_state(cuda_device, case, parity):
+    """Two folds into one state: the first compresses (a new tensor), the
+    second skips compress (the state is known flat); both equal the twin,
+    and the round counts are reported."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c = 1 << 14
+    rng = np.random.default_rng(UNION_CASES.index(case))
+    parent, s, d, mask = _state(case, c, rng, cuda_device, parity)
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    fold, plain = ((uf.parity_union_edges_with_seen, uf.parity_union_edges_with_seen_plain) if parity
+                   else (uf.union_edges_with_seen, uf.union_edges_with_seen_plain))
+    s2, d2 = s.roll(7), d.flip(0)
+    want = plain(*plain(parent, seen, s, d, mask), s2, d2, mask)
+    before = dict(uf.LAUNCHES)
+    fold(parent, seen, s, d, mask)
+    first = uf.last_rounds()
+    fold(parent, seen, s2, d2, mask)
+    late = uf.last_rounds()
+    assert uf.LAUNCHES["compress_kernel"] == before["compress_kernel"] + 1
+    assert first["compress"] >= 1 and late["compress"] == 0 and first["hook"] >= 1 and late["hook"] >= 1
+    assert torch.equal(parent, want[0]) and torch.equal(seen, want[1])
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_union_compresses_a_state_written_since(cuda_device, parity):
+    """A state left by merge_parents, then written in place by the caller
+    (not flat): the next fold compresses first and equals the twin."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    c = 1 << 12
+    nodes = 2 * c if parity else c
+    rng = np.random.default_rng(21)
+    a = torch.from_numpy(_forest(rng, nodes)).to(cuda_device)
+    b = torch.from_numpy(_forest(rng, nodes)).to(cuda_device)
+    want_merged = uf.merge_parents_plain(a, b)
+    assert torch.equal(uf.merge_parents(a, b), want_merged)
+    a.copy_(torch.from_numpy(_forest(rng, nodes)).to(cuda_device))  # a caller's own write
+    s, d = (torch.from_numpy(rng.integers(0, c, 3 * c).astype(np.int32)).to(cuda_device) for _ in range(2))
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    fold, plain = ((uf.parity_union_edges_with_seen, uf.parity_union_edges_with_seen_plain) if parity
+                   else (uf.union_edges_with_seen, uf.union_edges_with_seen_plain))
+    want = plain(a, seen, s, d)
+    before = uf.LAUNCHES["compress_kernel"]
+    fold(a, seen, s, d)
+    assert uf.LAUNCHES["compress_kernel"] == before + 1
+    assert torch.equal(a, want[0]) and torch.equal(seen, want[1])

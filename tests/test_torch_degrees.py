@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from gelly_streaming_tpu.core.config import StreamConfig as JConfig
 from gelly_streaming_tpu.core.stream import EdgeStream as JStream
 from gelly_streaming_tpu.core.types import EdgeBatch as JBatch
+from gelly_streaming_tpu.io import sources as jsources
 from gelly_streaming_tpu.io import wire as jwire
 from gelly_streaming_tpu.library import degree_distribution as jdd
 from gelly_streaming_tpu.ops import segments as jseg
@@ -26,6 +27,7 @@ from gelly_streaming_tpu_torch import interop
 from gelly_streaming_tpu_torch.core.config import StreamConfig as TConfig
 from gelly_streaming_tpu_torch.core.stream import EdgeStream as TStream
 from gelly_streaming_tpu_torch.core.types import EdgeBatch as TBatch
+from gelly_streaming_tpu_torch.io import sources as tsources
 from gelly_streaming_tpu_torch.io import wire as twire
 from gelly_streaming_tpu_torch.library import degree_distribution as tdd
 from gelly_streaming_tpu_torch.ops import degrees
@@ -340,3 +342,44 @@ def test_degree_distribution_example_matches_jax(tmp_path, capsys, with_file):
         j_example.main([])
         j_lines = capsys.readouterr().out.splitlines()
         assert t_lines[3:] == j_lines[3:] and len(t_lines) > 100
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_degree_trace_twin_follows_jax_index_rules(packed, masked):
+    """Ids -1, C, C + 5 and -C - 2 beside C - 1: the gather of counts
+    wraps -1 once and clamps, the add wraps -1 and drops the rest, the
+    rank groups by the raw id and the record packs the raw id."""
+    rng = np.random.default_rng(9)
+    c, n = 16, 300
+    v = rng.choice(np.array([-1, c, c + 5, -c - 2, c - 1, 0, 3], np.int32), n)
+    m = rng.random(n) < 0.7 if masked else np.ones(n, bool)
+    counts = rng.integers(0, 50, c).astype(np.int32)
+    t_counts = torch.from_numpy(counts.copy())
+    got = degrees.degree_trace(t_counts, torch.from_numpy(v), torch.from_numpy(m), packed)
+    jv, jm, jc = jnp.asarray(v), jnp.asarray(m), jnp.asarray(counts)
+    emitted = jc[jv] + jseg.occurrence_rank(jv, jm) + 1
+    want_counts = jc.at[jnp.where(jm, jv, 0)].add(jm.astype(jnp.int32))
+    want = (jwire.pack_records48(jv, emitted), jwire.pack_mask_bits(jm)) if packed else (jv, emitted, jm)
+    np.testing.assert_array_equal(t_counts.numpy(), np.asarray(want_counts))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# the degree summary over ids -1, C and C + 5 at C = 16: deg.at[src].add
+OOR_EDGES = [(1, 2), (16, 3), (-1, 4), (21, 1), (5, -1), (15, 16), (3, 21), (-1, -1), (2, 5), (16, 16)]
+
+
+@pytest.mark.parametrize("source,bs", [("collection", None), ("batches", 3)])
+def test_degree_summary_follows_jax_index_rules(source, bs):
+    kw = dict(vertex_capacity=16)
+    if source == "collection":
+        t = TStream.from_collection(OOR_EDGES, TConfig(**kw), device=CPU)
+        j = JStream.from_collection(OOR_EDGES, JConfig(**kw))
+    else:
+        src, dst = (np.array([e[k] for e in OOR_EDGES], np.int32) for k in (0, 1))
+        t = TStream.from_batches(tsources._batched(src, dst, None, None, None, bs, CPU), TConfig(**kw), device=CPU)
+        j = JStream.from_batches(jsources._batched(src, dst, None, None, None, bs), JConfig(**kw))
+    t_recs = t.aggregate(tdd.DegreeDistributionSummary(window_ms=500)).collect()
+    _assert_same_degs(t_recs, j.aggregate(jdd.DegreeDistributionSummary(window_ms=500)).collect())
+    assert int(t_recs[-1][0][15]) == 5  # -1 counts at C - 1, 16 and 21 are dropped

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from gelly_streaming_tpu.core.config import StreamConfig as JConfig
 from gelly_streaming_tpu.core.stream import EdgeStream as JStream
 from gelly_streaming_tpu.core.types import EdgeBatch as JBatch
+from gelly_streaming_tpu.io import sources as jsources
 from gelly_streaming_tpu.io import wire as jwire
 from gelly_streaming_tpu.library import degree_distribution as jdd
 from gelly_streaming_tpu.ops import neighbors as jnb
@@ -30,6 +31,7 @@ from gelly_streaming_tpu_torch.core.stream import _DistinctStage
 from gelly_streaming_tpu_torch.core.types import EdgeBatch as TBatch
 from gelly_streaming_tpu_torch.core.types import EdgeDirection, EventType
 from gelly_streaming_tpu_torch.io import prefetch as tprefetch
+from gelly_streaming_tpu_torch.io import sources as tsources
 from gelly_streaming_tpu_torch.io import wire as twire
 from gelly_streaming_tpu_torch.library import degree_distribution as tdd
 from gelly_streaming_tpu_torch.ops import degrees
@@ -210,6 +212,53 @@ def test_property_streams_match_jax(source, cap):
         assert t_out.lines() == j_out.lines(), prop
     blocks = [list(zip(*(c.tolist() for c in b.columns))) for b in t.get_degrees().blocks()]
     assert [r for b in blocks for r in b] == t.get_degrees().collect()
+
+
+# ids outside [0, C) on the streams that validate nothing: -1, C and C + 5
+# at C = 16, beside C - 1 (JAX's -1 reads and adds at C - 1 but groups apart)
+OOR_C = 16
+OOR_EDGES = [(1, 2), (16, 3), (-1, 4), (21, 1), (5, -1), (15, 16), (3, 21), (-1, -1), (2, 5), (16, 16),
+             (15, 2), (-1, 15), (21, 21), (4, -1)]
+OOR_OPS = {
+    **{prop: (lambda s, p=prop: getattr(s, p)().lines()) for prop in PROPS},
+    "distinct": lambda s: s.distinct().edges_csv_lines(),
+    "undirected_distinct": lambda s: s.undirected().distinct().edges_csv_lines(),
+}
+
+
+def _oor_pair(source, bs):
+    """The out-of-range stream in both packages: ``from_collection`` in one
+    batch, or ``from_batches`` in padded batches of ``bs``."""
+    kw = dict(vertex_capacity=OOR_C, max_degree=4)
+    if source == "collection":
+        return (TStream.from_collection(OOR_EDGES, TConfig(**kw), device=CPU),
+                JStream.from_collection(OOR_EDGES, JConfig(**kw)))
+    src, dst = (np.array([e[k] for e in OOR_EDGES], np.int32) for k in (0, 1))
+    return (TStream.from_batches(tsources._batched(src, dst, None, None, None, bs, CPU), TConfig(**kw), device=CPU),
+            JStream.from_batches(jsources._batched(src, dst, None, None, None, bs), JConfig(**kw)))
+
+
+@pytest.mark.parametrize("op", sorted(OOR_OPS))
+@pytest.mark.parametrize("source,bs", [("collection", None), ("batches", 5)])
+def test_out_of_range_ids_follow_jax_index_rules(op, source, bs):
+    """Property streams and distinct over ids -1, C and C + 5: the port
+    gives the JAX package's records (its negative-wrap, gather-clamp and
+    scatter-drop rules), and raises nowhere JAX returns records."""
+    t, j = _oor_pair(source, bs)
+    want = OOR_OPS[op](j)
+    assert want and OOR_OPS[op](t) == want
+
+
+def test_out_of_range_records_pack_like_jax():
+    """-1 packs to the same 48 bits in both packages (1048575, 4095)."""
+    t, j = _oor_pair("collection", None)
+    assert t.get_degrees().lines() == j.get_degrees().lines()
+    assert "1048575,4095" in t.get_degrees().lines()
+    for pkg, cfg in ((TStream, TConfig), (JStream, JConfig)):
+        with pytest.raises(ValueError):
+            pkg.from_arrays(np.array([1, -1]), np.array([2, 3]), cfg(vertex_capacity=OOR_C))
+        with pytest.raises(ValueError):
+            pkg.from_arrays(np.array([1, OOR_C]), np.array([2, 3]), cfg(vertex_capacity=OOR_C))
 
 
 def test_property_goldens_and_edges():
