@@ -83,6 +83,25 @@ its source with one part taken out each (the scattered record stores, the
 segment searches, the int64 order read, the mask-bit loop, the counts
 gather, phase 2 and its grid sync), each timed in turns with it.
 
+Phase 12 drives ``slice()`` and windowed GraphSAGE at the repo's width (F_in
+= F_out = 128, bench.py:2762) over the CC bench's vertex count: 8 count-cut
+panes of 2^21 uniform edges over 2^20 vertices and one hub pane (a star of
+2^17 beside Zipf edges), ``EdgeStream.from_arrays(...).slice(window,
+EdgeDirection.ALL)`` into ``GraphSAGEWindows(params, features).run``.
+Windows/s, edges/s and embeddings/s end to end; every pane's
+``build_buckets`` (``csrc/neighborhoods.cu``) equal to its twin on the card
+exactly, also with ids -1, C and C + 5; ``sage_gather_mean``
+(``csrc/sage.cu``) within 2^-7 * |ref| + 1e-6 of its twin (one bf16 step),
+the buckets of rows that span several chunks reported on their own; windows 0 and 8
+against a float64 oracle (numpy, scipy) of the grouping and the layer at
+the same bound; a 2-layer stack over 2 panes against its run on the twins;
+a ``fold_neighbors`` degree count against ``np.bincount``; both kernels
+launched on the main path.  It times the kernels on a held stream, the
+bucket sort, the whole build call, ``embedding_bag(mode="mean")`` over the
+same neighbors (the library yardstick, on no path), a window stage by
+stage (host pad, upload, build, layer, readback) and the device's busy
+share by torch.profiler.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -131,6 +150,20 @@ DD_CAP = 1 << 10  # the capacity run: hubs' degrees pass it
 DD_CAP_EVENTS = 1 << 16
 BP_WINDOW_EDGES = 1 << 18  # the timed windowed bipartiteness run
 BP_WINDOW_VERTICES = 1 << 16
+
+# phase 12, GraphSAGE's main path: the repo's width (bench.py:2762,
+# examples/measurements.py:855-857) at the CC bench's vertex count
+SAGE_VERTICES = 1 << 20
+SAGE_FEATURES = 128
+SAGE_PANE_EDGES = 1 << 21
+SAGE_PANES = 8  # uniform panes, then one hub pane
+SAGE_HUB = 1 << 17  # the hub pane's star
+SAGE_TOL = 2e-2  # embeddings: the JAX package's bound between its GraphSAGE planes
+# gather_mean against its twin: both sum in f32 and round once to bf16, so
+# they differ by the f32 sums' order and at most one bf16 step (2^-7 of the
+# value) where that order flips a rounding
+SAGE_TWIN_RTOL, SAGE_TWIN_ATOL = 2.0 ** -7, 1e-6
+SAGE_REPS = 20
 
 
 def log(msg: str) -> None:
@@ -1639,6 +1672,418 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
             "turns": {"init": init, "late": late, "first_batch": (s, d), "late_batch": (s, d)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: slice() and windowed GraphSAGE on the card
+
+
+def sage_stream_arrays(seed: int = 3):
+    """(src, dst) int32 of the GraphSAGE run: SAGE_PANES panes of uniform
+    edges over SAGE_VERTICES, then the hub pane, a star of SAGE_HUB edges
+    from vertex 0 beside Zipf edges over 2^16 other ids."""
+    rng = np.random.default_rng(seed)
+    c, e = SAGE_VERTICES, SAGE_PANE_EDGES
+    src = rng.integers(0, c, SAGE_PANES * e, dtype=np.int32)
+    dst = rng.integers(0, c, SAGE_PANES * e, dtype=np.int32)
+    ids = rng.permutation(np.arange(1, c))[: 1 << 16]
+    zs, zd = zipf_edges(rng, len(ids), e - SAGE_HUB)
+    hub_src = np.concatenate([np.zeros(SAGE_HUB, np.int64), ids[zs]])
+    hub_dst = np.concatenate([rng.integers(1, c, SAGE_HUB), ids[zd]])
+    perm = rng.permutation(e)
+    return (np.concatenate([src, hub_src[perm].astype(np.int32)]),
+            np.concatenate([dst, hub_dst[perm].astype(np.int32)]))
+
+
+class twins_in_place:
+    """Within the block, the port's build_buckets and gather_mean are their
+    plain twins (the library and the snapshot look them up at each call)."""
+
+    def __enter__(self):
+        from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+        from gelly_streaming_tpu_torch.ops import sage
+
+        self.saved = (nbh.build_buckets, sage.gather_mean)
+        nbh.build_buckets, sage.gather_mean = nbh.build_buckets_plain, sage.gather_mean_plain
+
+    def __exit__(self, *exc):
+        from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+        from gelly_streaming_tpu_torch.ops import sage
+
+        nbh.build_buckets, sage.gather_mean = self.saved
+
+
+def directed_all(s, d):
+    """slice(ALL)'s directed rows of one pane."""
+    return np.concatenate([s, d]), np.concatenate([d, s])
+
+
+def buckets_err(got, want) -> int:
+    """0 when two bucket lists are equal exactly (shapes, keys, nbrs, valid,
+    num_keys), else 1."""
+    import torch
+
+    if len(got) != len(want):
+        return 1
+    for g, w in zip(got, want):
+        if g.num_keys != w.num_keys:
+            return 1
+        for a, b in ((g.keys, w.keys), (g.nbrs, w.nbrs), (g.valid, w.valid)):
+            if a.shape != b.shape or not torch.equal(a, b):
+                return 1
+    return 0
+
+
+def gather_err(table, buckets) -> tuple:
+    """(max |kernel - twin|, the same over the buckets whose rows span
+    several 256-slot chunks and so go through the finish kernel, the
+    largest |mean| there) of gather_mean over a pane's buckets, each mean
+    within SAGE_TWIN_RTOL * |twin| + SAGE_TWIN_ATOL (the self halves must
+    be equal exactly)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import sage
+
+    f = table.shape[1]
+    worst = worst_chunked = mag_chunked = 0.0
+    for b in buckets:
+        if not b.num_keys:
+            continue
+        got = sage.gather_mean(table, b.keys, b.nbrs, b.valid)
+        want = sage.gather_mean_plain(table, b.keys, b.nbrs, b.valid)
+        if not torch.equal(got[:, :f], want[:, :f]):
+            raise RuntimeError(f"gather_mean's self rows differ from the twin's (D={b.nbrs.shape[1]})")
+        ref = want[:, f:].float()
+        diff = (got[:, f:].float() - ref).abs()
+        if bool((diff > SAGE_TWIN_RTOL * ref.abs() + SAGE_TWIN_ATOL).any()):
+            raise RuntimeError(f"gather_mean differs from its twin past {SAGE_TWIN_RTOL} * |ref| + "
+                               f"{SAGE_TWIN_ATOL} (D={b.nbrs.shape[1]}, max |err| {float(diff.max()):.6g})")
+        worst = max(worst, float(diff.max()))
+        if b.nbrs.shape[1] > sage._CHUNK:
+            worst_chunked = max(worst_chunked, float(diff.max()))
+            mag_chunked = max(mag_chunked, float(ref.abs().max()))
+    return worst, worst_chunked, mag_chunked
+
+
+def sage_oracle_err(feats64, params, s, d, keys, emb) -> tuple:
+    """A float64 oracle of one window, numpy and scipy: the grouping (every
+    vertex of the pane keyed once) and the layer relu(x W_self + mean W_nbr +
+    b) on the f32 features (``feats64``, as float64), the neighbor sums as a
+    sparse product.  Returns (max |emb - ref|, max of |emb - ref| - SAGE_TOL *
+    (1 + |ref|), keys checked)."""
+    import scipy.sparse as sp
+
+    s_dir, d_dir = directed_all(s, d)
+    adj = sp.csr_matrix((np.ones(len(s_dir)), (s_dir, d_dir)), shape=(SAGE_VERTICES, SAGE_VERTICES))
+    count = np.bincount(s_dir, minlength=SAGE_VERTICES)
+    uniq = np.flatnonzero(count)
+    order = np.argsort(keys)
+    if len(keys) != len(uniq) or not np.array_equal(keys[order], uniq):
+        raise RuntimeError("the window's keys are not the pane's vertices, each once")
+    ws, wn, b = (p.double().cpu().numpy() for p in params)
+    mean = (adj[uniq] @ feats64) / count[uniq, None]
+    ref = np.maximum(feats64[uniq] @ ws + mean @ wn + b, 0.0)
+    diff = np.abs(emb[order] - ref)
+    return float(diff.max()), float((diff - SAGE_TOL * (1 + np.abs(ref))).max()), len(uniq)
+
+
+def build_launcher(ts, td, tm):
+    """A callable making the two C calls of build_buckets (count, then
+    scatter) over pre-sorted keys into pre-allocated outputs: the kernels
+    alone, without the sort and the host's read of the counts."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+
+    lib = _cuda.library("neighborhoods.cu")
+    e = ts.shape[0]
+    nb = len(nbh.bucket_shapes(e))
+    dev = ts.device
+    keys, order = torch.sort((ts << 1) | (~tm).to(torch.int32), stable=True)
+    tiles = (e + nbh._TILE - 1) // nbh._TILE
+    tile_base = torch.empty(nb * tiles, dtype=torch.int32, device=dev)
+    info = torch.empty(2 * e, dtype=torch.int32, device=dev)
+    offsets = torch.empty(2 * nb, dtype=torch.int64, device=dev)
+    totals = torch.empty(nb, dtype=torch.int32, device=dev)
+    counts = [b.num_keys for b in nbh.build_buckets(ts, td, None, tm)]
+    slots = sum(n << b for b, n in enumerate(counts))
+    keys_out = torch.empty(sum(counts), dtype=torch.int32, device=dev)
+    nbrs_out = torch.empty(slots, dtype=torch.int32, device=dev)
+    valid_out = torch.empty(slots, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        _cuda.check(lib.nb_count_launch(keys.data_ptr(), e, nb, tile_base.data_ptr(), info.data_ptr(),
+                                        offsets.data_ptr(), totals.data_ptr(), stream), "nb_count_launch")
+        _cuda.check(lib.nb_scatter_launch(keys.data_ptr(), order.data_ptr(), e, nb, tile_base.data_ptr(),
+                                          info.data_ptr(), offsets.data_ptr(), ts.data_ptr(), td.data_ptr(),
+                                          keys_out.data_ptr(), nbrs_out.data_ptr(), valid_out.data_ptr(), stream),
+                    "nb_scatter_launch")
+
+    return launch, counts, slots
+
+
+def phase_sage(dev, cycles_per_ms: float) -> dict:
+    """Phase 12: slice(ALL) and GraphSAGEWindows.run at the repo's width over
+    SAGE_PANES count-cut panes of uniform edges and one hub pane; every pane's
+    build_buckets equal to its twin on the card, gather_mean within the
+    tolerance of its twin, one window against a float64 numpy oracle, a
+    2-layer stack against the twins, a fold_neighbors degree count against
+    np.bincount, launches counted on the main path, and the times."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeDirection
+    from gelly_streaming_tpu_torch.library import graphsage as gs
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import sage
+
+    c, f, e = SAGE_VERTICES, SAGE_FEATURES, SAGE_PANE_EDGES
+    n_panes = SAGE_PANES + 1
+    t0 = time.perf_counter()
+    src, dst = sage_stream_arrays()
+    feats = np.random.default_rng(4).standard_normal((c, f), dtype=np.float32)
+    params = gs.init_params(f, f, generator=torch.Generator().manual_seed(0), device=dev)
+    cfg = StreamConfig(vertex_capacity=c, batch_size=e, ingest_window_edges=e)
+    model = gs.GraphSAGEWindows(params, feats, device=dev)
+    log(f"  inputs (untimed, {time.perf_counter() - t0:.2f} s): {n_panes} panes of {e} edges over {c} vertices "
+        f"({SAGE_PANES} uniform, one hub: a star of {SAGE_HUB} beside Zipf edges), features [{c}, {f}] f32, "
+        f"F_in = F_out = {f}")
+
+    def snapshot(s=src, d=dst):
+        return EdgeStream.from_arrays(s, d, cfg, device=dev).slice(WINDOW_MS, EdgeDirection.ALL)
+
+    for _ in model.run(snapshot(src[:e], dst[:e])):  # warm: library loads, allocator, pinned pool
+        pass
+    torch.cuda.synchronize()
+
+    # the main path, counted: GraphSAGEWindows.run over slice(ALL)
+    kept, sizes, window_s = {}, [], []
+    check_s = 0.0
+    nbh.reset_launches()
+    sage.reset_launches()
+    t0 = t_prev = time.perf_counter()
+    for w, (keys, emb) in enumerate(model.run(snapshot())):
+        t_check = time.perf_counter()
+        window_s.append(t_check - t_prev)
+        if emb.shape != (len(keys), f) or not np.isfinite(emb).all():
+            raise RuntimeError(f"window {w}: embeddings of shape {emb.shape} or not finite")
+        sizes.append(len(keys))
+        if w in (0, SAGE_PANES):
+            kept[w] = (keys.copy(), emb.copy())
+        del keys, emb
+        t_prev = time.perf_counter()
+        check_s += t_prev - t_check
+    wall = time.perf_counter() - t0 - check_s
+    launches = {"build_buckets": nbh.LAUNCHES["build_buckets"], "sage_gather_mean": sage.LAUNCHES["sage_gather_mean"]}
+    if len(sizes) != n_panes or launches["build_buckets"] != n_panes or launches["sage_gather_mean"] <= 0:
+        raise RuntimeError(f"{len(sizes)} windows, launches {launches}")
+    for w in range(n_panes):
+        s, d = src[w * e:(w + 1) * e], dst[w * e:(w + 1) * e]
+        if sizes[w] != np.count_nonzero(np.bincount(np.concatenate([s, d]), minlength=c)):
+            raise RuntimeError(f"window {w}: {sizes[w]} keys, not the pane's vertex count")
+    n_emb = sum(sizes)
+    # the same run again, for the spread
+    t0 = t_prev = time.perf_counter()
+    again = []
+    for keys, emb in model.run(snapshot()):
+        t_now = time.perf_counter()
+        again.append(t_now - t_prev)
+        del keys, emb
+        t_prev = time.perf_counter()
+    log(f"  a second run: {sum(again):.3f} s, {n_panes / sum(again):.6g} windows/s; per window "
+        f"{[round(x * 1e3, 1) for x in again]} ms")
+    log(f"  GraphSAGEWindows.run over slice(ALL): {n_panes} windows, {n_emb} embeddings in {wall:.3f} s "
+        f"(the smoke's checks, {check_s:.3f} s more, excluded): {n_panes / wall:.6g} windows/s, "
+        f"{n_panes * e / wall:.6g} edges/s, {n_emb / wall:.6g} embeddings/s; per window "
+        f"{[round(x * 1e3, 1) for x in window_s]} ms; launches {launches}")
+
+    # every pane: build_buckets against its twin on the card; gather_mean on
+    # the first and the hub pane; ids -1, C and C + 5 on the first pane
+    build_err, gather_worst, n_buckets = 0, (0.0, 0.0, 0.0), []
+    table = model._table
+    ones = torch.ones(2 * e, dtype=torch.bool, device=dev)
+    for w in range(n_panes + 1):
+        s, d = src[(w % n_panes) * e:(w % n_panes + 1) * e], dst[(w % n_panes) * e:(w % n_panes + 1) * e]
+        if w == n_panes:
+            s, d = oor_ids(s, c).astype(np.int32), oor_ids(d, c, 1).astype(np.int32)
+        ts, td = to_dev(directed_all(s, d), dev)
+        got = nbh.build_buckets(ts, td, None, ones)
+        build_err = max(build_err, buckets_err(got, nbh.build_buckets_plain(ts, td, None, ones)))
+        n_buckets.append(sum(1 for b in got if b.num_keys))
+        if w in (0, SAGE_PANES, n_panes):
+            gather_worst = tuple(map(max, gather_worst, gather_err(table, got)))
+    if build_err:
+        raise RuntimeError("build_buckets differs from its twin on the card")
+    if launches["sage_gather_mean"] != sum(n_buckets[:n_panes]):
+        raise RuntimeError(f"sage_gather_mean launched {launches['sage_gather_mean']} times for "
+                           f"{sum(n_buckets[:n_panes])} non-empty buckets")
+    log(f"  build_buckets equal to its twin on the card on all {n_panes} panes and with ids -1, C and C + 5 "
+        f"(keys, nbrs, valid, num_keys); gather_mean within {SAGE_TWIN_RTOL} * |ref| + {SAGE_TWIN_ATOL} of its "
+        f"twin on the first, the hub and the out-of-range pane (max |err| {gather_worst[0]:.6g}; in the buckets "
+        f"of rows past {sage._CHUNK} slots, which the finish kernel completes, {gather_worst[1]:.6g} where the "
+        f"largest |mean| is {gather_worst[2]:.6g}; self rows equal); non-empty buckets a pane {n_buckets}")
+
+    # one window against numpy, float64; the hub window's hub row too
+    t_or = time.perf_counter()
+    feats64 = feats.astype(np.float64)
+    oracle = sage_oracle_err(feats64, params, src[:e], dst[:e], *kept[0])
+    hub = sage_oracle_err(feats64, params, src[SAGE_PANES * e:], dst[SAGE_PANES * e:], *kept[SAGE_PANES])
+    del feats64
+    if oracle[1] > 0 or hub[1] > 0:
+        raise RuntimeError(f"embeddings differ from the float64 oracle past {SAGE_TOL} * (1 + |ref|): "
+                           f"{oracle}, {hub}")
+    log(f"  windows 0 and {SAGE_PANES} (hub) against a float64 oracle (numpy, scipy) of the grouping and the layer: "
+        f"{oracle[2]} and {hub[2]} keys, max |emb - ref| {oracle[0]:.6g} and {hub[0]:.6g}, all within "
+        f"{SAGE_TOL} * (1 + |ref|) (the largest |emb - ref| - {SAGE_TOL} * (1 + |ref|): {oracle[1]:.6g} and "
+        f"{hub[1]:.6g}; {time.perf_counter() - t_or:.1f} s)")
+
+    # two stacked layers over two panes, against the twins
+    two = gs.GraphSAGEWindows(
+        [params, gs.init_params(f, f, generator=torch.Generator().manual_seed(1), device=dev)], model._table,
+        device=dev)
+    got = list(two.run(snapshot(src[:2 * e], dst[:2 * e])))
+    with twins_in_place():
+        want = list(two.run(snapshot(src[:2 * e], dst[:2 * e])))
+    stack_err = 0.0
+    for (gk, ge), (wk, we) in zip(got, want):
+        if not np.array_equal(gk, wk) or not np.all(np.abs(ge - we) <= SAGE_TOL * (1 + np.abs(we))):
+            raise RuntimeError("the 2-layer stack differs from its run on the twins")
+        stack_err = max(stack_err, float(np.abs(ge - we).max()))
+    if len(got) != 2:
+        raise RuntimeError(f"the 2-layer stack gave {len(got)} windows")
+    log(f"  2 stacked layers over 2 panes: keys equal to the run on the twins, embeddings within {SAGE_TOL} "
+        f"(max |err| {stack_err:.6g})")
+
+    # a fold over the snapshot: every vertex's degree, against np.bincount
+    t_fold = time.perf_counter()
+    recs = snapshot(src[:e], dst[:e]).fold_neighbors((0, 0), lambda acc, vid, nbr, val: (vid, acc[1] + 1)).collect()
+    fold_s = time.perf_counter() - t_fold
+    deg = np.bincount(np.concatenate([src[:e], dst[:e]]), minlength=c)
+    ids = np.array([r[0] for r in recs])
+    if len(ids) != np.count_nonzero(deg) or not np.array_equal(np.array([r[1] for r in recs]), deg[ids]):
+        raise RuntimeError("fold_neighbors' degree count differs from np.bincount")
+    log(f"  fold_neighbors degree count over one pane: {len(recs)} records equal to np.bincount in {fold_s:.2f} s")
+
+    # times at the main path's shapes: the first pane
+    s_dir, d_dir = directed_all(src[:e], dst[:e])
+    ts, td = to_dev((s_dir, d_dir), dev)
+    launch, counts, slots = build_launcher(ts, td, ones)
+    b_ms, b_us = device_ms(launch, SAGE_REPS, cycles_per_ms)
+    b_events = cuda_ms(launch, SAGE_REPS)
+    keys32 = (ts << 1) | (~ones).to(torch.int32)
+    sort_ms, _ = device_ms(lambda: torch.sort(keys32, stable=True), SAGE_REPS, cycles_per_ms)
+    call_ms = cuda_ms(lambda: nbh.build_buckets(ts, td, None, ones), SAGE_REPS)
+    build_plain_ms = cuda_ms(lambda: nbh.build_buckets_plain(ts, td, None, ones), 3, 1)
+    n = 2 * e
+    build_bound = (9 * n + 4 * sum(counts) + 5 * slots) / HBM_BYTES_PER_S * 1e3
+    log(f"  build_buckets kernels (count + scatter, after the sort), device only: {b_ms:.4f} ms for {n} rows, "
+        f"{sum(counts)} keys, {slots} slots; host enqueue {b_us:.2f} us; back-to-back events {b_events:.4f} ms; "
+        f"bound {build_bound:.5f} ms (bytes)")
+    log(f"  bucket sort (stable torch.sort of {n} int32 keys), device only: {sort_ms:.4f} ms; the whole call "
+        f"(sort, kernels, the counts' copy to the host, allocation): {call_ms:.4f} ms; plain twin "
+        f"{build_plain_ms:.3f} ms")
+
+    hoods = [b for b in nbh.build_buckets(ts, td, None, ones) if b.num_keys]
+
+    def gather_all():
+        return [sage.gather_mean(table, b.keys, b.nbrs, b.valid) for b in hoods]
+
+    g_ms, g_us = device_ms(gather_all, SAGE_REPS, cycles_per_ms)
+    g_events = cuda_ms(gather_all, SAGE_REPS)
+    g_plain_ms = cuda_ms(lambda: [sage.gather_mean_plain(table, b.keys, b.nbrs, b.valid) for b in hoods], 3, 1)
+    valid_n = sum(int(b.valid.sum()) for b in hoods)
+    rows = sum(b.num_keys for b in hoods)
+    gslots = sum(b.nbrs.numel() for b in hoods)
+    # each input once: the ids and flags, each distinct table row that a key
+    # or a valid neighbor names (under slice(ALL) the neighbors are keys too),
+    # and the output
+    distinct = int(torch.unique(torch.cat([b.keys for b in hoods] + [b.nbrs[b.valid] for b in hoods])).numel())
+    g_bytes = 4 * rows + 5 * gslots + 2 * f * distinct + 4 * f * rows
+    g_bound = g_bytes / HBM_BYTES_PER_S * 1e3
+    # the library call that computes the same mean: embedding_bag over the
+    # valid neighbors in CSR form (timed only; on no path)
+    flat = torch.cat([b.nbrs[b.valid] for b in hoods]).long()
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(torch.cat([b.valid.sum(1) for b in hoods]), 0)[:-1]])
+    bag = torch.nn.functional.embedding_bag(flat, table, offs, mode="mean")
+    ours = torch.cat([x[:, f:] for x in gather_all()]).float()
+    bag_err = float((bag.float() - ours).abs().max())
+    lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(flat, table, offs, mode="mean"), SAGE_REPS)
+    def layer():
+        return [gs.sage_kernel(params, table, b.keys, b.nbrs, b.valid) for b in hoods]
+
+    layer_ms, layer_us = device_ms(layer, SAGE_REPS, cycles_per_ms)
+    log(f"  sage_gather_mean over the pane's {len(hoods)} buckets ({rows} rows, {valid_n} neighbor rows), device "
+        f"only: {g_ms:.4f} ms, host enqueue {g_us:.1f} us ({g_us / len(hoods):.2f} us a launch); back-to-back "
+        f"events {g_events:.4f} ms; bound {g_bound:.5f} ms (bytes: {g_bytes}, {distinct} distinct table rows), "
+        f"{g_events / g_bound:.3f}x it; plain twin {g_plain_ms:.3f} ms; "
+        f"embedding_bag(mode='mean') over the valid neighbors in CSR form {lib_ms:.4f} ms (max |diff| to the "
+        f"kernel's means {bag_err:.4g}); the layer (gathers, addmm and relu a bucket) {layer_ms:.4f} ms")
+
+    # where a window's time goes, stage by stage on the host's clock
+    snap = snapshot(src[:e], dst[:e])
+    pane = next(iter(snap._panes()))
+    stages = dict.fromkeys(("host pad", "upload", "build_buckets call", "layer", "readback"), 0.0)
+    reps = 3
+    for _ in range(reps):
+        t = time.perf_counter()
+        sp, dp, _v, mp = snap._padded_pane_edges(pane)
+        t1 = time.perf_counter()
+        up = [torch.from_numpy(a).to(dev) for a in (sp, dp, mp)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        hb = [b for b in nbh.build_buckets(up[0], up[1], None, up[2]) if b.num_keys]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        kd, ed = model._layer_device(params, table, hb)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        kh, eh = gs._to_host(kd, ed)
+        t5 = time.perf_counter()
+        for k, dt_ in zip(stages, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            stages[k] += dt_ / reps
+        del kh, eh
+    read_bytes = ed.numel() * 4 + kd.numel() * 4
+    log("  one window stage by stage (host clock, synchronized): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
+        + f"; readback {read_bytes / stages['readback'] / 1e9:.3f} GB/s ({read_bytes} B of f32 embeddings and keys)")
+    busy_ms = sort_ms + b_ms + layer_ms
+    # a window's wall: the counted run's mean, and the second run's (its
+    # pinned readback buffers already cached)
+    per_window = wall / n_panes * 1e3
+    warm_window = sum(again) / n_panes * 1e3
+    log(f"  device compute per window ~{busy_ms:.3f} ms (sort + build kernels + layer, held-stream times): "
+        f"{busy_ms / per_window * 100:.2f}% of the counted run's {per_window:.2f} ms a window, "
+        f"{busy_ms / warm_window * 100:.2f}% of the second run's {warm_window:.2f} ms")
+    try:
+        # the device's own rows: kernels and copies (aten:: rows repeat their time)
+        rows_p = {k: v for k, v in profiler_device_us(lambda: [None for _ in model.run(snap)], 1).items()
+                  if not k.startswith(("aten::", "Activity Buffer"))}
+        total_us = sum(us * calls for us, calls in rows_p.values())
+        copy_us = sum(us * calls for k, (us, calls) in rows_p.items() if k.startswith("Memcpy"))
+        log(f"  torch.profiler, one window: device busy {total_us / 1e3:.3f} ms, of which copies "
+            f"{copy_us / 1e3:.3f} ms: {total_us / 1e3 / per_window * 100:.2f}% of the counted run's window, "
+            f"{total_us / 1e3 / warm_window * 100:.2f}% of the second run's (idle "
+            f"{100 - total_us / 1e3 / warm_window * 100:.2f}%)")
+        top = sorted(rows_p.items(), key=lambda r: -r[1][0] * r[1][1])[:8]
+        names = [(re.search(r"(\w+)\(", k) or re.search(r"(.{0,40})", k)).group(1) for k, _ in top]
+        log("  torch.profiler, top rows: " + "; ".join(
+            f"{name} {us * calls:.1f} us" for name, (_, (us, calls)) in zip(names, top)))
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    return {
+        "build": {"launches": launches["build_buckets"], "err": build_err, "ms": b_events, "device_ms": b_ms,
+                  "host_us": b_us, "plain_ms": build_plain_ms, "bound_ms": build_bound, "call_ms": call_ms,
+                  "sort_ms": sort_ms},
+        "gather": {"launches": launches["sage_gather_mean"], "err": gather_worst[0],
+                   "chunked_err": gather_worst[1], "stack_err": stack_err, "ms": g_events,
+                   "device_ms": g_ms, "host_us": g_us, "plain_ms": g_plain_ms, "bound_ms": g_bound,
+                   "library_ms": lib_ms, "oracle_err": max(oracle[0], hub[0])},
+        "windows_per_s": n_panes / wall, "edges_per_s": n_panes * e / wall, "embeddings_per_s": n_emb / wall,
+    }
+
+
 def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, props: dict, cc: dict,
                 bp: dict) -> dict:
     """Phase 11: the redesigned degree_trace and union calls in turns with
@@ -1969,6 +2414,8 @@ def main(argv=None) -> int:
     dd = phase_degree_dist(dev, cpm, data)
     log("phase 10: bipartiteness over the EF40 replay, and the windowed path")
     bp = phase_bipartite(dev, cpm, data)
+    log("phase 12: slice() and windowed GraphSAGE at F = 128 on the card")
+    sg = phase_sage(dev, cpm)
     turned = {}
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
@@ -2061,6 +2508,15 @@ def main(argv=None) -> int:
         {**entry("parity_union_kernel", "unionfind.cu", "gelly_streaming_tpu/ops/unionfind.py:145", bp),
          "first_call_ms": bp["first_ms"], "late_call_ms": bp["late_ms"], "rounds": bp["rounds"],
          **{f"turns_{b}": turned[f"parity_{b}"] for b in ("first", "late") if f"parity_{b}" in turned}},
+    ]
+    kernels += [
+        {**entry("build_buckets", "neighborhoods.cu", "gelly_streaming_tpu/ops/neighborhoods.py:55", sg["build"]),
+         "call_ms": sg["build"]["call_ms"], "sort_ms": sg["build"]["sort_ms"]},
+        {**entry("sage_gather_mean", "sage.cu", "gelly_streaming_tpu/library/graphsage.py:53", sg["gather"],
+                 sg["gather"]["library_ms"]),
+         **{k: sg["gather"][k] for k in ("chunked_err", "stack_err", "oracle_err")},
+         "windows_per_s": sg["windows_per_s"],
+         "edges_per_s": sg["edges_per_s"], "embeddings_per_s": sg["embeddings_per_s"]},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

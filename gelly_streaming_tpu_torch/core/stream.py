@@ -1,7 +1,7 @@
 """EdgeStream: the graph-stream API (reference: GraphStream.java + SimpleEdgeStream.java).
 
 Port of ``gelly_streaming_tpu/core/stream.py``'s ``EdgeStream`` without the
-keyed aggregates, ``slice`` and the superbatch planes.  A stream is a lazy
+keyed aggregates and the superbatch planes.  A stream is a lazy
 pipeline of stages over padded COO micro-batches; each stage is a
 ``(state, batch) -> (state, batch)`` function run eagerly on the stream's
 torch device (the JAX package composes and jits them; there is no jit
@@ -19,6 +19,7 @@ API parity map (reference file:line):
   get_degrees/in/out   SimpleEdgeStream.java:413-478 (running degree trace)
   number_of_vertices   SimpleEdgeStream.java:366-383 (running distinct count)
   number_of_edges      SimpleEdgeStream.java:388-404 (running edge count)
+  slice                SimpleEdgeStream.java:135-167 -> core/snapshot.py
   aggregate            SimpleEdgeStream.java:100-102 -> core/aggregation.py
 
 The property streams run their kernel after the stages on the device and
@@ -724,6 +725,23 @@ class EdgeStream:
                 yield from batch.to_tuples()
 
         return OutputStream(records)
+
+    # ---- windows -------------------------------------------------------------
+
+    def slice(
+        self,
+        window_ms: Optional[int] = None,
+        direction: EdgeDirection = EdgeDirection.OUT,
+        slide_ms: Optional[int] = None,
+    ):
+        """Windowed snapshot stream (SimpleEdgeStream.java:135-167).
+
+        Tumbling by default; pass ``slide_ms`` (must divide ``window_ms``)
+        for sliding windows of size ``window_ms`` emitted every ``slide_ms``,
+        by pane-sharing (core/windows.sliding_panes)."""
+        from gelly_streaming_tpu_torch.core.snapshot import SnapshotStream
+
+        return SnapshotStream(self, window_ms or self.cfg.window_ms, direction, slide_ms)
 
     def aggregate(self, summary_aggregation, checkpoint_path: Optional[str] = None):
         """Run a summary aggregation over this stream

@@ -4,7 +4,8 @@ Nothing here imports the JAX package: a caller that has one exports its
 state (``dataclasses.asdict`` of a ``StreamConfig``, ``np.asarray`` of a
 ``NeighborTable``'s or a ``CCState``'s fields) and hands the plain values
 over (``DegreeDistState``, ``DegreeSummaryState`` and ``BPState`` likewise,
-so that both packages can start from the same mid-stream state).  Packed
+so that both packages can start from the same mid-stream state; the
+GraphSAGE weights through ``sage_params_from_numpy``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.
 """
@@ -22,6 +23,7 @@ from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.library.bipartiteness import BPState
 from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
+from gelly_streaming_tpu_torch.library.graphsage import SageParams
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
 from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
@@ -109,3 +111,18 @@ def bp_state_from_numpy(parent2, seen, device: DeviceLike = None) -> BPState:
         raise ValueError("parent2 entries must be node ids in [0, 2C)")
     dev = resolve_device(device)
     return BPState(parent2=torch.from_numpy(parent2.copy()).to(dev), seen=torch.from_numpy(seen.copy()).to(dev))
+
+
+def sage_params_from_numpy(w_self, w_nbr, bias, device: DeviceLike = None) -> SageParams:
+    """``SageParams`` on ``device`` from host arrays, e.g. ``np.asarray`` of
+    the JAX package's bf16 parameters (``ml_dtypes.bfloat16``): ``w_self``
+    and ``w_nbr`` [F_in, F_out], ``bias`` [F_out].  They pass through
+    float32, which holds every bf16 value exactly."""
+    w_self, w_nbr, bias = (np.asarray(a, np.float32) for a in (w_self, w_nbr, bias))
+    if w_self.ndim != 2 or w_nbr.shape != w_self.shape or bias.shape != (w_self.shape[1],):
+        raise ValueError(
+            f"expected w_self and w_nbr [F_in, F_out] and bias [F_out], got {w_self.shape}, "
+            f"{w_nbr.shape} and {bias.shape}"
+        )
+    dev = resolve_device(device)
+    return SageParams(*(torch.from_numpy(a.copy()).to(device=dev, dtype=torch.bfloat16) for a in (w_self, w_nbr, bias)))

@@ -88,6 +88,22 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # n: the scratch bytes both stages need for n events
         "degree_dist_scratch_bytes": [_I],
     },
+    "neighborhoods.cu": {
+        # sorted keys, n, buckets, tile table, info, offsets, totals, stream:
+        # the count pass, then the scan across tiles
+        "nb_count_launch": [_P, _I, _I, _P, _P, _P, _P, _P],
+        # sorted keys, order (int64), n, buckets, tile table, info, offsets,
+        # src, dst, keys out, nbrs out, valid out, stream
+        "nb_scatter_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # sorted keys, order, n, buckets, tile table, info, offsets, leaf,
+        # leaf out, bytes a row, stream
+        "nb_scatter_values_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "sage.cu": {
+        # table, C, F, keys, nbrs, valid, K, D, chunk, chunks, vec, out,
+        # partial sums | None, partial counts | None, stream
+        "sage_gather_mean_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    },
 }
 
 # entry points that return something other than a cudaError_t

@@ -559,3 +559,130 @@ def test_union_compresses_a_state_written_since(cuda_device, parity):
     fold(a, seen, s, d)
     assert uf.LAUNCHES["compress_kernel"] == before + 1
     assert torch.equal(a, want[0]) and torch.equal(seen, want[1])
+
+
+# ---------------------------------------------------------------------------
+# the neighborhood build and the GraphSAGE gather-mean, on the card
+
+BUCKET_CASES = ["uniform", "hub", "masked", "ragged", "one-row", "out-of-range", "values"]
+
+
+def _bucket_case(rng, case):
+    """(src, dst, mask, value tree | None) of each build_buckets case."""
+    if case == "hub":  # a star of 2^17 beside Zipf edges: the deepest buckets
+        n = 1 << 18
+        p = 1.0 / np.arange(1, 4097) ** 1.2
+        src = np.concatenate([np.zeros(1 << 17, np.int64), rng.choice(4096, n - (1 << 17), p=p / p.sum())])
+        dst = np.concatenate([np.arange(1, (1 << 17) + 1), rng.integers(0, 1 << 17, n - (1 << 17))])
+        perm = rng.permutation(n)
+        return src[perm], dst[perm], np.ones(n, bool), None
+    if case == "masked":
+        n = 1 << 14
+        return rng.integers(0, 300, n), rng.integers(0, 300, n), rng.random(n) < 0.3, None
+    if case == "ragged":  # E not a power of two: a key of degree E has no bucket
+        n = 3 * 1024 + 5
+        return np.where(rng.random(n) < 0.7, 7, rng.integers(0, 50, n)), rng.integers(0, 50, n), np.ones(n, bool), None
+    if case == "one-row":
+        return np.array([3]), np.array([9]), np.array([True]), None
+    if case == "out-of-range":
+        c, n = 16, 1 << 12
+        ids = np.array([-1, c, c + 5, -c - 2, c - 1, 0, 3])
+        return rng.choice(ids, n), rng.choice(ids, n), rng.random(n) < 0.8, None
+    n = 1 << 16
+    src, dst = rng.integers(0, 1 << 12, n), rng.integers(0, 1 << 12, n)
+    if case == "values":
+        vals = (rng.random(n).astype(np.float32), rng.integers(-9, 9, (n, 3)).astype(np.int32),
+                rng.random(n) < 0.5)
+        return src, dst, rng.random(n) < 0.9, vals
+    return src, dst, np.ones(n, bool), None
+
+
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_build_buckets_kernel_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.core.types import tree_leaves, tree_map
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+
+    rng = np.random.default_rng(BUCKET_CASES.index(case))
+    src, dst, mask, vals = _bucket_case(rng, case)
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (src, dst)]
+    tvals = tree_map(lambda a: torch.from_numpy(a).to(cuda_device), vals)
+    tmask = torch.from_numpy(np.ascontiguousarray(mask)).to(cuda_device)
+    want = nbh.build_buckets_plain(*args, tvals, tmask)
+    before = nbh.LAUNCHES["build_buckets"]
+    got = nbh.build_buckets(*args, tvals, tmask)
+    torch.cuda.synchronize()
+    assert nbh.LAUNCHES["build_buckets"] == before + 1
+    assert len(got) == len(want) == len(nbh.bucket_shapes(len(src)))
+    for g, w in zip(got, want):
+        assert g.num_keys == w.num_keys
+        for a, b in zip((g.keys, g.nbrs, g.valid, *tree_leaves(g.vals)), (w.keys, w.nbrs, w.valid, *tree_leaves(w.vals))):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+SAGE_CASES = [  # (name, C, F, K, D)
+    ("f128-d1", 4096, 128, 3000, 1),
+    ("f128-d8", 4096, 128, 2000, 8),
+    ("f128-d256", 4096, 128, 64, 256),
+    ("f128-d1024", 4096, 128, 9, 1024),
+    ("f128-hub", 1 << 16, 128, 1, 1 << 17),
+    ("f8-d16", 512, 8, 700, 16),
+    ("f12-d4", 512, 12, 700, 4),
+    ("f40-d600", 512, 40, 5, 600),
+]
+
+
+@pytest.mark.parametrize("case", SAGE_CASES, ids=[c[0] for c in SAGE_CASES])
+def test_sage_gather_mean_kernel_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import sage
+
+    _name, c, f, k, d = case
+    rng = np.random.default_rng(f * d + k)
+    table = torch.from_numpy(rng.normal(size=(c, f)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    keys = torch.from_numpy(rng.integers(-c - 3, c + 3, k).astype(np.int32)).to(cuda_device)
+    nbrs = torch.from_numpy(rng.integers(-c - 3, c + 3, (k, d)).astype(np.int32)).to(cuda_device)
+    valid = rng.random((k, d)) < 0.7
+    valid[0] = False  # a row with no valid neighbor
+    valid = torch.from_numpy(valid).to(cuda_device)
+    want = sage.gather_mean_plain(table, keys, nbrs, valid)
+    before = sage.LAUNCHES["sage_gather_mean"]
+    got = sage.gather_mean(table, keys, nbrs, valid)
+    torch.cuda.synchronize()
+    assert sage.LAUNCHES["sage_gather_mean"] == before + 1
+    assert torch.equal(got[:, :f], want[:, :f])  # the self rows are copies
+    # both sum in f32 and round once to bf16: they differ by the sums' order
+    # and at most one bf16 step (2^-7 of the value) where it flips a rounding
+    torch.testing.assert_close(got[:, f:].float(), want[:, f:].float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+def test_slice_and_graphsage_on_gpu_match_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeDirection
+    from gelly_streaming_tpu_torch.library import graphsage as gs
+
+    rng = np.random.default_rng(11)
+    c, n = 256, 3000
+    edges = [(int(a), int(b), float(x)) for a, b, x in
+             zip(rng.integers(0, c, n), rng.integers(0, c, n), rng.integers(0, 100, n))]
+    cfg = StreamConfig(vertex_capacity=c, batch_size=512, ingest_window_edges=1024)
+    feats = rng.normal(size=(c, 16)).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    layers = [gs.init_params(16, 16, generator=gen, device="cpu") for _ in range(2)]
+
+    def run(dev):
+        stream = EdgeStream.from_collection(edges, cfg, batch_size=512, device=dev)
+        snap = stream.slice(1000, EdgeDirection.ALL)
+        fold = snap.fold_neighbors((0, 0.0), lambda acc, vid, nbr, val: (vid, acc[1] + val)).collect()
+        red = snap.reduce_on_edges(lambda a, b: torch.maximum(a, b)).collect()
+        app = snap.apply_on_neighbors(lambda vid, nb, vals, ok: (vid, ok.sum())).collect()
+        one = list(gs.GraphSAGEWindows(layers[0], feats, device=dev).run(snap))
+        two = list(gs.GraphSAGEWindows(layers, feats, device=dev).run(snap))
+        return fold, red, app, one, two
+
+    cpu, gpu = run("cpu"), run(cuda_device)
+    assert cpu[:3] == gpu[:3]
+    for wins_c, wins_g in zip(cpu[3:], gpu[3:]):
+        assert len(wins_c) == len(wins_g) == 3
+        for (kc, ec), (kg, eg) in zip(wins_c, wins_g):
+            np.testing.assert_array_equal(kc, kg)
+            np.testing.assert_allclose(eg, ec, rtol=2e-2, atol=2e-2)
