@@ -2,6 +2,7 @@
 """GPU smoke test of the PyTorch port (gelly_streaming_tpu_torch).
 
     python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
+                          [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -90,15 +91,25 @@ panes of 2^21 uniform edges over 2^20 vertices and one hub pane (a star of
 EdgeDirection.ALL)`` into ``GraphSAGEWindows(params, features).run``.
 Windows/s, edges/s and embeddings/s end to end; every pane's
 ``build_buckets`` (``csrc/neighborhoods.cu``) equal to its twin on the card
-exactly, also with ids -1, C and C + 5; ``sage_gather_mean``
-(``csrc/sage.cu``) within 2^-7 * |ref| + 1e-6 of its twin (one bf16 step),
-the buckets of rows that span several chunks reported on their own; windows 0 and 8
-against a float64 oracle (numpy, scipy) of the grouping and the layer at
-the same bound; a 2-layer stack over 2 panes against its run on the twins;
-a ``fold_neighbors`` degree count against ``np.bincount``; both kernels
-launched on the main path.  It times the kernels on a held stream, the
-bucket sort, the whole build call, ``embedding_bag(mode="mean")`` over the
-same neighbors (the library yardstick, on no path), a window stage by
+exactly, also with ids -1, C and C + 5, and its radix sort's order equal to
+``torch.sort(stable=True)``'s; ``sage_layer`` (``csrc/sage.cu``, the fused
+layer) within 2^-7 * |ref| + 2^-9 of its twin (one bf16 step of the output,
+plus a one-step change of a mean carried through W ~ N(0, 1/128)), the
+buckets of rows that go through the partial-sum kernel reported on their
+own; windows 0 and 8 against a float64 oracle (numpy, scipy) of the
+grouping and the layer at 2e-2 * (1 + |ref|); a 2-layer stack over 2 panes
+against its run on the twins; a ``fold_neighbors`` degree count against
+``np.bincount``; both kernels launched on the main path.  On the first
+(uniform) and the hub pane it times, on a held stream, the build (radix
+sort, count and scatter calls), the radix sort alone,
+``torch.sort(stable=True)`` of the same keys (the build's library
+yardstick, on no path), the whole call, the layer over the pane's buckets
+and ``embedding_bag(mode="mean")`` + ``addmm`` (the layer's yardstick);
+with ``--parent-sage-cu`` / ``--parent-neighborhoods-cu`` (those sources
+as they were before the fused layer and the radix sort, with that C
+interface) the parent's layer (its gather, then ``addmm`` and ReLU) and
+build (``torch.sort``, then its count and scatter) in turns with the
+current ones (parent, current, current, parent).  Then a window stage by
 stage (host pad, upload, build, layer, readback) and the device's busy
 share by torch.profiler.
 
@@ -124,6 +135,7 @@ import numpy as np
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12  # dense, the tensor cores
 
 WINDOW_MS = 1000
 PANE_EDGES = 1 << 17
@@ -159,11 +171,23 @@ SAGE_PANE_EDGES = 1 << 21
 SAGE_PANES = 8  # uniform panes, then one hub pane
 SAGE_HUB = 1 << 17  # the hub pane's star
 SAGE_TOL = 2e-2  # embeddings: the JAX package's bound between its GraphSAGE planes
-# gather_mean against its twin: both sum in f32 and round once to bf16, so
-# they differ by the f32 sums' order and at most one bf16 step (2^-7 of the
-# value) where that order flips a rounding
-SAGE_TWIN_RTOL, SAGE_TWIN_ATOL = 2.0 ** -7, 1e-6
+# sage_layer against its twin: both round the mean once to bf16 (at most one
+# bf16 step apart where the f32 sums' order flips a rounding; a one-step
+# change of a mean carried through W ~ N(0, 1/128) stays below 2^-9) and the
+# output once (one bf16 step, 2^-7 of the value, where the products' order
+# flips it)
+SAGE_TWIN_RTOL, SAGE_TWIN_ATOL = 2.0 ** -7, 2.0 ** -9
+# the mean alone against the twin's (W = [0; I], no bias, a table of values
+# >= 1): one bf16 step of the mean, which a dropped or doubled chunk of a hub
+# row's sum would pass by far (the layer check above cannot see the mean at
+# a hub row: there it moves the output by about its own tolerance)
+SAGE_MEAN_RTOL, SAGE_MEAN_ATOL = 2.0 ** -7, 1e-6
 SAGE_REPS = 20
+# the layer alone at other widths (F_in, F_out) over the uniform pane's
+# buckets: wgmma with W's columns padded to 64, several n-tiles, K chunks;
+# the CUDA cores at the 602 features of the GraphSAGE paper's Reddit graph
+SAGE_WIDTHS = ((256, 256), (640, 128), (64, 40), (602, 41))
+SAGE_HUB_REPS = 10  # the hub pane's 21 buckets: keep the held stream under ~1000 launches
 
 
 def log(msg: str) -> None:
@@ -577,6 +601,12 @@ PARENT_SIGNATURES = {
     # parent, seen, src, dst, mask, n, capacity, scratch uint8[24 + items], stream
     "unionfind": {"uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
                   "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P]},
+    # (8ebc8a0) sorted keys, n, buckets, tile table, info, offsets, totals, stream; sorted keys, order
+    # (int64), n, buckets, tile table, info, offsets, src, dst, keys out, nbrs out, valid out, stream
+    "neighborhoods": {"nb_count_launch": [_P, _I, _I, _P, _P, _P, _P, _P],
+                      "nb_scatter_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]},
+    # (8ebc8a0) table, C, F, keys, nbrs, valid, K, D, chunk, chunks, vec, out, partial sums, counts, stream
+    "sage": {"sage_gather_mean_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]},
 }
 
 # The parent's degree_trace_kernel with one part taken out: (old text, new
@@ -1694,21 +1724,25 @@ def sage_stream_arrays(seed: int = 3):
 
 
 class twins_in_place:
-    """Within the block, the port's build_buckets and gather_mean are their
+    """Within the block, the port's build_buckets and sage_layer are their
     plain twins (the library and the snapshot look them up at each call)."""
 
     def __enter__(self):
         from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
         from gelly_streaming_tpu_torch.ops import sage
 
-        self.saved = (nbh.build_buckets, sage.gather_mean)
-        nbh.build_buckets, sage.gather_mean = nbh.build_buckets_plain, sage.gather_mean_plain
+        def layer_plain(table, keys, nbrs, valid, w, bias, out=None, row0=0):
+            got = sage.sage_layer_plain(table, keys, nbrs, valid, w, bias)
+            return got if out is None else out[row0:row0 + keys.shape[0]].copy_(got)
+
+        self.saved = (nbh.build_buckets, sage.sage_layer)
+        nbh.build_buckets, sage.sage_layer = nbh.build_buckets_plain, layer_plain
 
     def __exit__(self, *exc):
         from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
         from gelly_streaming_tpu_torch.ops import sage
 
-        nbh.build_buckets, sage.gather_mean = self.saved
+        nbh.build_buckets, sage.sage_layer = self.saved
 
 
 def directed_all(s, d):
@@ -1732,35 +1766,50 @@ def buckets_err(got, want) -> int:
     return 0
 
 
-def gather_err(table, buckets) -> tuple:
-    """(max |kernel - twin|, the same over the buckets whose rows span
-    several 256-slot chunks and so go through the finish kernel, the
-    largest |mean| there) of gather_mean over a pane's buckets, each mean
-    within SAGE_TWIN_RTOL * |twin| + SAGE_TWIN_ATOL (the self halves must
-    be equal exactly)."""
+def mean_view(table):
+    """(table, w, bias) under which sage_layer writes bf16(mean): |table| + 1
+    (ReLU keeps every mean), W = [0; I] and no bias."""
+    import torch
+
+    f = table.shape[1]
+    eye = torch.cat([torch.zeros(f, f), torch.eye(f)]).to(table.device, torch.bfloat16)
+    return (table.float().abs() + 1).to(torch.bfloat16), eye, torch.zeros(f, dtype=torch.bfloat16, device=table.device)
+
+
+def layer_err(table, buckets, w, bias, mean_args) -> tuple:
+    """(max |kernel - twin|, the same over the buckets whose rows of more
+    than 32 slots go through the partial-sum kernel, the largest |ref|
+    there, the mean's max |kernel - twin| relative to |twin|) of sage_layer
+    over a pane's buckets, each output within SAGE_TWIN_RTOL * |twin| +
+    SAGE_TWIN_ATOL; under ``mean_args`` (mean_view) each mean within
+    SAGE_MEAN_RTOL * |twin| + SAGE_MEAN_ATOL."""
     import torch
 
     from gelly_streaming_tpu_torch.ops import sage
 
-    f = table.shape[1]
-    worst = worst_chunked = mag_chunked = 0.0
+    worst = worst_chunked = mag_chunked = mean_rel = 0.0
     for b in buckets:
         if not b.num_keys:
             continue
-        got = sage.gather_mean(table, b.keys, b.nbrs, b.valid)
-        want = sage.gather_mean_plain(table, b.keys, b.nbrs, b.valid)
-        if not torch.equal(got[:, :f], want[:, :f]):
-            raise RuntimeError(f"gather_mean's self rows differ from the twin's (D={b.nbrs.shape[1]})")
-        ref = want[:, f:].float()
-        diff = (got[:, f:].float() - ref).abs()
+        d = b.nbrs.shape[1]
+        got = sage.sage_layer(table, b.keys, b.nbrs, b.valid, w, bias).float()
+        ref = sage.sage_layer_plain(table, b.keys, b.nbrs, b.valid, w, bias).float()
+        diff = (got - ref).abs()
         if bool((diff > SAGE_TWIN_RTOL * ref.abs() + SAGE_TWIN_ATOL).any()):
-            raise RuntimeError(f"gather_mean differs from its twin past {SAGE_TWIN_RTOL} * |ref| + "
-                               f"{SAGE_TWIN_ATOL} (D={b.nbrs.shape[1]}, max |err| {float(diff.max()):.6g})")
+            raise RuntimeError(f"sage_layer differs from its twin past {SAGE_TWIN_RTOL} * |ref| + "
+                               f"{SAGE_TWIN_ATOL} (D={d}, max |err| {float(diff.max()):.6g})")
         worst = max(worst, float(diff.max()))
-        if b.nbrs.shape[1] > sage._CHUNK:
+        if d > sage._DIRECT:
             worst_chunked = max(worst_chunked, float(diff.max()))
             mag_chunked = max(mag_chunked, float(ref.abs().max()))
-    return worst, worst_chunked, mag_chunked
+        got = sage.sage_layer(mean_args[0], b.keys, b.nbrs, b.valid, *mean_args[1:]).float()
+        ref = sage.sage_layer_plain(mean_args[0], b.keys, b.nbrs, b.valid, *mean_args[1:]).float()
+        diff = (got - ref).abs()
+        if bool((diff > SAGE_MEAN_RTOL * ref.abs() + SAGE_MEAN_ATOL).any()):
+            raise RuntimeError(f"sage_layer's mean differs from its twin's past {SAGE_MEAN_RTOL} * |ref| + "
+                               f"{SAGE_MEAN_ATOL} (D={d}, max |err| {float(diff.max()):.6g})")
+        mean_rel = max(mean_rel, float((diff / ref.abs().clamp(min=1)).max()))
+    return worst, worst_chunked, mag_chunked, mean_rel
 
 
 def sage_oracle_err(feats64, params, s, d, keys, emb) -> tuple:
@@ -1786,9 +1835,9 @@ def sage_oracle_err(feats64, params, s, d, keys, emb) -> tuple:
 
 
 def build_launcher(ts, td, tm):
-    """A callable making the two C calls of build_buckets (count, then
-    scatter) over pre-sorted keys into pre-allocated outputs: the kernels
-    alone, without the sort and the host's read of the counts."""
+    """(launch, sort): callables making build_buckets' C calls over one pane
+    into pre-allocated outputs, without the host's read of the counts:
+    the sort, count and scatter calls, and the sort alone."""
     import torch
 
     from gelly_streaming_tpu_torch.ops import _cuda
@@ -1798,8 +1847,42 @@ def build_launcher(ts, td, tm):
     e = ts.shape[0]
     nb = len(nbh.bucket_shapes(e))
     dev = ts.device
-    keys, order = torch.sort((ts << 1) | (~tm).to(torch.int32), stable=True)
-    tiles = (e + nbh._TILE - 1) // nbh._TILE
+    scratch = torch.empty(lib.nb_scratch_bytes(e, 0), dtype=torch.uint8, device=dev)
+    totals = torch.empty(nb, dtype=torch.int32, device=dev)
+    counts = [b.num_keys for b in nbh.build_buckets(ts, td, None, tm)]
+    slots = sum(n << b for b, n in enumerate(counts))
+    keys_out = torch.empty(sum(counts), dtype=torch.int32, device=dev)
+    nbrs_out = torch.empty(slots, dtype=torch.int32, device=dev)
+    valid_out = torch.empty(slots, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sp = (scratch.data_ptr(), scratch.numel())
+
+    def sort():
+        _cuda.check(lib.nb_sort_launch(ts.data_ptr(), td.data_ptr(), tm.data_ptr(), e, 0, *sp, stream),
+                    "nb_sort_launch")
+
+    def launch():
+        sort()
+        _cuda.check(lib.nb_count_launch(e, nb, 0, *sp, totals.data_ptr(), stream), "nb_count_launch")
+        _cuda.check(lib.nb_scatter_launch(e, nb, 0, *sp, keys_out.data_ptr(), nbrs_out.data_ptr(),
+                                          valid_out.data_ptr(), stream), "nb_scatter_launch")
+
+    return launch, sort
+
+
+def parent_build_launcher(lib, ts, td, tm):
+    """The parent's build over one pane into pre-allocated outputs: the
+    stable torch.sort of the grouping keys, then its count and scatter
+    calls (its C interface)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+
+    e = ts.shape[0]
+    nb = len(nbh.bucket_shapes(e))
+    dev = ts.device
+    tiles = (e + 1023) // 1024
     tile_base = torch.empty(nb * tiles, dtype=torch.int32, device=dev)
     info = torch.empty(2 * e, dtype=torch.int32, device=dev)
     offsets = torch.empty(2 * nb, dtype=torch.int64, device=dev)
@@ -1810,25 +1893,222 @@ def build_launcher(ts, td, tm):
     nbrs_out = torch.empty(slots, dtype=torch.int32, device=dev)
     valid_out = torch.empty(slots, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    gk = (ts << 1) | (~tm).to(torch.int32)
 
     def launch():
+        keys, order = torch.sort(gk, stable=True)
         _cuda.check(lib.nb_count_launch(keys.data_ptr(), e, nb, tile_base.data_ptr(), info.data_ptr(),
-                                        offsets.data_ptr(), totals.data_ptr(), stream), "nb_count_launch")
+                                        offsets.data_ptr(), totals.data_ptr(), stream), "parent nb_count_launch")
         _cuda.check(lib.nb_scatter_launch(keys.data_ptr(), order.data_ptr(), e, nb, tile_base.data_ptr(),
                                           info.data_ptr(), offsets.data_ptr(), ts.data_ptr(), td.data_ptr(),
                                           keys_out.data_ptr(), nbrs_out.data_ptr(), valid_out.data_ptr(), stream),
-                    "nb_scatter_launch")
+                    "parent nb_scatter_launch")
+        return keys_out, nbrs_out, valid_out
 
-    return launch, counts, slots
+    return launch
 
 
-def phase_sage(dev, cycles_per_ms: float) -> dict:
+def parent_layer(lib, table, hoods, w, bias):
+    """The parent's layer over a pane's buckets: its gather-mean kernel (and
+    finish kernel for rows past 256 slots), then torch.addmm with the
+    stacked weights and ReLU, a bucket at a time."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    c, f = table.shape
+    dev = table.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plans = []
+    for b in hoods:
+        k, d = b.nbrs.shape
+        nch = max(1, -(-d // 256))
+        part = torch.empty((k * nch, f), dtype=torch.float32, device=dev) if nch > 1 else None
+        cnt = torch.empty((k * nch,), dtype=torch.int32, device=dev) if nch > 1 else None
+        plans.append((b, k, d, nch, part, cnt))
+
+    def run():
+        outs = []
+        for b, k, d, nch, part, cnt in plans:
+            xm = torch.empty((k, 2 * f), dtype=torch.bfloat16, device=dev)
+            _cuda.check(lib.sage_gather_mean_launch(
+                table.data_ptr(), c, f, b.keys.data_ptr(), b.nbrs.data_ptr(), b.valid.data_ptr(), k, d, 256, nch, 1,
+                xm.data_ptr(), None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+                stream), "parent sage_gather_mean_launch")
+            outs.append(torch.relu_(torch.addmm(bias, xm, w)))
+        return outs
+
+    return run
+
+
+def in_turns(label: str, old_fn, new_fn, reps: int, cycles_per_ms: float) -> dict:
+    """Device-only ms of the parent's and the current build in turns
+    (parent, current, current, parent) on the held stream."""
+    got = [(tag, device_ms(fn, reps, cycles_per_ms)[0])
+           for tag, fn in (("parent", old_fn), ("current", new_fn), ("current", new_fn), ("parent", old_fn))]
+    old, new = (got[0][1] + got[3][1]) / 2, (got[1][1] + got[2][1]) / 2
+    log(f"  {label}: " + "; ".join(f"{tag} {ms:.4f} ms" for tag, ms in got)
+        + f"; mean parent {old:.4f} ms, current {new:.4f} ms, {old / new:.2f}x")
+    return {"parent_ms": old, "current_ms": new, "turns": [ms for _, ms in got]}
+
+
+def sage_pane_times(dev, cycles_per_ms: float, label: str, s, d, table, w, bias, parents: dict, reps: int) -> dict:
+    """build_buckets and the layer at one pane's shapes, device only on the
+    held stream: the build's sort, count and scatter calls, the radix sort
+    alone, torch.sort(stable=True) of the same keys (the build's library
+    yardstick), the whole call; sage_layer over the pane's buckets into one
+    buffer, its bound, embedding_bag + addmm (the layer's yardstick); the
+    parent's builds in turns where given."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import sage
+
+    f_in, f_out = table.shape[1], w.shape[1]
+    ts, td = to_dev(directed_all(s, d), dev)
+    ones = torch.ones(ts.shape[0], dtype=torch.bool, device=dev)
+    n = ts.shape[0]
+    launch, sort = build_launcher(ts, td, ones)
+    b_ms, b_us = device_ms(launch, reps, cycles_per_ms)
+    b_events = cuda_ms(launch, reps)
+    rs_ms, _ = device_ms(sort, reps, cycles_per_ms)
+    keys32 = (ts << 1) | (~ones).to(torch.int32)
+    tsort_ms, _ = device_ms(lambda: torch.sort(keys32, stable=True), reps, cycles_per_ms)
+    call_ms = cuda_ms(lambda: nbh.build_buckets(ts, td, None, ones), reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        nbh.build_buckets(ts, td, None, ones)
+    call_host_ms = (time.perf_counter() - t0) / reps * 1e3
+    build_plain_ms = cuda_ms(lambda: nbh.build_buckets_plain(ts, td, None, ones), 2, 1)
+    buckets = nbh.build_buckets(ts, td, None, ones)
+    counts = [b.num_keys for b in buckets]
+    slots = sum(b.nbrs.numel() for b in buckets)
+    build_bound = (9 * n + 4 * sum(counts) + 5 * slots) / HBM_BYTES_PER_S * 1e3
+    lohi = (int(ts.min()), int(ts.max()))
+    log(f"  {label} pane, build_buckets (radix sort, count, scatter), device only: {b_ms:.4f} ms for {n} rows, "
+        f"{sum(counts)} keys, {slots} slots ({len(nbh.radix_plan(*lohi))} digit passes for sources in {lohi}); "
+        f"{b_ms / build_bound:.2f}x the bound {build_bound:.5f} ms (bytes); host enqueue {b_us:.2f} us; "
+        f"back-to-back events {b_events:.4f} ms; the radix sort alone {rs_ms:.4f} ms; torch.sort(stable=True) "
+        f"of the int32 grouping keys alone {tsort_ms:.4f} ms; the whole call (with the counts' copy to the host "
+        f"and the allocations) {call_ms:.4f} ms by events, {call_host_ms:.4f} ms on the host's clock, of which "
+        f"not device work {call_ms - b_ms:.4f} ms; plain twin {build_plain_ms:.3f} ms")
+
+    hoods = [b for b in buckets if b.num_keys]
+    rows = sum(b.num_keys for b in hoods)
+    emb = torch.empty((rows, f_out), dtype=torch.bfloat16, device=dev)
+
+    def layer():
+        row0 = 0
+        for b in hoods:
+            sage.sage_layer(table, b.keys, b.nbrs, b.valid, w, bias, out=emb, row0=row0)
+            row0 += b.num_keys
+        return emb
+
+    l_ms, l_us = device_ms(layer, reps, cycles_per_ms)
+    l_events = cuda_ms(layer, reps)
+    l_plain_ms = cuda_ms(lambda: [sage.sage_layer_plain(table, b.keys, b.nbrs, b.valid, w, bias) for b in hoods], 2, 1)
+    gslots = sum(b.nbrs.numel() for b in hoods)
+    valid_n = sum(int(b.valid.sum()) for b in hoods)
+    # each input once: ids and flags, each distinct table row that a key or a
+    # valid neighbor names (under slice(ALL) the neighbors are keys too), W
+    # and the bias; the output once
+    distinct = int(torch.unique(torch.cat([b.keys for b in hoods] + [b.nbrs[b.valid] for b in hoods])).numel())
+    l_bytes = 4 * rows + 5 * gslots + 2 * f_in * distinct + 2 * (2 * f_in * f_out + f_out) + 2 * f_out * rows
+    l_ops = 2 * rows * 2 * f_in * f_out
+    l_bytes_ms = l_bytes / HBM_BYTES_PER_S * 1e3
+    l_ops_ms = l_ops / BF16_FLOPS_PER_S * 1e3
+    l_bound = max(l_bytes_ms, l_ops_ms)
+    # the yardstick: embedding_bag(mode="mean") over the valid neighbors in
+    # CSR form, then addmm over [x_self | mean] (timed only; on no path)
+    flat = torch.cat([b.nbrs[b.valid] for b in hoods]).long()
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(torch.cat([b.valid.sum(1) for b in hoods]), 0)[:-1]])
+    keys_all = torch.cat([b.keys for b in hoods]).long()
+    bag = torch.nn.functional.embedding_bag(flat, table, offs, mode="mean")
+    xm = torch.cat([table[keys_all], bag.to(torch.bfloat16)], 1)
+    lib_emb = torch.relu(torch.addmm(bias, xm, w))
+    lib_err = float((lib_emb.float() - layer().float()).abs().max())
+    bag_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(flat, table, offs, mode="mean"), reps)
+    mm_ms = cuda_ms(lambda: torch.addmm(bias, xm, w), reps)
+    log(f"  {label} pane, sage_layer over its {len(hoods)} buckets ({rows} rows, {valid_n} neighbor rows), device "
+        f"only: {l_ms:.4f} ms, host enqueue {l_us:.1f} us ({l_us / len(hoods):.2f} us a launch); back-to-back events "
+        f"{l_events:.4f} ms; bound {l_bound:.5f} ms ({'bytes' if l_bytes_ms >= l_ops_ms else 'operations'}: "
+        f"{l_bytes} B, {distinct} distinct table rows, {l_bytes_ms:.5f} ms; {l_ops} bf16 operations, "
+        f"{l_ops_ms:.5f} ms), {l_ms / l_bound:.3f}x it; plain twin {l_plain_ms:.3f} ms; yardstick "
+        f"embedding_bag(mode='mean') {bag_ms:.4f} ms + addmm {mm_ms:.4f} ms = {bag_ms + mm_ms:.4f} ms (max |diff| "
+        f"of its relu to the kernel's {lib_err:.4g})")
+    out = {
+        "build": {"ms": b_events, "device_ms": b_ms, "host_us": b_us, "plain_ms": build_plain_ms,
+                  "bound_ms": build_bound, "sort_ms": rs_ms, "torch_sort_ms": tsort_ms, "call_ms": call_ms,
+                  "call_host_ms": call_host_ms, "passes": len(nbh.radix_plan(*lohi))},
+        "layer": {"ms": l_events, "device_ms": l_ms, "host_us": l_us, "plain_ms": l_plain_ms, "bound_ms": l_bound,
+                  "bound_by": "bytes" if l_bytes_ms >= l_ops_ms else "operations", "bytes_ms": l_bytes_ms,
+                  "ops_ms": l_ops_ms, "library_ms": bag_ms + mm_ms, "embedding_bag_ms": bag_ms, "addmm_ms": mm_ms,
+                  "launches": len(hoods)},
+    }
+    if "sage" in parents:
+        old = parent_layer(parents["sage"], table, hoods, w, bias)
+        ref = torch.cat(old()).float()
+        diff = (ref - layer().float()).abs()
+        if bool((diff > SAGE_TWIN_RTOL * ref.abs() + SAGE_TWIN_ATOL).any()):
+            raise RuntimeError(f"the parent's layer and sage_layer disagree on the {label} pane")
+        out["layer"]["turns"] = in_turns(f"{label} pane, the layer (parent: gathers, addmm, relu)", old, layer,
+                                         reps, cycles_per_ms)
+    if "neighborhoods" in parents:
+        old = parent_build_launcher(parents["neighborhoods"], ts, td, ones)
+        flat_new = [torch.cat([getattr(b, a).reshape(-1) for b in buckets]) for a in ("keys", "nbrs", "valid")]
+        if not all(torch.equal(x, y) for x, y in zip(old(), flat_new)):
+            raise RuntimeError(f"the parent's build and build_buckets disagree on the {label} pane")
+        out["build"]["turns"] = in_turns(f"{label} pane, the build (parent: torch.sort, count, scatter)", old,
+                                         launch, reps, cycles_per_ms)
+    return out
+
+
+def sage_width_times(dev, cycles_per_ms: float, s, d) -> dict:
+    """Device-only ms of sage_layer over one pane's buckets at each of
+    SAGE_WIDTHS (random bf16 table, W and bias made on the card)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import sage
+
+    ts, td = to_dev(directed_all(s, d), dev)
+    hoods = [b for b in nbh.build_buckets(ts, td, None, torch.ones_like(ts, dtype=torch.bool)) if b.num_keys]
+    rows = sum(b.num_keys for b in hoods)
+    out = {}
+    for f_in, f_out in SAGE_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(f_in)
+        table = torch.randn((SAGE_VERTICES, f_in), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((2 * f_in, f_out), generator=g, device=dev) / f_in ** 0.5).to(torch.bfloat16)
+        bias = torch.zeros(f_out, dtype=torch.bfloat16, device=dev)
+        emb = torch.empty((rows, f_out), dtype=torch.bfloat16, device=dev)
+
+        def layer():
+            row0 = 0
+            for b in hoods:
+                sage.sage_layer(table, b.keys, b.nbrs, b.valid, w, bias, out=emb, row0=row0)
+                row0 += b.num_keys
+
+        ms, _ = device_ms(layer, 3, cycles_per_ms)
+        out[f"{f_in}->{f_out}"] = ms
+        del table
+    log(f"  sage_layer alone over the uniform pane's {len(hoods)} buckets at other widths, device only: "
+        + ", ".join(f"F {k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def phase_sage(dev, cycles_per_ms: float, parents: dict) -> dict:
     """Phase 12: slice(ALL) and GraphSAGEWindows.run at the repo's width over
     SAGE_PANES count-cut panes of uniform edges and one hub pane; every pane's
-    build_buckets equal to its twin on the card, gather_mean within the
-    tolerance of its twin, one window against a float64 numpy oracle, a
-    2-layer stack against the twins, a fold_neighbors degree count against
-    np.bincount, launches counted on the main path, and the times."""
+    build_buckets equal to its twin on the card and its sort's order equal
+    to torch.sort(stable=True)'s, sage_layer within the tolerance of its
+    twin, one window against a float64 numpy oracle, a 2-layer stack
+    against the twins, a fold_neighbors degree count against np.bincount,
+    launches counted on the main path, and the times, with the parent's
+    builds (``parents``: "sage", "neighborhoods" -> loaded library) in
+    turns."""
     import torch
 
     from gelly_streaming_tpu_torch.core.config import StreamConfig
@@ -1875,8 +2155,8 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
         t_prev = time.perf_counter()
         check_s += t_prev - t_check
     wall = time.perf_counter() - t0 - check_s
-    launches = {"build_buckets": nbh.LAUNCHES["build_buckets"], "sage_gather_mean": sage.LAUNCHES["sage_gather_mean"]}
-    if len(sizes) != n_panes or launches["build_buckets"] != n_panes or launches["sage_gather_mean"] <= 0:
+    launches = {"build_buckets": nbh.LAUNCHES["build_buckets"], "sage_layer": sage.LAUNCHES["sage_layer"]}
+    if len(sizes) != n_panes or launches["build_buckets"] != n_panes or launches["sage_layer"] <= 0:
         raise RuntimeError(f"{len(sizes)} windows, launches {launches}")
     for w in range(n_panes):
         s, d = src[w * e:(w + 1) * e], dst[w * e:(w + 1) * e]
@@ -1898,10 +2178,12 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
         f"{n_panes * e / wall:.6g} edges/s, {n_emb / wall:.6g} embeddings/s; per window "
         f"{[round(x * 1e3, 1) for x in window_s]} ms; launches {launches}")
 
-    # every pane: build_buckets against its twin on the card; gather_mean on
-    # the first and the hub pane; ids -1, C and C + 5 on the first pane
-    build_err, gather_worst, n_buckets = 0, (0.0, 0.0, 0.0), []
-    table = model._table
+    # every pane: build_buckets against its twin on the card and its sort
+    # against torch.sort(stable=True); sage_layer on the first, the hub and
+    # the out-of-range pane; ids -1, C and C + 5 on the first pane
+    build_err, sort_err, layer_worst, n_buckets, passes = 0, 0, (0.0, 0.0, 0.0, 0.0), [], []
+    table, w_stacked, bias = model._table, model._weights[0], params.bias
+    mean_args = mean_view(table)
     ones = torch.ones(2 * e, dtype=torch.bool, device=dev)
     for w in range(n_panes + 1):
         s, d = src[(w % n_panes) * e:(w % n_panes + 1) * e], dst[(w % n_panes) * e:(w % n_panes + 1) * e]
@@ -1910,19 +2192,28 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
         ts, td = to_dev(directed_all(s, d), dev)
         got = nbh.build_buckets(ts, td, None, ones)
         build_err = max(build_err, buckets_err(got, nbh.build_buckets_plain(ts, td, None, ones)))
+        rs, rd, ri, n_pass = nbh.sort_valid_rows(ts, td, ones)
+        sort_err = max(sort_err, int(not all(torch.equal(a, b) for a, b in
+                                             zip((rs, rd, ri), nbh.sort_valid_rows_plain(ts, td, ones)))))
+        passes.append(n_pass)
         n_buckets.append(sum(1 for b in got if b.num_keys))
         if w in (0, SAGE_PANES, n_panes):
-            gather_worst = tuple(map(max, gather_worst, gather_err(table, got)))
-    if build_err:
-        raise RuntimeError("build_buckets differs from its twin on the card")
-    if launches["sage_gather_mean"] != sum(n_buckets[:n_panes]):
-        raise RuntimeError(f"sage_gather_mean launched {launches['sage_gather_mean']} times for "
+            layer_worst = tuple(map(max, layer_worst, layer_err(table, got, w_stacked, bias, mean_args)))
+    if build_err or sort_err:
+        raise RuntimeError(f"build_buckets differs from its twin ({build_err}) or its sort from torch.sort's "
+                           f"order ({sort_err}) on the card")
+    if launches["sage_layer"] != sum(n_buckets[:n_panes]):
+        raise RuntimeError(f"sage_layer launched {launches['sage_layer']} times for "
                            f"{sum(n_buckets[:n_panes])} non-empty buckets")
     log(f"  build_buckets equal to its twin on the card on all {n_panes} panes and with ids -1, C and C + 5 "
-        f"(keys, nbrs, valid, num_keys); gather_mean within {SAGE_TWIN_RTOL} * |ref| + {SAGE_TWIN_ATOL} of its "
-        f"twin on the first, the hub and the out-of-range pane (max |err| {gather_worst[0]:.6g}; in the buckets "
-        f"of rows past {sage._CHUNK} slots, which the finish kernel completes, {gather_worst[1]:.6g} where the "
-        f"largest |mean| is {gather_worst[2]:.6g}; self rows equal); non-empty buckets a pane {n_buckets}")
+        f"(keys, nbrs, valid, num_keys); its radix sort's order equal to torch.sort(stable=True)'s on every "
+        f"pane (passes a pane {passes}); sage_layer within {SAGE_TWIN_RTOL} * |ref| + {SAGE_TWIN_ATOL} of its "
+        f"twin on the first, the hub and the out-of-range pane (max |err| {layer_worst[0]:.6g}; in the buckets "
+        f"of rows past {sage._DIRECT} slots, which the partial-sum kernel starts, {layer_worst[1]:.6g} where the "
+        f"largest |ref| is {layer_worst[2]:.6g}); its mean alone (W = [0; I], no bias, |table| + 1) within "
+        f"{SAGE_MEAN_RTOL} * |ref| + {SAGE_MEAN_ATOL} of the twin's on the same buckets (max |err| / |ref| "
+        f"{layer_worst[3]:.6g}, the error over max(|ref|, 1)); non-empty buckets a pane {n_buckets}")
+    del mean_args
 
     # one window against numpy, float64; the hub window's hub row too
     t_or = time.perf_counter()
@@ -1965,61 +2256,12 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
         raise RuntimeError("fold_neighbors' degree count differs from np.bincount")
     log(f"  fold_neighbors degree count over one pane: {len(recs)} records equal to np.bincount in {fold_s:.2f} s")
 
-    # times at the main path's shapes: the first pane
-    s_dir, d_dir = directed_all(src[:e], dst[:e])
-    ts, td = to_dev((s_dir, d_dir), dev)
-    launch, counts, slots = build_launcher(ts, td, ones)
-    b_ms, b_us = device_ms(launch, SAGE_REPS, cycles_per_ms)
-    b_events = cuda_ms(launch, SAGE_REPS)
-    keys32 = (ts << 1) | (~ones).to(torch.int32)
-    sort_ms, _ = device_ms(lambda: torch.sort(keys32, stable=True), SAGE_REPS, cycles_per_ms)
-    call_ms = cuda_ms(lambda: nbh.build_buckets(ts, td, None, ones), SAGE_REPS)
-    build_plain_ms = cuda_ms(lambda: nbh.build_buckets_plain(ts, td, None, ones), 3, 1)
-    n = 2 * e
-    build_bound = (9 * n + 4 * sum(counts) + 5 * slots) / HBM_BYTES_PER_S * 1e3
-    log(f"  build_buckets kernels (count + scatter, after the sort), device only: {b_ms:.4f} ms for {n} rows, "
-        f"{sum(counts)} keys, {slots} slots; host enqueue {b_us:.2f} us; back-to-back events {b_events:.4f} ms; "
-        f"bound {build_bound:.5f} ms (bytes)")
-    log(f"  bucket sort (stable torch.sort of {n} int32 keys), device only: {sort_ms:.4f} ms; the whole call "
-        f"(sort, kernels, the counts' copy to the host, allocation): {call_ms:.4f} ms; plain twin "
-        f"{build_plain_ms:.3f} ms")
+    # times at the main path's shapes: the first (uniform) pane and the hub pane
+    times = {label: sage_pane_times(dev, cycles_per_ms, label, src[w * e:(w + 1) * e], dst[w * e:(w + 1) * e],
+                                    table, w_stacked, bias, parents, reps)
+             for label, w, reps in (("uniform", 0, SAGE_REPS), ("hub", SAGE_PANES, SAGE_HUB_REPS))}
 
-    hoods = [b for b in nbh.build_buckets(ts, td, None, ones) if b.num_keys]
-
-    def gather_all():
-        return [sage.gather_mean(table, b.keys, b.nbrs, b.valid) for b in hoods]
-
-    g_ms, g_us = device_ms(gather_all, SAGE_REPS, cycles_per_ms)
-    g_events = cuda_ms(gather_all, SAGE_REPS)
-    g_plain_ms = cuda_ms(lambda: [sage.gather_mean_plain(table, b.keys, b.nbrs, b.valid) for b in hoods], 3, 1)
-    valid_n = sum(int(b.valid.sum()) for b in hoods)
-    rows = sum(b.num_keys for b in hoods)
-    gslots = sum(b.nbrs.numel() for b in hoods)
-    # each input once: the ids and flags, each distinct table row that a key
-    # or a valid neighbor names (under slice(ALL) the neighbors are keys too),
-    # and the output
-    distinct = int(torch.unique(torch.cat([b.keys for b in hoods] + [b.nbrs[b.valid] for b in hoods])).numel())
-    g_bytes = 4 * rows + 5 * gslots + 2 * f * distinct + 4 * f * rows
-    g_bound = g_bytes / HBM_BYTES_PER_S * 1e3
-    # the library call that computes the same mean: embedding_bag over the
-    # valid neighbors in CSR form (timed only; on no path)
-    flat = torch.cat([b.nbrs[b.valid] for b in hoods]).long()
-    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                      torch.cumsum(torch.cat([b.valid.sum(1) for b in hoods]), 0)[:-1]])
-    bag = torch.nn.functional.embedding_bag(flat, table, offs, mode="mean")
-    ours = torch.cat([x[:, f:] for x in gather_all()]).float()
-    bag_err = float((bag.float() - ours).abs().max())
-    lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(flat, table, offs, mode="mean"), SAGE_REPS)
-    def layer():
-        return [gs.sage_kernel(params, table, b.keys, b.nbrs, b.valid) for b in hoods]
-
-    layer_ms, layer_us = device_ms(layer, SAGE_REPS, cycles_per_ms)
-    log(f"  sage_gather_mean over the pane's {len(hoods)} buckets ({rows} rows, {valid_n} neighbor rows), device "
-        f"only: {g_ms:.4f} ms, host enqueue {g_us:.1f} us ({g_us / len(hoods):.2f} us a launch); back-to-back "
-        f"events {g_events:.4f} ms; bound {g_bound:.5f} ms (bytes: {g_bytes}, {distinct} distinct table rows), "
-        f"{g_events / g_bound:.3f}x it; plain twin {g_plain_ms:.3f} ms; "
-        f"embedding_bag(mode='mean') over the valid neighbors in CSR form {lib_ms:.4f} ms (max |diff| to the "
-        f"kernel's means {bag_err:.4g}); the layer (gathers, addmm and relu a bucket) {layer_ms:.4f} ms")
+    widths = sage_width_times(dev, cycles_per_ms, src[:e], dst[:e])
 
     # where a window's time goes, stage by stage on the host's clock
     snap = snapshot(src[:e], dst[:e])
@@ -2036,7 +2278,7 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
         hb = [b for b in nbh.build_buckets(up[0], up[1], None, up[2]) if b.num_keys]
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        kd, ed = model._layer_device(params, table, hb)
+        kd, ed = model._layer_device(0, table, hb)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         kh, eh = gs._to_host(kd, ed)
@@ -2048,12 +2290,12 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
     log("  one window stage by stage (host clock, synchronized): " + ", ".join(
         f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
         + f"; readback {read_bytes / stages['readback'] / 1e9:.3f} GB/s ({read_bytes} B of f32 embeddings and keys)")
-    busy_ms = sort_ms + b_ms + layer_ms
+    busy_ms = times["uniform"]["build"]["device_ms"] + times["uniform"]["layer"]["device_ms"]
     # a window's wall: the counted run's mean, and the second run's (its
     # pinned readback buffers already cached)
     per_window = wall / n_panes * 1e3
     warm_window = sum(again) / n_panes * 1e3
-    log(f"  device compute per window ~{busy_ms:.3f} ms (sort + build kernels + layer, held-stream times): "
+    log(f"  device compute per window ~{busy_ms:.3f} ms (the build's sort and kernels + the layer, held-stream times): "
         f"{busy_ms / per_window * 100:.2f}% of the counted run's {per_window:.2f} ms a window, "
         f"{busy_ms / warm_window * 100:.2f}% of the second run's {warm_window:.2f} ms")
     try:
@@ -2072,14 +2314,14 @@ def phase_sage(dev, cycles_per_ms: float) -> dict:
             f"{name} {us * calls:.1f} us" for name, (_, (us, calls)) in zip(names, top)))
     except Exception as e:  # the profiler is a side measurement; report and go on
         log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    uni, hubt = times["uniform"], times["hub"]
     return {
-        "build": {"launches": launches["build_buckets"], "err": build_err, "ms": b_events, "device_ms": b_ms,
-                  "host_us": b_us, "plain_ms": build_plain_ms, "bound_ms": build_bound, "call_ms": call_ms,
-                  "sort_ms": sort_ms},
-        "gather": {"launches": launches["sage_gather_mean"], "err": gather_worst[0],
-                   "chunked_err": gather_worst[1], "stack_err": stack_err, "ms": g_events,
-                   "device_ms": g_ms, "host_us": g_us, "plain_ms": g_plain_ms, "bound_ms": g_bound,
-                   "library_ms": lib_ms, "oracle_err": max(oracle[0], hub[0])},
+        "build": {**uni["build"], "launches": launches["build_buckets"], "err": max(build_err, sort_err),
+                  "hub": hubt["build"]},
+        "layer": {**uni["layer"], "launches": launches["sage_layer"], "err": layer_worst[0],
+                  "chunked_err": layer_worst[1], "mean_rel_err": layer_worst[3], "stack_err": stack_err,
+                  "oracle_err": max(oracle[0], hub[0]),
+                  "hub": hubt["layer"], "widths_ms": widths},
         "windows_per_s": n_panes / wall, "edges_per_s": n_panes * e / wall, "embeddings_per_s": n_emb / wall,
     }
 
@@ -2167,10 +2409,19 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-unionfind-cu", default=None,
                         help="unionfind.cu of the commit before the union redesign (its C interface), "
                              "timed in turns with the current one")
+    parser.add_argument("--parent-sage-cu", default=None,
+                        help="sage.cu of the commit before the fused layer (its gather-mean C interface): its "
+                             "gather, then addmm and relu, timed in turns with sage_layer")
+    parser.add_argument("--parent-neighborhoods-cu", default=None,
+                        help="neighborhoods.cu of the commit before the radix sort (its C interface): "
+                             "torch.sort, then its count and scatter, timed in turns with build_buckets")
     args = parser.parse_args(argv)
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
                                                            ("unionfind", args.parent_unionfind_cu)) if path}
+    parent_sage_cu = {k: os.path.abspath(path) for k, path in (("sage", args.parent_sage_cu),
+                                                                ("neighborhoods", args.parent_neighborhoods_cu))
+                      if path}
     import torch
 
     if not torch.cuda.is_available():
@@ -2198,7 +2449,8 @@ def main(argv=None) -> int:
     log("phase 1: build kernels")
     t0 = time.perf_counter()
     split_cu = trace_split_sources(parent_cu["degrees"]) if "degrees" in parent_cu else {}
-    sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values()]
+    sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
+               *parent_sage_cu.values()]
     built = _cuda.build_all(sources)
     log(f"  built {len(built)} sources in {time.perf_counter() - t0:.2f} s: {sorted(built)}")
     for src, res in built.items():
@@ -2415,7 +2667,7 @@ def main(argv=None) -> int:
     log("phase 10: bipartiteness over the EF40 replay, and the windowed path")
     bp = phase_bipartite(dev, cpm, data)
     log("phase 12: slice() and windowed GraphSAGE at F = 128 on the card")
-    sg = phase_sage(dev, cpm)
+    sg = phase_sage(dev, cpm, {k: load_baseline(path, PARENT_SIGNATURES[k]) for k, path in parent_sage_cu.items()})
     turned = {}
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
@@ -2510,11 +2762,17 @@ def main(argv=None) -> int:
          **{f"turns_{b}": turned[f"parity_{b}"] for b in ("first", "late") if f"parity_{b}" in turned}},
     ]
     kernels += [
-        {**entry("build_buckets", "neighborhoods.cu", "gelly_streaming_tpu/ops/neighborhoods.py:55", sg["build"]),
-         "call_ms": sg["build"]["call_ms"], "sort_ms": sg["build"]["sort_ms"]},
-        {**entry("sage_gather_mean", "sage.cu", "gelly_streaming_tpu/library/graphsage.py:53", sg["gather"],
-                 sg["gather"]["library_ms"]),
-         **{k: sg["gather"][k] for k in ("chunked_err", "stack_err", "oracle_err")},
+        {**entry("build_buckets", "neighborhoods.cu", "gelly_streaming_tpu/ops/neighborhoods.py:55", sg["build"],
+                 sg["build"]["torch_sort_ms"]),
+         "library_call": "torch.sort(stable=True) of the int32 grouping keys",
+         **{k: sg["build"][k] for k in ("call_ms", "call_host_ms", "sort_ms", "passes", "hub", "turns")
+            if k in sg["build"]}},
+        {**entry("sage_layer", "sage.cu", "gelly_streaming_tpu/library/graphsage.py:53", sg["layer"],
+                 sg["layer"]["library_ms"]),
+         "bound_by": sg["layer"]["bound_by"],
+         "library_call": "embedding_bag(mode='mean') + addmm (no one call computes the layer)",
+         **{k: sg["layer"][k] for k in ("chunked_err", "mean_rel_err", "stack_err", "oracle_err", "embedding_bag_ms",
+                                        "addmm_ms", "hub", "turns", "widths_ms") if k in sg["layer"]},
          "windows_per_s": sg["windows_per_s"],
          "edges_per_s": sg["edges_per_s"], "embeddings_per_s": sg["embeddings_per_s"]},
     ]

@@ -7,13 +7,14 @@ bfloat16 weights:
 
     h_v = relu(x_v @ W_self + mean_{u in N(v)}(x_u) @ W_nbr + b)
 
-The gather and the mean are ``ops/sage.gather_mean`` (``csrc/sage.cu`` on
-the GPU), which writes ``[x_v | mean]`` side by side, so the two
-projections are one library product with the stacked ``[W_self; W_nbr]``
-(``torch.addmm``, cuBLAS on the GPU), bias included, then ReLU.
-``GraphSAGEWindows`` keeps a bf16 copy of the feature table on its
-device, made once: the JAX kernel casts every gathered row to bf16, and
-rounding commutes with the gather.
+The whole layer is ``ops/sage.sage_layer`` (``csrc/sage.cu`` on the GPU:
+one kernel a bucket, the gather, the mean, one product with the stacked
+``[W_self; W_nbr]`` on the tensor cores, the bias and ReLU; the
+``[x_v | mean]`` rows stay in shared memory).  ``GraphSAGEWindows`` keeps
+a bf16 copy of the feature table on its device, made once (the JAX kernel
+casts every gathered row to bf16, and rounding commutes with the gather),
+and the stacked weights of each layer; each bucket writes its rows into
+one [K_window, F_out] buffer a window at its row offset.
 
 Not ported yet: the sharded plane (``_run_sharded``, ``sage_kernel_ring``;
 ROADMAP queue A, item 8) and training (``sample_pairs``, ``sage_loss``,
@@ -65,12 +66,15 @@ def sage_kernel(params: SageParams, features, keys, nbrs, valid) -> torch.Tensor
     """[K] keys + [K, D] neighborhoods -> [K, F_out] bf16 embeddings.
     ``features`` is the [C, F_in] table (cast to bf16 here unless it is)."""
     table = features if features.dtype == torch.bfloat16 else features.to(torch.bfloat16)
-    xm = sage_ops.gather_mean(table.contiguous(), keys, nbrs, valid)
-    # one product with the stacked weights: the bias and both products are
-    # summed in f32 and rounded to bf16 once (two addmm would round the
-    # partial sum too, which at 2^20 keys passes the embeddings' bound)
-    w = torch.cat([params.w_self, params.w_nbr], 0)
-    return torch.relu_(torch.addmm(params.bias, xm, w))
+    return sage_ops.sage_layer(table.contiguous(), keys, nbrs, valid, _stacked(params), params.bias)
+
+
+def _stacked(params: SageParams) -> torch.Tensor:
+    """[W_self; W_nbr], bf16 [2 F_in, F_out]: one product for both
+    projections, so the bias and both products are summed in f32 and
+    rounded to bf16 once (two products would round the partial sum too,
+    which at 2^20 keys passes the embeddings' bound)."""
+    return torch.cat([params.w_self, params.w_nbr], 0).contiguous()
 
 
 def sage_kernel_ring(*args, **kwargs):
@@ -106,26 +110,32 @@ class GraphSAGEWindows:
         self.device = resolve_device(device)
         self.layers = [SageParams(*(t.to(device=self.device, dtype=torch.bfloat16) for t in p)) for p in layers]
         self.params = self.layers[0]
+        self._weights = [_stacked(p) for p in self.layers]
         feats = features if isinstance(features, torch.Tensor) else torch.from_numpy(np.asarray(features))
         if feats.dtype == torch.float64:
             feats = feats.float()  # the JAX package's 32-bit default, before the bf16 cast
         # the bf16 table every layer-1 gather reads: the only copy on the device
         self._table = feats.to(self.device).to(torch.bfloat16).contiguous()
 
-    def _layer_device(self, params: SageParams, feats, hoods) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One sage layer over a window's buckets: (keys [K], emb [K, F_out]
-        bf16) on the device, buckets in order."""
+    def _layer_device(self, layer: int, feats, hoods) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sage layer ``layer`` over a window's buckets: (keys [K], emb [K,
+        F_out] bf16) on the device, buckets in order, each bucket's rows
+        written into one buffer at its offset."""
         table = feats if feats.dtype == torch.bfloat16 else feats.to(torch.bfloat16).contiguous()
-        ks, es = [], []
+        params, w = self.layers[layer], self._weights[layer]
+        hoods = list(hoods)
+        keys = torch.cat([hood.keys for hood in hoods])
+        emb = torch.empty((keys.shape[0], w.shape[1]), dtype=torch.bfloat16, device=table.device)
+        row0 = 0
         for hood in hoods:
-            ks.append(hood.keys)
-            es.append(sage_kernel(params, table, hood.keys, hood.nbrs, hood.valid))
-        return torch.cat(ks), torch.cat(es)
+            sage_ops.sage_layer(table, hood.keys, hood.nbrs, hood.valid, w, params.bias, out=emb, row0=row0)
+            row0 += hood.keys.shape[0]
+        return keys, emb
 
-    def _layer_over_buckets(self, params: SageParams, feats, hoods):
-        """One sage layer over a window's buckets: (keys [K], emb [K, F_out])
-        host arrays for the window's real rows."""
-        return _to_host(*self._layer_device(params, feats, hoods))
+    def _layer_over_buckets(self, feats, hoods):
+        """The first sage layer over a window's buckets: (keys [K], emb [K,
+        F_out]) host arrays for the window's real rows."""
+        return _to_host(*self._layer_device(0, feats, hoods))
 
     def _hidden(self, keys: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """The window's [C, F_l] bf16 buffer for the next layer: rows for the
@@ -147,9 +157,9 @@ class GraphSAGEWindows:
         on the device: rows for the window's keyed vertices, zeros
         elsewhere."""
         keys = emb = None
-        for li, p in enumerate(self.layers):
+        for li in range(len(self.layers)):
             table = self._table if li == 0 else self._hidden(keys, emb)
-            keys, emb = self._layer_device(p, table, hoods)
+            keys, emb = self._layer_device(li, table, hoods)
         return _to_host(keys, emb)
 
     def run(self, snapshot: SnapshotStream) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -166,7 +176,7 @@ class GraphSAGEWindows:
         grouped = itertools.groupby(snapshot._neighborhood_panes(), key=lambda h: h.pane.window_id)
         if len(self.layers) == 1:
             for _, hoods in grouped:
-                yield self._layer_over_buckets(self.params, self._table, hoods)
+                yield self._layer_over_buckets(self._table, hoods)
             return
         for _, hoods in grouped:
             yield self._stack_layers(list(hoods))

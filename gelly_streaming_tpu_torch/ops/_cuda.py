@@ -89,26 +89,36 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "degree_dist_scratch_bytes": [_I],
     },
     "neighborhoods.cu": {
-        # sorted keys, n, buckets, tile table, info, offsets, totals, stream:
-        # the count pass, then the scan across tiles
-        "nb_count_launch": [_P, _I, _I, _P, _P, _P, _P, _P],
-        # sorted keys, order (int64), n, buckets, tile table, info, offsets,
-        # src, dst, keys out, nbrs out, valid out, stream
-        "nb_scatter_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-        # sorted keys, order, n, buckets, tile table, info, offsets, leaf,
-        # leaf out, bytes a row, stream
-        "nb_scatter_values_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        # n, with_idx: the scratch bytes of one build
+        "nb_scratch_bytes": [_I, _I],
+        # src, dst, mask, n, with_idx, scratch, scratch bytes, stream: the
+        # stats and plan kernels, then the radix passes
+        "nb_sort_launch": [_P, _P, _P, _I, _I, _P, _L, _P],
+        # n, buckets, with_idx, scratch, scratch bytes, totals, stream: the
+        # heads, carry, count and scan kernels
+        "nb_count_launch": [_I, _I, _I, _P, _L, _P, _P],
+        # n, buckets, with_idx, scratch, scratch bytes, keys out, nbrs out,
+        # valid out, stream
+        "nb_scatter_launch": [_I, _I, _I, _P, _L, _P, _P, _P, _P],
+        # n, buckets, scratch, scratch bytes, leaf, leaf out, bytes a row,
+        # stream
+        "nb_scatter_values_launch": [_I, _I, _P, _L, _P, _P, _I, _P],
+        # n, with_idx, scratch, scratch bytes, src out, dst out, index out |
+        # None, meta out (lo, valid rows, passes), stream: the sorted rows
+        "nb_sorted_launch": [_I, _I, _P, _L, _P, _P, _P, _P, _P],
     },
     "sage.cu": {
-        # table, C, F, keys, nbrs, valid, K, D, chunk, chunks, vec, out,
-        # partial sums | None, partial counts | None, stream
-        "sage_gather_mean_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        # table, C, F_in, keys, nbrs, valid, K, D, w, bias, F_out, out rows,
+        # chunk, chunks, partial sums | None, partial counts | None, stream:
+        # the partial-sum kernel (chunks > 0), then the layer
+        "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
     },
 }
 
 # entry points that return something other than a cudaError_t
 RESTYPES: Dict[str, type] = {
-    "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "uf_scratch_bytes": _L,
+    "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
+    "uf_scratch_bytes": _L,
 }
 
 

@@ -20,16 +20,18 @@ surfaces as key 0), neighbor ids pass through raw, and a key whose degree
 class has no bucket (possible only when E is not a power of two) is
 dropped.
 
-On CUDA tensors ``build_buckets`` is a stable ``torch.sort`` of the
-int32 grouping keys and two C calls into ``csrc/neighborhoods.cu`` (a
-count pass and a scatter pass, one more scatter a value leaf), counted
-once in ``LAUNCHES``; on CPU tensors it runs ``build_buckets_plain``, the
-same algorithm in PyTorch ops, and launches nothing.
+On CUDA tensors ``build_buckets`` is three C calls into
+``csrc/neighborhoods.cu``, counted once in ``LAUNCHES``: a stable radix
+sort of the valid rows by source (its digit passes planned on the device
+from the sources' range, as ``radix_plan`` gives them), a count pass and a
+scatter pass (one more scatter a value leaf); on CPU tensors it runs
+``build_buckets_plain``, the same algorithm in PyTorch ops, and launches
+nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,7 +39,7 @@ from gelly_streaming_tpu_torch.core.types import tree_leaves, tree_map, _tree_un
 from gelly_streaming_tpu_torch.ops import _cuda, segments
 
 _SOURCE = "neighborhoods.cu"
-_TILE = 1024  # sorted rows a block of the count pass (csrc/neighborhoods.cu kTile)
+_DIGIT_BITS = 8  # bits a radix pass sorts (csrc/neighborhoods.cu kDigitBits)
 
 # kernel launches since the last reset_launches() (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {"build_buckets": 0}
@@ -56,6 +58,15 @@ class NeighborhoodBucket(NamedTuple):
     vals: Optional[object]  # value tree of [num_keys, D_b, ...] or None
     valid: torch.Tensor  # bool[num_keys, D_b]
     num_keys: int  # real keys in this bucket
+
+
+def radix_plan(lo: Optional[int], hi: Optional[int]) -> Tuple[int, ...]:
+    """The digit shifts of the radix sort for valid sources in [lo, hi]
+    (None, None: no valid row): 8-bit digits over the bits that hi - lo
+    spans, and at least one pass, which also drops the masked rows.  The
+    kernels plan the same on the device."""
+    bits = 0 if lo is None else (hi - lo).bit_length()
+    return tuple(range(0, max(1, -(-bits // _DIGIT_BITS)) * _DIGIT_BITS, _DIGIT_BITS))
 
 
 def bucket_shapes(e_pad: int) -> List[tuple]:
@@ -132,6 +143,44 @@ def build_buckets_plain(src, dst, val, mask) -> List[NeighborhoodBucket]:
     return out
 
 
+def sort_valid_rows_plain(src, dst, mask) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(src, dst, arrival index) of the valid rows, stably sorted by src:
+    the order of ``torch.sort(stable=True)`` of the grouping keys, masked
+    rows dropped."""
+    keys = (src.to(torch.int64) << 1) | (~mask).to(torch.int64)
+    order = torch.sort(keys, stable=True).indices
+    order = order[mask[order]]
+    return src[order], dst[order], order.to(torch.int32)
+
+
+def sort_valid_rows(src, dst, mask) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """(src, dst, arrival index, passes): the valid rows as the CUDA radix
+    sort leaves them (a check of ``build_buckets``' sort; passes = the
+    number of digit passes the device planned).  On CPU tensors the plain
+    sort, with the passes ``radix_plan`` gives."""
+    _check(src, dst, None, mask)
+    if src.device.type == "cpu":
+        s, d, i = sort_valid_rows_plain(src, dst, mask)
+        lohi = (int(s.min()), int(s.max())) if s.numel() else (None, None)
+        return s, d, i, len(radix_plan(*lohi))
+    n = src.shape[0]
+    if n == 0:
+        empty = torch.empty((0,), dtype=torch.int32, device=src.device)
+        return empty, empty, empty, 1
+    lib = _cuda.library(_SOURCE)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    scratch = torch.empty((lib.nb_scratch_bytes(n, 1),), dtype=torch.uint8, device=src.device)
+    out = torch.empty((3, n), dtype=torch.int32, device=src.device)
+    meta = torch.empty((3,), dtype=torch.int32, device=src.device)
+    _cuda.check(lib.nb_sort_launch(src.data_ptr(), dst.data_ptr(), mask.data_ptr(), n, 1, scratch.data_ptr(),
+                                   scratch.numel(), stream), "nb_sort_launch")
+    _cuda.check(lib.nb_sorted_launch(n, 1, scratch.data_ptr(), scratch.numel(), out[0].data_ptr(),
+                                     out[1].data_ptr(), out[2].data_ptr(), meta.data_ptr(), stream),
+                "nb_sorted_launch")
+    _lo, valid, passes = meta.tolist()
+    return out[0, :valid], out[1, :valid], out[2, :valid], passes
+
+
 def build_buckets(src, dst, val, mask) -> List[NeighborhoodBucket]:
     """Group a padded edge list by source key into degree buckets.
 
@@ -154,41 +203,28 @@ def build_buckets(src, dst, val, mask) -> List[NeighborhoodBucket]:
     nb = len(shapes)
     dev = src.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sorted_keys, order = torch.sort((src << 1) | (~mask).to(torch.int32), stable=True)
-    tiles = (e + _TILE - 1) // _TILE
-    tile_base = torch.empty((nb * tiles,), dtype=torch.int32, device=dev)
-    info = torch.empty((2 * e,), dtype=torch.int32, device=dev)
-    offsets = torch.empty((2 * nb,), dtype=torch.int64, device=dev)
-    totals = torch.empty((nb,), dtype=torch.int32, device=dev)
+    leaves = [leaf.contiguous() for leaf in tree_leaves(val)]
+    with_idx = int(bool(leaves))
     lib = _cuda.library(_SOURCE)
-    _cuda.check(
-        lib.nb_count_launch(
-            sorted_keys.data_ptr(), e, nb, tile_base.data_ptr(), info.data_ptr(), offsets.data_ptr(),
-            totals.data_ptr(), stream,
-        ),
-        "nb_count_launch",
-    )
+    scratch = torch.empty((lib.nb_scratch_bytes(e, with_idx),), dtype=torch.uint8, device=dev)
+    totals = torch.empty((nb,), dtype=torch.int32, device=dev)
+    sp = (scratch.data_ptr(), scratch.numel())
+    _cuda.check(lib.nb_sort_launch(src.data_ptr(), dst.data_ptr(), mask.data_ptr(), e, with_idx, *sp,
+                                   stream), "nb_sort_launch")
+    _cuda.check(lib.nb_count_launch(e, nb, with_idx, *sp, totals.data_ptr(), stream), "nb_count_launch")
     counts = totals.tolist()  # the one copy to the host a pane
     n_keys, n_slots = sum(counts), sum(n << b for b, n in enumerate(counts))
     keys_all = torch.empty((n_keys,), dtype=torch.int32, device=dev)
     nbrs_all = torch.empty((n_slots,), dtype=torch.int32, device=dev)
     valid_all = torch.empty((n_slots,), dtype=torch.bool, device=dev)
-    common = (sorted_keys.data_ptr(), order.data_ptr(), e, nb, tile_base.data_ptr(), info.data_ptr(),
-              offsets.data_ptr())
-    _cuda.check(
-        lib.nb_scatter_launch(*common, src.data_ptr(), dst.data_ptr(), keys_all.data_ptr(),
-                              nbrs_all.data_ptr(), valid_all.data_ptr(), stream),
-        "nb_scatter_launch",
-    )
+    _cuda.check(lib.nb_scatter_launch(e, nb, with_idx, *sp, keys_all.data_ptr(), nbrs_all.data_ptr(),
+                                      valid_all.data_ptr(), stream), "nb_scatter_launch")
     leaves_all = []
-    for leaf in tree_leaves(val):
-        leaf = leaf.contiguous()
+    for leaf in leaves:
         out = torch.empty((n_slots,) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=dev)
         elem = leaf.element_size() * leaf[0].numel()
-        _cuda.check(
-            lib.nb_scatter_values_launch(*common, leaf.data_ptr(), out.data_ptr(), elem, stream),
-            "nb_scatter_values_launch",
-        )
+        _cuda.check(lib.nb_scatter_values_launch(e, nb, *sp, leaf.data_ptr(), out.data_ptr(), elem, stream),
+                    "nb_scatter_values_launch")
         leaves_all.append(out)
     LAUNCHES["build_buckets"] += 1
 

@@ -1,34 +1,41 @@
-"""The neighbor gather and masked mean of GraphSAGE: the wrapper of
-``csrc/sage.cu`` and its plain twin.
+"""One GraphSAGE layer over a degree bucket: the wrapper of ``csrc/sage.cu``
+and its plain twin.
 
-``gather_mean(table, keys, nbrs, valid)`` returns bf16 [K, 2F]: for each
-row of a degree bucket, the row's own table row and the mean of its valid
-neighbors' rows, ``[x_self | mean]``, the input of the layer's one
-product with the stacked ``[W_self; W_nbr]``
-(``library/graphsage.sage_kernel``).  The table is bf16 [C, F]; ids
-outside [0, C) follow JAX's gather rule (``ops/indexing.gather_index``).
-The mean sums in f32 and rounds once to bf16 (the JAX package rounds the
-sum and the count to bf16 before its division; the embeddings' tolerance
-covers the difference).
+``sage_layer(table, keys, nbrs, valid, w, bias, out=None, row0=0)``
+writes bf16 ``relu([x_self | mean] @ w + bias)`` for each row of a degree
+bucket into ``out[row0 : row0 + K]`` and returns those rows: ``x_self``
+the row's own table row, ``mean`` the mean of its valid neighbors' rows,
+``w`` the stacked ``[W_self; W_nbr]`` (bf16 [2 F_in, F_out]).  The table
+is bf16 [C, F_in]; ids outside [0, C) follow JAX's gather rule
+(``ops/indexing.gather_index``).  The mean sums in f32 and rounds once to
+bf16 (the JAX package rounds the sum and the count to bf16 before its
+division; the embeddings' tolerance covers the difference; the kernel
+multiplies by the count's reciprocal, the twin divides); the product
+accumulates in f32, adds the bias in f32 and rounds once.
 
-On CUDA tensors the wrapper is one C call (the gather kernel, and a finish
-kernel for rows longer than one 256-slot chunk) and ``LAUNCHES`` counts it;
-on CPU tensors it runs ``gather_mean_plain`` and launches nothing.
+On CUDA tensors the wrapper is one C call (the layer kernel, after a
+partial-sum kernel, a warp a 256-slot chunk, for rows of more than 32
+slots) and ``LAUNCHES`` counts it; the ``[x_self | mean]`` rows never
+reach device memory.  F_in and F_out multiples of 8 take the product by
+wgmma, other widths by the CUDA cores; wide layers walk F_in in K chunks,
+so every width runs.  On CPU tensors it runs ``sage_layer_plain`` and
+launches nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from gelly_streaming_tpu_torch.ops import _cuda, indexing
 
 _SOURCE = "sage.cu"
-_CHUNK = 256  # neighbor slots a warp; longer rows spread over several warps
+_DIRECT = 32  # rows of up to this many slots are gathered by the layer kernel itself
+_CHUNK = 256  # neighbor slots a warp of the partial-sum kernel; longer rows spread over several
 
 # kernel launches since the last reset_launches() (CUDA tensors only)
-LAUNCHES: Dict[str, int] = {"sage_gather_mean": 0}
+LAUNCHES: Dict[str, int] = {"sage_layer": 0}
 
 
 def reset_launches() -> None:
@@ -36,7 +43,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(table, keys, nbrs, valid) -> None:
+def _check(table, keys, nbrs, valid, w, bias, out, row0) -> None:
     if table.dtype != torch.bfloat16 or table.dim() != 2 or not table.is_contiguous():
         raise ValueError("table must be a contiguous bf16 [C, F] tensor")
     if table.shape[0] == 0:
@@ -49,7 +56,20 @@ def _check(table, keys, nbrs, valid) -> None:
         raise ValueError("valid must be a contiguous bool tensor shaped like nbrs")
     if nbrs.shape[0] != keys.shape[0]:
         raise ValueError("keys and nbrs must have the same number of rows")
-    for t in (keys, nbrs, valid):
+    f_in = table.shape[1]
+    if w.dtype != torch.bfloat16 or w.dim() != 2 or w.shape[0] != 2 * f_in or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous bf16 [2 * {f_in}, F_out] tensor (the stacked [W_self; W_nbr])")
+    f_out = w.shape[1]
+    if bias.dtype != torch.bfloat16 or bias.shape != (f_out,) or not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous bf16 [{f_out}] tensor")
+    if out is not None:
+        if out.dtype != torch.bfloat16 or out.dim() != 2 or out.shape[1] != f_out or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous bf16 [N, {f_out}] tensor")
+        if row0 < 0 or row0 + keys.shape[0] > out.shape[0]:
+            raise ValueError(f"rows [{row0}, {row0 + keys.shape[0]}) do not fit out's {out.shape[0]} rows")
+    elif row0 != 0:
+        raise ValueError("row0 needs an out buffer")
+    for t in (keys, nbrs, valid, w, bias, *(() if out is None else (out,))):
         if t.device != table.device:
             raise ValueError(f"every input must lie on {table.device}")
 
@@ -65,28 +85,39 @@ def gather_mean_plain(table, keys, nbrs, valid) -> torch.Tensor:
     return torch.cat([x_self, (total / count.unsqueeze(1)).to(torch.bfloat16)], 1)
 
 
-def gather_mean(table, keys, nbrs, valid) -> torch.Tensor:
-    """The bucket's ``[x_self | mean]`` rows, bf16 [K, 2F] (see the module)."""
-    _check(table, keys, nbrs, valid)
+def sage_layer_plain(table, keys, nbrs, valid, w, bias) -> torch.Tensor:
+    """bf16 [K, F_out]: ``relu(gather_mean_plain(...) @ w + bias)``, in
+    PyTorch ops (one product with the stacked weights in f32: the bias and
+    both products summed before the one rounding to bf16; a bf16 ``addmm``
+    on the card may reduce split-K partial sums in bf16)."""
+    xm = gather_mean_plain(table, keys, nbrs, valid)
+    return torch.relu_(torch.addmm(bias.float(), xm.float(), w.float())).to(torch.bfloat16)
+
+
+def sage_layer(table, keys, nbrs, valid, w, bias, out: Optional[torch.Tensor] = None, row0: int = 0) -> torch.Tensor:
+    """The bucket's embeddings, bf16 [K, F_out], written to
+    ``out[row0 : row0 + K]`` when ``out`` is given (see the module)."""
+    _check(table, keys, nbrs, valid, w, bias, out, row0)
+    (c, f_in), (k, d), f_out = table.shape, nbrs.shape, w.shape[1]
+    if out is None:
+        out = torch.empty((k, f_out), dtype=torch.bfloat16, device=table.device)
+    rows = out[row0 : row0 + k]
     if table.device.type == "cpu":
-        return gather_mean_plain(table, keys, nbrs, valid)
+        return rows.copy_(sage_layer_plain(table, keys, nbrs, valid, w, bias))
     if table.device.type != "cuda":
-        raise ValueError(f"no sage_gather_mean kernel for device {table.device}")
-    (c, f), (k, d) = table.shape, nbrs.shape
-    out = torch.empty((k, 2 * f), dtype=torch.bfloat16, device=table.device)
+        raise ValueError(f"no sage_layer kernel for device {table.device}")
     if k == 0:
-        return out
-    nchunks = max(1, -(-d // _CHUNK))
+        return rows
+    nchunks = -(-d // _CHUNK) if d > _DIRECT else 0
     part = part_cnt = None
-    if nchunks > 1:
-        part = torch.empty((k * nchunks, f), dtype=torch.float32, device=table.device)
+    if nchunks:
+        part = torch.empty((k * nchunks, f_in), dtype=torch.float32, device=table.device)
         part_cnt = torch.empty((k * nchunks,), dtype=torch.int32, device=table.device)
-    vec = int(f % 8 == 0 and table.data_ptr() % 16 == 0)
-    err = _cuda.library(_SOURCE).sage_gather_mean_launch(
-        table.data_ptr(), c, f, keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, _CHUNK, nchunks, vec,
-        out.data_ptr(), None if part is None else part.data_ptr(),
+    err = _cuda.library(_SOURCE).sage_layer_launch(
+        table.data_ptr(), c, f_in, keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, w.data_ptr(),
+        bias.data_ptr(), f_out, rows.data_ptr(), _CHUNK, nchunks, None if part is None else part.data_ptr(),
         None if part_cnt is None else part_cnt.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
-    _cuda.check(err, "sage_gather_mean_launch")
-    LAUNCHES["sage_gather_mean"] += 1
-    return out
+    _cuda.check(err, "sage_layer_launch")
+    LAUNCHES["sage_layer"] += 1
+    return rows

@@ -619,39 +619,145 @@ def test_build_buckets_kernel_matches_twin(cuda_device, case):
             assert a.shape == b.shape and torch.equal(a, b)
 
 
-SAGE_CASES = [  # (name, C, F, K, D)
-    ("f128-d1", 4096, 128, 3000, 1),
-    ("f128-d8", 4096, 128, 2000, 8),
-    ("f128-d256", 4096, 128, 64, 256),
-    ("f128-d1024", 4096, 128, 9, 1024),
-    ("f128-hub", 1 << 16, 128, 1, 1 << 17),
-    ("f8-d16", 512, 8, 700, 16),
-    ("f12-d4", 512, 12, 700, 4),
-    ("f40-d600", 512, 40, 5, 600),
+SAGE_CASES = [  # (name, C, F_in, F_out, K, D): wgmma widths (F_in, F_out multiples of 8; output
+    # columns padded to 64; F_in past one K chunk) and CUDA-core widths (F_in past 512 too)
+    ("f128-d1", 4096, 128, 128, 3000, 1),
+    ("f128-d8", 4096, 128, 128, 2000, 8),
+    ("f128-d5", 4096, 128, 128, 900, 5),
+    ("f128-d16", 4096, 128, 128, 700, 16),
+    ("f128-d32", 4096, 128, 128, 300, 32),
+    ("f128-d256", 4096, 128, 128, 64, 256),
+    ("f128-d1024", 4096, 128, 128, 9, 1024),
+    ("f128-hub", 1 << 16, 128, 128, 1, 1 << 17),
+    ("f16-f8-d4", 512, 16, 8, 700, 4),
+    ("f256-f200-d2", 2048, 256, 200, 300, 2),
+    ("f512-f64-d3", 1024, 512, 64, 100, 3),
+    ("f8-f8-d16", 512, 8, 8, 700, 16),
+    ("f12-f20-d4", 512, 12, 20, 700, 4),
+    ("f40-f24-d600", 512, 40, 24, 5, 600),
+    ("f128-f12-d8", 512, 128, 12, 130, 8),
+    ("f64-f192-d40", 1024, 64, 192, 300, 40),
+    ("f256-f256-d8", 2048, 256, 256, 200, 8),
+    ("f24-f40-d6", 512, 24, 40, 300, 6),
+    ("f640-f128-d4", 1024, 640, 128, 200, 4),
+    ("f520-f264-d40", 1024, 520, 264, 100, 40),
+    ("f602-f41-d3", 1024, 602, 41, 150, 3),
+    ("f1030-f200-d300", 512, 1030, 200, 70, 300),
 ]
+# the layer against its twin: both round the mean once (at most one bf16
+# step apart where the sums' order flips a rounding, carried through W ~
+# N(0, 1/F_in): well below 2^-9) and the output once (one bf16 step,
+# 2^-7 of the value)
+SAGE_RTOL, SAGE_ATOL = 2.0 ** -7, 2.0 ** -9
+
+
+def _layer_inputs(dev, c, f_in, f_out, k, d, seed):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(c, f_in)).astype(np.float32)).to(dev, torch.bfloat16)
+    keys = torch.from_numpy(rng.integers(-c - 3, c + 3, k).astype(np.int32)).to(dev)
+    nbrs = torch.from_numpy(rng.integers(-c - 3, c + 3, (k, d)).astype(np.int32)).to(dev)
+    valid = rng.random((k, d)) < 0.7
+    if k:
+        valid[0] = False  # a row with no valid neighbor
+    valid = torch.from_numpy(valid).to(dev)
+    w = torch.from_numpy(rng.normal(size=(2 * f_in, f_out)).astype(np.float32) / np.sqrt(f_in)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=f_out).astype(np.float32) * 0.1).to(dev, torch.bfloat16)
+    return table, keys, nbrs, valid, w, bias
 
 
 @pytest.mark.parametrize("case", SAGE_CASES, ids=[c[0] for c in SAGE_CASES])
 def test_sage_gather_mean_kernel_matches_twin(cuda_device, case):
+    """The fused layer (gather, mean, product, bias, ReLU) against its twin,
+    on both instantiations, over K chunks and n-tiles, and on rows past one
+    256-slot chunk."""
     from gelly_streaming_tpu_torch.ops import sage
 
-    _name, c, f, k, d = case
-    rng = np.random.default_rng(f * d + k)
-    table = torch.from_numpy(rng.normal(size=(c, f)).astype(np.float32)).to(cuda_device, torch.bfloat16)
-    keys = torch.from_numpy(rng.integers(-c - 3, c + 3, k).astype(np.int32)).to(cuda_device)
-    nbrs = torch.from_numpy(rng.integers(-c - 3, c + 3, (k, d)).astype(np.int32)).to(cuda_device)
-    valid = rng.random((k, d)) < 0.7
-    valid[0] = False  # a row with no valid neighbor
-    valid = torch.from_numpy(valid).to(cuda_device)
-    want = sage.gather_mean_plain(table, keys, nbrs, valid)
-    before = sage.LAUNCHES["sage_gather_mean"]
-    got = sage.gather_mean(table, keys, nbrs, valid)
+    _name, c, f_in, f_out, k, d = case
+    args = _layer_inputs(cuda_device, c, f_in, f_out, k, d, f_in * d + k)
+    want = sage.sage_layer_plain(*args)
+    before = sage.LAUNCHES["sage_layer"]
+    got = sage.sage_layer(*args)
     torch.cuda.synchronize()
-    assert sage.LAUNCHES["sage_gather_mean"] == before + 1
-    assert torch.equal(got[:, :f], want[:, :f])  # the self rows are copies
-    # both sum in f32 and round once to bf16: they differ by the sums' order
-    # and at most one bf16 step (2^-7 of the value) where it flips a rounding
-    torch.testing.assert_close(got[:, f:].float(), want[:, f:].float(), rtol=2.0 ** -7, atol=1e-6)
+    assert sage.LAUNCHES["sage_layer"] == before + 1
+    assert got.shape == (k, f_out) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=SAGE_RTOL, atol=SAGE_ATOL)
+
+
+def test_sage_layer_writes_at_a_row_offset_and_skips_an_empty_bucket(cuda_device):
+    from gelly_streaming_tpu_torch.ops import sage
+
+    table, keys, nbrs, valid, w, bias = _layer_inputs(cuda_device, 4096, 128, 128, 100, 4, 5)
+    out = torch.full((300, 128), 7.0, dtype=torch.bfloat16, device=cuda_device)
+    before = sage.LAUNCHES["sage_layer"]
+    rows = sage.sage_layer(table, keys, nbrs, valid, w, bias, out=out, row0=37)
+    empty = sage.sage_layer(table, keys[:0], nbrs[:0], valid[:0], w, bias, out=out, row0=300)
+    torch.cuda.synchronize()
+    assert sage.LAUNCHES["sage_layer"] == before + 1 and empty.shape == (0, 128)
+    assert rows.data_ptr() == out[37].data_ptr()
+    assert bool((out[:37] == 7).all()) and bool((out[137:] == 7).all())
+    torch.testing.assert_close(out[37:137].float(), sage.sage_layer_plain(table, keys, nbrs, valid, w, bias).float(),
+                               rtol=SAGE_RTOL, atol=SAGE_ATOL)
+    wide = _layer_inputs(cuda_device, 64, 528, 8, 4, 2, 6)  # past one K chunk, into an out buffer too
+    out2 = torch.zeros((9, 8), dtype=torch.bfloat16, device=cuda_device)
+    sage.sage_layer(*wide, out=out2, row0=5)
+    torch.testing.assert_close(out2[5:].float(), sage.sage_layer_plain(*wide).float(), rtol=SAGE_RTOL, atol=SAGE_ATOL)
+    assert bool((out2[:5] == 0).all())
+
+
+MEAN_CASES = ["f128-d8", "f128-d1024", "f128-hub", "f12-f20-d4", "f40-f24-d600", "f640-f128-d4", "f1030-f200-d300"]
+
+
+@pytest.mark.parametrize("name", MEAN_CASES)
+def test_sage_layer_mean_matches_twin_at_one_bf16_step(cuda_device, name):
+    """The mean itself, held at one bf16 step: with W = [0; I], no bias and
+    a table of values >= 1 (ReLU keeps them) the layer writes bf16(mean),
+    which a dropped chunk or a wrong count would move by far more than the
+    layer tolerance lets show through a random W."""
+    from gelly_streaming_tpu_torch.ops import sage
+
+    _name, c, f_in, _f_out, k, d = next(case for case in SAGE_CASES if case[0] == name)
+    table, keys, nbrs, valid, _w, _b = _layer_inputs(cuda_device, c, f_in, f_in, k, d, f_in * d + k)
+    table = (table.float().abs() + 1).to(torch.bfloat16)
+    w = torch.cat([torch.zeros(f_in, f_in), torch.eye(f_in)]).to(cuda_device, torch.bfloat16)
+    bias = torch.zeros(f_in, dtype=torch.bfloat16, device=cuda_device)
+    got = sage.sage_layer(table, keys, nbrs, valid, w, bias).float()
+    mean = sage.gather_mean_plain(table, keys, nbrs, valid)[:, f_in:].float()
+    want = sage.sage_layer_plain(table, keys, nbrs, valid, w, bias).float()
+    assert torch.equal(want, mean)
+    assert bool((mean[valid.any(1)] >= 1).all())
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-6)
+
+
+SORT_CASES = {  # name: (src, mask) from rng
+    "negative-ids": lambda rng: (rng.integers(-5000, 5000, 70001), rng.random(70001) < 0.8),
+    "past-24-bits": lambda rng: (rng.integers(-(1 << 30), (1 << 30) - 1, 1 << 18), np.ones(1 << 18, bool)),
+    "ragged-n": lambda rng: (rng.integers(0, 1 << 20, 4096 * 3 + 17), rng.random(4096 * 3 + 17) < 0.5),
+    "one-key": lambda rng: (np.full(50000, 123456), rng.random(50000) < 0.9),
+    "all-masked": lambda rng: (rng.integers(0, 100, 5000), np.zeros(5000, bool)),
+    "one-row": lambda rng: (np.array([-7]), np.array([True])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_build_buckets_sort_matches_torch_sort(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+
+    rng = np.random.default_rng(len(case))
+    src, mask = SORT_CASES[case](rng)
+    dst = rng.integers(-9, 1 << 20, len(src))
+    ts, td = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (src, dst))
+    tm = torch.from_numpy(np.ascontiguousarray(mask)).to(cuda_device)
+    s, d, i, passes = nbh.sort_valid_rows(ts, td, tm)
+    ws, wd, wi = nbh.sort_valid_rows_plain(ts, td, tm)
+    assert torch.equal(i, wi) and torch.equal(s, ws) and torch.equal(d, wd)
+    v = src[mask]
+    assert passes == len(nbh.radix_plan(*((int(v.min()), int(v.max())) if len(v) else (None, None))))
+    got = nbh.build_buckets(ts, td, None, tm)
+    want = nbh.build_buckets_plain(ts, td, None, tm)
+    for g, w in zip(got, want):
+        assert g.num_keys == w.num_keys
+        for a, b in ((g.keys, w.keys), (g.nbrs, w.nbrs), (g.valid, w.valid)):
+            assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_slice_and_graphsage_on_gpu_match_cpu(cuda_device):

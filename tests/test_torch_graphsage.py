@@ -206,15 +206,54 @@ def test_refusals(monkeypatch):
 
 
 def test_gather_mean_twin_on_the_cpu_launches_nothing_and_checks_inputs():
+    """sage_layer on CPU tensors: its twin, no launch.  With W = I (F_out =
+    2 F_in) and a zero bias the rows are the gathered [x_self | mean]."""
     sage.reset_launches()
     table = torch.arange(12, dtype=torch.float32).view(4, 3).to(torch.bfloat16)
     keys = torch.tensor([-1, 4], dtype=torch.int32)
     nbrs = torch.tensor([[0, 1], [-5, 9]], dtype=torch.int32)
     valid = torch.tensor([[True, True], [True, False]])
-    out = sage.gather_mean(table, keys, nbrs, valid)
-    assert sage.LAUNCHES["sage_gather_mean"] == 0
-    assert out.float().tolist() == [[9, 10, 11, 1.5, 2.5, 3.5], [9, 10, 11, 0, 1, 2]]
+    w = torch.eye(6, dtype=torch.bfloat16)
+    bias = torch.zeros(6, dtype=torch.bfloat16)
+    out = sage.sage_layer(table, keys, nbrs, valid, w, bias)
+    assert sage.LAUNCHES["sage_layer"] == 0
+    want = [[9, 10, 11, 1.5, 2.5, 3.5], [9, 10, 11, 0, 1, 2]]
+    assert out.float().tolist() == want
+    buf = torch.full((5, 6), -1.0, dtype=torch.bfloat16)
+    rows = sage.sage_layer(table, keys, nbrs, valid, w, bias, out=buf, row0=2)
+    assert rows.data_ptr() == buf[2].data_ptr() and buf[2:4].float().tolist() == want
+    assert (buf[:2] == -1).all() and (buf[4] == -1).all()
+    assert sage.LAUNCHES["sage_layer"] == 0
     with pytest.raises(ValueError, match="table must be"):
-        sage.gather_mean(table.float(), keys, nbrs, valid)
+        sage.sage_layer(table.float(), keys, nbrs, valid, w, bias)
     with pytest.raises(ValueError, match="valid must be"):
-        sage.gather_mean(table, keys, nbrs, valid[:, :1].contiguous())
+        sage.sage_layer(table, keys, nbrs, valid[:, :1].contiguous(), w, bias)
+    with pytest.raises(ValueError, match="w must be"):
+        sage.sage_layer(table, keys, nbrs, valid, w[:5].contiguous(), bias)
+    with pytest.raises(ValueError, match="bias must be"):
+        sage.sage_layer(table, keys, nbrs, valid, w, bias[:5].contiguous())
+    with pytest.raises(ValueError, match="do not fit"):
+        sage.sage_layer(table, keys, nbrs, valid, w, bias, out=buf, row0=4)
+    with pytest.raises(ValueError, match="needs an out"):
+        sage.sage_layer(table, keys, nbrs, valid, w, bias, row0=1)
+
+
+@pytest.mark.parametrize("f_in,f_out,k,d", [(12, 20, 50, 4), (128, 128, 64, 8), (128, 128, 3, 300)])
+def test_sage_layer_plain_matches_jax(f_in, f_out, k, d):
+    """The layer's twin against the JAX sage_kernel at an odd width (the
+    kernel's CUDA-core instantiation) and at the repo's width (its
+    tensor-core one), rows longer than one 256-slot chunk among them."""
+    rng = np.random.default_rng(f_in * f_out + d)
+    c = 300
+    jp, tp = _params(f_in + d, f_in, f_out)
+    feats = rng.normal(size=(c, f_in)).astype(np.float32)
+    keys = rng.integers(-c - 2, c + 2, k).astype(np.int32)
+    nbrs = rng.integers(-c - 2, c + 2, (k, d)).astype(np.int32)
+    valid = rng.random((k, d)) < 0.7
+    valid[0] = False
+    want = jgs.sage_kernel(jp, jnp.asarray(feats), jnp.asarray(keys), jnp.asarray(nbrs), jnp.asarray(valid))
+    table = torch.from_numpy(feats).to(torch.bfloat16)
+    w = torch.cat([tp.w_self, tp.w_nbr], 0)
+    got = sage.sage_layer_plain(table, *(torch.from_numpy(a) for a in (keys, nbrs, valid)), w, tp.bias)
+    assert got.dtype == torch.bfloat16 and got.shape == (k, f_out)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **TOL)

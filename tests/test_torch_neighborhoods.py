@@ -195,3 +195,40 @@ def test_cpu_build_launches_no_kernel_and_checks_its_inputs():
         tnbh.build_buckets(src, src, None, mask[:3])
     with pytest.raises(ValueError, match="value leaf"):
         tnbh.build_buckets(src, src, torch.zeros(3), mask)
+
+
+@pytest.mark.parametrize("bits,lo,plan", [(1, 0, (0,)), (9, -3, (0, 8)), (20, 5, (0, 8, 16)),
+                                          (31, -(1 << 30), (0, 8, 16, 24))])
+def test_radix_plan_sorts_the_range_in_8_bit_digits(bits, lo, plan):
+    """The CUDA sort's passes for valid sources spanning exactly ``bits``
+    bits above lo: one 8-bit digit a pass, and no pass for bits above."""
+    hi = lo + (1 << bits) - 1
+    assert (hi - lo).bit_length() == bits
+    assert tnbh.radix_plan(lo, hi) == plan
+    assert tnbh.radix_plan(lo, lo + (1 << (bits - 1))) == plan  # the top bit alone sets the count
+    assert len(plan) <= len(tnbh.radix_plan(-(1 << 31), (1 << 31) - 1)) == 4  # csrc's kMaxPasses
+
+
+def test_radix_plan_of_an_all_masked_pane_is_one_pass():
+    src = torch.tensor([5, -3, 9, 5], dtype=torch.int32)
+    mask = torch.zeros(4, dtype=torch.bool)
+    s, d, i, passes = tnbh.sort_valid_rows(src, src.flip(0).contiguous(), mask)
+    assert tnbh.radix_plan(None, None) == (0,) and passes == 1
+    assert s.numel() == d.numel() == i.numel() == 0
+    assert tnbh.radix_plan(7, 7) == (0,)  # one key: the pass only drops the masked rows
+    assert all(b.num_keys == 0 for b in tnbh.build_buckets(src, src, None, mask))
+
+
+def test_sort_valid_rows_is_the_stable_order_of_the_valid_rows():
+    rng = np.random.default_rng(9)
+    n = 3000
+    src = rng.integers(-40, 60, n).astype(np.int32)
+    dst = rng.integers(0, 1000, n).astype(np.int32)
+    mask = rng.random(n) < 0.7
+    s, d, i, passes = tnbh.sort_valid_rows(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(mask))
+    keep = np.flatnonzero(mask)
+    order = keep[np.argsort(src[keep], kind="stable")]
+    np.testing.assert_array_equal(i.numpy(), order)
+    np.testing.assert_array_equal(s.numpy(), src[order])
+    np.testing.assert_array_equal(d.numpy(), dst[order])
+    assert passes == len(tnbh.radix_plan(int(src[keep].min()), int(src[keep].max()))) == 1
