@@ -113,6 +113,26 @@ current ones (parent, current, current, parent).  Then a window stage by
 stage (host pad, upload, build, layer, readback) and the device's busy
 share by torch.profiler.
 
+Phase 13 trains GraphSAGE at F = 128 through ``sage_init_train``,
+``sample_pairs`` and ``sage_train_step``: (a) the JAX bench's own batch
+(bench.py:2762-2812: K = 4096, D = 32, valid with p = 0.8, 2^14 vertices,
+Adam at lr 1e-2), 20 steps, step p50, pairs/s, the loss falling, the
+device's idle share; (b) every bucket of phase 12's first uniform pane
+through ``slice(ALL)`` (~1.03M keys over 2^20 vertices), one step a bucket
+for 3 passes, the row-weighted loss a pass falling, then the hub pane's
+buckets once (rows past 32 slots), peak memory, ``build_buckets``,
+``sage_layer`` and ``sage_layer_backward`` launched on that run (two layer
+calls and two backward calls a step); (c) ``sage_layer_backward``
+(``csrc/sage.cu``, the layer's weight gradient) against its twin on every
+bucket of (a) and (b), dw within 2^-7 * |A|^T |dH| and db within 2^-10 *
+sum |dH| (one bf16 step of each A entry carried through the product), two
+runs equal bit for bit, and a whole step's loss and gradients against
+autograd of the plain twin within rtol 2e-2 and rtol 5e-2 / atol 5e-3;
+(d) the backward over the uniform pane's buckets, device only on the
+held stream, its bound, the twin, and ``embedding_bag(mode="mean")`` +
+``mm(A^T, dH)`` as the yardstick; then over the same steps' contexts (2K
+rows a bucket, D = 0).
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -188,6 +208,24 @@ SAGE_REPS = 20
 # the CUDA cores at the 602 features of the GraphSAGE paper's Reddit graph
 SAGE_WIDTHS = ((256, 256), (640, 128), (64, 40), (602, 41))
 SAGE_HUB_REPS = 10  # the hub pane's 21 buckets: keep the held stream under ~1000 launches
+
+# phase 13, GraphSAGE training: the JAX bench's own batch (bench.py:2762-2812:
+# K = 4096 keys of D = 32 slots, valid with p = 0.8, features normal over
+# 2^14 vertices, F = 128, optax.adam(1e-2)), then every bucket of phase 12's
+# first uniform pane and, once, of its hub pane
+TRAIN_BENCH_K, TRAIN_BENCH_D, TRAIN_BENCH_C = 4096, 32, 1 << 14
+TRAIN_LR = 1e-2
+TRAIN_BENCH_STEPS = 20
+TRAIN_PASSES = 3  # one step a bucket a pass over the uniform pane
+# sage_layer_backward against its twin: both rebuild A = [x_self | mean] in
+# bf16, a mean at most one bf16 step apart (the kernel multiplies by the
+# count's reciprocal, the twin divides); carried through the product that
+# is 2^-7 |A|^T |dH| for dw, and the f32 sums' order (blocks' partials
+# against torch's reduction) stays far inside it; db sums dH alone
+SAGE_BWD_RTOL, SAGE_BWD_DB_RTOL = 2.0 ** -7, 2.0 ** -10
+# a whole step against the twin's autograd: the JAX package's bounds between
+# its training planes (tests/test_graphsage.py:164,170-173)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 2e-2, 5e-2, 5e-3
 
 
 def log(msg: str) -> None:
@@ -2326,6 +2364,335 @@ def phase_sage(dev, cycles_per_ms: float, parents: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 13: GraphSAGE training on the card
+
+
+def backward_err(table, b, z, dz) -> tuple:
+    """(max |kernel - twin| of dw, of db) of sage_layer_backward over one
+    bucket, each within SAGE_BWD_RTOL * |A|^T |dH| (db: SAGE_BWD_DB_RTOL *
+    sum |dH|), and two runs of the kernel equal bit for bit."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import sage
+
+    f_in, f_out = table.shape[1], z.shape[1]
+
+    def run(fn):
+        dw = torch.zeros((2 * f_in, f_out), dtype=torch.float32, device=z.device)
+        db = torch.zeros((f_out,), dtype=torch.float32, device=z.device)
+        return fn(table, b.keys, b.nbrs, b.valid, z, dz, dw, db)
+
+    got, again, want = run(sage.sage_layer_backward), run(sage.sage_layer_backward), \
+        run(sage.sage_layer_backward_plain)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise RuntimeError(f"sage_layer_backward gave two dw or db on one bucket (D={b.nbrs.shape[1]})")
+    dh = torch.where(z > 0, dz.float(), 0.0).abs()
+    a = sage.gather_mean_plain(table, b.keys, b.nbrs, b.valid).float().abs()
+    errs = []
+    for x, y, tol in zip(got, want, (SAGE_BWD_RTOL * (a.T @ dh) + 1e-6, SAGE_BWD_DB_RTOL * dh.sum(0) + 1e-6)):
+        diff = (x - y).abs()
+        if bool((diff > tol).any()):
+            raise RuntimeError(f"sage_layer_backward differs from its twin past its bound (D={b.nbrs.shape[1]}, "
+                               f"max |err| {float(diff.max()):.6g})")
+        errs.append(float(diff.max()))
+    return tuple(errs)
+
+
+def step_grads_err(params, args) -> tuple:
+    """(loss |rel err|, grads max |err|) of one step's loss and gradients
+    through the kernels (SageLayerFn) against autograd of the plain twin on
+    the same inputs, on the card, within TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL."""
+    import torch
+
+    from gelly_streaming_tpu_torch.library import graphsage as gs
+    from gelly_streaming_tpu_torch.ops import sage
+
+    loss = gs.sage_loss(params, *args)
+    grads = torch.autograd.grad(loss, list(params))
+    loss_p = gs._loss(sage.sage_layer_plain, params, *args)
+    grads_p = torch.autograd.grad(loss_p, list(params))
+    loss, loss_p = float(loss.detach()), float(loss_p.detach())
+    rel = abs(loss - loss_p) / abs(loss_p)
+    worst = 0.0
+    for g, w in zip(grads, grads_p):
+        diff = (g - w).abs()
+        if bool((diff > TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * w.abs()).any()) or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"a step's gradient differs from the twin's autograd (max |err| "
+                               f"{float(diff.max()):.6g})")
+        worst = max(worst, float(diff.max()))
+    if rel > TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"a step's loss {loss} differs from the twin's {loss_p}")
+    return rel, worst
+
+
+def train_profile(fn, reps: int):
+    """(device busy ms per call of ``fn`` by torch.profiler, its top six
+    device rows as (name, ms per call)); (None, []) if the profiler
+    fails.  Only the device's own rows (kernels, copies, sets) count: the
+    autograd and optimizer ranges, and their annotations on the device's
+    timeline, also carry the device time of what they launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            device_row = getattr(evt, "device_type", None) == DeviceType.CUDA
+            if device_row and not getattr(evt, "is_user_annotation", False) and us and evt.count:
+                rows[evt.key] = (us / evt.count, evt.count)
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+        return None, []
+    top = sorted(rows.items(), key=lambda r: -r[1][0] * r[1][1])[:6]
+    names = [re.split(r"[<(]", k.replace("(anonymous namespace)::", "").removeprefix("void "))[0]
+             .split("::")[-1].strip()[:40] for k, _ in top]
+    return (sum(us * calls for us, calls in rows.values()) / reps / 1e3,
+            [(name, round(us * calls / reps / 1e3, 4)) for name, (_, (us, calls)) in zip(names, top)])
+
+
+def phase_train(dev, cycles_per_ms: float) -> dict:
+    """Phase 13: GraphSAGE training at F = 128 through sage_init_train,
+    sample_pairs and sage_train_step: (a) the JAX bench's batch, 20 steps;
+    (b) every bucket of phase 12's first uniform pane (slice(ALL) ->
+    build_buckets), one step a bucket for TRAIN_PASSES passes, then the hub
+    pane's buckets once, launches counted; (c) sage_layer_backward against
+    its twin on every bucket of (a) and (b) and bit for bit across runs, a
+    whole step against the twin's autograd; (d) the backward's times."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeDirection
+    from gelly_streaming_tpu_torch.library import graphsage as gs
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import sage
+
+    f = SAGE_FEATURES
+    out = {}
+
+    # (a) the bench's batch (bench.py's seed 9 and draws)
+    rng = np.random.default_rng(9)
+    k, d, c = TRAIN_BENCH_K, TRAIN_BENCH_D, TRAIN_BENCH_C
+    feats = rng.normal(size=(c, f)).astype(np.float32)
+    keys = rng.integers(0, c, k).astype(np.int32)
+    nbrs = rng.integers(0, c, (k, d)).astype(np.int32)
+    valid = rng.random((k, d)) < 0.8
+    table = torch.from_numpy(feats).to(dev).to(torch.bfloat16)
+    tk, tn, tv = to_dev((keys, nbrs, valid), dev)
+    state = gs.sage_init_train(f, f, lr=TRAIN_LR, generator=torch.Generator().manual_seed(1), device=dev)
+    pairs = gs.sample_pairs(torch.Generator(device=dev).manual_seed(2), tn, tv, c)
+    args = (table, tk, tn, tv, *pairs)
+    bench_step_err = step_grads_err(state.params, args)
+    times, losses = [], []
+    for _ in range(TRAIN_BENCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = gs.sage_train_step(state, *args)
+        losses.append(float(loss))  # synchronizes
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times[1:], 50)) * 1e3
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"the bench batch's loss did not fall: {losses}")
+    busy, top = train_profile(lambda: gs.sage_train_step(state, *args), 5)
+    idle = None if busy is None else 100 * (1 - busy / p50)
+    log(f"  (a) the bench's batch (K = {k}, D = {d}, p = 0.8, {c} vertices, F = {f}, lr {TRAIN_LR}): "
+        f"{TRAIN_BENCH_STEPS} steps, step p50 {p50:.4f} ms (host clock, synchronized; the first "
+        f"{times[0] * 1e3:.2f} ms), {k / p50 * 1e3:.6g} pairs/s, loss {losses[0]:.6g} -> {losses[-1]:.6g}; "
+        f"torch.profiler: device busy {busy if busy is None else round(busy, 4)} ms a step, idle "
+        f"{idle if idle is None else round(idle, 2)}%; a step against the twin's autograd: loss rel err "
+        f"{bench_step_err[0]:.3g}, grads max |err| {bench_step_err[1]:.3g}; top device rows a step: {top}")
+    z = sage.sage_layer(table, tk, tn, tv, gs._stacked(gs._as_bf16(state.params)).detach(),
+                        state.params.bias.detach().to(torch.bfloat16))
+    dz = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev).to(torch.bfloat16)
+    bench_bucket = nbh.NeighborhoodBucket(tk, tn, None, tv, k)
+    bench_err = backward_err(table, bench_bucket, z, dz)
+    out["bench"] = {"step_p50_ms": p50, "first_step_ms": times[0] * 1e3, "pairs_per_s": k / p50 * 1e3,
+                    "loss_first": losses[0], "loss_last": losses[-1], "device_busy_ms": busy, "idle_pct": idle,
+                    "step_loss_rel_err": bench_step_err[0], "step_grad_err": bench_step_err[1],
+                    "backward_err": bench_err}
+    del table, args, pairs, z, dz
+
+    # (b) the main path at realistic scale: a uniform pane's buckets, then the hub pane's
+    c, e = SAGE_VERTICES, SAGE_PANE_EDGES
+    src, dst = sage_stream_arrays()
+    table = torch.randn((c, f), generator=torch.Generator(device=dev).manual_seed(4), device=dev).to(torch.bfloat16)
+    cfg = StreamConfig(vertex_capacity=c, batch_size=e, ingest_window_edges=e)
+
+    def buckets(w):  # pane w's non-empty buckets, through slice(ALL)
+        return list(EdgeStream.from_arrays(src[w * e:(w + 1) * e], dst[w * e:(w + 1) * e], cfg, device=dev).slice(
+            WINDOW_MS, EdgeDirection.ALL)._neighborhood_panes())
+
+    state = gs.sage_init_train(f, f, lr=TRAIN_LR, generator=torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nbh.reset_launches()
+    sage.reset_launches()
+    t_run = time.perf_counter()
+    hoods = buckets(0)
+    step_s = [0.0] * len(hoods)
+    pass_loss, sample_s, steps = [], 0.0, 0
+    for _ in range(TRAIN_PASSES):
+        total = 0.0
+        for i, h in enumerate(hoods):
+            t0 = time.perf_counter()
+            pairs = gs.sample_pairs(gen, h.nbrs, h.valid, c)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, loss = gs.sage_train_step(state, table, h.keys, h.nbrs, h.valid, *pairs)
+            total += float(loss) * h.num_keys  # synchronizes
+            step_s[i] += time.perf_counter() - t1
+            sample_s += t1 - t0
+            steps += 1
+        pass_loss.append(total / sum(h.num_keys for h in hoods))
+    hub = buckets(SAGE_PANES)
+    hub_losses = []
+    for h in hub:
+        pairs = gs.sample_pairs(gen, h.nbrs, h.valid, c)
+        state, loss = gs.sage_train_step(state, table, h.keys, h.nbrs, h.valid, *pairs)
+        hub_losses.append(float(loss))
+        steps += 1
+    run_s = time.perf_counter() - t_run
+    launches = {"build_buckets": nbh.LAUNCHES["build_buckets"], "sage_layer": sage.LAUNCHES["sage_layer"],
+                "sage_layer_backward": sage.LAUNCHES["sage_layer_backward"]}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches != {"build_buckets": 2, "sage_layer": 2 * steps, "sage_layer_backward": 2 * steps}:
+        raise RuntimeError(f"training launched {launches} for {steps} steps over 2 panes")
+    if not all(np.isfinite(pass_loss + hub_losses)) or pass_loss[-1] >= pass_loss[0]:
+        raise RuntimeError(f"the pane's loss did not fall over the passes: {pass_loss}")
+    rows = sum(h.num_keys for h in hoods)
+    train_s = sum(step_s)
+
+    def one_pass():
+        nonlocal state
+        for h in hoods:
+            state, _ = gs.sage_train_step(state, table, h.keys, h.nbrs, h.valid,
+                                          *gs.sample_pairs(gen, h.nbrs, h.valid, c))
+
+    pass_busy, pass_top = train_profile(one_pass, 1)
+    log(f"  (b) uniform pane 0 ({rows} keys in {len(hoods)} buckets, D {[h.nbrs.shape[1] for h in hoods]}, "
+        f"{c} vertices, F = {f}): {TRAIN_PASSES} passes of one step a bucket; step ms a bucket "
+        f"{[round(x / TRAIN_PASSES * 1e3, 3) for x in step_s]}, a pass {train_s / TRAIN_PASSES * 1e3:.3f} ms, "
+        f"{rows * TRAIN_PASSES / train_s:.6g} pairs/s (steps alone; sample_pairs {sample_s * 1e3:.2f} ms in all); "
+        f"loss a pass (row-weighted) {[round(x, 5) for x in pass_loss]}; then the hub pane's {len(hub)} buckets "
+        f"once (D up to {max(h.nbrs.shape[1] for h in hub)}): losses {[round(x, 4) for x in hub_losses]}; the whole "
+        f"run {run_s:.3f} s with the two slice() builds; peak device memory {peak_gb:.3f} GB; launches {launches}; "
+        f"torch.profiler, one more pass: device busy {pass_busy if pass_busy is None else round(pass_busy, 4)} ms "
+        f"({'-' if pass_busy is None else round(100 * (1 - pass_busy / (train_s / TRAIN_PASSES * 1e3)), 2)}% idle "
+        f"against a counted pass), top rows {pass_top}")
+
+    # (c) the kernel against its twin on every bucket, the trained weights' z
+    w = gs._stacked(gs._as_bf16(state.params)).detach()
+    bias = state.params.bias.detach().to(torch.bfloat16)
+    zs, dzs = [], []
+    worst = [0.0, 0.0]
+    g3 = torch.Generator(device=dev).manual_seed(6)
+    for h in hoods + hub:
+        z = sage.sage_layer(table, h.keys, h.nbrs, h.valid, w, bias)
+        dz = torch.randn(z.shape, generator=g3, device=dev).to(torch.bfloat16)
+        worst = list(map(max, worst, backward_err(table, h, z, dz)))
+        if len(zs) < len(hoods):
+            zs.append(z)
+            dzs.append(dz)
+    big = max(hoods, key=lambda h: h.num_keys)
+    pane_step_err = step_grads_err(state.params, (table, big.keys, big.nbrs, big.valid,
+                                                  *gs.sample_pairs(gen, big.nbrs, big.valid, c)))
+    log(f"  (c) sage_layer_backward within {SAGE_BWD_RTOL} * |A|^T |dH| (db: {SAGE_BWD_DB_RTOL} * sum |dH|) of its "
+        f"twin on the bench's bucket and all {len(hoods) + len(hub)} buckets of both panes, equal bit for bit "
+        f"across two runs: max |err| dw {max(worst[0], bench_err[0]):.6g}, db {max(worst[1], bench_err[1]):.6g}; "
+        f"a step on the largest bucket ({big.num_keys} keys) against the twin's autograd: loss rel err "
+        f"{pane_step_err[0]:.3g}, grads max |err| {pane_step_err[1]:.3g}")
+
+    # (d) the backward over the uniform pane's buckets: device only, bound, twin, library
+    dws = torch.zeros((2 * f, f), dtype=torch.float32, device=dev)
+    dbs = torch.zeros((f,), dtype=torch.float32, device=dev)
+
+    def backward():
+        for h, z, dz in zip(hoods, zs, dzs):
+            sage.sage_layer_backward(table, h.keys, h.nbrs, h.valid, z, dz, dws, dbs)
+
+    b_ms, b_us = device_ms(backward, SAGE_REPS, cycles_per_ms)
+    b_events = cuda_ms(backward, SAGE_REPS)
+    plain_ms = cuda_ms(lambda: [sage.sage_layer_backward_plain(table, h.keys, h.nbrs, h.valid, z, dz, dws, dbs)
+                                for h, z, dz in zip(hoods, zs, dzs)], 2, 1)
+    slots = sum(h.nbrs.numel() for h in hoods)
+    distinct = int(torch.unique(torch.cat([h.keys for h in hoods] + [h.nbrs[h.valid] for h in hoods])).numel())
+    # each input once: ids and flags, each distinct table row a key or a
+    # valid neighbor names, z and dz; dw and db read and written once
+    bytes_ = 4 * rows + 5 * slots + 2 * f * distinct + 2 * 2 * f * rows + 2 * 4 * (2 * f * f + f)
+    ops = 2 * rows * 2 * f * f
+    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    # the yardstick: embedding_bag(mode="mean") over the valid neighbors,
+    # then one product A^T dH (bf16, the tensor cores); on no path
+    flat = torch.cat([h.nbrs[h.valid] for h in hoods]).long()
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(torch.cat([h.valid.sum(1) for h in hoods]), 0)[:-1]])
+    keys_all = torch.cat([h.keys for h in hoods]).long()
+    bag = torch.nn.functional.embedding_bag(flat, table, offs, mode="mean")
+    xm_t = torch.cat([table[keys_all], bag.to(torch.bfloat16)], 1).t()
+    dh = torch.cat([torch.where(z > 0, dz, 0) for z, dz in zip(zs, dzs)])
+    bag_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(flat, table, offs, mode="mean"), SAGE_REPS)
+    mm_ms = cuda_ms(lambda: torch.mm(xm_t, dh), SAGE_REPS)
+    ref = torch.zeros_like(dws)
+    for h, z, dz in zip(hoods, zs, dzs):
+        sage.sage_layer_backward(table, h.keys, h.nbrs, h.valid, z, dz, ref, torch.zeros_like(dbs))
+    lib_err = float((torch.mm(xm_t, dh).float() - ref).abs().max())
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  (d) sage_layer_backward over the uniform pane's {len(hoods)} buckets ({rows} rows, {slots} slots), "
+        f"device only: {b_ms:.4f} ms, host enqueue {b_us:.1f} us ({b_us / len(hoods):.2f} us a call); back-to-back "
+        f"events {b_events:.4f} ms; bound {bound:.5f} ms ({bound_by}: {bytes_} B, {distinct} distinct table rows, "
+        f"{bytes_ms:.5f} ms; {ops} bf16 operations, {ops_ms:.5f} ms), {b_ms / bound:.3f}x it; plain twin "
+        f"{plain_ms:.3f} ms; yardstick embedding_bag(mode='mean') {bag_ms:.4f} ms + mm(A^T, dH) {mm_ms:.4f} ms = "
+        f"{bag_ms + mm_ms:.4f} ms (max |diff| of its dw to the kernel's {lib_err:.4g})")
+    # the step's other backward call: the contexts, 2K rows a bucket over an
+    # empty neighborhood (a self row each, the W_nbr half's product all 0)
+    ctx = []
+    for h in hoods:
+        ids = torch.cat(gs.sample_pairs(gen, h.nbrs, h.valid, c)[::2])
+        empty = ids.new_empty((ids.shape[0], 0))
+        cz = sage.sage_layer(table, ids, empty, empty.bool(), w, bias)
+        ctx.append((ids, empty, empty.bool(), cz, torch.randn(cz.shape, generator=g3, device=dev).to(torch.bfloat16)))
+
+    def ctx_backward():
+        for ids, empty, none, cz, cdz in ctx:
+            sage.sage_layer_backward(table, ids, empty, none, cz, cdz, dws, dbs)
+
+    c_ms, _ = device_ms(ctx_backward, SAGE_REPS, cycles_per_ms)
+    c_rows = 2 * rows
+    c_distinct = int(torch.unique(torch.cat([x[0] for x in ctx])).numel())
+    c_bytes = 4 * c_rows + 2 * f * c_distinct + 2 * 2 * f * c_rows + 2 * 4 * (2 * f * f + f)
+    c_bound = max(c_bytes / HBM_BYTES_PER_S * 1e3, 2 * c_rows * 2 * f * f / BF16_FLOPS_PER_S * 1e3)
+    log(f"  (d) sage_layer_backward over the contexts of the pane's {len(hoods)} steps ({c_rows} rows, D = 0), "
+        f"device only: {c_ms:.4f} ms; bound {c_bound:.5f} ms ({c_bytes} B, {c_distinct} distinct table rows), "
+        f"{c_ms / c_bound:.3f}x it")
+    out["backward"] = {"ms": b_events, "device_ms": b_ms, "host_us": b_us, "host_us_a_call": b_us / len(hoods),
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "bytes_ms": bytes_ms,
+                       "ops_ms": ops_ms, "library_ms": bag_ms + mm_ms, "embedding_bag_ms": bag_ms, "mm_ms": mm_ms,
+                       "launches": launches["sage_layer_backward"],
+                       "err": max(worst[0], worst[1], bench_err[0], bench_err[1]),
+                       "dw_err": max(worst[0], bench_err[0]), "db_err": max(worst[1], bench_err[1]),
+                       "contexts": {"device_ms": c_ms, "bound_ms": c_bound, "rows": c_rows}}
+    out["pane"] = {"rows": rows, "buckets": len(hoods), "step_ms": [x / TRAIN_PASSES * 1e3 for x in step_s],
+                   "pass_ms": train_s / TRAIN_PASSES * 1e3, "pairs_per_s": rows * TRAIN_PASSES / train_s,
+                   "pass_loss": pass_loss, "hub_losses": hub_losses, "peak_gb": peak_gb, "launches": launches,
+                   "pass_device_busy_ms": pass_busy,
+                   "step_loss_rel_err": pane_step_err[0], "step_grad_err": pane_step_err[1]}
+    return out
+
+
 def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, props: dict, cc: dict,
                 bp: dict) -> dict:
     """Phase 11: the redesigned degree_trace and union calls in turns with
@@ -2668,6 +3035,8 @@ def main(argv=None) -> int:
     bp = phase_bipartite(dev, cpm, data)
     log("phase 12: slice() and windowed GraphSAGE at F = 128 on the card")
     sg = phase_sage(dev, cpm, {k: load_baseline(path, PARENT_SIGNATURES[k]) for k, path in parent_sage_cu.items()})
+    log("phase 13: GraphSAGE training at F = 128 on the card")
+    tr = phase_train(dev, cpm)
     turned = {}
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
@@ -2775,6 +3144,13 @@ def main(argv=None) -> int:
                                         "addmm_ms", "hub", "turns", "widths_ms") if k in sg["layer"]},
          "windows_per_s": sg["windows_per_s"],
          "edges_per_s": sg["edges_per_s"], "embeddings_per_s": sg["embeddings_per_s"]},
+        {**entry("sage_layer_backward", "sage.cu", "gelly_streaming_tpu/library/graphsage.py:396", tr["backward"],
+                 tr["backward"]["library_ms"]),
+         "bound_by": tr["backward"]["bound_by"],
+         "library_call": "embedding_bag(mode='mean') + mm(A^T, dH) (no one call computes the gradient)",
+         **{k: tr["backward"][k] for k in ("host_us_a_call", "dw_err", "db_err", "embedding_bag_ms", "mm_ms",
+                                           "contexts")},
+         "train_bench": tr["bench"], "train_pane": tr["pane"]},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,14 @@
-// One GraphSAGE layer on Hopper (sm_90a) as one kernel, behind a plain C
-// interface loaded with ctypes (gelly_streaming_tpu_torch/ops/_cuda.py,
-// ops/sage.py).
+// One GraphSAGE layer on Hopper (sm_90a) as one kernel, and its weight
+// gradient, behind a plain C interface loaded with ctypes
+// (gelly_streaming_tpu_torch/ops/_cuda.py, ops/sage.py).
 //
 // Replaces sage_kernel (gelly_streaming_tpu/library/graphsage.py:53-62), an
 // XLA program of the JAX package: features[keys] and features[nbrs]
 // gathered into [K, F] and [K, D, F] bf16 tensors, a masked sum over D and a
 // division by the valid count, the two projections, the bias and ReLU.
+// The weight gradient (sage_layer_backward, at the end of the file)
+// replaces the backward that XLA derives from it for sage_train_step
+// (graphsage.py:396, jax.value_and_grad of sage_loss).
 //
 // For one degree bucket ([K] keys, [K, D] neighbors and valid flags) the
 // kernel writes out[row] = relu([bf16(table[key]) | bf16(sum * (1 / max(n,
@@ -877,6 +880,263 @@ cudaError_t launch_layer(LayerArgs a, const Plan& p, cudaStream_t s) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// A bucket's gather arguments into a, after launching the partial-sum
+// kernel where rows pass kDirectSlots (nchunks > 0).
+cudaError_t start_gather(LayerArgs& a, const void* table, int c, int f_in, const void* keys, const void* nbrs,
+                         const void* valid, int k, int d, int chunk, int nchunks, void* part, void* part_cnt, bool vec,
+                         cudaStream_t s) {
+  a.table = static_cast<const __nv_bfloat16*>(table);
+  a.c = c;
+  a.f_in = f_in;
+  a.keys = static_cast<const int*>(keys);
+  a.nbrs = static_cast<const int*>(nbrs);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.k = k;
+  a.d = d;
+  a.part = static_cast<const float*>(part);
+  a.part_cnt = static_cast<const int*>(part_cnt);
+  a.nchunks = nchunks;
+  if (nchunks == 0) return cudaSuccess;
+  const long long items = static_cast<long long>(k) * nchunks;
+  const unsigned blocks = static_cast<unsigned>((items + kWarps - 1) / kWarps);
+  if (vec) {
+    sage_partial_kernel<8><<<blocks, kThreads, 0, s>>>(a.table, c, f_in, a.nbrs, a.valid, k, d, chunk, nchunks,
+                                                        static_cast<float*>(part), static_cast<int*>(part_cnt));
+  } else {
+    sage_partial_kernel<1><<<blocks, kThreads, 0, s>>>(a.table, c, f_in, a.nbrs, a.valid, k, d, chunk, nchunks,
+                                                        static_cast<float*>(part), static_cast<int*>(part_cnt));
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The layer's weight gradient (sage_layer_backward).  For one bucket:
+// dw += [x_self | mean]^T . dH and db += sum_rows dH, dH = dz * [z > 0] in
+// f32, from the bf16 output z and its bf16 gradient dz.  The A rows are
+// rebuilt by the forward's gather (gather_tile, padded rows; rows of more
+// than 32 slots from sage_partial_kernel's chunks), so the gradient is
+// taken at the very A the forward multiplied.  Persistent blocks walk the
+// row tiles and keep a [2 kBackChunk, kBackCols] partial of dw in f32
+// registers (a thread 16 rows x 8 columns of it, the product on the CUDA
+// cores); each block writes its partial to scratch and
+// sage_backward_reduce_kernel adds the blocks' partials in block order, so
+// dw is the same bit for bit from run to run (atomics would not be).
+//
+// Bound on the H100 (bytes), for a uniform pane's buckets of the GraphSAGE
+// main path (~1.03M keys, F = 128): the ids and flags, each distinct table
+// row once, z and dz (2 F_out B a row each), dw and db: about 0.82 GB,
+// 0.245 ms at 3.35 TB/s; the product (2 * K * 2 F_in * F_out, 67 GFLOP)
+// takes 0.068 ms at the dense bf16 rate but at least 1 ms on the f32 CUDA
+// cores (67 TFLOP/s), which this first kernel uses: a block's 248 registers
+// a thread hold the partial, one block an SM, the gather not overlapped
+// with the product.  The tensor cores (wgmma on the transposed A-tile) are
+// the redesign.
+
+constexpr int kBackChunk = 128;  // features a K chunk: dw tiles of 2 * 128 rows
+constexpr int kBackCols = 128;   // dw columns a tile
+constexpr int kBackMaxBlocksPerSm = 2;  // the scratch's sizing: at most this many blocks an SM
+constexpr int kBackAs = 2 * kBackChunk + kPad;  // the A-tile's row stride (bf16)
+constexpr int kBackHs = kBackCols + 4;         // dH's row stride (f32)
+
+struct BackArgs {
+  const __nv_bfloat16* z;   // [k, f_out]
+  const __nv_bfloat16* dz;  // [k, f_out]
+  int f_out;
+  float* part_dw;  // [grid, 2 f_in, f_out]
+  float* part_db;  // [grid, f_out]
+};
+
+// shared memory: the A-tile (bf16 [64, kBackAs]), dH (f32 [64, kBackHs]),
+// the partial sums' scratch (kThreads * 8 floats, kThreads ints)
+constexpr size_t kBackHOff = round_up(static_cast<size_t>(kTileRows) * kBackAs * 2, 16);
+constexpr size_t kBackSmem =
+    kBackHOff + static_cast<size_t>(kTileRows) * kBackHs * 4 + static_cast<size_t>(kThreads) * 9 * 4;
+
+// The tile's dH = dz * [z > 0] in f32, columns [n0, n0 + ncols) into s_h
+// (0 past ncols); rows past the bucket are not read.  kVec: 16-byte loads
+// (f_out a multiple of 8, z and dz 16-byte aligned).
+template <bool kVec>
+__device__ __forceinline__ void load_dh(const BackArgs& b, int r0, int rows, int n0, int ncols, float* s_h) {
+  if constexpr (kVec) {
+    for (int i = threadIdx.x; i < kTileRows * (kBackCols / 8); i += kThreads) {
+      const int r = i / (kBackCols / 8);
+      const int c8 = (i - r * (kBackCols / 8)) * 8;
+      if (r >= rows) continue;
+      float h[8];
+      if (c8 < ncols) {
+        const long long off = static_cast<long long>(r0 + r) * b.f_out + n0 + c8;
+        const uint4 zr = __ldg(reinterpret_cast<const uint4*>(b.z + off));
+        const uint4 dr = __ldg(reinterpret_cast<const uint4*>(b.dz + off));
+        const __nv_bfloat16* zh = reinterpret_cast<const __nv_bfloat16*>(&zr);
+        const __nv_bfloat16* dh = reinterpret_cast<const __nv_bfloat16*>(&dr);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) h[j] = __bfloat162float(zh[j]) > 0.f ? __bfloat162float(dh[j]) : 0.f;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) h[j] = 0.f;
+      }
+      float4* dst = reinterpret_cast<float4*>(s_h + r * kBackHs + c8);
+      dst[0] = make_float4(h[0], h[1], h[2], h[3]);
+      dst[1] = make_float4(h[4], h[5], h[6], h[7]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTileRows * kBackCols; i += kThreads) {
+      const int r = i / kBackCols;
+      const int c = i - r * kBackCols;
+      if (r >= rows) continue;
+      float h = 0.f;
+      if (c < ncols) {
+        const long long off = static_cast<long long>(r0 + r) * b.f_out + n0 + c;
+        h = __bfloat162float(b.z[off]) > 0.f ? __bfloat162float(b.dz[off]) : 0.f;
+      }
+      s_h[r * kBackHs + c] = h;
+    }
+  }
+}
+
+// Persistent blocks walk the bucket's 64-row tiles, for each dw tile (K
+// chunk k0 of kBackChunk features: the A-tile's self columns [0, kw) and
+// mean columns [kw, 2 kw) are dw rows k0.. and f_in + k0..; n-tile n0)
+// in turn, the A-tile gathered anew for each.  Thread (ty, tx) keeps dw
+// tile rows 16 ty.. and columns 8 tx.. in acc, adding the tile's rows in
+// order; the column sums of dH (db) are taken with the first K chunk.
+template <int V, bool kVecH>
+__global__ void __launch_bounds__(kThreads, 1) sage_backward_kernel(LayerArgs a, BackArgs b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* s_h = reinterpret_cast<float*>(smem + kBackHOff);
+  float* s_red = s_h + kTileRows * kBackHs;
+  const int tiles = (a.k + kTileRows - 1) / kTileRows;
+  const int tx = threadIdx.x % (kBackCols / 8);
+  const int ty = threadIdx.x / (kBackCols / 8);
+  const int m0 = ty * 16;
+  const int c0 = tx * 8;
+  float* pdw = b.part_dw + static_cast<long long>(blockIdx.x) * 2 * a.f_in * b.f_out;
+  for (int n0 = 0; n0 < b.f_out; n0 += kBackCols) {
+    const int ncols = b.f_out - n0 < kBackCols ? b.f_out - n0 : kBackCols;
+    for (int k0 = 0; k0 < a.f_in; k0 += kBackChunk) {
+      const int kw = a.f_in - k0 < kBackChunk ? a.f_in - k0 : kBackChunk;
+      float acc[16][8];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      float dbacc = 0.f;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int r0 = tile * kTileRows;
+        const int rows = a.k - r0 < kTileRows ? a.k - r0 : kTileRows;
+        gather_tile<V, false>(a, r0, k0, kw, s_a, kBackAs, s_red);
+        load_dh<kVecH>(b, r0, rows, n0, ncols, s_h);
+        cp_async_wait_all();
+        __syncthreads();
+        if (k0 == 0 && threadIdx.x < ncols)
+          for (int r = 0; r < rows; ++r) dbacc += s_h[r * kBackHs + threadIdx.x];
+#pragma unroll 2
+        for (int r = 0; r < rows; ++r) {
+          const uint4* ap = reinterpret_cast<const uint4*>(s_a + r * kBackAs + m0);
+          const uint4 a0 = ap[0];
+          const uint4 a1 = ap[1];
+          const float4* hp = reinterpret_cast<const float4*>(s_h + r * kBackHs + c0);
+          const float4 h0 = hp[0];
+          const float4 h1 = hp[1];
+          const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+          const __nv_bfloat162* a2[2] = {reinterpret_cast<const __nv_bfloat162*>(&a0),
+                                         reinterpret_cast<const __nv_bfloat162*>(&a1)};
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) {
+            const float2 av = __bfloat1622float2(a2[i2 / 4][i2 % 4]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              acc[2 * i2][j] = fmaf(av.x, hv[j], acc[2 * i2][j]);
+              acc[2 * i2 + 1][j] = fmaf(av.y, hv[j], acc[2 * i2 + 1][j]);
+            }
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int m = m0 + i;
+        if (m >= 2 * kw) continue;
+        const long long row = m < kw ? k0 + m : a.f_in + k0 + (m - kw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (c0 + j < ncols) pdw[row * b.f_out + n0 + c0 + j] = acc[i][j];
+      }
+      if (k0 == 0 && threadIdx.x < ncols)
+        b.part_db[static_cast<long long>(blockIdx.x) * b.f_out + n0 + threadIdx.x] = dbacc;
+    }
+  }
+}
+
+// dw[e] += the blocks' partials of element e, added in block order (and db
+// likewise): a thread an element.
+__global__ void __launch_bounds__(kThreads) sage_backward_reduce_kernel(const float* __restrict__ part_dw,
+                                                                       const float* __restrict__ part_db, int blocks,
+                                                                       long long n_dw, int f_out, float* dw,
+                                                                       float* db) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e < n_dw) {
+    float s = 0.f;
+    for (int g = 0; g < blocks; ++g) s += part_dw[static_cast<long long>(g) * n_dw + e];
+    dw[e] += s;
+  } else if (e < n_dw + f_out) {
+    const long long c = e - n_dw;
+    float s = 0.f;
+    for (int g = 0; g < blocks; ++g) s += part_db[static_cast<long long>(g) * f_out + c];
+    db[c] += s;
+  }
+}
+
+// The backward's blocks for k rows: one a tile, at most the blocks the
+// SMs hold at once (and at most kBackMaxBlocksPerSm an SM).
+template <int V, bool kVecH>
+cudaError_t backward_grid(int k, int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  // per instantiation and device: the blocks an SM holds (0: not asked
+  // yet; the shared memory is fixed) and the SM count
+  static int blocks_per_sm[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  if (blocks_per_sm[dev] == 0) {
+    auto kernel = sage_backward_kernel<V, kVecH>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBackSmem));
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    int occ = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, kBackSmem);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    blocks_per_sm[dev] = occ < kBackMaxBlocksPerSm ? occ : kBackMaxBlocksPerSm;
+  }
+  const long long tiles = (static_cast<long long>(k) + kTileRows - 1) / kTileRows;
+  const long long cap = static_cast<long long>(blocks_per_sm[dev]) * sms[dev];
+  *grid = static_cast<int>(tiles < cap ? tiles : cap);
+  return cudaSuccess;
+}
+
+// The blocks' partials (into scratch of `floats` f32), then their sum in
+// block order into dw and db.
+template <int V, bool kVecH>
+cudaError_t launch_backward(const LayerArgs& a, BackArgs b, float* dw, float* db, long long floats, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err = backward_grid<V, kVecH>(a.k, &grid);
+  if (err != cudaSuccess) return err;
+  const long long n_dw = 2ll * a.f_in * b.f_out;
+  if (static_cast<long long>(grid) * (n_dw + b.f_out) > floats) return cudaErrorInvalidValue;
+  b.part_db = b.part_dw + static_cast<long long>(grid) * n_dw;
+  sage_backward_kernel<V, kVecH><<<grid, kThreads, kBackSmem, s>>>(a, b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = n_dw + b.f_out;
+  sage_backward_reduce_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      b.part_dw, b.part_db, grid, n_dw, b.f_out, dw, db);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -899,39 +1159,13 @@ int sage_layer_launch(const void* table, int c, int f_in, const void* keys, cons
   const bool vec = f_in % 8 == 0 && aligned16(table);
   const bool tensor = vec && f_out % 8 == 0 && aligned16(w) && aligned16(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const __nv_bfloat16*>(table);
-  if (nchunks > 0) {
-    const long long items = static_cast<long long>(k) * nchunks;
-    const unsigned blocks = static_cast<unsigned>((items + kWarps - 1) / kWarps);
-    if (vec) {
-      sage_partial_kernel<8><<<blocks, kThreads, 0, s>>>(t, c, f_in, static_cast<const int*>(nbrs),
-                                                          static_cast<const uint8_t*>(valid), k, d, chunk, nchunks,
-                                                          static_cast<float*>(part), static_cast<int*>(part_cnt));
-    } else {
-      sage_partial_kernel<1><<<blocks, kThreads, 0, s>>>(t, c, f_in, static_cast<const int*>(nbrs),
-                                                          static_cast<const uint8_t*>(valid), k, d, chunk, nchunks,
-                                                          static_cast<float*>(part), static_cast<int*>(part_cnt));
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   LayerArgs a{};
-  a.table = t;
-  a.c = c;
-  a.f_in = f_in;
-  a.keys = static_cast<const int*>(keys);
-  a.nbrs = static_cast<const int*>(nbrs);
-  a.valid = static_cast<const uint8_t*>(valid);
-  a.k = k;
-  a.d = d;
-  a.part = static_cast<const float*>(part);
-  a.part_cnt = static_cast<const int*>(part_cnt);
-  a.nchunks = nchunks;
+  cudaError_t err = start_gather(a, table, c, f_in, keys, nbrs, valid, k, d, chunk, nchunks, part, part_cnt, vec, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   a.w = static_cast<const __nv_bfloat16*>(w);
   a.bias = static_cast<const __nv_bfloat16*>(bias);
   a.f_out = f_out;
   a.out = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
   if (!tensor) {
     const Plan p = plan_layer(kCudaCore, f_in, f_out, f_in < kChunkCore ? f_in : kChunkCore, kMaxCols);
     if (p.kc < f_in) {
@@ -947,6 +1181,54 @@ int sage_layer_launch(const void* table, int c, int f_in, const void* keys, cons
   Plan p = plan_layer(kWgmma, f_in, f_out, f_in, nt);
   if (p.total > static_cast<size_t>(kSmemLimit)) p = plan_layer(kWgmma, f_in, f_out, kChunkTensor, nt);
   err = p.kc < f_in ? launch_layer<8, kWgmma, true>(a, p, s) : launch_layer<8, kWgmma, false>(a, p, s);
+  return static_cast<int>(err);
+}
+
+// The scratch sage_layer_backward_launch needs, in bytes: f32 partials of
+// dw [2 f_in, f_out] and db [f_out] for as many blocks as the SMs can hold
+// (-1 if the device cannot be read).
+long long sage_layer_backward_scratch_bytes(int f_in, int f_out) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return static_cast<long long>(kBackMaxBlocksPerSm) * sms * (2ll * f_in * f_out + f_out) * 4;
+}
+
+// table, c, f_in, keys, nbrs, valid, k, d, chunk, nchunks, part, part_cnt:
+// as sage_layer_launch (the same gather, partial sums first when d > 32);
+// z, dz: bf16 [k, f_out], the layer's output and its gradient; dw: f32
+// [2 f_in, f_out] and db: f32 [f_out], added to; scratch: f32, at least
+// sage_layer_backward_scratch_bytes.  Three kernels: the partial sums
+// (nchunks > 0), the blocks' partials, their sum in block order.
+int sage_layer_backward_launch(const void* table, int c, int f_in, const void* keys, const void* nbrs,
+                               const void* valid, int k, int d, const void* z, const void* dz, int f_out, void* dw,
+                               void* db, int chunk, int nchunks, void* part, void* part_cnt, void* scratch,
+                               long long scratch_bytes, void* stream) {
+  if (k <= 0 || f_in <= 0 || f_out <= 0 || c <= 0 || d < 0 || chunk <= 0 || nchunks < 0 ||
+      (nchunks == 0) != (d <= kDirectSlots) || !aligned16(scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = f_in % 8 == 0 && aligned16(table);
+  const bool vec_h = f_out % 8 == 0 && aligned16(z) && aligned16(dz);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LayerArgs a{};
+  cudaError_t err = start_gather(a, table, c, f_in, keys, nbrs, valid, k, d, chunk, nchunks, part, part_cnt, vec, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BackArgs b{};
+  b.z = static_cast<const __nv_bfloat16*>(z);
+  b.dz = static_cast<const __nv_bfloat16*>(dz);
+  b.f_out = f_out;
+  b.part_dw = static_cast<float*>(scratch);
+  const long long floats = scratch_bytes / 4;
+  auto* fdw = static_cast<float*>(dw);
+  auto* fdb = static_cast<float*>(db);
+  if (vec) {
+    err = vec_h ? launch_backward<8, true>(a, b, fdw, fdb, floats, s)
+                : launch_backward<8, false>(a, b, fdw, fdb, floats, s);
+  } else {
+    err = vec_h ? launch_backward<1, true>(a, b, fdw, fdb, floats, s)
+                : launch_backward<1, false>(a, b, fdw, fdb, floats, s);
+  }
   return static_cast<int>(err);
 }
 

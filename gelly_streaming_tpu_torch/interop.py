@@ -5,7 +5,8 @@ state (``dataclasses.asdict`` of a ``StreamConfig``, ``np.asarray`` of a
 ``NeighborTable``'s or a ``CCState``'s fields) and hands the plain values
 over (``DegreeDistState``, ``DegreeSummaryState`` and ``BPState`` likewise,
 so that both packages can start from the same mid-stream state; the
-GraphSAGE weights through ``sage_params_from_numpy``).  Packed
+GraphSAGE weights through ``sage_params_from_numpy``, a training state
+with its optax Adam moments through ``sage_train_state_from_numpy``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.
 """
@@ -23,7 +24,7 @@ from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.library.bipartiteness import BPState
 from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
-from gelly_streaming_tpu_torch.library.graphsage import SageParams
+from gelly_streaming_tpu_torch.library.graphsage import SageParams, SageTrainState, _train_state
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
 from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
@@ -113,16 +114,53 @@ def bp_state_from_numpy(parent2, seen, device: DeviceLike = None) -> BPState:
     return BPState(parent2=torch.from_numpy(parent2.copy()).to(dev), seen=torch.from_numpy(seen.copy()).to(dev))
 
 
-def sage_params_from_numpy(w_self, w_nbr, bias, device: DeviceLike = None) -> SageParams:
-    """``SageParams`` on ``device`` from host arrays, e.g. ``np.asarray`` of
-    the JAX package's bf16 parameters (``ml_dtypes.bfloat16``): ``w_self``
-    and ``w_nbr`` [F_in, F_out], ``bias`` [F_out].  They pass through
-    float32, which holds every bf16 value exactly."""
+def _sage_arrays(w_self, w_nbr, bias):
     w_self, w_nbr, bias = (np.asarray(a, np.float32) for a in (w_self, w_nbr, bias))
     if w_self.ndim != 2 or w_nbr.shape != w_self.shape or bias.shape != (w_self.shape[1],):
         raise ValueError(
             f"expected w_self and w_nbr [F_in, F_out] and bias [F_out], got {w_self.shape}, "
             f"{w_nbr.shape} and {bias.shape}"
         )
+    return w_self, w_nbr, bias
+
+
+def sage_params_from_numpy(w_self, w_nbr, bias, device: DeviceLike = None) -> SageParams:
+    """``SageParams`` on ``device`` from host arrays, e.g. ``np.asarray`` of
+    the JAX package's bf16 parameters (``ml_dtypes.bfloat16``): ``w_self``
+    and ``w_nbr`` [F_in, F_out], ``bias`` [F_out].  They pass through
+    float32, which holds every bf16 value exactly."""
     dev = resolve_device(device)
-    return SageParams(*(torch.from_numpy(a.copy()).to(device=dev, dtype=torch.bfloat16) for a in (w_self, w_nbr, bias)))
+    return SageParams(*(torch.from_numpy(a.copy()).to(device=dev, dtype=torch.bfloat16)
+                        for a in _sage_arrays(w_self, w_nbr, bias)))
+
+
+def sage_train_state_from_numpy(w_self, w_nbr, bias, *, lr: float, mu=None, nu=None, count=None,
+                                device: DeviceLike = None) -> SageTrainState:
+    """A ``SageTrainState`` on ``device`` from the JAX package's training
+    state as host arrays: the f32 masters (``np.asarray`` of
+    ``state.params``' leaves) and Adam at learning rate ``lr``.  Given
+    optax's ``ScaleByAdamState`` (``state.opt_state[0]`` of ``optax.adam``:
+    ``mu`` and ``nu``, each three arrays in ``SageParams`` order, and
+    ``count``), its moments and step count fill ``torch.optim.Adam``'s
+    ``exp_avg``, ``exp_avg_sq`` and ``step``: both packages then take the
+    same next step (the same update, lr * m_hat / (sqrt(v_hat) + 1e-8),
+    betas (0.9, 0.999))."""
+    masters = _sage_arrays(w_self, w_nbr, bias)
+    given = [x is not None for x in (mu, nu, count)]
+    if any(given) and not all(given):
+        raise ValueError("mu, nu and count come together (optax's ScaleByAdamState)")
+    dev = resolve_device(device)
+    state = _train_state(SageParams(*(torch.from_numpy(a.copy()).to(dev) for a in masters)), lr)
+    if not any(given):
+        return state
+    mu, nu = [_sage_arrays(*m) for m in (mu, nu)]
+    if any(a.shape != m.shape for moments in (mu, nu) for a, m in zip(moments, masters)):
+        raise ValueError("mu and nu must be shaped like the parameters")
+    steps = int(np.asarray(count))
+    for p, m, v in zip(state.params, mu, nu):
+        state.opt.state[p] = {
+            "step": torch.tensor(float(steps), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(m.copy()).to(dev),
+            "exp_avg_sq": torch.from_numpy(v.copy()).to(dev),
+        }
+    return state

@@ -1,4 +1,5 @@
-"""GraphSAGE-style message passing over sliced windows: the serving path.
+"""GraphSAGE-style message passing over sliced windows: serving and
+training.
 
 Port of ``gelly_streaming_tpu/library/graphsage.py`` on one device.  Per
 closed window each keyed vertex aggregates its neighbors' feature rows
@@ -16,9 +17,24 @@ casts every gathered row to bf16, and rounding commutes with the gather),
 and the stacked weights of each layer; each bucket writes its rows into
 one [K_window, F_out] buffer a window at its row offset.
 
-Not ported yet: the sharded plane (``_run_sharded``, ``sage_kernel_ring``;
-ROADMAP queue A, item 8) and training (``sample_pairs``, ``sage_loss``,
-``sage_init_train``, ``sage_train_step``; queue A, item 1).
+Training (``sample_pairs``, ``sage_loss``, ``sage_init_train``,
+``sage_train_step``) is the JAX package's unsupervised loss, skip-gram
+with negative sampling over one bucket: each keyed row's embedding z_u
+scored against the context ``relu(x_v @ W_self + b)`` of one sampled
+valid neighbor (positive) and one uniform vertex (negative).  Both the
+embeddings and the contexts are ``ops/sage.SageLayerFn``: the contexts
+are the same layer over an empty neighborhood (``nbrs`` [2K, 0], so the
+mean is 0 and the stacked product is ``x @ W_self`` exactly), positives
+and negatives in one launch.  Its backward is the weight-gradient kernel
+(``sage_layer_backward``).  The optimizer is ``torch.optim.Adam`` over f32
+master parameters (the JAX package's optax Adam: the same update and
+defaults; ``interop.sage_train_state_from_numpy`` carries an optax state
+across).  ``sample_pairs`` draws from a ``torch.Generator``, not JAX's
+random bits.  A bucket from ``build_buckets`` holds its real rows only, so
+no padding row enters the loss.
+
+Not ported yet: the sharded plane (``_run_sharded``, ``sage_kernel_ring``,
+``sage_loss_mesh``, ``sage_train_step_mesh``; ROADMAP queue A, item 8).
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.ops import sage as sage_ops
 
 _SHARDED_MSG = "the sharded GraphSAGE plane (cfg.num_shards > 1 with that many GPUs) is not ported yet (ROADMAP queue A, item 8)"
+_MESH_TRAIN_MSG = "GraphSAGE training over a mesh is not ported yet (ROADMAP queue A, item 8)"
 
 
 class SageParams(NamedTuple):
@@ -198,3 +215,108 @@ class GraphSAGEWindows:
                 yield RecordBlock((keys.astype(np.int64), np.linalg.norm(emb, axis=1)))
 
         return OutputStream(blocks_fn=blocks)
+
+
+# Objective: skip-gram with negative sampling over the window graph (the
+# GraphSAGE paper's unsupervised loss, eq. 1): loss = mean softplus(-z .
+# c_pos) over the rows with a positive + mean softplus(z . c_neg).
+
+
+class SageTrainState(NamedTuple):
+    params: SageParams  # float32 masters, leaves that require grad
+    opt: torch.optim.Adam  # over the masters; sage_train_step steps it in place
+
+
+def _as_bf16(params: SageParams) -> SageParams:
+    return SageParams(*(p.to(torch.bfloat16) for p in params))
+
+
+def sample_pairs(generator: torch.Generator, nbrs, valid, capacity: int):
+    """One (positive neighbor, negative vertex) pair per keyed row, drawn
+    from ``generator`` (on the nbrs' device).
+
+    Returns (pos_ids [K] int32, has_pos [K] bool, neg_ids [K] int32): pos
+    a uniformly sampled VALID neighbor (argmax of uniform scores over the
+    valid slots, -1 elsewhere; a row with no valid neighbor gets
+    ``nbrs[:, 0]`` and has_pos False, contributing no positive term), neg
+    a uniform vertex id in [0, capacity)."""
+    if generator.device != nbrs.device:
+        raise ValueError(f"the generator lies on {generator.device}, nbrs on {nbrs.device}")
+    if nbrs.dim() != 2 or nbrs.shape[1] == 0 or valid.shape != nbrs.shape:
+        raise ValueError("nbrs and valid must be [K, D] with D >= 1")
+    scores = torch.where(valid, torch.rand(valid.shape, generator=generator, device=nbrs.device), -1.0)
+    pos_ids = torch.gather(nbrs, 1, scores.argmax(1, keepdim=True))[:, 0]
+    neg_ids = torch.randint(0, capacity, (nbrs.shape[0],), generator=generator, device=nbrs.device,
+                            dtype=torch.int32)
+    return pos_ids, valid.any(1), neg_ids
+
+
+def _pair_terms(z, c_pos, c_neg, has_pos):
+    """(pos_loss_sum, pos_n, neg_loss_sum) float32 scalars and neg_n, the
+    row count, a Python float (no copy to the device a step)."""
+    pos_s = (z * c_pos).sum(-1)
+    neg_s = (z * c_neg).sum(-1)
+    w = has_pos.float()
+    softplus = torch.nn.functional.softplus
+    return (softplus(-pos_s) * w).sum(), w.sum(), softplus(neg_s).sum(), float(z.shape[0])
+
+
+def _context(layer, params_b: SageParams, w, table, ids):
+    """f32 [N, F_out] ``relu(table[ids] @ W_self + b)``: ``layer`` over an
+    empty neighborhood."""
+    n = ids.shape[0]
+    return layer(table, ids, ids.new_empty((n, 0)), torch.empty((n, 0), dtype=torch.bool, device=ids.device), w,
+                 params_b.bias).float()
+
+
+def _loss(layer, params, features, keys, nbrs, valid, pos_ids, has_pos, neg_ids):
+    """sage_loss with ``layer`` (``SageLayerFn.apply`` or a plain twin that
+    autograd differentiates) computing each layer."""
+    table = features if features.dtype == torch.bfloat16 else features.to(torch.bfloat16)
+    table = table.contiguous()
+    p = _as_bf16(params)
+    w = _stacked(p)
+    z = layer(table, keys, nbrs, valid, w, p.bias).float()
+    k = keys.shape[0]
+    c = _context(layer, p, w, table, torch.cat([pos_ids.to(torch.int32), neg_ids.to(torch.int32)]))
+    t = _pair_terms(z, c[:k], c[k:], has_pos)
+    return t[0] / t[1].clamp(min=1.0) + t[2] / max(t[3], 1.0)
+
+
+def sage_loss(params: SageParams, features, keys, nbrs, valid, pos_ids, has_pos, neg_ids) -> torch.Tensor:
+    """Scalar unsupervised loss on one neighborhood bucket (f32 params in,
+    bf16 compute inside: the layer kernels).  ``features`` is the [C,
+    F_in] table; pass its bf16 copy, or it is cast on every call."""
+    return _loss(sage_ops.SageLayerFn.apply, params, features, keys, nbrs, valid, pos_ids, has_pos, neg_ids)
+
+
+def _train_state(params: SageParams, lr: float) -> SageTrainState:
+    masters = SageParams(*(p.detach().float().clone().requires_grad_() for p in params))
+    return SageTrainState(masters, torch.optim.Adam(list(masters), lr=lr, betas=(0.9, 0.999), eps=1e-8))
+
+
+def sage_init_train(in_features: int, out_features: int, *, lr: float, generator: torch.Generator,
+                    device: DeviceLike = None) -> SageTrainState:
+    """Float32 master params (``init_params``' draw) and an Adam optimizer
+    over them (learning rate ``lr``, optax's defaults)."""
+    return _train_state(init_params(in_features, out_features, generator=generator, device=device), lr)
+
+
+def sage_train_step(state: SageTrainState, features, keys, nbrs, valid, pos_ids, has_pos, neg_ids):
+    """One optimizer step; returns (state, loss).  The masters and the
+    optimizer are updated in place: the returned state is ``state``."""
+    state.opt.zero_grad(set_to_none=True)
+    loss = sage_loss(state.params, features, keys, nbrs, valid, pos_ids, has_pos, neg_ids)
+    loss.backward()
+    state.opt.step()
+    return state, loss.detach()
+
+
+def sage_loss_mesh(*args, **kwargs):
+    """The JAX package's loss with rows and features sharded over a mesh."""
+    raise NotImplementedError(_MESH_TRAIN_MSG)
+
+
+def sage_train_step_mesh(*args, **kwargs):
+    """The JAX package's optimizer step over a mesh."""
+    raise NotImplementedError(_MESH_TRAIN_MSG)

@@ -112,13 +112,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # chunk, chunks, partial sums | None, partial counts | None, stream:
         # the partial-sum kernel (chunks > 0), then the layer
         "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+        # F_in, F_out: the scratch bytes of sage_layer_backward_launch
+        "sage_layer_backward_scratch_bytes": [_I, _I],
+        # table, C, F_in, keys, nbrs, valid, K, D, z, dz, F_out, dw, db,
+        # chunk, chunks, partial sums | None, partial counts | None,
+        # scratch, scratch bytes, stream: the partial-sum kernel (chunks >
+        # 0), the blocks' partials, their sum in block order
+        "sage_layer_backward_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _L,
+                                       _P],
     },
 }
 
 # entry points that return something other than a cudaError_t
 RESTYPES: Dict[str, type] = {
     "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
-    "uf_scratch_bytes": _L,
+    "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L,
 }
 
 

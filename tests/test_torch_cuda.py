@@ -728,6 +728,116 @@ def test_sage_layer_mean_matches_twin_at_one_bf16_step(cuda_device, name):
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=1e-6)
 
 
+def test_sage_layer_runs_an_empty_neighborhood(cuda_device):
+    """D = 0 (the training contexts): the mean is 0 and the layer writes
+    relu(x_self @ W_self + b)."""
+    from gelly_streaming_tpu_torch.ops import sage
+
+    table, keys, nbrs, valid, w, bias = _layer_inputs(cuda_device, 4096, 128, 128, 3000, 0, 9)
+    got = sage.sage_layer(table, keys, nbrs, valid, w, bias).float()
+    want = sage.sage_layer_plain(table, keys, nbrs, valid, w, bias).float()
+    torch.testing.assert_close(got, want, rtol=SAGE_RTOL, atol=SAGE_ATOL)
+    self_only = torch.relu(table[sage.indexing.gather_index(keys, 4096)].float() @ w[:128].float() + bias.float())
+    torch.testing.assert_close(got, self_only.to(torch.bfloat16).float(), rtol=SAGE_RTOL, atol=SAGE_ATOL)
+
+
+BACKWARD_CASES = ["f128-d0", "f128-d8", "f128-d32", "f128-d1024", "f128-hub", "f12-f20-d4", "f602-f41-d3",
+                  "f40-f24-d600", "f256-f200-d2"]
+
+
+def _backward_inputs(dev, name, seed=0):
+    """A bucket (SAGE_CASES, or D = 0 at F = 128), its layer output z and a
+    bf16 gradient dz of it."""
+    from gelly_streaming_tpu_torch.ops import sage
+
+    if name == "f128-d0":
+        c, f_in, f_out, k, d = 4096, 128, 128, 3000, 0
+    else:
+        _name, c, f_in, f_out, k, d = next(case for case in SAGE_CASES if case[0] == name)
+    args = _layer_inputs(dev, c, f_in, f_out, k, d, f_in * d + k + seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if k == 1:  # the hub row: valid neighbors (_layer_inputs empties row 0)
+        args = (*args[:3], torch.rand(args[3].shape, generator=g, device=dev) < 0.7, *args[4:])
+    z = sage.sage_layer(*args)
+    dz = torch.randn(z.shape, generator=g, device=dev).to(torch.bfloat16)
+    return args[:4], z, dz
+
+
+def _backward_bound(table, keys, nbrs, valid, z, dz):
+    """One bf16 step of every A entry carried through the product (a mean
+    may round one step apart, the kernel multiplying by the count's
+    reciprocal where the twin divides; the f32 sums' order is far inside
+    it): 2^-7 |A|^T |dH|, and 2^-10 sum |dH| for db."""
+    from gelly_streaming_tpu_torch.ops import sage
+
+    dh = torch.where(z > 0, dz.float(), 0.0).abs()
+    a = sage.gather_mean_plain(table, keys, nbrs, valid).float().abs()
+    return 2.0 ** -7 * (a.T @ dh) + 1e-6, 2.0 ** -10 * dh.sum(0) + 1e-6
+
+
+@pytest.mark.parametrize("name", BACKWARD_CASES)
+def test_sage_layer_backward_kernel_matches_twin(cuda_device, name):
+    """The weight-gradient kernel against its twin, at F = 128 for D = 0,
+    8, 32 and 1024 (the partial-sum kernel's chunks), a hub row, and at
+    widths that are not multiples of 8 (2-byte loads) or pass one K chunk
+    or n-tile; two runs give the same dw and db bit for bit."""
+    from gelly_streaming_tpu_torch.ops import sage
+
+    (table, keys, nbrs, valid), z, dz = _backward_inputs(cuda_device, name)
+    f_in, f_out = table.shape[1], z.shape[1]
+
+    def run(fn):
+        dw = torch.full((2 * f_in, f_out), 0.5, dtype=torch.float32, device=cuda_device)
+        db = torch.full((f_out,), -0.25, dtype=torch.float32, device=cuda_device)
+        fn(table, keys, nbrs, valid, z, dz, dw, db)
+        return dw, db
+
+    before = sage.LAUNCHES["sage_layer_backward"]
+    got = run(sage.sage_layer_backward)
+    again = run(sage.sage_layer_backward)
+    torch.cuda.synchronize()
+    assert sage.LAUNCHES["sage_layer_backward"] == before + 2
+    want = run(sage.sage_layer_backward_plain)
+    tol = _backward_bound(table, keys, nbrs, valid, z, dz)
+    for g, a, w, t in zip(got, again, want, tol):
+        assert torch.equal(g, a)
+        assert bool(((g - w).abs() <= t).all()), float((g - w).abs().max())
+    # no neighbors (D = 0): the mean is 0 and the W_nbr half gains nothing
+    assert bool((got[0][f_in:] == 0.5).all()) == (nbrs.shape[1] == 0)
+
+
+def test_sage_layer_fn_gradients_match_the_twins_autograd(cuda_device):
+    """One step's loss and gradients through SageLayerFn (the kernels)
+    against autograd of the plain twin on the card, within the JAX
+    package's bounds between its training planes."""
+    from gelly_streaming_tpu_torch.library import graphsage as gs
+    from gelly_streaming_tpu_torch.ops import sage
+
+    rng = np.random.default_rng(3)
+    c, f, k, d = 1 << 12, 128, 2048, 40
+    table = torch.from_numpy(rng.normal(size=(c, f)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    keys = torch.from_numpy(rng.integers(0, c, k).astype(np.int32)).to(cuda_device)
+    nbrs = torch.from_numpy(rng.integers(0, c, (k, d)).astype(np.int32)).to(cuda_device)
+    valid = torch.from_numpy(rng.random((k, d)) < 0.8).to(cuda_device)
+    state = gs.sage_init_train(f, f, lr=1e-2, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    pairs = gs.sample_pairs(torch.Generator(device=cuda_device).manual_seed(1), nbrs, valid, c)
+    args = (table, keys, nbrs, valid, *pairs)
+    before = dict(sage.LAUNCHES)
+    loss = gs.sage_loss(state.params, *args)
+    grads = torch.autograd.grad(loss, list(state.params))
+    assert sage.LAUNCHES["sage_layer"] == before["sage_layer"] + 2
+    assert sage.LAUNCHES["sage_layer_backward"] == before["sage_layer_backward"] + 2
+    loss_p = gs._loss(sage.sage_layer_plain, state.params, *args)
+    grads_p = torch.autograd.grad(loss_p, list(state.params))
+    torch.testing.assert_close(loss, loss_p, rtol=2e-2, atol=0)
+    for g, w in zip(grads, grads_p):
+        torch.testing.assert_close(g, w, rtol=5e-2, atol=5e-3)
+    state, first = gs.sage_train_step(state, *args)
+    for _ in range(9):
+        state, last = gs.sage_train_step(state, *args)
+    assert float(last) < float(first)
+
+
 SORT_CASES = {  # name: (src, mask) from rng
     "negative-ids": lambda rng: (rng.integers(-5000, 5000, 70001), rng.random(70001) < 0.8),
     "past-24-bits": lambda rng: (rng.integers(-(1 << 30), (1 << 30) - 1, 1 << 18), np.ones(1 << 18, bool)),
