@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
                           [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
+                          [--parent-sage-backward-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -131,7 +132,14 @@ autograd of the plain twin within rtol 2e-2 and rtol 5e-2 / atol 5e-3;
 (d) the backward over the uniform pane's buckets, device only on the
 held stream, its bound, the twin, and ``embedding_bag(mode="mean")`` +
 ``mm(A^T, dH)`` as the yardstick; then over the same steps' contexts (2K
-rows a bucket, D = 0).
+rows a bucket, D = 0; their bound counts the self half's product alone),
+both calls' kernels split by torch.profiler (the reduce's share), ptxas'
+registers and spills of the tensor-core instantiations, and the forward
+``sage_layer`` over the contexts; with ``--parent-sage-backward-cu``
+(``sage.cu`` as it was before the tensor-core backward, the same C
+interface) the parent's backward over the buckets and over the contexts,
+and its layer over the contexts, in turns with the current ones (parent,
+current, current, parent).
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -148,6 +156,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -583,7 +592,7 @@ def check_windows(panes, dev):
 # ---------------------------------------------------------------------------
 # phase 5: the first port slice's kernels, for the in-turn comparison
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 BASELINE_SIGNATURES = {
     "pane_adjacency_launch": [_P, _P, _I, _P, _I, _P],
     "dense_triangles_launch": [_P, _I, _P, _P],
@@ -599,7 +608,7 @@ def load_baseline(path: str, signatures=None):
     for name, argtypes in (signatures or BASELINE_SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _cuda.RESTYPES.get(name, ctypes.c_int)
     return lib
 
 
@@ -645,6 +654,16 @@ PARENT_SIGNATURES = {
                       "nb_scatter_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]},
     # (8ebc8a0) table, C, F, keys, nbrs, valid, K, D, chunk, chunks, vec, out, partial sums, counts, stream
     "sage": {"sage_gather_mean_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]},
+    # (ece4aae, the backward on the CUDA cores) the layer: table, C, F_in, keys, nbrs, valid, K, D, w, bias,
+    # F_out, out, chunk, chunks, partial sums, counts, stream; the backward's scratch bytes (F_in, F_out);
+    # the backward: table, C, F_in, keys, nbrs, valid, K, D, z, dz, F_out, dw, db, chunk, chunks, partial
+    # sums, counts, scratch, scratch bytes, stream
+    "sage_backward": {
+        "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+        "sage_layer_backward_scratch_bytes": [_I, _I],
+        "sage_layer_backward_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _L,
+                                       _P],
+    },
 }
 
 # The parent's degree_trace_kernel with one part taken out: (old text, new
@@ -668,22 +687,43 @@ TRACE_SPLIT = {
 }
 
 
-def trace_split_sources(parent_cu: str) -> dict:
-    """{part removed: path of the variant's source}, written under the
-    port's build directory."""
+# The current sage.cu's tensor-core backward with one part taken out or
+# changed, for the split of its time (phase 13 (d)); the same form.  A
+# variant that does not build is reported and skipped.
+BACKWARD_SPLIT = {
+    "the product (no wgmma: the accumulators dead)": [
+        ("        if (mma) {\n          asm volatile(\"wgmma.fence",
+         "        if (false) {\n          asm volatile(\"wgmma.fence")],
+    "the tensor work alone (the accumulators live through an empty asm)": [
+        ('      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "', '      "// "'),
+        ('      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "', '      "// "')],
+    "the means' gather (the self rows still copied)": [
+        ("gather_tile<8, true, false, kBackBatch>(a, r0, k0, kw, s_a, 0, s_red);",
+         "gather_tile<8, true, true>(a, r0, k0, kw, s_a, 0, s_red);")],
+    "the z and dz copies": [
+        ("          copy_zdz(b, r0, rows, n0, ncols, reinterpret_cast<__nv_bfloat16*>(stage + P::kROff));\n", "")],
+    "4 rows in flight a lane in the means' gather (8 instead, the forward's)": [
+        ("constexpr int kBackBatch = 4;", "constexpr int kBackBatch = 8;")],
+}
+
+
+def split_sources(source: str, split: dict, stem: str) -> dict:
+    """{part removed: path of the variant's source}: ``source`` with each
+    entry of ``split`` applied, written under the port's build
+    directory."""
     from gelly_streaming_tpu_torch.ops import _cuda
 
-    text = open(parent_cu).read()
-    out_dir = _cuda.BUILD_DIR / "trace_split"
+    text = open(source).read()
+    out_dir = _cuda.BUILD_DIR / "split"
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for k, (part, subs) in enumerate(TRACE_SPLIT.items()):
+    for k, (part, subs) in enumerate(split.items()):
         variant = text
         for old, new in subs:
             if variant.count(old) != 1:
-                raise RuntimeError(f"trace split {part!r}: {old[:40]!r} found {variant.count(old)} times")
+                raise RuntimeError(f"{stem} split {part!r}: {old[:40]!r} found {variant.count(old)} times")
             variant = variant.replace(old, new)
-        path = out_dir / f"degrees_split_{k}.cu"
+        path = out_dir / f"{stem}_split_{k}.cu"
         path.write_text(variant)
         paths[part] = str(path)
     return paths
@@ -2462,20 +2502,79 @@ def train_profile(fn, reps: int):
             [(name, round(us * calls / reps / 1e3, 4)) for name, (_, (us, calls)) in zip(names, top)])
 
 
-def phase_train(dev, cycles_per_ms: float) -> dict:
+def parent_sage_calls(lib):
+    """(layer, backward): the parent's sage_layer and sage_layer_backward
+    C calls over ``lib``, as their wrappers made them (the same scratch
+    and partial sums): layer(table, keys, nbrs, valid, w, bias, out) and
+    backward(table, keys, nbrs, valid, z, dz, dw, db)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda, sage
+
+    def layer(table, keys, nbrs, valid, w, bias, out):
+        (c, f_in), (k, d), f_out = table.shape, nbrs.shape, w.shape[1]
+        nchunks, part, cnt = sage._partials(table, k, d)
+        _cuda.check(lib.sage_layer_launch(
+            table.data_ptr(), c, f_in, keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, w.data_ptr(),
+            bias.data_ptr(), f_out, out.data_ptr(), sage._CHUNK, nchunks, sage._ptr(part), sage._ptr(cnt),
+            torch.cuda.current_stream(table.device).cuda_stream), "parent sage_layer_launch")
+        return out
+
+    def backward(table, keys, nbrs, valid, z, dz, dw, db):
+        (c, f_in), (k, d), f_out = table.shape, nbrs.shape, z.shape[1]
+        nbytes = lib.sage_layer_backward_scratch_bytes(f_in, f_out)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=table.device)
+        nchunks, part, cnt = sage._partials(table, k, d)
+        _cuda.check(lib.sage_layer_backward_launch(
+            table.data_ptr(), c, f_in, keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, z.data_ptr(),
+            dz.data_ptr(), f_out, dw.data_ptr(), db.data_ptr(), sage._CHUNK, nchunks, sage._ptr(part),
+            sage._ptr(cnt), scratch.data_ptr(), nbytes, torch.cuda.current_stream(table.device).cuda_stream),
+            "parent sage_layer_backward_launch")
+        return dw, db
+
+    return layer, backward
+
+
+def ptxas_report(log: str, pattern: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} of the entry functions whose name contains
+    ``pattern``, from nvcc's ``-Xptxas -v`` log (their shared memory is
+    dynamic: the launch asks for it, ptxas does not see it)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if pattern in m.group(1) else None
+        elif cur and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                                     line)):
+            out.setdefault(cur, {}).update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(cur, {})["registers"] = int(m[1])
+    return out
+
+
+def phase_train(dev, cycles_per_ms: float, parent=None, sage_log: str = "", split_cu=None) -> dict:
     """Phase 13: GraphSAGE training at F = 128 through sage_init_train,
     sample_pairs and sage_train_step: (a) the JAX bench's batch, 20 steps;
     (b) every bucket of phase 12's first uniform pane (slice(ALL) ->
     build_buckets), one step a bucket for TRAIN_PASSES passes, then the hub
     pane's buckets once, launches counted; (c) sage_layer_backward against
     its twin on every bucket of (a) and (b) and bit for bit across runs, a
-    whole step against the twin's autograd; (d) the backward's times."""
+    whole step against the twin's autograd; (d) the backward's times over
+    the pane's buckets and their contexts, its kernels' split by
+    torch.profiler and their ptxas report (``sage_log``: sage.cu's build
+    log), the forward over the contexts, and with ``parent`` (a loaded
+    sage.cu with the ece4aae C interface) the parent's backward and
+    forward in turns with the current ones; with ``split_cu`` ({part:
+    source}, BACKWARD_SPLIT's variants) each variant's backward timed
+    beside the current one."""
     import torch
 
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
     from gelly_streaming_tpu_torch.core.types import EdgeDirection
     from gelly_streaming_tpu_torch.library import graphsage as gs
+    from gelly_streaming_tpu_torch.ops import _cuda
     from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
     from gelly_streaming_tpu_torch.ops import sage
 
@@ -2670,21 +2769,98 @@ def phase_train(dev, cycles_per_ms: float) -> dict:
         for ids, empty, none, cz, cdz in ctx:
             sage.sage_layer_backward(table, ids, empty, none, cz, cdz, dws, dbs)
 
-    c_ms, _ = device_ms(ctx_backward, SAGE_REPS, cycles_per_ms)
+    c_ms, c_us = device_ms(ctx_backward, SAGE_REPS, cycles_per_ms)
     c_rows = 2 * rows
     c_distinct = int(torch.unique(torch.cat([x[0] for x in ctx])).numel())
-    c_bytes = 4 * c_rows + 2 * f * c_distinct + 2 * 2 * f * c_rows + 2 * 4 * (2 * f * f + f)
-    c_bound = max(c_bytes / HBM_BYTES_PER_S * 1e3, 2 * c_rows * 2 * f * f / BF16_FLOPS_PER_S * 1e3)
+    # the self half alone: a self row, z and dz a row; dw's W_self rows and
+    # db read and written once; the product x_self^T dH
+    c_bytes = 4 * c_rows + 2 * f * c_distinct + 2 * 2 * f * c_rows + 2 * 4 * (f * f + f)
+    c_bound = max(c_bytes / HBM_BYTES_PER_S * 1e3, 2 * c_rows * f * f / BF16_FLOPS_PER_S * 1e3)
     log(f"  (d) sage_layer_backward over the contexts of the pane's {len(hoods)} steps ({c_rows} rows, D = 0), "
-        f"device only: {c_ms:.4f} ms; bound {c_bound:.5f} ms ({c_bytes} B, {c_distinct} distinct table rows), "
-        f"{c_ms / c_bound:.3f}x it")
+        f"device only: {c_ms:.4f} ms, host enqueue {c_us / len(ctx):.2f} us a call; bound {c_bound:.5f} ms "
+        f"({c_bytes} B, {c_distinct} distinct table rows; the self half's product), {c_ms / c_bound:.3f}x it")
+    # the kernels' split by torch.profiler (the reduce's share), and what
+    # ptxas reported for the tensor-core instantiations
+    split = {}
+    for label, fn in (("buckets", backward), ("contexts", ctx_backward)):
+        busy_ms, top = train_profile(fn, 5)
+        split[label] = {"device_busy_ms": busy_ms, "rows": top,
+                        "reduce_share": None if not busy_ms else
+                        sum(ms for name, ms in top if "reduce" in name) / busy_ms}
+        log(f"  (d) torch.profiler over the {label}' backward: device busy {busy_ms} ms, rows {top}; the reduce's "
+            f"share {split[label]['reduce_share']}")
+    ptxas = ptxas_report(sage_log, "sage_backward_wgmma_kernel")
+    log(f"  (d) ptxas for sage_backward_wgmma_kernel (ILb0: [x_self | mean], ILb1: the self half): {ptxas}")
+    # the forward over the same contexts (its D = 0 skip of the mean half)
+    ctx_out = [torch.empty_like(x[3]) for x in ctx]
+
+    def ctx_forward():
+        for (ids, empty, none, _cz, _cdz), o in zip(ctx, ctx_out):
+            sage.sage_layer(table, ids, empty, none, w, bias, out=o)
+
+    f_ms, _ = device_ms(ctx_forward, SAGE_REPS, cycles_per_ms)
+    log(f"  (d) sage_layer over the same contexts (D = 0), device only: {f_ms:.4f} ms")
+    turns = {}
+    if parent is not None:
+        p_layer, p_backward = parent_sage_calls(parent)
+        got = [torch.zeros_like(dws), torch.zeros_like(dws)]
+        for h, z, dz in zip(hoods, zs, dzs):
+            p_backward(table, h.keys, h.nbrs, h.valid, z, dz, got[0], torch.zeros_like(dbs))
+            sage.sage_layer_backward(table, h.keys, h.nbrs, h.valid, z, dz, got[1], torch.zeros_like(dbs))
+        rel = float((got[0] - got[1]).abs().max() / got[1].abs().max())
+        if not rel < 2.0 ** -7:
+            raise RuntimeError(f"the parent's backward and sage_layer_backward disagree (max rel {rel:.3g})")
+
+        def p_backward_all():
+            for h, z, dz in zip(hoods, zs, dzs):
+                p_backward(table, h.keys, h.nbrs, h.valid, z, dz, dws, dbs)
+
+        def p_ctx_backward():
+            for ids, empty, none, cz, cdz in ctx:
+                p_backward(table, ids, empty, none, cz, cdz, dws, dbs)
+
+        def p_ctx_forward():
+            for (ids, empty, none, _cz, _cdz), o in zip(ctx, ctx_out):
+                p_layer(table, ids, empty, none, w, bias, o)
+
+        turns = {
+            "buckets": in_turns("uniform pane's buckets, the backward (parent: ece4aae, the CUDA cores)",
+                                p_backward_all, backward, SAGE_REPS, cycles_per_ms),
+            "contexts": in_turns("the contexts, the backward (parent: ece4aae)", p_ctx_backward, ctx_backward,
+                                 SAGE_REPS, cycles_per_ms),
+            "contexts_forward": in_turns("the contexts, the forward sage_layer (parent: ece4aae)", p_ctx_forward,
+                                         ctx_forward, SAGE_REPS, cycles_per_ms),
+            "max_rel_diff": rel,
+        }
+    for part, path in (split_cu or {}).items():
+        if not _cuda._target(path).exists():  # its build failed in phase 1
+            log(f"  (d) split: the variant without {part} did not build; skipped")
+            continue
+        _, v_backward = parent_sage_calls(load_baseline(path, PARENT_SIGNATURES["sage_backward"]))
+
+        def v_buckets():
+            for h, z, dz in zip(hoods, zs, dzs):
+                v_backward(table, h.keys, h.nbrs, h.valid, z, dz, dws, dbs)
+
+        def v_contexts():
+            for ids, empty, none, cz, cdz in ctx:
+                v_backward(table, ids, empty, none, cz, cdz, dws, dbs)
+
+        v = {"buckets_ms": device_ms(v_buckets, SAGE_REPS, cycles_per_ms)[0],
+             "contexts_ms": device_ms(v_contexts, SAGE_REPS, cycles_per_ms)[0]}
+        turns.setdefault("split", {})[part] = v
+        log(f"  (d) split: without {part}: buckets {v['buckets_ms']:.4f} ms, contexts {v['contexts_ms']:.4f} ms "
+            f"(the kernel as committed: {b_ms:.4f}, {c_ms:.4f})")
     out["backward"] = {"ms": b_events, "device_ms": b_ms, "host_us": b_us, "host_us_a_call": b_us / len(hoods),
                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "bytes_ms": bytes_ms,
-                       "ops_ms": ops_ms, "library_ms": bag_ms + mm_ms, "embedding_bag_ms": bag_ms, "mm_ms": mm_ms,
+                       "ops_ms": ops_ms, "ratio_to_bound": b_ms / bound, "library_ms": bag_ms + mm_ms,
+                       "embedding_bag_ms": bag_ms, "mm_ms": mm_ms,
                        "launches": launches["sage_layer_backward"],
                        "err": max(worst[0], worst[1], bench_err[0], bench_err[1]),
                        "dw_err": max(worst[0], bench_err[0]), "db_err": max(worst[1], bench_err[1]),
-                       "contexts": {"device_ms": c_ms, "bound_ms": c_bound, "rows": c_rows}}
+                       "contexts": {"device_ms": c_ms, "host_us_a_call": c_us / len(ctx), "bound_ms": c_bound,
+                                    "ratio_to_bound": c_ms / c_bound, "rows": c_rows, "forward_device_ms": f_ms},
+                       "split": split, "ptxas": ptxas, **({"turns": turns} if turns else {})}
     out["pane"] = {"rows": rows, "buckets": len(hoods), "step_ms": [x / TRAIN_PASSES * 1e3 for x in step_s],
                    "pass_ms": train_s / TRAIN_PASSES * 1e3, "pairs_per_s": rows * TRAIN_PASSES / train_s,
                    "pass_loss": pass_loss, "hub_losses": hub_losses, "peak_gb": peak_gb, "launches": launches,
@@ -2779,11 +2955,15 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-sage-cu", default=None,
                         help="sage.cu of the commit before the fused layer (its gather-mean C interface): its "
                              "gather, then addmm and relu, timed in turns with sage_layer")
+    parser.add_argument("--parent-sage-backward-cu", default=None,
+                        help="sage.cu of the commit before the tensor-core backward (ece4aae; the same C interface): "
+                             "its backward and its layer over the contexts timed in turns with the current ones")
     parser.add_argument("--parent-neighborhoods-cu", default=None,
                         help="neighborhoods.cu of the commit before the radix sort (its C interface): "
                              "torch.sort, then its count and scatter, timed in turns with build_buckets")
     args = parser.parse_args(argv)
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
+    parent_backward_cu = os.path.abspath(args.parent_sage_backward_cu) if args.parent_sage_backward_cu else None
     parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
                                                            ("unionfind", args.parent_unionfind_cu)) if path}
     parent_sage_cu = {k: os.path.abspath(path) for k, path in (("sage", args.parent_sage_cu),
@@ -2815,10 +2995,24 @@ def main(argv=None) -> int:
 
     log("phase 1: build kernels")
     t0 = time.perf_counter()
-    split_cu = trace_split_sources(parent_cu["degrees"]) if "degrees" in parent_cu else {}
+    split_cu = split_sources(parent_cu["degrees"], TRACE_SPLIT, "degrees") if "degrees" in parent_cu else {}
+    bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
-               *parent_sage_cu.values()]
+               *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else [])]
+    split_failed = []
+
+    def build_split():  # beside the main build; a variant that does not build is skipped
+        try:
+            _cuda.build_all(list(bwd_split_cu.values()))
+        except RuntimeError as e:
+            split_failed.append(str(e).splitlines()[0])
+
+    split_thread = threading.Thread(target=build_split)
+    split_thread.start()
     built = _cuda.build_all(sources)
+    split_thread.join()
+    if split_failed:
+        log(f"  backward split: {split_failed[0]} (those variants are skipped)")
     log(f"  built {len(built)} sources in {time.perf_counter() - t0:.2f} s: {sorted(built)}")
     for src, res in built.items():
         if src not in _cuda.SIGNATURES:
@@ -3036,7 +3230,8 @@ def main(argv=None) -> int:
     log("phase 12: slice() and windowed GraphSAGE at F = 128 on the card")
     sg = phase_sage(dev, cpm, {k: load_baseline(path, PARENT_SIGNATURES[k]) for k, path in parent_sage_cu.items()})
     log("phase 13: GraphSAGE training at F = 128 on the card")
-    tr = phase_train(dev, cpm)
+    tr = phase_train(dev, cpm, load_baseline(parent_backward_cu, PARENT_SIGNATURES["sage_backward"])
+                     if parent_backward_cu else None, built["sage.cu"].log, bwd_split_cu)
     turned = {}
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
@@ -3148,8 +3343,9 @@ def main(argv=None) -> int:
                  tr["backward"]["library_ms"]),
          "bound_by": tr["backward"]["bound_by"],
          "library_call": "embedding_bag(mode='mean') + mm(A^T, dH) (no one call computes the gradient)",
-         **{k: tr["backward"][k] for k in ("host_us_a_call", "dw_err", "db_err", "embedding_bag_ms", "mm_ms",
-                                           "contexts")},
+         **{k: tr["backward"][k] for k in ("host_us_a_call", "ratio_to_bound", "dw_err", "db_err",
+                                           "embedding_bag_ms", "mm_ms", "contexts", "split", "ptxas", "turns")
+            if k in tr["backward"]},
          "train_bench": tr["bench"], "train_pane": tr["pane"]},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")

@@ -58,6 +58,10 @@
 //   written out whole rows a warp, into the caller's buffer at the bucket's
 //   row offset.  (Writing 64-byte runs straight from the fragments cost
 //   more than the product.)
+//   Empty neighborhoods.  D = 0 (the training contexts): the mean half of
+//   the A-tile is all zeros, so the product walks only the self half's
+//   k-steps (the last may reach 8 zero mean columns), as the JAX package's
+//   context is x_self @ W_self + bias.
 //   Long rows.  A bucket of rows of more than 32 slots (the hub pane holds
 //   rows of up to 2^17 neighbors) first runs sage_partial_kernel: one warp
 //   a (row, 256-slot chunk) writes f32 partial sums and counts.  The layer
@@ -244,8 +248,8 @@ __device__ __forceinline__ void add_raw(float* acc, const Raw<V>& x) {
 // thread (cg, seg) the chunks cg, cg + ncg, ... of 8 features, then ncg
 // partials in order.  s_red: kThreads * 8 floats, then kThreads ints.
 template <bool kSwz>
-__device__ void finish_partials(const LayerArgs& a, int r0, int k0, int kw, __nv_bfloat16* s_a, int as,
-                                float* s_red) {
+__device__ __forceinline__ void finish_partials(const LayerArgs& a, int r0, int k0, int kw, __nv_bfloat16* s_a,
+                                                int as, float* s_red) {
   const int segs = kw / 8;
   if (a.nchunks <= kFewChunks) {
     for (int i = threadIdx.x; i < kTileRows * segs; i += kThreads) {
@@ -323,12 +327,14 @@ __device__ void finish_partials(const LayerArgs& a, int r0, int k0, int kw, __nv
 // gathering its rows: the group's (row, slot) pairs, flat, pair t slot
 // t % d of its row t / d.  Each lane stages one pair's id (-1: not valid)
 // a chunk of `lanes` pairs, the next chunk's while this one's rows load;
-// the group's lanes then read kBatch rows at once, the ids by shuffles,
+// the group's lanes then read kB rows at once, the ids by shuffles,
 // the next batch's rows prefetched to L2.  kD > 0 (a power of two, with
-// lanes % kBatch == 0) fixes where rows end within a batch at compile
+// lanes % kB == 0) fixes where rows end within a batch at compile
 // time, so a row's mean is written once with no test a pair; kD == 0
-// takes any D.  self_rows runs once the first ids are on their way.
-template <int V, bool kSwz, int kD, typename SelfRows>
+// takes any D.  self_rows runs once the first ids are on their way.  kB:
+// the rows in flight a lane (kBatch, or fewer where other live registers
+// crowd the gather).
+template <int V, bool kSwz, int kD, int kB, typename SelfRows>
 __device__ __forceinline__ void gather_direct(const LayerArgs& a, int r0, int k0, int kw, __nv_bfloat16* s_a, int as,
                                               int lanes, int groups, int g, int li, int j0, int nr,
                                               SelfRows&& self_rows) {
@@ -371,42 +377,42 @@ __device__ __forceinline__ void gather_direct(const LayerArgs& a, int r0, int k0
     for (int tc = 0; tc < max_items; tc += lanes) {
       const int staged = staged_next;
       staged_next = stage(tc + lanes);
-      for (int u0 = 0; u0 < lanes; u0 += kBatch) {
-        int id[kBatch];
-        Raw<V> x[kBatch];
+      for (int u0 = 0; u0 < lanes; u0 += kB) {
+        int id[kB];
+        Raw<V> x[kB];
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
+        for (int u = 0; u < kB; ++u) {
           id[u] = __shfl_sync(kFull, staged, (u0 + u) & (lanes - 1), lanes);
           if (u0 + u >= lanes || tc + u0 + u >= items) id[u] = -2;  // past the group's pairs
           x[u] = id[u] >= 0 && active ? load_raw<V>(table + static_cast<long long>(id[u]) * a.f_in + feat)
                                       : zero_raw<V>();
         }
-        if (u0 + kBatch < lanes) {  // the chunk's next batch of rows on their way to L2
+        if (u0 + kB < lanes) {  // the chunk's next batch of rows on their way to L2
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            const int pid = __shfl_sync(kFull, staged, (u0 + kBatch + u) & (lanes - 1), lanes);
-            if (pid >= 0 && active && tc + u0 + kBatch + u < items)
+          for (int u = 0; u < kB; ++u) {
+            const int pid = __shfl_sync(kFull, staged, (u0 + kB + u) & (lanes - 1), lanes);
+            if (pid >= 0 && active && tc + u0 + kB + u < items)
               prefetch_l2(table + static_cast<long long>(pid) * a.f_in + feat);
           }
         }
-        if constexpr (kD > 0 && kD <= kBatch) {
+        if constexpr (kD > 0 && kD <= kB) {
           const int q0 = (tc + u0) / kD;
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
+          for (int u = 0; u < kB; ++u) {
             add_raw<V>(acc, x[u]);
             cnt += id[u] >= 0 ? 1 : 0;
             if (u % kD == kD - 1) write_mean(q0 + u / kD);
           }
-        } else if constexpr (kD > kBatch) {
+        } else if constexpr (kD > kB) {
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
+          for (int u = 0; u < kB; ++u) {
             add_raw<V>(acc, x[u]);
             cnt += id[u] >= 0 ? 1 : 0;
           }
-          if (((tc + u0 + kBatch) & (kD - 1)) == 0) write_mean((tc + u0) / kD);
+          if (((tc + u0 + kB) & (kD - 1)) == 0) write_mean((tc + u0) / kD);
         } else {
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
+          for (int u = 0; u < kB; ++u) {
             if (id[u] == -2) continue;
             if (tq != cur) {
               write_mean(cur);
@@ -433,10 +439,13 @@ __device__ __forceinline__ void gather_direct(const LayerArgs& a, int r0, int k0
 }
 
 // Features [k0, k0 + kw) of the tile's A rows [x_self | mean] into shared
-// memory, columns [0, kw) and [kw, 2 kw).  Rows past k get undefined
-// values; their outputs are not stored.
-template <int V, bool kSwz>
-__device__ void gather_tile(const LayerArgs& a, int r0, int k0, int kw, __nv_bfloat16* s_a, int as, float* s_red) {
+// memory, columns [0, kw) and [kw, 2 kw) (kSelfOnly: the self columns
+// alone).  The self rows go by 16-byte cp.async, left in flight.  Rows
+// past k get undefined values; their outputs are not stored.  Inlined, so
+// that a wgmma issued before it stays in flight.  kB: as gather_direct's.
+template <int V, bool kSwz, bool kSelfOnly = false, int kB = kBatch>
+__device__ __forceinline__ void gather_tile(const LayerArgs& a, int r0, int k0, int kw, __nv_bfloat16* s_a, int as,
+                                            float* s_red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int segs = (kw + V - 1) / V;
@@ -478,6 +487,10 @@ __device__ void gather_tile(const LayerArgs& a, int r0, int k0, int kw, __nv_bfl
       }
     }
   };
+  if constexpr (kSelfOnly) {
+    self_rows();
+    return;
+  }
   if (a.nchunks > 0) {
     self_rows();
     if constexpr (V == 8) finish_partials<kSwz>(a, r0, k0, kw, s_a, as, s_red);
@@ -500,18 +513,18 @@ __device__ void gather_tile(const LayerArgs& a, int r0, int k0, int kw, __nv_bfl
     }
     return;
   }
-  if (lanes % kBatch == 0) {
+  if (lanes % kB == 0) {
     switch (a.d) {
-      case 1: return gather_direct<V, kSwz, 1>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
-      case 2: return gather_direct<V, kSwz, 2>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
-      case 4: return gather_direct<V, kSwz, 4>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
-      case 8: return gather_direct<V, kSwz, 8>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
-      case 16: return gather_direct<V, kSwz, 16>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
-      case 32: return gather_direct<V, kSwz, 32>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 1: return gather_direct<V, kSwz, 1, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 2: return gather_direct<V, kSwz, 2, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 4: return gather_direct<V, kSwz, 4, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 8: return gather_direct<V, kSwz, 8, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 16: return gather_direct<V, kSwz, 16, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+      case 32: return gather_direct<V, kSwz, 32, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
       default: break;
     }
   }
-  gather_direct<V, kSwz, 0>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
+  gather_direct<V, kSwz, 0, kB>(a, r0, k0, kw, s_a, as, lanes, groups, g, li, j0, nr, self_rows);
 }
 
 // Element (k, n) of W's 128-byte-swizzled N-major tile for wgmma's B:
@@ -567,18 +580,18 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_
 
 // wgmma: a K chunk of kw features of the tile's product for an n-tile of
 // ncols columns: warpgroup wg computes the tile's 64 rows by the n-tile's
-// columns wg*64.. as m64n64k16 steps along the chunk's 2 kw A columns, A
-// (K-major) and W (N-major, B transposed) from the swizzled shared tiles,
-// into d (overwritten where first, else added to); nothing for a
-// warpgroup past ncols.  d: (row 16 w + l / 4, columns 8 i + 2 (l % 4) +
-// {0, 1}) in d[4 i], d[4 i + 1], row + 8 in d[4 i + 2], d[4 i + 3], for
-// warp w and lane l of the warpgroup.
-__device__ __forceinline__ void wgmma_tile(int kw, int ncols, const __nv_bfloat16* s_a, const __nv_bfloat16* s_w,
-                                           float (&d)[32], bool first) {
+// columns wg*64.. as ksteps m64n64k16 steps along the chunk's 2 kw A
+// columns (all 2 kw / 16 of them, or only the self half's where the mean
+// half is all zeros), A (K-major) and W (N-major, B transposed) from the
+// swizzled shared tiles, into d (overwritten where first, else added to);
+// nothing for a warpgroup past ncols.  d: (row 16 w + l / 4, columns 8 i +
+// 2 (l % 4) + {0, 1}) in d[4 i], d[4 i + 1], row + 8 in d[4 i + 2],
+// d[4 i + 3], for warp w and lane l of the warpgroup.
+__device__ __forceinline__ void wgmma_tile(int kw, int ksteps, int ncols, const __nv_bfloat16* s_a,
+                                           const __nv_bfloat16* s_w, float (&d)[32], bool first) {
   const int wg = threadIdx.x >> 7;
   if (wg * 64 >= ncols) return;
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-  const int ksteps = 2 * kw / 16;
   const int row_groups = 2 * kw / 8;
   const unsigned w_atoms = row_groups * 1024;  // bytes between W's 64-column slices
   for (int ks = 0; ks < ksteps; ++ks) {
@@ -625,16 +638,18 @@ __device__ __forceinline__ void copy_out(const LayerArgs& a, int r0, int n0, int
 }
 
 // The CUDA cores: a K chunk of kw features of the tile's product for an
-// n-tile of ncols (<= kMaxCols) columns, added to acc.  Thread t takes
-// column t % kMaxCols and rows t / kMaxCols + 2 j (acc[j]); W's entries
-// are read once a thread through the cache, the A-tile's by broadcasts.
+// n-tile of ncols (<= kMaxCols) columns, added to acc (D = 0: the self
+// half alone, the mean half being all zeros).  Thread t takes column t %
+// kMaxCols and rows t / kMaxCols + 2 j (acc[j]); W's entries are read
+// once a thread through the cache, the A-tile's by broadcasts.
 __device__ __forceinline__ void dot_tile(const LayerArgs& a, int k0, int kw, int n0, int ncols,
                                          const __nv_bfloat16* s_a, int as, float (&acc)[32]) {
   const int col = threadIdx.x % kMaxCols;
   if (col >= ncols) return;
   const __nv_bfloat16* arow = s_a + (threadIdx.x / kMaxCols) * as;
   const __nv_bfloat16* wcol = a.w + n0 + col;
-  for (int x = 0; x < 2 * kw; ++x) {
+  const int xs = a.d == 0 ? kw : 2 * kw;
+  for (int x = 0; x < xs; ++x) {
     const long long wr = x < kw ? k0 + x : a.f_in + k0 + (x - kw);
     const float wv = __bfloat162float(__ldg(wcol + wr * a.f_out));
 #pragma unroll
@@ -726,7 +741,9 @@ __global__ void __launch_bounds__(kThreads, 2) sage_layer_kernel(LayerArgs a) {
     if constexpr (kSwz) fence_proxy_async();
     __syncthreads();
     if constexpr (kSwz) {
-      wgmma_tile(kw, ncols, s_a, s_w, acc, first);
+      // D = 0 (the training contexts): the mean half is all zeros, so only
+      // the self half's steps (its last one may reach 8 zero mean columns)
+      wgmma_tile(kw, a.d == 0 ? (kw + 15) / 16 : 2 * kw / 16, ncols, s_a, s_w, acc, first);
     } else {
       if (first)
 #pragma unroll
@@ -911,26 +928,56 @@ cudaError_t start_gather(LayerArgs& a, const void* table, int c, int f_in, const
 
 // ---------------------------------------------------------------------------
 // The layer's weight gradient (sage_layer_backward).  For one bucket:
-// dw += [x_self | mean]^T . dH and db += sum_rows dH, dH = dz * [z > 0] in
-// f32, from the bf16 output z and its bf16 gradient dz.  The A rows are
-// rebuilt by the forward's gather (gather_tile, padded rows; rows of more
-// than 32 slots from sage_partial_kernel's chunks), so the gradient is
-// taken at the very A the forward multiplied.  Persistent blocks walk the
-// row tiles and keep a [2 kBackChunk, kBackCols] partial of dw in f32
-// registers (a thread 16 rows x 8 columns of it, the product on the CUDA
-// cores); each block writes its partial to scratch and
-// sage_backward_reduce_kernel adds the blocks' partials in block order, so
-// dw is the same bit for bit from run to run (atomics would not be).
+// dw += [x_self | mean]^T . dH and db += sum_rows dH, dH = dz * [z > 0],
+// from the bf16 output z and its bf16 gradient dz (dH is exact in bf16:
+// dz or 0).  The A rows are rebuilt by the forward's gather (gather_tile;
+// rows of more than 32 slots from sage_partial_kernel's chunks), so the
+// gradient is taken at the very A the forward multiplied.  Persistent
+// blocks walk the row tiles and keep a partial of dw in f32 registers;
+// each block writes its partial to scratch and sage_backward_reduce_kernel
+// adds the blocks' partials in block order, so dw is the same bit for bit
+// from run to run (atomics would not be).
 //
 // Bound on the H100 (bytes), for a uniform pane's buckets of the GraphSAGE
 // main path (~1.03M keys, F = 128): the ids and flags, each distinct table
 // row once, z and dz (2 F_out B a row each), dw and db: about 0.82 GB,
 // 0.245 ms at 3.35 TB/s; the product (2 * K * 2 F_in * F_out, 67 GFLOP)
-// takes 0.068 ms at the dense bf16 rate but at least 1 ms on the f32 CUDA
-// cores (67 TFLOP/s), which this first kernel uses: a block's 248 registers
-// a thread hold the partial, one block an SM, the gather not overlapped
-// with the product.  The tensor cores (wgmma on the transposed A-tile) are
-// the redesign.
+// takes 0.068 ms at the dense bf16 rate (at least 1 ms on the f32 CUDA
+// cores).  The contexts (D = 0, 2K rows a step) read a self row, z and dz
+// a row; their product is the self half's alone.
+//
+// Design (F_in and F_out multiples of 8, 16-byte aligned operands:
+// sage_backward_wgmma_kernel).  The product on the tensor cores, for each
+// 64-row tile: dW^T [F_out, 2 F_in] += dH^T . A.  wgmma's A operand is dH^T
+// (bf16, K-major: a dw column's 64 tile rows contiguous, written
+// transposed into a 128-byte-swizzled tile); its B operand is the gathered
+// [x_self | mean] tile read N-major (features contiguous): the gather
+// writes the forward's swizzled 16-byte pieces, which is the layout of the
+// forward's N-major W tile.  One m64n256k16 step a warpgroup covers
+// [x_self | mean] at F_in = 128; the two warpgroups take 64 dw columns
+// each: 128 f32 accumulators a thread, one block an SM.
+//   Overlap.  Stages of (A-tile, dH^T tile, raw z and dz rows) in shared
+//   memory.  A tile's wgmma steps are committed and left in flight while
+//   the block gathers the next tile's means into another stage; the block
+//   waits for them only before its barrier ahead of the next issue.  z and
+//   dz go by cp.async one tile ahead of their turn, the self rows by
+//   cp.async inside the tile's gather (their keys' loads overlap the first
+//   ids'), so the means' gather is the one latency left on a tile's path.
+//   The 128 live accumulators crowd the gather's registers: it keeps 4
+//   rows in flight a lane (kBackBatch), not the forward's 8.
+//   Rows past the bucket are zeroed in the A-tile, and dH^T is 0 there: a
+//   persistent block's stage holds an older tile in those rows, wgmma
+//   multiplies all 64, and NaN * 0 is NaN.
+//   D = 0 (the contexts): the mean half is all zeros, so it is neither
+//   gathered nor multiplied (N = F_in, m64n128k16, 64 accumulators), and
+//   the reduce leaves dw's W_nbr rows as they were: the JAX package never
+//   forms that half.  With no gather to hide them, its copies go two tiles
+//   ahead.
+//   Widths.  F_in past 128 walks K chunks of 128 features and F_out past
+//   128 passes of 128 dw columns, the tiles gathered again for each.
+//   Other widths: sage_backward_kernel, the product on the CUDA cores (a
+//   thread 16 rows x 8 columns of a [256, 128] partial, 248 registers, one
+//   block an SM).
 
 constexpr int kBackChunk = 128;  // features a K chunk: dw tiles of 2 * 128 rows
 constexpr int kBackCols = 128;   // dw columns a tile
@@ -1069,72 +1116,363 @@ __global__ void __launch_bounds__(kThreads, 1) sage_backward_kernel(LayerArgs a,
   }
 }
 
-// dw[e] += the blocks' partials of element e, added in block order (and db
-// likewise): a thread an element.
+// wgmma steps of m64n128k16 and m64n256k16 (bf16 in, f32 accumulators),
+// A K-major and B N-major (transposed) from shared memory, D = A B + (scale_d
+// ? D : 0); d's layout as wgmma_tile's, over N / 8 column groups.
+__device__ __forceinline__ void wgmma_64x128_tn(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_64x256_tn(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 256) {
+    wgmma_64x256_tn(d, da, db, scale_d);
+  } else {
+    wgmma_64x128_tn(d, da, db, scale_d);
+  }
+}
+
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+constexpr int kBackMCols = 128;  // dw columns a pass of the tensor-core kernel: 64 a warpgroup
+// rows in flight a lane of the backward's mean gather: its 128 live
+// accumulators leave the gather too few registers for kBatch
+constexpr int kBackBatch = 4;
+constexpr int kBackHBytes = kBackMCols * kTileRows * 2;  // its dH^T tile, bf16 [128, 64]
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tensor-core kernel's shared memory (from a 1024-aligned base):
+// kStages stages of the A-tile (bf16 [64, kN], swizzled; kN = wgmma's N:
+// the [x_self | mean] columns, or the self columns alone), the dH^T tile
+// and the raw z and dz rows (bf16 [64, kBackMCols] each, 16-byte units
+// swizzled), then the partial sums' scratch (kThreads * 8 floats, kThreads
+// ints; also db's 16 x 128 partial sums).  A tile's copies are issued
+// kDepth tiles ahead of its turn: z and dz one tile ahead where the means
+// are gathered (their gather hides the copies; the self rows go inside
+// it), the self rows, z and dz two tiles ahead for the self half alone.
+// 174,080 and 206,848 bytes: one block an SM.
+template <bool kSelf>
+struct BackPlan {
+  static constexpr int kN = kSelf ? 128 : 256;
+  static constexpr int kDepth = kSelf ? 2 : 1;
+  static constexpr int kStages = kDepth + 1;
+  static constexpr int kHOff = kTileRows * kN * 2;
+  static constexpr int kROff = kHOff + kBackHBytes;
+  static constexpr int kStage = kROff + 2 * kTileRows * kBackMCols * 2;
+  static constexpr size_t kRedOff = static_cast<size_t>(kStages) * kStage;
+  static constexpr size_t kSmem = kRedOff + static_cast<size_t>(kThreads) * 9 * 4 + 1024;
+};
+
+// 16-byte unit p of raw row r (of z, or of dz after it): the units of a
+// row permuted by (r / 4) % 8, so that load_dh_t's reads of 16 rows 4
+// apart land on distinct banks.
+__device__ __forceinline__ int raw_unit(int r, int p) { return r * (kBackMCols / 8) + (p ^ ((r >> 2) & 7)); }
+
+// The tile's z and dz rows, columns [n0, n0 + ncols), into the raw buffer
+// s_r by 16-byte cp.async (left in flight); rows past the bucket are not
+// copied.
+__device__ __forceinline__ void copy_zdz(const BackArgs& b, int r0, int rows, int n0, int ncols, __nv_bfloat16* s_r) {
+  const int per_row = ncols / 8;
+  const int n = rows * per_row;
+  for (int i = threadIdx.x; i < 2 * n; i += kThreads) {
+    const int dz = i >= n ? 1 : 0;
+    const int r = (i - dz * n) / per_row;
+    const int p = i - dz * n - r * per_row;
+    cp_async16(s_r + (dz * kTileRows * (kBackMCols / 8) + raw_unit(r, p)) * 8,
+               (dz ? b.dz : b.z) + static_cast<long long>(r0 + r) * b.f_out + n0 + p * 8);
+  }
+}
+
+// The tile's dH = dz * [z > 0] from the raw rows, transposed into the
+// K-major dH^T tile s_h (bf16 [kBackMCols, 64]: a dw column's 64 tile rows
+// in one 128-byte swizzled row); 0 past ncols and past the bucket's rows.
+// Thread t takes rows 4 (t % 16).. and columns 8 (t / 16)..: 16 B of z and
+// of dz a row, then each column's 4 rows as one 8-byte piece (a
+// half-warp's 16 pieces on distinct banks).  With_db: the thread's column
+// sums, its rows in order, added to dbs.
+__device__ __forceinline__ void load_dh_t(const __nv_bfloat16* s_r, int rows, int ncols, __nv_bfloat16* s_h,
+                                          float (&dbs)[8], bool with_db) {
+  const int rq = threadIdx.x & 15;
+  const int cb = threadIdx.x >> 4;
+  uint4 zr[4], dr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * rq + i;
+    if (r < rows && cb * 8 < ncols) {
+      const int u = raw_unit(r, cb);
+      zr[i] = *reinterpret_cast<const uint4*>(s_r + u * 8);
+      dr[i] = *reinterpret_cast<const uint4*>(s_r + (kTileRows * (kBackMCols / 8) + u) * 8);
+    } else {
+      zr[i] = make_uint4(0u, 0u, 0u, 0u);
+      dr[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t bits[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat16 zv = reinterpret_cast<const __nv_bfloat16*>(&zr[i])[j];
+      const unsigned short dv = reinterpret_cast<const unsigned short*>(&dr[i])[j];
+      bits[i] = __bfloat162float(zv) > 0.f ? dv : 0u;
+      if (with_db) dbs[j] += __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits[i])));
+    }
+    *reinterpret_cast<uint2*>(s_h + swz_index(cb * 8 + j, 4 * rq, kBackMCols / 8)) =
+        make_uint2(bits[0] | (bits[1] << 16), bits[2] | (bits[3] << 16));
+  }
+}
+
+// Persistent blocks walk the bucket's 64-row tiles, for each pass (dw
+// columns n0.. of a 128-column pass, K chunk k0 of kBackChunk features:
+// the A-tile's self columns [0, kw) and mean columns [kw, 2 kw) are dw
+// rows k0.. and f_in + k0..) in turn.  A tile's turn: its self rows and
+// means gathered into its stage (its z and dz already on their way there;
+// kSelf: its self rows too); its copies waited for; dH^T from the raw
+// rows; the previous tile's wgmma
+// waited for; then its 4 k-steps issued and committed, left in flight
+// over the next tile's gather, and the copies of the tile kDepth ahead
+// issued (its rows past the bucket zeroed).  Warpgroup wg holds dw^T rows (dw columns) n0 +
+// 64 wg.. by the A-tile's kN columns; the column sums of dH (db) are taken
+// with the first K chunk.
+template <bool kSelf>
+__global__ void __launch_bounds__(kThreads, 1) sage_backward_wgmma_kernel(LayerArgs a, BackArgs b) {
+  using P = BackPlan<kSelf>;
+  constexpr int kN = P::kN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base = smem + ((1024 - (static_cast<unsigned>(__cvta_generic_to_shared(smem)) & 1023)) & 1023);
+  float* s_red = reinterpret_cast<float*>(base + P::kRedOff);
+  const int tiles = (a.k + kTileRows - 1) / kTileRows;
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  float* pdw = b.part_dw + static_cast<long long>(blockIdx.x) * 2 * a.f_in * b.f_out;
+  for (int n0 = 0; n0 < b.f_out; n0 += kBackMCols) {
+    const int ncols = b.f_out - n0 < kBackMCols ? b.f_out - n0 : kBackMCols;
+    const bool mma = wg * 64 < ncols;
+    for (int k0 = 0; k0 < a.f_in; k0 += kBackChunk) {
+      const int kw = a.f_in - k0 < kBackChunk ? a.f_in - k0 : kBackChunk;
+      // the copies of the block's it-th tile of the pass, one commit group
+      auto issue = [&](int it) {
+        const int tile = blockIdx.x + it * gridDim.x;
+        if (tile < tiles) {
+          unsigned char* stage = base + (it % P::kStages) * P::kStage;
+          __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(stage);
+          const int r0 = tile * kTileRows;
+          const int rows = a.k - r0 < kTileRows ? a.k - r0 : kTileRows;
+          for (int i = threadIdx.x; i < (kTileRows - rows) * (kN / 8); i += kThreads)
+            *reinterpret_cast<uint4*>(s_a + swz_index(rows + i / (kN / 8), (i % (kN / 8)) * 8, kTileRows / 8)) =
+                make_uint4(0u, 0u, 0u, 0u);
+          if constexpr (kSelf) gather_tile<8, true, true>(a, r0, k0, kw, s_a, 0, s_red);
+          copy_zdz(b, r0, rows, n0, ncols, reinterpret_cast<__nv_bfloat16*>(stage + P::kROff));
+        }
+        cp_async_commit();
+      };
+      float acc[kN / 2];
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+      float dbs[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dbs[j] = 0.f;
+#pragma unroll
+      for (int it = 0; it < P::kDepth; ++it) issue(it);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+        unsigned char* stage = base + (it % P::kStages) * P::kStage;
+        __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(stage);
+        __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(stage + P::kHOff);
+        const int r0 = tile * kTileRows;
+        const int rows = a.k - r0 < kTileRows ? a.k - r0 : kTileRows;
+        if constexpr (!kSelf) {  // the self rows by cp.async once the first ids are on their way
+          gather_tile<8, true, false, kBackBatch>(a, r0, k0, kw, s_a, 0, s_red);
+          cp_async_commit();
+        }
+        cp_async_wait<kSelf ? P::kDepth - 1 : 0>();  // this tile's copies (a later tile's may be in flight)
+        __syncthreads();
+        load_dh_t(reinterpret_cast<const __nv_bfloat16*>(stage + P::kROff), rows, ncols, s_h, dbs, k0 == 0);
+        fence_proxy_async();
+        wgmma_wait_all();  // the previous tile's steps
+        __syncthreads();
+        if (mma) {
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int ks = 0; ks < kTileRows / 16; ++ks)
+            wgmma_tn<kN>(acc, swz_desc(s_h + (wg * 64) * kTileRows + ks * 16, 16, 1024),
+                         swz_desc(s_a + ks * 2 * 512, kTileRows * 64 * 2, 1024), 1);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        }
+        issue(it + P::kDepth);
+      }
+      wgmma_wait_all();
+      cp_async_wait<0>();
+      if (mma) {  // acc[4 i + 2 h + e]: dw column n0 + m + 8 h, A-tile column 8 i + 2 (lane % 4) + e
+        const int m = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+        const int nmax = kSelf ? kw : 2 * kw;
+#pragma unroll
+        for (int i = 0; i < kN / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 8 * i + 2 * (lane & 3) + e;
+            if (n >= nmax) continue;
+            float* p = pdw + (n < kw ? k0 + n : a.f_in + k0 + (n - kw)) * static_cast<long long>(b.f_out) + n0;
+            if (m < ncols) p[m] = acc[4 * i + e];
+            if (m + 8 < ncols) p[m + 8] = acc[4 * i + 2 + e];
+          }
+        }
+      }
+      if (k0 == 0) {  // db: the 16 row groups' column sums, added in order
+        const int rq = threadIdx.x & 15;
+        const int c8 = (threadIdx.x >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s_red[rq * kBackMCols + c8 + j] = dbs[j];
+        __syncthreads();
+        if (threadIdx.x < ncols) {
+          float t = 0.f;
+          for (int q = 0; q < 16; ++q) t += s_red[q * kBackMCols + threadIdx.x];
+          b.part_db[static_cast<long long>(blockIdx.x) * b.f_out + n0 + threadIdx.x] = t;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// dw[e] += the blocks' partials of element e for e < n (the partials
+// stride apart), added in block order, and db likewise: a thread an
+// element.
 __global__ void __launch_bounds__(kThreads) sage_backward_reduce_kernel(const float* __restrict__ part_dw,
                                                                        const float* __restrict__ part_db, int blocks,
-                                                                       long long n_dw, int f_out, float* dw,
-                                                                       float* db) {
+                                                                       long long stride, long long n, int f_out,
+                                                                       float* dw, float* db) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e < n_dw) {
+  if (e < n) {
     float s = 0.f;
-    for (int g = 0; g < blocks; ++g) s += part_dw[static_cast<long long>(g) * n_dw + e];
+    for (int g = 0; g < blocks; ++g) s += part_dw[static_cast<long long>(g) * stride + e];
     dw[e] += s;
-  } else if (e < n_dw + f_out) {
-    const long long c = e - n_dw;
+  } else if (e < n + f_out) {
+    const long long c = e - n;
     float s = 0.f;
     for (int g = 0; g < blocks; ++g) s += part_db[static_cast<long long>(g) * f_out + c];
     db[c] += s;
   }
 }
 
-// The backward's blocks for k rows: one a tile, at most the blocks the
-// SMs hold at once (and at most kBackMaxBlocksPerSm an SM).
-template <int V, bool kVecH>
-cudaError_t backward_grid(int k, int* grid) {
+// A backward kernel's blocks for k rows: one a tile, at most the blocks
+// the SMs hold at once (and at most kBackMaxBlocksPerSm an SM); cache:
+// the kernel's own, per device (the blocks an SM holds, 0: not asked yet;
+// its shared memory is fixed) and the SM count.
+struct GridCache {
+  int blocks_per_sm[kMaxDevices];
+  int sms[kMaxDevices];
+};
+
+cudaError_t backward_grid(GridCache& cache, const void* kernel, size_t smem, int k, int* grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  // per instantiation and device: the blocks an SM holds (0: not asked
-  // yet; the shared memory is fixed) and the SM count
-  static int blocks_per_sm[kMaxDevices] = {};
-  static int sms[kMaxDevices] = {};
-  if (blocks_per_sm[dev] == 0) {
-    auto kernel = sage_backward_kernel<V, kVecH>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBackSmem));
+  if (cache.blocks_per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&cache.sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     int occ = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, kBackSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
     if (err != cudaSuccess) return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
-    blocks_per_sm[dev] = occ < kBackMaxBlocksPerSm ? occ : kBackMaxBlocksPerSm;
+    cache.blocks_per_sm[dev] = occ < kBackMaxBlocksPerSm ? occ : kBackMaxBlocksPerSm;
   }
   const long long tiles = (static_cast<long long>(k) + kTileRows - 1) / kTileRows;
-  const long long cap = static_cast<long long>(blocks_per_sm[dev]) * sms[dev];
+  const long long cap = static_cast<long long>(cache.blocks_per_sm[dev]) * cache.sms[dev];
   *grid = static_cast<int>(tiles < cap ? tiles : cap);
   return cudaSuccess;
 }
 
-// The blocks' partials (into scratch of `floats` f32), then their sum in
-// block order into dw and db.
-template <int V, bool kVecH>
-cudaError_t launch_backward(const LayerArgs& a, BackArgs b, float* dw, float* db, long long floats, cudaStream_t s) {
+// The blocks' partials of kernel (at smem bytes; into scratch of `floats`
+// f32), then their sum in block order into dw (its first n_add elements:
+// at D = 0 the W_nbr rows are skipped) and db.
+cudaError_t launch_backward(GridCache& cache, void (*kernel)(LayerArgs, BackArgs), size_t smem, const LayerArgs& a,
+                            BackArgs b, float* dw, float* db, long long floats, cudaStream_t s) {
   int grid = 0;
-  cudaError_t err = backward_grid<V, kVecH>(a.k, &grid);
+  cudaError_t err = backward_grid(cache, reinterpret_cast<const void*>(kernel), smem, a.k, &grid);
   if (err != cudaSuccess) return err;
   const long long n_dw = 2ll * a.f_in * b.f_out;
   if (static_cast<long long>(grid) * (n_dw + b.f_out) > floats) return cudaErrorInvalidValue;
   b.part_db = b.part_dw + static_cast<long long>(grid) * n_dw;
-  sage_backward_kernel<V, kVecH><<<grid, kThreads, kBackSmem, s>>>(a, b);
+  kernel<<<grid, kThreads, smem, s>>>(a, b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = n_dw + b.f_out;
+  const long long n_add = a.d == 0 ? n_dw / 2 : n_dw;
+  const long long total = n_add + b.f_out;
   sage_backward_reduce_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      b.part_dw, b.part_db, grid, n_dw, b.f_out, dw, db);
+      b.part_dw, b.part_db, grid, n_dw, n_add, b.f_out, dw, db);
   return cudaGetLastError();
+}
+
+template <int V, bool kVecH>
+cudaError_t launch_backward_core(const LayerArgs& a, const BackArgs& b, float* dw, float* db, long long floats,
+                                 cudaStream_t s) {
+  static GridCache cache;
+  return launch_backward(cache, sage_backward_kernel<V, kVecH>, kBackSmem, a, b, dw, db, floats, s);
+}
+
+template <bool kSelf>
+cudaError_t launch_backward_wgmma(const LayerArgs& a, const BackArgs& b, float* dw, float* db, long long floats,
+                                  cudaStream_t s) {
+  static GridCache cache;
+  return launch_backward(cache, sage_backward_wgmma_kernel<kSelf>, BackPlan<kSelf>::kSmem, a, b, dw, db, floats, s);
 }
 
 }  // namespace
@@ -1222,12 +1560,14 @@ int sage_layer_backward_launch(const void* table, int c, int f_in, const void* k
   const long long floats = scratch_bytes / 4;
   auto* fdw = static_cast<float*>(dw);
   auto* fdb = static_cast<float*>(db);
-  if (vec) {
-    err = vec_h ? launch_backward<8, true>(a, b, fdw, fdb, floats, s)
-                : launch_backward<8, false>(a, b, fdw, fdb, floats, s);
+  if (vec && vec_h) {  // the tensor cores
+    err = d == 0 ? launch_backward_wgmma<true>(a, b, fdw, fdb, floats, s)
+                 : launch_backward_wgmma<false>(a, b, fdw, fdb, floats, s);
+  } else if (vec) {
+    err = launch_backward_core<8, false>(a, b, fdw, fdb, floats, s);
   } else {
-    err = vec_h ? launch_backward<1, true>(a, b, fdw, fdb, floats, s)
-                : launch_backward<1, false>(a, b, fdw, fdb, floats, s);
+    err = vec_h ? launch_backward_core<1, true>(a, b, fdw, fdb, floats, s)
+                : launch_backward_core<1, false>(a, b, fdw, fdb, floats, s);
   }
   return static_cast<int>(err);
 }

@@ -36,7 +36,12 @@ launches nothing.  The backward on CUDA tensors is one C call too (the
 partial-sum kernel for long rows, the gradient kernel, a kernel that adds
 its blocks' partials in block order, so ``dw`` is the same bit for bit
 from run to run), counted in ``LAUNCHES["sage_layer_backward"]``; on CPU
-tensors ``sage_layer_backward_plain``.
+tensors ``sage_layer_backward_plain``.  F_in and F_out multiples of 8 take
+the gradient's product by wgmma, the next tile's gather overlapped with
+it, other widths the CUDA cores.  With D = 0 (an empty neighborhood: the
+training contexts) the mean half is all zeros: both kernels skip its
+product, and the backward leaves ``dw``'s W_nbr rows as they were (the
+twin adds exact zeros there), as the JAX package never forms that half.
 """
 
 from __future__ import annotations

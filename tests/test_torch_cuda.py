@@ -741,23 +741,47 @@ def test_sage_layer_runs_an_empty_neighborhood(cuda_device):
     torch.testing.assert_close(got, self_only.to(torch.bfloat16).float(), rtol=SAGE_RTOL, atol=SAGE_ATOL)
 
 
+# backward-only buckets: (C, F_in, F_out, K, D).  k19237 = 64 * 300 + 37:
+# more 64-row tiles than the grid has blocks, the last one ragged (a
+# persistent block's stage holds its previous tile's rows past the
+# bucket); k1 and k65: one row, and one row past a tile; f384: past one K
+# chunk of the tensor-core kernel; f256 out: two passes of 128 dw columns;
+# "-view": the ids and flags a view 5 slots into a larger buffer (as
+# build_buckets' buckets are), so neither starts 16-byte aligned.
+BACKWARD_SHAPES = {
+    "f128-d8-k19237-view": (1 << 16, 128, 128, 64 * 300 + 37, 8),
+    "f128-d0": (4096, 128, 128, 3000, 0),
+    "f128-d8-k19237": (1 << 16, 128, 128, 64 * 300 + 37, 8),
+    "f128-d4-k1": (4096, 128, 128, 1, 4),
+    "f128-d4-k65": (4096, 128, 128, 65, 4),
+    "f128-d0-k19237": (1 << 16, 128, 128, 64 * 300 + 37, 0),
+    "f384-f128-d4": (2048, 384, 128, 700, 4),
+    "f128-f256-d4": (2048, 128, 256, 700, 4),
+}
 BACKWARD_CASES = ["f128-d0", "f128-d8", "f128-d32", "f128-d1024", "f128-hub", "f12-f20-d4", "f602-f41-d3",
-                  "f40-f24-d600", "f256-f200-d2"]
+                  "f40-f24-d600", "f256-f200-d2", "f128-d8-k19237", "f128-d4-k1", "f128-d4-k65", "f128-d0-k19237",
+                  "f384-f128-d4", "f128-f256-d4", "f128-d8-k19237-view"]
 
 
 def _backward_inputs(dev, name, seed=0):
-    """A bucket (SAGE_CASES, or D = 0 at F = 128), its layer output z and a
+    """A bucket (SAGE_CASES or BACKWARD_SHAPES), its layer output z and a
     bf16 gradient dz of it."""
     from gelly_streaming_tpu_torch.ops import sage
 
-    if name == "f128-d0":
-        c, f_in, f_out, k, d = 4096, 128, 128, 3000, 0
+    if name in BACKWARD_SHAPES:
+        c, f_in, f_out, k, d = BACKWARD_SHAPES[name]
     else:
         _name, c, f_in, f_out, k, d = next(case for case in SAGE_CASES if case[0] == name)
     args = _layer_inputs(dev, c, f_in, f_out, k, d, f_in * d + k + seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     if k == 1:  # the hub row: valid neighbors (_layer_inputs empties row 0)
         args = (*args[:3], torch.rand(args[3].shape, generator=g, device=dev) < 0.7, *args[4:])
+    if name.endswith("-view"):
+        views = []
+        for t in args[2:4]:
+            buf = torch.zeros((t.numel() + 9,), dtype=t.dtype, device=dev)
+            views.append(buf[5 : 5 + t.numel()].view(t.shape).copy_(t))
+        args = (*args[:2], *views, *args[4:])
     z = sage.sage_layer(*args)
     dz = torch.randn(z.shape, generator=g, device=dev).to(torch.bfloat16)
     return args[:4], z, dz
@@ -778,9 +802,10 @@ def _backward_bound(table, keys, nbrs, valid, z, dz):
 @pytest.mark.parametrize("name", BACKWARD_CASES)
 def test_sage_layer_backward_kernel_matches_twin(cuda_device, name):
     """The weight-gradient kernel against its twin, at F = 128 for D = 0,
-    8, 32 and 1024 (the partial-sum kernel's chunks), a hub row, and at
-    widths that are not multiples of 8 (2-byte loads) or pass one K chunk
-    or n-tile; two runs give the same dw and db bit for bit."""
+    8, 32 and 1024 (the partial-sum kernel's chunks), a hub row, buckets of
+    1 row, 65 rows and more tiles than the grid's blocks with a ragged last
+    tile, and at widths that are not multiples of 8 (2-byte loads) or pass
+    one K chunk or n-tile; two runs give the same dw and db bit for bit."""
     from gelly_streaming_tpu_torch.ops import sage
 
     (table, keys, nbrs, valid), z, dz = _backward_inputs(cuda_device, name)
@@ -802,7 +827,8 @@ def test_sage_layer_backward_kernel_matches_twin(cuda_device, name):
     for g, a, w, t in zip(got, again, want, tol):
         assert torch.equal(g, a)
         assert bool(((g - w).abs() <= t).all()), float((g - w).abs().max())
-    # no neighbors (D = 0): the mean is 0 and the W_nbr half gains nothing
+    # no neighbors (D = 0): the mean is 0 and the W_nbr half is left as it
+    # was, bit for bit
     assert bool((got[0][f_in:] == 0.5).all()) == (nbrs.shape[1] == 0)
 
 

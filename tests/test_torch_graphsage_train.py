@@ -85,6 +85,36 @@ def test_sage_loss_and_grads_match_jax(seed, cap, k, d, f_in, f_out, oor):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("seed,cap,k,f_in,f_out", [(4, 48, 32, 16, 8), (5, 64, 40, 32, 24)])
+def test_the_contexts_term_gives_w_nbr_no_gradient_in_both_packages(seed, cap, k, f_in, f_out):
+    """The premise of the backward kernel's D = 0 skip: the contexts' term
+    alone (the pair terms with z held constant) gives W_nbr a gradient of
+    exactly 0 in both packages (JAX's _context never forms it; the port's
+    layer over an empty neighborhood multiplies a mean of 0), and the same
+    W_self and bias gradients."""
+    feats, keys, nbrs, valid, pos, has, neg = _batch(seed, cap, k, 4, f_in)
+    z = np.random.default_rng(seed + 100).normal(size=(k, f_out)).astype(np.float32)
+    jstate = jgs.sage_init_train(jax.random.key(seed), f_in, f_out, optax.adam(LR))
+
+    def contexts_term(params):
+        p, f = jgs._as_bf16(params), jnp.asarray(feats)
+        t = jgs._pair_terms(jnp.asarray(z), jgs._context(p, f[pos]), jgs._context(p, f[neg]), jnp.asarray(has))
+        return t[0] / jnp.maximum(t[1], 1.0) + t[2] / jnp.maximum(t[3], 1.0)
+
+    jgrads = jax.grad(contexts_term)(jstate.params)
+    state = _port_state(jstate)
+
+    def layer(table, ids, nb, vd, w, bias):  # the bucket's z held constant; the contexts by the plain layer
+        return torch.from_numpy(z) if nb.shape[1] else sage.sage_layer_plain(table, ids, nb, vd, w, bias)
+
+    loss = tgs._loss(layer, state.params, *_torch((feats, keys, nbrs, valid, pos, has, neg)))
+    grads = torch.autograd.grad(loss, list(state.params))
+    assert not grads[1].any() and not np.asarray(jgrads.w_nbr).any()
+    assert grads[0].abs().max() > 0 and grads[2].abs().max() > 0
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAD_TOL)
+
+
 def test_train_steps_and_a_resume_from_an_optax_state_match_jax():
     """Five steps from one carried-across state, then a resume: 3 JAX steps,
     the state (masters, Adam's moments and count) carried across, one more
