@@ -68,22 +68,31 @@ edge; components equal to scipy's) and over the uniform stream
 the CPU path's.  Each new kernel (``degree_trace``, ``degree_fold``,
 ``degree_dist_scan``, ``parity_union_kernel``) must launch once a batch on
 its main path and equal its twin; ``index_add_`` is timed beside
-``degree_fold`` as the library call.
+``degree_fold`` as the library call.  Phase 9 also holds ``degree_fold``
+against its twin on phase 12's hub pane, a masked batch and one with ids
+-1, C and C + 5, times it on the uniform and the hub batch, and measures
+the L2's reduction rate (``degree_l2_probe_launch``: 2^22 reductions at
+hashed indices of a 4 MiB vector, and 2^17 on one address), printed beside
+the bytes bound.
 
 Phases 6-10 also hold the kernels against their twins with ids -1, C and
 C + 5 on some rows of the main path's batches (unvalidated streams may
 carry them; the port follows JAX's index rules), and print the union
 calls' hook and doubling round counts on a first and a late batch.  The
 main path's first fold compresses the fresh state; later folds find it
-known flat and skip the compress kernel.  Phase 11, with
-``--parent-degrees-cu`` / ``--parent-unionfind-cu`` (those sources as they
-were before their redesign, with that C interface), times the parent's
-degree_trace (kernel alone and the whole call) and union calls (first and
-late batch, CC and parity) in turns with the current ones on the held
-stream, and splits the parent's degree_trace kernel: variants built from
-its source with one part taken out each (the scattered record stores, the
-segment searches, the int64 order read, the mask-bit loop, the counts
-gather, phase 2 and its grid sync), each timed in turns with it.
+known flat and skip the compress kernels.  Phase 7 prints the compress call
+with no edges by kernel (the pass and the rounds kernel), and with
+``--parent-unionfind-cu`` the split of the parent's compress call on the
+flat state: its header memset, then variants of its cooperative kernel with
+one part taken out (``COMPRESS_SPLIT``: the launch alone, one round with no
+sync, the sync with no round).  Phase 11, with ``--parent-degrees-cu`` /
+``--parent-unionfind-cu`` (those sources as they were before the redesign
+of degree_fold and compress, d65530e, with that C interface), times the
+parent's degree_fold on the uniform and the hub batch, its compress (a call
+with no edges) on the flat state, a ``uf_forest`` and a path at C and 2C
+nodes, and its union calls (first and late batch, CC and parity) in turns
+with the current ones on the held stream (parent, current, current,
+parent).
 
 Phase 12 drives ``slice()`` and windowed GraphSAGE at the repo's width (F_in
 = F_out = 128, bench.py:2762) over the CC bench's vertex count: 8 count-cut
@@ -639,15 +648,17 @@ def baseline_wrappers(lib):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the parent commit's degrees.cu and unionfind.cu (before their
-# redesign), for the in-turn comparison, and the split of its degree_trace
+# phase 11: the parent commit's degrees.cu and unionfind.cu (before the
+# redesign of degree_fold and compress), for the in-turn comparison, and
+# the split of its compress
 
 PARENT_SIGNATURES = {
-    # m, sorted keys, order (int64), n, counts, capacity, packed, maskbits, emitted, stream
-    "degrees": {"degree_trace_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P]},
-    # parent, seen, src, dst, mask, n, capacity, scratch uint8[24 + items], stream
-    "unionfind": {"uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
-                  "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _P, _P]},
+    # (d65530e) deg, src, dst, mask, n, capacity, stream
+    "degrees": {"degree_fold_launch": [_P, _P, _P, _P, _I, _I, _P]},
+    # (d65530e) items, nodes; parent, seen, src, dst, mask, n, capacity, flat, scratch, scratch bytes, stream
+    "unionfind": {"uf_scratch_bytes": [_L, _L],
+                  "uf_union_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _L, _P],
+                  "uf_parity_union_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _L, _P]},
     # (8ebc8a0) sorted keys, n, buckets, tile table, info, offsets, totals, stream; sorted keys, order
     # (int64), n, buckets, tile table, info, offsets, src, dst, keys out, nbrs out, valid out, stream
     "neighborhoods": {"nb_count_launch": [_P, _I, _I, _P, _P, _P, _P, _P],
@@ -666,24 +677,38 @@ PARENT_SIGNATURES = {
     },
 }
 
-# The parent's degree_trace_kernel with one part taken out: (old text, new
-# text) substitutions in its source, each applied exactly once.
-TRACE_SPLIT = {
-    "scattered record stores (written at the sorted position)": [
-        ("auto* rec = reinterpret_cast<uint16_t*>(packed + 6 * i);",
-         "auto* rec = reinterpret_cast<uint16_t*>(packed + 6 * (p + (i < 0)));")],
-    "segment searches (rank 0, length 1)": [
-        ("const int rank = static_cast<int>(p - segment_start(keys, p, key));", "const int rank = 0;"),
-        ("const int len = static_cast<int>(p - segment_start(keys, p, key) + 1);", "const int len = 1;")],
-    "int64 order read (a multiplicative permutation of 2^k rows)": [
-        ("const int64_t i = __ldg(order + p);", "const int64_t i = (p * 2654435761LL) & (n - 1);")],
-    "mask-bit loop": [("if (maskbits != nullptr) {", "if (false) {")],
-    "counts gather": [("counts[clamp_index(id, capacity)]", "id")],
-    "phase 2 and its grid sync": [
-        ("grid.sync();\n  for (int64_t p = first; p < n; p += stride) {\n    const int key = __ldg(keys + p);\n"
-         "    if ((key & 1) != 0) continue;",
-         "return;\n  for (int64_t p = first; p < n; p += stride) {\n    const int key = __ldg(keys + p);\n"
-         "    if ((key & 1) != 0) continue;")],
+# The parent's compress_kernel (a cooperative launch: one doubling round and
+# one grid-wide sync on a flat state) with one part taken out, for the split
+# of its time (phase 7); the form of BACKWARD_SPLIT.
+COMPRESS_SPLIT = {
+    "the launch alone (the kernel returns at once)": [
+        ("compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ header) {\n",
+         "compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ header) {\n  return;\n")],
+    "the launch and one round (no grid-wide sync)": [
+        ("    moved_any = round_end(grid, flags, round, moved);", "    moved_any = false;\n    ++round;")],
+    "the launch and the sync (a round that reads nothing)": [
+        ("    for (int64_t i = first; i < capacity; i += stride) {\n      const int p = load_relaxed(parent + i);",
+         "    for (int64_t i = capacity; i < capacity; i += stride) {\n      const int p = load_relaxed(parent + i);")],
+}
+
+
+# The current degree_fold_kernel with one part taken out (the results are
+# wrong; only their time counts), for what holds it back (phase 11); the
+# form of BACKWARD_SPLIT.
+FOLD_SPLIT = {
+    "the src half's reductions": [
+        ("    run_counts(v, ok, cnt);\n", "    run_counts(v, ok, cnt);\n    cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;\n")],
+    "the dst half's reductions": [
+        ("    run_counts(v + 4, ok + 4, cnt + 4);\n",
+         "    run_counts(v + 4, ok + 4, cnt + 4);\n    cnt[4] = cnt[5] = cnt[6] = cnt[7] = 0;\n")],
+    "every reduction (loads and run merging alone)": [
+        ("    run_counts(v, ok, cnt);\n", "    run_counts(v, ok, cnt);\n    cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;\n"),
+        ("    run_counts(v + 4, ok + 4, cnt + 4);\n",
+         "    run_counts(v + 4, ok + 4, cnt + 4);\n    cnt[4] = cnt[5] = cnt[6] = cnt[7] = 0;\n")],
+    "the hot-id cache (no id admitted)": [
+        ("        if (lane == leader && __popc(peers) > 1) {", "        if (false) {")],
+    "runs across lanes (merged inside a lane only)": [
+        ("  cont[0] = lane > 0 && ok[0] && pok && px == x[0];", "  cont[0] = false;")],
 }
 
 
@@ -729,49 +754,40 @@ def split_sources(source: str, split: dict, stem: str) -> dict:
     return paths
 
 
-def parent_trace(lib, counts, v, m):
-    """(kernel alone after a sort made once, the whole call: keys, stable
-    sort, kernel) of the parent's degree_trace, packed records."""
-    import torch
-
-    from gelly_streaming_tpu_torch.ops import _cuda
-
-    n = v.shape[0]
-    rec = torch.empty(6 * n, dtype=torch.uint8, device=v.device)
-    bits = torch.empty((n + 7) // 8, dtype=torch.uint8, device=v.device)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-
-    def launch(keys, order):
-        _cuda.check(lib.degree_trace_launch(m.data_ptr(), keys.data_ptr(), order.data_ptr(), n, counts.data_ptr(),
-                                            counts.shape[0], rec.data_ptr(), bits.data_ptr(), None, stream),
-                    "parent degree_trace_launch")
-        return rec, bits
-
-    keys, order = torch.sort((v << 1) | (~m).to(torch.int32), stable=True)
-
-    def call():
-        k, o = torch.sort((v << 1) | (~m).to(torch.int32), stable=True)
-        return launch(k, o)
-
-    return (lambda: launch(keys, order)), call
-
-
 def parent_union_fold(lib, parity: bool):
-    """The parent's fold (compress, then the union) with its own scratch,
-    as its wrapper called it: fold(parent, seen, src, dst)."""
+    """The parent's call (its compress, then the union; compress alone for
+    no edges) with its own scratch, as its wrapper made it: fold(parent,
+    seen, src, dst, flat=False)."""
     import torch
 
     from gelly_streaming_tpu_torch.ops import _cuda
 
     entry = lib.uf_parity_union_launch if parity else lib.uf_union_launch
 
-    def fold(parent, seen, s, d):
+    def fold(parent, seen, s, d, flat=False):
         n = d.shape[0]
-        scratch = torch.empty(24 + (2 * n if parity else n), dtype=torch.uint8, device=parent.device)
-        _cuda.check(entry(parent.data_ptr(), seen.data_ptr(), s.data_ptr(), d.data_ptr(), None, n,
-                          parent.shape[0] // 2 if parity else parent.shape[0], scratch.data_ptr(),
-                          torch.cuda.current_stream(parent.device).cuda_stream), "parent union")
+        nbytes = lib.uf_scratch_bytes(2 * n if parity else n, parent.shape[0])
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=parent.device)
+        _cuda.check(entry(parent.data_ptr(), None if seen is None else seen.data_ptr(), s.data_ptr(), d.data_ptr(),
+                          None, n, parent.shape[0] // 2 if parity else parent.shape[0], int(flat),
+                          scratch.data_ptr(), nbytes, torch.cuda.current_stream(parent.device).cuda_stream),
+                    "parent union")
         return parent, seen
+
+    return fold
+
+
+def parent_degree_fold(lib):
+    """The parent's degree_fold call: fold(deg, src, dst)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def fold(deg, s, d):
+        _cuda.check(lib.degree_fold_launch(deg.data_ptr(), s.data_ptr(), d.data_ptr(), None, s.shape[0],
+                                           deg.shape[0], torch.cuda.current_stream(deg.device).cuda_stream),
+                    "parent degree_fold_launch")
+        return deg
 
     return fold
 
@@ -878,27 +894,23 @@ def phase_union(dev, rng):
     return worst
 
 
-def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float, flat: bool = False):
-    """(device ms, host enqueue us) per ``fold(parent, seen, s, d)`` call,
-    each call folding (s, d) into its own fresh copy of (parent, seen);
-    the calls are enqueued while ``torch.cuda._sleep`` holds the stream.
-    ``flat``: the copies are marked flat, as the state a fold left is on
-    the main path (the port's fold then skips compress)."""
+def copies_device_ms(call, make_copy, reps: int, cycles_per_ms: float):
+    """(device ms, host enqueue us) per ``call(copy)``, each call on its own
+    ``make_copy()`` (made before the hold), the calls enqueued while
+    ``torch.cuda._sleep`` holds the stream."""
     import torch
-
-    from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     hold_ms = 2.0
     for _ in range(4):
-        copies = [((uf.mark_flat(parent.clone()) if flat else parent.clone()), seen.clone()) for _ in range(reps)]
+        copies = [make_copy() for _ in range(reps)]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(hold_ms * cycles_per_ms))
         start.record()
         t0 = time.perf_counter()
-        for p, sn in copies:
-            fold(p, sn, s, d)
+        for cp in copies:
+            call(cp)
         host_s = time.perf_counter() - t0
         end.record()
         held = not start.query()
@@ -906,13 +918,25 @@ def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float, fl
         if held:
             return start.elapsed_time(end) / reps, host_s / reps * 1e6
         hold_ms *= 4
-    raise RuntimeError("the host could not enqueue the timed folds inside the hold")
+    raise RuntimeError("the host could not enqueue the timed calls inside the hold")
+
+
+def fold_device_ms(fold, parent, seen, s, d, reps: int, cycles_per_ms: float, flat: bool = False):
+    """(device ms, host enqueue us) per ``fold(parent, seen, s, d)`` call,
+    each call folding (s, d) into its own fresh copy of (parent, seen).
+    ``flat``: the copies are marked flat, as the state a fold left is on
+    the main path (the port's fold then skips compress)."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    return copies_device_ms(lambda cp: fold(*cp, s, d),
+                            lambda: ((uf.mark_flat(parent.clone()) if flat else parent.clone()), seen.clone()),
+                            reps, cycles_per_ms)
 
 
 def union_kernel_profile(parent, seen, s, d, reps: int, fold=None):
-    """torch.profiler device us per launch of the union and compress
-    kernels over ``reps`` calls of ``fold`` (default the CC fold) into
-    fresh state copies: {kernel: us}."""
+    """torch.profiler device us per launch of the union kernel, the compress
+    pass and the compress rounds kernel over ``reps`` calls of ``fold``
+    (default the CC fold) into fresh state copies: {kernel: us}."""
     from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     fold = fold or uf.union_edges_with_seen
@@ -920,8 +944,8 @@ def union_kernel_profile(parent, seen, s, d, reps: int, fold=None):
     rows = profiler_device_us(lambda: fold(*next(copies), s, d), reps)
     found = {}
     for key, (us, _calls) in rows.items():
-        for kernel in ("union_kernel", "compress_kernel"):
-            if kernel in key:
+        for kernel in ("union_kernel", "compress_kernel", "compress_rounds_kernel"):
+            if re.search(rf"\b{kernel}[<(]", key):
                 found[kernel] = us
     return found
 
@@ -1103,6 +1127,15 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     if len(per_kernel) < 2:
         per_kernel = {k: ms * 1e3 for k, (ms, _) in held.items()}
         split_by = "held-stream times (the profiler showed no kernel rows)"
+    # the call with no edges by kernel: the compress pass, then the rounds
+    # kernel (which returns at once where the pass flagged nothing)
+    comp_parts = {}
+    try:
+        comp_parts = union_kernel_profile(*late, none, none, 10)
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    log("  compress alone by kernel (torch.profiler, us a launch): "
+        + ", ".join(f"{k} {us:.2f}" for k, us in sorted(comp_parts.items())))
     buf_dev = to_dev((bufs[-1],), dev)[0]
     unpack_ms, unpack_us = device_ms(lambda: wire.unpack_edges(buf_dev, batch, width), UF_REPS, cycles_per_ms)
     b_union, b_compress = uf_bound_ms(batch, c)
@@ -1129,12 +1162,48 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
         "turns": {"init": init, "late": late, "first_batch": (s0, d0), "late_batch": (sl, dl)},
         "union_ms": per_kernel["union_kernel"] / 1e3,
         "compress_ms": per_kernel["compress_kernel"] / 1e3,
+        "compress_parts_us": comp_parts,
         "held": held,
         "union_plain_ms": twin_late_ms,
         "compress_plain_ms": compress_twin_ms,
         "union_bound_ms": b_union,
         "compress_bound_ms": b_compress,
     }
+
+
+def compress_split(dev, cycles_per_ms: float, parent_lib, split_libs: dict) -> dict:
+    """Phase 7 with the parent's unionfind.cu: its compress call (a call with
+    no edges) on the flat 2^20-vertex state the main path's first batch
+    finds (init_parent), split: the header memset alone (the call with the
+    state declared flat), then variants of its kernel with one part taken
+    out (COMPRESS_SPLIT).  Device ms on the held stream; the parts are
+    differences of those calls."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    state = uf.init_parent(CC_VERTICES, dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+
+    def call_ms(lib, flat=False):
+        fold = parent_union_fold(lib, False)
+        fold(state.clone(), None, none, none, flat)
+        return copies_device_ms(lambda p: fold(p, None, none, none, flat), state.clone, UF_REPS, cycles_per_ms)[0]
+
+    memset = call_ms(parent_lib, flat=True)
+    whole = call_ms(parent_lib)
+    variants = {part: call_ms(lib) for part, lib in split_libs.items()}
+    launch, one_round, sync = (variants.get(k) for k in COMPRESS_SPLIT)
+    parts = {"memset_ms": memset, "call_ms": whole, "variants_ms": variants}
+    if None not in (launch, one_round, sync):
+        parts.update(launch_ms=launch - memset, round_ms=one_round - launch, sync_ms=sync - launch)
+    log(f"  the parent's compress call on the flat {CC_VERTICES}-vertex state: {whole * 1e3:.2f} us; header memset "
+        f"alone {memset * 1e3:.2f} us; " + "; ".join(f"{k}: {v * 1e3:.2f} us" for k, v in variants.items()))
+    if "launch_ms" in parts:
+        log(f"    split: memset {memset * 1e3:.2f}, cooperative launch {parts['launch_ms'] * 1e3:.2f}, one round "
+            f"{parts['round_ms'] * 1e3:.2f}, one grid-wide sync {parts['sync_ms'] * 1e3:.2f}, rest "
+            f"{(whole - one_round - sync + launch) * 1e3:.2f} us")
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -1407,7 +1476,7 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
     from gelly_streaming_tpu_torch.io import wire
     from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistribution, DegreeDistributionSummary
-    from gelly_streaming_tpu_torch.ops import degrees
+    from gelly_streaming_tpu_torch.ops import _cuda, degrees
 
     c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
     src, dst, width, bufs = data["src"], data["dst"], data["width"], data["bufs"]
@@ -1428,23 +1497,47 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
         f"deg equal to np.bincount; degree_fold launched {fold_launches} times")
     s, d = wire.unpack_edges(torch.from_numpy(bufs[-1]).to(dev), batch, width)
     base = torch.from_numpy(want.astype(np.int32)).to(dev)
-    fold_err = int((degrees.degree_fold(base.clone(), s, d) - degrees.degree_fold_plain(base, s, d)).abs().max())
+    # the hub batch: phase 12's hub pane (a star of 2^17 from vertex 0 beside
+    # Zipf edges over 2^16 ids)
+    hs, hd = (torch.from_numpy(np.ascontiguousarray(x[-SAGE_PANE_EDGES:])).to(dev) for x in sage_stream_arrays())
+    rng = np.random.default_rng(6)
+    mask = torch.from_numpy(rng.random(batch) < 0.8).to(dev)
     # ids -1, C and C + 5 on some rows: JAX's scatter rule
     so, do = (torch.from_numpy(oor_ids(x.cpu().numpy(), c, k).astype(np.int32)).to(dev) for k, x in enumerate((s, d)))
-    oor_err = int((degrees.degree_fold(base.clone(), so, do) - degrees.degree_fold_plain(base, so, do)).abs().max())
-    if oor_err:
-        raise RuntimeError(f"degree_fold with out-of-range ids differs from the twin ({oor_err})")
+    errs = {}
+    for name, args in (("uniform", (s, d, None)), ("hub", (hs, hd, None)), ("masked", (s, d, mask)),
+                       ("ids -1, C, C + 5, masked", (so, do, mask))):
+        errs[name] = int((degrees.degree_fold(base.clone(), *args) - degrees.degree_fold_plain(base, *args)).abs().max())
+    if any(errs.values()):
+        raise RuntimeError(f"degree_fold differs from its twin: {errs}")
+    fold_err = max(errs.values())
     acc = base.clone()
     f_ms, f_us = device_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS, cycles_per_ms)
+    hub_ms, _ = device_ms(lambda: degrees.degree_fold(acc, hs, hd), UF_REPS, cycles_per_ms)
     f_events = cuda_ms(lambda: degrees.degree_fold(acc, s, d), UF_REPS)
     f_plain = cuda_ms(lambda: degrees.degree_fold_plain(base, s, d), 5)
     idx = torch.cat([s, d]).long()
     ones = torch.ones(idx.shape, dtype=torch.int32, device=dev)
     lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, ones), UF_REPS)
     f_bound = (8 * batch + 8 * c) / HBM_BYTES_PER_S * 1e3
-    log(f"  degree_fold a batch: device {f_ms:.4f} ms, host enqueue {f_us:.2f} us, events {f_events:.4f} ms; "
-        f"index_add_ (int64 index of both endpoints) {lib_ms:.4f} ms; plain twin {f_plain:.4f} ms; "
-        f"bound {f_bound:.5f} ms (bytes); max |err| vs twin {fold_err}, with ids -1, C, C + 5 {oor_err}")
+    # the L2's reduction rate: 2^22 reductions at hashed indices of a 4 MiB
+    # vector already in L2, and 2^17 on one address
+    lib = _cuda.library("degrees.cu")
+    probe = torch.zeros(c, dtype=torch.int32, device=dev)
+    rates = {}
+    for name, spread, count in (("random", 1, 2 * batch), ("one address", 0, 1 << 17)):
+        def red(spread=spread, count=count):
+            _cuda.check(lib.degree_l2_probe_launch(probe.data_ptr(), c, spread, count,
+                                                   torch.cuda.current_stream(dev).cuda_stream), "degree_l2_probe")
+        p_ms, _ = device_ms(red, UF_REPS, cycles_per_ms)
+        rates[name] = count / (p_ms * 1e-3)
+    red_ms = 2 * batch / rates["random"] * 1e3
+    log(f"  degree_fold a batch: device {f_ms:.4f} ms (hub batch {hub_ms:.4f} ms), host enqueue {f_us:.2f} us, "
+        f"events {f_events:.4f} ms; index_add_ (int64 index of both endpoints) {lib_ms:.4f} ms; plain twin "
+        f"{f_plain:.4f} ms; bound {f_bound:.5f} ms (bytes); equal to the twin on {sorted(errs)}")
+    log(f"  the L2's reduction rate: {rates['random']:.4g}/s at random indices of a {4 * c} B vector, "
+        f"{rates['one address']:.4g}/s on one address; the batch's {2 * batch} ids as random reductions "
+        f"{red_ms:.5f} ms, beside the bytes bound {f_bound:.5f} ms")
 
     # the fully-dynamic distribution: 2^20 signed events over 2^16 vertices
     rng = np.random.default_rng(1)
@@ -1502,7 +1595,9 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     log(f"  the scan's device time x {uncut['launches']} launches = {share * 100:.2f}% of the uncut run's wall")
     return {
         "fold": {"launches": fold_launches, "ms": f_events, "device_ms": f_ms, "host_us": f_us, "plain_ms": f_plain,
-                 "bound_ms": f_bound, "library_ms": lib_ms, "err": fold_err},
+                 "bound_ms": f_bound, "library_ms": lib_ms, "err": fold_err, "hub_device_ms": hub_ms,
+                 "l2_reductions_per_s": rates, "random_reductions_ms": red_ms,
+                 "turns_batches": {"uniform": (s, d), "hub": (hs, hd)}},
         "scan": {"launches": uncut["launches"], "ms": big["ms"], "device_ms": big["device_ms"],
                  "host_us": big["host_us"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
                  "err": max(scan_err, uncut["err"]), "sort_ms": big["sort_ms"], "serial_ms": big["serial_ms"],
@@ -2869,15 +2964,23 @@ def phase_train(dev, cycles_per_ms: float, parent=None, sage_log: str = "", spli
     return out
 
 
-def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, props: dict, cc: dict,
+def compress_states(rng, nodes: int) -> dict:
+    """The states phase 11 compresses: the main path's flat init_parent, a
+    uf_forest, and the path a reversed insertion leaves unflattened
+    (parent[v] = v - 1: depth nodes - 1)."""
+    path = np.maximum(np.arange(nodes, dtype=np.int32) - 1, 0)
+    return {"flat": np.arange(nodes, dtype=np.int32), "uf_forest": uf_forest(rng, nodes), "path": path}
+
+
+def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, fold_split_cu: dict, dd: dict, cc: dict,
                 bp: dict) -> dict:
-    """Phase 11: the redesigned degree_trace and union calls in turns with
-    the parent commit's builds on the main path's inputs (parent, current,
-    current, parent; device only, on the held stream), and the split of the
-    parent's degree_trace kernel (each part removed in turn)."""
+    """Phase 11: degree_fold and compress (and the union calls around the
+    latter) in turns with the parent commit's builds on the main path's
+    inputs (parent, current, current, parent; device only, on the held
+    stream), and the split of the current degree_fold (FOLD_SPLIT)."""
     import torch
 
-    from gelly_streaming_tpu_torch.ops import degrees
+    from gelly_streaming_tpu_torch.ops import _cuda, degrees
     from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     libs = {k: load_baseline(path, PARENT_SIGNATURES[k]) for k, path in parent_cu.items()}
@@ -2888,42 +2991,62 @@ def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, prop
         for tag, fn in (("parent", old_fn), ("current", new_fn), ("current", new_fn), ("parent", old_fn)):
             got.append((tag, *fn(reps)))
         log(f"  {label}: " + "; ".join(f"{tag} {ms:.4f} ms" for tag, ms, _ in got))
-        old = (got[0][1] + got[3][1]) / 2
-        new = (got[1][1] + got[2][1]) / 2
-        log(f"    mean parent {old:.4f} ms, current {new:.4f} ms, {old / new:.2f}x")
-        return {"parent_ms": old, "current_ms": new, "turns": [ms for _, ms, _ in got]}
+        old, old_us = ((got[0][k] + got[3][k]) / 2 for k in (1, 2))
+        new, new_us = ((got[1][k] + got[2][k]) / 2 for k in (1, 2))
+        log(f"    mean parent {old:.4f} ms, current {new:.4f} ms, {old / new:.2f}x; host enqueue a call "
+            f"parent {old_us:.2f} us, current {new_us:.2f} us")
+        return {"parent_ms": old, "current_ms": new, "turns": [ms for _, ms, _ in got],
+                "parent_host_us": old_us, "current_host_us": new_us}
 
     if "degrees" in libs:
-        v, m = props["turns"]
-        counts = torch.zeros(CC_VERTICES, dtype=torch.int32, device=dev)
-        p_kernel, p_call = parent_trace(libs["degrees"], counts, v, m)
-        # both kernels' records agree on the main path's rows (ids in range)
-        c_a, c_b = counts.clone(), counts.clone()
-        rec_new = degrees.degree_trace(c_a, v, m, True)
-        counts.copy_(c_b)
-        rec_old = p_call()
-        torch.cuda.synchronize()
-        if not (torch.equal(rec_new[0], rec_old[0]) and torch.equal(rec_new[1], rec_old[1]) and torch.equal(c_a, counts)):
-            raise RuntimeError("the parent's degree_trace and the current one disagree on the main path's rows")
-        n_kernel = trace_launcher(counts, v, m)
-        held = lambda fn: lambda reps: device_ms(fn, reps, cycles_per_ms)  # noqa: E731
-        out["trace_kernel"] = turns(f"degree_trace kernels alone, {v.shape[0]} rows", held(p_kernel), held(n_kernel))
-        out["trace_call"] = turns("degree_trace call (keys, stable sort, kernels)", held(p_call),
-                                  held(lambda: degrees.degree_trace(counts, v, m, True)))
-        sort_ms, _ = device_ms(lambda: torch.sort((v << 1) | (~m).to(torch.int32), stable=True), UF_REPS,
-                               cycles_per_ms)
-        out["trace_sort_ms"] = sort_ms
-        log(f"  the keys and the stable torch.sort alone: {sort_ms:.4f} ms")
-        if split_cu:
-            if v.shape[0] & (v.shape[0] - 1):
-                raise RuntimeError("the split's permutation variant needs 2^k rows")
-            split = {}
-            for part, path in split_cu.items():
-                k_fn, _ = parent_trace(load_baseline(path, PARENT_SIGNATURES["degrees"]), counts, v, m)
-                r = turns(f"split: parent kernel without {part}", held(p_kernel), held(k_fn))
-                split[part] = {"full_ms": r["parent_ms"], "without_ms": r["current_ms"]}
-            out["trace_split"] = split
+        old_fold = parent_degree_fold(libs["degrees"])
+        acc = torch.zeros(CC_VERTICES, dtype=torch.int32, device=dev)
+        for name, (s, d) in dd["fold"]["turns_batches"].items():
+            if not torch.equal(old_fold(acc.clone(), s, d), degrees.degree_fold(acc.clone(), s, d)):
+                raise RuntimeError(f"the parent's degree_fold and the current one disagree on the {name} batch")
+            held = lambda fn: lambda reps: device_ms(fn, reps, cycles_per_ms)  # noqa: E731
+            out[f"fold_{name}"] = turns(f"degree_fold, the {name} batch ({s.shape[0]} edges)",
+                                        held(lambda s=s, d=d: old_fold(acc, s, d)),
+                                        held(lambda s=s, d=d: degrees.degree_fold(acc, s, d)))
+        # the C calls alone, each build behind the same lean wrapper: the host
+        # enqueue without the port's Python checks
+        cur_fold = parent_degree_fold(_cuda.library("degrees.cu"))
+        s, d = dd["fold"]["turns_batches"]["uniform"]
+        out["fold_c_call"] = turns("degree_fold's C call alone, the uniform batch",
+                                   held(lambda: old_fold(acc, s, d)), held(lambda: cur_fold(acc, s, d)))
+        split = {}
+        for part, path in fold_split_cu.items():
+            if not _cuda._target(path).exists():  # its build failed in phase 1
+                continue
+            fold = parent_degree_fold(load_baseline(path, PARENT_SIGNATURES["degrees"]))
+            split[part] = {name: device_ms(lambda s=s, d=d: fold(acc, s, d), UF_REPS, cycles_per_ms)[0]
+                           for name, (s, d) in dd["fold"]["turns_batches"].items()}
+            log(f"  degree_fold without {part}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split[part].items()))
+        out["fold_split"] = split
     if "unionfind" in libs:
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        old_call = parent_union_fold(libs["unionfind"], False)
+        rng = np.random.default_rng(11)
+        for nodes in (CC_VERTICES, 2 * CC_VERTICES):
+            for name, arr in compress_states(rng, nodes).items():
+                state = torch.from_numpy(arr).to(dev)
+                want = uf.compress_plain(state)
+                got_old = old_call(state.clone(), None, none, none)[0]
+                got_new = uf.compress(state.clone())
+                if not (torch.equal(got_old, want) and torch.equal(got_new, want)):
+                    raise RuntimeError(f"compress of the {name} state over {nodes} nodes differs from the twin")
+                reps = UF_REPS if name == "flat" else 5
+                out[f"compress_{name}_{nodes}"] = turns(
+                    f"compress, the {name} state over {nodes} nodes (a call with no edges)",
+                    lambda r, st=state: copies_device_ms(lambda p: old_call(p, None, none, none), st.clone, r,
+                                                         cycles_per_ms),
+                    lambda r, st=state: copies_device_ms(uf.compress, st.clone, r, cycles_per_ms), reps)
+        cur_call = parent_union_fold(_cuda.library("unionfind.cu"), False)
+        st, edges = cc["turns"]["late"], cc["turns"]["late_batch"]
+        out["CC_late_c_call"] = turns(
+            "CC union's C call alone, late batch (the state declared flat)",
+            lambda r: fold_device_ms(lambda p, sn, s, d: old_call(p, sn, s, d, True), *st, *edges, r, cycles_per_ms),
+            lambda r: fold_device_ms(lambda p, sn, s, d: cur_call(p, sn, s, d, True), *st, *edges, r, cycles_per_ms))
         for name, res, parity, fold in (("CC", cc, False, uf.union_edges_with_seen),
                                         ("parity", bp, True, uf.parity_union_edges_with_seen)):
             t = res["turns"]
@@ -2931,12 +3054,13 @@ def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, split_cu: dict, prop
             for batch, state, edges, flat in (("first", t["init"], t["first_batch"], False),
                                               ("late", t["late"], t["late_batch"], True)):
                 want = fold(uf.mark_flat(state[0].clone()) if flat else state[0].clone(), state[1].clone(), *edges)
-                got = old_fold(state[0].clone(), state[1].clone(), *edges)
+                got = old_fold(state[0].clone(), state[1].clone(), *edges, flat)
                 if not (torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])):
                     raise RuntimeError(f"the parent's {name} union and the current one disagree ({batch} batch)")
                 out[f"{name}_{batch}"] = turns(
                     f"{name} union call, {batch} batch",
-                    lambda reps, f=old_fold, st=state, e=edges: fold_device_ms(f, *st, *e, reps, cycles_per_ms),
+                    lambda reps, st=state, e=edges, fl=flat: fold_device_ms(
+                        lambda p, sn, s, d: old_fold(p, sn, s, d, fl), *st, *e, reps, cycles_per_ms),
                     lambda reps, st=state, e=edges, fl=flat: fold_device_ms(fold, *st, *e, reps, cycles_per_ms, flat=fl))
     return out
 
@@ -2947,11 +3071,11 @@ def main(argv=None) -> int:
                         help="a pane_triangles.cu with the first slice's C interface, "
                              "timed in turns with the current kernels")
     parser.add_argument("--parent-degrees-cu", default=None,
-                        help="degrees.cu of the commit before the degree_trace redesign (its C interface): "
-                             "its degree_trace is timed in turns with the current one and split")
+                        help="degrees.cu of the commit before the degree_fold redesign (d65530e; its C interface): "
+                             "its degree_fold is timed in turns with the current one")
     parser.add_argument("--parent-unionfind-cu", default=None,
-                        help="unionfind.cu of the commit before the union redesign (its C interface), "
-                             "timed in turns with the current one")
+                        help="unionfind.cu of the commit before the compress redesign (d65530e; its C interface): "
+                             "its compress split, and its compress and union calls timed in turns with the current")
     parser.add_argument("--parent-sage-cu", default=None,
                         help="sage.cu of the commit before the fused layer (its gather-mean C interface): its "
                              "gather, then addmm and relu, timed in turns with sage_layer")
@@ -2995,7 +3119,9 @@ def main(argv=None) -> int:
 
     log("phase 1: build kernels")
     t0 = time.perf_counter()
-    split_cu = split_sources(parent_cu["degrees"], TRACE_SPLIT, "degrees") if "degrees" in parent_cu else {}
+    split_cu = split_sources(parent_cu["unionfind"], COMPRESS_SPLIT, "unionfind") if "unionfind" in parent_cu else {}
+    fold_split_cu = (split_sources(str(_cuda.CSRC_DIR / "degrees.cu"), FOLD_SPLIT, "degrees_fold")
+                     if "degrees" in parent_cu else {})
     bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else [])]
@@ -3003,7 +3129,7 @@ def main(argv=None) -> int:
 
     def build_split():  # beside the main build; a variant that does not build is skipped
         try:
-            _cuda.build_all(list(bwd_split_cu.values()))
+            _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values()])
         except RuntimeError as e:
             split_failed.append(str(e).splitlines()[0])
 
@@ -3012,7 +3138,7 @@ def main(argv=None) -> int:
     built = _cuda.build_all(sources)
     split_thread.join()
     if split_failed:
-        log(f"  backward split: {split_failed[0]} (those variants are skipped)")
+        log(f"  split variants: {split_failed[0]} (those variants are skipped)")
     log(f"  built {len(built)} sources in {time.perf_counter() - t0:.2f} s: {sorted(built)}")
     for src, res in built.items():
         if src not in _cuda.SIGNATURES:
@@ -3221,6 +3347,10 @@ def main(argv=None) -> int:
     log("phase 7: main path, streaming CC over the EF40 wire replay on the card")
     data = cc_bench_stream()
     cc = phase_cc_main(dev, cpm, data)
+    if split_cu:
+        cc["parent_split"] = compress_split(
+            dev, cpm, load_baseline(parent_cu["unionfind"], PARENT_SIGNATURES["unionfind"]),
+            {part: load_baseline(path, PARENT_SIGNATURES["unionfind"]) for part, path in split_cu.items()})
     log("phase 8: property streams over the CC bench's stream on the card")
     props = phase_properties(dev, cpm, data)
     log("phase 9: degree distribution: the EF40 summary fold and the signed scan")
@@ -3235,7 +3365,7 @@ def main(argv=None) -> int:
     turned = {}
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
-        turned = phase_turns(dev, cpm, parent_cu, split_cu, props, cc, bp)
+        turned = phase_turns(dev, cpm, parent_cu, fold_split_cu, dd, cc, bp)
 
     kernels = [
         {
@@ -3285,7 +3415,7 @@ def main(argv=None) -> int:
             "first_call_ms": cc["first_ms"],
             "late_call_ms": cc["late_ms"],
             "rounds": cc["rounds"],
-            **{f"turns_{b}": turned[f"CC_{b}"] for b in ("first", "late") if f"CC_{b}" in turned},
+            **{f"turns_{b}": turned[f"CC_{b}"] for b in ("first", "late", "late_c_call") if f"CC_{b}" in turned},
         },
         {
             "name": "compress_kernel",
@@ -3302,6 +3432,9 @@ def main(argv=None) -> int:
             "bound_ms": cc["compress_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "parts_us": cc["compress_parts_us"],
+            **({"parent_split": cc["parent_split"]} if "parent_split" in cc else {}),
+            **{f"turns_{k[9:]}": v for k, v in turned.items() if k.startswith("compress_")},
         },
     ]
 
@@ -3313,10 +3446,12 @@ def main(argv=None) -> int:
 
     kernels += [
         {**entry("degree_trace", "degrees.cu", "gelly_streaming_tpu/core/stream.py:869", props),
-         "call_ms": props["call_ms"],
-         **{k: turned[k] for k in ("trace_kernel", "trace_call", "trace_sort_ms", "trace_split") if k in turned}},
-        entry("degree_fold", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:247", dd["fold"],
-              dd["fold"]["library_ms"]),
+         "call_ms": props["call_ms"]},
+        {**entry("degree_fold", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:247", dd["fold"],
+                 dd["fold"]["library_ms"]),
+         **{k: dd["fold"][k] for k in ("hub_device_ms", "l2_reductions_per_s", "random_reductions_ms")},
+         **{f"turns_{k[5:]}": v for k, v in turned.items() if k.startswith("fold_") and k != "fold_split"},
+         **({"split_without": turned["fold_split"]} if "fold_split" in turned else {})},
         {**entry("degree_dist_scan", "degrees.cu", "gelly_streaming_tpu/library/degree_distribution.py:43",
                  dd["scan"]),
          **{k: dd["scan"][k] for k in ("batch_events", "sort_ms", "serial_ms", "cut_launches", "small",

@@ -45,16 +45,19 @@ from gelly_streaming_tpu_torch.core.types import EdgeBatch, tree_map
 from gelly_streaming_tpu_torch.core.windows import WindowPane, stream_panes
 from gelly_streaming_tpu_torch.io import wire
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
+from gelly_streaming_tpu_torch.ops import unionfind as uf
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue A item 1)"
 
 
 def clone_state(state):
     """A copy of a state pytree (a tensor, or a tuple/NamedTuple/list/dict
-    of them) that later in-place folds cannot change."""
+    of them) that later in-place folds cannot change.  A union-find parent
+    known flat stays known flat in the copy, so an emitted record's
+    readouts launch no compress."""
     if hasattr(state, "_fields"):  # NamedTuple
         return type(state)(*(clone_state(s) for s in state))
-    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, state)
+    return tree_map(lambda t: uf.clone(t) if isinstance(t, torch.Tensor) else t, state)
 
 
 def _as_record(out) -> tuple:

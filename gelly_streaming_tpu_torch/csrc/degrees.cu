@@ -49,9 +49,32 @@
 //
 // degree_fold_kernel replaces DegreeDistributionSummary.update
 // (gelly_streaming_tpu/library/degree_distribution.py:247-251): deg[src] += 1
-// and deg[dst] += 1 for every valid row, by atomicAdd on the 4 MiB degree
-// vector, which stays in the 50 MB L2.  Bound: src and dst read once (8 B an
-// edge), deg read and written once.
+// and deg[dst] += 1 for every valid row, in int32 with wrap, by reductions
+// (red.global.add) on the degree vector, which stays in the 50 MB L2.
+// Bound (bytes): src and dst read once (8 B an edge), deg read and written
+// once (8 B a vertex): 25.2 MB, 7.51 us for 2^21 edges into 2^20 vertices.
+// What binds it is the L2's reduction rate: about 8.6e10 random reductions
+// a second into a 4 MiB vector (chip_smoke.py phase 9 measures it with
+// degree_l2_probe_kernel), so a batch's 2^21 random dst ids alone take some
+// 24 us, and on one address about 1.3e9 a second, so a hub's ids serialize.
+// Partitioning the ids by vertex range into shared-memory counters cost
+// more than it saved on the card (three passes of shared atomics and the
+// ranges' offsets), so the kernel keeps one reduction an id and feeds the
+// L2 fewer of them (PERF.md §6 has its split, chip_smoke.py FOLD_SPLIT):
+//   a persistent grid, kFoldBlocksPerSm blocks an SM; a warp takes 128
+//   consecutive rows, 4 a lane: 16-byte loads of src and dst
+//   (evict-first) and a 4-byte load of the mask, the next chunk's loads
+//   issued before this one's reductions;
+//   runs of one id over those rows (a src-grouped batch, as the EF40 wire
+//   decodes, holds each vertex's rows together) are added once, by the
+//   lane that holds the run's first row: lengths inside a lane, then
+//   across lanes by a segmented suffix sum over shuffles;
+//   an id that two lanes of a warp hold at once is admitted into the
+//   block's cache of hot ids (kHotSlots shared counters, two probes); a
+//   hot id is counted there by shared atomics and added to deg once per
+//   block at the end, so a hub costs a reduction a block, not one a row;
+//   blocks whose cache is empty skip the lookups;
+//   the reductions carry an L2 evict-last hint.
 //
 // The degree_dist_* kernels replace the lax.scan of degree_dist_update
 // (gelly_streaming_tpu/library/degree_distribution.py:43-84): per event in
@@ -114,11 +137,13 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRecordValue = (1 << 28) - 1;
+constexpr unsigned kFull = 0xffffffffu;
 
 // int32 addition with two's-complement wrap (XLA's int32 semantics)
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -157,19 +182,176 @@ __device__ __forceinline__ int64_t segment_start(const int* __restrict__ keys, i
   return hi;
 }
 
-__global__ void __launch_bounds__(kThreads)
-degree_fold_kernel(int* __restrict__ deg, const int* __restrict__ src,
-                   const int* __restrict__ dst, const uint8_t* __restrict__ mask, int n,
-                   int capacity) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && mask[i] == 0) continue;
-    // JAX's scatter rule: below 0 counts from the end once, then drop
-    const int s = jax_index(__ldg(src + i), capacity);
-    const int d = jax_index(__ldg(dst + i), capacity);
-    if (static_cast<unsigned>(s) < static_cast<unsigned>(capacity)) atomicAdd(deg + s, 1);
-    if (static_cast<unsigned>(d) < static_cast<unsigned>(capacity)) atomicAdd(deg + d, 1);
+// ---------------------------------------------------------------------------
+// the degree fold
+
+constexpr int kHotLog = 10;
+constexpr int kHotSlots = 1 << kHotLog;  // a block's cache of hot ids
+constexpr int kFoldBlocksPerSm = 2;
+
+__device__ __forceinline__ void red_hint(int* p, int v, uint64_t policy) {
+  asm volatile("red.global.add.L2::cache_hint.s32 [%0], %1, %2;" ::"l"(p), "r"(v), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ int hot_slot(int id) {
+  return static_cast<int>((static_cast<unsigned>(id) * 2654435761u) >> (32 - kHotLog));
+}
+
+// A lane's 4 consecutive rows of one array (x: ids after JAX's rule, ok:
+// valid and in [0, C)): cnt[k] = the rows the lane adds for slot k, the
+// length of the run of one id that starts there, or 0 where the slot
+// continues a run that an earlier slot adds (in this lane or one to its
+// left; runs end at the warp's 128 rows).
+__device__ __forceinline__ void run_counts(const int* x, const bool* ok, int* cnt) {
+  const int lane = threadIdx.x & 31;
+  const int px = __shfl_up_sync(kFull, x[3], 1);
+  const bool pok = __shfl_up_sync(kFull, ok[3], 1);
+  bool cont[4];
+  cont[0] = lane > 0 && ok[0] && pok && px == x[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) cont[k] = ok[k] && ok[k - 1] && x[k] == x[k - 1];
+  int len = 0;
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    len = ok[k] ? ((k < 3 && cont[k + 1]) ? len + 1 : 1) : 0;
+    cnt[k] = (ok[k] && !cont[k]) ? len : 0;
   }
+  // lanes whose first rows continue the lane to their left
+  const int lead = cont[0] ? (cont[1] ? (cont[2] ? (cont[3] ? 4 : 3) : 2) : 1) : 0;
+  const int next_lead = __shfl_down_sync(kFull, lead, 1);
+  const bool open = lane < 31 && next_lead > 0;
+  if (!__any_sync(kFull, open)) return;
+  // acc: the rows to the right that continue this lane's last run (a
+  // segmented suffix sum: a lane continued whole passes on the next one's)
+  int acc = open ? next_lead : 0;
+  bool more = open && next_lead == 4;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int acc_n = __shfl_down_sync(kFull, acc, d);
+    const bool more_n = __shfl_down_sync(kFull, more, d);
+    if (more && lane + d < 32) acc += acc_n, more = more_n;
+  }
+  // the lane's last head takes them when its run reaches slot 3
+  int last = -1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (ok[k] && !cont[k]) last = k;
+  bool reaches = last >= 0;
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    if (k > last && !cont[k]) reaches = false;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k == last && reaches) cnt[k] += acc;
+}
+
+// A warp's 128 rows from chunk c: a lane's 4 src then 4 dst ids and its
+// 4 mask bytes (16-byte and 4-byte loads where aligned and whole).
+__device__ __forceinline__ void load_rows(const int* __restrict__ src, const int* __restrict__ dst,
+                                          const uint8_t* __restrict__ mask, int n, int64_t c, bool vec, int* ids,
+                                          unsigned* mb) {
+  const int64_t e0 = 128 * c + 4 * (threadIdx.x & 31);
+  if (vec && e0 + 4 <= n) {
+    const int4 s4 = __ldcs(reinterpret_cast<const int4*>(src + e0));
+    const int4 d4 = __ldcs(reinterpret_cast<const int4*>(dst + e0));
+    ids[0] = s4.x, ids[1] = s4.y, ids[2] = s4.z, ids[3] = s4.w;
+    ids[4] = d4.x, ids[5] = d4.y, ids[6] = d4.z, ids[7] = d4.w;
+    *mb = mask == nullptr ? 0x01010101u : __ldcs(reinterpret_cast<const unsigned*>(mask + e0));
+    return;
+  }
+  *mb = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool in = e0 + k < n;
+    ids[k] = in ? __ldg(src + e0 + k) : 0;
+    ids[4 + k] = in ? __ldg(dst + e0 + k) : 0;
+    if (in && (mask == nullptr || mask[e0 + k] != 0)) *mb |= 1u << (8 * k);
+  }
+}
+
+// A persistent grid; a warp folds 128 rows at a time, the next chunk's
+// loads in flight under this one's reductions.
+__global__ void __launch_bounds__(kThreads)
+degree_fold_kernel(int* __restrict__ deg, const int* __restrict__ src, const int* __restrict__ dst,
+                   const uint8_t* __restrict__ mask, int n, int capacity) {
+  __shared__ int hot_keys[kHotSlots];
+  __shared__ unsigned hot_counts[kHotSlots];
+  __shared__ int any_hot;
+  for (int h = threadIdx.x; h < kHotSlots; h += kThreads) hot_keys[h] = -1, hot_counts[h] = 0;
+  if (threadIdx.x == 0) any_hot = 0;
+  __syncthreads();
+  uint64_t keep;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
+  const int lane = threadIdx.x & 31;
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
+  const int64_t chunks = (static_cast<int64_t>(n) + 127) / 128;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  int64_t c = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  int next[8];
+  unsigned next_mb = 0;
+  if (c < chunks) load_rows(src, dst, mask, n, c, vec, next, &next_mb);
+  for (; c < chunks; c += warps) {
+    int ids[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ids[k] = next[k];
+    const unsigned mb = next_mb;
+    if (c + warps < chunks) load_rows(src, dst, mask, n, c + warps, vec, next, &next_mb);
+    // JAX's scatter rule: below 0 counts from the end once, then drop
+    int v[8], cnt[8];
+    bool ok[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = jax_index(ids[k], capacity);
+      ok[k] = ((mb >> (8 * (k & 3))) & 0xffu) != 0 && static_cast<unsigned>(v[k]) < static_cast<unsigned>(capacity);
+    }
+    run_counts(v, ok, cnt);
+    run_counts(v + 4, ok + 4, cnt + 4);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const bool has = cnt[k] > 0;
+      // an id that two lanes hold in this slot is admitted to the cache
+      const unsigned act = __ballot_sync(kFull, has);
+      if (act != 0) {
+        const int leader = __ffs(act) - 1;
+        const int cand = __shfl_sync(kFull, v[k], leader);
+        const unsigned peers = __ballot_sync(kFull, has && v[k] == cand);
+        if (lane == leader && __popc(peers) > 1) {
+          const int h = hot_slot(cand);
+          const int was = atomicCAS(hot_keys + h, -1, cand);
+          if (was == -1 || was == cand || atomicCAS(hot_keys + (h ^ (kHotSlots / 2)), -1, cand) == -1)
+            any_hot = 1;
+        }
+        __syncwarp();
+      }
+      if (!has) continue;
+      if (*static_cast<volatile int*>(&any_hot)) {
+        const int h = hot_slot(v[k]);
+        if (hot_keys[h] == v[k]) {
+          atomicAdd(hot_counts + h, static_cast<unsigned>(cnt[k]));
+          continue;
+        }
+        if (hot_keys[h ^ (kHotSlots / 2)] == v[k]) {
+          atomicAdd(hot_counts + (h ^ (kHotSlots / 2)), static_cast<unsigned>(cnt[k]));
+          continue;
+        }
+      }
+      red_hint(deg + v[k], cnt[k], keep);
+    }
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < kHotSlots; h += kThreads)
+    if (hot_counts[h] != 0) red_hint(deg + hot_keys[h], static_cast<int>(hot_counts[h]), keep);
+}
+
+// The L2's reduction rate, for chip_smoke.py: `count` reductions of 1 into
+// deg at hashed indices (mask = size - 1, a power of two; 0 puts every one
+// on deg[0]).  On no path.
+__global__ void __launch_bounds__(kThreads)
+degree_l2_probe_kernel(int* __restrict__ deg, unsigned mask, long long count) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < count; i += stride)
+    atomicAdd(deg + ((static_cast<unsigned>(i) * 2654435761u) & mask), 1);
 }
 
 // One vertex change of degree_dist_update on the degree cell alone: the
@@ -230,7 +412,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr long long kInf = 1LL << 62;             // the empty prefix's minimum
 constexpr long long kUnsafe = 1LL << 40;          // Q of a group with d0 < 0
 constexpr long long kInt32Max = 2147483647LL;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Stage 1's prefix: t = T (seeded with d0 at the head), m = min T, q = Q,
 // h = a head lies inside.  combine(a, b) is a followed by b.
@@ -729,13 +910,38 @@ degree_trace_pack_kernel(const int* __restrict__ v, const uint8_t* __restrict__ 
   }
 }
 
-int grid_for(const void* kernel, int64_t items, cudaError_t* err) {
-  int device = 0, sms = 0, per_sm = 0;
-  if ((*err = cudaGetDevice(&device)) != cudaSuccess ||
-      (*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
-          cudaSuccess)
+// The SM count and `kernel`'s blocks an SM (kThreads a block) on the
+// current device, queried once a kernel and device: they do not change,
+// and the queries cost more host time than a launch.
+int resident_blocks(const void* kernel, int* sms, cudaError_t* err) {
+  struct Fit {
+    const void* kernel;
+    int device, sms, per_sm;
+  };
+  static std::mutex mu;
+  static Fit cache[64];
+  static int cached = 0;
+  int device = 0;
+  if ((*err = cudaGetDevice(&device)) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i) {
+    if (cache[i].kernel == kernel && cache[i].device == device) {
+      *sms = cache[i].sms;
+      return cache[i].per_sm;
+    }
+  }
+  int per_sm = 0;
+  if ((*err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) != cudaSuccess)
     return 0;
+  if (cached < 64) cache[cached++] = {kernel, device, *sms, per_sm};
+  return per_sm;
+}
+
+int grid_for(const void* kernel, int64_t items, cudaError_t* err) {
+  int sms = 0;
+  const int per_sm = resident_blocks(kernel, &sms, err);
+  if (*err != cudaSuccess) return 0;
   // a grid-stride loop covers what does not fit
   const int64_t fit = static_cast<int64_t>(sms) * 4 * per_sm;
   int64_t blocks = (items + kThreads - 1) / kThreads;
@@ -823,17 +1029,35 @@ int degree_trace_launch(const void* v, const void* m, const void* keys, const vo
 }
 
 // deg: int32[capacity], updated in place; src, dst: int32[n]; mask: uint8[n]
-// or null.
+// or null.  One launch, kFoldBlocksPerSm blocks an SM (fewer blocks leave
+// more rows to each block's cache of hot ids), fewer for a small batch.
 int degree_fold_launch(void* deg, const void* src, const void* dst, const void* mask, int n,
                        int capacity, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || capacity <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
-  const int blocks = grid_for(reinterpret_cast<const void*>(degree_fold_kernel), n, &err);
+  int sms = 0;
+  resident_blocks(reinterpret_cast<const void*>(degree_fold_kernel), &sms, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  degree_fold_kernel<<<blocks, kThreads, 0, s>>>(
+  const int64_t chunks = (static_cast<int64_t>(n) + 127) / 128;
+  int64_t blocks = (chunks + kThreads / 32 - 1) / (kThreads / 32);
+  const int64_t most = static_cast<int64_t>(sms) * kFoldBlocksPerSm;
+  blocks = blocks < most ? blocks : most;
+  degree_fold_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<int*>(deg), static_cast<const int*>(src), static_cast<const int*>(dst),
       static_cast<const uint8_t*>(mask), n, capacity);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// deg: int32[size] (size a power of two); `count` reductions of 1 at
+// hashed indices (`spread` 0: all on deg[0]).  The L2 reduction-rate probe.
+int degree_l2_probe_launch(void* deg, int size, int spread, long long count, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (size <= 0 || (size & (size - 1)) != 0 || count <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const int blocks = grid_for(reinterpret_cast<const void*>(degree_l2_probe_kernel), count, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  degree_l2_probe_kernel<<<blocks, kThreads, 0, s>>>(static_cast<int*>(deg), spread ? size - 1u : 0u, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,14 +21,30 @@
 // 0 counts from the end once, then clamps into [0, C)), and seen is a
 // scatter (below 0 counts from the end, an index still outside is dropped).
 //
-// compress_kernel: doubling rounds, parent[v] = parent[parent[v]] for all
-// v, until a round moves nothing.  Rounds are in place (a read may see an
-// entry another thread already advanced in the same round, which only
-// jumps further), so a forest of depth d is flat after at most
-// ceil(log2 d) + 1 rounds.  It runs only when the caller does not know the
-// state to be flat: every union call leaves it flat, and the wrappers skip
-// it on a state no one else wrote since (ops/unionfind.py).
-//
+// compress_kernel: one ordinary pass, four nodes a thread (a 16-byte load
+// of parent): each node follows its pointer at most kWalk steps and stops
+// at its root, and its entry is written only where it moved.  A flat state
+// (init_parent, or a state some other writer left flat) is one read of
+// parent and one gather a node, with no write.  A node whose walk did not
+// reach a root flags the call: header[kCompressEpoch] = the call's epoch,
+// a number the launcher never used before (the header is not cleared: any
+// other value there, stale or garbage, reads as "not flagged", and a stale
+// value equal to the epoch would only cost a round that moves nothing).
+// The pass clears the rest of the header.  Flagged, the doubling rounds
+// (parent[v] = parent[parent[v]] for all v, in place, until a round moves
+// nothing; a read may see an entry already advanced in the same round,
+// which only jumps further, so depth d is flat after ceil(log2 d) + 1
+// rounds) run in the cooperative kernel that follows on the stream: the
+// union kernel, before its first hook, or for a call with no edges
+// compress_rounds_kernel, which returns at once when the pass did not flag
+// the call.  So no round trip to the host decides, and a flat or shallow
+// state pays one pass.  The split that chose this (chip_smoke.py phase 7
+// with the parent's source): the parent's compress was a memset of the
+// header, a cooperative launch, one full round and one grid-wide sync even
+// on a flat state.  The compress kernels run only when the caller does not
+// know the state to be flat: every union call leaves it flat, and the
+// wrappers skip them on a state no one else wrote since (ops/unionfind.py).
+
 // union_kernel: the JAX loop on a flat forest, in rounds.
 //   Round 0 is one pass over every item (edge): it reads both endpoints'
 //   roots (one load each: the forest is flat), marks seen (a byte read
@@ -97,14 +113,17 @@
 // vertex) and writes seen (1 B a vertex): 16.8 MB + 4.2 MB + 1.0 MB = 22.0
 // MB, 6.57 us.  The parity union: src and dst (8 B a row), parent2 read (8
 // B a vertex), seen (1 B): 26.2 MB, 7.83 us.  compress reads and writes
-// parent: 8.4 MB, 2.50 us (2C nodes: 5.01 us).  Each later round reads
+// parent: 8.4 MB, 2.50 us (2C nodes: 5.01 us); on a flat state its pass
+// reads parent alone, and a kernel launch costs more than the bytes.  Each later round reads
 // its worklist (8 B a pair) and the lowered roots; parent (4 MiB, 8 MiB doubled)
 // and seen (1 MiB) stay resident in the 50 MB L2, where the root loads and
 // atomics land.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -113,17 +132,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWalk = 8;  // pointer steps a node takes in the compress pass
 
 // The scratch header (int32 slots, cleared by the launcher), then the
 // lowered roots (one slot a node), then two worklists (one slot an item).
 enum Slot {
-  kCompressFlags = 0,  // 3 round flags of compress_kernel
+  kCompressFlags = 0,  // 3 round flags of the compress rounds
   kUnionFlags = 3,     // 3 round flags of the union's doubling rounds
   kCounts = 6,         // 3 worklist counts, used in turn
   kLowered = 9,        // roots lowered so far
   kHookRounds = 10,    // written at the end: hook rounds run
   kDoublingRounds = 11,
-  kCompressRounds = 12,
+  kCompressRounds = 12,  // 1 + the doubling rounds after the pass; 0 when compress did not run
+  kCompressEpoch = 13,   // the call's epoch where the pass left a node short of its root
   kHeaderInts = 16,
 };
 
@@ -164,27 +185,82 @@ __device__ __forceinline__ bool round_end(cg::grid_group& grid, int* flags, int&
   return any;
 }
 
+// The pass: four nodes a thread, each walked at most kWalk steps to its
+// root.  A stale read (an entry another thread advanced) is an older
+// ancestor, still on the node's path, and a root's entry never changes, so
+// the root test is exact.
 __global__ void __launch_bounds__(kThreads)
-compress_kernel(int* __restrict__ parent, int capacity, int* __restrict__ header) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+compress_kernel(int* __restrict__ parent, int nodes, int* __restrict__ header, int epoch) {
+  if (blockIdx.x == 0 && threadIdx.x < kHeaderInts && threadIdx.x != kCompressEpoch) header[threadIdx.x] = 0;
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (i0 >= nodes) return;
+  int p[4];
+  if (i0 + 4 <= nodes && (reinterpret_cast<uintptr_t>(parent) & 15) == 0) {
+    const int4 v = *reinterpret_cast<const int4*>(parent + i0);
+    p[0] = v.x, p[1] = v.y, p[2] = v.z, p[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = i0 + k < nodes ? parent[i0 + k] : 0;
+  }
+  int q[4];
+  bool open[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = p[k], open[k] = i0 + k < nodes;
+#pragma unroll 1
+  for (int s = 0; s < kWalk; ++s) {
+    int up[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) up[k] = open[k] ? parent[q[k]] : q[k];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (up[k] == q[k]) open[k] = false;
+      q[k] = up[k];
+      any |= open[k];
+    }
+    if (!any) break;
+  }
+  bool deep = false;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (i0 + k < nodes && q[k] != p[k]) parent[i0 + k] = q[k];
+    deep |= open[k];
+  }
+  if (deep) store_relaxed(header + kCompressEpoch, epoch);
+}
+
+// Where the pass flagged the call: doubling rounds over every node until
+// one moves nothing.  header[kCompressRounds] = 1 + the rounds run.  Every
+// thread of a cooperative grid calls it.
+__device__ void compress_rounds(cg::grid_group& grid, int* __restrict__ parent, int nodes, int* __restrict__ header,
+                                int epoch) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int* flags = header + kCompressFlags;
   int round = 0;
-  for (bool moved_any = true; moved_any;) {
-    round_begin(flags, round, first);
-    bool moved = false;
-    for (int64_t i = first; i < capacity; i += stride) {
-      const int p = load_relaxed(parent + i);
-      const int gp = load_relaxed(parent + p);
-      if (gp != p) {
-        store_relaxed(parent + i, gp);
-        moved = true;
+  if (load_relaxed(header + kCompressEpoch) == epoch) {
+    for (bool moved_any = true; moved_any;) {
+      round_begin(flags, round, first);
+      bool moved = false;
+      for (int64_t i = first; i < nodes; i += stride) {
+        const int p = load_relaxed(parent + i);
+        const int gp = load_relaxed(parent + p);
+        if (gp != p) {
+          store_relaxed(parent + i, gp);
+          moved = true;
+        }
       }
+      moved_any = round_end(grid, flags, round, moved);
     }
-    moved_any = round_end(grid, flags, round, moved);
   }
-  if (first == 0) header[kCompressRounds] = round;
+  if (first == 0) header[kCompressRounds] = 1 + round;
+}
+
+// A call with no edges: the rounds alone (nothing to do unless flagged).
+__global__ void __launch_bounds__(kThreads)
+compress_rounds_kernel(int* __restrict__ parent, int nodes, int* __restrict__ header, int epoch) {
+  cg::grid_group grid = cg::this_grid();
+  compress_rounds(grid, parent, nodes, header, epoch);
 }
 
 // Append x where take, to list at *count: one atomicAdd for the block, the
@@ -269,12 +345,13 @@ __host__ __device__ __forceinline__ int64_t work_offset(int64_t nodes) {
 
 // items: n, or 2n for kParity; nodes: vcap, or 2 * vcap.  header:
 // kHeaderInts cleared slots, then the lowered list (nodes) and the two
-// worklists (items edges each, as node pairs).
+// worklists (items edges each, as node pairs).  epoch: the compress pass's
+// (its rounds run first), or 0 where compress did not run.
 template <bool kParity>
 __global__ void __launch_bounds__(kThreads)
 union_kernel(int* __restrict__ parent, uint8_t* __restrict__ seen,
              const int* __restrict__ src, const int* __restrict__ dst,
-             const uint8_t* __restrict__ mask, int n, int vcap, int* __restrict__ header) {
+             const uint8_t* __restrict__ mask, int n, int vcap, int* __restrict__ header, int epoch) {
   __shared__ int s_work[kWarps + 1];
   __shared__ int s_low[kWarps + 1];
   cg::grid_group grid = cg::this_grid();
@@ -287,6 +364,7 @@ union_kernel(int* __restrict__ parent, uint8_t* __restrict__ seen,
   int* lowered = header + kHeaderInts;
   int2* work0 = reinterpret_cast<int2*>(header + work_offset(nodes));
   int2* work1 = work0 + items;
+  if (epoch != 0) compress_rounds(grid, parent, nodes, header, epoch);
 
   // round 0: every item, on the flat forest
   for (int64_t c = blockIdx.x; c * kThreads < items; c += gridDim.x) {
@@ -371,17 +449,37 @@ union_kernel(int* __restrict__ parent, uint8_t* __restrict__ seen,
   }
 }
 
+// The blocks of `kernel` (kThreads a block) that fit on the current device
+// at once, queried once a kernel and device: the SM count and the
+// occupancy do not change, and the queries cost more host time than the
+// launch.
+int resident_blocks(const void* kernel, cudaError_t* err) {
+  struct Fit {
+    const void* kernel;
+    int device, blocks;
+  };
+  static std::mutex mu;
+  static Fit cache[64];
+  static int cached = 0;
+  int device = 0;
+  if ((*err = cudaGetDevice(&device)) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].kernel == kernel && cache[i].device == device) return cache[i].blocks;
+  int sms = 0, per_sm = 0;
+  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) != cudaSuccess)
+    return 0;
+  if (cached < 64) cache[cached++] = {kernel, device, sms * per_sm};
+  return sms * per_sm;
+}
+
 // A cooperative launch of `kernel` over `items` (at most the blocks that
 // fit on the card at once; the kernels loop over the rest).
 cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, cudaStream_t s) {
-  int device = 0, sms = 0, per_sm = 0;
   cudaError_t err;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
-          cudaSuccess)
-    return err;
-  const int64_t fit = static_cast<int64_t>(sms) * per_sm;
+  const int64_t fit = resident_blocks(kernel, &err);
+  if (err != cudaSuccess) return err;
   int64_t blocks = (items + kThreads - 1) / kThreads;
   blocks = blocks < fit ? blocks : fit;
   blocks = blocks > 0 ? blocks : 1;
@@ -393,8 +491,17 @@ int64_t scratch_bytes_for(int64_t items, int64_t nodes) {
   return 4 * work_offset(nodes) + 2 * items * static_cast<int64_t>(sizeof(int2));
 }
 
-// The header cleared, the compress kernel over `nodes` entries unless the
-// caller knows them flat, then (items > 0) the union kernel.
+// An epoch no earlier call of this library used (never 0).
+int next_epoch() {
+  static std::atomic<unsigned> epochs{0};
+  unsigned e = ++epochs;
+  if (e == 0) e = ++epochs;
+  return static_cast<int>(e);
+}
+
+// The compress pass over `nodes` entries unless the caller knows them flat
+// (else the header cleared), then the union kernel (items > 0) or the
+// compress rounds (items == 0, compress ran).
 template <bool kParity>
 int union_launch(void* parent, void* seen, const void* src, const void* dst, const void* mask,
                  int n, int vcap, int flat, void* scratch, long long scratch_bytes,
@@ -407,20 +514,27 @@ int union_launch(void* parent, void* seen, const void* src, const void* dst, con
   int* p = static_cast<int*>(parent);
   int* header = static_cast<int*>(scratch);
   int nodes_i = static_cast<int>(nodes);
-  cudaError_t err = cudaMemsetAsync(header, 0, kHeaderInts * sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!flat) {
-    void* compress_args[] = {&p, &nodes_i, &header};
-    err = launch_cooperative(reinterpret_cast<const void*>(compress_kernel), nodes,
-                             compress_args, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  int epoch = 0;
+  cudaError_t err;
+  if (flat) {
+    err = cudaMemsetAsync(header, 0, kHeaderInts * sizeof(int), s);
+  } else {
+    epoch = next_epoch();
+    compress_kernel<<<static_cast<unsigned>((nodes + 4 * kThreads - 1) / (4 * kThreads)), kThreads, 0, s>>>(
+        p, nodes_i, header, epoch);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && n == 0) {
+      void* rounds_args[] = {&p, &nodes_i, &header, &epoch};
+      err = launch_cooperative(reinterpret_cast<const void*>(compress_rounds_kernel), nodes, rounds_args, s);
+    }
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   auto* seen_b = static_cast<uint8_t*>(seen);
   auto* src_i = static_cast<const int*>(src);
   auto* dst_i = static_cast<const int*>(dst);
   auto* mask_b = static_cast<const uint8_t*>(mask);
-  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &vcap, &header};
+  void* union_args[] = {&p, &seen_b, &src_i, &dst_i, &mask_b, &n, &vcap, &header, &epoch};
   err = launch_cooperative(reinterpret_cast<const void*>(union_kernel<kParity>),
                            items > nodes ? items : nodes, union_args, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -440,11 +554,13 @@ long long uf_scratch_bytes(long long items, long long nodes) {
 // parent: int32[capacity], updated in place; seen: uint8[capacity] or null;
 // src: int32[n] or null (then src[i] = i); dst: int32[n]; mask: uint8[n]
 // or null; flat: nonzero when the caller knows parent is flat (the compress
-// kernel is then skipped); scratch: uf_scratch_bytes(n, capacity) bytes of
-// device memory, 4-byte aligned (its header holds the round counts after
-// the call: int32 slots 10, 11, 12 = hook, doubling and compress rounds).
-// Enqueues the compress kernel (unless flat) and, when n > 0, the union
-// kernel on the stream, with no host sync.  n = 0 is compress alone.
+// kernels are then skipped); scratch: uf_scratch_bytes(n, capacity) bytes
+// of device memory, 4-byte aligned (its header holds the round counts
+// after the call: int32 slots 10, 11, 12 = hook, doubling and compress
+// rounds, the last 1 + the doubling rounds after the pass, 0 when compress
+// did not run).  Enqueues the compress pass (unless flat) and the union
+// kernel, or for n = 0 (compress alone) the compress rounds kernel, on the
+// stream, with no host sync.
 int uf_union_launch(void* parent, void* seen, const void* src, const void* dst,
                     const void* mask, int n, int capacity, int flat, void* scratch,
                     long long scratch_bytes, void* stream) {

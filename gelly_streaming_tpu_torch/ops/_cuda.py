@@ -73,6 +73,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "degree_trace_launch": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _L, _P],
         # deg, src, dst, mask | None, n, capacity, stream
         "degree_fold_launch": [_P, _P, _P, _P, _I, _I, _P],
+        # deg int32[size], size (a power of two), spread (0: one address),
+        # count, stream: the L2 reduction-rate probe (chip_smoke.py)
+        "degree_l2_probe_launch": [_P, _I, _I, _L, _P],
         # deg, hist, capacity, src, dst, sign | None, mask | None, n, recs,
         # rmask, stream: the one-thread kernel
         "degree_dist_scan_serial_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],

@@ -11,12 +11,15 @@ Unlike the JAX functions, these update ``parent`` (and ``seen``) IN PLACE
 and return the same tensors: a caller that keeps an old state clones it
 first.  On CUDA tensors ``union_edges``, ``union_edges_with_seen``,
 ``merge_parents`` and ``compress`` are one C call each
-(``csrc/unionfind.cu: uf_union_launch``: the compress kernel unless the
-state is known flat, then the union kernel unless the batch is empty; each
-runs its rounds on the device with no host sync); the parity union of the bipartiteness check on the
+(``csrc/unionfind.cu: uf_union_launch``: the compress pass unless the
+state is known flat, then the union kernel, which first runs the doubling
+rounds where the pass left a node short of its root, or for an empty batch
+the compress rounds kernel; each runs its rounds on the device with no host
+sync); the parity union of the bipartiteness check on the
 doubled space ``parent2: int32[2C]`` is ``uf_parity_union_launch``, the
-same two kernels with the doubled edges formed inside the union kernel.
-``LAUNCHES`` counts the launches of each kernel.  On CPU
+same kernels with the doubled edges formed inside the union kernel.
+``LAUNCHES`` counts the calls that ran each kernel (``compress_kernel``:
+the pass and its rounds).  On CPU
 tensors they run the plain twins (``*_plain``): the JAX algorithm written
 as PyTorch ops (scatter-min hooks, ``p = p[p]`` doubling, a host loop
 until converged), which return new tensors and never launch anything.
@@ -172,7 +175,8 @@ def mark_flat(parent: torch.Tensor) -> torch.Tensor:
 
 def last_rounds() -> Dict[str, int]:
     """The round counts of the last CUDA call (hook, doubling and compress
-    rounds; compress 0 when it was skipped).  Synchronizes."""
+    rounds; compress is 1 for the pass plus its doubling rounds, 0 when
+    the state was known flat).  Synchronizes."""
     if _last_scratch is None:
         raise RuntimeError("no union-find kernel call yet")
     hook, doubling, comp = _last_scratch[40:52].view(torch.int32).tolist()
@@ -209,17 +213,31 @@ def _launch(parent, seen, src, dst, mask, n: int, parity: bool = False) -> None:
 
 
 def compress(parent: torch.Tensor) -> torch.Tensor:
-    """Point every entry at its root, in place; returns ``parent``."""
+    """Point every entry at its root, in place; returns ``parent``.  A
+    tensor known flat is returned as it is, with no call."""
     _check_vector(parent, torch.int32, "parent")
     if parent.device.type == "cpu":
         return parent.copy_(compress_plain(parent))
-    _launch(parent, None, None, None, None, 0)
+    if not _known_flat(parent):
+        _launch(parent, None, None, None, None, 0)
     return parent
+
+
+def clone(t: torch.Tensor) -> torch.Tensor:
+    """``t.clone()``, marked flat where ``t`` is known flat."""
+    return mark_flat(t.clone()) if _known_flat(t) else t.clone()
+
+
+def compressed(parent: torch.Tensor) -> torch.Tensor:
+    """``parent`` with every entry at its root, ``parent`` unchanged: the
+    tensor itself where it is known flat (a readout after a union launches
+    nothing), else a compressed copy.  Do not write to the result."""
+    return parent if _known_flat(parent) else compress(parent.clone())
 
 
 def find_roots(parent: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
     """Roots of ``vertices`` (``parent`` is not changed)."""
-    return compress(parent.clone())[indexing.gather_index(vertices, parent.shape[0])]
+    return compressed(parent)[indexing.gather_index(vertices, parent.shape[0])]
 
 
 def union_edges(

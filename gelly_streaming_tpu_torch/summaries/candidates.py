@@ -35,7 +35,7 @@ class Candidates:
 
     def components(self) -> Dict[int, Dict[int, Tuple[int, bool]]]:
         """component-min-vertex -> {vertex -> (vertex, same_side_as_min)}."""
-        p = uf.compress(self.parent2.clone()).cpu().numpy()
+        p = uf.compressed(self.parent2).cpu().numpy()
         seen = np.nonzero(self.seen.cpu().numpy())[0]
         comp_key = np.minimum(p[2 * seen], p[2 * seen + 1])
         comps: Dict[int, Dict[int, Tuple[int, bool]]] = {}

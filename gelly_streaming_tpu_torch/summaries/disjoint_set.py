@@ -61,7 +61,7 @@ class DisjointSet:
     # ---- queries ------------------------------------------------------------
 
     def _roots(self) -> np.ndarray:
-        return uf.compress(self.parent.clone()).cpu().numpy()
+        return uf.compressed(self.parent).cpu().numpy()
 
     def find(self, v: int) -> int:
         """Root of v's component (DisjointSet.java:66-81)."""

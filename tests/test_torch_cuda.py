@@ -561,6 +561,171 @@ def test_union_compresses_a_state_written_since(cuda_device, parity):
     assert torch.equal(a, want[0]) and torch.equal(seen, want[1])
 
 
+def _fold_batch(rng, case, n, c):
+    """(src, dst, mask | None) of one degree-fold case over capacity c."""
+    if case == "uniform":
+        return rng.integers(0, c, n), rng.integers(0, c, n), None
+    if case == "grouped":  # src-grouped as the EF40 wire decodes, long runs among short ones
+        src = np.sort(np.concatenate([rng.integers(0, c, n - n // 4), np.full(n // 4, c // 2)]))
+        return src, rng.integers(0, c, n), None
+    if case == "star":
+        return np.full(n, c - 1), rng.integers(0, c, n), None
+    if case == "zipf":
+        ids = rng.permutation(c)
+        return ids[(rng.zipf(1.2, n) - 1) % c], ids[(rng.zipf(1.2, n) - 1) % c], None
+    if case == "masked":
+        return rng.integers(0, c, n), np.sort(rng.integers(0, c, n)), rng.random(n) < 0.6
+    if case == "out-of-range":
+        ids = np.array([-1, c, c + 5, -c, -c - 2, c - 1, 0, 3])
+        return rng.choice(ids, n), rng.integers(-1, c + 1, n), rng.random(n) < 0.8
+    raise ValueError(case)
+
+
+FOLD_CASES = ["uniform", "grouped", "star", "zipf", "masked", "out-of-range"]
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+@pytest.mark.parametrize("n,c", [(1, 1 << 10), (100, 1 << 10), (1 << 18, 12345), (1 << 21, 1 << 20)])
+def test_degree_fold_redesign_matches_twin(cuda_device, case, n, c):
+    """Every batch shape: one row, fewer rows than a warp folds at once, a
+    capacity that is no power of two, the main path's size; equal exactly."""
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    rng = np.random.default_rng(FOLD_CASES.index(case))
+    u, v, m = _fold_batch(rng, case, n, c)
+    s, d = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (u, v))
+    mask = None if m is None else torch.from_numpy(m).to(cuda_device)
+    deg = torch.from_numpy(rng.integers(0, 1 << 30, c).astype(np.int32)).to(cuda_device)
+    want = degrees.degree_fold_plain(deg, s, d, mask)
+    before = degrees.LAUNCHES["degree_fold"]
+    assert degrees.degree_fold(deg, s, d, mask) is deg
+    assert degrees.LAUNCHES["degree_fold"] == before + 1
+    assert torch.equal(deg, want)
+
+
+def test_degree_fold_redesign_takes_unaligned_views_and_wraps(cuda_device):
+    """Views that do not start 16-byte aligned take the scalar loads; the
+    adds wrap at 2^31 as JAX's int32 adds do."""
+    from gelly_streaming_tpu_torch.ops import degrees
+
+    c, n = 4096, 1 << 16
+    rng = np.random.default_rng(8)
+    s0, d0 = (torch.from_numpy(np.sort(rng.integers(0, c, n + 3)).astype(np.int32)).to(cuda_device) for _ in range(2))
+    m0 = torch.from_numpy(rng.random(n + 3) < 0.9).to(cuda_device)
+    s, d, m = s0[1 : n + 1], d0[3:], m0[2 : n + 2]
+    deg = torch.full((c,), (1 << 31) - 5, dtype=torch.int32, device=cuda_device)
+    want = degrees.degree_fold_plain(deg, s, d, m)
+    assert torch.equal(degrees.degree_fold(deg, s, d, m), want)
+    assert int(deg.min()) < 0  # wrapped
+
+
+def _compress_case(case, nodes, rng):
+    """A parent array over `nodes` ids: flat, a shallow forest, a star with a
+    second level, or a path (depth nodes - 1) in id order or shuffled."""
+    if case == "flat":
+        return np.arange(nodes)
+    if case == "forest":
+        return _forest(rng, nodes)
+    if case == "star":
+        parent = np.full(nodes, nodes // 3)
+        inner = rng.permutation(np.delete(np.arange(nodes), nodes // 3))[: 2 * (nodes // 4)]
+        parent[inner[: nodes // 4]] = inner[nodes // 4 :]
+        return parent
+    order = np.arange(nodes) if case == "reversed-path" else rng.permutation(nodes)
+    parent = np.empty(nodes, np.int64)
+    parent[order] = order[np.maximum(np.arange(nodes) - 1, 0)]
+    return parent
+
+
+COMPRESS_CASES = ["flat", "forest", "star", "reversed-path", "shuffled-path"]
+
+
+@pytest.mark.parametrize("case", COMPRESS_CASES)
+@pytest.mark.parametrize("parity", [False, True])
+@pytest.mark.parametrize("c", [1 << 15, 12345])
+def test_compress_redesign_matches_twin_alone_and_before_a_union(cuda_device, case, parity, c):
+    """The compress pass and its rounds over C and 2C nodes (12345: a pass
+    whose last thread holds fewer than 4 nodes): alone (a call with no
+    edges, the rounds kernel) and before a union (the union kernel runs
+    the rounds); a flat state is one pass, a deep one takes rounds."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    nodes = 2 * c if parity else c
+    rng = np.random.default_rng(COMPRESS_CASES.index(case))
+    parent0 = torch.from_numpy(_compress_case(case, nodes, rng).astype(np.int32)).to(cuda_device)
+    want = uf.compress_plain(parent0)
+    before = uf.LAUNCHES["compress_kernel"]
+    got = parent0.clone()
+    assert uf.compress(got) is got
+    rounds = uf.last_rounds()
+    assert torch.equal(got, want)
+    assert uf.LAUNCHES["compress_kernel"] == before + 1
+    if case == "flat":
+        assert rounds["compress"] == 1
+    elif "path" in case:
+        assert rounds["compress"] > 1
+    # the same state before a batch: the union kernel finishes the compress
+    s, d = (torch.from_numpy(rng.integers(0, c, 2 * c).astype(np.int32)).to(cuda_device) for _ in range(2))
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    fold, plain = ((uf.parity_union_edges_with_seen, uf.parity_union_edges_with_seen_plain) if parity
+                   else (uf.union_edges_with_seen, uf.union_edges_with_seen_plain))
+    want_p, want_s = plain(parent0, seen, s, d)
+    got_p, got_s = fold(parent0.clone(), seen.clone(), s, d)
+    # the union kernel's larger grid may double in fewer rounds
+    after = uf.last_rounds()["compress"]
+    assert after == 1 if case == "flat" else after >= 1
+    assert torch.equal(got_p, want_p) and torch.equal(got_s, want_s)
+    assert uf.LAUNCHES["compress_kernel"] == before + 2
+
+
+def test_readouts_of_a_flat_state_launch_no_compress(cuda_device):
+    """After a union the state is known flat: find, components, the string,
+    find_roots and the Candidates view read it without a compress launch;
+    a state written since is compressed, into a copy."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.summaries.candidates import Candidates
+    from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
+
+    c = 1 << 10
+    rng = np.random.default_rng(17)
+    u, v = rng.integers(0, c, 300), rng.integers(0, c, 300)
+    ds = DisjointSet(c, device=cuda_device)
+    ds.union_batch(u, v)
+    cpu = DisjointSet(c, device="cpu")
+    cpu.union_batch(u, v)
+    before = uf.LAUNCHES["compress_kernel"]
+    assert [ds.find(x) for x in range(0, c, 7)] == [cpu.find(x) for x in range(0, c, 7)]
+    assert ds.components() == cpu.components() and str(ds) == str(cpu)
+    verts = torch.arange(c, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(uf.find_roots(ds.parent, verts).cpu(), uf.find_roots(cpu.parent, verts.cpu()))
+    p2 = uf.init_parity_parent(c, cuda_device)
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    even = torch.from_numpy((2 * rng.integers(0, c // 2, 200)).astype(np.int32)).to(cuda_device)
+    uf.parity_union_edges_with_seen(p2, seen, even, even + 1)
+    launched = uf.LAUNCHES["compress_kernel"]
+    cand = Candidates(p2, seen)
+    cpu_cand = Candidates(p2.cpu(), seen.cpu())
+    assert str(cand) == str(cpu_cand) and cand.components() == cpu_cand.components()
+    assert uf.LAUNCHES["compress_kernel"] == launched == before + 1  # the parity union's own compress
+    # an aggregation's emitted records: copies of a flat state, read as they are
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+
+    cfg = StreamConfig(vertex_capacity=c, batch_size=128, ingest_window_edges=256)
+    es, ed = (rng.integers(0, c, 512).astype(np.int32) for _ in range(2))
+    records = EdgeStream.from_arrays(es, ed, cfg, device=cuda_device).aggregate(ConnectedComponents()).collect()
+    cpu_records = EdgeStream.from_arrays(es, ed, cfg, device="cpu").aggregate(ConnectedComponents()).collect()
+    launched = uf.LAUNCHES["compress_kernel"]
+    assert len(records) == 2 and [str(r[0]) for r in records] == [str(r[0]) for r in cpu_records]
+    assert uf.LAUNCHES["compress_kernel"] == launched
+    # written since: a readout compresses a copy and leaves the state as it is
+    ds.parent[5] = 3
+    written = ds.parent.clone()
+    assert ds.find(5) == int(uf.compress_plain(written.cpu())[5])
+    assert uf.LAUNCHES["compress_kernel"] == launched + 1 and torch.equal(ds.parent, written)
+
+
 # ---------------------------------------------------------------------------
 # the neighborhood build and the GraphSAGE gather-mean, on the card
 

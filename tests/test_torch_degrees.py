@@ -383,3 +383,48 @@ def test_degree_summary_follows_jax_index_rules(source, bs):
     t_recs = t.aggregate(tdd.DegreeDistributionSummary(window_ms=500)).collect()
     _assert_same_degs(t_recs, j.aggregate(jdd.DegreeDistributionSummary(window_ms=500)).collect())
     assert int(t_recs[-1][0][15]) == 5  # -1 counts at C - 1, 16 and 21 are dropped
+
+
+def _skewed_edges(rng, cap, n):
+    """A star from one hub beside Zipf edges, shuffled, with ids -1, C and
+    C + 5 on some rows and about a fifth of the rows masked."""
+    hub = int(rng.integers(0, cap))
+    star = n // 4
+    zs, zd = ((rng.zipf(1.3, n - star) - 1) % cap for _ in range(2))
+    src = np.concatenate([np.full(star, hub), zs])
+    dst = np.concatenate([rng.integers(0, cap, star), zd])
+    perm = rng.permutation(n)
+    src, dst = src[perm].astype(np.int32), dst[perm].astype(np.int32)
+    for k, x in enumerate((-1, cap, cap + 5)):
+        src[k::97] = x
+        dst[k + 11 :: 89] = x
+    return src, dst, rng.random(n) < 0.8
+
+
+@pytest.mark.parametrize("bs", [64, 1000])
+def test_degree_summary_on_a_skewed_masked_stream_matches_jax(bs):
+    cap, n = 512, 3000
+    src, dst, mask = _skewed_edges(np.random.default_rng(bs), cap, n)
+
+    def chunks():
+        for i in range(0, n, bs):
+            yield src[i : i + bs], dst[i : i + bs], mask[i : i + bs]
+
+    def t_factory():
+        for s, d, m in chunks():
+            yield TBatch.from_arrays(s, d, mask=m, pad_to=bs, device=CPU)
+
+    def j_factory():
+        for s, d, m in chunks():
+            yield JBatch.from_arrays(s, d, mask=m, pad_to=bs)
+
+    kw = dict(vertex_capacity=cap)
+    t = TStream.from_batches(t_factory, TConfig(**kw), device=CPU)
+    j = JStream.from_batches(j_factory, JConfig(**kw))
+    t_recs = t.aggregate(tdd.DegreeDistributionSummary()).collect()
+    _assert_same_degs(t_recs, j.aggregate(jdd.DegreeDistributionSummary()).collect())
+    # the hub's degree, and -1 counted at C - 1 by JAX's scatter rule
+    ok_s = mask & (src < cap) & (src >= -1)
+    ok_d = mask & (dst < cap) & (dst >= -1)
+    want = np.bincount(src[ok_s] % cap, minlength=cap) + np.bincount(dst[ok_d] % cap, minlength=cap)
+    np.testing.assert_array_equal(t_recs[-1][0].numpy(), want)

@@ -129,6 +129,53 @@ def test_compress_and_find_roots_match_jax_on_non_minimum_forests(seed):
     _assert_same(parent, juf.compress(jnp.asarray(parent0)))
 
 
+# forests that compress has to flatten, as parent arrays over DEEP_CAP ids
+DEEP_CAP = 4096
+
+
+def _reversed_path_forest(rng):
+    """One chain 0 <- 1 <- ... <- C - 1: depth C - 1."""
+    return np.maximum(np.arange(DEEP_CAP) - 1, 0)
+
+
+def _shuffled_path_forest(rng):
+    """One chain through every id in a random order."""
+    order = rng.permutation(DEEP_CAP)
+    parent = np.empty(DEEP_CAP, np.int64)
+    parent[order] = order[np.maximum(np.arange(DEEP_CAP) - 1, 0)]
+    return parent
+
+
+def _star_forest(rng):
+    """Every id under one hub, and a second level under some leaves."""
+    hub = int(rng.integers(0, DEEP_CAP))
+    parent = np.full(DEEP_CAP, hub)
+    inner = rng.permutation(np.delete(np.arange(DEEP_CAP), hub))[: DEEP_CAP // 2]
+    parent[inner[: DEEP_CAP // 4]] = inner[DEEP_CAP // 4 :]
+    return parent
+
+
+FORESTS = {
+    "reversed-path": _reversed_path_forest,
+    "shuffled-path": _shuffled_path_forest,
+    "star": _star_forest,
+    "random": lambda rng: _forest(rng, DEEP_CAP),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORESTS))
+def test_compress_matches_jax_on_deep_and_shallow_forests(case):
+    rng = np.random.default_rng(sorted(FORESTS).index(case))
+    parent0 = FORESTS[case](rng).astype(np.int32)
+    want = juf.compress(jnp.asarray(parent0))
+    _assert_same(tuf.compress_plain(_t(parent0)), want)
+    parent = _t(parent0)
+    assert tuf.compress(parent) is parent
+    _assert_same(parent, want)
+    # a flat forest is its own compression
+    _assert_same(tuf.compress_plain(_t(np.asarray(want))), want)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_merge_parents_matches_jax(seed):
     rng = np.random.default_rng(seed)
@@ -189,6 +236,25 @@ def test_disjoint_set_api_matches_jax():
     assert [tds.find(x) for x in range(64)] == [jds.find(x) for x in range(64)]
     _assert_same(tds.parent, jds.parent)
     _assert_same(tds.seen, jds.seen)
+
+
+def test_a_flat_mark_survives_a_state_copy_and_a_write_clears_it():
+    """The flat mark (set by every union call on the card) rides through
+    ``clone_state``'s copies of an emitted state; ``compressed`` then reads
+    the copy as it is, and a write since makes it compress a copy."""
+    from gelly_streaming_tpu_torch.core.aggregation import clone_state
+
+    parent0 = _forest(np.random.default_rng(4))
+    flat = tuf.mark_flat(_t(np.asarray(juf.compress(jnp.asarray(parent0)))))
+    seen = torch.zeros(CAP, dtype=torch.bool)
+    copy, seen_copy = clone_state((flat, seen))
+    assert copy is not flat and tuf.compressed(copy) is copy
+    assert torch.equal(seen_copy, seen) and seen_copy is not seen
+    copy[3] = 0
+    assert tuf.compressed(copy) is not copy
+    written = _t(parent0)
+    _assert_same(tuf.compressed(written), juf.compress(jnp.asarray(parent0)))
+    _assert_same(written, parent0)
 
 
 def test_wrappers_check_arguments():
