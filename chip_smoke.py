@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
                           [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
-                          [--parent-sage-backward-cu PATH]
+                          [--parent-sage-backward-cu PATH] [--earlier-csr-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -149,6 +149,28 @@ registers and spills of the tensor-core instantiations, and the forward
 interface) the parent's backward over the buckets and over the contexts,
 and its layer over the contexts, in turns with the current ones (parent,
 current, current, parent).
+
+Phase 14 drives the asynchronous window pipeline (``cfg.async_windows``)
+and the windowed superbatch planes (``cfg.superbatch``): (a) the reference's
+windowed-CC bench shape (bench.py:310-395: 100 windows of 2^13 edges over
+2^16 vertices, batches of 2^12, 100 ms windows, seed 3), sync against async
+4 after a warm-up run of each, every emission's parent read to the host and
+equal element for element, edges/s, their ratio and the pipeline counters;
+(b) the same query at the CC bench's width (16 windows of 2^21 uniform
+edges over 2^20 vertices, seed 0; 50 batches cut to 16 windows for time),
+sync, async 4, superbatch 4 and both, records equal across the four,
+windows/s and edges/s, and the device's idle share of an async run (its
+busy time by torch.profiler over that run's own wall); (c) ``window_triangles`` over phase 4's stream on the async
+and the superbatch plane, counts equal to the sync path and
+``plain_pane_count``, ``csr_triangles`` (``csrc/csr_triangles.cu``, the
+masked-CSR count of K panes) equal to its twin on every superbatch group;
+(d) ``csr_triangles`` alone on a held stream at the superbatch group, the
+sparse CSR window and phase 12's hub pane (counted through
+``window_triangles``' sync path and held against a scipy oracle), with its
+bytes bound, scratch, twin and ``torch.sparse.sampled_addmm`` as the
+library yardstick; (e) ``reduce_on_edges`` over 4 of phase 12's uniform
+panes, sync against async 2, records equal, and the dispatch stall that
+``build_buckets``' host read of the bucket counts adds.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -669,6 +691,9 @@ PARENT_SIGNATURES = {
     # F_out, out, chunk, chunks, partial sums, counts, stream; the backward's scratch bytes (F_in, F_out);
     # the backward: table, C, F_in, keys, nbrs, valid, K, D, z, dz, F_out, dw, db, chunk, chunks, partial
     # sums, counts, scratch, scratch bytes, stream
+    # (the first csr_triangles.cu: its own 4-bit radix sort, one C call) k, e, n_v; u, v, ok, k, e, n_v, out,
+    # scratch, scratch bytes, stream
+    "csr": {"csr_scratch_bytes": [_I, _I, _I], "csr_triangles_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _L, _P]},
     "sage_backward": {
         "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sage_layer_backward_scratch_bytes": [_I, _I],
@@ -3065,6 +3090,376 @@ def phase_turns(dev, cycles_per_ms: float, parent_cu: dict, fold_split_cu: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the asynchronous window pipeline, the superbatch planes and
+# csr_triangles
+
+ASYNC_WINDOWS = 100  # bench.py:310-395 (_async_window_bench): 100 windows
+ASYNC_WIN_EDGES = 1 << 13  # of 2^13 edges
+ASYNC_CAPACITY = 1 << 16  # over 2^16 vertices
+ASYNC_DEPTH = 4  # the bench's GELLY_ASYNC_WINDOWS default
+WIDE_WINDOWS = 16  # the CC bench's 50 batches of 2^21, cut to 16 windows for time
+WIDE_WIN_EDGES = 1 << 21
+SB_K = 4
+SNAP_PANES = 4  # phase 12's uniform panes through reduce_on_edges
+CSR_REPS = {"group": 20, "csr_window": 20, "hub": 5}  # ~30-40 launches a call: under ~1000 held
+
+
+def cc_window_stream(src, dst, t_ms, batch: int, cfg, dev):
+    """An event-time stream over host arrays in batches of ``batch`` edges
+    made on the card, as the bench's ``EdgeBatch.from_arrays`` factory."""
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+
+    def factory():
+        for i in range(0, len(src), batch):
+            yield EdgeBatch.from_arrays(src[i:i + batch], dst[i:i + batch], time=t_ms[i:i + batch], device=dev)
+
+    return EdgeStream.from_batches(factory, cfg, device=dev)
+
+
+def cc_window_run(stream):
+    """(seconds, every emission's parent on the host): the bench's
+    materializing consumer."""
+    import torch
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [rec[0].parent.cpu().numpy() for rec in ConnectedComponents(window_ms=100).run(stream)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def cc_planes(dev, label: str, src, dst, win_edges: int, capacity: int, configs: dict) -> dict:
+    """Each config of ``configs`` (name -> StreamConfig fields beyond the
+    base) over the same windows: a warm-up run, then a counted one; every
+    emission's parent equal to the first config's; union_kernel launched.
+    Returns {name: (seconds, pipeline stats, launches)} and the parents."""
+    import dataclasses
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    n = len(src)
+    t_ms = (np.arange(n) // win_edges) * 100 + 50  # 100 ms tumbling windows
+    batch = win_edges // 2  # batches never align with window cuts
+    base = StreamConfig(vertex_capacity=capacity, batch_size=batch)
+    runs, first = {}, None
+    for name, kw in configs.items():
+        cfg = dataclasses.replace(base, **kw)
+        cc_window_run(cc_window_stream(src, dst, t_ms, batch, cfg, dev))  # warm-up
+        metrics.reset_pipeline_stats()
+        uf.reset_launches()
+        secs, out = cc_window_run(cc_window_stream(src, dst, t_ms, batch, cfg, dev))
+        launches = uf.LAUNCHES["union_kernel"]
+        stats = metrics.pipeline_stats()
+        if launches <= 0:
+            raise RuntimeError(f"{label} {name}: union_kernel was not launched")
+        if first is None:
+            first = out
+        elif len(out) != len(first) or not all(np.array_equal(a, b) for a, b in zip(out, first)):
+            raise RuntimeError(f"{label} {name}: emissions differ from {next(iter(configs))}'s")
+        runs[name] = (secs, stats, launches)
+        log(f"  {label} {name}: {len(out)} windows in {secs:.4f} s, {len(out) / secs:.2f} windows/s, "
+            f"{n / secs:.6g} edges/s; union_kernel launches {launches}; dispatch stall "
+            f"{stats['pipeline_dispatch_stall_s']} s, drain stall {stats['pipeline_drain_stall_s']} s, "
+            f"in-flight high water {stats['pipeline_inflight_high_water']}")
+    return runs
+
+
+def csr_oracle(src, dst) -> int:
+    """Triangles of an edge list by scipy: the edges oriented from the
+    lower (degree, id) rank to the higher, sum((A+ @ A+) * A+), which
+    equals sum((A @ A) * A) / 6 without forming A @ A (a hub of 2^17
+    neighbors would make it ~2^34 entries)."""
+    import scipy.sparse as sp
+
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    keep = lo != hi
+    pairs = np.unique(np.stack([lo[keep], hi[keep]], axis=1), axis=0)
+    verts, inv = np.unique(pairs.ravel(), return_inverse=True)
+    a, b = inv.reshape(-1, 2).T
+    n = len(verts)
+    deg = np.bincount(np.concatenate([a, b]), minlength=n)
+    pos = np.empty(n, np.int64)
+    pos[np.lexsort((np.arange(n), deg))] = np.arange(n)
+    fwd = pos[a] < pos[b]
+    ap = sp.csr_matrix((np.ones(len(a), np.int64), (np.where(fwd, a, b), np.where(fwd, b, a))), shape=(n, n))
+    return int((ap @ ap).multiply(ap).sum())
+
+
+def sampled_addmm_ms(dev, u, v, ok, n_v: int, want_total: int):
+    """``torch.sparse.sampled_addmm`` over the block-diagonal adjacency of
+    the panes (both directions): (A @ A) at A's nonzeros in one call, whose
+    sum / 6 is the panes' triangles.  (ms, None) or (None, the reason)."""
+    import torch
+
+    k = u.shape[0]
+    rows = [torch.cat([u[p][ok[p]], v[p][ok[p]]]).long() + p * n_v for p in range(k)]
+    cols = [torch.cat([v[p][ok[p]], u[p][ok[p]]]).long() + p * n_v for p in range(k)]
+    size = k * n_v
+    try:
+        a = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                    torch.ones(sum(len(r) for r in rows), device=dev), (size, size))
+        a = a.coalesce().to_sparse_csr()
+        dense = a.to_dense()
+
+        def call():
+            return torch.sparse.sampled_addmm(a, dense, dense, beta=0.0)
+
+        total = int(round(call().values().double().sum().item()))
+        if total != 6 * want_total:
+            return None, f"sum {total} != 6 x {want_total}"
+        ms = cuda_ms(call, 5)
+        del dense
+        return ms, None
+    except (RuntimeError, NotImplementedError) as e:  # a yardstick, on no path
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+
+
+def earlier_csr_call(lib):
+    """The first csr_triangles.cu's one C call over ``lib`` (its own
+    scratch, as its wrapper made it): call(u, v, ok, n_v) -> int64 [K]."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def call(u, v, ok, n_v):
+        k, e = u.shape
+        out = torch.zeros((k,), dtype=torch.int64, device=u.device)
+        scratch = torch.empty((lib.csr_scratch_bytes(k, e, n_v),), dtype=torch.uint8, device=u.device)
+        _cuda.check(lib.csr_triangles_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, n_v, out.data_ptr(),
+                                             scratch.data_ptr(), scratch.numel(),
+                                             torch.cuda.current_stream(u.device).cuda_stream), "earlier csr_triangles")
+        return out
+
+    return call
+
+
+def csr_shape(dev, cpm, name: str, u, v, ok, n_v: int, d: int, twin: bool, earlier=None) -> dict:
+    """csr_triangles at one shape: device-only ms on a held stream, the host
+    enqueue, back-to-back events, the bytes bound, its scratch; with
+    ``twin`` the plain twin's time and its equality; with ``earlier`` (an
+    ``earlier_csr_call``) that version's counts and its device ms in turns
+    with the current (earlier, current, current, earlier)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+
+    k, e = u.shape
+    got = ct.csr_triangles(u, v, ok, n_v, d)
+    err = 0
+    plain_ms = None
+    if twin:
+        want = ct.csr_triangles_plain(u, v, ok, n_v, d)
+        err = int((got - want).abs().max())
+        plain_ms = cuda_ms(lambda: ct.csr_triangles_plain(u, v, ok, n_v, d), 1, warmup=0)
+        if err:
+            raise RuntimeError(f"csr_triangles {name}: kernel {got.tolist()} != twin {want.tolist()}")
+    d_ms, h_us = device_ms(lambda: ct.csr_triangles(u, v, ok, n_v, d), CSR_REPS[name], cpm)
+    e_valid = int(ok.sum())
+    bound_ms = (9 * k * e + 8 * k) / HBM_BYTES_PER_S * 1e3  # u, v, ok read once, K int64 counts written
+    r = {"k": k, "e_pad": e, "n_v": n_v, "d": d, "edges": e_valid, "counts": got.tolist(),
+         "device_ms": d_ms, "host_us": h_us, "ms": cuda_ms(lambda: ct.csr_triangles(u, v, ok, n_v, d), 5),
+         "bound_ms": bound_ms, "scratch_bytes": ct.scratch_bytes(k, e, n_v), "plain_ms": plain_ms, "err": err}
+    if earlier is not None:
+        prev = earlier(u, v, ok, n_v)
+        if not torch.equal(prev, got):
+            raise RuntimeError(f"csr_triangles {name}: earlier version {prev.tolist()} != {got.tolist()}")
+        calls = {"earlier": lambda: earlier(u, v, ok, n_v), "current": lambda: ct.csr_triangles(u, v, ok, n_v, d)}
+        r["turns"] = [(w, device_ms(calls[w], CSR_REPS[name], cpm)[0]) for w in ("earlier", "current", "current",
+                                                                                 "earlier")]
+        log(f"  csr_triangles {name}, device ms in turns with the earlier version: {r['turns']}")
+    try:  # the call's split by kernel (the profiler is a side measurement)
+        rows = profiler_device_us(lambda: ct.csr_triangles(u, v, ok, n_v, d), 3)
+        split = {}
+        for key, (us, calls) in rows.items():
+            if key.startswith(("aten::", "Activity Buffer")):
+                continue
+            short = re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0].strip()
+            split[short] = round(split.get(short, 0.0) + us * calls / 3 / 1e3, 5)
+        r["split_ms"] = dict(sorted(split.items(), key=lambda kv: -kv[1]))
+        log(f"  csr_triangles {name} by kernel (torch.profiler, ms a call): {r['split_ms']}")
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+    log(f"  csr_triangles {name} (K={k}, E_pad={e}, {e_valid} edges, n_v={n_v}, D={d}): device {d_ms:.5f} ms "
+        f"({d_ms / bound_ms:.1f}x its bound {bound_ms:.6f} ms, bytes), host enqueue {h_us:.2f} us, back-to-back "
+        f"{r['ms']:.5f} ms, scratch {r['scratch_bytes']} B, plain twin "
+        f"{'-' if plain_ms is None else f'{plain_ms:.3f} ms'}; counts {got.tolist()}")
+    torch.cuda.synchronize()
+    return r
+
+
+def phase_async(dev, cpm, tri_stream, host_panes, expected, earlier_csr=None) -> dict:
+    """Phase 14: the async window pipeline and the superbatch planes on the
+    card (module docstring), and csr_triangles (``earlier_csr``: an
+    ``earlier_csr_call`` timed in turns with it in (d))."""
+    import dataclasses
+
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeDirection
+    from gelly_streaming_tpu_torch.core.windows import group_panes
+    from gelly_streaming_tpu_torch.io.prefetch import upload
+    from gelly_streaming_tpu_torch.io.sources import _batched
+    from gelly_streaming_tpu_torch.library import triangles as tri
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+    from gelly_streaming_tpu_torch.ops import dense_triangles as dt
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    env_depth = os.environ.pop("GELLY_ASYNC_WINDOWS", None)  # both modes set by their configs
+    res = {}
+    log(f"  (a) the reference's windowed-CC bench shape: {ASYNC_WINDOWS} windows x {ASYNC_WIN_EDGES} edges over "
+        f"{ASYNC_CAPACITY} vertices, batches of {ASYNC_WIN_EDGES // 2}, 100 ms windows, default_rng(3)")
+    rng = np.random.default_rng(3)
+    n = ASYNC_WINDOWS * ASYNC_WIN_EDGES
+    src = rng.integers(0, ASYNC_CAPACITY, n).astype(np.int32)
+    dst = rng.integers(0, ASYNC_CAPACITY, n).astype(np.int32)
+    a = cc_planes(dev, "(a)", src, dst, ASYNC_WIN_EDGES, ASYNC_CAPACITY,
+                  {"sync": {}, f"async {ASYNC_DEPTH}": {"async_windows": ASYNC_DEPTH}})
+    (s_s, _, _), (a_s, a_stats, _) = a["sync"], a[f"async {ASYNC_DEPTH}"]
+    log(f"  (a) sync {n / s_s:.6g} edges/s, async {n / a_s:.6g} edges/s, async/sync {s_s / a_s:.4f}; emissions "
+        f"equal element for element: True; pipeline counters {a_stats}")
+    res["bench"] = {"sync_eps": n / s_s, "async_eps": n / a_s, "ratio": s_s / a_s, "stats": a_stats}
+
+    log(f"  (b) the same query at the CC bench's width: {WIDE_WINDOWS} windows x {WIDE_WIN_EDGES} uniform edges over "
+        f"{CC_VERTICES} vertices (default_rng(0); 50 batches cut to {WIDE_WINDOWS} windows for time)")
+    rng = np.random.default_rng(0)
+    n = WIDE_WINDOWS * WIDE_WIN_EDGES
+    src = rng.integers(0, CC_VERTICES, n).astype(np.int32)
+    dst = rng.integers(0, CC_VERTICES, n).astype(np.int32)
+    planes = {"sync": {}, f"async {ASYNC_DEPTH}": {"async_windows": ASYNC_DEPTH}, f"superbatch {SB_K}":
+              {"superbatch": SB_K}, f"superbatch {SB_K} + async {ASYNC_DEPTH}":
+              {"superbatch": SB_K, "async_windows": ASYNC_DEPTH}}
+    b = cc_planes(dev, "(b)", src, dst, WIDE_WIN_EDGES, CC_VERTICES, planes)
+    t_ms = (np.arange(n) // WIDE_WIN_EDGES) * 100 + 50
+    cfg = StreamConfig(vertex_capacity=CC_VERTICES, batch_size=WIDE_WIN_EDGES // 2, async_windows=ASYNC_DEPTH)
+    walls = []  # each call's wall: the last is the profiled run's
+    busy, top = train_profile(lambda: walls.append(cc_window_run(
+        cc_window_stream(src, dst, t_ms, WIDE_WIN_EDGES // 2, cfg, dev))[0]), 1)
+    wall = walls[-1]
+    idle = None if busy is None else 100 * (1 - busy / (wall * 1e3))
+    log(f"  (b) records equal across the four planes; torch.profiler over one async {ASYNC_DEPTH} run: device busy "
+        f"{busy} ms (sum of its kernel and copy rows) against that run's own wall {wall * 1e3:.1f} ms: idle "
+        f"{'-' if idle is None else f'{idle:.2f}'}%; top rows {top}")
+    res["wide"] = {k: {"s": v[0], "windows_per_s": WIDE_WINDOWS / v[0], "edges_per_s": n / v[0], "stats": v[1]}
+                   for k, v in b.items()}
+    res["wide_idle_pct"] = idle
+    del src, dst, t_ms
+
+    log(f"  (c) window_triangles over phase 4's stream: async {ASYNC_DEPTH} and superbatch {SB_K}")
+    for name, kw in ((f"async {ASYNC_DEPTH}", {"async_windows": ASYNC_DEPTH}), (f"superbatch {SB_K}",
+                                                                                 {"superbatch": SB_K})):
+        stream = EdgeStream.from_batches(tri_stream._source_factory, dataclasses.replace(tri_stream.cfg, **kw),
+                                         device=dev)
+        tri.window_triangles(stream, WINDOW_MS).collect()  # warm-up
+        torch.cuda.synchronize()
+        dt.reset_launches()
+        ct.reset_launches()
+        t0 = time.perf_counter()
+        records = tri.window_triangles(stream, WINDOW_MS).collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {**dt.LAUNCHES, **ct.LAUNCHES}
+        if records != expected:
+            raise RuntimeError(f"(c) {name}: counts differ from the sync path's and the twins':\n {records}")
+        need = ("csr_triangles",) if "superbatch" in name else ("pane_adjacency", "dense_triangles", "csr_triangles")
+        if min(launches[k] for k in need) <= 0:
+            raise RuntimeError(f"(c) {name}: a kernel of the plane was not launched: {launches}")
+        log(f"  (c) {name}: {len(records)} windows equal to the sync path and plain_pane_count; "
+            f"{len(records) / secs:.3f} panes/s ({secs * 1e3:.1f} ms); launches {launches}")
+        res[f"tri_{name.split()[0]}"] = {"panes_per_s": len(records) / secs, "launches": launches}
+    res["sb_launches"] = res["tri_superbatch"]["launches"]["csr_triangles"]
+    # the kernel against its twin on every superbatch group of the run
+    groups = []
+    for group in group_panes(iter(host_panes), SB_K, keep_empty=True):
+        prepped = [p for p in (tri._superpane_canonical((g.src, g.dst)) for g in group) if p is not None]
+        arrays, (n_v, d) = tri._superpane_rows(prepped)
+        groups.append((to_dev(arrays, dev), n_v, d))
+    err = 0
+    for i, ((u, v, ok), n_v, d) in enumerate(groups):
+        got = ct.csr_triangles(u, v, ok, n_v, d)
+        want = ct.csr_triangles_plain(u, v, ok, n_v, d)
+        err = max(err, int((got - want).abs().max()))
+        if err:
+            raise RuntimeError(f"(c) group {i}: csr_triangles {got.tolist()} != twin {want.tolist()}")
+    log(f"  (c) csr_triangles equal to its twin on all {len(groups)} superbatch groups (max |err| {err})")
+
+    log("  (d) csr_triangles alone, device only on a held stream")
+    (u, v, ok), n_v, d = groups[0]
+    shapes = {"group": csr_shape(dev, cpm, "group", u, v, ok, n_v, d, True, earlier_csr)}
+    lib_ms, why = sampled_addmm_ms(dev, u, v, ok, n_v, sum(shapes["group"]["counts"]))
+    log(f"  library call at the group: torch.sparse.sampled_addmm over the {u.shape[0]} panes' block-diagonal "
+        f"adjacency ({u.shape[0] * n_v} rows): " + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"))
+    meta, (cu, cv) = tri._pane_prepare((host_panes[-1].src, host_panes[-1].dst), dev)
+    if meta[0] != "csr":
+        raise RuntimeError(f"phase 4's sparse window did not take the CSR path: {meta}")
+    cu, cv = to_dev((cu[None], cv[None]), dev)
+    ones = torch.ones(cu.shape, dtype=torch.bool, device=dev)
+    d_csr = 1 << (meta[2] - 1).bit_length()
+    shapes["csr_window"] = csr_shape(dev, cpm, "csr_window", cu, cv, ones, meta[1], d_csr, True, earlier_csr)
+    lib_csr, why_csr = sampled_addmm_ms(dev, cu, cv, ones, meta[1], shapes["csr_window"]["counts"][0])
+    log("  library call at the CSR window: " + (f"{lib_csr:.4f} ms" if lib_csr is not None else f"none ({why_csr})"))
+    # phase 12's hub pane through window_triangles' sync path
+    s_all, d_all = sage_stream_arrays()
+    hs, hd = s_all[SAGE_PANES * SAGE_PANE_EDGES:], d_all[SAGE_PANES * SAGE_PANE_EDGES:]
+    hub_cfg = StreamConfig(vertex_capacity=SAGE_VERTICES, batch_size=1 << 20)
+    hub_stream = EdgeStream.from_batches(_batched(hs, hd, None, np.zeros(len(hs), np.int64), None,
+                                                  hub_cfg.batch_size, dev), hub_cfg, device=dev)
+    ct.reset_launches()
+    t0 = time.perf_counter()
+    hub_rec = tri.window_triangles(hub_stream, WINDOW_MS).collect()
+    hub_s = time.perf_counter() - t0
+    hub_launches = ct.LAUNCHES["csr_triangles"]
+    t0 = time.perf_counter()
+    oracle = csr_oracle(hs, hd)
+    log(f"  hub pane (a star of {SAGE_HUB} beside Zipf edges, {len(hs)} edges) through window_triangles' sync path: "
+        f"{hub_rec} in {hub_s:.3f} s, csr_triangles launches {hub_launches}; scipy oracle {oracle} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if hub_rec != [(oracle, WINDOW_MS - 1)] or hub_launches != 1:
+        raise RuntimeError(f"hub pane: {hub_rec} against the oracle's {oracle}, {hub_launches} launches")
+    meta, (cu, cv) = tri._pane_prepare((hs, hd), dev)
+    cu, cv = to_dev((cu[None], cv[None]), dev)
+    shapes["hub"] = csr_shape(dev, cpm, "hub", cu, cv, torch.ones(cu.shape, dtype=torch.bool, device=dev),
+                              meta[1], 1 << (meta[2] - 1).bit_length(), False, earlier_csr)
+    shapes["hub"]["oracle"] = oracle
+    res["csr"] = {"shapes": shapes, "library_ms": lib_ms, "library_csr_window_ms": lib_csr, "err": err,
+                  "hub_launches": hub_launches}
+
+    log(f"  (e) the snapshot plane: reduce_on_edges over {SNAP_PANES} uniform panes of phase 12 "
+        f"({SAGE_PANE_EDGES} edges over {SAGE_VERTICES} vertices, OUT), sync and async 2")
+    ns = SNAP_PANES * SAGE_PANE_EDGES
+    ss, sd = s_all[:ns], d_all[:ns]
+    sv = np.random.default_rng(5).random(ns, dtype=np.float32)
+    del s_all, d_all
+    snap = {}
+    for name, depth in (("sync", 0), ("async 2", 2)):
+        cfg = StreamConfig(vertex_capacity=SAGE_VERTICES, batch_size=1 << 20, ingest_window_edges=SAGE_PANE_EDGES,
+                           async_windows=depth)
+        stream = EdgeStream.from_batches(_batched(ss, sd, sv, None, None, cfg.batch_size, dev), cfg, device=dev)
+        metrics.reset_pipeline_stats()
+        nbh.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = stream.slice(WINDOW_MS, EdgeDirection.OUT).reduce_on_edges(lambda x, y: x + y).collect()
+        secs = time.perf_counter() - t0
+        snap[name] = (recs, secs, metrics.pipeline_stats(), nbh.LAUNCHES["build_buckets"])
+        if snap[name][3] <= 0:
+            raise RuntimeError(f"(e) {name}: build_buckets was not launched")
+    if snap["sync"][0] != snap["async 2"][0]:
+        raise RuntimeError("(e) the async snapshot plane's records differ from the sync path's")
+    st = snap["async 2"][2]
+    log(f"  (e) {len(snap['sync'][0])} records equal; sync {snap['sync'][1]:.3f} s, async 2 {snap['async 2'][1]:.3f} s; "
+        f"build_buckets launches {snap['async 2'][3]}; dispatch stall {st['pipeline_dispatch_stall_s']} s, of it "
+        f"build_buckets' calls (their host read of the bucket counts) {st['pipeline_dispatch_build_s']} s; drain "
+        f"stall {st['pipeline_drain_stall_s']} s")
+    res["snapshot"] = {"sync_s": snap["sync"][1], "async_s": snap["async 2"][1], "stats": st}
+    if env_depth is not None:
+        os.environ["GELLY_ASYNC_WINDOWS"] = env_depth
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -3085,7 +3480,11 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-neighborhoods-cu", default=None,
                         help="neighborhoods.cu of the commit before the radix sort (its C interface): "
                              "torch.sort, then its count and scatter, timed in turns with build_buckets")
+    parser.add_argument("--earlier-csr-cu", default=None,
+                        help="a csr_triangles.cu with the one-call C interface (csr_triangles_launch, its own 4-bit "
+                             "radix sort): timed in turns with the current csr_triangles in phase 14 (d)")
     args = parser.parse_args(argv)
+    earlier_csr_cu = os.path.abspath(args.earlier_csr_cu) if args.earlier_csr_cu else None
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     parent_backward_cu = os.path.abspath(args.parent_sage_backward_cu) if args.parent_sage_backward_cu else None
     parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
@@ -3105,6 +3504,7 @@ def main(argv=None) -> int:
         from gelly_streaming_tpu_torch.io.prefetch import upload
         from gelly_streaming_tpu_torch.library import triangles as tri
         from gelly_streaming_tpu_torch.ops import _cuda
+        from gelly_streaming_tpu_torch.ops import csr_triangles as ct
         from gelly_streaming_tpu_torch.ops import dense_triangles as dt
         from gelly_streaming_tpu_torch.utils.metrics import WindowLatencyRecorder
     except ImportError as e:
@@ -3176,11 +3576,12 @@ def main(argv=None) -> int:
     tri.window_triangles(stream, WINDOW_MS).collect()
     torch.cuda.synchronize()
     dt.reset_launches()
+    ct.reset_launches()
     t0 = time.perf_counter()
     records = tri.window_triangles(stream, WINDOW_MS).collect()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(dt.LAUNCHES)
+    launches = {**dt.LAUNCHES, **ct.LAUNCHES}  # csr_triangles: the sparse window's CSR fallback
     if records != expected:
         raise RuntimeError(f"window counts differ:\n got {records}\n want {expected}")
     if min(launches.values()) <= 0:
@@ -3193,7 +3594,8 @@ def main(argv=None) -> int:
     checked, e_adj, e_tri = check_windows(panes, dev)
     adj_err, tri_err = max(adj_err, e_adj), max(tri_err, e_tri)
     log(f"  {checked} dense windows: pane_adjacency, dense_triangles and pane_triangles "
-        f"bit-equal to the twins ({len(panes) - checked} CSR window runs no kernel)")
+        f"bit-equal to the twins ({len(panes) - checked} CSR window: csr_triangles, held against its twin in "
+        f"phase 14)")
 
     # where a window's time goes: the host time plane (batches read back
     # and cut into panes), host pane prep, then upload + kernels + readback
@@ -3366,6 +3768,10 @@ def main(argv=None) -> int:
     if parent_cu:
         log(f"phase 11: in turns with the parent builds {sorted(parent_cu.values())}")
         turned = phase_turns(dev, cpm, parent_cu, fold_split_cu, dd, cc, bp)
+    log("phase 14: the async window pipeline, the superbatch planes and csr_triangles on the card")
+    asy = phase_async(dev, cpm, stream, host_panes, expected,
+                      earlier_csr_call(load_baseline(earlier_csr_cu, PARENT_SIGNATURES["csr"])) if earlier_csr_cu
+                      else None)
 
     kernels = [
         {
@@ -3483,6 +3889,21 @@ def main(argv=None) -> int:
             if k in tr["backward"]},
          "train_bench": tr["bench"], "train_pane": tr["pane"]},
     ]
+    csr, group = asy["csr"], asy["csr"]["shapes"]["group"]
+    kernels.append({
+        "name": "csr_triangles", "route": "cuda", "source": "gelly_streaming_tpu_torch/csrc/csr_triangles.cu",
+        "replaces": "gelly_streaming_tpu/library/triangles.py:229",
+        "also_replaces": "gelly_streaming_tpu/library/triangles.py:322",
+        # the superbatch plane's run (phase 14 (c)); the sync path's CSR fallback in phase 4
+        "launches": asy["sb_launches"], "launches_sync_csr": launches["csr_triangles"],
+        "launches_hub": csr["hub_launches"], "max_abs_err": csr["err"], "ms": group["ms"],
+        "device_ms": group["device_ms"], "host_us": group["host_us"], "plain_ms": group["plain_ms"],
+        "bound_ms": group["bound_ms"], "bound_by": "bytes", "library_ms": csr["library_ms"],
+        "library_call": "torch.sparse.sampled_addmm over the group's block-diagonal adjacency",
+        "library_csr_window_ms": csr["library_csr_window_ms"],
+        "shapes": {k: {kk: vv for kk, vv in v.items() if kk != "counts"} for k, v in csr["shapes"].items()},
+        "planes": {k: asy[k] for k in ("bench", "wide", "wide_idle_pct", "tri_async", "tri_superbatch", "snapshot")},
+    })
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -20,14 +20,25 @@ rounds of ``degree``-ary groups) and ``run()``'s routing:
   ``num_shards > 1``): each closed pane is folded per round-robin
   partition and the partials combined, then merged into the running
   summary, which is emitted once per window.
+* **the asynchronous window pipeline** (``cfg.async_windows`` or
+  ``GELLY_ASYNC_WINDOWS`` > 0, ``core/async_exec.py``): panes padded to a
+  power of two on the prefetcher's pack thread into pinned arenas,
+  uploaded on its second thread, folded without waiting, and their
+  records drained in window order.
+* **the windowed superbatch plane** (``cfg.superbatch`` > 1): up to K
+  closed panes travel as one [rows, E_pad] transfer and fold one row a
+  pane, each on a fresh initial state, with no host sync between the
+  rows; the Merger then merges and emits per window, so the records are
+  the per-pane path's.  With ``async_windows`` too, the rows are
+  assembled and uploaded on the prefetcher's threads.
 
 Descriptors here may update their state IN PLACE (``update`` its first
 argument, ``combine`` its first argument): the runtime owns the running
 state and clones it before every emission that a later fold could change.
-Checkpoints, the asynchronous window pipeline, windowed superbatches and
-the binned/compressed ingest are not ported yet (ROADMAP queue A); the
-mesh runner waits for ``parallel/`` on NCCL, so ``num_shards > 1`` folds
-its partitions one after another on one device.
+Checkpoints and the binned/compressed ingest are not ported yet (ROADMAP
+queue A), so ``_maybe_bin_pane`` has no counterpart here; the mesh runner
+waits for ``parallel/`` on NCCL, so ``num_shards > 1`` folds its
+partitions one after another on one device.
 """
 
 from __future__ import annotations
@@ -38,16 +49,26 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.core import async_exec
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.core.output import OutputStream
 from gelly_streaming_tpu_torch.core.stream import plan_superbatch_groups
-from gelly_streaming_tpu_torch.core.types import EdgeBatch, tree_map
-from gelly_streaming_tpu_torch.core.windows import WindowPane, stream_panes
+from gelly_streaming_tpu_torch.core.types import EdgeBatch, _tree_unflatten_like, tree_leaves, tree_map
+from gelly_streaming_tpu_torch.core.windows import (
+    WindowPane,
+    group_panes,
+    pad_pane_edges,
+    pad_rows,
+    pow2,
+    row_mask,
+    stack_rows,
+    stream_panes,
+)
 from gelly_streaming_tpu_torch.io import wire
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
 from gelly_streaming_tpu_torch.ops import unionfind as uf
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue A item 1)"
+_ROADMAP = "not ported yet (ROADMAP.md, queue A item 6)"
 
 
 def clone_state(state):
@@ -254,14 +275,27 @@ class SummaryAggregation:
         if total_edges and pending_final:
             yield _as_record(self.transform(state))
 
-    # -- the synchronous windowed path ----------------------------------------
+    # -- the windowed paths ----------------------------------------------------
 
-    def _merge_loop(self, panes: Iterator[WindowPane], fold_pane) -> Iterator[tuple]:
+    def _merge_loop(self, cfg: StreamConfig, panes: Iterator, fold_pane, unwrap: bool = False,
+                    release=None) -> Iterator[tuple]:
         """The Merger (SummaryAggregation.java:93-119): fold each pane, merge
-        it into the running summary, emit one record a window."""
+        it into the running summary, emit one record a window.  With
+        ``unwrap`` the iterator yields ``(pane, payload)`` pairs and
+        ``fold_pane`` gets the payload.  With an async depth (``cfg.
+        async_windows`` or ``GELLY_ASYNC_WINDOWS``) it runs as
+        ``async_exec.async_merge_loop``, whose drain calls ``release(payload)``
+        once the window's fold is complete."""
+        depth = async_exec.resolve_depth(cfg)
+        if depth > 0:
+            yield from async_exec.async_merge_loop(
+                self, panes, fold_pane, clone_state, unwrap=unwrap, depth=depth, release=release
+            )
+            return
         running = None
-        for pane in panes:
-            pane_summary = fold_pane(pane)
+        for item in panes:
+            _pane, payload = item if unwrap else (item, item)
+            pane_summary = fold_pane(payload)
             if pane_summary is None:
                 continue
             if running is None or self.transient_state:
@@ -272,10 +306,114 @@ class SummaryAggregation:
             if self.transient_state:
                 running = None
 
+    def _async_pane_records(self, stream, window_ms: int) -> Iterator[tuple]:
+        """The single-partition windowed plane on the async pipeline: each
+        pane padded to its pow2 bucket on the prefetcher's pack thread, into
+        arenas from an ``ArenaPool`` (pinned on CUDA, so the upload makes no
+        second host copy), uploaded on its transfer thread, folded here
+        without waiting (``update`` on a fresh initial state, with the
+        padding masked), and recycled at drain once its fold is complete."""
+        cfg = stream.cfg
+        dev = stream.device
+        depth = async_exec.resolve_depth(cfg)
+        # the retention cap covers the pipeline's own in-flight bound (three
+        # arenas a pane across the prefetch and completion queues), so the
+        # steady state recycles instead of allocating
+        pool = async_exec.ArenaPool(per_shape=2 * depth + 6, pin=dev.type == "cuda")
+
+        def prepare(pane: WindowPane):
+            n = pane.num_edges
+            if n == 0:
+                return (pane, None, None), None
+            padded = pow2(n)
+            arenas = tuple(pool.acquire((padded,), dt) for dt in (torch.int32, torch.int32, torch.bool))
+            pad_pane_edges(pane, out=tuple(a.numpy() for a in arenas))
+            val = tree_map(lambda a: pad_rows(a, padded), pane.val)
+            return (pane, arenas, val), (*arenas, *tree_leaves(val))
+
+        def fold_prepared(item):
+            (_pane, arenas, val_proto), arrays = item
+            if arenas is None:
+                return None
+            src, dst, mask, *leaves = arrays
+            val = None if val_proto is None else _tree_unflatten_like(val_proto, leaves)
+            return self.update(self.initial_state(cfg, dev), src, dst, val, mask)
+
+        def release(item):
+            (_pane, arenas, _val), _arrays = item
+            if arenas is not None:
+                pool.release(*arenas)
+
+        with Prefetcher(stream_panes(stream, window_ms), prepare, dev, depth=depth + 1, count_stalls=True) as pf:
+            yield from self._merge_loop(
+                cfg, ((meta[0], (meta, arrays)) for meta, arrays in pf), fold_prepared, unwrap=True, release=release
+            )
+
+    def _assemble_superpane_rows(self, panes):
+        """Host assembly of a pane group's [rows, E_pad] fold layout:
+        numpy ``(src_k, dst_k, val_k | None, mask_k)``, one row a pane, rows
+        and E_pad padded to powers of two (the JAX package's shape buckets),
+        the padding masked."""
+        rows = pow2(len(panes))
+        e_pad = pow2(max(p.num_edges for p in panes))
+        src_k = stack_rows([p.src for p in panes], rows, e_pad, np.int32)
+        dst_k = stack_rows([p.dst for p in panes], rows, e_pad, np.int32)
+        mask_k = row_mask([p.num_edges for p in panes], rows, e_pad)
+        val_k = None
+        if any(p.val is not None for p in panes):
+            proto = next(p.val for p in panes if p.val is not None)
+            val_k = tree_map(lambda a: np.zeros((rows, e_pad) + a.shape[1:], a.dtype), proto)
+            for i, pane in enumerate(panes):
+                if pane.val is not None:
+                    tree_map(lambda buf, a, i=i: buf.__setitem__((i, slice(0, len(a))), a), val_k, pane.val)
+        return src_k, dst_k, val_k, mask_k
+
+    def _fold_rows(self, cfg: StreamConfig, dev: torch.device, panes, val_proto, arrays):
+        """(pane, partial) for each pane of a group whose row layout is on
+        the device: one ``update`` a real row on a fresh initial state (the
+        JAX package's vmap over rows), every row enqueued before any partial
+        is handed on, so no host sync falls between them."""
+        src_k, dst_k, mask_k, *leaves = arrays
+        val_k = None if val_proto is None else _tree_unflatten_like(val_proto, leaves)
+        partials = [
+            self.update(
+                self.initial_state(cfg, dev), src_k[i], dst_k[i],
+                None if val_k is None else tree_map(lambda a, i=i: a[i], val_k), mask_k[i],
+            )
+            for i in range(len(panes))
+        ]
+        return zip(panes, partials)
+
+    def _superpane_folds(self, stream, window_ms: int):
+        """(pane, partial summary) pairs with up to ``cfg.superbatch``
+        consecutive non-empty panes uploaded and folded together.  Each
+        partial equals the per-pane fold: the update sees that window's
+        edges in arrival order, the padding masked.  With an async depth the
+        row assembly and upload run on the prefetcher's threads and the
+        folds are enqueued here without waiting."""
+        cfg = stream.cfg
+        dev = stream.device
+        groups = group_panes(stream_panes(stream, window_ms), cfg.superbatch)
+        depth = async_exec.resolve_depth(cfg)
+        if depth > 0:
+
+            def prep(panes):
+                src_k, dst_k, val_k, mask_k = self._assemble_superpane_rows(panes)
+                return (tuple(panes), val_k), (src_k, dst_k, mask_k, *tree_leaves(val_k))
+
+            with Prefetcher(groups, prep, dev, depth=depth + 1, count_stalls=True) as pf:
+                for (panes, val_proto), arrays in pf:
+                    yield from self._fold_rows(cfg, dev, panes, val_proto, arrays)
+            return
+        for panes in groups:
+            src_k, dst_k, val_k, mask_k = self._assemble_superpane_rows(panes)
+            arrays = upload((src_k, dst_k, mask_k, *tree_leaves(val_k)), dev)
+            yield from self._fold_rows(cfg, dev, panes, val_k, arrays)
+
     def run(self, stream, checkpoint_path: Optional[str] = None) -> OutputStream:
         """Execute over an EdgeStream (GraphStream.aggregate): the wire path
-        for array-backed and replayed streams folded by one partition, the
-        synchronous windowed path otherwise."""
+        for array-backed and replayed streams folded by one partition, else
+        the windowed planes (superbatch, async, or synchronous)."""
         cfg = stream.cfg
         if checkpoint_path:
             raise NotImplementedError(f"aggregation checkpoints are {_ROADMAP}")
@@ -290,12 +428,16 @@ class SummaryAggregation:
         if self._wire_eligible(stream):
             return OutputStream(lambda: self._wire_records(stream))
         n_parts = self._num_partitions(cfg)
-        if cfg.superbatch > 1 and n_parts == 1:
-            raise NotImplementedError(f"the windowed superbatch plane is {_ROADMAP}")
-        if cfg.async_windows > 0 and n_parts == 1:
-            raise NotImplementedError(f"the asynchronous window pipeline is {_ROADMAP}")
         window_ms = self.window_ms or cfg.window_ms
         dev = stream.device
+        if cfg.superbatch > 1 and n_parts == 1:
+            return OutputStream(
+                lambda: self._merge_loop(
+                    cfg, self._superpane_folds(stream, window_ms), lambda partial: partial, unwrap=True
+                )
+            )
+        if async_exec.resolve_depth(cfg) > 0 and n_parts == 1:
+            return OutputStream(lambda: self._async_pane_records(stream, window_ms))
 
         def fold_pane(pane: WindowPane):
             partials = []
@@ -314,7 +456,7 @@ class SummaryAggregation:
                 return None
             return self._combine_partials(partials, cfg)
 
-        return OutputStream(lambda: self._merge_loop(stream_panes(stream, window_ms), fold_pane))
+        return OutputStream(lambda: self._merge_loop(cfg, stream_panes(stream, window_ms), fold_pane))
 
 
 class SummaryBulkAggregation(SummaryAggregation):

@@ -20,31 +20,34 @@ JAX package's is with ``jnp``; it is user code and has no kernel.  Each
 aggregation has a host mode that runs plain Python per vertex.
 
 Direction semantics match slice(): OUT keys by source, IN by target, ALL
-keys both endpoints of each edge (SimpleEdgeStream.java:149-163).  The
-mesh path (``cfg.num_shards`` > 1 with that many GPUs) and the asynchronous
-window pipeline (``cfg.async_windows`` > 0) are not ported: they raise
+keys both endpoints of each edge (SimpleEdgeStream.java:149-163).  With
+``cfg.async_windows`` (or ``GELLY_ASYNC_WINDOWS``) > 0 the aggregations run
+on the asynchronous window pipeline (``_kernel_chunks_async``).  The mesh
+path (``cfg.num_shards`` > 1 with that many GPUs) is not ported: it raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.core import async_exec
 from gelly_streaming_tpu_torch.core.output import OutputStream
 from gelly_streaming_tpu_torch.core.types import EdgeDirection, _tree_unflatten_like, tree_leaves, tree_map
-from gelly_streaming_tpu_torch.core.windows import WindowPane, validate_slide, windowed_panes
+from gelly_streaming_tpu_torch.core.windows import WindowPane, pad_pane_edges, pad_rows, validate_slide, windowed_panes
 from gelly_streaming_tpu_torch.ops import neighborhoods as nbh_ops
+from gelly_streaming_tpu_torch.utils import metrics
 
 _NEEDS_VALUES_MSG = "this aggregation requires edge values; the stream has none"
 _MESH_MSG = (
     "the sharded snapshot plane (cfg.num_shards > 1 with that many GPUs) is not "
     "ported yet (ROADMAP queue A, item 8)"
 )
-_ASYNC_MSG = "the asynchronous window pipeline (cfg.async_windows > 0) is not ported yet (ROADMAP queue A, item 2)"
 
 # Python scalars in a fold's initial accumulator take the JAX package's
 # default (32-bit) dtypes
@@ -125,26 +128,10 @@ class SnapshotStream:
         Arrays that are int32 and already of the padded length are used as
         they are, not copied."""
         src, dst, val = self._directed_edges(pane)
-        n = len(src)
-        if n == 0:
+        if len(src) == 0:
             return None
-        e_pad = max(1, 1 << (n - 1).bit_length())
-        mask = np.zeros((e_pad,), bool)
-        mask[:n] = True
-
-        def pad(a):
-            if len(a) == e_pad:
-                return a
-            out = np.zeros((e_pad,) + a.shape[1:], a.dtype)
-            out[:n] = a
-            return out
-
-        return (
-            pad(np.asarray(src, np.int32)),
-            pad(np.asarray(dst, np.int32)),
-            tree_map(pad, val),
-            mask,
-        )
+        src_p, dst_p, mask = pad_pane_edges(pane._replace(src=src, dst=dst, val=None))
+        return src_p, dst_p, tree_map(lambda a: pad_rows(a, len(mask)), val), mask
 
     def _neighborhood_panes(self) -> Iterator[Neighborhoods]:
         """Degree-bucketed neighborhoods per closed pane, built on the
@@ -178,8 +165,10 @@ class SnapshotStream:
         tree of [n, ...], n)`` of real rows."""
         if self._use_mesh():
             raise NotImplementedError(_MESH_MSG)
-        if self._stream.cfg.async_windows > 0:
-            raise NotImplementedError(_ASYNC_MSG)
+        depth = async_exec.resolve_depth(self._stream.cfg)
+        if depth > 0:
+            yield from self._kernel_chunks_async(bucket_kernel, needs_vals, depth)
+            return
         for hood in self._neighborhood_panes():
             if needs_vals and hood.vals is None:
                 raise ValueError(_NEEDS_VALUES_MSG)
@@ -191,6 +180,57 @@ class SnapshotStream:
                 tree_map(lambda a: a.cpu().numpy()[:n], out),
                 n,
             )
+
+    def _kernel_chunks_async(self, bucket_kernel, needs_vals: bool, depth: int):
+        """``_kernel_chunks`` on the asynchronous window pipeline: direction
+        and pow2 padding on the pack thread, the upload on the transfer
+        thread, the bucket build and kernels dispatched here with their
+        outputs' copies to pinned host memory started, the real rows cut at
+        the completion-queue drain.  The chunk sequence (window order,
+        bucket order) is the synchronous path's.
+
+        ``build_buckets`` reads its bucket counts back to the host, so each
+        build blocks this thread until the device has run the pane's sort
+        and count; that wait is counted as dispatch stall (and apart, as
+        ``pipeline_dispatch_build_s``)."""
+        dev = self._stream.device
+
+        def prepare(pane: WindowPane):
+            padded = self._padded_pane_edges(pane)
+            if padded is None:
+                return (pane.window_id, None), None
+            src, dst, val, mask = padded
+            return (pane.window_id, val), (src, dst, mask, *tree_leaves(val))
+
+        def dispatch(meta, arrays):
+            if arrays is None:
+                return None
+            src, dst, mask, *leaves = arrays
+            val = None if meta[1] is None else _tree_unflatten_like(meta[1], leaves)
+            if needs_vals and val is None:
+                raise ValueError(_NEEDS_VALUES_MSG)
+            t0 = time.perf_counter()
+            buckets = nbh_ops.build_buckets(src, dst, val, mask)
+            waited = time.perf_counter() - t0
+            metrics.pipeline_add("pipeline_dispatch_stall_s", waited)
+            metrics.pipeline_add("pipeline_dispatch_build_s", waited)
+            handles = []
+            for bkt in buckets:
+                if bkt.num_keys == 0:
+                    continue
+                out = bucket_kernel(bkt.keys, bkt.nbrs, bkt.vals, bkt.valid)
+                handles.append((bkt.num_keys, async_exec.start_host_fetch((bkt.keys, out))))
+            return handles
+
+        def finish(meta, handles):
+            chunks = []
+            for n, fetch in handles or ():
+                keys, out = async_exec.wait_ready(fetch)
+                chunks.append((meta[0], keys.numpy()[:n], tree_map(lambda a: a.numpy()[:n], out), n))
+            return chunks
+
+        for chunks in async_exec.pipelined(self._panes(), prepare, dispatch, finish, depth, dev):
+            yield from chunks
 
     # ---- aggregations -------------------------------------------------------
 

@@ -2,7 +2,9 @@
 
 Port of ``gelly_streaming_tpu/core/windows.py`` (pane assembly, event-time
 tumbling windows with a bounded-out-of-orderness watermark and late sink,
-ingestion-time panes, pane-shared sliding windows).  The host owns time:
+ingestion-time panes, pane-shared sliding windows, and the superbatch
+grouping and pow2 padding: ``group_panes``, ``pad_pane_edges``).  The
+host owns time:
 batches are read back to numpy here, so panes are numpy arrays whatever
 device the stream's batches live on, and pane contents are identical to
 the JAX package's.
@@ -356,3 +358,74 @@ def stream_panes(stream, window_ms: int) -> Iterator[WindowPane]:
         out_of_orderness_ms=cfg.out_of_orderness_ms,
         late_sink=getattr(stream, "late_sink", None),
     )
+
+
+def group_panes(panes: Iterator[WindowPane], k: int, keep_empty: bool = False):
+    """Groups of up to ``k`` consecutive closed panes (as lists).
+
+    The grouping under superbatch dispatch: the aggregation's [K, E] fold
+    rows and the triangles' K-pane count iterate it directly.  Panes with
+    no edges are dropped unless ``keep_empty`` (window triangles emit a
+    record for every pane)."""
+    k = max(1, k)
+    buf = []
+    for pane in panes:
+        if pane.num_edges == 0 and not keep_empty:
+            continue
+        buf.append(pane)
+        if len(buf) == k:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def pow2(n: int) -> int:
+    """The power-of-two bucket of ``n`` items (1 for none): the shape
+    policy of per-pane device work, as the JAX package shares compiled
+    shapes."""
+    return max(1, 1 << (n - 1).bit_length())
+
+
+def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """``a`` zero-padded along its first axis to ``rows`` (``a`` itself
+    when it already has that many)."""
+    if len(a) == rows:
+        return a
+    out = np.zeros((rows,) + a.shape[1:], a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def pad_pane_edges(pane: WindowPane, out=None):
+    """(src, dst, mask) int32/bool arrays padded to ``pow2(num_edges)``:
+    the shared pane -> fixed-shape policy of per-pane device work.  ``out``,
+    when given, is three zeroed arrays of that length (a pool's arenas)
+    that are filled and returned in place of new ones; without it an int32
+    ``src``/``dst`` already of the padded length is returned as it is."""
+    e = pane.num_edges
+    if out is None:
+        e_pad = pow2(e)
+        mask = np.zeros((e_pad,), bool)
+        mask[:e] = True
+        return pad_rows(np.asarray(pane.src, np.int32), e_pad), pad_rows(np.asarray(pane.dst, np.int32), e_pad), mask
+    src, dst, mask = out
+    src[:e], dst[:e], mask[:e] = pane.src, pane.dst, True
+    return out
+
+
+def stack_rows(arrays, rows: int, width: int, dtype=None) -> np.ndarray:
+    """[rows, width, ...] zeros with ``arrays[i]`` in the head of row i:
+    a pane group's fold or count layout, one row a pane."""
+    first = np.asarray(arrays[0])
+    out = np.zeros((rows, width) + first.shape[1:], dtype or first.dtype)
+    for i, a in enumerate(arrays):
+        out[i, : len(a)] = a
+    return out
+
+
+def row_mask(lengths, rows: int, width: int) -> np.ndarray:
+    """bool [rows, width]: the first ``lengths[i]`` slots of row i."""
+    n = np.zeros((rows,), np.int64)
+    n[: len(lengths)] = lengths
+    return np.arange(width)[None, :] < n[:, None]

@@ -16,28 +16,35 @@ of batches in flight.
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
-import collections
+import time
 from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.utils import metrics
+
 
 def upload(host_arrays, device: torch.device, stream=None):
-    """Copy a tuple of numpy arrays to ``device``.
+    """Copy a tuple of numpy arrays (or CPU tensors) to ``device``.
 
-    CPU: zero-copy tensors over the arrays.  CUDA: pinned staging and
-    non-blocking copies on ``stream`` (the current stream when None); the
-    caller orders later work after them (same stream, or an event)."""
+    CPU: zero-copy tensors over the arrays.  CUDA: pinned staging (none for
+    a tensor that is already pinned) and non-blocking copies on ``stream``
+    (the current stream when None); the caller orders later work after them
+    (same stream, or an event)."""
     if host_arrays is None:
         return None
-    tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays)
+    tensors = tuple(
+        a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays
+    )
     if device.type == "cpu":
         return tensors
     with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
-        return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
+        # a pinned arena (core/async_exec.ArenaPool) uploads as it is
+        return tuple((t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True) for t in tensors)
 
 
 class Prefetcher:
@@ -45,14 +52,17 @@ class Prefetcher:
     results in flight per stage.  ``close()`` (or the context manager)
     stops both threads and drops queued buffers if the consumer stops
     early; exhausting the iterator closes implicitly.  A failure on either
-    thread is raised on the consumer's thread."""
+    thread is raised on the consumer's thread.  With ``count_stalls`` (the
+    async window pipeline's prefetchers) the pack and transfer threads add
+    their waits to the pipeline counters (utils/metrics.pipeline_stats)."""
 
     _SENTINEL = object()
 
     def __init__(
-        self, items: Iterable, prepare, device: torch.device, depth: int = 4
+        self, items: Iterable, prepare, device: torch.device, depth: int = 4, count_stalls: bool = False
     ):
         self._prepare = prepare
+        self._count_stalls = count_stalls
         self._device = device
         self._side = (
             torch.cuda.Stream(device=device) if device.type == "cuda" else None
@@ -91,7 +101,12 @@ class Prefetcher:
             for item in it:
                 if self._stop.is_set():
                     return
-                if not self._put(self._midq, self._prepare(item)):
+                prepared = self._prepare(item)
+                t0 = time.perf_counter()
+                ok = self._put(self._midq, prepared)
+                if self._count_stalls:  # pack stall: the transfer stage held the packed item back
+                    metrics.pipeline_add("pipeline_pack_stall_s", time.perf_counter() - t0)
+                if not ok:
                     return
         except BaseException as e:  # raised again on the consumer thread
             if self._error is None:
@@ -102,7 +117,10 @@ class Prefetcher:
     def _run_put(self):
         try:
             while True:
+                t0 = time.perf_counter()
                 got = self._get(self._midq)
+                if self._count_stalls:  # transfer stall: the transfer thread waited for the pack stage
+                    metrics.pipeline_add("pipeline_transfer_stall_s", time.perf_counter() - t0)
                 if got is self._SENTINEL:
                     return
                 meta, host = got

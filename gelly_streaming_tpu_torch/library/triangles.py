@@ -6,13 +6,18 @@ Port of the windowed half of ``gelly_streaming_tpu/library/triangles.py``
 * panes whose (compacted) vertex count fits ``_dense_pane_bound`` ship as
   4 B/edge packed words and are counted by the two CUDA kernels of
   ``ops/dense_triangles.py`` (bitset adjacency, then sum(A * A^2) / 6);
-* larger panes take the padded-CSR path: a neighbor table of the deduped
-  undirected edges and, for every canonical edge (u, v), |N(u) & N(v)|
-  from one [E, D, D] masked equality reduction; the sum / 3 is the count.
+* larger panes take the CSR path: for every deduped canonical edge
+  (u, v), |N(u) & N(v)|, summed and divided by 3, by the CUDA kernel of
+  ``ops/csr_triangles.py`` (whose plain twin is the JAX package's padded
+  table and [E, D, D] masked equality reduction).
 
-The ``cfg.async_windows > 0`` and ``cfg.superbatch > 1`` planes and the
-streaming ``ExactTriangleCount`` are not ported yet and raise
-``NotImplementedError``.
+Three planes, as in the JAX package: the synchronous loop (one pane in
+flight ahead of the readback), the asynchronous window pipeline
+(``cfg.async_windows`` or ``GELLY_ASYNC_WINDOWS`` > 0: ``core/async_exec.
+pipelined``, panes prepared and uploaded on the prefetcher's threads, up
+to that many counts in flight), and the superbatch plane (``cfg.superbatch``
+> 1: up to K panes' canonical edges counted by one ``csr_triangles``
+launch).  The streaming ``ExactTriangleCount`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +28,12 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.core import async_exec
 from gelly_streaming_tpu_torch.core.output import OutputStream
-from gelly_streaming_tpu_torch.core.windows import validate_slide, windowed_panes
+from gelly_streaming_tpu_torch.core.windows import group_panes, pow2, row_mask, stack_rows, validate_slide, windowed_panes
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
-from gelly_streaming_tpu_torch.ops import dense_triangles
-from gelly_streaming_tpu_torch.ops import neighbors as nbr_ops
+from gelly_streaming_tpu_torch.ops import csr_triangles, dense_triangles
 
 
 # Panes whose compacted vertex count fits this bound take the dense CUDA
@@ -46,6 +51,22 @@ def _dense_pane_bound(device: torch.device) -> int:
         if device.type == "cuda"
         else DENSE_PANE_MAX_VERTICES_CPU
     )
+
+
+def _unique_pairs(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """``np.unique(np.stack([lo, hi], 1), axis=0)`` (the same rows in the
+    same order, int64), by a 1-D unique of one int64 key a pair, which
+    sorts ~20x faster than the row-wise unique at 2^17 pairs."""
+    lo = np.asarray(lo, np.int64)
+    hi = np.asarray(hi, np.int64)
+    if len(lo) == 0:
+        return np.zeros((0, 2), np.int64)
+    lmin, hmin = int(lo.min()), int(hi.min())
+    span = int(hi.max()) - hmin + 1
+    if (int(lo.max()) - lmin + 1) * span >= 1 << 62:
+        return np.unique(np.stack([lo, hi], axis=1), axis=0)
+    key = np.unique((lo - lmin) * span + (hi - hmin))
+    return np.stack([key // span + lmin, key % span + hmin], axis=1)
 
 
 def _pane_prepare(pane, device: torch.device):
@@ -70,7 +91,7 @@ def _pane_prepare(pane, device: torch.device):
     lo = np.minimum(src, dst)
     hi = np.maximum(src, dst)
     keep = lo != hi
-    pairs = np.unique(np.stack([lo[keep], hi[keep]], axis=1), axis=0)
+    pairs = _unique_pairs(lo[keep], hi[keep])
     if len(pairs) == 0:
         return ("const", 0), None
     u, v = pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
@@ -183,26 +204,65 @@ def pipelined_pane_counts(
 def _count_kernel_impl(
     u: torch.Tensor, v: torch.Tensor, num_vertices: int, max_deg: int
 ) -> torch.Tensor:
-    """sum over edges |N(u) & N(v)| / 3 with a padded-CSR equality
-    reduction; ``u``/``v`` are the pane's deduped canonical edges."""
-    e = u.shape[0]
-    table = nbr_ops.init_table(num_vertices, max_deg, u.device)
-    both_src = torch.cat([u, v])
-    both_dst = torch.cat([v, u])
-    table = nbr_ops.insert_batch(
-        table,
-        both_src,
-        both_dst,
-        torch.ones((2 * e,), dtype=torch.bool, device=u.device),
-    )
-    rows_u, valid_u = nbr_ops.gather_rows(table, u)  # [E, D]
-    rows_v, valid_v = nbr_ops.gather_rows(table, v)
-    eq = (
-        (rows_u[:, :, None] == rows_v[:, None, :])
-        & valid_u[:, :, None]
-        & valid_v[:, None, :]
-    )
-    return eq.sum(dtype=torch.int64) // 3
+    """One pane's sum over edges |N(u) & N(v)| / 3 (int64 [], on u's
+    device); ``u``/``v`` are the pane's deduped canonical edges.  The
+    ``csr_triangles`` kernel over a single pane, its plain twin on CPU
+    tensors."""
+    ok = torch.ones((1, u.shape[0]), dtype=torch.bool, device=u.device)
+    return csr_triangles.csr_triangles(u.reshape(1, -1), v.reshape(1, -1), ok, num_vertices, max_deg)[0]
+
+
+def _superpane_canonical(pane_edges):
+    """One pane's edges for the masked-CSR count: deduped undirected
+    (lo, hi) pairs, self-loops dropped, ids compacted to the pane's vertex
+    set (the host prep of ``_pane_prepare``'s CSR path): ``(cu, cv,
+    num_vertices, max_degree)``, or None for a pane with no such edge."""
+    src, dst = pane_edges
+    if len(src) == 0:
+        return None
+    lo = np.minimum(src, dst)
+    hi = np.maximum(src, dst)
+    keep = lo != hi
+    pairs = _unique_pairs(lo[keep], hi[keep])
+    if len(pairs) == 0:
+        return None
+    u, v = pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
+    verts, inv = np.unique(np.concatenate([u, v]), return_inverse=True)
+    cu = inv[: len(u)].astype(np.int32)
+    cv = inv[len(u) :].astype(np.int32)
+    deg = np.bincount(np.concatenate([cu, cv]), minlength=len(verts))
+    return cu, cv, len(verts), int(deg.max())
+
+
+def _superpane_rows(prepped):
+    """A group's ``csr_triangles`` layout from its live panes'
+    ``_superpane_canonical`` outputs: numpy (u, v, ok) [rows, E_pad] and
+    (num_vertices, max_deg), rows, edges, vertex ids and degree bound each
+    bucketed to a power of two as the JAX package shares its compiled
+    shapes; rows past the live panes are fully masked."""
+    e_pad = pow2(max(len(p[0]) for p in prepped))
+    rows = pow2(len(prepped))
+    u = stack_rows([p[0] for p in prepped], rows, e_pad, np.int32)
+    v = stack_rows([p[1] for p in prepped], rows, e_pad, np.int32)
+    ok = row_mask([len(p[0]) for p in prepped], rows, e_pad)
+    return (u, v, ok), (pow2(max(p[2] for p in prepped)), pow2(max(p[3] for p in prepped)))
+
+
+def _superbatched_window_counts(panes, k: int, device: torch.device):
+    """(count, max_timestamp) per pane, up to ``k`` panes a ``csr_triangles``
+    launch (``_superpane_rows``)."""
+    # keep_empty: a pane with no edges still emits (0, max_timestamp)
+    for group in group_panes(iter(panes), k, keep_empty=True):
+        prepped = [_superpane_canonical((p.src, p.dst)) for p in group]
+        live = [i for i, pr in enumerate(prepped) if pr is not None]
+        counts = [0] * len(group)
+        if live:
+            arrays, (n_v, d_max) = _superpane_rows([prepped[i] for i in live])
+            out = csr_triangles.csr_triangles(*upload(arrays, device), n_v, d_max).tolist()
+            for row, i in enumerate(live):
+                counts[i] = out[row]
+        for i, pane in enumerate(group):
+            yield counts[i], pane.max_timestamp
 
 
 def window_triangles(
@@ -212,21 +272,44 @@ def window_triangles(
     the stream's device.
 
     Panes pipeline one deep: pane k+1 is uploaded and dispatched before
-    pane k's count is fetched.  ``slide_ms`` (a divisor of ``window_ms``)
-    counts sliding windows by pane-sharing (core/windows.sliding_panes).
+    pane k's count is fetched; the async and superbatch planes (module
+    docstring) take over when the config asks for them.  ``slide_ms`` (a
+    divisor of ``window_ms``) counts sliding windows by pane-sharing
+    (core/windows.sliding_panes).
     """
     validate_slide(window_ms, slide_ms)
-    if stream.cfg.async_windows > 0:
-        raise NotImplementedError(
-            "window_triangles: the asynchronous window pipeline "
-            "(cfg.async_windows > 0) is not ported yet"
-        )
-    if stream.cfg.superbatch > 1:
-        raise NotImplementedError(
-            "window_triangles: superbatch dispatch (cfg.superbatch > 1) is "
-            "not ported yet"
-        )
     device = stream.device
+    depth = async_exec.resolve_depth(stream.cfg)
+    if depth > 0 and stream.cfg.superbatch <= 1:
+        # the asynchronous window pipeline: pane preparation on the pack
+        # thread, uploads on the transfer thread, counts dispatched without
+        # waiting and read back through the completion queue in window order
+        def records_async() -> Iterator[tuple]:
+            def prepare(pane):
+                meta, arrays = _pane_prepare((pane.src, pane.dst), device)
+                return (pane.max_timestamp, meta), arrays
+
+            def dispatch(meta, arrays):
+                return _pane_dispatch(meta[1], arrays)
+
+            def finish(meta, handle):
+                return (_pane_triangle_finish(handle), meta[0])
+
+            yield from async_exec.pipelined(
+                windowed_panes(stream, window_ms, slide_ms), prepare, dispatch, finish, depth, device,
+                prefetch_depth=max(2, depth),
+            )
+
+        return OutputStream(records_async)
+
+    if stream.cfg.superbatch > 1:
+        # up to K panes counted by one masked-CSR launch
+        def records_sb() -> Iterator[tuple]:
+            yield from _superbatched_window_counts(
+                windowed_panes(stream, window_ms, slide_ms), stream.cfg.superbatch, device
+            )
+
+        return OutputStream(records_sb)
 
     def records() -> Iterator[tuple]:
         pending = None  # (handle, timestamp) of the previous pane

@@ -1,13 +1,17 @@
-"""Latency recording for the windowed planes.
+"""Latency recording and pipeline counters for the windowed planes.
 
-Port of ``WindowLatencyRecorder`` from ``gelly_streaming_tpu/utils/metrics.py``:
-close-to-emission samples in milliseconds, with nearest-rank percentiles.
+Port of ``WindowLatencyRecorder`` and the async pipeline's counters
+(``pipeline_add``, ``pipeline_high_water``, ``pipeline_stats``,
+``reset_pipeline_stats``) from ``gelly_streaming_tpu/utils/metrics.py``:
+close-to-emission samples in milliseconds with nearest-rank percentiles,
+and the occupancy of ``core/async_exec``'s stages.
 """
 
 from __future__ import annotations
 
 import collections
 import math
+import threading
 
 
 def nearest_rank(sorted_xs, p: float) -> float:
@@ -35,3 +39,67 @@ class WindowLatencyRecorder:
 
     def percentile(self, p: float) -> float:
         return nearest_rank(sorted(self.latencies_ms), p)
+
+
+# ---------------------------------------------------------------------------
+# Async window pipeline occupancy (port of the JAX package's pipeline
+# counters, ``gelly_streaming_tpu/utils/metrics.py:155-190``): bumped from
+# the pack, transfer, dispatch and drain threads at once, so every update
+# holds the lock.
+
+
+def _pipeline_zero() -> dict:
+    return {
+        # deepest completion queue seen (windows dispatched, not drained)
+        "pipeline_inflight_high_water": 0,
+        # seconds the pack / transfer threads waited on a full queue
+        "pipeline_pack_stall_s": 0.0,
+        "pipeline_transfer_stall_s": 0.0,
+        # seconds the dispatch thread waited for its next window, and of
+        # them the snapshot plane's build_buckets calls (their host read of
+        # the bucket counts blocks the dispatch thread)
+        "pipeline_dispatch_stall_s": 0.0,
+        "pipeline_dispatch_build_s": 0.0,
+        # seconds the completion-queue drain waited on the device
+        "pipeline_drain_stall_s": 0.0,
+        # deepest configured prefetch queue seen
+        "pipeline_prefetch_depth": 0,
+        "pipeline_windows_dispatched": 0,
+        "pipeline_windows_drained": 0,
+    }
+
+
+_PIPE_LOCK = threading.Lock()
+_PIPELINE = _pipeline_zero()  # guarded-by: _PIPE_LOCK
+
+
+def pipeline_add(key: str, amount: float) -> None:
+    """Accumulate a pipeline counter (thread-safe)."""
+    with _PIPE_LOCK:
+        _PIPELINE[key] += amount
+
+
+def pipeline_high_water(key: str, value: float) -> None:
+    """Raise a pipeline high-water mark to ``value`` if it is higher."""
+    with _PIPE_LOCK:
+        if value > _PIPELINE[key]:
+            _PIPELINE[key] = value
+
+
+def pipeline_stats() -> dict:
+    """The process-wide pipeline counters: in-flight high-water mark, stall
+    seconds by stage, prefetch depth, windows dispatched and drained.
+    Seconds are rounded to 0.1 ms."""
+    with _PIPE_LOCK:
+        out = dict(_PIPELINE)
+    for key in out:
+        if key.endswith("_s"):
+            out[key] = round(out[key], 4)
+    return out
+
+
+def reset_pipeline_stats() -> None:
+    """Zero the pipeline counters (before a measurement window)."""
+    global _PIPELINE
+    with _PIPE_LOCK:
+        _PIPELINE = _pipeline_zero()

@@ -1093,3 +1093,123 @@ def test_slice_and_graphsage_on_gpu_match_cpu(cuda_device):
         for (kc, ec), (kg, eg) in zip(wins_c, wins_g):
             np.testing.assert_array_equal(kc, kg)
             np.testing.assert_allclose(eg, ec, rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# csr_triangles: the masked-CSR count of K panes
+
+
+def _csr_rows(panes, dedup=True):
+    """[K, E_pad] int32 u, v and bool ok of each pane's canonical edges
+    (deduplicated unless ``dedup`` is False; self-loops dropped), ids as
+    given; (u, v, ok, num_vertices, max_deg) with max_deg a power of two
+    bounding every row."""
+    rows = []
+    for src, dst in panes:
+        lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+        keep = lo != hi
+        pairs = np.stack([lo[keep], hi[keep]], axis=1)
+        if dedup:
+            pairs = np.unique(pairs, axis=0)
+        rows.append(pairs)
+    e_pad = max(1, 1 << (max(len(r) for r in rows) - 1).bit_length())
+    k = len(rows)
+    u = np.zeros((k, e_pad), np.int32)
+    v = np.zeros((k, e_pad), np.int32)
+    ok = np.zeros((k, e_pad), bool)
+    n_v, d_max = 1, 1
+    for i, pairs in enumerate(rows):
+        u[i, : len(pairs)], v[i, : len(pairs)], ok[i, : len(pairs)] = pairs[:, 0], pairs[:, 1], True
+        if len(pairs):
+            n_v = max(n_v, int(pairs.max()) + 1)
+            d_max = max(d_max, int(np.bincount(pairs.ravel()).max()))
+    return u, v, ok, n_v, 1 << (d_max - 1).bit_length()
+
+
+def _csr_case(name, rng):
+    if name == "uniform":
+        return [(rng.integers(0, 300, 4000), rng.integers(0, 300, 4000)) for _ in range(4)]
+    if name == "padding_rows":  # an all-masked row and an empty pane among real ones
+        return [(rng.integers(0, 200, 3000), rng.integers(0, 200, 3000)), (np.zeros(0, int), np.zeros(0, int)),
+                (rng.integers(0, 90, 700), rng.integers(0, 90, 700)), (np.array([5]), np.array([5]))]
+    if name == "hub":  # a star, and two hubs sharing 1030 neighbours: rows past the warp's share
+        star = (np.zeros(1100, int), rng.integers(1, 3000, 1100))
+        shared = np.arange(10, 1040)
+        pair = (np.concatenate([np.full(1030, 1), np.full(1030, 2), [1]]), np.concatenate([shared, shared, [2]]))
+        return [star, pair, (rng.integers(0, 3000, 2000), rng.integers(0, 3000, 2000))]
+    if name == "wide_keys":  # ids past 2^16: (row, col) keys past 31 bits, sorted by column, then by row
+        ids = rng.choice(1 << 17, 3000, replace=False)
+        return [(ids[rng.integers(0, 3000, 6000)], ids[rng.integers(0, 3000, 6000)]) for _ in range(2)]
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["uniform", "padding_rows", "hub", "wide_keys"])
+@pytest.mark.parametrize("dedup", [True, False])
+def test_csr_triangles_kernel_matches_twin(cuda_device, name, dedup):
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+
+    u, v, ok, n_v, d = _csr_rows(_csr_case(name, np.random.default_rng(len(name))), dedup)
+    tu, tv, tok = (torch.from_numpy(a).to(cuda_device) for a in (u, v, ok))
+    before = ct.LAUNCHES["csr_triangles"]
+    got = ct.csr_triangles(tu, tv, tok, n_v, d)
+    assert ct.LAUNCHES["csr_triangles"] == before + 1
+    want = ct.csr_triangles_plain(tu, tv, tok, n_v, d)
+    assert got.dtype == torch.int64 and got.tolist() == want.tolist()
+    assert torch.equal(got, ct.csr_triangles(tu, tv, tok, n_v, d))  # repeatable
+    if name == "hub":
+        assert got[1].item() == 1030  # hubs 1 and 2 close a triangle with each shared neighbour
+
+
+def test_csr_triangles_kernel_counts_a_complete_graph(cuda_device):
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+
+    n = 200
+    a, b = np.triu_indices(n, 1)
+    u, v, ok, n_v, d = _csr_rows([(a, b)])
+    got = ct.csr_triangles(*(torch.from_numpy(x).to(cuda_device) for x in (u, v, ok)), n_v, d)
+    assert got.tolist() == [n * (n - 1) * (n - 2) // 6]
+
+
+@pytest.mark.parametrize("plane", [dict(async_windows=3), dict(superbatch=4), dict(superbatch=3, async_windows=2)])
+def test_async_and_superbatch_planes_on_gpu_match_cpu(cuda_device, plane):
+    """The windowed planes of the async pipeline and the superbatch groups
+    on the card: CC, bipartiteness, the degree summary (valued batches),
+    window_triangles and reduce_on_edges emit the CPU path's records."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeDirection
+    from gelly_streaming_tpu_torch.io.sources import _batched
+    from gelly_streaming_tpu_torch.library.bipartiteness import BipartitenessCheck
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistributionSummary
+    from gelly_streaming_tpu_torch.library.triangles import window_triangles
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+
+    rng = np.random.default_rng(11)
+    n = 12000
+    src, dst = rng.integers(0, 700, n), rng.integers(0, 700, n)
+    tim = np.sort(rng.integers(0, 9000, n))
+    val = rng.random(n).astype(np.float32)
+    cfg = StreamConfig(vertex_capacity=1 << 10, batch_size=1000, **plane)
+
+    def stream(dev):
+        return EdgeStream.from_batches(_batched(src, dst, val, tim, None, 1000, dev), cfg, device=dev)
+
+    def run(dev):
+        cc = [r[0].parent.cpu() for r in stream(dev).aggregate(ConnectedComponents(window_ms=1000)).collect()]
+        bip = [str(r[0]) for r in stream(dev).aggregate(BipartitenessCheck(window_ms=1000)).collect()]
+        deg = [r[0].cpu() for r in stream(dev).aggregate(DegreeDistributionSummary(window_ms=1000)).collect()]
+        tri = window_triangles(stream(dev), 1000).collect()
+        red = stream(dev).slice(1000, EdgeDirection.OUT).reduce_on_edges(lambda a, b: a + b).collect()
+        return cc, bip, deg, tri, red
+
+    before = ct.LAUNCHES["csr_triangles"]
+    gpu, cpu = run(cuda_device), run("cpu")
+    assert len(gpu[0]) == len(cpu[0]) == 9
+    assert all(torch.equal(a, b) for a, b in zip(gpu[0], cpu[0]))
+    assert gpu[1] == cpu[1]
+    assert all(torch.equal(a, b) for a, b in zip(gpu[2], cpu[2]))
+    assert gpu[3] == cpu[3] and any(c > 0 for c, _ in gpu[3])
+    assert gpu[4] == cpu[4] and len(gpu[4]) > 500
+    if "superbatch" in plane:
+        assert ct.LAUNCHES["csr_triangles"] >= before + 3

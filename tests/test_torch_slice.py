@@ -217,11 +217,13 @@ def test_refusals():
 
 
 def test_unported_planes_raise(monkeypatch):
-    """The asynchronous window pipeline (ROADMAP A.2) and the sharded plane
-    (A.8) raise NotImplementedError where the JAX package would take them."""
-    _, t = _streams(async_windows=2)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        t.slice(1000, TDir.OUT).reduce_on_edges(_reduce).collect()
+    """The asynchronous window pipeline is ported (it emits the JAX
+    package's records); the sharded plane (A.8) raises
+    NotImplementedError where the JAX package would take it."""
+    j, t = _streams(async_windows=2)
+    got = [(int(k), float(v)) for k, v in t.slice(1000, TDir.OUT).reduce_on_edges(_reduce).collect()]
+    assert got == [(int(k), float(v)) for k, v in j.slice(1000, JDir.OUT).reduce_on_edges(_reduce).collect()]
+    assert len(got) == 5
     _, t = _streams(num_shards=2)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="item 8"):
