@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
                           [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
-                          [--parent-sage-backward-cu PATH] [--earlier-csr-cu PATH]
+                          [--parent-sage-backward-cu PATH] [--parent-csr-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -166,9 +166,14 @@ and the superbatch plane, counts equal to the sync path and
 masked-CSR count of K panes) equal to its twin on every superbatch group;
 (d) ``csr_triangles`` alone on a held stream at the superbatch group, the
 sparse CSR window and phase 12's hub pane (counted through
-``window_triangles``' sync path and held against a scipy oracle), with its
-bytes bound, scratch, twin and ``torch.sparse.sampled_addmm`` as the
-library yardstick; (e) ``reduce_on_edges`` over 4 of phase 12's uniform
+``window_triangles``' sync path and alone, both held against a scipy
+oracle), with its bytes bound, the design figure (the lookups, their rate,
+the entry bytes), scratch, split by kernel, twin and
+``torch.sparse.sampled_addmm`` as the library yardstick; ``--parent-csr-cu``
+names 8ff7365's ``csr_triangles.cu``, driven through its three C calls
+around ``neighborhoods.cu``'s radix sort, equal to the current kernel and
+timed in turns with it (parent, current, current, parent) at the three
+shapes; (e) ``reduce_on_edges`` over 4 of phase 12's uniform
 panes, sync against async 2, records equal, and the dispatch stall that
 ``build_buckets``' host read of the bucket counts adds.
 
@@ -691,9 +696,13 @@ PARENT_SIGNATURES = {
     # F_out, out, chunk, chunks, partial sums, counts, stream; the backward's scratch bytes (F_in, F_out);
     # the backward: table, C, F_in, keys, nbrs, valid, K, D, z, dz, F_out, dw, db, chunk, chunks, partial
     # sums, counts, scratch, scratch bytes, stream
-    # (the first csr_triangles.cu: its own 4-bit radix sort, one C call) k, e, n_v; u, v, ok, k, e, n_v, out,
-    # scratch, scratch bytes, stream
-    "csr": {"csr_scratch_bytes": [_I, _I, _I], "csr_triangles_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _L, _P]},
+    # (8ff7365, binary search over the radix-sorted CSR) k, e, n_v; u, v, ok, k, e, n_v, shift, rows, cols,
+    # mask, stream; meta, n, mask, stream; u, v, ok, k, e, n_v, shift, rows, cols, meta, out, scratch, scratch
+    # bytes, stream
+    "csr": {"csr_scratch_bytes": [_I, _I, _I],
+            "csr_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+            "csr_prefix_mask_launch": [_P, _L, _P, _P],
+            "csr_count_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P]},
     "sage_backward": {
         "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sage_layer_backward_scratch_bytes": [_I, _I],
@@ -3102,7 +3111,7 @@ WIDE_WINDOWS = 16  # the CC bench's 50 batches of 2^21, cut to 16 windows for ti
 WIDE_WIN_EDGES = 1 << 21
 SB_K = 4
 SNAP_PANES = 4  # phase 12's uniform panes through reduce_on_edges
-CSR_REPS = {"group": 20, "csr_window": 20, "hub": 5}  # ~30-40 launches a call: under ~1000 held
+CSR_REPS = {"group": 20, "csr_window": 20, "hub": 5}  # the parent: ~16-26 launches a call, under ~1000 held
 
 
 def cc_window_stream(src, dst, t_ms, batch: int, cfg, dev):
@@ -3218,31 +3227,109 @@ def sampled_addmm_ms(dev, u, v, ok, n_v: int, want_total: int):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
 
 
-def earlier_csr_call(lib):
-    """The first csr_triangles.cu's one C call over ``lib`` (its own
-    scratch, as its wrapper made it): call(u, v, ok, n_v) -> int64 [K]."""
+def parent_csr_call(lib):
+    """8ff7365's csr_triangles.cu over ``lib``, driven as its wrapper drove
+    it: two (row, col) entries a slot, the repo's radix sort of
+    ``neighborhoods.cu`` (one sort of a fused row << cb | col key where it
+    fits 31 bits, else by column, the prefix mask, and stably by row), then
+    the bounds, binary-search and finish kernels.  call(u, v, ok, n_v) ->
+    int64 [K]; call.scratch_bytes(k, e, n_v) its device bytes beyond inputs
+    and output."""
     import torch
     from gelly_streaming_tpu_torch.ops import _cuda
 
+    nb = _cuda.library("neighborhoods.cu")
+
+    def shape(k, e, n_v):
+        cb = (n_v - 1).bit_length()
+        return 2 * k * e, cb if (k * n_v - 1).bit_length() + cb <= 31 else 0
+
+    def scratch_bytes(k, e, n_v):
+        n, _ = shape(k, e, n_v)
+        return int(lib.csr_scratch_bytes(k, e, n_v)) + 9 * n + 12 + int(nb.nb_scratch_bytes(n, 0))
+
     def call(u, v, ok, n_v):
         k, e = u.shape
-        out = torch.zeros((k,), dtype=torch.int64, device=u.device)
-        scratch = torch.empty((lib.csr_scratch_bytes(k, e, n_v),), dtype=torch.uint8, device=u.device)
-        _cuda.check(lib.csr_triangles_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, n_v, out.data_ptr(),
-                                             scratch.data_ptr(), scratch.numel(),
-                                             torch.cuda.current_stream(u.device).cuda_stream), "earlier csr_triangles")
+        dev = u.device
+        n, shift = shape(k, e, n_v)
+        out = torch.zeros((k,), dtype=torch.int64, device=dev)
+        rows = torch.empty((n,), dtype=torch.int32, device=dev)
+        cols = torch.empty((n,), dtype=torch.int32, device=dev)
+        mask = torch.empty((n,), dtype=torch.bool, device=dev)
+        meta = torch.empty((3,), dtype=torch.int32, device=dev)
+        sort_scratch = torch.empty((nb.nb_scratch_bytes(n, 0),), dtype=torch.uint8, device=dev)
+        scratch = torch.empty((lib.csr_scratch_bytes(k, e, n_v),), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ss = (sort_scratch.data_ptr(), sort_scratch.numel())
+
+        def sort(src, dst):
+            _cuda.check(nb.nb_sort_launch(src.data_ptr(), dst.data_ptr(), mask.data_ptr(), n, 0, *ss, stream),
+                        "parent nb_sort_launch")
+            _cuda.check(nb.nb_sorted_launch(n, 0, *ss, src.data_ptr(), dst.data_ptr(), None, meta.data_ptr(),
+                                            stream), "parent nb_sorted_launch")
+
+        _cuda.check(lib.csr_expand_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, n_v, shift,
+                                          rows.data_ptr(), cols.data_ptr(), mask.data_ptr(), stream), "parent expand")
+        if shift:
+            sort(rows, cols)
+        else:
+            sort(cols, rows)
+            _cuda.check(lib.csr_prefix_mask_launch(meta.data_ptr(), n, mask.data_ptr(), stream), "parent prefix mask")
+            sort(rows, cols)
+        _cuda.check(lib.csr_count_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, n_v, shift,
+                                         rows.data_ptr(), cols.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                                         scratch.data_ptr(), scratch.numel(), stream), "parent count")
         return out
 
+    call.scratch_bytes = scratch_bytes
     return call
 
 
-def csr_shape(dev, cpm, name: str, u, v, ok, n_v: int, d: int, twin: bool, earlier=None) -> dict:
+def csr_lookups(u, v, ok, n_v: int) -> int:
+    """The lookups the kernel's inputs need: the sum over valid slots of
+    min(d_u, d_v), d a row's length in its pane (both directions)."""
+    u, v, ok = (t.cpu().numpy() for t in (u, v, ok))
+    total = 0
+    for p in range(u.shape[0]):
+        a, b = u[p], v[p]
+        live = ok[p] & (a >= 0) & (a < n_v) & (b >= 0) & (b < n_v)
+        a, b = a[live].astype(np.int64), b[live].astype(np.int64)
+        deg = np.bincount(np.concatenate([a, b]), minlength=n_v)
+        total += int(np.minimum(deg[a], deg[b]).sum())
+    return total
+
+
+def csr_split(fn) -> dict:
+    """torch.profiler's device ms a call of each kernel and memset ``fn``
+    runs, over the calls the trace holds (up to 3), or {} where the
+    profiler fails."""
+    try:
+        rows = profiler_device_us(fn, 3)
+    except Exception as e:  # the profiler is a side measurement; report and go on
+        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+        return {}
+    rows = {k: v for k, v in rows.items() if not k.startswith(("aten::", "Activity Buffer"))}
+    if not rows:
+        return {}
+    # the calls the trace holds: every kernel and memset here runs at least once a call
+    calls = min(n for _, n in rows.values())
+    split = {}
+    for key, (us, n) in rows.items():
+        short = re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0].strip()
+        split[short] = round(split.get(short, 0.0) + us * n / calls / 1e3, 5)
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def csr_shape(dev, cpm, name: str, u, v, ok, n_v: int, d: int, twin: bool, parent=None) -> dict:
     """csr_triangles at one shape: device-only ms on a held stream, the host
-    enqueue, back-to-back events, the bytes bound, its scratch; with
-    ``twin`` the plain twin's time and its equality; with ``earlier`` (an
-    ``earlier_csr_call``) that version's counts and its device ms in turns
-    with the current (earlier, current, current, earlier)."""
+    enqueue, back-to-back events, the bytes bound, the design figure (the
+    lookups, their rate, the entry bytes), its scratch and its split by
+    kernel; with ``twin`` the plain twin's time and its equality; with
+    ``parent`` (a ``parent_csr_call``) that version's counts, scratch and
+    split, and its device ms in turns with the current (parent, current,
+    current, parent)."""
     import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
     from gelly_streaming_tpu_torch.ops import csr_triangles as ct
 
     k, e = u.shape
@@ -3255,44 +3342,46 @@ def csr_shape(dev, cpm, name: str, u, v, ok, n_v: int, d: int, twin: bool, earli
         plain_ms = cuda_ms(lambda: ct.csr_triangles_plain(u, v, ok, n_v, d), 1, warmup=0)
         if err:
             raise RuntimeError(f"csr_triangles {name}: kernel {got.tolist()} != twin {want.tolist()}")
+    scratch = ct.scratch_bytes(k, e, n_v)
+    if scratch != _cuda.library("csr_triangles.cu").csr_scratch_bytes(k, e, n_v):
+        raise RuntimeError(f"csr_triangles {name}: plan's scratch {scratch} != csr_scratch_bytes")
     d_ms, h_us = device_ms(lambda: ct.csr_triangles(u, v, ok, n_v, d), CSR_REPS[name], cpm)
     e_valid = int(ok.sum())
+    lookups = csr_lookups(u, v, ok, n_v)
     bound_ms = (9 * k * e + 8 * k) / HBM_BYTES_PER_S * 1e3  # u, v, ok read once, K int64 counts written
     r = {"k": k, "e_pad": e, "n_v": n_v, "d": d, "edges": e_valid, "counts": got.tolist(),
          "device_ms": d_ms, "host_us": h_us, "ms": cuda_ms(lambda: ct.csr_triangles(u, v, ok, n_v, d), 5),
-         "bound_ms": bound_ms, "scratch_bytes": ct.scratch_bytes(k, e, n_v), "plain_ms": plain_ms, "err": err}
-    if earlier is not None:
-        prev = earlier(u, v, ok, n_v)
+         "bound_ms": bound_ms, "scratch_bytes": scratch, "plain_ms": plain_ms, "err": err,
+         "lookups": lookups, "lookups_per_s": lookups / (d_ms * 1e-3),
+         # two 4-byte entries a valid edge written; each row read once for its lookup, one entry a lookup
+         "entry_bytes_written": 8 * e_valid, "entry_bytes_read_at_least": 4 * (2 * e_valid + lookups)}
+    if parent is not None:
+        prev = parent(u, v, ok, n_v)
         if not torch.equal(prev, got):
-            raise RuntimeError(f"csr_triangles {name}: earlier version {prev.tolist()} != {got.tolist()}")
-        calls = {"earlier": lambda: earlier(u, v, ok, n_v), "current": lambda: ct.csr_triangles(u, v, ok, n_v, d)}
-        r["turns"] = [(w, device_ms(calls[w], CSR_REPS[name], cpm)[0]) for w in ("earlier", "current", "current",
-                                                                                 "earlier")]
-        log(f"  csr_triangles {name}, device ms in turns with the earlier version: {r['turns']}")
-    try:  # the call's split by kernel (the profiler is a side measurement)
-        rows = profiler_device_us(lambda: ct.csr_triangles(u, v, ok, n_v, d), 3)
-        split = {}
-        for key, (us, calls) in rows.items():
-            if key.startswith(("aten::", "Activity Buffer")):
-                continue
-            short = re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0].strip()
-            split[short] = round(split.get(short, 0.0) + us * calls / 3 / 1e3, 5)
-        r["split_ms"] = dict(sorted(split.items(), key=lambda kv: -kv[1]))
-        log(f"  csr_triangles {name} by kernel (torch.profiler, ms a call): {r['split_ms']}")
-    except Exception as e:  # the profiler is a side measurement; report and go on
-        log(f"  torch.profiler failed: {type(e).__name__}: {e}")
+            raise RuntimeError(f"csr_triangles {name}: parent version {prev.tolist()} != {got.tolist()}")
+        calls = {"parent": lambda: parent(u, v, ok, n_v), "current": lambda: ct.csr_triangles(u, v, ok, n_v, d)}
+        r["turns"] = [(w, device_ms(calls[w], CSR_REPS[name], cpm)[0]) for w in ("parent", "current", "current",
+                                                                                 "parent")]
+        r["parent_scratch_bytes"] = parent.scratch_bytes(k, e, n_v)
+        r["parent_split_ms"] = csr_split(calls["parent"])
+        log(f"  csr_triangles {name}, device ms in turns with the parent (8ff7365): {r['turns']}; parent scratch "
+            f"{r['parent_scratch_bytes']} B; parent by kernel (torch.profiler, ms a call): {r['parent_split_ms']}")
+    r["split_ms"] = csr_split(lambda: ct.csr_triangles(u, v, ok, n_v, d))
+    log(f"  csr_triangles {name} by kernel (torch.profiler, ms a call): {r['split_ms']}")
     log(f"  csr_triangles {name} (K={k}, E_pad={e}, {e_valid} edges, n_v={n_v}, D={d}): device {d_ms:.5f} ms "
         f"({d_ms / bound_ms:.1f}x its bound {bound_ms:.6f} ms, bytes), host enqueue {h_us:.2f} us, back-to-back "
-        f"{r['ms']:.5f} ms, scratch {r['scratch_bytes']} B, plain twin "
-        f"{'-' if plain_ms is None else f'{plain_ms:.3f} ms'}; counts {got.tolist()}")
+        f"{r['ms']:.5f} ms, scratch {scratch} B, plain twin {'-' if plain_ms is None else f'{plain_ms:.3f} ms'}; "
+        f"design figure (not the bound): {lookups} lookups (sum of min(d_u, d_v)), {r['lookups_per_s']:.6g} "
+        f"lookups/s, entry bytes written {r['entry_bytes_written']}, read >= {r['entry_bytes_read_at_least']}; "
+        f"counts {got.tolist()}")
     torch.cuda.synchronize()
     return r
 
 
-def phase_async(dev, cpm, tri_stream, host_panes, expected, earlier_csr=None) -> dict:
+def phase_async(dev, cpm, tri_stream, host_panes, expected, parent_csr=None) -> dict:
     """Phase 14: the async window pipeline and the superbatch planes on the
-    card (module docstring), and csr_triangles (``earlier_csr``: an
-    ``earlier_csr_call`` timed in turns with it in (d))."""
+    card (module docstring), and csr_triangles (``parent_csr``: a
+    ``parent_csr_call`` timed in turns with it in (d))."""
     import dataclasses
 
     import torch
@@ -3388,7 +3477,7 @@ def phase_async(dev, cpm, tri_stream, host_panes, expected, earlier_csr=None) ->
 
     log("  (d) csr_triangles alone, device only on a held stream")
     (u, v, ok), n_v, d = groups[0]
-    shapes = {"group": csr_shape(dev, cpm, "group", u, v, ok, n_v, d, True, earlier_csr)}
+    shapes = {"group": csr_shape(dev, cpm, "group", u, v, ok, n_v, d, True, parent_csr)}
     lib_ms, why = sampled_addmm_ms(dev, u, v, ok, n_v, sum(shapes["group"]["counts"]))
     log(f"  library call at the group: torch.sparse.sampled_addmm over the {u.shape[0]} panes' block-diagonal "
         f"adjacency ({u.shape[0] * n_v} rows): " + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"))
@@ -3398,7 +3487,7 @@ def phase_async(dev, cpm, tri_stream, host_panes, expected, earlier_csr=None) ->
     cu, cv = to_dev((cu[None], cv[None]), dev)
     ones = torch.ones(cu.shape, dtype=torch.bool, device=dev)
     d_csr = 1 << (meta[2] - 1).bit_length()
-    shapes["csr_window"] = csr_shape(dev, cpm, "csr_window", cu, cv, ones, meta[1], d_csr, True, earlier_csr)
+    shapes["csr_window"] = csr_shape(dev, cpm, "csr_window", cu, cv, ones, meta[1], d_csr, True, parent_csr)
     lib_csr, why_csr = sampled_addmm_ms(dev, cu, cv, ones, meta[1], shapes["csr_window"]["counts"][0])
     log("  library call at the CSR window: " + (f"{lib_csr:.4f} ms" if lib_csr is not None else f"none ({why_csr})"))
     # phase 12's hub pane through window_triangles' sync path
@@ -3422,8 +3511,10 @@ def phase_async(dev, cpm, tri_stream, host_panes, expected, earlier_csr=None) ->
     meta, (cu, cv) = tri._pane_prepare((hs, hd), dev)
     cu, cv = to_dev((cu[None], cv[None]), dev)
     shapes["hub"] = csr_shape(dev, cpm, "hub", cu, cv, torch.ones(cu.shape, dtype=torch.bool, device=dev),
-                              meta[1], 1 << (meta[2] - 1).bit_length(), False, earlier_csr)
+                              meta[1], 1 << (meta[2] - 1).bit_length(), False, parent_csr)
     shapes["hub"]["oracle"] = oracle
+    if shapes["hub"]["counts"] != [oracle]:
+        raise RuntimeError(f"hub pane alone: csr_triangles {shapes['hub']['counts']} != the oracle's {oracle}")
     res["csr"] = {"shapes": shapes, "library_ms": lib_ms, "library_csr_window_ms": lib_csr, "err": err,
                   "hub_launches": hub_launches}
 
@@ -3480,11 +3571,11 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-neighborhoods-cu", default=None,
                         help="neighborhoods.cu of the commit before the radix sort (its C interface): "
                              "torch.sort, then its count and scatter, timed in turns with build_buckets")
-    parser.add_argument("--earlier-csr-cu", default=None,
-                        help="a csr_triangles.cu with the one-call C interface (csr_triangles_launch, its own 4-bit "
-                             "radix sort): timed in turns with the current csr_triangles in phase 14 (d)")
+    parser.add_argument("--parent-csr-cu", default=None,
+                        help="csr_triangles.cu of the commit before the lookup redesign (8ff7365; its three C calls "
+                             "around neighborhoods.cu's radix sort): timed in turns with csr_triangles in phase 14 (d)")
     args = parser.parse_args(argv)
-    earlier_csr_cu = os.path.abspath(args.earlier_csr_cu) if args.earlier_csr_cu else None
+    parent_csr_cu = os.path.abspath(args.parent_csr_cu) if args.parent_csr_cu else None
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     parent_backward_cu = os.path.abspath(args.parent_sage_backward_cu) if args.parent_sage_backward_cu else None
     parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
@@ -3770,7 +3861,7 @@ def main(argv=None) -> int:
         turned = phase_turns(dev, cpm, parent_cu, fold_split_cu, dd, cc, bp)
     log("phase 14: the async window pipeline, the superbatch planes and csr_triangles on the card")
     asy = phase_async(dev, cpm, stream, host_panes, expected,
-                      earlier_csr_call(load_baseline(earlier_csr_cu, PARENT_SIGNATURES["csr"])) if earlier_csr_cu
+                      parent_csr_call(load_baseline(parent_csr_cu, PARENT_SIGNATURES["csr"])) if parent_csr_cu
                       else None)
 
     kernels = [

@@ -111,17 +111,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "nb_sorted_launch": [_I, _I, _P, _L, _P, _P, _P, _P, _P],
     },
     "csr_triangles.cu": {
-        # k, e, n_v: the scratch bytes of csr_count_launch
+        # k, e, n_v: the scratch bytes of csr_triangles_launch
         "csr_scratch_bytes": [_I, _I, _I],
-        # u, v, ok, k, e, n_v, shift, rows out, cols out, mask out, stream:
-        # two (row, col) entries a slot
-        "csr_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-        # meta, n, mask, stream: mask[i] = i < meta[1]
-        "csr_prefix_mask_launch": [_P, _L, _P, _P],
-        # u, v, ok, k, e, n_v, shift, sorted rows, sorted cols, meta, out
-        # int64[k], scratch, scratch bytes, stream: the bounds, intersect
-        # and finish kernels
-        "csr_count_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P],
+        # u, v, ok, k, e, n_v, lookup bytes, out int64[k], scratch, scratch
+        # bytes, stream: a memset, the degree, scan, scatter and count kernels
+        "csr_triangles_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
     },
     "sage.cu": {
         # table, C, F_in, keys, nbrs, valid, K, D, w, bias, F_out, out rows,

@@ -11,22 +11,24 @@ dense kernels' vertex bound).  For each pane k, over its ``ok`` slots
 with N the adjacency of the pane's ``ok`` edges in both directions: each
 triangle is counted once per its three edges.
 
-``csr_triangles`` launches ``csrc/csr_triangles.cu`` on CUDA tensors: the
-panes' directed edges are written as (row, col) entries, ordered by the
-port's radix sort of ``csrc/neighborhoods.cu`` (one sort on a fused key
-where it fits 31 bits, else by column and then stably by row) into CSR
-rows, and each edge's shorter row is binary-searched in its longer one;
-no [E, D, D] tensor and no [n_v, D] table.  On CPU tensors it runs
-``csr_triangles_plain``, the JAX functions' own form: the neighbor table
-of ``ops/neighbors`` and the masked [E, D, D] equality reduction, chunked
-over edges so that ``[chunk, D, D]`` stays under ``TWIN_CHUNK_BYTES``.
-Sums are int64 (the JAX package sums in int32, so parity holds below
-2^31).  ``LAUNCHES`` counts kernel launches.
+``csr_triangles`` launches ``csrc/csr_triangles.cu`` on CUDA tensors,
+one C call: the panes' rows are counted, scanned into offsets and filled
+with each edge's two directed entries (no sort: a row's order does not
+matter), each edge given to the endpoint with the longer row; each such
+owner stages its row in shared memory (a warp's filter and hash, or a
+block's bitmap over the pane's ids) and streams the rows of the edges it
+owns against it, min(d_u, d_v) lookups an edge; no [E, D, D] tensor and no
+[n_v, D] table.  ``plan`` gives the call's shared-memory lookup and scratch.  On CPU tensors
+it runs ``csr_triangles_plain``, the JAX functions' own form: the neighbor
+table of ``ops/neighbors`` and the masked [E, D, D] equality reduction,
+chunked over edges so that ``[chunk, D, D]`` stays under
+``TWIN_CHUNK_BYTES``.  Sums are int64 (the JAX package sums in int32, so
+parity holds below 2^31).  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -34,8 +36,14 @@ from gelly_streaming_tpu_torch.ops import _cuda
 from gelly_streaming_tpu_torch.ops import neighbors as nbr_ops
 
 _SOURCE = "csr_triangles.cu"
-_SORT_SOURCE = "neighborhoods.cu"  # the port's stable radix sort
 TWIN_CHUNK_BYTES = 1 << 28  # the twin's [chunk, D, D] bool intermediate
+# csrc/csr_triangles.cu's constants
+WARP_ROW = 128  # rows up to this length: a warp's filter and hash; longer: a block's bitmap
+FILTER_BITS = 1 << 14  # a warp's filter (exact where the pane's ids fit it)
+LOOKUP_MIN = 16 * (FILTER_BITS // 8 + 2 * WARP_ROW * 8)  # 16 warps: a filter and a (id, count) hash each
+LOOKUP_CAP = 192 * 1024  # shared memory a block's lookup takes at most
+TILE_ROWS = 2048  # rows a scan tile
+CONTROL_WORDS = 16
 
 # kernel launches since the last reset_launches() (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {"csr_triangles": 0}
@@ -85,21 +93,41 @@ def csr_triangles_plain(u, v, ok, num_vertices: int, max_deg: int) -> torch.Tens
     return out
 
 
-def _plan(k: int, e: int, num_vertices: int):
-    """(entries, shift): two entries a slot; shift the bits of
-    num_vertices - 1 when (row << shift | col) fits 31 bits (one sort),
-    else 0 (a sort by column, then by row)."""
-    cb = (num_vertices - 1).bit_length()
-    return 2 * k * e, cb if (k * num_vertices - 1).bit_length() + cb <= 31 else 0
+class Plan(NamedTuple):
+    """One call's layout (``csrc/csr_triangles.cu``'s, mirrored)."""
+
+    lookup_bytes: int  # the count kernel's dynamic shared memory
+    bitmap_passes: int  # passes over id ranges of a long row's bitmap
+    count_passes: int  # the same for a long row with a repeated neighbour (32-bit counts)
+    scratch_bytes: int  # the device bytes beyond inputs and output
+
+
+def _up(x: int) -> int:
+    return (x + 255) & ~255
+
+
+def plan(k: int, e: int, num_vertices: int) -> Plan:
+    """The shared-memory lookup and the scratch of one call over ``k`` panes
+    of ``e`` slots with ids in [0, ``num_vertices``): the lookup holds every
+    warp's filter and hash (``LOOKUP_MIN``) and a long row's bitmap of the
+    pane's ids where it fits under ``LOOKUP_CAP``, else that bitmap goes in
+    passes; the
+    scratch is the zeroed counters (row degrees, owned counts, 64-bit owned
+    work, scan tile states, K sums, control words), the row offsets, the
+    long-row list and its chunks' starts, and two int32 entries a slot, each
+    piece 256-byte aligned (``csr_scratch_bytes``, which checks it)."""
+    rows, entries = k * num_vertices, 2 * k * e
+    lookup = min(LOOKUP_CAP, max(LOOKUP_MIN, -(-num_vertices // 128) * 16))
+    max_big = min(rows, entries // (WARP_ROW + 1)) + 1
+    tiles = -(-rows // TILE_ROWS)
+    zeroed = _up(4 * rows) * 2 + _up(8 * rows) + _up(8 * tiles) + _up(8 * k) + _up(4 * CONTROL_WORDS)
+    return Plan(lookup, -(-num_vertices // (8 * lookup)), -(-num_vertices // (lookup // 4)),
+                zeroed + _up(4 * (rows + 1)) + _up(4 * max_big) + _up(4 * (max_big + 1)) + _up(4 * entries))
 
 
 def scratch_bytes(k: int, e: int, num_vertices: int) -> int:
-    """The device bytes one call takes beyond its inputs and output: the
-    count's scratch (``csr_scratch_bytes``), the entries (int32 rows and
-    cols, bool mask) and the sort's scratch (builds the libraries)."""
-    n, _shift = _plan(k, e, num_vertices)
-    return (int(_cuda.library(_SOURCE).csr_scratch_bytes(k, e, num_vertices)) + 9 * n + 12
-            + int(_cuda.library(_SORT_SOURCE).nb_scratch_bytes(n, 0)))
+    """The device bytes one call takes beyond its inputs and output."""
+    return plan(k, e, num_vertices).scratch_bytes
 
 
 def csr_triangles(u, v, ok, num_vertices: int, max_deg: int) -> torch.Tensor:
@@ -117,36 +145,13 @@ def csr_triangles(u, v, ok, num_vertices: int, max_deg: int) -> torch.Tensor:
         raise ValueError(f"no csr_triangles kernel for device {u.device}")
     k, e = u.shape
     dev = u.device
-    out = torch.zeros((k,), dtype=torch.int64, device=dev)
     if k == 0 or e == 0:
-        return out
-    lib, nb = _cuda.library(_SOURCE), _cuda.library(_SORT_SOURCE)
-    n, shift = _plan(k, e, num_vertices)
-    rows = torch.empty((n,), dtype=torch.int32, device=dev)
-    cols = torch.empty((n,), dtype=torch.int32, device=dev)
-    mask = torch.empty((n,), dtype=torch.bool, device=dev)
-    meta = torch.empty((3,), dtype=torch.int32, device=dev)
-    sort_scratch = torch.empty((nb.nb_scratch_bytes(n, 0),), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((lib.csr_scratch_bytes(k, e, num_vertices),), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ss = (sort_scratch.data_ptr(), sort_scratch.numel())
-
-    def sort(src, dst):  # stable by src, the sorted rows written back over src and dst
-        _cuda.check(nb.nb_sort_launch(src.data_ptr(), dst.data_ptr(), mask.data_ptr(), n, 0, *ss, stream),
-                    "nb_sort_launch")
-        _cuda.check(nb.nb_sorted_launch(n, 0, *ss, src.data_ptr(), dst.data_ptr(), None, meta.data_ptr(), stream),
-                    "nb_sorted_launch")
-
-    _cuda.check(lib.csr_expand_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, num_vertices, shift,
-                                      rows.data_ptr(), cols.data_ptr(), mask.data_ptr(), stream), "csr_expand")
-    if shift:
-        sort(rows, cols)
-    else:
-        sort(cols, rows)
-        _cuda.check(lib.csr_prefix_mask_launch(meta.data_ptr(), n, mask.data_ptr(), stream), "csr_prefix_mask")
-        sort(rows, cols)
-    _cuda.check(lib.csr_count_launch(u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, num_vertices, shift,
-                                     rows.data_ptr(), cols.data_ptr(), meta.data_ptr(), out.data_ptr(),
-                                     scratch.data_ptr(), scratch.numel(), stream), "csr_count")
+        return torch.zeros((k,), dtype=torch.int64, device=dev)
+    p = plan(k, e, num_vertices)
+    out = torch.empty((k,), dtype=torch.int64, device=dev)
+    scratch = torch.empty((p.scratch_bytes,), dtype=torch.uint8, device=dev)
+    _cuda.check(_cuda.library(_SOURCE).csr_triangles_launch(
+        u.data_ptr(), v.data_ptr(), ok.data_ptr(), k, e, num_vertices, p.lookup_bytes, out.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), torch.cuda.current_stream(dev).cuda_stream), "csr_triangles")
     LAUNCHES["csr_triangles"] += 1
     return out

@@ -1099,15 +1099,15 @@ def test_slice_and_graphsage_on_gpu_match_cpu(cuda_device):
 # csr_triangles: the masked-CSR count of K panes
 
 
-def _csr_rows(panes, dedup=True):
+def _csr_rows(panes, dedup=True, loops=False):
     """[K, E_pad] int32 u, v and bool ok of each pane's canonical edges
-    (deduplicated unless ``dedup`` is False; self-loops dropped), ids as
-    given; (u, v, ok, num_vertices, max_deg) with max_deg a power of two
-    bounding every row."""
+    (deduplicated unless ``dedup`` is False; self-loops dropped unless
+    ``loops``), ids as given; (u, v, ok, num_vertices, max_deg) with
+    max_deg a power of two bounding every row."""
     rows = []
     for src, dst in panes:
         lo, hi = np.minimum(src, dst), np.maximum(src, dst)
-        keep = lo != hi
+        keep = (lo != hi) | loops
         pairs = np.stack([lo[keep], hi[keep]], axis=1)
         if dedup:
             pairs = np.unique(pairs, axis=0)
@@ -1137,18 +1137,44 @@ def _csr_case(name, rng):
         shared = np.arange(10, 1040)
         pair = (np.concatenate([np.full(1030, 1), np.full(1030, 2), [1]]), np.concatenate([shared, shared, [2]]))
         return [star, pair, (rng.integers(0, 3000, 2000), rng.integers(0, 3000, 2000))]
-    if name == "wide_keys":  # ids past 2^16: (row, col) keys past 31 bits, sorted by column, then by row
+    if name == "wide_keys":  # ids past 2^16 (the parent's (row, col) keys past 31 bits)
         ids = rng.choice(1 << 17, 3000, replace=False)
         return [(ids[rng.integers(0, 3000, 6000)], ids[rng.integers(0, 3000, 6000)]) for _ in range(2)]
+    if name == "self_loops":  # self-loop slots beside real edges, on short rows and on a long one (a block's)
+        loops = rng.integers(0, 300, 60)
+        star = np.arange(1, 400)
+        return [(np.concatenate([rng.integers(0, 300, 4000), loops]), np.concatenate([rng.integers(0, 300, 4000),
+                                                                                      loops])),
+                (np.concatenate([np.zeros(399, int), [0, 0, 7], rng.integers(1, 400, 600)]),
+                 np.concatenate([star, [0, 0, 7], rng.integers(1, 400, 600)]))]
+    if name == "multiplicity":  # a triangle's edges 300, 270 and 260 times; a long row past kWarpRow beside them
+        tri = [(1, 2)] * 300 + [(2, 3)] * 270 + [(1, 3)] * 260 + [(1, 3 + i) for i in range(1, 200)]
+        tri += [(3 + i, 4 + i) for i in range(1, 150)] * 2
+        a, b = np.array(tri).T
+        return [(a, b), (rng.integers(0, 60, 900), rng.integers(0, 60, 900))]
+    if name == "wide_ids":  # ids past the block lookup's reach (8 * 192 KB bits): its bitmap goes in passes
+        ids = np.sort(rng.choice(2_000_000, 600, replace=False))
+        ids[-1] = 1_999_999
+        ring = np.arange(1, 200)
+        return [(np.concatenate([np.full(200, ids[0]), ids[ring], ids[rng.integers(1, 600, 3000)]]),
+                 np.concatenate([ids[1:201], ids[ring + 1], ids[rng.integers(1, 600, 3000)]]))]
+    if name == "sixteen_panes":  # K = 16 panes of uneven sizes, one empty
+        sizes = [0, 3, 40, 5000, 700, 12, 2000, 90, 4000, 1, 300, 64, 2500, 150, 800, 7]
+        return [(rng.integers(0, max(2, n // 4), n), rng.integers(0, max(2, n // 4), n)) for n in sizes]
+    if name == "hub_chunks":  # a hub whose neighbours have long rows: its owned slots span many blocks
+        nbrs = np.arange(1, 1001)
+        a, b = rng.integers(1, 1001, 70000), rng.integers(1, 1001, 70000)
+        return [(np.concatenate([np.zeros(1000, int), a]), np.concatenate([nbrs, b]))]
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name", ["uniform", "padding_rows", "hub", "wide_keys"])
+@pytest.mark.parametrize("name", ["uniform", "padding_rows", "hub", "wide_keys", "self_loops", "multiplicity",
+                                  "wide_ids", "sixteen_panes", "hub_chunks"])
 @pytest.mark.parametrize("dedup", [True, False])
 def test_csr_triangles_kernel_matches_twin(cuda_device, name, dedup):
     from gelly_streaming_tpu_torch.ops import csr_triangles as ct
 
-    u, v, ok, n_v, d = _csr_rows(_csr_case(name, np.random.default_rng(len(name))), dedup)
+    u, v, ok, n_v, d = _csr_rows(_csr_case(name, np.random.default_rng(len(name))), dedup, loops=name == "self_loops")
     tu, tv, tok = (torch.from_numpy(a).to(cuda_device) for a in (u, v, ok))
     before = ct.LAUNCHES["csr_triangles"]
     got = ct.csr_triangles(tu, tv, tok, n_v, d)
@@ -1158,6 +1184,22 @@ def test_csr_triangles_kernel_matches_twin(cuda_device, name, dedup):
     assert torch.equal(got, ct.csr_triangles(tu, tv, tok, n_v, d))  # repeatable
     if name == "hub":
         assert got[1].item() == 1030  # hubs 1 and 2 close a triangle with each shared neighbour
+    if name == "multiplicity" and not dedup:
+        assert got[0].item() >= 300 * 270 * 260  # the triangle (1, 2, 3), each edge a multiset
+    plan = ct.plan(*u.shape, n_v)
+    if name == "wide_ids":
+        assert plan.bitmap_passes > 1 and d > ct.WARP_ROW
+    if name == "hub_chunks":
+        assert d > ct.WARP_ROW
+
+
+@pytest.mark.parametrize("k,e,n_v", [(4, 1 << 17, 4096), (1, 32768, 11941), (1, 1 << 20, 175957),
+                                     (1, 4096, 2_000_000), (16, 8192, 1250), (3, 5, 1)])
+def test_csr_plan_equals_the_kernel_scratch(cuda_device, k, e, n_v):
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import csr_triangles as ct
+
+    assert ct.scratch_bytes(k, e, n_v) == _cuda.library("csr_triangles.cu").csr_scratch_bytes(k, e, n_v)
 
 
 def test_csr_triangles_kernel_counts_a_complete_graph(cuda_device):
