@@ -177,6 +177,27 @@ shapes; (e) ``reduce_on_edges`` over 4 of phase 12's uniform
 panes, sync against async 2, records equal, and the dispatch stall that
 ``build_buckets``' host read of the bucket counts adds.
 
+Phase 15 drives the streaming ``ExactTriangleCount``: (a) block mode over a
+Watts-Strogatz small world (n = 2^20, ring degree 16, rewiring 0.1, seed
+5: 8,388,608 shuffled edges) through ``EdgeStream.from_arrays(...)`` at C
+= 2^20, D = 64, batches of 2^16: no row overflows (``dropped == 0``), the
+final per-vertex and global counts equal scipy's (A @ A) * A exactly, the
+first 4 batches' blocks equal the twin's on the card; edges/s and
+records/s end to end, the fold of one batch on a held stream (each call on
+its own copy of the state) beside its bytes bound, the emission on the
+card against the JAX package's host diff of the whole counter vector, and
+the device's idle share of one run by torch.profiler; (b) block mode over
+Graph500's Kronecker generator (scale 18, edge factor 16, A, B, C = 0.57,
+0.19, 0.19, seed 6: duplicates and self-loops) at C = 2^18, D = 64, where
+hub rows overflow (``dropped > 0``): the state and blocks equal the
+twin's after each of the first 16 batches (2^20 edges; the twin's time cuts
+the rest), the same figures as (a); (c) trace mode over (a)'s first 2^16
+edges in batches of 2^12: every record and the final state equal the
+twin's.  On the card the twins replay their steps from a CUDA graph (the
+same ops, without the host's launch cost).  Both kernels
+(``csrc/exact_triangles.cu``) must launch once a batch, and the wrappers
+call no twin.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -2596,18 +2617,20 @@ def step_grads_err(params, args) -> tuple:
     return rel, worst
 
 
-def train_profile(fn, reps: int):
+def train_profile(fn, reps: int, warmup: bool = True):
     """(device busy ms per call of ``fn`` by torch.profiler, its top six
     device rows as (name, ms per call)); (None, []) if the profiler
     fails.  Only the device's own rows (kernels, copies, sets) count: the
     autograd and optimizer ranges, and their annotations on the device's
-    timeline, also carry the device time of what they launch."""
+    timeline, also carry the device time of what they launch.  ``fn``
+    runs once before the profiled calls unless ``warmup`` is False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        fn()
+        if warmup:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -3551,6 +3574,382 @@ def phase_async(dev, cpm, tri_stream, host_panes, expected, parent_csr=None) -> 
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the streaming ExactTriangleCount
+
+ET_VERTICES = 1 << 20  # (a): the CC bench's width (bench.py:2190-2192)
+ET_RING_K, ET_REWIRE = 16, 0.1  # Watts-Strogatz ring degree and rewiring probability
+ET_DEGREE = 64
+ET_BATCH = 1 << 16
+ET_TWIN_BATCHES = 4  # (a): the first batches' blocks held against the twin
+ET_RMAT_SCALE, ET_RMAT_EDGE_FACTOR = 18, 16  # (b): Graph500's Kronecker generator
+ET_RMAT_ABC = (0.57, 0.19, 0.19)
+ET_RMAT_TWIN_EDGES = 1 << 20  # (b): the prefix held against the twin batch by batch (cut for the twin's time)
+ET_TRACE_EDGES, ET_TRACE_BATCH = 1 << 16, 1 << 12  # (c)
+ET_REPS = 3  # held-stream calls, each on its own copy of the state (264 MB at (a))
+
+
+def watts_strogatz(n: int, k: int, p: float, rng):
+    """A Watts-Strogatz small world (Watts & Strogatz, Nature 1998): the
+    ring lattice joining each vertex to its k/2 successors, each edge's far
+    end rewired with probability p to a uniform vertex other than its
+    near end, then the n k / 2 edges shuffled.  Rewiring may repeat an
+    edge; the count ignores repeats."""
+    near = np.repeat(np.arange(n, dtype=np.int64), k // 2)
+    far = (near + np.tile(np.arange(1, k // 2 + 1), n)) % n
+    rewire = rng.random(len(near)) < p
+    w = rng.integers(0, n - 1, int(rewire.sum()))
+    far[rewire] = w + (w >= near[rewire])
+    order = rng.permutation(len(near))
+    return near[order].astype(np.int32), far[order].astype(np.int32)
+
+
+def rmat_edges(scale: int, edge_factor: int, abc, rng):
+    """Graph500's Kronecker (R-MAT) generator: each of the edge_factor
+    2^scale edges picks a quadrant per bit with probabilities A, B, C and
+    1 - A - B - C, then the vertex labels are permuted and the edges
+    shuffled.  Duplicates and self-loops stay."""
+    a, b, c = abc
+    m = edge_factor << scale
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        src |= (r >= a + b).astype(np.int64) << bit
+        dst |= (((r >= a) & (r < a + b)) | (r >= a + b + c)).astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    order = rng.permutation(m)
+    return perm[src[order]].astype(np.int32), perm[dst[order]].astype(np.int32)
+
+
+def triangle_oracle(src, dst, n: int):
+    """(per-vertex triangles int64 [n], total) of the simple undirected
+    graph of the edges, by scipy: row sums of (A @ A) * A over 2, the
+    total over 6."""
+    from scipy.sparse import coo_matrix
+
+    keep = src != dst
+    a = coo_matrix((np.ones(int(keep.sum()), np.int64), (src[keep], dst[keep])), shape=(n, n)).tocsr()
+    a = a + a.T
+    a.data[:] = 1
+    t = (a @ a).multiply(a)
+    local = np.asarray(t.sum(axis=1)).ravel() // 2
+    return local, int(local.sum()) // 3
+
+
+def host_diff_block(state, prev_local: np.ndarray, src, dst, mask):
+    """The JAX package's block emission (its library/triangles.py:686-707):
+    the whole local vector read back and diffed on the host; returns
+    (keys, counts, local on the host)."""
+    local_h = state.local.cpu().numpy()
+    m_h = mask.cpu().numpy()
+    touched = np.unique(np.concatenate([src.cpu().numpy()[m_h], dst.cpu().numpy()[m_h],
+                                        np.nonzero(local_h != prev_local)[0]]))
+    keys = np.concatenate([touched, [-1]]).astype(np.int64)
+    counts = np.concatenate([local_h[touched], [int(state.global_count)]])
+    return keys, counts, local_h
+
+
+def fold_bytes(before, after, src, dst, mask) -> int:
+    """The fold's least bytes (the bound): the batch's edges read once (9 B
+    an edge), the valid part of both endpoints' rows (as the batch found
+    them) and their degrees for each edge that is not masked or a
+    self-loop, and 4 B for each new slot, moved degree and moved counter,
+    and the global."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import indexing
+
+    c = before.local.shape[0]
+    lo, hi = torch.minimum(src, dst), torch.maximum(src, dst)
+    valid = mask & (lo != hi)
+    deg = before.table.deg.to(torch.int64)
+    rows = deg[indexing.gather_index(lo[valid], c)].sum() + deg[indexing.gather_index(hi[valid], c)].sum()
+    new_slots = int(after.table.deg.sum(dtype=torch.int64) - before.table.deg.sum(dtype=torch.int64))
+    moved = int((after.table.deg != before.table.deg).sum()) + int((after.local != before.local).sum())
+    return 9 * src.shape[0] + 4 * int(rows) + 8 * int(valid.sum()) + 4 * (new_slots + moved) + 4
+
+
+def state_diff(a, b) -> int:
+    """The largest absolute difference over two states' five tensors."""
+    import torch
+
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) if x.numel() else 0
+               for x, y in zip((*a.table, a.local, a.global_count), (*b.table, b.local, b.global_count)))
+
+
+def block_diff(a, b) -> int:
+    """0 when two record blocks are equal in length, values and dtypes."""
+    if len(a.columns) != len(b.columns) or any(x.dtype != y.dtype or x.shape != y.shape
+                                               for x, y in zip(a.columns, b.columns)):
+        return 1 << 62
+    return max(int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max()) if len(x) else 0
+               for x, y in zip(a.columns, b.columns))
+
+
+def edge_batch(batch):
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+
+    return EdgeBatch(src=batch[0], dst=batch[1], mask=batch[2])
+
+
+def exact_run(stream, mode: str, keep: int):
+    """(seconds first batch -> last record on the host, records, the first
+    ``keep`` blocks (block mode) or every record (trace), the runner)."""
+    import torch
+    from gelly_streaming_tpu_torch.library.triangles import ExactTriangleCount
+
+    runner = ExactTriangleCount(mode=mode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mode == "block":
+        kept, n_records = [], 0
+        for i, blk in enumerate(runner.run(stream).blocks()):
+            n_records += blk.num_records
+            if i < keep:
+                kept.append(blk)
+    else:
+        kept = runner.run(stream).collect()
+        n_records = len(kept)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, n_records, kept, runner
+
+
+def fold_timing(cpm, fold, before, batch, r: int) -> dict:
+    """The fold of one batch from ``before``, each call on its own copy of
+    the state: device ms on a held stream, host enqueue us, back-to-back
+    events ms; and the bytes bound of that batch."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    s, d, m = batch
+    d_ms, h_us = copies_device_ms(lambda cp: fold(cp, s, d, m), lambda: et.clone_state(before), ET_REPS, cpm)
+    copies = [et.clone_state(before) for _ in range(ET_REPS)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for cp in copies:
+        fold(cp, s, d, m)
+    end.record()
+    torch.cuda.synchronize()
+    after = copies[0]
+    bound = fold_bytes(before, after, s, d, m) / HBM_BYTES_PER_S * 1e3
+    del copies
+    return {"device_ms": d_ms, "host_us": h_us, "ms": start.elapsed_time(end) / ET_REPS, "bound_ms": bound,
+            "chain_steps": -(-s.shape[0] // r)}
+
+
+def exact_profile(fn):
+    """(device busy ms, wall ms, top rows) of one run of ``fn`` under
+    torch.profiler, with no warm-up run (the counted run warmed it)."""
+    walls = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+
+    busy, top = train_profile(timed, 1, warmup=False)
+    return busy, walls[-1] * 1e3, top
+
+
+def phase_exact(dev, cpm) -> dict:
+    """Phase 15: ExactTriangleCount on the card, block mode at the CC
+    bench's width (a), on a skewed stream whose hub rows overflow (b), and
+    trace mode (c)."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.output import RecordBlock
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library import triangles as tri
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    res, err = {}, 0
+    t_phase = time.perf_counter()
+    # (a) ------------------------------------------------------------------
+    src, dst = watts_strogatz(ET_VERTICES, ET_RING_K, ET_REWIRE, np.random.default_rng(5))
+    n = len(src)
+    log(f"  (a) Watts-Strogatz n = {ET_VERTICES}, k = {ET_RING_K}, p = {ET_REWIRE}: {n} edges shuffled by "
+        f"default_rng(5); C = {ET_VERTICES}, D = {ET_DEGREE}, batches of {ET_BATCH}")
+    cfg = StreamConfig(vertex_capacity=ET_VERTICES, max_degree=ET_DEGREE, batch_size=ET_BATCH)
+    stream = EdgeStream.from_arrays(src, dst, cfg, device=dev)
+    # warm the path (the kernel, the emission's unique and nonzero) outside the counted run
+    exact_run(EdgeStream.from_arrays(src[:8192], dst[:8192], cfg, batch_size=4096, device=dev), "block", 0)
+    et.reset_launches()
+    secs, n_records, kept, runner = exact_run(stream, "block", ET_TWIN_BATCHES)
+    launches = dict(et.LAUNCHES)
+    twin_calls = dict(et.TWIN_CALLS)
+    state = runner.final_state
+    dropped, glob = int(state.table.dropped), int(state.global_count)
+    if launches["triangle_block"] != -(-n // ET_BATCH) or any(twin_calls.values()):
+        raise RuntimeError(f"(a): launches {launches}, twin calls {twin_calls}")
+    if dropped:
+        raise RuntimeError(f"(a): {dropped} rows dropped at D = {ET_DEGREE}")
+    t0 = time.perf_counter()
+    want_local, want_total = triangle_oracle(src, dst, ET_VERTICES)
+    oracle_s = time.perf_counter() - t0
+    local_err = int(np.abs(state.local.cpu().numpy().astype(np.int64) - want_local).max())
+    if local_err or glob != want_total:
+        raise RuntimeError(f"(a): local differs from scipy by {local_err}; global {glob} against {want_total}")
+    log(f"  (a) {secs:.4f} s first batch -> last block: {n / secs:.6g} edges/s, {n_records} records, "
+        f"{n_records / secs:.6g} records/s; launches {launches}, twin calls through the wrappers {twin_calls}; "
+        f"dropped == 0; global {glob} and every local count equal to scipy's (A @ A) * A ({oracle_s:.1f} s)")
+    # the first batches through the twin on the card, block by block
+    batches = [(torch.from_numpy(src[i:i + ET_BATCH]).to(dev), torch.from_numpy(dst[i:i + ET_BATCH]).to(dev),
+                torch.ones(ET_BATCH, dtype=torch.bool, device=dev))
+               for i in range(0, (ET_TWIN_BATCHES + 1) * ET_BATCH, ET_BATCH)]
+    twin = tri.init_triangle_state(cfg, dev)
+    prev = twin.local.clone()
+    plain_s = []
+    for i in range(ET_TWIN_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt = et.triangle_update_block_plain(twin, *batches[i])
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+        blk = tri.touched_block(nxt, prev, edge_batch(batches[i]))
+        err = max(err, block_diff(blk, kept[i]))
+        prev, twin = nxt.local.clone(), nxt
+    if err:
+        raise RuntimeError(f"(a): the first {ET_TWIN_BATCHES} blocks differ from the twin's by {err}")
+    res["plain_ms"] = float(np.mean(plain_s)) * 1e3
+    log(f"  (a) the first {ET_TWIN_BATCHES} batches' blocks equal the twin's on the card (the twin "
+        f"{res['plain_ms']:.1f} ms a batch, its chunk steps replayed from a CUDA graph)")
+    timing = fold_timing(cpm, et.triangle_update_block, twin, batches[ET_TWIN_BATCHES], 64)
+    after = et.triangle_update_block(et.clone_state(twin), *batches[ET_TWIN_BATCHES])
+    # emission: the port's (touched set on the card) against the JAX package's host diff
+    prev_h = twin.local.cpu().numpy()
+    emit_us, host_us = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blk = tri.touched_block(after, twin.local, edge_batch(batches[ET_TWIN_BATCHES]))
+        emit_us.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        keys, counts, _ = host_diff_block(after, prev_h, *batches[ET_TWIN_BATCHES])
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        if block_diff(blk, RecordBlock((keys, counts))):
+            raise RuntimeError("(a): the card's touched block differs from the host diff's")
+    res["emit_us"], res["host_diff_us"] = float(np.median(emit_us)), float(np.median(host_us))
+    busy, wall_ms, top = exact_profile(lambda: exact_run(stream, "block", 0))
+    idle = None if busy is None else 100 * (1 - busy / wall_ms)
+    log(f"  (a) the fold of batch {ET_TWIN_BATCHES} ({ET_BATCH} edges, {timing['chain_steps']} dependent chunk "
+        f"steps): device {timing['device_ms']:.4f} ms held, back-to-back {timing['ms']:.4f} ms, host enqueue "
+        f"{timing['host_us']:.2f} us; bound {timing['bound_ms']:.6f} ms (bytes), "
+        f"{timing['device_ms'] / timing['bound_ms']:.1f}x; emission a batch: the card's touched set "
+        f"{res['emit_us']:.1f} us, the JAX package's host diff {res['host_diff_us']:.1f} us (equal blocks); "
+        f"torch.profiler over one run: device busy {busy} ms of {wall_ms:.1f} ms, idle "
+        f"{'-' if idle is None else f'{idle:.2f}'}%; top rows {top}")
+    res["a"] = {"edges": n, "s": secs, "edges_per_s": n / secs, "records": n_records,
+                "records_per_s": n_records / secs, "global": glob, "dropped": dropped, "launches": launches,
+                "oracle_s": oracle_s, "idle_pct": idle, "busy_ms": busy, "profiled_wall_ms": wall_ms, "top": top,
+                **timing}
+    res["launches"] = launches["triangle_block"]
+    del stream, runner, state, twin, after, batches
+    torch.cuda.empty_cache()
+
+    # (b) ------------------------------------------------------------------
+    c_b = 1 << ET_RMAT_SCALE
+    rsrc, rdst = rmat_edges(ET_RMAT_SCALE, ET_RMAT_EDGE_FACTOR, ET_RMAT_ABC, np.random.default_rng(6))
+    nb = len(rsrc)
+    log(f"  (b) Graph500 Kronecker scale {ET_RMAT_SCALE}, edge factor {ET_RMAT_EDGE_FACTOR}, "
+        f"A, B, C = {ET_RMAT_ABC}: {nb} edges (default_rng(6)), {int((rsrc == rdst).sum())} self-loops; "
+        f"C = {c_b}, D = {ET_DEGREE}")
+    cfg_b = StreamConfig(vertex_capacity=c_b, max_degree=ET_DEGREE, batch_size=ET_BATCH)
+    stream_b = EdgeStream.from_arrays(rsrc, rdst, cfg_b, device=dev)
+    twin_batches = ET_RMAT_TWIN_EDGES // ET_BATCH
+    et.reset_launches()
+    secs_b, rec_b, kept_b, runner_b = exact_run(stream_b, "block", twin_batches)
+    launches_b = dict(et.LAUNCHES)
+    if launches_b["triangle_block"] != -(-nb // ET_BATCH) or any(et.TWIN_CALLS.values()):
+        raise RuntimeError(f"(b): launches {launches_b}, twin calls {et.TWIN_CALLS}")
+    dropped_b = int(runner_b.final_state.table.dropped)
+    if dropped_b <= 0:
+        raise RuntimeError("(b): no row overflowed")
+    kern = tri.init_triangle_state(cfg_b, dev)
+    twin = tri.init_triangle_state(cfg_b, dev)
+    prev_k, prev_t = kern.local.clone(), twin.local.clone()
+    berr, before_last, emit_b = 0, None, []
+    for i in range(twin_batches):
+        batch = (torch.from_numpy(rsrc[i * ET_BATCH:(i + 1) * ET_BATCH]).to(dev),
+                 torch.from_numpy(rdst[i * ET_BATCH:(i + 1) * ET_BATCH]).to(dev),
+                 torch.ones(ET_BATCH, dtype=torch.bool, device=dev))
+        if i == twin_batches - 1:
+            before_last = (et.clone_state(kern), batch)
+        twin = et.triangle_update_block_plain(twin, *batch)
+        et.triangle_update_block(kern, *batch)
+        berr = max(berr, state_diff(kern, twin))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bk = tri.touched_block(kern, prev_k, edge_batch(batch))
+        emit_b.append((time.perf_counter() - t0) * 1e6)
+        bt = tri.touched_block(twin, prev_t, edge_batch(batch))
+        berr = max(berr, block_diff(bk, bt), block_diff(bk, kept_b[i]))
+        prev_k.copy_(kern.local)
+        prev_t.copy_(twin.local)
+    if berr:
+        raise RuntimeError(f"(b): the state or blocks differ from the twin's by {berr}")
+    err = max(err, berr)
+    timing_b = fold_timing(cpm, et.triangle_update_block, *before_last, 64)
+    busy_b, wall_b, top_b = exact_profile(lambda: exact_run(stream_b, "block", 0))
+    idle_b = None if busy_b is None else 100 * (1 - busy_b / wall_b)
+    log(f"  (b) {secs_b:.4f} s: {nb / secs_b:.6g} edges/s, {rec_b} records, {rec_b / secs_b:.6g} records/s; "
+        f"launches {launches_b}; dropped {dropped_b} > 0, global {int(runner_b.final_state.global_count)}; the "
+        f"state (nbrs, deg, dropped, local, global) and the blocks equal the twin's on the card after each of the "
+        f"first {twin_batches} batches ({twin_batches * ET_BATCH} edges; the rest not held for the twin's time); "
+        f"batch {twin_batches - 1}: device {timing_b['device_ms']:.4f} ms held, host enqueue "
+        f"{timing_b['host_us']:.2f} us, bound {timing_b['bound_ms']:.6f} ms; emission a batch on the card "
+        f"{np.median(emit_b):.1f} us; idle "
+        f"{'-' if idle_b is None else f'{idle_b:.2f}'}% (busy {busy_b} ms of {wall_b:.1f} ms); top rows {top_b}")
+    res["b"] = {"edges": nb, "s": secs_b, "edges_per_s": nb / secs_b, "records": rec_b,
+                "records_per_s": rec_b / secs_b, "dropped": dropped_b, "launches": launches_b,
+                "twin_edges": twin_batches * ET_BATCH, "idle_pct": idle_b, "busy_ms": busy_b,
+                "emit_us": float(np.median(emit_b)), **timing_b}
+    del stream_b, runner_b, kern, twin, before_last
+    torch.cuda.empty_cache()
+
+    # (c) ------------------------------------------------------------------
+    cfg_c = StreamConfig(vertex_capacity=ET_VERTICES, max_degree=ET_DEGREE, batch_size=ET_TRACE_BATCH)
+    stream_c = EdgeStream.from_arrays(src[:ET_TRACE_EDGES], dst[:ET_TRACE_EDGES], cfg_c, device=dev)
+    et.reset_launches()
+    secs_c, rec_c, records, runner_c = exact_run(stream_c, "trace", 0)
+    launches_c = dict(et.LAUNCHES)
+    if launches_c["triangle_trace"] != ET_TRACE_EDGES // ET_TRACE_BATCH or any(et.TWIN_CALLS.values()):
+        raise RuntimeError(f"(c): launches {launches_c}, twin calls {et.TWIN_CALLS}")
+    twin = tri.init_triangle_state(cfg_c, dev)
+    want, plain_s, before_mid = [], 0.0, None
+    for i in range(0, ET_TRACE_EDGES, ET_TRACE_BATCH):
+        s = torch.from_numpy(src[i:i + ET_TRACE_BATCH]).to(dev)
+        d = torch.from_numpy(dst[i:i + ET_TRACE_BATCH]).to(dev)
+        m = torch.ones(ET_TRACE_BATCH, dtype=torch.bool, device=dev)
+        if i == ET_TRACE_EDGES // 2:
+            before_mid = (et.clone_state(twin), (s, d, m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin, lt, gt = et.triangle_update_plain(twin, s, d, m)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        lt, gt = lt.cpu().numpy(), gt.cpu().numpy()
+        for j, (u, v) in enumerate(zip(src[i:i + ET_TRACE_BATCH].tolist(), dst[i:i + ET_TRACE_BATCH].tolist())):
+            want += [(min(u, v), int(lt[j, 0])), (max(u, v), int(lt[j, 1])), (-1, int(gt[j]))]
+    cerr = state_diff(runner_c.final_state, twin)
+    if records != want or cerr:
+        raise RuntimeError(f"(c): the trace differs from the twin's (state diff {cerr})")
+    timing_c = fold_timing(cpm, et.triangle_update, *before_mid, 1)
+    res["trace_plain_ms"] = plain_s / (ET_TRACE_EDGES // ET_TRACE_BATCH) * 1e3
+    log(f"  (c) trace mode over the first {ET_TRACE_EDGES} edges of (a) in batches of {ET_TRACE_BATCH}: "
+        f"{secs_c:.4f} s, {ET_TRACE_EDGES / secs_c:.6g} edges/s, {rec_c} records, {rec_c / secs_c:.6g} records/s; "
+        f"launches {launches_c}; every record and the final state equal the twin's on the card "
+        f"({res['trace_plain_ms']:.1f} ms a batch); the fold of batch {ET_TRACE_EDGES // 2 // ET_TRACE_BATCH}: "
+        f"device {timing_c['device_ms']:.4f} ms held, host enqueue {timing_c['host_us']:.2f} us, bound "
+        f"{timing_c['bound_ms']:.6f} ms, {timing_c['chain_steps']} dependent steps")
+    res["c"] = {"edges": ET_TRACE_EDGES, "s": secs_c, "edges_per_s": ET_TRACE_EDGES / secs_c, "records": rec_c,
+                "records_per_s": rec_c / secs_c, "launches": launches_c, **timing_c}
+    res["trace_launches"] = launches_c["triangle_trace"]
+    res["err"] = err
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -3863,6 +4262,8 @@ def main(argv=None) -> int:
     asy = phase_async(dev, cpm, stream, host_panes, expected,
                       parent_csr_call(load_baseline(parent_csr_cu, PARENT_SIGNATURES["csr"])) if parent_csr_cu
                       else None)
+    log("phase 15: the streaming ExactTriangleCount on the card")
+    ex = phase_exact(dev, cpm)
 
     kernels = [
         {
@@ -3995,6 +4396,18 @@ def main(argv=None) -> int:
         "shapes": {k: {kk: vv for kk, vv in v.items() if kk != "counts"} for k, v in csr["shapes"].items()},
         "planes": {k: asy[k] for k in ("bench", "wide", "wide_idle_pct", "tri_async", "tri_superbatch", "snapshot")},
     })
+    for name, key, line, launches_key, plain_key, extra in (
+            ("triangle_block", "a", 504, "launches", "plain_ms", {"emit_us": ex["emit_us"],
+                                                                   "host_diff_us": ex["host_diff_us"], "b": ex["b"]}),
+            ("triangle_trace", "c", 450, "trace_launches", "trace_plain_ms", {})):
+        run = ex[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gelly_streaming_tpu_torch/csrc/exact_triangles.cu",
+            "replaces": f"gelly_streaming_tpu/library/triangles.py:{line}", "launches": ex[launches_key],
+            "max_abs_err": ex["err"], "ms": run["ms"], "device_ms": run["device_ms"], "host_us": run["host_us"],
+            "plain_ms": ex[plain_key], "bound_ms": run["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "chain_steps": run["chain_steps"], **{k: run[k] for k in ("edges_per_s", "records_per_s", "idle_pct")
+                                                  if k in run}, **extra})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

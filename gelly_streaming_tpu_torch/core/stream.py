@@ -1,7 +1,6 @@
 """EdgeStream: the graph-stream API (reference: GraphStream.java + SimpleEdgeStream.java).
 
-Port of ``gelly_streaming_tpu/core/stream.py``'s ``EdgeStream`` without the
-keyed aggregates and the superbatch planes.  A stream is a lazy
+Port of ``gelly_streaming_tpu/core/stream.py``'s ``EdgeStream``.  A stream is a lazy
 pipeline of stages over padded COO micro-batches; each stage is a
 ``(state, batch) -> (state, batch)`` function run eagerly on the stream's
 torch device (the JAX package composes and jits them; there is no jit
@@ -19,6 +18,9 @@ API parity map (reference file:line):
   get_degrees/in/out   SimpleEdgeStream.java:413-478 (running degree trace)
   number_of_vertices   SimpleEdgeStream.java:366-383 (running distinct count)
   number_of_edges      SimpleEdgeStream.java:388-404 (running edge count)
+  keyed_aggregate      SimpleEdgeStream.java:489-494 (flatMap -> keyBy -> stateful map)
+  global_aggregate     SimpleEdgeStream.java:505-519 (parallelism-1 aggregate, emit on change)
+  build_neighborhood   SimpleEdgeStream.java:531-560 (continuous adjacency)
   slice                SimpleEdgeStream.java:135-167 -> core/snapshot.py
   aggregate            SimpleEdgeStream.java:100-102 -> core/aggregation.py
 
@@ -27,7 +29,8 @@ download each batch's outputs through ``io/prefetch.prefetch_to_host``;
 array-backed streams upload packed wire buffers and unpack them on the
 device first.  The degree trace's kernel is ``ops/degrees.degree_trace``
 (``csrc/degrees.cu`` on the GPU); the vertex and edge counters are PyTorch
-ops on the device.
+ops on the device, as are the keyed and global aggregates (the caller's
+callables, on tensors) and ``build_neighborhood`` (``ops/neighbors``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from gelly_streaming_tpu_torch.core.config import StreamConfig
 from gelly_streaming_tpu_torch.core.output import NULL, OutputStream, RecordBlock
@@ -164,6 +168,16 @@ def _interleave_endpoints(batch: EdgeBatch) -> Tuple[torch.Tensor, torch.Tensor]
     v = torch.stack([batch.src, batch.dst], dim=1).reshape(-1)
     m = torch.stack([batch.mask, batch.mask], dim=1).reshape(-1)
     return v, m
+
+
+def _sorted_dicts(x):
+    """``x`` with every dict rebuilt in sorted key order (the order JAX's
+    pytrees give a dict's leaves and unflatten it in)."""
+    if isinstance(x, dict):
+        return {k: _sorted_dicts(x[k]) for k in sorted(x)}
+    if isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
+        return type(x)(_sorted_dicts(v) for v in x)
+    return x
 
 
 def _round_robin(iterators: List[Iterator]) -> Iterator:
@@ -723,6 +737,137 @@ class EdgeStream:
         def records():
             for batch in self.batches():
                 yield from batch.to_tuples()
+
+        return OutputStream(records)
+
+    def keyed_aggregate(
+        self,
+        edge_expand: Callable,
+        state_init: Callable,
+        vertex_update: Callable,
+    ) -> OutputStream:
+        """Generic keyed aggregation, the reference's ``aggregate(edgeMapper,
+        vertexMapper)`` (SimpleEdgeStream.java:489-494), on tensors:
+
+          edge_expand(src, dst, val) -> (keys [M, B], vals pytree of [M, B]):
+              M records an edge;
+          state_init(cfg) -> dense per-key state pytree (tensors over
+              [0, C)), moved to the stream's device;
+          vertex_update(state, keys [N], vals [N], mask [N])
+              -> (state, out pytree of [N], out_mask [N]).
+
+        Returns the (key, out...) records, one RecordBlock of compacted
+        columns a batch; an output that is not a single tensor or a flat
+        tuple of them (a dict, nested tuples) becomes one object column of
+        per-record values of its structure, dicts with their keys sorted
+        as the JAX package's pytrees order them."""
+        spec = []  # the output's structure, set by the kernel
+
+        def init(cfg, dev):
+            return pytree.tree_map(lambda t: torch.as_tensor(t).to(dev), state_init(cfg))
+
+        def kernel(state, batch):
+            keys, vals = edge_expand(batch.src, batch.dst, batch.val)
+            m = keys.shape[0]
+            flat_vals = pytree.tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])), vals)
+            state, out, out_mask = vertex_update(state, keys.reshape(-1), flat_vals, batch.mask.repeat(m))
+            leaves, treespec = pytree.tree_flatten(out)
+            spec[:] = [treespec]
+            return state, (keys.reshape(-1), out_mask, *leaves)
+
+        def is_flat(treespec) -> bool:
+            """A flat tuple of leaves or a single leaf: the block's columns
+            are the record tuples."""
+            n = treespec.num_leaves
+            return treespec in (pytree.tree_structure(tuple(range(n))), pytree.tree_structure(0))
+
+        def blocks():
+            for k_h, m_h, *cols in self._kernel_stream(init, kernel):
+                sel = np.nonzero(m_h)[0]
+                if len(sel) == 0:
+                    continue
+                k_h = k_h[sel]
+                cols = [c[sel] for c in cols]
+                if is_flat(spec[0]):
+                    yield RecordBlock((k_h, *cols))
+                    continue
+                recs = np.empty((len(k_h),), object)
+                for i in range(len(k_h)):
+                    recs[i] = _sorted_dicts(pytree.tree_unflatten([c[i].item() for c in cols], spec[0]))
+                yield RecordBlock((k_h, recs))
+
+        return OutputStream(blocks_fn=blocks)
+
+    def global_aggregate(
+        self,
+        update: Callable,
+        initial_state: Callable,
+        result: Callable,
+        emit_on_change: bool = True,
+    ) -> OutputStream:
+        """Centralized (parallelism-1) aggregation with change dedup
+        (SimpleEdgeStream.java:505-519, GlobalAggregateMapper :562-576):
+        ``update(state, batch) -> state`` on the device, ``result(state)``
+        a host value; a record a batch whose result changed (every batch
+        when ``emit_on_change`` is False).  ``initial_state(cfg)``'s
+        tensors are moved to the stream's device."""
+        cfg, dev = self.cfg, self.device
+
+        def records():
+            state = pytree.tree_map(lambda t: torch.as_tensor(t).to(dev), initial_state(cfg))
+            prev = None
+            for batch in self.batches():
+                state = update(state, batch)
+                res = result(state)
+                if not emit_on_change or res != prev:
+                    yield res if isinstance(res, tuple) else (res,)
+                    prev = res
+
+        return OutputStream(records)
+
+    def build_neighborhood(self, directed: bool = False, mode: str = "block") -> OutputStream:
+        """Continuous adjacency stream (SimpleEdgeStream.java:531-560): per
+        arriving edge, its source's neighbors as of the end of its batch
+        (the reference's per-edge TreeSet trace at batch_size=1).
+
+        ``directed=False`` makes the stream undirected first, so each edge
+        adds both directions.  ``mode="block"`` emits RecordBlocks of (src,
+        dst, the source's row sorted on the device with -1 past its degree
+        ([D] int32), degree); ``mode="trace"`` emits (src, dst,
+        sorted-neighbor-tuple) records."""
+        if mode not in ("block", "trace"):
+            raise ValueError(f"unknown mode {mode!r}")
+        base = self if directed else self.undirected()
+        big = torch.iinfo(torch.int32).max
+
+        def init(cfg, dev):
+            return neighbors.init_table(cfg.vertex_capacity, cfg.max_degree, dev)
+
+        def kernel(table, batch):
+            table, _ = neighbors.insert_unique_batch(table, batch.src, batch.dst, batch.mask)
+            rows, valid = neighbors.gather_rows(table, batch.src)
+            # each row sorted on the device, empty slots last as -1: the
+            # reference's TreeSet order without host work
+            rows_sorted = torch.sort(torch.where(valid, rows, big), dim=1).values
+            deg = valid.sum(dim=1, dtype=torch.int32)
+            slots = torch.arange(rows.shape[1], device=rows.device)
+            rows_sorted = torch.where(slots[None, :] < deg[:, None], rows_sorted, -1)
+            return table, (batch.src, batch.dst, batch.mask, rows_sorted, deg)
+
+        def blocks():
+            for s_h, d_h, m_h, rows_h, deg_h in base._kernel_stream(init, kernel):
+                sel = np.nonzero(m_h)[0]
+                if len(sel):
+                    yield RecordBlock((s_h[sel], d_h[sel], rows_h[sel], deg_h[sel]))
+
+        if mode == "block":
+            return OutputStream(blocks_fn=blocks)
+
+        def records():
+            for blk in blocks():
+                s_c, d_c, rows_c, deg_c = blk.columns
+                for i in range(blk.num_records):
+                    yield (int(s_c[i]), int(d_c[i]), tuple(int(x) for x in rows_c[i][: deg_c[i]]))
 
         return OutputStream(records)
 

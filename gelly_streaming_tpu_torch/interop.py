@@ -4,8 +4,9 @@ Nothing here imports the JAX package: a caller that has one exports its
 state (``dataclasses.asdict`` of a ``StreamConfig``, ``np.asarray`` of a
 ``NeighborTable``'s or a ``CCState``'s fields) and hands the plain values
 over (``DegreeDistState``, ``DegreeSummaryState`` and ``BPState`` likewise,
-so that both packages can start from the same mid-stream state; the
-GraphSAGE weights through ``sage_params_from_numpy``, a training state
+so that both packages can start from the same mid-stream state, and
+``ExactTriangleCount``'s ``TriangleCountState`` through
+``triangle_state_from_numpy``; the GraphSAGE weights through ``sage_params_from_numpy``, a training state
 with its optax Adam moments through ``sage_train_state_from_numpy``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.
@@ -25,6 +26,7 @@ from gelly_streaming_tpu_torch.library.bipartiteness import BPState
 from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
 from gelly_streaming_tpu_torch.library.graphsage import SageParams, SageTrainState, _train_state
+from gelly_streaming_tpu_torch.ops.exact_triangles import TriangleCountState
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
 from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
@@ -55,6 +57,25 @@ def neighbor_table_from_numpy(
         nbrs=torch.from_numpy(nbrs.copy()).to(dev),
         deg=torch.from_numpy(deg.copy()).to(dev),
         dropped=torch.tensor(int(np.asarray(dropped)), dtype=torch.int32, device=dev),
+    )
+
+
+def triangle_state_from_numpy(
+    nbrs, deg, dropped, local, global_count, device: DeviceLike = None
+) -> TriangleCountState:
+    """A ``TriangleCountState`` on ``device`` from host arrays (``np.asarray``
+    of the JAX package's state: the table's ``nbrs`` int32 [C, D], ``deg``
+    int32 [C] and ``dropped``, ``local`` int32 [C], ``global_count`` a
+    scalar)."""
+    table = neighbor_table_from_numpy(nbrs, deg, dropped, device)
+    local = _int32_vector(local, "local")
+    if local.shape != table.deg.shape:
+        raise ValueError(f"expected local [C] with C = {table.deg.shape[0]}, got {local.shape}")
+    dev = table.deg.device
+    return TriangleCountState(
+        table=table,
+        local=torch.from_numpy(local.copy()).to(dev),
+        global_count=torch.tensor(int(np.asarray(global_count)), dtype=torch.int32, device=dev),
     )
 
 

@@ -9,8 +9,11 @@ from gelly_streaming_tpu_torch.library.graphsage import (
     sage_train_step_mesh,
     sample_pairs,
 )
+from gelly_streaming_tpu_torch.library.triangles import GLOBAL_KEY, ExactTriangleCount
 
 __all__ = [
+    "ExactTriangleCount",
+    "GLOBAL_KEY",
     "GraphSAGEWindows",
     "SageParams",
     "SageTrainState",

@@ -17,7 +17,15 @@ flight ahead of the readback), the asynchronous window pipeline
 pipelined``, panes prepared and uploaded on the prefetcher's threads, up
 to that many counts in flight), and the superbatch plane (``cfg.superbatch``
 > 1: up to K panes' canonical edges counted by one ``csr_triangles``
-launch).  The streaming ``ExactTriangleCount`` is not ported yet.
+launch).
+
+Streaming variant (insertion-only; reference
+example/ExactTriangleCount.java:43-134): ``ExactTriangleCount`` folds each
+batch into a device neighbor table plus per-vertex and global counters by
+the kernels of ``ops/exact_triangles.py`` (``csrc/exact_triangles.cu``):
+in chunks of 64 edges by default (``mode="block"``, one record block a
+batch of the counters it touched, then the global under key -1), or one
+edge a step with the reference's per-edge trace (``mode="trace"``).
 """
 
 from __future__ import annotations
@@ -29,11 +37,18 @@ import numpy as np
 import torch
 
 from gelly_streaming_tpu_torch.core import async_exec
-from gelly_streaming_tpu_torch.core.output import OutputStream
+from gelly_streaming_tpu_torch.core.config import StreamConfig
+from gelly_streaming_tpu_torch.core.output import OutputStream, RecordBlock
 from gelly_streaming_tpu_torch.core.windows import group_panes, pow2, row_mask, stack_rows, validate_slide, windowed_panes
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
 from gelly_streaming_tpu_torch.ops import csr_triangles, dense_triangles
+from gelly_streaming_tpu_torch.ops import neighbors as nbr_ops
+from gelly_streaming_tpu_torch.ops.exact_triangles import (
+    TriangleCountState,
+    triangle_update,
+    triangle_update_block,
+)
 
 
 # Panes whose compacted vertex count fits this bound take the dense CUDA
@@ -330,3 +345,98 @@ def window_triangles(
             yield (_pane_triangle_finish(pending[0]), pending[1])
 
     return OutputStream(records)
+
+
+# ---------------------------------------------------------------------------
+# Streaming exact count (insertion-only)
+
+GLOBAL_KEY = -1  # the reference routes the global counter under key -1
+# (ExactTriangleCount.java:108-110)
+
+
+def init_triangle_state(cfg: StreamConfig, device: DeviceLike = None) -> TriangleCountState:
+    """An empty state on ``device``: the [C, D] neighbor table of
+    ``cfg.vertex_capacity`` x ``cfg.max_degree``, zero counters."""
+    dev = resolve_device(device)
+    return TriangleCountState(
+        table=nbr_ops.init_table(cfg.vertex_capacity, cfg.max_degree, dev),
+        local=torch.zeros((cfg.vertex_capacity,), dtype=torch.int32, device=dev),
+        global_count=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def touched_block(state: TriangleCountState, prev_local: torch.Tensor, batch) -> RecordBlock:
+    """One batch's records in block mode: (touched ascending, their
+    counts), then (-1, global), int64 columns.  Touched are the batch's
+    valid endpoints (raw ids) and every vertex whose counter moved since
+    ``prev_local``, formed on the device; only the block is read back.  An
+    id at or past C, or below -C, raises ``IndexError`` as the JAX
+    package's host indexing does; one in [-C, 0) reads from the end."""
+    local = state.local
+    capacity = local.shape[0]
+    m = batch.mask
+    touched = torch.unique(torch.cat([
+        batch.src[m].to(torch.int64), batch.dst[m].to(torch.int64),
+        (local != prev_local).nonzero().squeeze(1),
+    ]))
+    bad = (touched >= capacity) | (touched < -capacity)
+    if bool(bad.any()):
+        first = int(touched[bad][0])
+        raise IndexError(f"index {first} is out of bounds for axis 0 with size {capacity}")
+    counts = local[torch.where(touched < 0, touched + capacity, touched)]
+    keys = torch.cat([touched, torch.full((1,), GLOBAL_KEY, dtype=torch.int64, device=local.device)])
+    counts = torch.cat([counts.to(torch.int64), state.global_count.reshape(1).to(torch.int64)])
+    return RecordBlock((keys.cpu().numpy(), counts.cpu().numpy()))
+
+
+class ExactTriangleCount:
+    """Continuous (key, count) updates, key -1 the global count
+    (reference example/ExactTriangleCount.java:40-207).
+
+    ``mode="block"`` (default) folds each batch in chunks
+    (``triangle_update_block``) and emits one block a batch: the running
+    counts of the vertices it touched, ascending, then the global.
+    ``mode="trace"`` folds one edge a step (``triangle_update``) and emits
+    the reference's per-edge records (u, local_u), (v, local_v), (-1,
+    global) for every valid edge, u < v.  The state lives on the stream's
+    device; ``final_state`` holds it after a run."""
+
+    def __init__(self, cfg: Optional[StreamConfig] = None, mode: str = "block"):
+        if mode not in ("trace", "block"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.mode = mode
+
+    def run(self, stream) -> OutputStream:
+        if self.mode == "block":
+            return self._run_blocks(stream)
+
+        def records():
+            state = init_triangle_state(stream.cfg, stream.device)
+            for batch in stream.batches():
+                state, local_trace, global_trace = triangle_update(state, batch.src, batch.dst, batch.mask)
+                l_h = local_trace.cpu().numpy()
+                g_h = global_trace.cpu().numpy()
+                m_h = batch.mask.cpu().numpy()
+                s_h = batch.src.cpu().numpy()
+                d_h = batch.dst.cpu().numpy()
+                for i in np.nonzero(m_h)[0]:
+                    u, v = int(min(s_h[i], d_h[i])), int(max(s_h[i], d_h[i]))
+                    yield (u, int(l_h[i, 0]))
+                    yield (v, int(l_h[i, 1]))
+                    yield (GLOBAL_KEY, int(g_h[i]))
+            self.final_state = state
+
+        return OutputStream(records)
+
+    def _run_blocks(self, stream) -> OutputStream:
+        def blocks():
+            state = init_triangle_state(stream.cfg, stream.device)
+            prev_local = state.local.clone()
+            for batch in stream.batches():
+                state = triangle_update_block(state, batch.src, batch.dst, batch.mask)
+                block = touched_block(state, prev_local, batch)
+                prev_local.copy_(state.local)
+                yield block
+            self.final_state = state
+
+        return OutputStream(blocks_fn=blocks)

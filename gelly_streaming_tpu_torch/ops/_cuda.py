@@ -117,6 +117,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # bytes, stream: a memset, the degree, scan, scatter and count kernels
         "csr_triangles_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
     },
+    "exact_triangles.cu": {
+        # nbrs, deg, dropped, local, glob, src, dst, mask, n, capacity,
+        # max_degree, chunk, stream: the chunked fold, one launch
+        "triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # nbrs, deg, dropped, local, glob, src, dst, mask, n, capacity,
+        # max_degree, trace_local, trace_global, stream: one edge a step
+        "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
     "sage.cu": {
         # table, C, F_in, keys, nbrs, valid, K, D, w, bias, F_out, out rows,
         # chunk, chunks, partial sums | None, partial counts | None, stream:

@@ -41,6 +41,38 @@ def contains_batch(
     return (rows == dst[:, None]).any(dim=1)
 
 
+def insert_flat_(
+    flat: torch.Tensor,
+    deg: torch.Tensor,
+    dropped: torch.Tensor,
+    max_degree: int,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: torch.Tensor,
+) -> None:
+    """``insert_batch`` in place on a table held as one flat buffer: its
+    C * D slots row-major, then one sink slot.  No step waits on the
+    device (no data-dependent shape), so a caller may capture it in a CUDA
+    graph."""
+    capacity = deg.shape[0]
+    rank = segments.occurrence_rank(src, mask)
+    pos = deg[indexing.gather_index(src, capacity)] + rank
+    ok = mask & (pos < max_degree)
+    # the flat index in JAX's int32 arithmetic and scatter rule (an id below
+    # 0 lands in the last rows, one past the end is dropped); masked,
+    # overflow and dropped rows land in the sink slot
+    sink = capacity * max_degree
+    flat_idx, kept = indexing.scatter_index(src * max_degree + pos, sink)
+    flat[torch.where(ok & kept, flat_idx, sink)] = torch.where(ok, dst, -1).to(torch.int32)
+    indexing.scatter_add_(deg, torch.where(ok, src, 0), ok.to(torch.int32))
+    dropped.add_((mask & ~ok).sum(dtype=torch.int32))
+
+
+def flat_with_sink(nbrs: torch.Tensor) -> torch.Tensor:
+    """A copy of ``nbrs`` [C, D] as ``insert_flat_``'s buffer (the sink -1)."""
+    return torch.cat([nbrs.reshape(-1), torch.full((1,), -1, dtype=torch.int32, device=nbrs.device)])
+
+
 def insert_batch(
     table: NeighborTable,
     src: torch.Tensor,
@@ -53,27 +85,10 @@ def insert_batch(
     capacity D are dropped and counted in ``dropped``.
     """
     capacity, max_degree = table.nbrs.shape
-    rank = segments.occurrence_rank(src, mask)
-    pos = table.deg[indexing.gather_index(src, capacity)] + rank
-    ok = mask & (pos < max_degree)
-    # flat scatter in JAX's int32 index arithmetic and scatter rule (an id
-    # below 0 lands in the last rows, one past the end is dropped); masked,
-    # overflow and dropped rows land in one sacrificial slot past the end,
-    # which is cut off afterwards
-    sink = capacity * max_degree
-    flat_idx, kept = indexing.scatter_index(src * max_degree + pos, sink)
-    flat_idx = torch.where(ok & kept, flat_idx, sink)
-    flat = torch.cat(
-        [
-            table.nbrs.reshape(-1),
-            torch.full((1,), -1, dtype=torch.int32, device=table.nbrs.device),
-        ]
-    )
-    flat[flat_idx] = torch.where(ok, dst, -1).to(torch.int32)
-    nbrs = flat[:sink].reshape(capacity, max_degree)
-    deg = indexing.scatter_add_(table.deg.clone(), torch.where(ok, src, 0), ok.to(torch.int32))
-    dropped = table.dropped + (mask & ~ok).sum(dtype=torch.int32)
-    return NeighborTable(nbrs=nbrs, deg=deg, dropped=dropped)
+    flat = flat_with_sink(table.nbrs)
+    deg, dropped = table.deg.clone(), table.dropped.clone()
+    insert_flat_(flat, deg, dropped, max_degree, src, dst, mask)
+    return NeighborTable(nbrs=flat[: capacity * max_degree].view(capacity, max_degree), deg=deg, dropped=dropped)
 
 
 def gather_rows(

@@ -1255,3 +1255,129 @@ def test_async_and_superbatch_planes_on_gpu_match_cpu(cuda_device, plane):
     assert gpu[4] == cpu[4] and len(gpu[4]) > 500
     if "superbatch" in plane:
         assert ct.LAUNCHES["csr_triangles"] >= before + 3
+
+
+# ---------------------------------------------------------------------------
+# the streaming exact triangle fold (csrc/exact_triangles.cu)
+
+TRI_C = 1 << 10
+
+
+def _tri_batch(rng, b: int):
+    """A batch over [0, C - 2): a hub on an eighth of the rows (past D =
+    256 neighbors over a 2^16 batch), duplicates, self-loops, a masked
+    tenth, and ids -1, -2, C and C + 3 (never aliasing a positive id)."""
+    src = rng.integers(0, TRI_C - 2, b).astype(np.int32)
+    dst = rng.integers(0, TRI_C - 2, b).astype(np.int32)
+    src[: max(1, b // 8)] = 1
+    dst[b // 2 : b // 2 + 3] = src[b // 2 : b // 2 + 3]
+    if b > 16:
+        src[-6:], dst[-6:] = src[:6], dst[:6]
+        src[3], dst[7], src[9], dst[11] = -1, -2, TRI_C, TRI_C + 3
+    mask = rng.random(b) < 0.9
+    return src, dst, mask
+
+
+def _tri_start(d: int, dev):
+    """The state after a first batch of 4096 edges (folded by the twin)."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library.triangles import init_triangle_state
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    state = init_triangle_state(StreamConfig(vertex_capacity=TRI_C, max_degree=d), dev)
+    s, t, m = (torch.from_numpy(a).to(dev) for a in _tri_batch(np.random.default_rng(d), 4096))
+    return et.triangle_update_block_plain(state, s, t, m)
+
+
+def _tri_equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip((*a.table, a.local, a.global_count),
+                                                           (*b.table, b.local, b.global_count)))
+
+
+@pytest.mark.parametrize("d", [4, 64, 256])
+@pytest.mark.parametrize("b", [1, 1 << 16])
+def test_triangle_block_kernel_matches_twin(cuda_device, d, b):
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    start = _tri_start(d, cuda_device)
+    s, t, m = (torch.from_numpy(a).to(cuda_device) for a in _tri_batch(np.random.default_rng(b + d), b))
+    want = et.triangle_update_block_plain(start, s, t, m)
+    state = et.clone_state(start)
+    before = et.LAUNCHES["triangle_block"]
+    assert et.triangle_update_block(state, s, t, m) is state
+    torch.cuda.synchronize()
+    assert et.LAUNCHES["triangle_block"] == before + 1
+    assert _tri_equal(state, want)
+    if b > 1:
+        assert int(state.table.dropped) > int(start.table.dropped) and int(state.global_count) > 0
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 128, 256])
+def test_triangle_block_kernel_takes_any_chunk(cuda_device, chunk):
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    start = _tri_start(16, cuda_device)
+    s, t, m = (torch.from_numpy(a).to(cuda_device) for a in _tri_batch(np.random.default_rng(chunk), 3001))
+    want = et.triangle_update_block_plain(start, s, t, m, chunk=chunk)
+    state = et.triangle_update_block(et.clone_state(start), s, t, m, chunk=chunk)
+    assert _tri_equal(state, want)
+    with pytest.raises(ValueError):
+        et.triangle_update_block(state, s, t, m, chunk=et.MAX_CHUNK + 1)
+
+
+@pytest.mark.parametrize("d,b", [(4, 1 << 16), (64, 1 << 16), (256, 1), (256, 1 << 12)])
+def test_triangle_trace_kernel_matches_twin(cuda_device, d, b):
+    """The twin on the card replays its edge steps from a CUDA graph (held
+    equal to the CPU twin below)."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    start = _tri_start(d, cuda_device)
+    s, t, m = (torch.from_numpy(a).to(cuda_device) for a in _tri_batch(np.random.default_rng(b + d + 1), b))
+    want, want_local, want_global = et.triangle_update_plain(start, s, t, m)
+    before = et.LAUNCHES["triangle_trace"]
+    state, local_trace, global_trace = et.triangle_update(et.clone_state(start), s, t, m)
+    torch.cuda.synchronize()
+    assert et.LAUNCHES["triangle_trace"] == before + 1
+    assert _tri_equal(state, want)
+    assert torch.equal(local_trace, want_local) and torch.equal(global_trace, want_global)
+
+
+@pytest.mark.parametrize("d", [4, 64])
+def test_twins_on_the_card_match_the_cpu_twins(cuda_device, d):
+    """The twins replay their steps from a CUDA graph on the card; they
+    give the CPU twins' states and traces."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    start = _tri_start(d, cuda_device)
+    on_cpu = et.TriangleCountState(type(start.table)(*(x.cpu() for x in start.table)), start.local.cpu(),
+                                   start.global_count.cpu())
+    arrays = _tri_batch(np.random.default_rng(d + 2), 1 << 11)
+    s, t, m = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    cs, ct, cm = (torch.from_numpy(a) for a in arrays)
+    got = et.triangle_update_block_plain(start, s, t, m, chunk=48)
+    assert _tri_equal(got, et.triangle_update_block_plain(on_cpu, cs, ct, cm, chunk=48))
+    got = et.triangle_update_plain(start, s[:300], t[:300], m[:300])
+    want = et.triangle_update_plain(on_cpu, cs[:300], ct[:300], cm[:300])
+    assert _tri_equal(got[0], want[0]) and torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+
+
+def test_exact_triangle_count_on_gpu_matches_cpu(cuda_device):
+    """ExactTriangleCount in both modes on the card emits the CPU path's
+    records and blocks, and launches its kernels."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.triangles import ExactTriangleCount
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 300, 5000), rng.integers(0, 300, 5000)
+    cfg = StreamConfig(vertex_capacity=512, max_degree=32, batch_size=700)
+
+    def run(dev, mode):
+        out = ExactTriangleCount(mode=mode).run(EdgeStream.from_arrays(src, dst, cfg, device=dev))
+        return [tuple(c.tolist() for c in blk.columns) for blk in out.blocks()] if mode == "block" else out.collect()
+
+    et.reset_launches()
+    for mode in ("block", "trace"):
+        assert run(cuda_device, mode) == run("cpu", mode)
+    assert et.LAUNCHES == {"triangle_block": 8, "triangle_trace": 8}
