@@ -194,9 +194,15 @@ twin's after each of the first 16 batches (2^20 edges; the twin's time cuts
 the rest), the same figures as (a); (c) trace mode over (a)'s first 2^16
 edges in batches of 2^12: every record and the final state equal the
 twin's.  On the card the twins replay their steps from a CUDA graph (the
-same ops, without the host's launch cost).  Both kernels
-(``csrc/exact_triangles.cu``) must launch once a batch, and the wrappers
-call no twin.
+same ops, without the host's launch cost).  Both folds
+(``csrc/exact_triangles.cu``) must make one C call a batch, the wrappers
+call no twin, and every batch of (a), (b) and (c) must take the parallel
+path (the fold's device counters); the phase prints the fixed point's
+passes a batch, each fold's split by launch (torch.profiler) and scratch,
+and a late batch of (a) held against the twin.  ``--parent-exact-cu PATH``
+times an earlier ``exact_triangles.cu`` with the one-launch C interface
+(5e8e61b's) in turns with the current folds at (a) batch 4 and the last
+batch, (b) batch 15 and (c), and holds their states equal.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -724,6 +730,10 @@ PARENT_SIGNATURES = {
             "csr_expand_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
             "csr_prefix_mask_launch": [_P, _L, _P, _P],
             "csr_count_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P]},
+    # (5e8e61b, one thread block walking the chunks) nbrs, deg, dropped, local, glob, src, dst, mask, n,
+    # capacity, max_degree, chunk, stream; the same with trace_local, trace_global for chunk
+    "exact": {"triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+              "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
     "sage_backward": {
         "sage_layer_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
         "sage_layer_backward_scratch_bytes": [_I, _I],
@@ -3652,9 +3662,9 @@ def host_diff_block(state, prev_local: np.ndarray, src, dst, mask):
 
 def fold_bytes(before, after, src, dst, mask) -> int:
     """The fold's least bytes (the bound): the batch's edges read once (9 B
-    an edge), the valid part of both endpoints' rows (as the batch found
-    them) and their degrees for each edge that is not masked or a
-    self-loop, and 4 B for each new slot, moved degree and moved counter,
+    an edge); each distinct row an edge that is not masked or a self-loop
+    reads (either endpoint) once, its valid part as the batch found it and
+    its degree; and 4 B for each new slot, moved degree and moved counter,
     and the global."""
     import torch
     from gelly_streaming_tpu_torch.ops import indexing
@@ -3662,11 +3672,11 @@ def fold_bytes(before, after, src, dst, mask) -> int:
     c = before.local.shape[0]
     lo, hi = torch.minimum(src, dst), torch.maximum(src, dst)
     valid = mask & (lo != hi)
-    deg = before.table.deg.to(torch.int64)
-    rows = deg[indexing.gather_index(lo[valid], c)].sum() + deg[indexing.gather_index(hi[valid], c)].sum()
+    rows = torch.unique(indexing.gather_index(torch.cat([lo[valid], hi[valid]]), c))
+    slots = int(before.table.deg.to(torch.int64)[rows].clamp(0, before.table.nbrs.shape[1]).sum())
     new_slots = int(after.table.deg.sum(dtype=torch.int64) - before.table.deg.sum(dtype=torch.int64))
     moved = int((after.table.deg != before.table.deg).sum()) + int((after.local != before.local).sum())
-    return 9 * src.shape[0] + 4 * int(rows) + 8 * int(valid.sum()) + 4 * (new_slots + moved) + 4
+    return 9 * src.shape[0] + 4 * slots + 4 * rows.numel() + 4 * (new_slots + moved) + 4
 
 
 def state_diff(a, b) -> int:
@@ -3714,7 +3724,7 @@ def exact_run(stream, mode: str, keep: int):
     return time.perf_counter() - t0, n_records, kept, runner
 
 
-def fold_timing(cpm, fold, before, batch, r: int) -> dict:
+def fold_timing(cpm, fold, before, batch) -> dict:
     """The fold of one batch from ``before``, each call on its own copy of
     the state: device ms on a held stream, host enqueue us, back-to-back
     events ms; and the bytes bound of that batch."""
@@ -3734,8 +3744,109 @@ def fold_timing(cpm, fold, before, batch, r: int) -> dict:
     after = copies[0]
     bound = fold_bytes(before, after, s, d, m) / HBM_BYTES_PER_S * 1e3
     del copies
-    return {"device_ms": d_ms, "host_us": h_us, "ms": start.elapsed_time(end) / ET_REPS, "bound_ms": bound,
-            "chain_steps": -(-s.shape[0] // r)}
+    return {"device_ms": d_ms, "host_us": h_us, "ms": start.elapsed_time(end) / ET_REPS, "bound_ms": bound}
+
+
+def exact_scratch(n: int, capacity: int, max_degree: int, r: int, trace: bool) -> int:
+    """The bytes of the scratch buffer the wrapper holds for that call shape
+    (the one its timed calls used), checked against the C library's size."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    held = {key[2:]: buf.numel() for key, buf in et._scratch.items()}
+    want = int(_cuda.library("exact_triangles.cu").exact_scratch_bytes(n, capacity, max_degree, r, int(trace)))
+    if held.get((n, capacity, max_degree, r, trace)) != want:
+        raise RuntimeError(f"exact fold scratch for {(n, capacity, max_degree, r, trace)}: held {held}, the C "
+                           f"library's {want} B")
+    return want
+
+
+EXACT_KERNELS = ("prep_kernel", "chain_kernel", "settle_kernel", "count_kernel", "trace_scan_kernel")
+
+
+def exact_split(fold, before, batch, reps: int = 5) -> dict:
+    """torch.profiler's device us of each launch of one fold call (each call
+    on its own copy of the state): {kernel or "memsets": us a call}."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    copies = iter([et.clone_state(before) for _ in range(reps + 1)])
+    rows = profiler_device_us(lambda: fold(next(copies), *batch), reps)
+    split = {}
+    for key, (us, calls) in rows.items():
+        for name in EXACT_KERNELS:
+            if re.search(rf"\b{name}\b", key):
+                split[name] = split.get(name, 0.0) + us * calls / reps
+        if "memset" in key.lower():
+            split["memsets"] = split.get("memsets", 0.0) + us * calls / reps
+    del copies
+    torch.cuda.empty_cache()
+    return {k: round(v, 3) for k, v in split.items()}
+
+
+def parent_exact_calls(lib):
+    """(block, trace): 5e8e61b's two folds over ``lib``, called as its
+    wrappers called them (one launch, one thread block walking the chunks)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def args(state, s, d, m):
+        nbrs, deg, dropped = state.table
+        return (nbrs.data_ptr(), deg.data_ptr(), dropped.data_ptr(), state.local.data_ptr(),
+                state.global_count.data_ptr(), s.data_ptr(), d.data_ptr(), m.data_ptr(), s.shape[0], *nbrs.shape)
+
+    def block(state, s, d, m):
+        _cuda.check(lib.triangle_block_launch(*args(state, s, d, m), min(64, s.shape[0]),
+                                              torch.cuda.current_stream(s.device).cuda_stream), "parent triangle_block")
+        return state
+
+    def trace(state, s, d, m):
+        lt = torch.empty((s.shape[0], 2), dtype=torch.int32, device=s.device)
+        gt = torch.empty((s.shape[0],), dtype=torch.int32, device=s.device)
+        _cuda.check(lib.triangle_trace_launch(*args(state, s, d, m), lt.data_ptr(), gt.data_ptr(),
+                                              torch.cuda.current_stream(s.device).cuda_stream), "parent triangle_trace")
+        return state, lt, gt
+
+    return block, trace
+
+
+def exact_turns(cpm, label: str, old, new, before, batch) -> dict:
+    """The parent's and the current fold of one batch from ``before`` in
+    turns (parent, current, current, parent), each call on its own copy:
+    device ms held and host enqueue us; and whether the two give the same
+    state (and traces)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    got = []
+    for tag, fn in (("parent", old), ("current", new), ("current", new), ("parent", old)):
+        ms, us = copies_device_ms(lambda cp: fn(cp, *batch), lambda: et.clone_state(before), ET_REPS, cpm)
+        got.append((tag, ms, us))
+    a, b = old(et.clone_state(before), *batch), new(et.clone_state(before), *batch)
+    if not isinstance(a, et.TriangleCountState):  # a trace fold: (state, local trace, global trace)
+        diff = max(state_diff(a[0], b[0]), int(not torch.equal(a[1], b[1])), int(not torch.equal(a[2], b[2])))
+    else:
+        diff = state_diff(a, b)
+    if diff:
+        raise RuntimeError(f"{label}: the parent's fold and the current one differ by {diff}")
+    p_ms, c_ms = (got[0][1] + got[3][1]) / 2, (got[1][1] + got[2][1]) / 2
+    log(f"  {label} in turns: " + "; ".join(f"{tag} {ms:.4f} ms (host {us:.1f} us)" for tag, ms, us in got)
+        + f"; parent {p_ms:.4f} ms, current {c_ms:.4f} ms, {p_ms / c_ms:.2f}x; equal states")
+    torch.cuda.empty_cache()
+    return {"parent_ms": p_ms, "current_ms": c_ms, "ratio": p_ms / c_ms, "turns": [ms for _, ms, _ in got],
+            "host_us": [us for _, _, us in got]}
+
+
+def exact_paths(label: str, dev, batches: int) -> dict:
+    """The fold's device counters since the last reset: every batch of the
+    run on the parallel path, none on the chain kernel."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    got = et.stats(dev)
+    if got["parallel"] != batches or got["chain"]:
+        raise RuntimeError(f"{label}: {batches} batches, paths {got}")
+    got["passes_a_batch"] = got["passes"] / batches
+    return got
 
 
 def exact_profile(fn):
@@ -3752,10 +3863,11 @@ def exact_profile(fn):
     return busy, walls[-1] * 1e3, top
 
 
-def phase_exact(dev, cpm) -> dict:
+def phase_exact(dev, cpm, parent=None) -> dict:
     """Phase 15: ExactTriangleCount on the card, block mode at the CC
     bench's width (a), on a skewed stream whose hub rows overflow (b), and
-    trace mode (c)."""
+    trace mode (c); every batch on the parallel path.  ``parent``: (block,
+    trace) folds of an earlier build, timed in turns with the current."""
     import torch
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.output import RecordBlock
@@ -3775,9 +3887,11 @@ def phase_exact(dev, cpm) -> dict:
     # warm the path (the kernel, the emission's unique and nonzero) outside the counted run
     exact_run(EdgeStream.from_arrays(src[:8192], dst[:8192], cfg, batch_size=4096, device=dev), "block", 0)
     et.reset_launches()
+    et.reset_stats()
     secs, n_records, kept, runner = exact_run(stream, "block", ET_TWIN_BATCHES)
     launches = dict(et.LAUNCHES)
     twin_calls = dict(et.TWIN_CALLS)
+    paths = exact_paths("(a)", dev, launches["triangle_block"])
     state = runner.final_state
     dropped, glob = int(state.table.dropped), int(state.global_count)
     if launches["triangle_block"] != -(-n // ET_BATCH) or any(twin_calls.values()):
@@ -3792,7 +3906,8 @@ def phase_exact(dev, cpm) -> dict:
         raise RuntimeError(f"(a): local differs from scipy by {local_err}; global {glob} against {want_total}")
     log(f"  (a) {secs:.4f} s first batch -> last block: {n / secs:.6g} edges/s, {n_records} records, "
         f"{n_records / secs:.6g} records/s; launches {launches}, twin calls through the wrappers {twin_calls}; "
-        f"dropped == 0; global {glob} and every local count equal to scipy's (A @ A) * A ({oracle_s:.1f} s)")
+        f"dropped == 0; global {glob} and every local count equal to scipy's (A @ A) * A ({oracle_s:.1f} s); "
+        f"paths {paths} (every batch parallel)")
     # the first batches through the twin on the card, block by block
     batches = [(torch.from_numpy(src[i:i + ET_BATCH]).to(dev), torch.from_numpy(dst[i:i + ET_BATCH]).to(dev),
                 torch.ones(ET_BATCH, dtype=torch.bool, device=dev))
@@ -3814,8 +3929,36 @@ def phase_exact(dev, cpm) -> dict:
     res["plain_ms"] = float(np.mean(plain_s)) * 1e3
     log(f"  (a) the first {ET_TWIN_BATCHES} batches' blocks equal the twin's on the card (the twin "
         f"{res['plain_ms']:.1f} ms a batch, its chunk steps replayed from a CUDA graph)")
-    timing = fold_timing(cpm, et.triangle_update_block, twin, batches[ET_TWIN_BATCHES], 64)
+    timing = fold_timing(cpm, et.triangle_update_block, twin, batches[ET_TWIN_BATCHES])
+    timing["split_us"] = exact_split(et.triangle_update_block, twin, batches[ET_TWIN_BATCHES])
+    timing["scratch_bytes"] = exact_scratch(ET_BATCH, ET_VERTICES, ET_DEGREE, 64, False)
     after = et.triangle_update_block(et.clone_state(twin), *batches[ET_TWIN_BATCHES])
+    # a late batch: the kernel's own state before the run's last batch, held against the twin
+    n_full = n // ET_BATCH
+    late = tri.init_triangle_state(cfg, dev)
+
+    def dev_batch(i):
+        return (torch.from_numpy(src[i * ET_BATCH:(i + 1) * ET_BATCH]).to(dev),
+                torch.from_numpy(dst[i * ET_BATCH:(i + 1) * ET_BATCH]).to(dev),
+                torch.ones(ET_BATCH, dtype=torch.bool, device=dev))
+
+    for i in range(n_full - 1):
+        et.triangle_update_block(late, *dev_batch(i))
+    late_batch = dev_batch(n_full - 1)
+    lerr = state_diff(et.triangle_update_block(et.clone_state(late), *late_batch),
+                      et.triangle_update_block_plain(late, *late_batch))
+    if lerr:
+        raise RuntimeError(f"(a): batch {n_full - 1} differs from the twin's by {lerr}")
+    timing_late = fold_timing(cpm, et.triangle_update_block, late, late_batch)
+    timing_late["split_us"] = exact_split(et.triangle_update_block, late, late_batch)
+    timing_late["batch"] = n_full - 1
+    turns = {}
+    if parent:
+        turns["a_batch4"] = exact_turns(cpm, f"(a) batch {ET_TWIN_BATCHES}", parent[0], et.triangle_update_block,
+                                        twin, batches[ET_TWIN_BATCHES])
+        turns["a_late"] = exact_turns(cpm, f"(a) batch {n_full - 1}", parent[0], et.triangle_update_block, late,
+                                      late_batch)
+    del late, late_batch
     # emission: the port's (touched set on the card) against the JAX package's host diff
     prev_h = twin.local.cpu().numpy()
     emit_us, host_us = [], []
@@ -3832,17 +3975,21 @@ def phase_exact(dev, cpm) -> dict:
     res["emit_us"], res["host_diff_us"] = float(np.median(emit_us)), float(np.median(host_us))
     busy, wall_ms, top = exact_profile(lambda: exact_run(stream, "block", 0))
     idle = None if busy is None else 100 * (1 - busy / wall_ms)
-    log(f"  (a) the fold of batch {ET_TWIN_BATCHES} ({ET_BATCH} edges, {timing['chain_steps']} dependent chunk "
-        f"steps): device {timing['device_ms']:.4f} ms held, back-to-back {timing['ms']:.4f} ms, host enqueue "
+    log(f"  (a) the fold of batch {ET_TWIN_BATCHES} ({ET_BATCH} edges, scratch {timing['scratch_bytes']} B): device "
+        f"{timing['device_ms']:.4f} ms held, back-to-back {timing['ms']:.4f} ms, host enqueue "
         f"{timing['host_us']:.2f} us; bound {timing['bound_ms']:.6f} ms (bytes), "
-        f"{timing['device_ms'] / timing['bound_ms']:.1f}x; emission a batch: the card's touched set "
+        f"{timing['device_ms'] / timing['bound_ms']:.1f}x; by launch (profiler, us) {timing['split_us']}; batch "
+        f"{timing_late['batch']} (equal to the twin): device {timing_late['device_ms']:.4f} ms held, host "
+        f"{timing_late['host_us']:.2f} us, bound {timing_late['bound_ms']:.6f} ms, by launch {timing_late['split_us']}; "
+        f"fixed-point passes {paths['passes_a_batch']:.3f} a batch (most {paths['max_passes']}); "
+        f"emission a batch: the card's touched set "
         f"{res['emit_us']:.1f} us, the JAX package's host diff {res['host_diff_us']:.1f} us (equal blocks); "
         f"torch.profiler over one run: device busy {busy} ms of {wall_ms:.1f} ms, idle "
         f"{'-' if idle is None else f'{idle:.2f}'}%; top rows {top}")
     res["a"] = {"edges": n, "s": secs, "edges_per_s": n / secs, "records": n_records,
                 "records_per_s": n_records / secs, "global": glob, "dropped": dropped, "launches": launches,
                 "oracle_s": oracle_s, "idle_pct": idle, "busy_ms": busy, "profiled_wall_ms": wall_ms, "top": top,
-                **timing}
+                "paths": paths, "late": timing_late, **turns, **timing}
     res["launches"] = launches["triangle_block"]
     del stream, runner, state, twin, after, batches
     torch.cuda.empty_cache()
@@ -3858,10 +4005,12 @@ def phase_exact(dev, cpm) -> dict:
     stream_b = EdgeStream.from_arrays(rsrc, rdst, cfg_b, device=dev)
     twin_batches = ET_RMAT_TWIN_EDGES // ET_BATCH
     et.reset_launches()
+    et.reset_stats()
     secs_b, rec_b, kept_b, runner_b = exact_run(stream_b, "block", twin_batches)
     launches_b = dict(et.LAUNCHES)
     if launches_b["triangle_block"] != -(-nb // ET_BATCH) or any(et.TWIN_CALLS.values()):
         raise RuntimeError(f"(b): launches {launches_b}, twin calls {et.TWIN_CALLS}")
+    paths_b = exact_paths("(b)", dev, launches_b["triangle_block"])
     dropped_b = int(runner_b.final_state.table.dropped)
     if dropped_b <= 0:
         raise RuntimeError("(b): no row overflowed")
@@ -3889,7 +4038,12 @@ def phase_exact(dev, cpm) -> dict:
     if berr:
         raise RuntimeError(f"(b): the state or blocks differ from the twin's by {berr}")
     err = max(err, berr)
-    timing_b = fold_timing(cpm, et.triangle_update_block, *before_last, 64)
+    timing_b = fold_timing(cpm, et.triangle_update_block, *before_last)
+    timing_b["split_us"] = exact_split(et.triangle_update_block, *before_last)
+    timing_b["scratch_bytes"] = exact_scratch(ET_BATCH, c_b, ET_DEGREE, 64, False)
+    if parent:
+        timing_b["turns"] = exact_turns(cpm, f"(b) batch {twin_batches - 1}", parent[0], et.triangle_update_block,
+                                        *before_last)
     busy_b, wall_b, top_b = exact_profile(lambda: exact_run(stream_b, "block", 0))
     idle_b = None if busy_b is None else 100 * (1 - busy_b / wall_b)
     log(f"  (b) {secs_b:.4f} s: {nb / secs_b:.6g} edges/s, {rec_b} records, {rec_b / secs_b:.6g} records/s; "
@@ -3897,12 +4051,14 @@ def phase_exact(dev, cpm) -> dict:
         f"state (nbrs, deg, dropped, local, global) and the blocks equal the twin's on the card after each of the "
         f"first {twin_batches} batches ({twin_batches * ET_BATCH} edges; the rest not held for the twin's time); "
         f"batch {twin_batches - 1}: device {timing_b['device_ms']:.4f} ms held, host enqueue "
-        f"{timing_b['host_us']:.2f} us, bound {timing_b['bound_ms']:.6f} ms; emission a batch on the card "
+        f"{timing_b['host_us']:.2f} us, bound {timing_b['bound_ms']:.6f} ms, scratch {timing_b['scratch_bytes']} B, "
+        f"by launch {timing_b['split_us']}; paths "
+        f"{paths_b} ({paths_b['passes_a_batch']:.3f} passes a batch); emission a batch on the card "
         f"{np.median(emit_b):.1f} us; idle "
         f"{'-' if idle_b is None else f'{idle_b:.2f}'}% (busy {busy_b} ms of {wall_b:.1f} ms); top rows {top_b}")
     res["b"] = {"edges": nb, "s": secs_b, "edges_per_s": nb / secs_b, "records": rec_b,
                 "records_per_s": rec_b / secs_b, "dropped": dropped_b, "launches": launches_b,
-                "twin_edges": twin_batches * ET_BATCH, "idle_pct": idle_b, "busy_ms": busy_b,
+                "twin_edges": twin_batches * ET_BATCH, "idle_pct": idle_b, "busy_ms": busy_b, "paths": paths_b,
                 "emit_us": float(np.median(emit_b)), **timing_b}
     del stream_b, runner_b, kern, twin, before_last
     torch.cuda.empty_cache()
@@ -3911,10 +4067,12 @@ def phase_exact(dev, cpm) -> dict:
     cfg_c = StreamConfig(vertex_capacity=ET_VERTICES, max_degree=ET_DEGREE, batch_size=ET_TRACE_BATCH)
     stream_c = EdgeStream.from_arrays(src[:ET_TRACE_EDGES], dst[:ET_TRACE_EDGES], cfg_c, device=dev)
     et.reset_launches()
+    et.reset_stats()
     secs_c, rec_c, records, runner_c = exact_run(stream_c, "trace", 0)
     launches_c = dict(et.LAUNCHES)
     if launches_c["triangle_trace"] != ET_TRACE_EDGES // ET_TRACE_BATCH or any(et.TWIN_CALLS.values()):
         raise RuntimeError(f"(c): launches {launches_c}, twin calls {et.TWIN_CALLS}")
+    paths_c = exact_paths("(c)", dev, launches_c["triangle_trace"])
     twin = tri.init_triangle_state(cfg_c, dev)
     want, plain_s, before_mid = [], 0.0, None
     for i in range(0, ET_TRACE_EDGES, ET_TRACE_BATCH):
@@ -3934,16 +4092,22 @@ def phase_exact(dev, cpm) -> dict:
     cerr = state_diff(runner_c.final_state, twin)
     if records != want or cerr:
         raise RuntimeError(f"(c): the trace differs from the twin's (state diff {cerr})")
-    timing_c = fold_timing(cpm, et.triangle_update, *before_mid, 1)
+    timing_c = fold_timing(cpm, et.triangle_update, *before_mid)
+    timing_c["split_us"] = exact_split(et.triangle_update, *before_mid)
+    timing_c["scratch_bytes"] = exact_scratch(ET_TRACE_BATCH, ET_VERTICES, ET_DEGREE, 1, True)
+    if parent:
+        timing_c["turns"] = exact_turns(cpm, f"(c) batch {ET_TRACE_EDGES // 2 // ET_TRACE_BATCH}", parent[1],
+                                        et.triangle_update, *before_mid)
     res["trace_plain_ms"] = plain_s / (ET_TRACE_EDGES // ET_TRACE_BATCH) * 1e3
     log(f"  (c) trace mode over the first {ET_TRACE_EDGES} edges of (a) in batches of {ET_TRACE_BATCH}: "
         f"{secs_c:.4f} s, {ET_TRACE_EDGES / secs_c:.6g} edges/s, {rec_c} records, {rec_c / secs_c:.6g} records/s; "
         f"launches {launches_c}; every record and the final state equal the twin's on the card "
         f"({res['trace_plain_ms']:.1f} ms a batch); the fold of batch {ET_TRACE_EDGES // 2 // ET_TRACE_BATCH}: "
         f"device {timing_c['device_ms']:.4f} ms held, host enqueue {timing_c['host_us']:.2f} us, bound "
-        f"{timing_c['bound_ms']:.6f} ms, {timing_c['chain_steps']} dependent steps")
+        f"{timing_c['bound_ms']:.6f} ms, scratch {timing_c['scratch_bytes']} B, by launch {timing_c['split_us']}; "
+        f"paths {paths_c}")
     res["c"] = {"edges": ET_TRACE_EDGES, "s": secs_c, "edges_per_s": ET_TRACE_EDGES / secs_c, "records": rec_c,
-                "records_per_s": rec_c / secs_c, "launches": launches_c, **timing_c}
+                "records_per_s": rec_c / secs_c, "launches": launches_c, "paths": paths_c, **timing_c}
     res["trace_launches"] = launches_c["triangle_trace"]
     res["err"] = err
     log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
@@ -3970,11 +4134,15 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-neighborhoods-cu", default=None,
                         help="neighborhoods.cu of the commit before the radix sort (its C interface): "
                              "torch.sort, then its count and scatter, timed in turns with build_buckets")
+    parser.add_argument("--parent-exact-cu", default=None,
+                        help="exact_triangles.cu of the commit before the parallel folds (5e8e61b; its C interface): "
+                             "its block and trace folds timed in turns with the current ones in phase 15")
     parser.add_argument("--parent-csr-cu", default=None,
                         help="csr_triangles.cu of the commit before the lookup redesign (8ff7365; its three C calls "
                              "around neighborhoods.cu's radix sort): timed in turns with csr_triangles in phase 14 (d)")
     args = parser.parse_args(argv)
     parent_csr_cu = os.path.abspath(args.parent_csr_cu) if args.parent_csr_cu else None
+    parent_exact_cu = os.path.abspath(args.parent_exact_cu) if args.parent_exact_cu else None
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
     parent_backward_cu = os.path.abspath(args.parent_sage_backward_cu) if args.parent_sage_backward_cu else None
     parent_cu = {k: os.path.abspath(path) for k, path in (("degrees", args.parent_degrees_cu),
@@ -4014,7 +4182,8 @@ def main(argv=None) -> int:
                      if "degrees" in parent_cu else {})
     bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
-               *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else [])]
+               *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
+               *([parent_exact_cu] if parent_exact_cu else [])]
     split_failed = []
 
     def build_split():  # beside the main build; a variant that does not build is skipped
@@ -4263,7 +4432,8 @@ def main(argv=None) -> int:
                       parent_csr_call(load_baseline(parent_csr_cu, PARENT_SIGNATURES["csr"])) if parent_csr_cu
                       else None)
     log("phase 15: the streaming ExactTriangleCount on the card")
-    ex = phase_exact(dev, cpm)
+    ex = phase_exact(dev, cpm, parent_exact_calls(load_baseline(parent_exact_cu, PARENT_SIGNATURES["exact"]))
+                     if parent_exact_cu else None)
 
     kernels = [
         {
@@ -4406,8 +4576,8 @@ def main(argv=None) -> int:
             "replaces": f"gelly_streaming_tpu/library/triangles.py:{line}", "launches": ex[launches_key],
             "max_abs_err": ex["err"], "ms": run["ms"], "device_ms": run["device_ms"], "host_us": run["host_us"],
             "plain_ms": ex[plain_key], "bound_ms": run["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "chain_steps": run["chain_steps"], **{k: run[k] for k in ("edges_per_s", "records_per_s", "idle_pct")
-                                                  if k in run}, **extra})
+            **{k: run[k] for k in ("edges_per_s", "records_per_s", "idle_pct", "paths", "split_us", "scratch_bytes",
+                                   "late", "a_batch4", "a_late", "turns") if k in run}, **extra})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -118,12 +118,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "csr_triangles_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
     },
     "exact_triangles.cu": {
+        # n, capacity, max_degree, chunk, trace: the scratch bytes of one call
+        "exact_scratch_bytes": [_I, _I, _I, _I, _I],
         # nbrs, deg, dropped, local, glob, src, dst, mask, n, capacity,
-        # max_degree, chunk, stream: the chunked fold, one launch
-        "triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # max_degree, chunk, scratch, scratch bytes, stats, stream: the
+        # memsets, then the prep, chain, settle and count kernels
+        "triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
         # nbrs, deg, dropped, local, glob, src, dst, mask, n, capacity,
-        # max_degree, trace_local, trace_global, stream: one edge a step
-        "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        # max_degree, trace_local, trace_global, scratch, scratch bytes,
+        # stats, stream: the same, then the trace scan kernel
+        "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _P, _P],
     },
     "sage.cu": {
         # table, C, F_in, keys, nbrs, valid, K, D, w, bias, F_out, out rows,
@@ -145,6 +149,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 RESTYPES: Dict[str, type] = {
     "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
+    "exact_scratch_bytes": _L,
 }
 
 

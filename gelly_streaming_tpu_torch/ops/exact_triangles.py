@@ -20,14 +20,21 @@ the global count; reference example/ExactTriangleCount.java:74-134):
   insert.  Rows that overflow make the table a multiset and asymmetric,
   so the two modes reach different states once a row is full.
 
-On CUDA tensors each wrapper is one C call, one launch a batch: a single
-thread block folds the batch's chunks in order (the table in global
-memory; each chunk reads the rows the previous one wrote), the trace
-kernel one edge a step.  ``LAUNCHES`` counts them, ``TWIN_CALLS`` the
-wrappers' calls of a twin.  On CPU tensors the
-wrappers run the plain twins, which copy the JAX functions step by step
-(on a clone of the state, updated in place chunk by chunk).  Ids outside
-[0, C) follow JAX's index rules (``ops/indexing.py``) in both.
+On CUDA tensors each wrapper is one C call a batch: the batch is folded
+in parallel against arrival-stamped rows (its entries radix-sorted by row,
+the repeats' fixed point by segmented scans, the slots written, then every
+edge counted alone against its rows as its chunk found them; the trace by
+a sort and scan of the counters' moves), spread over the card's SMs.  A
+batch with an id outside [0, C) on an edge that counts, or an odd
+pre-batch row, takes the one-block chunk walk instead, chosen on the
+device (``stats`` counts the batches of each path and the fixed point's
+passes).  A call's scratch, of the bytes the C library's
+``exact_scratch_bytes`` gives, is allocated once a shape and reused.
+``LAUNCHES`` counts the C calls, ``TWIN_CALLS`` the wrappers'
+calls of a twin.  On CPU tensors the wrappers run the plain twins, which
+copy the JAX functions step by step (on a clone of the state, updated in
+place chunk by chunk).  Ids outside [0, C) follow JAX's index rules
+(``ops/indexing.py``) in both.
 
 Both wrappers update the state's tensors in place and return the state.
 """
@@ -42,18 +49,58 @@ from gelly_streaming_tpu_torch.ops import _cuda, indexing, segments
 from gelly_streaming_tpu_torch.ops import neighbors as nbr_ops
 
 _SOURCE = "exact_triangles.cu"
-MAX_CHUNK = 256  # the block kernel's chunk bound (its shared-memory arrays)
+MAX_CHUNK = 256  # the kernels' chunk bound (a chunk in one block's shared memory)
+SCRATCH_CACHE = 8  # scratch buffers kept (one a shape and stream)
 
-# kernel launches since the last reset_launches() (CUDA tensors only), and
-# the wrappers' twin calls (CPU tensors only)
+# C calls since the last reset_launches() (CUDA tensors only), and the
+# wrappers' twin calls (CPU tensors only)
 LAUNCHES: Dict[str, int] = {"triangle_block": 0, "triangle_trace": 0}
 TWIN_CALLS: Dict[str, int] = {"triangle_block": 0, "triangle_trace": 0}
+_scratch: Dict[tuple, torch.Tensor] = {}
+_stats: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, TWIN_CALLS):
         for name in counts:
             counts[name] = 0
+
+
+def stats(device) -> Dict[str, int]:
+    """The CUDA calls' counters on ``device`` since the last reset_stats():
+    batches folded in parallel, batches the chain kernel took, the fixed
+    point's passes summed and the most in one batch (synchronizes)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _stats.get(dev)
+    vals = [0, 0, 0, 0] if t is None else t.tolist()
+    return dict(zip(("parallel", "chain", "passes", "max_passes"), vals))
+
+
+def reset_stats() -> None:
+    for t in _stats.values():
+        t.zero_()
+
+
+def _call_buffers(src: torch.Tensor, n: int, capacity: int, max_degree: int, r: int, trace: bool):
+    """(scratch, its bytes, stats) of a C call: the scratch kept for its
+    shape and stream, the counters for its device."""
+    dev = src.device
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream, n, capacity, max_degree, r, trace)
+    buf = _scratch.get(key)
+    if buf is None:
+        nbytes = int(_cuda.library(_SOURCE).exact_scratch_bytes(n, capacity, max_degree, r, int(trace)))
+        if nbytes <= 0:
+            raise ValueError(f"no triangle fold for {n} edges at D = {max_degree} (its items pass 2^31)")
+        if len(_scratch) >= SCRATCH_CACHE:
+            _scratch.clear()
+        buf = _scratch[key] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    st = _stats.get(dev)
+    if st is None:
+        st = _stats[dev] = torch.zeros((4,), dtype=torch.int32, device=dev)
+    return buf, buf.numel(), st
 
 
 class TriangleCountState(NamedTuple):
@@ -283,9 +330,11 @@ def triangle_update(
     global_trace = torch.empty((b,), dtype=torch.int32, device=src.device)
     if b:
         src, dst, mask = src.contiguous(), dst.contiguous(), mask.contiguous()
+        scratch, nbytes, counters = _call_buffers(src, b, *state.table.nbrs.shape, 1, True)
         _cuda.check(_cuda.library(_SOURCE).triangle_trace_launch(
             *_launch_args(state, src, dst, mask), local_trace.data_ptr(), global_trace.data_ptr(),
-            torch.cuda.current_stream(src.device).cuda_stream), "triangle_trace")
+            scratch.data_ptr(), nbytes, counters.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream),
+            "triangle_trace")
         LAUNCHES["triangle_trace"] += 1
     return state, local_trace, global_trace
 
@@ -305,7 +354,9 @@ def triangle_update_block(state: TriangleCountState, src, dst, mask, chunk: int 
     if r > MAX_CHUNK:
         raise ValueError(f"the triangle_block kernel takes chunks of at most {MAX_CHUNK} edges")
     src, dst, mask = src.contiguous(), dst.contiguous(), mask.contiguous()
+    scratch, nbytes, counters = _call_buffers(src, src.shape[0], *state.table.nbrs.shape, r, False)
     _cuda.check(_cuda.library(_SOURCE).triangle_block_launch(
-        *_launch_args(state, src, dst, mask), r, torch.cuda.current_stream(src.device).cuda_stream), "triangle_block")
+        *_launch_args(state, src, dst, mask), r, scratch.data_ptr(), nbytes, counters.data_ptr(),
+        torch.cuda.current_stream(src.device).cuda_stream), "triangle_block")
     LAUNCHES["triangle_block"] += 1
     return state

@@ -1381,3 +1381,180 @@ def test_exact_triangle_count_on_gpu_matches_cpu(cuda_device):
     for mode in ("block", "trace"):
         assert run(cuda_device, mode) == run("cpu", mode)
     assert et.LAUNCHES == {"triangle_block": 8, "triangle_trace": 8}
+
+
+# the parallel fold (csrc/exact_triangles.cu since its redesign): batches
+# with every counted id in [0, C) and ordinary rows, held against the twins
+
+
+def _tri_clean(rng, b: int):
+    """_tri_batch without the ids outside [0, C): the parallel path's."""
+    src, dst, mask = _tri_batch(rng, b)
+    for a in (src, dst):
+        odd = (a < 0) | (a >= TRI_C)
+        a[odd] = rng.integers(0, TRI_C, int(odd.sum()))
+    return src, dst, mask
+
+
+# row 0 full at D = 2, then each row's repeat filling the next: five passes
+# (tests/test_torch_exact_plan.py models it)
+_CASCADE = [(0, 5), (0, 6), (0, 1), (1, 0), (1, 2), (2, 1), (2, 3), (3, 2), (3, 4), (4, 3)]
+
+
+def _spread_pairs(pairs, r: int):
+    b = len(pairs) * r
+    src, dst, mask = np.zeros(b, np.int32), np.zeros(b, np.int32), np.zeros(b, bool)
+    for i, (u, v) in enumerate(pairs):
+        src[i * r], dst[i * r], mask[i * r] = u, v, True
+    return src, dst, mask
+
+
+def _repeat_batch(rng, b: int, c: int):
+    """Pairs (0, 1..5) on half the rows: they come back after row 0 fills."""
+    src, dst = rng.integers(0, c, b).astype(np.int32), rng.integers(0, c, b).astype(np.int32)
+    src[: b // 2], dst[: b // 2] = 0, rng.integers(1, 6, b // 2)
+    return src, dst, np.ones(b, bool)
+
+
+def _empty_state(c: int, d: int, dev):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library.triangles import init_triangle_state
+
+    return init_triangle_state(StreamConfig(vertex_capacity=c, max_degree=d), dev)
+
+
+def _both_folds_equal(start, batch, chunk: int) -> None:
+    """The block and the trace fold of one batch from ``start`` equal their
+    twins (state, and the traces)."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    s, t, m = batch
+    want = et.triangle_update_block_plain(start, s, t, m, chunk=chunk)
+    got = et.triangle_update_block(et.clone_state(start), s, t, m, chunk=chunk)
+    assert _tri_equal(got, want)
+    want, want_l, want_g = et.triangle_update_plain(start, s, t, m)
+    got, got_l, got_g = et.triangle_update(et.clone_state(start), s, t, m)
+    assert _tri_equal(got, want) and torch.equal(got_l, want_l) and torch.equal(got_g, want_g)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 256])
+@pytest.mark.parametrize("name", ["cascade", "repeats", "hub"])
+def test_parallel_fold_matches_twin_on_overflow_streams(cuda_device, name, chunk):
+    """A cascade of repeats (five fixed-point passes), pairs repeated through
+    a full lo row, and a hub past D = 4: both folds on the parallel path."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    rng = np.random.default_rng(chunk)
+    if name == "cascade":
+        state, batches = _empty_state(8, 2, cuda_device), [_spread_pairs(_CASCADE, chunk)]
+    elif name == "repeats":
+        state, batches = _empty_state(40, 3, cuda_device), [_repeat_batch(rng, 3001, 40) for _ in range(2)]
+    else:
+        state, batches = _empty_state(TRI_C, 4, cuda_device), [_tri_clean(rng, 3001) for _ in range(2)]
+    et.reset_stats()
+    for batch in batches:
+        batch = tuple(torch.from_numpy(a).to(cuda_device) for a in batch)
+        _both_folds_equal(state, batch, chunk)
+        state = et.triangle_update_block_plain(state, *batch, chunk=chunk)
+    got = et.stats(cuda_device)
+    assert got["parallel"] == 2 * len(batches) and got["chain"] == 0
+    assert int(state.table.dropped) > 0 and got["max_passes"] >= (5 if name == "cascade" else 2)
+
+
+def test_flagged_batches_take_the_chain_kernel(cuda_device):
+    """An id outside [0, C) on an edge that counts, a negative degree or hi
+    past lo's degree sends a batch to the chain kernel; a masked odd id or
+    odd values in valid slots do not.  Every batch equals the twins."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    rng = np.random.default_rng(7)
+    start = _tri_start(16, cuda_device)
+    clean = _tri_clean(rng, 2000)
+    cases = [("clean", clean, "parallel")]
+    for u, v in ((-1, 3), (5, TRI_C), (TRI_C + 3, 2)):
+        s, t, m = (a.copy() for a in clean)
+        s[9], t[9], m[9] = u, v, True
+        cases.append((f"({u}, {v})", (s, t, m), "chain"))
+        m = m.copy()
+        m[9] = False
+        cases.append((f"({u}, {v}) masked", (s, t, m), "parallel"))
+    for name, batch, path in cases:
+        et.reset_stats()
+        _both_folds_equal(start, tuple(torch.from_numpy(a).to(cuda_device) for a in batch), 64)
+        got = et.stats(cuda_device)
+        assert got[path] == 2 and got["parallel" if path == "chain" else "chain"] == 0, name
+    # a pre-batch state with -1, C + 5, -3 in valid slots and a degree past D: parallel
+    odd = et.clone_state(start)
+    odd.table.nbrs[2, 0], odd.table.nbrs[3, 0], odd.table.nbrs[4, 0] = -1, TRI_C + 5, -3
+    odd.table.deg[2:5].clamp_(min=1)
+    odd.table.deg[5] = 17
+    s, t, m = (torch.from_numpy(a).to(cuda_device) for a in clean)
+    s[:3], t[:3] = 2, torch.tensor([3, 4, 5], dtype=torch.int32)
+    et.reset_stats()
+    _both_folds_equal(odd, (s, t, m), 64)
+    assert et.stats(cuda_device)["parallel"] == 2
+    # hi past lo's degree, and a negative degree: the chain kernel
+    for fix in ("past", "negative"):
+        held = et.clone_state(start)
+        if fix == "past":
+            held.table.deg[7] = 1
+            held.table.nbrs[7, 1:] = -1
+            held.table.nbrs[7, 2] = 9
+            s1, t1 = 7, 9
+        else:
+            held.table.deg[8] = -1
+            s1, t1 = 7, 8
+        s, t, m = (torch.from_numpy(a).to(cuda_device) for a in clean)
+        s[0], t[0], m[0] = s1, t1, True
+        et.reset_stats()
+        _both_folds_equal(held, (s, t, m), 64)
+        assert et.stats(cuda_device)["chain"] == 2, fix
+
+
+@pytest.mark.parametrize("d", [4, 64, 256])
+def test_parallel_fold_carries_a_state_across_batches(cuda_device, d):
+    """Six batches in turn, the state carried by each fold, equal to the
+    twins after every batch; all on the parallel path."""
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    rng = np.random.default_rng(d)
+    block, trace = _empty_state(TRI_C, d, cuda_device), _empty_state(TRI_C, d, cuda_device)
+    want_b, want_t = et.clone_state(block), et.clone_state(trace)
+    et.reset_stats()
+    for i in range(6):
+        s, t, m = (torch.from_numpy(a).to(cuda_device) for a in _tri_clean(rng, 4096 if i % 2 else 3001))
+        et.triangle_update_block(block, s, t, m)
+        want_b = et.triangle_update_block_plain(want_b, s, t, m)
+        assert _tri_equal(block, want_b), i
+        _, got_l, got_g = et.triangle_update(trace, s[:700], t[:700], m[:700])
+        want_t, want_l, want_g = et.triangle_update_plain(want_t, s[:700], t[:700], m[:700])
+        assert _tri_equal(trace, want_t) and torch.equal(got_l, want_l) and torch.equal(got_g, want_g), i
+    got = et.stats(cuda_device)
+    assert got["parallel"] == 12 and got["chain"] == 0
+    assert int(block.global_count) > 0 and int(block.table.dropped) > 0  # the hub passes D
+
+
+@pytest.mark.parametrize("n,c,d,chunk,trace", [
+    (1 << 16, 1 << 20, 64, 64, False), (1 << 16, 1 << 18, 64, 64, False), (1 << 12, 1 << 20, 64, 1, True),
+    (3001, 1024, 4, 7, False), (1, 1, 1, 1, True), (700, 1024, 256, 1, True), (77, 300, 5, 256, False)])
+def test_exact_scratch_is_the_kernels_and_kept_a_shape(cuda_device, n, c, d, chunk, trace):
+    """A call's scratch is the bytes exact_scratch_bytes gives, allocated at
+    the first call of a shape and reused by the next."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import exact_triangles as et
+
+    r = 1 if trace else min(chunk, n)
+    want = _cuda.library("exact_triangles.cu").exact_scratch_bytes(n, c, d, r, int(trace))
+    rng = np.random.default_rng(n)
+    s, t = (torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).to(cuda_device) for _ in range(2))
+    m = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    state = _empty_state(c, d, cuda_device)
+    et._scratch.clear()
+    held = []
+    for _ in range(2):
+        if trace:
+            et.triangle_update(state, s, t, m)
+        else:
+            et.triangle_update_block(state, s, t, m, chunk)
+        held.append([(key[2:], buf.numel(), buf.data_ptr()) for key, buf in et._scratch.items()])
+    assert want > 0 and held[0] == held[1] and [h[:2] for h in held[0]] == [((n, c, d, r, trace), want)]
