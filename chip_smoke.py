@@ -204,6 +204,33 @@ times an earlier ``exact_triangles.cu`` with the one-launch C interface
 (5e8e61b's) in turns with the current folds at (a) batch 4 and the last
 batch, (b) batch 15 and (c), and holds their states equal.
 
+Phase 16 drives the masked-semiring SpMV core (``ops/spmv.py``) and its
+four algorithms on Graph500's Kronecker generator (scale 20, edge factor
+16, A, B, C = 0.57, 0.19, 0.19, default_rng(7): 16,777,216 edges over
+2^20 vertices, duplicates and self-loops kept, weights U[0, 1) f32) cut
+into 4 tumbling windows of 2^22 edges: (a) ``windowed_sssp`` from the
+vertex with the most out-edges in window 0, in auto, push and pull:
+distances bit-equal across modes; each window's ``spmv_fixpoint``
+(``csrc/spmv.cu``, one cooperative launch a fixpoint) equal to its twin on
+the card (x, frontier, iterations, push/pull split, switches, histogram);
+reached sets equal to scipy's Dijkstra (the least weight of repeated
+edges) and distances within rtol 1e-5 of its float64; (b)
+``windowed_pagerank`` (damping 0.85, tol 1e-6, max_iters 100): push, pull
+and a second run bit-identical; ``pagerank_fixpoint`` against its twin on
+the card: in_window exact, iterations within 1, ranks within rtol 1e-5 /
+atol 1e-9, each window's ranks summing to 1 within 1e-4; (c)
+``windowed_kcore``: each window's cores and rounds equal to the twin's
+rounds on the card (``kcore_round``, ``csrc/kcore.cu``, one C call a
+bucket a round), and on a scale-14 pane equal to Batagelj-Zaversnik
+peeling; (d) ``IterativeConnectedComponents`` over the CC bench's first 16
+batches (phase 7's stream): every record block equal to a run on the
+twin, final labels equal to scipy's components; (e) the JAX bench's own
+SpMV shape (bench.py:785-865: C = 2^15, 2^18 edges, Zipf 1.2 sources,
+default_rng(17)): the force-push over auto wall ratio, PageRank's
+edge-iterations/s, auto, push and pull bit-equal.  Each kernel is timed on
+a held stream (the fixpoint and PageRank calls of window 0, and one k-core
+round: every bucket of window 0) beside its bytes bound and its twin.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -214,6 +241,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -4114,6 +4142,485 @@ def phase_exact(dev, cpm, parent=None) -> dict:
     return res
 
 
+SP_SCALE, SP_EDGE_FACTOR, SP_SEED = 20, 16, 7  # (a)-(c): Graph500 scale 20, default_rng(7)
+SP_WIN_EDGES = 1 << 22  # 4 tumbling windows of the 16,777,216 edges
+SP_BATCH = 1 << 21
+SP_ORACLE_SCALE = 14  # (c): the pane the numpy peeling oracle takes
+SP_IC_BATCHES = 16  # (d): the CC bench's 50 batches cut to 16 for time
+SP_BENCH_C, SP_BENCH_E, SP_BENCH_SEED = 1 << 15, 1 << 18, 17  # (e): bench.py:785-865
+SP_REPS = 10  # held-stream calls (a fixpoint is one launch; a k-core sweep ~2 a bucket)
+
+
+def sssp_oracle(src, dst, w, n: int, source: int) -> np.ndarray:
+    """float64 distances from ``source`` by scipy's Dijkstra over the
+    window's edges, the least weight of each repeated (src, dst) kept
+    (scipy's sparse matrices would sum repeats); inf where unreached."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    key = src.astype(np.int64) * n + dst
+    order = np.lexsort((w, key))
+    first = np.ones(len(order), bool)
+    first[1:] = key[order][1:] != key[order][:-1]
+    sel = order[first]
+    g = csr_matrix((w[sel].astype(np.float64), (src[sel], dst[sel])), shape=(n, n))
+    return dijkstra(g, directed=True, indices=source)
+
+
+def core_oracle(src, dst, n: int) -> np.ndarray:
+    """Core numbers of the edges' simple undirected graph by Batagelj and
+    Zaversnik's bucket peeling (arXiv cs/0310049), in plain Python."""
+    a, b = np.minimum(src, dst).astype(np.int64), np.maximum(src, dst).astype(np.int64)
+    keep = a != b
+    key = np.unique(a[keep] * n + b[keep])
+    s = np.concatenate([key // n, key % n])
+    t = np.concatenate([key % n, key // n])
+    order = np.argsort(s, kind="stable")
+    nbr = t[order].tolist()
+    deg_np = np.bincount(s, minlength=n)
+    off = np.concatenate([[0], np.cumsum(deg_np)]).tolist()
+    deg = deg_np.tolist()
+    md = max(deg)
+    bins = [0] * (md + 1)
+    for d in deg:
+        bins[d] += 1
+    start = 0
+    for d in range(md + 1):
+        bins[d], start = start, start + bins[d]
+    pos, vert = [0] * n, [0] * n
+    for v in range(n):
+        pos[v] = bins[deg[v]]
+        vert[pos[v]] = v
+        bins[deg[v]] += 1
+    for d in range(md, 0, -1):
+        bins[d] = bins[d - 1]
+    bins[0] = 0
+    for i in range(n):
+        v = vert[i]
+        for j in range(off[v], off[v + 1]):
+            u = nbr[j]
+            if deg[u] > deg[v]:
+                du, pu = deg[u], pos[u]
+                pw = bins[du]
+                w = vert[pw]
+                if u != w:
+                    pos[u], pos[w] = pw, pu
+                    vert[pu], vert[pw] = w, u
+                bins[du] += 1
+                deg[u] -= 1
+    return np.asarray(deg, np.int64)
+
+
+def sp_stream(src, dst, w, cfg, dev):
+    """A valued stream over host arrays, batches of SP_BATCH uploaded to
+    ``dev`` (the windowed path reads them back and cuts the panes)."""
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+
+    def factory():
+        for i in range(0, len(src), SP_BATCH):
+            yield EdgeBatch.from_arrays(src[i : i + SP_BATCH], dst[i : i + SP_BATCH], val=w[i : i + SP_BATCH],
+                                        device=dev)
+
+    return EdgeStream.from_batches(factory, cfg, device=dev)
+
+
+def fixpoint_bytes(log, n: int, edges: int) -> int:
+    """The bytes a fixpoint's iterations must move in the pane's layout,
+    from the twin's log of (pull, frontier size, frontier edges): a pull
+    reads src and weight of the dst-sorted copy (8 B an edge; the segments
+    come from d_off), d_off and x and writes x and the frontier (13 B a
+    vertex); a push reads the frontier's rows (8 B an edge) and their two
+    offsets (8 B a frontier vertex), and reads and writes x and the
+    frontier (10 B a vertex)."""
+    return sum(8 * edges + 13 * n if pull else 8 * fe + 8 * f + 10 * n for pull, f, fe in log)
+
+
+def pagerank_bytes(iters: int, n: int, edges: int) -> int:
+    """An iteration reads d_src (4 B an edge), off, d_off and r and writes
+    r_new (16 B a vertex); in_window is written once."""
+    return iters * (4 * edges + 16 * n) + n
+
+
+def kcore_sweep_bytes(buckets) -> int:
+    """One round's bytes, each distinct byte of a bucket once: valid (1 B
+    a slot), nbrs of the valid slots (4 B each), the distinct estimates
+    read (4 B a distinct neighbour or key), the keys read and c written at
+    them (8 B a row)."""
+    import torch
+
+    total = 0
+    for b in buckets:
+        live = b.nbrs[b.valid]
+        total += b.valid.numel() + 4 * live.numel() + 8 * b.keys.numel()
+        total += 4 * int(torch.unique(torch.cat([live, b.keys])).numel())
+    return total
+
+
+def phase_spmv(dev, cpm, cc_data: dict) -> dict:
+    """Phase 16: the SpMV core and its algorithms on the card at Graph500
+    scale 20: (a) SSSP, (b) PageRank, (c) k-core, each held against its
+    twin on the card and (a), (c) against scipy / numpy oracles; (d)
+    iterative CC over the CC bench's stream; (e) the JAX bench's SpMV
+    shape."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.windows import WindowPane
+    from gelly_streaming_tpu_torch.library import IterativeConnectedComponents, windowed_kcore, windowed_pagerank
+    from gelly_streaming_tpu_torch.library import kcore as kc
+    from gelly_streaming_tpu_torch.library import windowed_sssp
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import spmv
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    res = {}
+    t_phase = time.perf_counter()
+    c = 1 << SP_SCALE
+    rng = np.random.default_rng(SP_SEED)
+    t0 = time.perf_counter()
+    src, dst = rmat_edges(SP_SCALE, SP_EDGE_FACTOR, ET_RMAT_ABC, rng)
+    w = rng.random(len(src), dtype=np.float32)
+    n_win = len(src) // SP_WIN_EDGES
+    wins = [slice(k * SP_WIN_EDGES, (k + 1) * SP_WIN_EDGES) for k in range(n_win)]
+    log(f"  Graph500 Kronecker scale {SP_SCALE}, edge factor {SP_EDGE_FACTOR} (A, B, C = {ET_RMAT_ABC}, "
+        f"default_rng({SP_SEED})): {len(src)} edges over C = {c}, weights U[0, 1) f32, {n_win} tumbling windows of "
+        f"{SP_WIN_EDGES} edges ({time.perf_counter() - t0:.2f} s to generate)")
+    base = StreamConfig(vertex_capacity=c, batch_size=SP_BATCH, ingest_window_edges=SP_WIN_EDGES)
+
+    def blocks_of(out):
+        return [tuple(np.asarray(col) for col in b.columns) for b in out.blocks()]
+
+    def same_blocks(a, b) -> bool:
+        return len(a) == len(b) and all(all(np.array_equal(x, y) for x, y in zip(p, q)) for p, q in zip(a, b))
+
+    # (a) SSSP ---------------------------------------------------------------
+    source = int(np.bincount(src[wins[0]], minlength=c).argmax())
+    runs = {}
+    for mode in ("auto", "push", "pull", "auto"):  # the first auto run warms the path
+        cfg = dataclasses.replace(base, spmv_direction=mode)
+        metrics.reset_spmv_stats()
+        spmv.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = blocks_of(windowed_sssp(sp_stream(src, dst, w, cfg, dev), source, WINDOW_MS))
+        secs = time.perf_counter() - t0
+        runs[mode] = (blocks, secs, metrics.spmv_stats(), dict(spmv.LAUNCHES))
+    blocks, secs, stats, launches = runs["auto"]
+    if launches["spmv_fixpoint"] != n_win:
+        raise RuntimeError(f"(a): spmv_fixpoint launched {launches['spmv_fixpoint']} times for {n_win} windows")
+    for mode in ("push", "pull"):
+        if not same_blocks(runs[mode][0], blocks):
+            raise RuntimeError(f"(a): {mode} distances differ from auto")
+    log(f"  (a) windowed_sssp from vertex {source} (most out-edges in window 0): auto {secs:.3f} s "
+        f"({len(src) / secs:.6g} edges/s), push {runs['push'][1]:.3f} s, pull {runs['pull'][1]:.3f} s; "
+        f"distances bit-equal across modes; {sum(len(b[0]) for b in blocks)} records")
+    log(f"      auto: {stats['spmv_iters_total']} iterations ({stats['spmv_push_iters']} push, "
+        f"{stats['spmv_pull_iters']} pull, {stats['spmv_direction_switches']} switches), density histogram "
+        f"{[stats[f'spmv_density_hist_{b}'] for b in range(metrics.SPMV_DENSITY_BINS)]}")
+    a_rows, a_err, oracle_s, rel = [], 0.0, 0.0, 0.0
+    thr = spmv.resolve_threshold(base)
+    for k, win in enumerate(wins):
+        op = spmv.prepare_pane(src[win], dst[win], w[win], np.ones(SP_WIN_EDGES, bool), c, device=dev)
+        x0 = torch.full((c,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=dev)
+        x0[source] = 0.0
+        fm0 = x0 != spmv.MIN_PLUS.identity
+        got = spmv._fixpoint_cuda(spmv.MIN_PLUS, op, x0, fm0, thr, c - 1)
+        twin_log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = spmv.fixpoint_plain(spmv.MIN_PLUS, op, x0, fm0, thr, c - 1, twin_log)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(got.x, want.x) and torch.equal(got.frontier, want.frontier)) or got[2:] != want[2:]:
+            raise RuntimeError(f"(a) window {k}: the kernel differs from its twin: {got[2:]} against {want[2:]}")
+        a_err = max(a_err, float((got.x - want.x).abs().max()))
+        x = got.x.cpu().numpy()
+        vids = np.nonzero(x < 1e30)[0]
+        if not (np.array_equal(blocks[k][0], vids) and np.array_equal(blocks[k][1], x[vids])):
+            raise RuntimeError(f"(a) window {k}: windowed_sssp's records differ from the kernel's x")
+        t0 = time.perf_counter()
+        ref = sssp_oracle(src[win], dst[win], w[win], c, source)
+        oracle_s += time.perf_counter() - t0
+        reached = np.isfinite(ref)
+        if not np.array_equal(reached, x < 1e30):
+            raise RuntimeError(f"(a) window {k}: reached set differs from scipy's "
+                               f"({int(reached.sum())} against {int((x < 1e30).sum())})")
+        r_err = float(np.max(np.abs(x[reached] - ref[reached]) / np.maximum(ref[reached], 1e-30)))
+        if not np.allclose(x[reached], ref[reached], rtol=1e-5, atol=0):
+            raise RuntimeError(f"(a) window {k}: distances off scipy's by {r_err} (rtol 1e-5)")
+        rel = max(rel, r_err)
+        a_rows.append({"iters": got.iters, "push": got.push_iters, "pull": got.pull_iters, "switches": got.switches,
+                       "reached": int(reached.sum()), "plain_ms": plain_ms,
+                       "bound_ms": fixpoint_bytes(twin_log, c, SP_WIN_EDGES) / HBM_BYTES_PER_S * 1e3})
+        if k == 0:
+            def fix_fn(op=op, x0=x0, fm0=fm0):
+                return spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, thr, c - 1)
+
+            d_ms, h_us = device_ms(fix_fn, SP_REPS, cpm)
+            fix_ms = cuda_ms(fix_fn, SP_REPS)
+            pull_ms = device_ms(lambda: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, -1.0, c - 1), SP_REPS, cpm)[0]
+            push_ms = device_ms(lambda: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, 2.0, c - 1), SP_REPS, cpm)[0]
+    for k, row in enumerate(a_rows):
+        log(f"      window {k}: {row['iters']} iterations ({row['push']} push, {row['pull']} pull, {row['switches']} "
+            f"switches), {row['reached']} reached; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms")
+    log(f"      kernel = twin on the card (x, frontier, counters, histogram) and = windowed_sssp's records in every "
+        f"window; reached sets = scipy's dijkstra, distances within rtol {rel:.3g} of its float64 "
+        f"({oracle_s:.2f} s of scipy)")
+    log(f"      spmv_fixpoint window 0: device {d_ms:.5f} ms held ({d_ms / a_rows[0]['bound_ms']:.2f}x its bound "
+        f"{a_rows[0]['bound_ms']:.5f} ms), host {h_us:.2f} us a call, back-to-back events {fix_ms:.5f} ms; forced "
+        f"pull {pull_ms:.5f} ms, forced push {push_ms:.5f} ms")
+    res["sssp"] = {"launches": launches["spmv_fixpoint"], "err": a_err, "ms": fix_ms, "device_ms": d_ms,
+                   "host_us": h_us, "plain_ms": a_rows[0]["plain_ms"], "bound_ms": a_rows[0]["bound_ms"],
+                   "edges_per_s": len(src) / secs, "windows": a_rows, "forced_pull_ms": pull_ms,
+                   "forced_push_ms": push_ms, "scipy_rel_err": rel, "stats": stats,
+                   "mode_s": {m: runs[m][1] for m in ("auto", "push", "pull")}}
+
+    # (b) PageRank -----------------------------------------------------------
+    pr = {}
+    for label, mode in (("push", ""), ("pull", "pull"), ("push2", "")):
+        cfg = dataclasses.replace(base, spmv_direction=mode)
+        metrics.reset_spmv_stats()
+        spmv.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = blocks_of(windowed_pagerank(sp_stream(src, dst, w, cfg, dev), WINDOW_MS, damping=0.85, tol=1e-6,
+                                             max_iters=100))
+        pr[label] = (blocks, time.perf_counter() - t0, metrics.spmv_stats(), dict(spmv.LAUNCHES))
+    blocks, secs, stats, launches = pr["push2"]
+    if not (same_blocks(pr["pull"][0], blocks) and same_blocks(pr["push"][0], blocks)):
+        raise RuntimeError("(b): push, pull and a second run are not bit-identical")
+    if launches["pagerank_fixpoint"] != n_win or pr["pull"][2]["spmv_pull_iters"] != stats["spmv_push_iters"]:
+        raise RuntimeError(f"(b): launches {launches}, pull run {pr['pull'][2]}, push run {stats}")
+    iters_total = stats["spmv_push_iters"]
+    b_rows, pr_err, pr_rel = [], 0.0, 0.0
+    for k, win in enumerate(wins):
+        op = spmv.prepare_pane(src[win], dst[win], None, np.ones(SP_WIN_EDGES, bool), c, device=dev)
+        r, in_w, iters = spmv.pagerank_fixpoint(op, damping=0.85, tol=1e-6, max_iters=100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_r, want_in, want_it = spmv.pagerank_fixpoint_plain(op, damping=0.85, tol=1e-6, max_iters=100)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        vids = np.nonzero(in_w.cpu().numpy())[0]
+        if not (np.array_equal(blocks[k][0], vids) and np.array_equal(blocks[k][1], r.cpu().numpy()[vids])):
+            raise RuntimeError(f"(b) window {k}: windowed_pagerank's records differ from the kernel's ranks")
+        if not torch.equal(in_w, want_in) or abs(iters - want_it) > 1:
+            raise RuntimeError(f"(b) window {k}: in_window or iterations ({iters} against {want_it}) differ")
+        if not torch.allclose(r, want_r, rtol=1e-5, atol=1e-9):
+            raise RuntimeError(f"(b) window {k}: ranks off the twin's beyond rtol 1e-5 / atol 1e-9")
+        total = float(r.double().sum())
+        if abs(total - 1.0) > 1e-4:
+            raise RuntimeError(f"(b) window {k}: ranks sum to {total}")
+        pr_err = max(pr_err, float((r - want_r).abs().max()))
+        sel = want_r > 0
+        pr_rel = max(pr_rel, float(((r - want_r).abs()[sel] / want_r[sel]).max()))
+        e_m = SP_WIN_EDGES
+        b_rows.append({"iters": iters, "twin_iters": want_it, "vertices": len(vids), "sum": total,
+                       "plain_ms": plain_ms, "bound_ms": pagerank_bytes(iters, c, e_m) / HBM_BYTES_PER_S * 1e3})
+        if k == 0:
+            def pr_fn(op=op):
+                return spmv.pagerank_launch(op, damping=0.85, tol=1e-6, max_iters=100)
+
+            pr_d_ms, pr_h_us = device_ms(pr_fn, SP_REPS, cpm)
+            pr_ms = cuda_ms(pr_fn, SP_REPS)
+    for k, row in enumerate(b_rows):
+        log(f"      window {k}: {row['iters']} iterations (twin {row['twin_iters']}), {row['vertices']} vertices, "
+            f"ranks sum {row['sum']:.7f}; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms")
+    log(f"  (b) windowed_pagerank (damping 0.85, tol 1e-6, max_iters 100): {secs:.3f} s, "
+        f"{iters_total * SP_WIN_EDGES / secs:.6g} edge-iterations/s end to end; push, pull and a second run "
+        f"bit-identical; against the twin on the card: in_window exact, iterations within 1, ranks max abs "
+        f"{pr_err:.3g}, max rel {pr_rel:.3g}")
+    log(f"      pagerank_fixpoint window 0: device {pr_d_ms:.5f} ms held ({pr_d_ms / b_rows[0]['iters']:.5f} ms an "
+        f"iteration; {pr_d_ms / b_rows[0]['bound_ms']:.2f}x its bound {b_rows[0]['bound_ms']:.5f} ms), host "
+        f"{pr_h_us:.2f} us a call, back-to-back events {pr_ms:.5f} ms")
+    res["pagerank"] = {"launches": launches["pagerank_fixpoint"], "err": pr_err, "rel_err": pr_rel, "ms": pr_ms,
+                       "device_ms": pr_d_ms, "host_us": pr_h_us, "plain_ms": b_rows[0]["plain_ms"],
+                       "bound_ms": b_rows[0]["bound_ms"], "ms_an_iteration": pr_d_ms / b_rows[0]["iters"],
+                       "edge_iterations_per_s": iters_total * SP_WIN_EDGES / secs, "windows": b_rows}
+
+    # (c) k-core -------------------------------------------------------------
+    def twin_round(cc, keys, nbrs, valid):
+        return cc.copy_(spmv.kcore_round_plain(cc, keys, nbrs, valid))
+
+    spmv.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = blocks_of(windowed_kcore(sp_stream(src, dst, w, base, dev), WINDOW_MS))
+    secs = time.perf_counter() - t0
+    k_launches = spmv.LAUNCHES["kcore_round"]
+    c_rows, k_err = [], 0
+    for k, win in enumerate(wins):
+        t0 = time.perf_counter()
+        simple = kc.simple_pane_edges(WindowPane(k, -1, src[win], dst[win], None, None), c)
+        dedupe_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cores, rounds = kc.pane_cores(*simple, c, dev)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want, want_rounds = kc.pane_cores(*simple, c, dev, round_fn=twin_round)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not torch.equal(cores, want) or rounds != want_rounds:
+            raise RuntimeError(f"(c) window {k}: cores or rounds ({rounds}, {want_rounds}) differ from the twin's")
+        k_err = max(k_err, int((cores - want).abs().max()))
+        h = cores.cpu().numpy()
+        vids = np.nonzero(h > 0)[0]
+        if not (np.array_equal(blocks[k][0], vids) and np.array_equal(blocks[k][1], h[vids])):
+            raise RuntimeError(f"(c) window {k}: windowed_kcore's records differ")
+        s_t, d_t, m_t = (torch.from_numpy(a).to(dev) for a in simple)
+        buckets = [b for b in nbh.build_buckets(s_t, d_t, None, m_t) if b.num_keys > 0]
+
+        def sweep(cc, buckets=buckets):
+            for b in buckets:
+                spmv.kcore_round(cc, b.keys, b.nbrs, b.valid)
+            return cc
+
+        def twin_sweep(buckets=buckets, cores=cores):
+            for b in buckets:
+                spmv.kcore_round_plain(cores, b.keys, b.nbrs, b.valid)
+
+        # each round of the main path replayed from the estimates it started
+        # from (the degrees, then each round's result), so every round is
+        # timed as pane_cores ran it: early rounds search up to min(deg, D)
+        starts = [spmv.scatter_into(spmv.PLUS_ONE, c, s_t, torch.ones_like(s_t), m_t)]
+        for _ in range(rounds):
+            starts.append(sweep(starts[-1].clone()))
+        if not torch.equal(starts[-1], cores):
+            raise RuntimeError(f"(c) window {k}: the replayed rounds do not reach pane_cores' cores")
+        cw = torch.empty_like(cores)
+        copy_ms = device_ms(lambda: cw.copy_(starts[0]), SP_REPS, cpm)[0]
+        timed = [device_ms(lambda st=st: sweep(cw.copy_(st)), SP_REPS, cpm) for st in starts[:-1]]
+        round_ms = [d - copy_ms for d, _ in timed]
+
+        def replay(starts=starts):
+            sweep(cw.copy_(starts[0]))
+            for _ in range(len(starts) - 2):
+                sweep(cw)
+
+        c_rows.append({"rounds": rounds, "kmax": int(h.max()), "buckets": len(buckets),
+                       "widths": [b.nbrs.shape[1] for b in buckets][-3:], "dedupe_ms": dedupe_ms,
+                       "call_ms": call_ms, "sweep_ms": sum(round_ms) / rounds, "first_round_ms": round_ms[0],
+                       "last_round_ms": round_ms[-1], "max_round_ms": max(round_ms), "copy_ms": copy_ms,
+                       "sweep_host_us": sum(u for _, u in timed) / rounds,
+                       "sweep_events_ms": cuda_ms(replay, 2, warmup=1) / rounds,
+                       "plain_sweep_ms": cuda_ms(twin_sweep, 2), "plain_s": plain_s,
+                       "bound_ms": kcore_sweep_bytes(buckets) / HBM_BYTES_PER_S * 1e3})
+    if k_launches != sum(row["rounds"] * row["buckets"] for row in c_rows):
+        raise RuntimeError(f"(c): kcore_round launched {k_launches} times, not once a bucket a round")
+    for k, row in enumerate(c_rows):
+        log(f"      window {k}: {row['rounds']} rounds, k_max {row['kmax']}, {row['buckets']} buckets (widest "
+            f"{row['widths']}); host dedupe {row['dedupe_ms']:.1f} ms; pane_cores {row['call_ms']:.1f} ms; a round "
+            f"(every bucket), each replayed from its own start, device held: mean {row['sweep_ms']:.5f} ms "
+            f"({row['sweep_ms'] / row['bound_ms']:.2f}x its bound {row['bound_ms']:.5f} ms), first (from the "
+            f"degrees) {row['first_round_ms']:.5f}, last {row['last_round_ms']:.5f}, most {row['max_round_ms']:.5f} "
+            f"(a {row['copy_ms']:.5f} ms copy of the start taken off each), host {row['sweep_host_us']:.1f} us; "
+            f"all rounds back to back by events {row['sweep_events_ms']:.5f} ms a round; twin's round "
+            f"{row['plain_sweep_ms']:.3f} ms, twin's pane {row['plain_s']:.2f} s")
+    t0 = time.perf_counter()
+    o_src, o_dst = rmat_edges(SP_ORACLE_SCALE, SP_EDGE_FACTOR, ET_RMAT_ABC, np.random.default_rng(SP_SEED))
+    o_n = 1 << SP_ORACLE_SCALE
+    o_cfg = StreamConfig(vertex_capacity=o_n, batch_size=1 << 16)
+    got = windowed_kcore(EdgeStream.from_arrays(o_src, o_dst, o_cfg, device=dev), WINDOW_MS).collect()
+    want = core_oracle(o_src, o_dst, o_n)
+    if got != [(v, int(want[v])) for v in np.nonzero(want)[0]]:
+        raise RuntimeError("(c): k-core differs from the peeling oracle on the scale-14 pane")
+    log(f"  (c) windowed_kcore: {secs:.3f} s for {n_win} windows, {len(src) / secs:.6g} edges/s end to end, "
+        f"kcore_round launched {k_launches} times (one a bucket a round); cores = the twin's on the card in every "
+        f"window; = Batagelj-Zaversnik peeling on a scale-{SP_ORACLE_SCALE} pane ({len(o_src)} edges, k_max "
+        f"{int(want.max())}; {time.perf_counter() - t0:.2f} s)")
+    row0 = c_rows[0]
+    res["kcore"] = {"launches": k_launches, "err": k_err, "ms": row0["sweep_events_ms"], "device_ms": row0["sweep_ms"],
+                    "host_us": row0["sweep_host_us"], "plain_ms": row0["plain_sweep_ms"],
+                    "bound_ms": row0["bound_ms"], "edges_per_s": len(src) / secs, "windows": c_rows}
+
+    # (d) iterative CC ---------------------------------------------------------
+    n_ic = SP_IC_BATCHES * CC_BATCH
+    i_src, i_dst = cc_data["src"][:n_ic], cc_data["dst"][:n_ic]
+    i_cfg = StreamConfig(vertex_capacity=CC_VERTICES, batch_size=CC_BATCH)
+    IterativeConnectedComponents().run(EdgeStream.from_arrays(i_src[:4096], i_dst[:4096], i_cfg, batch_size=2048,
+                                                              device=dev)).collect()  # warm
+    ic = IterativeConnectedComponents()
+    uf.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ic_blocks = blocks_of(ic.run(EdgeStream.from_arrays(i_src, i_dst, i_cfg, device=dev)))
+    ic_s = time.perf_counter() - t0
+    ic_launches = uf.LAUNCHES["union_kernel"]
+    n_rec = sum(len(b[0]) for b in ic_blocks)
+
+    def twin_cc(p, s, a, b, m):
+        p2, s2 = uf.union_edges_with_seen_plain(p, s, a, b, m)
+        return p.copy_(p2), s.copy_(s2)
+
+    ic2 = IterativeConnectedComponents()
+    ic2._kernel = twin_cc
+    twin_blocks = blocks_of(ic2.run(EdgeStream.from_arrays(i_src, i_dst, i_cfg, device=dev)))
+    want_parent, _ = cc_oracle(i_src, i_dst, CC_VERTICES)
+    if ic_launches != SP_IC_BATCHES or not same_blocks(ic_blocks, twin_blocks):
+        raise RuntimeError(f"(d): {ic_launches} union launches; records equal to the twin's: "
+                           f"{same_blocks(ic_blocks, twin_blocks)}")
+    if not (np.array_equal(ic.final_labels, want_parent) and np.array_equal(ic2.final_labels, want_parent)):
+        raise RuntimeError("(d): final labels differ from scipy's connected components")
+    log(f"  (d) IterativeConnectedComponents over the CC bench's first {SP_IC_BATCHES} batches of {CC_BATCH}: "
+        f"{ic_s:.3f} s, {n_rec / ic_s:.6g} records/s, {n_ic / ic_s:.6g} edges/s ({n_rec} records, union_kernel "
+        f"launched {ic_launches} times); every block = the twin's run on the card, final labels = scipy's")
+    res["iterative_cc"] = {"launches": ic_launches, "records_per_s": n_rec / ic_s, "edges_per_s": n_ic / ic_s,
+                           "records": n_rec, "seconds": ic_s}
+
+    # (e) the JAX bench's SpMV shape ----------------------------------------------
+    rng = np.random.default_rng(SP_BENCH_SEED)
+    b_src = ((rng.zipf(1.2, SP_BENCH_E) - 1) % SP_BENCH_C).astype(np.int32)
+    b_dst = rng.integers(0, SP_BENCH_C, SP_BENCH_E).astype(np.int32)
+    b_w = rng.random(SP_BENCH_E).astype(np.float32)
+    ones = np.ones((SP_BENCH_E,), bool)
+    op = spmv.prepare_pane(b_src, b_dst, b_w, ones, SP_BENCH_C, device=dev)
+    dist0 = torch.full((SP_BENCH_C,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=dev)
+    dist0[0] = 0.0
+
+    def run(direction):
+        out = spmv.fixpoint(spmv.MIN_PLUS, op, dist0, max_iters=SP_BENCH_C - 1, direction=direction)
+        torch.cuda.synchronize()
+        return out
+
+    op_pr = spmv.prepare_pane(b_src, b_dst, None, ones, SP_BENCH_C, device=dev)
+
+    def run_pr():
+        _, _, iters = spmv.pagerank_fixpoint(op_pr, damping=0.85, tol=1e-6, max_iters=50)
+        torch.cuda.synchronize()
+        return iters
+
+    outs = {d: run(d) for d in ("auto", "push", "pull")}
+    if not all(torch.equal(outs[d].x, outs["auto"].x) for d in ("push", "pull")):
+        raise RuntimeError("(e): auto, push and pull differ")
+    run_pr()
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    trials = [(wall(lambda: run("auto")), wall(lambda: run("push"))) for _ in range(3)]
+    auto_w, push_w = min(t for t, _ in trials), min(t for _, t in trials)
+    t0 = time.perf_counter()
+    pr_iters = run_pr()
+    pr_w = time.perf_counter() - t0
+    e_auto = outs["auto"]
+    log(f"  (e) the JAX bench's SpMV shape (C = {SP_BENCH_C}, {SP_BENCH_E} edges, Zipf 1.2 sources, "
+        f"default_rng({SP_BENCH_SEED})): force-push / auto wall {push_w / auto_w:.4f} (auto {auto_w * 1e3:.3f} ms, "
+        f"push {push_w * 1e3:.3f} ms; auto {e_auto.iters} iterations: {e_auto.push_iters} push, "
+        f"{e_auto.pull_iters} pull); PageRank {pr_iters} iterations, {SP_BENCH_E * pr_iters / pr_w:.6g} "
+        f"edge-iterations/s; auto, push and pull bit-equal")
+    res["bench"] = {"spmv_direction_speedup": push_w / auto_w, "auto_ms": auto_w * 1e3, "push_ms": push_w * 1e3,
+                    "pagerank_eps": SP_BENCH_E * pr_iters / pr_w, "iters": e_auto.iters,
+                    "push_iters": e_auto.push_iters, "pull_iters": e_auto.pull_iters}
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -4173,7 +4680,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = gpu_name_and_power()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card}")
-    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__}")
 
     log("phase 1: build kernels")
     t0 = time.perf_counter()
@@ -4434,6 +4941,8 @@ def main(argv=None) -> int:
     log("phase 15: the streaming ExactTriangleCount on the card")
     ex = phase_exact(dev, cpm, parent_exact_calls(load_baseline(parent_exact_cu, PARENT_SIGNATURES["exact"]))
                      if parent_exact_cu else None)
+    log("phase 16: the SpMV core and its algorithms (SSSP, PageRank, k-core, iterative CC) on the card")
+    sp = phase_spmv(dev, cpm, data)
 
     kernels = [
         {
@@ -4483,6 +4992,10 @@ def main(argv=None) -> int:
             "first_call_ms": cc["first_ms"],
             "late_call_ms": cc["late_ms"],
             "rounds": cc["rounds"],
+            # the second path: ops/spmv.cc_fixpoint under IterativeConnectedComponents (phase 16 (d))
+            "also_replaces": "gelly_streaming_tpu/ops/spmv.py:585 (cc_fixpoint)",
+            "launches_iterative_cc": sp["iterative_cc"]["launches"],
+            "iterative_cc": sp["iterative_cc"],
             **{f"turns_{b}": turned[f"CC_{b}"] for b in ("first", "late", "late_c_call") if f"CC_{b}" in turned},
         },
         {
@@ -4578,6 +5091,21 @@ def main(argv=None) -> int:
             "plain_ms": ex[plain_key], "bound_ms": run["bound_ms"], "bound_by": "bytes", "library_ms": None,
             **{k: run[k] for k in ("edges_per_s", "records_per_s", "idle_pct", "paths", "split_us", "scratch_bytes",
                                    "late", "a_batch4", "a_late", "turns") if k in run}, **extra})
+    no_call = "none: no one PyTorch call computes the loop"
+    kernels += [
+        {**entry("spmv_fixpoint", "spmv.cu", "gelly_streaming_tpu/ops/spmv.py:344", sp["sssp"]),
+         "library_call": no_call, **{k: sp["sssp"][k] for k in ("edges_per_s", "windows", "forced_pull_ms",
+                                                                 "forced_push_ms", "scipy_rel_err", "mode_s")},
+         "bench": sp["bench"]},
+        {**entry("pagerank_fixpoint", "spmv.cu", "gelly_streaming_tpu/ops/spmv.py:513", sp["pagerank"]),
+         "library_call": no_call, **{k: sp["pagerank"][k] for k in ("rel_err", "ms_an_iteration",
+                                                                     "edge_iterations_per_s", "windows")}},
+        {**entry("kcore_round", "kcore.cu", "gelly_streaming_tpu/library/kcore.py:41", sp["kcore"]),
+         "library_call": no_call,
+         "timed": "a round of window 0 (every bucket, one C call each), the mean over its rounds, each replayed "
+                  "from the estimates it started from",
+         **{k: sp["kcore"][k] for k in ("edges_per_s", "windows")}},
+    ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

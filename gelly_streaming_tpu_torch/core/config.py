@@ -54,6 +54,14 @@ class StreamConfig:
         and BDV-compressed ingest of array-backed streams; 1 forces on, 0
         off, -1 (default) is off here (the port has no env switch).  Not
         ported: forcing either on raises NotImplementedError at aggregate().
+      spmv_direction: push/pull direction of the masked-SpMV fixpoints
+        (ops/spmv.py: sssp, pagerank): "push"/"pull" force one lowering for
+        every iteration; "auto" switches on frontier density; "" (default)
+        defers to the GELLY_SPMV_DIRECTION env var (default auto).  Results
+        are identical in every mode; this is a performance knob only.
+      direction_threshold: the frontier density (|frontier| / |active
+        vertices|) above which "auto" pulls.  -1.0 (default) defers to
+        GELLY_DIRECTION_THRESHOLD, then ops/spmv.DEFAULT_DIRECTION_THRESHOLD.
     """
 
     vertex_capacity: int = 1 << 16
@@ -71,6 +79,8 @@ class StreamConfig:
     async_windows: int = 0
     binned_ingest: int = -1
     wire_compress: int = -1
+    spmv_direction: str = ""
+    direction_threshold: float = -1.0
 
     def __post_init__(self):
         if self.wire_encoding not in ("auto", "plain", "ef40"):
@@ -98,6 +108,17 @@ class StreamConfig:
             raise ValueError("binned_ingest must be -1 (auto), 0, or 1")
         if self.wire_compress not in (-1, 0, 1):
             raise ValueError("wire_compress must be -1 (auto), 0, or 1")
+        if self.spmv_direction not in ("", "auto", "push", "pull"):
+            raise ValueError(
+                "spmv_direction must be ''/auto/push/pull "
+                "('' defers to GELLY_SPMV_DIRECTION)"
+            )
+        if self.direction_threshold != -1.0 and not (
+            0.0 <= self.direction_threshold <= 1.0
+        ):
+            raise ValueError(
+                "direction_threshold must be -1 (defer) or a density in [0, 1]"
+            )
         if self.wire_compress == 1 and self.binned_ingest == 0:
             raise ValueError(
                 "wire_compress=1 needs binned batches (delta encoding rides "

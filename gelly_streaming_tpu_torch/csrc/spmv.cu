@@ -1,0 +1,742 @@
+// The masked-semiring SpMV core on Hopper (sm_90a): the direction-optimized
+// fixpoint, the PageRank iteration and the one-shot products, behind a
+// plain C interface loaded with ctypes (gelly_streaming_tpu_torch/ops/
+// _cuda.py, ops/spmv.py).
+//
+// Replaces two XLA loops of the JAX package (gelly_streaming_tpu/ops/
+// spmv.py), not Pallas kernels:
+//   - _build_run (:344-408), driven by fixpoint (:427-505): the semiring
+//     while_loop x = combine(x, A^T x) whose every iteration picks push
+//     (_push_product, :225-242: the frontier's CSR rows scattered) or pull
+//     (_pull_product, :245-252: a gather over the dst-sorted copy and a
+//     sorted segment reduce) by frontier density against a threshold;
+//   - pagerank_fixpoint's while_loop (:513-583): the damped power
+//     iteration with dangling mass, to an L1 tolerance.
+// PyTorch has no device-side loop and a host loop would sync on every
+// iteration, so each loop is one cooperative launch (a persistent grid of
+// co-resident blocks) whose phases are separated by grid-wide syncs; the
+// loop's own decisions (the frontier's size, the delta) are reduced on the
+// card and read there.  One C call runs a whole fixpoint.
+//
+// The pane (ops/spmv.prepare_pane): the masked edges sorted stably by src
+// (s_dst, s_w and the CSR offsets off[C + 1]) and by dst (d_src, d_w and
+// d_off[C + 1]).  Masked-out rows sort past every real key, so the rows
+// and segments [off[v], off[v + 1]) and [d_off[d], d_off[d + 1]) hold
+// masked edges only and no mask is read.
+//
+// Products (shared by the fixpoint, the PageRank iteration and the
+// one-shot spmv_product_launch, so spmv_dense and spmsv_frontier on the
+// card run the fixpoint's own code):
+//   - pull: destination d reduces its segment of the dst-sorted copy,
+//     add over e of mul(x[d_src[e]], d_w[e]).  A warp takes 32
+//     consecutive destinations; a segment of up to kShort edges is walked
+//     by its own lane, a longer one by the whole warp (lanes stride it and
+//     reduce by a butterfly).  The order of a sum depends on the data
+//     alone, so every run gives the same bits.
+//   - push (min semirings): a warp takes 32 consecutive vertices and walks
+//     the CSR rows of those in the frontier (short rows a lane, long rows
+//     the warp), combining each candidate into the target by atomicMin,
+//     issued only where a read shows it would lower the entry.  min is
+//     order-free, so atomics give the JAX package's values exactly.  The
+//     f32 min is an int atomicMin for a non-negative candidate and an
+//     unsigned atomicMax for a negative one: both orders agree with the
+//     float order for every sign.
+//   - push of a sum semiring (spmsv_frontier of PLUS_TIMES / PLUS_ONE): the
+//     pull's ordered segment sum over the edges whose source is in the
+//     frontier; no float atomics.
+// Index rules (streams that validate nothing): a gather of x at an id
+// below 0 counts from the end once, then clamps; a push's scatter target
+// counts from the end once and is dropped when still outside [0, C); a
+// pull segment exists only for d in [0, C).  Each is the rule of the JAX
+// lowering it replaces.
+//
+// Bound on the H100 (bytes): a pull iteration reads d_src and d_w (8 B
+// an edge), d_off and x and writes x and the frontier (13 B a vertex); a
+// push iteration reads the frontier's rows (8 B an edge) and their
+// offsets (8 B a frontier vertex), and reads and writes x and the
+// frontier (10 B a vertex).  A PageRank iteration reads d_src (4 B an
+// edge), off, d_off and r and writes r (16 B a vertex).  At Graph500 scale
+// 20 a window of 4,194,304 edges over 2^20 vertices is ~47.2 MB a pull
+// iteration, ~0.014 ms at 3.35 TB/s.  The fixpoint adds two grid-wide
+// syncs an iteration.
+
+#include <cooperative_groups.h>
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBins = 8;    // metrics.SPMV_DENSITY_BINS
+constexpr int kShort = 32;  // a segment or row up to this long is walked by one lane
+
+// the fixpoint's header (int32 slots, cleared by the launcher)
+enum FixSlot {
+  kStats = 0,  // 3 rotating slots of the frontier's size
+  kIters = 3,
+  kPushIters = 4,
+  kPullIters = 5,
+  kSwitches = 6,
+  kHist = 7,  // kBins bins
+  kFixHeaderInts = kHist + kBins,
+};
+
+// the PageRank header (int32 slots, cleared by the launcher), then the
+// per-vertex contributions (float[n], padded to 8 bytes), then the blocks'
+// f64 partials (two a block)
+enum RankSlot { kWindowCount = 0, kRankIters = 1, kRankHeaderInts = 32 };
+
+enum SemId { kMinPlus = 0, kPlusTimes = 1, kMinMin = 2, kPlusOne = 3 };
+
+// ---------------------------------------------------------------------------
+// semirings: add's identity, mul (with or without the edge weight), add.
+// Explicit _rn intrinsics: no FMA contraction, IEEE rounding of each step.
+
+struct MinPlus {
+  using T = float;
+  using Acc = T;
+  static constexpr bool kMin = true, kWeighted = true;
+  static __host__ __device__ __forceinline__ T ident() { return 1e30f; }
+  static __device__ __forceinline__ T mul(T x, float w) { return __fadd_rn(x, w); }
+  static __device__ __forceinline__ T add(T a, T b) { return b < a ? b : a; }
+};
+
+struct PlusTimes {
+  using T = float;
+  using Acc = T;
+  static constexpr bool kMin = false, kWeighted = true;
+  static __host__ __device__ __forceinline__ T ident() { return 0.0f; }
+  static __device__ __forceinline__ T mul(T x, float w) { return __fmul_rn(x, w); }
+  static __device__ __forceinline__ T add(T a, T b) { return __fadd_rn(a, b); }
+};
+
+struct MinMin {
+  using T = int;
+  using Acc = T;
+  static constexpr bool kMin = true, kWeighted = true;
+  static __host__ __device__ __forceinline__ T ident() { return 0x7fffffff; }
+  // the weight truncated to int32, as JAX's astype (saturating here)
+  static __device__ __forceinline__ T mul(T x, float w) {
+    const int wi = __float2int_rz(w);
+    return wi < x ? wi : x;
+  }
+  static __device__ __forceinline__ T add(T a, T b) { return b < a ? b : a; }
+};
+
+struct PlusOne {
+  using T = int;
+  using Acc = T;
+  static constexpr bool kMin = false, kWeighted = false;
+  static __host__ __device__ __forceinline__ T ident() { return 0; }
+  static __device__ __forceinline__ T mul(T, float) { return 1; }
+  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+};
+
+// PageRank's spread: the sum of the sources' f32 contributions r / deg, no
+// weight, accumulated in f64 and rounded to f32 once by the caller: the
+// result is the exact sum's rounding up to the f64 error, whatever the
+// order (a hub's 10^5 in-edges summed in f32 in two orders differ by
+// ~1e-5 relative)
+struct Spread {
+  using T = float;
+  using Acc = double;
+  static constexpr bool kMin = false, kWeighted = false;
+  static __host__ __device__ __forceinline__ Acc ident() { return 0.0; }
+  static __device__ __forceinline__ Acc mul(T x, float) { return static_cast<double>(x); }
+  static __device__ __forceinline__ Acc add(Acc a, Acc b) { return __dadd_rn(a, b); }
+};
+
+// ---------------------------------------------------------------------------
+// helpers
+
+// data written by other blocks during the call is read from the L2, never
+// from a stale L1 line
+template <class T>
+__device__ __forceinline__ T ld_cg(const T* p) {
+  return __ldcg(p);
+}
+
+__device__ __forceinline__ int gather_idx(int i, int n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+__device__ __forceinline__ int scatter_idx(int i, int n) {
+  if (i < 0) i += n;
+  return (i >= 0 && i < n) ? i : -1;
+}
+
+__device__ __forceinline__ void atomic_min(float* a, float v) {
+  if (v >= 0.0f)
+    atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
+  else
+    atomicMax(reinterpret_cast<unsigned*>(a), __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_min(int* a, int v) { atomicMin(a, v); }
+
+template <class T>
+__device__ __forceinline__ T shfl_xor(T v, int o) {
+  return __shfl_xor_sync(kFull, v, o);
+}
+
+// One edge's candidate from the dst-sorted copy, or the identity when the
+// restriction to the frontier (push of a sum semiring) drops it: the JAX
+// push expands only rows v in [0, C) that are in the frontier.
+template <class S, bool kRestrict>
+__device__ __forceinline__ typename S::Acc candidate(const int* d_src, const float* d_w,
+                                                   const typename S::T* x, const uint8_t* fm,
+                                                   int n, int e) {
+  const int raw = __ldg(d_src + e);
+  if (kRestrict && (raw < 0 || raw >= n || !ld_cg(fm + raw))) return S::ident();
+  const float w = S::kWeighted ? __ldg(d_w + e) : 1.0f;
+  return S::mul(ld_cg(x + gather_idx(raw, n)), w);
+}
+
+// Pull: the reduction of each of the 32 destinations of group g (lane l
+// owns g * 32 + l; the identity past n or for an empty segment).  Short
+// segments in order by their own lane; long ones by the warp: lane l sums
+// e = lo + l, lo + l + 32, ... in order, then a butterfly, whose result
+// every lane holds bit for bit (IEEE addition commutes).
+template <class S, bool kRestrict>
+__device__ typename S::Acc pull_group(const int* d_off, const int* d_src, const float* d_w,
+                                      const typename S::T* x, const uint8_t* fm, int n, int g,
+                                      int lane) {
+  using T = typename S::Acc;
+  const int d = g * 32 + lane;
+  int lo = 0, hi = 0;
+  if (d < n) {
+    lo = __ldg(d_off + d);
+    hi = __ldg(d_off + d + 1);
+  }
+  T acc = S::ident();
+  if (hi - lo <= kShort)
+    for (int e = lo; e < hi; ++e) acc = S::add(acc, candidate<S, kRestrict>(d_src, d_w, x, fm, n, e));
+  unsigned longs = __ballot_sync(kFull, hi - lo > kShort);
+  while (longs) {
+    const int owner = __ffs(longs) - 1;
+    longs &= longs - 1;
+    const int l2 = __shfl_sync(kFull, lo, owner), h2 = __shfl_sync(kFull, hi, owner);
+    T part = S::ident();
+    // unrolled: four edges' loads in flight before their in-order adds
+#pragma unroll 4
+    for (int e = l2 + lane; e < h2; e += 32) part = S::add(part, candidate<S, kRestrict>(d_src, d_w, x, fm, n, e));
+    for (int o = 16; o > 0; o >>= 1) part = S::add(part, shfl_xor(part, o));
+    if (lane == owner) acc = part;
+  }
+  return acc;
+}
+
+template <class S>
+__device__ __forceinline__ void relax(typename S::T* target, int n, int t_raw, typename S::T c) {
+  const int t = scatter_idx(t_raw, n);
+  if (t >= 0 && c < ld_cg(target + t)) atomic_min(target + t, c);
+}
+
+// Push (min semirings): the frontier's rows among the 32 vertices of group
+// g, each candidate min-combined into target.
+template <class S>
+__device__ void push_group(const int* off, const int* s_dst, const float* s_w,
+                           const typename S::T* x, const uint8_t* fm, typename S::T* target,
+                           int n, int g, int lane) {
+  using T = typename S::T;
+  const int v = g * 32 + lane;
+  int lo = 0, hi = 0;
+  T xv = S::ident();
+  if (v < n && ld_cg(fm + v)) {
+    lo = __ldg(off + v);
+    hi = __ldg(off + v + 1);
+    xv = ld_cg(x + v);
+  }
+  if (hi - lo <= kShort)
+    for (int e = lo; e < hi; ++e)
+      relax<S>(target, n, __ldg(s_dst + e), S::mul(xv, S::kWeighted ? __ldg(s_w + e) : 1.0f));
+  unsigned longs = __ballot_sync(kFull, hi - lo > kShort);
+  while (longs) {
+    const int owner = __ffs(longs) - 1;
+    longs &= longs - 1;
+    const int l2 = __shfl_sync(kFull, lo, owner), h2 = __shfl_sync(kFull, hi, owner);
+    const T x2 = __shfl_sync(kFull, xv, owner);
+#pragma unroll 4
+    for (int e = l2 + lane; e < h2; e += 32)
+      relax<S>(target, n, __ldg(s_dst + e), S::mul(x2, S::kWeighted ? __ldg(s_w + e) : 1.0f));
+  }
+}
+
+// A block-wide int sum, added to *dst by one atomic.  Every thread of the
+// block calls it.
+__device__ void block_add(int a, int* dst) {
+  __shared__ int sa[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = __reduce_add_sync(kFull, a);
+  if (lane == 0) sa[warp] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < kWarps; ++w) t += sa[w];
+    if (t) atomicAdd(dst, t);
+  }
+  __syncthreads();
+}
+
+// A block's f64 sum in a fixed order: each lane's value, a butterfly in
+// each warp, then the warps' sums in warp order.  Every thread gets it.
+__device__ double block_sum(double v) {
+  __shared__ double s[kWarps];
+  __shared__ double total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, shfl_xor(v, o));
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = 0.0;
+    for (int w = 0; w < kWarps; ++w) t = __dadd_rn(t, s[w]);
+    total = t;
+  }
+  __syncthreads();
+  const double out = total;
+  __syncthreads();
+  return out;
+}
+
+// The sum of the grid's block partials p[0..nb) in a fixed order, the same
+// bits in every block: lane l adds p[l], p[l + 32], ... in order, then a
+// butterfly.  Every thread of the block calls it and gets the sum.
+__device__ double grid_sum(const double* p, int nb) {
+  __shared__ double total;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    double v = 0.0;
+    for (int i = lane; i < nb; i += 32) v = __dadd_rn(v, ld_cg(p + i));
+    for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, shfl_xor(v, o));
+    if (lane == 0) total = v;
+  }
+  __syncthreads();
+  const double out = total;
+  __syncthreads();
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// one-shot products (spmv_dense, spmsv_frontier)
+
+template <class T>
+__global__ void fill_kernel(T* y, int n, T v) {
+  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < n; i += int64_t(gridDim.x) * blockDim.x)
+    y[i] = v;
+}
+
+// y = combine(identity, product): pull over every destination, or push
+// (min semirings: atomics into y, which fill_kernel set to the identity;
+// sum semirings: the frontier-restricted ordered segment sum).
+template <class S, bool kPush>
+__global__ void __launch_bounds__(kThreads) product_kernel(const int* off, const int* s_dst,
+                                                           const float* s_w, const int* d_off,
+                                                           const int* d_src, const float* d_w,
+                                                           const typename S::T* x, const uint8_t* fm,
+                                                           typename S::T* y, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * kWarps;
+  const int groups = (n + 31) / 32;
+  for (int g = blockIdx.x * kWarps + (threadIdx.x >> 5); g < groups; g += warps) {
+    if (kPush && S::kMin) {
+      push_group<S>(off, s_dst, s_w, x, fm, y, n, g, lane);
+    } else {
+      const typename S::T acc = pull_group<S, kPush>(d_off, d_src, d_w, x, fm, n, g, lane);
+      const int d = g * 32 + lane;
+      if (d < n) y[d] = S::add(S::ident(), acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the direction-optimized fixpoint (min semirings)
+//
+// xs: two buffers of n.  Iteration `it` reads buffer it & 1 (x) and writes
+// buffer (it & 1) ^ 1 (xn).  Push needs xn preset to min(x, identity): the
+// prologue sets buffer 1 so, and each iteration's frontier phase copies xn
+// into the buffer it read, which is the next iteration's target.  So after
+// the last iteration both buffers hold the result, and the caller reads
+// buffer 0 (x0 itself when no iteration ran).
+//
+// Each iteration: read the frontier's size (reduced in the last phase of
+// the iteration before, or the prologue), stop on an empty
+// frontier or at max_iters, else dens = size / max(n_active, 1) in f32 and
+// pull iff dens > thr (thr 2 forces push, -1 pull); the product; grid sync;
+// the frontier xn != x and its size into the next slot; grid sync.
+// Block 0's thread 0 keeps the counters of the JAX loop (push and pull
+// iterations, switches, the density histogram).  The JAX package's host
+// loop also escalates through frontier-capacity buckets (a shape device
+// of XLA); the largest bucket holds every frontier, and no bucket changes
+// an iteration or its direction, so this loop runs the same iterations.
+
+template <class S>
+__global__ void __launch_bounds__(kThreads) fixpoint_kernel(
+    const int* off, const int* s_dst, const float* s_w, const int* d_off, const int* d_src,
+    const float* d_w, const int* n_active, int n, const typename S::T* x0, const uint8_t* fm0,
+    typename S::T* xs, uint8_t* fm, float thr, int max_iters, int* hdr) {
+  using T = typename S::T;
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int64_t first = blockIdx.x * int64_t(kThreads) + threadIdx.x;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  const int warps = gridDim.x * kWarps;
+  const int groups = (n + 31) / 32;
+  const int warp_id = blockIdx.x * kWarps + (threadIdx.x >> 5);
+
+  // prologue: x, the push target, the frontier and its size
+  {
+    int cnt = 0;
+    for (int64_t v = first; v < n; v += stride) {
+      const T x = x0[v];
+      xs[v] = x;
+      xs[n + v] = S::add(x, S::ident());
+      const uint8_t f = fm0[v] ? 1 : 0;
+      fm[v] = f;
+      cnt += f;
+    }
+    block_add(cnt, hdr + kStats);
+  }
+  grid.sync();
+  const int act = *n_active;
+  const float denom = __int2float_rn(act > 1 ? act : 1);
+  int push_i = 0, pull_i = 0, switches = 0, last_dir = -1;
+  int it = 0;
+  for (;; ++it) {
+    const int slot = it % 3;
+    const int cnt = ld_cg(hdr + kStats + slot);
+    if (cnt == 0 || it >= max_iters) break;
+    const float dens = __fdiv_rn(__int2float_rn(cnt), denom);
+    const bool pull = dens > thr;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      // the slot read two iterations ago is the one the next frontier fills
+      hdr[kStats + (it + 2) % 3] = 0;
+      const int d = pull ? 1 : 0;
+      if (last_dir >= 0 && d != last_dir) ++switches;
+      last_dir = d;
+      pull ? ++pull_i : ++push_i;
+      const float scaled = __fmul_rn(dens, float(kBins));
+      const int b = scaled >= float(kBins - 1) ? kBins - 1 : static_cast<int>(scaled);
+      ++hdr[kHist + b];
+    }
+    const T* x = xs + (it & 1) * int64_t(n);
+    T* xn = xs + ((it & 1) ^ 1) * int64_t(n);
+    if (pull) {
+      for (int g = warp_id; g < groups; g += warps) {
+        const T acc = pull_group<S, false>(d_off, d_src, d_w, x, nullptr, n, g, lane);
+        const int d = g * 32 + lane;
+        if (d < n) xn[d] = S::add(S::add(ld_cg(x + d), S::ident()), acc);
+      }
+    } else {
+      for (int g = warp_id; g < groups; g += warps) push_group<S>(off, s_dst, s_w, x, fm, xn, n, g, lane);
+    }
+    grid.sync();
+    {
+      int c2 = 0;
+      T* xw = xs + (it & 1) * int64_t(n);
+      for (int64_t v = first; v < n; v += stride) {
+        const T a = ld_cg(xn + v);
+        const uint8_t f = a != ld_cg(x + v);
+        fm[v] = f;
+        xw[v] = a;  // the next iteration's push target
+        c2 += f;
+      }
+      block_add(c2, hdr + kStats + (it + 1) % 3);
+    }
+    grid.sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    hdr[kIters] = it;
+    hdr[kPushIters] = push_i;
+    hdr[kPullIters] = pull_i;
+    hdr[kSwitches] = switches;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// PageRank (pagerank_fixpoint's loop)
+//
+// in_window[v]: v has a masked out- or in-edge (off, d_off); n_win = their
+// count; r0 = 1 / max(n_win, 1) on the window.  Each iteration:
+//   phase 1: c[v] = r[v] / max(out_deg[v], 1) (the division each edge of
+//     the JAX loop makes, once a source), and the block's sum of r over
+//     dangling vertices (in the window, no out-edge); grid sync;
+//   phase 2: dm = that sum (the partials in block order) / n; for each
+//     destination the ordered segment sum of c over its in-edges (pull;
+//     push takes the same sum, as the JAX package's contract makes them
+//     equal), r_new = base + damping * (spread + dm on the window), and the
+//     block's sum of |r_new - r|; grid sync; delta = those partials in
+//     block order.
+// Loop while delta > tol and it < max_iters.  Each block owns a fixed
+// range of vertices and of destination groups, and every sum adds in an
+// order fixed by the data and the grid, so push, pull and a second run
+// give the same bits.  The three sums (spread, dangling mass, delta)
+// accumulate in f64 and round to f32 once, so they are the exact sums'
+// roundings whatever the order: the twin (ops/spmv.pagerank_fixpoint_plain,
+// atomics in no fixed order on the card) agrees to an ulp and takes the
+// same iterations.  The hub trap: a destination's whole in-segment is one
+// warp's, so a hub of in-degree k takes k / 32 steps of one warp.
+
+__global__ void __launch_bounds__(kThreads) pagerank_kernel(const int* off, const int* d_off,
+                                                            const int* d_src, int n, float damping,
+                                                            float tol, int max_iters, float* rs,
+                                                            uint8_t* in_window, int* hdr) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* cbuf = reinterpret_cast<float*>(hdr + kRankHeaderInts);
+  double* partials = reinterpret_cast<double*>(hdr + kRankHeaderInts + ((n + 1) & ~1));
+  const int nb = gridDim.x;
+  // this block's vertices [vlo, vhi), a whole number of 32-groups
+  const int groups = (n + 31) / 32;
+  const int per_block = (groups + nb - 1) / nb;
+  const int glo = min(groups, blockIdx.x * per_block), ghi = min(groups, glo + per_block);
+  const int vlo = min(n, glo * 32), vhi = min(n, ghi * 32);
+
+  {
+    int cnt = 0;
+    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) {
+      const bool w = __ldg(off + v + 1) > __ldg(off + v) || __ldg(d_off + v + 1) > __ldg(d_off + v);
+      in_window[v] = w;
+      cnt += w;
+    }
+    block_add(cnt, hdr + kWindowCount);
+  }
+  grid.sync();
+  const float nf = fmaxf(__int2float_rn(ld_cg(hdr + kWindowCount)), 1.0f);
+  const float base_in = __fdiv_rn(__fsub_rn(1.0f, damping), nf);
+  const float r0 = __fdiv_rn(1.0f, nf);
+  for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) rs[v] = ld_cg(in_window + v) ? r0 : 0.0f;
+
+  int it = 0;
+  float delta = __int_as_float(0x7f800000);  // +inf
+  while (delta > tol && it < max_iters) {
+    const float* r = rs + (it & 1) * int64_t(n);
+    float* rn = rs + ((it & 1) ^ 1) * int64_t(n);
+    double dang = 0.0;
+    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) {
+      const float rv = ld_cg(r + v);
+      const int od = __ldg(off + v + 1) - __ldg(off + v);
+      cbuf[v] = __fdiv_rn(rv, fmaxf(__int2float_rn(od), 1.0f));
+      if (od == 0 && ld_cg(in_window + v)) dang = __dadd_rn(dang, rv);
+    }
+    dang = block_sum(dang);
+    if (threadIdx.x == 0) partials[blockIdx.x] = dang;
+    grid.sync();
+    const float dm = __fdiv_rn(__double2float_rn(grid_sum(partials, nb)), nf);
+    double dl = 0.0;
+    for (int g = glo + warp; g < ghi; g += kWarps) {
+      const double spread = pull_group<Spread, false>(d_off, d_src, nullptr, cbuf, nullptr, n, g, lane);
+      const int d = g * 32 + lane;
+      if (d < n) {
+        const bool w = ld_cg(in_window + d);
+        const float sp = __double2float_rn(spread);
+        const float rnew = __fadd_rn(w ? base_in : 0.0f, __fmul_rn(damping, __fadd_rn(sp, w ? dm : 0.0f)));
+        rn[d] = rnew;
+        dl = __dadd_rn(dl, fabsf(__fsub_rn(rnew, ld_cg(r + d))));
+      }
+    }
+    dl = block_sum(dl);
+    if (threadIdx.x == 0) partials[nb + blockIdx.x] = dl;
+    grid.sync();
+    delta = __double2float_rn(grid_sum(partials + nb, nb));
+    ++it;
+  }
+  if (it & 1)
+    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) rs[v] = ld_cg(rs + n + v);
+  if (blockIdx.x == 0 && threadIdx.x == 0) hdr[kRankIters] = it;
+}
+
+// ---------------------------------------------------------------------------
+// launch plumbing
+
+// The blocks of `kernel` (kThreads a block) that fit on the current device
+// at once, queried once a kernel and device.
+int resident_blocks(const void* kernel, cudaError_t* err) {
+  struct Fit {
+    const void* kernel;
+    int device, blocks;
+  };
+  static std::mutex mu;
+  static Fit cache[64];
+  static int cached = 0;
+  int device = 0;
+  if ((*err = cudaGetDevice(&device)) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].kernel == kernel && cache[i].device == device) return cache[i].blocks;
+  int sms = 0, per_sm = 0;
+  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) != cudaSuccess)
+    return 0;
+  if (cached < 64) cache[cached++] = {kernel, device, sms * per_sm};
+  return sms * per_sm;
+}
+
+// A cooperative launch of `kernel` over `items` threads' worth of work (at
+// most the blocks that fit on the card at once); the blocks used go to
+// *blocks_out when it is given.
+cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, cudaStream_t s,
+                               int* blocks_out = nullptr) {
+  cudaError_t err;
+  const int64_t fit = resident_blocks(kernel, &err);
+  if (err != cudaSuccess) return err;
+  int64_t blocks = (items + kThreads - 1) / kThreads;
+  blocks = blocks < fit ? blocks : fit;
+  blocks = blocks > 0 ? blocks : 1;
+  if (blocks_out) *blocks_out = static_cast<int>(blocks);
+  return cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0, s);
+}
+
+int product_blocks(int n) {
+  const int64_t groups = (static_cast<int64_t>(n) + 31) / 32;
+  int64_t blocks = (groups + kWarps - 1) / kWarps;
+  blocks = blocks < 4096 ? blocks : 4096;
+  return static_cast<int>(blocks > 0 ? blocks : 1);
+}
+
+template <class S, bool kPush>
+void run_product(int blocks, cudaStream_t s, const void* off, const void* s_dst, const void* s_w,
+                 const void* d_off, const void* d_src, const void* d_w, const void* x, const void* fm,
+                 void* y, int n) {
+  using T = typename S::T;
+  product_kernel<S, kPush><<<blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(off), static_cast<const int*>(s_dst), static_cast<const float*>(s_w),
+      static_cast<const int*>(d_off), static_cast<const int*>(d_src), static_cast<const float*>(d_w),
+      static_cast<const T*>(x), static_cast<const uint8_t*>(fm), static_cast<T*>(y), n);
+}
+
+template <class S>
+int product_launch(int push, const void* off, const void* s_dst, const void* s_w, const void* d_off,
+                   const void* d_src, const void* d_w, const void* x, const void* fm, void* y, int n,
+                   cudaStream_t s) {
+  using T = typename S::T;
+  const int blocks = product_blocks(n);
+  if (push && S::kMin) fill_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<T*>(y), n, S::ident());
+  if (push)
+    run_product<S, true>(blocks, s, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n);
+  else
+    run_product<S, false>(blocks, s, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class S>
+int fixpoint_launch(const void* off, const void* s_dst, const void* s_w, const void* d_off,
+                    const void* d_src, const void* d_w, const void* n_active, int n, const void* x0,
+                    const void* fm0, void* xs, void* fm, float thr, int max_iters, int* hdr,
+                    cudaStream_t s) {
+  using T = typename S::T;
+  cudaError_t err = cudaMemsetAsync(hdr, 0, kFixHeaderInts * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* off_p = static_cast<const int*>(off);
+  auto* s_dst_p = static_cast<const int*>(s_dst);
+  auto* s_w_p = static_cast<const float*>(s_w);
+  auto* d_off_p = static_cast<const int*>(d_off);
+  auto* d_src_p = static_cast<const int*>(d_src);
+  auto* d_w_p = static_cast<const float*>(d_w);
+  auto* act_p = static_cast<const int*>(n_active);
+  auto* x0_p = static_cast<const T*>(x0);
+  auto* fm0_p = static_cast<const uint8_t*>(fm0);
+  auto* xs_p = static_cast<T*>(xs);
+  auto* fm_p = static_cast<uint8_t*>(fm);
+  void* args[] = {&off_p, &s_dst_p, &s_w_p, &d_off_p, &d_src_p, &d_w_p, &act_p, &n,
+                  &x0_p, &fm0_p, &xs_p, &fm_p, &thr, &max_iters, &hdr};
+  err = launch_cooperative(reinterpret_cast<const void*>(fixpoint_kernel<S>), n, args, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int max_rank_blocks(cudaError_t* err) {
+  return resident_blocks(reinterpret_cast<const void*>(pagerank_kernel), err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// sem: 0 min_plus (f32 x, y), 1 plus_times (f32), 2 min_min (int32),
+// 3 plus_one (int32); push: 0 pull over every destination, 1 the push
+// lowering restricted to fm (uint8[n]); off, d_off: int32[n + 1]; s_dst,
+// d_src: int32[E]; s_w, d_w: f32[E] (unit weights when the pane has
+// none); x: the semiring's type [n]; y: the same [n], written whole.
+// Enqueues one product on the stream (push of a min semiring: a fill, then
+// the atomics), with no host sync.
+int spmv_product_launch(int sem, int push, const void* off, const void* s_dst, const void* s_w,
+                        const void* d_off, const void* d_src, const void* d_w, const void* x,
+                        const void* fm, void* y, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (sem) {
+    case kMinPlus: return product_launch<MinPlus>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
+    case kPlusTimes: return product_launch<PlusTimes>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
+    case kMinMin: return product_launch<MinMin>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
+    case kPlusOne: return product_launch<PlusOne>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// sem: 0 min_plus or 2 min_min; the pane as for spmv_product_launch;
+// n_active: int32 on the device (the density's denominator); x0, fm0: the
+// start (x0 the semiring's type [n], fm0 uint8[n]), unchanged; xs: two
+// buffers [2n], the result in the first n; fm: uint8[n], the last
+// frontier; thr: the density above which an iteration pulls (2 forces
+// push, -1 pull); scratch: the header, int32[15] (after the call: slot 3
+// the iterations, 4 push and 5 pull iterations, 6 direction switches, 7-14
+// the density histogram).  One cooperative launch runs the whole loop on
+// the stream, with no host sync.
+int spmv_fixpoint_launch(int sem, const void* off, const void* s_dst, const void* s_w, const void* d_off,
+                         const void* d_src, const void* d_w, const void* n_active, int n, const void* x0,
+                         const void* fm0, void* xs, void* fm, float thr, int max_iters, void* scratch,
+                         long long scratch_bytes, void* stream) {
+  if (scratch_bytes < static_cast<long long>(kFixHeaderInts * sizeof(int)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  auto* hdr = static_cast<int*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (sem) {
+    case kMinPlus:
+      return fixpoint_launch<MinPlus>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs, fm, thr,
+                                      max_iters, hdr, s);
+    case kMinMin:
+      return fixpoint_launch<MinMin>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs, fm, thr,
+                                     max_iters, hdr, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The scratch bytes of one pagerank_fixpoint_launch over n vertices.
+long long pagerank_scratch_bytes(int n) {
+  cudaError_t err;
+  const int64_t blocks = max_rank_blocks(&err);
+  if (err != cudaSuccess) return -1;
+  return kRankHeaderInts * 4 + 4 * ((static_cast<int64_t>(n) + 1) & ~int64_t(1)) + 16 * blocks;
+}
+
+// off, d_off: int32[n + 1]; d_src: int32[E]; rs: f32[2n], the ranks in
+// the first n; in_window: uint8[n]; scratch: pagerank_scratch_bytes(n)
+// bytes (int32 slot 1 = the iterations run).  One cooperative launch.
+int pagerank_fixpoint_launch(const void* off, const void* d_off, const void* d_src, int n, float damping,
+                             float tol, int max_iters, void* rs, void* in_window, void* scratch,
+                             long long scratch_bytes, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (scratch_bytes < pagerank_scratch_bytes(n)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* hdr = static_cast<int*>(scratch);
+  cudaError_t err = cudaMemsetAsync(hdr, 0, kRankHeaderInts * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* off_p = static_cast<const int*>(off);
+  auto* d_off_p = static_cast<const int*>(d_off);
+  auto* d_src_p = static_cast<const int*>(d_src);
+  auto* rs_p = static_cast<float*>(rs);
+  auto* w_p = static_cast<uint8_t*>(in_window);
+  void* args[] = {&off_p, &d_off_p, &d_src_p, &n, &damping, &tol, &max_iters, &rs_p, &w_p, &hdr};
+  err = launch_cooperative(reinterpret_cast<const void*>(pagerank_kernel), n, args, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -9,7 +9,9 @@ so that both packages can start from the same mid-stream state, and
 ``triangle_state_from_numpy``; the GraphSAGE weights through ``sage_params_from_numpy``, a training state
 with its optax Adam moments through ``sage_train_state_from_numpy``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
-are already a shared numpy format.
+are already a shared numpy format.  ``config_from_dict`` carries every
+field the port's config has, among them the SpMV core's direction knobs
+``spmv_direction`` and ``direction_threshold`` (``ops/spmv.py``).
 """
 
 from __future__ import annotations

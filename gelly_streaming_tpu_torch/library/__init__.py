@@ -9,16 +9,27 @@ from gelly_streaming_tpu_torch.library.graphsage import (
     sage_train_step_mesh,
     sample_pairs,
 )
+from gelly_streaming_tpu_torch.library.iterative_cc import IterativeConnectedComponents
+from gelly_streaming_tpu_torch.library.kcore import core_numbers_windows, windowed_kcore
+from gelly_streaming_tpu_torch.library.pagerank import pagerank_windows, windowed_pagerank
+from gelly_streaming_tpu_torch.library.sssp import sssp_windows, windowed_sssp
 from gelly_streaming_tpu_torch.library.triangles import GLOBAL_KEY, ExactTriangleCount
 
 __all__ = [
     "ExactTriangleCount",
     "GLOBAL_KEY",
     "GraphSAGEWindows",
+    "IterativeConnectedComponents",
     "SageParams",
     "SageTrainState",
+    "core_numbers_windows",
+    "pagerank_windows",
     "sage_init_train",
     "sage_train_step",
     "sage_train_step_mesh",
     "sample_pairs",
+    "sssp_windows",
+    "windowed_kcore",
+    "windowed_pagerank",
+    "windowed_sssp",
 ]

@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # C entry points of each source: name -> argtypes (each returns an int
 # cudaError_t from cudaGetLastError after the launch, unless RESTYPES says
@@ -143,13 +143,33 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sage_layer_backward_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _L,
                                        _P],
     },
+    "spmv.cu": {
+        # sem, push, off, s_dst, s_w, d_off, d_src, d_w, x, fm | None, y, n,
+        # stream: one product (a fill, then the push atomics, for a min push)
+        "spmv_product_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        # sem, off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs
+        # [2n], fm, thr, max_iters, header (int32[15]), its bytes, stream: a memset,
+        # then the cooperative fixpoint kernel
+        "spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P],
+        # n: the scratch bytes of one PageRank call
+        "pagerank_scratch_bytes": [_I],
+        # off, d_off, d_src, n, damping, tol, max_iters, rs [2n], in_window,
+        # scratch, scratch bytes, stream: a memset, then the cooperative
+        # PageRank kernel
+        "pagerank_fixpoint_launch": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _L, _P],
+    },
+    "kcore.cu": {
+        # c, n, keys, nbrs, valid, k, d, h, stage | None, stream: the h-index
+        # kernel, then the scatter-min
+        "kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    },
 }
 
 # entry points that return something other than a cudaError_t
 RESTYPES: Dict[str, type] = {
     "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
-    "exact_scratch_bytes": _L,
+    "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L,
 }
 
 

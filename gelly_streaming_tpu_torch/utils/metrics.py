@@ -1,10 +1,13 @@
 """Latency recording and pipeline counters for the windowed planes.
 
-Port of ``WindowLatencyRecorder`` and the async pipeline's counters
+Port of ``WindowLatencyRecorder`` the async pipeline's counters
 (``pipeline_add``, ``pipeline_high_water``, ``pipeline_stats``,
-``reset_pipeline_stats``) from ``gelly_streaming_tpu/utils/metrics.py``:
-close-to-emission samples in milliseconds with nearest-rank percentiles,
-and the occupancy of ``core/async_exec``'s stages.
+``reset_pipeline_stats``) and the masked-SpMV kernel core's counters
+(``SPMV_DENSITY_BINS``, ``spmv_add``, ``spmv_stats``, ``reset_spmv_stats``)
+from ``gelly_streaming_tpu/utils/metrics.py``: close-to-emission samples in
+milliseconds with nearest-rank percentiles, the occupancy of
+``core/async_exec``'s stages, and the push/pull split of ``ops/spmv``'s
+fixpoints.
 """
 
 from __future__ import annotations
@@ -103,3 +106,63 @@ def reset_pipeline_stats() -> None:
     global _PIPELINE
     with _PIPE_LOCK:
         _PIPELINE = _pipeline_zero()
+
+
+# ---------------------------------------------------------------------------
+# Masked-SpMV kernel core accounting (ops/spmv.py direction optimization;
+# port of ``gelly_streaming_tpu/utils/metrics.py:1001-1059``).  Fixpoints run
+# on whatever thread drives the window loop while stats drain from other
+# threads, so every update holds the lock.
+
+
+_SPMV_LOCK = threading.Lock()
+
+# frontier-density histogram bins: bin b counts iterations whose density
+# landed in [b/8, (b+1)/8) — 8 scalar keys, not a nested dict
+SPMV_DENSITY_BINS = 8
+
+
+def _spmv_zero() -> dict:
+    d = {
+        # direction-optimized fixpoints driven to completion
+        "spmv_fixpoints": 0,
+        # iterations lowered as sparse push (SpMSpV) / dense pull (SpMV)
+        "spmv_push_iters": 0,
+        "spmv_pull_iters": 0,
+        # push<->pull flips within a fixpoint
+        "spmv_direction_switches": 0,
+    }
+    for b in range(SPMV_DENSITY_BINS):
+        d[f"spmv_density_hist_{b}"] = 0
+    return d
+
+
+_SPMV = _spmv_zero()  # guarded-by: _SPMV_LOCK
+
+
+def spmv_add(key: str, amount: int = 1) -> None:
+    """Accumulate a kernel-core counter (thread-safe)."""
+    with _SPMV_LOCK:
+        _SPMV[key] += amount
+
+
+def spmv_stats() -> dict:
+    """Process-wide masked-SpMV direction-optimization counters: push vs
+    pull iterations, direction switches, the frontier-density histogram,
+    and the derived ``spmv_iters_total`` and ``spmv_push_fraction``."""
+    with _SPMV_LOCK:
+        out = dict(_SPMV)
+    total = out["spmv_push_iters"] + out["spmv_pull_iters"]
+    out["spmv_iters_total"] = total
+    out["spmv_push_fraction"] = (
+        round(out["spmv_push_iters"] / total, 4) if total else 0.0
+    )
+    return out
+
+
+def reset_spmv_stats() -> None:
+    """Zero the kernel-core counters (call before a measurement window,
+    read ``spmv_stats`` after)."""
+    global _SPMV
+    with _SPMV_LOCK:
+        _SPMV = _spmv_zero()

@@ -1558,3 +1558,210 @@ def test_exact_scratch_is_the_kernels_and_kept_a_shape(cuda_device, n, c, d, chu
             et.triangle_update_block(state, s, t, m, chunk)
         held.append([(key[2:], buf.numel(), buf.data_ptr()) for key, buf in et._scratch.items()])
     assert want > 0 and held[0] == held[1] and [h[:2] for h in held[0]] == [((n, c, d, r, trace), want)]
+
+
+# ---------------------------------------------------------------------------
+# the SpMV core (csrc/spmv.cu) and the k-core round (csrc/kcore.cu)
+
+
+def _spmv_pane(rng, c, e, dev, case="uniform", w_kind="int"):
+    """(src, dst, w, msk) of one pane: uniform, Zipf-skewed sources and
+    destinations (rows and segments past a warp), a star, or odd ids."""
+    if case == "zipf":
+        src = ((rng.zipf(1.2, e) - 1) % c).astype(np.int32)
+        dst = ((rng.zipf(1.2, e) - 1) % c).astype(np.int32)
+    elif case == "star":
+        src = np.where(rng.random(e) < 0.5, 0, rng.integers(0, c, e)).astype(np.int32)
+        dst = np.where(rng.random(e) < 0.5, 1, rng.integers(0, c, e)).astype(np.int32)
+    else:
+        src, dst = (rng.integers(0, c, e).astype(np.int32) for _ in range(2))
+    if case == "odd":
+        src[[3, 5, 9]], dst[[4, 6, 10]] = (-1, c, c + 3), (-1, -c, c)
+    w = rng.integers(1, 8, e).astype(np.float32) if w_kind == "int" else rng.random(e).astype(np.float32)
+    msk = rng.random(e) < 0.9
+    if case == "odd":
+        msk[[3, 4, 5, 6, 9, 10]] = True
+    return src, dst, w, msk
+
+
+def _spmv_x(rng, sem, c, dev):
+    if sem.dtype == torch.int32:
+        return torch.from_numpy(rng.integers(0, 100, c).astype(np.int32)).to(dev)
+    x = rng.integers(0, 10, c).astype(np.float32) - np.float32(3)  # negative entries: both atomic orders
+    return torch.from_numpy(x).to(dev)
+
+
+def _assert_product(sem, got, want):
+    assert got.dtype == want.dtype and got.device == want.device
+    if sem.name == "plus_times":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "star", "odd"])
+@pytest.mark.parametrize("name", ["MIN_PLUS", "PLUS_TIMES", "MIN_MIN", "PLUS_ONE"])
+def test_spmv_products_match_twins(cuda_device, name, case):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    sem = getattr(spmv, name)
+    rng = np.random.default_rng(len(case) * 7 + sem.code)
+    for c, e in ((64, 256), (1 << 14, 1 << 17)):
+        op = spmv.prepare_pane(*_spmv_pane(rng, c, e, cuda_device, case), c, device=cuda_device)
+        x = _spmv_x(rng, sem, c, cuda_device)
+        fm = torch.from_numpy(rng.random(c) < 0.3).to(cuda_device)
+        fm[0] = True  # the hub's row
+        before = spmv.LAUNCHES["spmv_product"]
+        _assert_product(sem, spmv.spmv_dense(sem, op, x), spmv.product_plain(sem, op, x))
+        _assert_product(sem, spmv.spmsv_frontier(sem, op, x, fm), spmv.product_plain(sem, op, x, fm))
+        assert spmv.LAUNCHES["spmv_product"] == before + 2
+        # the same bits on a second run
+        assert torch.equal(spmv.spmv_dense(sem, op, x), spmv.spmv_dense(sem, op, x))
+
+
+def _fixpoint_both(spmv, sem, op, x0, fm0, thr, max_iters):
+    got = spmv._fixpoint_cuda(sem, op, x0, fm0, thr, max_iters)
+    want = spmv.fixpoint_plain(sem, op, x0, fm0, thr, max_iters)
+    assert torch.equal(got.x, want.x) and torch.equal(got.frontier, want.frontier)
+    assert (got.iters, got.push_iters, got.pull_iters, got.switches, got.hist) == (
+        want.iters, want.push_iters, want.pull_iters, want.switches, want.hist)
+    return got
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "star", "odd"])
+def test_spmv_fixpoint_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(len(case))
+    for c, e in ((64, 256), (1 << 14, 1 << 16), (1 << 16, 1 << 18)):
+        pane = _spmv_pane(rng, c, e, cuda_device, case, w_kind="float")
+        op = spmv.prepare_pane(*pane, c, device=cuda_device)
+        x0 = torch.full((c,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=cuda_device)
+        x0[int(np.bincount(pane[0][pane[3] & (pane[0] >= 0) & (pane[0] < c)], minlength=c).argmax())] = 0.0
+        x0[c - 1] = float("inf")  # above the identity
+        fm0 = x0 != spmv.MIN_PLUS.identity
+        before = spmv.LAUNCHES["spmv_fixpoint"]
+        runs = [_fixpoint_both(spmv, spmv.MIN_PLUS, op, x0, fm0, thr, c - 1) for thr in (2.0, -1.0, 0.05, 0.0, 1.0)]
+        assert spmv.LAUNCHES["spmv_fixpoint"] == before + 5
+        assert runs[0].pull_iters == 0 and runs[1].push_iters == 0 and runs[0].iters > 1
+        if case != "odd":  # ids outside [0, C): the JAX package's push and pull disagree
+            for r in runs[1:]:
+                assert torch.equal(r.x, runs[0].x)
+        _fixpoint_both(spmv, spmv.MIN_PLUS, op, x0, fm0, 0.05, 2)  # bounded
+        _fixpoint_both(spmv, spmv.MIN_PLUS, op, x0, fm0, 0.05, 0)
+        labels = torch.arange(c, dtype=torch.int32, device=cuda_device)
+        _fixpoint_both(spmv, spmv.MIN_MIN, op, labels, torch.ones_like(fm0), 0.05, c)
+
+
+def test_spmv_fixpoint_wrapper_counts_and_metrics(cuda_device):
+    from gelly_streaming_tpu_torch.ops import spmv
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(5)
+    c = 1 << 12
+    op = spmv.prepare_pane(*_spmv_pane(rng, c, 1 << 15, cuda_device, "zipf"), c, device=cuda_device)
+    x0 = torch.full((c,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=cuda_device)
+    x0[0] = 0.0
+    metrics.reset_spmv_stats()
+    res = spmv.fixpoint(spmv.MIN_PLUS, op, x0, max_iters=c - 1)
+    stats = metrics.spmv_stats()
+    assert stats["spmv_iters_total"] == res.iters == res.push_iters + res.pull_iters > 0
+    assert sum(stats[f"spmv_density_hist_{b}"] for b in range(metrics.SPMV_DENSITY_BINS)) == res.iters
+    assert res.x.device == x0.device
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "star"])
+def test_pagerank_fixpoint_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(11 + len(case))
+    for c, e in ((64, 256), (1 << 14, 1 << 17), (1 << 18, 1 << 20)):
+        src, dst, _, msk = _spmv_pane(rng, c, e, cuda_device, case)
+        op = spmv.prepare_pane(src, dst, None, msk, c, device=cuda_device)
+        before = spmv.LAUNCHES["pagerank_fixpoint"]
+        runs = [spmv.pagerank_fixpoint(op, damping=0.85, tol=1e-6, max_iters=100, use_pull=p)
+                for p in (False, True, False)]
+        assert spmv.LAUNCHES["pagerank_fixpoint"] == before + 3
+        r, in_w, iters = runs[0]
+        for r2, in2, it2 in runs[1:]:  # push, pull and a second run: the same bits
+            assert torch.equal(r2, r) and torch.equal(in2, in_w) and it2 == iters
+        want_r, want_in, want_it = spmv.pagerank_fixpoint_plain(op, damping=0.85, tol=1e-6, max_iters=100)
+        assert torch.equal(in_w, want_in) and abs(iters - want_it) <= 1
+        torch.testing.assert_close(r, want_r, rtol=1e-5, atol=1e-9)
+        assert abs(float(r.double().sum()) - 1.0) < 1e-4
+        bounded = spmv.pagerank_fixpoint(op, damping=0.85, tol=1e-6, max_iters=3)
+        want_b = spmv.pagerank_fixpoint_plain(op, damping=0.85, tol=1e-6, max_iters=3)
+        assert bounded[2] == want_b[2] == 3
+        torch.testing.assert_close(bounded[0], want_b[0], rtol=1e-5, atol=1e-9)
+
+
+def _kcore_bucket(rng, k, d, c, dev, full=False):
+    c_est = torch.from_numpy(rng.integers(0, d + 3, c).astype(np.int32)).to(dev)
+    keys = torch.from_numpy(rng.permutation(c)[:k].astype(np.int32)).to(dev)
+    nbrs = torch.from_numpy(rng.integers(0, c, (k, d)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(np.ones((k, d), bool) if full else rng.random((k, d)) < 0.7).to(dev)
+    return c_est, keys, nbrs, valid
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 32, 64, 256, 1024, 2048, 1 << 17])
+def test_kcore_round_matches_twin(cuda_device, d):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(d)
+    c = 1 << 18
+    for k in sorted({1, 3, max(1, (1 << 20) // d // 8)}):
+        for full in (False, True):
+            c_est, keys, nbrs, valid = _kcore_bucket(rng, min(k, c), d, c, cuda_device, full)
+            if d >= 1024:  # a hub: estimates above the row's width
+                c_est[keys.long()] = d + 5
+                c_est += d // 2
+            want = spmv.kcore_round_plain(c_est, keys, nbrs, valid)
+            before = spmv.LAUNCHES["kcore_round"]
+            got = spmv.kcore_round(c_est.clone(), keys, nbrs, valid)
+            assert spmv.LAUNCHES["kcore_round"] == before + 1
+            assert torch.equal(got, want), (d, k, full)
+
+
+def test_kcore_round_index_rules(cuda_device):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(3)
+    c = 256
+    c_est, keys, nbrs, valid = _kcore_bucket(rng, 40, 16, c, cuda_device)
+    keys[:4] = torch.tensor([-1, c, c + 3, -c], dtype=torch.int32)
+    nbrs[:3, :2] = torch.tensor([[-1, c], [c + 9, -c], [-2, 0]], dtype=torch.int32)
+    assert torch.equal(spmv.kcore_round(c_est.clone(), keys, nbrs, valid), spmv.kcore_round_plain(c_est, keys, nbrs, valid))
+
+
+def test_spmv_algorithms_on_the_card_match_the_cpu(cuda_device):
+    """windowed_sssp, windowed_kcore, IterativeConnectedComponents (exact)
+    and windowed_pagerank (rtol 1e-5) over one timed stream, GPU against
+    the plain twins on the CPU."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library import (
+        IterativeConnectedComponents, windowed_kcore, windowed_pagerank, windowed_sssp)
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(9)
+    n = 4000
+    t = np.sort(rng.integers(0, 4000, n))
+    edges = [(int(rng.integers(0, 300)), int(rng.integers(0, 300)), float(np.float32(rng.random())), int(t[i]))
+             for i in range(n)]
+    cfg = StreamConfig(vertex_capacity=512, max_degree=16, batch_size=256)
+
+    def run(dev):
+        s = EdgeStream.from_collection(edges, cfg, batch_size=256, with_time=True, device=dev)
+        ic = IterativeConnectedComponents()
+        return (windowed_sssp(s, 0, 1000).collect(), windowed_kcore(s, 1000).collect(),
+                windowed_pagerank(s, 1000).collect(), ic.run(s).collect(), ic.final_labels)
+
+    spmv.reset_launches()
+    got = run(cuda_device)
+    assert spmv.LAUNCHES["spmv_fixpoint"] == spmv.LAUNCHES["pagerank_fixpoint"] == 4
+    assert spmv.LAUNCHES["kcore_round"] > 0
+    want = run("cpu")
+    assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
+    assert np.array_equal(got[4], want[4])
+    assert [v for v, _ in got[2]] == [v for v, _ in want[2]]
+    np.testing.assert_allclose([r for _, r in got[2]], [r for _, r in want[2]], rtol=1e-5, atol=1e-9)

@@ -39,7 +39,10 @@ def test_importing_the_whole_port_loads_no_jax():
         "for m in ('ops.degrees', 'library.degree_distribution', 'library.bipartiteness',\n"
         "          'summaries.candidates', 'examples.degree_distribution',\n"
         "          'examples.bipartiteness_check', 'ops.neighborhoods', 'ops.sage',\n"
-        "          'core.snapshot', 'library.graphsage', 'core.async_exec', 'ops.csr_triangles'):\n"
+        "          'core.snapshot', 'library.graphsage', 'core.async_exec', 'ops.csr_triangles',\n"
+        "          'utils.envswitch', 'ops.spmv', 'library.sssp', 'library.pagerank', 'library.kcore',\n"
+        "          'library.iterative_cc', 'examples.sssp', 'examples.pagerank',\n"
+        "          'examples.iterative_connected_components'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )
