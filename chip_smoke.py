@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--baseline-cu PATH] [--parent-degrees-cu PATH] [--parent-unionfind-cu PATH]
                           [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
                           [--parent-sage-backward-cu PATH] [--parent-csr-cu PATH]
+                          [--parent-exact-cu PATH] [--parent-spmv-cu PATH] [--parent-kcore-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -219,17 +220,31 @@ edges) and distances within rtol 1e-5 of its float64; (b)
 and a second run bit-identical; ``pagerank_fixpoint`` against its twin on
 the card: in_window exact, iterations within 1, ranks within rtol 1e-5 /
 atol 1e-9, each window's ranks summing to 1 within 1e-4; (c)
-``windowed_kcore``: each window's cores and rounds equal to the twin's
-rounds on the card (``kcore_round``, ``csrc/kcore.cu``, one C call a
-bucket a round), and on a scale-14 pane equal to Batagelj-Zaversnik
-peeling; (d) ``IterativeConnectedComponents`` over the CC bench's first 16
-batches (phase 7's stream): every record block equal to a run on the
-twin, final labels equal to scipy's components; (e) the JAX bench's own
-SpMV shape (bench.py:785-865: C = 2^15, 2^18 edges, Zipf 1.2 sources,
+``windowed_kcore``: one ``kcore_fixpoint`` launch a pane (``csrc/kcore.cu``,
+every round in one cooperative launch), each window's cores and rounds
+equal to the twin's per-bucket rounds on the card and to ``pane_cores``
+through ``kcore_round`` (one C call a bucket a round), each round replayed
+from its start through the new kernel equal to the per-bucket kernel's
+round, and on a scale-14 pane equal to Batagelj-Zaversnik peeling; (d)
+``IterativeConnectedComponents`` over the CC bench's first 16 batches
+(phase 7's stream): every record block equal to a run on the twin, final
+labels equal to scipy's components; (e) the JAX bench's own SpMV shape
+(bench.py:785-865: C = 2^15, 2^18 edges, Zipf 1.2 sources,
 default_rng(17)): the force-push over auto wall ratio, PageRank's
 edge-iterations/s, auto, push and pull bit-equal.  Each kernel is timed on
-a held stream (the fixpoint and PageRank calls of window 0, and one k-core
-round: every bucket of window 0) beside its bytes bound and its twin.
+a held stream beside its bytes bound and its twin: every window's
+fixpoint in auto, forced push and forced pull, PageRank's window 0, each
+k-core round replayed from its start and each pane's whole fixed point;
+the cost of one grid-wide sync at each fixpoint's block count (a probe
+source written and built by this script, ``GRID_SYNC_PROBE_CU``); (e)'s
+fixpoint (a block a pull tile) in turns with builds whose grid takes a
+thread a vertex, and a thread a vertex and an edge (``GRID_SPLIT``);
+auto's threshold swept over 0.01-0.5 at (a) window 0 and (e), printed
+only.
+``--parent-spmv-cu PATH`` / ``--parent-kcore-cu PATH`` (a48e429's sources)
+time the parent's fixpoint (every window and mode) and its per-bucket
+round and ``pane_cores`` in turns with the current ones, outputs held
+equal.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -683,7 +698,7 @@ def check_windows(panes, dev):
 # ---------------------------------------------------------------------------
 # phase 5: the first port slice's kernels, for the in-turn comparison
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 BASELINE_SIGNATURES = {
     "pane_adjacency_launch": [_P, _P, _I, _P, _I, _P],
     "dense_triangles_launch": [_P, _I, _P, _P],
@@ -760,6 +775,11 @@ PARENT_SIGNATURES = {
             "csr_count_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P]},
     # (5e8e61b, one thread block walking the chunks) nbrs, deg, dropped, local, glob, src, dst, mask, n,
     # capacity, max_degree, chunk, stream; the same with trace_local, trace_global for chunk
+    # (a48e429, one warp a group of 32 vertices) sem, off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0,
+    # xs, fm, thr, max_iters, header, its bytes, stream
+    "spmv": {"spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P]},
+    # (a48e429, one C call a bucket) c, n, keys, nbrs, valid, k, d, h, stage | None, stream
+    "kcore": {"kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P]},
     "exact": {"triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
               "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
     "sage_backward": {
@@ -4257,12 +4277,144 @@ def kcore_sweep_bytes(buckets) -> int:
     return total
 
 
-def phase_spmv(dev, cpm, cc_data: dict) -> dict:
+SP_SWEEP = (0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5)  # auto's thresholds, printed beside the default 0.05
+SYNC_PROBE = 1000  # grid-wide syncs a probe call
+
+# A cooperative launch of blocks of 256 threads that runs grid-wide syncs
+# and nothing else: the cost of a sync at a fixpoint's block count.  Not a
+# kernel of the port; this script writes it under the build directory.
+GRID_SYNC_PROBE_CU = r"""#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(256) sync_probe_kernel(int syncs) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int i = 0; i < syncs; ++i) grid.sync();
+}
+
+extern "C" int grid_sync_probe_launch(int blocks, int syncs, void* stream) {
+  void* args[] = {&syncs};
+  const cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(sync_probe_kernel),
+                                                      dim3(static_cast<unsigned>(blocks)), dim3(256), args, 0,
+                                                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+"""
+GRID_SYNC_SIGNATURES = {"grid_sync_probe_launch": [_I, _I, _P]}
+
+# spmv.cu with the fixpoint's grid sized otherwise than a block a pull tile
+# or a thread a vertex (phase 16 (e), in turns with the current): a thread
+# a vertex, and a thread a vertex and an edge
+_FIX_GRID = "launch_cooperative(reinterpret_cast<const void*>(fixpoint_kernel<S>), {}, args, s);"
+GRID_SPLIT = {
+    "vertex": [(_FIX_GRID.format("product_items(n, e)"), _FIX_GRID.format("n"))],
+    "vertex and an edge": [(_FIX_GRID.format("product_items(n, e)"), _FIX_GRID.format("int64_t(n) + e"))],
+}
+
+
+def probe_source() -> str:
+    """The path of GRID_SYNC_PROBE_CU, written under the port's build
+    directory."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    path = _cuda.BUILD_DIR / "probe" / "grid_sync_probe.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not path.exists() or path.read_text() != GRID_SYNC_PROBE_CU:
+        path.write_text(GRID_SYNC_PROBE_CU)
+    return str(path)
+
+
+def variant_spmv_fixpoint(lib):
+    """The current fixpoint's C interface over ``lib`` (a GRID_SPLIT
+    variant of spmv.cu), called as ``spmv.fixpoint_launch`` calls it:
+    (x buffers, frontier, header)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda, spmv
+
+    def fixpoint(sem, op, x0, fm0, thr, max_iters):
+        c = op.capacity
+        xs = torch.empty((2, c), dtype=x0.dtype, device=x0.device)
+        fm = torch.empty((c,), dtype=torch.bool, device=x0.device)
+        scratch = spmv._plan_scratch(lib, op)
+        _cuda.check(lib.spmv_fixpoint_launch(
+            sem.code, op.off.data_ptr(), op.s_dst.data_ptr(), op.s_w.data_ptr(), op.d_off.data_ptr(),
+            op.d_src.data_ptr(), op.d_w.data_ptr(), op.n_active.data_ptr(), c, op.e_pad, x0.data_ptr(),
+            fm0.data_ptr(), xs.data_ptr(), fm.data_ptr(), float(thr), int(max_iters), scratch.data_ptr(),
+            scratch.numel() * 4, torch.cuda.current_stream(x0.device).cuda_stream), "variant spmv_fixpoint")
+        return xs, fm, scratch[:24]
+
+    return fixpoint
+
+
+def parent_spmv_fixpoint(lib):
+    """a48e429's fixpoint over ``lib`` (its C interface: a 15-int header as
+    the scratch; one warp a 32-vertex group, a hub's segment one warp's),
+    called as its wrapper called it: (x buffers, frontier, header)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def fixpoint(sem, op, x0, fm0, thr, max_iters):
+        c = op.capacity
+        xs = torch.empty((2, c), dtype=x0.dtype, device=x0.device)
+        fm = torch.empty((c,), dtype=torch.bool, device=x0.device)
+        hdr = torch.empty((15,), dtype=torch.int32, device=x0.device)
+        _cuda.check(lib.spmv_fixpoint_launch(
+            sem.code, op.off.data_ptr(), op.s_dst.data_ptr(), op.s_w.data_ptr(), op.d_off.data_ptr(),
+            op.d_src.data_ptr(), op.d_w.data_ptr(), op.n_active.data_ptr(), c, x0.data_ptr(), fm0.data_ptr(),
+            xs.data_ptr(), fm.data_ptr(), float(thr), int(max_iters), hdr.data_ptr(), hdr.numel() * 4,
+            torch.cuda.current_stream(x0.device).cuda_stream), "parent spmv_fixpoint")
+        return xs, fm, hdr
+
+    return fixpoint
+
+
+def parent_kcore_round(lib):
+    """a48e429's kcore_round over ``lib`` (its C interface: two launches a
+    bucket, a searched h-index, rows past 1024 staged in a buffer),
+    updating c in place as its wrapper did."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def kcore_round(c, keys, nbrs, valid):
+        k, d = nbrs.shape
+        h = torch.empty((k,), dtype=torch.int32, device=c.device)
+        stage = torch.empty((k, d), dtype=torch.int32, device=c.device) if d > 1024 else None
+        _cuda.check(lib.kcore_round_launch(
+            c.data_ptr(), c.shape[0], keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, h.data_ptr(),
+            None if stage is None else stage.data_ptr(), torch.cuda.current_stream(c.device).cuda_stream),
+            "parent kcore_round")
+        return c
+
+    return kcore_round
+
+
+def grid_sync_us(cpm, blocks: int) -> tuple:
+    """(µs a grid-wide sync, ms of the launch with none) of a cooperative
+    launch of ``blocks`` blocks of 256 threads (GRID_SYNC_PROBE_CU): the
+    held device time of SYNC_PROBE syncs less that of none, over
+    SYNC_PROBE."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    lib = load_baseline(probe_source(), GRID_SYNC_SIGNATURES)
+
+    def probe(syncs):
+        def run():
+            _cuda.check(lib.grid_sync_probe_launch(blocks, syncs, torch.cuda.current_stream().cuda_stream),
+                        "grid_sync_probe_launch")
+        return run
+
+    none_ms = device_ms(probe(0), SP_REPS, cpm)[0]
+    many_ms = device_ms(probe(SYNC_PROBE), SP_REPS, cpm)[0]
+    return (many_ms - none_ms) / SYNC_PROBE * 1e3, none_ms
+
+
+def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dict:
     """Phase 16: the SpMV core and its algorithms on the card at Graph500
     scale 20: (a) SSSP, (b) PageRank, (c) k-core, each held against its
     twin on the card and (a), (c) against scipy / numpy oracles; (d)
     iterative CC over the CC bench's stream; (e) the JAX bench's SpMV
-    shape."""
+    shape (with ``grid_variants``, {grid: fixpoint} of GRID_SPLIT's builds,
+    each in turns with the current)."""
     import torch
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
@@ -4275,6 +4427,7 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
     from gelly_streaming_tpu_torch.ops import unionfind as uf
     from gelly_streaming_tpu_torch.utils import metrics
 
+    parents = parents or {}
     res = {}
     t_phase = time.perf_counter()
     c = 1 << SP_SCALE
@@ -4319,7 +4472,7 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
     log(f"      auto: {stats['spmv_iters_total']} iterations ({stats['spmv_push_iters']} push, "
         f"{stats['spmv_pull_iters']} pull, {stats['spmv_direction_switches']} switches), density histogram "
         f"{[stats[f'spmv_density_hist_{b}'] for b in range(metrics.SPMV_DENSITY_BINS)]}")
-    a_rows, a_err, oracle_s, rel = [], 0.0, 0.0, 0.0
+    a_rows, a_panes, a_err, oracle_s, rel = [], [], 0.0, 0.0, 0.0
     thr = spmv.resolve_threshold(base)
     for k, win in enumerate(wins):
         op = spmv.prepare_pane(src[win], dst[win], w[win], np.ones(SP_WIN_EDGES, bool), c, device=dev)
@@ -4354,28 +4507,75 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
         a_rows.append({"iters": got.iters, "push": got.push_iters, "pull": got.pull_iters, "switches": got.switches,
                        "reached": int(reached.sum()), "plain_ms": plain_ms,
                        "bound_ms": fixpoint_bytes(twin_log, c, SP_WIN_EDGES) / HBM_BYTES_PER_S * 1e3})
-        if k == 0:
-            def fix_fn(op=op, x0=x0, fm0=fm0):
-                return spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, thr, c - 1)
+        a_panes.append((op, x0, fm0, got.x))
+    # each window's fixpoint in auto, forced push and forced pull, device
+    # only (in turns with a48e429's kernel when it is given: the same x,
+    # frontier and header first)
+    fix_blocks = int(spmv.fixpoint_launch(spmv.MIN_PLUS, a_panes[0][0], a_panes[0][1], a_panes[0][2], thr,
+                                          c - 1)[2][spmv.FIX_BLOCKS])
+    sync_us, probe_ms = grid_sync_us(cpm, fix_blocks)
+    parent_fix = parents.get("spmv")
+    for k, (op, x0, fm0, _) in enumerate(a_panes):
+        row = a_rows[k]
+        for mode, t in (("auto", thr), ("push", 2.0), ("pull", -1.0)):
+            def cur(op=op, x0=x0, fm0=fm0, t=t):
+                return spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, t, c - 1)
 
-            d_ms, h_us = device_ms(fix_fn, SP_REPS, cpm)
-            fix_ms = cuda_ms(fix_fn, SP_REPS)
-            pull_ms = device_ms(lambda: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, -1.0, c - 1), SP_REPS, cpm)[0]
-            push_ms = device_ms(lambda: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, 2.0, c - 1), SP_REPS, cpm)[0]
+            if parent_fix is None:
+                row[f"{mode}_ms"] = device_ms(cur, SP_REPS, cpm)[0]
+                continue
+
+            def old(op=op, x0=x0, fm0=fm0, t=t):
+                return parent_fix(spmv.MIN_PLUS, op, x0, fm0, t, c - 1)
+
+            (xo, fo, ho), (xc, fc, hc) = old(), cur()
+            if not (torch.equal(xo[0], xc[0]) and torch.equal(fo, fc) and torch.equal(ho, hc[:15])):
+                raise RuntimeError(f"(a) window {k} {mode}: a48e429's fixpoint and the current one differ")
+            turns = in_turns(f"(a) window {k} {mode} spmv_fixpoint, a48e429's and the current", old, cur, SP_REPS, cpm)
+            row.update({f"{mode}_ms": turns["current_ms"], f"{mode}_parent_ms": turns["parent_ms"],
+                        f"{mode}_turns": turns["turns"]})
+    op, x0, fm0, x_auto = a_panes[0]
+
+    def fix_fn(op=op, x0=x0, fm0=fm0):
+        return spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, thr, c - 1)
+
+    d_ms, h_us = device_ms(fix_fn, SP_REPS, cpm)
+    fix_ms = cuda_ms(fix_fn, SP_REPS)
+    pull_ms, push_ms = a_rows[0]["pull_ms"], a_rows[0]["push_ms"]
+    sweep = {}
+    for t in SP_SWEEP:  # auto's threshold on window 0: printed, the default stays
+        run = spmv._fixpoint_cuda(spmv.MIN_PLUS, op, x0, fm0, t, c - 1)
+        if not torch.equal(run.x, x_auto):
+            raise RuntimeError(f"(a): the fixpoint at threshold {t} differs from auto's")
+        sweep[t] = {"ms": device_ms(lambda t=t: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, t, c - 1), SP_REPS,
+                                    cpm)[0], "iters": run.iters, "push": run.push_iters, "pull": run.pull_iters}
     for k, row in enumerate(a_rows):
         log(f"      window {k}: {row['iters']} iterations ({row['push']} push, {row['pull']} pull, {row['switches']} "
-            f"switches), {row['reached']} reached; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms")
+            f"switches), {row['reached']} reached; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms; "
+            f"device held: auto {row['auto_ms']:.5f} ms ({row['auto_ms'] / row['bound_ms']:.2f}x), push "
+            f"{row['push_ms']:.5f}, pull {row['pull_ms']:.5f}"
+            + ("" if parent_fix is None else f"; a48e429's auto {row['auto_parent_ms']:.5f}, push "
+               f"{row['push_parent_ms']:.5f}, pull {row['pull_parent_ms']:.5f} "
+               f"({row['auto_parent_ms'] / row['auto_ms']:.2f}x / {row['push_parent_ms'] / row['push_ms']:.2f}x / "
+               f"{row['pull_parent_ms'] / row['pull_ms']:.2f}x)"))
     log(f"      kernel = twin on the card (x, frontier, counters, histogram) and = windowed_sssp's records in every "
         f"window; reached sets = scipy's dijkstra, distances within rtol {rel:.3g} of its float64 "
         f"({oracle_s:.2f} s of scipy)")
     log(f"      spmv_fixpoint window 0: device {d_ms:.5f} ms held ({d_ms / a_rows[0]['bound_ms']:.2f}x its bound "
         f"{a_rows[0]['bound_ms']:.5f} ms), host {h_us:.2f} us a call, back-to-back events {fix_ms:.5f} ms; forced "
         f"pull {pull_ms:.5f} ms, forced push {push_ms:.5f} ms")
+    log(f"      a grid-wide sync at the fixpoint's {fix_blocks} blocks of 256: {sync_us:.3f} us (a launch with none "
+        f"{probe_ms:.5f} ms); window 0's {a_rows[0]['iters']} iterations take {2 * a_rows[0]['iters'] + 1} syncs, "
+        f"{(2 * a_rows[0]['iters'] + 1) * sync_us / 1e3:.5f} ms")
+    log("      auto's threshold on window 0 (the default stays " f"{thr}): " + "; ".join(
+        f"{t}: {v['ms']:.5f} ms ({v['push']} push, {v['pull']} pull)" for t, v in sweep.items()))
     res["sssp"] = {"launches": launches["spmv_fixpoint"], "err": a_err, "ms": fix_ms, "device_ms": d_ms,
                    "host_us": h_us, "plain_ms": a_rows[0]["plain_ms"], "bound_ms": a_rows[0]["bound_ms"],
                    "edges_per_s": len(src) / secs, "windows": a_rows, "forced_pull_ms": pull_ms,
                    "forced_push_ms": push_ms, "scipy_rel_err": rel, "stats": stats,
-                   "mode_s": {m: runs[m][1] for m in ("auto", "push", "pull")}}
+                   "mode_s": {m: runs[m][1] for m in ("auto", "push", "pull")}, "blocks": fix_blocks,
+                   "grid_sync_us": sync_us, "threshold_sweep": sweep}
+    del a_panes
 
     # (b) PageRank -----------------------------------------------------------
     pr = {}
@@ -4444,13 +4644,16 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
     def twin_round(cc, keys, nbrs, valid):
         return cc.copy_(spmv.kcore_round_plain(cc, keys, nbrs, valid))
 
+    parent_round = parents.get("kcore")
     spmv.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     blocks = blocks_of(windowed_kcore(sp_stream(src, dst, w, base, dev), WINDOW_MS))
     secs = time.perf_counter() - t0
-    k_launches = spmv.LAUNCHES["kcore_round"]
-    c_rows, k_err = [], 0
+    k_launches = dict(spmv.LAUNCHES)
+    if k_launches["kcore_fixpoint"] != n_win or k_launches["kcore_round"]:
+        raise RuntimeError(f"(c): launches {k_launches}, not one kcore_fixpoint launch a pane")
+    c_rows, k_err, rb_err, round_launches = [], 0, 0, 0
     for k, win in enumerate(wins):
         t0 = time.perf_counter()
         simple = kc.simple_pane_edges(WindowPane(k, -1, src[win], dst[win], None, None), c)
@@ -4467,59 +4670,95 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
         if not torch.equal(cores, want) or rounds != want_rounds:
             raise RuntimeError(f"(c) window {k}: cores or rounds ({rounds}, {want_rounds}) differ from the twin's")
         k_err = max(k_err, int((cores - want).abs().max()))
+        # the per-bucket route (one kcore_round C call a bucket a round)
+        spmv.reset_launches()
+        by_bucket, bb_rounds = kc.pane_cores(*simple, c, dev, round_fn=spmv.kcore_round)
+        round_launches += spmv.LAUNCHES["kcore_round"]
+        rb_err = max(rb_err, int((by_bucket - want).abs().max()))
+        if not torch.equal(by_bucket, cores) or bb_rounds != rounds:
+            raise RuntimeError(f"(c) window {k}: pane_cores through kcore_round differs from kcore_fixpoint's")
         h = cores.cpu().numpy()
         vids = np.nonzero(h > 0)[0]
         if not (np.array_equal(blocks[k][0], vids) and np.array_equal(blocks[k][1], h[vids])):
             raise RuntimeError(f"(c) window {k}: windowed_kcore's records differ")
         s_t, d_t, m_t = (torch.from_numpy(a).to(dev) for a in simple)
         buckets = [b for b in nbh.build_buckets(s_t, d_t, None, m_t) if b.num_keys > 0]
+        table = spmv._kcore_table([(b.keys, b.nbrs, b.valid) for b in buckets], dev)
+        bound = int(np.count_nonzero(simple[2])) + 1
 
-        def sweep(cc, buckets=buckets):
+        def one_round(cc, table=table):
+            return spmv._kcore_fixpoint_launch(cc, table, 1)
+
+        def sweep(cc, buckets=buckets, fn=spmv.kcore_round):
             for b in buckets:
-                spmv.kcore_round(cc, b.keys, b.nbrs, b.valid)
+                fn(cc, b.keys, b.nbrs, b.valid)
             return cc
 
-        def twin_sweep(buckets=buckets, cores=cores):
-            for b in buckets:
-                spmv.kcore_round_plain(cores, b.keys, b.nbrs, b.valid)
-
         # each round of the main path replayed from the estimates it started
-        # from (the degrees, then each round's result), so every round is
-        # timed as pane_cores ran it: early rounds search up to min(deg, D)
+        # from (the degrees, then each round's result) through the new
+        # kernel bounded at one round, and held equal to the per-bucket
+        # kernels' round (and a48e429's) from the same start
         starts = [spmv.scatter_into(spmv.PLUS_ONE, c, s_t, torch.ones_like(s_t), m_t)]
         for _ in range(rounds):
-            starts.append(sweep(starts[-1].clone()))
+            nxt = starts[-1].clone()
+            one_round(nxt)
+            starts.append(nxt)
         if not torch.equal(starts[-1], cores):
             raise RuntimeError(f"(c) window {k}: the replayed rounds do not reach pane_cores' cores")
+        for r, (st, nxt) in enumerate(zip(starts[:-1], starts[1:])):
+            if not torch.equal(sweep(st.clone()), nxt) or (
+                    parent_round is not None and not torch.equal(sweep(st.clone(), fn=parent_round), nxt)):
+                raise RuntimeError(f"(c) window {k} round {r + 1}: kcore_fixpoint's round differs from the "
+                                   "per-bucket kernels'")
         cw = torch.empty_like(cores)
         copy_ms = device_ms(lambda: cw.copy_(starts[0]), SP_REPS, cpm)[0]
-        timed = [device_ms(lambda st=st: sweep(cw.copy_(st)), SP_REPS, cpm) for st in starts[:-1]]
+        timed = [device_ms(lambda st=st: one_round(cw.copy_(st)), SP_REPS, cpm) for st in starts[:-1]]
         round_ms = [d - copy_ms for d, _ in timed]
 
-        def replay(starts=starts):
-            sweep(cw.copy_(starts[0]))
-            for _ in range(len(starts) - 2):
-                sweep(cw)
+        def pane_fn(table=table, start=starts[0], bound=bound):
+            return spmv._kcore_fixpoint_launch(cw.copy_(start), table, bound)
 
-        c_rows.append({"rounds": rounds, "kmax": int(h.max()), "buckets": len(buckets),
-                       "widths": [b.nbrs.shape[1] for b in buckets][-3:], "dedupe_ms": dedupe_ms,
-                       "call_ms": call_ms, "sweep_ms": sum(round_ms) / rounds, "first_round_ms": round_ms[0],
-                       "last_round_ms": round_ms[-1], "max_round_ms": max(round_ms), "copy_ms": copy_ms,
-                       "sweep_host_us": sum(u for _, u in timed) / rounds,
-                       "sweep_events_ms": cuda_ms(replay, 2, warmup=1) / rounds,
-                       "plain_sweep_ms": cuda_ms(twin_sweep, 2), "plain_s": plain_s,
-                       "bound_ms": kcore_sweep_bytes(buckets) / HBM_BYTES_PER_S * 1e3})
-    if k_launches != sum(row["rounds"] * row["buckets"] for row in c_rows):
-        raise RuntimeError(f"(c): kcore_round launched {k_launches} times, not once a bucket a round")
-    for k, row in enumerate(c_rows):
-        log(f"      window {k}: {row['rounds']} rounds, k_max {row['kmax']}, {row['buckets']} buckets (widest "
-            f"{row['widths']}); host dedupe {row['dedupe_ms']:.1f} ms; pane_cores {row['call_ms']:.1f} ms; a round "
-            f"(every bucket), each replayed from its own start, device held: mean {row['sweep_ms']:.5f} ms "
-            f"({row['sweep_ms'] / row['bound_ms']:.2f}x its bound {row['bound_ms']:.5f} ms), first (from the "
-            f"degrees) {row['first_round_ms']:.5f}, last {row['last_round_ms']:.5f}, most {row['max_round_ms']:.5f} "
-            f"(a {row['copy_ms']:.5f} ms copy of the start taken off each), host {row['sweep_host_us']:.1f} us; "
-            f"all rounds back to back by events {row['sweep_events_ms']:.5f} ms a round; twin's round "
-            f"{row['plain_sweep_ms']:.3f} ms, twin's pane {row['plain_s']:.2f} s")
+        pane_d, pane_h = device_ms(pane_fn, SP_REPS, cpm)
+        row = {"rounds": rounds, "kmax": int(h.max()), "buckets": len(buckets),
+               "widths": [b.nbrs.shape[1] for b in buckets][-3:], "dedupe_ms": dedupe_ms, "call_ms": call_ms,
+               "round_ms": sum(round_ms) / rounds, "first_round_ms": round_ms[0], "last_round_ms": round_ms[-1],
+               "max_round_ms": max(round_ms), "copy_ms": copy_ms, "round_host_us": sum(u for _, u in timed) / rounds,
+               "pane_ms": pane_d - copy_ms, "pane_host_us": pane_h, "pane_events_ms": cuda_ms(pane_fn, 3),
+               "plain_s": plain_s, "plain_sweep_ms": cuda_ms(lambda: sweep(cores.clone(), fn=twin_round), 2),
+               "bound_ms": kcore_sweep_bytes(buckets) / HBM_BYTES_PER_S * 1e3}
+        if k == 0:  # a grid sync at the launch's blocks; kcore_round's round
+            core_blocks = int(pane_fn()[3])
+            k_sync_us, _ = grid_sync_us(cpm, core_blocks)
+            swept = [device_ms(lambda st=st: sweep(cw.copy_(st)), SP_REPS, cpm) for st in starts[:-1]]
+
+            def replay(starts=starts):
+                sweep(cw.copy_(starts[0]))
+                for _ in range(len(starts) - 2):
+                    sweep(cw)
+
+            row.update({"sweep_ms": sum(d - copy_ms for d, _ in swept) / rounds,
+                        "sweep_host_us": sum(u for _, u in swept) / rounds,
+                        "sweep_events_ms": cuda_ms(replay, 2, warmup=1) / rounds})
+        if parent_round is not None:  # a48e429's round and pane_cores, in turns with the current
+            turns = []
+            for st in starts[:-1]:
+                got = [device_ms(fn, SP_REPS, cpm)[0] - copy_ms for fn in (
+                    lambda st=st: sweep(cw.copy_(st), fn=parent_round), lambda st=st: one_round(cw.copy_(st)),
+                    lambda st=st: one_round(cw.copy_(st)), lambda st=st: sweep(cw.copy_(st), fn=parent_round))]
+                turns.append(got)
+            walls = []
+            for fn in (parent_round, None, None, parent_round):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kc.pane_cores(*simple, c, dev, round_fn=fn)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            row.update({"parent_round_ms": sum(t[0] + t[3] for t in turns) / (2 * rounds),
+                        "current_round_ms": sum(t[1] + t[2] for t in turns) / (2 * rounds),
+                        "parent_call_ms": (walls[0] + walls[3]) / 2, "current_call_ms": (walls[1] + walls[2]) / 2,
+                        "call_turns_ms": walls})
+        c_rows.append(row)
+        del starts, cw
     t0 = time.perf_counter()
     o_src, o_dst = rmat_edges(SP_ORACLE_SCALE, SP_EDGE_FACTOR, ET_RMAT_ABC, np.random.default_rng(SP_SEED))
     o_n = 1 << SP_ORACLE_SCALE
@@ -4529,13 +4768,39 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
     if got != [(v, int(want[v])) for v in np.nonzero(want)[0]]:
         raise RuntimeError("(c): k-core differs from the peeling oracle on the scale-14 pane")
     log(f"  (c) windowed_kcore: {secs:.3f} s for {n_win} windows, {len(src) / secs:.6g} edges/s end to end, "
-        f"kcore_round launched {k_launches} times (one a bucket a round); cores = the twin's on the card in every "
-        f"window; = Batagelj-Zaversnik peeling on a scale-{SP_ORACLE_SCALE} pane ({len(o_src)} edges, k_max "
-        f"{int(want.max())}; {time.perf_counter() - t0:.2f} s)")
+        f"kcore_fixpoint launched {k_launches['kcore_fixpoint']} times (one a pane), kcore_round "
+        f"{k_launches['kcore_round']}; cores = the twin's on the card in every window, and = pane_cores through "
+        f"kcore_round ({round_launches} C calls, one a bucket a round, max |err| against the twin {rb_err}); = "
+        f"Batagelj-Zaversnik peeling on a "
+        f"scale-{SP_ORACLE_SCALE} pane ({len(o_src)} edges, k_max {int(want.max())}; {time.perf_counter() - t0:.2f} s)")
+    log(f"      a grid-wide sync at the k-core fixpoint's {core_blocks} blocks of 256: {k_sync_us:.3f} us")
+    for k, row in enumerate(c_rows):
+        log(f"      window {k}: {row['rounds']} rounds, k_max {row['kmax']}, {row['buckets']} buckets (widest "
+            f"{row['widths']}); host dedupe {row['dedupe_ms']:.1f} ms; pane_cores {row['call_ms']:.2f} ms; the "
+            f"fixed point in one launch, device held {row['pane_ms']:.5f} ms (host {row['pane_host_us']:.1f} us; "
+            f"events {row['pane_events_ms']:.5f} ms); a round, each replayed from its own start through "
+            f"kcore_fixpoint: mean {row['round_ms']:.5f} ms ({row['round_ms'] / row['bound_ms']:.2f}x its bound "
+            f"{row['bound_ms']:.5f} ms), first (from the degrees) {row['first_round_ms']:.5f}, last "
+            f"{row['last_round_ms']:.5f}, most {row['max_round_ms']:.5f} (a {row['copy_ms']:.5f} ms copy of the "
+            f"start taken off each); twin's round {row['plain_sweep_ms']:.3f} ms, twin's pane {row['plain_s']:.2f} s"
+            + ("" if "sweep_ms" not in row else f"; kcore_round's round (15 C calls): device {row['sweep_ms']:.5f} "
+               f"ms, host {row['sweep_host_us']:.1f} us, back to back by events {row['sweep_events_ms']:.5f} ms")
+            + ("" if "parent_round_ms" not in row else f"; in turns a round a48e429 {row['parent_round_ms']:.5f} "
+               f"ms, current {row['current_round_ms']:.5f} ({row['parent_round_ms'] / row['current_round_ms']:.2f}x)"
+               f", pane_cores a48e429 {row['parent_call_ms']:.2f} ms, current {row['current_call_ms']:.2f} ms"))
     row0 = c_rows[0]
-    res["kcore"] = {"launches": k_launches, "err": k_err, "ms": row0["sweep_events_ms"], "device_ms": row0["sweep_ms"],
-                    "host_us": row0["sweep_host_us"], "plain_ms": row0["plain_sweep_ms"],
-                    "bound_ms": row0["bound_ms"], "edges_per_s": len(src) / secs, "windows": c_rows}
+    res["kcore"] = {"launches": k_launches["kcore_fixpoint"], "err": k_err, "ms": row0["pane_events_ms"],
+                    "device_ms": row0["pane_ms"], "host_us": row0["pane_host_us"], "plain_ms": row0["plain_s"] * 1e3,
+                    "bound_ms": row0["bound_ms"] * row0["rounds"], "round_ms": row0["round_ms"],
+                    "round_bound_ms": row0["bound_ms"], "edges_per_s": len(src) / secs, "windows": c_rows,
+                    "blocks": core_blocks, "grid_sync_us": k_sync_us}
+    # kcore_round is not on windowed_kcore's path on the card since the
+    # one-launch fixed point: its launches are that path's (0, from the same
+    # reset as kcore_fixpoint's); the per-bucket route's C calls stand apart
+    res["kcore_round"] = {"launches": k_launches["kcore_round"], "side_route_launches": round_launches,
+                          "err": rb_err, "ms": row0["sweep_events_ms"],
+                          "device_ms": row0["sweep_ms"], "host_us": row0["sweep_host_us"],
+                          "plain_ms": row0["plain_sweep_ms"], "bound_ms": row0["bound_ms"]}
 
     # (d) iterative CC ---------------------------------------------------------
     n_ic = SP_IC_BATCHES * CC_BATCH
@@ -4609,14 +4874,49 @@ def phase_spmv(dev, cpm, cc_data: dict) -> dict:
     pr_iters = run_pr()
     pr_w = time.perf_counter() - t0
     e_auto = outs["auto"]
+    e_x0 = dist0.contiguous()
+    e_fm0 = e_x0 != spmv.MIN_PLUS.identity
+    e_sweep = {}
+    for t in SP_SWEEP:  # auto's threshold at the bench's shape: printed, the default stays
+        run_t = spmv._fixpoint_cuda(spmv.MIN_PLUS, op, e_x0, e_fm0, t, SP_BENCH_C - 1)
+        if not torch.equal(run_t.x, e_auto.x):
+            raise RuntimeError(f"(e): the fixpoint at threshold {t} differs from auto's")
+        e_sweep[t] = {"ms": device_ms(lambda t=t: spmv.fixpoint_launch(spmv.MIN_PLUS, op, e_x0, e_fm0, t,
+                                                                        SP_BENCH_C - 1), SP_REPS, cpm)[0],
+                      "iters": run_t.iters, "push": run_t.push_iters, "pull": run_t.pull_iters}
+    thr_e = spmv.DEFAULT_DIRECTION_THRESHOLD
+
+    def e_fix(fn=spmv.fixpoint_launch, t=thr_e):
+        return fn(spmv.MIN_PLUS, op, e_x0, e_fm0, t, SP_BENCH_C - 1)
+
+    e_blocks = int(e_fix()[2][spmv.FIX_BLOCKS])
+    e_grid = {"blocks": e_blocks}
+    for grid, fn in (grid_variants or {}).items():  # a thread a vertex (and an edge), in turns
+        vx, vf, vh = e_fix(fn)
+        xc, fc, hc = e_fix()
+        if not (torch.equal(vx[0], xc[0]) and torch.equal(vf, fc) and torch.equal(vh[:15], hc[:15])):
+            raise RuntimeError(f"(e): the fixpoint with a thread a {grid} differs")
+        e_grid[grid] = {"blocks": int(vh[spmv.FIX_BLOCKS])}
+        for mode, t in (("auto", thr_e), ("push", 2.0), ("pull", -1.0)):
+            e_grid[grid][mode] = in_turns(
+                f"(e) spmv_fixpoint {mode}, a thread a {grid} ({e_grid[grid]['blocks']} blocks) as the parent, the "
+                f"current grid ({e_blocks})", lambda fn=fn, t=t: e_fix(fn, t), lambda t=t: e_fix(t=t), SP_REPS, cpm)
     log(f"  (e) the JAX bench's SpMV shape (C = {SP_BENCH_C}, {SP_BENCH_E} edges, Zipf 1.2 sources, "
         f"default_rng({SP_BENCH_SEED})): force-push / auto wall {push_w / auto_w:.4f} (auto {auto_w * 1e3:.3f} ms, "
         f"push {push_w * 1e3:.3f} ms; auto {e_auto.iters} iterations: {e_auto.push_iters} push, "
         f"{e_auto.pull_iters} pull); PageRank {pr_iters} iterations, {SP_BENCH_E * pr_iters / pr_w:.6g} "
         f"edge-iterations/s; auto, push and pull bit-equal")
+    log("      auto's threshold at this shape, the fixpoint device held (the default stays "
+        f"{spmv.DEFAULT_DIRECTION_THRESHOLD}): " + "; ".join(
+            f"{t}: {v['ms']:.5f} ms ({v['push']} push, {v['pull']} pull)" for t, v in e_sweep.items()))
+    log(f"      the fixpoint's grid at this shape: {e_blocks} blocks of 256 (a block a pull tile)" + "".join(
+        f"; a thread a {grid}, {v['blocks']} blocks, in turns (device held, that / current): " + ", ".join(
+            f"{m} {v[m]['parent_ms']:.5f} / {v[m]['current_ms']:.5f} ms ({v[m]['parent_ms'] / v[m]['current_ms']:.2f}x)"
+            for m in ("auto", "push", "pull")) for grid, v in e_grid.items() if grid != "blocks"))
     res["bench"] = {"spmv_direction_speedup": push_w / auto_w, "auto_ms": auto_w * 1e3, "push_ms": push_w * 1e3,
                     "pagerank_eps": SP_BENCH_E * pr_iters / pr_w, "iters": e_auto.iters,
-                    "push_iters": e_auto.push_iters, "pull_iters": e_auto.pull_iters}
+                    "push_iters": e_auto.push_iters, "pull_iters": e_auto.pull_iters, "threshold_sweep": e_sweep,
+                    "grid": e_grid}
     log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
     return res
 
@@ -4647,7 +4947,15 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-csr-cu", default=None,
                         help="csr_triangles.cu of the commit before the lookup redesign (8ff7365; its three C calls "
                              "around neighborhoods.cu's radix sort): timed in turns with csr_triangles in phase 14 (d)")
+    parser.add_argument("--parent-spmv-cu", default=None,
+                        help="spmv.cu of the commit before the balanced products (a48e429; its C interface): its "
+                             "fixpoint timed in turns with the current one on phase 16 (a)'s windows")
+    parser.add_argument("--parent-kcore-cu", default=None,
+                        help="kcore.cu of the commit before the one-launch fixed point (a48e429; its C interface): "
+                             "its per-bucket round and pane_cores timed in turns with the current on phase 16 (c)")
     args = parser.parse_args(argv)
+    parent_spmv_cu = {k: os.path.abspath(path) for k, path in (("spmv", args.parent_spmv_cu),
+                                                                ("kcore", args.parent_kcore_cu)) if path}
     parent_csr_cu = os.path.abspath(args.parent_csr_cu) if args.parent_csr_cu else None
     parent_exact_cu = os.path.abspath(args.parent_exact_cu) if args.parent_exact_cu else None
     baseline_cu = os.path.abspath(args.baseline_cu) if args.baseline_cu else None
@@ -4688,14 +4996,15 @@ def main(argv=None) -> int:
     fold_split_cu = (split_sources(str(_cuda.CSRC_DIR / "degrees.cu"), FOLD_SPLIT, "degrees_fold")
                      if "degrees" in parent_cu else {})
     bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
+    grid_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), GRID_SPLIT, "spmv_grid")
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
-               *([parent_exact_cu] if parent_exact_cu else [])]
+               *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), probe_source()]
     split_failed = []
 
     def build_split():  # beside the main build; a variant that does not build is skipped
         try:
-            _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values()])
+            _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values(), *grid_split_cu.values()])
         except RuntimeError as e:
             split_failed.append(str(e).splitlines()[0])
 
@@ -4942,7 +5251,12 @@ def main(argv=None) -> int:
     ex = phase_exact(dev, cpm, parent_exact_calls(load_baseline(parent_exact_cu, PARENT_SIGNATURES["exact"]))
                      if parent_exact_cu else None)
     log("phase 16: the SpMV core and its algorithms (SSSP, PageRank, k-core, iterative CC) on the card")
-    sp = phase_spmv(dev, cpm, data)
+    wrap = {"spmv": parent_spmv_fixpoint, "kcore": parent_kcore_round}
+    fix_sig = {k: _cuda.SIGNATURES["spmv.cu"][k] for k in ("spmv_fixpoint_launch", "spmv_fixpoint_scratch_bytes")}
+    sp = phase_spmv(dev, cpm, data, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
+                                     for k, path in parent_spmv_cu.items()},
+                    {} if split_failed else {grid: variant_spmv_fixpoint(load_baseline(path, fix_sig))
+                                             for grid, path in grid_split_cu.items()})
 
     kernels = [
         {
@@ -5095,16 +5409,27 @@ def main(argv=None) -> int:
     kernels += [
         {**entry("spmv_fixpoint", "spmv.cu", "gelly_streaming_tpu/ops/spmv.py:344", sp["sssp"]),
          "library_call": no_call, **{k: sp["sssp"][k] for k in ("edges_per_s", "windows", "forced_pull_ms",
-                                                                 "forced_push_ms", "scipy_rel_err", "mode_s")},
+                                                                 "forced_push_ms", "scipy_rel_err", "mode_s",
+                                                                 "blocks", "grid_sync_us", "threshold_sweep")},
          "bench": sp["bench"]},
         {**entry("pagerank_fixpoint", "spmv.cu", "gelly_streaming_tpu/ops/spmv.py:513", sp["pagerank"]),
          "library_call": no_call, **{k: sp["pagerank"][k] for k in ("rel_err", "ms_an_iteration",
                                                                      "edge_iterations_per_s", "windows")}},
-        {**entry("kcore_round", "kcore.cu", "gelly_streaming_tpu/library/kcore.py:41", sp["kcore"]),
+        {**entry("kcore_fixpoint", "kcore.cu", "gelly_streaming_tpu/library/kcore.py:107", sp["kcore"]),
+         "also_replaces": "gelly_streaming_tpu/library/kcore.py:41 (_build_bucket_round with _h_index_rows)",
          "library_call": no_call,
+         "timed": "window 0's whole fixed point in one launch from the degrees (bound: its rounds' bounds); "
+                  "round_ms: a round, the mean over its rounds, each replayed from the estimates it started from",
+         **{k: sp["kcore"][k] for k in ("round_ms", "round_bound_ms", "edges_per_s", "windows", "blocks",
+                                         "grid_sync_us")}},
+        {**entry("kcore_round", "kcore.cu", "gelly_streaming_tpu/library/kcore.py:41", sp["kcore_round"]),
+         "library_call": no_call, "on_main_path": False,
+         "side_route_launches": sp["kcore_round"]["side_route_launches"],
+         "launched_by": "launches: windowed_kcore's run (the main path; the card takes kcore_fixpoint); "
+                        "side_route_launches: pane_cores(..., round_fn=spmv.kcore_round) over phase 16 (c)'s "
+                        "windows, one C call a bucket a round; max_abs_err: that route's cores against the twin's",
          "timed": "a round of window 0 (every bucket, one C call each), the mean over its rounds, each replayed "
-                  "from the estimates it started from",
-         **{k: sp["kcore"][k] for k in ("edges_per_s", "windows")}},
+                  "from the estimates it started from"},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,26 +24,40 @@
 // and segments [off[v], off[v + 1]) and [d_off[d], d_off[d + 1]) hold
 // masked edges only and no mask is read.
 //
-// Products (shared by the fixpoint, the PageRank iteration and the
-// one-shot spmv_product_launch, so spmv_dense and spmsv_frontier on the
-// card run the fixpoint's own code):
-//   - pull: destination d reduces its segment of the dst-sorted copy,
-//     add over e of mul(x[d_src[e]], d_w[e]).  A warp takes 32
-//     consecutive destinations; a segment of up to kShort edges is walked
-//     by its own lane, a longer one by the whole warp (lanes stride it and
-//     reduce by a butterfly).  The order of a sum depends on the data
-//     alone, so every run gives the same bits.
-//   - push (min semirings): a warp takes 32 consecutive vertices and walks
-//     the CSR rows of those in the frontier (short rows a lane, long rows
-//     the warp), combining each candidate into the target by atomicMin,
-//     issued only where a read shows it would lower the entry.  min is
-//     order-free, so atomics give the JAX package's values exactly.  The
-//     f32 min is an int atomicMin for a non-negative candidate and an
-//     unsigned atomicMax for a negative one: both orders agree with the
-//     float order for every sign.
-//   - push of a sum semiring (spmsv_frontier of PLUS_TIMES / PLUS_ONE): the
-//     pull's ordered segment sum over the edges whose source is in the
-//     frontier; no float atomics.
+// The min semirings' products (the fixpoint's, and the one-shot
+// spmv_product_launch's, so spmv_dense and spmsv_frontier on the card run
+// the fixpoint's own code) are balanced over the edges, not over the
+// vertices: Graph500's hubs hold in-segments and out-rows of ~17,500 edges,
+// which one warp walked alone while ~1,000 others waited at the grid sync.
+//   - pull: the merge path (Merrill and Garland, SC16) of the segment ends
+//     d_off[1..C] with the edges of [d_off[0], d_off[C]) is cut into tiles
+//     of kTile items (a block's, staged in shared memory: the ends, and
+//     each edge's candidate mul(x[d_src[e]], d_w[e])), and each thread
+//     takes kItems consecutive items.  A segment that begins and ends in
+//     one thread's items is stored by it; a piece of a longer one (a hub's
+//     segment spans tiles) is min-combined into the target by a guarded
+//     atomic, the trailing pieces of a warp merged across its lanes first.
+//     min is exact in any order.  The tiles' starting coordinates are
+//     searched once a launch (the pane does not change).
+//   - push: the frontier phase that counts the frontier also queues its
+//     vertices with out-edges and the prefix sum of their row lengths (one
+//     64-bit atomic a block reserving rows and edges together, so the
+//     offsets rise with the queue, and a block scan); the next push splits
+//     those edges evenly over the warps, 32 consecutive edges a warp a step,
+//     each lane finding its edge's row among 32 queue rows by a search over
+//     the lanes.  A candidate is combined into the target by atomicMin,
+//     issued only where a read shows it would lower the entry.  The f32 min
+//     is an int atomicMin for a non-negative candidate and an unsigned
+//     atomicMax for a negative one: both orders agree with the float order
+//     for every sign.
+// The fixpoint's target buffer holds min(x, identity) when an iteration
+// starts, so a destination with no candidate needs no write.  The sum
+// semirings keep the vertex-parallel ordered segment sum (pull_group: a
+// warp takes 32 consecutive destinations, a segment of up to kShort edges
+// walked by its own lane, a longer one by the whole warp), whose order
+// depends on the data alone: the PageRank iteration's, and the one-shot
+// PLUS_TIMES / PLUS_ONE products (their push is the pull's ordered sum over
+// the edges whose source is in the frontier; no float atomics).
 // Index rules (streams that validate nothing): a gather of x at an id
 // below 0 counts from the end once, then clamps; a push's scatter target
 // counts from the end once and is dropped when still outside [0, C); a
@@ -57,9 +71,16 @@
 // frontier (10 B a vertex).  A PageRank iteration reads d_src (4 B an
 // edge), off, d_off and r and writes r (16 B a vertex).  At Graph500 scale
 // 20 a window of 4,194,304 edges over 2^20 vertices is ~47.2 MB a pull
-// iteration, ~0.014 ms at 3.35 TB/s.  The fixpoint adds two grid-wide
-// syncs an iteration.
+// iteration, ~0.014 ms at 3.35 TB/s.  Each fixpoint iteration takes two
+// grid-wide syncs, which the design needs (the product's atomics land
+// before the frontier is read; the frontier, its count and queue before
+// the next product); the queue and the tiles add none.  The grid is a
+// block a pull tile or a thread a vertex, whichever is more, at most the
+// blocks that fit: a pane of few vertices and many edges still gets a
+// block a tile, and more blocks than that only add to every grid sync's
+// cost (chip_smoke.py phase 16 (e) times the alternatives in turns).
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,9 +94,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBins = 8;    // metrics.SPMV_DENSITY_BINS
-constexpr int kShort = 32;  // a segment or row up to this long is walked by one lane
+constexpr int kShort = 32;  // a segment or row up to this long is walked by one lane (pull_group)
+constexpr int kItems = 8;   // merge-path items a thread takes in a pull tile
+constexpr int kTile = kThreads * kItems;
+constexpr int kGroup = 4;  // vertices a thread loads at once in a frontier pass
 
-// the fixpoint's header (int32 slots, cleared by the launcher)
+// the scratch of a balanced product or a fixpoint (int32 slots): the
+// header (cleared by the launcher), then the frontier queue [n], its row
+// offsets [n], and the pull tiles' coordinates [tiles + 1] (int2)
 enum FixSlot {
   kStats = 0,  // 3 rotating slots of the frontier's size
   kIters = 3,
@@ -84,6 +110,9 @@ enum FixSlot {
   kSwitches = 6,
   kHist = 7,  // kBins bins
   kFixHeaderInts = kHist + kBins,
+  kQueueSlots = 16,  // 3 rotating uint64: (queued rows << 32) | their edges
+  kBlocks = 22,      // the launch's blocks
+  kPlanHead = 24,
 };
 
 // the PageRank header (int32 slots, cleared by the launcher), then the
@@ -233,38 +262,288 @@ __device__ typename S::Acc pull_group(const int* d_off, const int* d_src, const 
 }
 
 template <class S>
-__device__ __forceinline__ void relax(typename S::T* target, int n, int t_raw, typename S::T c) {
-  const int t = scatter_idx(t_raw, n);
-  if (t >= 0 && c < ld_cg(target + t)) atomic_min(target + t, c);
+__device__ __forceinline__ void relax_at(typename S::T* target, int t, typename S::T c) {
+  if (c < ld_cg(target + t)) atomic_min(target + t, c);
 }
 
-// Push (min semirings): the frontier's rows among the 32 vertices of group
-// g, each candidate min-combined into target.
 template <class S>
-__device__ void push_group(const int* off, const int* s_dst, const float* s_w,
-                           const typename S::T* x, const uint8_t* fm, typename S::T* target,
-                           int n, int g, int lane) {
-  using T = typename S::T;
-  const int v = g * 32 + lane;
-  int lo = 0, hi = 0;
-  T xv = S::ident();
-  if (v < n && ld_cg(fm + v)) {
-    lo = __ldg(off + v);
-    hi = __ldg(off + v + 1);
-    xv = ld_cg(x + v);
+__device__ __forceinline__ void relax(typename S::T* target, int n, int t_raw, typename S::T c) {
+  const int t = scatter_idx(t_raw, n);
+  if (t >= 0) relax_at<S>(target, t, c);
+}
+
+// ---------------------------------------------------------------------------
+// the balanced products (min semirings)
+
+struct Plan {
+  int* hdr;                  // FixSlot
+  unsigned long long* qctr;  // kQueueSlots
+  int* queue;                // the frontier's vertices with an out-edge
+  int* qoff;                 // each one's first position among the frontier's edges
+  int2* tiles;               // tile t's first merge-path item as (segment ends, edges) passed
+};
+
+__host__ __device__ inline int64_t plan_ints(int64_t n, int64_t e) {
+  return kPlanHead + 2 * n + 2 * ((n + e + kTile - 1) / kTile + 1);
+}
+
+__device__ inline Plan make_plan(int* scratch, int n) {
+  return {scratch, reinterpret_cast<unsigned long long*>(scratch + kQueueSlots), scratch + kPlanHead,
+          scratch + kPlanHead + n, reinterpret_cast<int2*>(scratch + kPlanHead + 2 * int64_t(n))};
+}
+
+// the vertices [vlo, vhi) of this block: a contiguous share of [0, n)
+__device__ inline int2 block_range(int n) {
+  const int64_t chunk = (int64_t(n) + gridDim.x - 1) / gridDim.x;
+  const int64_t lo = blockIdx.x * chunk;
+  return make_int2(static_cast<int>(lo < n ? lo : n), static_cast<int>(lo + chunk < n ? lo + chunk : n));
+}
+
+__device__ __forceinline__ int out_degree(const int* off, int v) { return __ldg(off + v + 1) - __ldg(off + v); }
+
+// Exclusive block scan of (a, b) over the block's threads in order, with
+// the block's totals.  Every thread calls it.
+__device__ void block_scan2(int a, int b, int* ea, int* eb, int* ta, int* tb) {
+  __shared__ int sa[kWarps], sb[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int ia = a, ib = b;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ua = __shfl_up_sync(kFull, ia, o), ub = __shfl_up_sync(kFull, ib, o);
+    if (lane >= o) {
+      ia += ua;
+      ib += ub;
+    }
   }
-  if (hi - lo <= kShort)
-    for (int e = lo; e < hi; ++e)
-      relax<S>(target, n, __ldg(s_dst + e), S::mul(xv, S::kWeighted ? __ldg(s_w + e) : 1.0f));
-  unsigned longs = __ballot_sync(kFull, hi - lo > kShort);
-  while (longs) {
-    const int owner = __ffs(longs) - 1;
-    longs &= longs - 1;
-    const int l2 = __shfl_sync(kFull, lo, owner), h2 = __shfl_sync(kFull, hi, owner);
-    const T x2 = __shfl_sync(kFull, xv, owner);
-#pragma unroll 4
-    for (int e = l2 + lane; e < h2; e += 32)
-      relax<S>(target, n, __ldg(s_dst + e), S::mul(x2, S::kWeighted ? __ldg(s_w + e) : 1.0f));
+  if (lane == 31) {
+    sa[warp] = ia;
+    sb[warp] = ib;
+  }
+  __syncthreads();
+  int wa = 0, wb = 0, sum_a = 0, sum_b = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      wa += sa[w];
+      wb += sb[w];
+    }
+    sum_a += sa[w];
+    sum_b += sb[w];
+  }
+  *ea = wa + ia - a;
+  *eb = wb + ib - b;
+  *ta = sum_a;
+  *tb = sum_b;
+  __syncthreads();
+}
+
+// Counts this block's frontier into *stat and appends its vertices with
+// an out-edge to the queue: one 64-bit atomic reserves the block's rows and
+// their edges together (rows in the high word), so the queue's row offsets
+// rise with its rows; one block scan gives each thread its place, and each
+// thread then writes its own vertices in order.  cnt, rows, edges: this
+// thread's counts over v = range.x + threadIdx.x + m * kThreads, whose fm it
+// wrote (or reads).
+__device__ void enqueue(const uint8_t* fm, const int* off, int2 range, int cnt, int rows, int edges, int* stat,
+                        unsigned long long* qctr, int* queue, int* qoff) {
+  __shared__ unsigned long long s_base;
+  int unused, total_cnt, mine_rows, mine_edges, total_rows, total_edges;
+  block_scan2(cnt, rows, &unused, &mine_rows, &total_cnt, &total_rows);
+  block_scan2(edges, 0, &mine_edges, &unused, &total_edges, &unused);
+  if (threadIdx.x == 0) {
+    if (total_cnt) atomicAdd(stat, total_cnt);
+    if (total_rows)
+      s_base = atomicAdd(qctr, (static_cast<unsigned long long>(total_rows) << 32) |
+                                   static_cast<unsigned>(total_edges));
+  }
+  __syncthreads();
+  if (rows == 0) return;
+  int q = static_cast<int>(s_base >> 32) + mine_rows, e = static_cast<int>(s_base & 0xffffffffull) + mine_edges;
+  for (int v0 = range.x + threadIdx.x; v0 < range.y; v0 += kThreads * kGroup) {
+    int d[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int v = v0 + u * kThreads;
+      d[u] = v < range.y && fm[v] ? out_degree(off, v) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u)
+      if (d[u] > 0) {
+        queue[q] = v0 + u * kThreads;
+        qoff[q++] = e;
+        e += d[u];
+      }
+  }
+}
+
+// The merge-path coordinate (segment ends passed, edges passed) of item
+// `diag` of the merge of the segment ends end[r] = d_off[r + 1] - e0
+// (r < n) with the edges 0 .. edges - 1 of [e0, d_off[n]): edge j comes
+// before the end of segment r iff j < end[r].
+__device__ int2 path_split(const int* d_off, int e0, int n, int edges, int64_t diag) {
+  int lo = static_cast<int>(diag > edges ? diag - edges : 0);
+  int hi = static_cast<int>(diag < n ? diag : n);
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(d_off + mid + 1) - e0 <= diag - mid - 1)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return make_int2(lo, static_cast<int>(diag - lo));
+}
+
+// the pull tiles' coordinates, tiles + 1 of them (every thread of the grid
+// calls it)
+__device__ void plan_tiles(const int* d_off, int e0, int n, int edges, int tiles, int2* out) {
+  const int64_t len = int64_t(n) + edges;
+  for (int64_t t = blockIdx.x * int64_t(kThreads) + threadIdx.x; t <= tiles; t += int64_t(gridDim.x) * kThreads) {
+    const int64_t diag = t * kTile;
+    out[t] = path_split(d_off, e0, n, edges, diag < len ? diag : len);
+  }
+}
+
+// One tile of the balanced pull, from coordinate c0 to c1: the segment
+// ends and the edges' candidates staged in shared memory, then kItems
+// consecutive merge-path items a thread.  xn[d] holds min(x[d], identity)
+// on entry and takes each segment's reduction: stored where the segment
+// lies within one thread's items, else min-combined piece by piece.  Every
+// thread of the block calls it.
+template <class S>
+__device__ void pull_tile(const int* d_off, const int* d_src, const float* d_w, const typename S::T* x,
+                          typename S::T* xn, int n, int e0, int2 c0, int2 c1, int* s_end, typename S::T* s_val,
+                          typename S::T* s_cur) {
+  using T = typename S::T;
+  __shared__ int s_start;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int na = c1.x - c0.x, ne = c1.y - c0.y;
+  // the segment ends and starts as positions among the tile's edges, the
+  // segments' current values (a segment open at the tile's end included),
+  // and the edges' candidates: each thread's loads issued before the first
+  // is used
+  {
+    int src[kItems];
+    float w[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = tid + u * kThreads;
+      if (k < na) s_end[k] = __ldg(d_off + c0.x + k + 1) - e0 - c0.y;
+      if (k <= na && c0.x + k < n) s_cur[k] = ld_cg(xn + c0.x + k);
+      src[u] = k < ne ? __ldg(d_src + e0 + c0.y + k) : 0;
+      w[u] = k < ne && S::kWeighted ? __ldg(d_w + e0 + c0.y + k) : 1.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = tid + u * kThreads;
+      if (k < ne) s_val[k] = S::mul(ld_cg(x + gather_idx(src[u], n)), w[u]);
+    }
+  }
+  if (tid == 0) s_start = __ldg(d_off + c0.x) - e0 - c0.y;
+  __syncthreads();
+  const int len = na + ne;
+  const int diag = min(tid * kItems, len), dend = min(diag + kItems, len);
+  int lo = max(0, diag - ne), hi = min(diag, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] <= diag - mid - 1)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int i = lo, j = diag - lo;
+  bool whole = j == (i == 0 ? s_start : s_end[i - 1]);  // segment i begins in these items
+  bool open = false;                                           // acc holds edges of segment i
+  T acc = S::ident();
+  for (int k = diag; k < dend; ++k) {
+    if (j < ne && (i >= na || j < s_end[i])) {
+      acc = S::add(acc, s_val[j]);
+      ++j;
+      open = true;
+    } else {
+      if (open && acc < s_cur[i]) {  // a stale s_cur costs an atomic at most, never a value
+        if (whole)
+          xn[c0.x + i] = acc;
+        else
+          atomic_min(xn + c0.x + i, acc);
+      }
+      acc = S::ident();
+      open = false;
+      whole = true;
+      ++i;
+    }
+  }
+  // a segment still open after these items: its piece, merged with the
+  // pieces of the same segment on the next lanes (lanes holding one
+  // segment are consecutive), one atomic from the first of them
+  const int row = open ? i : -1;
+  for (int o = 1; o < 32; o <<= 1) {
+    const T v = __shfl_down_sync(kFull, acc, o);
+    const int r = __shfl_down_sync(kFull, row, o);
+    if (lane + o < 32 && r == row) acc = S::add(acc, v);
+  }
+  const int prev = __shfl_up_sync(kFull, row, 1);
+  if (row >= 0 && (lane == 0 || prev != row) && acc < s_cur[row]) atomic_min(xn + c0.x + row, acc);
+  __syncthreads();  // the next tile reuses the shared arrays
+}
+
+// a tile's shared arrays
+template <class T>
+struct TileSmem {
+  int end[kTile];
+  T val[kTile];
+  T cur[kTile + 1];
+};
+
+template <class S>
+__device__ void pull_tiles(const int* d_off, const int* d_src, const float* d_w, const typename S::T* x,
+                           typename S::T* xn, int n, int e0, int tiles, const int2* coords,
+                           TileSmem<typename S::T>& sm) {
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    pull_tile<S>(d_off, d_src, d_w, x, xn, n, e0, ld_cg(coords + t), ld_cg(coords + t + 1), sm.end, sm.val,
+                 sm.cur);
+}
+
+// The balanced push: the frontier's edges, positions [0, fe) of the queued
+// rows laid end to end, split evenly over the grid's warps.  A warp takes
+// 32 consecutive positions a step; lane l holds queue row k + l (each has
+// an edge, so 32 positions span at most 32 rows), and each lane finds its
+// position's row by a binary search over the lanes.
+template <class S>
+__device__ void push_queue(const int* off, const int* s_dst, const float* s_w, const typename S::T* x,
+                           typename S::T* xn, int n, const int* queue, const int* qoff, unsigned long long qc) {
+  using T = typename S::T;
+  const int q = static_cast<int>(qc >> 32);
+  const int64_t fe = static_cast<int64_t>(qc & 0xffffffffull);
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = int64_t(gridDim.x) * kWarps, w = blockIdx.x * int64_t(kWarps) + (threadIdx.x >> 5);
+  const int p0 = static_cast<int>(fe * w / warps), p1 = static_cast<int>(fe * (w + 1) / warps);
+  if (p0 >= p1) return;
+  int lo = 0, hi = q - 1;  // the row of p0: the last k with qoff[k] <= p0
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (ld_cg(qoff + mid) <= p0)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  int k = lo;
+  for (int base = p0; base < p1; base += 32) {
+    const int kk = k + lane;
+    int qo = INT_MAX, first = 0;
+    T xv = S::ident();
+    if (kk < q) {
+      qo = ld_cg(qoff + kk);
+      const int v = ld_cg(queue + kk);
+      first = __ldg(off + v);
+      xv = ld_cg(x + v);
+    }
+    const int p = base + lane;
+    int r = 0;  // the last lane whose row starts at or before p
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      if (__shfl_sync(kFull, qo, r + s) <= p) r += s;
+    const int e = __shfl_sync(kFull, first, r) + (p - __shfl_sync(kFull, qo, r));
+    const T xr = __shfl_sync(kFull, xv, r);
+    if (p < p1) relax<S>(xn, n, __ldg(s_dst + e), S::mul(xr, S::kWeighted ? __ldg(s_w + e) : 1.0f));
+    k += __shfl_sync(kFull, r, 31);
   }
 }
 
@@ -325,32 +604,57 @@ __device__ double grid_sum(const double* p, int nb) {
 // ---------------------------------------------------------------------------
 // one-shot products (spmv_dense, spmsv_frontier)
 
-template <class T>
-__global__ void fill_kernel(T* y, int n, T v) {
-  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < n; i += int64_t(gridDim.x) * blockDim.x)
-    y[i] = v;
-}
-
-// y = combine(identity, product): pull over every destination, or push
-// (min semirings: atomics into y, which fill_kernel set to the identity;
-// sum semirings: the frontier-restricted ordered segment sum).
+// Sum semirings: y = the ordered segment sum over every destination, or
+// (push) over the edges whose source is in the frontier fm.
 template <class S, bool kPush>
-__global__ void __launch_bounds__(kThreads) product_kernel(const int* off, const int* s_dst,
-                                                           const float* s_w, const int* d_off,
-                                                           const int* d_src, const float* d_w,
+__global__ void __launch_bounds__(kThreads) product_kernel(const int* d_off, const int* d_src, const float* d_w,
                                                            const typename S::T* x, const uint8_t* fm,
                                                            typename S::T* y, int n) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * kWarps;
   const int groups = (n + 31) / 32;
   for (int g = blockIdx.x * kWarps + (threadIdx.x >> 5); g < groups; g += warps) {
-    if (kPush && S::kMin) {
-      push_group<S>(off, s_dst, s_w, x, fm, y, n, g, lane);
-    } else {
-      const typename S::T acc = pull_group<S, kPush>(d_off, d_src, d_w, x, fm, n, g, lane);
-      const int d = g * 32 + lane;
-      if (d < n) y[d] = S::add(S::ident(), acc);
+    const typename S::T acc = pull_group<S, kPush>(d_off, d_src, d_w, x, fm, n, g, lane);
+    const int d = g * 32 + lane;
+    if (d < n) y[d] = S::add(S::ident(), acc);
+  }
+}
+
+// Min semirings: y = combine(identity, the balanced pull or push), as one
+// iteration of the fixpoint computes it (a cooperative launch: the plan,
+// then the product).
+template <class S, bool kPush>
+__global__ void __launch_bounds__(kThreads) product_min_kernel(const int* off, const int* s_dst, const float* s_w,
+                                                               const int* d_off, const int* d_src, const float* d_w,
+                                                               const typename S::T* x, const uint8_t* fm,
+                                                               typename S::T* y, int n, int* scratch) {
+  using T = typename S::T;
+  cg::grid_group grid = cg::this_grid();
+  const Plan pl = make_plan(scratch, n);
+  const int2 range = block_range(n);
+  const int e0 = __ldg(d_off), edges = __ldg(d_off + n) - e0;
+  const int tiles = static_cast<int>((int64_t(n) + edges + kTile - 1) / kTile);
+  int cnt = 0, rows = 0, fe = 0;
+  for (int v = range.x + threadIdx.x; v < range.y; v += kThreads) {
+    y[v] = S::ident();
+    if (kPush && fm[v]) {
+      const int d = out_degree(off, v);
+      ++cnt;
+      rows += d > 0;
+      fe += d;
     }
+  }
+  if constexpr (kPush) {
+    enqueue(fm, off, range, cnt, rows, fe, pl.hdr + kStats, pl.qctr, pl.queue, pl.qoff);
+  } else {
+    plan_tiles(d_off, e0, n, edges, tiles, pl.tiles);
+  }
+  grid.sync();
+  if constexpr (kPush) {
+    push_queue<S>(off, s_dst, s_w, x, y, n, pl.queue, pl.qoff, ld_cg(pl.qctr));
+  } else {
+    __shared__ TileSmem<T> sm;
+    pull_tiles<S>(d_off, d_src, d_w, x, y, n, e0, tiles, pl.tiles, sm);
   }
 }
 
@@ -358,49 +662,57 @@ __global__ void __launch_bounds__(kThreads) product_kernel(const int* off, const
 // the direction-optimized fixpoint (min semirings)
 //
 // xs: two buffers of n.  Iteration `it` reads buffer it & 1 (x) and writes
-// buffer (it & 1) ^ 1 (xn).  Push needs xn preset to min(x, identity): the
-// prologue sets buffer 1 so, and each iteration's frontier phase copies xn
-// into the buffer it read, which is the next iteration's target.  So after
-// the last iteration both buffers hold the result, and the caller reads
-// buffer 0 (x0 itself when no iteration ran).
+// buffer (it & 1) ^ 1 (xn), which holds min(x, identity) when the
+// iteration starts: the prologue sets buffer 1 so, and each iteration's
+// frontier phase copies xn into the buffer it read, which is the next
+// iteration's target.  So after the last iteration both buffers hold the
+// result, and the caller reads buffer 0 (x0 itself when no iteration ran).
 //
 // Each iteration: read the frontier's size (reduced in the last phase of
-// the iteration before, or the prologue), stop on an empty
-// frontier or at max_iters, else dens = size / max(n_active, 1) in f32 and
-// pull iff dens > thr (thr 2 forces push, -1 pull); the product; grid sync;
-// the frontier xn != x and its size into the next slot; grid sync.
-// Block 0's thread 0 keeps the counters of the JAX loop (push and pull
-// iterations, switches, the density histogram).  The JAX package's host
-// loop also escalates through frontier-capacity buckets (a shape device
-// of XLA); the largest bucket holds every frontier, and no bucket changes
-// an iteration or its direction, so this loop runs the same iterations.
+// the iteration before, or the prologue), stop on an empty frontier or at
+// max_iters, else dens = size / max(n_active, 1) in f32 and pull iff
+// dens > thr (thr 2 forces push, -1 pull); the balanced product; grid
+// sync; the frontier xn != x, its size and queue into the next slots;
+// grid sync.  Block 0's thread 0 keeps the counters of the JAX loop (push
+// and pull iterations, switches, the density histogram).  The JAX
+// package's host loop also escalates through frontier-capacity buckets (a
+// shape device of XLA); the largest bucket holds every frontier, and no
+// bucket changes an iteration or its direction, so this loop runs the
+// same iterations.
 
 template <class S>
-__global__ void __launch_bounds__(kThreads) fixpoint_kernel(
+__global__ void __launch_bounds__(kThreads, 4) fixpoint_kernel(
     const int* off, const int* s_dst, const float* s_w, const int* d_off, const int* d_src,
     const float* d_w, const int* n_active, int n, const typename S::T* x0, const uint8_t* fm0,
-    typename S::T* xs, uint8_t* fm, float thr, int max_iters, int* hdr) {
+    typename S::T* xs, uint8_t* fm, float thr, int max_iters, int* scratch) {
   using T = typename S::T;
+  __shared__ TileSmem<T> sm;
   cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31;
-  const int64_t first = blockIdx.x * int64_t(kThreads) + threadIdx.x;
-  const int64_t stride = int64_t(gridDim.x) * kThreads;
-  const int warps = gridDim.x * kWarps;
-  const int groups = (n + 31) / 32;
-  const int warp_id = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const Plan pl = make_plan(scratch, n);
+  int* hdr = pl.hdr;
+  const int2 range = block_range(n);
+  const int e0 = __ldg(d_off), edges = __ldg(d_off + n) - e0;
+  const int tiles = static_cast<int>((int64_t(n) + edges + kTile - 1) / kTile);
 
-  // prologue: x, the push target, the frontier and its size
+  // prologue: x, the push target, the frontier, its size and queue; the
+  // pull tiles
   {
-    int cnt = 0;
-    for (int64_t v = first; v < n; v += stride) {
+    int cnt = 0, rows = 0, fe = 0;
+    for (int v = range.x + threadIdx.x; v < range.y; v += kThreads) {
       const T x = x0[v];
       xs[v] = x;
       xs[n + v] = S::add(x, S::ident());
       const uint8_t f = fm0[v] ? 1 : 0;
       fm[v] = f;
-      cnt += f;
+      if (f) {
+        const int d = out_degree(off, v);
+        ++cnt;
+        rows += d > 0;
+        fe += d;
+      }
     }
-    block_add(cnt, hdr + kStats);
+    enqueue(fm, off, range, cnt, rows, fe, hdr + kStats, pl.qctr, pl.queue, pl.qoff);
+    plan_tiles(d_off, e0, n, edges, tiles, pl.tiles);
   }
   grid.sync();
   const int act = *n_active;
@@ -408,14 +720,15 @@ __global__ void __launch_bounds__(kThreads) fixpoint_kernel(
   int push_i = 0, pull_i = 0, switches = 0, last_dir = -1;
   int it = 0;
   for (;; ++it) {
-    const int slot = it % 3;
+    const int slot = it % 3, next = (it + 1) % 3;
     const int cnt = ld_cg(hdr + kStats + slot);
     if (cnt == 0 || it >= max_iters) break;
     const float dens = __fdiv_rn(__int2float_rn(cnt), denom);
     const bool pull = dens > thr;
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      // the slot read two iterations ago is the one the next frontier fills
+      // the slots read two iterations ago are the ones the next frontier fills
       hdr[kStats + (it + 2) % 3] = 0;
+      pl.qctr[(it + 2) % 3] = 0;
       const int d = pull ? 1 : 0;
       if (last_dir >= 0 && d != last_dir) ++switches;
       last_dir = d;
@@ -426,31 +739,49 @@ __global__ void __launch_bounds__(kThreads) fixpoint_kernel(
     }
     const T* x = xs + (it & 1) * int64_t(n);
     T* xn = xs + ((it & 1) ^ 1) * int64_t(n);
-    if (pull) {
-      for (int g = warp_id; g < groups; g += warps) {
-        const T acc = pull_group<S, false>(d_off, d_src, d_w, x, nullptr, n, g, lane);
-        const int d = g * 32 + lane;
-        if (d < n) xn[d] = S::add(S::add(ld_cg(x + d), S::ident()), acc);
-      }
-    } else {
-      for (int g = warp_id; g < groups; g += warps) push_group<S>(off, s_dst, s_w, x, fm, xn, n, g, lane);
-    }
+    if (pull)
+      pull_tiles<S>(d_off, d_src, d_w, x, xn, n, e0, tiles, pl.tiles, sm);
+    else
+      push_queue<S>(off, s_dst, s_w, x, xn, n, pl.queue, pl.qoff, ld_cg(pl.qctr + slot));
     grid.sync();
     {
-      int c2 = 0;
+      int c2 = 0, rows = 0, fe = 0;
       T* xw = xs + (it & 1) * int64_t(n);
-      for (int64_t v = first; v < n; v += stride) {
-        const T a = ld_cg(xn + v);
-        const uint8_t f = a != ld_cg(x + v);
-        fm[v] = f;
-        xw[v] = a;  // the next iteration's push target
-        c2 += f;
+      for (int v0 = range.x + threadIdx.x; v0 < range.y; v0 += kThreads * kGroup) {
+        T a[kGroup], b[kGroup];
+        int lo[kGroup], hi[kGroup];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {  // every load before the stores (xw is x)
+          const int v = v0 + u * kThreads;
+          if (v < range.y) {
+            a[u] = ld_cg(xn + v);
+            b[u] = ld_cg(x + v);
+            lo[u] = __ldg(off + v);
+            hi[u] = __ldg(off + v + 1);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int v = v0 + u * kThreads;
+          if (v < range.y) {
+            const uint8_t f = a[u] != b[u];
+            fm[v] = f;
+            xw[v] = a[u];  // the next iteration's push target
+            if (f) {
+              const int d = hi[u] - lo[u];
+              ++c2;
+              rows += d > 0;
+              fe += d;
+            }
+          }
+        }
       }
-      block_add(c2, hdr + kStats + (it + 1) % 3);
+      enqueue(fm, off, range, c2, rows, fe, hdr + kStats + next, pl.qctr + next, pl.queue, pl.qoff);
     }
     grid.sync();
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
+    hdr[kBlocks] = gridDim.x;
     hdr[kIters] = it;
     hdr[kPushIters] = push_i;
     hdr[kPullIters] = pull_i;
@@ -578,18 +909,22 @@ int resident_blocks(const void* kernel, cudaError_t* err) {
 }
 
 // A cooperative launch of `kernel` over `items` threads' worth of work (at
-// most the blocks that fit on the card at once); the blocks used go to
-// *blocks_out when it is given.
-cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, cudaStream_t s,
-                               int* blocks_out = nullptr) {
+// most the blocks that fit on the card at once).
+cudaError_t launch_cooperative(const void* kernel, int64_t items, void** args, cudaStream_t s) {
   cudaError_t err;
   const int64_t fit = resident_blocks(kernel, &err);
   if (err != cudaSuccess) return err;
   int64_t blocks = (items + kThreads - 1) / kThreads;
   blocks = blocks < fit ? blocks : fit;
   blocks = blocks > 0 ? blocks : 1;
-  if (blocks_out) *blocks_out = static_cast<int>(blocks);
   return cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0, s);
+}
+
+// The balanced products' work in threads (launch_cooperative's items): a
+// block a pull tile over the pane's padded edges e, or a thread a vertex.
+int64_t product_items(int n, int e) {
+  const int64_t tiles = (int64_t(n) + e + kTile - 1) / kTile;
+  return tiles * kThreads > n ? tiles * kThreads : n;
 }
 
 int product_blocks(int n) {
@@ -600,37 +935,53 @@ int product_blocks(int n) {
 }
 
 template <class S, bool kPush>
-void run_product(int blocks, cudaStream_t s, const void* off, const void* s_dst, const void* s_w,
-                 const void* d_off, const void* d_src, const void* d_w, const void* x, const void* fm,
-                 void* y, int n) {
-  using T = typename S::T;
-  product_kernel<S, kPush><<<blocks, kThreads, 0, s>>>(
-      static_cast<const int*>(off), static_cast<const int*>(s_dst), static_cast<const float*>(s_w),
-      static_cast<const int*>(d_off), static_cast<const int*>(d_src), static_cast<const float*>(d_w),
-      static_cast<const T*>(x), static_cast<const uint8_t*>(fm), static_cast<T*>(y), n);
+int min_product(const int* off, const int* s_dst, const float* s_w, const int* d_off, const int* d_src,
+                const float* d_w, const typename S::T* x, const uint8_t* fm, typename S::T* y, int n, int e,
+                int* scratch, cudaStream_t s) {
+  void* args[] = {&off, &s_dst, &s_w, &d_off, &d_src, &d_w, &x, &fm, &y, &n, &scratch};
+  const cudaError_t err = launch_cooperative(reinterpret_cast<const void*>(product_min_kernel<S, kPush>),
+                                             product_items(n, e), args, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <class S>
 int product_launch(int push, const void* off, const void* s_dst, const void* s_w, const void* d_off,
-                   const void* d_src, const void* d_w, const void* x, const void* fm, void* y, int n,
-                   cudaStream_t s) {
+                   const void* d_src, const void* d_w, const void* x, const void* fm, void* y, int n, int e,
+                   void* scratch, long long scratch_bytes, cudaStream_t s) {
   using T = typename S::T;
-  const int blocks = product_blocks(n);
-  if (push && S::kMin) fill_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<T*>(y), n, S::ident());
-  if (push)
-    run_product<S, true>(blocks, s, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n);
-  else
-    run_product<S, false>(blocks, s, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n);
-  return static_cast<int>(cudaGetLastError());
+  auto* d_off_p = static_cast<const int*>(d_off);
+  auto* d_src_p = static_cast<const int*>(d_src);
+  auto* d_w_p = static_cast<const float*>(d_w);
+  auto* x_p = static_cast<const T*>(x);
+  auto* fm_p = static_cast<const uint8_t*>(fm);
+  auto* y_p = static_cast<T*>(y);
+  if constexpr (S::kMin) {
+    if (scratch_bytes < 4 * plan_ints(n, e)) return static_cast<int>(cudaErrorInvalidValue);
+    auto* sc = static_cast<int*>(scratch);
+    const cudaError_t err = cudaMemsetAsync(sc, 0, kPlanHead * sizeof(int), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    auto* off_p = static_cast<const int*>(off);
+    auto* s_dst_p = static_cast<const int*>(s_dst);
+    auto* s_w_p = static_cast<const float*>(s_w);
+    return push ? min_product<S, true>(off_p, s_dst_p, s_w_p, d_off_p, d_src_p, d_w_p, x_p, fm_p, y_p, n, e, sc, s)
+                : min_product<S, false>(off_p, s_dst_p, s_w_p, d_off_p, d_src_p, d_w_p, x_p, fm_p, y_p, n, e, sc,
+                                        s);
+  } else {
+    const int blocks = product_blocks(n);
+    if (push)
+      product_kernel<S, true><<<blocks, kThreads, 0, s>>>(d_off_p, d_src_p, d_w_p, x_p, fm_p, y_p, n);
+    else
+      product_kernel<S, false><<<blocks, kThreads, 0, s>>>(d_off_p, d_src_p, d_w_p, x_p, fm_p, y_p, n);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <class S>
-int fixpoint_launch(const void* off, const void* s_dst, const void* s_w, const void* d_off,
-                    const void* d_src, const void* d_w, const void* n_active, int n, const void* x0,
-                    const void* fm0, void* xs, void* fm, float thr, int max_iters, int* hdr,
-                    cudaStream_t s) {
+int fixpoint_launch(const void* off, const void* s_dst, const void* s_w, const void* d_off, const void* d_src,
+                    const void* d_w, const void* n_active, int n, int e, const void* x0, const void* fm0, void* xs,
+                    void* fm, float thr, int max_iters, int* scratch, cudaStream_t s) {
   using T = typename S::T;
-  cudaError_t err = cudaMemsetAsync(hdr, 0, kFixHeaderInts * sizeof(int), s);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, kPlanHead * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* off_p = static_cast<const int*>(off);
   auto* s_dst_p = static_cast<const int*>(s_dst);
@@ -644,8 +995,8 @@ int fixpoint_launch(const void* off, const void* s_dst, const void* s_w, const v
   auto* xs_p = static_cast<T*>(xs);
   auto* fm_p = static_cast<uint8_t*>(fm);
   void* args[] = {&off_p, &s_dst_p, &s_w_p, &d_off_p, &d_src_p, &d_w_p, &act_p, &n,
-                  &x0_p, &fm0_p, &xs_p, &fm_p, &thr, &max_iters, &hdr};
-  err = launch_cooperative(reinterpret_cast<const void*>(fixpoint_kernel<S>), n, args, s);
+                  &x0_p, &fm0_p, &xs_p, &fm_p, &thr, &max_iters, &scratch};
+  err = launch_cooperative(reinterpret_cast<const void*>(fixpoint_kernel<S>), product_items(n, e), args, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -654,27 +1005,45 @@ int max_rank_blocks(cudaError_t* err) {
   return resident_blocks(reinterpret_cast<const void*>(pagerank_kernel), err);
 }
 
+
 }  // namespace
 
 extern "C" {
+
+// The scratch bytes of one spmv_fixpoint_launch, or of one
+// spmv_product_launch of a min semiring, over n vertices and at most e
+// edges: the header, the frontier queue and the pull tiles.
+long long spmv_fixpoint_scratch_bytes(int n, int e) { return 4 * plan_ints(n, e); }
 
 // sem: 0 min_plus (f32 x, y), 1 plus_times (f32), 2 min_min (int32),
 // 3 plus_one (int32); push: 0 pull over every destination, 1 the push
 // lowering restricted to fm (uint8[n]); off, d_off: int32[n + 1]; s_dst,
 // d_src: int32[E]; s_w, d_w: f32[E] (unit weights when the pane has
-// none); x: the semiring's type [n]; y: the same [n], written whole.
-// Enqueues one product on the stream (push of a min semiring: a fill, then
-// the atomics), with no host sync.
+// none); x: the semiring's type [n]; y: the same [n], written whole; e:
+// the pane's padded edge count (E <= e); scratch: a min semiring's
+// spmv_fixpoint_scratch_bytes(n, e) bytes (unused by a sum semiring, may
+// be null).  Enqueues one product on the stream (a min semiring: one
+// cooperative launch, the balanced product; a sum semiring: the ordered
+// segment sums), with no host sync.
 int spmv_product_launch(int sem, int push, const void* off, const void* s_dst, const void* s_w,
                         const void* d_off, const void* d_src, const void* d_w, const void* x,
-                        const void* fm, void* y, int n, void* stream) {
+                        const void* fm, void* y, int n, int e, void* scratch, long long scratch_bytes,
+                        void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   switch (sem) {
-    case kMinPlus: return product_launch<MinPlus>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
-    case kPlusTimes: return product_launch<PlusTimes>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
-    case kMinMin: return product_launch<MinMin>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
-    case kPlusOne: return product_launch<PlusOne>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, s);
+    case kMinPlus:
+      return product_launch<MinPlus>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, e, scratch,
+                                     scratch_bytes, s);
+    case kPlusTimes:
+      return product_launch<PlusTimes>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, e, scratch,
+                                       scratch_bytes, s);
+    case kMinMin:
+      return product_launch<MinMin>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, e, scratch,
+                                    scratch_bytes, s);
+    case kPlusOne:
+      return product_launch<PlusOne>(push, off, s_dst, s_w, d_off, d_src, d_w, x, fm, y, n, e, scratch,
+                                     scratch_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -684,26 +1053,26 @@ int spmv_product_launch(int sem, int push, const void* off, const void* s_dst, c
 // start (x0 the semiring's type [n], fm0 uint8[n]), unchanged; xs: two
 // buffers [2n], the result in the first n; fm: uint8[n], the last
 // frontier; thr: the density above which an iteration pulls (2 forces
-// push, -1 pull); scratch: the header, int32[15] (after the call: slot 3
-// the iterations, 4 push and 5 pull iterations, 6 direction switches, 7-14
-// the density histogram).  One cooperative launch runs the whole loop on
-// the stream, with no host sync.
+// push, -1 pull); scratch: spmv_fixpoint_scratch_bytes(n, e) bytes, whose
+// first int32[24] are the header (after the call: slot 3 the iterations,
+// 4 push and 5 pull iterations, 6 direction switches, 7-14 the density
+// histogram, 22 the launch's blocks).  One cooperative launch runs the
+// whole loop on the stream, with no host sync.
 int spmv_fixpoint_launch(int sem, const void* off, const void* s_dst, const void* s_w, const void* d_off,
-                         const void* d_src, const void* d_w, const void* n_active, int n, const void* x0,
+                         const void* d_src, const void* d_w, const void* n_active, int n, int e, const void* x0,
                          const void* fm0, void* xs, void* fm, float thr, int max_iters, void* scratch,
                          long long scratch_bytes, void* stream) {
-  if (scratch_bytes < static_cast<long long>(kFixHeaderInts * sizeof(int)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (scratch_bytes < 4 * plan_ints(n, e)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  auto* hdr = static_cast<int*>(scratch);
+  auto* sc = static_cast<int*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
   switch (sem) {
     case kMinPlus:
-      return fixpoint_launch<MinPlus>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs, fm, thr,
-                                      max_iters, hdr, s);
+      return fixpoint_launch<MinPlus>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, e, x0, fm0, xs, fm, thr,
+                                      max_iters, sc, s);
     case kMinMin:
-      return fixpoint_launch<MinMin>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs, fm, thr,
-                                     max_iters, hdr, s);
+      return fixpoint_launch<MinMin>(off, s_dst, s_w, d_off, d_src, d_w, n_active, n, e, x0, fm0, xs, fm, thr,
+                                     max_iters, sc, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

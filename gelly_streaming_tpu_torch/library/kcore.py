@@ -7,8 +7,9 @@ neighbours' estimates; the sequence is non-increasing and converges to the
 core number (Lü et al., "The H-index of a network node", 2016).  The
 window's neighbourhoods are degree-bucketed [K, D] rows
 (``ops/neighborhoods.build_buckets``), and a round updates the buckets in
-order, one ``ops/spmv.kcore_round`` each (``csrc/kcore.cu`` on the GPU),
-until a round changes nothing.
+order until a round changes nothing: ``ops/spmv._kcore_fixpoint``, on the
+GPU every round of a pane in one launch (``csrc/kcore.cu``), on the CPU
+the per-bucket loop of its twin.
 
 The window graph is treated as simple and undirected: edges are
 canonicalized and deduplicated per pane on the host, self-loops dropped
@@ -53,10 +54,12 @@ def simple_pane_edges(pane, capacity: int) -> Optional[Tuple[np.ndarray, np.ndar
 
 
 def pane_cores(src, dst, msk, capacity: int, device, max_rounds: Optional[int] = None,
-               round_fn=spmv.kcore_round) -> Tuple[torch.Tensor, int]:
+               round_fn=None) -> Tuple[torch.Tensor, int]:
     """(core numbers int32 [capacity], rounds run) of one pane's simple
-    graph from ``simple_pane_edges``.  ``round_fn(c, keys, nbrs, valid)``
-    updates c in place (``spmv.kcore_round``, or a twin).  Raises when
+    graph from ``simple_pane_edges``: ``spmv._kcore_fixpoint`` (one launch
+    and one header read a pane on the GPU), or with ``round_fn(c, keys,
+    nbrs, valid)``, which updates c in place (``spmv.kcore_round``, or a
+    twin), a host loop of rounds of one call a bucket.  Raises when
     ``max_rounds`` (default: the directed edge count + 1) runs out before
     a round changes nothing."""
     s, d, m = (torch.from_numpy(a).to(device) for a in (src, dst, msk))
@@ -66,12 +69,13 @@ def pane_cores(src, dst, msk, capacity: int, device, max_rounds: Optional[int] =
     # plus-one scatter.
     c = spmv.scatter_into(spmv.PLUS_ONE, capacity, s, torch.ones_like(s), m)
     bound = max_rounds if max_rounds is not None else int(np.count_nonzero(msk)) + 1
-    for rounds in range(1, bound + 1):
-        prev = c.clone()
-        for bkt in buckets:
-            c = round_fn(c, bkt.keys, bkt.nbrs, bkt.valid)
-        if torch.equal(c, prev):
-            return c, rounds
+    rows = [(b.keys, b.nbrs, b.valid) for b in buckets]
+    if round_fn is None:
+        rounds, converged = spmv._kcore_fixpoint(c, rows, bound)  # rows of distinct neighbours
+    else:
+        rounds, converged = spmv.kcore_fixpoint_plain(c, rows, bound, round_fn)
+    if converged:
+        return c, rounds
     raise RuntimeError(
         f"k-core h-index did not converge within {bound} rounds; "
         "raise max_rounds (default iterates to the fixed point)"

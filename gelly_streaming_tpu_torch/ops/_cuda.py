@@ -144,13 +144,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                        _P],
     },
     "spmv.cu": {
+        # n, e: the scratch bytes of one fixpoint, or of one product of a
+        # min semiring, over n vertices and at most e edges
+        "spmv_fixpoint_scratch_bytes": [_I, _I],
         # sem, push, off, s_dst, s_w, d_off, d_src, d_w, x, fm | None, y, n,
-        # stream: one product (a fill, then the push atomics, for a min push)
-        "spmv_product_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-        # sem, off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0, xs
-        # [2n], fm, thr, max_iters, header (int32[15]), its bytes, stream: a memset,
-        # then the cooperative fixpoint kernel
-        "spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P],
+        # e, scratch | None (min semirings), its bytes, stream: one product
+        # (a min semiring's: one cooperative launch)
+        "spmv_product_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _L, _P],
+        # sem, off, s_dst, s_w, d_off, d_src, d_w, n_active, n, e, x0, fm0, xs
+        # [2n], fm, thr, max_iters, scratch (its first int32[24] the header),
+        # its bytes, stream: a memset, then the cooperative fixpoint kernel
+        "spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P],
         # n: the scratch bytes of one PageRank call
         "pagerank_scratch_bytes": [_I],
         # off, d_off, d_src, n, damping, tol, max_iters, rs [2n], in_window,
@@ -159,9 +163,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pagerank_fixpoint_launch": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _L, _P],
     },
     "kcore.cu": {
-        # c, n, keys, nbrs, valid, k, d, h, stage | None, stream: the h-index
-        # kernel, then the scatter-min
-        "kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+        # c, n, keys, nbrs, valid, k, d, h, stream: the h-index kernel, then
+        # the scatter-min
+        "kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P],
+        # n: the scratch bytes of one fixpoint over n vertices
+        "kcore_fixpoint_scratch_bytes": [_I],
+        # c, n, bucket table, buckets, max_rounds, scratch, its bytes,
+        # stream: a memset, then the cooperative fixpoint kernel
+        "kcore_fixpoint_launch": [_P, _I, _P, _I, _I, _P, _L, _P],
     },
 }
 
@@ -169,7 +178,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 RESTYPES: Dict[str, type] = {
     "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
-    "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L,
+    "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
+    "kcore_fixpoint_scratch_bytes": _L,
 }
 
 

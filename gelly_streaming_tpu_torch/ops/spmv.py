@@ -25,11 +25,15 @@ On the GPU the loops are hand-written CUDA kernels (``csrc/spmv.cu``,
 
 * ``fixpoint`` on CUDA tensors is ``spmv_fixpoint_launch``: the whole
   while loop, its per-iteration direction, counters and density histogram
-  in one cooperative launch.  The JAX package's host loop escalates
-  through frontier-capacity buckets (``frontier_caps``), an XLA shape
-  device; its largest bucket holds every frontier and no bucket changes
-  an iteration, so the kernel needs none and its iterations, counters,
-  ``x`` and frontier equal the JAX package's exactly.
+  in one cooperative launch, each iteration's product balanced over the
+  edges (the pull over the merge path of segment ends and edges, the push
+  over a queue of the frontier's rows).  The JAX package's host loop
+  escalates through frontier-capacity buckets (``frontier_caps``), an XLA
+  shape device; its largest bucket holds every frontier and no bucket
+  changes an iteration, so the kernel needs none and its iterations,
+  counters, ``x`` and frontier equal the JAX package's exactly.  Its
+  scratch (the header, the queue, the pull tiles) is sized by
+  ``spmv_fixpoint_scratch_bytes``.
 * ``pagerank_fixpoint`` is ``pagerank_fixpoint_launch``: the damped
   iteration in one cooperative launch.  Both directions take the ordered
   segment sum over the dst-stable copy (the per-destination order of the
@@ -39,16 +43,24 @@ On the GPU the loops are hand-written CUDA kernels (``csrc/spmv.cu``,
   accumulate in f64 and round to f32 once, as the twin's do: an f32 sum
   over a hub's 10^5 in-edges depends on its order by ~1e-5 relative, the
   f64 one is the exact sum's rounding in any order.
-* ``kcore_round`` (the h-index round of ``library/kcore.py``) is
-  ``kcore_round_launch``: one C call a bucket.
+* ``_kcore_fixpoint`` (the h-index fixed point of ``library/kcore.py``;
+  private, because the card caps each row's values at the h-index of the
+  starting estimates, which holds only for rows of distinct neighbours:
+  its one caller, ``pane_cores``, builds them from deduplicated edges) is
+  ``kcore_fixpoint_launch``: every round of a pane, every bucket of each
+  round, in one cooperative launch, whose header (rounds, converged) the
+  host reads once.  ``kcore_round`` (one bucket, one round) is
+  ``kcore_round_launch``, the same row code, with no cap.
 * ``spmv_dense`` and ``spmsv_frontier`` run one iteration's product code
-  of the same source (``spmv_product_launch``).
+  of the same source (``spmv_product_launch``; a min semiring's in one
+  cooperative launch, as the fixpoint plans it).
 * ``cc_fixpoint`` is the union-find fold, ``ops/unionfind.
   union_edges_with_seen`` (``csrc/unionfind.cu``'s ``union_kernel``): the
   JAX package defines it as that array fixed point.
 
 On CPU tensors each wrapper runs its plain twin (``fixpoint_plain``,
-``pagerank_fixpoint_plain``, ``kcore_round_plain``, ``product_plain``):
+``pagerank_fixpoint_plain``, ``kcore_round_plain``, ``kcore_fixpoint_plain``,
+``product_plain``):
 the JAX algorithm written as PyTorch ops with a host loop.  A CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts the C calls on CUDA
 tensors (never the twins).
@@ -87,14 +99,20 @@ _SOURCE = "spmv.cu"
 _KCORE_SOURCE = "kcore.cu"
 _MAX_INT32 = (1 << 31) - 1
 
-# spmv_fixpoint_launch's header: int32 slots (csrc/spmv.cu, FixSlot)
-_FIX_HEADER_INTS = 15
+# spmv_fixpoint_launch's header: the first int32 slots of its scratch
+# (csrc/spmv.cu, FixSlot)
+_FIX_HEADER_INTS = 24
 _FIX_ITERS = 3  # then push, pull, switches, the histogram
+FIX_BLOCKS = 22  # the launch's blocks
 _RANK_ITERS = 1  # pagerank_fixpoint_launch's header slot
+_CORE_HEADER_INTS = 8  # kcore_fixpoint_launch's (csrc/kcore.cu, CoreSlot)
 
 # C calls on CUDA tensors since the last reset_launches() (spmv_product:
-# the one-shot spmv_dense / spmsv_frontier products)
-LAUNCHES: Dict[str, int] = {"spmv_fixpoint": 0, "pagerank_fixpoint": 0, "kcore_round": 0, "spmv_product": 0}
+# the one-shot spmv_dense / spmsv_frontier products; kcore_fixpoint: one a
+# pane)
+LAUNCHES: Dict[str, int] = {
+    "spmv_fixpoint": 0, "pagerank_fixpoint": 0, "kcore_fixpoint": 0, "kcore_round": 0, "spmv_product": 0,
+}
 
 
 def reset_launches() -> None:
@@ -324,16 +342,26 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _plan_scratch(lib, op: PaneOperator) -> torch.Tensor:
+    """The scratch of one balanced product or fixpoint over ``op``: the
+    header (its first int32 slots), the frontier queue and the pull tiles."""
+    nbytes = lib.spmv_fixpoint_scratch_bytes(op.capacity, op.e_pad)
+    return torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=op.off.device)
+
+
 def _product_launch(sem: Semiring, op: PaneOperator, x: torch.Tensor, fm: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no spmv_product_launch kernel for device {x.device}")
     lib = _cuda.library(_SOURCE)
     y = torch.empty_like(x)
+    scratch = _plan_scratch(lib, op) if sem.idempotent else None
     _cuda.check(
         lib.spmv_product_launch(
             sem.code, int(fm is not None), op.off.data_ptr(), op.s_dst.data_ptr(), op.s_w.data_ptr(),
             op.d_off.data_ptr(), op.d_src.data_ptr(), op.d_w.data_ptr(), x.data_ptr(),
-            None if fm is None else fm.data_ptr(), y.data_ptr(), op.capacity, _stream(x),
+            None if fm is None else fm.data_ptr(), y.data_ptr(), op.capacity, op.e_pad,
+            None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel() * 4,
+            _stream(x),
         ),
         "spmv_product_launch",
     )
@@ -451,24 +479,26 @@ def fixpoint_plain(sem: Semiring, op: PaneOperator, x0: torch.Tensor, fm0: torch
 def fixpoint_launch(sem: Semiring, op: PaneOperator, x0: torch.Tensor, fm0: torch.Tensor, thr: float,
                     max_iters: int):
     """Enqueue one ``spmv_fixpoint_launch`` with no host sync; returns
-    (x buffers [2, C] (the result in row 0), frontier, header int32[15])."""
+    (x buffers [2, C] (the result in row 0), frontier, header int32[24]: a
+    view of the scratch; slot ``FIX_BLOCKS`` holds the launch's blocks)."""
     if x0.device.type != "cuda":
         raise ValueError(f"no spmv_fixpoint_launch kernel for device {x0.device}")
     lib = _cuda.library(_SOURCE)
     c = op.capacity
     xs = torch.empty((2, c), dtype=x0.dtype, device=x0.device)
     fm = torch.empty((c,), dtype=torch.bool, device=x0.device)
-    hdr = torch.empty((_FIX_HEADER_INTS,), dtype=torch.int32, device=x0.device)
+    scratch = _plan_scratch(lib, op)
     _cuda.check(
         lib.spmv_fixpoint_launch(
             sem.code, op.off.data_ptr(), op.s_dst.data_ptr(), op.s_w.data_ptr(), op.d_off.data_ptr(),
-            op.d_src.data_ptr(), op.d_w.data_ptr(), op.n_active.data_ptr(), c, x0.data_ptr(), fm0.data_ptr(),
-            xs.data_ptr(), fm.data_ptr(), float(thr), int(max_iters), hdr.data_ptr(), hdr.numel() * 4, _stream(x0),
+            op.d_src.data_ptr(), op.d_w.data_ptr(), op.n_active.data_ptr(), c, op.e_pad, x0.data_ptr(),
+            fm0.data_ptr(), xs.data_ptr(), fm.data_ptr(), float(thr), int(max_iters), scratch.data_ptr(),
+            scratch.numel() * 4, _stream(x0),
         ),
         "spmv_fixpoint_launch",
     )
     LAUNCHES["spmv_fixpoint"] += 1
-    return xs, fm, hdr
+    return xs, fm, scratch[:_FIX_HEADER_INTS]
 
 
 def _fixpoint_cuda(sem, op, x0, fm0, thr, max_iters) -> _Run:
@@ -642,18 +672,10 @@ def kcore_round(c: torch.Tensor, keys: torch.Tensor, nbrs: torch.Tensor, valid: 
     [K, D])``, D a power of two, into the estimates ``c`` IN PLACE;
     returns ``c``.  Every row reads the estimates as they stood before the
     bucket.  One ``kcore_round_launch`` on CUDA tensors."""
-    if c.dtype != torch.int32 or c.dim() != 1 or not c.is_contiguous():
-        raise ValueError("c must be a contiguous 1-D int32 tensor")
-    for t, dtype, name in ((keys, torch.int32, "keys"), (nbrs, torch.int32, "nbrs"), (valid, torch.bool, "valid")):
-        if t.dtype != dtype or t.device != c.device:
-            raise ValueError(f"{name} must be a {dtype} tensor on c's device")
+    _check_estimates(c)
     keys, nbrs, valid = keys.contiguous(), nbrs.contiguous(), valid.contiguous()
-    k = keys.shape[0]
-    if nbrs.dim() != 2 or nbrs.shape[0] != k or valid.shape != nbrs.shape:
-        raise ValueError("nbrs and valid must be [K, D] with K = len(keys)")
-    d = nbrs.shape[1]
-    if d <= 0 or d & (d - 1):
-        raise ValueError(f"the bucket width {d} must be a power of two")
+    _check_bucket(c, keys, nbrs, valid)
+    k, d = nbrs.shape
     if c.device.type == "cpu":
         return c.copy_(kcore_round_plain(c, keys, nbrs, valid))
     if c.device.type != "cuda":
@@ -662,16 +684,104 @@ def kcore_round(c: torch.Tensor, keys: torch.Tensor, nbrs: torch.Tensor, valid: 
         return c
     lib = _cuda.library(_KCORE_SOURCE)
     h = torch.empty((k,), dtype=torch.int32, device=c.device)
-    stage = torch.empty((k, d), dtype=torch.int32, device=c.device) if d > 1024 else None
     _cuda.check(
         lib.kcore_round_launch(
             c.data_ptr(), c.shape[0], keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), k, d, h.data_ptr(),
-            None if stage is None else stage.data_ptr(), _stream(c),
+            _stream(c),
         ),
         "kcore_round_launch",
     )
     LAUNCHES["kcore_round"] += 1
     return c
+
+
+def _check_estimates(c: torch.Tensor) -> None:
+    if c.dtype != torch.int32 or c.dim() != 1 or not c.is_contiguous():
+        raise ValueError("c must be a contiguous 1-D int32 tensor")
+
+
+def _check_bucket(c: torch.Tensor, keys, nbrs, valid) -> None:
+    for t, dtype, name in ((keys, torch.int32, "keys"), (nbrs, torch.int32, "nbrs"), (valid, torch.bool, "valid")):
+        if t.dtype != dtype or t.device != c.device:
+            raise ValueError(f"{name} must be a {dtype} tensor on c's device")
+    if nbrs.dim() != 2 or nbrs.shape[0] != keys.shape[0] or valid.shape != nbrs.shape:
+        raise ValueError("nbrs and valid must be [K, D] with K = len(keys)")
+    d = nbrs.shape[1]
+    if d <= 0 or d & (d - 1):
+        raise ValueError(f"the bucket width {d} must be a power of two")
+
+
+def kcore_fixpoint_plain(c: torch.Tensor, buckets, max_rounds: int, round_fn=None) -> tuple:
+    """The JAX host loop: a round updates every bucket in order with
+    ``round_fn(c, keys, nbrs, valid)`` (in place; default the twin,
+    ``kcore_round_plain``), until a round changes nothing or ``max_rounds``
+    ran.  Updates ``c`` in place; returns (rounds run, whether the last
+    changed nothing)."""
+    for rounds in range(1, max_rounds + 1):
+        prev = c.clone()
+        for keys, nbrs, valid in buckets:
+            if round_fn is None:
+                c.copy_(kcore_round_plain(c, keys, nbrs, valid))
+            else:
+                round_fn(c, keys, nbrs, valid)
+        if torch.equal(c, prev):
+            return rounds, True
+    return max_rounds, False
+
+
+def _kcore_table(buckets, device) -> torch.Tensor:
+    """The buckets ``[(keys, nbrs, valid), ...]`` as ``kcore_fixpoint_launch``
+    reads them: int64 [B, 4] on ``device``, a row (keys, nbrs, valid as
+    pointers, k | d << 32).  The tensors must stay alive while it is used."""
+    rows = [[keys.data_ptr(), nbrs.data_ptr(), valid.data_ptr(), keys.shape[0] | nbrs.shape[1] << 32]
+            for keys, nbrs, valid in buckets]
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 4).to(device)
+
+
+def _kcore_fixpoint_launch(c: torch.Tensor, table: torch.Tensor, max_rounds: int) -> torch.Tensor:
+    """Enqueue one ``kcore_fixpoint_launch`` over a ``_kcore_table`` with no
+    host sync; returns its header (int32: rounds run, converged, H or -1
+    for no cap, the blocks it ran).  Rows must hold distinct neighbours (a
+    simple graph's buckets): values are capped at the h-index of the
+    starting estimates, and nothing checks it."""
+    if c.device.type != "cuda":
+        raise ValueError(f"no kcore_fixpoint_launch kernel for device {c.device}")
+    lib = _cuda.library(_KCORE_SOURCE)
+    nbytes = lib.kcore_fixpoint_scratch_bytes(c.shape[0])
+    if nbytes < 0:
+        raise RuntimeError("kcore_fixpoint_scratch_bytes: the occupancy query failed")
+    scratch = torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=c.device)
+    _cuda.check(
+        lib.kcore_fixpoint_launch(
+            c.data_ptr(), c.shape[0], table.data_ptr(), table.shape[0], int(max_rounds), scratch.data_ptr(),
+            scratch.numel() * 4, _stream(c),
+        ),
+        "kcore_fixpoint_launch",
+    )
+    LAUNCHES["kcore_fixpoint"] += 1
+    return scratch[:_CORE_HEADER_INTS]
+
+
+def _kcore_fixpoint(c: torch.Tensor, buckets, max_rounds: int) -> tuple:
+    """The k-core h-index fixed point over a pane's buckets ``[(keys [K],
+    nbrs [K, D], valid [K, D]), ...]`` (D powers of two), taken in the
+    given order, into the estimates ``c`` IN PLACE: Jacobi within a bucket,
+    Gauss-Seidel across buckets, rounds until one changes nothing or
+    ``max_rounds`` ran.  Returns (rounds run, whether the last changed
+    nothing).  One ``kcore_fixpoint_launch`` on CUDA tensors and one read
+    of its header; the twin's loop on CPU tensors.  Every row's neighbours
+    must be distinct ids in [0, C): the card caps values at the h-index of
+    the starting estimates, which a repeated neighbour can exceed, and the
+    twin does not, so the two would differ.  ``library/kcore.pane_cores``,
+    the one caller, guarantees it."""
+    _check_estimates(c)
+    buckets = [(keys.contiguous(), nbrs.contiguous(), valid.contiguous()) for keys, nbrs, valid in buckets]
+    for keys, nbrs, valid in buckets:
+        _check_bucket(c, keys, nbrs, valid)
+    if c.device.type == "cpu":
+        return kcore_fixpoint_plain(c, buckets, int(max_rounds))
+    rounds, converged = _kcore_fixpoint_launch(c, _kcore_table(buckets, c.device), max_rounds)[:2].tolist()
+    return rounds, bool(converged)
 
 
 # ---------------------------------------------------------------------------

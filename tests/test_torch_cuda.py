@@ -1695,6 +1695,179 @@ def test_pagerank_fixpoint_matches_twin(cuda_device, case):
         torch.testing.assert_close(bounded[0], want_b[0], rtol=1e-5, atol=1e-9)
 
 
+def _rmat(rng, scale, edge_factor=16, abc=(0.57, 0.19, 0.19)):
+    """Graph500's Kronecker generator (duplicates and self-loops kept)."""
+    m = edge_factor << scale
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        src |= (r >= abc[0] + abc[1]).astype(np.int64) << bit
+        dst |= (((r >= abc[0]) & (r < abc[0] + abc[1])) | (r >= sum(abc))).astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    return perm[src].astype(np.int32), perm[dst].astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["star", "kronecker"])
+def test_spmv_fixpoint_hub_panes_match_twin(cuda_device, case):
+    """The balanced products on a hub longer than many pull tiles and push
+    shares: a star (vertex 0 with 2^15 out-edges, vertex 1 with 2^15
+    in-edges) and a Graph500 Kronecker pane, min-plus from the largest
+    out-row and min-min labels, at every forcing threshold, with the
+    header's counters equal to the twin's."""
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(21)
+    if case == "star":
+        c, hub = 1 << 17, 1 << 15
+        leaves = rng.permutation(np.arange(2, c))[: 2 * hub]
+        src = np.concatenate([np.zeros(hub, np.int32), leaves[hub:], rng.integers(0, c, 1 << 14)]).astype(np.int32)
+        dst = np.concatenate([leaves[:hub], np.ones(hub, np.int32), rng.integers(0, c, 1 << 14)]).astype(np.int32)
+    else:
+        c = 1 << 16
+        src, dst = _rmat(rng, 16)
+    w = rng.random(len(src)).astype(np.float32)
+    op = spmv.prepare_pane(src, dst, w, np.ones(len(src), bool), c, device=cuda_device)
+    x0 = torch.full((c,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=cuda_device)
+    x0[int(np.bincount(src, minlength=c).argmax())] = 0.0
+    fm0 = x0 != spmv.MIN_PLUS.identity
+    runs = [_fixpoint_both(spmv, spmv.MIN_PLUS, op, x0, fm0, thr, c - 1) for thr in (2.0, -1.0, 0.05, 0.0, 1.0)]
+    assert runs[0].pull_iters == 0 and runs[1].push_iters == 0 and runs[0].iters > 1
+    for r in runs[1:]:
+        assert torch.equal(r.x, runs[0].x)
+    labels = torch.arange(c, dtype=torch.int32, device=cuda_device)
+    for thr in (2.0, -1.0, 0.05):
+        _fixpoint_both(spmv, spmv.MIN_MIN, op, labels, torch.ones_like(fm0), thr, c)
+    # one-shot products through the same balanced code
+    fm = torch.from_numpy(rng.random(c) < 0.2).to(cuda_device)
+    fm[0] = True
+    for sem, x in ((spmv.MIN_PLUS, runs[0].x), (spmv.MIN_MIN, labels)):
+        assert torch.equal(spmv.spmv_dense(sem, op, x), spmv.product_plain(sem, op, x))
+        assert torch.equal(spmv.spmsv_frontier(sem, op, x, fm), spmv.product_plain(sem, op, x, fm))
+
+
+@pytest.mark.parametrize("c, e", [(1 << 12, 1 << 16), (1 << 15, 1 << 18)])
+def test_spmv_fixpoint_grid_follows_the_edges(cuda_device, c, e):
+    """A pane of few vertices and many edges: the fixpoint's grid takes a
+    block a pull tile (2,048 merge-path items of vertices and padded edges)
+    where that is more than a thread a vertex, and the run equals the
+    twin's."""
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(c)
+    src = ((rng.zipf(1.2, e) - 1) % c).astype(np.int32)
+    dst = rng.integers(0, c, e).astype(np.int32)
+    op = spmv.prepare_pane(src, dst, rng.random(e).astype(np.float32), np.ones(e, bool), c, device=cuda_device)
+    x0 = torch.full((c,), spmv.MIN_PLUS.identity, dtype=torch.float32, device=cuda_device)
+    x0[0] = 0.0
+    fm0 = x0 != spmv.MIN_PLUS.identity
+    _fixpoint_both(spmv, spmv.MIN_PLUS, op, x0, fm0, 0.05, c - 1)
+    blocks = int(spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, 0.05, c - 1)[2][spmv.FIX_BLOCKS])
+    assert blocks == -(-(c + op.e_pad) // 2048) > c // 256
+
+
+def _kcore_pane(src, dst, c):
+    from gelly_streaming_tpu_torch.core.windows import WindowPane
+    from gelly_streaming_tpu_torch.library import kcore as kc
+
+    return kc.simple_pane_edges(WindowPane(0, -1, src, dst, None, None), c)
+
+
+def _twin_round(c, keys, nbrs, valid):
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    return c.copy_(spmv.kcore_round_plain(c, keys, nbrs, valid))
+
+
+@pytest.mark.parametrize("scale", [10, 14, 16])
+def test_kcore_fixpoint_matches_twin_loop(cuda_device, scale):
+    """pane_cores through one kcore_fixpoint launch against the twin's
+    per-bucket host loop on Graph500 Kronecker panes: cores and rounds,
+    then the refusal at max_rounds = rounds - 1."""
+    from gelly_streaming_tpu_torch.library import kcore as kc
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    c = 1 << scale
+    simple = _kcore_pane(*_rmat(np.random.default_rng(scale), scale), c)
+    before = spmv.LAUNCHES["kcore_fixpoint"]
+    cores, rounds = kc.pane_cores(*simple, c, cuda_device)
+    assert spmv.LAUNCHES["kcore_fixpoint"] == before + 1
+    want, want_rounds = kc.pane_cores(*simple, c, cuda_device, round_fn=_twin_round)
+    assert torch.equal(cores, want) and rounds == want_rounds > 2
+    with pytest.raises(RuntimeError, match="converge"):
+        kc.pane_cores(*simple, c, cuda_device, max_rounds=rounds - 1)
+    # a bound of exactly the rounds needed is enough
+    assert torch.equal(kc.pane_cores(*simple, c, cuda_device, max_rounds=rounds)[0], want)
+
+
+def test_kcore_fixpoint_rounds_match_twin_round_by_round(cuda_device):
+    """Each round's estimates: the launch bounded at r rounds leaves c as
+    the twin's r-th round does (the unconverged result included)."""
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    c = 1 << 12
+    s, d, m = (torch.from_numpy(a).to(cuda_device) for a in _kcore_pane(*_rmat(np.random.default_rng(4), 12), c))
+    buckets = [(b.keys, b.nbrs, b.valid) for b in nbh.build_buckets(s, d, None, m) if b.num_keys > 0]
+    start = spmv.scatter_into(spmv.PLUS_ONE, c, s, torch.ones_like(s), m)
+    want = start.clone()
+    for r in range(1, 6):
+        for keys, nbrs, valid in buckets:
+            _twin_round(want, keys, nbrs, valid)
+        got = start.clone()
+        rounds, converged = spmv._kcore_fixpoint(got, buckets, r)
+        assert rounds == r and not converged
+        assert torch.equal(got, want), r
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kcore_fixpoint_multigraph_pane_matches_twin(cuda_device, seed):
+    """A stream that repeats edges in both orientations and holds
+    self-loops: pane_cores dedupes it, so the one launch (whose values are
+    capped at H) equals the twin's per-bucket loop and the CPU's cores."""
+    from gelly_streaming_tpu_torch.library import kcore as kc
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(40 + seed)
+    c = 1 << 12
+    src, dst = _rmat(rng, 12)
+    src = np.concatenate([src, dst, src[:5000], np.arange(64, dtype=np.int32)])
+    dst = np.concatenate([dst, src[: len(dst)], dst[:5000], np.arange(64, dtype=np.int32)])
+    simple = _kcore_pane(src, dst, c)
+    before = spmv.LAUNCHES["kcore_fixpoint"]
+    cores, rounds = kc.pane_cores(*simple, c, cuda_device)
+    assert spmv.LAUNCHES["kcore_fixpoint"] == before + 1
+    want, want_rounds = kc.pane_cores(*simple, c, cuda_device, round_fn=_twin_round)
+    cpu, cpu_rounds = kc.pane_cores(*simple, c, "cpu")
+    assert torch.equal(cores, want) and torch.equal(cores.cpu(), cpu) and rounds == want_rounds == cpu_rounds
+
+
+def test_kcore_fixpoint_large_h_path(cuda_device):
+    """A pane whose degree h-index passes the shared bins (4096): a clique
+    of 4,120 vertices (H = 4,119) with pendant leaves, so the hub rows take
+    the refining passes; cores and rounds equal the twin's."""
+    from gelly_streaming_tpu_torch.library import kcore as kc
+    from gelly_streaming_tpu_torch.ops import neighborhoods as nbh
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    q, c = 4120, 1 << 14
+    rng = np.random.default_rng(8)
+    iu, ju = np.triu_indices(q, 1)
+    leaves = np.arange(q, c)
+    src = np.concatenate([iu, leaves]).astype(np.int32)
+    dst = np.concatenate([ju, rng.integers(0, q, len(leaves))]).astype(np.int32)
+    simple = _kcore_pane(src, dst, c)
+    s_t, d_t, m_t = (torch.from_numpy(a).to(cuda_device) for a in simple)
+    buckets = [(b.keys, b.nbrs, b.valid) for b in nbh.build_buckets(s_t, d_t, None, m_t) if b.num_keys > 0]
+    est = spmv.scatter_into(spmv.PLUS_ONE, c, s_t, torch.ones_like(s_t), m_t)
+    hdr = spmv._kcore_fixpoint_launch(est, spmv._kcore_table(buckets, cuda_device), int(m_t.sum()) + 1).tolist()
+    assert hdr[1] == 1 and hdr[2] == -1  # H = 4,119 >= 4,096: no cap
+    cores, rounds = kc.pane_cores(*simple, c, cuda_device)
+    want, want_rounds = kc.pane_cores(*simple, c, cuda_device, round_fn=_twin_round)
+    assert torch.equal(cores, want) and torch.equal(est, want) and rounds == want_rounds == hdr[0]
+    assert int(cores[:q].min()) == int(cores[:q].max()) == q - 1 and int(cores[q:].max()) == 1
+
+
 def _kcore_bucket(rng, k, d, c, dev, full=False):
     c_est = torch.from_numpy(rng.integers(0, d + 3, c).astype(np.int32)).to(dev)
     keys = torch.from_numpy(rng.permutation(c)[:k].astype(np.int32)).to(dev)
@@ -1759,7 +1932,7 @@ def test_spmv_algorithms_on_the_card_match_the_cpu(cuda_device):
     spmv.reset_launches()
     got = run(cuda_device)
     assert spmv.LAUNCHES["spmv_fixpoint"] == spmv.LAUNCHES["pagerank_fixpoint"] == 4
-    assert spmv.LAUNCHES["kcore_round"] > 0
+    assert spmv.LAUNCHES["kcore_fixpoint"] == 4 and spmv.LAUNCHES["kcore_round"] == 0  # one launch a pane
     want = run("cpu")
     assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
     assert np.array_equal(got[4], want[4])
