@@ -219,7 +219,11 @@ edges) and distances within rtol 1e-5 of its float64; (b)
 ``windowed_pagerank`` (damping 0.85, tol 1e-6, max_iters 100): push, pull
 and a second run bit-identical; ``pagerank_fixpoint`` against its twin on
 the card: in_window exact, iterations within 1, ranks within rtol 1e-5 /
-atol 1e-9, each window's ranks summing to 1 within 1e-4; (c)
+atol 1e-9, each window's ranks summing to 1 within 1e-4; every window's
+``pagerank_fixpoint`` timed on a held stream (ms an iteration, its bound,
+host µs a call, the grid's blocks) beside one iteration's spread as a
+cuSPARSE CSR SpMV (``torch.mv``, f32 sums: a yardstick, not the same
+function); (c)
 ``windowed_kcore``: one ``kcore_fixpoint`` launch a pane (``csrc/kcore.cu``,
 every round in one cooperative launch), each window's cores and rounds
 equal to the twin's per-bucket rounds on the card and to ``pane_cores``
@@ -233,17 +237,20 @@ labels equal to scipy's components; (e) the JAX bench's own SpMV shape
 default_rng(17)): the force-push over auto wall ratio, PageRank's
 edge-iterations/s, auto, push and pull bit-equal.  Each kernel is timed on
 a held stream beside its bytes bound and its twin: every window's
-fixpoint in auto, forced push and forced pull, PageRank's window 0, each
+fixpoint in auto, forced push and forced pull, PageRank's every window, each
 k-core round replayed from its start and each pane's whole fixed point;
 the cost of one grid-wide sync at each fixpoint's block count (a probe
 source written and built by this script, ``GRID_SYNC_PROBE_CU``); (e)'s
 fixpoint (a block a pull tile) in turns with builds whose grid takes a
-thread a vertex, and a thread a vertex and an edge (``GRID_SPLIT``);
+thread a vertex, and a thread a vertex and an edge (``GRID_SPLIT``); (b)'s
+iteration split by builds with the tiles or the vertex phase taken out
+(``RANK_SPLIT``);
 auto's threshold swept over 0.01-0.5 at (a) window 0 and (e), printed
 only.
-``--parent-spmv-cu PATH`` / ``--parent-kcore-cu PATH`` (a48e429's sources)
-time the parent's fixpoint (every window and mode) and its per-bucket
-round and ``pane_cores`` in turns with the current ones, outputs held
+``--parent-spmv-cu PATH`` (9717394's ``spmv.cu``) times its
+``pagerank_fixpoint`` (one warp a hub's in-segment) in turns with the
+current one on every window of (b); ``--parent-kcore-cu PATH`` (a48e429's
+``kcore.cu``) its per-bucket round and ``pane_cores`` in (c); outputs held
 equal.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
@@ -775,9 +782,10 @@ PARENT_SIGNATURES = {
             "csr_count_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P]},
     # (5e8e61b, one thread block walking the chunks) nbrs, deg, dropped, local, glob, src, dst, mask, n,
     # capacity, max_degree, chunk, stream; the same with trace_local, trace_global for chunk
-    # (a48e429, one warp a group of 32 vertices) sem, off, s_dst, s_w, d_off, d_src, d_w, n_active, n, x0, fm0,
-    # xs, fm, thr, max_iters, header, its bytes, stream
-    "spmv": {"spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P]},
+    # (9717394, one warp a group of 32 destinations, a hub's in-segment one warp's) n; off, d_off, d_src, n,
+    # damping, tol, max_iters, rs [2n], in_window, scratch, its bytes, stream
+    "spmv": {"pagerank_scratch_bytes": [_I],
+             "pagerank_fixpoint_launch": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _L, _P]},
     # (a48e429, one C call a bucket) c, n, keys, nbrs, valid, k, d, h, stage | None, stream
     "kcore": {"kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P]},
     "exact": {"triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -4169,6 +4177,7 @@ SP_ORACLE_SCALE = 14  # (c): the pane the numpy peeling oracle takes
 SP_IC_BATCHES = 16  # (d): the CC bench's 50 batches cut to 16 for time
 SP_BENCH_C, SP_BENCH_E, SP_BENCH_SEED = 1 << 15, 1 << 18, 17  # (e): bench.py:785-865
 SP_REPS = 10  # held-stream calls (a fixpoint is one launch; a k-core sweep ~2 a bucket)
+SP_SPLIT_ITERS = 10  # (b): the iterations RANK_SPLIT's builds are timed over
 
 
 def sssp_oracle(src, dst, w, n: int, source: int) -> np.ndarray:
@@ -4311,6 +4320,18 @@ GRID_SPLIT = {
 }
 
 
+# spmv.cu's pagerank_kernel with one phase of its iteration taken out (phase
+# 16 (b): where an iteration's time goes); each variant loops max_iters
+# times whatever its delta, and its ranks are not the kernel's
+_RANK_LOOP = ("if (!(delta > tol && it < max_iters)) break;", "if (!(it < max_iters)) break;")
+RANK_SPLIT = {
+    "the tiles": [("    for (int t = blockIdx.x; t < tiles; t += gridDim.x)\n      rank_tile(",
+                   "    for (int t = blockIdx.x; t < 0; t += gridDim.x)\n      rank_tile("), _RANK_LOOP],
+    "the vertex phase": [("    rank_vertices<false>(off, d_off, in_window, rp, r, rn, n, e0, chunks, r0, base_in, "
+                          "damping, dm);\n", ""), _RANK_LOOP],
+}
+
+
 def probe_source() -> str:
     """The path of GRID_SYNC_PROBE_CU, written under the port's build
     directory."""
@@ -4345,26 +4366,49 @@ def variant_spmv_fixpoint(lib):
     return fixpoint
 
 
-def parent_spmv_fixpoint(lib):
-    """a48e429's fixpoint over ``lib`` (its C interface: a 15-int header as
-    the scratch; one warp a 32-vertex group, a hub's segment one warp's),
-    called as its wrapper called it: (x buffers, frontier, header)."""
+def variant_pagerank(lib):
+    """The current pagerank_fixpoint's C interface over ``lib`` (a
+    RANK_SPLIT variant of spmv.cu), called as ``spmv.pagerank_launch``
+    calls it: fn(op, tol, max_iters) at damping 0.85."""
     import torch
     from gelly_streaming_tpu_torch.ops import _cuda
 
-    def fixpoint(sem, op, x0, fm0, thr, max_iters):
-        c = op.capacity
-        xs = torch.empty((2, c), dtype=x0.dtype, device=x0.device)
-        fm = torch.empty((c,), dtype=torch.bool, device=x0.device)
-        hdr = torch.empty((15,), dtype=torch.int32, device=x0.device)
-        _cuda.check(lib.spmv_fixpoint_launch(
-            sem.code, op.off.data_ptr(), op.s_dst.data_ptr(), op.s_w.data_ptr(), op.d_off.data_ptr(),
-            op.d_src.data_ptr(), op.d_w.data_ptr(), op.n_active.data_ptr(), c, x0.data_ptr(), fm0.data_ptr(),
-            xs.data_ptr(), fm.data_ptr(), float(thr), int(max_iters), hdr.data_ptr(), hdr.numel() * 4,
-            torch.cuda.current_stream(x0.device).cuda_stream), "parent spmv_fixpoint")
-        return xs, fm, hdr
+    def pagerank(op, tol, max_iters):
+        c, dev = op.capacity, op.off.device
+        rs = torch.empty((2, c), dtype=torch.float32, device=dev)
+        in_w = torch.empty((c,), dtype=torch.bool, device=dev)
+        scratch = torch.empty(((lib.pagerank_scratch_bytes(c, op.e_pad) + 3) // 4,), dtype=torch.int32, device=dev)
+        _cuda.check(lib.pagerank_fixpoint_launch(
+            op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, op.e_pad, 0.85, float(tol),
+            int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(), scratch.numel() * 4,
+            torch.cuda.current_stream(dev).cuda_stream), "variant pagerank_fixpoint")
 
-    return fixpoint
+    return pagerank
+
+
+def parent_pagerank(lib):
+    """9717394's pagerank_fixpoint over ``lib`` (its C interface: the
+    scratch sized by the vertices alone; one warp a 32-destination group, a
+    hub's in-segment one warp's), called as its wrapper called it: (ranks
+    [2, C], in_window, scratch: int32 slot 1 the iterations)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def pagerank(op, damping, tol, max_iters):
+        c, dev = op.capacity, op.off.device
+        nbytes = lib.pagerank_scratch_bytes(c)
+        if nbytes < 0:
+            raise RuntimeError("parent pagerank_scratch_bytes: the occupancy query failed")
+        rs = torch.empty((2, c), dtype=torch.float32, device=dev)
+        in_w = torch.empty((c,), dtype=torch.bool, device=dev)
+        scratch = torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=dev)
+        _cuda.check(lib.pagerank_fixpoint_launch(
+            op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, float(damping), float(tol),
+            int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(), scratch.numel() * 4,
+            torch.cuda.current_stream(dev).cuda_stream), "parent pagerank_fixpoint")
+        return rs, in_w, scratch
+
+    return pagerank
 
 
 def parent_kcore_round(lib):
@@ -4408,13 +4452,45 @@ def grid_sync_us(cpm, blocks: int) -> tuple:
     return (many_ms - none_ms) / SYNC_PROBE * 1e3, none_ms
 
 
-def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dict:
+def csr_spmv_yardstick(op, r, cpm) -> dict:
+    """One PageRank iteration's spread as one cuSPARSE CSR SpMV: ``torch.mv``
+    of the dst-sorted copy (crow d_off, col d_src, unit values) by c = r /
+    max(out_deg, 1), summed in f32.  Not the same function as the fixpoint
+    (one iteration, f32 sums), a yardstick of its gathers' speed: {ms held,
+    rel_err: the max relative difference from the f64 spread}, or {error}
+    where the library call fails."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import spmv
+
+    c = op.capacity
+    lo, hi = int(op.d_off[0]), int(op.d_off[c])
+    col = op.d_src[lo:hi].contiguous()
+    cvec = r / (op.off[1:] - op.off[:-1]).clamp_min(1).to(torch.float32)
+    want = torch.zeros((c,), dtype=torch.float64, device=r.device).index_add_(
+        0, spmv._segment_ids(op).long(), cvec[col.long()].double())
+    try:
+        a = torch.sparse_csr_tensor((op.d_off - lo).contiguous(), col,
+                                    torch.ones((hi - lo,), dtype=torch.float32, device=r.device), size=(c, c),
+                                    check_invariants=False)
+        got = torch.mv(a, cvec)
+        ms = device_ms(lambda: torch.mv(a, cvec), SP_REPS, cpm)[0]
+    except RuntimeError as e:
+        return {"error": f"torch.mv of a CSR tensor failed: {str(e)[:200]}"}
+    sel = want > 0
+    rel = float(((got.double() - want).abs()[sel] / want[sel]).max()) if bool(sel.any()) else 0.0
+    return {"ms": ms, "rel_err": rel}
+
+
+def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None, rank_variants=None) -> dict:
     """Phase 16: the SpMV core and its algorithms on the card at Graph500
     scale 20: (a) SSSP, (b) PageRank, (c) k-core, each held against its
     twin on the card and (a), (c) against scipy / numpy oracles; (d)
     iterative CC over the CC bench's stream; (e) the JAX bench's SpMV
     shape (with ``grid_variants``, {grid: fixpoint} of GRID_SPLIT's builds,
-    each in turns with the current)."""
+    each in turns with the current; ``rank_variants``, {phase taken out:
+    pagerank} of RANK_SPLIT's builds).  ``parents``: {"spmv": 9717394's
+    pagerank_fixpoint (parent_pagerank), "kcore": a48e429's round
+    (parent_kcore_round)}, each timed in turns with the current kernel."""
     import torch
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
@@ -4509,31 +4585,15 @@ def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dic
                        "bound_ms": fixpoint_bytes(twin_log, c, SP_WIN_EDGES) / HBM_BYTES_PER_S * 1e3})
         a_panes.append((op, x0, fm0, got.x))
     # each window's fixpoint in auto, forced push and forced pull, device
-    # only (in turns with a48e429's kernel when it is given: the same x,
-    # frontier and header first)
+    # only
     fix_blocks = int(spmv.fixpoint_launch(spmv.MIN_PLUS, a_panes[0][0], a_panes[0][1], a_panes[0][2], thr,
                                           c - 1)[2][spmv.FIX_BLOCKS])
     sync_us, probe_ms = grid_sync_us(cpm, fix_blocks)
-    parent_fix = parents.get("spmv")
     for k, (op, x0, fm0, _) in enumerate(a_panes):
-        row = a_rows[k]
         for mode, t in (("auto", thr), ("push", 2.0), ("pull", -1.0)):
-            def cur(op=op, x0=x0, fm0=fm0, t=t):
-                return spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, t, c - 1)
-
-            if parent_fix is None:
-                row[f"{mode}_ms"] = device_ms(cur, SP_REPS, cpm)[0]
-                continue
-
-            def old(op=op, x0=x0, fm0=fm0, t=t):
-                return parent_fix(spmv.MIN_PLUS, op, x0, fm0, t, c - 1)
-
-            (xo, fo, ho), (xc, fc, hc) = old(), cur()
-            if not (torch.equal(xo[0], xc[0]) and torch.equal(fo, fc) and torch.equal(ho, hc[:15])):
-                raise RuntimeError(f"(a) window {k} {mode}: a48e429's fixpoint and the current one differ")
-            turns = in_turns(f"(a) window {k} {mode} spmv_fixpoint, a48e429's and the current", old, cur, SP_REPS, cpm)
-            row.update({f"{mode}_ms": turns["current_ms"], f"{mode}_parent_ms": turns["parent_ms"],
-                        f"{mode}_turns": turns["turns"]})
+            a_rows[k][f"{mode}_ms"] = device_ms(
+                lambda op=op, x0=x0, fm0=fm0, t=t: spmv.fixpoint_launch(spmv.MIN_PLUS, op, x0, fm0, t, c - 1),
+                SP_REPS, cpm)[0]
     op, x0, fm0, x_auto = a_panes[0]
 
     def fix_fn(op=op, x0=x0, fm0=fm0):
@@ -4553,11 +4613,7 @@ def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dic
         log(f"      window {k}: {row['iters']} iterations ({row['push']} push, {row['pull']} pull, {row['switches']} "
             f"switches), {row['reached']} reached; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms; "
             f"device held: auto {row['auto_ms']:.5f} ms ({row['auto_ms'] / row['bound_ms']:.2f}x), push "
-            f"{row['push_ms']:.5f}, pull {row['pull_ms']:.5f}"
-            + ("" if parent_fix is None else f"; a48e429's auto {row['auto_parent_ms']:.5f}, push "
-               f"{row['push_parent_ms']:.5f}, pull {row['pull_parent_ms']:.5f} "
-               f"({row['auto_parent_ms'] / row['auto_ms']:.2f}x / {row['push_parent_ms'] / row['push_ms']:.2f}x / "
-               f"{row['pull_parent_ms'] / row['pull_ms']:.2f}x)"))
+            f"{row['push_ms']:.5f}, pull {row['pull_ms']:.5f}")
     log(f"      kernel = twin on the card (x, frontier, counters, histogram) and = windowed_sssp's records in every "
         f"window; reached sets = scipy's dijkstra, distances within rtol {rel:.3g} of its float64 "
         f"({oracle_s:.2f} s of scipy)")
@@ -4595,6 +4651,7 @@ def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dic
         raise RuntimeError(f"(b): launches {launches}, pull run {pr['pull'][2]}, push run {stats}")
     iters_total = stats["spmv_push_iters"]
     b_rows, pr_err, pr_rel = [], 0.0, 0.0
+    parent_pr = parents.get("spmv")
     for k, win in enumerate(wins):
         op = spmv.prepare_pane(src[win], dst[win], None, np.ones(SP_WIN_EDGES, bool), c, device=dev)
         r, in_w, iters = spmv.pagerank_fixpoint(op, damping=0.85, tol=1e-6, max_iters=100)
@@ -4617,28 +4674,68 @@ def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None) -> dic
         sel = want_r > 0
         pr_rel = max(pr_rel, float(((r - want_r).abs()[sel] / want_r[sel]).max()))
         e_m = SP_WIN_EDGES
-        b_rows.append({"iters": iters, "twin_iters": want_it, "vertices": len(vids), "sum": total,
-                       "plain_ms": plain_ms, "bound_ms": pagerank_bytes(iters, c, e_m) / HBM_BYTES_PER_S * 1e3})
-        if k == 0:
-            def pr_fn(op=op):
-                return spmv.pagerank_launch(op, damping=0.85, tol=1e-6, max_iters=100)
+        row = {"iters": iters, "twin_iters": want_it, "vertices": len(vids), "sum": total, "plain_ms": plain_ms,
+               "bound_ms": pagerank_bytes(iters, c, e_m) / HBM_BYTES_PER_S * 1e3}
+        b_rows.append(row)
 
-            pr_d_ms, pr_h_us = device_ms(pr_fn, SP_REPS, cpm)
+        def pr_fn(op=op):
+            return spmv.pagerank_launch(op, damping=0.85, tol=1e-6, max_iters=100)
+
+        row["blocks"] = int(pr_fn()[2][spmv.RANK_BLOCKS])
+        row["ms"], row["host_us"] = device_ms(pr_fn, SP_REPS, cpm)
+        if k == 0:
             pr_ms = cuda_ms(pr_fn, SP_REPS)
+        if parent_pr is not None:  # 9717394's kernel: the same ranks, in_window and iterations first
+            def old(op=op):
+                return parent_pr(op, 0.85, 1e-6, 100)
+
+            (ro, wo, so), (rc, wc, sc) = old(), pr_fn()
+            if not (torch.equal(ro[0], rc[0]) and torch.equal(wo, wc) and int(so[1]) == int(sc[1])):
+                raise RuntimeError(f"(b) window {k}: 9717394's pagerank_fixpoint and the current one differ")
+            turns = in_turns(f"(b) window {k} pagerank_fixpoint, 9717394's and the current", old, pr_fn, SP_REPS,
+                             cpm)
+            row.update({"parent_ms": turns["parent_ms"], "turns_ms": turns["current_ms"], "turns": turns["turns"]})
+        row["csr_spmv"] = csr_spmv_yardstick(op, r, cpm)
     for k, row in enumerate(b_rows):
+        ys = row["csr_spmv"]
         log(f"      window {k}: {row['iters']} iterations (twin {row['twin_iters']}), {row['vertices']} vertices, "
-            f"ranks sum {row['sum']:.7f}; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms")
+            f"ranks sum {row['sum']:.7f}; twin {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.5f} ms; device "
+            f"{row['ms']:.5f} ms held ({row['ms'] / max(row['iters'], 1):.5f} ms an iteration, "
+            f"{row['ms'] / row['bound_ms']:.2f}x its bound), host {row['host_us']:.2f} us a call, "
+            f"{row['blocks']} blocks"
+            + ("" if "parent_ms" not in row else f"; in turns 9717394's {row['parent_ms']:.5f} ms, the current "
+               f"{row['turns_ms']:.5f} ms ({row['parent_ms'] / row['turns_ms']:.2f}x)")
+            + (f"; yardstick {ys['error']}" if "error" in ys else
+               f"; yardstick (not the same function: one iteration's spread, f32 sums) cuSPARSE CSR SpMV "
+               f"{ys['ms']:.5f} ms, x {row['iters']} iterations {ys['ms'] * row['iters']:.5f} ms, max rel off the "
+               f"f64 spread {ys['rel_err']:.3g}"))
+    pr_d_ms, pr_h_us = b_rows[0]["ms"], b_rows[0]["host_us"]
+    split = {}
+    if rank_variants:  # window 0 at tol 0: every build runs SP_SPLIT_ITERS iterations
+        op0 = spmv.prepare_pane(src[wins[0]], dst[wins[0]], None, np.ones(SP_WIN_EDGES, bool), c, device=dev)
+        builds = {"none": lambda op, tol, iters: spmv.pagerank_launch(op, damping=0.85, tol=tol, max_iters=iters),
+                  **rank_variants}
+        for part, fn in builds.items():
+            at = [device_ms(lambda fn=fn, i=i: fn(op0, 0.0, i), SP_REPS, cpm)[0] for i in (0, SP_SPLIT_ITERS)]
+            split[part] = {"launch_ms": at[0], "us_an_iteration": (at[1] - at[0]) / SP_SPLIT_ITERS * 1e3}
+        whole = split["none"]["us_an_iteration"]
+        log(f"      window 0's iteration at tol 0 ({SP_SPLIT_ITERS} iterations; the launch and prologue "
+            f"{split['none']['launch_ms']:.5f} ms): {whole:.2f} us; " + "; ".join(
+                f"without {part} {v['us_an_iteration']:.2f} us (so {part} {whole - v['us_an_iteration']:.2f} us)"
+                for part, v in split.items() if part != "none"))
     log(f"  (b) windowed_pagerank (damping 0.85, tol 1e-6, max_iters 100): {secs:.3f} s, "
         f"{iters_total * SP_WIN_EDGES / secs:.6g} edge-iterations/s end to end; push, pull and a second run "
         f"bit-identical; against the twin on the card: in_window exact, iterations within 1, ranks max abs "
         f"{pr_err:.3g}, max rel {pr_rel:.3g}")
     log(f"      pagerank_fixpoint window 0: device {pr_d_ms:.5f} ms held ({pr_d_ms / b_rows[0]['iters']:.5f} ms an "
         f"iteration; {pr_d_ms / b_rows[0]['bound_ms']:.2f}x its bound {b_rows[0]['bound_ms']:.5f} ms), host "
-        f"{pr_h_us:.2f} us a call, back-to-back events {pr_ms:.5f} ms")
+        f"{pr_h_us:.2f} us a call, back-to-back events {pr_ms:.5f} ms, {b_rows[0]['blocks']} blocks")
     res["pagerank"] = {"launches": launches["pagerank_fixpoint"], "err": pr_err, "rel_err": pr_rel, "ms": pr_ms,
                        "device_ms": pr_d_ms, "host_us": pr_h_us, "plain_ms": b_rows[0]["plain_ms"],
                        "bound_ms": b_rows[0]["bound_ms"], "ms_an_iteration": pr_d_ms / b_rows[0]["iters"],
-                       "edge_iterations_per_s": iters_total * SP_WIN_EDGES / secs, "windows": b_rows}
+                       "edge_iterations_per_s": iters_total * SP_WIN_EDGES / secs, "windows": b_rows,
+                       "blocks": b_rows[0]["blocks"], "csr_spmv_yardstick": b_rows[0]["csr_spmv"],
+                       "split_without": split}
 
     # (c) k-core -------------------------------------------------------------
     def twin_round(cc, keys, nbrs, valid):
@@ -4948,8 +5045,8 @@ def main(argv=None) -> int:
                         help="csr_triangles.cu of the commit before the lookup redesign (8ff7365; its three C calls "
                              "around neighborhoods.cu's radix sort): timed in turns with csr_triangles in phase 14 (d)")
     parser.add_argument("--parent-spmv-cu", default=None,
-                        help="spmv.cu of the commit before the balanced products (a48e429; its C interface): its "
-                             "fixpoint timed in turns with the current one on phase 16 (a)'s windows")
+                        help="spmv.cu of the commit before the balanced PageRank (9717394; its C interface): its "
+                             "pagerank_fixpoint timed in turns with the current one on phase 16 (b)'s windows")
     parser.add_argument("--parent-kcore-cu", default=None,
                         help="kcore.cu of the commit before the one-launch fixed point (a48e429; its C interface): "
                              "its per-bucket round and pane_cores timed in turns with the current on phase 16 (c)")
@@ -4997,6 +5094,7 @@ def main(argv=None) -> int:
                      if "degrees" in parent_cu else {})
     bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
     grid_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), GRID_SPLIT, "spmv_grid")
+    rank_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), RANK_SPLIT, "spmv_rank")
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
                *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), probe_source()]
@@ -5004,7 +5102,8 @@ def main(argv=None) -> int:
 
     def build_split():  # beside the main build; a variant that does not build is skipped
         try:
-            _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values(), *grid_split_cu.values()])
+            _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values(), *grid_split_cu.values(),
+                             *rank_split_cu.values()])
         except RuntimeError as e:
             split_failed.append(str(e).splitlines()[0])
 
@@ -5251,12 +5350,15 @@ def main(argv=None) -> int:
     ex = phase_exact(dev, cpm, parent_exact_calls(load_baseline(parent_exact_cu, PARENT_SIGNATURES["exact"]))
                      if parent_exact_cu else None)
     log("phase 16: the SpMV core and its algorithms (SSSP, PageRank, k-core, iterative CC) on the card")
-    wrap = {"spmv": parent_spmv_fixpoint, "kcore": parent_kcore_round}
+    wrap = {"spmv": parent_pagerank, "kcore": parent_kcore_round}
     fix_sig = {k: _cuda.SIGNATURES["spmv.cu"][k] for k in ("spmv_fixpoint_launch", "spmv_fixpoint_scratch_bytes")}
+    rank_sig = {k: _cuda.SIGNATURES["spmv.cu"][k] for k in ("pagerank_fixpoint_launch", "pagerank_scratch_bytes")}
     sp = phase_spmv(dev, cpm, data, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
                                      for k, path in parent_spmv_cu.items()},
                     {} if split_failed else {grid: variant_spmv_fixpoint(load_baseline(path, fix_sig))
-                                             for grid, path in grid_split_cu.items()})
+                                             for grid, path in grid_split_cu.items()},
+                    {} if split_failed else {part: variant_pagerank(load_baseline(path, rank_sig))
+                                             for part, path in rank_split_cu.items()})
 
     kernels = [
         {
@@ -5413,8 +5515,10 @@ def main(argv=None) -> int:
                                                                  "blocks", "grid_sync_us", "threshold_sweep")},
          "bench": sp["bench"]},
         {**entry("pagerank_fixpoint", "spmv.cu", "gelly_streaming_tpu/ops/spmv.py:513", sp["pagerank"]),
-         "library_call": no_call, **{k: sp["pagerank"][k] for k in ("rel_err", "ms_an_iteration",
-                                                                     "edge_iterations_per_s", "windows")}},
+         "library_call": no_call + "; csr_spmv_yardstick, not the same function: torch.mv of the dst-sorted copy "
+                                   "as a CSR tensor (cuSPARSE, f32 sums), one iteration's spread",
+         **{k: sp["pagerank"][k] for k in ("rel_err", "ms_an_iteration", "edge_iterations_per_s", "windows",
+                                            "blocks", "csr_spmv_yardstick", "split_without")}},
         {**entry("kcore_fixpoint", "kcore.cu", "gelly_streaming_tpu/library/kcore.py:107", sp["kcore"]),
          "also_replaces": "gelly_streaming_tpu/library/kcore.py:41 (_build_bucket_round with _h_index_rows)",
          "library_call": no_call,

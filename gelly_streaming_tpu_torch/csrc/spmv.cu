@@ -51,13 +51,15 @@
 //     atomicMax for a negative one: both orders agree with the float order
 //     for every sign.
 // The fixpoint's target buffer holds min(x, identity) when an iteration
-// starts, so a destination with no candidate needs no write.  The sum
-// semirings keep the vertex-parallel ordered segment sum (pull_group: a
-// warp takes 32 consecutive destinations, a segment of up to kShort edges
-// walked by its own lane, a longer one by the whole warp), whose order
-// depends on the data alone: the PageRank iteration's, and the one-shot
-// PLUS_TIMES / PLUS_ONE products (their push is the pull's ordered sum over
-// the edges whose source is in the frontier; no float atomics).
+// starts, so a destination with no candidate needs no write.  PageRank's
+// spread (a sum, whose bits depend on the order of its adds) is balanced
+// over the same merge-path tiles, its pieces combined in an order that the
+// plan alone fixes, with no float atomics (the PageRank section below).
+// The one-shot PLUS_TIMES / PLUS_ONE products, which no main path calls,
+// keep the vertex-parallel ordered segment sum (pull_group: a warp takes
+// 32 consecutive destinations, a segment of up to kShort edges walked by
+// its own lane, a longer one by the whole warp; their push is the pull's
+// ordered sum over the edges whose source is in the frontier).
 // Index rules (streams that validate nothing): a gather of x at an id
 // below 0 counts from the end once, then clamps; a push's scatter target
 // counts from the end once and is dropped when still outside [0, C); a
@@ -74,11 +76,13 @@
 // iteration, ~0.014 ms at 3.35 TB/s.  Each fixpoint iteration takes two
 // grid-wide syncs, which the design needs (the product's atomics land
 // before the frontier is read; the frontier, its count and queue before
-// the next product); the queue and the tiles add none.  The grid is a
-// block a pull tile or a thread a vertex, whichever is more, at most the
-// blocks that fit: a pane of few vertices and many edges still gets a
-// block a tile, and more blocks than that only add to every grid sync's
-// cost (chip_smoke.py phase 16 (e) times the alternatives in turns).
+// the next product); the queue and the tiles add none; so does a PageRank
+// iteration (the tiles' pieces before the vertex phase reads them; c and
+// the partials before the next tiles).  Both grids are a block a pull tile
+// or a thread a vertex, whichever is more, at most the blocks that fit: a
+// pane of few vertices and many edges still gets a block a tile, and more
+// blocks than that only add to every grid sync's cost (chip_smoke.py phase
+// 16 (e) times the alternatives in turns).
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -115,10 +119,9 @@ enum FixSlot {
   kPlanHead = 24,
 };
 
-// the PageRank header (int32 slots, cleared by the launcher), then the
-// per-vertex contributions (float[n], padded to 8 bytes), then the blocks'
-// f64 partials (two a block)
-enum RankSlot { kWindowCount = 0, kRankIters = 1, kRankHeaderInts = 32 };
+// the PageRank header (int32 slots, cleared by the launcher; the rest of
+// its scratch: RankPlan)
+enum RankSlot { kWindowCount = 0, kRankIters = 1, kRankBlocks = 2, kRankHeaderInts = 32 };
 
 enum SemId { kMinPlus = 0, kPlusTimes = 1, kMinMin = 2, kPlusOne = 3 };
 
@@ -128,7 +131,6 @@ enum SemId { kMinPlus = 0, kPlusTimes = 1, kMinMin = 2, kPlusOne = 3 };
 
 struct MinPlus {
   using T = float;
-  using Acc = T;
   static constexpr bool kMin = true, kWeighted = true;
   static __host__ __device__ __forceinline__ T ident() { return 1e30f; }
   static __device__ __forceinline__ T mul(T x, float w) { return __fadd_rn(x, w); }
@@ -137,7 +139,6 @@ struct MinPlus {
 
 struct PlusTimes {
   using T = float;
-  using Acc = T;
   static constexpr bool kMin = false, kWeighted = true;
   static __host__ __device__ __forceinline__ T ident() { return 0.0f; }
   static __device__ __forceinline__ T mul(T x, float w) { return __fmul_rn(x, w); }
@@ -146,7 +147,6 @@ struct PlusTimes {
 
 struct MinMin {
   using T = int;
-  using Acc = T;
   static constexpr bool kMin = true, kWeighted = true;
   static __host__ __device__ __forceinline__ T ident() { return 0x7fffffff; }
   // the weight truncated to int32, as JAX's astype (saturating here)
@@ -159,25 +159,10 @@ struct MinMin {
 
 struct PlusOne {
   using T = int;
-  using Acc = T;
   static constexpr bool kMin = false, kWeighted = false;
   static __host__ __device__ __forceinline__ T ident() { return 0; }
   static __device__ __forceinline__ T mul(T, float) { return 1; }
   static __device__ __forceinline__ T add(T a, T b) { return a + b; }
-};
-
-// PageRank's spread: the sum of the sources' f32 contributions r / deg, no
-// weight, accumulated in f64 and rounded to f32 once by the caller: the
-// result is the exact sum's rounding up to the f64 error, whatever the
-// order (a hub's 10^5 in-edges summed in f32 in two orders differ by
-// ~1e-5 relative)
-struct Spread {
-  using T = float;
-  using Acc = double;
-  static constexpr bool kMin = false, kWeighted = false;
-  static __host__ __device__ __forceinline__ Acc ident() { return 0.0; }
-  static __device__ __forceinline__ Acc mul(T x, float) { return static_cast<double>(x); }
-  static __device__ __forceinline__ Acc add(Acc a, Acc b) { return __dadd_rn(a, b); }
 };
 
 // ---------------------------------------------------------------------------
@@ -218,7 +203,7 @@ __device__ __forceinline__ T shfl_xor(T v, int o) {
 // restriction to the frontier (push of a sum semiring) drops it: the JAX
 // push expands only rows v in [0, C) that are in the frontier.
 template <class S, bool kRestrict>
-__device__ __forceinline__ typename S::Acc candidate(const int* d_src, const float* d_w,
+__device__ __forceinline__ typename S::T candidate(const int* d_src, const float* d_w,
                                                    const typename S::T* x, const uint8_t* fm,
                                                    int n, int e) {
   const int raw = __ldg(d_src + e);
@@ -233,10 +218,10 @@ __device__ __forceinline__ typename S::Acc candidate(const int* d_src, const flo
 // e = lo + l, lo + l + 32, ... in order, then a butterfly, whose result
 // every lane holds bit for bit (IEEE addition commutes).
 template <class S, bool kRestrict>
-__device__ typename S::Acc pull_group(const int* d_off, const int* d_src, const float* d_w,
+__device__ typename S::T pull_group(const int* d_off, const int* d_src, const float* d_w,
                                       const typename S::T* x, const uint8_t* fm, int n, int g,
                                       int lane) {
-  using T = typename S::Acc;
+  using T = typename S::T;
   const int d = g * 32 + lane;
   int lo = 0, hi = 0;
   if (d < n) {
@@ -793,93 +778,314 @@ __global__ void __launch_bounds__(kThreads, 4) fixpoint_kernel(
 // PageRank (pagerank_fixpoint's loop)
 //
 // in_window[v]: v has a masked out- or in-edge (off, d_off); n_win = their
-// count; r0 = 1 / max(n_win, 1) on the window.  Each iteration:
-//   phase 1: c[v] = r[v] / max(out_deg[v], 1) (the division each edge of
-//     the JAX loop makes, once a source), and the block's sum of r over
-//     dangling vertices (in the window, no out-edge); grid sync;
-//   phase 2: dm = that sum (the partials in block order) / n; for each
-//     destination the ordered segment sum of c over its in-edges (pull;
-//     push takes the same sum, as the JAX package's contract makes them
-//     equal), r_new = base + damping * (spread + dm on the window), and the
-//     block's sum of |r_new - r|; grid sync; delta = those partials in
-//     block order.
-// Loop while delta > tol and it < max_iters.  Each block owns a fixed
-// range of vertices and of destination groups, and every sum adds in an
-// order fixed by the data and the grid, so push, pull and a second run
-// give the same bits.  The three sums (spread, dangling mass, delta)
-// accumulate in f64 and round to f32 once, so they are the exact sums'
-// roundings whatever the order: the twin (ops/spmv.pagerank_fixpoint_plain,
-// atomics in no fixed order on the card) agrees to an ulp and takes the
-// same iterations.  The hub trap: a destination's whole in-segment is one
-// warp's, so a hub of in-degree k takes k / 32 steps of one warp.
+// count; r0 = 1 / max(n_win, 1) on the window.  An iteration: c[v] = r[v] /
+// max(out_deg[v], 1) (the division each edge of the JAX loop makes, once a
+// source); the spread of d, the sum of c over d's in-segment; r_new = base
+// + damping * (spread + dm on the window), dm the r of the window's
+// vertices with no out-edge summed, over n_win; the L1 delta.  Loop while
+// delta > tol and it < max_iters.  The three sums (spread, dangling mass,
+// delta) accumulate in f64 and round to f32 once, so they are the exact
+// sums' roundings up to the f64 error: the twin (ops/spmv.
+// pagerank_fixpoint_plain, atomics in no fixed order on the card) agrees to
+// an ulp and takes the same iterations.
+//
+// The spread is balanced over the edges: the merge path of the segment
+// ends d_off[1..C] with the edges (plan_tiles, searched once a launch) cut
+// into tiles of kTile items, a block a tile, kItems consecutive items a
+// thread.  A thread adds its items' c in f64 in edge order and stores
+// r_new of a segment that begins and ends in its items.  The pieces of a
+// longer segment combine in an order that the plan alone fixes:
+//   - within a tile: a segmented inclusive scan of the threads' open pieces
+//     (Kogge-Stone over a warp's lanes, then the warps' totals folded in
+//     warp order); the scan through the thread before the one holding the
+//     segment's end, plus that thread's head piece, is the sum;
+//   - across tiles: a tile writes its head piece (its items before its
+//     first segment end) and its tail piece (after its last end; both are
+//     the whole tile where it holds no end) to two carry slots, and in the
+//     next vertex phase the destination's owner adds the tail of the tile
+//     where its segment begins and the heads of the tiles after it, up to
+//     the one holding its end, in tile order.
+// No float atomics: the bits depend on the data and kTile alone, never on
+// the grid's size or on timing, so push, pull and a second run agree.  A
+// hub of ~17,500 in-edges at Graph500 scale 20 spans ~9 tiles, which ~9
+// blocks sum at once.  What is left on the H100 is the tiles' random 4-byte
+// gathers of c, a 32-byte L2 sector each, which take most of an iteration
+// (chip_smoke.py phase 16 (b) splits it), not the bytes bound (above).
+//
+// A launch: in_window, its count and the tiles' coordinates; grid sync;
+// the vertex phase (below) with r = r0; grid sync; then each iteration:
+// delta and dm from the partials in chunk order (grid_sum, the same bits in
+// every block), the tiles, grid sync, the vertex phase, grid sync.  Two
+// grid syncs an iteration: the fix-up of segments spanning tiles rides in
+// the next vertex phase, whose owner finalizes r and then computes c from
+// it.  The vertex phase takes a chunk of kTile vertices a block at a time,
+// so its f64 partials (the dangling r, |r_new - r|) are the chunks' in
+// chunk order, whatever the grid.
 
-__global__ void __launch_bounds__(kThreads) pagerank_kernel(const int* off, const int* d_off,
-                                                            const int* d_src, int n, float damping,
-                                                            float tol, int max_iters, float* rs,
-                                                            uint8_t* in_window, int* hdr) {
-  cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* cbuf = reinterpret_cast<float*>(hdr + kRankHeaderInts);
-  double* partials = reinterpret_cast<double*>(hdr + kRankHeaderInts + ((n + 1) & ~1));
-  const int nb = gridDim.x;
-  // this block's vertices [vlo, vhi), a whole number of 32-groups
-  const int groups = (n + 31) / 32;
-  const int per_block = (groups + nb - 1) / nb;
-  const int glo = min(groups, blockIdx.x * per_block), ghi = min(groups, glo + per_block);
-  const int vlo = min(n, glo * 32), vhi = min(n, ghi * 32);
+// the scratch: the header, c [n] (padded to 8 bytes), the chunks' partials
+// (the dangling mass's [chunks], then the delta's [chunks]), the tiles'
+// coordinates [tiles + 1] (int2) and carries (head, tail: two a tile)
+struct RankPlan {
+  int* hdr;  // RankSlot
+  float* c;
+  double* partials;
+  int2* tiles;
+  double* carries;
+};
 
+__host__ __device__ inline int64_t rank_chunks(int64_t n) { return (n + kTile - 1) / kTile; }
+__host__ __device__ inline int64_t rank_tiles(int64_t n, int64_t e) { return (n + e + kTile - 1) / kTile; }
+
+__host__ __device__ inline int64_t rank_bytes(int64_t n, int64_t e) {
+  return 4 * (kRankHeaderInts + ((n + 1) & ~int64_t(1))) + 16 * rank_chunks(n) + 8 * (rank_tiles(n, e) + 1) +
+         16 * rank_tiles(n, e);
+}
+
+__device__ inline RankPlan make_rank_plan(int* scratch, int n, int chunks, int tiles) {
+  float* c = reinterpret_cast<float*>(scratch + kRankHeaderInts);
+  double* partials = reinterpret_cast<double*>(c + ((int64_t(n) + 1) & ~int64_t(1)));
+  int2* coords = reinterpret_cast<int2*>(partials + 2 * int64_t(chunks));
+  return {scratch, c, partials, coords, reinterpret_cast<double*>(coords + tiles + 1)};
+}
+
+// r_new of a destination from its f32 spread: the JAX loop's f32 steps
+__device__ __forceinline__ float new_rank(float sp, bool w, float base_in, float damping, float dm) {
+  return __fadd_rn(w ? base_in : 0.0f, __fmul_rn(damping, __fadd_rn(sp, w ? dm : 0.0f)));
+}
+
+// a rank tile's shared arrays
+struct RankSmem {
+  int end[kTile];
+  float val[kTile];
+  double warp_v[kWarps];
+  int warp_f[kWarps];
+  int start;
+};
+
+// Tile t of the spread, from coordinate c0 to c1: the segment ends and the
+// edges' c staged in shared memory, then kItems consecutive items a
+// thread.  Stores r_new (into rn) of each non-empty segment that lies in
+// the tile, and the tile's head and tail pieces into carries[2t],
+// carries[2t + 1].  Every thread of the block calls it.
+__device__ void rank_tile(const int* d_off, const int* d_src, const float* c, float* rn, int n, int e0, int t,
+                          int2 c0, int2 c1, float base_in, float damping, float dm, double* carries, RankSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int na = c1.x - c0.x, ne = c1.y - c0.y;
   {
-    int cnt = 0;
-    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) {
-      const bool w = __ldg(off + v + 1) > __ldg(off + v) || __ldg(d_off + v + 1) > __ldg(d_off + v);
-      in_window[v] = w;
-      cnt += w;
+    int src[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = tid + u * kThreads;
+      if (k < na) sm.end[k] = __ldg(d_off + c0.x + k + 1) - e0 - c0.y;
+      src[u] = k < ne ? __ldg(d_src + e0 + c0.y + k) : 0;
     }
-    block_add(cnt, hdr + kWindowCount);
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = tid + u * kThreads;
+      if (k < ne) sm.val[k] = ld_cg(c + gather_idx(src[u], n));
+    }
   }
-  grid.sync();
-  const float nf = fmaxf(__int2float_rn(ld_cg(hdr + kWindowCount)), 1.0f);
-  const float base_in = __fdiv_rn(__fsub_rn(1.0f, damping), nf);
-  const float r0 = __fdiv_rn(1.0f, nf);
-  for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) rs[v] = ld_cg(in_window + v) ? r0 : 0.0f;
-
-  int it = 0;
-  float delta = __int_as_float(0x7f800000);  // +inf
-  while (delta > tol && it < max_iters) {
-    const float* r = rs + (it & 1) * int64_t(n);
-    float* rn = rs + ((it & 1) ^ 1) * int64_t(n);
-    double dang = 0.0;
-    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) {
-      const float rv = ld_cg(r + v);
-      const int od = __ldg(off + v + 1) - __ldg(off + v);
-      cbuf[v] = __fdiv_rn(rv, fmaxf(__int2float_rn(od), 1.0f));
-      if (od == 0 && ld_cg(in_window + v)) dang = __dadd_rn(dang, rv);
+  if (tid == 0) sm.start = __ldg(d_off + c0.x) - e0 - c0.y;
+  __syncthreads();
+  const int len = na + ne;
+  const int diag = min(tid * kItems, len), dend = min(diag + kItems, len);
+  int lo = max(0, diag - ne), hi = min(diag, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sm.end[mid] <= diag - mid - 1)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int i = lo, j = diag - lo;
+  const bool starts = j == (i == 0 ? sm.start : sm.end[i - 1]);  // segment i begins at these items
+  bool whole = starts, any = false, ends = false;
+  int head_row = -1;  // the segment begun before these items that ends in them
+  double acc = 0.0, head = 0.0;
+  for (int k = diag; k < dend; ++k) {
+    if (j < ne && (i >= na || j < sm.end[i])) {
+      acc = __dadd_rn(acc, static_cast<double>(sm.val[j]));
+      ++j;
+      any = true;
+    } else {
+      if (!whole) {
+        head = acc;
+        head_row = i;
+      } else if (any) {
+        rn[c0.x + i] = new_rank(__double2float_rn(acc), true, base_in, damping, dm);
+      }
+      acc = 0.0;
+      whole = ends = true;
+      any = false;
+      ++i;
     }
-    dang = block_sum(dang);
-    if (threadIdx.x == 0) partials[blockIdx.x] = dang;
-    grid.sync();
-    const float dm = __fdiv_rn(__double2float_rn(grid_sum(partials, nb)), nf);
-    double dl = 0.0;
-    for (int g = glo + warp; g < ghi; g += kWarps) {
-      const double spread = pull_group<Spread, false>(d_off, d_src, nullptr, cbuf, nullptr, n, g, lane);
-      const int d = g * 32 + lane;
-      if (d < n) {
-        const bool w = ld_cg(in_window + d);
-        const float sp = __double2float_rn(spread);
-        const float rnew = __fadd_rn(w ? base_in : 0.0f, __fmul_rn(damping, __fadd_rn(sp, w ? dm : 0.0f)));
-        rn[d] = rnew;
-        dl = __dadd_rn(dl, fabsf(__fsub_rn(rnew, ld_cg(r + d))));
+  }
+  // the segmented scan of the open pieces (acc): f marks a piece whose
+  // segment begins in its thread's items; a thread with no items passes
+  // the scan through
+  int f = ends || (starts && diag < dend);
+  double v = acc;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double vu = __shfl_up_sync(kFull, v, o);
+    const int fu = __shfl_up_sync(kFull, f, o);
+    if (lane >= o) {
+      if (!f) v = __dadd_rn(vu, v);
+      f |= fu;
+    }
+  }
+  if (lane == 31) {
+    sm.warp_v[warp] = v;
+    sm.warp_f[warp] = f;
+  }
+  __syncthreads();
+  double pv = 0.0;  // the warps before this one, folded in warp order
+  int pf = 0;
+  for (int w = 0; w < warp; ++w) {
+    pv = sm.warp_f[w] ? sm.warp_v[w] : __dadd_rn(pv, sm.warp_v[w]);
+    pf |= sm.warp_f[w];
+  }
+  if (!f) v = __dadd_rn(pv, v);
+  f |= pf;
+  double qv = __shfl_up_sync(kFull, v, 1);  // the scan through the thread before this one
+  int qf = __shfl_up_sync(kFull, f, 1);
+  if (lane == 0) {
+    qv = pv;
+    qf = pf;
+  }
+  if (head_row >= 0) {
+    const double s = __dadd_rn(qv, head);
+    if (qf)  // the segment begins in this tile
+      rn[c0.x + head_row] = new_rank(__double2float_rn(s), true, base_in, damping, dm);
+    else
+      carries[2 * int64_t(t)] = s;
+  }
+  if (tid == kThreads - 1) {
+    carries[2 * int64_t(t) + 1] = v;
+    if (!f) carries[2 * int64_t(t)] = v;  // no segment ends in the tile
+  }
+  __syncthreads();  // the next tile reuses the shared arrays
+}
+
+// The vertex phase over this block's chunks of kTile vertices (kItems a
+// thread): r finalized into rn (kFirst: r0 on the window; else the tile's
+// store, the carries' sum for a segment spanning tiles, or r_new of an
+// empty segment), c = r / max(out_deg, 1), and each chunk's f64 partials of
+// the dangling r and of |r - r_prev| (a thread's vertices in order, then
+// block_sum).  Every thread of the block calls it.
+template <bool kFirst>
+__device__ void rank_vertices(const int* off, const int* d_off, const uint8_t* in_window, const RankPlan& rp,
+                              const float* r, float* rn, int n, int e0, int chunks, float r0, float base_in,
+                              float damping, float dm) {
+  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    const int v0 = ch * kTile, vn = min(kTile, n - v0);
+    double dang = 0.0, dl = 0.0;
+    for (int m0 = 0; m0 < kItems; m0 += kGroup) {
+      int od[kGroup], lo[kGroup], hi[kGroup];
+      bool w[kGroup];
+      float prev[kGroup], got[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {  // every load before the first use
+        const int k = (m0 + u) * kThreads + threadIdx.x, v = v0 + k;
+        if (k < vn) {
+          od[u] = __ldg(off + v + 1) - __ldg(off + v);
+          lo[u] = __ldg(d_off + v) - e0;
+          hi[u] = __ldg(d_off + v + 1) - e0;
+          w[u] = ld_cg(in_window + v);
+          if (!kFirst) {
+            prev[u] = ld_cg(r + v);
+            got[u] = ld_cg(rn + v);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int k = (m0 + u) * kThreads + threadIdx.x, v = v0 + k;
+        if (k >= vn) continue;
+        float rv;
+        if (kFirst) {
+          rv = w[u] ? r0 : 0.0f;
+          rn[v] = rv;
+        } else {
+          const int64_t t0 = (int64_t(v) + lo[u]) / kTile, t1 = (int64_t(v) + hi[u]) / kTile;
+          if (lo[u] == hi[u]) {
+            rv = new_rank(0.0f, w[u], base_in, damping, dm);
+            rn[v] = rv;
+          } else if (t0 == t1) {
+            rv = got[u];
+          } else {
+            double s = ld_cg(rp.carries + 2 * t0 + 1);
+            for (int64_t t = t0 + 1; t <= t1; ++t) s = __dadd_rn(s, ld_cg(rp.carries + 2 * t));
+            rv = new_rank(__double2float_rn(s), true, base_in, damping, dm);
+            rn[v] = rv;
+          }
+          dl = __dadd_rn(dl, static_cast<double>(fabsf(__fsub_rn(rv, prev[u]))));
+        }
+        rp.c[v] = __fdiv_rn(rv, fmaxf(__int2float_rn(od[u]), 1.0f));
+        if (od[u] == 0 && w[u]) dang = __dadd_rn(dang, static_cast<double>(rv));
       }
     }
-    dl = block_sum(dl);
-    if (threadIdx.x == 0) partials[nb + blockIdx.x] = dl;
+    dang = block_sum(dang);
+    if (!kFirst) dl = block_sum(dl);
+    if (threadIdx.x == 0) {
+      rp.partials[ch] = dang;
+      rp.partials[chunks + ch] = dl;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 4) pagerank_kernel(const int* off, const int* d_off,
+                                                               const int* d_src, int n, float damping,
+                                                               float tol, int max_iters, float* rs,
+                                                               uint8_t* in_window, int* scratch) {
+  __shared__ RankSmem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int e0 = __ldg(d_off), edges = __ldg(d_off + n) - e0;
+  const int chunks = static_cast<int>(rank_chunks(n)), tiles = static_cast<int>(rank_tiles(n, edges));
+  const RankPlan rp = make_rank_plan(scratch, n, chunks, tiles);
+  {
+    int cnt = 0;
+    for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+      const int v0 = ch * kTile, vn = min(kTile, n - v0);
+      for (int k = threadIdx.x; k < vn; k += kThreads) {
+        const int v = v0 + k;
+        const bool w = __ldg(off + v + 1) > __ldg(off + v) || __ldg(d_off + v + 1) > __ldg(d_off + v);
+        in_window[v] = w;
+        cnt += w;
+      }
+    }
+    block_add(cnt, rp.hdr + kWindowCount);
+    plan_tiles(d_off, e0, n, edges, tiles, rp.tiles);
+  }
+  grid.sync();
+  const float nf = fmaxf(__int2float_rn(ld_cg(rp.hdr + kWindowCount)), 1.0f);
+  const float base_in = __fdiv_rn(__fsub_rn(1.0f, damping), nf);
+  const float r0 = __fdiv_rn(1.0f, nf);
+  rank_vertices<true>(off, d_off, in_window, rp, nullptr, rs, n, e0, chunks, r0, base_in, damping, 0.0f);
+  grid.sync();
+  int it = 0;
+  for (;; ++it) {
+    const float delta = it == 0 ? __int_as_float(0x7f800000)  // +inf
+                                : __double2float_rn(grid_sum(rp.partials + chunks, chunks));
+    if (!(delta > tol && it < max_iters)) break;
+    const float dm = __fdiv_rn(__double2float_rn(grid_sum(rp.partials, chunks)), nf);
+    const float* r = rs + (it & 1) * int64_t(n);
+    float* rn = rs + ((it & 1) ^ 1) * int64_t(n);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      rank_tile(d_off, d_src, rp.c, rn, n, e0, t, ld_cg(rp.tiles + t), ld_cg(rp.tiles + t + 1), base_in, damping,
+                dm, rp.carries, sm);
     grid.sync();
-    delta = __double2float_rn(grid_sum(partials + nb, nb));
-    ++it;
+    rank_vertices<false>(off, d_off, in_window, rp, r, rn, n, e0, chunks, r0, base_in, damping, dm);
+    grid.sync();
   }
   if (it & 1)
-    for (int v = vlo + threadIdx.x; v < vhi; v += kThreads) rs[v] = ld_cg(rs + n + v);
-  if (blockIdx.x == 0 && threadIdx.x == 0) hdr[kRankIters] = it;
+    for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+      const int v0 = ch * kTile, vn = min(kTile, n - v0);
+      for (int k = threadIdx.x; k < vn; k += kThreads) rs[v0 + k] = ld_cg(rs + int64_t(n) + v0 + k);
+    }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    rp.hdr[kRankIters] = it;
+    rp.hdr[kRankBlocks] = gridDim.x;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1001,11 +1207,6 @@ int fixpoint_launch(const void* off, const void* s_dst, const void* s_w, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-int max_rank_blocks(cudaError_t* err) {
-  return resident_blocks(reinterpret_cast<const void*>(pagerank_kernel), err);
-}
-
-
 }  // namespace
 
 extern "C" {
@@ -1077,33 +1278,32 @@ int spmv_fixpoint_launch(int sem, const void* off, const void* s_dst, const void
   }
 }
 
-// The scratch bytes of one pagerank_fixpoint_launch over n vertices.
-long long pagerank_scratch_bytes(int n) {
-  cudaError_t err;
-  const int64_t blocks = max_rank_blocks(&err);
-  if (err != cudaSuccess) return -1;
-  return kRankHeaderInts * 4 + 4 * ((static_cast<int64_t>(n) + 1) & ~int64_t(1)) + 16 * blocks;
-}
+// The scratch bytes of one pagerank_fixpoint_launch over n vertices and
+// at most e edges: the header, c, the chunks' partials, the tiles'
+// coordinates and carries.
+long long pagerank_scratch_bytes(int n, int e) { return rank_bytes(n, e); }
 
-// off, d_off: int32[n + 1]; d_src: int32[E]; rs: f32[2n], the ranks in
-// the first n; in_window: uint8[n]; scratch: pagerank_scratch_bytes(n)
-// bytes (int32 slot 1 = the iterations run).  One cooperative launch.
-int pagerank_fixpoint_launch(const void* off, const void* d_off, const void* d_src, int n, float damping,
+// off, d_off: int32[n + 1]; d_src: int32[E], ids in [0, n); e: the pane's
+// padded edge count (E <= e); rs: f32[2n], the ranks in the first n;
+// in_window: uint8[n]; scratch: pagerank_scratch_bytes(n, e) bytes (int32
+// slot 1 = the iterations run, 2 = the launch's blocks).  A memset, then
+// one cooperative launch, with no host sync.
+int pagerank_fixpoint_launch(const void* off, const void* d_off, const void* d_src, int n, int e, float damping,
                              float tol, int max_iters, void* rs, void* in_window, void* scratch,
                              long long scratch_bytes, void* stream) {
+  if (scratch_bytes < rank_bytes(n, e)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (scratch_bytes < pagerank_scratch_bytes(n)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto* hdr = static_cast<int*>(scratch);
-  cudaError_t err = cudaMemsetAsync(hdr, 0, kRankHeaderInts * sizeof(int), s);
+  auto* sc = static_cast<int*>(scratch);
+  cudaError_t err = cudaMemsetAsync(sc, 0, kRankHeaderInts * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* off_p = static_cast<const int*>(off);
   auto* d_off_p = static_cast<const int*>(d_off);
   auto* d_src_p = static_cast<const int*>(d_src);
   auto* rs_p = static_cast<float*>(rs);
   auto* w_p = static_cast<uint8_t*>(in_window);
-  void* args[] = {&off_p, &d_off_p, &d_src_p, &n, &damping, &tol, &max_iters, &rs_p, &w_p, &hdr};
-  err = launch_cooperative(reinterpret_cast<const void*>(pagerank_kernel), n, args, s);
+  void* args[] = {&off_p, &d_off_p, &d_src_p, &n, &damping, &tol, &max_iters, &rs_p, &w_p, &sc};
+  err = launch_cooperative(reinterpret_cast<const void*>(pagerank_kernel), product_items(n, e), args, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -155,12 +155,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # [2n], fm, thr, max_iters, scratch (its first int32[24] the header),
         # its bytes, stream: a memset, then the cooperative fixpoint kernel
         "spmv_fixpoint_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _L, _P],
-        # n: the scratch bytes of one PageRank call
-        "pagerank_scratch_bytes": [_I],
-        # off, d_off, d_src, n, damping, tol, max_iters, rs [2n], in_window,
-        # scratch, scratch bytes, stream: a memset, then the cooperative
-        # PageRank kernel
-        "pagerank_fixpoint_launch": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _L, _P],
+        # n, e: the scratch bytes of one PageRank call over n vertices and
+        # at most e edges
+        "pagerank_scratch_bytes": [_I, _I],
+        # off, d_off, d_src, n, e, damping, tol, max_iters, rs [2n],
+        # in_window, scratch, scratch bytes, stream: a memset, then the
+        # cooperative PageRank kernel
+        "pagerank_fixpoint_launch": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _L, _P],
     },
     "kcore.cu": {
         # c, n, keys, nbrs, valid, k, d, h, stream: the h-index kernel, then

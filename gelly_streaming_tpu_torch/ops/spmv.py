@@ -35,14 +35,20 @@ On the GPU the loops are hand-written CUDA kernels (``csrc/spmv.cu``,
   scratch (the header, the queue, the pull tiles) is sized by
   ``spmv_fixpoint_scratch_bytes``.
 * ``pagerank_fixpoint`` is ``pagerank_fixpoint_launch``: the damped
-  iteration in one cooperative launch.  Both directions take the ordered
-  segment sum over the dst-stable copy (the per-destination order of the
-  JAX push's arrival-order scatter), and every reduction adds in a fixed
-  order, so push, pull and a second run give the same bits.  Its three
-  sums (each destination's spread, the dangling mass, the L1 delta)
+  iteration in one cooperative launch.  Both directions take the segment
+  sum over the dst-stable copy (the per-destination order of the JAX
+  push's arrival-order scatter), balanced over the edges as the min
+  products' pull is: merge-path tiles of segment ends and edges, each
+  segment's pieces combined in an order that the tiles alone fix (a scan
+  within a tile, carries across tiles added by the destination's owner).
+  Every reduction adds in an order that depends on the data alone, never
+  on the grid, so push, pull and a second run give the same bits.  Its
+  three sums (each destination's spread, the dangling mass, the L1 delta)
   accumulate in f64 and round to f32 once, as the twin's do: an f32 sum
   over a hub's 10^5 in-edges depends on its order by ~1e-5 relative, the
-  f64 one is the exact sum's rounding in any order.
+  f64 one is the exact sum's rounding in any order.  Its scratch (the
+  header, the contributions, the partials, the tiles and their carries)
+  is sized by ``pagerank_scratch_bytes``.
 * ``_kcore_fixpoint`` (the h-index fixed point of ``library/kcore.py``;
   private, because the card caps each row's values at the h-index of the
   starting estimates, which holds only for rows of distinct neighbours:
@@ -104,7 +110,8 @@ _MAX_INT32 = (1 << 31) - 1
 _FIX_HEADER_INTS = 24
 _FIX_ITERS = 3  # then push, pull, switches, the histogram
 FIX_BLOCKS = 22  # the launch's blocks
-_RANK_ITERS = 1  # pagerank_fixpoint_launch's header slot
+_RANK_ITERS = 1  # pagerank_fixpoint_launch's header slots
+RANK_BLOCKS = 2  # the launch's blocks
 _CORE_HEADER_INTS = 8  # kcore_fixpoint_launch's (csrc/kcore.cu, CoreSlot)
 
 # C calls on CUDA tensors since the last reset_launches() (spmv_product:
@@ -597,22 +604,21 @@ def pagerank_fixpoint_plain(op: PaneOperator, *, damping: float, tol: float, max
 def pagerank_launch(op: PaneOperator, *, damping: float, tol: float, max_iters: int):
     """Enqueue one ``pagerank_fixpoint_launch`` with no host sync; returns
     (ranks [2, C] (the result in row 0), in_window, scratch: int32 slot 1
-    the iterations)."""
+    the iterations, slot ``RANK_BLOCKS`` the launch's blocks)."""
     dev = op.off.device
     if dev.type != "cuda":
         raise ValueError(f"no pagerank_fixpoint_launch kernel for device {dev}")
     lib = _cuda.library(_SOURCE)
     c = op.capacity
-    nbytes = lib.pagerank_scratch_bytes(c)
-    if nbytes < 0:
-        raise RuntimeError("pagerank_scratch_bytes: the occupancy query failed")
+    nbytes = lib.pagerank_scratch_bytes(c, op.e_pad)
     rs = torch.empty((2, c), dtype=torch.float32, device=dev)
     in_w = torch.empty((c,), dtype=torch.bool, device=dev)
     scratch = torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=dev)
     _cuda.check(
         lib.pagerank_fixpoint_launch(
-            op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, float(damping), float(tol),
-            int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(), scratch.numel() * 4, _stream(rs),
+            op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, op.e_pad, float(damping),
+            float(tol), int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(), scratch.numel() * 4,
+            _stream(rs),
         ),
         "pagerank_fixpoint_launch",
     )

@@ -1670,14 +1670,55 @@ def test_spmv_fixpoint_wrapper_counts_and_metrics(cuda_device):
     assert res.x.device == x0.device
 
 
-@pytest.mark.parametrize("case", ["uniform", "zipf", "star"])
+_RANK_TILE = 2048  # csrc/spmv.cu's kTile: merge-path items (segment ends and edges) a tile
+
+
+def _rank_tile_span(op, v):
+    """The tiles from the one holding v's first in-edge to the one holding
+    its segment's end."""
+    d_off = op.d_off.cpu().numpy().astype(np.int64)
+    return (v + d_off[v + 1]) // _RANK_TILE - (v + d_off[v]) // _RANK_TILE
+
+
+def _rank_pane(rng, case):
+    """(c, src, dst, msk): "hub", two hubs of 40,000 and 5,000 in-edges among
+    2^17 uniform edges (in arrival order among them); "boundary", segments
+    that fill whole tiles (2,047 edges and the end), one filling two, 256 of
+    7 edges (thread, warp and tile boundaries), 300 empty ones, then
+    segments of 2,046 and 2,049 edges in turn, then uniform edges."""
+    if case == "hub":
+        c = 1 << 16
+        dst = np.concatenate([np.full(40000, 3), np.full(5000, 4), rng.integers(0, c, 1 << 17)])
+    else:
+        c = 1 << 14
+        degs = [2047] * 4 + [4095] + [7] * 256 + [0] * 300 + [2046, 2049] * 4
+        dst = np.concatenate([np.repeat(np.arange(len(degs)), degs), rng.integers(len(degs), c, 1 << 15)])
+    src = rng.integers(0, c, len(dst))
+    perm = rng.permutation(len(dst))
+    return c, src[perm].astype(np.int32), dst[perm].astype(np.int32), np.ones(len(dst), bool)
+
+
+@pytest.mark.parametrize("case", ["uniform", "zipf", "star", "hub", "boundary"])
 def test_pagerank_fixpoint_matches_twin(cuda_device, case):
+    """The kernel against its twin on the card, push, pull and a second run
+    bit for bit; "hub" and "boundary" (``_rank_pane``) put in-segments over
+    many tiles and segment ends on thread, warp and tile boundaries."""
     from gelly_streaming_tpu_torch.ops import spmv
 
     rng = np.random.default_rng(11 + len(case))
-    for c, e in ((64, 256), (1 << 14, 1 << 17), (1 << 18, 1 << 20)):
-        src, dst, _, msk = _spmv_pane(rng, c, e, cuda_device, case)
+    if case in ("hub", "boundary"):
+        panes = [_rank_pane(rng, case)]
+    else:
+        panes = [(c, *(_spmv_pane(rng, c, e, cuda_device, case)[i] for i in (0, 1, 3)))
+                 for c, e in ((64, 256), (1 << 14, 1 << 17), (1 << 18, 1 << 20))]
+    for c, src, dst, msk in panes:
         op = spmv.prepare_pane(src, dst, None, msk, c, device=cuda_device)
+        if case == "hub":
+            assert _rank_tile_span(op, 3) >= 15 and _rank_tile_span(op, 4) >= 2
+        elif case == "boundary":
+            d_off = op.d_off.cpu().numpy().astype(np.int64)
+            ends = np.arange(c) + d_off[1:]  # each segment end's merge-path item
+            assert (ends[:5] % _RANK_TILE == _RANK_TILE - 1).all() and _rank_tile_span(op, 4) == 1
         before = spmv.LAUNCHES["pagerank_fixpoint"]
         runs = [spmv.pagerank_fixpoint(op, damping=0.85, tol=1e-6, max_iters=100, use_pull=p)
                 for p in (False, True, False)]
