@@ -253,6 +253,32 @@ current one on every window of (b); ``--parent-kcore-cu PATH`` (a48e429's
 ``kcore.cu``) its per-bucket round and ``pane_cores`` in (c); outputs held
 equal.
 
+Phase 17 drives the spanner, the greedy weighted matching and the sampled
+triangle estimators through their entry points, each kernel held against
+its twin on the card: (a) ``from_arrays(...).aggregate(Spanner(1000, 2))``
+at ``measurements spanner``'s defaults (2^17 uniform edges over C = 512, D
+= 64, batches of 2^14, default_rng(0); not cut): the table equal to the
+twin's after every batch, the first batch's equal to a sequential Python
+BFS spanner (an oracle independent of both packages); (b) k = 3 at
+BASELINE.md's scaled shape (C = 4096, D = 64; its 524,288 edges cut to
+2^18 for the smoke's time) with
+``body`` auto, balls and bfs, the three tables equal; (c) ``combine`` of
+(a)'s two halves' spanners equal to the twin's; (d)
+``CentralizedWeightedMatching.run`` at ``measurements matching``'s
+defaults (2^16 edges over 2^12 vertices, f32 weights U[0, 1), batches of
+2^13) and over a generated MovieLens-100K-shaped stream (100,000 distinct
+ratings between 943 users and 1,682 items, weights 1-5), every batch's
+events, emask and state equal to the twin's; (e)
+``BroadcastTriangleCount(1000)`` over the first 2^20 edges of phase 15
+(a)'s Watts-Strogatz stream in batches of 2^16 (cut for the twin's time),
+every batch's state (key included) and estimate equal to the twin's.  Each
+kernel (``spanner_admit``, ``matching_scan``, ``sampler_scan``) must make
+one C call a batch on its path; each path prints edges/s end to end, the
+kernel's device ms a batch on a held stream (each call on its own copy of
+the state before the batch), host µs a call, the twin's ms, its bound and
+the device's idle share (one less the path's kernel calls' device time,
+each call held, over the run's wall).
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -5018,6 +5044,418 @@ def phase_spmv(dev, cpm, cc_data: dict, parents=None, grid_variants=None, rank_v
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the spanner, the weighted matching and the sampled triangle
+# estimators
+
+F32_OPS_PER_S = 67e12  # the data sheet's non-tensor f32 rate; int32 runs at most as fast on the card
+SUM_SP_VERTICES = 512  # (a): `measurements spanner` defaults (examples/measurements.py:827-841)
+SUM_SP_EDGES = 1 << 17
+SUM_SP_DEGREE = 64
+SUM_SP_BATCH = 1 << 14
+SUM_SP3_VERTICES = 4096  # (b): BASELINE.md's scaled shape, k = 3
+SUM_SP3_EDGES = 1 << 18  # its 524,288 edges cut to half for the smoke's time
+SUM_MT_VERTICES = 1 << 12  # (d): `measurements matching` defaults (:842-846)
+SUM_MT_EDGES = 1 << 16
+SUM_MT_BATCH = 1 << 13
+ML_USERS, ML_ITEMS, ML_RATINGS = 943, 1682, 100_000  # a MovieLens-100K-shaped stream, generated
+ML_CAPACITY = 4096
+SUM_TRI_EDGES = 1 << 20  # (e): phase 15 (a)'s stream, its first 2^20 edges (cut for the twin's time)
+SUM_TRI_BATCH = 1 << 16
+SUM_TRI_SAMPLERS = 1000  # the example's default
+SUM_REPS = 5
+THREEFRY_OPS = 80  # integer operations of one coin: the hash (20 rounds, 5 injections) and the uniform's compare
+
+
+def spanner_oracle(src, dst, capacity: int, max_degree: int, k: int) -> np.ndarray:
+    """The sequential k-spanner in plain Python, independent of both
+    packages: rows as lists in insertion order; an edge is admitted when
+    no path of <= k hops joins its ends (a breadth-first search) and both
+    rows have room.  Returns the [C, D] table (-1 = empty)."""
+    rows = [[] for _ in range(capacity)]
+    for u, v in zip(src.tolist(), dst.tolist()):
+        reached, frontier = {u}, [u]
+        for _ in range(k):
+            nxt = []
+            for x in frontier:
+                for y in rows[x]:
+                    if y not in reached:
+                        reached.add(y)
+                        nxt.append(y)
+            frontier = nxt
+        if v in reached or len(rows[u]) >= max_degree or len(rows[v]) >= max_degree:
+            continue
+        rows[u].append(v)
+        rows[v].append(u)
+    table = np.full((capacity, max_degree), -1, np.int32)
+    for x, r in enumerate(rows):
+        table[x, : len(r)] = r
+    return table
+
+
+def tensor_err(got, want) -> float:
+    """Max abs difference over paired tensors (bools and uint32 as int64)."""
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return float("inf")
+        if g.dtype in (torch.bool, torch.uint32):
+            g, w = g.cpu().to(torch.int64), w.cpu().to(torch.int64)
+        if g.numel():
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return worst
+
+
+def copies_events_ms(call, make_copy, reps: int) -> float:
+    """ms per ``call(copy)`` by CUDA events around back-to-back calls, each
+    on its own ``make_copy()`` made before the first."""
+    import torch
+
+    copies = [make_copy() for _ in range(reps)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for cp in copies:
+        call(cp)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def held_ms(fn, cycles_per_ms: float, hold_ms: float = 1.0) -> float:
+    """Device ms of one call of ``fn``, enqueued while ``torch.cuda._sleep``
+    holds the stream (the call's own device time, its enqueue hidden)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def host_ms(fn) -> float:
+    """ms of one synchronized call of ``fn`` on the host's clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def timed_run(fn):
+    """(result, seconds) of one synchronized run of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class spanner_twin:
+    """Within the block, the spanner's admission is its plain twin (the
+    library looks ``ops/spanner.spanner_admit`` up at each call)."""
+
+    def __enter__(self):
+        from gelly_streaming_tpu_torch.ops import spanner as sp
+
+        self.saved = sp.spanner_admit
+        sp.spanner_admit = sp.spanner_admit_plain
+
+    def __exit__(self, *exc):
+        from gelly_streaming_tpu_torch.ops import spanner as sp
+
+        sp.spanner_admit = self.saved
+
+
+def kernel_timing(cpm, call, make_copy, twin, bound_ms: float, reps: int = SUM_REPS) -> dict:
+    """A kernel's call timed on copies of its input state: device ms on the
+    held stream and host enqueue µs, events back to back, the twin's ms
+    once on the host's clock, the bound and the ratio."""
+    d_ms, h_us = copies_device_ms(call, make_copy, reps, cpm)
+    ms = copies_events_ms(call, make_copy, reps)
+    cp = make_copy()
+    plain_ms = host_ms(lambda: twin(cp))
+    return {"device_ms": d_ms, "host_us": h_us, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ratio": d_ms / bound_ms}
+
+
+def phase_summaries(dev, cpm) -> dict:
+    """Phase 17: ``Spanner`` (a)-(c), ``CentralizedWeightedMatching`` (d) and
+    ``BroadcastTriangleCount`` (e) through their entry points on the card,
+    each kernel held against its twin on the card."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+    from gelly_streaming_tpu_torch.library import matching as lm
+    from gelly_streaming_tpu_torch.library import sampled_triangles as lst
+    from gelly_streaming_tpu_torch.library import spanner as lsp
+    from gelly_streaming_tpu_torch.ops import matching as mo
+    from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+    from gelly_streaming_tpu_torch.summaries import adjacency
+
+    res = {}
+    # (a) the k = 2 spanner at `measurements spanner`'s defaults, through the wire path
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, SUM_SP_VERTICES, SUM_SP_EDGES).astype(np.int32)
+    dst = rng.integers(0, SUM_SP_VERTICES, SUM_SP_EDGES).astype(np.int32)
+    cfg = StreamConfig(vertex_capacity=SUM_SP_VERTICES, max_degree=SUM_SP_DEGREE, batch_size=SUM_SP_BATCH)
+
+    def spanner_run(s, d, k=2, body="auto", c=cfg):
+        return EdgeStream.from_arrays(s, d, c, device=dev).aggregate(lsp.Spanner(1000, k, body=body)).collect()
+
+    spanner_run(src[:SUM_SP_BATCH], dst[:SUM_SP_BATCH])  # warm the path
+    sp.reset_launches()
+    sp.reset_stats()
+    out, secs = timed_run(lambda: spanner_run(src, dst))
+    launches = dict(sp.LAUNCHES)
+    stats_a = sp.stats(dev)
+    if launches["spanner_admit"] != SUM_SP_EDGES // SUM_SP_BATCH or sp.TWIN_CALLS["spanner_admit"]:
+        raise RuntimeError(f"(a): spanner_admit was not the main path's one C call a batch: {launches}")
+    final = out[-1][0]
+    nbrs, deg = adjacency.init_table(SUM_SP_VERTICES, SUM_SP_DEGREE, dev)
+    tn, td = nbrs.clone(), deg.clone()
+    err, states, twin_s, busy = 0.0, [], 0.0, 0.0
+    for b in range(SUM_SP_EDGES // SUM_SP_BATCH):
+        s_t, d_t = to_dev((src[b * SUM_SP_BATCH:(b + 1) * SUM_SP_BATCH], dst[b * SUM_SP_BATCH:(b + 1) * SUM_SP_BATCH]),
+                          dev)
+        states.append((nbrs.clone(), deg.clone(), s_t, d_t))
+        busy += held_ms(lambda: sp.spanner_admit(nbrs, deg, s_t, d_t, None, 2, 128, "within_two"), cpm)
+        t0 = time.perf_counter()
+        sp.spanner_admit_plain(tn, td, s_t, d_t, None, 2, 128, "within_two")
+        torch.cuda.synchronize()
+        twin_s += time.perf_counter() - t0
+        err = max(err, tensor_err((nbrs, deg), (tn, td)))
+        if b == 0:
+            oracle = spanner_oracle(src[:SUM_SP_BATCH], dst[:SUM_SP_BATCH], SUM_SP_VERTICES, SUM_SP_DEGREE, 2)
+            if not np.array_equal(nbrs.cpu().numpy(), oracle):
+                raise RuntimeError("(a): the first batch's spanner differs from the sequential Python oracle")
+    if err or tensor_err((final.nbrs, final.deg), (nbrs, deg)):
+        raise RuntimeError(f"(a): the spanner differs from its twin on the card (max abs err {err}) or the main "
+                           "path's table from the batch loop's")
+    edges_a = int((nbrs >= 0).sum()) // 2
+    late = states[-1]
+    n_late = late[2].shape[0]
+    bound = (n_late * 8 + 2 * (SUM_SP_VERTICES * SUM_SP_DEGREE + SUM_SP_VERTICES) * 4) / HBM_BYTES_PER_S * 1e3
+
+    def sp_call(body, k, st):
+        return lambda cp: sp.spanner_admit(cp[0], cp[1], st[2], st[3], None, k, 128, body)
+
+    def sp_copy(st):
+        return lambda: (st[0].clone(), st[1].clone())
+
+    before = sp.stats(dev)
+    timing = kernel_timing(cpm, sp_call("within_two", 2, late), sp_copy(late),
+                           lambda cp: sp.spanner_admit_plain(cp[0], cp[1], late[2], late[3], None, 2, 128,
+                                                             "within_two"), bound)
+    after = sp.stats(dev)
+    calls = after["calls"] - before["calls"]
+    timing["candidates"] = (after["candidates"] - before["candidates"]) / max(calls, 1)
+    first = states[0]
+    timing["first_batch_device_ms"], _ = copies_device_ms(sp_call("within_two", 2, first), sp_copy(first), 3, cpm)
+    idle = 100 * (1 - busy / (secs * 1e3))
+    res["spanner"] = {**timing, "launches": launches["spanner_admit"], "err": err, "edges_per_s": SUM_SP_EDGES / secs,
+                      "s": secs, "spanner_edges": edges_a, "stats": stats_a, "twin_s": twin_s, "idle_pct": idle,
+                      "busy_ms": busy}
+    log(f"  (a) Spanner k=2 over {SUM_SP_EDGES} edges (C {SUM_SP_VERTICES}, D {SUM_SP_DEGREE}, batches of "
+        f"{SUM_SP_BATCH}): {secs:.4f} s end to end, {SUM_SP_EDGES / secs:.6g} edges/s, {edges_a} spanner edges; "
+        f"launches {launches}; candidates {stats_a['candidates']} of {SUM_SP_EDGES}, admitted {stats_a['admitted']}, "
+        f"most in a batch {stats_a['max_candidates']}; every batch equal to the twin on the card (twin "
+        f"{twin_s:.2f} s for the 8 batches), batch 0 equal to the sequential Python oracle")
+    log(f"      the last batch ({timing['candidates']:.0f} candidates): device {timing['device_ms']:.4f} ms held, "
+        f"events {timing['ms']:.4f} ms, host enqueue {timing['host_us']:.2f} us, twin {timing['plain_ms']:.1f} ms, "
+        f"bound {bound:.6f} ms (bytes), {timing['ratio']:.1f}x; batch 0 (from the empty table) "
+        f"{timing['first_batch_device_ms']:.4f} ms held; the 8 calls {busy:.4f} ms of device time (each held) "
+        f"against the run's {secs * 1e3:.1f} ms: idle {idle:.2f}%")
+
+    # (b) k = 3 at C = 4096: every body, the same table
+    rng = np.random.default_rng(0)
+    src3 = rng.integers(0, SUM_SP3_VERTICES, SUM_SP3_EDGES).astype(np.int32)
+    dst3 = rng.integers(0, SUM_SP3_VERTICES, SUM_SP3_EDGES).astype(np.int32)
+    cfg3 = StreamConfig(vertex_capacity=SUM_SP3_VERTICES, max_degree=SUM_SP_DEGREE, batch_size=SUM_SP_BATCH)
+    tables, runs = {}, {}
+    for body in ("auto", "balls", "bfs"):
+        sp.reset_stats()
+        out3, secs3 = timed_run(lambda: spanner_run(src3, dst3, 3, body, cfg3))
+        tables[body] = (out3[-1][0].nbrs, out3[-1][0].deg)
+        runs[body] = {"s": secs3, "edges_per_s": SUM_SP3_EDGES / secs3, **sp.stats(dev)}
+    err_b = max(tensor_err(tables["auto"], tables[b]) for b in ("balls", "bfs"))
+    if err_b:
+        raise RuntimeError(f"(b): the bodies' k=3 spanners differ (max abs err {err_b})")
+    runs["spanner_edges"] = int((tables["auto"][0] >= 0).sum()) // 2
+    runs["auto_body"] = lsp.auto_body(SUM_SP3_VERTICES, SUM_SP_DEGREE, 3)
+    res["spanner_k3"] = runs
+    rates = ", ".join(f"{b} {runs[b]['edges_per_s']:.6g}" for b in ("auto", "balls", "bfs"))
+    log(f"  (b) Spanner k=3 over {SUM_SP3_EDGES} edges (C {SUM_SP3_VERTICES}, D {SUM_SP_DEGREE}): auto "
+        f"(= {runs['auto_body']}) {runs['auto']['s']:.3f} s, balls {runs['balls']['s']:.3f} s, bfs "
+        f"{runs['bfs']['s']:.3f} s ({rates} edges/s); candidates {runs['auto']['candidates']}, admitted {runs['auto']['admitted']}; the three tables "
+        f"equal ({runs['spanner_edges']} edges)")
+
+    # (c) combine: (a)'s two halves' spanners, on the card and through the twin
+    half = SUM_SP_EDGES // 2
+    halves = [spanner_run(src[i:i + half], dst[i:i + half])[-1][0] for i in (0, half)]
+    agg = lsp.Spanner(1000, 2)
+
+    def states_of():
+        return [lsp.SpannerState(g.nbrs.clone(), g.deg.clone()) for g in halves]
+
+    sp.reset_stats()
+    combined, comb_s = timed_run(lambda: agg.combine(*states_of()))
+    comb_stats = sp.stats(dev)
+    with spanner_twin():
+        twin_comb, twin_comb_s = timed_run(lambda: agg.combine(*states_of()))
+    err_c = tensor_err(combined, twin_comb)
+    if err_c:
+        raise RuntimeError(f"(c): the combined spanner differs from the twin's (max abs err {err_c})")
+    res["combine"] = {"s": comb_s, "twin_s": twin_comb_s, "err": err_c, **comb_stats,
+                      "spanner_edges": int((combined.nbrs >= 0).sum()) // 2}
+    log(f"  (c) combine of (a)'s halves' spanners ({[int((g.nbrs >= 0).sum()) // 2 for g in halves]} edges): "
+        f"{comb_s * 1e3:.2f} ms on the card ({comb_stats['candidates']} candidates of "
+        f"{SUM_SP_VERTICES * SUM_SP_DEGREE} slots), twin {twin_comb_s:.2f} s, equal "
+        f"({res['combine']['spanner_edges']} edges)")
+
+    # (d) the greedy matching: `measurements matching` defaults, then a MovieLens-100K-shaped stream
+    def weighted_stream(s, d, w, c, batch):
+        cfg_m = StreamConfig(vertex_capacity=c, batch_size=batch)
+        arrays = [to_dev((s[i:i + batch], d[i:i + batch], w[i:i + batch]), dev) for i in range(0, len(s), batch)]
+
+        def factory():
+            for a, b, x in arrays:
+                yield EdgeBatch.from_arrays(a, b, val=x, pad_to=batch, device=dev)
+
+        return EdgeStream.from_batches(factory, cfg_m, device=dev), cfg_m
+
+    rng = np.random.default_rng(0)
+    ms_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
+    md_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
+    mw_ = rng.random(SUM_MT_EDGES).astype(np.float32)
+    rng = np.random.default_rng(100)
+    pairs = rng.choice(ML_USERS * ML_ITEMS, ML_RATINGS, replace=False)
+    ml = ((pairs // ML_ITEMS).astype(np.int32), (ML_USERS + pairs % ML_ITEMS).astype(np.int32),
+          rng.integers(1, 6, ML_RATINGS).astype(np.float32))
+    match = {}
+    for name, (s, d, w, c) in (("uniform", (ms_, md_, mw_, SUM_MT_VERTICES)),
+                               ("movielens", (*ml, ML_CAPACITY))):
+        stream, cfg_m = weighted_stream(s, d, w, c, SUM_MT_BATCH)
+        lm.CentralizedWeightedMatching().run(stream).collect()  # warm the path
+        mo.reset_launches()
+        algo = lm.CentralizedWeightedMatching()
+        recs, secs_m = timed_run(lambda: algo.run(stream).collect())
+        n_launch = mo.LAUNCHES["matching_scan"]
+        if n_launch != -(-len(s) // SUM_MT_BATCH) or mo.TWIN_CALLS["matching_scan"]:
+            raise RuntimeError(f"(d) {name}: matching_scan was not the main path's one C call a batch: {n_launch}")
+        state = lm.init_matching(cfg_m, dev)
+        twin = lm.MatchingState(state.partner.clone(), state.weight.clone())
+        err_m, loop_recs, m_states, busy_m = 0.0, 0, [], 0.0
+        for batch in stream.batches():
+            m_states.append((state.partner.clone(), state.weight.clone(), batch))
+            got = []
+            busy_m += held_ms(lambda: got.extend(mo.matching_scan(state.partner, state.weight, batch.src, batch.dst,
+                                                                  batch.val, batch.mask)), cpm)
+            ev, em = got
+            ev2, em2 = mo.matching_scan_plain(twin.partner, twin.weight, batch.src, batch.dst, batch.val, batch.mask)
+            err_m = max(err_m, tensor_err((ev, em, state.partner, state.weight), (ev2, em2, twin.partner, twin.weight)))
+            loop_recs += int(em.sum())
+        if err_m or len(recs) != loop_recs or tensor_err(tuple(algo.final_state), tuple(state)):
+            raise RuntimeError(f"(d) {name}: the matching differs from its twin on the card (max abs err {err_m}) "
+                               "or the main path's records and state from the batch loop's")
+        lp, lw, lb = m_states[-1]
+        n = lb.src.shape[0]
+        bound_m = (n * (4 + 4 + 4 + 1 + 48 + 3) + 2 * c * 8) / HBM_BYTES_PER_S * 1e3
+        t_m = kernel_timing(cpm, lambda cp: mo.matching_scan(cp[0], cp[1], lb.src, lb.dst, lb.val, lb.mask),
+                            lambda: (lp.clone(), lw.clone()),
+                            lambda cp: mo.matching_scan_plain(cp[0], cp[1], lb.src, lb.dst, lb.val, lb.mask), bound_m)
+        idle_m = 100 * (1 - busy_m / (secs_m * 1e3))
+        matched = int((state.partner >= 0).sum()) // 2
+        match[name] = {**t_m, "launches": n_launch, "err": err_m, "edges": len(s), "s": secs_m,
+                       "edges_per_s": len(s) / secs_m, "records": len(recs), "matched": matched,
+                       "serial_steps": n, "idle_pct": idle_m, "busy_ms": busy_m}
+        log(f"  (d) matching, {name}: {len(s)} edges over C {c} in batches of {SUM_MT_BATCH}: {secs_m:.4f} s end "
+            f"to end, {len(s) / secs_m:.6g} edges/s, {len(recs)} events, {matched} matched; launches {n_launch}; "
+            f"every batch's events, emask and state equal to the twin on the card; the last batch: device "
+            f"{t_m['device_ms']:.4f} ms held ({t_m['device_ms'] * 1e6 / n:.1f} ns an edge), events "
+            f"{t_m['ms']:.4f} ms, host enqueue {t_m['host_us']:.2f} us, twin {t_m['plain_ms']:.1f} ms, bound "
+            f"{bound_m:.6f} ms (bytes; {n} dependent steps), {t_m['ratio']:.1f}x; the calls {busy_m:.4f} ms of "
+            f"device time (each held) against the run's {secs_m * 1e3:.1f} ms: idle {idle_m:.2f}%")
+    res["matching"] = match
+
+    # (e) BroadcastTriangleCount(1000) over phase 15 (a)'s Watts-Strogatz stream
+    ws_s, ws_d = watts_strogatz(ET_VERTICES, 16, 0.1, np.random.default_rng(5))
+    ws_s, ws_d = ws_s[:SUM_TRI_EDGES], ws_d[:SUM_TRI_EDGES]
+    cfg_t = StreamConfig(vertex_capacity=ET_VERTICES, batch_size=SUM_TRI_BATCH)
+    t_stream = EdgeStream.from_arrays(ws_s, ws_d, cfg_t, device=dev)
+    lst.BroadcastTriangleCount(SUM_TRI_SAMPLERS).run(
+        EdgeStream.from_arrays(ws_s[:SUM_TRI_BATCH], ws_d[:SUM_TRI_BATCH], cfg_t, device=dev)).collect()  # warm
+    sto.reset_launches()
+    tri_algo = lst.BroadcastTriangleCount(SUM_TRI_SAMPLERS)
+    estimates, secs_t = timed_run(lambda: tri_algo.run(t_stream).collect())
+    n_launch = sto.LAUNCHES["sampler_scan"]
+    if n_launch != SUM_TRI_EDGES // SUM_TRI_BATCH or sto.TWIN_CALLS["sampler_scan"]:
+        raise RuntimeError(f"(e): sampler_scan was not the main path's one C call a batch: {n_launch}")
+    state = lst.init_samplers(cfg_t, SUM_TRI_SAMPLERS, device=dev)
+    twin = sto.clone_state(state)
+    err_t, twin_t, t_states, busy_t = 0.0, 0.0, [], 0.0
+    for i, batch in enumerate(t_stream.batches()):
+        t_states.append((sto.clone_state(state), batch))
+        busy_t += held_ms(lambda: sto.sampler_scan(state, batch.src, batch.dst, batch.mask), cpm)
+        t0 = time.perf_counter()
+        sto.sampler_scan_plain(twin, batch.src, batch.dst, batch.mask)
+        torch.cuda.synchronize()
+        twin_t += time.perf_counter() - t0
+        est, est_twin = lst.estimate(state), lst.estimate(twin)
+        err_t = max(err_t, tensor_err(tuple(state), tuple(twin)), abs(est - est_twin))
+        if est != estimates[i][0]:
+            raise RuntimeError(f"(e): batch {i}'s estimate {est} differs from the main path's {estimates[i][0]}")
+    if err_t or tensor_err(tuple(tri_algo.final_state), tuple(state)):
+        raise RuntimeError(f"(e): the samplers differ from their twin on the card (max abs err {err_t}) or the main "
+                           "path's final state from the batch loop's")
+    before, lb = t_states[-1]
+    n = lb.src.shape[0]
+    # the coins this batch needs: each lane's from the batch's end back to its last replacement
+    last = sto.coin_walk(before, lb.mask)[3]
+    coins = int((n - last.clamp_min(0)).sum())
+    bytes_t = n * 9 + 2 * (8 + SUM_TRI_SAMPLERS * 14 + ET_VERTICES + 4)
+    bound_bytes, bound_ops = bytes_t / HBM_BYTES_PER_S * 1e3, coins * THREEFRY_OPS / F32_OPS_PER_S * 1e3
+    t_t = kernel_timing(cpm, lambda cp: sto.sampler_scan(cp, lb.src, lb.dst, lb.mask), lambda: sto.clone_state(before),
+                        lambda cp: sto.sampler_scan_plain(cp, lb.src, lb.dst, lb.mask), max(bound_bytes, bound_ops))
+    split = profiler_device_us(lambda: sto.sampler_scan(sto.clone_state(before), lb.src, lb.dst, lb.mask), 3)
+    split = {re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0].split("::")[-1]:
+             round(us, 2) for key, (us, _calls) in split.items() if "kernel" in key}
+    # the key chain alone, near enough: the same call with one lane
+    one = lst.init_samplers(cfg_t, 1, device=dev)
+    one_ms, _ = copies_device_ms(lambda cp: sto.sampler_scan(cp, lb.src, lb.dst, lb.mask),
+                                 lambda: sto.clone_state(one), SUM_REPS, cpm)
+    idle_t = 100 * (1 - busy_t / (secs_t * 1e3))
+    res["sampler"] = {**t_t, "launches": n_launch, "err": err_t, "edges": SUM_TRI_EDGES, "s": secs_t,
+                      "edges_per_s": SUM_TRI_EDGES / secs_t, "estimate": estimates[-1][0], "twin_s": twin_t,
+                      "bound_by": "operations" if bound_ops >= bound_bytes else "bytes", "coins": coins,
+                      "serial_steps": n, "split_us": split, "one_lane_device_ms": one_ms, "idle_pct": idle_t,
+                      "busy_ms": busy_t}
+    log(f"  (e) BroadcastTriangleCount({SUM_TRI_SAMPLERS}) over the first {SUM_TRI_EDGES} edges of phase 15 (a)'s "
+        f"Watts-Strogatz stream (C {ET_VERTICES}, batches of {SUM_TRI_BATCH}): {secs_t:.4f} s end to end, "
+        f"{SUM_TRI_EDGES / secs_t:.6g} edges/s, estimate {estimates[-1][0]:.6g}; launches {n_launch}; every batch's "
+        f"state (key included) and estimate equal to the twin on the card (twin {twin_t:.2f} s); the last batch: "
+        f"device {t_t['device_ms']:.4f} ms held, events {t_t['ms']:.4f} ms, host enqueue {t_t['host_us']:.2f} us, "
+        f"twin {t_t['plain_ms']:.1f} ms; by kernel (profiler, us) {split or 'not measured (no rows)'}; the same "
+        f"call with one lane (the key chain, near enough) {one_ms:.4f} ms held; bound {t_t['bound_ms']:.6f} ms "
+        f"({res['sampler']['bound_by']}: {coins} coins x {THREEFRY_OPS} ops at {F32_OPS_PER_S:.3g}/s; bytes "
+        f"{bound_bytes:.6f} ms; the key chain {n} dependent hashes), {t_t['ratio']:.1f}x; the calls {busy_t:.4f} ms "
+        f"of device time (each held) against the run's {secs_t * 1e3:.1f} ms: idle {idle_t:.2f}%")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -5359,6 +5797,8 @@ def main(argv=None) -> int:
                                              for grid, path in grid_split_cu.items()},
                     {} if split_failed else {part: variant_pagerank(load_baseline(path, rank_sig))
                                              for part, path in rank_split_cu.items()})
+    log("phase 17: the spanner, the weighted matching and the sampled triangle estimators on the card")
+    sm = phase_summaries(dev, cpm)
 
     kernels = [
         {
@@ -5534,6 +5974,24 @@ def main(argv=None) -> int:
                         "windows, one C call a bucket a round; max_abs_err: that route's cores against the twin's",
          "timed": "a round of window 0 (every bucket, one C call each), the mean over its rounds, each replayed "
                   "from the estimates it started from"},
+    ]
+    spn, mt, smp = sm["spanner"], sm["matching"]["uniform"], sm["sampler"]
+    kernels += [
+        {**entry("spanner_admit", "spanner.cu", "gelly_streaming_tpu/library/spanner.py:90", spn),
+         "also_replaces": "gelly_streaming_tpu/library/spanner.py:63 (_within_k_prefilter)", "library_call": no_call,
+         "timed": "(a)'s last batch, each call on its own copy of the table before it",
+         **{k: spn[k] for k in ("edges_per_s", "ratio", "candidates", "first_batch_device_ms", "stats", "spanner_edges",
+                                "idle_pct", "busy_ms")},
+         "k3": sm["spanner_k3"], "combine": sm["combine"]},
+        {**entry("matching_scan", "matching.cu", "gelly_streaming_tpu/library/matching.py:38", mt),
+         "library_call": no_call, "timed": "(d)'s last uniform batch, each call on its own copy of the state",
+         **{k: mt[k] for k in ("edges_per_s", "ratio", "serial_steps", "records", "matched", "idle_pct", "busy_ms")},
+         "movielens": sm["matching"]["movielens"]},
+        {**entry("sampler_scan", "sampled_triangles.cu", "gelly_streaming_tpu/library/sampled_triangles.py:56", smp),
+         "bound_by": smp["bound_by"], "library_call": no_call,
+         "timed": "(e)'s last batch, each call on its own copy of the state",
+         **{k: smp[k] for k in ("edges_per_s", "ratio", "estimate", "coins", "serial_steps", "split_us",
+                                "one_lane_device_ms", "twin_s", "idle_pct", "busy_ms")}},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

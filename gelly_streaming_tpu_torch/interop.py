@@ -7,7 +7,11 @@ over (``DegreeDistState``, ``DegreeSummaryState`` and ``BPState`` likewise,
 so that both packages can start from the same mid-stream state, and
 ``ExactTriangleCount``'s ``TriangleCountState`` through
 ``triangle_state_from_numpy``; the GraphSAGE weights through ``sage_params_from_numpy``, a training state
-with its optax Adam moments through ``sage_train_state_from_numpy``).  Packed
+with its optax Adam moments through ``sage_train_state_from_numpy``; the
+spanner's, the matching's and the samplers' states through
+``spanner_state_from_numpy``, ``matching_state_from_numpy`` and
+``sampler_state_from_numpy``, the samplers' key as the uint32 key data of
+``jax.random.key_data``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.  ``config_from_dict`` carries every
 field the port's config has, among them the SpMV core's direction knobs
@@ -28,8 +32,11 @@ from gelly_streaming_tpu_torch.library.bipartiteness import BPState
 from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
 from gelly_streaming_tpu_torch.library.graphsage import SageParams, SageTrainState, _train_state
+from gelly_streaming_tpu_torch.library.matching import MatchingState
+from gelly_streaming_tpu_torch.library.spanner import SpannerState
 from gelly_streaming_tpu_torch.ops.exact_triangles import TriangleCountState
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
+from gelly_streaming_tpu_torch.ops.sampled_triangles import SamplerState
 from gelly_streaming_tpu_torch.summaries.disjoint_set import DisjointSet
 
 _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(StreamConfig))
@@ -187,3 +194,55 @@ def sage_train_state_from_numpy(w_self, w_nbr, bias, *, lr: float, mu=None, nu=N
             "exp_avg_sq": torch.from_numpy(v.copy()).to(dev),
         }
     return state
+
+
+def spanner_state_from_numpy(nbrs, deg, device: DeviceLike = None) -> SpannerState:
+    """A ``SpannerState`` on ``device`` from host arrays: ``nbrs`` int32
+    [C, D] (-1 = empty), ``deg`` int32 [C]."""
+    nbrs = np.asarray(nbrs, np.int32)
+    deg = np.asarray(deg, np.int32)
+    if nbrs.ndim != 2 or deg.shape != (nbrs.shape[0],):
+        raise ValueError(f"expected nbrs [C, D] and deg [C], got {nbrs.shape} and {deg.shape}")
+    dev = resolve_device(device)
+    return SpannerState(nbrs=torch.from_numpy(nbrs.copy()).to(dev), deg=torch.from_numpy(deg.copy()).to(dev))
+
+
+def matching_state_from_numpy(partner, weight, device: DeviceLike = None) -> MatchingState:
+    """A ``MatchingState`` on ``device`` from host arrays: ``partner``
+    int32 [C] (-1 = unmatched), ``weight`` float32 [C]."""
+    partner = _int32_vector(partner, "partner")
+    weight = np.asarray(weight, np.float32)
+    if weight.shape != partner.shape:
+        raise ValueError(f"partner and weight differ in shape: {partner.shape} and {weight.shape}")
+    dev = resolve_device(device)
+    return MatchingState(partner=torch.from_numpy(partner.copy()).to(dev),
+                         weight=torch.from_numpy(weight.copy()).to(dev))
+
+
+def sampler_state_from_numpy(key, edge, third, closed_a, closed_b, edges_seen, seen,
+                             device: DeviceLike = None) -> SamplerState:
+    """A ``SamplerState`` on ``device`` from host arrays: ``key`` the uint32
+    [2] key data (``np.asarray(jax.random.key_data(state.key))``, or of a
+    raw ``PRNGKey``), ``edge`` int32 [S, 2], ``third`` int32 [S],
+    ``closed_a`` and ``closed_b`` bool [S], ``edges_seen`` a scalar,
+    ``seen`` bool [C]."""
+    key = np.asarray(key, np.uint32)
+    edge = np.asarray(edge, np.int32)
+    third = _int32_vector(third, "third")
+    closed_a, closed_b, seen = (np.asarray(x, bool) for x in (closed_a, closed_b, seen))
+    s = third.shape[0]
+    if key.shape != (2,) or edge.shape != (s, 2) or closed_a.shape != (s,) or closed_b.shape != (s,) \
+            or seen.ndim != 1:
+        raise ValueError(f"expected key [2], edge [S, 2], third, closed_a, closed_b [S] and seen [C], got "
+                         f"{key.shape}, {edge.shape}, {third.shape}, {closed_a.shape}, {closed_b.shape}, "
+                         f"{seen.shape}")
+    dev = resolve_device(device)
+    return SamplerState(
+        key=torch.from_numpy(key.copy()).to(dev),
+        edge=torch.from_numpy(edge.copy()).to(dev),
+        third=torch.from_numpy(third.copy()).to(dev),
+        closed_a=torch.from_numpy(closed_a.copy()).to(dev),
+        closed_b=torch.from_numpy(closed_b.copy()).to(dev),
+        edges_seen=torch.tensor(int(np.asarray(edges_seen)), dtype=torch.int32, device=dev),
+        seen=torch.from_numpy(seen.copy()).to(dev),
+    )

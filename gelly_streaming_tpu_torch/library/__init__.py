@@ -11,17 +11,27 @@ from gelly_streaming_tpu_torch.library.graphsage import (
 )
 from gelly_streaming_tpu_torch.library.iterative_cc import IterativeConnectedComponents
 from gelly_streaming_tpu_torch.library.kcore import core_numbers_windows, windowed_kcore
+from gelly_streaming_tpu_torch.library.matching import CentralizedWeightedMatching
 from gelly_streaming_tpu_torch.library.pagerank import pagerank_windows, windowed_pagerank
+from gelly_streaming_tpu_torch.library.sampled_triangles import (
+    BroadcastTriangleCount,
+    IncidenceSamplingTriangleCount,
+)
+from gelly_streaming_tpu_torch.library.spanner import Spanner
 from gelly_streaming_tpu_torch.library.sssp import sssp_windows, windowed_sssp
 from gelly_streaming_tpu_torch.library.triangles import GLOBAL_KEY, ExactTriangleCount
 
 __all__ = [
+    "BroadcastTriangleCount",
+    "CentralizedWeightedMatching",
     "ExactTriangleCount",
     "GLOBAL_KEY",
     "GraphSAGEWindows",
+    "IncidenceSamplingTriangleCount",
     "IterativeConnectedComponents",
     "SageParams",
     "SageTrainState",
+    "Spanner",
     "core_numbers_windows",
     "pagerank_windows",
     "sage_init_train",

@@ -173,6 +173,28 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream: a memset, then the cooperative fixpoint kernel
         "kcore_fixpoint_launch": [_P, _I, _P, _I, _I, _P, _L, _P],
     },
+    "spanner.cu": {
+        # n, capacity, max_degree, k, cap, body: the scratch bytes of one
+        # call (-1: none can run)
+        "spanner_scratch_bytes": [_I, _I, _I, _I, _I, _I],
+        # nbrs, deg, capacity, max_degree, src, dst, mask | None, n, k, cap,
+        # body, scratch, scratch bytes, stats, stream: the pre-filter kernel,
+        # then the one-block resolve kernel
+        "spanner_admit_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
+    },
+    "matching.cu": {
+        # partner, weight, capacity, src, dst, val | None, mask | None, n,
+        # events, emask, stream: one thread walks the batch
+        "matching_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    },
+    "sampled_triangles.cu": {
+        # n, S: the scratch bytes of one call
+        "sampler_scratch_bytes": [_I, _I],
+        # key, edge, third, closed_a, closed_b, edges_seen, seen, S, C, src,
+        # dst, mask | None, n, scratch, scratch bytes, stream: the key chain,
+        # step keys, coin, finish, hits and seen kernels
+        "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _L, _P],
+    },
 }
 
 # entry points that return something other than a cudaError_t
@@ -180,7 +202,7 @@ RESTYPES: Dict[str, type] = {
     "degree_dist_scratch_bytes": _L, "degree_trace_scratch_bytes": _L, "nb_scratch_bytes": _L,
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
-    "kcore_fixpoint_scratch_bytes": _L,
+    "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
 }
 
 

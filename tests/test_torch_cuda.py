@@ -1979,3 +1979,158 @@ def test_spmv_algorithms_on_the_card_match_the_cpu(cuda_device):
     assert np.array_equal(got[4], want[4])
     assert [v for v, _ in got[2]] == [v for v, _ in want[2]]
     np.testing.assert_allclose([r for _, r in got[2]], [r for _, r in want[2]], rtol=1e-5, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the spanner, the weighted matching and the sampled triangle estimators
+# (csrc/spanner.cu, matching.cu, sampled_triangles.cu): every kernel equal to
+# its twin on the card, exactly, at small and at phase 17's shapes
+
+
+def _edge_batch(rng, dev, n, lo, hi, p_mask=0.9):
+    s = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+    d = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+    m = torch.from_numpy(rng.random(n) < p_mask).to(dev)
+    return s, d, m
+
+
+@pytest.mark.parametrize("c,d,k,cap,body,n,lo,hi", [
+    (24, 4, 3, 4, "bfs", 64, -3, 27),
+    (24, 4, 3, 128, "balls", 64, -3, 27),
+    (24, 4, 2, 128, "within_two", 64, -3, 27),
+    (64, 8, 4, 4, "balls", 256, -2, 66),
+    (64, 8, 1, 128, "bfs", 256, 0, 64),
+    (40, 3, 0, 1, "bfs", 100, -1, 41),
+    (512, 64, 2, 128, "within_two", 1 << 14, 0, 512),
+    (4096, 64, 3, 128, "balls", 1 << 14, 0, 4096),
+    (4096, 64, 3, 128, "bfs", 1 << 12, 0, 4096),
+])
+def test_spanner_admit_matches_twin(cuda_device, c, d, k, cap, body, n, lo, hi):
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+
+    rng = np.random.default_rng(c + k + cap)
+    n1 = torch.full((c, d), -1, dtype=torch.int32, device=cuda_device)
+    d1 = torch.zeros((c,), dtype=torch.int32, device=cuda_device)
+    n2, d2 = n1.clone(), d1.clone()
+    for _ in range(1 if n >= 1 << 12 else 3):  # the twin takes seconds a wide batch on the card
+        s, t, m = _edge_batch(rng, cuda_device, n, lo, hi)
+        before = sp.LAUNCHES["spanner_admit"]
+        sp.spanner_admit(n1, d1, s, t, m, k, cap, body)
+        assert sp.LAUNCHES["spanner_admit"] == before + 1
+        sp.spanner_admit_plain(n2, d2, s, t, m, k, cap, body)
+        assert torch.equal(n1, n2) and torch.equal(d1, d2)
+
+
+def test_spanner_admit_unmasked_empty_and_stats(cuda_device):
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+
+    rng = np.random.default_rng(8)
+    n1 = torch.full((32, 4), -1, dtype=torch.int32, device=cuda_device)
+    d1 = torch.zeros((32,), dtype=torch.int32, device=cuda_device)
+    n2, d2 = n1.clone(), d1.clone()
+    sp.reset_stats()
+    s, t, _m = _edge_batch(rng, cuda_device, 80, 0, 32)
+    sp.spanner_admit(n1, d1, s, t, None, 2, 128, "within_two")
+    sp.spanner_admit_plain(n2, d2, s, t, None, 2, 128, "within_two")
+    assert torch.equal(n1, n2) and torch.equal(d1, d2)
+    st = sp.stats(cuda_device)
+    assert st["calls"] == 1 and st["admitted"] == int(d1.sum()) // 2 and st["candidates"] >= st["admitted"]
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    sp.spanner_admit(n1, d1, empty, empty, None, 2, 128, "bfs")
+    assert torch.equal(n1, n2)
+    with pytest.raises(ValueError):  # balls past the kernel's scratch (4^20 entries): raises, no fallback
+        sp.spanner_admit(n1, d1, s, t, None, 40, 128, "balls")
+
+
+def test_spanner_on_the_card_matches_the_cpu(cuda_device):
+    """Windowed ``Spanner`` (pane folds and combines) on the card and on the CPU."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.spanner import Spanner
+
+    rng = np.random.default_rng(4)
+    edges = [(int(a), int(b), 0, int(t)) for a, b, t in zip(rng.integers(0, 40, 400), rng.integers(0, 40, 400),
+                                                            np.sort(rng.integers(0, 4000, 400)))]
+    cfg = StreamConfig(vertex_capacity=40, max_degree=6)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        stream = EdgeStream.from_collection(edges, cfg, batch_size=32, with_time=True, device=dev)
+        out[str(dev)] = [(g.nbrs.cpu(), g.deg.cpu()) for (g,) in stream.aggregate(Spanner(1000, 3)).collect()]
+    (a, b) = out.values()
+    assert len(a) == len(b) == 4
+    assert all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("c,n,lo,hi,ints", [(16, 40, -3, 19, True), (64, 500, 0, 64, False),
+                                           (4096, 8192, 0, 4096, False), (2625, 8192, 0, 2625, True)])
+def test_matching_scan_matches_twin(cuda_device, c, n, lo, hi, ints):
+    from gelly_streaming_tpu_torch.ops import matching as mo
+
+    rng = np.random.default_rng(c + n)
+    p1 = torch.full((c,), -1, dtype=torch.int32, device=cuda_device)
+    w1 = torch.zeros((c,), dtype=torch.float32, device=cuda_device)
+    p2, w2 = p1.clone(), w1.clone()
+    for i in range(3):
+        s, t, m = _edge_batch(rng, cuda_device, n, lo, hi, 0.95)
+        w = torch.from_numpy((rng.integers(1, 6, n) if ints else rng.random(n)).astype(np.float32)).to(cuda_device)
+        val, mask = (None, None) if i == 2 else (w, m)
+        before = mo.LAUNCHES["matching_scan"]
+        e1, em1 = mo.matching_scan(p1, w1, s, t, val, mask)
+        assert mo.LAUNCHES["matching_scan"] == before + 1
+        e2, em2 = mo.matching_scan_plain(p2, w2, s, t, val, mask)
+        assert torch.equal(e1.view(torch.int32), e2.view(torch.int32)) and torch.equal(em1, em2)
+        assert torch.equal(p1, p2) and torch.equal(w1.view(torch.int32), w2.view(torch.int32))
+
+
+def test_matching_run_on_the_card_matches_the_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.matching import CentralizedWeightedMatching
+
+    rng = np.random.default_rng(5)
+    edges = [(int(a), int(b), float(w)) for a, b, w in zip(rng.integers(0, 50, 700), rng.integers(0, 50, 700),
+                                                           rng.integers(1, 100, 700))]
+    cfg = StreamConfig(vertex_capacity=64)
+    got = [CentralizedWeightedMatching().run(EdgeStream.from_collection(edges, cfg, batch_size=64, device=dev))
+           .collect() for dev in ("cpu", cuda_device)]
+    assert got[0] == got[1] and len(got[0]) > 0
+
+
+@pytest.mark.parametrize("c,s_lanes,n,odd", [(24, 7, 37, True), (24, 1024, 300, True), (64, 1, 513, False),
+                                             (1 << 20, 1000, 1 << 16, False)])
+def test_sampler_scan_matches_twin(cuda_device, c, s_lanes, n, odd):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library import sampled_triangles as lst
+    from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
+
+    rng = np.random.default_rng(s_lanes + n)
+    st1 = lst.init_samplers(StreamConfig(vertex_capacity=c), s_lanes, device=cuda_device)
+    st2 = sto.clone_state(st1)
+    lo, hi = (-2, c + 2) if odd else (0, c)
+    for i in range(3):
+        s, t, m = _edge_batch(rng, cuda_device, n, lo, hi)
+        mask = None if i == 1 else m
+        before = sto.LAUNCHES["sampler_scan"]
+        sto.sampler_scan(st1, s, t, mask)
+        assert sto.LAUNCHES["sampler_scan"] == before + 1
+        sto.sampler_scan_plain(st2, s, t, mask)
+        for a, b in zip(st1, st2):
+            assert torch.equal(a.cpu().to(torch.int64) if a.dtype == torch.uint32 else a.cpu(),
+                               b.cpu().to(torch.int64) if b.dtype == torch.uint32 else b.cpu())
+        assert lst.estimate(st1) == lst.estimate(st2)
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    sto.sampler_scan(st1, empty, empty, None)
+    assert torch.equal(st1.edge, st2.edge)
+
+
+def test_sampled_triangles_run_on_the_card_matches_the_cpu(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.sampled_triangles import BroadcastTriangleCount
+
+    rng = np.random.default_rng(6)
+    src, dst = rng.integers(0, 200, 5000), rng.integers(0, 200, 5000)
+    cfg = StreamConfig(vertex_capacity=256, batch_size=1024)
+    got = [BroadcastTriangleCount(300).run(EdgeStream.from_arrays(src, dst, cfg, device=dev)).collect()
+           for dev in ("cpu", cuda_device)]
+    assert got[0] == got[1] and got[0][-1][0] > 0
