@@ -5,6 +5,7 @@
                           [--parent-sage-cu PATH] [--parent-neighborhoods-cu PATH]
                           [--parent-sage-backward-cu PATH] [--parent-csr-cu PATH]
                           [--parent-exact-cu PATH] [--parent-spmv-cu PATH] [--parent-kcore-cu PATH]
+                          [--parent-spanner-cu PATH] [--parent-sampler-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -259,11 +260,14 @@ its twin on the card: (a) ``from_arrays(...).aggregate(Spanner(1000, 2))``
 at ``measurements spanner``'s defaults (2^17 uniform edges over C = 512, D
 = 64, batches of 2^14, default_rng(0); not cut): the table equal to the
 twin's after every batch, the first batch's equal to a sequential Python
-BFS spanner (an oracle independent of both packages); (b) k = 3 at
-BASELINE.md's scaled shape (C = 4096, D = 64; its 524,288 edges cut to
-2^18 for the smoke's time) with
-``body`` auto, balls and bfs, the three tables equal; (c) ``combine`` of
-(a)'s two halves' spanners equal to the twin's; (d)
+BFS spanner (an oracle independent of both packages), each batch's capped
+candidates and survivors of the exact pre-pass equal to the plain model's
+(``ops/spanner.exact_prepass_plain`` on the table before the batch); (b)
+k = 3 at BASELINE.md's scaled shape (C = 4096, D = 64, its 524,288 edges)
+with ``body`` auto, balls and bfs, the three tables equal, and every batch
+of the auto run equal to the plain model (its pre-pass on the card, its
+walk over the survivors on the host), candidates and survivors included;
+(c) ``combine`` of (a)'s two halves' spanners equal to the twin's; (d)
 ``CentralizedWeightedMatching.run`` at ``measurements matching``'s
 defaults (2^16 edges over 2^12 vertices, f32 weights U[0, 1), batches of
 2^13) and over a generated MovieLens-100K-shaped stream (100,000 distinct
@@ -277,7 +281,15 @@ one C call a batch on its path; each path prints edges/s end to end, the
 kernel's device ms a batch on a held stream (each call on its own copy of
 the state before the batch), host µs a call, the twin's ms, its bound and
 the device's idle share (one less the path's kernel calls' device time,
-each call held, over the run's wall).
+each call held, over the run's wall).  The spanner's lines print the
+survivors against the capped candidates and what a survivor costs ((a)'s
+batch 0, its late batch, (b)'s run of C calls); (e) prints the host key
+chain's ns a hash with the host CPU's model name, and in how many batches
+of the run loop batch k + 1's keys were ready while the card still ran
+batch k.  ``--parent-spanner-cu PATH`` / ``--parent-sampler-cu PATH``
+(c34004e's sources) time the parent's calls in turns with the current
+ones (parent, current, current, parent): (a)'s late batch and batch 0,
+(b)'s whole run of C calls (auto and bfs), and (e)'s batches.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -814,6 +826,15 @@ PARENT_SIGNATURES = {
              "pagerank_fixpoint_launch": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _L, _P]},
     # (a48e429, one C call a bucket) c, n, keys, nbrs, valid, k, d, h, stage | None, stream
     "kcore": {"kcore_round_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P]},
+    # (c34004e, the capped pre-filter, then one block resolving every candidate) n, capacity, max_degree, k, cap,
+    # body; nbrs, deg, capacity, max_degree, src, dst, mask, n, k, cap, body, scratch, scratch bytes, stats
+    # int32[4], stream
+    "spanner": {"spanner_scratch_bytes": [_I, _I, _I, _I, _I, _I],
+                "spanner_admit_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P]},
+    # (c34004e, the key chain on one thread of the card) n, S; key, edge, third, closed_a, closed_b, edges_seen,
+    # seen, S, C, src, dst, mask, n, scratch, scratch bytes, stream
+    "sampler": {"sampler_scratch_bytes": [_I, _I],
+                "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _L, _P]},
     "exact": {"triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
               "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
     "sage_backward": {
@@ -5054,7 +5075,7 @@ SUM_SP_EDGES = 1 << 17
 SUM_SP_DEGREE = 64
 SUM_SP_BATCH = 1 << 14
 SUM_SP3_VERTICES = 4096  # (b): BASELINE.md's scaled shape, k = 3
-SUM_SP3_EDGES = 1 << 18  # its 524,288 edges cut to half for the smoke's time
+SUM_SP3_EDGES = 1 << 19  # its 524,288 edges
 SUM_MT_VERTICES = 1 << 12  # (d): `measurements matching` defaults (:842-846)
 SUM_MT_EDGES = 1 << 16
 SUM_MT_BATCH = 1 << 13
@@ -5190,10 +5211,98 @@ def kernel_timing(cpm, call, make_copy, twin, bound_ms: float, reps: int = SUM_R
             "ratio": d_ms / bound_ms}
 
 
-def phase_summaries(dev, cpm) -> dict:
+def parent_spanner_call(lib):
+    """c34004e's spanner admission over ``lib`` (the capped pre-filter, a
+    warp an edge, then one 1024-thread block resolving every candidate):
+    call(nbrs, deg, src, dst, mask, k, cap, body), in place, with its own
+    int32[4] stats."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+
+    bufs = {}
+
+    def call(nbrs, deg, src, dst, mask, k, cap, body):
+        dev = nbrs.device
+        n, (c, d) = src.shape[0], nbrs.shape
+        code = sp.BODIES.index(body)
+        key = (dev, n, c, d, k, cap, code)
+        if key not in bufs:
+            nbytes = int(lib.spanner_scratch_bytes(n, c, d, k, cap, code))
+            bufs[key] = (torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev),
+                         torch.zeros((4,), dtype=torch.int32, device=dev))
+        buf, st = bufs[key]
+        _cuda.check(lib.spanner_admit_launch(
+            nbrs.data_ptr(), deg.data_ptr(), c, d, src.data_ptr(), dst.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, k, cap, code, buf.data_ptr(), buf.numel(), st.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "parent spanner_admit_launch")
+
+    return call
+
+
+def parent_sampler_call(lib):
+    """c34004e's sampler scan over ``lib`` (the key chain on one thread of
+    the card, then the step keys, coin, finish, hits and seen kernels):
+    call(state, src, dst, mask), in place."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    bufs = {}
+
+    def call(state, src, dst, mask):
+        dev = state.edge.device
+        n, s_lanes = src.shape[0], state.edge.shape[0]
+        if (dev, n, s_lanes) not in bufs:
+            nbytes = int(lib.sampler_scratch_bytes(n, s_lanes))
+            bufs[dev, n, s_lanes] = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
+        buf = bufs[dev, n, s_lanes]
+        _cuda.check(lib.sampler_scan_launch(
+            state.key.data_ptr(), state.edge.data_ptr(), state.third.data_ptr(), state.closed_a.data_ptr(),
+            state.closed_b.data_ptr(), state.edges_seen.data_ptr(), state.seen.data_ptr(), s_lanes,
+            state.seen.shape[0], src.data_ptr(), dst.data_ptr(), None if mask is None else mask.data_ptr(), n,
+            buf.data_ptr(), buf.numel(), torch.cuda.current_stream(dev).cuda_stream), "parent sampler_scan_launch")
+
+    return call
+
+
+def measured_in_turns(measure, parent, current) -> dict:
+    """``measure(fn)`` for parent, current, current, parent: the four
+    readings, each side's mean and current / parent."""
+    got = [(tag, measure(fn)) for tag, fn in (("parent", parent), ("current", current), ("current", current),
+                                              ("parent", parent))]
+    p = sum(ms for tag, ms in got if tag == "parent") / 2
+    c = sum(ms for tag, ms in got if tag == "current") / 2
+    return {"turns": got, "parent_ms": p, "current_ms": c, "ratio": c / p}
+
+
+def turns_text(t: dict) -> str:
+    return (", ".join(f"{tag} {ms:.4f}" for tag, ms in t["turns"]) +
+            f" ms: current / parent {t['ratio']:.4f} ({t['parent_ms'] / max(t['current_ms'], 1e-9):.2f}x faster)")
+
+
+def cpu_model() -> str:
+    """lscpu's model name of the host, or "not known"."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not known"
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines() if line.startswith("Model name")]
+    if names and names[0] not in ("", "-", "unknown"):
+        return names[0]
+    try:  # lscpu may not name a virtual CPU; /proc/cpuinfo may
+        with open("/proc/cpuinfo") as f:
+            names = [line.split(":", 1)[1].strip() for line in f if line.startswith("model name")]
+    except OSError:
+        names = []
+    return f"lscpu: {names and names[0] or 'not known'}"
+
+
+def phase_summaries(dev, cpm, parents=None) -> dict:
     """Phase 17: ``Spanner`` (a)-(c), ``CentralizedWeightedMatching`` (d) and
     ``BroadcastTriangleCount`` (e) through their entry points on the card,
-    each kernel held against its twin on the card."""
+    each kernel held against its twin on the card (the spanner's (b)
+    against the plain model of its two phases); ``parents``: c34004e's
+    spanner and sampler calls, timed in turns with the current ones."""
     import torch
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
@@ -5205,7 +5314,9 @@ def phase_summaries(dev, cpm) -> dict:
     from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
     from gelly_streaming_tpu_torch.ops import spanner as sp
     from gelly_streaming_tpu_torch.summaries import adjacency
+    from gelly_streaming_tpu_torch.utils import threefry
 
+    parents = parents or {}
     res = {}
     # (a) the k = 2 spanner at `measurements spanner`'s defaults, through the wire path
     rng = np.random.default_rng(0)
@@ -5227,12 +5338,22 @@ def phase_summaries(dev, cpm) -> dict:
     final = out[-1][0]
     nbrs, deg = adjacency.init_table(SUM_SP_VERTICES, SUM_SP_DEGREE, dev)
     tn, td = nbrs.clone(), deg.clone()
-    err, states, twin_s, busy = 0.0, [], 0.0, 0.0
+    err, states, twin_s, busy, per_batch = 0.0, [], 0.0, 0.0, []
     for b in range(SUM_SP_EDGES // SUM_SP_BATCH):
         s_t, d_t = to_dev((src[b * SUM_SP_BATCH:(b + 1) * SUM_SP_BATCH], dst[b * SUM_SP_BATCH:(b + 1) * SUM_SP_BATCH]),
                           dev)
         states.append((nbrs.clone(), deg.clone(), s_t, d_t))
+        # the plain model's pre-pass on the table before the batch
+        cand_m = ~sp.prefilter_plain(nbrs, s_t, d_t, 2, 128)
+        surv_m = int(sp.exact_prepass_plain(nbrs, s_t, d_t, cand_m, 2, "within_two").sum())
+        st0 = sp.stats(dev)
         busy += held_ms(lambda: sp.spanner_admit(nbrs, deg, s_t, d_t, None, 2, 128, "within_two"), cpm)
+        st1 = sp.stats(dev)
+        got = (st1["candidates"] - st0["candidates"], st1["survivors"] - st0["survivors"])
+        if got != (int(cand_m.sum()), surv_m):
+            raise RuntimeError(f"(a) batch {b}: the kernel's candidates and survivors {got} differ from the model's "
+                               f"{(int(cand_m.sum()), surv_m)}")
+        per_batch.append(got)
         t0 = time.perf_counter()
         sp.spanner_admit_plain(tn, td, s_t, d_t, None, 2, 128, "within_two")
         torch.cuda.synchronize()
@@ -5263,22 +5384,69 @@ def phase_summaries(dev, cpm) -> dict:
     after = sp.stats(dev)
     calls = after["calls"] - before["calls"]
     timing["candidates"] = (after["candidates"] - before["candidates"]) / max(calls, 1)
+    timing["survivors"] = (after["survivors"] - before["survivors"]) / max(calls, 1)
+    timing["us_a_survivor"] = timing["device_ms"] * 1e3 / max(timing["survivors"], 1)
     first = states[0]
     timing["first_batch_device_ms"], _ = copies_device_ms(sp_call("within_two", 2, first), sp_copy(first), 3, cpm)
+    timing["first_batch_survivors"] = per_batch[0][1]
+    timing["first_batch_us_a_survivor"] = timing["first_batch_device_ms"] * 1e3 / max(per_batch[0][1], 1)
     idle = 100 * (1 - busy / (secs * 1e3))
     res["spanner"] = {**timing, "launches": launches["spanner_admit"], "err": err, "edges_per_s": SUM_SP_EDGES / secs,
                       "s": secs, "spanner_edges": edges_a, "stats": stats_a, "twin_s": twin_s, "idle_pct": idle,
-                      "busy_ms": busy}
+                      "busy_ms": busy, "per_batch": per_batch}
     log(f"  (a) Spanner k=2 over {SUM_SP_EDGES} edges (C {SUM_SP_VERTICES}, D {SUM_SP_DEGREE}, batches of "
         f"{SUM_SP_BATCH}): {secs:.4f} s end to end, {SUM_SP_EDGES / secs:.6g} edges/s, {edges_a} spanner edges; "
-        f"launches {launches}; candidates {stats_a['candidates']} of {SUM_SP_EDGES}, admitted {stats_a['admitted']}, "
-        f"most in a batch {stats_a['max_candidates']}; every batch equal to the twin on the card (twin "
-        f"{twin_s:.2f} s for the 8 batches), batch 0 equal to the sequential Python oracle")
-    log(f"      the last batch ({timing['candidates']:.0f} candidates): device {timing['device_ms']:.4f} ms held, "
-        f"events {timing['ms']:.4f} ms, host enqueue {timing['host_us']:.2f} us, twin {timing['plain_ms']:.1f} ms, "
-        f"bound {bound:.6f} ms (bytes), {timing['ratio']:.1f}x; batch 0 (from the empty table) "
-        f"{timing['first_batch_device_ms']:.4f} ms held; the 8 calls {busy:.4f} ms of device time (each held) "
-        f"against the run's {secs * 1e3:.1f} ms: idle {idle:.2f}%")
+        f"launches {launches}; capped candidates {stats_a['candidates']} of {SUM_SP_EDGES}, survivors of the exact "
+        f"pre-pass {stats_a['survivors']}, admitted {stats_a['admitted']}, most in a batch "
+        f"{stats_a['max_candidates']} / {stats_a['max_survivors']}; (candidates, survivors) a batch {per_batch}, each "
+        f"equal to the plain model's; every batch equal to the twin on the card (twin {twin_s:.2f} s for the 8 "
+        f"batches), batch 0 equal to the sequential Python oracle")
+    log(f"      the last batch ({timing['candidates']:.0f} candidates, {timing['survivors']:.0f} survivors): device "
+        f"{timing['device_ms']:.4f} ms held ({timing['us_a_survivor']:.3f} us a survivor), events "
+        f"{timing['ms']:.4f} ms, host enqueue {timing['host_us']:.2f} us, twin {timing['plain_ms']:.1f} ms, bound "
+        f"{bound:.6f} ms (bytes), {timing['ratio']:.1f}x; batch 0 (from the empty table, {per_batch[0][1]} "
+        f"survivors) {timing['first_batch_device_ms']:.4f} ms held ({timing['first_batch_us_a_survivor']:.3f} us a "
+        f"survivor); the 8 calls {busy:.4f} ms of device time (each held) against the run's {secs * 1e3:.1f} ms: "
+        f"idle {idle:.2f}%")
+    if "spanner" in parents:
+        old = parents["spanner"]
+        for name, st, reps in (("late", late, SUM_REPS), ("batch0", first, 3)):
+            cp_old, cp_new = sp_copy(st)(), sp_copy(st)()
+            old(cp_old[0], cp_old[1], st[2], st[3], None, 2, 128, "within_two")
+            sp_call("within_two", 2, st)(cp_new)
+            if tensor_err(cp_old, cp_new):
+                raise RuntimeError(f"(a) {name}: the parent's table differs from the current kernel's")
+            t = measured_in_turns(lambda fn: copies_device_ms(fn, sp_copy(st), reps, cpm)[0],
+                         lambda cp: old(cp[0], cp[1], st[2], st[3], None, 2, 128, "within_two"),
+                         sp_call("within_two", 2, st))
+            res["spanner"][f"turns_{name}"] = t
+            log(f"      in turns with c34004e, (a) {name}: {turns_text(t)}")
+        current = sp.spanner_admit
+
+        def parent_admit(nbrs_, deg_, s_, d_, mask_, k_, cap_, body_):
+            old(nbrs_, deg_, s_.contiguous(), d_.contiguous(), None if mask_ is None else mask_.contiguous(), k_,
+                cap_, body_)
+            return nbrs_, deg_
+
+        def path_ms(admit):
+            sp.spanner_admit = admit  # the library looks it up at each call
+            try:
+                return timed_run(lambda: spanner_run(src, dst))[1] * 1e3
+            finally:
+                sp.spanner_admit = current
+
+        t = measured_in_turns(path_ms, parent_admit, current)
+        res["spanner"]["turns_path"] = t
+        log(f"      in turns with c34004e, (a)'s path end to end (host clock): {turns_text(t)}")
+    split_a = {}
+    for name, st in (("late", late), ("batch0", first)):
+        rows = profiler_device_us(lambda: sp_call("within_two", 2, st)(sp_copy(st)()), 3)
+        split_a[name] = {k_: round(us, 2) for k_, (us, _calls) in rows.items()
+                         if any(kn in k_ for kn in ("prepass_kernel", "walk_kernel"))}
+        split_a[name] = {("prepass_kernel" if "prepass_kernel" in k_ else "walk_kernel"): v
+                         for k_, v in split_a[name].items()}
+    res["spanner"]["split_us"] = split_a
+    log(f"      by kernel (profiler, us): {split_a or 'not measured (no rows)'}")
 
     # (b) k = 3 at C = 4096: every body, the same table
     rng = np.random.default_rng(0)
@@ -5295,13 +5463,89 @@ def phase_summaries(dev, cpm) -> dict:
     if err_b:
         raise RuntimeError(f"(b): the bodies' k=3 spanners differ (max abs err {err_b})")
     runs["spanner_edges"] = int((tables["auto"][0] >= 0).sum()) // 2
-    runs["auto_body"] = lsp.auto_body(SUM_SP3_VERTICES, SUM_SP_DEGREE, 3)
+    runs["auto_body"] = body3 = lsp.auto_body(SUM_SP3_VERTICES, SUM_SP_DEGREE, 3)
     res["spanner_k3"] = runs
     rates = ", ".join(f"{b} {runs[b]['edges_per_s']:.6g}" for b in ("auto", "balls", "bfs"))
     log(f"  (b) Spanner k=3 over {SUM_SP3_EDGES} edges (C {SUM_SP3_VERTICES}, D {SUM_SP_DEGREE}): auto "
-        f"(= {runs['auto_body']}) {runs['auto']['s']:.3f} s, balls {runs['balls']['s']:.3f} s, bfs "
-        f"{runs['bfs']['s']:.3f} s ({rates} edges/s); candidates {runs['auto']['candidates']}, admitted {runs['auto']['admitted']}; the three tables "
-        f"equal ({runs['spanner_edges']} edges)")
+        f"(= {body3}) {runs['auto']['s']:.3f} s, balls {runs['balls']['s']:.3f} s, bfs {runs['bfs']['s']:.3f} s "
+        f"({rates} edges/s; the three {sum(runs[b]['s'] for b in ('auto', 'balls', 'bfs')):.3f} s); capped "
+        f"candidates {runs['auto']['candidates']}, survivors of the exact pre-pass {runs['auto']['survivors']} "
+        f"({runs['auto']['candidates'] / max(runs['auto']['survivors'], 1):.2f}x fewer walked), admitted "
+        f"{runs['auto']['admitted']}; the three tables equal ({runs['spanner_edges']} edges)")
+    # every batch of the auto run against the plain model: the capped test and the exact pre-pass on the card
+    # (vectorized over the batch), the walk over the survivors on the host
+    b3 = [to_dev((src3[i:i + SUM_SP_BATCH], dst3[i:i + SUM_SP_BATCH]), dev)
+          for i in range(0, SUM_SP3_EDGES, SUM_SP_BATCH)]
+    nb, db = adjacency.init_table(SUM_SP3_VERTICES, SUM_SP_DEGREE, dev)
+    nm, dm = nb.cpu(), db.cpu()
+    model_s, b_counts = 0.0, []
+    for i, (s_t, d_t) in enumerate(b3):
+        t0 = time.perf_counter()
+        cand_m = ~sp.prefilter_plain(nb, s_t, d_t, 3, 128)
+        surv_m = sp.exact_prepass_plain(nb, s_t, d_t, cand_m, 3, body3)
+        want = (int(cand_m.sum()), int(surv_m.sum()))
+        sp.walk_plain(nm, dm, s_t.cpu(), d_t.cpu(), surv_m.cpu(), 3, body3)
+        model_s += time.perf_counter() - t0
+        st0 = sp.stats(dev)
+        sp.spanner_admit(nb, db, s_t, d_t, None, 3, 128, body3)
+        st1 = sp.stats(dev)
+        got = (st1["candidates"] - st0["candidates"], st1["survivors"] - st0["survivors"])
+        if got != want or tensor_err((nb.cpu(), db.cpu()), (nm, dm)):
+            raise RuntimeError(f"(b) batch {i}: the kernel's candidates and survivors {got} or its table differ "
+                               f"from the plain model's {want}")
+        b_counts.append(got)
+    if tensor_err((nb, db), tables["auto"]):
+        raise RuntimeError("(b): the batch loop's table differs from the main path's")
+
+    halves_ms = {}
+
+    def replay(admit, body):
+        """(device ms by events, table) of (b)'s whole run as C calls, one a batch, from the empty table; the
+        first half's ms (2^18 edges, the smoke's earlier cut) into ``halves_ms``."""
+        n_, d_ = adjacency.init_table(SUM_SP3_VERTICES, SUM_SP_DEGREE, dev)
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(b3) + 1)]
+        marks[0].record()
+        for i, (s_t, d_t) in enumerate(b3):
+            admit(n_, d_, s_t, d_t, None, 3, 128, body)
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        halves_ms[admit, body] = marks[0].elapsed_time(marks[len(b3) // 2])
+        halves_ms[admit, body, "batches"] = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return marks[0].elapsed_time(marks[-1]), (n_, d_)
+
+    for body in (body3, "bfs"):
+        ms3, table3 = replay(sp.spanner_admit, body)
+        if tensor_err(table3, tables["auto"]):
+            raise RuntimeError(f"(b) {body}: the replay's table differs from the main path's")
+        surv3 = runs["auto"]["survivors"]
+        runs[f"{body}_device_ms"] = ms3
+        runs[f"{body}_first_half_ms"] = halves_ms[sp.spanner_admit, body]
+        runs[f"{body}_us_a_survivor"] = ms3 * 1e3 / max(surv3, 1)
+        per = halves_ms[sp.spanner_admit, body, "batches"]
+        runs[f"{body}_batch_ms"] = per
+        rows = profiler_device_us(lambda: replay(sp.spanner_admit, body), 1)
+        split = {kn: round(us * calls / 1e3, 3) for k_, (us, calls) in rows.items()
+                 for kn in ("prepass_kernel", "walk_kernel") if kn in k_}
+        runs[f"{body}_split_ms"] = split
+        line = (f"      (b) {body}, the run's C calls alone: device {ms3:.3f} ms (events; the first "
+                f"{SUM_SP3_EDGES // 2} edges {halves_ms[sp.spanner_admit, body]:.3f} ms), "
+                f"{ms3 * 1e3 / max(surv3, 1):.3f} us a survivor; batch 0 {per[0]:.3f} ms "
+                f"({per[0] * 1e3 / max(b_counts[0][1], 1):.3f} us a survivor), the last batch {per[-1]:.3f} ms "
+                f"({per[-1] * 1e3 / max(b_counts[-1][1], 1):.3f} us a survivor); by kernel over the run "
+                f"(profiler, ms) {split or 'not measured (no rows)'}")
+        if "spanner" in parents:
+            if tensor_err(replay(parents["spanner"], body)[1], tables["auto"]):
+                raise RuntimeError(f"(b) {body}: the parent's table differs from the current kernel's")
+            t = measured_in_turns(lambda fn: replay(fn, body)[0], parents["spanner"], sp.spanner_admit)
+            t["parent_first_half_ms"] = halves_ms[parents["spanner"], body]
+            runs[f"turns_{body}"] = t
+            line += (f"; in turns with c34004e: {turns_text(t)}; the parent's first {SUM_SP3_EDGES // 2} edges "
+                     f"{t['parent_first_half_ms']:.3f} ms")
+        log(line)
+    runs["per_batch"] = b_counts
+    log(f"      (candidates, survivors) a batch {b_counts}, each equal to the plain model's and every batch's table "
+        f"to the model's walk ({model_s:.1f} s: the pre-pass on the card, the walk on the host)")
 
     # (c) combine: (a)'s two halves' spanners, on the card and through the twin
     half = SUM_SP_EDGES // 2
@@ -5322,8 +5566,8 @@ def phase_summaries(dev, cpm) -> dict:
     res["combine"] = {"s": comb_s, "twin_s": twin_comb_s, "err": err_c, **comb_stats,
                       "spanner_edges": int((combined.nbrs >= 0).sum()) // 2}
     log(f"  (c) combine of (a)'s halves' spanners ({[int((g.nbrs >= 0).sum()) // 2 for g in halves]} edges): "
-        f"{comb_s * 1e3:.2f} ms on the card ({comb_stats['candidates']} candidates of "
-        f"{SUM_SP_VERTICES * SUM_SP_DEGREE} slots), twin {twin_comb_s:.2f} s, equal "
+        f"{comb_s * 1e3:.2f} ms on the card ({comb_stats['candidates']} candidates, {comb_stats['survivors']} "
+        f"survivors of {SUM_SP_VERTICES * SUM_SP_DEGREE} slots), twin {twin_comb_s:.2f} s, equal "
         f"({res['combine']['spanner_edges']} edges)")
 
     # (d) the greedy matching: `measurements matching` defaults, then a MovieLens-100K-shaped stream
@@ -5404,12 +5648,27 @@ def phase_summaries(dev, cpm) -> dict:
     n_launch = sto.LAUNCHES["sampler_scan"]
     if n_launch != SUM_TRI_EDGES // SUM_TRI_BATCH or sto.TWIN_CALLS["sampler_scan"]:
         raise RuntimeError(f"(e): sampler_scan was not the main path's one C call a batch: {n_launch}")
+    # the run loop by hand: was batch k + 1's chain done while the card still ran batch k?
+    state = lst.init_samplers(cfg_t, SUM_TRI_SAMPLERS, device=dev)
+    chain = sto.KeyChain(threefry.seed(0xDEADBEEF), dev)
+    ready, ahead_ms = 0, []
+    for batch in t_stream.batches():
+        sto.sampler_scan(state, batch.src, batch.dst, batch.mask, chain)
+        done = torch.cuda.Event()
+        done.record()
+        t0 = time.perf_counter()
+        chain.ahead(SUM_TRI_BATCH)
+        ahead_ms.append((time.perf_counter() - t0) * 1e3)
+        ready += not done.query()
+        lst.estimate(state)
     state = lst.init_samplers(cfg_t, SUM_TRI_SAMPLERS, device=dev)
     twin = sto.clone_state(state)
+    chain = sto.KeyChain(threefry.seed(0xDEADBEEF), dev)
     err_t, twin_t, t_states, busy_t = 0.0, 0.0, [], 0.0
     for i, batch in enumerate(t_stream.batches()):
-        t_states.append((sto.clone_state(state), batch))
-        busy_t += held_ms(lambda: sto.sampler_scan(state, batch.src, batch.dst, batch.mask), cpm)
+        keys = chain.take(batch.src.shape[0]).clone()
+        t_states.append((sto.clone_state(state), batch, keys))
+        busy_t += held_ms(lambda: sto.scan_launch(state, batch.src, batch.dst, batch.mask, keys), cpm)
         t0 = time.perf_counter()
         sto.sampler_scan_plain(twin, batch.src, batch.dst, batch.mask)
         torch.cuda.synchronize()
@@ -5421,38 +5680,78 @@ def phase_summaries(dev, cpm) -> dict:
     if err_t or tensor_err(tuple(tri_algo.final_state), tuple(state)):
         raise RuntimeError(f"(e): the samplers differ from their twin on the card (max abs err {err_t}) or the main "
                            "path's final state from the batch loop's")
-    before, lb = t_states[-1]
+    before, lb, lkeys = t_states[-1]
     n = lb.src.shape[0]
     # the coins this batch needs: each lane's from the batch's end back to its last replacement
     last = sto.coin_walk(before, lb.mask)[3]
     coins = int((n - last.clamp_min(0)).sum())
-    bytes_t = n * 9 + 2 * (8 + SUM_TRI_SAMPLERS * 14 + ET_VERTICES + 4)
+    bytes_t = n * 9 + (n + 1) * 8 + 2 * (8 + SUM_TRI_SAMPLERS * 14 + ET_VERTICES + 4)
     bound_bytes, bound_ops = bytes_t / HBM_BYTES_PER_S * 1e3, coins * THREEFRY_OPS / F32_OPS_PER_S * 1e3
-    t_t = kernel_timing(cpm, lambda cp: sto.sampler_scan(cp, lb.src, lb.dst, lb.mask), lambda: sto.clone_state(before),
+    t_t = kernel_timing(cpm, lambda cp: sto.scan_launch(cp, lb.src, lb.dst, lb.mask, lkeys),
+                        lambda: sto.clone_state(before),
                         lambda cp: sto.sampler_scan_plain(cp, lb.src, lb.dst, lb.mask), max(bound_bytes, bound_ops))
-    split = profiler_device_us(lambda: sto.sampler_scan(sto.clone_state(before), lb.src, lb.dst, lb.mask), 3)
+    split = profiler_device_us(lambda: sto.scan_launch(sto.clone_state(before), lb.src, lb.dst, lb.mask, lkeys), 3)
     split = {re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0].split("::")[-1]:
              round(us, 2) for key, (us, _calls) in split.items() if "kernel" in key}
-    # the key chain alone, near enough: the same call with one lane
-    one = lst.init_samplers(cfg_t, 1, device=dev)
-    one_ms, _ = copies_device_ms(lambda cp: sto.sampler_scan(cp, lb.src, lb.dst, lb.mask),
-                                 lambda: sto.clone_state(one), SUM_REPS, cpm)
+    # the op's host cost a call with the chain computed ahead (the copy and the launch), and the chain alone
+    op_us = []
+    for _ in range(SUM_REPS):
+        cp = sto.clone_state(before)
+        ch = sto.KeyChain(threefry.key_ints(before.key), dev)
+        ch.ahead(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sto.sampler_scan(cp, lb.src, lb.dst, lb.mask, ch)
+        op_us.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    host_keys = torch.empty((n + 1, 2), dtype=torch.int32)
+    chain_ns = []
+    for _ in range(SUM_REPS):
+        t0 = time.perf_counter()
+        sto.host_chain(threefry.key_ints(before.key), n, host_keys)
+        chain_ns.append((time.perf_counter() - t0) * 1e9 / n)
+    if not torch.equal(host_keys, lkeys.cpu()):
+        raise RuntimeError("(e): the host chain differs from the keys the batch loop handed over")
+    model = cpu_model()
     idle_t = 100 * (1 - busy_t / (secs_t * 1e3))
     res["sampler"] = {**t_t, "launches": n_launch, "err": err_t, "edges": SUM_TRI_EDGES, "s": secs_t,
                       "edges_per_s": SUM_TRI_EDGES / secs_t, "estimate": estimates[-1][0], "twin_s": twin_t,
                       "bound_by": "operations" if bound_ops >= bound_bytes else "bytes", "coins": coins,
-                      "serial_steps": n, "split_us": split, "one_lane_device_ms": one_ms, "idle_pct": idle_t,
-                      "busy_ms": busy_t}
+                      "serial_steps": 0, "split_us": split, "idle_pct": idle_t, "busy_ms": busy_t,
+                      "op_host_us": min(op_us), "host_chain_ns_a_hash": min(chain_ns), "host_cpu": model,
+                      "chain_ahead_ms": ahead_ms, "keys_ready_while_card_busy": ready,
+                      "batches": len(ahead_ms)}
     log(f"  (e) BroadcastTriangleCount({SUM_TRI_SAMPLERS}) over the first {SUM_TRI_EDGES} edges of phase 15 (a)'s "
         f"Watts-Strogatz stream (C {ET_VERTICES}, batches of {SUM_TRI_BATCH}): {secs_t:.4f} s end to end, "
         f"{SUM_TRI_EDGES / secs_t:.6g} edges/s, estimate {estimates[-1][0]:.6g}; launches {n_launch}; every batch's "
         f"state (key included) and estimate equal to the twin on the card (twin {twin_t:.2f} s); the last batch: "
-        f"device {t_t['device_ms']:.4f} ms held, events {t_t['ms']:.4f} ms, host enqueue {t_t['host_us']:.2f} us, "
-        f"twin {t_t['plain_ms']:.1f} ms; by kernel (profiler, us) {split or 'not measured (no rows)'}; the same "
-        f"call with one lane (the key chain, near enough) {one_ms:.4f} ms held; bound {t_t['bound_ms']:.6f} ms "
-        f"({res['sampler']['bound_by']}: {coins} coins x {THREEFRY_OPS} ops at {F32_OPS_PER_S:.3g}/s; bytes "
-        f"{bound_bytes:.6f} ms; the key chain {n} dependent hashes), {t_t['ratio']:.1f}x; the calls {busy_t:.4f} ms "
+        f"device {t_t['device_ms']:.4f} ms held, events {t_t['ms']:.4f} ms, host enqueue {t_t['host_us']:.2f} us "
+        f"(the launch), {min(op_us):.2f} us the op with its keys computed ahead (copy and launch), twin "
+        f"{t_t['plain_ms']:.1f} ms; by kernel (profiler, us) {split or 'not measured (no rows)'}; bound "
+        f"{t_t['bound_ms']:.6f} ms ({res['sampler']['bound_by']}: {coins} coins x {THREEFRY_OPS} ops at "
+        f"{F32_OPS_PER_S:.3g}/s; bytes {bound_bytes:.6f} ms), {t_t['ratio']:.1f}x; the calls {busy_t:.4f} ms "
         f"of device time (each held) against the run's {secs_t * 1e3:.1f} ms: idle {idle_t:.2f}%")
+    log(f"      the host chain: {min(chain_ns):.2f} ns a hash ({n} hashes, best of {SUM_REPS}; {model}); in the run "
+        f"loop batch k + 1's keys took {min(ahead_ms):.3f}-{max(ahead_ms):.3f} ms and were ready while the card "
+        f"still ran batch k in {ready} of {len(ahead_ms)} batches")
+    if "sampler" in parents:
+        old = parents["sampler"]
+        cp_old, cp_new = sto.clone_state(t_states[0][0]), sto.clone_state(t_states[0][0])
+        b0 = t_states[0][1]
+        old(cp_old, b0.src, b0.dst, b0.mask)
+        sto.scan_launch(cp_new, b0.src, b0.dst, b0.mask, t_states[0][2])
+        if tensor_err(tuple(cp_old), tuple(cp_new)):
+            raise RuntimeError("(e): the parent's sampler state differs from the current kernel's")
+
+        def batches_ms(fn):
+            return sum(copies_device_ms(lambda cp, st=st: fn(cp, st), lambda st=st: sto.clone_state(st[0]), 1,
+                                        cpm)[0] for st in t_states)
+
+        t = measured_in_turns(batches_ms, lambda cp, st: old(cp, st[1].src, st[1].dst, st[1].mask),
+                     lambda cp, st: sto.scan_launch(cp, st[1].src, st[1].dst, st[1].mask, st[2]))
+        res["sampler"]["turns_batches"] = t
+        log(f"      in turns with c34004e, (e)'s {len(t_states)} batches, device ms summed (each call held): "
+            f"{turns_text(t)}")
     return res
 
 
@@ -5488,7 +5787,15 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-kcore-cu", default=None,
                         help="kcore.cu of the commit before the one-launch fixed point (a48e429; its C interface): "
                              "its per-bucket round and pane_cores timed in turns with the current on phase 16 (c)")
+    parser.add_argument("--parent-spanner-cu", default=None,
+                        help="spanner.cu of the commit before the exact pre-pass (c34004e; its C interface): its "
+                             "admission timed in turns with the current one on phase 17 (a) and (b)")
+    parser.add_argument("--parent-sampler-cu", default=None,
+                        help="sampled_triangles.cu of the commit before the host key chain (c34004e; its C "
+                             "interface): its scan timed in turns with the current one on phase 17 (e)'s batches")
     args = parser.parse_args(argv)
+    parent_sum_cu = {k: os.path.abspath(path) for k, path in (("spanner", args.parent_spanner_cu),
+                                                               ("sampler", args.parent_sampler_cu)) if path}
     parent_spmv_cu = {k: os.path.abspath(path) for k, path in (("spmv", args.parent_spmv_cu),
                                                                 ("kcore", args.parent_kcore_cu)) if path}
     parent_csr_cu = os.path.abspath(args.parent_csr_cu) if args.parent_csr_cu else None
@@ -5535,7 +5842,8 @@ def main(argv=None) -> int:
     rank_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), RANK_SPLIT, "spmv_rank")
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
-               *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), probe_source()]
+               *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), *parent_sum_cu.values(),
+               probe_source()]
     split_failed = []
 
     def build_split():  # beside the main build; a variant that does not build is skipped
@@ -5798,7 +6106,9 @@ def main(argv=None) -> int:
                     {} if split_failed else {part: variant_pagerank(load_baseline(path, rank_sig))
                                              for part, path in rank_split_cu.items()})
     log("phase 17: the spanner, the weighted matching and the sampled triangle estimators on the card")
-    sm = phase_summaries(dev, cpm)
+    wrap = {"spanner": parent_spanner_call, "sampler": parent_sampler_call}
+    sm = phase_summaries(dev, cpm, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
+                                    for k, path in parent_sum_cu.items()})
 
     kernels = [
         {
@@ -5980,8 +6290,10 @@ def main(argv=None) -> int:
         {**entry("spanner_admit", "spanner.cu", "gelly_streaming_tpu/library/spanner.py:90", spn),
          "also_replaces": "gelly_streaming_tpu/library/spanner.py:63 (_within_k_prefilter)", "library_call": no_call,
          "timed": "(a)'s last batch, each call on its own copy of the table before it",
-         **{k: spn[k] for k in ("edges_per_s", "ratio", "candidates", "first_batch_device_ms", "stats", "spanner_edges",
-                                "idle_pct", "busy_ms")},
+         **{k: spn[k] for k in ("edges_per_s", "ratio", "candidates", "survivors", "us_a_survivor",
+                                "first_batch_device_ms", "first_batch_survivors", "first_batch_us_a_survivor",
+                                "per_batch", "split_us", "stats", "spanner_edges", "idle_pct", "busy_ms",
+                                "turns_late", "turns_batch0", "turns_path") if k in spn},
          "k3": sm["spanner_k3"], "combine": sm["combine"]},
         {**entry("matching_scan", "matching.cu", "gelly_streaming_tpu/library/matching.py:38", mt),
          "library_call": no_call, "timed": "(d)'s last uniform batch, each call on its own copy of the state",
@@ -5989,9 +6301,11 @@ def main(argv=None) -> int:
          "movielens": sm["matching"]["movielens"]},
         {**entry("sampler_scan", "sampled_triangles.cu", "gelly_streaming_tpu/library/sampled_triangles.py:56", smp),
          "bound_by": smp["bound_by"], "library_call": no_call,
-         "timed": "(e)'s last batch, each call on its own copy of the state",
-         **{k: smp[k] for k in ("edges_per_s", "ratio", "estimate", "coins", "serial_steps", "split_us",
-                                "one_lane_device_ms", "twin_s", "idle_pct", "busy_ms")}},
+         "timed": "(e)'s last batch, each call on its own copy of the state, its keys on the card already",
+         "also_source": "gelly_streaming_tpu_torch/csrc/threefry_chain.c (the key chain, on the host)",
+         **{k: smp[k] for k in ("edges_per_s", "ratio", "estimate", "coins", "split_us", "twin_s", "idle_pct",
+                                "busy_ms", "op_host_us", "host_chain_ns_a_hash", "host_cpu", "chain_ahead_ms",
+                                "keys_ready_while_card_busy", "batches", "turns_batches") if k in smp}},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,28 +12,33 @@
 // threefry2x32 as `jax.random` computes it (JAX 0.9, partitionable), so the
 // bits are the JAX package's.
 //
-// Given the step keys, each lane evolves on its own, and only its last
-// replacement in the batch matters: the edge, third vertex and flags it
-// leaves are those of its last coin that fell, and the flags then gather the
-// closing edges from that step on.  So the call is six kernels:
-//  1. key_chain_kernel, one thread: the B dependent hashes of the key chain
-//     (the key before each step), the valid-edge counts i, the new key and
-//     edges_seen.  Serial by nature: ~B x 0.1-0.2 us.
-//  2. step_keys_kernel, a thread a step: the coin key, randint's two keys
-//     and the f32 threshold 1 / max(i, 1) (IEEE division; this file must not
-//     be built with --use_fast_math).
-//  3. coin_kernel, a thread a (lane, tile of 256 steps): the tile's last
+// Key t of a stream depends on the seed and t alone (the key is split at
+// every step, masked rows included), so the chain of B dependent hashes is
+// computed on a host core ahead of the batch (csrc/threefry_chain.c) and
+// comes in as the call's `keys`: the key before each step, then the key
+// after the batch.  Given the step keys, each lane evolves on its own, and
+// only its last replacement in the batch matters: the edge, third vertex
+// and flags it leaves are those of its last coin that fell, and the flags
+// then gather the closing edges from that step on.  So the call is seven
+// kernels:
+//  1. step_keys_kernel, a thread a step: the coin key and randint's two
+//     keys, and each tile of 256 steps' valid rows.
+//  2. tile_scan_kernel, one block: the valid rows before each tile (a block
+//     scan of the tiles' counts), the state's new edges_seen and key.
+//  3. thresholds_kernel, a thread a step: i, the valid edges so far (a
+//     ballot scan within the tile), and the f32 threshold 1 / max(i, 1)
+//     (IEEE division; this file must not be built with --use_fast_math).
+//  4. coin_kernel, a thread a (lane, tile of 256 steps): the tile's last
 //     step whose coin fell, walking back from its end (the tile's keys and
 //     thresholds staged in shared memory).  S x B hashes: the bulk of the
 //     work, spread over the card.
-//  4. finish_kernel, a thread a lane: its last replacement over the tiles;
+//  5. finish_kernel, a thread a lane: its last replacement over the tiles;
 //     there, the new edge, the randint third vertex and cleared flags.
-//  5. hits_kernel, a thread a (lane, tile): the closing edges from that step
+//  6. hits_kernel, a thread a (lane, tile): the closing edges from that step
 //     on (the tile's edges staged in shared memory).
-//  6. seen_kernel, a thread an edge: the endpoints' presence.
-// What bounds it: the key chain's serial hashes, then the coins' S x B
-// hashes (~80 integer operations each); the bytes are small (the batch and
-// the lanes' state).
+//  7. seen_kernel, a thread an edge: the endpoints' presence.
+// What bounds it: the coins' S x B hashes (~80 integer operations each);
+// the bytes are small (the batch, its keys and the lanes' state).
 //
 // Ids: the sampled edge and the closing tests use the raw ids; `seen`
 // follows JAX's scatter rule (a negative id counts from the end once, an id
@@ -46,6 +51,7 @@ namespace {
 
 constexpr int TILE = 256;   // steps a coin / hits block walks
 constexpr int LANES = 128;  // lanes a coin / hits block holds
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint2 threefry(uint2 key, unsigned x0, unsigned x1) {
     const unsigned k0 = key.x, k1 = key.y, k2 = key.x ^ key.y ^ 0x1BD11BDAu;
@@ -83,32 +89,87 @@ __device__ __forceinline__ float bits_to_uniform(unsigned bits) {
     return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }
 
-__global__ void key_chain_kernel(unsigned* key, int* edges_seen, const bool* __restrict__ mask, int n,
-                                 uint2* __restrict__ keys, int* __restrict__ counts) {
-    uint2 k = make_uint2(key[0], key[1]);
-    unsigned count = (unsigned)edges_seen[0];
-    for (int b = 0; b < n; ++b) {
-        keys[b] = k;
-        count += (mask == nullptr || mask[b]) ? 1u : 0u;
-        counts[b] = (int)count;
-        k = threefry(k, 0u, 0u);
-    }
-    key[0] = k.x;
-    key[1] = k.y;
-    edges_seen[0] = (int)count;
-}
+constexpr int SCAN_THREADS = 1024;
 
-__global__ void step_keys_kernel(const uint2* __restrict__ keys, const int* __restrict__ counts, int n,
-                                 uint2* __restrict__ coin_keys, uint2* __restrict__ rand_keys,
-                                 float* __restrict__ thresholds) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// a thread a step, a block a tile of TILE steps: the coin key and randint's
+// two keys of the step, and the tile's valid rows
+__global__ void __launch_bounds__(TILE)
+step_keys_kernel(const uint2* __restrict__ keys, const bool* __restrict__ mask, int n, uint2* __restrict__ coin_keys,
+                 uint2* __restrict__ rand_keys, unsigned* __restrict__ tile_counts) {
+    const int b = blockIdx.x * TILE + threadIdx.x;
+    const bool ok = b < n && (mask == nullptr || mask[b]);
+    const int count = __syncthreads_count(ok);
+    if (threadIdx.x == 0) tile_counts[blockIdx.x] = (unsigned)count;
     if (b >= n) return;
     const uint2 k = keys[b];
     coin_keys[b] = threefry(k, 0u, 1u);
     const uint2 third = threefry(k, 0u, 2u);
     rand_keys[2 * b] = threefry(third, 0u, 0u);      // randint's higher bits
     rand_keys[2 * b + 1] = threefry(third, 0u, 1u);  // and its lower bits
-    const int i = counts[b];
+}
+
+// one block: each tile's valid rows before it (edges_seen included), the
+// state's new edges_seen (wrapping as int32) and its new key
+__global__ void __launch_bounds__(SCAN_THREADS)
+tile_scan_kernel(unsigned* __restrict__ tile_counts, int tiles, int n, const uint2* __restrict__ keys, unsigned* key,
+                 int* edges_seen) {
+    __shared__ unsigned warp_sums[SCAN_THREADS / 32];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int per = (tiles + SCAN_THREADS - 1) / SCAN_THREADS;
+    const int lo = min(tiles, tid * per), hi = min(tiles, lo + per);
+    unsigned mine = 0;
+    for (int t = lo; t < hi; ++t) mine += tile_counts[t];
+    unsigned incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const unsigned x = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += x;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const unsigned w = warp_sums[lane];
+        unsigned wi = w;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const unsigned x = __shfl_up_sync(FULL, wi, o);
+            if (lane >= o) wi += x;
+        }
+        warp_sums[lane] = wi - w;
+    }
+    __syncthreads();
+    unsigned base = (unsigned)edges_seen[0] + warp_sums[warp] + incl - mine;
+    for (int t = lo; t < hi; ++t) {
+        const unsigned c = tile_counts[t];
+        tile_counts[t] = base;  // now the tile's valid rows before it
+        base += c;
+    }
+    __syncthreads();  // every thread has read edges_seen
+    if (tid == SCAN_THREADS - 1) {
+        edges_seen[0] = (int)base;  // the last segment ends at the last tile (empty segments too)
+        const uint2 k = keys[n];
+        key[0] = k.x;
+        key[1] = k.y;
+    }
+}
+
+// a thread a step, a block a tile: i, the valid rows so far, and the f32
+// threshold 1 / max(i, 1) (IEEE division; this file must not be built with
+// --use_fast_math)
+__global__ void __launch_bounds__(TILE)
+thresholds_kernel(const bool* __restrict__ mask, int n, const unsigned* __restrict__ tile_base,
+                  float* __restrict__ thresholds) {
+    __shared__ unsigned warp_sums[TILE / 32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int b = blockIdx.x * TILE + threadIdx.x;
+    const unsigned ok = b < n && (mask == nullptr || mask[b]) ? 1u : 0u;
+    const unsigned bal = __ballot_sync(FULL, ok);
+    if (lane == 0) warp_sums[warp] = __popc(bal);
+    __syncthreads();
+    unsigned count = tile_base[blockIdx.x] + __popc(bal & (0xffffffffu >> (31 - lane)));
+    for (int w = 0; w < warp; ++w) count += warp_sums[w];
+    if (b >= n) return;
+    const int i = (int)count;
     thresholds[b] = __fdiv_rn(1.0f, __int2float_rn(i > 1 ? i : 1));
 }
 
@@ -210,7 +271,7 @@ __global__ void seen_kernel(const int* __restrict__ src, const int* __restrict__
 }
 
 struct Layout {
-    long long keys, counts, coin_keys, rand_keys, thresholds, last, start, bytes;
+    long long coin_keys, rand_keys, thresholds, tile_counts, last, start, bytes;
     int tiles;
 };
 
@@ -220,16 +281,14 @@ Layout layout(int n, int s_lanes) {
     Layout l{};
     l.tiles = (n + TILE - 1) / TILE;
     long long o = 0;
-    l.keys = o;
-    o = align(o + 8ll * n);
-    l.counts = o;
-    o = align(o + 4ll * n);
     l.coin_keys = o;
     o = align(o + 8ll * n);
     l.rand_keys = o;
     o = align(o + 16ll * n);
     l.thresholds = o;
     o = align(o + 4ll * n);
+    l.tile_counts = o;
+    o = align(o + 4ll * l.tiles);
     l.last = o;
     o = align(o + 4ll * l.tiles * s_lanes);
     l.start = o;
@@ -250,25 +309,28 @@ long long sampler_scratch_bytes(int n, int s_lanes) {
 
 // key uint32[2], edge int32[S, 2], third int32[S], closed_a, closed_b bool[S],
 // edges_seen int32[1], seen bool[C] (all updated in place), S, C, src, dst
-// int32[n], mask bool[n] or null, n, scratch of sampler_scratch_bytes,
-// stream: the key chain, step keys, coin, finish, hits and seen kernels
+// int32[n], mask bool[n] or null, n, keys uint32[n + 1, 2] (the key before
+// each step, then after the batch: csrc/threefry_chain.c's), scratch of
+// sampler_scratch_bytes, stream: the step keys, tile scan, thresholds,
+// coin, finish, hits and seen kernels
 int sampler_scan_launch(unsigned* key, int* edge, int* third, bool* closed_a, bool* closed_b, int* edges_seen,
                         bool* seen, int s_lanes, int capacity, const int* src, const int* dst, const bool* mask,
-                        int n, void* scratch, long long scratch_bytes, cudaStream_t stream) {
+                        int n, const unsigned* keys, void* scratch, long long scratch_bytes, cudaStream_t stream) {
     if (s_lanes < 1 || capacity < 1 || n < 0) return (int)cudaErrorInvalidValue;
     const Layout l = layout(n, s_lanes);
     if (scratch_bytes < l.bytes || l.tiles > 65535) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
     char* base = static_cast<char*>(scratch);
-    uint2* keys = reinterpret_cast<uint2*>(base + l.keys);
-    int* counts = reinterpret_cast<int*>(base + l.counts);
+    const uint2* step = reinterpret_cast<const uint2*>(keys);
     uint2* coin_keys = reinterpret_cast<uint2*>(base + l.coin_keys);
     uint2* rand_keys = reinterpret_cast<uint2*>(base + l.rand_keys);
     float* thresholds = reinterpret_cast<float*>(base + l.thresholds);
+    unsigned* tile_counts = reinterpret_cast<unsigned*>(base + l.tile_counts);
     int* last = reinterpret_cast<int*>(base + l.last);
     int* start = reinterpret_cast<int*>(base + l.start);
-    key_chain_kernel<<<1, 1, 0, stream>>>(key, edges_seen, mask, n, keys, counts);
-    step_keys_kernel<<<(n + 255) / 256, 256, 0, stream>>>(keys, counts, n, coin_keys, rand_keys, thresholds);
+    step_keys_kernel<<<l.tiles, TILE, 0, stream>>>(step, mask, n, coin_keys, rand_keys, tile_counts);
+    tile_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(tile_counts, l.tiles, n, step, key, edges_seen);
+    thresholds_kernel<<<l.tiles, TILE, 0, stream>>>(mask, n, tile_counts, thresholds);
     const dim3 grid((s_lanes + LANES - 1) / LANES, l.tiles);
     coin_kernel<<<grid, LANES, 0, stream>>>(coin_keys, thresholds, mask, n, s_lanes, last);
     finish_kernel<<<(s_lanes + 127) / 128, 128, 0, stream>>>(last, l.tiles, s_lanes, rand_keys, src, dst, capacity,

@@ -13,7 +13,8 @@ is incident to.
 
 All samplers live in one vectorized state (tensors of shape [S]); a batch
 is one ``ops/sampled_triangles.sampler_scan`` call: on the GPU one C call
-(``csrc/sampled_triangles.cu``), on the CPU its twin.  Randomness is
+(``csrc/sampled_triangles.cu``) whose step keys the host computes ahead
+(``csrc/threefry_chain.c``), on the CPU its twin.  Randomness is
 ``jax.random``'s threefry2x32 with an explicit threaded key
 (``utils/threefry.py``; the reference seeds a JVM Random with 0xDEADBEEF,
 IncidenceSamplingTriangleCount.java:61), so a state carried over from the
@@ -55,9 +56,10 @@ def init_samplers(cfg: StreamConfig, num_samplers: int, seed: int = 0xDEADBEEF,
     )
 
 
-def sampler_update(state: SamplerState, src, dst, mask) -> SamplerState:
-    """Feed an edge micro-batch through every sampler, in place."""
-    return sampler_ops.sampler_scan(state, src, dst, mask)
+def sampler_update(state: SamplerState, src, dst, mask, chain=None) -> SamplerState:
+    """Feed an edge micro-batch through every sampler, in place (``chain``:
+    the stream's ``ops/sampled_triangles.KeyChain`` on CUDA, or None)."""
+    return sampler_ops.sampler_scan(state, src, dst, mask, chain)
 
 
 def estimate(state: SamplerState) -> float:
@@ -79,12 +81,19 @@ class _SampledTriangleCount:
         self.seed = seed
 
     def run(self, stream) -> OutputStream:
-        """Continuous estimates: one record (estimate,) after each micro-batch."""
+        """Continuous estimates: one record (estimate,) after each micro-batch.
+        On CUDA the key chain stays on the host, from the seed: after
+        enqueueing batch k the loop computes batch k + 1's keys while the
+        card runs, then ``estimate`` reads the state."""
 
         def records():
             state = init_samplers(stream.cfg, self.num_samplers, self.seed, stream.device)
+            dev = state.edge.device
+            chain = sampler_ops.KeyChain(threefry.seed(self.seed), dev) if dev.type == "cuda" else None
             for batch in stream.batches():
-                state = sampler_update(state, batch.src, batch.dst, batch.mask)
+                state = sampler_update(state, batch.src, batch.dst, batch.mask, chain)
+                if chain is not None:
+                    chain.ahead(stream.cfg.batch_size)
                 yield (estimate(state),)
             self.final_state = state
 

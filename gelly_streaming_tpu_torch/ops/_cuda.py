@@ -8,6 +8,10 @@ an edited source is rebuilt and a built one is reused.  Nothing is built
 when the module is imported: the first kernel call builds what it needs,
 and ``build_all`` builds every source at once, one ``nvcc`` process each,
 all started together.
+
+``csrc/*.c`` sources are host code: ``host_library`` compiles one with the
+host C compiler (``cc -O2``) into the same directory, at first use, and
+loads it with ctypes (whose foreign calls release the GIL).
 """
 
 from __future__ import annotations
@@ -191,11 +195,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # n, S: the scratch bytes of one call
         "sampler_scratch_bytes": [_I, _I],
         # key, edge, third, closed_a, closed_b, edges_seen, seen, S, C, src,
-        # dst, mask | None, n, scratch, scratch bytes, stream: the key chain,
-        # step keys, coin, finish, hits and seen kernels
-        "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _L, _P],
+        # dst, mask | None, n, keys uint32[n + 1, 2] (the host chain's),
+        # scratch, scratch bytes, stream: the step keys, tile scan,
+        # thresholds, coin, finish, hits and seen kernels
+        "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _L, _P],
     },
 }
+
+# host C sources (built by the host compiler): name -> (argtypes, restype)
+HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "threefry_chain.c": {
+        # k0, k1, n, keys uint32[n + 1, 2]: the key before each step, then after
+        "threefry_chain": ([ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, _P], None),
+    },
+}
+HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
 
 # entry points that return something other than a cudaError_t
 RESTYPES: Dict[str, type] = {
@@ -227,9 +241,9 @@ def _nvcc() -> str:
     return path
 
 
-def _target(source: str) -> Path:
+def _target(source: str, flags=NVCC_FLAGS) -> Path:
     h = hashlib.sha256((CSRC_DIR / source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -276,6 +290,33 @@ def library(source: str) -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = RESTYPES.get(name, ctypes.c_int)
+            _libs[source] = lib
+        return lib
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The loaded library of the host C source ``source`` (``csrc/*.c``),
+    compiled by ``cc`` on first use into the build directory (a temporary
+    file a process, then an atomic rename, so processes racing to build it
+    are safe), with its entry points declared."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            out = _target(source, HOST_CFLAGS)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+                cc = os.environ.get("CC") or shutil.which("cc") or "cc"
+                proc = subprocess.run([cc, *HOST_CFLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"cc failed for {source}:\n{proc.stdout}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(str(out))
+            for name, (argtypes, restype) in HOST_SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _libs[source] = lib
         return lib
 

@@ -11,19 +11,25 @@ coin is below 1 / max(i, 1) (f32), draws a ``randint`` third vertex in
 edge's first (second) endpoint with the third vertex sets ``closed_a``
 (``closed_b``).  The draws are ``jax.random``'s bits (``utils/threefry.py``).
 
-Given the step keys, each lane evolves alone and only its last
-replacement in the batch matters.  The twin computes it that way, with
-tensors: ``coin_walk`` (the key chain in Python ints, B dependent hashes;
-the coins of every (step, lane) in chunks of steps; each lane's last
+Key t of a stream depends on the seed and t alone, so the chain of B
+dependent hashes is host work: ``host_chain`` runs it in C on a host core
+(``csrc/threefry_chain.c``), and a ``KeyChain`` holds a stream's chain
+ahead of the card and hands each batch's keys over by one async copy out
+of a pinned double buffer.  Given the step keys, each lane evolves alone
+and only its last replacement in the batch matters.  The twin computes it
+that way, with tensors: ``coin_walk`` (the key chain in Python ints; the
+coins of every (step, lane) in chunks of steps; each lane's last
 replacement), then its randint there and the closing edges from that
-step on.  On CUDA tensors ``sampler_scan`` is one C call a batch (six
-kernels; see the source).  Both update the state's tensors in place and
-return it.
+step on.  On CUDA tensors ``sampler_scan`` is one C call a batch (seven
+kernels; see the source) fed by a ``KeyChain``: the caller's, which
+makes the call free of device-to-host reads, or one started from the
+state's key by an 8-byte read.  Both update the state's tensors in
+place and return it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +37,7 @@ from gelly_streaming_tpu_torch.ops import _cuda, indexing
 from gelly_streaming_tpu_torch.utils import threefry
 
 _SOURCE = "sampled_triangles.cu"
+_HOST_SOURCE = "threefry_chain.c"
 TWIN_ELEMENTS = 1 << 22  # (step, lane) pairs the twin's coins hold at once
 MAX_STEPS = 65535 * 256  # the kernel's grid: tiles of 256 steps on grid.y
 SCRATCH_CACHE = 8
@@ -162,15 +169,101 @@ def sampler_scan_plain(state: SamplerState, src, dst, mask) -> SamplerState:
     return state
 
 
-def sampler_scan(state: SamplerState, src: torch.Tensor, dst: torch.Tensor, mask) -> SamplerState:
-    """Feed an edge batch through every sampler (``mask`` None keeps every
-    row), in place; returns the state."""
-    _check(state, src, dst, mask)
-    if state.edge.device.type != "cuda":
-        TWIN_CALLS["sampler_scan"] += 1
-        return sampler_scan_plain(state, src, dst, mask)
+# ---------------------------------------------------------------------------
+# the key chain on the host
+
+
+def host_chain(key: Tuple[int, int], n: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The key before each of ``n`` steps from ``key``, then the key after
+    them: int32 [n + 1, 2] holding the uint32 words, computed by
+    ``csrc/threefry_chain.c`` on a host core into ``out`` (a contiguous
+    CPU int32 tensor of at least n + 1 rows) or a new tensor."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if out is None:
+        out = torch.empty((n + 1, 2), dtype=torch.int32)
+    elif out.device.type != "cpu" or out.dtype != torch.int32 or out.shape[0] < n + 1 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous CPU int32 tensor [>= n + 1, 2]")
+    _cuda.host_library(_HOST_SOURCE).threefry_chain(int(key[0]) & threefry.MASK, int(key[1]) & threefry.MASK, n,
+                                                   out.data_ptr())
+    return out[: n + 1]
+
+
+class KeyChain:
+    """The step keys of one sampler stream on a CUDA device, computed on
+    the host ahead of the card.
+
+    ``key`` is the key before the next step not handed out yet.
+    ``ahead(n)`` computes the next n steps' keys into the pinned buffer the
+    next ``take`` copies from; a shorter next batch takes a prefix of them
+    and a longer one continues the chain, exact either way, since key t
+    depends on t alone.  ``take(n)`` hands the next n steps' keys to the
+    card by one async copy on the current stream out of a pinned double
+    buffer (a buffer is refilled only after its last copy's event) and
+    returns the device tensor int32 [n + 1, 2] (the key after the n steps
+    last), valid until the next ``take``.  Nothing reads the device."""
+
+    def __init__(self, key: Tuple[int, int], device):
+        self.key = (int(key[0]) & threefry.MASK, int(key[1]) & threefry.MASK)
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError("a KeyChain feeds CUDA states; the twin draws its own keys")
+        self._host = [None, None]  # pinned int32 [rows, 2]
+        self._events = [None, None]
+        self._dev: Optional[torch.Tensor] = None
+        self._next = 0  # the buffer the next take copies from
+        self._ready = 0  # steps already in it, from self.key
+
+    def _buffer(self, rows: int) -> torch.Tensor:
+        i = self._next
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        buf = self._host[i]
+        if buf is None or buf.shape[0] < rows:
+            grown = torch.empty((rows, 2), dtype=torch.int32, pin_memory=True)
+            if self._ready:
+                grown[: self._ready + 1] = buf[: self._ready + 1]
+            self._host[i] = buf = grown
+        return buf
+
+    def ahead(self, n: int) -> None:
+        """Compute the next ``n`` steps' keys now (those not computed yet)."""
+        buf = self._buffer(n + 1)
+        if n > self._ready:
+            start = self.key if self._ready == 0 else tuple(int(x) for x in buf[self._ready].tolist())
+            host_chain(start, n - self._ready, buf[self._ready:])
+            self._ready = n
+
+    def take(self, n: int) -> torch.Tensor:
+        """The next ``n`` steps' keys on the card (see the class)."""
+        self.ahead(n)
+        buf = self._host[self._next]
+        if self._dev is None or self._dev.shape[0] < n + 1:
+            self._dev = torch.empty((max(n + 1, 1), 2), dtype=torch.int32, device=self.device)
+        dev = self._dev[: n + 1]
+        dev.copy_(buf[: n + 1], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._events[self._next] = event
+        self.key = tuple(int(x) & threefry.MASK for x in buf[n].tolist())
+        self._next ^= 1
+        self._ready = 0
+        return dev
+
+
+# ---------------------------------------------------------------------------
+# the CUDA call
+
+
+def scan_launch(state: SamplerState, src: torch.Tensor, dst: torch.Tensor, mask, keys: torch.Tensor) -> SamplerState:
+    """The C call over a batch whose step keys are already on the card
+    (``keys`` int32 [n + 1, 2]: the key before each step, then after; a
+    ``KeyChain.take``), in place; no device-to-host read."""
     dev = state.edge.device
     n, s_lanes = src.shape[0], state.edge.shape[0]
+    if keys.dtype != torch.int32 or keys.device != dev or tuple(keys.shape) != (n + 1, 2) or not keys.is_contiguous():
+        raise ValueError(f"keys must be a contiguous int32 [{n + 1}, 2] tensor on {dev}")
     lib = _cuda.library(_SOURCE)
     stream = torch.cuda.current_stream(dev)
     key = (dev, stream.cuda_stream, n, s_lanes)
@@ -186,8 +279,28 @@ def sampler_scan(state: SamplerState, src: torch.Tensor, dst: torch.Tensor, mask
         state.key.data_ptr(), state.edge.data_ptr(), state.third.data_ptr(), state.closed_a.data_ptr(),
         state.closed_b.data_ptr(), state.edges_seen.data_ptr(), state.seen.data_ptr(), s_lanes,
         state.seen.shape[0], src_c.data_ptr(), dst_c.data_ptr(), None if mask_c is None else mask_c.data_ptr(),
-        n, buf.data_ptr(), buf.numel(), stream.cuda_stream,
+        n, keys.data_ptr(), buf.data_ptr(), buf.numel(), stream.cuda_stream,
     )
     _cuda.check(err, "sampler_scan_launch")
     LAUNCHES["sampler_scan"] += 1
     return state
+
+
+def sampler_scan(state: SamplerState, src: torch.Tensor, dst: torch.Tensor, mask,
+                 chain: Optional[KeyChain] = None) -> SamplerState:
+    """Feed an edge batch through every sampler (``mask`` None keeps every
+    row), in place; returns the state.  On CUDA the step keys come from
+    ``chain``, whose ``key`` must be the state's (a run loop keeps one
+    from the seed), or, without one, from a chain started at the state's
+    key by one 8-byte read."""
+    _check(state, src, dst, mask)
+    if state.edge.device.type != "cuda":
+        if chain is not None:
+            raise ValueError("a KeyChain feeds CUDA states; the twin draws its own keys")
+        TWIN_CALLS["sampler_scan"] += 1
+        return sampler_scan_plain(state, src, dst, mask)
+    if chain is None:
+        chain = KeyChain(threefry.key_ints(state.key), state.edge.device)
+    elif chain.device != state.edge.device:
+        raise ValueError(f"the chain feeds {chain.device}, the state is on {state.edge.device}")
+    return scan_launch(state, src, dst, mask, chain.take(src.shape[0]))

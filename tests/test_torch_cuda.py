@@ -2061,6 +2061,62 @@ def test_spanner_on_the_card_matches_the_cpu(cuda_device):
     assert all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("body", ["balls", "bfs"])
+def test_spanner_prepass_and_walk_at_k4_match_twin_and_model(cuda_device, body):
+    """The exact pre-pass on T0 and the walk over its survivors at k = 4:
+    rows that overflow (D = 3), ids -1 and C, masked rows, then an
+    all-masked batch; the table equal to the twin's and to the plain
+    model's, the survivors counted by the kernel equal to the model's."""
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+
+    c, d, cap = 30, 3, 5
+    rng = np.random.default_rng(44 + len(body))
+    n1 = torch.full((c, d), -1, dtype=torch.int32, device=cuda_device)
+    d1 = torch.zeros((c,), dtype=torch.int32, device=cuda_device)
+    n2, d2 = n1.clone(), d1.clone()
+    n3, d3 = n1.cpu(), d1.cpu()
+    for i in range(5):
+        s, t, m = _edge_batch(rng, cuda_device, 96, -1, c + 1, 0.0 if i == 4 else 0.85)
+        sp.reset_stats()
+        sp.spanner_admit(n1, d1, s, t, m, 4, cap, body)
+        st = sp.stats(cuda_device)
+        sp.spanner_admit_plain(n2, d2, s, t, m, 4, cap, body)
+        _, _, cand, surv = sp.spanner_admit_model(n3, d3, s.cpu(), t.cpu(), m.cpu(), 4, cap, body)
+        assert torch.equal(n1, n2) and torch.equal(d1, d2)
+        assert torch.equal(n1.cpu(), n3) and torch.equal(d1.cpu(), d3)
+        assert (st["candidates"], st["survivors"]) == (cand, surv)
+        assert st["survivors"] <= st["candidates"] and st["admitted"] <= st["survivors"]
+        if i == 4:
+            assert st["candidates"] == 0 and st["calls"] == 1
+    assert (d1 == d).any()  # rows overflowed
+
+
+@pytest.mark.parametrize("c,d,k,body,n", [(512, 64, 2, "within_two", 1 << 14), (4096, 64, 3, "balls", 1 << 14),
+                                          (4096, 64, 3, "bfs", 1 << 12)])
+def test_spanner_survivors_match_the_model_at_phase_17_shapes(cuda_device, c, d, k, body, n):
+    """Two batches of uniform edges from the empty table (the first: the
+    walk's worst case, the table in shared memory at C = 512): the
+    kernel's candidates and survivors equal the model's pre-pass on the
+    card, and the table equals the model's walk."""
+    from gelly_streaming_tpu_torch.ops import spanner as sp
+
+    rng = np.random.default_rng(c + k)
+    n1 = torch.full((c, d), -1, dtype=torch.int32, device=cuda_device)
+    d1 = torch.zeros((c,), dtype=torch.int32, device=cuda_device)
+    for _ in range(2):
+        s, t, _m = _edge_batch(rng, cuda_device, n, 0, c)
+        before, deg_before = n1.clone(), d1.clone()
+        cand = ~sp.prefilter_plain(before, s, t, k, 128)
+        surv = sp.exact_prepass_plain(before, s, t, cand, k, body)
+        sp.reset_stats()
+        sp.spanner_admit(n1, d1, s, t, None, k, 128, body)
+        st = sp.stats(cuda_device)
+        assert (st["candidates"], st["survivors"]) == (int(cand.sum()), int(surv.sum()))
+        n3, d3 = before.cpu(), deg_before.cpu()
+        sp.walk_plain(n3, d3, s.cpu(), t.cpu(), surv.cpu(), k, body)
+        assert torch.equal(n1.cpu(), n3) and torch.equal(d1.cpu(), d3)
+
+
 @pytest.mark.parametrize("c,n,lo,hi,ints", [(16, 40, -3, 19, True), (64, 500, 0, 64, False),
                                            (4096, 8192, 0, 4096, False), (2625, 8192, 0, 2625, True)])
 def test_matching_scan_matches_twin(cuda_device, c, n, lo, hi, ints):
@@ -2121,6 +2177,79 @@ def test_sampler_scan_matches_twin(cuda_device, c, s_lanes, n, odd):
     empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
     sto.sampler_scan(st1, empty, empty, None)
     assert torch.equal(st1.edge, st2.edge)
+
+
+def test_sampler_key_chain_prefix_and_continuation(cuda_device):
+    """A KeyChain computed ahead for one length, then batches shorter
+    (a prefix) and longer (a continuation): every state, key included,
+    equal to the twin's, which draws its own keys."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library import sampled_triangles as lst
+    from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
+    from gelly_streaming_tpu_torch.utils import threefry
+
+    rng = np.random.default_rng(77)
+    st1 = lst.init_samplers(StreamConfig(vertex_capacity=300), 64, seed=5, device=cuda_device)
+    st2 = sto.clone_state(st1)
+    chain = sto.KeyChain(threefry.seed(5), cuda_device)
+    for ahead, n in [(500, 123), (100, 700), (0, 1), (256, 256), (64, 0), (10, 999)]:
+        if ahead:
+            chain.ahead(ahead)
+        s, t, m = _edge_batch(rng, cuda_device, n, 0, 300)
+        sto.sampler_scan(st1, s, t, m, chain)
+        sto.sampler_scan_plain(st2, s, t, m)
+        for a, b in zip(st1, st2):
+            assert torch.equal(a.cpu().to(torch.int64) if a.dtype == torch.uint32 else a.cpu(),
+                               b.cpu().to(torch.int64) if b.dtype == torch.uint32 else b.cpu())
+        assert chain.key == threefry.key_ints(st2.key)
+
+
+def test_sampler_run_loop_reads_nothing_from_the_card(cuda_device):
+    """Within the run loop's step, ``sampler_scan`` given the chain's keys
+    enqueues no device-to-host copy and no synchronization (sync debug
+    mode raises on either); batches of uneven length through
+    ``from_batches`` then match the CPU's records."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+    from gelly_streaming_tpu_torch.library import sampled_triangles as lst
+    from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
+    from gelly_streaming_tpu_torch.utils import threefry
+
+    rng = np.random.default_rng(8)
+    state = lst.init_samplers(StreamConfig(vertex_capacity=256), 100, device=cuda_device)
+    chain = sto.KeyChain(threefry.seed(0xDEADBEEF), cuda_device)
+    batches = [_edge_batch(rng, cuda_device, n, 0, 256) for n in (512, 300, 512, 40, 512)]
+    sto.sampler_scan(state, *batches[0], chain)  # scratch and buffers allocated
+    chain.ahead(512)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for s, t, m in batches[1:]:
+                sto.sampler_scan(state, s, t, m, chain)
+                chain.ahead(512)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    names = [e.name for e in prof.events()]
+    assert not [x for x in names if "DtoH" in x or "Device -> Pageable" in x or "Device -> Pinned" in x], names
+    assert len([x for x in names if "HtoD" in x or "Pinned -> Device" in x]) >= 4, names  # the keys' uploads
+    sizes = [512, 300, 512, 40, 512, 7]
+    edges = [(rng.integers(0, 200, n), rng.integers(0, 200, n)) for n in sizes]
+    cfg = StreamConfig(vertex_capacity=256, batch_size=512)
+    got = []
+    for dev in ("cpu", cuda_device):
+        def factory(dev=dev):
+            for a, b in edges:
+                yield EdgeBatch.from_arrays(a.astype(np.int32), b.astype(np.int32), device=dev)
+
+        algo = lst.BroadcastTriangleCount(300)
+        got.append(algo.run(EdgeStream.from_batches(factory, cfg, device=dev)).collect())
+    assert got[0] == got[1] and len(got[0]) == len(sizes)
 
 
 def test_sampled_triangles_run_on_the_card_matches_the_cpu(cuda_device):

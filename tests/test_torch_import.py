@@ -87,6 +87,31 @@ def test_cuda_entry_points_match_their_ctypes_declarations():
             assert len(found[name].split(",")) == len(argtypes), name
 
 
+def test_host_entry_points_match_their_ctypes_declarations():
+    """The host C sources (csrc/*.c, built with cc): every exported
+    function declared, with as many arguments."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    sources = sorted(f for f in os.listdir(_cuda.CSRC_DIR) if f.endswith(".c"))
+    assert sources == sorted(_cuda.HOST_SIGNATURES)
+    for source, entries in _cuda.HOST_SIGNATURES.items():
+        with open(os.path.join(_cuda.CSRC_DIR, source)) as f:
+            text = f.read()
+        found = dict(re.findall(r"^(?:void|int|long long) (\w+)\(([^)]*)\)", text, re.M | re.S))
+        assert set(found) == set(entries), source
+        for name, (argtypes, _restype) in entries.items():
+            assert len(found[name].split(",")) == len(argtypes), name
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second ``def`` of a name would silently replace the first for
+    every phase that calls it."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert len(names) == len(set(names)), sorted({n for n in names if names.count(n) > 1})
+
+
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     out = subprocess.run(
