@@ -6,6 +6,7 @@
                           [--parent-sage-backward-cu PATH] [--parent-csr-cu PATH]
                           [--parent-exact-cu PATH] [--parent-spmv-cu PATH] [--parent-kcore-cu PATH]
                           [--parent-spanner-cu PATH] [--parent-sampler-cu PATH]
+                          [--parent-matching-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -272,7 +273,11 @@ walk over the survivors on the host), candidates and survivors included;
 defaults (2^16 edges over 2^12 vertices, f32 weights U[0, 1), batches of
 2^13) and over a generated MovieLens-100K-shaped stream (100,000 distinct
 ratings between 943 users and 1,682 items, weights 1-5), every batch's
-events, emask and state equal to the twin's; (e)
+events, emask and state equal to the twin's and to the plan
+(``ops/matching.matching_rounds_plain``), its rounds from the device
+counters equal to the plan's, the run loop (one batch deep, pinned
+copies) against 5030d41's blocking loop in turns (``LOOP_TURNS``), and an
+evicting chain where every lane conflicts (one edge a round), timed; (e)
 ``BroadcastTriangleCount(1000)`` over the first 2^20 edges of phase 15
 (a)'s Watts-Strogatz stream in batches of 2^16 (cut for the twin's time),
 every batch's state (key included) and estimate equal to the twin's.  Each
@@ -289,7 +294,9 @@ of the run loop batch k + 1's keys were ready while the card still ran
 batch k.  ``--parent-spanner-cu PATH`` / ``--parent-sampler-cu PATH``
 (c34004e's sources) time the parent's calls in turns with the current
 ones (parent, current, current, parent): (a)'s late batch and batch 0,
-(b)'s whole run of C calls (auto and bfs), and (e)'s batches.
+(b)'s whole run of C calls (auto and bfs), and (e)'s batches;
+``--parent-matching-cu PATH`` (5030d41's one-thread scan) (d)'s last
+batches and the chain, outputs held equal.
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -835,6 +842,9 @@ PARENT_SIGNATURES = {
     # seen, S, C, src, dst, mask, n, scratch, scratch bytes, stream
     "sampler": {"sampler_scratch_bytes": [_I, _I],
                 "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _L, _P]},
+    # (5030d41, one thread walking the batch) partner, weight, capacity, src, dst, val, mask, n, events, emask,
+    # stream
+    "matching": {"matching_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]},
     "exact": {"triangle_block_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
               "triangle_trace_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]},
     "sage_backward": {
@@ -5079,6 +5089,7 @@ SUM_SP3_EDGES = 1 << 19  # its 524,288 edges
 SUM_MT_VERTICES = 1 << 12  # (d): `measurements matching` defaults (:842-846)
 SUM_MT_EDGES = 1 << 16
 SUM_MT_BATCH = 1 << 13
+LOOP_TURNS = 8  # (d): rounds of (shipped, other, other, shipped) run loops timed in turns
 ML_USERS, ML_ITEMS, ML_RATINGS = 943, 1682, 100_000  # a MovieLens-100K-shaped stream, generated
 ML_CAPACITY = 4096
 SUM_TRI_EDGES = 1 << 20  # (e): phase 15 (a)'s stream, its first 2^20 edges (cut for the twin's time)
@@ -5265,6 +5276,27 @@ def parent_sampler_call(lib):
     return call
 
 
+def parent_matching_call(lib):
+    """5030d41's matching scan over ``lib`` (one thread walks the batch,
+    the state in global memory): call(partner, weight, src, dst, val,
+    mask) -> (events, emask), the state updated in place."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    def call(partner, weight, src, dst, val, mask):
+        dev = partner.device
+        n = src.shape[0]
+        events = torch.empty((n, 3, 4), dtype=torch.float32, device=dev)
+        emask = torch.empty((n, 3), dtype=torch.bool, device=dev)
+        _cuda.check(lib.matching_scan_launch(
+            partner.data_ptr(), weight.data_ptr(), partner.shape[0], src.data_ptr(), dst.data_ptr(),
+            None if val is None else val.data_ptr(), None if mask is None else mask.data_ptr(), n, events.data_ptr(),
+            emask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "parent matching_scan_launch")
+        return events, emask
+
+    return call
+
+
 def measured_in_turns(measure, parent, current) -> dict:
     """``measure(fn)`` for parent, current, current, parent: the four
     readings, each side's mean and current / parent."""
@@ -5297,6 +5329,189 @@ def cpu_model() -> str:
     return f"lscpu: {names and names[0] or 'not known'}"
 
 
+def phase_matching(dev, cpm, parents) -> dict:
+    """Phase 17 (d): ``CentralizedWeightedMatching.run`` over both streams,
+    every batch held against the twin and the plan (its rounds from the
+    device counters), the one-batch-deep run loop against the blocking
+    one in turns, the last batches and the evicting chain timed, and
+    5030d41's scan in turns where ``parents`` holds it."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.core.types import EdgeBatch
+    from gelly_streaming_tpu_torch.library import matching as lm
+    from gelly_streaming_tpu_torch.ops import matching as mo
+    from gelly_streaming_tpu_torch.utils.value_types import MatchingEvent
+
+    # (d) the greedy matching: `measurements matching` defaults, then a MovieLens-100K-shaped stream
+    def weighted_stream(s, d, w, c, batch):
+        cfg_m = StreamConfig(vertex_capacity=c, batch_size=batch)
+        arrays = [to_dev((s[i:i + batch], d[i:i + batch], w[i:i + batch]), dev) for i in range(0, len(s), batch)]
+
+        def factory():
+            for a, b, x in arrays:
+                yield EdgeBatch.from_arrays(a, b, val=x, pad_to=batch, device=dev)
+
+        return EdgeStream.from_batches(factory, cfg_m, device=dev), cfg_m
+
+    def blocking_run(stream, cfg_m):
+        """5030d41's run loop: each batch's events and emask read back by a
+        blocking ``.cpu()`` before the next batch's scan is enqueued."""
+        state = lm.init_matching(cfg_m, dev)
+        out = []
+        for batch in stream.batches():
+            state, events, emask = lm.matching_update(state, batch.src, batch.dst, batch.val, batch.mask)
+            e_h, m_h = events.cpu().numpy(), emask.cpu().numpy()
+            for i, slot in zip(*np.nonzero(m_h)):
+                t, a, b, x = e_h[i, slot]
+                out.append(MatchingEvent("ADD" if t > 0.5 else "REMOVE", int(a), int(b), float(x)).as_tuple())
+        return out
+
+    def loops_in_turns(shipped, other):
+        """Each run loop's walls (s) over LOOP_TURNS rounds of shipped,
+        other, other, shipped: the walls, median, quartiles, min and max of
+        each, the medians' ratio, and the pairs (each run with its
+        neighbour in the round) the shipped loop won."""
+        walls = {"shipped": [], "other": []}
+        for _ in range(LOOP_TURNS):
+            for tag, fn in (("shipped", shipped), ("other", other), ("other", other), ("shipped", shipped)):
+                walls[tag].append(timed_run(fn)[1])
+        out = {tag: {"walls_s": w, "median_s": float(np.median(w)), "q1_s": float(np.percentile(w, 25)),
+                     "q3_s": float(np.percentile(w, 75)), "min_s": min(w), "max_s": max(w)}
+               for tag, w in walls.items()}
+        out["shipped_over_other"] = out["shipped"]["median_s"] / out["other"]["median_s"]
+        out["shipped_won_pairs"] = sum(a < b for a, b in zip(walls["shipped"], walls["other"]))
+        out["pairs"] = 2 * LOOP_TURNS
+        return out
+
+    def scan_timing(p0, w0, b, name):
+        """The scan on (p0, w0) before batch ``b``: the kernel held against
+        the twin and the plan (rounds from the device counters), timed on
+        copies of the state, and the parent in turns."""
+        n = b.src.shape[0]
+        c = p0.shape[0]
+        val = None if b.val is None else b.val.to(torch.float32).contiguous()
+        cp, tw, pl = [(p0.clone(), w0.clone()) for _ in range(3)]
+        mo.reset_stats()
+        got = mo.matching_scan(*cp, b.src, b.dst, val, b.mask)
+        st = mo.stats(dev)
+        want = mo.matching_scan_plain(*tw, b.src, b.dst, val, b.mask)
+        *plan, rounds = mo.matching_rounds_plain(*pl, b.src, b.dst, val, b.mask, mo.WINDOW)
+        err = max(tensor_err((*got, *cp), (*want, *tw)), tensor_err((*plan, *pl), (*want, *tw)))
+        if err or st["calls"] != 1 or st["rounds"] != rounds:
+            raise RuntimeError(f"(d) {name}: the scan differs from its twin (max abs err {err}) or its rounds "
+                               f"{st['rounds']} from the plan's {rounds}")
+        bound = (n * (4 + 4 + 4 + 1 + 48 + 3) + 2 * c * 8) / HBM_BYTES_PER_S * 1e3
+        t = kernel_timing(cpm, lambda cp: mo.matching_scan(cp[0], cp[1], b.src, b.dst, val, b.mask),
+                          lambda: (p0.clone(), w0.clone()),
+                          lambda cp: mo.matching_scan_plain(cp[0], cp[1], b.src, b.dst, val, b.mask), bound)
+        t.update(rounds=rounds, admitted=st["admitted"], serial_steps=n, window=mo.WINDOW,
+                 ns_an_edge=t["device_ms"] * 1e6 / n)
+        log(f"  (d) {name}: {n} edges over C {c} ({'shared' if mo.state_in_shared(c) else 'global'} state), "
+            f"{st['admitted']} admitted, {rounds} rounds at window {mo.WINDOW} (the plan's; {n} serial steps): "
+            f"device {t['device_ms']:.4f} ms held ({t['ns_an_edge']:.1f} ns an edge, "
+            f"{t['device_ms'] * 1e3 / rounds:.3f} us a round), events {t['ms']:.4f} ms, host enqueue "
+            f"{t['host_us']:.2f} us, twin {t['plain_ms']:.1f} ms, bound {bound:.6f} ms (bytes), {t['ratio']:.1f}x")
+        if "matching" in parents:
+            old = parents["matching"]
+            cp_old, cp_new = (p0.clone(), w0.clone()), (p0.clone(), w0.clone())
+            got_old = old(*cp_old, b.src, b.dst, val, b.mask)
+            got_new = mo.matching_scan(*cp_new, b.src, b.dst, val, b.mask)
+            if tensor_err((*got_old, *cp_old), (*got_new, *cp_new)):
+                raise RuntimeError(f"(d) {name}: the parent's events or state differ from the current kernel's")
+            t["turns"] = measured_in_turns(
+                lambda fn: copies_device_ms(lambda cp: fn(cp[0], cp[1], b.src, b.dst, val, b.mask),
+                                            lambda: (p0.clone(), w0.clone()), SUM_REPS, cpm)[0],
+                old, mo.matching_scan)
+            log(f"      in turns with 5030d41 (one thread), device ms held: {turns_text(t['turns'])}")
+        return t
+
+    rng = np.random.default_rng(0)
+    ms_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
+    md_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
+    mw_ = rng.random(SUM_MT_EDGES).astype(np.float32)
+    rng = np.random.default_rng(100)
+    pairs = rng.choice(ML_USERS * ML_ITEMS, ML_RATINGS, replace=False)
+    ml = ((pairs // ML_ITEMS).astype(np.int32), (ML_USERS + pairs % ML_ITEMS).astype(np.int32),
+          rng.integers(1, 6, ML_RATINGS).astype(np.float32))
+    match = {}
+    for name, (s, d, w, c) in (("uniform", (ms_, md_, mw_, SUM_MT_VERTICES)),
+                               ("movielens", (*ml, ML_CAPACITY))):
+        stream, cfg_m = weighted_stream(s, d, w, c, SUM_MT_BATCH)
+        lm.CentralizedWeightedMatching().run(stream).collect()  # warm the path
+        mo.reset_launches()
+        algo = lm.CentralizedWeightedMatching()
+        recs, secs_m = timed_run(lambda: algo.run(stream).collect())
+        n_launch = mo.LAUNCHES["matching_scan"]
+        if n_launch != -(-len(s) // SUM_MT_BATCH) or mo.TWIN_CALLS["matching_scan"]:
+            raise RuntimeError(f"(d) {name}: matching_scan was not the main path's one C call a batch: {n_launch}")
+        if blocking_run(stream, cfg_m) != recs:
+            raise RuntimeError(f"(d) {name}: the blocking run loop's records differ from the main path's")
+        loops = loops_in_turns(lambda: lm.CentralizedWeightedMatching().run(stream).collect(),
+                               lambda: blocking_run(stream, cfg_m))
+        state = lm.init_matching(cfg_m, dev)
+        twin = lm.MatchingState(state.partner.clone(), state.weight.clone())
+        err_m, loop_recs, m_states, busy_m, rounds = 0.0, 0, [], 0.0, []
+        for batch in stream.batches():
+            before = (state.partner.clone(), state.weight.clone())
+            m_states.append((*before, batch))
+            got = []
+            mo.reset_stats()
+            busy_m += held_ms(lambda: got.extend(mo.matching_scan(state.partner, state.weight, batch.src, batch.dst,
+                                                                  batch.val, batch.mask)), cpm)
+            st = mo.stats(dev)
+            ev, em = got
+            ev2, em2 = mo.matching_scan_plain(twin.partner, twin.weight, batch.src, batch.dst, batch.val, batch.mask)
+            pl = (before[0].clone(), before[1].clone())
+            *plan, r_plan = mo.matching_rounds_plain(*pl, batch.src, batch.dst, batch.val, batch.mask, mo.WINDOW)
+            if st["calls"] != 1 or st["rounds"] != r_plan:
+                raise RuntimeError(f"(d) {name}: batch {len(rounds)} took {st['rounds']} rounds, the plan {r_plan}")
+            rounds.append(r_plan)
+            err_m = max(err_m, tensor_err((ev, em, state.partner, state.weight), (ev2, em2, twin.partner, twin.weight)),
+                        tensor_err((*plan, *pl), (ev, em, state.partner, state.weight)))
+            loop_recs += int(em.sum())
+        if err_m or len(recs) != loop_recs or tensor_err(tuple(algo.final_state), tuple(state)):
+            raise RuntimeError(f"(d) {name}: the matching differs from its twin or its plan on the card (max abs err "
+                               f"{err_m}) or the main path's records and state from the batch loop's")
+        lp, lw, lb = m_states[-1]
+        idle_m = 100 * (1 - busy_m / (secs_m * 1e3))
+        for tag in ("shipped", "other"):
+            loops[tag]["idle_pct"] = 100 * (1 - busy_m / (loops[tag]["median_s"] * 1e3))
+        matched = int((state.partner >= 0).sum()) // 2
+        log(f"  (d) matching, {name}: {len(s)} edges over C {c} in batches of {SUM_MT_BATCH}: {secs_m:.4f} s end "
+            f"to end, {len(s) / secs_m:.6g} edges/s, {len(recs)} events, {matched} matched; launches {n_launch}; "
+            f"every batch's events, emask and state equal to the twin and to the plan on the card, its rounds "
+            f"(window {mo.WINDOW}) equal to the plan's: {rounds}; the calls {busy_m:.4f} ms of device time (each "
+            f"held) against the run's {secs_m * 1e3:.1f} ms: idle {idle_m:.2f}%; in turns ({LOOP_TURNS} rounds of "
+            "shipped, other, other, shipped), walls in ms median (quartiles) [min, max]: " + ", ".join(
+                f"{label} {loops[tag]['median_s'] * 1e3:.2f} ({loops[tag]['q1_s'] * 1e3:.2f}, "
+                f"{loops[tag]['q3_s'] * 1e3:.2f}) [{loops[tag]['min_s'] * 1e3:.2f}, "
+                f"{loops[tag]['max_s'] * 1e3:.2f}], idle {loops[tag]['idle_pct']:.2f}%"
+                for tag, label in (("shipped", "the run loop (one batch deep)"),
+                                   ("other", "5030d41's blocking loop (a .cpu() a batch)"))) +
+            f"; shipped / other {loops['shipped_over_other']:.4f}, the shipped loop won "
+            f"{loops['shipped_won_pairs']} of {loops['pairs']} pairs")
+        t_m = scan_timing(lp, lw, lb, f"{name}, the last batch")
+        match[name] = {**t_m, "launches": n_launch, "err": err_m, "edges": len(s), "s": secs_m,
+                       "edges_per_s": len(s) / secs_m, "records": len(recs), "matched": matched,
+                       "rounds_a_batch": rounds, "idle_pct": idle_m, "busy_ms": busy_m, "loops_in_turns": loops}
+    # every lane conflicts: each admission evicts the row the next edge reads, one edge a round
+    n = SUM_MT_BATCH
+    c = 2 * n + 1
+    p0 = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    p0[:2 * n] = torch.arange(2 * n, device=dev, dtype=torch.int32) ^ 1
+    w0 = torch.zeros((c,), dtype=torch.float32, device=dev)
+    w0[:2 * n] = 1.0
+    chain_src = torch.cat([torch.tensor([2 * n]), 2 * torch.arange(1, n) - 1]).to(torch.int32)
+    chain = EdgeBatch.from_arrays(*to_dev((chain_src.numpy(), (2 * np.arange(n)).astype(np.int32),
+                                           np.full(n, 3.0, np.float32)), dev), device=dev)
+    match["chain"] = scan_timing(p0, w0, chain, "the evicting chain (pairs (2i, 2i + 1) matched at weight 1; edge e "
+                                 "(2e - 1, 2e) at weight 3)")
+    if match["chain"]["rounds"] != n:
+        raise RuntimeError(f"(d) the chain took {match['chain']['rounds']} rounds, not one an edge")
+    return match
+
+
 def phase_summaries(dev, cpm, parents=None) -> dict:
     """Phase 17: ``Spanner`` (a)-(c), ``CentralizedWeightedMatching`` (d) and
     ``BroadcastTriangleCount`` (e) through their entry points on the card,
@@ -5306,11 +5521,8 @@ def phase_summaries(dev, cpm, parents=None) -> dict:
     import torch
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
-    from gelly_streaming_tpu_torch.core.types import EdgeBatch
-    from gelly_streaming_tpu_torch.library import matching as lm
     from gelly_streaming_tpu_torch.library import sampled_triangles as lst
     from gelly_streaming_tpu_torch.library import spanner as lsp
-    from gelly_streaming_tpu_torch.ops import matching as mo
     from gelly_streaming_tpu_torch.ops import sampled_triangles as sto
     from gelly_streaming_tpu_torch.ops import spanner as sp
     from gelly_streaming_tpu_torch.summaries import adjacency
@@ -5570,70 +5782,7 @@ def phase_summaries(dev, cpm, parents=None) -> dict:
         f"survivors of {SUM_SP_VERTICES * SUM_SP_DEGREE} slots), twin {twin_comb_s:.2f} s, equal "
         f"({res['combine']['spanner_edges']} edges)")
 
-    # (d) the greedy matching: `measurements matching` defaults, then a MovieLens-100K-shaped stream
-    def weighted_stream(s, d, w, c, batch):
-        cfg_m = StreamConfig(vertex_capacity=c, batch_size=batch)
-        arrays = [to_dev((s[i:i + batch], d[i:i + batch], w[i:i + batch]), dev) for i in range(0, len(s), batch)]
-
-        def factory():
-            for a, b, x in arrays:
-                yield EdgeBatch.from_arrays(a, b, val=x, pad_to=batch, device=dev)
-
-        return EdgeStream.from_batches(factory, cfg_m, device=dev), cfg_m
-
-    rng = np.random.default_rng(0)
-    ms_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
-    md_ = rng.integers(0, SUM_MT_VERTICES, SUM_MT_EDGES).astype(np.int32)
-    mw_ = rng.random(SUM_MT_EDGES).astype(np.float32)
-    rng = np.random.default_rng(100)
-    pairs = rng.choice(ML_USERS * ML_ITEMS, ML_RATINGS, replace=False)
-    ml = ((pairs // ML_ITEMS).astype(np.int32), (ML_USERS + pairs % ML_ITEMS).astype(np.int32),
-          rng.integers(1, 6, ML_RATINGS).astype(np.float32))
-    match = {}
-    for name, (s, d, w, c) in (("uniform", (ms_, md_, mw_, SUM_MT_VERTICES)),
-                               ("movielens", (*ml, ML_CAPACITY))):
-        stream, cfg_m = weighted_stream(s, d, w, c, SUM_MT_BATCH)
-        lm.CentralizedWeightedMatching().run(stream).collect()  # warm the path
-        mo.reset_launches()
-        algo = lm.CentralizedWeightedMatching()
-        recs, secs_m = timed_run(lambda: algo.run(stream).collect())
-        n_launch = mo.LAUNCHES["matching_scan"]
-        if n_launch != -(-len(s) // SUM_MT_BATCH) or mo.TWIN_CALLS["matching_scan"]:
-            raise RuntimeError(f"(d) {name}: matching_scan was not the main path's one C call a batch: {n_launch}")
-        state = lm.init_matching(cfg_m, dev)
-        twin = lm.MatchingState(state.partner.clone(), state.weight.clone())
-        err_m, loop_recs, m_states, busy_m = 0.0, 0, [], 0.0
-        for batch in stream.batches():
-            m_states.append((state.partner.clone(), state.weight.clone(), batch))
-            got = []
-            busy_m += held_ms(lambda: got.extend(mo.matching_scan(state.partner, state.weight, batch.src, batch.dst,
-                                                                  batch.val, batch.mask)), cpm)
-            ev, em = got
-            ev2, em2 = mo.matching_scan_plain(twin.partner, twin.weight, batch.src, batch.dst, batch.val, batch.mask)
-            err_m = max(err_m, tensor_err((ev, em, state.partner, state.weight), (ev2, em2, twin.partner, twin.weight)))
-            loop_recs += int(em.sum())
-        if err_m or len(recs) != loop_recs or tensor_err(tuple(algo.final_state), tuple(state)):
-            raise RuntimeError(f"(d) {name}: the matching differs from its twin on the card (max abs err {err_m}) "
-                               "or the main path's records and state from the batch loop's")
-        lp, lw, lb = m_states[-1]
-        n = lb.src.shape[0]
-        bound_m = (n * (4 + 4 + 4 + 1 + 48 + 3) + 2 * c * 8) / HBM_BYTES_PER_S * 1e3
-        t_m = kernel_timing(cpm, lambda cp: mo.matching_scan(cp[0], cp[1], lb.src, lb.dst, lb.val, lb.mask),
-                            lambda: (lp.clone(), lw.clone()),
-                            lambda cp: mo.matching_scan_plain(cp[0], cp[1], lb.src, lb.dst, lb.val, lb.mask), bound_m)
-        idle_m = 100 * (1 - busy_m / (secs_m * 1e3))
-        matched = int((state.partner >= 0).sum()) // 2
-        match[name] = {**t_m, "launches": n_launch, "err": err_m, "edges": len(s), "s": secs_m,
-                       "edges_per_s": len(s) / secs_m, "records": len(recs), "matched": matched,
-                       "serial_steps": n, "idle_pct": idle_m, "busy_ms": busy_m}
-        log(f"  (d) matching, {name}: {len(s)} edges over C {c} in batches of {SUM_MT_BATCH}: {secs_m:.4f} s end "
-            f"to end, {len(s) / secs_m:.6g} edges/s, {len(recs)} events, {matched} matched; launches {n_launch}; "
-            f"every batch's events, emask and state equal to the twin on the card; the last batch: device "
-            f"{t_m['device_ms']:.4f} ms held ({t_m['device_ms'] * 1e6 / n:.1f} ns an edge), events "
-            f"{t_m['ms']:.4f} ms, host enqueue {t_m['host_us']:.2f} us, twin {t_m['plain_ms']:.1f} ms, bound "
-            f"{bound_m:.6f} ms (bytes; {n} dependent steps), {t_m['ratio']:.1f}x; the calls {busy_m:.4f} ms of "
-            f"device time (each held) against the run's {secs_m * 1e3:.1f} ms: idle {idle_m:.2f}%")
-    res["matching"] = match
+    res["matching"] = phase_matching(dev, cpm, parents)
 
     # (e) BroadcastTriangleCount(1000) over phase 15 (a)'s Watts-Strogatz stream
     ws_s, ws_d = watts_strogatz(ET_VERTICES, 16, 0.1, np.random.default_rng(5))
@@ -5790,12 +5939,17 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-spanner-cu", default=None,
                         help="spanner.cu of the commit before the exact pre-pass (c34004e; its C interface): its "
                              "admission timed in turns with the current one on phase 17 (a) and (b)")
+    parser.add_argument("--parent-matching-cu", default=None,
+                        help="matching.cu of the commit before the windowed rounds (5030d41; its C interface): its "
+                             "one-thread scan timed in turns with the current one on phase 17 (d)'s last batches "
+                             "and the evicting chain")
     parser.add_argument("--parent-sampler-cu", default=None,
                         help="sampled_triangles.cu of the commit before the host key chain (c34004e; its C "
                              "interface): its scan timed in turns with the current one on phase 17 (e)'s batches")
     args = parser.parse_args(argv)
     parent_sum_cu = {k: os.path.abspath(path) for k, path in (("spanner", args.parent_spanner_cu),
-                                                               ("sampler", args.parent_sampler_cu)) if path}
+                                                               ("sampler", args.parent_sampler_cu),
+                                                               ("matching", args.parent_matching_cu)) if path}
     parent_spmv_cu = {k: os.path.abspath(path) for k, path in (("spmv", args.parent_spmv_cu),
                                                                 ("kcore", args.parent_kcore_cu)) if path}
     parent_csr_cu = os.path.abspath(args.parent_csr_cu) if args.parent_csr_cu else None
@@ -6106,7 +6260,7 @@ def main(argv=None) -> int:
                     {} if split_failed else {part: variant_pagerank(load_baseline(path, rank_sig))
                                              for part, path in rank_split_cu.items()})
     log("phase 17: the spanner, the weighted matching and the sampled triangle estimators on the card")
-    wrap = {"spanner": parent_spanner_call, "sampler": parent_sampler_call}
+    wrap = {"spanner": parent_spanner_call, "sampler": parent_sampler_call, "matching": parent_matching_call}
     sm = phase_summaries(dev, cpm, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
                                     for k, path in parent_sum_cu.items()})
 
@@ -6297,8 +6451,10 @@ def main(argv=None) -> int:
          "k3": sm["spanner_k3"], "combine": sm["combine"]},
         {**entry("matching_scan", "matching.cu", "gelly_streaming_tpu/library/matching.py:38", mt),
          "library_call": no_call, "timed": "(d)'s last uniform batch, each call on its own copy of the state",
-         **{k: mt[k] for k in ("edges_per_s", "ratio", "serial_steps", "records", "matched", "idle_pct", "busy_ms")},
-         "movielens": sm["matching"]["movielens"]},
+         **{k: mt[k] for k in ("edges_per_s", "ratio", "serial_steps", "rounds", "window", "ns_an_edge", "admitted",
+                               "rounds_a_batch", "records", "matched", "idle_pct", "busy_ms", "loops_in_turns",
+                               "turns") if k in mt},
+         "movielens": sm["matching"]["movielens"], "chain": sm["matching"]["chain"]},
         {**entry("sampler_scan", "sampled_triangles.cu", "gelly_streaming_tpu/library/sampled_triangles.py:56", smp),
          "bound_by": smp["bound_by"], "library_call": no_call,
          "timed": "(e)'s last batch, each call on its own copy of the state, its keys on the card already",

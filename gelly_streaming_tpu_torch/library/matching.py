@@ -49,18 +49,44 @@ def matching_update(state: MatchingState, src, dst, val, mask):
 
 
 class CentralizedWeightedMatching:
-    """Continuous MatchingEvent stream (ADD/REMOVE), single-shard stateful op."""
+    """Continuous MatchingEvent stream (ADD/REMOVE), single-shard stateful op.
+
+    On the GPU the run loop is one batch deep: batch k + 1's scan is
+    enqueued before batch k's events become records, and each batch's
+    events and emask are copied into pinned host buffers without blocking;
+    the loop waits on that copy's CUDA event alone."""
 
     def run(self, stream) -> OutputStream:
+        def emit(e_h, m_h):
+            for i, slot in zip(*np.nonzero(m_h)):
+                t, s, d, w = e_h[i, slot]
+                yield MatchingEvent("ADD" if t > 0.5 else "REMOVE", int(s), int(d), float(w)).as_tuple()
+
         def records():
             state = init_matching(stream.cfg, stream.device)
-            for batch in stream.batches():
+            pinned = {}  # two pinned (events, emask) pairs a batch shape, used in turns
+            pending = None  # the batch whose copy is in flight: (events, emask, its copy's event)
+            for k, batch in enumerate(stream.batches()):
                 state, events, emask = matching_update(state, batch.src, batch.dst, batch.val, batch.mask)
-                e_h = events.cpu().numpy()
-                m_h = emask.cpu().numpy()
-                for i, slot in zip(*np.nonzero(m_h)):
-                    t, s, d, w = e_h[i, slot]
-                    yield MatchingEvent("ADD" if t > 0.5 else "REMOVE", int(s), int(d), float(w)).as_tuple()
+                if events.device.type != "cuda":
+                    yield from emit(events.numpy(), emask.numpy())
+                    continue
+                key = (events.shape[0], k % 2)
+                if key not in pinned:
+                    pinned[key] = (torch.empty(events.shape, dtype=events.dtype, pin_memory=True),
+                                   torch.empty(emask.shape, dtype=emask.dtype, pin_memory=True))
+                e_h, m_h = pinned[key]
+                e_h.copy_(events, non_blocking=True)
+                m_h.copy_(emask, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(torch.cuda.current_stream(events.device))
+                if pending is not None:
+                    pending[2].synchronize()
+                    yield from emit(pending[0].numpy(), pending[1].numpy())
+                pending = (e_h, m_h, copied)
+            if pending is not None:
+                pending[2].synchronize()
+                yield from emit(pending[0].numpy(), pending[1].numpy())
             self.final_state = state
 
         return OutputStream(records)

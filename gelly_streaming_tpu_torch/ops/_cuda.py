@@ -187,9 +187,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "spanner_admit_launch": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
     },
     "matching.cu": {
+        # capacity: the scratch bytes of a call (0: the state fits in
+        # shared memory)
+        "matching_scratch_bytes": [_I],
         # partner, weight, capacity, src, dst, val | None, mask | None, n,
-        # events, emask, stream: one thread walks the batch
-        "matching_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        # events, emask, scratch | None, stats, stream: one block commits a
+        # window's conflict-free prefix a round
+        "matching_scan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     },
     "sampled_triangles.cu": {
         # n, S: the scratch bytes of one call
@@ -217,6 +221,7 @@ RESTYPES: Dict[str, type] = {
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
+    "matching_scratch_bytes": _L,
 }
 
 

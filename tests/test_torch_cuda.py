@@ -2117,25 +2117,126 @@ def test_spanner_survivors_match_the_model_at_phase_17_shapes(cuda_device, c, d,
         assert torch.equal(n1.cpu(), n3) and torch.equal(d1.cpu(), d3)
 
 
+def _matching_call_matches(mo, p1, w1, s, t, val, mask):
+    """One C call against the twin and the plan from the same state: events,
+    emask and state bit for bit, the device counters' rounds the plan's."""
+    p2, w2, p3, w3 = p1.clone(), w1.clone(), p1.cpu(), w1.cpu()
+    mo.reset_stats()
+    before = mo.LAUNCHES["matching_scan"]
+    e1, em1 = mo.matching_scan(p1, w1, s, t, val, mask)
+    assert mo.LAUNCHES["matching_scan"] == before + 1
+    st = mo.stats(p1.device)
+    e2, em2 = mo.matching_scan_plain(p2, w2, s, t, val, mask)
+    assert torch.equal(e1.view(torch.int32), e2.view(torch.int32)) and torch.equal(em1, em2)
+    assert torch.equal(p1, p2) and torch.equal(w1.view(torch.int32), w2.view(torch.int32))
+    cpu = [None if x is None else x.cpu() for x in (s, t, val, mask)]
+    e3, em3, rounds = mo.matching_rounds_plain(p3, w3, *cpu, mo.WINDOW)
+    assert torch.equal(e3.view(torch.int32), e2.cpu().view(torch.int32)) and torch.equal(em3, em2.cpu())
+    assert st["calls"] == 1 and st["rounds"] == rounds and st["max_rounds"] == rounds
+    assert st["admitted"] == int(em1[:, 2].sum())
+    assert -(-s.shape[0] // mo.WINDOW) <= rounds <= s.shape[0]
+    return rounds
+
+
 @pytest.mark.parametrize("c,n,lo,hi,ints", [(16, 40, -3, 19, True), (64, 500, 0, 64, False),
-                                           (4096, 8192, 0, 4096, False), (2625, 8192, 0, 2625, True)])
+                                           (4096, 8192, 0, 4096, False), (2625, 8192, 0, 2625, True),
+                                           (300, 2000, -3, 303, True), (1 << 16, 8192, -3, (1 << 16) + 3, False),
+                                           (1 << 16, 8192, -3, (1 << 16) + 3, True)])
 def test_matching_scan_matches_twin(cuda_device, c, n, lo, hi, ints):
+    """The C = 2^16 cases (768 KB of state and stamps) run the rounds on
+    the global arrays; the others keep the state in shared memory."""
     from gelly_streaming_tpu_torch.ops import matching as mo
 
+    assert mo.state_in_shared(c) == (c < 1 << 16)
     rng = np.random.default_rng(c + n)
     p1 = torch.full((c,), -1, dtype=torch.int32, device=cuda_device)
     w1 = torch.zeros((c,), dtype=torch.float32, device=cuda_device)
-    p2, w2 = p1.clone(), w1.clone()
     for i in range(3):
         s, t, m = _edge_batch(rng, cuda_device, n, lo, hi, 0.95)
         w = torch.from_numpy((rng.integers(1, 6, n) if ints else rng.random(n)).astype(np.float32)).to(cuda_device)
         val, mask = (None, None) if i == 2 else (w, m)
-        before = mo.LAUNCHES["matching_scan"]
-        e1, em1 = mo.matching_scan(p1, w1, s, t, val, mask)
-        assert mo.LAUNCHES["matching_scan"] == before + 1
-        e2, em2 = mo.matching_scan_plain(p2, w2, s, t, val, mask)
-        assert torch.equal(e1.view(torch.int32), e2.view(torch.int32)) and torch.equal(em1, em2)
+        _matching_call_matches(mo, p1, w1, s, t, val, mask)
+
+
+@pytest.mark.parametrize("kind,c", [("hub", 64), ("hub", 1 << 16), ("chain", 16385), ("chain", 1 << 16)])
+def test_matching_scan_where_every_lane_conflicts(cuda_device, kind, c):
+    """One commit a round.  Hub: edge k (0, k + 1) weighs 3^k and evicts
+    the one before it.  Chain: the pairs (2i, 2i + 1) matched at weight 1,
+    edge e (2e - 1, 2e) at weight 3 evicts 2e + 1, whose row edge e + 1
+    reads."""
+    from gelly_streaming_tpu_torch.ops import matching as mo
+
+    p1 = torch.full((c,), -1, dtype=torch.int32, device=cuda_device)
+    w1 = torch.zeros((c,), dtype=torch.float32, device=cuda_device)
+    if kind == "hub":
+        n = 60
+        s = torch.zeros(n, dtype=torch.int32)
+        t = torch.arange(1, n + 1, dtype=torch.int32)
+        val = torch.from_numpy(3.0 ** np.arange(n)).to(torch.float32)
+    else:
+        n = 8192
+        p1[:2 * n] = torch.arange(2 * n, dtype=torch.int32, device=cuda_device) ^ 1
+        w1[:2 * n] = 1.0
+        s = torch.cat([torch.tensor([2 * n]), 2 * torch.arange(1, n) - 1]).to(torch.int32)
+        t = 2 * torch.arange(n, dtype=torch.int32)
+        val = torch.full((n,), 3.0)
+    s, t, val = (x.to(cuda_device) for x in (s, t, val))
+    assert _matching_call_matches(mo, p1, w1, s, t, val, None) == n
+
+
+def test_matching_scan_stamp_epochs_restart(cuda_device, tmp_path):
+    """matching.cu built with a stamp epoch of 5 rounds (the shipped one is
+    8,388,606), so the stamps restart every 5 rounds: random batches in
+    both branches and the 8192-round chain still equal the twin and the
+    plan."""
+    import ctypes
+
+    from gelly_streaming_tpu_torch.ops import _cuda
+    from gelly_streaming_tpu_torch.ops import matching as mo
+
+    src = (_cuda.CSRC_DIR / "matching.cu").read_text()
+    epoch = "constexpr int EPOCH_ROUNDS = 0x7fffffff / W - 1;"
+    assert epoch in src
+    path = tmp_path / "matching_epoch5.cu"
+    path.write_text(src.replace(epoch, "constexpr int EPOCH_ROUNDS = 5;"))
+    lib = ctypes.CDLL(str(_cuda.build_all([str(path)])[str(path)].path))
+    lib.matching_scan_launch.argtypes = _cuda.SIGNATURES["matching.cu"]["matching_scan_launch"]
+
+    def check(p1, w1, s, t, val, mask):
+        c, n = p1.shape[0], s.shape[0]
+        p2, w2, p3, w3 = p1.clone(), w1.clone(), p1.cpu(), w1.cpu()
+        st = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+        scratch = torch.empty(c, dtype=torch.int32, device=cuda_device)
+        ev = torch.empty((n, 3, 4), device=cuda_device)
+        em = torch.empty((n, 3), dtype=torch.bool, device=cuda_device)
+        _cuda.check(lib.matching_scan_launch(
+            p1.data_ptr(), w1.data_ptr(), c, s.data_ptr(), t.data_ptr(), val.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, ev.data_ptr(), em.data_ptr(), scratch.data_ptr(),
+            st.data_ptr(), torch.cuda.current_stream(cuda_device).cuda_stream), "matching_scan_launch")
+        ev2, em2 = mo.matching_scan_plain(p2, w2, s, t, val, mask)
+        cpu = [None if x is None else x.cpu() for x in (s, t, val, mask)]
+        _, _, rounds = mo.matching_rounds_plain(p3, w3, *cpu, mo.WINDOW)
+        assert torch.equal(ev.view(torch.int32), ev2.view(torch.int32)) and torch.equal(em, em2)
         assert torch.equal(p1, p2) and torch.equal(w1.view(torch.int32), w2.view(torch.int32))
+        assert int(st[1]) == rounds
+        return rounds
+
+    rng = np.random.default_rng(3)
+    for c in (4096, 1 << 16):
+        p1 = torch.full((c,), -1, dtype=torch.int32, device=cuda_device)
+        w1 = torch.zeros((c,), dtype=torch.float32, device=cuda_device)
+        for _ in range(2):
+            s, t, m = _edge_batch(rng, cuda_device, 8192, -3, c + 3, 0.9)
+            w = torch.from_numpy(rng.integers(1, 9, 8192).astype(np.float32)).to(cuda_device)
+            assert check(p1, w1, s, t, w, m) > 5
+    n = 8192
+    p1 = torch.full((2 * n + 1,), -1, dtype=torch.int32, device=cuda_device)
+    p1[:2 * n] = torch.arange(2 * n, dtype=torch.int32, device=cuda_device) ^ 1
+    w1 = torch.zeros((2 * n + 1,), dtype=torch.float32, device=cuda_device)
+    w1[:2 * n] = 1.0
+    s = torch.cat([torch.tensor([2 * n]), 2 * torch.arange(1, n) - 1]).to(torch.int32).to(cuda_device)
+    t = (2 * torch.arange(n, dtype=torch.int32)).to(cuda_device)
+    assert check(p1, w1, s, t, torch.full((n,), 3.0, device=cuda_device), None) == n
 
 
 def test_matching_run_on_the_card_matches_the_cpu(cuda_device):
