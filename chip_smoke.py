@@ -298,6 +298,25 @@ ones (parent, current, current, parent): (a)'s late batch and batch 0,
 ``--parent-matching-cu PATH`` (5030d41's one-thread scan) (d)'s last
 batches and the chain, outputs held equal.
 
+Phase 18 drives the fixed-state sketches through their entry points: (a)
+``HLLDegreeSummary(eps=0.01)`` (m = 2^16) and
+``CountMinHeavyHitters(eps=0.001, delta=0.01, top_k=16)`` (d = 5, w =
+4096) over phase 7's EF40 replay, an emission every 8 batches; (b)
+``SketchTriangleCount(eps=0.05, delta=0.05)`` (R = 4096, M = 8192) over
+2^20 edges drawn with repeats from phase 17 (e)'s Watts-Strogatz ring cut
+to 2^13 vertices (2^16 edges: the sample closes wedges at every emission),
+in batches of 2^16; (c) the
+JAX package's three accuracy contracts at its own shapes
+(tests/test_sketches.py:113-170), asserted as it asserts them.  Every
+batch's state and every emission equal the twins' on the card
+(``hll_fold``, ``cm_fold``, ``tri_fold``; ``tri_sampled_closures`` at each
+emission), the closure counts a numpy pair-enumeration oracle's; each
+update is one C call a batch.  It prints edges/s end to end, each kernel's
+device ms a batch held, host µs a call, the twin's ms, its bound, the
+library call (``scatter_reduce_`` amax, ``index_add_``) on precomputed
+inputs, the idle share, and the estimates' relative errors against exact
+oracles (not asserted).
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -5904,6 +5923,355 @@ def phase_summaries(dev, cpm, parents=None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the fixed-state sketches (HLL, count-min, the min-hash triangle sample)
+
+SK_EMIT_BATCHES = 8  # (a): an emission every 8 batches of phase 7's replay
+SK_HLL_EPS = 0.01  # (a): m = 2^16, the cap
+SK_CM = (0.001, 0.01, 16)  # (a): eps, delta, top_k: d = 5, w = 4096
+SK_TRI = (0.05, 0.05)  # (b): eps, delta: R = 4096, M = 8192
+SK_TRI_EDGES = 1 << 20  # (b): drawn with repeats from phase 17 (e)'s ring, cut to SK_TRI_VERTICES
+SK_TRI_VERTICES = 1 << 13  # 2^16 distinct edges: a 4096-row sample closes wedges from the first emission on
+SK_TRI_BATCH = 1 << 16
+SK_TRI_EMIT = 4  # (b): batches an emission
+SK_REPS = 5
+FMIX_OPS = 8  # integer operations of fmix32: three xor-shifts of two, two multiplies
+HASH_OPS = FMIX_OPS + 1  # hash_u32: the salt's xor
+PAIR_OPS = 2 * FMIX_OPS + 3  # hash_pair_u32: the salt's xor, hi's multiply, the xor
+RANK_OPS = 5  # an HLL register's put: mask, shift, clz, subtract, compare
+
+
+def np_fmix32(x):
+    x = np.atleast_1d(np.asarray(x).astype(np.uint32))
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def np_hash_pair(lo, hi, salt: int):
+    """hash_pair_u32 in numpy's wrapping u32 arithmetic, independent of the port."""
+    golden = 0x9E3779B9
+    h = np_fmix32(np.atleast_1d(np.asarray(lo).astype(np.uint32)) ^ np.uint32((salt * golden) & 0xFFFFFFFF))
+    return np_fmix32(h ^ (np.atleast_1d(np.asarray(hi).astype(np.uint32)) * np.uint32(golden)))
+
+
+def closures_oracle(elo, ehi, salt: int) -> tuple:
+    """(the closed wedges // 2, the ordered pairs that share a vertex and
+    whose other endpoints differ) of a sample, by numpy pair enumeration
+    vertex by vertex: a pair closes where the member hash of its closing
+    edge is a valid row's (not 0xFFFFFFFF)."""
+    valid = elo != -1
+    members = np.setdiff1d(np_hash_pair(elo[valid], ehi[valid], salt), [0xFFFFFFFF])
+    rows = np.nonzero(valid)[0]
+    inc = np.concatenate([np.stack([elo[rows], rows, ehi[rows]], 1), np.stack([ehi[rows], rows, elo[rows]], 1)])
+    inc = inc[np.argsort(inc[:, 0], kind="stable")]
+    cuts = np.flatnonzero(np.diff(inc[:, 0])) + 1
+    closed = pairs = 0
+    for grp in np.split(inc, cuts):
+        if len(grp) < 2:
+            continue
+        r, o = grp[:, 1], grp[:, 2]
+        i, j = np.meshgrid(np.arange(len(r)), np.arange(len(r)), indexing="ij")
+        keep = (r[i] != r[j]) & (o[i] != o[j])
+        a, b = o[i][keep], o[j][keep]
+        pairs += len(a)
+        closed += int(np.isin(np_hash_pair(np.minimum(a, b), np.maximum(a, b), salt), members).sum())
+    return closed // 2, pairs
+
+
+def bound_pair(nbytes: float, ops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes at the
+    HBM rate and the integer operations at the f32 rate."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (o, "operations") if o > b else (b, "bytes")
+
+
+def phase_sketches(dev, cpm, data: dict) -> dict:
+    """Phase 18: (a) ``HLLDegreeSummary(eps=0.01)`` and
+    ``CountMinHeavyHitters(eps=0.001, delta=0.01, top_k=16)`` over phase
+    7's EF40 replay, an emission every 8 batches; (b)
+    ``SketchTriangleCount(eps=0.05, delta=0.05)`` over edges drawn from
+    phase 17 (e)'s Watts-Strogatz ring at 2^13 vertices; (c) the
+    reference's three accuracy contracts at its own shapes.  Every batch's
+    state and every emission equal to the twins on the card, the closure
+    count to a numpy oracle and nonzero; one C call a batch; times, bounds,
+    library calls and idle shares for the report."""
+    import torch
+    from gelly_streaming_tpu_torch.core.aggregation import clone_state
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.library import sketches as lsk
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    t_phase = time.perf_counter()
+    res = {}
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    bufs, width = data["bufs"], data["width"]
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch, ingest_window_edges=SK_EMIT_BATCHES * batch)
+    hagg, cagg = lsk.HLLDegreeSummary(eps=SK_HLL_EPS), lsk.CountMinHeavyHitters(*SK_CM)
+    m, dd, ww = hagg.hll_m, cagg.depth, cagg.width
+
+    def wire_run(agg, b):
+        return EdgeStream.from_wire(b, batch, width, cfg, device=dev).aggregate(agg).collect()
+
+    # (a) the main path, each descriptor alone, warmed on one buffer
+    runs = {}
+    for name, agg in (("hll", hagg), ("cm", cagg)):
+        wire_run(agg, bufs[:1])
+        sko.reset_launches()
+        recs, secs = timed_run(lambda agg=agg: wire_run(agg, bufs))
+        want = {k: nb if k == ("hll_fold" if name == "hll" else "cm_fold") else 0 for k in sko.KERNELS}
+        if sko.LAUNCHES != want or any(sko.TWIN_CALLS.values()):
+            raise RuntimeError(f"(a) {name}: not one C call a batch: {sko.LAUNCHES}, twins {sko.TWIN_CALLS}")
+        if len(recs) != nb // SK_EMIT_BATCHES + 1:
+            raise RuntimeError(f"(a) {name}: {len(recs)} emissions")
+        runs[name] = (recs, secs, dict(sko.LAUNCHES))
+    # every batch's state against the twins, each kernel call held; every emission against the twin's
+    hk, ck = hagg.initial_state(cfg, dev), cagg.initial_state(cfg, dev)
+    ht, ct = clone_state(hk), clone_state(ck)
+    err_h = err_c = 0.0
+    emitted = 0
+    busy = {"hll": 0.0, "cm": 0.0}
+    twin_s = {"hll": 0.0, "cm": 0.0}
+    for i, b in enumerate(bufs):
+        s, d = wire.unpack_edges(torch.from_numpy(b).to(dev), batch, width)
+        if i == nb - 1:
+            before, last = (clone_state(hk), clone_state(ck)), (s, d)
+        busy["hll"] += held_ms(lambda: hagg.update(hk, s, d, None, None), cpm)
+        busy["cm"] += held_ms(lambda: cagg.update(ck, s, d, None, None), cpm)
+        t0 = time.perf_counter()
+        sko.hll_degree_fold_plain(ht.verts, ht.edges, s, d, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sko.cm_fold_plain(ct.grid, dd, ww, s, None, None)
+        sko.cm_fold_plain(ct.grid, dd, ww, d, None, None)
+        torch.cuda.synchronize()
+        twin_s["hll"] += t1 - t0
+        twin_s["cm"] += time.perf_counter() - t1
+        err_h = max(err_h, tensor_err(tuple(hk), tuple(ht)))
+        err_c = max(err_c, tensor_err(tuple(ck), tuple(ct)))
+        if (i + 1) % SK_EMIT_BATCHES == 0 or i == nb - 1:
+            err_h = max(err_h, tensor_err(runs["hll"][0][emitted], hagg.transform(ht)))
+            err_c = max(err_c, tensor_err(runs["cm"][0][emitted], cagg.transform(ct)))
+            emitted += 1
+    if err_h or err_c:
+        raise RuntimeError(f"(a): the folds or emissions differ from the twins on the card (hll {err_h}, cm {err_c})")
+    # the exact oracles (not asserted): distinct vertices and edges, degrees
+    src, dst = data["src"], data["dst"]
+    t0 = time.perf_counter()
+    seen = np.zeros(c, bool)
+    seen[src] = True
+    seen[dst] = True
+    exact_v = int(seen.sum())
+    s_t, d_t = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    exact_e = int(torch.unique(torch.minimum(s_t, d_t).to(torch.int64) * c + torch.maximum(s_t, d_t)).numel())
+    del s_t, d_t
+    deg = np.bincount(src, minlength=c) + np.bincount(dst, minlength=c)
+    oracle_s = time.perf_counter() - t0
+    v_est, e_est = (float(x) for x in runs["hll"][0][-1])
+    ids, est = (x.cpu().numpy() for x in runs["cm"][0][-1])
+    true_top = set(np.argsort(deg, kind="stable")[-SK_CM[2]:].tolist())
+    rel = {"distinct_vertices": (v_est - exact_v) / exact_v, "distinct_edges": (e_est - exact_e) / exact_e,
+           "top_k_overcount": float(((est - deg[ids]) / np.maximum(deg[ids], 1)).max()),
+           "top_k_true_found": len(true_top & set(ids.tolist()))}
+    # the kernels on the last batch, each call on its own copy of the state before it
+    (hb, cb), (s, d) = before, last
+    n = int(s.shape[0])
+    h_bound = bound_pair(n * 8 + 2 * 2 * m * 4, n * (2 * HASH_OPS + PAIR_OPS + 2 + 3 * RANK_OPS))
+    c_bound = bound_pair(n * 8 + 2 * dd * ww * 4, n * 2 * dd * (HASH_OPS + 2))
+    t_h = kernel_timing(cpm, lambda cp: sko.hll_degree_fold(cp.verts, cp.edges, s, d, None), lambda: clone_state(hb),
+                        lambda cp: sko.hll_degree_fold_plain(cp.verts, cp.edges, s, d, None), h_bound[0], SK_REPS)
+    t_c = kernel_timing(cpm, lambda cp: sko.cm_degree_fold(cp.grid, dd, ww, s, d, None), lambda: clone_state(cb),
+                        lambda cp: (sko.cm_fold_plain(cp.grid, dd, ww, s, None, None),
+                                    sko.cm_fold_plain(cp.grid, dd, ww, d, None, None)), c_bound[0], SK_REPS)
+    # the library calls on the same precomputed inputs: one scatter_reduce_ (amax) over both banks, one index_add_
+    fam = [sko.hash_u32(s, sko.SALT_VERTEX_HLL), sko.hash_u32(d, sko.SALT_VERTEX_HLL),
+           sko.hash_pair_u32(*sko.canonical_edge(s, d), sko.SALT_EDGE_HLL)]
+    p = m.bit_length() - 1
+    idx = torch.cat([f & (m - 1) for f in fam[:2]] + [(fam[2] & (m - 1)) + m])
+    rank = torch.cat([(33 - p - torch.frexp((f >> p).double()).exponent).to(torch.int32) for f in fam])
+    regs = torch.cat([hb.verts, hb.edges])
+    lib_h = cuda_ms(lambda: regs.scatter_reduce_(0, idx, rank, "amax"), SK_REPS)
+    if not torch.equal(regs, torch.cat(sko.hll_degree_fold_plain(hb.verts.clone(), hb.edges.clone(), s, d, None))):
+        raise RuntimeError("(a): the scatter_reduce_ yardstick does not compute the fold")
+    cols = torch.cat([r * ww + (sko.hash_u32(k, sko.SALT_CM_ROW + r) & (ww - 1)) for k in (s, d) for r in range(dd)])
+    ones = torch.ones(cols.shape, dtype=torch.int32, device=dev)
+    grid = cb.grid.clone()
+    lib_c = cuda_ms(lambda: grid.index_add_(0, cols, ones), SK_REPS, warmup=0)
+    del fam, idx, rank, cols, ones
+    for name, t, bnd, lib, err, launch in (("hll", t_h, h_bound, lib_h, err_h, "hll_fold"),
+                                           ("cm", t_c, c_bound, lib_c, err_c, "cm_fold")):
+        recs, secs, launches = runs[name]
+        res[name] = {**t, "launches": launches[launch], "err": err, "bound_by": bnd[1], "library_ms": lib,
+                     "s": secs, "edges_per_s": nb * batch / secs, "twin_s": twin_s[name], "busy_ms": busy[name],
+                     "idle_pct": 100 * (1 - busy[name] / (secs * 1e3)), "emissions": len(recs)}
+    res["hll"]["rel_err"] = {k: rel[k] for k in ("distinct_vertices", "distinct_edges")}
+    res["cm"]["rel_err"] = {k: rel[k] for k in ("top_k_overcount", "top_k_true_found")}
+    for name, label, what in (("hll", f"HLLDegreeSummary(eps={SK_HLL_EPS}) (m {m})",
+                               f"distinct vertices {v_est:.8g} (exact {exact_v}, rel err {rel['distinct_vertices']:+.3e}), "
+                               f"distinct edges {e_est:.8g} (exact {exact_e}, {rel['distinct_edges']:+.3e})"),
+                              ("cm", f"CountMinHeavyHitters{SK_CM} (d {dd}, w {ww})",
+                               f"top-{SK_CM[2]} estimates {est.min()}-{est.max()} against degrees "
+                               f"{deg[ids].min()}-{deg[ids].max()} (the most overcount {rel['top_k_overcount']:.4g}x a "
+                               f"degree; {rel['top_k_true_found']} of the true top {SK_CM[2]} found)")):
+        r = res[name]
+        log(f"  (a) {label} over phase 7's replay ({nb} x {batch} edges, C {c}, EF40, an emission every "
+            f"{SK_EMIT_BATCHES} batches): {r['s']:.4f} s end to end, {r['edges_per_s']:.6g} edges/s, "
+            f"{r['emissions']} emissions; launches {r['launches']}; every batch's state and every emission equal to "
+            f"the twin on the card (twin {r['twin_s']:.2f} s); the last batch: device {r['device_ms']:.5f} ms held, "
+            f"events {r['ms']:.5f} ms, host {r['host_us']:.2f} us a call, twin {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), {r['ratio']:.2f}x; library call {r['library_ms']:.5f} ms; "
+            f"the calls {r['busy_ms']:.3f} ms of device time (each held) against the run's {r['s'] * 1e3:.1f} ms: idle "
+            f"{r['idle_pct']:.2f}%")
+        log(f"      {what} (oracles {oracle_s:.1f} s; not asserted)")
+
+    # (b) SketchTriangleCount over edges drawn with repeats from phase 17 (e)'s ring at 2^13 vertices
+    rng_b = np.random.default_rng(5)
+    ring_s, ring_d = watts_strogatz(SK_TRI_VERTICES, 16, 0.1, rng_b)
+    pick = rng_b.integers(0, len(ring_s), SK_TRI_EDGES)
+    ws_s, ws_d = ring_s[pick], ring_d[pick]
+    nbt = SK_TRI_EDGES // SK_TRI_BATCH
+    cfg_b = StreamConfig(vertex_capacity=SK_TRI_VERTICES, batch_size=SK_TRI_BATCH,
+                         ingest_window_edges=SK_TRI_EMIT * SK_TRI_BATCH)
+    tagg = lsk.SketchTriangleCount(*SK_TRI)
+    stream = EdgeStream.from_arrays(ws_s, ws_d, cfg_b, device=dev)
+    if not tagg._wire_eligible(stream):
+        raise RuntimeError("(b): the triangle sketch must ride the wire path")
+    EdgeStream.from_arrays(ws_s[:SK_TRI_BATCH], ws_d[:SK_TRI_BATCH], cfg_b, device=dev).aggregate(tagg).collect()
+    sko.reset_launches()
+    recs, secs_t = timed_run(lambda: stream.aggregate(tagg).collect())
+    launches = dict(sko.LAUNCHES)
+    want = {"hll_fold": 0, "cm_fold": 0, "tri_fold": nbt, "tri_sampled_closures": nbt // SK_TRI_EMIT}
+    if launches != want or any(sko.TWIN_CALLS.values()) or len(recs) != nbt // SK_TRI_EMIT:
+        raise RuntimeError(f"(b): not one C call a batch and one closure count an emission: {launches}, "
+                           f"{len(recs)} emissions")
+    tk = tagg.initial_state(cfg_b, dev)
+    tt = clone_state(tk)
+    err_t, busy_t, twin_t, closure_check = 0.0, 0.0, 0.0, []
+    for i in range(nbt):
+        s, d = (torch.from_numpy(a[i * SK_TRI_BATCH:(i + 1) * SK_TRI_BATCH]).to(dev) for a in (ws_s, ws_d))
+        if i == nbt - 1:
+            before_t, last_t = clone_state(tk), (s, d)
+        busy_t += held_ms(lambda: tagg.update(tk, s, d, None, None), cpm)
+        t0 = time.perf_counter()
+        sko.tri_fold_plain(tt.eh, tt.elo, tt.ehi, s, d, None, tt.regs)
+        torch.cuda.synchronize()
+        twin_t += time.perf_counter() - t0
+        err_t = max(err_t, tensor_err(tuple(tk), tuple(tt)))
+        if (i + 1) % SK_TRI_EMIT == 0:
+            rec = recs[(i + 1) // SK_TRI_EMIT - 1]
+            twin_rec = sks.tri_estimate((tt.eh, tt.elo, tt.ehi), tt.regs,
+                                        sko.tri_sampled_closures_plain(tt.elo, tt.ehi))
+            err_t = max(err_t, tensor_err(rec, twin_rec))
+            got = int(sko.tri_sampled_closures(tk.elo, tk.ehi))
+            oracle, pairs = closures_oracle(tk.elo.cpu().numpy(), tk.ehi.cpu().numpy(), sko.SALT_MEMBER)
+            closure_check.append((got, oracle, pairs))
+            if got != oracle or not got:
+                raise RuntimeError(f"(b): batch {i}'s closure count {got} differs from the numpy oracle's {oracle}, "
+                                   "or the sample closes no wedge")
+    if err_t:
+        raise RuntimeError(f"(b): the sample or an emission differs from the twin on the card ({err_t})")
+    exact_tri = triangle_oracle(ws_s, ws_d, SK_TRI_VERTICES)[1]
+    est, occ, distinct = (float(x) for x in recs[-1])
+    n = SK_TRI_BATCH
+    rows, mt = tagg.rows, tagg.hll_m
+    t_bound = bound_pair(n * 8 + rows * 16 * 2 + mt * 4 * 2, n * (3 + 3 * PAIR_OPS + PAIR_OPS + RANK_OPS + 4))
+    t_t = kernel_timing(cpm, lambda cp: sko.tri_fold(cp.eh, cp.elo, cp.ehi, *last_t, None, cp.regs),
+                        lambda: clone_state(before_t),
+                        lambda cp: sko.tri_fold_plain(cp.eh, cp.elo, cp.ehi, *last_t, None, cp.regs), t_bound[0],
+                        SK_REPS)
+    valid = int((tk.elo != -1).sum())
+    c_bound = bound_pair(rows * 8 + 4, valid * PAIR_OPS + closure_check[-1][2] * (PAIR_OPS + 4))
+    t_cl = kernel_timing(cpm, lambda cp: sko.tri_sampled_closures(*cp), lambda: (tk.elo, tk.ehi),
+                         lambda cp: sko.tri_sampled_closures_plain(*cp), c_bound[0], SK_REPS)
+    res["tri"] = {**t_t, "launches": launches["tri_fold"], "err": err_t, "bound_by": t_bound[1], "s": secs_t,
+                  "edges_per_s": SK_TRI_EDGES / secs_t, "twin_s": twin_t, "busy_ms": busy_t,
+                  "idle_pct": 100 * (1 - busy_t / (secs_t * 1e3)), "emissions": len(recs), "estimate": est,
+                  "occupied": occ, "distinct_edges": distinct, "exact_triangles": exact_tri,
+                  "rel_err": (est - exact_tri) / exact_tri if exact_tri else None}
+    res["closures"] = {**t_cl, "launches": launches["tri_sampled_closures"], "err": err_t, "bound_by": c_bound[1],
+                       "closures_oracle": [list(x) for x in closure_check], "valid_rows": valid}
+    r, q = res["tri"], res["closures"]
+    log(f"  (b) SketchTriangleCount{SK_TRI} (R {rows}, M {mt}) over {SK_TRI_EDGES} edges drawn with repeats from "
+        f"phase 17 (e)'s Watts-Strogatz ring at C {SK_TRI_VERTICES} ({len(ring_s)} edges; batches of "
+        f"{SK_TRI_BATCH}, an emission every {SK_TRI_EMIT}): "
+        f"{secs_t:.4f} s end to end, {SK_TRI_EDGES / secs_t:.6g} edges/s; launches {launches}; every batch's sample "
+        f"and registers and every emission equal to the twin on the card (twin {twin_t:.2f} s); estimate {est:.8g} "
+        f"against scipy's {exact_tri} (rel err {r['rel_err']:+.3e}; not asserted), {occ:.0f} rows occupied, distinct "
+        f"edges {distinct:.8g}")
+    log(f"      tri_fold, the last batch: device {r['device_ms']:.5f} ms held, events {r['ms']:.5f} ms, host "
+        f"{r['host_us']:.2f} us a call, twin {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+        f"{r['ratio']:.2f}x; the calls {busy_t:.3f} ms of device time (each held) against the run's "
+        f"{secs_t * 1e3:.1f} ms: idle {r['idle_pct']:.2f}%")
+    log(f"      tri_sampled_closures, the final sample ({valid} valid rows): device {q['device_ms']:.5f} ms held, "
+        f"events {q['ms']:.5f} ms, host {q['host_us']:.2f} us a call, twin {q['plain_ms']:.3f} ms, bound "
+        f"{q['bound_ms']:.6f} ms ({q['bound_by']}), {q['ratio']:.1f}x; (count, numpy oracle, sharing pairs) at each "
+        f"emission {closure_check}")
+
+    # (c) the reference's accuracy contracts at its own shapes (tests/test_sketches.py:113-170)
+    def skewed(n_, cap, seed):
+        rng = np.random.default_rng(seed)
+        comm = max(cap >> 14, 64)
+        cbase = ((cap * rng.random(n_) ** 2).astype(np.int64) // comm) * comm
+        s_ = cbase + (comm * rng.random(n_) ** 2).astype(np.int64)
+        d_ = cbase + (comm * rng.random(n_) ** 4).astype(np.int64)
+        return (s_ % cap).astype(np.int32), (d_ % cap).astype(np.int32)
+
+    def one_run(agg, s_, d_, cap, b):
+        cfg_c = StreamConfig(vertex_capacity=cap, batch_size=b, ingest_window_edges=len(s_))
+        return EdgeStream.from_arrays(s_, d_, cfg_c, device=dev).aggregate(agg).collect()[-1]
+
+    rng = np.random.default_rng(5)
+    s_, d_ = rng.integers(0, 4096, 20_000).astype(np.int32), rng.integers(0, 4096, 20_000).astype(np.int32)
+    agg = lsk.HLLDegreeSummary(eps=0.05, delta=0.05)
+    v, e = (float(x) for x in one_run(agg, s_, d_, 4096, 2048))
+    ev = len(np.unique(np.concatenate([s_, d_])))
+    ee = len(np.unique(np.minimum(s_, d_).astype(np.int64) * 4096 + np.maximum(s_, d_)))
+    contract = {"hll": (abs(v - ev) / ev, abs(e - ee) / ee)}
+    if not (contract["hll"][0] < agg.eps and contract["hll"][1] < agg.eps):
+        raise RuntimeError(f"(c): HLLDegreeSummary outside its contract: {contract['hll']}")
+    s_, d_ = skewed(20_000, 512, 9)
+    agg = lsk.CountMinHeavyHitters(eps=0.01, delta=0.02, top_k=16)
+    ids, est_c = (x.cpu().numpy() for x in one_run(agg, s_, d_, 512, 2048))
+    deg_c = np.bincount(s_, minlength=512) + np.bincount(d_, minlength=512)
+    contract["cm"] = int((est_c - deg_c[ids]).max())
+    if not (np.all(est_c >= deg_c[ids]) and np.all(est_c - deg_c[ids] <= agg.eps * 2 * 20_000)
+            and set(np.argsort(deg_c)[-8:].tolist()) <= set(ids.tolist())):
+        raise RuntimeError("(c): CountMinHeavyHitters outside its contract")
+    s_, d_ = skewed(40 << 10, 256, 7)
+    agg = lsk.SketchTriangleCount(eps=0.05, delta=0.05)
+    est_t = float(one_run(agg, s_, d_, 256, 1 << 12)[0])
+    adj = np.zeros((256, 256), dtype=np.int64)
+    keep = s_ != d_
+    adj[s_[keep], d_[keep]] = 1
+    adj = np.maximum(adj, adj.T)
+    exact_c = int(np.trace(adj @ adj @ adj)) // 6
+    contract["tri"] = abs(est_t - exact_c) / exact_c
+    if not (exact_c > 0 and contract["tri"] < agg.eps):
+        raise RuntimeError(f"(c): SketchTriangleCount outside its contract: {contract['tri']}")
+    # the same sample in one C call (the fold is order-free): its closures against the numpy oracle
+    st = agg.initial_state(StreamConfig(vertex_capacity=256), dev)
+    agg.update(st, torch.from_numpy(s_).to(dev), torch.from_numpy(d_).to(dev), None, None)
+    closed = int(sko.tri_sampled_closures(st.elo, st.ehi))
+    contract["tri_closures"] = (closed, *closures_oracle(st.elo.cpu().numpy(), st.ehi.cpu().numpy(), sko.SALT_MEMBER))
+    if closed != contract["tri_closures"][1] or not closed or float(agg.transform(st)[0]) != est_t:
+        raise RuntimeError(f"(c): the dense sample's closures {contract['tri_closures']} (count, oracle, pairs) or "
+                           "estimate differ")
+    res["contracts"] = contract
+    log(f"  (c) the reference's contracts on the card: HLL rel errs {contract['hll'][0]:.3e} / "
+        f"{contract['hll'][1]:.3e} (< 0.05), count-min the most overcount {contract['cm']} (<= {0.01 * 2 * 20_000:g}, "
+        f"never under, the true top 8 found), triangles {est_t:.8g} against {exact_c} (rel err {contract['tri']:.3e} "
+        f"< 0.05; the sample's closures {closed} equal to the numpy oracle over {contract['tri_closures'][2]} "
+        f"sharing pairs): all held")
+    res["s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {res['s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -6263,6 +6631,8 @@ def main(argv=None) -> int:
     wrap = {"spanner": parent_spanner_call, "sampler": parent_sampler_call, "matching": parent_matching_call}
     sm = phase_summaries(dev, cpm, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
                                     for k, path in parent_sum_cu.items()})
+    log("phase 18: the fixed-state sketches (HLL, count-min, the min-hash triangle sample) on the card")
+    sk = phase_sketches(dev, cpm, data)
 
     kernels = [
         {
@@ -6462,6 +6832,33 @@ def main(argv=None) -> int:
          **{k: smp[k] for k in ("edges_per_s", "ratio", "estimate", "coins", "split_us", "twin_s", "idle_pct",
                                 "busy_ms", "op_host_us", "host_chain_ns_a_hash", "host_cpu", "chain_ahead_ms",
                                 "keys_ready_while_card_busy", "batches", "turns_batches") if k in smp}},
+    ]
+    sketches_py = "gelly_streaming_tpu/summaries/sketches.py"
+    kernels += [
+        {**entry("hll_fold", "sketches.cu", f"{sketches_py}:112", sk["hll"], sk["hll"]["library_ms"]),
+         "bound_by": sk["hll"]["bound_by"],
+         "library_call": "Tensor.scatter_reduce_(0, idx, rank, 'amax') over both banks, registers and ranks "
+                         "precomputed",
+         "timed": "(a)'s last batch: HLLDegreeSummary.update's C call (three key families), each call on its own copy",
+         **{k: sk["hll"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
+                                       "rel_err")}},
+        {**entry("cm_fold", "sketches.cu", f"{sketches_py}:175", sk["cm"], sk["cm"]["library_ms"]),
+         "bound_by": sk["cm"]["bound_by"],
+         "library_call": "Tensor.index_add_ of ones at the precomputed flat columns of both endpoints' d rows",
+         "timed": "(a)'s last batch: CountMinHeavyHitters.update's C call (src, then dst), each call on its own copy",
+         **{k: sk["cm"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
+                                      "rel_err")}},
+        {**entry("tri_fold", "sketches.cu", f"{sketches_py}:251", sk["tri"]), "bound_by": sk["tri"]["bound_by"],
+         "also_replaces": f"{sketches_py}:239 (tri_merge); {sketches_py}:112 (hll_fold of the edge registers)",
+         "library_call": no_call,
+         "timed": "(b)'s last batch: SketchTriangleCount.update's C call, each call on its own copy",
+         **{k: sk["tri"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
+                                       "estimate", "exact_triangles", "rel_err", "occupied")}},
+        {**entry("tri_sampled_closures", "sketches.cu", f"{sketches_py}:341", sk["closures"]),
+         "bound_by": sk["closures"]["bound_by"], "library_call": no_call,
+         "timed": "(b)'s final sample, once an emission on the main path",
+         **{k: sk["closures"][k] for k in ("ratio", "closures_oracle", "valid_rows")},
+         "contracts": sk["contracts"], "phase_s": sk["s"]},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,8 @@ with its optax Adam moments through ``sage_train_state_from_numpy``; the
 spanner's, the matching's and the samplers' states through
 ``spanner_state_from_numpy``, ``matching_state_from_numpy`` and
 ``sampler_state_from_numpy``, the samplers' key as the uint32 key data of
-``jax.random.key_data``).  Packed
+``jax.random.key_data``; the three sketch states through
+``sketch_state_from_numpy``).  Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.  ``config_from_dict`` carries every
 field the port's config has, among them the SpMV core's direction knobs
@@ -33,6 +34,7 @@ from gelly_streaming_tpu_torch.library.connected_components import CCState
 from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistState, DegreeSummaryState
 from gelly_streaming_tpu_torch.library.graphsage import SageParams, SageTrainState, _train_state
 from gelly_streaming_tpu_torch.library.matching import MatchingState
+from gelly_streaming_tpu_torch.library.sketches import CountMinState, HLLDegreeState, TriangleSketchState
 from gelly_streaming_tpu_torch.library.spanner import SpannerState
 from gelly_streaming_tpu_torch.ops.exact_triangles import TriangleCountState
 from gelly_streaming_tpu_torch.ops.neighbors import NeighborTable
@@ -246,3 +248,43 @@ def sampler_state_from_numpy(key, edge, third, closed_a, closed_b, edges_seen, s
         edges_seen=torch.tensor(int(np.asarray(edges_seen)), dtype=torch.int32, device=dev),
         seen=torch.from_numpy(seen.copy()).to(dev),
     )
+
+
+def _registers(x, name: str) -> np.ndarray:
+    a = _int32_vector(x, name)
+    if len(a) < 1 or len(a) & (len(a) - 1) or (a < 0).any():
+        raise ValueError(f"{name} must be non-negative int32 registers of a power-of-two length, got {a.shape}")
+    return a
+
+
+def sketch_state_from_numpy(arrays: Mapping, device: DeviceLike = None):
+    """A sketch state on ``device`` from host arrays keyed by the JAX
+    state's field names (``{f: np.asarray(v) for f, v in
+    state._asdict().items()}``): ``eh`` uint32 [R], ``elo``, ``ehi``
+    int32 [R] and ``regs`` int32 [M] give a ``TriangleSketchState`` (its
+    ``eh`` as int64 lanes of the u32 hashes); ``verts`` and ``edges``
+    int32 [M] an ``HLLDegreeState``; ``grid`` int32 [d * w] a
+    ``CountMinState``."""
+    fields = set(arrays)
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    if fields == set(TriangleSketchState._fields):
+        eh = np.asarray(arrays["eh"])
+        if eh.dtype != np.uint32 or eh.ndim != 1 or len(eh) < 1 or len(eh) & (len(eh) - 1):
+            raise ValueError(f"eh must be uint32 hashes of a power-of-two length, got {eh.dtype} {eh.shape}")
+        elo, ehi = _int32_vector(arrays["elo"], "elo"), _int32_vector(arrays["ehi"], "ehi")
+        if elo.shape != eh.shape or ehi.shape != eh.shape:
+            raise ValueError(f"eh, elo and ehi differ in shape: {eh.shape}, {elo.shape}, {ehi.shape}")
+        return TriangleSketchState(eh=put(eh.astype(np.int64)), elo=put(elo), ehi=put(ehi),
+                                   regs=put(_registers(arrays["regs"], "regs")))
+    if fields == set(HLLDegreeState._fields):
+        verts, edges = _registers(arrays["verts"], "verts"), _registers(arrays["edges"], "edges")
+        if verts.shape != edges.shape:
+            raise ValueError(f"verts and edges differ in shape: {verts.shape} and {edges.shape}")
+        return HLLDegreeState(verts=put(verts), edges=put(edges))
+    if fields == set(CountMinState._fields):
+        return CountMinState(grid=put(_int32_vector(arrays["grid"], "grid")))
+    raise ValueError(f"no sketch state has the fields {sorted(fields)}")

@@ -17,6 +17,14 @@ from gelly_streaming_tpu_torch.library.sampled_triangles import (
     BroadcastTriangleCount,
     IncidenceSamplingTriangleCount,
 )
+from gelly_streaming_tpu_torch.library.sketches import (
+    SKETCH_KINDS,
+    CountMinHeavyHitters,
+    HLLDegreeSummary,
+    SketchParamError,
+    SketchTriangleCount,
+    make_sketch,
+)
 from gelly_streaming_tpu_torch.library.spanner import Spanner
 from gelly_streaming_tpu_torch.library.sssp import sssp_windows, windowed_sssp
 from gelly_streaming_tpu_torch.library.triangles import GLOBAL_KEY, ExactTriangleCount
@@ -24,15 +32,21 @@ from gelly_streaming_tpu_torch.library.triangles import GLOBAL_KEY, ExactTriangl
 __all__ = [
     "BroadcastTriangleCount",
     "CentralizedWeightedMatching",
+    "CountMinHeavyHitters",
     "ExactTriangleCount",
     "GLOBAL_KEY",
     "GraphSAGEWindows",
+    "HLLDegreeSummary",
     "IncidenceSamplingTriangleCount",
     "IterativeConnectedComponents",
     "SageParams",
+    "SKETCH_KINDS",
     "SageTrainState",
+    "SketchParamError",
+    "SketchTriangleCount",
     "Spanner",
     "core_numbers_windows",
+    "make_sketch",
     "pagerank_windows",
     "sage_init_train",
     "sage_train_step",

@@ -204,6 +204,25 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # thresholds, coin, finish, hits and seen kernels
         "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _L, _P],
     },
+    "sketches.cu": {
+        # regs, m, keys int64 (u32 hashes), mask | None, n, stream
+        "hll_fold_launch": [_P, _I, _P, _P, _I, _P],
+        # verts, edges, m, src, dst, mask | None, n, stream: the three key
+        # families of HLLDegreeSummary in one launch
+        "hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P],
+        # grid, d, w, keys, keys_b | None (dst), counts | None, mask | None,
+        # n, stream
+        "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
+        # rows: the scratch bytes of tri_fold_launch
+        "tri_fold_scratch_bytes": [_I],
+        # eh, elo, ehi, rows, regs | None, m, src, dst, mask | None, n,
+        # scratch, scratch bytes, stream: a memset, the key, hi and merge
+        # kernels
+        "tri_fold_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _L, _P],
+        # elo, ehi, rows, out int32[1], counter int32[1], stream: a memset,
+        # the strip kernel, the halving kernel
+        "tri_closures_launch": [_P, _P, _I, _P, _P, _P],
+    },
 }
 
 # host C sources (built by the host compiler): name -> (argtypes, restype)
@@ -221,7 +240,7 @@ RESTYPES: Dict[str, type] = {
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
-    "matching_scratch_bytes": _L,
+    "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L,
 }
 
 

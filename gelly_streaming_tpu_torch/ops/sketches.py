@@ -1,0 +1,445 @@
+"""The fixed-state sketches' kernels: the wrappers of ``csrc/sketches.cu``,
+their plain twins, and the salted hashes both compute.
+
+Replaces four XLA loops of ``gelly_streaming_tpu/summaries/sketches.py``:
+``hll_fold`` (:112-126, a scatter-max of ranks into HLL registers),
+``cm_fold`` (:175-183, d salted scatter-adds into a count-min grid),
+``tri_fold`` with ``tri_merge`` (:226-287, each bucket's lexicographic
+argmin of (sample hash, lo, hi) merged into the R-row min-hash sample) and
+``tri_sampled_closures`` (:296-368, the closed wedges among the sampled
+rows).
+
+The hashes are murmur3's fmix32 with the JAX package's salts, on u32
+lanes.  PyTorch has no unsigned 32-bit arithmetic on the CPU, so here a
+hash is an int64 tensor holding the u32 value, products are taken in 16-bit
+halves so that no int64 product overflows, and ids are hashed by their
+two's-complement bits (ids outside [0, C), negative ones included, hash
+like any other: they are never indexed).
+
+On CUDA tensors each wrapper is one C call: ``hll_fold`` (precomputed
+hashes), ``hll_degree_fold`` (HLLDegreeSummary's three key families in one
+launch), ``cm_fold`` and ``cm_degree_fold`` (src, then dst), ``tri_fold``
+(the sample and, given ``regs``, the distinct-edge registers) and
+``tri_sampled_closures``.  On CPU tensors they run the twins, the JAX
+formulas in plain PyTorch.  The folds update their state in place and
+return it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from gelly_streaming_tpu_torch.ops import _cuda
+
+_SOURCE = "sketches.cu"
+
+# golden-ratio odd constant: distinct salts decorrelate the hash families
+GOLDEN = 0x9E3779B9
+#: identity of the min-hash lattice: an empty sample row
+EMPTY_HASH = 0xFFFFFFFF
+#: sentinel endpoint of an empty sample row
+EMPTY_VERTEX = -1
+
+# hash-family salts (the JAX package's)
+SALT_BUCKET = 0x2545F491  # which of the R buckets an edge belongs to
+SALT_SAMPLE = 0x9E4C1B3B  # the within-bucket min-hash ranking
+SALT_MEMBER = 0x61C88647  # membership keys of the emission's closure check
+SALT_CM_ROW = 0x7FEB352D  # count-min per-row hash family base
+SALT_EDGE_HLL = 0x45D9F3B5  # distinct-edge cardinality registers
+SALT_VERTEX_HLL = 0x119DE1F3  # distinct-vertex cardinality registers
+
+#: closure-check strip height (csrc/sketches.cu's STRIP)
+TRI_CLOSURE_BLOCK = 32
+
+_M32 = 0xFFFFFFFF
+_I32_MAX = (1 << 31) - 1
+
+# C calls since the last reset_launches() (CUDA tensors only), and the
+# wrappers' twin calls (CPU tensors only)
+KERNELS = ("hll_fold", "cm_fold", "tri_fold", "tri_sampled_closures")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+TWIN_CALLS: Dict[str, int] = {k: 0 for k in KERNELS}
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, TWIN_CALLS):
+        for name in counts:
+            counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the hashes, on int64 lanes holding u32 values
+
+
+def as_u32(x: torch.Tensor) -> torch.Tensor:
+    """The u32 bits of integer lanes, as int64 in [0, 2^32)."""
+    return x.to(torch.int64) & _M32
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32), in 16-bit halves of c."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 finalizer on u32 lanes (full avalanche)."""
+    x = as_u32(x)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _salted(salt: int) -> int:
+    return (salt * GOLDEN) & _M32
+
+
+def hash_u32(x: torch.Tensor, salt: int) -> torch.Tensor:
+    """Salted 32-bit hash of integer lanes."""
+    return mix32(as_u32(x) ^ _salted(salt))
+
+
+def hash_pair_u32(lo: torch.Tensor, hi: torch.Tensor, salt: int) -> torch.Tensor:
+    """Salted 32-bit hash of canonical (lo, hi) vertex pairs."""
+    h = mix32(as_u32(lo) ^ _salted(salt))
+    return mix32(h ^ _mul32(as_u32(hi), GOLDEN))
+
+
+def canonical_edge(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) with lo <= hi: undirected edge identity."""
+    return torch.minimum(src, dst), torch.maximum(src, dst)
+
+
+def _log2(n: int, what: str) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{what} must be a power of two, got {n}")
+    return n.bit_length() - 1
+
+
+def _kept(mask: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(like.shape, dtype=torch.bool, device=like.device) if mask is None else mask
+
+
+# ---------------------------------------------------------------------------
+# the plain twins: the JAX formulas
+
+
+def hll_fold_plain(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Scatter-max of each kept key's rank into register ``key & (m - 1)``:
+    rank = clz32(key >> p) - p + 1 (33 - p where key >> p is 0)."""
+    m = regs.shape[0]
+    p = _log2(m, "the register count")
+    k = as_u32(keys)
+    # clz32(v) = 32 - bit length; frexp's exponent is the bit length (v < 2^53)
+    bits = torch.frexp((k >> p).to(torch.float64)).exponent.to(torch.int64)
+    rank = torch.where(_kept(mask, k), 33 - p - bits, 0).to(torch.int32)
+    return regs.scatter_reduce_(0, k & (m - 1), rank, "amax")
+
+
+def cm_fold_plain(grid: torch.Tensor, d: int, w: int, keys: torch.Tensor, counts: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each kept key's count (1 where ``counts`` is None) added into its
+    column of every row (int32, wrapping)."""
+    cnt = torch.ones(keys.shape, dtype=torch.int32, device=keys.device) if counts is None else counts.to(torch.int32)
+    cnt = torch.where(_kept(mask, keys), cnt, 0)
+    for r in range(d):
+        col = hash_u32(keys, SALT_CM_ROW + r) & (w - 1)
+        grid.index_add_(0, r * w + col, cnt)
+    return grid
+
+
+def hll_degree_fold_plain(verts, edges, src, dst, mask):
+    """``HLLDegreeSummary.update``: src and dst vertex hashes into
+    ``verts``, the canonical edge's hash into ``edges``, all under
+    ``mask`` (self-loops included)."""
+    hll_fold_plain(verts, hash_u32(src, SALT_VERTEX_HLL), mask)
+    hll_fold_plain(verts, hash_u32(dst, SALT_VERTEX_HLL), mask)
+    lo, hi = canonical_edge(src, dst)
+    hll_fold_plain(edges, hash_pair_u32(lo, hi, SALT_EDGE_HLL), mask)
+    return verts, edges
+
+
+def row_take(eh_a, elo_a, ehi_a, eh_b, elo_b, ehi_b) -> torch.Tensor:
+    """True where row b lexicographically precedes row a on (hash, lo,
+    hi): the hash unsigned (int64 lanes), lo and hi signed."""
+    return (eh_b < eh_a) | ((eh_b == eh_a) & ((elo_b < elo_a) | ((elo_b == elo_a) & (ehi_b < ehi_a))))
+
+
+def tri_merge(a, b):
+    """Rowwise lexicographic min of two samples (eh, elo, ehi): new
+    tensors (commutative, idempotent)."""
+    take = row_take(*a, *b)
+    return tuple(torch.where(take, y, x) for x, y in zip(a, b))
+
+
+def tri_fold_plain(eh, elo, ehi, src, dst, mask, regs=None):
+    """Each bucket's lexicographic argmin of (sample hash, lo, hi) over the
+    kept non-self-loop edges, merged rowwise into (eh, elo, ehi) in
+    place; given ``regs``, the canonical edges' hashes folded into them
+    under the same mask.  Returns (eh, elo, ehi)."""
+    rows = eh.shape[0]
+    _log2(rows, "the sample's rows")
+    lo, hi = canonical_edge(src, dst)
+    ok = _kept(mask, lo) & (lo != hi)  # self-loops close no wedges
+    if regs is not None:
+        hll_fold_plain(regs, hash_pair_u32(lo, hi, SALT_EDGE_HLL), ok)
+    bucket = hash_pair_u32(lo, hi, SALT_BUCKET) & (rows - 1)
+    s = torch.where(ok, hash_pair_u32(lo, hi, SALT_SAMPLE), EMPTY_HASH)
+    # the lexicographic argmin a bucket: the least hash, then the least lo
+    # among the hash's winners, then the least hi among (hash, lo)'s
+    bmin = torch.full((rows,), EMPTY_HASH, dtype=torch.int64, device=eh.device).scatter_reduce_(
+        0, bucket, s, "amin")
+    on_h = ok & (s == bmin[bucket])
+    blo = torch.full((rows,), _I32_MAX, dtype=torch.int32, device=eh.device).scatter_reduce_(
+        0, bucket, torch.where(on_h, lo, _I32_MAX), "amin")
+    on_hl = on_h & (lo == blo[bucket])
+    bhi = torch.full((rows,), _I32_MAX, dtype=torch.int32, device=eh.device).scatter_reduce_(
+        0, bucket, torch.where(on_hl, hi, _I32_MAX), "amin")
+    won = bmin != EMPTY_HASH  # a sample hash of 0xFFFFFFFF is never kept
+    winner = (bmin, torch.where(won, blo, EMPTY_VERTEX), torch.where(won, bhi, EMPTY_VERTEX))
+    for old, new in zip((eh, elo, ehi), tri_merge((eh, elo, ehi), winner)):
+        old.copy_(new)
+    return eh, elo, ehi
+
+
+def tri_sampled_closures_plain(elo: torch.Tensor, ehi: torch.Tensor) -> torch.Tensor:
+    """The closed wedges among the sampled rows // 2 (int32 0-d), strip by
+    strip as the JAX package enumerates them: for each ordered pair of
+    valid rows (i != j) sharing a vertex, with distinct other endpoints,
+    is the closing edge's member hash among the sorted member hashes?"""
+    rows = elo.shape[0]
+    block = min(TRI_CLOSURE_BLOCK, rows)
+    valid = elo != EMPTY_VERTEX
+    keys = torch.sort(torch.where(valid, hash_pair_u32(elo, ehi, SALT_MEMBER), EMPTY_HASH)).values
+    col = torch.arange(rows, device=elo.device)
+    lo_j, hi_j = elo[None, :], ehi[None, :]
+    total = torch.zeros((), dtype=torch.int64, device=elo.device)
+    for start in range(0, rows, block):
+        sl = slice(start, start + block)
+        lo_i, hi_i, v_i = elo[sl, None], ehi[sl, None], valid[sl, None]
+        shape = (lo_i.shape[0], rows)
+        shared = torch.zeros(shape, dtype=torch.bool, device=elo.device)
+        close_a = torch.zeros(shape, dtype=elo.dtype, device=elo.device)
+        close_b = torch.zeros(shape, dtype=elo.dtype, device=elo.device)
+        # distinct canonical edges share at most one vertex: the first case
+        # that holds names the closing pair
+        for cond, a, b in ((lo_i == lo_j, hi_i, hi_j), (lo_i == hi_j, hi_i, lo_j), (hi_i == lo_j, lo_i, hi_j),
+                           (hi_i == hi_j, lo_i, lo_j)):
+            pick = cond & ~shared
+            close_a = torch.where(pick, a.expand(shape), close_a)
+            close_b = torch.where(pick, b.expand(shape), close_b)
+            shared = shared | cond
+        not_self = (start + torch.arange(lo_i.shape[0], device=elo.device))[:, None] != col[None, :]
+        pair_ok = v_i & valid[None, :] & shared & not_self & (close_a != close_b)
+        ckey = hash_pair_u32(torch.minimum(close_a, close_b), torch.maximum(close_a, close_b), SALT_MEMBER)
+        pos = torch.searchsorted(keys, ckey).clamp_(0, rows - 1)
+        total += (pair_ok & (keys[pos] == ckey) & (ckey != EMPTY_HASH)).sum()
+    # each ordered pair counted twice; each triangle has 3 unordered pairs
+    return (total // 2).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+
+
+def _check_ids(dev, n, *named) -> None:
+    for t, name in named:
+        if t is None:
+            continue
+        if t.dim() != 1 or t.shape[0] != n or t.device != dev:
+            raise ValueError(f"{name} must be a 1-D tensor of {n} rows on {dev}")
+
+
+def _check_mask(mask, n, dev) -> None:
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (n,) or mask.device != dev):
+        raise ValueError(f"mask must be a bool tensor of {n} rows on {dev}, or None")
+
+
+def _check_regs(regs, name: str = "regs") -> None:
+    if regs.dtype != torch.int32 or regs.dim() != 1 or not regs.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 [m] tensor")
+    _log2(regs.shape[0], f"{name}' length")
+
+
+def _check_int32(t, name: str) -> None:
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _dense(*ts):
+    """Contiguous copies of ``ts`` (None stays None).  The caller binds
+    them to locals that outlive the C call: a copy made inside the call's
+    argument list is freed as soon as its ``data_ptr()`` is taken, and the
+    allocator may hand its block to the next copy before the launch."""
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
+def hll_fold(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Fold hashed keys (int64 lanes of u32 hashes: ``hash_u32`` /
+    ``hash_pair_u32``) into the int32 registers ``regs`` [m] in place;
+    ``mask`` None keeps every row.  Returns ``regs``."""
+    _check_regs(regs)
+    dev = regs.device
+    n = keys.shape[0] if keys.dim() == 1 else -1
+    _check_ids(dev, n, (keys, "keys"))
+    _check_mask(mask, n, dev)
+    if keys.dtype != torch.int64:
+        raise ValueError("keys must be int64 lanes of u32 hashes")
+    if dev.type != "cuda":
+        TWIN_CALLS["hll_fold"] += 1
+        return hll_fold_plain(regs, keys, mask)
+    keys_c, mask_c = _dense(keys, mask)
+    err = _cuda.library(_SOURCE).hll_fold_launch(regs.data_ptr(), regs.shape[0], keys_c.data_ptr(), _ptr(mask_c), n,
+                                                  _stream(dev))
+    _cuda.check(err, "hll_fold_launch")
+    LAUNCHES["hll_fold"] += 1
+    return regs
+
+
+def hll_degree_fold(verts: torch.Tensor, edges: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``HLLDegreeSummary.update`` in place: the src and dst vertex hashes
+    into ``verts``, the canonical edge's hash into ``edges`` (both int32
+    [m]), under ``mask`` (self-loops included); one C call."""
+    _check_regs(verts, "verts")
+    _check_regs(edges, "edges")
+    dev = verts.device
+    if edges.shape != verts.shape or edges.device != dev:
+        raise ValueError("verts and edges must be register banks of one length on one device")
+    n = src.shape[0]
+    _check_ids(dev, n, (src, "src"), (dst, "dst"))
+    _check_int32(src, "src")
+    _check_int32(dst, "dst")
+    _check_mask(mask, n, dev)
+    if dev.type != "cuda":
+        TWIN_CALLS["hll_fold"] += 1
+        return hll_degree_fold_plain(verts, edges, src, dst, mask)
+    src_c, dst_c, mask_c = _dense(src, dst, mask)
+    err = _cuda.library(_SOURCE).hll_degree_launch(
+        verts.data_ptr(), edges.data_ptr(), verts.shape[0], src_c.data_ptr(), dst_c.data_ptr(), _ptr(mask_c), n,
+        _stream(dev))
+    _cuda.check(err, "hll_degree_launch")
+    LAUNCHES["hll_fold"] += 1
+    return verts, edges
+
+
+def _cm_call(grid, d, w, keys_a, keys_b, counts, mask):
+    if grid.dtype != torch.int32 or grid.dim() != 1 or not grid.is_contiguous() or grid.shape[0] != d * w:
+        raise ValueError(f"grid must be a contiguous int32 [d * w] = [{d * w}] tensor")
+    if not 1 <= d:
+        raise ValueError(f"d must be at least 1, got {d}")
+    _log2(w, "w")
+    dev = grid.device
+    n = keys_a.shape[0] if keys_a.dim() == 1 else -1
+    _check_ids(dev, n, (keys_a, "keys"), (keys_b, "dst"), (counts, "counts"))
+    for t, name in ((keys_a, "keys"), (keys_b, "dst")):
+        if t is not None:
+            _check_int32(t, name)
+    _check_mask(mask, n, dev)
+    if dev.type != "cuda":
+        TWIN_CALLS["cm_fold"] += 1
+        cm_fold_plain(grid, d, w, keys_a, counts, mask)
+        return grid if keys_b is None else cm_fold_plain(grid, d, w, keys_b, counts, mask)
+    a_c, b_c, mask_c = _dense(keys_a, keys_b, mask)
+    cnt_c = None if counts is None else counts.to(torch.int32).contiguous()
+    err = _cuda.library(_SOURCE).cm_fold_launch(grid.data_ptr(), d, w, a_c.data_ptr(), _ptr(b_c), _ptr(cnt_c),
+                                                _ptr(mask_c), n, _stream(dev))
+    _cuda.check(err, "cm_fold_launch")
+    LAUNCHES["cm_fold"] += 1
+    return grid
+
+
+def cm_fold(grid: torch.Tensor, d: int, w: int, keys: torch.Tensor, counts: Optional[torch.Tensor],
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Add each kept key's count (``counts`` None: 1) into its column of
+    all d rows of the flat int32 grid [d * w], in place (int32, wrapping);
+    ``keys`` are int32 ids.  Returns ``grid``."""
+    return _cm_call(grid, d, w, keys, None, counts, mask)
+
+
+def cm_degree_fold(grid: torch.Tensor, d: int, w: int, src: torch.Tensor, dst: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``CountMinHeavyHitters.update`` in place: 1 for src, then 1 for
+    dst, into every row; one C call."""
+    return _cm_call(grid, d, w, src, dst, None, mask)
+
+
+def _tri_scratch(dev, rows: int) -> torch.Tensor:
+    key = (dev, rows)
+    buf = _scratch.get(key)
+    if buf is None:
+        nbytes = int(_cuda.library(_SOURCE).tri_fold_scratch_bytes(rows))
+        buf = _scratch[key] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    return buf
+
+
+def _check_sample(eh, elo, ehi) -> None:
+    dev = eh.device
+    if eh.dtype != torch.int64 or eh.dim() != 1 or not eh.is_contiguous():
+        raise ValueError("eh must be a contiguous int64 [R] tensor of u32 hashes")
+    for t, name in ((elo, "elo"), (ehi, "ehi")):
+        if t.dtype != torch.int32 or t.shape != eh.shape or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous int32 tensor of eh's shape on {dev}")
+    _log2(eh.shape[0], "the sample's rows")
+
+
+def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+             mask: Optional[torch.Tensor], regs: Optional[torch.Tensor] = None):
+    """Fold an edge batch into the R-row min-hash sample (eh int64, elo,
+    ehi int32 [R]) in place; given ``regs`` (int32 [m]), also the
+    canonical edges' hashes into those distinct-edge registers under
+    ``mask & (lo != hi)``; one C call.  Returns (eh, elo, ehi)."""
+    _check_sample(eh, elo, ehi)
+    dev = eh.device
+    if regs is not None:
+        _check_regs(regs)
+        if regs.device != dev:
+            raise ValueError(f"regs must be on {dev}")
+    n = src.shape[0]
+    _check_ids(dev, n, (src, "src"), (dst, "dst"))
+    _check_int32(src, "src")
+    _check_int32(dst, "dst")
+    _check_mask(mask, n, dev)
+    if dev.type != "cuda":
+        TWIN_CALLS["tri_fold"] += 1
+        return tri_fold_plain(eh, elo, ehi, src, dst, mask, regs)
+    scratch = _tri_scratch(dev, eh.shape[0])
+    src_c, dst_c, mask_c = _dense(src, dst, mask)
+    err = _cuda.library(_SOURCE).tri_fold_launch(
+        eh.data_ptr(), elo.data_ptr(), ehi.data_ptr(), eh.shape[0], _ptr(regs), 0 if regs is None else regs.shape[0],
+        src_c.data_ptr(), dst_c.data_ptr(), _ptr(mask_c), n, scratch.data_ptr(), scratch.numel(), _stream(dev))
+    _cuda.check(err, "tri_fold_launch")
+    LAUNCHES["tri_fold"] += 1
+    return eh, elo, ehi
+
+
+def tri_sampled_closures(elo: torch.Tensor, ehi: torch.Tensor) -> torch.Tensor:
+    """The closed wedges among the sampled rows // 2 (three times the
+    fully sampled triangle count), an int32 0-d tensor on their device."""
+    if elo.dtype != torch.int32 or elo.dim() != 1 or ehi.dtype != torch.int32 or ehi.shape != elo.shape \
+            or ehi.device != elo.device:
+        raise ValueError("elo and ehi must be int32 [R] tensors on one device")
+    _log2(elo.shape[0], "the sample's rows")
+    dev = elo.device
+    if dev.type != "cuda":
+        TWIN_CALLS["tri_sampled_closures"] += 1
+        return tri_sampled_closures_plain(elo, ehi)
+    out = torch.empty((2,), dtype=torch.int32, device=dev)  # [0]: the result, [1]: the counter
+    elo_c, ehi_c = _dense(elo, ehi)
+    err = _cuda.library(_SOURCE).tri_closures_launch(elo_c.data_ptr(), ehi_c.data_ptr(), elo.shape[0], out.data_ptr(),
+                                                     out[1:].data_ptr(), _stream(dev))
+    _cuda.check(err, "tri_closures_launch")
+    LAUNCHES["tri_sampled_closures"] += 1
+    return out[0]

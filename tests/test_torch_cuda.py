@@ -2364,3 +2364,244 @@ def test_sampled_triangles_run_on_the_card_matches_the_cpu(cuda_device):
     got = [BroadcastTriangleCount(300).run(EdgeStream.from_arrays(src, dst, cfg, device=dev)).collect()
            for dev in ("cpu", cuda_device)]
     assert got[0] == got[1] and got[0][-1][0] > 0
+
+
+# the sketches (ops/sketches.py): hll_fold, cm_fold, tri_fold, tri_sampled_closures
+
+
+def _unmix32(y: int) -> int:
+    """The x with fmix32(x) == y (fmix32 is a bijection on u32)."""
+    m = 0xFFFFFFFF
+    y ^= y >> 16
+    y = (y * pow(0xC2B2AE35, -1, 1 << 32)) & m
+    y ^= (y >> 13) ^ (y >> 26)
+    y = (y * pow(0x85EBCA6B, -1, 1 << 32)) & m
+    return y ^ (y >> 16)
+
+
+def _edges_with_sample_hash(target: int, los: torch.Tensor):
+    """Canonical edges (lo, hi), lo < hi, whose sample hash is ``target``,
+    for the candidate ``los`` that give one: hi is solved from hash_pair's
+    second fmix32 (GOLDEN is odd, so it has an inverse mod 2^32)."""
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
+    h1 = sko.mix32(sko.as_u32(los) ^ ((sko.SALT_SAMPLE * sko.GOLDEN) & 0xFFFFFFFF))
+    hi = sko._mul32(h1 ^ _unmix32(target), pow(sko.GOLDEN, -1, 1 << 32))
+    hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)
+    keep = hi > los
+    return los[keep].to(torch.int32), hi[keep].to(torch.int32)
+
+
+def _sample_equal(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("m", [64, 1 << 14, 1 << 16])
+def test_hll_folds_match_twin(cuda_device, m):
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
+    rng = np.random.default_rng(m)
+    n = 50_000
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64)).to(cuda_device)
+    keys[:5] = 0  # saturated ranks
+    keys[5:9] = m - 1
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+    r1 = torch.zeros(m, dtype=torch.int32, device=cuda_device)
+    r2 = r1.clone()
+    for msk in (mask, None, torch.zeros_like(mask)):
+        before = sko.LAUNCHES["hll_fold"]
+        sko.hll_fold(r1, keys, msk)
+        assert sko.LAUNCHES["hll_fold"] == before + 1
+        sko.hll_fold_plain(r2, keys, msk)
+        assert torch.equal(r1, r2)
+    assert int(r1.max()) == 33 - (m.bit_length() - 1)
+    s, d, msk = _edge_batch(rng, cuda_device, n, -(1 << 31), (1 << 31) - 1)
+    s[:100] = d[:100]  # self-loops: folded by HLLDegreeSummary
+    v1, e1 = torch.zeros(m, dtype=torch.int32, device=cuda_device), torch.zeros(m, dtype=torch.int32,
+                                                                                 device=cuda_device)
+    v2, e2 = v1.clone(), e1.clone()
+    for mm in (msk, None):
+        before = sko.LAUNCHES["hll_fold"]
+        sko.hll_degree_fold(v1, e1, s, d, mm)
+        assert sko.LAUNCHES["hll_fold"] == before + 1
+        sko.hll_degree_fold_plain(v2, e2, s, d, mm)
+        assert torch.equal(v1, v2) and torch.equal(e1, e2)
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    sko.hll_degree_fold(v1, e1, empty, empty, None)
+    assert torch.equal(v1, v2)
+
+
+@pytest.mark.parametrize("d,w", [(1, 64), (8, 2048), (5, 4096), (8, 1 << 16)])
+def test_cm_folds_match_twin(cuda_device, d, w):
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
+    rng = np.random.default_rng(d * w)
+    n = 40_000
+    g1 = torch.zeros(d * w, dtype=torch.int32, device=cuda_device)
+    g2 = g1.clone()
+    s, t, m = _edge_batch(rng, cuda_device, n, -5, 1 << 20)  # negative ids and ids past any C
+    counts = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)).to(cuda_device)  # wraps
+    for keys, cnt, mm in ((s, counts, m), (t, None, None), (s, counts, torch.zeros_like(m))):
+        sko.cm_fold(g1, d, w, keys, cnt, mm)
+        sko.cm_fold_plain(g2, d, w, keys, cnt, mm)
+        assert torch.equal(g1, g2)
+    before = sko.LAUNCHES["cm_fold"]
+    sko.cm_degree_fold(g1, d, w, s, t, m)
+    assert sko.LAUNCHES["cm_fold"] == before + 1
+    sko.cm_fold_plain(g2, d, w, s, None, m)
+    sko.cm_fold_plain(g2, d, w, t, None, m)
+    assert torch.equal(g1, g2)
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    sko.cm_degree_fold(g1, d, w, empty, empty, None)
+    assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("rows,m,c", [(64, 256, 40), (64, 1 << 16, 1 << 20), (4096, 8192, 3000),
+                                      (4096, 1 << 16, 1 << 20)])
+def test_tri_fold_matches_twin(cuda_device, rows, m, c):
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    rng = np.random.default_rng(rows + c)
+    a = (*sks.tri_init(rows, cuda_device), torch.zeros(m, dtype=torch.int32, device=cuda_device))
+    b = tuple(x.clone() for x in a)
+    for i in range(4):
+        s, t, mask = _edge_batch(rng, cuda_device, 20_000, -3, c)
+        s[:50] = t[:50]  # self-loops take no part
+        mm = (mask, None, torch.zeros_like(mask), mask)[i]
+        before = sko.LAUNCHES["tri_fold"]
+        sko.tri_fold(*a[:3], s, t, mm, a[3])
+        assert sko.LAUNCHES["tri_fold"] == before + 1
+        sko.tri_fold_plain(*b[:3], s, t, mm, b[3])
+        _sample_equal(a, b)
+    sko.tri_fold(*a[:3], s[:0], t[:0], None)  # an empty batch
+    _sample_equal(a, b)
+
+
+def test_tri_fold_quirks(cuda_device):
+    """An edge whose sample hash is 0xFFFFFFFF is never sampled, even alone
+    in its bucket; of two edges with one sample hash in one bucket the
+    lesser (lo, hi) wins; ids at the int32 extremes hash like any other."""
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    cand = torch.arange(-(1 << 17), 1 << 17, dtype=torch.int64)
+    nlo, nhi = _edges_with_sample_hash(0xFFFFFFFF, cand)
+    never = (int(nlo[0]), int(nhi[0]))
+    base = torch.tensor([-7], dtype=torch.int32), torch.tensor([9], dtype=torch.int32)
+    target = int(sko.hash_pair_u32(*base, sko.SALT_SAMPLE)[0])
+    tlo, thi = _edges_with_sample_hash(target, cand)
+    for rows in (64, 4096):
+        bucket = sko.hash_pair_u32(*base, sko.SALT_BUCKET) & (rows - 1)
+        same = (sko.hash_pair_u32(tlo, thi, sko.SALT_BUCKET) & (rows - 1) == bucket) & (tlo != -7)
+        rival = (int(tlo[same][0]), int(thi[same][0]))
+        edges = [never, (-7, 9), rival, (-(1 << 31), (1 << 31) - 1), (3, 3)]
+        s = torch.tensor([e[1] for e in edges], dtype=torch.int32, device=cuda_device)  # reversed: canonicalized
+        t = torch.tensor([e[0] for e in edges], dtype=torch.int32, device=cuda_device)
+        a, b = sks.tri_init(rows, cuda_device), sks.tri_init(rows, cuda_device)
+        sko.tri_fold(*a, s, t, None)
+        sko.tri_fold_plain(*b, s, t, None)
+        _sample_equal(a, b)
+        kept = {(int(lo), int(hi)) for lo, hi in zip(a[1].cpu(), a[2].cpu()) if lo != -1}
+        assert never not in kept and (3, 3) not in kept
+        assert (-(1 << 31), (1 << 31) - 1) in kept
+        assert (int(a[0][int(bucket)]), int(a[1][int(bucket)]), int(a[2][int(bucket)])) == (target, *min((-7, 9), rival))
+
+
+@pytest.mark.parametrize("rows,c,n", [(64, 12, 400), (64, 40, 2000), (4096, 60, 1 << 14), (4096, 400, 1 << 15)])
+def test_tri_sampled_closures_match_twin(cuda_device, rows, c, n):
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    rng = np.random.default_rng(rows + c)
+    eh, elo, ehi = sks.tri_init(rows, cuda_device)
+    before = sko.LAUNCHES["tri_sampled_closures"]
+    assert int(sko.tri_sampled_closures(elo, ehi)) == 0  # the empty sample
+    s, t, _ = _edge_batch(rng, cuda_device, n, 0, c)
+    sko.tri_fold(eh, elo, ehi, s, t, None)
+    got = sko.tri_sampled_closures(elo, ehi)
+    assert sko.LAUNCHES["tri_sampled_closures"] == before + 2
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert int(got) == int(sko.tri_sampled_closures_plain(elo, ehi)) > 0
+
+
+def test_sketch_wrappers_take_strided_inputs(cuda_device):
+    """Columns of [n, 2] tensors go in: each wrapper's contiguous copies of
+    src, dst, keys, counts and mask must outlive the launch, so that no
+    copy reads another's reused block."""
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    rng = np.random.default_rng(23)
+    n = 30_000
+    pair = torch.from_numpy(rng.integers(-3, 60, (n, 2)).astype(np.int32)).to(cuda_device)
+    masks = torch.from_numpy(rng.random((n, 2)) < 0.8).to(cuda_device)
+    wide = torch.from_numpy(rng.integers(0, 1 << 32, (n, 2), dtype=np.int64)).to(cuda_device)
+    counts = torch.from_numpy(rng.integers(-9, 9, (n, 2)).astype(np.int32)).to(cuda_device)
+    s, t, m, keys, cnt = pair[:, 0], pair[:, 1], masks[:, 1], wide[:, 1], counts[:, 0]
+    assert not any(x.is_contiguous() for x in (s, t, m, keys, cnt))
+    sc, tc, mc, kc, cc = (x.contiguous() for x in (s, t, m, keys, cnt))
+
+    r1 = torch.zeros(1 << 14, dtype=torch.int32, device=cuda_device)
+    r2 = r1.clone()
+    sko.hll_fold(r1, keys, m)
+    sko.hll_fold_plain(r2, kc, mc)
+    assert torch.equal(r1, r2)
+    v1, e1 = torch.zeros_like(r1), torch.zeros_like(r1)
+    v2, e2 = v1.clone(), e1.clone()
+    sko.hll_degree_fold(v1, e1, s, t, m)
+    sko.hll_degree_fold_plain(v2, e2, sc, tc, mc)
+    assert torch.equal(v1, v2) and torch.equal(e1, e2)
+
+    g1 = torch.zeros(8 * 4096, dtype=torch.int32, device=cuda_device)
+    g2 = g1.clone()
+    sko.cm_degree_fold(g1, 8, 4096, s, t, m)
+    sko.cm_fold(g1, 8, 4096, t, cnt, m)
+    for k, c in ((sc, None), (tc, None), (tc, cc)):
+        sko.cm_fold_plain(g2, 8, 4096, k, c, mc)
+    assert torch.equal(g1, g2)
+
+    a = (*sks.tri_init(4096, cuda_device), torch.zeros(1 << 14, dtype=torch.int32, device=cuda_device))
+    b = tuple(x.clone() for x in a)
+    sko.tri_fold(*a[:3], s, t, m, a[3])
+    sko.tri_fold_plain(*b[:3], sc, tc, mc, b[3])
+    _sample_equal(a, b)
+    both = torch.stack([a[1], a[2]], 1)
+    got = int(sko.tri_sampled_closures(both[:, 0], both[:, 1]))
+    assert got == int(sko.tri_sampled_closures_plain(b[1], b[2])) > 0
+
+
+def test_sketch_descriptors_make_one_c_call_an_update(cuda_device):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.library import sketches as lsk
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
+    cfg = StreamConfig(vertex_capacity=1 << 12)
+    s, t, m = _edge_batch(np.random.default_rng(2), cuda_device, 5000, 0, 1 << 12)
+    for agg, name in ((lsk.SketchTriangleCount(), "tri_fold"), (lsk.HLLDegreeSummary(), "hll_fold"),
+                      (lsk.CountMinHeavyHitters(), "cm_fold")):
+        sko.reset_launches()
+        agg.update(agg.initial_state(cfg, cuda_device), s, t, None, m)
+        assert sko.LAUNCHES == {k: int(k == name) for k in sko.KERNELS}
+        assert not any(sko.TWIN_CALLS.values())
+
+
+@pytest.mark.parametrize("kind", ["sketch_triangles", "hll_degree", "cm_heavy_hitters"])
+def test_sketch_runs_on_the_card_match_the_cpu(cuda_device, kind):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.sketches import make_sketch
+
+    rng = np.random.default_rng(11)
+    src, dst = rng.integers(0, 300, 20_000), rng.integers(0, 300, 20_000)
+    cfg = StreamConfig(vertex_capacity=512, batch_size=2048, ingest_window_edges=4096)
+    got = [EdgeStream.from_arrays(src, dst, cfg, device=dev).aggregate(make_sketch(kind)).collect()
+           for dev in ("cpu", cuda_device)]
+    assert len(got[0]) == len(got[1]) == 5
+    for ra, rb in zip(*got):
+        for x, y in zip(ra, rb):
+            if x.dtype == torch.float32:  # the estimates' f32 sums reduce in another order on the card
+                torch.testing.assert_close(y.cpu(), x, rtol=1e-5, atol=0)
+            else:
+                assert torch.equal(x, y.cpu())

@@ -35,7 +35,7 @@ def test_importing_the_whole_port_loads_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'gelly_streaming_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 55, mods\n"
+        "assert len(mods) >= 58, mods\n"
         "for m in ('ops.degrees', 'library.degree_distribution', 'library.bipartiteness',\n"
         "          'summaries.candidates', 'examples.degree_distribution',\n"
         "          'examples.bipartiteness_check', 'ops.neighborhoods', 'ops.sage',\n"
@@ -46,7 +46,8 @@ def test_importing_the_whole_port_loads_no_jax():
         "          'summaries.adjacency', 'ops.spanner', 'ops.matching', 'ops.sampled_triangles',\n"
         "          'library.spanner', 'library.matching', 'library.sampled_triangles', 'examples.spanner',\n"
         "          'examples.centralized_weighted_matching', 'examples.broadcast_triangle_count',\n"
-        "          'examples.incidence_sampling_triangle_count'):\n"
+        "          'examples.incidence_sampling_triangle_count', 'ops.sketches', 'summaries.sketches',\n"
+        "          'library.sketches'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )
