@@ -6,7 +6,7 @@
                           [--parent-sage-backward-cu PATH] [--parent-csr-cu PATH]
                           [--parent-exact-cu PATH] [--parent-spmv-cu PATH] [--parent-kcore-cu PATH]
                           [--parent-spanner-cu PATH] [--parent-sampler-cu PATH]
-                          [--parent-matching-cu PATH]
+                          [--parent-matching-cu PATH] [--parent-sketches-cu PATH]
 
 Needs one CUDA GPU (built for an H100, sm_90a) and nvcc.  It builds the
 port's CUDA kernels from ``gelly_streaming_tpu_torch/csrc``, holds each
@@ -315,7 +315,15 @@ update is one C call a batch.  It prints edges/s end to end, each kernel's
 device ms a batch held, host µs a call, the twin's ms, its bound, the
 library call (``scatter_reduce_`` amax, ``index_add_``) on precomputed
 inputs, the idle share, and the estimates' relative errors against exact
-oracles (not asserted).
+oracles (not asserted).  ``hll_fold`` and ``cm_fold`` are also timed on
+(a)'s first batch (cold registers); ``--parent-sketches-cu PATH``
+(609487c's ``sketches.cu``, before the HLL filter and the count-min
+cluster merge) times its two folds in turns with the current ones on (a)'s
+first and last batches (parent, current, current, parent; states held
+equal first), beside the split of the parent's time (``SKETCH_SPLIT``) and
+the design's variants (``SKETCH_DESIGNS``, ``HLL_FILL_CU``), each built
+from its source beside the main build (one that fails to build is
+reported and skipped).
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -5988,7 +5996,297 @@ def bound_pair(nbytes: float, ops: float) -> tuple:
     return (o, "operations") if o > b else (b, "bytes")
 
 
-def phase_sketches(dev, cpm, data: dict) -> dict:
+# phase 18 with --parent-sketches-cu: 609487c's sketches.cu (HLL registers
+# read in L2 before each atomicMax; count-min's private grids each merged
+# by global atomics) with one part taken out, for the split of its time
+# (the results are wrong; only their time counts); the form of FOLD_SPLIT
+SKETCH_SPLIT = {
+    "hll_fold: the register reads on a shared byte table that raises nothing (no L2 read, no atomic)": [
+        ("__device__ __forceinline__ void hll_put(int* regs, int p, uint32_t h) {",
+         "__shared__ unsigned char split_table[16384];\n\n"
+         "__device__ __forceinline__ void hll_put(int* regs, int p, uint32_t h) {"),
+        ("    if (rank > regs[idx]) atomicMax(regs + idx, rank);",
+         "    if (rank > split_table[idx & 16383]) atomicMax(regs + idx, rank);"),
+        ("    int* rv = PRIVATE ? smem : verts;",
+         "    for (int i = threadIdx.x; i < 16384; i += blockDim.x) split_table[i] = 0x7F;\n"
+         "    __syncthreads();\n    int* rv = PRIVATE ? smem : verts;")],
+    "hll_fold: no register touched (the ids and the hashes alone)": [
+        ("    if (rank > regs[idx]) atomicMax(regs + idx, rank);",
+         "    if (rank > 40 + (int)(h & 1)) atomicMax(regs + idx, rank);")],
+    "cm_fold: the merge removed (the edges into the private grids alone)": [
+        ("            if (v != 0) atomicAdd(grid + i, v);",
+         "            if (v == 0x7FFFFFFF) atomicAdd(grid + i, v);")],
+}
+
+# the current sketches.cu with one constant changed or one part taken out:
+# the design's other shapes and the split of its time
+SKETCH_DESIGNS = {
+    "hll_fold: the launch alone (the kernel returns at once)": [
+        ("    __shared__ __align__(8) unsigned long long landed;\n    constexpr int K",
+         "    __shared__ __align__(8) unsigned long long landed;\n    if (n >= 0) return;\n    constexpr int K")],
+    "hll_fold: the image and the sync alone (no copy, no edge)": [
+        ("    cg::this_grid().sync();  // the image is whole\n",
+         "    cg::this_grid().sync();  // the image is whole\n    if (n >= 0) return;\n")],
+    "hll_fold: the image, the sync and the filter's copy alone (no edge folded)": [
+        ("    write_image(bank0, bank1, 1 << p, flen, image);\n",
+         "    write_image(bank0, bank1, 1 << p, flen, image);\n    n = 0;\n")],
+    "hll_fold: no stash (every edge hashed after the filter lands)": [
+        ("constexpr int STASH = 4;", "constexpr int STASH = 0;")],
+    "hll_fold: a stash of 8 edges": [("constexpr int STASH = 4;", "constexpr int STASH = 8;")],
+    "cm_fold: one block an SM (its shared memory padded past half an SM)": [
+        ("constexpr int CM_BLOCKS_AN_SM = 2;", "constexpr int CM_BLOCKS_AN_SM = 1;"),
+        ("    const size_t bytes = (size_t)priv * 4;", "    const size_t bytes = priv < 29184 ? 116736 : (size_t)priv * 4;")],
+    "cm_fold: clusters of 1 (each block adds its own grid)": [
+        ("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 1;")],
+    "cm_fold: clusters of 2": [("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 2;")],
+    "cm_fold: clusters of 4": [("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 4;")],
+    "cm_fold: clusters of 16 (non-portable)": [
+        ("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 16;"),
+        ("    cudaError_t err = allow(d, slot, kernel, smem);\n    if (err != cudaSuccess) return err;\n",
+         "    cudaError_t err = allow(d, slot, kernel, smem);\n    if (err != cudaSuccess) return err;\n"
+         "    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != "
+         "cudaSuccess)\n        return err;\n")],
+    "cm_fold: 1024 threads a block": [("constexpr int CM_THREADS = 512;", "constexpr int CM_THREADS = 1024;")],
+    "cm_fold: the rows not unrolled": [
+        ("            CM_ROWS(1) CM_ROWS(2) CM_ROWS(3) CM_ROWS(4) CM_ROWS(5) CM_ROWS(6) CM_ROWS(7) CM_ROWS(8)\n", "")],
+    "cm_fold: the cluster merge removed": [
+        ("        if (sum) atomicAdd(grid + i, (int)sum);",
+         "        if (sum == 0x7FFFFFFFu) atomicAdd(grid + i, (int)sum);")],
+}
+
+# The HLL filter filled three other ways, each exported as
+# hll_degree_launch (the shipped one renamed away) and built beside the
+# shipped source, which it includes; none stashes hashes.
+# "kernel": the image written by a kernel of its own, then each block of
+# the filter kernel copies it by TMA (no grid-wide sync); "dsmem": clusters
+# of 8 whose members each read 1/8 of the registers and store their
+# nibbles into every member's filter over DSMEM (no image); "multicast":
+# the image written by its own kernel, each member of a cluster of 8
+# copying 1/8 of it by a TMA bulk copy multicast to every member.  The edges
+# fold as the shipped kernel folds them.
+HLL_FILL_CU = r"""#define hll_degree_launch shipped_hll_degree_launch
+#include "{source}"
+#undef hll_degree_launch
+
+namespace {{
+
+constexpr int C = {cluster};
+constexpr int MODE = {mode};  // 0: kernel, 1: dsmem, 2: multicast
+
+__global__ void image_kernel(const int* bank0, const int* bank1, int m, int len, uint8_t* image) {{
+    write_image(bank0, bank1, m, len, image);
+}}
+
+__device__ void load_filter(uint8_t* filt, const uint8_t* image, int bytes) {{
+    __shared__ __align__(8) unsigned long long landed;
+    copy_filter(filt, image, bytes, &landed);
+    wait_filter(&landed);
+}}
+
+__device__ void fill_dsmem(const cg::cluster_group& cl, uint8_t* filt, int len, const int* bank0, const int* bank1,
+                           int m) {{
+    const int c = (int)cl.num_blocks(), r = (int)cl.block_rank();
+    for (int q = r * blockDim.x + threadIdx.x; q * 32 < len; q += c * blockDim.x) {{
+        const int base = q * 32;
+        const int4* regs = reinterpret_cast<const int4*>(base < m ? bank0 + base : bank1 + (base - m));
+        uint32_t word[4];
+        for (int k = 0; k < 4; ++k) {{
+            const int4 a = __ldcg(regs + 2 * k), b = __ldcg(regs + 2 * k + 1);
+            word[k] = reg_nibble(a.x) | reg_nibble(a.y) << 4 | reg_nibble(a.z) << 8 | reg_nibble(a.w) << 12 |
+                      reg_nibble(b.x) << 16 | reg_nibble(b.y) << 20 | reg_nibble(b.z) << 24 | reg_nibble(b.w) << 28;
+        }}
+        const uint4 packed = make_uint4(word[0], word[1], word[2], word[3]);
+        for (int t = 0; t < c; ++t) *reinterpret_cast<uint4*>(cl.map_shared_rank(filt, t) + base / 2) = packed;
+    }}
+}}
+
+__device__ void fill_multicast(const cg::cluster_group& cl, uint8_t* filt, const uint8_t* image, int bytes) {{
+    __shared__ __align__(8) unsigned long long landed;
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&landed);
+    if (threadIdx.x == 0) {{
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+    }}
+    cl.sync();  // every member's barrier is set before any copy lands
+    if (threadIdx.x == 0) {{
+        const int c = (int)cl.num_blocks(), per = ((bytes / 16 + c - 1) / c) * 16;
+        const int first = (int)cl.block_rank() * per, last = min(bytes, first + per);
+        for (int off = first; off < last; off += 32768)
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+                         "[%0], [%1], %2, [%3], %4;"
+                         ::"r"((unsigned)__cvta_generic_to_shared(filt + off)), "l"(image + off),
+                           "r"(min(32768, last - off)), "r"(bar), "h"((unsigned short)((1u << c) - 1)) : "memory");
+    }}
+    unsigned done = 0;
+    while (!done)
+        asm volatile("{{\n .reg .pred q;\n mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;\n"
+                     " selp.u32 %0, 1, 0, q;\n}}" : "=r"(done) : "r"(bar) : "memory");
+}}
+
+__global__ void __launch_bounds__(FILTER_THREADS, 1) variant_kernel(int* bank0, int* bank1, int p, int flen,
+                                                                    const uint8_t* image, int bytes, const int* src,
+                                                                    const int* dst, const bool* mask, int n) {{
+    extern __shared__ __align__(16) uint8_t hll_filter[];
+    cg::cluster_group cl = cg::this_cluster();
+    if (MODE == 0) {{
+        load_filter(hll_filter, image, bytes);
+    }} else {{
+        cl.sync();  // every member runs before any filter is written
+        if (MODE == 1)
+            fill_dsmem(cl, hll_filter, flen, bank0, bank1, 1 << p);
+        else
+            fill_multicast(cl, hll_filter, image, bytes);
+        cl.sync();  // every filter whole; no member leaves with a copy to it in flight
+    }}
+    hll_edges<true>(bank0, bank1, hll_filter, flen, p, blockIdx.x * blockDim.x + threadIdx.x, src, dst, nullptr,
+                    mask, n);
+}}
+
+}}  // namespace
+
+extern "C" int hll_degree_launch(int* verts, int* edges, int m, const int* src, const int* dst, const bool* mask,
+                                 int n, void* scratch, long long scratch_bytes, cudaStream_t stream) {{
+    int p = log2_exact(m);
+    if (p < 0 || n <= 0 || m % 32 || scratch_bytes < image_bytes(2, m)) return (int)cudaErrorInvalidValue;
+    Device* d;
+    cudaError_t err = device(&d);
+    if (err != cudaSuccess) return (int)err;
+    const int flen = filter_len(2, m), bytes = image_bytes(2, m);
+    uint8_t* image = static_cast<uint8_t*>(scratch);
+    if (MODE != 1) {{
+        image_kernel<<<(flen / 2 + 1023) / 1024 + 1, 1024, 0, stream>>>(verts, edges, m, flen, image);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }}
+    err = launch_clusters(d, 17, variant_kernel, C, FILTER_THREADS, (size_t)bytes, n, 1, stream, verts, edges, p,
+                          flen, (const uint8_t*)image, bytes, src, dst, mask, n);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}}
+"""
+
+# the sketch folds' C entry points as 609487c had them (SKETCH_SPLIT's
+# variants too): hll_degree_launch (verts, edges, m, src, dst, mask, n,
+# stream) and cm_fold_launch (grid, d, w, keys, keys_b, counts, mask, n,
+# stream); the current ones (SKETCH_DESIGNS, HLL_FILL_CU) add the scratch
+# to hll_degree_launch
+PARENT_SKETCH_SIGNATURES = {"hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P],
+                            "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P]}
+SKETCH_SIGNATURES = {"hll_scratch_bytes": [_I, _I], "hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _L, _P],
+                     "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P]}
+
+
+def sketch_variant_sources(parent_cu: str) -> dict:
+    """{label: source path}: SKETCH_SPLIT over ``parent_cu`` (labels led by
+    "609487c"), SKETCH_DESIGNS over the current sketches.cu, and
+    HLL_FILL_CU's two fills, written under the port's build directory."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    current = str(_cuda.CSRC_DIR / "sketches.cu")
+    paths = {f"609487c {k}": v for k, v in split_sources(parent_cu, SKETCH_SPLIT, "sketches_parent").items()}
+    paths.update(split_sources(current, SKETCH_DESIGNS, "sketches_design"))
+    for mode, cluster, label in (
+            (0, 1, "hll_fold: the image by a kernel of its own, a TMA copy a block (no grid-wide sync, no stash)"),
+            (1, 8, "hll_fold: the filter filled over DSMEM by clusters of 8 (no image, no stash)"),
+            (2, 8, "hll_fold: the image by a kernel of its own, multicast over clusters of 8 (no stash)")):
+        path = _cuda.BUILD_DIR / "split" / f"sketches_hll_fill_{mode}.cu"
+        path.write_text(HLL_FILL_CU.format(source=current, mode=mode, cluster=cluster))
+        paths[label] = str(path)
+    return paths
+
+
+def build_variants(paths: dict) -> tuple:
+    """({label: path} of the variants that built, [the failures' first error
+    lines]): all at once, then one by one where any failed."""
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    try:
+        _cuda.build_all(list(paths.values()))
+        return dict(paths), []
+    except RuntimeError:
+        pass
+    built, failed = {}, []
+    for label, path in paths.items():
+        try:
+            _cuda.build_all([path])
+            built[label] = path
+        except RuntimeError as e:
+            first = next((ln for ln in str(e).splitlines() if "error" in ln), str(e).splitlines()[0])
+            failed.append(f"{label}: {first.strip()}")
+    return built, failed
+
+
+def sketch_calls(lib, parent: bool):
+    """(hll(state, s, d), cm(state, dd, ww, s, d)) over ``lib``'s C entry
+    points: 609487c's interface where ``parent``, else the current one (its
+    scratch from a buffer kept here)."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    scratch = {}
+
+    def stream(t):
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def hll(st, s, d):
+        args = (st.verts.data_ptr(), st.edges.data_ptr(), st.verts.shape[0], s.data_ptr(), d.data_ptr(), None,
+                s.shape[0])
+        if parent:
+            _cuda.check(lib.hll_degree_launch(*args, stream(s)), "609487c hll_degree_launch")
+            return
+        m = st.verts.shape[0]
+        if m not in scratch:
+            scratch[m] = torch.empty((int(lib.hll_scratch_bytes(2, m)),), dtype=torch.uint8, device=s.device)
+        _cuda.check(lib.hll_degree_launch(*args, scratch[m].data_ptr(), scratch[m].numel(), stream(s)),
+                    "variant hll_degree_launch")
+
+    def cm(st, dd, ww, s, d):
+        _cuda.check(lib.cm_fold_launch(st.grid.data_ptr(), dd, ww, s.data_ptr(), d.data_ptr(), None, None,
+                                       s.shape[0], stream(s)), "variant cm_fold_launch")
+
+    return hll, cm
+
+
+def sketch_turns(cpm, cases: dict, dd: int, ww: int, parent_lib, variants: dict) -> dict:
+    """Phase 18's in-turn timing: for each case {label: ((hll state, cm
+    state) before the batch, (src, dst))}, each call on its own copy of
+    the state, device ms on the held stream: the current kernels and
+    609487c's in turns (parent, current, current, parent), the states
+    after one call held equal first; then each variant's ms beside them
+    ({label: library}; a label naming hll_fold before its colon times the
+    HLL call, cm_fold the count-min one)."""
+    from gelly_streaming_tpu_torch.core.aggregation import clone_state
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
+    cur = {"hll": lambda st, s, d: sko.hll_degree_fold(st.verts, st.edges, s, d, None),
+           "cm": lambda st, s, d: sko.cm_degree_fold(st.grid, dd, ww, s, d, None)}
+    p_hll, p_cm = sketch_calls(parent_lib, parent=True)
+    par = {"hll": p_hll, "cm": lambda st, s, d: p_cm(st, dd, ww, s, d)}
+    out = {}
+    for case, ((hb, cb), (s, d)) in cases.items():
+        row = {}
+        for kind, before in (("hll", hb), ("cm", cb)):
+            a, b = clone_state(before), clone_state(before)
+            cur[kind](a, s, d)
+            par[kind](b, s, d)
+            if tensor_err(tuple(a), tuple(b)):
+                raise RuntimeError(f"phase 18 turns, {case}: 609487c's {kind} fold and the current one differ")
+
+            def measure(fn, before=before):
+                return copies_device_ms(lambda cp: fn(cp, s, d), lambda: clone_state(before), SK_REPS, cpm)[0]
+
+            row[kind] = measured_in_turns(measure, par[kind], cur[kind])
+            row[kind]["variants"] = {}
+            for label, lib in variants.items():
+                if ("hll_fold" if kind == "hll" else "cm_fold") not in label.split(":")[0]:
+                    continue
+                v_hll, v_cm = sketch_calls(lib, parent=label.startswith("609487c"))
+                fn = v_hll if kind == "hll" else (lambda st, s_, d_, v_cm=v_cm: v_cm(st, dd, ww, s_, d_))
+                row[kind]["variants"][label] = measure(fn)
+        out[case] = row
+    return out
+
+
+def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     """Phase 18: (a) ``HLLDegreeSummary(eps=0.01)`` and
     ``CountMinHeavyHitters(eps=0.001, delta=0.01, top_k=16)`` over phase
     7's EF40 replay, an emission every 8 batches; (b)
@@ -5997,7 +6295,11 @@ def phase_sketches(dev, cpm, data: dict) -> dict:
     reference's three accuracy contracts at its own shapes.  Every batch's
     state and every emission equal to the twins on the card, the closure
     count to a numpy oracle and nonzero; one C call a batch; times, bounds,
-    library calls and idle shares for the report."""
+    library calls and idle shares for the report.  The HLL and count-min
+    folds are timed on (a)'s first batch (cold registers) and its last;
+    given ``parent`` (609487c's library), in turns with it on both, with
+    ``variants`` ({label: library}: SKETCH_SPLIT and SKETCH_DESIGNS) beside
+    them."""
     import torch
     from gelly_streaming_tpu_torch.core.aggregation import clone_state
     from gelly_streaming_tpu_torch.core.config import StreamConfig
@@ -6039,6 +6341,8 @@ def phase_sketches(dev, cpm, data: dict) -> dict:
     twin_s = {"hll": 0.0, "cm": 0.0}
     for i, b in enumerate(bufs):
         s, d = wire.unpack_edges(torch.from_numpy(b).to(dev), batch, width)
+        if i == 0:
+            first = (clone_state(hk), clone_state(ck)), (s, d)
         if i == nb - 1:
             before, last = (clone_state(hk), clone_state(ck)), (s, d)
         busy["hll"] += held_ms(lambda: hagg.update(hk, s, d, None, None), cpm)
@@ -6088,6 +6392,20 @@ def phase_sketches(dev, cpm, data: dict) -> dict:
     t_c = kernel_timing(cpm, lambda cp: sko.cm_degree_fold(cp.grid, dd, ww, s, d, None), lambda: clone_state(cb),
                         lambda cp: (sko.cm_fold_plain(cp.grid, dd, ww, s, None, None),
                                     sko.cm_fold_plain(cp.grid, dd, ww, d, None, None)), c_bound[0], SK_REPS)
+    (hb0, cb0), (s0, d0) = first
+    t_h["batch0"] = kernel_timing(cpm, lambda cp: sko.hll_degree_fold(cp.verts, cp.edges, s0, d0, None),
+                                  lambda: clone_state(hb0),
+                                  lambda cp: sko.hll_degree_fold_plain(cp.verts, cp.edges, s0, d0, None), h_bound[0],
+                                  SK_REPS)
+    t_c["batch0"] = kernel_timing(cpm, lambda cp: sko.cm_degree_fold(cp.grid, dd, ww, s0, d0, None),
+                                  lambda: clone_state(cb0),
+                                  lambda cp: (sko.cm_fold_plain(cp.grid, dd, ww, s0, None, None),
+                                              sko.cm_fold_plain(cp.grid, dd, ww, d0, None, None)), c_bound[0],
+                                  SK_REPS)
+    turns = {}
+    if parent is not None:
+        turns = sketch_turns(cpm, {"batch 0 (cold)": first, "the last batch (warm)": (before, last)}, dd, ww, parent,
+                             variants or {})
     # the library calls on the same precomputed inputs: one scatter_reduce_ (amax) over both banks, one index_add_
     fam = [sko.hash_u32(s, sko.SALT_VERTEX_HLL), sko.hash_u32(d, sko.SALT_VERTEX_HLL),
            sko.hash_pair_u32(*sko.canonical_edge(s, d), sko.SALT_EDGE_HLL)]
@@ -6127,7 +6445,17 @@ def phase_sketches(dev, cpm, data: dict) -> dict:
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), {r['ratio']:.2f}x; library call {r['library_ms']:.5f} ms; "
             f"the calls {r['busy_ms']:.3f} ms of device time (each held) against the run's {r['s'] * 1e3:.1f} ms: idle "
             f"{r['idle_pct']:.2f}%")
+        b0 = r["batch0"]
+        log(f"      batch 0 (cold registers): device {b0['device_ms']:.5f} ms held ({b0['ratio']:.2f}x the bound), "
+            f"events {b0['ms']:.5f} ms, host {b0['host_us']:.2f} us a call, twin {b0['plain_ms']:.3f} ms")
         log(f"      {what} (oracles {oracle_s:.1f} s; not asserted)")
+    for case, row in turns.items():
+        for name, kernel in (("hll", "hll_fold"), ("cm", "cm_fold")):
+            t = row[name]
+            res[name].setdefault("turns", {})[case] = t
+            log(f"      {kernel}, {case}, 609487c in turns (device ms held): {turns_text(t)}")
+            for label, ms in t["variants"].items():
+                log(f"        {label}: {ms:.5f} ms")
 
     # (b) SketchTriangleCount over edges drawn with repeats from phase 17 (e)'s ring at 2^13 vertices
     rng_b = np.random.default_rng(5)
@@ -6314,7 +6642,13 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-sampler-cu", default=None,
                         help="sampled_triangles.cu of the commit before the host key chain (c34004e; its C "
                              "interface): its scan timed in turns with the current one on phase 17 (e)'s batches")
+    parser.add_argument("--parent-sketches-cu", default=None,
+                        help="sketches.cu of the commit before the HLL filter and the count-min cluster merge "
+                             "(609487c; its C interface): its hll_fold and cm_fold timed in turns with the current "
+                             "ones on phase 18 (a)'s first and last batches, beside the split (SKETCH_SPLIT) and "
+                             "design variants (SKETCH_DESIGNS, HLL_FILL_CU)")
     args = parser.parse_args(argv)
+    parent_sketches_cu = os.path.abspath(args.parent_sketches_cu) if args.parent_sketches_cu else None
     parent_sum_cu = {k: os.path.abspath(path) for k, path in (("spanner", args.parent_spanner_cu),
                                                                ("sampler", args.parent_sampler_cu),
                                                                ("matching", args.parent_matching_cu)) if path}
@@ -6365,7 +6699,8 @@ def main(argv=None) -> int:
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
                *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), *parent_sum_cu.values(),
-               probe_source()]
+               *([parent_sketches_cu] if parent_sketches_cu else []), probe_source()]
+    sketch_variants, sketch_failed = {}, []
     split_failed = []
 
     def build_split():  # beside the main build; a variant that does not build is skipped
@@ -6375,12 +6710,22 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             split_failed.append(str(e).splitlines()[0])
 
-    split_thread = threading.Thread(target=build_split)
-    split_thread.start()
+    def build_sketch_variants():  # each that builds is timed, the others reported
+        built_v, failed_v = build_variants(sketch_variant_sources(parent_sketches_cu))
+        sketch_variants.update(built_v)
+        sketch_failed.extend(failed_v)
+
+    split_threads = [threading.Thread(target=fn) for fn in
+                     (build_split, *([build_sketch_variants] if parent_sketches_cu else []))]
+    for th in split_threads:
+        th.start()
     built = _cuda.build_all(sources)
-    split_thread.join()
+    for th in split_threads:
+        th.join()
     if split_failed:
         log(f"  split variants: {split_failed[0]} (those variants are skipped)")
+    for failure in sketch_failed:
+        log(f"  sketch variant skipped, it did not build: {failure}")
     log(f"  built {len(built)} sources in {time.perf_counter() - t0:.2f} s: {sorted(built)}")
     for src, res in built.items():
         if src not in _cuda.SIGNATURES:
@@ -6632,7 +6977,10 @@ def main(argv=None) -> int:
     sm = phase_summaries(dev, cpm, {k: wrap[k](load_baseline(path, PARENT_SIGNATURES[k]))
                                     for k, path in parent_sum_cu.items()})
     log("phase 18: the fixed-state sketches (HLL, count-min, the min-hash triangle sample) on the card")
-    sk = phase_sketches(dev, cpm, data)
+    sk = phase_sketches(dev, cpm, data, load_baseline(parent_sketches_cu, PARENT_SKETCH_SIGNATURES)
+                        if parent_sketches_cu else None,
+                        {label: load_baseline(path, PARENT_SKETCH_SIGNATURES if label.startswith("609487c")
+                                              else SKETCH_SIGNATURES) for label, path in sketch_variants.items()})
 
     kernels = [
         {
@@ -6841,13 +7189,13 @@ def main(argv=None) -> int:
                          "precomputed",
          "timed": "(a)'s last batch: HLLDegreeSummary.update's C call (three key families), each call on its own copy",
          **{k: sk["hll"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
-                                       "rel_err")}},
+                                       "rel_err", "batch0", "turns") if k in sk["hll"]}},
         {**entry("cm_fold", "sketches.cu", f"{sketches_py}:175", sk["cm"], sk["cm"]["library_ms"]),
          "bound_by": sk["cm"]["bound_by"],
          "library_call": "Tensor.index_add_ of ones at the precomputed flat columns of both endpoints' d rows",
          "timed": "(a)'s last batch: CountMinHeavyHitters.update's C call (src, then dst), each call on its own copy",
          **{k: sk["cm"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
-                                      "rel_err")}},
+                                      "rel_err", "batch0", "turns") if k in sk["cm"]}},
         {**entry("tri_fold", "sketches.cu", f"{sketches_py}:251", sk["tri"]), "bound_by": sk["tri"]["bound_by"],
          "also_replaces": f"{sketches_py}:239 (tri_merge); {sketches_py}:112 (hll_fold of the edge registers)",
          "library_call": no_call,

@@ -21,20 +21,40 @@
 // sample with its distinct-edge registers in one (plus a second pass and
 // a rowwise merge).
 //
-// What bounds them: the folds read 8-9 bytes an edge and do ~20-40 integer
-// operations; their writes are scatter-max or scatter-add into a few KB to
-// 256 KB of registers, so the limit is the rate of atomic updates, not
-// device memory.  Where a fold's register arrays fit PRIVATE_BYTES of
-// shared memory, each block folds into its own copy with shared-memory
-// atomics and merges the copy into the global array at its end (only the
-// entries that raise it, for a max); otherwise the updates go to the global
-// array directly.  The limit is 128 KB: count-min's (d, w) = (5, 4096)
-// grid, 80 KB, folds a batch of 2^21 edges several times faster in private
-// copies than as 21M L2 atomics (chip_smoke.py phase 18 times both).  An
-// HLL update reads the register first and issues its atomicMax only where
-// its rank is larger, which after warm-up is almost never.  Max and
-// wrapping integer addition commute, so every order gives the JAX
-// package's bits.
+// What bounds them: the folds read 8-9 bytes an edge and do ~20-130
+// integer operations; their writes are scatter-max or scatter-add into a
+// few KB to 256 KB of registers, so the limit is the traffic of register
+// reads and atomic updates and the hashing, not device memory.  Max and wrapping integer
+// addition commute, so every order gives the JAX package's bits.
+//
+// hll_fold (both launches): each block (one an SM) holds a filter of the
+// registers as they stood at the launch, a nibble a register (the register
+// plus one, clamped to [0, 15]: ranks reach 33 - p, but a warm register
+// rarely passes 14), so both banks at m = 2^16 take 64 KB.  One
+// cooperative launch: the blocks write the nibbles to scratch (the image);
+// after a grid-wide sync each block copies it into shared memory by TMA
+// bulk copies, hashing its threads' first STASH edges while it lands.
+// An update whose rank is below its nibble is done: after warm-up nearly
+// every one, with no read of the registers in L2 (in 609487c those reads,
+// 6.3M a batch of 2^21 edges, took ~68% of the kernel).  Otherwise it reads
+// the register, issues atomicMax where the rank still raises it, and
+// stores the larger value's nibble.  The filter only holds values the
+// register had, so it never passes it; a racing store to the same byte may
+// put back an older nibble, which is lower (one more read, never a lost
+// raise).  A masked row is rank 0, as in the JAX package (it raises a
+// register below 0).  Registers past 2 * FILTER_BYTES (m above the
+// descriptors' cap) are read in L2 every time.  The image in a kernel of
+// its own, a filter filled over DSMEM in clusters, and the image multicast
+// over a cluster measured slower (chip_smoke.py phase 18).
+//
+// cm_fold: each block folds into a private grid in shared memory (the
+// first CM_PRIVATE_BYTES of the grid; counters past it take global
+// atomics), two blocks an SM: the shared atomics, not the merge, bound the
+// fold (in 609487c the merge was ~5% of the kernel), and 32 warps hide
+// more of them.  The blocks run in clusters of CM_CLUSTER: after the edges
+// each member sums a 1/CM_CLUSTER slice of the members' grids over DSMEM
+// and adds each nonzero sum to the global grid, one global add a counter a
+// cluster instead of one a block.
 //
 // tri_fold: pass 1 packs (u64(hash) << 32) | u32(lo ^ 0x80000000) so that
 // one unsigned 64-bit atomicMin a bucket gives the least (hash, lo) with lo
@@ -55,9 +75,12 @@
 // so the set leaves it out and uses it as its empty slot).  Sums are int32
 // block reductions added into one counter; a last kernel halves it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,6 +98,13 @@ constexpr unsigned long long NO_KEY = ~0ull;
 constexpr int THREADS = 512;                  // threads a fold block
 constexpr int EDGES_A_THREAD = 8;             // a block's share of the batch before another block pays off
 constexpr size_t PRIVATE_BYTES = 128 * 1024;  // a fold's registers this small are folded in shared memory first
+constexpr int FILTER_THREADS = 1024;          // threads an HLL filter block
+constexpr int STASH = 4;                      // edges a thread hashes before its filter is whole
+constexpr int FILTER_BYTES = 96 * 1024;       // an HLL block's filter, a nibble a register (m = 2^16: 64 KB)
+constexpr int CM_THREADS = 512;               // threads a count-min block
+constexpr size_t CM_PRIVATE_BYTES = 96 * 1024;  // a count-min block's private grid (its first counters)
+constexpr int CM_CLUSTER = 8;                 // blocks a cluster summing their private grids
+constexpr int CM_BLOCKS_AN_SM = 2;            // count-min blocks an SM: 32 warps to hide the shared atomics
 constexpr int STRIP = 32;                     // closure rows a block (TRI_CLOSURE_BLOCK)
 constexpr int CLOSURE_THREADS = 256;
 constexpr int MAX_DEVICES = 64;
@@ -116,81 +146,190 @@ __device__ __forceinline__ void merge_max(int* regs, const int* mine, int n) {
 
 __device__ __forceinline__ bool kept(const bool* mask, int e) { return mask == nullptr || mask[e]; }
 
-// hll_fold: precomputed u32 hashes (int64 lanes, the port's hash type)
-template <bool PRIVATE>
-__global__ void __launch_bounds__(THREADS) hll_keys_kernel(int* regs, int p, const long long* keys,
-                                                           const bool* mask, int n) {
-    extern __shared__ int smem[];
-    const int m = 1 << p;
-    int* r = PRIVATE ? smem : regs;
-    if (PRIVATE) {
-        fill(smem, m, 0);
-        __syncthreads();
-    }
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x)
-        if (kept(mask, e)) hll_put(r, p, (uint32_t)keys[e]);
-    if (PRIVATE) {
-        __syncthreads();
-        merge_max(regs, smem, m);
+// An HLL register's nibble in a filter: the register plus one, clamped to
+// [0, 15].  A rank below the nibble is not above the register; 0 says
+// nothing (a register below 0, or not read yet).
+__device__ __forceinline__ uint32_t reg_nibble(int v) { return v >= 14 ? 15u : (uint32_t)max(v + 1, 0); }
+
+// This block's share of the filter's image in scratch: the nibbles of
+// bank0's registers, then bank1's (m each), as they stand at the launch,
+// two to a byte (the even register low), len registers in all.
+__device__ void write_image(const int* bank0, const int* bank1, int m, int len, uint8_t* image) {
+    for (int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x); i < len; i += 2 * gridDim.x * blockDim.x) {
+        uint32_t b = reg_nibble(__ldcg(i < m ? bank0 + i : bank1 + (i - m)));
+        if (i + 1 < len) b |= reg_nibble(__ldcg(i + 1 < m ? bank0 + i + 1 : bank1 + (i + 1 - m))) << 4;
+        image[i / 2] = (uint8_t)b;
     }
 }
 
-// HLLDegreeSummary.update: the src and dst vertex hashes into verts, the
-// canonical edge's hash into edges, under the mask (self-loops included)
-template <bool PRIVATE>
-__global__ void __launch_bounds__(THREADS) hll_degree_kernel(int* verts, int* edges, int p, const int* src,
-                                                             const int* dst, const bool* mask, int n) {
-    extern __shared__ int smem[];
-    const int m = 1 << p;
-    int* rv = PRIVATE ? smem : verts;
-    int* re = PRIVATE ? smem + m : edges;
-    if (PRIVATE) {
-        fill(smem, 2 * m, 0);
-        __syncthreads();
+// the image's bytes (bytes, a multiple of 16) into the block's filter: one
+// thread issues TMA bulk copies that complete on the shared-memory barrier
+// landed (after a proxy fence: the image was written by ordinary stores);
+// the block waits on it in wait_filter
+__device__ void copy_filter(uint8_t* filt, const uint8_t* image, int bytes, unsigned long long* landed) {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(landed);
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+        for (int off = 0; off < bytes; off += 32768)
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                         ::"r"((unsigned)__cvta_generic_to_shared(filt + off)), "l"(image + off),
+                           "r"(min(32768, bytes - off)), "r"(bar) : "memory");
     }
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
-        if (!kept(mask, e)) continue;
-        int u = src[e], v = dst[e];
-        hll_put(rv, p, hash_u32((uint32_t)u, SALT_VERTEX_HLL));
-        hll_put(rv, p, hash_u32((uint32_t)v, SALT_VERTEX_HLL));
-        hll_put(re, p, hash_pair(min(u, v), max(u, v), SALT_EDGE_HLL));
+    __syncthreads();  // the barrier is set before any thread waits on it
+}
+
+__device__ void wait_filter(unsigned long long* landed) {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(landed);
+    unsigned done = 0;
+    while (!done)
+        asm volatile("{\n .reg .pred q;\n mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;\n"
+                     " selp.u32 %0, 1, 0, q;\n}" : "=r"(done) : "r"(bar) : "memory");
+}
+
+// An HLL update through the block's filter (f: the register's place among
+// both banks; past flen, no filter).  A masked row is rank 0 (the JAX
+// package's where(mask, rank, 0): it raises a register below 0).  A rank
+// below its nibble is done: the nibble holds a value the register already
+// had, plus one.  Otherwise the update reads the register, raises it where
+// the rank still does, and stores the larger of the two into the nibble.
+// A racing store to the byte may put back an older nibble: lower, so one
+// more read later, never a lost raise.
+__device__ __forceinline__ void hll_filtered_put(int* regs, uint8_t* filt, int flen, int off, int p, uint32_t h,
+                                                 bool keep) {
+    const int idx = (int)(h & ((1u << p) - 1));
+    const int rank = keep ? __clz((int)(h >> p)) - p + 1 : 0;
+    const int f = off + idx, shift = (f & 1) * 4;
+    uint32_t byte = 0;
+    if (f < flen) {
+        byte = filt[f >> 1];
+        if (rank < (int)((byte >> shift) & 15)) return;
     }
-    if (PRIVATE) {
-        __syncthreads();
-        merge_max(verts, smem, m);
-        merge_max(edges, smem + m, m);
+    const int g = __ldcg(regs + idx);
+    if (rank > g) atomicMax(regs + idx, rank);
+    if (f < flen) filt[f >> 1] = (uint8_t)((byte & (0xF0u >> shift)) | reg_nibble(max(rank, g)) << shift);
+}
+
+// an edge's hashes: DEGREE, HLLDegreeSummary.update's three (the src and
+// dst vertex hashes into bank0, the canonical edge's hash into bank1);
+// otherwise hll_fold's precomputed u32 hash (int64 lanes, the port's hash
+// type) into bank0
+template <bool DEGREE>
+__device__ __forceinline__ void edge_hashes(int e, const int* __restrict__ src, const int* __restrict__ dst,
+                                            const long long* __restrict__ keys, uint32_t* h) {
+    if (DEGREE) {
+        const int u = src[e], v = dst[e];
+        h[0] = hash_u32((uint32_t)u, SALT_VERTEX_HLL);
+        h[1] = hash_u32((uint32_t)v, SALT_VERTEX_HLL);
+        h[2] = hash_pair(min(u, v), max(u, v), SALT_EDGE_HLL);
+    } else {
+        h[0] = (uint32_t)keys[e];
     }
 }
 
-// cm_fold: each kept key's count into its column of every row; keys_b (the
-// degree fold's dst) folds after keys_a with the same count
-template <bool PRIVATE>
-__global__ void __launch_bounds__(THREADS) cm_kernel(int* grid, int d, int logw, const int* keys_a,
-                                                     const int* keys_b, const int* counts, const bool* mask, int n) {
-    extern __shared__ int smem[];
+template <bool DEGREE>
+__device__ __forceinline__ void edge_puts(int* bank0, int* bank1, uint8_t* filt, int flen, int p, const uint32_t* h,
+                                          bool keep) {
+    hll_filtered_put(bank0, filt, flen, 0, p, h[0], keep);
+    if (DEGREE) {
+        hll_filtered_put(bank0, filt, flen, 0, p, h[1], keep);
+        hll_filtered_put(bank1, filt, flen, 1 << p, p, h[2], keep);
+    }
+}
+
+// the edges from e = start on, a grid stride apart, under the mask (a
+// masked row is rank 0; HLLDegreeSummary folds self-loops)
+template <bool DEGREE>
+__device__ __forceinline__ void hll_edges(int* bank0, int* bank1, uint8_t* filt, int flen, int p, int start,
+                                          const int* __restrict__ src, const int* __restrict__ dst,
+                                          const long long* __restrict__ keys, const bool* __restrict__ mask, int n) {
+    uint32_t h[3];
+#pragma unroll 2
+    for (int e = start; e < n; e += gridDim.x * blockDim.x) {
+        edge_hashes<DEGREE>(e, src, dst, keys, h);
+        edge_puts<DEGREE>(bank0, bank1, filt, flen, p, h, kept(mask, e));
+    }
+}
+
+// One cooperative launch, a block an SM: each block writes its share of
+// the filter's image (flen registers); after a grid-wide sync each copies
+// the whole image (bytes, a multiple of 16) into its filter, hashing its
+// threads' first STASH edges while the copy lands, then folds its edges
+// through it
+template <bool DEGREE>
+__global__ void __launch_bounds__(FILTER_THREADS, 1) hll_filter_kernel(int* bank0, int* bank1, int p, int flen,
+                                                                       uint8_t* image, int bytes, const int* src,
+                                                                       const int* dst, const long long* keys,
+                                                                       const bool* mask, int n) {
+    extern __shared__ __align__(16) uint8_t hll_filter[];
+    __shared__ __align__(8) unsigned long long landed;
+    constexpr int K = DEGREE ? 3 : 1, S = STASH > 0 ? STASH : 1;
+    const int first = blockIdx.x * blockDim.x + threadIdx.x, stride = gridDim.x * blockDim.x;
+    write_image(bank0, bank1, 1 << p, flen, image);
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    cg::this_grid().sync();  // the image is whole
+    copy_filter(hll_filter, image, bytes, &landed);
+    uint32_t h[S][K];
+#pragma unroll
+    for (int k = 0; k < STASH; ++k)
+        if (first + k * stride < n) edge_hashes<DEGREE>(first + k * stride, src, dst, keys, h[k]);
+    wait_filter(&landed);
+#pragma unroll
+    for (int k = 0; k < STASH; ++k)
+        if (first + k * stride < n)
+            edge_puts<DEGREE>(bank0, bank1, hll_filter, flen, p, h[k], kept(mask, first + k * stride));
+    hll_edges<DEGREE>(bank0, bank1, hll_filter, flen, p, first + STASH * stride, src, dst, keys, mask, n);
+}
+
+// cm_fold: each kept key's count into its column of each of the D rows (d
+// where D is 0); keys_b (the degree fold's dst) after keys_a with the same
+// count.  Counters [0, priv) gather in the block's private grid in shared
+// memory; PARTIAL (a grid past CM_PRIVATE_BYTES) sends the rest to the
+// global grid, a branch the whole-grid kernels leave out (the compiler
+// merges its two atomics into one slow generic atomic).  After the edges
+// member r of the cluster sums its slice of the members' private grids,
+// read over DSMEM, and adds each nonzero sum to the global grid: one global
+// add a counter a cluster.  Wrapping int32 sums keep their bits in any
+// order.
+template <int D, bool PARTIAL>
+__global__ void __launch_bounds__(CM_THREADS) cm_cluster_kernel(int* grid, int d, int logw, int priv,
+                                                                const int* __restrict__ keys_a,
+                                                                const int* __restrict__ keys_b,
+                                                                const int* __restrict__ counts,
+                                                                const bool* __restrict__ mask, int n) {
+    extern __shared__ __align__(16) int cm_grid[];
+    cg::cluster_group cl = cg::this_cluster();
     const int w = 1 << logw;
-    int* g = PRIVATE ? smem : grid;
-    if (PRIVATE) {
-        fill(smem, d * w, 0);
-        __syncthreads();
-    }
+    fill(cm_grid, priv, 0);
+    __syncthreads();
+#pragma unroll 2
     for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
         if (!kept(mask, e)) continue;
-        int c = counts ? counts[e] : 1;
+        const int c = counts ? counts[e] : 1;
         if (c == 0) continue;
         for (int k = 0; k < (keys_b ? 2 : 1); ++k) {
-            uint32_t key = (uint32_t)(k ? keys_b[e] : keys_a[e]);
-            for (int r = 0; r < d; ++r)
-                atomicAdd(g + r * w + (int)(hash_u32(key, SALT_CM_ROW + (uint32_t)r) & (uint32_t)(w - 1)), c);
+            const uint32_t key = (uint32_t)(k ? keys_b[e] : keys_a[e]);
+#pragma unroll
+            for (int r = 0; r < (D ? D : d); ++r) {
+                const int i = r * w + (int)(hash_u32(key, SALT_CM_ROW + (uint32_t)r) & (uint32_t)(w - 1));
+                if (!PARTIAL || i < priv)
+                    atomicAdd(cm_grid + i, c);
+                else
+                    atomicAdd(grid + i, c);
+            }
         }
     }
-    if (PRIVATE) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < d * w; i += blockDim.x) {
-            int v = smem[i];
-            if (v != 0) atomicAdd(grid + i, v);
-        }
+    cl.sync();  // every member's grid is whole
+    const int cs = (int)cl.num_blocks();
+    const int per = (priv + cs - 1) / cs, first = (int)cl.block_rank() * per, last = min(priv, first + per);
+    for (int i = first + threadIdx.x; i < last; i += blockDim.x) {
+        uint32_t sum = 0;
+        for (int t = 0; t < cs; ++t) sum += (uint32_t)cl.map_shared_rank(cm_grid, t)[i];
+        if (sum) atomicAdd(grid + i, (int)sum);
     }
+    cl.sync();  // no member leaves while its grid is read
 }
 
 // a canonical non-self-loop edge's bucket and (hash, lo) key; false where
@@ -357,7 +496,9 @@ int log2_exact(int x) {
 
 struct Device {
     int sms = 0;
-    size_t smem[8] = {};  // the dynamic shared-memory bytes each kernel is configured for
+    size_t smem[20] = {};          // the dynamic shared-memory bytes each kernel is configured for
+    int fit[20] = {};              // the clusters (or blocks) the card holds at once, for fit_smem[slot] bytes
+    size_t fit_smem[20] = {};
 };
 
 cudaError_t device(Device** out) {
@@ -383,6 +524,43 @@ cudaError_t allow(Device* d, int slot, K kernel, size_t bytes) {
     return err;
 }
 
+// kernel (slot: its index in Device's arrays) in clusters of c blocks of
+// threads, smem dynamic bytes each: one cluster a c * threads *
+// EDGES_A_THREAD items, as many as the card holds at once and at most
+// blocks_an_sm * SMs / c.  A cluster shape or size the card refuses is an
+// error (cudaErrorInvalidConfiguration where it holds no cluster).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(Device* d, int slot, void (*kernel)(Params...), int c, int threads, size_t smem,
+                            long long items, int blocks_an_sm, cudaStream_t stream, Args... args) {
+    cudaError_t err = allow(d, slot, kernel, smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if (d->fit_smem[slot] != smem || d->fit[slot] == 0) {
+        int held = 0;
+        if ((err = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg)) != cudaSuccess) return err;
+        if (held < 1) return cudaErrorInvalidConfiguration;
+        d->fit[slot] = held;
+        d->fit_smem[slot] = smem;
+    }
+    const long long share = (long long)c * threads * EDGES_A_THREAD;
+    long long clusters = (items + share - 1) / share, cap = (long long)blocks_an_sm * d->sms / c;
+    if (cap > d->fit[slot]) cap = d->fit[slot];
+    if (clusters > cap) clusters = cap;
+    cfg.gridDim = dim3((unsigned)(c * (clusters < 1 ? 1 : clusters)));
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // blocks for n items: one a THREADS * EDGES_A_THREAD items, at most one an
 // SM for private copies (each merges its copy) and four an SM otherwise
 int fold_blocks(const Device* d, int n, bool priv) {
@@ -391,73 +569,105 @@ int fold_blocks(const Device* d, int n, bool priv) {
     return (int)(want < 1 ? 1 : (want > cap ? cap : want));
 }
 
+// the registers of nb banks of m that the filter covers, and its image's
+// bytes (a nibble a register, rounded up to 16 for the bulk copy)
+int filter_len(int nb, int m) { return (long long)nb * m < 2LL * FILTER_BYTES ? nb * m : 2 * FILTER_BYTES; }
+
+int image_bytes(int nb, int m) { return (filter_len(nb, m) + 31) / 32 * 16; }
+
+// the filter kernel's cooperative launch on a block an SM (fewer where n
+// needs fewer)
+template <bool DEGREE>
+cudaError_t hll_launch(int slot, int* bank0, int* bank1, int nb, int m, const int* src, const int* dst,
+                       const long long* keys, const bool* mask, int n, void* scratch, long long scratch_bytes,
+                       cudaStream_t stream) {
+    int p = log2_exact(m);
+    if (p < 0 || n < 0 || !scratch || scratch_bytes < image_bytes(nb, m)) return cudaErrorInvalidValue;
+    if (n == 0) return cudaSuccess;
+    Device* d;
+    cudaError_t err = device(&d);
+    if (err != cudaSuccess) return err;
+    int flen = filter_len(nb, m), bytes = image_bytes(nb, m);
+    const void* kernel = reinterpret_cast<const void*>(hll_filter_kernel<DEGREE>);
+    if ((err = allow(d, slot, hll_filter_kernel<DEGREE>, (size_t)bytes)) != cudaSuccess) return err;
+    if (d->fit_smem[slot] != (size_t)bytes || d->fit[slot] == 0) {
+        int per_sm = 0;
+        if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FILTER_THREADS, bytes)) !=
+            cudaSuccess)
+            return err;
+        if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+        d->fit[slot] = per_sm * d->sms;
+        d->fit_smem[slot] = bytes;
+    }
+    const long long share = (long long)FILTER_THREADS * EDGES_A_THREAD, want = ((long long)n + share - 1) / share;
+    const int blocks = (int)(want < d->sms ? want : d->sms);
+    if (blocks > d->fit[slot]) return cudaErrorCooperativeLaunchTooLarge;
+    uint8_t* image = static_cast<uint8_t*>(scratch);
+    void* args[] = {&bank0, &bank1, &p, &flen, &image, &bytes, &src, &dst, &keys, &mask, &n};
+    return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(FILTER_THREADS), args, (size_t)bytes, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
+// m: the scratch bytes of hll_fold_launch (nb = 1) and hll_degree_launch
+// (nb = 2): the filter's image
+long long hll_scratch_bytes(int nb, int m) {
+    if (log2_exact(m) < 0 || nb < 1 || nb > 2) return -1;
+    return image_bytes(nb, m);
+}
+
 // regs int32[m] (m a power of two; updated in place), keys int64[n] (u32
-// hashes), mask bool[n] or null, n, stream
-int hll_fold_launch(int* regs, int m, const long long* keys, const bool* mask, int n, cudaStream_t stream) {
-    int p = log2_exact(m);
-    if (p < 0 || n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaSuccess;
-    Device* d;
-    cudaError_t err = device(&d);
-    if (err != cudaSuccess) return (int)err;
-    size_t bytes = (size_t)m * 4;
-    if (bytes <= PRIVATE_BYTES) {
-        if ((err = allow(d, 0, hll_keys_kernel<true>, bytes)) != cudaSuccess) return (int)err;
-        hll_keys_kernel<true><<<fold_blocks(d, n, true), THREADS, bytes, stream>>>(regs, p, keys, mask, n);
-    } else {
-        hll_keys_kernel<false><<<fold_blocks(d, n, false), THREADS, 0, stream>>>(regs, p, keys, mask, n);
-    }
-    return (int)cudaGetLastError();
+// hashes), mask bool[n] or null, n, scratch, scratch bytes, stream: the
+// image kernel, then the filter kernel
+int hll_fold_launch(int* regs, int m, const long long* keys, const bool* mask, int n, void* scratch,
+                    long long scratch_bytes, cudaStream_t stream) {
+    return (int)hll_launch<false>(0, regs, nullptr, 1, m, nullptr, nullptr, keys, mask, n, scratch, scratch_bytes,
+                                  stream);
 }
 
 // verts, edges int32[m] (updated in place), m, src, dst int32[n], mask
-// bool[n] or null, n, stream: the three key families in one launch
+// bool[n] or null, n, scratch, scratch bytes, stream: the image kernel,
+// then the three key families in one filter kernel
 int hll_degree_launch(int* verts, int* edges, int m, const int* src, const int* dst, const bool* mask, int n,
-                      cudaStream_t stream) {
-    int p = log2_exact(m);
-    if (p < 0 || n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaSuccess;
-    Device* d;
-    cudaError_t err = device(&d);
-    if (err != cudaSuccess) return (int)err;
-    size_t bytes = (size_t)m * 8;  // both banks
-    if (bytes <= PRIVATE_BYTES) {
-        if ((err = allow(d, 1, hll_degree_kernel<true>, bytes)) != cudaSuccess) return (int)err;
-        hll_degree_kernel<true><<<fold_blocks(d, n, true), THREADS, bytes, stream>>>(verts, edges, p, src, dst, mask,
-                                                                                     n);
-    } else {
-        hll_degree_kernel<false><<<fold_blocks(d, n, false), THREADS, 0, stream>>>(verts, edges, p, src, dst, mask,
-                                                                                   n);
-    }
-    return (int)cudaGetLastError();
+                      void* scratch, long long scratch_bytes, cudaStream_t stream) {
+    return (int)hll_launch<true>(1, verts, edges, 2, m, src, dst, nullptr, mask, n, scratch, scratch_bytes, stream);
 }
 
 // grid int32[d * w] (updated in place), d, w (a power of two), keys_a
 // int32[n], keys_b int32[n] or null (folded after keys_a with the same
 // counts), counts int32[n] or null (1 each), mask bool[n] or null, n,
-// stream
+// stream: one cluster launch
 int cm_fold_launch(int* grid, int d, int w, const int* keys_a, const int* keys_b, const int* counts,
                    const bool* mask, int n, cudaStream_t stream) {
     int logw = log2_exact(w);
-    if (logw < 0 || d < 1 || n < 0) return (int)cudaErrorInvalidValue;
+    if (logw < 0 || d < 1 || n < 0 || (long long)d * w > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
     Device* dv;
     cudaError_t err = device(&dv);
     if (err != cudaSuccess) return (int)err;
-    size_t bytes = (size_t)d * w * 4;
-    if (bytes <= PRIVATE_BYTES) {
-        if ((err = allow(dv, 2, cm_kernel<true>, bytes)) != cudaSuccess) return (int)err;
-        cm_kernel<true><<<fold_blocks(dv, n, true), THREADS, bytes, stream>>>(grid, d, logw, keys_a, keys_b, counts,
-                                                                              mask, n);
+    const long long cells = (long long)d * w, room = (long long)(CM_PRIVATE_BYTES / 4);
+    const int priv = (int)(cells < room ? cells : room);
+    const size_t bytes = (size_t)priv * 4;
+    if (priv < cells) {  // the rows not unrolled
+        err = launch_clusters(dv, 16, cm_cluster_kernel<0, true>, CM_CLUSTER, CM_THREADS, bytes, n, CM_BLOCKS_AN_SM,
+                              stream, grid, d, logw, priv, keys_a, keys_b, counts, mask, n);
     } else {
-        cm_kernel<false><<<fold_blocks(dv, n, false), THREADS, 0, stream>>>(grid, d, logw, keys_a, keys_b, counts,
-                                                                            mask, n);
+        switch (d) {  // the rows unrolled (the descriptors' d is at most 8): D independent hashes a key
+#define CM_ROWS(D)                                                                                              \
+    case D:                                                                                                     \
+        err = launch_clusters(dv, 7 + D, cm_cluster_kernel<D, false>, CM_CLUSTER, CM_THREADS, bytes, n,         \
+                              CM_BLOCKS_AN_SM, stream, grid, d, logw, priv, keys_a, keys_b, counts, mask, n);    \
+        break;
+            CM_ROWS(1) CM_ROWS(2) CM_ROWS(3) CM_ROWS(4) CM_ROWS(5) CM_ROWS(6) CM_ROWS(7) CM_ROWS(8)
+#undef CM_ROWS
+            default:
+                err = launch_clusters(dv, 7, cm_cluster_kernel<0, false>, CM_CLUSTER, CM_THREADS, bytes, n,
+                                      CM_BLOCKS_AN_SM, stream, grid, d, logw, priv, keys_a, keys_b, counts, mask, n);
+        }
     }
-    return (int)cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // rows: the scratch bytes of tri_fold_launch (the keys u64[R], then the

@@ -205,13 +205,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sampler_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _L, _P],
     },
     "sketches.cu": {
-        # regs, m, keys int64 (u32 hashes), mask | None, n, stream
-        "hll_fold_launch": [_P, _I, _P, _P, _I, _P],
-        # verts, edges, m, src, dst, mask | None, n, stream: the three key
-        # families of HLLDegreeSummary in one launch
-        "hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P],
+        # banks (1 or 2), m: the scratch bytes of the two HLL folds (the
+        # filter's image)
+        "hll_scratch_bytes": [_I, _I],
+        # regs, m, keys int64 (u32 hashes), mask | None, n, scratch, scratch
+        # bytes, stream: the image kernel, then the filter kernel
+        "hll_fold_launch": [_P, _I, _P, _P, _I, _P, _L, _P],
+        # verts, edges, m, src, dst, mask | None, n, scratch, scratch bytes,
+        # stream: the image kernel, then HLLDegreeSummary's three key
+        # families in one filter kernel
+        "hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _L, _P],
         # grid, d, w, keys, keys_b | None (dst), counts | None, mask | None,
-        # n, stream
+        # n, stream: one cluster launch
         "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
         # rows: the scratch bytes of tri_fold_launch
         "tri_fold_scratch_bytes": [_I],
@@ -240,7 +245,7 @@ RESTYPES: Dict[str, type] = {
     "uf_scratch_bytes": _L, "sage_layer_backward_scratch_bytes": _L, "csr_scratch_bytes": _L,
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
-    "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L,
+    "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L, "hll_scratch_bytes": _L,
 }
 
 

@@ -17,12 +17,15 @@ two's-complement bits (ids outside [0, C), negative ones included, hash
 like any other: they are never indexed).
 
 On CUDA tensors each wrapper is one C call: ``hll_fold`` (precomputed
-hashes), ``hll_degree_fold`` (HLLDegreeSummary's three key families in one
-launch), ``cm_fold`` and ``cm_degree_fold`` (src, then dst), ``tri_fold``
-(the sample and, given ``regs``, the distinct-edge registers) and
-``tri_sampled_closures``.  On CPU tensors they run the twins, the JAX
-formulas in plain PyTorch.  The folds update their state in place and
-return it.
+hashes) and ``hll_degree_fold`` (HLLDegreeSummary's three key families in
+one filter kernel), each after a kernel that writes the registers' filter
+image into a kept scratch buffer; ``cm_fold`` and ``cm_degree_fold`` (src,
+then dst; one cluster launch); ``tri_fold`` (the sample and, given
+``regs``, the distinct-edge registers) and ``tri_sampled_closures``.  On
+CPU tensors they run the twins, the JAX formulas in plain PyTorch.  The
+folds update their state in place and return it.  ``hll_filter_model`` and
+``cm_cluster_model`` are the HLL and count-min kernels' designs step by
+step on the host, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -243,6 +246,116 @@ def tri_sampled_closures_plain(elo: torch.Tensor, ehi: torch.Tensor) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
+# plain models of the kernels' designs (csrc/sketches.cu), step by step on
+# the host: the CPU tests hold them to the JAX package
+
+#: csrc/sketches.cu's FILTER_BYTES: the HLL filter's bytes a block, a nibble a register
+FILTER_BYTES = 96 * 1024
+#: csrc/sketches.cu's CM_PRIVATE_BYTES: a count-min block's private grid
+CM_PRIVATE_BYTES = 96 * 1024
+
+
+def _blocks_of(n: int, blocks: int, threads: int):
+    """The kernels' grid-stride cut: edge e to block (e // threads) % blocks."""
+    return [(e // threads) % blocks for e in range(n)]
+
+
+def _nibble(v: int) -> int:
+    """A register's filter nibble: the register plus one, clamped to [0, 15]."""
+    return min(max(v + 1, 0), 15)
+
+
+def hll_filter_model(banks, families, mask: Optional[torch.Tensor], blocks: int, threads: int = 1024,
+                     filter_bytes: int = FILTER_BYTES, lose: float = 0.0, seed: int = 0) -> dict:
+    """The HLL filter kernel's design on the host.  ``banks``: int32
+    register tensors [m], updated in place; ``families``: (bank index,
+    hashes as int64 lanes [n]) in an edge's order of updates.  Each block
+    starts from a filter of the banks' nibbles as they stood before the
+    batch (bank 0, then bank 1; a register plus one, clamped to [0, 15];
+    the first 2 * ``filter_bytes`` registers), the blocks' edges
+    interleaved one edge a block a step.  A masked row is rank 0.  An
+    update is done where its rank is below its nibble; else it reads the
+    register, raises it where the rank does, and stores the larger of the
+    two into the nibble, a store lost with probability ``lose`` (a race
+    that puts back an older nibble).  Returns the counts of filtered
+    updates, register reads and raises."""
+    import random
+
+    m = banks[0].shape[0]
+    p = _log2(m, "the register count")
+    regs = [b.tolist() for b in banks]
+    image = bytes(_nibble(v) for bank in regs for v in bank)[:2 * filter_bytes]
+    flen = len(image)
+    filters = [bytearray(image) for _ in range(blocks)]
+    hashes = [(bank, as_u32(h).tolist()) for bank, h in families]
+    n = len(hashes[0][1]) if hashes else 0
+    keep = [True] * n if mask is None else mask.tolist()
+    queues = [[] for _ in range(blocks)]
+    for e, b in enumerate(_blocks_of(n, blocks, threads)):
+        queues[b].append(e)
+    rng = random.Random(seed)
+    stats = {"filtered": 0, "reads": 0, "raises": 0}
+    for step in range(max((len(q) for q in queues), default=0)):
+        for b, q in enumerate(queues):
+            if step >= len(q):
+                continue
+            e = q[step]
+            for bank, hs in hashes:
+                h = hs[e]
+                idx, rank = h & (m - 1), (32 - (h >> p).bit_length() - p + 1 if keep[e] else 0)
+                f = bank * m + idx
+                if f < flen and rank < filters[b][f]:
+                    stats["filtered"] += 1
+                    continue
+                g = regs[bank][idx]
+                stats["reads"] += 1
+                if rank > g:
+                    regs[bank][idx] = rank
+                    stats["raises"] += 1
+                if f < flen and not (lose and rng.random() < lose):
+                    filters[b][f] = _nibble(max(rank, g))
+    for t, r in zip(banks, regs):
+        t.copy_(torch.tensor(r, dtype=torch.int32))
+    return stats
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def cm_cluster_model(grid: torch.Tensor, d: int, w: int, keys, counts: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor], blocks: int, cluster: int, threads: int = 512,
+                     private_bytes: int = CM_PRIVATE_BYTES) -> torch.Tensor:
+    """The count-min cluster kernel's design on the host: ``keys`` a list
+    of int32 key tensors (src, then dst) folded with the same counts.  Each
+    block (``blocks`` a multiple of ``cluster``) gathers its edges' updates
+    to the first ``private_bytes`` / 4 counters in a private grid, the rest
+    going straight to ``grid``; each cluster of consecutive blocks sums its
+    members' grids (wrapping int32) and adds each nonzero sum into
+    ``grid``, in place."""
+    if blocks % cluster:
+        raise ValueError("blocks must be a multiple of the cluster size")
+    n = keys[0].shape[0]
+    priv = min(d * w, private_bytes // 4)
+    cnt = torch.ones((n,), dtype=torch.int64) if counts is None else counts.to(torch.int64)
+    cnt = torch.where(_kept(mask, keys[0]), cnt, 0)
+    block = torch.tensor(_blocks_of(n, blocks, threads), dtype=torch.int64)
+    partial = torch.zeros((blocks, priv), dtype=torch.int64)
+    direct = torch.zeros((d * w,), dtype=torch.int64)
+    for k in keys:
+        for r in range(d):
+            cell = r * w + (hash_u32(k, SALT_CM_ROW + r) & (w - 1))
+            inside = cell < priv
+            partial.view(-1).index_put_((block[inside] * priv + cell[inside],), cnt[inside], accumulate=True)
+            direct.index_add_(0, cell[~inside], cnt[~inside])
+    sums = _wrap32(partial.view(blocks // cluster, cluster, priv).sum(1)).to(torch.int64)
+    total = grid.to(torch.int64) + direct
+    total[:priv] += (sums * (sums != 0)).sum(0)
+    grid.copy_(_wrap32(total))
+    return grid
+
+
+# ---------------------------------------------------------------------------
 # the wrappers
 
 
@@ -286,6 +399,18 @@ def _dense(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
 
+def _hll_scratch(dev, banks: int, m: int) -> torch.Tensor:
+    """The HLL filter's image buffer for ``banks`` banks of ``m``
+    registers (the C library's ``hll_scratch_bytes``), one a device and
+    shape, kept."""
+    key = ("hll", dev, banks, m)
+    buf = _scratch.get(key)
+    if buf is None:
+        nbytes = int(_cuda.library(_SOURCE).hll_scratch_bytes(banks, m))
+        buf = _scratch[key] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    return buf
+
+
 def hll_fold(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Fold hashed keys (int64 lanes of u32 hashes: ``hash_u32`` /
     ``hash_pair_u32``) into the int32 registers ``regs`` [m] in place;
@@ -301,8 +426,9 @@ def hll_fold(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor
         TWIN_CALLS["hll_fold"] += 1
         return hll_fold_plain(regs, keys, mask)
     keys_c, mask_c = _dense(keys, mask)
+    scratch = _hll_scratch(dev, 1, regs.shape[0])
     err = _cuda.library(_SOURCE).hll_fold_launch(regs.data_ptr(), regs.shape[0], keys_c.data_ptr(), _ptr(mask_c), n,
-                                                  _stream(dev))
+                                                  scratch.data_ptr(), scratch.numel(), _stream(dev))
     _cuda.check(err, "hll_fold_launch")
     LAUNCHES["hll_fold"] += 1
     return regs
@@ -327,9 +453,10 @@ def hll_degree_fold(verts: torch.Tensor, edges: torch.Tensor, src: torch.Tensor,
         TWIN_CALLS["hll_fold"] += 1
         return hll_degree_fold_plain(verts, edges, src, dst, mask)
     src_c, dst_c, mask_c = _dense(src, dst, mask)
+    scratch = _hll_scratch(dev, 2, verts.shape[0])
     err = _cuda.library(_SOURCE).hll_degree_launch(
         verts.data_ptr(), edges.data_ptr(), verts.shape[0], src_c.data_ptr(), dst_c.data_ptr(), _ptr(mask_c), n,
-        _stream(dev))
+        scratch.data_ptr(), scratch.numel(), _stream(dev))
     _cuda.check(err, "hll_degree_launch")
     LAUNCHES["hll_fold"] += 1
     return verts, edges

@@ -2397,64 +2397,70 @@ def _sample_equal(a, b):
         assert torch.equal(x.cpu(), y.cpu())
 
 
-@pytest.mark.parametrize("m", [64, 1 << 14, 1 << 16])
+# n: below one block's share, a batch of 50,000, past three clusters' shares
+# and not a multiple of one (an HLL cluster takes 8 x 1024 x 8 edges, a
+# count-min cluster 8 x 512 x 8), none; the first fold finds cold state,
+# the later ones warm
+SKETCH_NS = (100, 50_000, 3 * (1 << 16) + 777, 0)
+
+
+@pytest.mark.parametrize("m", [64, 1 << 14, 1 << 16, 1 << 18])
 def test_hll_folds_match_twin(cuda_device, m):
+    """m = 2^18: the registers pass the filter's 192 KB, the rest read in L2."""
     from gelly_streaming_tpu_torch.ops import sketches as sko
 
     rng = np.random.default_rng(m)
-    n = 50_000
-    keys = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64)).to(cuda_device)
-    keys[:5] = 0  # saturated ranks
-    keys[5:9] = m - 1
-    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
     r1 = torch.zeros(m, dtype=torch.int32, device=cuda_device)
     r2 = r1.clone()
-    for msk in (mask, None, torch.zeros_like(mask)):
-        before = sko.LAUNCHES["hll_fold"]
-        sko.hll_fold(r1, keys, msk)
-        assert sko.LAUNCHES["hll_fold"] == before + 1
-        sko.hll_fold_plain(r2, keys, msk)
-        assert torch.equal(r1, r2)
+    for n in SKETCH_NS:
+        keys = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64)).to(cuda_device)
+        keys[:5] = 0  # saturated ranks
+        keys[5:9] = m - 1
+        mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+        for msk in (mask, None, torch.zeros_like(mask)):
+            before = sko.LAUNCHES["hll_fold"]
+            sko.hll_fold(r1, keys, msk)
+            assert sko.LAUNCHES["hll_fold"] == before + 1
+            sko.hll_fold_plain(r2, keys, msk)
+            assert torch.equal(r1, r2)
     assert int(r1.max()) == 33 - (m.bit_length() - 1)
-    s, d, msk = _edge_batch(rng, cuda_device, n, -(1 << 31), (1 << 31) - 1)
-    s[:100] = d[:100]  # self-loops: folded by HLLDegreeSummary
-    v1, e1 = torch.zeros(m, dtype=torch.int32, device=cuda_device), torch.zeros(m, dtype=torch.int32,
-                                                                                 device=cuda_device)
+    # registers no fold writes (negative, above any rank, past a byte) meet the filter's clamp
+    odd = torch.from_numpy(rng.integers(-3, 300, m).astype(np.int32)).to(cuda_device)
+    v1, e1 = torch.zeros(m, dtype=torch.int32, device=cuda_device), odd.clone()
     v2, e2 = v1.clone(), e1.clone()
-    for mm in (msk, None):
-        before = sko.LAUNCHES["hll_fold"]
-        sko.hll_degree_fold(v1, e1, s, d, mm)
-        assert sko.LAUNCHES["hll_fold"] == before + 1
-        sko.hll_degree_fold_plain(v2, e2, s, d, mm)
-        assert torch.equal(v1, v2) and torch.equal(e1, e2)
-    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
-    sko.hll_degree_fold(v1, e1, empty, empty, None)
-    assert torch.equal(v1, v2)
+    for n in SKETCH_NS:
+        s, d, msk = _edge_batch(rng, cuda_device, n, -(1 << 31), (1 << 31) - 1)
+        s[:100] = d[:100]  # self-loops: folded by HLLDegreeSummary
+        for mm in (msk, None):
+            before = sko.LAUNCHES["hll_fold"]
+            sko.hll_degree_fold(v1, e1, s, d, mm)
+            assert sko.LAUNCHES["hll_fold"] == before + 1
+            sko.hll_degree_fold_plain(v2, e2, s, d, mm)
+            assert torch.equal(v1, v2) and torch.equal(e1, e2)
+    assert int((e1 != odd).sum()) > 0
 
 
-@pytest.mark.parametrize("d,w", [(1, 64), (8, 2048), (5, 4096), (8, 1 << 16)])
+@pytest.mark.parametrize("d,w", [(1, 64), (8, 2048), (5, 4096), (8, 1 << 16), (9, 256)])
 def test_cm_folds_match_twin(cuda_device, d, w):
+    """(8, 2^16): a 2 MB grid, past a block's private 96 KB; (9, 256): more rows than the unrolled kernels take."""
     from gelly_streaming_tpu_torch.ops import sketches as sko
 
     rng = np.random.default_rng(d * w)
-    n = 40_000
     g1 = torch.zeros(d * w, dtype=torch.int32, device=cuda_device)
     g2 = g1.clone()
-    s, t, m = _edge_batch(rng, cuda_device, n, -5, 1 << 20)  # negative ids and ids past any C
-    counts = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)).to(cuda_device)  # wraps
-    for keys, cnt, mm in ((s, counts, m), (t, None, None), (s, counts, torch.zeros_like(m))):
-        sko.cm_fold(g1, d, w, keys, cnt, mm)
-        sko.cm_fold_plain(g2, d, w, keys, cnt, mm)
+    for n in SKETCH_NS:
+        s, t, m = _edge_batch(rng, cuda_device, n, -5, 1 << 20)  # negative ids and ids past any C
+        counts = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)).to(cuda_device)  # wraps
+        for keys, cnt, mm in ((s, counts, m), (t, None, None), (s, counts, torch.zeros_like(m))):
+            sko.cm_fold(g1, d, w, keys, cnt, mm)
+            sko.cm_fold_plain(g2, d, w, keys, cnt, mm)
+            assert torch.equal(g1, g2)
+        before = sko.LAUNCHES["cm_fold"]
+        sko.cm_degree_fold(g1, d, w, s, t, m)
+        assert sko.LAUNCHES["cm_fold"] == before + 1
+        sko.cm_fold_plain(g2, d, w, s, None, m)
+        sko.cm_fold_plain(g2, d, w, t, None, m)
         assert torch.equal(g1, g2)
-    before = sko.LAUNCHES["cm_fold"]
-    sko.cm_degree_fold(g1, d, w, s, t, m)
-    assert sko.LAUNCHES["cm_fold"] == before + 1
-    sko.cm_fold_plain(g2, d, w, s, None, m)
-    sko.cm_fold_plain(g2, d, w, t, None, m)
-    assert torch.equal(g1, g2)
-    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
-    sko.cm_degree_fold(g1, d, w, empty, empty, None)
-    assert torch.equal(g1, g2)
 
 
 @pytest.mark.parametrize("rows,m,c", [(64, 256, 40), (64, 1 << 16, 1 << 20), (4096, 8192, 3000),

@@ -10,7 +10,11 @@ against JAX and a numpy pair-enumeration oracle); the three descriptors
 end to end on the wire path, on event-time windows and with ``num_shards =
 8`` against JAX's replicated combine; ``combine`` order-free; the
 catalog's errors; the reference's three accuracy contracts run on the port;
-a JAX state carried over mid-stream by ``interop.sketch_state_from_numpy``.
+a JAX state carried over mid-stream by ``interop.sketch_state_from_numpy``;
+the plain models of the HLL filter kernel (B in {1, 4, 132} blocks, cold,
+warm and odd registers, a filter over a prefix of the banks, lost nibble
+stores) and of count-min's cluster merge (clusters of 1, 8 and 16, counts
+that wrap, a grid past a block's private bytes) against JAX's folds.
 
 Tolerances: registers, grids, sample rows, closure counts, ``occ`` and the
 top-k ids and values exactly.  The f32 estimates within rtol 1e-6
@@ -179,6 +183,89 @@ def test_cm_fold_and_query_match_jax(d):
         _exact(tg, jg)
     q = np.arange(-60, 3 * c, dtype=np.int32)
     _exact(tsk.cm_query(tg, d, w, _t(q)), jsk.cm_query(jg, d, w, _j(q)))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' designs (ops/sketches.py's plain models of csrc/sketches.cu)
+
+
+def _degree_batch(rng, n):
+    src = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    dst = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    src[:len(CORNERS)], dst[:len(CORNERS)] = CORNERS, CORNERS[::-1]  # the int32 corners, a self-loop among them
+    dst[20:40] = src[20:40]
+    return src, dst, rng.random(n) < 0.8
+
+
+def _jax_degree_fold(jv, je, src, dst, mask):
+    for ids in (src, dst):
+        jv = jsk.hll_fold(jv, jsk.hash_u32(_j(ids), jsk.SALT_VERTEX_HLL), _j(mask))
+    lo, hi = jsk.canonical_edge(_j(src), _j(dst))
+    return jv, jsk.hll_fold(je, jsk.hash_pair_u32(lo, hi, jsk.SALT_EDGE_HLL), _j(mask))
+
+
+@pytest.mark.parametrize("blocks", [1, 4, 132])
+@pytest.mark.parametrize("m", [64, 2048, 65536])
+def test_hll_filter_model_matches_jax(m, blocks):
+    """The filter design: cold registers, warm ones (a bulk fold first), a
+    filter over a prefix of the banks, registers no fold writes, the last
+    two with lost nibble stores; every step's registers equal JAX's
+    hll_fold of the three key families."""
+    rng = np.random.default_rng(m + blocks)
+    tv, te = tsk.hll_init(m, CPU), tsk.hll_init(m, CPU)
+    jv, je = jsk.hll_init(m), jsk.hll_init(m)
+    for phase in ("cold", "warm", "prefix", "odd"):
+        if phase == "warm":  # the registers after a large batch, on both sides
+            bulk = _degree_batch(rng, 50 * m)
+            jv, je = _jax_degree_fold(jv, je, *bulk)
+            tv.copy_(_t(np.array(jv))), te.copy_(_t(np.array(je)))
+        if phase == "odd":  # registers no fold writes: below 0 (a masked row raises them to 0) and past a nibble
+            odd = rng.integers(-3, 40, (2, m)).astype(np.int32)
+            jv, je = _j(odd[0]), _j(odd[1])
+            tv.copy_(_t(odd[0])), te.copy_(_t(odd[1]))
+        src, dst, mask = _degree_batch(rng, 900)
+        s_t, d_t = _t(src), _t(dst)
+        lo, hi = sko.canonical_edge(s_t, d_t)
+        families = [(0, sko.hash_u32(s_t, sko.SALT_VERTEX_HLL)), (0, sko.hash_u32(d_t, sko.SALT_VERTEX_HLL)),
+                    (1, sko.hash_pair_u32(lo, hi, sko.SALT_EDGE_HLL))]
+        stats = sko.hll_filter_model([tv, te], families, _t(mask), blocks, threads=8,
+                                     filter_bytes=m // 2 if phase == "prefix" else sko.FILTER_BYTES,
+                                     lose=0.3 if phase in ("prefix", "odd") else 0.0, seed=blocks)
+        jv, je = _jax_degree_fold(jv, je, src, dst, mask)
+        _exact(tv, jv)
+        _exact(te, je)
+        assert stats["filtered"] + stats["reads"] == 3 * len(mask)
+        if phase == "warm":
+            assert stats["filtered"] > stats["reads"]  # the filter keeps most updates off the registers
+
+
+@pytest.mark.parametrize("d", [1, 5, 8])
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+def test_cm_cluster_model_matches_jax(cluster, d):
+    """Per-block private grids summed per cluster: counts that wrap int32
+    and a grid past a block's private bytes, against JAX's cm_fold."""
+    w = 256
+    rng = np.random.default_rng(cluster * 10 + d)
+    start = np.full(d * w, 2**31 - 7, np.int32)  # every counter wraps on the first adds
+    tg, jg = _t(start.copy()), _j(start)
+    # the whole grid private, then half of it (2 bytes a counter)
+    for blocks, private in ((cluster, sko.CM_PRIVATE_BYTES), (3 * cluster, d * w * 2)):
+        n = 2000
+        keys = rng.integers(-50, 300, n).astype(np.int32)
+        keys[:2] = (2**31 - 1, -(2**31))
+        counts = rng.integers(-(2**30), 2**30, n).astype(np.int32)
+        mask = rng.random(n) < 0.7
+        sko.cm_cluster_model(tg, d, w, [_t(keys)], _t(counts), _t(mask), blocks, cluster, threads=16,
+                             private_bytes=private)
+        jg = jsk.cm_fold(jg, d, w, _j(keys), _j(counts), _j(mask))
+        _exact(tg, jg)
+        src, dst, emask = _degree_batch(rng, n)
+        sko.cm_cluster_model(tg, d, w, [_t(src), _t(dst)], None, _t(emask), blocks, cluster, threads=16,
+                             private_bytes=private)
+        ones = np.ones(n, np.int32)
+        for ids in (src, dst):
+            jg = jsk.cm_fold(jg, d, w, _j(ids), _j(ones), _j(emask))
+        _exact(tg, jg)
 
 
 def _sample(ts):
