@@ -316,14 +316,18 @@ device ms a batch held, host µs a call, the twin's ms, its bound, the
 library call (``scatter_reduce_`` amax, ``index_add_``) on precomputed
 inputs, the idle share, and the estimates' relative errors against exact
 oracles (not asserted).  ``hll_fold`` and ``cm_fold`` are also timed on
-(a)'s first batch (cold registers); ``--parent-sketches-cu PATH``
-(609487c's ``sketches.cu``, before the HLL filter and the count-min
-cluster merge) times its two folds in turns with the current ones on (a)'s
-first and last batches (parent, current, current, parent; states held
-equal first), beside the split of the parent's time (``SKETCH_SPLIT``) and
-the design's variants (``SKETCH_DESIGNS``, ``HLL_FILL_CU``), each built
-from its source beside the main build (one that fails to build is
-reported and skipped).
+(a)'s first batch (cold registers); ``tri_fold`` on (a)'s last batch of
+2^21 edges folded into (b)'s final sample, ``tri_sampled_closures`` on
+the star sample (R rows on vertex 0), both held against the twins, and
+each must enqueue one launch and no memset a call (the nodes of a call
+captured into a CUDA graph, and torch.profiler's runtime calls).
+``--parent-sketches-cu PATH`` (e057c38's ``sketches.cu``, before the
+one-launch ``tri_fold`` and the grouped closure count) times its two
+kernels in turns with the current ones on those four inputs (parent,
+current, current, parent; outputs held equal first), beside the split of
+the parent's time (``TRI_SPLIT``, and its fold with no edge) and the
+design's variants (``TRI_DESIGNS``), each built from its source beside
+the main build (one that fails to build is reported and skipped).
 
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -5996,201 +6000,80 @@ def bound_pair(nbytes: float, ops: float) -> tuple:
     return (o, "operations") if o > b else (b, "bytes")
 
 
-# phase 18 with --parent-sketches-cu: 609487c's sketches.cu (HLL registers
-# read in L2 before each atomicMax; count-min's private grids each merged
-# by global atomics) with one part taken out, for the split of its time
-# (the results are wrong; only their time counts); the form of FOLD_SPLIT
-SKETCH_SPLIT = {
-    "hll_fold: the register reads on a shared byte table that raises nothing (no L2 read, no atomic)": [
-        ("__device__ __forceinline__ void hll_put(int* regs, int p, uint32_t h) {",
-         "__shared__ unsigned char split_table[16384];\n\n"
-         "__device__ __forceinline__ void hll_put(int* regs, int p, uint32_t h) {"),
-        ("    if (rank > regs[idx]) atomicMax(regs + idx, rank);",
-         "    if (rank > split_table[idx & 16383]) atomicMax(regs + idx, rank);"),
-        ("    int* rv = PRIVATE ? smem : verts;",
-         "    for (int i = threadIdx.x; i < 16384; i += blockDim.x) split_table[i] = 0x7F;\n"
-         "    __syncthreads();\n    int* rv = PRIVATE ? smem : verts;")],
-    "hll_fold: no register touched (the ids and the hashes alone)": [
-        ("    if (rank > regs[idx]) atomicMax(regs + idx, rank);",
-         "    if (rank > 40 + (int)(h & 1)) atomicMax(regs + idx, rank);")],
-    "cm_fold: the merge removed (the edges into the private grids alone)": [
-        ("            if (v != 0) atomicAdd(grid + i, v);",
-         "            if (v == 0x7FFFFFFF) atomicAdd(grid + i, v);")],
+# phase 18 (b) with --parent-sketches-cu: e057c38's sketches.cu (tri_fold: a
+# memset of its scratch, then the keys, hi and merge kernels; the closure
+# count a block a strip of 32 rows against every row) with one part taken
+# out, for the split of its time (the results are wrong; only their time
+# counts); the form of FOLD_SPLIT
+TRI_SPLIT = {
+    "tri_fold: the keys kernel without its global merge of keys and registers": [
+        ("        if (k < gkey[i]) atomicMin(gkey + i, k);", "        if (k == 1ull) atomicMin(gkey + i, k);"),
+        ("    if (PRIVATE) merge_max(regs, sregs, m);", "    if (PRIVATE && m < 0) merge_max(regs, sregs, m);")],
+    "tri_fold: the hi kernel removed": [
+        ("        tri_hi_kernel<<<fold_blocks(d, n, false), THREADS, 0, stream>>>(gkey, ghi, rows, src, dst, mask, n);\n",
+         "")],
+    "tri_sampled_closures: the launch and the set build alone (no pair loop)": [
+        ("    __syncthreads();\n    int count = 0;", "    __syncthreads();\n    if (rows > 0) return;\n    int count = 0;")],
+    "tri_sampled_closures: the pair loop without set_has": [
+        ("            count += key != EMPTY_HASH && set_has(set, tmask, key);", "            count += key != EMPTY_HASH;")],
 }
 
 # the current sketches.cu with one constant changed or one part taken out:
-# the design's other shapes and the split of its time
-SKETCH_DESIGNS = {
-    "hll_fold: the launch alone (the kernel returns at once)": [
-        ("    __shared__ __align__(8) unsigned long long landed;\n    constexpr int K",
-         "    __shared__ __align__(8) unsigned long long landed;\n    if (n >= 0) return;\n    constexpr int K")],
-    "hll_fold: the image and the sync alone (no copy, no edge)": [
-        ("    cg::this_grid().sync();  // the image is whole\n",
-         "    cg::this_grid().sync();  // the image is whole\n    if (n >= 0) return;\n")],
-    "hll_fold: the image, the sync and the filter's copy alone (no edge folded)": [
-        ("    write_image(bank0, bank1, 1 << p, flen, image);\n",
-         "    write_image(bank0, bank1, 1 << p, flen, image);\n    n = 0;\n")],
-    "hll_fold: no stash (every edge hashed after the filter lands)": [
-        ("constexpr int STASH = 4;", "constexpr int STASH = 0;")],
-    "hll_fold: a stash of 8 edges": [("constexpr int STASH = 4;", "constexpr int STASH = 8;")],
-    "cm_fold: one block an SM (its shared memory padded past half an SM)": [
-        ("constexpr int CM_BLOCKS_AN_SM = 2;", "constexpr int CM_BLOCKS_AN_SM = 1;"),
-        ("    const size_t bytes = (size_t)priv * 4;", "    const size_t bytes = priv < 29184 ? 116736 : (size_t)priv * 4;")],
-    "cm_fold: clusters of 1 (each block adds its own grid)": [
-        ("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 1;")],
-    "cm_fold: clusters of 2": [("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 2;")],
-    "cm_fold: clusters of 4": [("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 4;")],
-    "cm_fold: clusters of 16 (non-portable)": [
-        ("constexpr int CM_CLUSTER = 8;", "constexpr int CM_CLUSTER = 16;"),
+# the redesign's other shapes and the split of its time
+TRI_DESIGNS = {
+    "tri_fold: the launch and the init alone (the kernel returns at once)": [
+        ("    int hb[TRI_HELD];\n", "    if (n >= 0) return;\n    int hb[TRI_HELD];\n")],
+    "tri_fold: no hi step (the offers removed)": [
+        ("        if (hb[k] >= 0) tri_offer_hi(tri_keys, shi, hb[k], hk[k], hh[k]);",
+         "        if (hb[k] >= 0 && n < 0) tri_offer_hi(tri_keys, shi, hb[k], hk[k], hh[k]);")],
+    "tri_fold: 2 edges a thread before another cluster": [
+        ("constexpr int TRI_EDGES_A_THREAD = 1;", "constexpr int TRI_EDGES_A_THREAD = 2;")],
+    "tri_fold: 4 edges a thread before another cluster": [
+        ("constexpr int TRI_EDGES_A_THREAD = 1;", "constexpr int TRI_EDGES_A_THREAD = 4;")],
+    "tri_fold: 8 edges a thread before another cluster (one cluster at 2^16)": [
+        ("constexpr int TRI_EDGES_A_THREAD = 1;", "constexpr int TRI_EDGES_A_THREAD = 8;")],
+    "tri_fold: private registers at every batch": [
+        ("constexpr int TRI_PRIVATE_EDGES = 16;", "constexpr int TRI_PRIVATE_EDGES = 0;")],
+    "tri_fold: 16 edges held a thread (no edge read again at 2^21)": [
+        ("constexpr int TRI_HELD = 8;", "constexpr int TRI_HELD = 16;")],
+    "tri_fold: clusters of 16 (non-portable)": [
+        ("constexpr int TRI_CLUSTER = 8;", "constexpr int TRI_CLUSTER = 16;"),
         ("    cudaError_t err = allow(d, slot, kernel, smem);\n    if (err != cudaSuccess) return err;\n",
          "    cudaError_t err = allow(d, slot, kernel, smem);\n    if (err != cudaSuccess) return err;\n"
          "    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != "
          "cudaSuccess)\n        return err;\n")],
-    "cm_fold: 1024 threads a block": [("constexpr int CM_THREADS = 512;", "constexpr int CM_THREADS = 1024;")],
-    "cm_fold: the rows not unrolled": [
-        ("            CM_ROWS(1) CM_ROWS(2) CM_ROWS(3) CM_ROWS(4) CM_ROWS(5) CM_ROWS(6) CM_ROWS(7) CM_ROWS(8)\n", "")],
-    "cm_fold: the cluster merge removed": [
-        ("        if (sum) atomicAdd(grid + i, (int)sum);",
-         "        if (sum == 0x7FFFFFFFu) atomicAdd(grid + i, (int)sum);")],
+    "tri_sampled_closures: the launch alone (the kernel returns at once)": [
+        ("    extern __shared__ __align__(16) uint32_t closure_smem[];\n",
+         "    extern __shared__ __align__(16) uint32_t closure_smem[];\n    if (rows > 0) return;\n")],
+    "tri_sampled_closures: the build, the sync and the copies alone (no pair tested)": [
+        ("    uint32_t count = 0;\n    if (q < qend) {", "    uint32_t count = 0;\n    if (q < qend && rows < 0) {")],
+    "tri_sampled_closures: a block a 256 pairs": [
+        ("constexpr uint32_t CLOSURE_PAIRS_A_BLOCK = 1024;", "constexpr uint32_t CLOSURE_PAIRS_A_BLOCK = 256;")],
+    "tri_sampled_closures: a block a 16,384 pairs": [
+        ("constexpr uint32_t CLOSURE_PAIRS_A_BLOCK = 1024;", "constexpr uint32_t CLOSURE_PAIRS_A_BLOCK = 16384;")],
 }
 
-# The HLL filter filled three other ways, each exported as
-# hll_degree_launch (the shipped one renamed away) and built beside the
-# shipped source, which it includes; none stashes hashes.
-# "kernel": the image written by a kernel of its own, then each block of
-# the filter kernel copies it by TMA (no grid-wide sync); "dsmem": clusters
-# of 8 whose members each read 1/8 of the registers and store their
-# nibbles into every member's filter over DSMEM (no image); "multicast":
-# the image written by its own kernel, each member of a cluster of 8
-# copying 1/8 of it by a TMA bulk copy multicast to every member.  The edges
-# fold as the shipped kernel folds them.
-HLL_FILL_CU = r"""#define hll_degree_launch shipped_hll_degree_launch
-#include "{source}"
-#undef hll_degree_launch
-
-namespace {{
-
-constexpr int C = {cluster};
-constexpr int MODE = {mode};  // 0: kernel, 1: dsmem, 2: multicast
-
-__global__ void image_kernel(const int* bank0, const int* bank1, int m, int len, uint8_t* image) {{
-    write_image(bank0, bank1, m, len, image);
-}}
-
-__device__ void load_filter(uint8_t* filt, const uint8_t* image, int bytes) {{
-    __shared__ __align__(8) unsigned long long landed;
-    copy_filter(filt, image, bytes, &landed);
-    wait_filter(&landed);
-}}
-
-__device__ void fill_dsmem(const cg::cluster_group& cl, uint8_t* filt, int len, const int* bank0, const int* bank1,
-                           int m) {{
-    const int c = (int)cl.num_blocks(), r = (int)cl.block_rank();
-    for (int q = r * blockDim.x + threadIdx.x; q * 32 < len; q += c * blockDim.x) {{
-        const int base = q * 32;
-        const int4* regs = reinterpret_cast<const int4*>(base < m ? bank0 + base : bank1 + (base - m));
-        uint32_t word[4];
-        for (int k = 0; k < 4; ++k) {{
-            const int4 a = __ldcg(regs + 2 * k), b = __ldcg(regs + 2 * k + 1);
-            word[k] = reg_nibble(a.x) | reg_nibble(a.y) << 4 | reg_nibble(a.z) << 8 | reg_nibble(a.w) << 12 |
-                      reg_nibble(b.x) << 16 | reg_nibble(b.y) << 20 | reg_nibble(b.z) << 24 | reg_nibble(b.w) << 28;
-        }}
-        const uint4 packed = make_uint4(word[0], word[1], word[2], word[3]);
-        for (int t = 0; t < c; ++t) *reinterpret_cast<uint4*>(cl.map_shared_rank(filt, t) + base / 2) = packed;
-    }}
-}}
-
-__device__ void fill_multicast(const cg::cluster_group& cl, uint8_t* filt, const uint8_t* image, int bytes) {{
-    __shared__ __align__(8) unsigned long long landed;
-    const unsigned bar = (unsigned)__cvta_generic_to_shared(&landed);
-    if (threadIdx.x == 0) {{
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-    }}
-    cl.sync();  // every member's barrier is set before any copy lands
-    if (threadIdx.x == 0) {{
-        const int c = (int)cl.num_blocks(), per = ((bytes / 16 + c - 1) / c) * 16;
-        const int first = (int)cl.block_rank() * per, last = min(bytes, first + per);
-        for (int off = first; off < last; off += 32768)
-            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-                         "[%0], [%1], %2, [%3], %4;"
-                         ::"r"((unsigned)__cvta_generic_to_shared(filt + off)), "l"(image + off),
-                           "r"(min(32768, last - off)), "r"(bar), "h"((unsigned short)((1u << c) - 1)) : "memory");
-    }}
-    unsigned done = 0;
-    while (!done)
-        asm volatile("{{\n .reg .pred q;\n mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;\n"
-                     " selp.u32 %0, 1, 0, q;\n}}" : "=r"(done) : "r"(bar) : "memory");
-}}
-
-__global__ void __launch_bounds__(FILTER_THREADS, 1) variant_kernel(int* bank0, int* bank1, int p, int flen,
-                                                                    const uint8_t* image, int bytes, const int* src,
-                                                                    const int* dst, const bool* mask, int n) {{
-    extern __shared__ __align__(16) uint8_t hll_filter[];
-    cg::cluster_group cl = cg::this_cluster();
-    if (MODE == 0) {{
-        load_filter(hll_filter, image, bytes);
-    }} else {{
-        cl.sync();  // every member runs before any filter is written
-        if (MODE == 1)
-            fill_dsmem(cl, hll_filter, flen, bank0, bank1, 1 << p);
-        else
-            fill_multicast(cl, hll_filter, image, bytes);
-        cl.sync();  // every filter whole; no member leaves with a copy to it in flight
-    }}
-    hll_edges<true>(bank0, bank1, hll_filter, flen, p, blockIdx.x * blockDim.x + threadIdx.x, src, dst, nullptr,
-                    mask, n);
-}}
-
-}}  // namespace
-
-extern "C" int hll_degree_launch(int* verts, int* edges, int m, const int* src, const int* dst, const bool* mask,
-                                 int n, void* scratch, long long scratch_bytes, cudaStream_t stream) {{
-    int p = log2_exact(m);
-    if (p < 0 || n <= 0 || m % 32 || scratch_bytes < image_bytes(2, m)) return (int)cudaErrorInvalidValue;
-    Device* d;
-    cudaError_t err = device(&d);
-    if (err != cudaSuccess) return (int)err;
-    const int flen = filter_len(2, m), bytes = image_bytes(2, m);
-    uint8_t* image = static_cast<uint8_t*>(scratch);
-    if (MODE != 1) {{
-        image_kernel<<<(flen / 2 + 1023) / 1024 + 1, 1024, 0, stream>>>(verts, edges, m, flen, image);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }}
-    err = launch_clusters(d, 17, variant_kernel, C, FILTER_THREADS, (size_t)bytes, n, 1, stream, verts, edges, p,
-                          flen, (const uint8_t*)image, bytes, src, dst, mask, n);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
-}}
-"""
-
-# the sketch folds' C entry points as 609487c had them (SKETCH_SPLIT's
-# variants too): hll_degree_launch (verts, edges, m, src, dst, mask, n,
-# stream) and cm_fold_launch (grid, d, w, keys, keys_b, counts, mask, n,
-# stream); the current ones (SKETCH_DESIGNS, HLL_FILL_CU) add the scratch
-# to hll_degree_launch
-PARENT_SKETCH_SIGNATURES = {"hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P],
-                            "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P]}
-SKETCH_SIGNATURES = {"hll_scratch_bytes": [_I, _I], "hll_degree_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _L, _P],
-                     "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P]}
+# the triangle sketch's C entry points as e057c38 had them (TRI_SPLIT's
+# variants too): tri_fold_launch (eh, elo, ehi, rows, regs, m, src, dst,
+# mask, n, scratch, scratch bytes, stream) with its scratch's bytes, and
+# tri_closures_launch (elo, ehi, rows, out, counter, stream); the current
+# ones (TRI_DESIGNS) give the closure count a kept scratch of its own
+PARENT_SKETCH_SIGNATURES = {"tri_fold_scratch_bytes": [_I],
+                            "tri_fold_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _L, _P],
+                            "tri_closures_launch": [_P, _P, _I, _P, _P, _P]}
+SKETCH_SIGNATURES = {"tri_fold_scratch_bytes": [_I], "tri_closures_scratch_bytes": [_I],
+                     "tri_fold_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _L, _P],
+                     "tri_closures_launch": [_P, _P, _I, _P, _P, _L, _P]}
 
 
 def sketch_variant_sources(parent_cu: str) -> dict:
-    """{label: source path}: SKETCH_SPLIT over ``parent_cu`` (labels led by
-    "609487c"), SKETCH_DESIGNS over the current sketches.cu, and
-    HLL_FILL_CU's two fills, written under the port's build directory."""
+    """{label: source path}: TRI_SPLIT over ``parent_cu`` (labels led by
+    "e057c38") and TRI_DESIGNS over the current sketches.cu, written under
+    the port's build directory."""
     from gelly_streaming_tpu_torch.ops import _cuda
 
-    current = str(_cuda.CSRC_DIR / "sketches.cu")
-    paths = {f"609487c {k}": v for k, v in split_sources(parent_cu, SKETCH_SPLIT, "sketches_parent").items()}
-    paths.update(split_sources(current, SKETCH_DESIGNS, "sketches_design"))
-    for mode, cluster, label in (
-            (0, 1, "hll_fold: the image by a kernel of its own, a TMA copy a block (no grid-wide sync, no stash)"),
-            (1, 8, "hll_fold: the filter filled over DSMEM by clusters of 8 (no image, no stash)"),
-            (2, 8, "hll_fold: the image by a kernel of its own, multicast over clusters of 8 (no stash)")):
-        path = _cuda.BUILD_DIR / "split" / f"sketches_hll_fill_{mode}.cu"
-        path.write_text(HLL_FILL_CU.format(source=current, mode=mode, cluster=cluster))
-        paths[label] = str(path)
+    paths = {f"e057c38 {k}": v for k, v in split_sources(parent_cu, TRI_SPLIT, "sketches_parent").items()}
+    paths.update(split_sources(str(_cuda.CSRC_DIR / "sketches.cu"), TRI_DESIGNS, "sketches_design"))
     return paths
 
 
@@ -6215,91 +6098,195 @@ def build_variants(paths: dict) -> tuple:
     return built, failed
 
 
-def sketch_calls(lib, parent: bool):
-    """(hll(state, s, d), cm(state, dd, ww, s, d)) over ``lib``'s C entry
-    points: 609487c's interface where ``parent``, else the current one (its
-    scratch from a buffer kept here)."""
+def tri_calls(lib, parent: bool):
+    """(fold(state, src, dst, n=None), closures(elo, ehi) -> int32 [1]) over
+    ``lib``'s C entry points: e057c38's interface where ``parent`` (the
+    counter in the output's second word), else the current one (the
+    closure count's scratch kept here, zeroed once); ``n`` overrides the
+    edge count (0: the call with no edge)."""
     import torch
     from gelly_streaming_tpu_torch.ops import _cuda
 
-    scratch = {}
+    bufs = {}
+    tag = "e057c38" if parent else "variant"
 
     def stream(t):
         return torch.cuda.current_stream(t.device).cuda_stream
 
-    def hll(st, s, d):
-        args = (st.verts.data_ptr(), st.edges.data_ptr(), st.verts.shape[0], s.data_ptr(), d.data_ptr(), None,
-                s.shape[0])
+    def scratch(kind, rows, dev):
+        if (kind, rows) not in bufs:
+            nbytes = int((lib.tri_fold_scratch_bytes if kind == "fold" else lib.tri_closures_scratch_bytes)(rows))
+            bufs[kind, rows] = torch.zeros((nbytes,), dtype=torch.uint8, device=dev)
+        return bufs[kind, rows]
+
+    def fold(st, s, d, n=None):
+        rows = st.eh.shape[0]
+        buf = scratch("fold", rows, s.device)
+        _cuda.check(lib.tri_fold_launch(st.eh.data_ptr(), st.elo.data_ptr(), st.ehi.data_ptr(), rows,
+                                        st.regs.data_ptr(), st.regs.shape[0], s.data_ptr(), d.data_ptr(), None,
+                                        s.shape[0] if n is None else n, buf.data_ptr(), buf.numel(), stream(s)),
+                    f"{tag} tri_fold_launch")
+
+    def closures(elo, ehi):
+        rows = elo.shape[0]
         if parent:
-            _cuda.check(lib.hll_degree_launch(*args, stream(s)), "609487c hll_degree_launch")
-            return
-        m = st.verts.shape[0]
-        if m not in scratch:
-            scratch[m] = torch.empty((int(lib.hll_scratch_bytes(2, m)),), dtype=torch.uint8, device=s.device)
-        _cuda.check(lib.hll_degree_launch(*args, scratch[m].data_ptr(), scratch[m].numel(), stream(s)),
-                    "variant hll_degree_launch")
+            out = torch.empty((2,), dtype=torch.int32, device=elo.device)
+            _cuda.check(lib.tri_closures_launch(elo.data_ptr(), ehi.data_ptr(), rows, out.data_ptr(),
+                                                out[1:].data_ptr(), stream(elo)), f"{tag} tri_closures_launch")
+            return out[:1]
+        out = torch.empty((1,), dtype=torch.int32, device=elo.device)
+        buf = scratch("closures", rows, elo.device)
+        _cuda.check(lib.tri_closures_launch(elo.data_ptr(), ehi.data_ptr(), rows, out.data_ptr(), buf.data_ptr(),
+                                            buf.numel(), stream(elo)), f"{tag} tri_closures_launch")
+        return out
 
-    def cm(st, dd, ww, s, d):
-        _cuda.check(lib.cm_fold_launch(st.grid.data_ptr(), dd, ww, s.data_ptr(), d.data_ptr(), None, None,
-                                       s.shape[0], stream(s)), "variant cm_fold_launch")
-
-    return hll, cm
+    return fold, closures
 
 
-def sketch_turns(cpm, cases: dict, dd: int, ww: int, parent_lib, variants: dict) -> dict:
-    """Phase 18's in-turn timing: for each case {label: ((hll state, cm
-    state) before the batch, (src, dst))}, each call on its own copy of
-    the state, device ms on the held stream: the current kernels and
-    609487c's in turns (parent, current, current, parent), the states
-    after one call held equal first; then each variant's ms beside them
-    ({label: library}; a label naming hll_fold before its colon times the
-    HLL call, cm_fold the count-min one)."""
+def tri_turns(cpm, folds: dict, samples: dict, parent_lib, variants: dict) -> dict:
+    """Phase 18 (b)'s in-turn timing, device ms on the held stream, each
+    call on its own copy of its input: for each fold case {label: (state
+    before, (src, dst))} and each closure case {label: (elo, ehi)}, the
+    current kernel and e057c38's in turns (parent, current, current,
+    parent), their outputs held equal first; then each variant ({label:
+    library}; a label naming tri_fold before its colon times the fold,
+    tri_sampled_closures the count) and e057c38's fold with no edge."""
     from gelly_streaming_tpu_torch.core.aggregation import clone_state
     from gelly_streaming_tpu_torch.ops import sketches as sko
 
-    cur = {"hll": lambda st, s, d: sko.hll_degree_fold(st.verts, st.edges, s, d, None),
-           "cm": lambda st, s, d: sko.cm_degree_fold(st.grid, dd, ww, s, d, None)}
-    p_hll, p_cm = sketch_calls(parent_lib, parent=True)
-    par = {"hll": p_hll, "cm": lambda st, s, d: p_cm(st, dd, ww, s, d)}
-    out = {}
-    for case, ((hb, cb), (s, d)) in cases.items():
-        row = {}
-        for kind, before in (("hll", hb), ("cm", cb)):
-            a, b = clone_state(before), clone_state(before)
-            cur[kind](a, s, d)
-            par[kind](b, s, d)
-            if tensor_err(tuple(a), tuple(b)):
-                raise RuntimeError(f"phase 18 turns, {case}: 609487c's {kind} fold and the current one differ")
+    p_fold, p_clos = tri_calls(parent_lib, parent=True)
 
-            def measure(fn, before=before):
-                return copies_device_ms(lambda cp: fn(cp, s, d), lambda: clone_state(before), SK_REPS, cpm)[0]
+    def c_fold(st, s, d):
+        sko.tri_fold(st.eh, st.elo, st.ehi, s, d, None, st.regs)
 
-            row[kind] = measured_in_turns(measure, par[kind], cur[kind])
-            row[kind]["variants"] = {}
-            for label, lib in variants.items():
-                if ("hll_fold" if kind == "hll" else "cm_fold") not in label.split(":")[0]:
-                    continue
-                v_hll, v_cm = sketch_calls(lib, parent=label.startswith("609487c"))
-                fn = v_hll if kind == "hll" else (lambda st, s_, d_, v_cm=v_cm: v_cm(st, dd, ww, s_, d_))
-                row[kind]["variants"][label] = measure(fn)
-        out[case] = row
+    def c_clos(elo, ehi):
+        return sko.tri_sampled_closures(elo, ehi)
+
+    calls = {label: tri_calls(lib, parent=label.startswith("e057c38")) for label, lib in variants.items()}
+    out = {"tri_fold": {}, "tri_sampled_closures": {}}
+    for case, (before, (s, d)) in folds.items():
+        a, b = clone_state(before), clone_state(before)
+        c_fold(a, s, d)
+        p_fold(b, s, d)
+        if tensor_err(tuple(a), tuple(b)):
+            raise RuntimeError(f"phase 18 turns, {case}: e057c38's tri_fold and the current one differ")
+
+        def measure(fn, before=before, s=s, d=d):
+            return copies_device_ms(lambda cp: fn(cp, s, d), lambda: clone_state(before), SK_REPS, cpm)[0]
+
+        row = measured_in_turns(measure, p_fold, c_fold)
+        row["variants"] = {"e057c38 tri_fold: the call with n = 0 (the memset and the merge alone)":
+                           measure(lambda st, s_, d_: p_fold(st, s_, d_, n=0))}
+        for label, (v_fold, _) in calls.items():
+            if "tri_fold" in label.split(":")[0]:
+                row["variants"][label] = measure(v_fold)
+        out["tri_fold"][case] = row
+    for case, (elo, ehi) in samples.items():
+        got, want = int(c_clos(elo, ehi)), int(p_clos(elo, ehi)[0])
+        if got != want:
+            raise RuntimeError(f"phase 18 turns, {case}: e057c38's closure count {want}, the current one {got}")
+
+        def measure(fn, elo=elo, ehi=ehi):
+            return copies_device_ms(lambda cp: fn(*cp), lambda: (elo, ehi), SK_REPS, cpm)[0]
+
+        row = measured_in_turns(measure, p_clos, c_clos)
+        row["count"] = got
+        row["variants"] = {label: measure(v_clos) for label, (_, v_clos) in calls.items()
+                           if "tri_sampled_closures" in label.split(":")[0]}
+        out["tri_sampled_closures"][case] = row
     return out
+
+
+def star_sample(rows: int, dev):
+    """A sample whose every row is on vertex 0: (0, 1), ..., (0, rows), one
+    group of ``rows`` incidences (rows (rows - 1) / 2 unordered pairs)."""
+    import torch
+
+    elo = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    return elo, torch.arange(1, rows + 1, dtype=torch.int32, device=dev)
+
+
+def graph_nodes(fn) -> dict:
+    """{kernel name (mangled, as libcuda names it), or "memset", "memcpy"
+    or another node type: nodes} of one call of ``fn`` captured into a CUDA
+    graph, which is never replayed (the call changes nothing): every
+    launch and every memset the call enqueues is a node.  ``fn`` runs once
+    before, so that its scratch and cached launch settings exist."""
+    import ctypes
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        key = {1: "memcpy", 2: "memset"}.get(kind.value, f"node type {kind.value}")
+        if kind.value == 0:  # a kernel: CUDA_KERNEL_NODE_PARAMS_v2 leads with its function
+            params, name = (ctypes.c_void_p * 16)(), ctypes.c_char_p()
+            if (cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) != 0
+                    or cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])) != 0):
+                raise RuntimeError("a kernel node's function has no name")
+            key = name.value.decode()
+        out[key] = out.get(key, 0) + 1
+    graph.reset()
+    return out
+
+
+def launches_a_call(fn, reps: int = 4) -> dict:
+    """What one call of ``fn`` enqueues, read twice: "graph", its nodes
+    captured into a CUDA graph (``graph_nodes``); "runtime", the runtime's
+    launch, memset and copy calls a call that torch.profiler records over
+    ``reps`` calls.  "device" holds the profiler's device rows (launches a
+    call): late in the whole smoke it records the runtime's calls but no
+    device row, so no check reads it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"graph": graph_nodes(fn)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    out["runtime"] = {e.key: e.count / reps for e in rows
+                      if e.key.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy"))}
+    out["device"] = {e.key: e.count / reps for e in rows
+                     if (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))}
+    return out
+
+
+def one_launch(reading: dict, kernel: str) -> bool:
+    """A ``launches_a_call`` reading of one launch of ``kernel`` a call:
+    one kernel node, no memset or copy node, and one runtime launch call
+    and no memset or copy call a call."""
+    nodes, calls = list(reading["graph"].items()), list(reading["runtime"].items())
+    return (len(nodes) == 1 and kernel in nodes[0][0] and nodes[0][1] == 1
+            and len(calls) == 1 and calls[0][0].startswith("cudaLaunch") and calls[0][1] == 1)
 
 
 def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     """Phase 18: (a) ``HLLDegreeSummary(eps=0.01)`` and
     ``CountMinHeavyHitters(eps=0.001, delta=0.01, top_k=16)`` over phase
-    7's EF40 replay, an emission every 8 batches; (b)
-    ``SketchTriangleCount(eps=0.05, delta=0.05)`` over edges drawn from
-    phase 17 (e)'s Watts-Strogatz ring at 2^13 vertices; (c) the
-    reference's three accuracy contracts at its own shapes.  Every batch's
-    state and every emission equal to the twins on the card, the closure
-    count to a numpy oracle and nonzero; one C call a batch; times, bounds,
-    library calls and idle shares for the report.  The HLL and count-min
-    folds are timed on (a)'s first batch (cold registers) and its last;
-    given ``parent`` (609487c's library), in turns with it on both, with
-    ``variants`` ({label: library}: SKETCH_SPLIT and SKETCH_DESIGNS) beside
-    them."""
+    7's EF40 replay, an emission every 8 batches; (b) ``phase_tri_sketch``
+    (``parent`` and ``variants`` go there); (c) the reference's three
+    accuracy contracts at its own shapes.  Every batch's state and every
+    emission equal to the twins on the card; one C call a batch; times,
+    bounds, library calls and idle shares for the report.  The HLL and
+    count-min folds are timed on (a)'s first batch (cold registers) and
+    its last."""
     import torch
     from gelly_streaming_tpu_torch.core.aggregation import clone_state
     from gelly_streaming_tpu_torch.core.config import StreamConfig
@@ -6307,7 +6294,6 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     from gelly_streaming_tpu_torch.io import wire
     from gelly_streaming_tpu_torch.library import sketches as lsk
     from gelly_streaming_tpu_torch.ops import sketches as sko
-    from gelly_streaming_tpu_torch.summaries import sketches as sks
 
     t_phase = time.perf_counter()
     res = {}
@@ -6402,10 +6388,6 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
                                   lambda cp: (sko.cm_fold_plain(cp.grid, dd, ww, s0, None, None),
                                               sko.cm_fold_plain(cp.grid, dd, ww, d0, None, None)), c_bound[0],
                                   SK_REPS)
-    turns = {}
-    if parent is not None:
-        turns = sketch_turns(cpm, {"batch 0 (cold)": first, "the last batch (warm)": (before, last)}, dd, ww, parent,
-                             variants or {})
     # the library calls on the same precomputed inputs: one scatter_reduce_ (amax) over both banks, one index_add_
     fam = [sko.hash_u32(s, sko.SALT_VERTEX_HLL), sko.hash_u32(d, sko.SALT_VERTEX_HLL),
            sko.hash_pair_u32(*sko.canonical_edge(s, d), sko.SALT_EDGE_HLL)]
@@ -6449,15 +6431,35 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
         log(f"      batch 0 (cold registers): device {b0['device_ms']:.5f} ms held ({b0['ratio']:.2f}x the bound), "
             f"events {b0['ms']:.5f} ms, host {b0['host_us']:.2f} us a call, twin {b0['plain_ms']:.3f} ms")
         log(f"      {what} (oracles {oracle_s:.1f} s; not asserted)")
-    for case, row in turns.items():
-        for name, kernel in (("hll", "hll_fold"), ("cm", "cm_fold")):
-            t = row[name]
-            res[name].setdefault("turns", {})[case] = t
-            log(f"      {kernel}, {case}, 609487c in turns (device ms held): {turns_text(t)}")
-            for label, ms in t["variants"].items():
-                log(f"        {label}: {ms:.5f} ms")
+    res.update(phase_tri_sketch(dev, cpm, data, parent, variants))
+    res["contracts"] = sketch_contracts(dev)
+    res["s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {res['s']:.1f} s")
+    return res
 
-    # (b) SketchTriangleCount over edges drawn with repeats from phase 17 (e)'s ring at 2^13 vertices
+
+def phase_tri_sketch(dev, cpm, data: dict, parent=None, variants=None) -> dict:
+    """Phase 18 (b): ``SketchTriangleCount(eps=0.05, delta=0.05)`` (R =
+    4096, M = 8192) over edges drawn with repeats from phase 17 (e)'s
+    Watts-Strogatz ring at 2^13 vertices, an emission every 4 batches.
+    Every batch's sample and registers and every emission equal to the
+    twins on the card, the closure counts to a numpy oracle and nonzero;
+    one C call a batch and one an emission, each enqueuing one launch and
+    no memset (``launches_a_call``).  ``tri_fold`` is timed on the last batch and on
+    (a)'s last batch of 2^21 edges folded into the final sample,
+    ``tri_sampled_closures`` on the final sample and on the star sample
+    (held against the twin); given ``parent`` (e057c38's library), each in
+    turns with it, with ``variants`` ({label: library}: TRI_SPLIT and
+    TRI_DESIGNS) beside them."""
+    import torch
+    from gelly_streaming_tpu_torch.core.aggregation import clone_state
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library import sketches as lsk
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    res = {}
     rng_b = np.random.default_rng(5)
     ring_s, ring_d = watts_strogatz(SK_TRI_VERTICES, 16, 0.1, rng_b)
     pick = rng_b.integers(0, len(ring_s), SK_TRI_EDGES)
@@ -6513,7 +6515,8 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
                         lambda cp: sko.tri_fold_plain(cp.eh, cp.elo, cp.ehi, *last_t, None, cp.regs), t_bound[0],
                         SK_REPS)
     valid = int((tk.elo != -1).sum())
-    c_bound = bound_pair(rows * 8 + 4, valid * PAIR_OPS + closure_check[-1][2] * (PAIR_OPS + 4))
+    # (i, j) and (j, i) close alike: the work is each unordered sharing pair tested once
+    c_bound = bound_pair(rows * 8 + 4, valid * PAIR_OPS + closure_check[-1][2] // 2 * (PAIR_OPS + 4))
     t_cl = kernel_timing(cpm, lambda cp: sko.tri_sampled_closures(*cp), lambda: (tk.elo, tk.ehi),
                          lambda cp: sko.tri_sampled_closures_plain(*cp), c_bound[0], SK_REPS)
     res["tri"] = {**t_t, "launches": launches["tri_fold"], "err": err_t, "bound_by": t_bound[1], "s": secs_t,
@@ -6540,7 +6543,68 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
         f"{q['bound_ms']:.6f} ms ({q['bound_by']}), {q['ratio']:.1f}x; (count, numpy oracle, sharing pairs) at each "
         f"emission {closure_check}")
 
-    # (c) the reference's accuracy contracts at its own shapes (tests/test_sketches.py:113-170)
+    # (a)'s last batch of 2^21 edges folded into the final sample, and the star sample (one group of R rows)
+    s_w, d_w = (torch.from_numpy(np.ascontiguousarray(a[-CC_BATCH:])).to(dev) for a in (data["src"], data["dst"]))
+    a_w, b_w = clone_state(tk), clone_state(tk)
+    sko.tri_fold(a_w.eh, a_w.elo, a_w.ehi, s_w, d_w, None, a_w.regs)
+    sko.tri_fold_plain(b_w.eh, b_w.elo, b_w.ehi, s_w, d_w, None, b_w.regs)
+    nw = int(s_w.shape[0])
+    w_bound = bound_pair(nw * 8 + rows * 16 * 2 + mt * 4 * 2, nw * (3 + 3 * PAIR_OPS + PAIR_OPS + RANK_OPS + 4))
+    wide = kernel_timing(cpm, lambda cp: sko.tri_fold(cp.eh, cp.elo, cp.ehi, s_w, d_w, None, cp.regs),
+                         lambda: clone_state(tk),
+                         lambda cp: sko.tri_fold_plain(cp.eh, cp.elo, cp.ehi, s_w, d_w, None, cp.regs), w_bound[0],
+                         SK_REPS)
+    wide.update(err=tensor_err(tuple(a_w), tuple(b_w)), edges=nw, bound_by=w_bound[1])
+    star = star_sample(rows, dev)
+    star_n = int(sko.tri_sampled_closures(*star))
+    star_pairs = rows * (rows - 1) // 2
+    s_bound = bound_pair(rows * 8 + 4, rows * PAIR_OPS + star_pairs * (PAIR_OPS + 4))
+    star_t = kernel_timing(cpm, lambda cp: sko.tri_sampled_closures(*cp), lambda: star,
+                           lambda cp: sko.tri_sampled_closures_plain(*cp), s_bound[0], SK_REPS)
+    star_t.update(count=star_n, err=abs(star_n - int(sko.tri_sampled_closures_plain(*star))), pairs=star_pairs,
+                  bound_by=s_bound[1])
+    if wide["err"] or star_t["err"]:
+        raise RuntimeError(f"(b): the 2^21-edge fold ({wide['err']}) or the star's count ({star_t['err']}) differs "
+                           "from the twin on the card")
+    r["wide"], q["star"] = wide, star_t
+    cp_t = clone_state(before_t)  # folding one batch again leaves the state as it is
+    r["launches_a_call"] = launches_a_call(lambda: sko.tri_fold(cp_t.eh, cp_t.elo, cp_t.ehi, *last_t, None, cp_t.regs))
+    q["launches_a_call"] = launches_a_call(lambda: sko.tri_sampled_closures(tk.elo, tk.ehi))
+    log(f"      tri_fold, (a)'s last batch ({nw} edges over C {CC_VERTICES}) into the final sample: device "
+        f"{wide['device_ms']:.5f} ms held, events {wide['ms']:.5f} ms, host {wide['host_us']:.2f} us a call, twin "
+        f"{wide['plain_ms']:.3f} ms, bound {wide['bound_ms']:.6f} ms ({wide['bound_by']}), {wide['ratio']:.2f}x; "
+        "equal to the twin")
+    log(f"      tri_sampled_closures, the star sample ({rows} rows on vertex 0, {star_pairs} unordered pairs): count "
+        f"{star_n} (the twin's too), device {star_t['device_ms']:.5f} ms held, events {star_t['ms']:.5f} ms, twin "
+        f"{star_t['plain_ms']:.3f} ms, bound {star_t['bound_ms']:.6f} ms ({star_t['bound_by']}), "
+        f"{star_t['ratio']:.1f}x")
+    log(f"      a call enqueues (CUDA graph nodes; torch.profiler's runtime calls and device rows): tri_fold "
+        f"{r['launches_a_call']}, tri_sampled_closures {q['launches_a_call']}")
+    if not (one_launch(r["launches_a_call"], "tri_cluster_kernel")
+            and one_launch(q["launches_a_call"], "closures_kernel")):
+        raise RuntimeError("(b): tri_fold or tri_sampled_closures does not enqueue one launch and no memset a call")
+    if parent is not None:
+        turns = tri_turns(cpm, {"(b)'s last batch": (before_t, last_t), "(a)'s last batch of 2^21 edges": (tk, (s_w, d_w))},
+                          {"(b)'s final sample": (tk.elo, tk.ehi), "the star sample": star}, parent, variants or {})
+        for kernel, key in (("tri_fold", "tri"), ("tri_sampled_closures", "closures")):
+            for case, row in turns[kernel].items():
+                res[key].setdefault("turns", {})[case] = row
+                log(f"      {kernel}, {case}, e057c38 in turns (device ms held): {turns_text(row)}")
+                for label, ms in row["variants"].items():
+                    log(f"        {label}: {ms:.5f} ms")
+    return res
+
+
+def sketch_contracts(dev) -> dict:
+    """Phase 18 (c): the reference's accuracy contracts at its own shapes
+    (tests/test_sketches.py:113-170), asserted as it asserts them, and the
+    dense sample's closures against the numpy oracle."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library import sketches as lsk
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+
     def skewed(n_, cap, seed):
         rng = np.random.default_rng(seed)
         comm = max(cap >> 14, 64)
@@ -6589,15 +6653,12 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     if closed != contract["tri_closures"][1] or not closed or float(agg.transform(st)[0]) != est_t:
         raise RuntimeError(f"(c): the dense sample's closures {contract['tri_closures']} (count, oracle, pairs) or "
                            "estimate differ")
-    res["contracts"] = contract
     log(f"  (c) the reference's contracts on the card: HLL rel errs {contract['hll'][0]:.3e} / "
         f"{contract['hll'][1]:.3e} (< 0.05), count-min the most overcount {contract['cm']} (<= {0.01 * 2 * 20_000:g}, "
         f"never under, the true top 8 found), triangles {est_t:.8g} against {exact_c} (rel err {contract['tri']:.3e} "
         f"< 0.05; the sample's closures {closed} equal to the numpy oracle over {contract['tri_closures'][2]} "
         f"sharing pairs): all held")
-    res["s"] = time.perf_counter() - t_phase
-    log(f"  phase 18: {res['s']:.1f} s")
-    return res
+    return contract
 
 
 def main(argv=None) -> int:
@@ -6643,10 +6704,10 @@ def main(argv=None) -> int:
                         help="sampled_triangles.cu of the commit before the host key chain (c34004e; its C "
                              "interface): its scan timed in turns with the current one on phase 17 (e)'s batches")
     parser.add_argument("--parent-sketches-cu", default=None,
-                        help="sketches.cu of the commit before the HLL filter and the count-min cluster merge "
-                             "(609487c; its C interface): its hll_fold and cm_fold timed in turns with the current "
-                             "ones on phase 18 (a)'s first and last batches, beside the split (SKETCH_SPLIT) and "
-                             "design variants (SKETCH_DESIGNS, HLL_FILL_CU)")
+                        help="sketches.cu of the commit before the one-launch tri_fold and the grouped closure "
+                             "count (e057c38; its C interface): its tri_fold and closure count timed in turns with "
+                             "the current ones in phase 18 (b), beside the split of its time (TRI_SPLIT) and the "
+                             "design's variants (TRI_DESIGNS)")
     args = parser.parse_args(argv)
     parent_sketches_cu = os.path.abspath(args.parent_sketches_cu) if args.parent_sketches_cu else None
     parent_sum_cu = {k: os.path.abspath(path) for k, path in (("spanner", args.parent_spanner_cu),
@@ -6979,7 +7040,7 @@ def main(argv=None) -> int:
     log("phase 18: the fixed-state sketches (HLL, count-min, the min-hash triangle sample) on the card")
     sk = phase_sketches(dev, cpm, data, load_baseline(parent_sketches_cu, PARENT_SKETCH_SIGNATURES)
                         if parent_sketches_cu else None,
-                        {label: load_baseline(path, PARENT_SKETCH_SIGNATURES if label.startswith("609487c")
+                        {label: load_baseline(path, PARENT_SKETCH_SIGNATURES if label.startswith("e057c38")
                                               else SKETCH_SIGNATURES) for label, path in sketch_variants.items()})
 
     kernels = [
@@ -7199,13 +7260,16 @@ def main(argv=None) -> int:
         {**entry("tri_fold", "sketches.cu", f"{sketches_py}:251", sk["tri"]), "bound_by": sk["tri"]["bound_by"],
          "also_replaces": f"{sketches_py}:239 (tri_merge); {sketches_py}:112 (hll_fold of the edge registers)",
          "library_call": no_call,
-         "timed": "(b)'s last batch: SketchTriangleCount.update's C call, each call on its own copy",
+         "timed": "(b)'s last batch: SketchTriangleCount.update's C call, each call on its own copy; wide: (a)'s "
+                  "last batch of 2^21 edges folded into the final sample",
          **{k: sk["tri"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
-                                       "estimate", "exact_triangles", "rel_err", "occupied")}},
+                                       "estimate", "exact_triangles", "rel_err", "occupied", "wide",
+                                       "launches_a_call", "turns") if k in sk["tri"]}},
         {**entry("tri_sampled_closures", "sketches.cu", f"{sketches_py}:341", sk["closures"]),
          "bound_by": sk["closures"]["bound_by"], "library_call": no_call,
          "timed": "(b)'s final sample, once an emission on the main path",
-         **{k: sk["closures"][k] for k in ("ratio", "closures_oracle", "valid_rows")},
+         **{k: sk["closures"][k] for k in ("ratio", "closures_oracle", "valid_rows", "star", "launches_a_call",
+                                            "turns") if k in sk["closures"]},
          "contracts": sk["contracts"], "phase_s": sk["s"]},
     ]
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")

@@ -218,15 +218,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # grid, d, w, keys, keys_b | None (dst), counts | None, mask | None,
         # n, stream: one cluster launch
         "cm_fold_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P],
-        # rows: the scratch bytes of tri_fold_launch
+        # rows: the scratch bytes of tri_fold_launch (tickets, the
+        # clusters' winners) and of tri_closures_launch (the sum, the
+        # ticket, the tables past the shared-memory cap)
         "tri_fold_scratch_bytes": [_I],
+        "tri_closures_scratch_bytes": [_I],
         # eh, elo, ehi, rows, regs | None, m, src, dst, mask | None, n,
-        # scratch, scratch bytes, stream: a memset, the key, hi and merge
-        # kernels
+        # scratch (zeroed once), scratch bytes, stream: one cluster launch
         "tri_fold_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _L, _P],
-        # elo, ehi, rows, out int32[1], counter int32[1], stream: a memset,
-        # the strip kernel, the halving kernel
-        "tri_closures_launch": [_P, _P, _I, _P, _P, _P],
+        # elo, ehi, rows, out int32[1], scratch (zeroed once), scratch
+        # bytes, stream: one launch
+        "tri_closures_launch": [_P, _P, _I, _P, _P, _L, _P],
     },
 }
 
@@ -246,6 +248,7 @@ RESTYPES: Dict[str, type] = {
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
     "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L, "hll_scratch_bytes": _L,
+    "tri_closures_scratch_bytes": _L,
 }
 
 

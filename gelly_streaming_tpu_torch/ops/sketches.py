@@ -21,11 +21,13 @@ hashes) and ``hll_degree_fold`` (HLLDegreeSummary's three key families in
 one filter kernel), each after a kernel that writes the registers' filter
 image into a kept scratch buffer; ``cm_fold`` and ``cm_degree_fold`` (src,
 then dst; one cluster launch); ``tri_fold`` (the sample and, given
-``regs``, the distinct-edge registers) and ``tri_sampled_closures``.  On
-CPU tensors they run the twins, the JAX formulas in plain PyTorch.  The
-folds update their state in place and return it.  ``hll_filter_model`` and
-``cm_cluster_model`` are the HLL and count-min kernels' designs step by
-step on the host, for the CPU tests.
+``regs``, the distinct-edge registers; one cluster launch) and
+``tri_sampled_closures`` (one launch), each with a kept scratch buffer
+zeroed once.  On CPU tensors they run the twins, the JAX formulas in plain
+PyTorch.  The folds update their state in place and return it.
+``hll_filter_model``, ``cm_cluster_model``, ``tri_cluster_model`` and
+``closures_grouped_model`` are the kernels' designs step by step on the
+host, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ SALT_CM_ROW = 0x7FEB352D  # count-min per-row hash family base
 SALT_EDGE_HLL = 0x45D9F3B5  # distinct-edge cardinality registers
 SALT_VERTEX_HLL = 0x119DE1F3  # distinct-vertex cardinality registers
 
-#: closure-check strip height (csrc/sketches.cu's STRIP)
+#: the JAX package's closure-check strip height (the twin's strips)
 TRI_CLOSURE_BLOCK = 32
 
 _M32 = 0xFFFFFFFF
@@ -355,6 +357,142 @@ def cm_cluster_model(grid: torch.Tensor, d: int, w: int, keys, counts: Optional[
     return grid
 
 
+#: csrc/sketches.cu's tri_fold shape: threads a block, edges a thread keeps
+#: in registers for the hi step, blocks a cluster
+TRI_THREADS, TRI_HELD, TRI_CLUSTER = 1024, 8, 8
+#: csrc/sketches.cu's closure count: sample rows a block of the grid (at
+#: most one an SM), the most rows it takes
+CLOSURE_ROWS_A_BLOCK, CLOSURE_MAX = 32, 8192
+#: pairs that pay for a closure-count block's copy of the tables
+CLOSURE_PAIRS_A_BLOCK = 1024
+_NO_KEY = (1 << 63) - 1
+_I32_MIN = -(1 << 31)
+
+
+def _key64(s: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(sample hash, lo) as one int64 in the order of the kernel's u64 key
+    (hash << 32) | (lo ^ 2^31): the hash unsigned, then lo signed."""
+    return ((s - (1 << 31)) << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
+def tri_cluster_model(eh, elo, ehi, src, dst, mask, regs=None, clusters: int = 1, cluster: int = TRI_CLUSTER,
+                      threads: int = TRI_THREADS, held: int = TRI_HELD) -> dict:
+    """The tri_fold cluster kernel's design on the host, updating (eh, elo,
+    ehi) and ``regs`` in place.  Edge e goes to block (e // threads) %
+    blocks of ``clusters`` clusters of ``cluster`` blocks (the grid
+    stride), a thread holding its first ``held`` edges.  Each block takes
+    the least (hash, lo) key a bucket over its edges and folds its edge
+    registers privately (untouched: INT_MIN; rank 0 where the edge takes
+    no part in the sample); its edges equal to their bucket's least offer
+    their hi to the block's least hi of the bucket; bucket b's owner
+    (member b // per) takes the lexicographic least (key, hi) over the
+    cluster's members and max-merges the members' registers into
+    ``regs``; with more clusters the last block of each rank takes the
+    clusters' least; each winner merges into its row.  Returns counts: the
+    edges read again for the hi step, the offers, the winners."""
+    rows = eh.shape[0]
+    _log2(rows, "the sample's rows")
+    n, blocks = src.shape[0], clusters * cluster
+    e = torch.arange(n)
+    blk = (e // threads) % blocks
+    lo, hi = canonical_edge(src.to(torch.int64), dst.to(torch.int64))
+    part = _kept(mask, lo) & (lo != hi)
+    if regs is not None:
+        m = regs.shape[0]
+        p = _log2(m, "the register count")
+        h = hash_pair_u32(lo, hi, SALT_EDGE_HLL)
+        rank = torch.where(part, 33 - p - torch.frexp((h >> p).to(torch.float64)).exponent.to(torch.int64), 0)
+        private = torch.full((blocks * m,), _I32_MIN, dtype=torch.int64).scatter_reduce_(
+            0, blk * m + (h & (m - 1)), rank, "amax")
+        owners = private.view(clusters, cluster, m).amax(1)  # each owner's slice over the members, by DSMEM
+        regs.copy_(torch.maximum(regs.to(torch.int64), owners.amax(0)).to(torch.int32))
+    s = hash_pair_u32(lo, hi, SALT_SAMPLE)
+    ok = part & (s != EMPTY_HASH)
+    bucket = hash_pair_u32(lo, hi, SALT_BUCKET) & (rows - 1)
+    key = _key64(s, lo)
+    slot = blk * rows + bucket
+    local = torch.full((blocks * rows,), _NO_KEY, dtype=torch.int64).scatter_reduce_(0, slot[ok], key[ok], "amin")
+    offer = ok & (key == local[slot])
+    lhi = torch.full((blocks * rows,), _I32_MAX, dtype=torch.int64).scatter_reduce_(0, slot[offer], hi[offer], "amin")
+    lkey, lhi = local.view(clusters, cluster, rows), lhi.view(clusters, cluster, rows)
+    cmin = lkey.amin(1)  # each owner's lexicographic least over the members, by DSMEM
+    chi = torch.where(lkey == cmin[:, None, :], lhi, _I32_MAX).amin(1)
+    kmin = cmin.amin(0)
+    hmin = torch.where(cmin == kmin, chi, _I32_MAX).amin(0)
+    won = kmin != _NO_KEY
+    winner = (torch.where(won, (kmin >> 32) + (1 << 31), EMPTY_HASH),
+              torch.where(won, (kmin & _M32) - (1 << 31), EMPTY_VERTEX).to(torch.int32),
+              torch.where(won, hmin, EMPTY_VERTEX).to(torch.int32))
+    for old, new in zip((eh, elo, ehi), tri_merge((eh, elo, ehi), winner)):
+        old.copy_(new)
+    return {"reread": int((e >= blocks * threads * held).sum()), "offers": int(offer.sum()), "winners": int(won.sum())}
+
+
+def _pair_uv(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair r of a group as (u, v), 0 <= u < v, r = v (v - 1) / 2 + u."""
+    v = ((1.0 + torch.sqrt(8.0 * r.to(torch.float64) + 1.0)) * 0.5).to(torch.int64)
+    v = torch.where(v * (v - 1) // 2 > r, v - 1, v)
+    v = torch.where((v + 1) * v // 2 <= r, v + 1, v)
+    return r - v * (v - 1) // 2, v
+
+
+def closures_grouped_model(elo: torch.Tensor, ehi: torch.Tensor, blocks: Optional[int] = None,
+                           pairs_a_block: int = CLOSURE_PAIRS_A_BLOCK):
+    """The grouped closure count's design on the host: (the count as
+    ``tri_sampled_closures`` gives it, an int32 0-d tensor; counts).  Each
+    valid row has an incidence at lo (2i) and one at hi (2i + 1) unless hi
+    == lo, in bucket mix32(vertex) & (R - 1); each bucket's incidences give
+    c (c - 1) / 2 unordered pairs, the pairs' offsets a prefix sum (one
+    build of the tables, which every block reads); of a grid of ``blocks``
+    (default: the kernel's R / 32), one a ``pairs_a_block`` pairs each
+    take an even slice of the pairs.  A pair of incidences (rows i < j)
+    counts where both are on one vertex x, JAX's ordered (i, j) shares x
+    by its first holding case (lo lo, lo hi, hi lo, hi hi), its other
+    endpoints differ and their edge's member hash is a valid row's (not
+    EMPTY_HASH).  JAX's total is twice the count, mod 2^32; the result is
+    that total // 2 in int32."""
+    rows = elo.shape[0]
+    _log2(rows, "the sample's rows")
+    grid = blocks or max(1, rows // CLOSURE_ROWS_A_BLOCK)
+    lo, hi = elo.to(torch.int64), ehi.to(torch.int64)
+    valid = elo != EMPTY_VERTEX
+    members = hash_pair_u32(lo[valid], hi[valid], SALT_MEMBER)
+    members = torch.unique(members[members != EMPTY_HASH])
+    ids = torch.arange(2 * rows)
+    row, side = ids >> 1, ids & 1
+    inc = valid[row] & ~((side == 1) & (hi[row] == lo[row]))
+    vertex = torch.where(side == 1, hi[row], lo[row])
+    ids = ids[inc]
+    bucket = mix32(vertex[inc]) & (rows - 1)
+    grouped = ids[torch.argsort(bucket, stable=True)]
+    size = torch.bincount(bucket, minlength=rows)
+    starts = torch.cumsum(size, 0) - size
+    npairs = size * (size - 1) // 2
+    pref = torch.cumsum(npairs, 0) - npairs
+    total = int(npairs.sum())
+    blocks = min(grid, max(1, -(-total // pairs_a_block)))
+    per_block = []
+    for b in range(blocks):
+        q = torch.arange(total * b // blocks, total * (b + 1) // blocks)
+        k = torch.searchsorted(pref, q, right=True) - 1
+        u, v = _pair_uv(q - pref[k])
+        a, c = grouped[starts[k] + u], grouped[starts[k] + v]
+        x = vertex[a]
+        i, j = torch.minimum(a >> 1, c >> 1), torch.maximum(a >> 1, c >> 1)
+        li, hii, lj, hj = lo[i], hi[i], lo[j], hi[j]
+        shared = torch.where(li == lj, li, torch.where(li == hj, li, hii))
+        p = torch.where(li == lj, hii, torch.where(li == hj, hii, li))
+        r = torch.where(li == lj, hj, torch.where(li == hj, lj, torch.where(hii == lj, hj, lj)))
+        key = hash_pair_u32(torch.minimum(p, r), torch.maximum(p, r), SALT_MEMBER)
+        pos = torch.searchsorted(members, key).clamp_(max=max(members.numel() - 1, 0))
+        hit = members[pos] == key if members.numel() else torch.zeros_like(key, dtype=torch.bool)
+        ok = (vertex[c] == x) & (shared == x) & (p != r) & (key != EMPTY_HASH) & hit
+        per_block.append(int(ok.sum()))
+    twice = 2 * sum(per_block) % (1 << 32)
+    twice -= (1 << 32) if twice >= 1 << 31 else 0
+    return torch.tensor(twice >> 1, dtype=torch.int32), {"buckets": int((size >= 2).sum()), "pairs": total,
+                                                         "per_block": per_block}
+
 # ---------------------------------------------------------------------------
 # the wrappers
 
@@ -503,12 +641,20 @@ def cm_degree_fold(grid: torch.Tensor, d: int, w: int, src: torch.Tensor, dst: t
     return _cm_call(grid, d, w, src, dst, None, mask)
 
 
-def _tri_scratch(dev, rows: int) -> torch.Tensor:
-    key = (dev, rows)
+def _tri_scratch(kind: str, dev, rows: int) -> torch.Tensor:
+    """The scratch of tri_fold (``kind`` "fold": its tickets and the
+    clusters' winners) or of the closure count ("closures": its sum,
+    ticket and pairs, and the tables as one block built them), one a
+    device and R, kept; zeroed once, the kernels leave their counters
+    zero."""
+    key = (kind, dev, rows)
     buf = _scratch.get(key)
     if buf is None:
-        nbytes = int(_cuda.library(_SOURCE).tri_fold_scratch_bytes(rows))
-        buf = _scratch[key] = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        lib = _cuda.library(_SOURCE)
+        nbytes = int((lib.tri_fold_scratch_bytes if kind == "fold" else lib.tri_closures_scratch_bytes)(rows))
+        if nbytes < 0:
+            raise RuntimeError(f"{kind} scratch: no size for {rows} rows on {dev}")
+        buf = _scratch[key] = torch.zeros((nbytes,), dtype=torch.uint8, device=dev)
     return buf
 
 
@@ -527,7 +673,8 @@ def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.
     """Fold an edge batch into the R-row min-hash sample (eh int64, elo,
     ehi int32 [R]) in place; given ``regs`` (int32 [m]), also the
     canonical edges' hashes into those distinct-edge registers under
-    ``mask & (lo != hi)``; one C call.  Returns (eh, elo, ehi)."""
+    ``mask & (lo != hi)`` (a row outside it as rank 0); one C call.
+    Returns (eh, elo, ehi)."""
     _check_sample(eh, elo, ehi)
     dev = eh.device
     if regs is not None:
@@ -542,7 +689,7 @@ def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.
     if dev.type != "cuda":
         TWIN_CALLS["tri_fold"] += 1
         return tri_fold_plain(eh, elo, ehi, src, dst, mask, regs)
-    scratch = _tri_scratch(dev, eh.shape[0])
+    scratch = _tri_scratch("fold", dev, eh.shape[0])
     src_c, dst_c, mask_c = _dense(src, dst, mask)
     err = _cuda.library(_SOURCE).tri_fold_launch(
         eh.data_ptr(), elo.data_ptr(), ehi.data_ptr(), eh.shape[0], _ptr(regs), 0 if regs is None else regs.shape[0],
@@ -554,19 +701,24 @@ def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.
 
 def tri_sampled_closures(elo: torch.Tensor, ehi: torch.Tensor) -> torch.Tensor:
     """The closed wedges among the sampled rows // 2 (three times the
-    fully sampled triangle count), an int32 0-d tensor on their device."""
+    fully sampled triangle count), an int32 0-d tensor on their device.
+    On the card R is at most CLOSURE_MAX."""
     if elo.dtype != torch.int32 or elo.dim() != 1 or ehi.dtype != torch.int32 or ehi.shape != elo.shape \
             or ehi.device != elo.device:
         raise ValueError("elo and ehi must be int32 [R] tensors on one device")
-    _log2(elo.shape[0], "the sample's rows")
+    rows = elo.shape[0]
+    _log2(rows, "the sample's rows")
     dev = elo.device
     if dev.type != "cuda":
         TWIN_CALLS["tri_sampled_closures"] += 1
         return tri_sampled_closures_plain(elo, ehi)
-    out = torch.empty((2,), dtype=torch.int32, device=dev)  # [0]: the result, [1]: the counter
+    if rows > CLOSURE_MAX:
+        raise ValueError(f"the closure count on the card takes at most {CLOSURE_MAX} rows, got {rows}")
+    out = torch.empty((1,), dtype=torch.int32, device=dev)
+    scratch = _tri_scratch("closures", dev, rows)
     elo_c, ehi_c = _dense(elo, ehi)
-    err = _cuda.library(_SOURCE).tri_closures_launch(elo_c.data_ptr(), ehi_c.data_ptr(), elo.shape[0], out.data_ptr(),
-                                                     out[1:].data_ptr(), _stream(dev))
+    err = _cuda.library(_SOURCE).tri_closures_launch(elo_c.data_ptr(), ehi_c.data_ptr(), rows, out.data_ptr(),
+                                                     scratch.data_ptr(), scratch.numel(), _stream(dev))
     _cuda.check(err, "tri_closures_launch")
     LAUNCHES["tri_sampled_closures"] += 1
     return out[0]

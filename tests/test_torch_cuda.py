@@ -2464,18 +2464,24 @@ def test_cm_folds_match_twin(cuda_device, d, w):
 
 
 @pytest.mark.parametrize("rows,m,c", [(64, 256, 40), (64, 1 << 16, 1 << 20), (4096, 8192, 3000),
-                                      (4096, 1 << 16, 1 << 20)])
+                                      (4096, 1 << 16, 1 << 20), (16384, 8192, 1 << 20)])
 def test_tri_fold_matches_twin(cuda_device, rows, m, c):
+    """Registers carried in below 0 (a masked row or a self-loop raises its
+    register to 0), batches in one cluster, a 2^21-edge batch over several
+    clusters (its edges past the threads' registers read again), a masked
+    batch, an empty batch; m = 2^16: the registers past the block's shared
+    memory, folded in device memory; R = 16384: 136 KB of keys a block."""
     from gelly_streaming_tpu_torch.ops import sketches as sko
     from gelly_streaming_tpu_torch.summaries import sketches as sks
 
     rng = np.random.default_rng(rows + c)
-    a = (*sks.tri_init(rows, cuda_device), torch.zeros(m, dtype=torch.int32, device=cuda_device))
+    regs = torch.from_numpy(rng.integers(-4, 3, m).astype(np.int32)).to(cuda_device)
+    a = (*sks.tri_init(rows, cuda_device), regs)
     b = tuple(x.clone() for x in a)
-    for i in range(4):
-        s, t, mask = _edge_batch(rng, cuda_device, 20_000, -3, c)
-        s[:50] = t[:50]  # self-loops take no part
-        mm = (mask, None, torch.zeros_like(mask), mask)[i]
+    for i, n in enumerate((20_000, 20_000, 20_000, 1 << 21, 20_000)):
+        s, t, mask = _edge_batch(rng, cuda_device, n, -3, c)
+        s[:50] = t[:50]  # self-loops take no part in the sample
+        mm = (mask, None, torch.zeros_like(mask), mask, mask)[i]
         before = sko.LAUNCHES["tri_fold"]
         sko.tri_fold(*a[:3], s, t, mm, a[3])
         assert sko.LAUNCHES["tri_fold"] == before + 1
@@ -2483,6 +2489,27 @@ def test_tri_fold_matches_twin(cuda_device, rows, m, c):
         _sample_equal(a, b)
     sko.tri_fold(*a[:3], s[:0], t[:0], None)  # an empty batch
     _sample_equal(a, b)
+
+
+def test_tri_fold_masked_rows_raise_registers_below_zero(cuda_device):
+    """A batch whose every row is masked or a self-loop: the registers its
+    rows hit rise from below 0 to 0, as the JAX package's where(mask, rank,
+    0) has them; the sample does not change."""
+    from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.summaries import sketches as sks
+
+    rng = np.random.default_rng(31)
+    for rows, m in ((64, 256), (4096, 8192), (4096, 1 << 18)):
+        regs = torch.full((m,), -3, dtype=torch.int32, device=cuda_device)
+        a = (*sks.tri_init(rows, cuda_device), regs)
+        b = tuple(x.clone() for x in a)
+        s, t, _ = _edge_batch(rng, cuda_device, 3000, 0, 1 << 16)
+        s[:1000] = t[:1000]
+        mask = torch.arange(3000, device=cuda_device) < 1000  # the self-loops kept, the rest masked
+        sko.tri_fold(*a[:3], s, t, mask, a[3])
+        sko.tri_fold_plain(*b[:3], s, t, mask, b[3])
+        _sample_equal(a, b)
+        assert int((a[3] == 0).sum()) > 0 and int((a[3] > 0).sum()) == 0 and bool((a[1] == -1).all())
 
 
 def test_tri_fold_quirks(cuda_device):
@@ -2515,8 +2542,38 @@ def test_tri_fold_quirks(cuda_device):
         assert (int(a[0][int(bucket)]), int(a[1][int(bucket)]), int(a[2][int(bucket)])) == (target, *min((-7, 9), rival))
 
 
-@pytest.mark.parametrize("rows,c,n", [(64, 12, 400), (64, 40, 2000), (4096, 60, 1 << 14), (4096, 400, 1 << 15)])
+def _closure_cases(elo, ehi, rng):
+    """{name: (elo, ehi)} beside a folded sample: a star (every row on
+    vertex 0), a hub with a rim, and states no fold makes: duplicate rows,
+    reversed rows (lo > hi), self-loop rows, valid rows with ehi == -1 and
+    invalid rows with a hi."""
+    rows, dev = elo.shape[0], elo.device
+    ar = torch.arange(rows, dtype=torch.int32, device=dev)
+    out = {"star": (torch.zeros_like(elo), ar + 1)}
+    hub, rim = rows // 2, rows // 4
+    lo, hi = torch.full_like(elo, -1), torch.full_like(ehi, -1)
+    lo[:hub], hi[:hub] = 0, ar[:hub] + 1
+    lo[hub:hub + rim], hi[hub:hub + rim] = ar[:rim] + 1, ar[:rim] + 2
+    out["hub and rim"] = (lo, hi)
+    lo, hi = elo.clone(), ehi.clone()
+    idx = torch.from_numpy(rng.permutation(rows)).to(dev)
+    k = rows // 8
+    dup, rev, loop, neg = (idx[i * k:(i + 1) * k] for i in range(4))
+    lo[dup], hi[dup] = lo[dup.flip(0)], hi[dup.flip(0)]
+    lo[rev], hi[rev] = hi[rev], lo[rev]
+    lo[loop] = hi[loop]
+    hi[neg] = -1
+    lo[idx[-3:]] = -1
+    out["adversarial"] = (lo, hi)
+    return out
+
+
+@pytest.mark.parametrize("rows,c,n", [(64, 12, 400), (64, 40, 2000), (4096, 60, 1 << 14), (4096, 400, 1 << 15),
+                                      (8192, 600, 1 << 15)])
 def test_tri_sampled_closures_match_twin(cuda_device, rows, c, n):
+    """The empty, a folded, the star, a hub-and-rim and an adversarial
+    sample, each one launch; R = 8192 takes the tables past the shared
+    memory's cap from scratch; R = 16384 is refused."""
     from gelly_streaming_tpu_torch.ops import sketches as sko
     from gelly_streaming_tpu_torch.summaries import sketches as sks
 
@@ -2530,6 +2587,14 @@ def test_tri_sampled_closures_match_twin(cuda_device, rows, c, n):
     assert sko.LAUNCHES["tri_sampled_closures"] == before + 2
     assert got.dtype == torch.int32 and got.device.type == "cuda"
     assert int(got) == int(sko.tri_sampled_closures_plain(elo, ehi)) > 0
+    for name, (lo, hi) in _closure_cases(elo, ehi, rng).items():
+        before = sko.LAUNCHES["tri_sampled_closures"]
+        got = int(sko.tri_sampled_closures(lo, hi))
+        assert sko.LAUNCHES["tri_sampled_closures"] == before + 1
+        assert got == int(sko.tri_sampled_closures_plain(lo, hi)), name
+        assert got > 0 or name != "hub and rim"
+    with pytest.raises(ValueError, match="at most 8192"):
+        sko.tri_sampled_closures(*sks.tri_init(16384, cuda_device)[1:])
 
 
 def test_sketch_wrappers_take_strided_inputs(cuda_device):

@@ -585,3 +585,148 @@ def test_sketch_state_from_numpy_checks_its_arrays():
                                          "regs": np.zeros(64, np.int32)}, device=CPU)
     st = interop.sketch_state_from_numpy({"grid": np.arange(128, dtype=np.int32)}, device=CPU)
     assert isinstance(st, tlib.CountMinState) and st.grid.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# the plain models of tri_fold's cluster kernel and of the grouped closure
+# count against JAX's tri_fold (with the edge registers' hll_fold) and
+# tri_sampled_closures
+
+
+def _jax_tri_update(js, jregs, s, d, mask):
+    """SketchTriangleCount.update in the JAX package: the sample's fold and
+    the edge registers under mask & (lo != hi)."""
+    js = _tri_fold(js, _j(s), _j(d), _j(mask))
+    lo, hi = jsk.canonical_edge(_j(s), _j(d))
+    return js, jsk.hll_fold(jregs, jsk.hash_pair_u32(lo, hi, jsk.SALT_EDGE_HLL), _j(mask) & (lo != hi))
+
+
+def _tri_model_batches(rng, rows):
+    """(src, dst, mask) batches: uniform with repeats, self-loops and ids
+    below 0; a batch of one edge many times; a masked batch; none."""
+    out = []
+    for n, c in ((5000, 3 * rows), (3000, rows // 4 + 5), (1, 10), (2500, 1 << 20), (0, 10)):
+        s = rng.integers(-3, c, n).astype(np.int32)
+        d = rng.integers(-3, c, n).astype(np.int32)
+        s[:n // 20] = d[:n // 20]  # self-loops: no part in the sample, rank 0 in the registers
+        if n == 3000:
+            s[1000:1500], d[1000:1500] = s[0] + 1, d[0] + 2  # one edge many times
+        out.append((s, d, rng.random(n) < (0.3 if n == 2500 else 0.85)))
+    return out
+
+
+@pytest.mark.parametrize("rows", [64, 4096])
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+def test_tri_cluster_model_matches_jax(cluster, rows):
+    """The cluster design at one cluster holding every edge in registers
+    and at three (the tickets' merge) whose threads hold 1 edge (most read
+    again for the hi step): every
+    batch's sample and registers equal JAX's; carried-in registers below 0
+    (a masked row or a self-loop raises its register to 0) and a row of
+    the empty hash with endpoints, which a fold with no edge replaces."""
+    rng = np.random.default_rng(cluster * 7 + rows)
+    m = 1 << 14
+    start_regs = rng.integers(-4, 3, m).astype(np.int32)  # below 0: a register a row of the batch raises to 0 or more
+    eh0 = np.full(rows, 0xFFFFFFFF, np.uint32)
+    elo0 = np.full(rows, -1, np.int32)
+    ehi0 = np.full(rows, -1, np.int32)
+    elo0[3], ehi0[3] = 5, 7  # (EMPTY_HASH, 5, 7): (EMPTY_HASH, -1, -1) precedes it
+    for clusters, threads, held in ((1, sko.TRI_THREADS, sko.TRI_HELD), (3, 8, 1)):
+        js = (_j(eh0), _j(elo0), _j(ehi0))
+        jregs = _j(start_regs)
+        ts = (_t(eh0.astype(np.int64)), _t(elo0.copy()), _t(ehi0.copy()))
+        tregs = _t(start_regs.copy())
+        reread = 0
+        for s, d, mask in _tri_model_batches(rng, rows):
+            stats = sko.tri_cluster_model(*ts, _t(s), _t(d), _t(mask), tregs, clusters, cluster, threads, held)
+            js, jregs = _jax_tri_update(js, jregs, s, d, mask)
+            _same_sample(ts, js)
+            _exact(tregs, jregs)
+            assert stats["offers"] <= int(mask.sum())
+            reread += stats["reread"]
+        assert (reread > 0) == (held == 1)
+        below = _t(start_regs) < 0
+        assert bool((below & (tregs == 0)).any()) and bool((tregs < 0).any())  # raised to 0 only by masked rows
+        assert tuple(int(x[3]) for x in ts) != (0xFFFFFFFF, 5, 7)  # the row of the empty hash is gone
+
+
+def test_tri_cluster_model_offers_few_his():
+    """Only the edges equal to their block's least key of their bucket
+    offer a hi: about one a bucket a block, of 20,000 edges."""
+    rows = 64
+    rng = np.random.default_rng(4)
+    s = rng.integers(0, 1 << 20, 20_000).astype(np.int32)
+    d = rng.integers(0, 1 << 20, 20_000).astype(np.int32)
+    ts = tsk.tri_init(rows, CPU)
+    stats = sko.tri_cluster_model(*ts, _t(s), _t(d), None, None, 2, 8, 64, 4)
+    js = jsk.tri_fold(jsk.tri_init(rows), _j(s), _j(d), jnp.ones(len(s), bool))
+    _same_sample(ts, js)
+    assert stats["winners"] == rows and stats["offers"] < 16 * rows + 16  # 16 blocks, a repeated edge now and then
+
+
+def _closure_samples(rows, rng):
+    """{name: (elo, ehi)}: a folded sample, a star (every row on vertex
+    0), a hub with a rim (closures), an empty sample, and adversarial
+    states no fold makes: duplicate rows, reversed rows (lo > hi),
+    self-loop rows and valid rows with ehi == -1."""
+    c = max(8, rows // 6)
+    s = rng.integers(0, c, 6 * rows).astype(np.int32)
+    d = rng.integers(0, c, 6 * rows).astype(np.int32)
+    folded = tsk.tri_fold(tsk.tri_init(rows, CPU), _t(s), _t(d), None)
+    out = {"folded": (folded[1].numpy(), folded[2].numpy())}
+    out["star"] = (np.zeros(rows, np.int32), np.arange(1, rows + 1, dtype=np.int32))
+    lo, hi = np.full(rows, -1, np.int32), np.full(rows, -1, np.int32)
+    hub, rim = rows // 2, rows // 4
+    lo[:hub], hi[:hub] = 0, np.arange(1, hub + 1)
+    lo[hub:hub + rim], hi[hub:hub + rim] = np.arange(1, rim + 1), np.arange(2, rim + 2)  # the rim closes wedges
+    out["hub and rim"] = (lo, hi)
+    out["empty"] = (np.full(rows, -1, np.int32), np.full(rows, -1, np.int32))
+    lo, hi = (x.copy() for x in out["folded"])
+    k = rows // 8
+    idx = rng.permutation(rows)
+    dup, rev, loop, neg = (idx[i * k:(i + 1) * k] for i in range(4))
+    lo[dup], hi[dup] = lo[dup[::-1]], hi[dup[::-1]]  # duplicate rows
+    lo[rev], hi[rev] = hi[rev], lo[rev]  # reversed rows
+    lo[loop] = hi[loop]  # self-loop rows
+    hi[neg] = -1  # valid rows whose hi is -1 (one more shared vertex)
+    lo[idx[-3:]], hi[idx[-3:]] = -1, rng.integers(0, c, 3)  # invalid rows with a hi
+    out["adversarial"] = (lo, hi)
+    return out
+
+
+@pytest.mark.parametrize("rows", [64, 4096])
+def test_closures_grouped_model_matches_jax(rows):
+    """The grouped count equals JAX's tri_sampled_closures on every
+    sample, over a few blocks and the kernel's R / 32 (the pair slices),
+    every block given a pair or CLOSURE_PAIRS_A_BLOCK (one block too at R
+    = 64), and the twin's; nonzero where the sample closes wedges."""
+    rng = np.random.default_rng(rows + 1)
+    jfn = jax.jit(jsk.tri_sampled_closures)
+    for name, (lo, hi) in _closure_samples(rows, rng).items():
+        want = int(jfn(_j(lo), _j(hi)))
+        counts = set()
+        for blocks, each in ((3, 1), (None, 1), (None, sko.CLOSURE_PAIRS_A_BLOCK)) + (((1, 1),) if rows == 64 else ()):
+            got, stats = sko.closures_grouped_model(_t(lo), _t(hi), blocks, each)
+            assert got.dtype == torch.int32 and got.dim() == 0
+            counts.add(int(got))
+            grid = blocks or rows // sko.CLOSURE_ROWS_A_BLOCK
+            assert len(stats["per_block"]) == min(grid, max(1, -(-stats["pairs"] // each)))
+        assert counts == {want}, name
+        if name in ("folded", "hub and rim"):
+            assert want > 0
+        if name == "star":  # one bucket holds vertex 0's rows (and the odd vertex whose hash meets it)
+            assert rows * (rows - 1) // 2 <= stats["pairs"] < rows * (rows - 1) // 2 + 4 * rows
+        if name == "empty":
+            assert want == 0 and stats["pairs"] == 0
+    assert int(sko.tri_sampled_closures_plain(_t(lo), _t(hi))) == want  # the twin on the adversarial sample
+
+
+def test_closures_grouped_model_counts_a_pair_once_under_jax_first_case():
+    """Rows that share two vertices (a duplicate, a reversed copy) and a
+    self-loop beside an edge: each pair is counted under the one vertex
+    JAX's first holding case names, never twice."""
+    lo = np.array([1, 1, 2, 3, 3, 1, 2, -1], np.int32)
+    hi = np.array([2, 2, 1, 3, 1, 3, 3, -1], np.int32)  # (1,2) twice, (2,1), (3,3), (3,1), (1,3), (2,3)
+    want = int(jsk.tri_sampled_closures(_j(lo), _j(hi)))
+    for blocks in (1, 2, 5):
+        assert int(sko.closures_grouped_model(_t(lo), _t(hi), blocks)[0]) == want > 0
