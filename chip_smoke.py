@@ -329,6 +329,38 @@ the parent's time (``TRI_SPLIT``, and its fold with no edge) and the
 design's variants (``TRI_DESIGNS``), each built from its source beside
 the main build (one that fails to build is reported and skipped).
 
+Phase 19 drives checkpoints, supervised recovery and the binned and
+compressed ingest over the CC bench's stream (50 × 2^21 uniform edges over
+2^20 vertices, not cut), each run through ``EdgeStream.from_arrays(...)
+.aggregate(ConnectedComponents(), ...)`` with ``superbatch=8`` (a group's
+batches packed across the ingest pool).  The host ingest library
+(``csrc/edge_parser.cpp``) is built in phase 1 beside the kernels and must
+load.  (a) ``wire_checkpoint_batches=8``: three pairs of runs with
+snapshots and without, in turns (edges/s); a snapshot's device clone ms
+and the writer's save ms; then a subclass whose ``update`` raises on its
+27th call, run under ``run_supervised(..., max_restarts=1)``: one restart,
+the snapshot at the restart says batch 24, the union kernel launches once
+a batch after the restore (26 times, no refold of batches 0–23), the time
+from the new ``aggregate`` call to the first fold after the restore, and
+the labels equal to the uncrashed run's and scipy's; the idle share of
+one snapshotted run by torch.profiler.  (b) ``wire_compress=1``
+and ``binned_ingest=1`` (plain width) alone: labels equal to (a)'s and
+scipy's, ``bdv_decode`` (``csrc/wire_decode.cu``) launched once a batch,
+the native sorter (and encoder, or PAIR40 packer) called on every batch
+(``utils/native.CALLS``); edges/s, wire bytes an edge against the plain
+width and EF40, one batch's pack ms, ``bdv_decode``'s device ms on a held
+stream, its bound (the payload, not the bucket's padding, read once), its
+ratio and the twin's ms, and the idle share of one run by torch.profiler
+(as (a)'s).  (c)
+``bdv_decode`` against its twin on the card, bit for bit: a CC batch, a
+group arena's four rows of different widths (each read at the arena's
+width), varints at the 1/2/3/4-byte boundaries, ids up to 2^28 - 1, the
+valued layout, n in {0, 1, 3, 5}, bucket padding, truncated buffers and
+4,096 random-byte buffers (clipped reads).  Alone: ``chip_smoke.
+phase_checkpoints(torch.device("cuda", 0), chip_smoke.sleep_cycles_per_ms(),
+chip_smoke.cc_bench_stream())`` after ``_cuda.build_all()`` (it computes
+scipy's labels itself when phase 7 did not).
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -343,8 +375,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1281,6 +1315,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     # reference 2: scipy, independent of both
     t0 = time.perf_counter()
     o_parent, o_seen = cc_oracle(src, dst, c)
+    data["oracle"] = (o_parent, o_seen)  # phase 19 holds its runs against it
     oracle_s = time.perf_counter() - t0
     if not (np.array_equal(parent, o_parent) and np.array_equal(seen, o_seen)):
         raise RuntimeError("final labels differ from scipy's connected components")
@@ -6661,6 +6696,332 @@ def sketch_contracts(dev) -> dict:
     return contract
 
 
+# ---------------------------------------------------------------------------
+# phase 19: checkpoints, supervised recovery and the compressed ingest
+
+CK_EVERY = 8  # (a): wire_checkpoint_batches
+CK_GROUP = 8  # (a), (b): superbatch, so that the ingest pool packs a group's batches in parallel
+CK_CRASH_CALL = 27  # (a): the crashing descriptor's update raises on this call
+CK_PAIRS = 3  # (a): (snapshots, none) runs timed in turns
+BDV_RANDOM_BUFFERS = 4096  # (c)
+
+
+def bdv_cases(rng) -> list:
+    """(label, [(uint8 buffer, n, valued), ...]) that bdv_decode must decode
+    bit for bit as its twin: a group arena's rows (each read with the arena's
+    width), varints at the 1/2/3/4-byte boundaries, ids up to 2^28 - 1, the
+    valued layout, n in {0, 1, 3, 5}, bucket padding, a truncated buffer
+    and random bytes (clipped reads)."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    def pack(n, cap, valued=False, seed=0):
+        r = np.random.default_rng(seed)
+        s, d = r.integers(0, cap, n).astype(np.int32), r.integers(0, cap, n).astype(np.int32)
+        v = r.integers(-(1 << 27), 1 << 27, n).astype(np.int32) if valued else None
+        return wire.pack_edges_bdv(s, d, cap, val_i32=v)
+
+    rows = [pack(n, 1 << 20, seed=n) for n in (4096, 4096, 4096, 4096)]
+    rows[1] = pack(4096, 1 << 10, seed=1)  # narrower: mostly 1-byte deltas
+    rows[3] = pack(4096, 1 << 28, seed=3)  # wider: 4-byte src deltas
+    widest = max(r.nbytes for r in rows)
+    arena = np.zeros((4, widest), np.uint8)
+    for j, r in enumerate(rows):
+        arena[j, : r.nbytes] = r
+    bounds = np.array([0, 1, 255, 256, 65535, 65536, (1 << 24) - 1, 1 << 24, (1 << 29) - 1, 1 << 29], np.uint64)
+    stream = np.concatenate([bounds, bounds[::-1]])
+    varints = wire._varint_encode_np(stream)
+    top = (1 << 28) - 1
+    ids = np.array([top, 0, top, top - 1, 0, top], np.int32)
+    full = pack(1 << 16, 1 << 20, seed=7)
+    cases = [
+        ("group arena rows", [(arena[j], 4096, False) for j in range(4)]),
+        ("varint boundaries", [(varints, len(stream) // 2, False), (varints, len(stream) // 3, True)]),
+        ("ids to 2^28 - 1", [(wire.pack_edges_bdv(ids, ids[::-1].copy(), 1 << 28), 6, False)]),
+        ("valued", [(pack(n, 1 << 20, True, n), n, True) for n in (1, 3, 5, 4097, 70001)]),
+        ("n in {0, 1, 3, 5}", [(pack(max(n, 1), 1 << 20, seed=n), n, v) for n in (0, 1, 3, 5) for v in (False, True)]),
+        ("bucket padding", [(np.concatenate([pack(n, 1 << 16, seed=n), np.zeros(n, np.uint8)]), n, False)
+                            for n in (2047, 2048, 2049)]),
+        ("truncated", [(full[: full.nbytes // 2], 1 << 16, False), (full[:3], 1 << 16, False)]),
+        ("random bytes", [(rng.integers(0, 256, int(nb)).astype(np.uint8), int(n), bool(v))
+                          for nb, n, v in zip(rng.integers(1, 1 << 12, BDV_RANDOM_BUFFERS),
+                                              rng.integers(1, 1 << 11, BDV_RANDOM_BUFFERS),
+                                              rng.integers(0, 2, BDV_RANDOM_BUFFERS))]),
+    ]
+    return cases
+
+
+def bdv_payload_nbytes(buf, n: int, valued: bool = False) -> int:
+    """The bytes of a BDV buffer that a decode of ``n`` edges reads: the
+    control block and the varints its 2-bit lengths cover (the bucket's
+    zero padding past them is never read)."""
+    count = (3 if valued else 2) * n
+    ctrl = (count + 3) // 4
+    codes = (np.asarray(buf[:ctrl], np.uint8)[:, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3
+    return ctrl + int(codes.reshape(-1)[:count].astype(np.int64).sum()) + count
+
+
+def bdv_check_cases(dev, cases) -> tuple:
+    """Every case through bdv_decode and its twin on the card: (buffers,
+    mismatching buffers)."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    checked = bad = 0
+    for label, items in cases:
+        for buf, n, valued in items:
+            b = torch.from_numpy(np.ascontiguousarray(buf)).to(dev)
+            got = wd.decode_bdv(b, n, valued)
+            want = wd.decode_bdv_plain(b, n, valued)
+            ok = len(got) == len(want) and all(g.dtype == torch.int32 and torch.equal(g, w)
+                                               for g, w in zip(got, want))
+            checked += 1
+            if not ok:
+                bad += 1
+                log(f"  bdv_decode differs from its twin: {label}, n {n}, valued {valued}, {buf.nbytes} B")
+    return checked, bad
+
+
+def phase_checkpoints(dev, cpm, data: dict) -> dict:
+    """Phase 19 on the CC bench's stream: (a) checkpointed CC under
+    run_supervised with a crash, (b) the compressed and binned ingest, (c)
+    bdv_decode against its twin.  The snapshots go to a temporary
+    directory, removed afterwards."""
+    ck_dir = tempfile.mkdtemp(prefix="phase19-")
+    try:
+        return checkpoint_runs(dev, cpm, data, os.path.join(ck_dir, "cc"))
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+
+def checkpoint_runs(dev, cpm, data: dict, path: str) -> dict:
+    """phase_checkpoints' runs, their snapshot at ``path``."""
+    import torch
+
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import ingest, wire
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+    from gelly_streaming_tpu_torch.utils import checkpoint, metrics, native
+    from gelly_streaming_tpu_torch.utils.recovery import run_supervised
+
+    t_phase = time.perf_counter()
+    c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
+    src, dst = data["src"], data["dst"]
+    n_edges = nb * batch
+    if "oracle" not in data:
+        data["oracle"] = cc_oracle(src, dst, c)
+    o_parent, o_seen = data["oracle"]
+    out = {}
+
+    def labels_of(records):
+        ds = records[-1][0]
+        return ds.parent.cpu().numpy(), ds.seen.cpu().numpy()
+
+    def check_labels(got, label):
+        if not (np.array_equal(got[0], o_parent) and np.array_equal(got[1], o_seen)):
+            raise RuntimeError(f"{label}: final labels differ from scipy's connected components")
+
+    def timed_run(cfg, ckpt, k=nb):
+        if os.path.exists(path + ".npz"):
+            os.remove(path + ".npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = EdgeStream.from_arrays(src[: k * batch], dst[: k * batch], cfg, device=dev).aggregate(
+            ConnectedComponents(), checkpoint_path=path if ckpt else None).collect()
+        got = labels_of(recs)
+        return time.perf_counter() - t0, got
+
+    # (a) checkpointed streaming CC, one crash, run_supervised
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch, wire_checkpoint_batches=CK_EVERY, superbatch=CK_GROUP)
+    width = ConnectedComponents()._wire_width(cfg, batch)
+    timed_run(cfg, True, 2 * CK_GROUP)  # warm the path: allocator, pinned pool, the ingest pool
+    turns = []
+    uncrashed = None
+    metrics.reset_checkpoint_stats()
+    for _ in range(CK_PAIRS):
+        for ckpt in (True, False):
+            secs, got = timed_run(cfg, ckpt)
+            check_labels(got, "checkpointed CC" if ckpt else "CC")
+            uncrashed = uncrashed if ckpt else got
+            turns.append((ckpt, secs))
+    ck_stats = metrics.checkpoint_stats()
+    snap_eps = [n_edges / s for k, s in turns if k]
+    none_eps = [n_edges / s for k, s in turns if not k]
+    log(f"  (a) from_arrays(...).aggregate(ConnectedComponents(), checkpoint_path=...) at width {width}, "
+        f"wire_checkpoint_batches={CK_EVERY}, superbatch={CK_GROUP}: edges/s in turns, snapshots "
+        + ", ".join(f"{e:.6g}" for e in snap_eps) + "; none " + ", ".join(f"{e:.6g}" for e in none_eps))
+    saves = max(ck_stats["snapshots"], 1)
+    save_ms = ck_stats["snapshot_save_s"] / saves * 1e3
+    wait_ms = ck_stats["snapshot_wait_s"] / saves * 1e3
+    state = ConnectedComponents().initial_state(cfg, dev)
+    carry = ((), state)
+    clone_ms, clone_us = device_ms(lambda: checkpoint.tree_map_leaves(lambda t: t.clone(), carry), 20, cpm)
+    state_bytes = sum(t.numel() * t.element_size() for t in state)
+    log(f"  (a) a snapshot ({state_bytes} B of state): device clone {clone_ms:.4f} ms held (host enqueue "
+        f"{clone_us:.1f} us; bound {2 * state_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms), the writer's "
+        f"save_state {save_ms:.2f} ms and its wait for the download {wait_ms:.3f} ms a snapshot "
+        f"({ck_stats['snapshots']} snapshots over {CK_PAIRS} runs)")
+
+    class CrashingCC(ConnectedComponents):
+        """Raises in update on its CK_CRASH_CALL-th call, once; marks the
+        first fold after a restore, synchronized."""
+
+        calls = 0
+        restarted_at = None
+        first_fold_s = None
+
+        def update(self, st, s, d, v, m):
+            type(self).calls += 1
+            if type(self).calls == CK_CRASH_CALL:
+                raise RuntimeError("injected crash in update")
+            res = super().update(st, s, d, v, m)
+            if type(self).restarted_at is not None and type(self).first_fold_s is None:
+                torch.cuda.synchronize()
+                type(self).first_fold_s = time.perf_counter() - type(self).restarted_at
+            return res
+
+    if os.path.exists(path + ".npz"):
+        os.remove(path + ".npz")
+    agg = CrashingCC()
+    restarts = []
+    attempts = []
+    like = agg._wire_checkpoint_like(EdgeStream.from_arrays(src, dst, cfg, device=dev))
+
+    def on_restart(n, e):
+        snap = checkpoint.load_state(path, like)
+        restarts.append((n, str(e), int(snap["next_batch"]), bool(snap["done"])))
+        uf.reset_launches()
+        wd.reset_launches()
+
+    def make():
+        attempts.append(time.perf_counter())
+        if len(attempts) == 2:
+            CrashingCC.restarted_at = attempts[-1]
+        return EdgeStream.from_arrays(src, dst, cfg, device=dev).aggregate(agg, checkpoint_path=path)
+
+    t0 = time.perf_counter()
+    records = list(run_supervised(make, max_restarts=1, on_restart=on_restart))
+    sup_s = time.perf_counter() - t0
+    launches = dict(uf.LAUNCHES)
+    if len(restarts) != 1 or len(attempts) != 2:
+        raise RuntimeError(f"expected one restart, got {restarts} over {len(attempts)} attempts")
+    restored = restarts[0][2]
+    if restored != 3 * CK_EVERY or restarts[0][3]:
+        raise RuntimeError(f"the restore must resume at batch {3 * CK_EVERY}, got {restarts[0]}")
+    got = labels_of(records)
+    check_labels(got, "the recovered run")
+    if not (np.array_equal(got[0], uncrashed[0]) and np.array_equal(got[1], uncrashed[1])):
+        raise RuntimeError("the recovered run's labels differ from the uncrashed run's")
+    if launches["union_kernel"] != nb - restored:
+        raise RuntimeError(f"the union kernel must launch once a batch after the restore, "
+                           f"{nb - restored} times: {launches}")
+    recover_ms = CrashingCC.first_fold_s * 1e3
+    log(f"  (a) run_supervised(max_restarts=1) with update raising on call {CK_CRASH_CALL}: restarts {restarts}, "
+        f"restored next_batch {restored}, union-find launches after the restore {launches} (no refold of batches "
+        f"0-{restored - 1}); labels equal to the uncrashed run's and scipy's; {sup_s:.3f} s in all")
+    log(f"  (a) time to recover: {recover_ms:.2f} ms from the new aggregate call to the first fold after the "
+        f"restore (host, synchronized)")
+    busy_a, wall_a, top_a = exact_profile(lambda: timed_run(cfg, True))
+    idle_a = None if busy_a is None else 100 * (1 - busy_a / wall_a)
+    log(f"  (a) torch.profiler over one snapshotted run: device busy {busy_a} ms (the sum of its kernel, copy and "
+        f"set rows) against that run's own wall {wall_a:.1f} ms: idle {'-' if idle_a is None else f'{idle_a:.2f}'}%; "
+        f"top rows {top_a}")
+    out["a"] = {"edges_per_s_snapshots": snap_eps, "edges_per_s_none": none_eps, "clone_ms": clone_ms,
+                "clone_host_us": clone_us, "save_ms": save_ms, "wait_ms": wait_ms, "state_bytes": state_bytes,
+                "restarts": len(restarts), "restored_next_batch": restored, "launches_after_restore": launches,
+                "recover_ms": recover_ms, "idle_pct": idle_a, "busy_ms": busy_a, "profiled_wall_ms": wall_a,
+                "top": top_a, "width": str(width)}
+
+    # (b) the compressed and the binned ingest
+    ef40_b = sum(b.nbytes for b in data["bufs"]) / n_edges
+    plain_b = wire.wire_nbytes(batch, wire.width_for_capacity(c)) / batch
+    res_b = {}
+    for label, kw in (("compressed", dict(wire_compress=1)), ("binned", dict(binned_ingest=1, wire_encoding="plain"))):
+        bcfg = StreamConfig(vertex_capacity=c, batch_size=batch, superbatch=CK_GROUP, **kw)
+        EdgeStream.from_arrays(src[: 2 * batch], dst[: 2 * batch], bcfg, device=dev).aggregate(
+            ConnectedComponents()).collect()
+        torch.cuda.synchronize()
+        wd.reset_launches()
+        native.reset_calls()
+        metrics.reset_wire_stats()
+        t0 = time.perf_counter()
+        recs = EdgeStream.from_arrays(src, dst, bcfg, device=dev).aggregate(ConnectedComponents()).collect()
+        got = labels_of(recs)
+        secs = time.perf_counter() - t0
+        check_labels(got, label)
+        if not (np.array_equal(got[0], uncrashed[0]) and np.array_equal(got[1], uncrashed[1])):
+            raise RuntimeError(f"{label}: labels differ from (a)'s")
+        calls, w = dict(native.CALLS), metrics.wire_stats()
+        if calls["sort_edges_dst_src"] < nb:
+            raise RuntimeError(f"{label}: the native sorter was not called on every batch: {calls}")
+        if label == "compressed":
+            if wd.LAUNCHES["bdv_decode"] != nb:
+                raise RuntimeError(f"bdv_decode must launch once a batch on the compressed path: {wd.LAUNCHES}")
+            if calls["encode_edges_bdv"] < nb:
+                raise RuntimeError(f"the native encoder was not called on every batch: {calls}")
+        elif calls["pack_edges40"] < nb:
+            raise RuntimeError(f"the native packer was not called on every batch: {calls}")
+        res_b[label] = {"edges_per_s": n_edges / secs, "wire_bytes_per_edge": w["wire_bytes_per_edge"],
+                        "bin_occupancy_hwm": w["wire_bin_occupancy_hwm"], "native_calls": {
+                            k: v for k, v in calls.items() if v}, "decode_launches": wd.LAUNCHES["bdv_decode"],
+                        "wall_s": secs}
+        log(f"  (b) {label} ({kw}, superbatch={CK_GROUP}): {n_edges / secs:.6g} edges/s end to end, "
+            f"{w['wire_bytes_per_edge']} wire B/edge "
+            f"(plain width {plain_b:.1f}, EF40 {ef40_b:.4f}), bin occupancy high-water "
+            f"{w['wire_bin_occupancy_hwm']}; native calls {res_b[label]['native_calls']}; bdv_decode launches "
+            f"{wd.LAUNCHES['bdv_decode']}; labels equal to (a)'s and scipy's")
+    for label, fn in (("compressed", lambda s, d: wire.pack_edges_bdv(s, d, c, record_stats=True)),
+                      ("binned", lambda s, d: wire.pack_edges(*wire.sort_edges_binned(s, d, c), wire.PAIR40))):
+        t0 = time.perf_counter()
+        for i in range(2):
+            fn(src[i * batch : (i + 1) * batch], dst[i * batch : (i + 1) * batch])
+        res_b[label]["pack_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    bdv_buf = wire.pack_edges_bdv(src[-batch:], dst[-batch:], c)
+    b_dev = to_dev((bdv_buf,), dev)[0]
+    got = wd.decode_bdv(b_dev, batch)
+    want = wd.decode_bdv_plain(b_dev, batch)
+    err = max(int((g.to(torch.int64) - w_.to(torch.int64)).abs().max()) for g, w_ in zip(got, want))
+    dec_ms, dec_us = device_ms(lambda: wd.decode_bdv(b_dev, batch), 50, cpm)
+    dec_events_ms = cuda_ms(lambda: wd.decode_bdv(b_dev, batch), 50)
+    twin_ms = cuda_ms(lambda: wd.decode_bdv_plain(b_dev, batch), 10)
+    payload = bdv_payload_nbytes(bdv_buf, batch)
+    bound_ms = (payload + 8 * batch) / HBM_BYTES_PER_S * 1e3
+    ccfg = StreamConfig(vertex_capacity=c, batch_size=batch, superbatch=CK_GROUP, wire_compress=1)
+    busy_b, wall_b, top_b = exact_profile(lambda: EdgeStream.from_arrays(src, dst, ccfg, device=dev).aggregate(
+        ConnectedComponents()).collect())
+    idle_b = None if busy_b is None else 100 * (1 - busy_b / wall_b)
+    log(f"  (b) one batch's pack on one thread: BDV (native sort + encode) {res_b['compressed']['pack_ms']:.2f} ms, "
+        f"binned (native sort + PAIR40) {res_b['binned']['pack_ms']:.2f} ms (the runs above pack a group's "
+        f"{CK_GROUP} batches across the ingest pool's {ingest.resolve_workers(0)} workers)")
+    log(f"  (b) bdv_decode a batch ({payload} B of payload in a {bdv_buf.nbytes} B bucket, {batch} edges): device "
+        f"{dec_ms:.5f} ms held, host enqueue {dec_us:.2f} us, events {dec_events_ms:.5f} ms; bound {bound_ms:.5f} ms "
+        f"(bytes: the payload read once, 8 B an edge written), {dec_ms / bound_ms:.2f}x the bound; the twin "
+        f"{twin_ms:.4f} ms; max_abs_err {err}")
+    log(f"  (b) torch.profiler over one compressed run: device busy {busy_b} ms against that run's own wall "
+        f"{wall_b:.1f} ms: idle {'-' if idle_b is None else f'{idle_b:.2f}'}%; top rows {top_b}")
+    out["b"] = {**res_b, "plain_bytes_per_edge": plain_b, "ef40_bytes_per_edge": ef40_b, "idle_pct": idle_b,
+                "busy_ms": busy_b, "profiled_wall_ms": wall_b, "top": top_b}
+    out["decode"] = {"launches": res_b["compressed"]["decode_launches"], "err": err, "ms": dec_events_ms,
+                     "device_ms": dec_ms, "host_us": dec_us, "plain_ms": twin_ms, "bound_ms": bound_ms,
+                     "ratio": dec_ms / bound_ms, "payload_bytes": payload, "wire_bytes": bdv_buf.nbytes}
+
+    # (c) bdv_decode against its twin on the card
+    cases = bdv_cases(np.random.default_rng(19))
+    cases.insert(0, ("CC batch", [(bdv_buf, batch, False)]))
+    checked, bad = bdv_check_cases(dev, cases)
+    if bad or err:
+        raise RuntimeError(f"bdv_decode differs from its twin on {bad} of {checked} buffers")
+    log(f"  (c) bdv_decode bit-equal to its twin on {checked} buffers: " + ", ".join(
+        f"{label} ({len(items)})" for label, items in cases))
+    out["c"] = {"buffers": checked}
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -6738,6 +7099,7 @@ def main(argv=None) -> int:
         from gelly_streaming_tpu_torch.ops import _cuda
         from gelly_streaming_tpu_torch.ops import csr_triangles as ct
         from gelly_streaming_tpu_torch.ops import dense_triangles as dt
+        from gelly_streaming_tpu_torch.utils import native
         from gelly_streaming_tpu_torch.utils.metrics import WindowLatencyRecorder
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -6776,13 +7138,22 @@ def main(argv=None) -> int:
         sketch_variants.update(built_v)
         sketch_failed.extend(failed_v)
 
+    host_lib = []
+
+    def build_host():  # the host ingest library (csrc/edge_parser.cpp), beside the kernels
+        t_host = time.perf_counter()
+        host_lib.append((native.load_ingest_lib(), time.perf_counter() - t_host))
+
     split_threads = [threading.Thread(target=fn) for fn in
-                     (build_split, *([build_sketch_variants] if parent_sketches_cu else []))]
+                     (build_split, build_host, *([build_sketch_variants] if parent_sketches_cu else []))]
     for th in split_threads:
         th.start()
     built = _cuda.build_all(sources)
     for th in split_threads:
         th.join()
+    if not host_lib or host_lib[0][0] is None:
+        raise RuntimeError("the host ingest library (csrc/edge_parser.cpp) did not build")
+    log(f"  host ingest library {native.SOURCE} built and loaded in {host_lib[0][1]:.2f} s")
     if split_failed:
         log(f"  split variants: {split_failed[0]} (those variants are skipped)")
     for failure in sketch_failed:
@@ -7043,6 +7414,9 @@ def main(argv=None) -> int:
                         {label: load_baseline(path, PARENT_SKETCH_SIGNATURES if label.startswith("e057c38")
                                               else SKETCH_SIGNATURES) for label, path in sketch_variants.items()})
 
+    log("phase 19: checkpoints, supervised recovery and the compressed ingest on the card")
+    ck = phase_checkpoints(dev, cpm, data)
+
     kernels = [
         {
             "name": "pane_adjacency",
@@ -7272,6 +7646,15 @@ def main(argv=None) -> int:
                                             "turns") if k in sk["closures"]},
          "contracts": sk["contracts"], "phase_s": sk["s"]},
     ]
+    dec = ck["decode"]
+    kernels.append({
+        **entry("bdv_decode", "wire_decode.cu", "gelly_streaming_tpu/ops/wire_decode.py:41", dec),
+        "also_replaces": "gelly_streaming_tpu/ops/wire_decode.py:66 (decode_bdv)",
+        "library_call": "none: no one PyTorch call computes the decode",
+        "timed": "(b)'s last batch of 2^21 edges as BDV, on a held stream",
+        "ratio": dec["ratio"], "payload_bytes": dec["payload_bytes"], "wire_bytes": dec["wire_bytes"],
+        "checked_buffers": ck["c"]["buffers"],
+        "checkpoints": ck["a"], "compressed_ingest": ck["b"], "phase_s": ck["s"]})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,15 +7,23 @@ transform, ``transient_state``, ``order_free``), its two combine strategies
 rounds of ``degree``-ary groups) and ``run()``'s routing:
 
 * **the wire path** (array-backed or ``from_wire`` streams folded by one
-  partition, no wall-clock panes): every wire buffer is uploaded by
-  ``io/prefetch.Prefetcher`` (pinned memory, a side stream, an event),
-  unpacked, run through the stream's stages and folded into the running
-  state on the device, batch after
-  batch, with no host sync; the running state is emitted every
-  ``ingest_window_edges / batch`` batches and at stream end.  With
-  ``superbatch > 1`` a group of buffers travels as one transfer and its
-  rows are folded one after another, which is the per-batch fold by
-  construction.
+  partition, no wall-clock panes): every wire buffer is packed on the
+  prefetcher's pack thread (``io/prefetch.Prefetcher``; superbatch groups
+  across the ingest pool, io/ingest.py), uploaded (pinned memory, a side
+  stream, an event), unpacked, run through the stream's stages and folded
+  into the running state on the device, batch after batch, with no host
+  sync; the running state is emitted every ``ingest_window_edges / batch``
+  batches and at stream end.  With ``superbatch > 1`` a group of buffers
+  travels as one transfer and its rows are folded one after another, which
+  is the per-batch fold by construction.  Binned ingest sorts each batch
+  by (dst, src) before it is packed; compressed ingest ships it as BDV,
+  decoded on the card by the ``bdv_decode`` kernel (ops/wire_decode.py).
+  With a checkpoint path the whole fold carry (stage states and summary)
+  and the position in full batches are snapshot every
+  ``cfg.wire_checkpoint_batches`` batches and at stream end,
+  asynchronously: the carry is cloned on the compute stream, copied to
+  pinned host memory on a side stream, and a writer thread saves it; the
+  fold never waits on the download.
 * **the synchronous windowed path** (timed and batch-source streams, or
   ``num_shards > 1``): each closed pane is folded per round-robin
   partition and the partials combined, then merged into the running
@@ -32,18 +40,27 @@ rounds of ``degree``-ary groups) and ``run()``'s routing:
   the per-pane path's.  With ``async_windows`` too, the rows are
   assembled and uploaded on the prefetcher's threads.
 
+Every windowed plane snapshots the running summary and the last folded
+window id after each window's record is consumed, restores them on start
+and skips the panes folded before the snapshot (the superbatch and async
+planes before packing them); ``_maybe_bin_pane`` bins each closed pane
+when binned ingest resolves on.  Summary state is exactly-once across
+restarts (``utils/recovery.run_supervised``), emissions at-least-once; a
+snapshot holds the same leaves as the JAX package's at the same position.
+
 Descriptors here may update their state IN PLACE (``update`` its first
 argument, ``combine`` its first argument): the runtime owns the running
-state and clones it before every emission that a later fold could change.
-Checkpoints and the binned/compressed ingest are not ported yet (ROADMAP
-queue A), so ``_maybe_bin_pane`` has no counterpart here; the mesh runner
-waits for ``parallel/`` on NCCL, so ``num_shards > 1`` folds its
-partitions one after another on one device.
+state and clones it before every emission or snapshot that a later fold
+could change.  The mesh runner waits for ``parallel/`` on NCCL, so
+``num_shards > 1`` folds its partitions one after another on one device.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -60,15 +77,12 @@ from gelly_streaming_tpu_torch.core.windows import (
     pad_pane_edges,
     pad_rows,
     pow2,
-    row_mask,
-    stack_rows,
     stream_panes,
 )
-from gelly_streaming_tpu_torch.io import wire
+from gelly_streaming_tpu_torch.io import ingest, wire
 from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, upload
 from gelly_streaming_tpu_torch.ops import unionfind as uf
-
-_ROADMAP = "not ported yet (ROADMAP.md, queue A item 6)"
+from gelly_streaming_tpu_torch.utils import checkpoint, metrics
 
 
 def clone_state(state):
@@ -83,6 +97,101 @@ def clone_state(state):
 
 def _as_record(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
+
+
+def _snapshot_clone(leaf):
+    """A leaf's copy for a snapshot: a tensor cloned on its device (on the
+    current stream, so before any later in-place fold), the rest as is."""
+    return leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+
+
+class _SnapshotWriter:
+    """The wire path's asynchronous snapshots.  ``put`` clones the carry on
+    the compute stream, starts its copy to pinned host memory on a side
+    stream that waits for the clone (``async_exec.start_host_fetch``: one
+    event after the copies), and hands it to a writer thread that waits on
+    that event and saves it atomically.
+    A queue of one gives backpressure: a slow disk delays the next
+    snapshot, not the fold.  A writer error is raised on the fold thread at
+    the next ``put`` or at ``finish``."""
+
+    def __init__(self, path: str, batch: int, device: torch.device):
+        self.path = path
+        self.batch = batch
+        self.device = device
+        self.side = torch.cuda.Stream(device=device) if device.type == "cuda" else None
+        self.q: "queue.Queue" = queue.Queue(maxsize=1)
+        self.err: list = []
+        self.thread: Optional[threading.Thread] = None
+
+    def _run(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            pos, done, (host, ready) = item
+            try:
+                t0 = time.perf_counter()
+                if ready is not None:
+                    ready.synchronize()
+                t1 = time.perf_counter()
+                checkpoint.save_state(self.path, {
+                    "summary": host[1],
+                    "stages": host[0],
+                    "next_batch": np.full((), pos, np.int64),
+                    "batch": np.full((), self.batch, np.int64),
+                    "done": np.full((), done, bool),
+                })
+                metrics.checkpoint_record(t1 - t0, time.perf_counter() - t1)
+            except BaseException as e:  # raised again on the fold thread
+                self.err.append(e)
+                return
+
+    def _put_item(self, item) -> bool:
+        """A bounded put that cannot deadlock against a writer that died
+        while this thread waits on a full queue."""
+        while not self.err:
+            try:
+                self.q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def put(self, pos: int, done: bool, carry) -> None:
+        if self.err:
+            raise self.err[0]
+        copy = checkpoint.tree_map_leaves(_snapshot_clone, carry)
+        if self.side is None:
+            fetch = async_exec.HostFetch(copy, None)
+        else:
+            self.side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.side):
+                fetch = async_exec.start_host_fetch(copy)
+            # the clones were made on the compute stream: keep the allocator
+            # from reusing them before the side stream's copies have run
+            for leaf in checkpoint.flatten(copy)[0]:
+                if isinstance(leaf, torch.Tensor):
+                    leaf.record_stream(self.side)
+        if self.thread is None:
+            self.thread = threading.Thread(target=self._run, daemon=True)
+            self.thread.start()
+        if not self._put_item((pos, done, fetch)):
+            raise self.err[0]
+
+    def finish(self, raise_err: bool = True) -> None:
+        """Drain the writer; on a dead writer drop what is queued."""
+        if self.thread is not None:
+            if self._put_item(None):
+                self.thread.join()
+            else:
+                while True:
+                    try:
+                        self.q.get_nowait()
+                    except queue.Empty:
+                        break
+        if raise_err and self.err:
+            raise self.err[0]
 
 
 class SummaryAggregation:
@@ -190,57 +299,198 @@ class SummaryAggregation:
             return (wire.EF40, cfg.vertex_capacity)
         return wire.width_for_capacity(cfg.vertex_capacity)
 
-    def _wire_records(self, stream) -> Iterator[tuple]:
+    def _binned_modes(self, cfg: StreamConfig):
+        """The binned and compressed ingest switches for this descriptor:
+        ``(binned, compress)``.
+
+        Both reorder a batch into a (dst, src)-sorted multiset, so they are
+        legal for order-free folds only: an explicit ``binned_ingest=1`` /
+        ``wire_compress=1`` on an order-sensitive descriptor refuses loudly,
+        while the ambient env switches quietly keep the arrival order.
+        Compression further needs ids in 2^28 (the BDV varint bound) and
+        yields to an explicit ``wire_encoding='ef40'``."""
+        compress = wire.resolve_wire_compress(cfg)
+        binned = wire.resolve_binned_ingest(cfg)
+        if not (binned or compress):
+            return False, False
+        forced = cfg.binned_ingest == 1 or cfg.wire_compress == 1
+        if not self.order_free:
+            if forced:
+                raise ValueError(
+                    "binned/compressed ingest ships a (dst, src)-sorted "
+                    "multiset; this aggregation is not order-free"
+                )
+            return False, False
+        if compress and cfg.vertex_capacity > 1 << wire.BDV_MAX_ID_BITS:
+            if cfg.wire_compress == 1:
+                raise ValueError("wire_compress needs vertex_capacity <= 2^28 (BDV varints)")
+            compress = False
+        if compress and cfg.wire_encoding == "ef40":
+            if cfg.wire_compress == 1:
+                raise ValueError(
+                    "wire_compress and wire_encoding='ef40' are mutually "
+                    "exclusive wire formats; pick one"
+                )
+            compress = False
+        return binned, compress
+
+    def _maybe_bin_pane(self, cfg: StreamConfig, pane: WindowPane) -> WindowPane:
+        """A closed pane with its edges (dst, src)-sorted when binned ingest
+        resolves on: the same multiset, so order-free folds emit the same
+        records.  Valued and timed panes pass through, as do descriptors
+        that are not order-free (loudly when forced, ``_binned_modes``)."""
+        if pane.val is not None or pane.time is not None or pane.num_edges <= 1:
+            return pane
+        binned, _compress = self._binned_modes(cfg)
+        if not binned:
+            return pane
+        s, d = wire.sort_edges_binned(pane.src, pane.dst, cfg.vertex_capacity, record_stats=True)
+        return pane._replace(src=s, dst=d)
+
+    def _wire_checkpoint_like(self, stream):
+        """The wire path's snapshot layout: the whole fold carry (stage
+        states and summary) and the position in full batches, with the
+        batch size it counts in."""
+        cfg = stream.cfg
+        return {
+            "summary": self.initial_state(cfg, stream.device),
+            "stages": tuple(stream._init_stage_states()),
+            "next_batch": np.zeros((), np.int64),
+            # a resume under another batch size would skip or refold the
+            # wrong edges: the stored size makes that an error
+            "batch": np.zeros((), np.int64),
+            "done": np.zeros((), bool),
+        }
+
+    def _wire_restore(self, stream, checkpoint_path: Optional[str], batch: int):
+        """A wire-path snapshot as a resume plan: ``(start_batch,
+        (stages, summary) | None, done_summary | None)``.  Legacy layouts: a
+        windowed snapshot whose global pane finished re-emits its summary;
+        any other legacy form (windowed not done, or a bare summary) refolds
+        from the start, since window positions do not map to batches."""
+        cfg = stream.cfg
+        if not checkpoint_path or not checkpoint.checkpoint_exists(checkpoint_path):
+            return 0, None, None
+        try:
+            snap = checkpoint.load_state(checkpoint_path, self._wire_checkpoint_like(stream))
+        except ValueError:  # a windowed-layout snapshot
+            try:
+                legacy = checkpoint.load_state(checkpoint_path, self._checkpoint_like(cfg, stream.device))
+            except ValueError:
+                return 0, None, None  # a bare summary: no position
+            if bool(legacy["global_done"]) and bool(legacy["has_summary"]):
+                return 0, None, legacy["summary"]
+            return 0, None, None
+        if int(snap["batch"]) != batch:
+            raise ValueError(
+                f"wire checkpoint was written with batch_size "
+                f"{int(snap['batch'])}; resuming with {batch} would "
+                "misalign the stream position"
+            )
+        if bool(snap["done"]):
+            return 0, None, snap["summary"]
+        return int(snap["next_batch"]), (list(snap["stages"]), snap["summary"]), None
+
+    def _wire_records(self, stream, checkpoint_path: Optional[str] = None, restore: bool = True) -> Iterator[tuple]:
         """Fold every wire buffer into the running state on the device;
-        emit at ingest-window boundaries and at stream end."""
+        emit at ingest-window boundaries and at stream end.  With
+        ``checkpoint_path``, snapshot the carry and the batch position every
+        ``cfg.wire_checkpoint_batches`` full batches and at stream end; on
+        restore the source replays from the start and the folded batches
+        are skipped by position, unpacked.  State is exactly-once, the final
+        emission at-least-once."""
         cfg = stream.cfg
         dev = stream.device
         packed = stream._wire_packed
+        binned = compress = False
         if packed is not None:
+            # replayed buffers: the producer chose the encoding
             bufs, batch, width, tail_pair = packed
+            src = dst = None
             n_full = len(bufs)
             total_edges = n_full * batch + (len(tail_pair[0]) if tail_pair else 0)
         else:
             src, dst, batch = stream._wire_arrays
             batch = min(batch, max(len(src), 1))
-            width = self._wire_width(cfg, batch)
+            binned, compress = self._binned_modes(cfg)
+            if compress:
+                width = (wire.BDV, cfg.vertex_capacity)
+            else:
+                width = self._wire_width(cfg, batch)
+                if binned and isinstance(width, tuple):
+                    binned = False  # EF40 regroups each batch by src itself
             n_full = len(src) // batch
             tail_pair = (src[n_full * batch :], dst[n_full * batch :]) if len(src) > n_full * batch else None
             total_edges = len(src)
-        emit_every = max(0, self._wire_emit_every(cfg, batch))
-        groups = plan_superbatch_groups(
-            n_full, max(1, cfg.superbatch), [(emit_every, 0)] if emit_every else []
+        start_batch, carry_host, done_summary = self._wire_restore(
+            stream, checkpoint_path if restore else None, batch
         )
+        if done_summary is not None:
+            # the stream was folded whole before: re-emit, do not refold
+            yield _as_record(self.transform(done_summary))
+            return
+        every = cfg.wire_checkpoint_batches
+        emit_every = max(0, self._wire_emit_every(cfg, batch))
+        # groups never cross an emission or a snapshot boundary, so the
+        # records and the snapshots are the per-batch path's
+        boundaries = []
+        if emit_every:
+            boundaries.append((emit_every, start_batch))
+        if checkpoint_path and every:
+            boundaries.append((every, 0))
+        groups = plan_superbatch_groups(n_full - start_batch, max(1, cfg.superbatch), boundaries)
         offsets = []
         o = 0
         for g in groups:
             offsets.append((o, g))
             o += g
+        workers = ingest.resolve_workers(cfg.ingest_workers)
 
-        def prep(item):
-            """(group size, (uint8 buffer,)): one batch's buffer, or a group's
-            buffers stacked into one [g, nbytes] arena (variable-size BDV
-            buffers pad to the group's widest; trailing zeros are never
-            decoded)."""
-            o, g = item
-            if packed is not None:
-                rows = bufs[o : o + g]
-            else:
-                rows = [
-                    wire.pack_edges(src[i * batch : (i + 1) * batch], dst[i * batch : (i + 1) * batch], width)
-                    for i in range(o, o + g)
-                ]
-            if g == 1:
-                return 1, (rows[0],)
+        def batch_of(i: int):
+            return src[i * batch : (i + 1) * batch], dst[i * batch : (i + 1) * batch]
+
+        def stack(rows):
+            """One [g, widest] arena (variable-size BDV buffers pad to the
+            group's widest; trailing zeros decode as dropped empty varint
+            groups)."""
             widest = max(r.nbytes for r in rows)
-            arena = np.zeros((g, widest), np.uint8)
+            arena = np.zeros((len(rows), widest), np.uint8)
             for j, r in enumerate(rows):
                 arena[j, : r.nbytes] = r
-            return g, (arena,)
+            return arena
 
-        state = self.initial_state(cfg, dev)
+        def prep(item):
+            """(group size, (uint8 buffer,)): one batch's buffer, or a
+            group's rows as one [g, nbytes] arena, on the pack thread."""
+            o, g = item
+            i0 = start_batch + o
+            if packed is not None:
+                buf = bufs[i0] if g == 1 else stack(bufs[i0 : i0 + g])
+            elif compress:
+                if g == 1:
+                    buf = wire.pack_edges_bdv(*batch_of(i0), cfg.vertex_capacity, record_stats=True)
+                else:
+                    buf = ingest.pack_bdv_group(src, dst, i0, g, batch, cfg.vertex_capacity, workers)
+            elif g == 1:
+                s_b, d_b = batch_of(i0)
+                if binned:
+                    s_b, d_b = wire.sort_edges_binned(s_b, d_b, cfg.vertex_capacity, record_stats=True)
+                buf = wire.pack_edges(s_b, d_b, width)
+            else:
+                # packed straight into the transfer arena, across the pool
+                buf = np.empty((g, wire.wire_nbytes(batch, width)), np.uint8)
+                if binned:
+                    ingest.pack_binned_rows_into(src, dst, i0, g, batch, width, cfg.vertex_capacity, buf, workers)
+                else:
+                    ingest.pack_rows_into(src, dst, i0, g, batch, width, buf, workers)
+            metrics.wire_record_batch(g, g * batch, buf.nbytes)
+            return g, (buf,)
+
+        if carry_host is not None:
+            stage_states, state = carry_host
+        else:
+            stage_states, state = stream._init_stage_states(), self.initial_state(cfg, dev)
         # the stream's stages run on each unpacked batch before the fold
-        stage_states = stream._init_stage_states()
         ones = torch.ones((batch,), dtype=torch.bool, device=dev) if stream._stages else None
 
         def fold(state, s, d, m):
@@ -249,52 +499,130 @@ class SummaryAggregation:
             b = stream._apply_stages(stage_states, EdgeBatch(src=s, dst=d, mask=ones if m is None else m))
             return self.update(state, b.src, b.dst, b.val, b.mask)
 
+        writer = _SnapshotWriter(checkpoint_path, batch, dev) if checkpoint_path else None
         pending_final = True
-        pos = 0
-        with Prefetcher(offsets, prep, dev, depth=cfg.prefetch_depth) as pf:
-            for g, (buf,) in pf:
-                for row in [buf] if g == 1 else buf.unbind(0):
-                    s, d = wire.unpack_edges(row, batch, width)
-                    state = fold(state, s, d, None)
-                pos += g
-                if emit_every and pos % emit_every == 0:
-                    # the running state IS the merged summary; clone it,
-                    # because the next fold updates it in place
-                    yield _as_record(self.transform(clone_state(state)))
-                    pending_final = pos != n_full or tail_pair is not None
-        if tail_pair is not None:
-            rem = len(tail_pair[0])
-            pad_s = np.zeros((batch,), np.int32)
-            pad_d = np.zeros((batch,), np.int32)
-            mask = np.zeros((batch,), bool)
-            pad_s[:rem] = tail_pair[0]
-            pad_d[:rem] = tail_pair[1]
-            mask[:rem] = True
-            s, d, m = upload((pad_s, pad_d, mask), dev)
-            state = fold(state, s, d, m)
-        if total_edges and pending_final:
-            yield _as_record(self.transform(state))
+        pos = start_batch
+        since_snap = 0
+        try:
+            with Prefetcher(offsets, prep, dev, depth=cfg.prefetch_depth) as pf:
+                for g, (buf,) in pf:
+                    for row in [buf] if g == 1 else buf.unbind(0):
+                        s, d = wire.unpack_edges(row, batch, width)
+                        state = fold(state, s, d, None)
+                    pos += g
+                    if emit_every and pos % emit_every == 0:
+                        # the running state IS the merged summary; clone it,
+                        # because the next fold updates it in place
+                        yield _as_record(self.transform(clone_state(state)))
+                        pending_final = pos != n_full or tail_pair is not None
+                    since_snap += g
+                    if writer is not None and every and since_snap >= every:
+                        # cloned on the compute stream before the next fold
+                        writer.put(pos, False, (tuple(stage_states), state))
+                        since_snap = 0
+            if tail_pair is not None:
+                rem = len(tail_pair[0])
+                pad_s = np.zeros((batch,), np.int32)
+                pad_d = np.zeros((batch,), np.int32)
+                mask = np.zeros((batch,), bool)
+                pad_s[:rem] = tail_pair[0]
+                pad_d[:rem] = tail_pair[1]
+                mask[:rem] = True
+                s, d, m = upload((pad_s, pad_d, mask), dev)
+                state = fold(state, s, d, m)
+            if total_edges == 0:
+                return
+            if pending_final:
+                # emitted BEFORE the final snapshot: a crash between the two
+                # re-emits on recovery instead of dropping the record
+                yield _as_record(self.transform(clone_state(state) if writer is not None else state))
+            if writer is not None:
+                writer.put(n_full, True, (tuple(stage_states), state))
+        except BaseException:
+            # GeneratorExit from a consumer that stops early included: shut
+            # the writer down without masking the exception in flight
+            if writer is not None:
+                writer.finish(raise_err=False)
+            raise
+        if writer is not None:
+            writer.finish()
 
     # -- the windowed paths ----------------------------------------------------
 
-    def _merge_loop(self, cfg: StreamConfig, panes: Iterator, fold_pane, unwrap: bool = False,
-                    release=None) -> Iterator[tuple]:
-        """The Merger (SummaryAggregation.java:93-119): fold each pane, merge
-        it into the running summary, emit one record a window.  With
+    def _checkpoint_like(self, cfg: StreamConfig, device: torch.device):
+        """The windowed planes' snapshot layout: the summary, whether there
+        is one, and the stream position (the last folded window id;
+        ``global_done`` marks the untimed global pane, id -1, as folded)."""
+        return {
+            "summary": self.initial_state(cfg, device),
+            "has_summary": np.zeros((), bool),
+            "last_window": np.full((), -1, np.int64),
+            "global_done": np.zeros((), bool),
+        }
+
+    def _windowed_snapshot(self, cfg: StreamConfig, device: torch.device, checkpoint_path, restore: bool):
+        """The windowed snapshot to restore: the loaded dict, "legacy" for
+        a snapshot of another layout, or None when there is none to read."""
+        if not (checkpoint_path and restore and checkpoint.checkpoint_exists(checkpoint_path)):
+            return None
+        try:
+            return checkpoint.load_state(checkpoint_path, self._checkpoint_like(cfg, device))
+        except ValueError:
+            return "legacy"
+
+    def _restore_merge(self, cfg: StreamConfig, device: torch.device, checkpoint_path, restore: bool):
+        """(running summary | None, last folded window id, global pane
+        done) from a windowed snapshot; (None, -1, False) with none.  A
+        legacy bare-summary snapshot restores its summary with no
+        position."""
+        snap = self._windowed_snapshot(cfg, device, checkpoint_path, restore)
+        if snap is None:
+            return None, -1, False
+        if isinstance(snap, str):  # "legacy"
+            return checkpoint.load_state(checkpoint_path, self.initial_state(cfg, device)), -1, False
+        running = snap["summary"] if bool(snap["has_summary"]) else None
+        return running, int(snap["last_window"]), bool(snap["global_done"])
+
+    def _save_merge(self, checkpoint_path: str, summary, last_window: int, global_done: bool) -> None:
+        """One windowed snapshot (transient summaries reset after each
+        emission, so they restore with no running summary)."""
+        t0 = time.perf_counter()
+        checkpoint.save_state(checkpoint_path, {
+            "summary": summary,
+            "has_summary": np.full((), not self.transient_state, bool),
+            "last_window": np.full((), last_window, np.int64),
+            "global_done": np.full((), global_done, bool),
+        })
+        metrics.checkpoint_record(0.0, time.perf_counter() - t0)
+
+    def _merge_loop(self, cfg: StreamConfig, device: torch.device, panes: Iterator, fold_pane,
+                    checkpoint_path: Optional[str] = None, restore: bool = True, unwrap: bool = False,
+                    release=None, restored: Optional[tuple] = None) -> Iterator[tuple]:
+        """The Merger (SummaryAggregation.java:93-135): fold each pane, merge
+        it into the running summary, emit one record a window, then snapshot
+        the summary and the position when ``checkpoint_path`` is set.  A
+        restored position skips the panes folded before the snapshot;
+        ``restored`` is ``_restore_merge``'s result when the caller already
+        loaded it (to skip panes before packing them).  With
         ``unwrap`` the iterator yields ``(pane, payload)`` pairs and
         ``fold_pane`` gets the payload.  With an async depth (``cfg.
         async_windows`` or ``GELLY_ASYNC_WINDOWS``) it runs as
         ``async_exec.async_merge_loop``, whose drain calls ``release(payload)``
         once the window's fold is complete."""
+        if restored is None:
+            restored = self._restore_merge(cfg, device, checkpoint_path, restore)
         depth = async_exec.resolve_depth(cfg)
         if depth > 0:
             yield from async_exec.async_merge_loop(
-                self, panes, fold_pane, clone_state, unwrap=unwrap, depth=depth, release=release
+                self, cfg, device, panes, fold_pane, clone_state, checkpoint_path, restored, unwrap=unwrap,
+                depth=depth, release=release,
             )
             return
-        running = None
+        running, start_after, global_done = restored
         for item in panes:
-            _pane, payload = item if unwrap else (item, item)
+            pane, payload = item if unwrap else (item, item)
+            if (0 <= pane.window_id <= start_after) or (pane.window_id == -1 and global_done):
+                continue  # folded before the snapshot
             pane_summary = fold_pane(payload)
             if pane_summary is None:
                 continue
@@ -302,20 +630,30 @@ class SummaryAggregation:
                 running = pane_summary
             else:
                 running = self.combine(running, pane_summary)
+            # emitted BEFORE the snapshot: a crash between the two re-emits
+            # this window on recovery instead of dropping it
             yield _as_record(self.transform(running if self.transient_state else clone_state(running)))
+            start_after = max(pane.window_id, start_after)
+            global_done = global_done or pane.window_id == -1
+            if checkpoint_path:
+                self._save_merge(checkpoint_path, running, start_after, global_done)
             if self.transient_state:
                 running = None
 
-    def _async_pane_records(self, stream, window_ms: int) -> Iterator[tuple]:
+    def _async_pane_records(self, stream, window_ms: int, checkpoint_path: Optional[str] = None,
+                            restore: bool = True) -> Iterator[tuple]:
         """The single-partition windowed plane on the async pipeline: each
         pane padded to its pow2 bucket on the prefetcher's pack thread, into
         arenas from an ``ArenaPool`` (pinned on CUDA, so the upload makes no
         second host copy), uploaded on its transfer thread, folded here
         without waiting (``update`` on a fresh initial state, with the
-        padding masked), and recycled at drain once its fold is complete."""
+        padding masked), and recycled at drain once its fold is complete.  Panes a restored
+        snapshot already folded are skipped before padding."""
         cfg = stream.cfg
         dev = stream.device
         depth = async_exec.resolve_depth(cfg)
+        restored = self._restore_merge(cfg, dev, checkpoint_path, restore)
+        _running, skip_through, skip_global = restored
         # the retention cap covers the pipeline's own in-flight bound (three
         # arenas a pane across the prefetch and completion queues), so the
         # steady state recycles instead of allocating
@@ -323,8 +661,10 @@ class SummaryAggregation:
 
         def prepare(pane: WindowPane):
             n = pane.num_edges
-            if n == 0:
+            if n == 0 or (0 <= pane.window_id <= skip_through) or (pane.window_id == -1 and skip_global):
                 return (pane, None, None), None
+            # binning rides this pack thread too (order-free folds only)
+            pane = self._maybe_bin_pane(cfg, pane)
             padded = pow2(n)
             arenas = tuple(pool.acquire((padded,), dt) for dt in (torch.int32, torch.int32, torch.bool))
             pad_pane_edges(pane, out=tuple(a.numpy() for a in arenas))
@@ -346,19 +686,22 @@ class SummaryAggregation:
 
         with Prefetcher(stream_panes(stream, window_ms), prepare, dev, depth=depth + 1, count_stalls=True) as pf:
             yield from self._merge_loop(
-                cfg, ((meta[0], (meta, arrays)) for meta, arrays in pf), fold_prepared, unwrap=True, release=release
+                cfg, dev, ((meta[0], (meta, arrays)) for meta, arrays in pf), fold_prepared, checkpoint_path,
+                restore, unwrap=True, release=release, restored=restored,
             )
 
     def _assemble_superpane_rows(self, panes):
         """Host assembly of a pane group's [rows, E_pad] fold layout:
         numpy ``(src_k, dst_k, val_k | None, mask_k)``, one row a pane, rows
         and E_pad padded to powers of two (the JAX package's shape buckets),
-        the padding masked."""
+        the padding masked.  The rows fill in place across the ingest pool
+        (``io/ingest.fill_pane_rows_into``)."""
         rows = pow2(len(panes))
         e_pad = pow2(max(p.num_edges for p in panes))
-        src_k = stack_rows([p.src for p in panes], rows, e_pad, np.int32)
-        dst_k = stack_rows([p.dst for p in panes], rows, e_pad, np.int32)
-        mask_k = row_mask([p.num_edges for p in panes], rows, e_pad)
+        src_k = np.zeros((rows, e_pad), np.int32)
+        dst_k = np.zeros((rows, e_pad), np.int32)
+        mask_k = np.zeros((rows, e_pad), bool)
+        ingest.fill_pane_rows_into(panes, src_k, dst_k, mask_k)
         val_k = None
         if any(p.val is not None for p in panes):
             proto = next(p.val for p in panes if p.val is not None)
@@ -384,16 +727,23 @@ class SummaryAggregation:
         ]
         return zip(panes, partials)
 
-    def _superpane_folds(self, stream, window_ms: int):
+    def _superpane_folds(self, stream, window_ms: int, skip_through: int = -1, skip_global: bool = False):
         """(pane, partial summary) pairs with up to ``cfg.superbatch``
         consecutive non-empty panes uploaded and folded together.  Each
         partial equals the per-pane fold: the update sees that window's
-        edges in arrival order, the padding masked.  With an async depth the
-        row assembly and upload run on the prefetcher's threads and the
-        folds are enqueued here without waiting."""
+        edges in arrival order (binned when binned ingest resolves on), the
+        padding masked.  With an async depth the row assembly and upload run
+        on the prefetcher's threads and the folds are enqueued here without
+        waiting.  ``skip_through`` / ``skip_global``: panes a restored
+        snapshot already folded, dropped here before any packing."""
         cfg = stream.cfg
         dev = stream.device
-        groups = group_panes(stream_panes(stream, window_ms), cfg.superbatch)
+        live = (
+            self._maybe_bin_pane(cfg, p)
+            for p in stream_panes(stream, window_ms)
+            if not ((0 <= p.window_id <= skip_through) or (p.window_id == -1 and skip_global))
+        )
+        groups = group_panes(live, cfg.superbatch)
         depth = async_exec.resolve_depth(cfg)
         if depth > 0:
 
@@ -410,15 +760,24 @@ class SummaryAggregation:
             arrays = upload((src_k, dst_k, mask_k, *tree_leaves(val_k)), dev)
             yield from self._fold_rows(cfg, dev, panes, val_k, arrays)
 
-    def run(self, stream, checkpoint_path: Optional[str] = None) -> OutputStream:
+    def run(self, stream, checkpoint_path: Optional[str] = None, restore: bool = True) -> OutputStream:
         """Execute over an EdgeStream (GraphStream.aggregate): the wire path
         for array-backed and replayed streams folded by one partition, else
-        the windowed planes (superbatch, async, or synchronous)."""
+        the windowed planes (superbatch, async, or synchronous).
+
+        With ``checkpoint_path`` the running summary and the stream position
+        are snapshot as the stream folds and restored on start (``restore``
+        False starts fresh), on every plane; the source may replay from the
+        beginning.  State is exactly-once, emissions after the last snapshot
+        are re-emitted (at-least-once)."""
         cfg = stream.cfg
-        if checkpoint_path:
-            raise NotImplementedError(f"aggregation checkpoints are {_ROADMAP}")
-        if cfg.binned_ingest == 1 or cfg.wire_compress == 1:
-            raise NotImplementedError(f"binned_ingest / wire_compress are {_ROADMAP}")
+        if checkpoint_path and cfg.ingest_window_ms:
+            raise ValueError(
+                "wall-clock ingestion panes (ingest_window_ms) are not "
+                "replay-deterministic: a resume would skip panes by id that "
+                "cover different edges than the crashed run's; use "
+                "ingest_window_edges for checkpointed runs"
+            )
         packed = stream._wire_packed
         if packed is not None and isinstance(packed[2], tuple) and not self.order_free:
             raise ValueError(
@@ -426,20 +785,27 @@ class SummaryAggregation:
                 "this aggregation is not order-free"
             )
         if self._wire_eligible(stream):
-            return OutputStream(lambda: self._wire_records(stream))
+            return OutputStream(lambda: self._wire_records(stream, checkpoint_path, restore))
         n_parts = self._num_partitions(cfg)
         window_ms = self.window_ms or cfg.window_ms
         dev = stream.device
         if cfg.superbatch > 1 and n_parts == 1:
-            return OutputStream(
-                lambda: self._merge_loop(
-                    cfg, self._superpane_folds(stream, window_ms), lambda partial: partial, unwrap=True
+
+            def records_sb() -> Iterator[tuple]:
+                restored = self._restore_merge(cfg, dev, checkpoint_path, restore)
+                return self._merge_loop(
+                    cfg, dev, self._superpane_folds(stream, window_ms, *restored[1:]),
+                    lambda partial: partial, checkpoint_path, restore, unwrap=True, restored=restored,
                 )
-            )
+
+            return OutputStream(records_sb)
         if async_exec.resolve_depth(cfg) > 0 and n_parts == 1:
-            return OutputStream(lambda: self._async_pane_records(stream, window_ms))
+            return OutputStream(lambda: self._async_pane_records(stream, window_ms, checkpoint_path, restore))
 
         def fold_pane(pane: WindowPane):
+            # destination-bin the pane first (order-free folds only): the
+            # round-robin strided slices of a sorted pane stay sorted
+            pane = self._maybe_bin_pane(cfg, pane)
             partials = []
             for part in range(n_parts):
                 # round-robin partitions stand in for the reference's
@@ -456,7 +822,9 @@ class SummaryAggregation:
                 return None
             return self._combine_partials(partials, cfg)
 
-        return OutputStream(lambda: self._merge_loop(cfg, stream_panes(stream, window_ms), fold_pane))
+        return OutputStream(
+            lambda: self._merge_loop(cfg, dev, stream_panes(stream, window_ms), fold_pane, checkpoint_path, restore)
+        )
 
 
 class SummaryBulkAggregation(SummaryAggregation):

@@ -26,8 +26,11 @@ loop.  The counters land in ``utils/metrics.pipeline_stats``.  The port's
 states are tensors that some folds update in place: each record is a clone
 of the running state taken when it is dispatched (enqueued on the same
 stream before any later combine), so it keeps its own window's values
-while it waits in the queue.  Checkpoints are not ported (ROADMAP), so
-``async_merge_loop`` carries none.
+while it waits in the queue.  With a checkpoint path ``async_merge_loop``
+restores the running summary and the position as the synchronous loop
+does, and writes each window's snapshot right after its record is
+consumed, from a second clone whose download starts when the window is
+dispatched.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ from typing import Callable, Iterable, Iterator, NamedTuple, Optional
 
 import torch
 
-from gelly_streaming_tpu_torch.core.types import tree_leaves, tree_map
-from gelly_streaming_tpu_torch.utils import metrics
+from gelly_streaming_tpu_torch.core.types import tree_leaves
+from gelly_streaming_tpu_torch.utils import checkpoint, metrics
 
 
 def resolve_depth(cfg) -> int:
@@ -82,9 +85,9 @@ def _cuda_device(tree):
 
 def start_host_fetch(tree) -> HostFetch:
     """Start the device-to-host copy of every CUDA tensor leaf of ``tree``
-    (a tensor, or tuples, lists and dicts of them): a non-blocking copy into
-    a pinned host tensor on the current stream, then one event after them.
-    Leaves already on the host need no copy."""
+    (a tensor, or NamedTuples, tuples, lists and dicts of them): a
+    non-blocking copy into a pinned host tensor on the current stream, then
+    one event after them.  Leaves already on the host need no copy."""
     dev = _cuda_device(tree)
     if dev is None:
         return HostFetch(tree, None)
@@ -96,7 +99,7 @@ def start_host_fetch(tree) -> HostFetch:
         host.copy_(t, non_blocking=True)
         return host
 
-    host = tree_map(copy, tree)
+    host = checkpoint.tree_map_leaves(copy, tree)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
     return HostFetch(host, done)
@@ -238,38 +241,60 @@ def _as_record(out) -> tuple:
 
 def async_merge_loop(
     agg,
+    cfg,
+    device: torch.device,
     panes: Iterator,
     fold_pane: Callable,
     clone: Callable,
+    checkpoint_path: Optional[str] = None,
+    restored: tuple = (None, -1, False),
     unwrap: bool = False,
     depth: int = 2,
     release: Optional[Callable] = None,
 ) -> Iterator[tuple]:
     """The Merger with a non-blocking completion queue: the asynchronous
-    form of ``SummaryAggregation._merge_loop`` (same merge and emission
-    order).
+    form of ``SummaryAggregation._merge_loop`` (same restore, merge,
+    emission order and at-least-once semantics).
 
     Each window's fold and combine are enqueued without waiting, and its
     record (``transform`` of a ``clone`` of the running state, so that
     later in-place combines cannot reach it) enters the queue; records
     yield in window order once more than ``depth`` are queued.  With
-    ``unwrap`` the iterator yields ``(pane, payload)`` pairs and
-    ``fold_pane`` gets the payload.  ``release(payload)`` (optional)
-    recycles a window's transfer arenas at drain, after ``wait_ready`` on
-    the event recorded right after its fold (the fold output, not the
-    record, is the wait target: the record may be a host wrapper such as
-    CC's DisjointSet)."""
-    running = None
-    # (record, payload or None, the fold's ready handle or None) in window order
+    ``checkpoint_path`` a second clone of the running state starts its
+    download when the window is dispatched, and the window's snapshot is
+    saved right after its record is consumed: the synchronous loop's
+    emit-before-snapshot order, so a crash at any drain point leaves the
+    same snapshot and emission frontier.  ``restored``: the caller's
+    ``_restore_merge`` result (running summary | None, last folded window
+    id, global pane done); the panes folded before it are skipped.  With ``unwrap`` the iterator yields ``(pane,
+    payload)`` pairs and ``fold_pane`` gets the payload.
+    ``release(payload)`` (optional) recycles a window's transfer arenas at
+    drain, after ``wait_ready`` on the event recorded right after its fold
+    (the fold output, not the record, is the wait target: the record may be
+    a host wrapper such as CC's DisjointSet)."""
+    running, start_after, global_done = restored
+    # (window id, record, snapshot fetch or None, payload or None, the
+    # fold's ready handle or None) in window order
     pending: "collections.deque" = collections.deque()
+    drained_through, drained_global = start_after, global_done
 
     def drain_one():
-        rec, payload, ready = pending.popleft()
+        wid, rec, ck, payload, ready = pending.popleft()
         metrics.pipeline_add("pipeline_windows_drained", 1)
         if release is not None and payload is not None:
             wait_ready(ready)
             release(payload)
-        return rec
+        return wid, rec, ck
+
+    def save(wid, ck) -> None:
+        """The drained window's snapshot, after its record was consumed."""
+        nonlocal drained_through, drained_global
+        drained_through = max(wid, drained_through)
+        drained_global = drained_global or wid == -1
+        if ck is not None:
+            t0 = time.perf_counter()
+            agg._save_merge(checkpoint_path, wait_ready(ck), drained_through, drained_global)
+            metrics.pipeline_add("pipeline_drain_stall_s", time.perf_counter() - t0)
 
     panes_it = iter(panes)
     try:
@@ -280,7 +305,9 @@ def async_merge_loop(
             except StopIteration:
                 break
             metrics.pipeline_add("pipeline_dispatch_stall_s", time.perf_counter() - t_pull)
-            _pane, payload = item if unwrap else (item, item)
+            pane, payload = item if unwrap else (item, item)
+            if (0 <= pane.window_id <= start_after) or (pane.window_id == -1 and global_done):
+                continue  # folded before the snapshot
             pane_summary = fold_pane(payload)
             if pane_summary is None:
                 continue
@@ -290,13 +317,20 @@ def async_merge_loop(
             else:
                 running = agg.combine(running, pane_summary)
             rec = _as_record(agg.transform(running if agg.transient_state else clone(running)))
-            pending.append((rec, payload if release is not None else None, ready))
+            ck = None
+            if checkpoint_path:
+                ck = start_host_fetch(running if agg.transient_state else clone(running))
+            pending.append((pane.window_id, rec, ck, payload if release is not None else None, ready))
             metrics.pipeline_add("pipeline_windows_dispatched", 1)
             metrics.pipeline_high_water("pipeline_inflight_high_water", len(pending))
+            start_after = max(pane.window_id, start_after)
+            global_done = global_done or pane.window_id == -1
             if agg.transient_state:
                 running = None
             while len(pending) > depth:
-                yield drain_one()
+                wid, rec_d, ck_d = drain_one()
+                yield rec_d
+                save(wid, ck_d)
     except GeneratorExit:
         # the consumer closed (an abandoned run): resolve the queue through
         # the normal drain, which waits on each fold and recycles its
@@ -308,8 +342,11 @@ def async_merge_loop(
         # deliver the windows whose folds were already dispatched (the
         # synchronous loop emitted them before reaching the failure)
         while pending:
-            yield drain_one()
+            wid, rec_d, ck_d = drain_one()
+            yield rec_d
+            save(wid, ck_d)
         raise
     while pending:
-        yield drain_one()
-
+        wid, rec_d, ck_d = drain_one()
+        yield rec_d
+        save(wid, ck_d)

@@ -36,6 +36,10 @@ class StreamConfig:
         "ef40" the sorted Elias-Fano multiset (order-free folds, capacity
         <= 2^20), "auto" picks ef40 when it is legal, smaller, and the
         host has at least two cores to sort on.
+      wire_checkpoint_batches: full batches between positional snapshots
+        on the wire path (0 = a snapshot at stream end only).  Each
+        snapshot copies the fold state off the card, so the interval trades
+        recovery granularity against ingest rate.
       out_of_orderness_ms: bounded event-time out-of-orderness.  0 keeps
         the ascending-timestamp contract; positive values trail the
         watermark behind the max seen time by the bound and route
@@ -45,15 +49,18 @@ class StreamConfig:
         (close a pane every N arrivals, or by wall clock at batch
         boundaries).  When set, event timestamps are ignored.
       superbatch: wire buffers (or panes) coalesced per transfer.  0/1 =
-        off.  The wire path folds a group's rows one after another; the
-        windowed planes do not implement > 1 yet.
+        off.  The wire path folds a group's rows one after another, the
+        windowed plane one row a pane.
+      ingest_workers: host threads that parse files and pack superbatch
+        groups (io/ingest.py).  0 = the GELLY_INGEST_WORKERS env var when
+        set, else the process's usable cores; 1 = one thread.
       async_windows: closed windows kept in flight by the asynchronous
         window pipeline.  0 = synchronous; the port's window_triangles
         does not implement > 0 yet.
-      binned_ingest / wire_compress: the JAX package's destination-binned
-        and BDV-compressed ingest of array-backed streams; 1 forces on, 0
-        off, -1 (default) is off here (the port has no env switch).  Not
-        ported: forcing either on raises NotImplementedError at aggregate().
+      binned_ingest / wire_compress: destination-binned and BDV-compressed
+        ingest of array-backed streams and closed panes (order-free folds
+        only); 1 forces on, 0 off, -1 (default) defers to the
+        GELLY_BINNED_INGEST / GELLY_WIRE_COMPRESS env vars (default off).
       spmv_direction: push/pull direction of the masked-SpMV fixpoints
         (ops/spmv.py: sssp, pagerank): "push"/"pull" force one lowering for
         every iteration; "auto" switches on frontier density; "" (default)
@@ -72,10 +79,12 @@ class StreamConfig:
     tree_degree: int = 2
     prefetch_depth: int = 8
     wire_encoding: str = "auto"
+    wire_checkpoint_batches: int = 64
     out_of_orderness_ms: int = 0
     ingest_window_edges: int = 0
     ingest_window_ms: int = 0
     superbatch: int = 0
+    ingest_workers: int = 0
     async_windows: int = 0
     binned_ingest: int = -1
     wire_compress: int = -1
@@ -100,8 +109,12 @@ class StreamConfig:
             raise ValueError(
                 "set only one of ingest_window_edges / ingest_window_ms"
             )
+        if self.wire_checkpoint_batches < 0:
+            raise ValueError("wire_checkpoint_batches must be >= 0")
         if self.superbatch < 0:
             raise ValueError("superbatch must be >= 0")
+        if self.ingest_workers < 0:
+            raise ValueError("ingest_workers must be >= 0")
         if self.async_windows < 0:
             raise ValueError("async_windows must be >= 0")
         if self.binned_ingest not in (-1, 0, 1):

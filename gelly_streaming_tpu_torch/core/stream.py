@@ -888,9 +888,15 @@ class EdgeStream:
 
         return SnapshotStream(self, window_ms or self.cfg.window_ms, direction, slide_ms)
 
-    def aggregate(self, summary_aggregation, checkpoint_path: Optional[str] = None):
+    def aggregate(self, summary_aggregation, checkpoint_path: Optional[str] = None, restore: bool = True):
         """Run a summary aggregation over this stream
-        (core/aggregation.SummaryAggregation.run); returns its
-        OutputStream.  Checkpoints are not ported yet: a
-        ``checkpoint_path`` raises NotImplementedError."""
-        return summary_aggregation.run(self, checkpoint_path=checkpoint_path)
+        (GraphStream.java:139-140 -> core/aggregation.SummaryAggregation.run);
+        returns its OutputStream.
+
+        With ``checkpoint_path`` the running summary and the stream position
+        are snapshot as the stream folds and restored on start (``restore``
+        False starts afresh), on every plane the port runs, the wire path
+        included (an ``.npz`` whose leaves are the JAX package's at the same
+        position); ``utils/recovery.run_supervised`` rebuilds a crashed
+        pipeline from it."""
+        return summary_aggregation.run(self, checkpoint_path=checkpoint_path, restore=restore)

@@ -12,7 +12,9 @@ spanner's, the matching's and the samplers' states through
 ``spanner_state_from_numpy``, ``matching_state_from_numpy`` and
 ``sampler_state_from_numpy``, the samplers' key as the uint32 key data of
 ``jax.random.key_data``; the three sketch states through
-``sketch_state_from_numpy``).  Packed
+``sketch_state_from_numpy``; a whole snapshot written by the JAX
+package's ``utils/checkpoint.save_state`` through ``snapshot_from_jax``).
+Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.  ``config_from_dict`` carries every
 field the port's config has, among them the SpMV core's direction knobs
@@ -288,3 +290,33 @@ def sketch_state_from_numpy(arrays: Mapping, device: DeviceLike = None):
     if fields == set(CountMinState._fields):
         return CountMinState(grid=put(_int32_vector(arrays["grid"], "grid")))
     raise ValueError(f"no sketch state has the fields {sorted(fields)}")
+
+
+def snapshot_from_jax(path: str, like):
+    """A snapshot the JAX package wrote (``utils/checkpoint.save_state``'s
+    ``.npz``: ``leaf_i`` arrays in its leaf order) as the port's state of
+    ``like``'s structure, so that a stream checkpointed there resumes here
+    (pass the result's file to ``aggregate(..., checkpoint_path=...)``
+    after ``utils.checkpoint.save_state``, or use the state directly).
+
+    The port flattens in the JAX package's leaf order (NamedTuple fields and
+    tuples in order, dict keys sorted), so leaf i maps onto ``like``'s leaf
+    i; the count, shapes and dtypes must agree (``ValueError`` otherwise).
+    The JAX structure text (``__treedef__``) is not read.  Tensor leaves
+    land on the device and dtype of ``like``'s, numpy leaves stay numpy."""
+    from gelly_streaming_tpu_torch.utils import checkpoint
+
+    like_leaves, _ = checkpoint.flatten(like)
+    with np.load(checkpoint._normalize(path)) as data:
+        names = [k for k in data.files if k.startswith("leaf_")]
+        if len(names) != len(like_leaves):
+            raise ValueError(f"the snapshot holds {len(names)} leaves, the state {len(like_leaves)}")
+        stored = [data[f"leaf_{i}"] for i in range(len(like_leaves))]
+    for i, (a, l) in enumerate(zip(stored, like_leaves)):
+        want_shape = list(l.shape) if isinstance(l, torch.Tensor) else list(np.shape(l))
+        if list(a.shape) != want_shape or str(a.dtype) != checkpoint.dtype_name(l):
+            raise ValueError(
+                f"leaf {i}: the snapshot holds {a.dtype}{list(a.shape)}, the state "
+                f"{checkpoint.dtype_name(l)}{want_shape}"
+            )
+    return checkpoint.unflatten_like(like, checkpoint.restore_leaves(stored, like_leaves))

@@ -1,13 +1,17 @@
 """Edge sources: edge-list files, batched host arrays and generated streams.
 
 Port of the parts of ``gelly_streaming_tpu/io/sources.py`` the ported
-slices use.  ``parse_edge_file`` is the pure-numpy parser (the JAX
-package's fallback when its C++ ingest parser is not built); it returns
-the same arrays.  The C++ parser and the network source are not ported.
+slices use.  ``parse_edge_file`` takes the native parser of the port's
+host library (``utils/native.py``) when it loads, across the ingest pool
+(io/ingest.py) when asked for more than one worker, else the numpy
+fallback; all three return the same arrays.  ``file_stream`` parses across
+the pool by default, as the JAX package's does.  The network source is not
+ported.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -17,49 +21,60 @@ from gelly_streaming_tpu_torch.core.stream import EdgeStream
 from gelly_streaming_tpu_torch.core.types import EdgeBatch
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io.interning import IdentityInterner, VertexInterner
+from gelly_streaming_tpu_torch.utils import native
 
 
-def parse_edge_file(path: str):
+def parse_edge_file(path: str, workers: int = 1):
     """Parse an edge-list file into host arrays.
 
     Returns (src i64, dst i64, val f64 | None, time i64 | None, sign i32 |
     None).  Format per line: ``src dst [value|+|-] [timestamp]`` with
     space/tab/comma separators and #/% comments.
+
+    ``workers`` > 1 (or 0 = auto: GELLY_INGEST_WORKERS, else the usable
+    cores) shards the file into byte ranges parsed concurrently by the
+    ingest pool (io/ingest.py); the arrays are the same.  One worker takes
+    the native parser when the library loads, else the numpy fallback.
     """
-    src, dst, val, tim, sign = [], [], [], [], []
-    ncols = 2
-    has_sign = False
+    from gelly_streaming_tpu_torch.io import ingest
+
+    if workers != 1:
+        return ingest.parse_edge_file_parallel(path, workers)
+    lib = native.load_ingest_lib()
+    if lib is not None:
+        n = lib.count_rows(path.encode())
+        if n < 0:
+            raise FileNotFoundError(path)
+        src = np.empty(n, np.int64)
+        dst = np.empty(n, np.int64)
+        val = np.empty(n, np.float64)
+        tim = np.empty(n, np.int64)
+        sign = np.empty(n, np.int32)
+        ncols = np.zeros(1, np.int32)
+        rows = lib.fill_edges(path.encode(), src.ctypes.data, dst.ctypes.data, val.ctypes.data, tim.ctypes.data,
+                              sign.ctypes.data, n, ncols.ctypes.data)
+        if rows < 0:
+            raise IOError(f"failed to parse {path}")
+        nc = int(ncols[0])
+        has_sign = bool(nc & 0x100)
+        nc &= 0xFF
+        return (
+            src[:rows],
+            dst[:rows],
+            val[:rows] if (nc >= 3 and not has_sign) else None,
+            tim[:rows] if nc >= 4 else None,
+            sign[:rows] if has_sign else None,
+        )
+    parts = []
     with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line or line[0] in "#%":
-                continue
-            parts = line.replace(",", " ").replace("\t", " ").split()
-            if len(parts) < 2:
-                continue
-            src.append(int(parts[0]))
-            dst.append(int(parts[1]))
-            v, t, sg = 0.0, 0, 1
-            if len(parts) > 2:
-                if parts[2] in ("+", "-"):
-                    sg = -1 if parts[2] == "-" else 1
-                    has_sign = True
-                else:
-                    v = float(parts[2])
-                ncols = max(ncols, 3)
-            if len(parts) > 3:
-                t = int(float(parts[3]))
-                ncols = 4
-            val.append(v)
-            tim.append(t)
-            sign.append(sg)
-    return (
-        np.array(src, np.int64),
-        np.array(dst, np.int64),
-        np.array(val, np.float64) if (ncols >= 3 and not has_sign) else None,
-        np.array(tim, np.int64) if ncols >= 4 else None,
-        np.array(sign, np.int32) if has_sign else None,
-    )
+        while True:
+            chunk = list(itertools.islice(f, ingest.FALLBACK_CHUNK_LINES))
+            if not chunk:
+                break
+            parts.append(ingest._parse_chunk_lines(chunk))
+    if not parts:
+        parts = [ingest._parse_chunk_lines([])]
+    return ingest._merge_parsed(parts)
 
 
 def _batched(
@@ -97,7 +112,7 @@ def file_stream(
     any id falls outside [0, capacity), in which case a VertexInterner is
     built.  Value-less untimed files become array-backed streams (the
     aggregation wire path); the rest batch sources."""
-    src, dst, val, tim, sign = parse_edge_file(path)
+    src, dst, val, tim, sign = parse_edge_file(path, workers=cfg.ingest_workers)
     if interner is None:
         if len(src) and (
             min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= cfg.vertex_capacity

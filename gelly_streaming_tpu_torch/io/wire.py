@@ -1,10 +1,16 @@
 """Compact host->device wire format: packers on the host, unpack on the card.
 
-Port of the parts of ``gelly_streaming_tpu/io/wire.py`` that the streaming
-CC path uses.  The packers are the JAX package's numpy fallbacks (its
-native C++ packers are not ported), so a buffer packed here is the same
-bytes; the device unpack (``unpack_edges``) is PyTorch ops on the buffer's
-device, standing in for the JAX package's jitted unpack.
+Port of the parts of ``gelly_streaming_tpu/io/wire.py`` that the
+aggregation wire path uses.  The packers and the (dst, src) sorter call
+the port's native host library (``utils/native.py``, built from
+``csrc/edge_parser.cpp``) when it loads, else the JAX package's numpy
+fallbacks: the same bytes either way.  The device unpack (``unpack_edges``)
+is PyTorch ops on the buffer's device, and for BDV the ``bdv_decode``
+kernel (``ops/wire_decode.py``) on a CUDA buffer.  ``resolve_binned_ingest``
+and ``resolve_wire_compress`` resolve the binned and compressed ingest
+switches (config, then env); ``decode_wire_into`` is the native one-pass
+validate + decode (+ bin) of a wire buffer into caller-owned arrays, with
+``decode_wire_np`` its numpy twin.
 
 Encodings (``width``):
 
@@ -26,12 +32,43 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.utils import metrics, native
+from gelly_streaming_tpu_torch.utils.envswitch import resolve_switch
+
 PAIR40 = "pair40"  # 5-byte (src, dst) pair packing for capacities <= 2^20
 EF40 = "ef40"  # sorted Elias-Fano multiset packing (order-free folds only)
 BDV = "bdv"  # destination-binned delta/varint packing (order-free folds only)
 
 # BDV ids (and zigzag values) are bounded so every varint fits 4 bytes
 BDV_MAX_ID_BITS = 28
+# the native sorter covers the whole BDV id range; numpy lexsort is the
+# no-library fallback only
+_BDV_NATIVE_SORT_CAP = 1 << 28
+
+
+def resolve_binned_ingest(cfg) -> bool:
+    """Effective destination-binning switch: config > env > off.
+
+    ``cfg.binned_ingest``: 1 forces on, 0 forces off, -1 defers to
+    ``GELLY_BINNED_INGEST`` (default off).  A resolved ``wire_compress``
+    turns binning on too (delta encoding needs the sorted bins), but an
+    explicit ``binned_ingest=0`` pins the arrival-order path even against
+    an ambient ``GELLY_WIRE_COMPRESS=1``."""
+    if getattr(cfg, "binned_ingest", -1) == 0:
+        return False
+    if resolve_wire_compress(cfg):
+        return True
+    return resolve_switch(getattr(cfg, "binned_ingest", -1), "GELLY_BINNED_INGEST")
+
+
+def resolve_wire_compress(cfg) -> bool:
+    """Effective wire-compression switch: config > env > off.
+    ``cfg.wire_compress``: 1 on, 0 off, -1 defers to ``GELLY_WIRE_COMPRESS``.
+    An explicit ``binned_ingest=0`` pins the arrival-order path, so ambient
+    env compression cannot ride it."""
+    if getattr(cfg, "binned_ingest", -1) == 0 and getattr(cfg, "wire_compress", -1) != 1:
+        return False
+    return resolve_switch(getattr(cfg, "wire_compress", -1), "GELLY_WIRE_COMPRESS")
 
 
 def width_for_capacity(capacity: int):
@@ -82,6 +119,12 @@ def replay_width(capacity: int, batch: int, order_free: bool = True):
 
 
 def _pack_edges40(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    n = src.shape[0]
+    lib = native.load_ingest_lib()
+    if lib is not None:
+        out = np.empty(5 * n, np.uint8)
+        if lib.pack_edges40(src.ctypes.data, dst.ctypes.data, n, out.ctypes.data) == out.nbytes:
+            return out
     w = (src.astype(np.uint64) & 0xFFFFF) | ((dst.astype(np.uint64) & 0xFFFFF) << np.uint64(20))
     return np.ascontiguousarray(w.view(np.uint8).reshape(-1, 8)[:, :5]).reshape(-1)
 
@@ -93,6 +136,11 @@ def _pack_edges_ef40(src: np.ndarray, dst: np.ndarray, capacity: int) -> np.ndar
     bytes."""
     n = src.shape[0]
     out = np.empty(ef40_nbytes(n, capacity), np.uint8)
+    lib = native.load_ingest_lib()
+    if lib is not None:
+        wrote = lib.pack_edges_ef40(src.ctypes.data, dst.ctypes.data, n, capacity, out.ctypes.data, out.nbytes)
+        if wrote == out.nbytes:
+            return out
     order = np.argsort(src, kind="stable")
     s_grouped = src[order].astype(np.int64)
     d_grouped = dst[order].astype(np.int64) & 0xFFFFF
@@ -123,11 +171,48 @@ def pack_edges(src: np.ndarray, dst: np.ndarray, width) -> np.ndarray:
         return _pack_edges_ef40(src, dst, width[1])
     if width == PAIR40:
         return _pack_edges40(src, dst)
+    n = src.shape[0]
+    lib = native.load_ingest_lib()
+    if lib is not None:
+        out = np.empty(2 * n * width, np.uint8)
+        if lib.pack_edges(src.ctypes.data, dst.ctypes.data, n, width, out.ctypes.data) == out.nbytes:
+            return out
 
     def low_bytes(x: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(x.view(np.uint8).reshape(-1, 4)[:, :width]).reshape(-1)
 
     return np.concatenate([low_bytes(src), low_bytes(dst)])
+
+
+def pack_edges_into(src: np.ndarray, dst: np.ndarray, width, out: np.ndarray) -> None:
+    """Pack an edge batch straight into ``out`` (a contiguous
+    ``uint8[wire_nbytes]`` slice, e.g. one row of a superbatch arena): the
+    native packers write through the row's pointer with the GIL released;
+    without the library the allocating packer's bytes are copied in."""
+    if isinstance(width, tuple) and width[0] == BDV:
+        # BDV rows are data-dependent sizes: group arenas bucket to the
+        # group's own widest row instead (io/ingest.pack_bdv_group)
+        raise ValueError("BDV buffers are variable-size; use pack_edges_bdv")
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    n = src.shape[0]
+    if dst.shape[0] != n:
+        raise ValueError("src/dst length mismatch")
+    expect = wire_nbytes(n, width)
+    if out.dtype != np.uint8 or out.nbytes != expect or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a contiguous uint8 buffer of {expect} bytes")
+    lib = native.load_ingest_lib()
+    if lib is not None:
+        s_p, d_p, o_p = src.ctypes.data, dst.ctypes.data, out.ctypes.data
+        if isinstance(width, tuple):
+            if lib.pack_edges_ef40(s_p, d_p, n, width[1], o_p, expect) == expect:
+                return
+        elif width == PAIR40:
+            if lib.pack_edges40(s_p, d_p, n, o_p) == expect:
+                return
+        elif lib.pack_edges(s_p, d_p, n, width, o_p) == expect:
+            return
+    out[:] = pack_edges(src, dst, width)
 
 
 def pack_stream(
@@ -159,9 +244,45 @@ def bdv_max_nbytes(n: int, valued: bool = False) -> int:
 
 
 def _sort_edges_bdv(src: np.ndarray, dst: np.ndarray, capacity: int, val=None):
-    """(dst, src)-stable-sorted copy of a batch (numpy lexsort)."""
+    """(dst, src)-stable-sorted copy of a batch: the native counting/radix
+    sort when the library is loaded (value-less batches), else numpy
+    lexsort; the same order either way."""
+    n = src.shape[0]
+    if val is None and n and capacity <= _BDV_NATIVE_SORT_CAP:
+        lib = native.load_ingest_lib()
+        if lib is not None:
+            out_s = np.empty(n, np.int32)
+            out_d = np.empty(n, np.int32)
+            rows = lib.sort_edges_dst_src(src.ctypes.data, dst.ctypes.data, n, capacity, out_s.ctypes.data,
+                                          out_d.ctypes.data)
+            if rows == n:
+                return out_s, out_d, None
     order = np.lexsort((src, dst))
     return src[order], dst[order], None if val is None else np.asarray(val)[order]
+
+
+def sort_edges_binned(src: np.ndarray, dst: np.ndarray, capacity: int, record_stats: bool = False):
+    """Destination-bin a value-less batch: the (dst, src) stable sort every
+    binned-ingest site shares.  ``record_stats`` raises the wire path's
+    bin-occupancy high-water (utils.metrics).  Returns ``(src_sorted,
+    dst_sorted)``."""
+    s, d, _ = _sort_edges_bdv(
+        np.ascontiguousarray(src, dtype=np.int32), np.ascontiguousarray(dst, dtype=np.int32), capacity
+    )
+    if record_stats:
+        metrics.wire_high_water("wire_bin_occupancy_hwm", max_dst_run(d))
+    return s, d
+
+
+def max_dst_run(dst_sorted: np.ndarray) -> int:
+    """Longest equal-dst run of a sorted dst column (the bin-occupancy
+    figure of the wire metrics)."""
+    n = len(dst_sorted)
+    if n == 0:
+        return 0
+    bounds = np.flatnonzero(np.diff(dst_sorted) != 0)
+    edges = np.concatenate([[-1], bounds, [n - 1]])
+    return int(np.max(np.diff(edges)))
 
 
 def _varint_encode_np(vals: np.ndarray) -> np.ndarray:
@@ -251,9 +372,13 @@ def pack_edges_bdv(
     capacity: int,
     val_i32: Optional[np.ndarray] = None,
     sort: bool = True,
+    record_stats: bool = False,
 ) -> np.ndarray:
-    """Bin (sort by (dst, src) unless ``sort=False``), varint-encode and
-    zero-pad to the byte bucket, clamped at the worst-case bound."""
+    """Bin (sort by (dst, src) unless ``sort=False``), varint-encode (the
+    native encoder on the value-less path when the library is loaded, else
+    numpy; the same bytes) and zero-pad to the byte bucket, clamped at the
+    worst-case bound.  ``record_stats`` raises the bin-occupancy
+    high-water."""
     if capacity <= 0 or capacity > (1 << BDV_MAX_ID_BITS):
         raise ValueError(f"BDV needs 0 < capacity <= 2^{BDV_MAX_ID_BITS} (got {capacity})")
     src = np.ascontiguousarray(src, dtype=np.int32)
@@ -262,7 +387,19 @@ def pack_edges_bdv(
         raise ValueError("src/dst length mismatch")
     if sort:
         src, dst, val_i32 = _sort_edges_bdv(src, dst, capacity, val_i32)
-    payload = _encode_bdv_np(src, dst, val_i32)
+    if record_stats:
+        metrics.wire_high_water("wire_bin_occupancy_hwm", max_dst_run(dst))
+    payload = None
+    if val_i32 is None:
+        lib = native.load_ingest_lib()
+        if lib is not None:
+            n = src.shape[0]
+            out = np.empty(bdv_max_nbytes(n) + 8, np.uint8)
+            wrote = lib.encode_edges_bdv(src.ctypes.data, dst.ctypes.data, n, out.ctypes.data, out.nbytes)
+            if wrote >= 0:
+                payload = out[:wrote]
+    if payload is None:
+        payload = _encode_bdv_np(src, dst, val_i32)
     bucket = min(
         bdv_bucket_nbytes(len(payload)), bdv_max_nbytes(src.shape[0], val_i32 is not None)
     )
@@ -285,6 +422,63 @@ def unpack_edges_bdv_host(buf: np.ndarray, n: int, valued: bool = False):
     z = vals[2::per].astype(np.uint64)
     val = ((z >> np.uint64(1)).astype(np.int64)) ^ -(z & np.uint64(1)).astype(np.int64)
     return src, dst, val.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# one-pass validate + decode (+ bin) of a wire buffer on the host
+
+# decode_wire_into's native width codes: fixed byte widths pass through,
+# PAIR40 is 5 and BDV 6 (EF40 has no native decode)
+_NATIVE_DECODE_CODES = {2: 2, 3: 3, 4: 4, PAIR40: 5}
+
+
+def decode_wire_np(buf, n: int, width, capacity: int, sort: bool = False):
+    """Numpy twin of ``decode_wire_into``: ``core/stream.
+    validate_wire_buffer``'s guards (size bounds, host decode, both ends of
+    the id range), then the optional (dst, src) binning.  Its typed
+    ``ValueError``s are the refusals, whichever implementation ran."""
+    from gelly_streaming_tpu_torch.core.stream import validate_wire_buffer
+
+    s, d = validate_wire_buffer(buf, n, width, capacity, decode_ids=True)
+    if sort:
+        s, d = sort_edges_binned(s, d, capacity)
+    return s, d
+
+
+def decode_wire_into(buf, n: int, width, capacity: int, out_src: np.ndarray, out_dst: np.ndarray,
+                     sort: bool = False) -> bool:
+    """Native one-pass validate + decode (+ bin) of one wire buffer into
+    ``out_src``/``out_dst`` (contiguous int32[n]), the GIL released for the
+    whole call.  True when the native path ran and the buffer is valid;
+    False when it cannot run (no library, an encoding it lacks, odd
+    layouts, an internal fallback): the caller then runs
+    ``decode_wire_np``.  A refused buffer raises the twin's own
+    ``ValueError``."""
+    code = 6 if (isinstance(width, tuple) and width[0] == BDV) else _NATIVE_DECODE_CODES.get(width)
+    lib = native.load_ingest_lib()
+    if code is None or lib is None:
+        return False
+    b = np.asarray(buf)
+    if (
+        b.dtype != np.uint8
+        or not b.flags.c_contiguous
+        or out_src.dtype != np.int32
+        or out_dst.dtype != np.int32
+        or out_src.shape != (n,)
+        or out_dst.shape != (n,)
+        or not out_src.flags.c_contiguous
+        or not out_dst.flags.c_contiguous
+    ):
+        return False
+    rc = lib.decode_wire_into(b.ctypes.data, b.nbytes, n, code, capacity, 1 if sort else 0, out_src.ctypes.data,
+                              out_dst.ctypes.data)
+    if rc == n:
+        return True
+    if rc == -4:
+        return False  # internal (allocation, sort bounds): the twin serves it
+    # a refusal: the twin raises the canonical error for this buffer
+    decode_wire_np(buf, n, width, capacity, sort=sort)
+    raise RuntimeError(f"native decode refused (rc={rc}) a buffer the numpy twin accepts")
 
 
 # ---------------------------------------------------------------------------

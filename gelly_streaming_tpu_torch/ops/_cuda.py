@@ -9,9 +9,10 @@ when the module is imported: the first kernel call builds what it needs,
 and ``build_all`` builds every source at once, one ``nvcc`` process each,
 all started together.
 
-``csrc/*.c`` sources are host code: ``host_library`` compiles one with the
-host C compiler (``cc -O2``) into the same directory, at first use, and
-loads it with ctypes (whose foreign calls release the GIL).
+``csrc/*.c`` and ``csrc/*.cpp`` sources are host code: ``host_library``
+compiles one with the host C compiler (``cc -O2``) or C++ compiler (``c++
+-O3 -std=c++17``) into the same directory, at first use, and loads it with
+ctypes (whose foreign calls release the GIL).
 """
 
 from __future__ import annotations
@@ -230,16 +231,51 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # bytes, stream: one launch
         "tri_closures_launch": [_P, _P, _I, _P, _P, _L, _P],
     },
+    "wire_decode.cu": {
+        # n: the scratch bytes of one decode of n edges
+        "bdv_decode_scratch_bytes": [_I],
+        # buf, nb, n, valued, src, dst, val | None, scratch, scratch bytes,
+        # stream: a memset of the scratch's header, then the decode kernel
+        "bdv_decode_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _L, _P],
+    },
 }
 
-# host C sources (built by the host compiler): name -> (argtypes, restype)
+_C, _I32, _I64 = ctypes.c_char_p, ctypes.c_int32, ctypes.c_int64
+
+# host C and C++ sources (built by the host compiler): name -> (argtypes,
+# restype); pointers are addresses (numpy's ``.ctypes.data``)
 HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "threefry_chain.c": {
         # k0, k1, n, keys uint32[n + 1, 2]: the key before each step, then after
         "threefry_chain": ([ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, _P], None),
     },
+    "edge_parser.cpp": {
+        # path: the data lines of an edge-list file (-1: unreadable)
+        "count_rows": ([_C], _I64),
+        # path, src i64, dst i64, val f64, time i64, sign i32, cap, ncols out
+        "fill_edges": ([_C, _P, _P, _P, _P, _P, _I64, _P], _I64),
+        # path, begin, end, the same arrays, cap, ncols out: the lines that
+        # start in [begin, end)
+        "fill_edges_range": ([_C, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P], _I64),
+        "count_rows_range": ([_C, _I64, _I64], _I64),
+        # src, dst, n, width, out uint8[2 n width]
+        "pack_edges": ([_P, _P, _I64, _I32, _P], _I64),
+        # src, dst, n, out uint8[5 n]
+        "pack_edges40": ([_P, _P, _I64, _P], _I64),
+        # src, dst, n, capacity, out, out bytes
+        "pack_edges_ef40": ([_P, _P, _I64, _I32, _P, _I64], _I64),
+        # src, dst, n, capacity, out src, out dst: the (dst, src) stable sort
+        "sort_edges_dst_src": ([_P, _P, _I64, _I32, _P, _P], _I64),
+        # sorted src, dst, n, out, out bytes: the BDV payload (-1: no room)
+        "encode_edges_bdv": ([_P, _P, _I64, _P, _I64], _I64),
+        # src, dst, n, shards, by src, cap, out src [S, cap], out dst, counts
+        "route_edges": ([_P, _P, _I64, _I32, _I32, _I64, _P, _P, _P], _I64),
+        # buf, nbytes, n, width code, capacity, sort, out src, out dst
+        "decode_wire_into": ([_P, _I64, _I64, _I32, _I32, _I32, _P, _P], _I64),
+    },
 }
 HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
+HOST_CXXFLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 # entry points that return something other than a cudaError_t
 RESTYPES: Dict[str, type] = {
@@ -248,7 +284,7 @@ RESTYPES: Dict[str, type] = {
     "exact_scratch_bytes": _L, "pagerank_scratch_bytes": _L, "spmv_fixpoint_scratch_bytes": _L,
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
     "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L, "hll_scratch_bytes": _L,
-    "tri_closures_scratch_bytes": _L,
+    "tri_closures_scratch_bytes": _L, "bdv_decode_scratch_bytes": _L,
 }
 
 
@@ -327,22 +363,31 @@ def library(source: str) -> ctypes.CDLL:
 
 
 def host_library(source: str) -> ctypes.CDLL:
-    """The loaded library of the host C source ``source`` (``csrc/*.c``),
-    compiled by ``cc`` on first use into the build directory (a temporary
-    file a process, then an atomic rename, so processes racing to build it
-    are safe), with its entry points declared."""
+    """The loaded library of the host source ``source`` (``csrc/*.c`` by
+    ``cc``, ``csrc/*.cpp`` by ``c++``), compiled on first use into the
+    build directory (a temporary file a process, then an atomic rename, so
+    processes racing to build it are safe), with its entry points declared.
+    Raises ``RuntimeError`` when the compiler fails or is missing."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            out = _target(source, HOST_CFLAGS)
+            cxx = source.endswith(".cpp")
+            flags = HOST_CXXFLAGS if cxx else HOST_CFLAGS
+            out = _target(source, flags)
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-                cc = os.environ.get("CC") or shutil.which("cc") or "cc"
-                proc = subprocess.run([cc, *HOST_CFLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if cxx:
+                    cc = os.environ.get("CXX") or shutil.which("c++") or "c++"
+                else:
+                    cc = os.environ.get("CC") or shutil.which("cc") or "cc"
+                try:
+                    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(CSRC_DIR / source)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"{cc} failed for {source}: {e}") from e
                 if proc.returncode != 0:
-                    raise RuntimeError(f"cc failed for {source}:\n{proc.stdout}")
+                    raise RuntimeError(f"{cc} failed for {source}:\n{proc.stdout}")
                 os.replace(tmp, out)
             lib = ctypes.CDLL(str(out))
             for name, (argtypes, restype) in HOST_SIGNATURES[source].items():

@@ -1,13 +1,17 @@
 """Latency recording and pipeline counters for the windowed planes.
 
-Port of ``WindowLatencyRecorder`` the async pipeline's counters
+Port of ``WindowLatencyRecorder``, the async pipeline's counters
 (``pipeline_add``, ``pipeline_high_water``, ``pipeline_stats``,
-``reset_pipeline_stats``) and the masked-SpMV kernel core's counters
+``reset_pipeline_stats``), the masked-SpMV kernel core's counters
 (``SPMV_DENSITY_BINS``, ``spmv_add``, ``spmv_stats``, ``reset_spmv_stats``)
-from ``gelly_streaming_tpu/utils/metrics.py``: close-to-emission samples in
+and the wire path's (``wire_record_batch``, ``wire_high_water``,
+``wire_stats``, ``reset_wire_stats``) from
+``gelly_streaming_tpu/utils/metrics.py``: close-to-emission samples in
 milliseconds with nearest-rank percentiles, the occupancy of
-``core/async_exec``'s stages, and the push/pull split of ``ops/spmv``'s
-fixpoints.
+``core/async_exec``'s stages, the push/pull split of ``ops/spmv``'s
+fixpoints, and the bytes an edge the wire path ships.  The port's own
+snapshot counters (``checkpoint_record``, ``checkpoint_stats``) time the
+aggregation planes' checkpoint writes.
 """
 
 from __future__ import annotations
@@ -166,3 +170,105 @@ def reset_spmv_stats() -> None:
     global _SPMV
     with _SPMV_LOCK:
         _SPMV = _spmv_zero()
+
+
+# ---------------------------------------------------------------------------
+# Wire-path counters (port of ``gelly_streaming_tpu/utils/metrics.py:283-
+# 343``): bumped from the pack thread and the ingest pool's workers at once.
+
+_WIRE_LOCK = threading.Lock()
+
+
+def _wire_zero() -> dict:
+    return {
+        # wire buffers / arenas shipped to the device (padding included)
+        "wire_bytes_total": 0,
+        # what the same edges would cost as raw int32 pairs (8 B/edge)
+        "wire_raw_bytes_total": 0,
+        # edges those buffers carried
+        "wire_edges_total": 0,
+        # micro-batches shipped (superbatch groups count their members)
+        "wire_batches": 0,
+        # longest single destination bin (equal-dst run) seen by the binning
+        # pass: the propagation-blocking skew indicator
+        "wire_bin_occupancy_hwm": 0,
+    }
+
+
+_WIRE = _wire_zero()  # guarded-by: _WIRE_LOCK
+
+
+def wire_high_water(key: str, value: float) -> None:
+    """Raise a wire-path high-water mark to ``value`` if it is higher."""
+    with _WIRE_LOCK:
+        if value > _WIRE[key]:
+            _WIRE[key] = value
+
+
+def wire_record_batch(batches: int, edges: int, nbytes: int) -> None:
+    """Account one shipped wire buffer/arena under one lock acquisition."""
+    with _WIRE_LOCK:
+        _WIRE["wire_batches"] += int(batches)
+        _WIRE["wire_edges_total"] += int(edges)
+        _WIRE["wire_raw_bytes_total"] += 8 * int(edges)
+        _WIRE["wire_bytes_total"] += int(nbytes)
+
+
+def wire_stats() -> dict:
+    """Process-wide wire-path counters plus the derived per-edge figures:
+    ``wire_bytes_per_edge`` (shipped bytes / edges) and
+    ``wire_compress_ratio`` (raw int32-pair bytes / shipped bytes)."""
+    with _WIRE_LOCK:
+        out = dict(_WIRE)
+    edges = max(out["wire_edges_total"], 1)
+    out["wire_bytes_per_edge"] = round(out["wire_bytes_total"] / edges, 3)
+    out["wire_compress_ratio"] = round(out["wire_raw_bytes_total"] / max(out["wire_bytes_total"], 1), 3)
+    return out
+
+
+def reset_wire_stats() -> None:
+    """Zero the wire-path counters (call before a measurement window,
+    read ``wire_stats`` after)."""
+    global _WIRE
+    with _WIRE_LOCK:
+        _WIRE = _wire_zero()
+
+
+# ---------------------------------------------------------------------------
+# Snapshot counters: the aggregation planes' checkpoint writes (the wire
+# path's writer thread and the windowed planes' saves).
+
+_CKPT_LOCK = threading.Lock()
+
+
+def _checkpoint_zero() -> dict:
+    return {
+        # snapshots written
+        "snapshots": 0,
+        # seconds the wire path's writer waited for a snapshot's download
+        "snapshot_wait_s": 0.0,
+        # seconds spent in save_state (host copy, npz write, rename)
+        "snapshot_save_s": 0.0,
+    }
+
+
+_CKPT = _checkpoint_zero()  # guarded-by: _CKPT_LOCK
+
+
+def checkpoint_record(wait_s: float, save_s: float) -> None:
+    """Account one written snapshot."""
+    with _CKPT_LOCK:
+        _CKPT["snapshots"] += 1
+        _CKPT["snapshot_wait_s"] += wait_s
+        _CKPT["snapshot_save_s"] += save_s
+
+
+def checkpoint_stats() -> dict:
+    with _CKPT_LOCK:
+        return dict(_CKPT)
+
+
+def reset_checkpoint_stats() -> None:
+    global _CKPT
+    with _CKPT_LOCK:
+        _CKPT = _checkpoint_zero()

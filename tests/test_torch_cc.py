@@ -189,16 +189,21 @@ def test_state_carried_across_with_interop_folds_on_like_jax():
         interop.cc_state_from_numpy(np.array([0, 5]), np.zeros(2, bool), CPU)
 
 
-def test_refuses_unported_planes_and_unordered_replays():
+def test_refuses_unported_planes_and_unordered_replays(tmp_path):
     src, dst = _edges(100, 64, 15)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStream.from_arrays(src, dst, TConfig(vertex_capacity=64), device=CPU).aggregate(
-            tcc.ConnectedComponents(), checkpoint_path="x"
-        )
+    # checkpoints and the binned/compressed ingest are ported: the JAX package's records
+    j_recs = JStream.from_arrays(src, dst, JConfig(vertex_capacity=64)).aggregate(jcc.ConnectedComponents()).collect()
+    t_recs = TStream.from_arrays(src, dst, TConfig(vertex_capacity=64), device=CPU).aggregate(
+        tcc.ConnectedComponents(), checkpoint_path=str(tmp_path / "x")
+    ).collect()
+    _assert_same_records(t_recs, j_recs)
     for kw in ({"binned_ingest": 1}, {"wire_compress": 1}):
         s = TStream.from_arrays(src, dst, TConfig(vertex_capacity=64, **kw), device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.aggregate(tcc.ConnectedComponents())
+        _assert_same_records(s.aggregate(tcc.ConnectedComponents()).collect(), j_recs)
+    with pytest.raises(ValueError, match="ingest_window_ms"):
+        TStream.from_arrays(src, dst, TConfig(vertex_capacity=64, ingest_window_ms=5), device=CPU).aggregate(
+            tcc.ConnectedComponents(), checkpoint_path=str(tmp_path / "y")
+        )
     # the async and superbatch windowed planes are ported: they emit the JAX package's records
     timed = [(1, 2, 0, 5), (2, 3, 0, 150)]
     for kw in ({"async_windows": 2}, {"superbatch": 4}):
@@ -219,6 +224,9 @@ def test_refuses_unported_planes_and_unordered_replays():
         TStream.from_wire(bufs, 50, (tw.EF40, 64), TConfig(vertex_capacity=64), device=CPU).aggregate(Ordered())
     with pytest.raises(ValueError, match="order-free"):
         Ordered()._wire_width(TConfig(wire_encoding="ef40"), 64)
+    for kw in ({"binned_ingest": 1}, {"wire_compress": 1}):
+        with pytest.raises(ValueError, match="order-free"):
+            TStream.from_arrays(src, dst, TConfig(vertex_capacity=64, **kw), device=CPU).aggregate(Ordered()).collect()
 
 
 def test_the_wire_path_launches_nothing_on_cpu():

@@ -6,6 +6,8 @@ CI host).  On a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2676,3 +2678,108 @@ def test_sketch_runs_on_the_card_match_the_cpu(cuda_device, kind):
                 torch.testing.assert_close(y.cpu(), x, rtol=1e-5, atol=0)
             else:
                 assert torch.equal(x, y.cpu())
+
+
+# ---------------------------------------------------------------------------
+# bdv_decode (csrc/wire_decode.cu) and the checkpointed wire path
+
+
+def _bdv_buffers(case):
+    """(uint8 buffer, n, valued) triples of one case."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    rng = np.random.default_rng(len(case))
+
+    def pack(n, cap, valued=False):
+        s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+        v = rng.integers(-(1 << 27), 1 << 27, n).astype(np.int32) if valued else None
+        return wire.pack_edges_bdv(s, d, cap, val_i32=v)
+
+    if case == "cc_batch":
+        return [(pack(1 << 21, 1 << 20), 1 << 21, False)]
+    if case == "group_arena":
+        rows = [pack(4096, cap) for cap in (1 << 20, 1 << 10, 1 << 16, 1 << 28)]
+        arena = np.zeros((4, max(r.nbytes for r in rows)), np.uint8)
+        for j, r in enumerate(rows):
+            arena[j, : r.nbytes] = r
+        return [(arena[j], 4096, False) for j in range(4)]
+    if case == "varint_boundaries":
+        b = np.array([0, 1, 255, 256, 65535, 65536, (1 << 24) - 1, 1 << 24, (1 << 29) - 1, 1 << 29], np.uint64)
+        enc = wire._varint_encode_np(np.concatenate([b, b[::-1]]))
+        return [(enc, 10, False), (enc, 6, True)]
+    if case == "ids_2^28":
+        top = (1 << 28) - 1
+        ids = np.array([top, 0, top, top - 1, 0, top], np.int32)
+        return [(wire.pack_edges_bdv(ids, ids[::-1].copy(), 1 << 28), 6, False)]
+    if case == "valued":
+        return [(pack(n, 1 << 20, True), n, True) for n in (1, 3, 5, 4097, 70001)]
+    if case == "small_n":
+        return [(pack(max(n, 1), 1 << 20), n, v) for n in (0, 1, 3, 5) for v in (False, True)]
+    if case == "bucket_padding":
+        return [(np.concatenate([pack(n, 1 << 16), np.zeros(n, np.uint8)]), n, False) for n in (2047, 2048, 2049)]
+    if case == "truncated":
+        full = pack(1 << 16, 1 << 20)
+        return [(full[: full.nbytes // 2], 1 << 16, False), (full[:3], 1 << 16, False), (full[:1], 5, True)]
+    assert case == "random_bytes"
+    return [(rng.integers(0, 256, int(nb)).astype(np.uint8), int(n), bool(v))
+            for nb, n, v in zip(rng.integers(1, 1 << 12, 4096), rng.integers(1, 1 << 11, 4096),
+                                rng.integers(0, 2, 4096))]
+
+
+@pytest.mark.parametrize("case", ["cc_batch", "group_arena", "varint_boundaries", "ids_2^28", "valued", "small_n",
+                                  "bucket_padding", "truncated", "random_bytes"])
+def test_bdv_decode_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    for buf, n, valued in _bdv_buffers(case):
+        b = torch.from_numpy(np.ascontiguousarray(buf)).to(cuda_device)
+        before = wd.LAUNCHES["bdv_decode"]
+        got = wd.decode_bdv(b, n, valued)
+        assert wd.LAUNCHES["bdv_decode"] == before + (1 if n else 0)
+        want = wd.decode_bdv_plain(b, n, valued)
+        assert len(got) == len(want) == (3 if valued else 2)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), (case, n, valued, buf.nbytes)
+
+
+def test_checkpointed_compressed_wire_run_on_the_card_resumes(cuda_device, tmp_path):
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+    from gelly_streaming_tpu_torch.utils.recovery import run_supervised
+
+    rng = np.random.default_rng(5)
+    c, batch, nb = 1 << 16, 1 << 14, 24
+    src = rng.integers(0, c, nb * batch).astype(np.int32)
+    dst = rng.integers(0, c, nb * batch).astype(np.int32)
+    path = str(tmp_path / "ck")
+    want = None
+    for kw in ({}, {"wire_compress": 1}, {"wire_compress": 1, "superbatch": 4}):
+        cfg = StreamConfig(vertex_capacity=c, batch_size=batch, wire_checkpoint_batches=4, **kw)
+
+        class Crashing(ConnectedComponents):
+            calls = 0
+
+            def update(self, st, s, d, v, m):
+                type(self).calls += 1
+                if type(self).calls == 11:
+                    raise RuntimeError("injected crash")
+                return super().update(st, s, d, v, m)
+
+        clean = EdgeStream.from_arrays(src, dst, cfg, device=cuda_device).aggregate(ConnectedComponents()).collect()
+        agg = Crashing()
+        wd.reset_launches()
+        restarts = []
+        recs = list(run_supervised(
+            lambda: EdgeStream.from_arrays(src, dst, cfg, device=cuda_device).aggregate(agg, checkpoint_path=path),
+            max_restarts=1, on_restart=lambda n, e: restarts.append(n)))
+        assert restarts == [1]
+        for got in (recs[-1][0], clean[-1][0]):
+            labels = (got.parent.cpu().numpy(), got.seen.cpu().numpy())
+            if want is None:
+                want = labels
+            assert np.array_equal(labels[0], want[0]) and np.array_equal(labels[1], want[1])
+        if kw:  # batches 0-10 before the crash (10 decoded, not folded), then 8-23 after the restore
+            assert wd.LAUNCHES["bdv_decode"] == 11 + (nb - 8)
+        os.remove(path + ".npz")

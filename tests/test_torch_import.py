@@ -47,7 +47,8 @@ def test_importing_the_whole_port_loads_no_jax():
         "          'library.spanner', 'library.matching', 'library.sampled_triangles', 'examples.spanner',\n"
         "          'examples.centralized_weighted_matching', 'examples.broadcast_triangle_count',\n"
         "          'examples.incidence_sampling_triangle_count', 'ops.sketches', 'summaries.sketches',\n"
-        "          'library.sketches'):\n"
+        "          'library.sketches', 'ops.wire_decode', 'utils.checkpoint', 'utils.recovery',\n"
+        "          'utils.native', 'io.ingest'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )
@@ -89,16 +90,21 @@ def test_cuda_entry_points_match_their_ctypes_declarations():
 
 
 def test_host_entry_points_match_their_ctypes_declarations():
-    """The host C sources (csrc/*.c, built with cc): every exported
-    function declared, with as many arguments."""
+    """The host C and C++ sources (csrc/*.c with cc, csrc/*.cpp with c++):
+    every exported function declared, with as many arguments (a C++
+    source's exports: its extern "C" blocks, anonymous namespaces left
+    out)."""
     from gelly_streaming_tpu_torch.ops import _cuda
 
-    sources = sorted(f for f in os.listdir(_cuda.CSRC_DIR) if f.endswith(".c"))
+    sources = sorted(f for f in os.listdir(_cuda.CSRC_DIR) if f.endswith((".c", ".cpp")))
     assert sources == sorted(_cuda.HOST_SIGNATURES)
     for source, entries in _cuda.HOST_SIGNATURES.items():
         with open(os.path.join(_cuda.CSRC_DIR, source)) as f:
             text = f.read()
-        found = dict(re.findall(r"^(?:void|int|long long) (\w+)\(([^)]*)\)", text, re.M | re.S))
+        if source.endswith(".cpp"):
+            blocks = re.findall(r'^extern "C" \{\n(.*?)^\}  // extern "C"', text, re.M | re.S)
+            text = re.sub(r"^namespace \{\n.*?^\}  // namespace", "", "\n".join(blocks), flags=re.M | re.S)
+        found = dict(re.findall(r"^(?:void|int|long long|int64_t|int32_t) (\w+)\(([^)]*)\)", text, re.M | re.S))
         assert set(found) == set(entries), source
         for name, (argtypes, _restype) in entries.items():
             assert len(found[name].split(",")) == len(argtypes), name

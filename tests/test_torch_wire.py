@@ -6,6 +6,7 @@ decode the same (src, dst) as the JAX decoders, for every width; the
 from_wire guards refuse what the JAX guards refuse.  Tolerance: none.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,3 +183,143 @@ def test_ef40_device_unpack_matches_jax_on_arbitrary_bytes():
         want = jw.unpack_edges(jnp.asarray(buf), n, (jw.EF40, cap))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# the BDV decode (ops/wire_decode.py): the wrapper runs its plain twin on
+# CPU tensors, which must equal the JAX decode on any bytes
+
+
+# the JAX decode as the JAX package dispatches it: traced into one cached
+# executable a shape (n and the layout static)
+_jax_decode_bdv = jax.jit(jdec.decode_bdv, static_argnums=(1, 2))
+
+
+def _bdv_kinds(kind, n, cap, rng):
+    if kind == "uniform":
+        return rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+    if kind == "skewed":
+        d = (cap * rng.random(n) ** 4).astype(np.int64).astype(np.int32) % cap
+        return (cap * rng.random(n) ** 2).astype(np.int64).astype(np.int32) % cap, d
+    # every edge on one destination: the widest single bin
+    return np.sort(rng.integers(0, cap, n)).astype(np.int32), np.full(n, cap - 1, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "max-degree"])
+@pytest.mark.parametrize("cap", [1 << 10, 1 << 28])
+def test_bdv_twin_round_trips_like_jax(kind, cap):
+    rng = np.random.default_rng(cap % 97 + len(kind))
+    for n in (0, 1, 5, 513):
+        src, dst = _bdv_kinds(kind, n, cap, rng)
+        buf = tw.pack_edges_bdv(src, dst, cap)
+        assert buf.tobytes() == jw.pack_edges_bdv(src, dst, cap).tobytes()
+        assert buf.nbytes <= tw.wire_nbytes(n, (tw.BDV, cap))
+        order = np.lexsort((src, dst))
+        if n == 0:
+            continue
+        # bucket padding and a group arena's wider row decode the same
+        for b in (buf, np.concatenate([buf, np.zeros(4096, np.uint8)]))[: 2 if n == 513 else 1]:
+            got = tdec.decode_bdv(torch.from_numpy(b), n)
+            want = _jax_decode_bdv(jnp.asarray(b), n, False)
+            for a, w, o in zip(got, want, (src[order], dst[order])):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+                np.testing.assert_array_equal(a.numpy(), o)
+
+
+def test_bdv_twin_matches_jax_on_arbitrary_bytes():
+    """Clipped reads past the end, truncated buffers, random control
+    blocks, the valued layout and counts not a multiple of 4 decode as the
+    JAX decode's clipped gathers and wrapping int32 cumsums decode them."""
+    rng = np.random.default_rng(22)
+    src, dst = _edges(700, 1 << 20, 23)
+    full = tw.pack_edges_bdv(src, dst, 1 << 20)
+    cases = [(full[: len(full) // 3], 700, False), (full[:5], 700, False), (full[:1], 3, True)]
+    # a few shapes (each compiles the JAX decode once), many buffers each
+    for nb, n, valued in ((7, 5, False), (64, 1, True), (64, 41, False), (300, 90, True)):
+        cases += [(rng.integers(0, 256, nb).astype(np.uint8), n, valued) for _ in range(8)]
+    cases.append((np.full(64, 0xFF, np.uint8), 41, False))  # 4-byte varints: the sums wrap
+    for buf, n, valued in cases:
+        got = tdec.decode_bdv(torch.from_numpy(buf), n, valued)
+        want = _jax_decode_bdv(jnp.asarray(buf), n, valued)
+        assert len(got) == len(want) == (3 if valued else 2)
+        for a, w in zip(got, want):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+
+
+def test_bdv_wrapper_takes_the_twin_on_cpu_only():
+    tdec.reset_launches()
+    buf = tw.pack_edges_bdv(np.arange(9, dtype=np.int32), np.arange(9, dtype=np.int32)[::-1].copy(), 16)
+    tdec.decode_bdv(torch.from_numpy(buf), 9)
+    assert tdec.TWIN_CALLS["bdv_decode"] == 1 and tdec.LAUNCHES["bdv_decode"] == 0
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tdec.decode_bdv(torch.from_numpy(buf).to("meta"), 9)
+    with pytest.raises(ValueError):
+        tdec.decode_bdv(torch.zeros(0, dtype=torch.uint8), 1)
+    with pytest.raises(ValueError):
+        tdec.decode_bdv(torch.from_numpy(buf).to(torch.int32), 9)
+
+
+def test_native_sort_and_encoder_give_numpy_bytes():
+    from gelly_streaming_tpu_torch.utils import native
+
+    assert native.load_ingest_lib() is not None
+    rng = np.random.default_rng(4)
+    for cap in (2, 1 << 8, 1 << 20, 1 << 28):
+        src = rng.integers(0, cap, 4000).astype(np.int32)
+        dst = rng.integers(0, cap, 4000).astype(np.int32)
+        s, d, _ = tw._sort_edges_bdv(src, dst, cap)
+        order = np.lexsort((src, dst))
+        np.testing.assert_array_equal(s, src[order])
+        np.testing.assert_array_equal(d, dst[order])
+        payload = tw._encode_bdv_np(s, d)
+        buf = tw.pack_edges_bdv(src, dst, cap)
+        np.testing.assert_array_equal(buf[: len(payload)], payload)
+        assert not buf[len(payload):].any()
+        assert tw.max_dst_run(d) == jw.max_dst_run(d)
+        for a, b in zip(tw.sort_edges_binned(src, dst, cap), jw.sort_edges_binned(src, dst, cap)):
+            np.testing.assert_array_equal(a, b)
+    assert tw.max_dst_run(np.zeros(0, np.int32)) == 0
+
+
+def test_host_decode_into_matches_jax():
+    """The native one-pass validate + decode (+ bin) and its numpy twin:
+    the JAX package's arrays, and its refusals."""
+    rng = np.random.default_rng(24)
+    cap, n = 1 << 12, 300
+    src, dst = _edges(n, cap, 25)
+    for width in (2, 3, 4, tw.PAIR40, (tw.BDV, cap)):
+        buf = tw.pack_edges(src, dst, width)
+        for sort in (False, True):
+            want = jw.decode_wire_np(buf, n, width, cap, sort=sort)
+            got = tw.decode_wire_np(buf, n, width, cap, sort=sort)
+            out_s, out_d = np.empty(n, np.int32), np.empty(n, np.int32)
+            assert tw.decode_wire_into(buf, n, width, cap, out_s, out_d, sort=sort)
+            for a, b, c in zip(got, (out_s, out_d), want):
+                np.testing.assert_array_equal(a, c)
+                np.testing.assert_array_equal(b, c)
+    assert not tw.decode_wire_into(tw.pack_edges(src, dst, (tw.EF40, cap)), n, (tw.EF40, cap), cap,
+                                   np.empty(n, np.int32), np.empty(n, np.int32))
+    # a near-worst-case batch (huge dst deltas, alternating src deltas) buckets
+    # no further than wire_nbytes, and decodes
+    big = 1 << 28
+    w_dst = (np.arange(16, dtype=np.int64) * (1 << 24)).astype(np.int32)
+    w_src = np.where(np.arange(16) % 2, 1 << 27, 0).astype(np.int32)
+    worst = tw.pack_edges_bdv(w_src, w_dst, big)
+    assert worst.tobytes() == jw.pack_edges_bdv(w_src, w_dst, big).tobytes()
+    assert worst.nbytes <= tw.wire_nbytes(16, (tw.BDV, big))
+    for a, b in zip(tw.decode_wire_np(worst, 16, (tw.BDV, big), big), jw.decode_wire_np(worst, 16, (tw.BDV, big), big)):
+        np.testing.assert_array_equal(a, b)
+    # a stream [dst delta 0, zigzag(src delta -1)] decodes src = -1: BDV's
+    # signed deltas reach below 0, and both ends of the range are refused
+    negative = np.zeros(tw.wire_nbytes(n, (tw.BDV, cap)), np.uint8)
+    payload = tw._varint_encode_np(np.array([0, 1] + [0] * (2 * n - 2), np.uint64))
+    negative[: len(payload)] = payload
+    bad = [(tw.pack_edges(src, dst, 2)[:-1], 2), (tw.pack_edges(src + cap, dst, 3), 3),
+           (rng.integers(0, 256, 9 * n).astype(np.uint8), (tw.BDV, cap)), (negative, (tw.BDV, cap))]
+    for buf, width in bad:
+        want = _refusal(lambda: jw.decode_wire_np(buf, n, width, cap))
+        assert want is not None
+        assert _refusal(lambda: tw.decode_wire_np(buf, n, width, cap)) == want
+        assert _refusal(lambda: tw.decode_wire_into(buf, n, width, cap, np.empty(n, np.int32),
+                                                    np.empty(n, np.int32))) == want
