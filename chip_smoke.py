@@ -46,6 +46,10 @@ checks every running emission the same way.  The two union-find kernels
 are timed on the main path's last batch: ``ms`` by torch.profiler where it
 shows them, and ``device_ms``/``host_us`` on a held stream, compress as
 the call with no edges and the union kernel as the whole call minus it.
+The run must launch ``ef40_unpack`` (``csrc/wire_decode.cu``) once a
+batch and never its twin (as must phases 9, 10 and 18 (a)); the kernel
+is held to the twin on the last batch and timed on a held stream beside
+its bytes bound and the twin.
 
 Phases 8-10 drive the GraphStream surface on the same stream (packing
 runs on host threads, untimed).  Phase 8: ``EdgeStream.from_arrays(...)
@@ -351,12 +355,17 @@ the native sorter (and encoder, or PAIR40 packer) called on every batch
 width and EF40, one batch's pack ms, ``bdv_decode``'s device ms on a held
 stream, its bound (the payload, not the bucket's padding, read once), its
 ratio and the twin's ms, and the idle share of one run by torch.profiler
-(as (a)'s).  (c)
-``bdv_decode`` against its twin on the card, bit for bit: a CC batch, a
-group arena's four rows of different widths (each read at the arena's
-width), varints at the 1/2/3/4-byte boundaries, ids up to 2^28 - 1, the
-valued layout, n in {0, 1, 3, 5}, bucket padding, truncated buffers and
-4,096 random-byte buffers (clipped reads).  Alone: ``chip_smoke.
+(as (a)'s); with ``--parent-wire-decode-cu`` 5985037's decode in turns
+with the current one and the split of both (``BDV_SPLIT``,
+``BDV_DESIGNS``).  (c) ``bdv_decode`` against its twin on the card, bit
+for bit: a CC batch, a group arena's four rows of different widths (each
+read at the arena's width), varints at the 1/2/3/4-byte boundaries, ids
+up to 2^28 - 1, the valued layout, n in {0, 1, 3, 5}, bucket padding,
+truncated buffers and 4,096 random-byte buffers (clipped reads); then
+``ef40_unpack`` against its twin on 547 buffers, one launch each (the CC
+batch, packed batches with n from 1 to 2^21 and C up to 2^20, odd n,
+bitvectors with no, every, too few and too many ones, C = 0, views at
+offsets 1-15, 512 random-byte buffers).  Alone: ``chip_smoke.
 phase_checkpoints(torch.device("cuda", 0), chip_smoke.sleep_cycles_per_ms(),
 chip_smoke.cc_bench_stream())`` after ``_cuda.build_all()`` (it computes
 scipy's labels itself when phase 7 did not).
@@ -1239,6 +1248,22 @@ def cc_bench_stream() -> dict:
     return {"src": src, "dst": dst, "width": width, "bufs": bufs, "pack_s": time.perf_counter() - t0}
 
 
+def ef40_once_a_batch(label: str, nb: int) -> None:
+    """Raise unless the run since the last ``wire_decode.reset_launches()``
+    launched ``ef40_unpack`` once a batch and never ran its twin."""
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    if wd.LAUNCHES["ef40_unpack"] != nb or wd.TWIN_CALLS["ef40_unpack"]:
+        raise RuntimeError(f"{label}: ef40_unpack must launch once a batch ({nb}) and its twin never: "
+                           f"{wd.LAUNCHES}, twins {wd.TWIN_CALLS}")
+
+
+def ef40_bound_ms(n: int, capacity: int) -> float:
+    """The EF40 unpack's bytes bound: the bitvector and the pairs read
+    once, src and dst written once."""
+    return ((n + capacity + 7) // 8 + 5 * ((n + 1) // 2) + 8 * n) / HBM_BYTES_PER_S * 1e3
+
+
 def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     """The streaming CC main path at bench.py's size, checked against the
     twin and scipy; returns the numbers for the report."""
@@ -1250,6 +1275,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     from gelly_streaming_tpu_torch.io.prefetch import upload
     from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
     from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
 
     c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
     num_edges = nb * batch
@@ -1267,6 +1293,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
         raise RuntimeError("the main path must ride the wire path")
 
     uf.reset_launches()
+    wd.reset_launches()
     t0 = time.perf_counter()
     records = stream.aggregate(agg).collect()
     ds = records[-1][0]
@@ -1279,6 +1306,8 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     # known flat
     if launches["union_kernel"] != nb or launches["compress_kernel"] != 1:
         raise RuntimeError(f"the union-find kernels were not launched once a batch: {launches}")
+    ef40_once_a_batch("phase 7", nb)
+    launches["ef40_unpack"] = wd.LAUNCHES["ef40_unpack"]
     log(f"  from_wire(...).aggregate(ConnectedComponents()): {wall_s:.3f} s first buffer -> host "
         f"labels, {num_edges / wall_s:.6g} edges/s end to end")
     log(f"  launches on the main path: {launches}")
@@ -1381,7 +1410,14 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     log("  compress alone by kernel (torch.profiler, us a launch): "
         + ", ".join(f"{k} {us:.2f}" for k, us in sorted(comp_parts.items())))
     buf_dev = to_dev((bufs[-1],), dev)[0]
+    got = wd.unpack_edges_ef40(buf_dev, batch, c)
+    want = wd.unpack_edges_ef40_plain(buf_dev, batch, c)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("ef40_unpack differs from its twin on the stream's last batch")
     unpack_ms, unpack_us = device_ms(lambda: wire.unpack_edges(buf_dev, batch, width), UF_REPS, cycles_per_ms)
+    unpack_events_ms = cuda_ms(lambda: wd.unpack_edges_ef40(buf_dev, batch, c), UF_REPS)
+    unpack_twin_ms = cuda_ms(lambda: wd.unpack_edges_ef40_plain(buf_dev, batch, c), 10)
+    unpack_bound = ef40_bound_ms(batch, c)
     b_union, b_compress = uf_bound_ms(batch, c)
     share = (first_ms + (nb - 1) * late_ms) / (wall_s * 1e3)
     busy = share + nb * unpack_ms / (wall_s * 1e3)
@@ -1396,9 +1432,15 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
         f"compress_plain {compress_twin_ms:.3f} ms (host loop, syncs included)")
     log(f"  the kernels' share of the wall time: {share * 100:.2f}% (the first batch's fold + "
         f"{nb - 1} x the late batch's, over the wall time)")
-    log(f"  EF40 unpack (PyTorch ops) a batch: device {unpack_ms:.4f} ms, host enqueue {unpack_us:.1f} us; "
-        f"device busy (unpack + fold) ~{busy * 100:.1f}% of the wall time, idle ~{(1 - busy) * 100:.1f}%")
+    log(f"  EF40 unpack (ef40_unpack) a batch: device {unpack_ms:.5f} ms held, host enqueue {unpack_us:.1f} us, "
+        f"events {unpack_events_ms:.5f} ms; bound {unpack_bound:.5f} ms (bytes: the bitvector and pairs read once, "
+        f"8 B an edge written), {unpack_ms / unpack_bound:.2f}x; the twin {unpack_twin_ms:.4f} ms; equal to the twin "
+        f"on the last batch; launches {launches['ef40_unpack']}; device busy (unpack + fold) ~{busy * 100:.1f}% of "
+        f"the wall time, idle ~{(1 - busy) * 100:.1f}%")
     return {
+        "ef40": {"launches": launches["ef40_unpack"], "err": 0, "ms": unpack_events_ms, "device_ms": unpack_ms,
+                 "host_us": unpack_us, "plain_ms": unpack_twin_ms, "bound_ms": unpack_bound,
+                 "ratio": unpack_ms / unpack_bound},
         "launches": launches,
         "first_ms": first_ms,
         "late_ms": late_ms,
@@ -1720,7 +1762,7 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     from gelly_streaming_tpu_torch.core.stream import EdgeStream
     from gelly_streaming_tpu_torch.io import wire
     from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistribution, DegreeDistributionSummary
-    from gelly_streaming_tpu_torch.ops import _cuda, degrees
+    from gelly_streaming_tpu_torch.ops import _cuda, degrees, wire_decode
 
     c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
     src, dst, width, bufs = data["src"], data["dst"], data["width"], data["bufs"]
@@ -1729,10 +1771,12 @@ def phase_degree_dist(dev, cycles_per_ms: float, data: dict) -> dict:
     EdgeStream.from_wire(bufs[:1], batch, width, cfg, device=dev).aggregate(agg).collect()
     torch.cuda.synchronize()
     degrees.reset_launches()
+    wire_decode.reset_launches()
     t0 = time.perf_counter()
     (deg,), = EdgeStream.from_wire(bufs, batch, width, cfg, device=dev).aggregate(agg).collect()
     deg = deg.cpu().numpy()
     wall_s = time.perf_counter() - t0
+    ef40_once_a_batch("phase 9", nb)
     fold_launches = degrees.LAUNCHES["degree_fold"]
     want = np.bincount(src, minlength=c) + np.bincount(dst, minlength=c)
     if fold_launches != nb or not np.array_equal(deg, want):
@@ -1998,6 +2042,7 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     from gelly_streaming_tpu_torch.io.sources import _batched
     from gelly_streaming_tpu_torch.library.bipartiteness import BipartitenessCheck
     from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.ops import wire_decode
 
     c, batch, nb = CC_VERTICES, CC_BATCH, CC_BATCHES
     width = data["width"]
@@ -2013,10 +2058,12 @@ def phase_bipartite(dev, cycles_per_ms: float, data: dict) -> dict:
     runs = {}
     for name, bufs in (("bipartite", bbufs), ("uniform", data["bufs"])):
         uf.reset_launches()
+        wire_decode.reset_launches()
         t0 = time.perf_counter()
         (cand,), = EdgeStream.from_wire(bufs, batch, width, cfg, device=dev).aggregate(agg).collect()
         verdict = cand.is_bipartite()
         wall_s = time.perf_counter() - t0
+        ef40_once_a_batch(f"phase 10 ({name})", nb)
         runs[name] = (cand, verdict, wall_s, uf.LAUNCHES["parity_union_kernel"], uf.LAUNCHES["compress_kernel"])
         log(f"  {name}: from_wire(...).aggregate(BipartitenessCheck()) {wall_s:.3f} s first buffer -> verdict, "
             f"{nb * batch / wall_s:.6g} edges/s; is_bipartite {verdict}; launches {dict(uf.LAUNCHES)}")
@@ -6312,6 +6359,28 @@ def one_launch(reading: dict, kernel: str) -> bool:
             and len(calls) == 1 and calls[0][0].startswith("cudaLaunch") and calls[0][1] == 1)
 
 
+def hll_card_gap(banks) -> tuple:
+    """(the largest |card - CPU| of ``hll_estimate`` over the register
+    banks, its share of the stated tolerance): the card's f32 ``logf``
+    against the CPU's on the same registers, held within
+    ``hll_linear_tolerance(m)`` on the linear count and rtol 1e-6 on the
+    raw estimate."""
+    import torch
+    from gelly_streaming_tpu_torch.summaries import sketches as sk
+
+    gap = share = 0.0
+    for regs in banks:
+        m = regs.shape[0]
+        host = regs.cpu()
+        card, cpu = float(sk.hll_estimate(regs)), float(sk.hll_estimate(host))
+        zeros = int((host == 0).sum())
+        raw = sk.hll_alpha(m) * m * m / float(torch.exp2(-host.double()).sum())
+        tol = sk.hll_linear_tolerance(m) if zeros and raw <= 2.5 * m else 1e-6 * abs(cpu)
+        gap = max(gap, abs(card - cpu))
+        share = max(share, abs(card - cpu) / tol)
+    return gap, share
+
+
 def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     """Phase 18: (a) ``HLLDegreeSummary(eps=0.01)`` and
     ``CountMinHeavyHitters(eps=0.001, delta=0.01, top_k=16)`` over phase
@@ -6329,6 +6398,7 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     from gelly_streaming_tpu_torch.io import wire
     from gelly_streaming_tpu_torch.library import sketches as lsk
     from gelly_streaming_tpu_torch.ops import sketches as sko
+    from gelly_streaming_tpu_torch.ops import wire_decode
 
     t_phase = time.perf_counter()
     res = {}
@@ -6346,7 +6416,9 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     for name, agg in (("hll", hagg), ("cm", cagg)):
         wire_run(agg, bufs[:1])
         sko.reset_launches()
+        wire_decode.reset_launches()
         recs, secs = timed_run(lambda agg=agg: wire_run(agg, bufs))
+        ef40_once_a_batch(f"phase 18 (a) {name}", nb)
         want = {k: nb if k == ("hll_fold" if name == "hll" else "cm_fold") else 0 for k in sko.KERNELS}
         if sko.LAUNCHES != want or any(sko.TWIN_CALLS.values()):
             raise RuntimeError(f"(a) {name}: not one C call a batch: {sko.LAUNCHES}, twins {sko.TWIN_CALLS}")
@@ -6357,6 +6429,7 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     hk, ck = hagg.initial_state(cfg, dev), cagg.initial_state(cfg, dev)
     ht, ct = clone_state(hk), clone_state(ck)
     err_h = err_c = 0.0
+    hll_gap = (0.0, 0.0)
     emitted = 0
     busy = {"hll": 0.0, "cm": 0.0}
     twin_s = {"hll": 0.0, "cm": 0.0}
@@ -6381,10 +6454,16 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
         err_c = max(err_c, tensor_err(tuple(ck), tuple(ct)))
         if (i + 1) % SK_EMIT_BATCHES == 0 or i == nb - 1:
             err_h = max(err_h, tensor_err(runs["hll"][0][emitted], hagg.transform(ht)))
+            hll_gap = max(hll_gap, hll_card_gap((ht.verts, ht.edges)), key=lambda g: g[1])
             err_c = max(err_c, tensor_err(runs["cm"][0][emitted], cagg.transform(ct)))
             emitted += 1
     if err_h or err_c:
         raise RuntimeError(f"(a): the folds or emissions differ from the twins on the card (hll {err_h}, cm {err_c})")
+    if hll_gap[1] > 1:
+        raise RuntimeError(f"(a): hll_estimate on the card is {hll_gap[0]} from the CPU's, past its stated tolerance")
+    log(f"  (a) hll_estimate at each emission, the card's against the CPU's on the same registers: at most "
+        f"{hll_gap[0]:.6g} apart, {hll_gap[1]:.4f} of the stated tolerance (linear count: hll_linear_tolerance(m); "
+        f"raw: rtol 1e-6)")
     # the exact oracles (not asserted): distinct vertices and edges, degrees
     src, dst = data["src"], data["dst"]
     t0 = time.perf_counter()
@@ -6445,6 +6524,7 @@ def phase_sketches(dev, cpm, data: dict, parent=None, variants=None) -> dict:
                      "s": secs, "edges_per_s": nb * batch / secs, "twin_s": twin_s[name], "busy_ms": busy[name],
                      "idle_pct": 100 * (1 - busy[name] / (secs * 1e3)), "emissions": len(recs)}
     res["hll"]["rel_err"] = {k: rel[k] for k in ("distinct_vertices", "distinct_edges")}
+    res["hll"]["card_cpu_gap"] = {"abs": hll_gap[0], "share_of_tolerance": hll_gap[1]}
     res["cm"]["rel_err"] = {k: rel[k] for k in ("top_k_overcount", "top_k_true_found")}
     for name, label, what in (("hll", f"HLLDegreeSummary(eps={SK_HLL_EPS}) (m {m})",
                                f"distinct vertices {v_est:.8g} (exact {exact_v}, rel err {rel['distinct_vertices']:+.3e}), "
@@ -6750,6 +6830,71 @@ def bdv_cases(rng) -> list:
     return cases
 
 
+EF40_RANDOM_BUFFERS = 512  # (c)
+
+
+def ef40_cases(rng, data: dict) -> list:
+    """(label, [(uint8 buffer, n, capacity, offset), ...]) that ef40_unpack
+    must unpack bit for bit as its twin: packed batches (n from 1 to 2^21,
+    C up to 2^20, odd n), bitvectors with no, every, too few and too many
+    ones, random bytes, and views that start at every offset of a 16-byte
+    word (``offset``: the view's first byte in a larger buffer)."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    def packed(n, cap):
+        s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+        return wire.pack_edges(s, d, (wire.EF40, cap))
+
+    def arbitrary(n, cap, density=None):
+        buf = rng.integers(0, 256, wire.ef40_nbytes(n, cap)).astype(np.uint8)
+        bv = (n + cap + 7) // 8
+        if density is not None:
+            buf[:bv] = np.packbits(rng.random(8 * bv) < density, bitorder="little")
+        return buf
+
+    big = (1 << 21, 1 << 20)
+    shapes = [(1, 1), (5, 2), (4097, 1000), (70001, 1 << 16), ((1 << 21) - 1, 1 << 20), big]
+    mid = packed(12345, 4099)
+    return [
+        ("the CC batch", [(data["bufs"][-1], CC_BATCH, CC_VERTICES, 0)]),
+        ("packed, n 1 to 2^21, odd n", [(packed(n, cap), n, cap, 0) for n, cap in shapes]),
+        ("no ones", [(arbitrary(n, cap, 0.0), n, cap, 0) for n, cap in ((1, 1), (5000, 300), big)]),
+        ("every one", [(arbitrary(n, cap, 1.0), n, cap, 0) for n, cap in ((1, 1), (5000, 300), big)]),
+        ("too few ones", [(arbitrary(n, cap, n / (4 * (n + cap))), n, cap, 0) for n, cap in ((9, 40), big)]),
+        ("too many ones", [(arbitrary(n, cap, min(1.0, 2 * n / (n + cap))), n, cap, 0) for n, cap in ((9, 40), big)]),
+        ("C = 0", [(arbitrary(n, 0), n, 0, 0) for n in (1, 5, 4096)]),
+        ("views at offsets 1-15", [(mid, 12345, 4099, off) for off in range(1, 16)]),
+        ("random bytes", [(arbitrary(int(n), int(cap)), int(n), int(cap), 0)
+                          for n, cap in zip(rng.integers(1, 1 << 12, EF40_RANDOM_BUFFERS),
+                                            rng.integers(0, 1 << 12, EF40_RANDOM_BUFFERS))]),
+    ]
+
+
+def ef40_check_cases(dev, cases) -> tuple:
+    """Every case through ef40_unpack and its twin on the card: (buffers,
+    mismatching buffers); one launch a buffer."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    checked = bad = 0
+    for label, items in cases:
+        for buf, n, cap, off in items:
+            host = torch.from_numpy(np.ascontiguousarray(buf))
+            room = torch.zeros((off + host.numel(),), dtype=torch.uint8, device=dev)
+            b = room[off:]
+            b.copy_(host)
+            before = wd.LAUNCHES["ef40_unpack"]
+            got = wd.unpack_edges_ef40(b, n, cap)
+            launched = wd.LAUNCHES["ef40_unpack"] - before
+            want = wd.unpack_edges_ef40_plain(b, n, cap)
+            checked += 1
+            if launched != 1 or not all(g.dtype == torch.int32 and torch.equal(g, w) for g, w in zip(got, want)):
+                bad += 1
+                log(f"  ef40_unpack differs from its twin: {label}, n {n}, C {cap}, offset {off} ({launched} launches)")
+    return checked, bad
+
+
 def bdv_payload_nbytes(buf, n: int, valued: bool = False) -> int:
     """The bytes of a BDV buffer that a decode of ``n`` edges reads: the
     control block and the varints its 2-bit lengths cover (the bucket's
@@ -6782,19 +6927,119 @@ def bdv_check_cases(dev, cases) -> tuple:
     return checked, bad
 
 
-def phase_checkpoints(dev, cpm, data: dict) -> dict:
+# bdv_decode as 5985037 had it (one launch after a memset of the look-back
+# header, two chained decoupled look-backs) with one part taken out, for the
+# split of its time (phase 19 (b)); the form of BACKWARD_SPLIT.  The outputs
+# are wrong; only their time counts.
+_BDV_DELTA_LOOKBACK = [
+    ("    const uint2 p = look_back<uint2>(tile, tile_sums, make_uint2(0u, 0u), st.delta_flags, st.delta_aggs,\n"
+     "                                     st.delta_incls);\n", "    const uint2 p = make_uint2(0u, 0u);\n")]
+_BDV_BYTE_LOOKBACK = [
+    ("    const long long p = look_back<long long>(tile, tile_bytes, 0, st.byte_flags, st.byte_aggs, st.byte_incls);",
+     "    const long long p = static_cast<long long>(tile) * tile_bytes;")]
+_BDV_STAGING = [("    bytes[i] = __ldg(buf + (at < nb ? at : nb - 1));\n", "    if (nb < 0) bytes[i] = 0;\n")]
+BDV_SPLIT = {
+    "the launch alone (the memset, then a kernel that returns at once)": [
+        ("  if (threadIdx.x == 0) tile_s = atomicAdd(st.ticket, 1);\n",
+         "  if (n >= 0) return;\n  if (threadIdx.x == 0) tile_s = atomicAdd(st.ticket, 1);\n")],
+    "the delta look-back (a zero prefix)": _BDV_DELTA_LOOKBACK,
+    "both look-backs (a tile's byte offset guessed as its index times its own bytes, a zero delta prefix)":
+        _BDV_DELTA_LOOKBACK + _BDV_BYTE_LOOKBACK,
+    "the staging (the decode reads shared memory never written)": _BDV_STAGING,
+    "both look-backs and the staging": _BDV_DELTA_LOOKBACK + _BDV_BYTE_LOOKBACK + _BDV_STAGING,
+}
+# The current bdv_decode with one part taken out, for the split of its time
+# (phase 19 (b), beside BDV_SPLIT); the same form, the outputs wrong.
+_BDV_SECOND_SYNC = ("      if (kPer == 3) row[2 * kCol + q] = vals[q];\n    }\n    grid.sync();",
+                    "      if (kPer == 3) row[2 * kCol + q] = vals[q];\n    }\n    __syncthreads();")
+BDV_DESIGNS = {
+    "the launch alone (a kernel that returns at once)": [
+        ("  const bool aligned = (reinterpret_cast<uintptr_t>(buf) & 3) == 0;\n",
+         "  if (n >= 0) return;\n  const bool aligned = (reinterpret_cast<uintptr_t>(buf) & 3) == 0;\n")],
+    "the staging (the decode reads shared memory never written)": [
+        ("    const int lead = stage(bytes, buf, nb, ctrl + byte_base + bytes_before, chunk_bytes, kThreads);",
+         "    const int lead = nb < 0 ? stage(bytes, buf, nb, ctrl, chunk_bytes, kThreads) : 0;")],
+    "the second grid sync (a block barrier)": [_BDV_SECOND_SYNC],
+    "both grid syncs (block barriers)": [
+        ("    if (threadIdx.x == 0) tot.bytes[b] = chunk_bytes;\n    grid.sync();",
+         "    if (threadIdx.x == 0) tot.bytes[b] = chunk_bytes;\n    __syncthreads();"), _BDV_SECOND_SYNC],
+    "the column writes (the edges' stores)": [
+        ("      dst[c0 + i] = static_cast<int>(p.x + cols[at]);\n"
+         "      src[c0 + i] = static_cast<int>(p.y + cols[kCol + at]);\n", "")],
+}
+# 5985037's wire_decode.cu entry points (the current ones keep them)
+PARENT_WIRE_SIGNATURES = {"bdv_decode_scratch_bytes": [_I],
+                          "bdv_decode_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _L, _P]}
+
+
+def bdv_call(lib):
+    """decode(buf, n) -> (src, dst) over ``lib``'s ``bdv_decode_launch``
+    (5985037's C interface), its outputs and scratch kept across calls."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import _cuda
+
+    kept = {}
+
+    def decode(buf, n):
+        if n not in kept:
+            scratch = torch.empty((int(lib.bdv_decode_scratch_bytes(n)),), dtype=torch.uint8, device=buf.device)
+            kept[n] = (torch.empty((n,), dtype=torch.int32, device=buf.device),
+                       torch.empty((n,), dtype=torch.int32, device=buf.device), scratch)
+        src, dst, scratch = kept[n]
+        _cuda.check(lib.bdv_decode_launch(buf.data_ptr(), buf.numel(), n, 0, src.data_ptr(), dst.data_ptr(), None,
+                                          scratch.data_ptr(), scratch.numel(),
+                                          torch.cuda.current_stream(buf.device).cuda_stream), "bdv_decode_launch")
+        return src, dst
+
+    return decode
+
+
+def bdv_turns(cpm, buf, n: int, parent_lib, variants: dict) -> dict:
+    """Phase 19 (b)'s batch through 5985037's ``bdv_decode`` and the
+    current one in turns (parent, current, current, parent; device ms on
+    the held stream, 50 calls each), outputs held equal first; then each
+    variant of ``variants`` ({label: library}: BDV_SPLIT over the parent,
+    labels led by "5985037", and BDV_DESIGNS over the current source)
+    beside a reading of its own source."""
+    import torch
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    parent = bdv_call(parent_lib)
+    want = wd.decode_bdv(buf, n)
+    if not all(torch.equal(g, w) for g, w in zip(parent(buf, n), want)):
+        raise RuntimeError("5985037's bdv_decode and the current one differ on phase 19 (b)'s batch")
+
+    def measure(fn):
+        return device_ms(fn, 50, cpm)[0]
+
+    out = measured_in_turns(measure, lambda: parent(buf, n), lambda: wd.decode_bdv(buf, n))
+    log(f"  (b) bdv_decode in turns with 5985037's: {turns_text(out)}")
+    split = {}
+    for label, lib in variants.items():
+        fn = bdv_call(lib)
+        whole = parent if label.startswith("5985037") else (lambda b_, n_: wd.decode_bdv(b_, n_))
+        split[label] = {"ms": measure(lambda: fn(buf, n)), "whole_ms": measure(lambda: whole(buf, n))}
+        log(f"  (b) bdv_decode without {label}: {split[label]['ms']:.5f} ms (the whole kernel beside it "
+            f"{split[label]['whole_ms']:.5f} ms)")
+    out["split"] = split
+    return out
+
+
+def phase_checkpoints(dev, cpm, data: dict, parent=None, variants=None) -> dict:
     """Phase 19 on the CC bench's stream: (a) checkpointed CC under
-    run_supervised with a crash, (b) the compressed and binned ingest, (c)
-    bdv_decode against its twin.  The snapshots go to a temporary
+    run_supervised with a crash, (b) the compressed and binned ingest (with
+    ``parent``, 5985037's wire_decode.cu loaded, ``bdv_decode`` in turns
+    with it and ``variants``, BDV_SPLIT over it, timed), (c) bdv_decode and
+    ef40_unpack against their twins.  The snapshots go to a temporary
     directory, removed afterwards."""
     ck_dir = tempfile.mkdtemp(prefix="phase19-")
     try:
-        return checkpoint_runs(dev, cpm, data, os.path.join(ck_dir, "cc"))
+        return checkpoint_runs(dev, cpm, data, os.path.join(ck_dir, "cc"), parent, variants or {})
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
 
 
-def checkpoint_runs(dev, cpm, data: dict, path: str) -> dict:
+def checkpoint_runs(dev, cpm, data: dict, path: str, parent=None, variants=None) -> dict:
     """phase_checkpoints' runs, their snapshot at ``path``."""
     import torch
 
@@ -7007,8 +7252,10 @@ def checkpoint_runs(dev, cpm, data: dict, path: str) -> dict:
     out["decode"] = {"launches": res_b["compressed"]["decode_launches"], "err": err, "ms": dec_events_ms,
                      "device_ms": dec_ms, "host_us": dec_us, "plain_ms": twin_ms, "bound_ms": bound_ms,
                      "ratio": dec_ms / bound_ms, "payload_bytes": payload, "wire_bytes": bdv_buf.nbytes}
+    if parent is not None:
+        out["decode"]["turns"] = bdv_turns(cpm, b_dev, batch, parent, variants)
 
-    # (c) bdv_decode against its twin on the card
+    # (c) bdv_decode and ef40_unpack against their twins on the card
     cases = bdv_cases(np.random.default_rng(19))
     cases.insert(0, ("CC batch", [(bdv_buf, batch, False)]))
     checked, bad = bdv_check_cases(dev, cases)
@@ -7016,7 +7263,13 @@ def checkpoint_runs(dev, cpm, data: dict, path: str) -> dict:
         raise RuntimeError(f"bdv_decode differs from its twin on {bad} of {checked} buffers")
     log(f"  (c) bdv_decode bit-equal to its twin on {checked} buffers: " + ", ".join(
         f"{label} ({len(items)})" for label, items in cases))
-    out["c"] = {"buffers": checked}
+    e_cases = ef40_cases(np.random.default_rng(26), data)
+    e_checked, e_bad = ef40_check_cases(dev, e_cases)
+    if e_bad:
+        raise RuntimeError(f"ef40_unpack differs from its twin on {e_bad} of {e_checked} buffers")
+    log(f"  (c) ef40_unpack bit-equal to its twin on {e_checked} buffers, one launch each: " + ", ".join(
+        f"{label} ({len(items)})" for label, items in e_cases))
+    out["c"] = {"buffers": checked, "ef40_buffers": e_checked}
     out["s"] = time.perf_counter() - t_phase
     log(f"  phase 19: {out['s']:.1f} s")
     return out
@@ -7069,7 +7322,12 @@ def main(argv=None) -> int:
                              "count (e057c38; its C interface): its tri_fold and closure count timed in turns with "
                              "the current ones in phase 18 (b), beside the split of its time (TRI_SPLIT) and the "
                              "design's variants (TRI_DESIGNS)")
+    parser.add_argument("--parent-wire-decode-cu", default=None,
+                        help="wire_decode.cu of the commit before the bdv_decode redesign (5985037; the same C "
+                             "interface): its bdv_decode timed in turns with the current one in phase 19 (b), "
+                             "beside the split of its time (BDV_SPLIT)")
     args = parser.parse_args(argv)
+    parent_wire_cu = os.path.abspath(args.parent_wire_decode_cu) if args.parent_wire_decode_cu else None
     parent_sketches_cu = os.path.abspath(args.parent_sketches_cu) if args.parent_sketches_cu else None
     parent_sum_cu = {k: os.path.abspath(path) for k, path in (("spanner", args.parent_spanner_cu),
                                                                ("sampler", args.parent_sampler_cu),
@@ -7119,17 +7377,23 @@ def main(argv=None) -> int:
     bwd_split_cu = split_sources(str(_cuda.CSRC_DIR / "sage.cu"), BACKWARD_SPLIT, "sage") if parent_backward_cu else {}
     grid_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), GRID_SPLIT, "spmv_grid")
     rank_split_cu = split_sources(str(_cuda.CSRC_DIR / "spmv.cu"), RANK_SPLIT, "spmv_rank")
+    bdv_split_cu = ({**{f"5985037 {k}": v for k, v in split_sources(parent_wire_cu, BDV_SPLIT,
+                                                                     "wire_decode_parent").items()},
+                     **{f"current {k}": v for k, v in split_sources(str(_cuda.CSRC_DIR / "wire_decode.cu"),
+                                                                    BDV_DESIGNS, "wire_decode").items()}}
+                    if parent_wire_cu else {})
     sources = [*_cuda.SIGNATURES, *([baseline_cu] if baseline_cu else []), *parent_cu.values(), *split_cu.values(),
                *parent_sage_cu.values(), *([parent_backward_cu] if parent_backward_cu else []),
                *([parent_exact_cu] if parent_exact_cu else []), *parent_spmv_cu.values(), *parent_sum_cu.values(),
-               *([parent_sketches_cu] if parent_sketches_cu else []), probe_source()]
+               *([parent_sketches_cu] if parent_sketches_cu else []), *([parent_wire_cu] if parent_wire_cu else []),
+               probe_source()]
     sketch_variants, sketch_failed = {}, []
     split_failed = []
 
     def build_split():  # beside the main build; a variant that does not build is skipped
         try:
             _cuda.build_all([*bwd_split_cu.values(), *fold_split_cu.values(), *grid_split_cu.values(),
-                             *rank_split_cu.values()])
+                             *rank_split_cu.values(), *bdv_split_cu.values()])
         except RuntimeError as e:
             split_failed.append(str(e).splitlines()[0])
 
@@ -7415,7 +7679,9 @@ def main(argv=None) -> int:
                                               else SKETCH_SIGNATURES) for label, path in sketch_variants.items()})
 
     log("phase 19: checkpoints, supervised recovery and the compressed ingest on the card")
-    ck = phase_checkpoints(dev, cpm, data)
+    ck = phase_checkpoints(dev, cpm, data, load_baseline(parent_wire_cu, PARENT_WIRE_SIGNATURES) if parent_wire_cu
+                           else None, {} if split_failed else {part: load_baseline(path, PARENT_WIRE_SIGNATURES)
+                                                               for part, path in bdv_split_cu.items()})
 
     kernels = [
         {
@@ -7624,7 +7890,7 @@ def main(argv=None) -> int:
                          "precomputed",
          "timed": "(a)'s last batch: HLLDegreeSummary.update's C call (three key families), each call on its own copy",
          **{k: sk["hll"][k] for k in ("edges_per_s", "ratio", "twin_s", "idle_pct", "busy_ms", "emissions",
-                                       "rel_err", "batch0", "turns") if k in sk["hll"]}},
+                                       "rel_err", "card_cpu_gap", "batch0", "turns") if k in sk["hll"]}},
         {**entry("cm_fold", "sketches.cu", f"{sketches_py}:175", sk["cm"], sk["cm"]["library_ms"]),
          "bound_by": sk["cm"]["bound_by"],
          "library_call": "Tensor.index_add_ of ones at the precomputed flat columns of both endpoints' d rows",
@@ -7654,7 +7920,13 @@ def main(argv=None) -> int:
         "timed": "(b)'s last batch of 2^21 edges as BDV, on a held stream",
         "ratio": dec["ratio"], "payload_bytes": dec["payload_bytes"], "wire_bytes": dec["wire_bytes"],
         "checked_buffers": ck["c"]["buffers"],
+        **({"turns": dec["turns"]} if "turns" in dec else {}),
         "checkpoints": ck["a"], "compressed_ingest": ck["b"], "phase_s": ck["s"]})
+    kernels.append({
+        **entry("ef40_unpack", "wire_decode.cu", "gelly_streaming_tpu/io/wire.py:197", cc["ef40"]),
+        "library_call": "none: no one PyTorch call computes the unpack",
+        "timed": "phase 7's last batch of 2^21 edges over 2^20 ids as EF40, on a held stream",
+        "ratio": cc["ef40"]["ratio"], "checked_buffers": ck["c"]["ef40_buffers"]})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,12 +5,13 @@ aggregation wire path uses.  The packers and the (dst, src) sorter call
 the port's native host library (``utils/native.py``, built from
 ``csrc/edge_parser.cpp``) when it loads, else the JAX package's numpy
 fallbacks: the same bytes either way.  The device unpack (``unpack_edges``)
-is PyTorch ops on the buffer's device, and for BDV the ``bdv_decode``
-kernel (``ops/wire_decode.py``) on a CUDA buffer.  ``resolve_binned_ingest``
-and ``resolve_wire_compress`` resolve the binned and compressed ingest
-switches (config, then env); ``decode_wire_into`` is the native one-pass
-validate + decode (+ bin) of a wire buffer into caller-owned arrays, with
-``decode_wire_np`` its numpy twin.
+is PyTorch ops on the buffer's device for the fixed widths and PAIR40, and
+for EF40 and BDV the ``ef40_unpack`` and ``bdv_decode`` kernels
+(``ops/wire_decode.py``) on a CUDA buffer, their twins on a CPU one.
+``resolve_binned_ingest`` and ``resolve_wire_compress`` resolve the binned
+and compressed ingest switches (config, then env); ``decode_wire_into`` is
+the native one-pass validate + decode (+ bin) of a wire buffer into
+caller-owned arrays, with ``decode_wire_np`` its numpy twin.
 
 Encodings (``width``):
 
@@ -32,6 +33,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gelly_streaming_tpu_torch.ops import wire_decode
+from gelly_streaming_tpu_torch.ops.wire_decode import ef40_nbytes
+from gelly_streaming_tpu_torch.ops.wire_decode import pair40_fields as _pair40_fields
+from gelly_streaming_tpu_torch.ops.wire_decode import unpack_edges_ef40  # noqa: F401  (the JAX module's name)
 from gelly_streaming_tpu_torch.utils import metrics, native
 from gelly_streaming_tpu_torch.utils.envswitch import resolve_switch
 
@@ -92,11 +97,6 @@ def wire_nbytes(n: int, width) -> int:
             return bdv_max_nbytes(n)
         return ef40_nbytes(n, width[1])
     return 2 * n * width
-
-
-def ef40_nbytes(n: int, capacity: int) -> int:
-    """Wire bytes for an EF40-packed batch of n edges over ``capacity`` ids."""
-    return (n + capacity + 7) // 8 + ((n + 1) // 2) * 5
 
 
 def replay_width(capacity: int, batch: int, order_free: bool = True):
@@ -485,49 +485,13 @@ def decode_wire_into(buf, n: int, width, capacity: int, out_src: np.ndarray, out
 # decoders
 
 
-def _pair40_fields(b):
-    """(lo 20 bits, hi 20 bits) of [m, 5] pair bytes, widened to int64
-    (numpy or torch)."""
-    lo = (b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) & 0xFFFFF
-    hi = (b[:, 2] >> 4) | (b[:, 3] << 4) | (b[:, 4] << 12)
-    return lo, hi
-
-
-def unpack_edges_ef40(wire: torch.Tensor, n: int, capacity: int):
-    """Device EF40 unpack: wire uint8 -> src-grouped (src, dst) int32[n].
-
-    Bit expansion and one cumsum recover the unary src ranks: the grouped
-    src of rank i is ``pos - i``, pos the position of the i-th one, found
-    by binary search in the cumsum (ranks the bitvector lacks decode to 0,
-    as the JAX scatter leaves them).  The JAX decode scatters every
-    position instead, the zeros into one dropped slot: on the H100 those
-    ~C atomics on one address serialize, and with them the bench's 50
-    batches took 1.74 s end to end against 0.11 s with the search
-    (chip_smoke.py phase 7)."""
-    dev = wire.device
-    bvbytes = (n + capacity + 7) // 8
-    shifts = torch.arange(8, dtype=torch.int32, device=dev)
-    bits = ((wire[:bvbytes].to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[: n + capacity]
-    ones_upto = torch.cumsum(bits, 0)  # int64, non-decreasing
-    rank = torch.arange(n, dtype=torch.int64, device=dev)
-    pos = torch.searchsorted(ones_upto, rank + 1)
-    src = torch.where(pos < n + capacity, pos - rank, 0).to(torch.int32)
-    npairs = (n + 1) // 2
-    b = wire[bvbytes : bvbytes + 5 * npairs].reshape(npairs, 5).to(torch.int64)
-    lo, hi = _pair40_fields(b)
-    dst = torch.stack([lo, hi], dim=1).reshape(-1)[:n].to(torch.int32)
-    return src, dst
-
-
 def unpack_edges(wire: torch.Tensor, n: int, width):
     """Device unpack: wire uint8 tensor -> (src, dst) int32[n] tensors on
     the same device."""
     if isinstance(width, tuple):
         if width[0] == BDV:
-            from gelly_streaming_tpu_torch.ops import wire_decode
-
             return wire_decode.decode_bdv(wire, n)
-        return unpack_edges_ef40(wire, n, width[1])
+        return wire_decode.unpack_edges_ef40(wire, n, width[1])
     if width == PAIR40:
         lo, hi = _pair40_fields(wire[: 5 * n].reshape(n, 5).to(torch.int64))
         return lo.to(torch.int32), hi.to(torch.int32)

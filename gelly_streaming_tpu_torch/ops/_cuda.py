@@ -235,8 +235,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # n: the scratch bytes of one decode of n edges
         "bdv_decode_scratch_bytes": [_I],
         # buf, nb, n, valued, src, dst, val | None, scratch, scratch bytes,
-        # stream: a memset of the scratch's header, then the decode kernel
+        # stream: one cooperative launch
         "bdv_decode_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _L, _P],
+        # n, capacity: the scratch bytes of one EF40 unpack
+        "ef40_unpack_scratch_bytes": [_I, _I],
+        # buf, nb, n, capacity, src, dst, scratch, scratch bytes, stream:
+        # one cooperative launch
+        "ef40_unpack_launch": [_P, _L, _I, _I, _P, _P, _P, _L, _P],
     },
 }
 
@@ -285,6 +290,7 @@ RESTYPES: Dict[str, type] = {
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
     "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L, "hll_scratch_bytes": _L,
     "tri_closures_scratch_bytes": _L, "bdv_decode_scratch_bytes": _L,
+    "ef40_unpack_scratch_bytes": _L,
 }
 
 

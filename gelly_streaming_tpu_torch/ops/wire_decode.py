@@ -1,20 +1,26 @@
-"""Device-side decode of the BDV compressed wire format: the wrapper of
-``csrc/wire_decode.cu`` and its plain PyTorch twin.
+"""Device-side wire decodes: the wrappers of ``csrc/wire_decode.cu`` and
+their plain PyTorch twins.
 
-Port of ``gelly_streaming_tpu/ops/wire_decode.py``.  BDV (io/wire.py)
+BDV, port of ``gelly_streaming_tpu/ops/wire_decode.py``.  BDV (io/wire.py)
 ships a dst-sorted edge batch as one interleaved group-varint stream: per
 edge an unsigned dst delta, then a zigzag GLOBAL src delta (src[-1] = 0),
 then for valued batches a zigzag value.  A control block of 2-bit byte
 lengths (four values per control byte) heads the buffer; the value bytes
 follow, little-endian; buckets pad with 0x00.  A byte read at or past the
 buffer's end reads its last byte, as the JAX decode's clipped gathers do.
+On CUDA tensors ``decode_bdv`` is one C call (``bdv_decode_launch``): one
+cooperative launch, the chunks chained by two grid-wide reductions (byte
+offsets, then the delta sums).  On CPU tensors it runs
+``decode_bdv_plain``: gathers and cumsums, values carried in int64 and the
+id columns wrapped to int32 at the end, as the JAX decode's int32 cumsums
+wrap.
 
-On CUDA tensors ``decode_bdv`` is one C call (``bdv_decode_launch``): a
-memset of its scratch's header and one kernel, tiles chained by two
-decoupled look-backs (byte offsets, then the delta sums).  On CPU tensors
-it runs ``decode_bdv_plain``: gathers and cumsums, values carried in int64
-and the id columns wrapped to int32 at the end, as the JAX decode's int32
-cumsums wrap.
+EF40, port of ``unpack_edges_ef40`` (``gelly_streaming_tpu/io/wire.py``):
+a unary src histogram of n + C bits, then the dsts' 20-bit pairs.  On CUDA
+tensors ``unpack_edges_ef40`` is one C call (``ef40_unpack_launch``: one
+cooperative launch, the ones counted and the pairs decoded, a grid-wide
+sync, the ranks scanned and written); on CPU tensors it runs
+``unpack_edges_ef40_plain``.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ _SOURCE = "wire_decode.cu"
 
 # C calls since the last reset_launches() (CUDA tensors only), and the
 # wrapper's twin calls (CPU tensors only)
-LAUNCHES: Dict[str, int] = {"bdv_decode": 0}
-TWIN_CALLS: Dict[str, int] = {"bdv_decode": 0}
+LAUNCHES: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0}
+TWIN_CALLS: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0}
 _scratch: Dict[tuple, torch.Tensor] = {}
 
 
@@ -82,7 +88,7 @@ def decode_bdv_plain(buf: torch.Tensor, n: int, valued: bool = False):
 
 def _scratch_for(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     """A reused scratch buffer of at least ``nbytes`` for calls on one
-    stream, which run in order; each call zeroes the header it uses."""
+    stream, which run in order; a call writes every slot it reads."""
     buf = _scratch.get((dev, stream))
     if buf is None or buf.numel() < nbytes:
         buf = torch.empty((max(nbytes, 1 << 16),), dtype=torch.uint8, device=dev)
@@ -121,3 +127,74 @@ def decode_bdv(buf: torch.Tensor, n: int, valued: bool = False):
     _cuda.check(err, "bdv_decode_launch")
     LAUNCHES["bdv_decode"] += 1
     return tuple(outs)
+
+
+def ef40_nbytes(n: int, capacity: int) -> int:
+    """Wire bytes of an EF40 batch of n edges over ``capacity`` ids."""
+    return (n + capacity + 7) // 8 + ((n + 1) // 2) * 5
+
+
+def pair40_fields(b):
+    """(lo 20 bits, hi 20 bits) of [m, 5] pair bytes, widened to int64
+    (numpy or torch)."""
+    lo = (b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) & 0xFFFFF
+    hi = (b[:, 2] >> 4) | (b[:, 3] << 4) | (b[:, 4] << 12)
+    return lo, hi
+
+
+def unpack_edges_ef40_plain(wire: torch.Tensor, n: int, capacity: int):
+    """The twin: EF40 wire uint8 -> src-grouped (src, dst) int32[n], by
+    PyTorch ops on the buffer's device.
+
+    Bit expansion and one cumsum recover the unary src ranks: the grouped
+    src of rank i is ``pos - i``, pos the position of the i-th one, found
+    by binary search in the cumsum (ranks the bitvector lacks decode to 0,
+    as the JAX scatter leaves them).  The JAX decode scatters every
+    position instead, the zeros into one dropped slot: on the H100 those
+    ~C atomics on one address serialize, and with them the bench's 50
+    batches took 1.74 s end to end against 0.11 s with the search
+    (chip_smoke.py phase 7)."""
+    dev = wire.device
+    bvbytes = (n + capacity + 7) // 8
+    shifts = torch.arange(8, dtype=torch.int32, device=dev)
+    bits = ((wire[:bvbytes].to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[: n + capacity]
+    ones_upto = torch.cumsum(bits, 0)  # int64, non-decreasing
+    rank = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = torch.searchsorted(ones_upto, rank + 1)
+    src = torch.where(pos < n + capacity, pos - rank, 0).to(torch.int32)
+    npairs = (n + 1) // 2
+    b = wire[bvbytes : bvbytes + 5 * npairs].reshape(npairs, 5).to(torch.int64)
+    lo, hi = pair40_fields(b)
+    dst = torch.stack([lo, hi], dim=1).reshape(-1)[:n].to(torch.int32)
+    return src, dst
+
+
+def unpack_edges_ef40(wire: torch.Tensor, n: int, capacity: int):
+    """EF40 wire buffer (uint8, 1-D) -> src-grouped (src, dst) int32[n], on
+    the buffer's device."""
+    if wire.dim() != 1 or wire.dtype != torch.uint8:
+        raise ValueError("an EF40 buffer is a 1-D uint8 tensor")
+    if n < 0 or capacity < 0:
+        raise ValueError(f"n and capacity must be >= 0, got {n}, {capacity}")
+    if wire.device.type == "cpu":
+        TWIN_CALLS["ef40_unpack"] += 1
+        return unpack_edges_ef40_plain(wire, n, capacity)
+    if wire.device.type != "cuda":
+        raise ValueError(f"unpack_edges_ef40 runs on CUDA or CPU tensors, not {wire.device.type}")
+    if wire.shape[0] < ef40_nbytes(n, capacity):
+        raise ValueError(f"an EF40 buffer of {n} edges over {capacity} ids holds {ef40_nbytes(n, capacity)} bytes, "
+                         f"got {wire.shape[0]}")
+    dev = wire.device
+    src = torch.empty((n,), dtype=torch.int32, device=dev)
+    dst = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return src, dst
+    lib = _cuda.library(_SOURCE)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch_for(dev, stream, int(lib.ef40_unpack_scratch_bytes(n, capacity)))
+    b = wire.contiguous()
+    err = lib.ef40_unpack_launch(b.data_ptr(), b.shape[0], n, capacity, src.data_ptr(), dst.data_ptr(),
+                                 scratch.data_ptr(), scratch.numel(), stream)
+    _cuda.check(err, "ef40_unpack_launch")
+    LAUNCHES["ef40_unpack"] += 1
+    return src, dst

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from gelly_streaming_tpu_torch.ops import sketches as ops
@@ -92,10 +93,32 @@ def hll_alpha(m: int) -> float:
     return 0.7213 / (1.0 + 1.079 / m)
 
 
+def hll_linear_tolerance(m: int) -> float:
+    """The most that two f32 implementations' linear counts ``m * (log m -
+    log zeros)`` may differ by, for m registers (absolute).
+
+    Each f32 log is within 1 ulp of its value (faithful: XLA's and torch's
+    on the CPU, CUDA's ``logf`` on the card), so two implementations' logs
+    of one argument differ by at most one ulp of it, and ulp(log zeros) <=
+    ulp(log m) since zeros <= m: the difference of the logs differs by at
+    most 2 ulp(log m).  Each rounds that difference (<= log m) to half an
+    ulp of it, at most 1 ulp(log m) between the two, and the product by m
+    to half an ulp of the result (<= m log m).  So the linear counts differ
+    by at most 3 m ulp(log m) + ulp(m log m): 0.25 at m = 2^16, where the
+    CPU's two logs put them 0.0625 apart at most."""
+    ulp = float(np.spacing(np.float32(math.log(m))))
+    return 3.0 * m * ulp + float(np.spacing(np.float32(m * math.log(m))))
+
+
 def hll_estimate(regs: torch.Tensor) -> torch.Tensor:
     """Cardinality estimate (float32 0-d): the harmonic-mean raw estimate
-    with the small-range linear-counting correction.  Its f32 sum may
-    reduce in another order than XLA's (1-2 ulps)."""
+    with the small-range linear-counting correction.
+
+    The raw estimate's f32 sum may reduce in another order than XLA's (a
+    relative 1e-6 covers it).  The linear count ``m * (log m - log
+    zeros)`` cancels: one ulp of a log becomes m ulps of the count, so it
+    is held to another implementation within ``hll_linear_tolerance(m)``
+    (absolute), not bit for bit."""
     m = regs.shape[0]
     inv = torch.sum(torch.exp2(-regs.to(torch.float32)))
     raw = torch.tensor(hll_alpha(m) * m * m, dtype=torch.float32, device=regs.device) / inv

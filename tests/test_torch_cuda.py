@@ -2742,6 +2742,107 @@ def test_bdv_decode_matches_twin(cuda_device, case):
             assert g.dtype == torch.int32 and torch.equal(g, w), (case, n, valued, buf.nbytes)
 
 
+# ---------------------------------------------------------------------------
+# ef40_unpack (csrc/wire_decode.cu)
+
+
+def _ef40_buffers(case):
+    """(uint8 buffer, n, capacity) triples of one case."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    rng = np.random.default_rng(len(case))
+
+    def arbitrary(n, cap, density=None):
+        buf = rng.integers(0, 256, wire.ef40_nbytes(n, cap)).astype(np.uint8)
+        bv = (n + cap + 7) // 8
+        if density is not None:
+            buf[:bv] = np.packbits(rng.random(8 * bv) < density, bitorder="little")
+        return buf
+
+    if case == "cc_batch":
+        s, d = rng.integers(0, 1 << 20, 1 << 21).astype(np.int32), rng.integers(0, 1 << 20, 1 << 21).astype(np.int32)
+        return [(wire.pack_edges(s, d, (wire.EF40, 1 << 20)), 1 << 21, 1 << 20)]
+    if case == "packed":
+        out = []
+        for n, cap in ((1, 1), (7, 5), (4097, 1000), (70001, 1 << 16), (1 << 20, 1 << 20)):
+            s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+            out.append((wire.pack_edges(s, d, (wire.EF40, cap)), n, cap))
+        return out
+    if case == "no_ones":
+        return [(arbitrary(n, cap, 0.0), n, cap) for n, cap in ((1, 1), (5000, 300), (1 << 21, 1 << 20))]
+    if case == "all_ones":
+        return [(arbitrary(n, cap, 1.0), n, cap) for n, cap in ((1, 1), (5000, 300), (1 << 21, 1 << 20))]
+    if case == "too_few_ones":
+        return [(arbitrary(n, cap, n / (4 * (n + cap))), n, cap) for n, cap in ((9, 40), (6000, 6000),
+                                                                               (1 << 21, 1 << 20))]
+    if case == "too_many_ones":
+        return [(arbitrary(n, cap, min(1.0, 2 * n / (n + cap))), n, cap) for n, cap in ((9, 40), (6000, 6000),
+                                                                                        (1 << 21, 1 << 20))]
+    if case == "odd_n":
+        return [(arbitrary(n, cap), n, cap) for n, cap in ((1, 0), (3, 7), (2049, 100), (16385, 1 << 14),
+                                                           ((1 << 21) - 1, 1 << 20))]
+    assert case == "random_bytes"
+    return [(arbitrary(int(n), int(cap)), int(n), int(cap))
+            for n, cap in zip(rng.integers(1, 1 << 12, 256), rng.integers(0, 1 << 12, 256))]
+
+
+@pytest.mark.parametrize("case", ["cc_batch", "packed", "no_ones", "all_ones", "too_few_ones", "too_many_ones",
+                                  "odd_n", "random_bytes"])
+def test_ef40_unpack_matches_twin(cuda_device, case):
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    for buf, n, cap in _ef40_buffers(case):
+        b = torch.from_numpy(buf).to(cuda_device)
+        before = dict(wd.LAUNCHES)
+        got = wd.unpack_edges_ef40(b, n, cap)
+        assert wd.LAUNCHES == {**before, "ef40_unpack": before["ef40_unpack"] + 1}
+        want = wd.unpack_edges_ef40_plain(b, n, cap)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), (case, n, cap)
+
+
+def test_wire_decodes_take_more_than_one_grid(cuda_device):
+    """Batches past one launch's co-resident blocks: bdv_decode's rounds
+    (more than 132 chunks of 16,384 edges), ef40_unpack's blocks taking
+    several pieces of the bitvector and several pair tiles."""
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    rng = np.random.default_rng(9)
+    n, cap = 3 * (1 << 21) + 12345, 1 << 20
+    s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+    v = rng.integers(-(1 << 27), 1 << 27, n).astype(np.int32)
+    for valued in (False, True):
+        b = torch.from_numpy(wire.pack_edges_bdv(s, d, cap, val_i32=v if valued else None)).to(cuda_device)
+        got, want = wd.decode_bdv(b, n, valued), wd.decode_bdv_plain(b, n, valued)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), valued
+    n, cap = (1 << 22) + 3, 1 << 22
+    b = torch.from_numpy(rng.integers(0, 256, wire.ef40_nbytes(n, cap)).astype(np.uint8)).to(cuda_device)
+    got, want = wd.unpack_edges_ef40(b, n, cap), wd.unpack_edges_ef40_plain(b, n, cap)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_ef40_unpack_reads_views_at_any_offset(cuda_device):
+    """A superbatch arena's rows start at any byte: the kernel's staging
+    and bit reads do not assume an aligned buffer."""
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    rng = np.random.default_rng(3)
+    n, cap = 12345, 4099
+    s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+    buf = wire.pack_edges(s, d, (wire.EF40, cap))
+    big = torch.zeros(buf.nbytes + 64, dtype=torch.uint8, device=cuda_device)
+    want = wd.unpack_edges_ef40_plain(torch.from_numpy(buf).to(cuda_device), n, cap)
+    for off in range(17):
+        view = big[off : off + buf.nbytes]
+        view.copy_(torch.from_numpy(buf))
+        got = wd.unpack_edges_ef40(view, n, cap)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), off
+    with pytest.raises(ValueError):
+        wd.unpack_edges_ef40(big[: buf.nbytes - 1], n, cap)
+
+
 def test_checkpointed_compressed_wire_run_on_the_card_resumes(cuda_device, tmp_path):
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream

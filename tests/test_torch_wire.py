@@ -1,8 +1,9 @@
 """Port parity: the wire format of the PyTorch port against the JAX package.
 
 Packers (numpy in both packages) must give the same bytes; the port's
-device unpack (PyTorch ops, run here on CPU tensors) and host unpack must
-decode the same (src, dst) as the JAX decoders, for every width; the
+device unpack (PyTorch ops and the kernels' twins, run here on CPU
+tensors) and host unpack must decode the same (src, dst) as the JAX
+decoders, for every width and on arbitrary EF40 and BDV bytes; the
 from_wire guards refuse what the JAX guards refuse.  Tolerance: none.
 """
 
@@ -183,6 +184,69 @@ def test_ef40_device_unpack_matches_jax_on_arbitrary_bytes():
         want = jw.unpack_edges(jnp.asarray(buf), n, (jw.EF40, cap))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# the JAX decode as the JAX package dispatches it: one executable a shape
+_jax_unpack_ef40 = jax.jit(jw.unpack_edges_ef40, static_argnums=(1, 2))
+
+
+def _ef40_bytes(case, rng, n, cap):
+    """A buffer of one arbitrary-bytes case: the bitvector's ones against
+    n."""
+    buf = rng.integers(0, 256, tw.ef40_nbytes(n, cap)).astype(np.uint8)
+    bv = (n + cap + 7) // 8
+    if case == "no_ones":
+        buf[:bv] = 0
+    elif case == "all_ones":
+        buf[:bv] = 0xFF
+    elif case == "too_few_ones":  # about n / 4 ones in n + cap bits
+        bits = rng.random(8 * bv) < n / (4 * (n + cap))
+        buf[:bv] = np.packbits(bits, bitorder="little")
+    elif case == "too_many_ones":  # about 2n ones
+        bits = rng.random(8 * bv) < min(1.0, 2 * n / (n + cap))
+        buf[:bv] = np.packbits(bits, bitorder="little")
+    return buf
+
+
+@pytest.mark.parametrize("case", ["no_ones", "all_ones", "too_few_ones", "too_many_ones", "odd_n", "thousands"])
+def test_ef40_device_unpack_matches_jax_on_edge_cases(case):
+    """The twin (the CPU path of ``ops/wire_decode.unpack_edges_ef40``) and
+    the JAX decode on bitvectors with no, every, too few and too many ones,
+    odd n, and n and capacity in the thousands."""
+    rng = np.random.default_rng(len(case))
+    if case == "thousands":
+        n, cap = int(rng.integers(2000, 6000)), int(rng.integers(2000, 6000))
+    else:  # one shape a case: one JAX compile
+        n, cap = int(rng.integers(1, 300)) | (1 if case == "odd_n" else 0), int(rng.integers(1, 300))
+    for _ in range(4):
+        buf = _ef40_bytes(case, rng, n, cap)
+        got = tdec.unpack_edges_ef40(torch.from_numpy(buf), n, cap)
+        want = _jax_unpack_ef40(jnp.asarray(buf), n, cap)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_ef40_wrapper_runs_the_twin_on_cpu_tensors_only_and_counts_it():
+    src, dst = _edges(1001, 1000, 4)
+    buf = tw.pack_edges(src, dst, (tw.EF40, 1000))
+    tdec.reset_launches()
+    got = tw.unpack_edges(torch.from_numpy(buf), 1001, (tw.EF40, 1000))
+    assert tdec.TWIN_CALLS == {"bdv_decode": 0, "ef40_unpack": 1}
+    assert not any(tdec.LAUNCHES.values())
+    want = tdec.unpack_edges_ef40_plain(torch.from_numpy(buf), 1001, 1000)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    order = np.lexsort((dst, src))  # the multiset, src-grouped
+    assert np.array_equal(np.sort(got[0].numpy()), src[order]) and sorted(zip(*(x.tolist() for x in got))) == \
+        sorted(zip(src.tolist(), dst.tolist()))
+    with pytest.raises(ValueError):
+        tdec.unpack_edges_ef40(torch.from_numpy(buf).to(torch.int32), 1001, 1000)
+    with pytest.raises(ValueError):
+        tdec.unpack_edges_ef40(torch.from_numpy(buf), -1, 1000)
+    with pytest.raises(ValueError):
+        tdec.unpack_edges_ef40(torch.from_numpy(buf).to("meta"), 1001, 1000)
+    assert tdec.TWIN_CALLS["ef40_unpack"] == 1
 
 
 # ---------------------------------------------------------------------------
