@@ -383,6 +383,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import queue
 import re
 import shutil
 import subprocess
@@ -2853,13 +2854,16 @@ def step_grads_err(params, args) -> tuple:
     return rel, worst
 
 
-def train_profile(fn, reps: int, warmup: bool = True):
+def train_profile(fn, reps: int, warmup: bool = True, require=()):
     """(device busy ms per call of ``fn`` by torch.profiler, its top six
     device rows as (name, ms per call)); (None, []) if the profiler
-    fails.  Only the device's own rows (kernels, copies, sets) count: the
-    autograd and optimizer ranges, and their annotations on the device's
-    timeline, also carry the device time of what they launch.  ``fn``
-    runs once before the profiled calls unless ``warmup`` is False."""
+    fails, and (None, top) if it kept no row of a kernel named in
+    ``require`` (the profile lost the path's kernels, so its busy time is
+    not the path's).  Only the device's own rows (kernels, copies, sets)
+    count: the autograd and optimizer ranges, and their annotations on the
+    device's timeline, also carry the device time of what they launch.
+    ``fn`` runs once before the profiled calls unless ``warmup`` is
+    False."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2883,11 +2887,17 @@ def train_profile(fn, reps: int, warmup: bool = True):
     except Exception as e:  # the profiler is a side measurement; report and go on
         log(f"  torch.profiler failed: {type(e).__name__}: {e}")
         return None, []
-    top = sorted(rows.items(), key=lambda r: -r[1][0] * r[1][1])[:6]
-    names = [re.split(r"[<(]", k.replace("(anonymous namespace)::", "").removeprefix("void "))[0]
-             .split("::")[-1].strip()[:40] for k, _ in top]
-    return (sum(us * calls for us, calls in rows.values()) / reps / 1e3,
-            [(name, round(us * calls / reps / 1e3, 4)) for name, (_, (us, calls)) in zip(names, top)])
+    def short(key):
+        return re.split(r"[<(]", key.replace("(anonymous namespace)::", "").removeprefix("void "))[0] \
+            .split("::")[-1].strip()[:40]
+
+    ranked = sorted(rows.items(), key=lambda r: -r[1][0] * r[1][1])
+    top = [(short(k), round(us * calls / reps / 1e3, 4)) for k, (us, calls) in ranked[:6]]
+    missing = set(require) - {short(k) for k in rows}
+    if missing:
+        log(f"  torch.profiler kept no row of {sorted(missing)} (rows {top}): busy time not measured")
+        return None, top
+    return sum(us * calls for us, calls in rows.values()) / reps / 1e3, top
 
 
 def parent_sage_calls(lib):
@@ -4075,9 +4085,10 @@ def exact_paths(label: str, dev, batches: int) -> dict:
     return got
 
 
-def exact_profile(fn):
+def exact_profile(fn, require=()):
     """(device busy ms, wall ms, top rows) of one run of ``fn`` under
-    torch.profiler, with no warm-up run (the counted run warmed it)."""
+    torch.profiler, with no warm-up run (the counted run warmed it); busy
+    None if the profile holds no row of a kernel in ``require``."""
     walls = []
 
     def timed():
@@ -4085,7 +4096,7 @@ def exact_profile(fn):
         fn()
         walls.append(time.perf_counter() - t0)
 
-    busy, top = train_profile(timed, 1, warmup=False)
+    busy, top = train_profile(timed, 1, warmup=False, require=require)
     return busy, walls[-1] * 1e3, top
 
 
@@ -7275,6 +7286,417 @@ def checkpoint_runs(dev, cpm, data: dict, path: str, parent=None, variants=None)
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the network edge source, the measurement programs, wire_unpack
+
+NET_VERTICES = 1 << 20  # (a): C
+NET_WINDOW = 1 << 21  # ingest_window_edges
+NET_BATCH = 1 << 19
+NET_PUSHES = 32  # 31 PAIR40 buffers and a tail of one batch: 8 windows
+NET_SHORT_PUSHES = 8  # the EF40, BDV and CPU runs: 2 windows
+NET_QUEUE = 4  # max_queued_batches: the pusher waits on the job
+NET_CRASH_SAVES = 2  # (a): the crash after the 2nd snapshot
+# (b): every mode at the JAX program's defaults, with the flags that reach
+# the rest of its path (the trace, both spanner bodies, sage's training);
+# spanner's CPU run takes over 30 s, so its fields are held against the
+# plain-Python spanner_oracle in a process of its own
+MEASURE_RUNS = (["degrees", "--trace"], ["bipartiteness"], ["triangles"], ["spanner", "--body", "both"],
+                ["matching"], ["replay"], ["sage", "--train-steps", "20"], ["pagerank"], ["sssp"], ["kcore"])
+MEASURED_KEY = re.compile(r"per_sec|eps$|_ms$|_ms_|gbps|runtime|loss|winner|crossover")
+UNPACK_NS = (1, 2, 3, 31, 1 << 16, 1 << 21)  # (c)
+UNPACK_REPS = 100
+
+
+class InjectedCrash(RuntimeError):
+    """The crash phase 20 (a) injects into a checkpointed run."""
+
+
+def unpack_bound_ms(n: int, width) -> float:
+    """A fixed-width unpack's bytes bound: the wire read once, src and dst
+    written."""
+    return ((5 * n if width == "pair40" else 2 * width * n) + 8 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def idle_pct(busy_ms, wall_ms):
+    return None if busy_ms is None else 100.0 * (1.0 - busy_ms / wall_ms)
+
+
+def net_push(src, width_bufs, s, d, start: int, pushes: int, mid: dict = None):
+    """A pusher thread: buffers k = start/B .. through push_wire with their
+    offsets, then the last batch through push_tail, then close().  A
+    refusal after a crash (the consumer quiesced the source) ends it."""
+    from gelly_streaming_tpu_torch.io import sources
+
+    b = NET_BATCH
+    errors = []
+
+    def push(fn, *args, **kw):
+        # a bounded wait, then the push again: its first step refuses
+        # (SourceQuiesced) once the job's side has quiesced the source
+        while True:
+            try:
+                return fn(*args, timeout=1.0, **kw)
+            except queue.Full:
+                pass
+
+    def run():
+        try:
+            k0 = start // b
+            for k in range(k0, pushes - 1):
+                buf, width = width_bufs(k)
+                push(src.push_wire, buf, width, offset=k * b)
+                if mid is not None and k == pushes // 2:
+                    mid.update(src.progress())
+            push(src.push_tail, s[(pushes - 1) * b : pushes * b], d[(pushes - 1) * b : pushes * b],
+                 offset=(pushes - 1) * b)
+            src.close()
+        except sources.SourceQuiesced:
+            pass
+        except BaseException as e:  # raised on the phase's thread
+            errors.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    return th, errors
+
+
+def net_job(dev, cfg_kw: dict, width_bufs, s, d, pushes: int = NET_PUSHES, checkpoint_path=None,
+            resume_edges: int = 0, mid: dict = None):
+    """(records, seconds) of a windowed CC job over a NetworkEdgeSource fed
+    by a pusher thread; a failed job quiesces the source, so the pusher's
+    next push (a bounded wait) refuses and the thread ends."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.io.sources import NetworkEdgeSource
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+
+    cfg = StreamConfig(vertex_capacity=NET_VERTICES, batch_size=NET_BATCH, ingest_window_edges=NET_WINDOW,
+                       **cfg_kw)
+    src = NetworkEdgeSource(cfg, NET_BATCH, resume_edges=resume_edges, max_queued_batches=NET_QUEUE, device=dev)
+    t0 = time.perf_counter()
+    th, errors = net_push(src, width_bufs, s, d, resume_edges, pushes, mid)
+    try:
+        job = src.stream().aggregate(ConnectedComponents(), checkpoint_path=checkpoint_path)
+        records = job.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        if th.is_alive():
+            src.quiesce()  # the pusher's next push, or its wait's end, refuses
+        th.join()
+    if errors:
+        raise errors[0]
+    return records, seconds
+
+
+def cc_records_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) > 0 and all(
+        torch.equal(x[0].parent.cpu(), y[0].parent.cpu()) and torch.equal(x[0].seen.cpu(), y[0].seen.cpu())
+        for x, y in zip(a, b))
+
+
+def phase_network(dev, cpm) -> dict:
+    """(a) the network edge source on the card; returns its figures."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import sources, wire
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.utils import checkpoint, metrics
+
+    t_phase = time.perf_counter()
+    b, c = NET_BATCH, NET_VERTICES
+    rng = np.random.default_rng(0)
+    n = NET_PUSHES * b
+    s = rng.integers(0, c, n).astype(np.int32)
+    d = rng.integers(0, c, n).astype(np.int32)
+    t0 = time.perf_counter()
+    pair40 = [wire.pack_edges(s[k * b : (k + 1) * b], d[k * b : (k + 1) * b], wire.PAIR40)
+              for k in range(NET_PUSHES - 1)]
+    log(f"  {NET_PUSHES - 1} PAIR40 buffers of {b} edges packed in {time.perf_counter() - t0:.3f} s (untimed)")
+
+    def by_pair40(k):
+        return pair40[k], wire.PAIR40
+
+    cfg = StreamConfig(vertex_capacity=c, batch_size=b, ingest_window_edges=NET_WINDOW)
+    ref = EdgeStream.from_arrays(s, d, cfg, batch_size=b, device=dev).aggregate(ConnectedComponents()).collect()
+    if len(ref) != n // NET_WINDOW:
+        raise RuntimeError(f"the from_arrays reference emitted {len(ref)} records, not {n // NET_WINDOW}")
+    out = {"edges": n, "windows": len(ref), "batch": b, "window_edges": NET_WINDOW, "vertices": c}
+    for plane, kw in (("sync", {}), (f"async {ASYNC_DEPTH}", {"async_windows": ASYNC_DEPTH})):
+        net_job(dev, kw, by_pair40, s, d, pushes=NET_SHORT_PUSHES)  # warm this plane
+        metrics.reset_histograms()
+        uf.reset_launches()
+        mid = {}
+        recs, secs = net_job(dev, kw, by_pair40, s, d, mid=mid)
+        union_launches = uf.LAUNCHES["union_kernel"]
+        if not union_launches:
+            raise RuntimeError(f"network source, {plane}: the CC fold launched no union_kernel: {uf.LAUNCHES}")
+        if not cc_records_equal(recs, ref):
+            raise RuntimeError(f"network source, {plane}: the records differ from the from_arrays stream's")
+        hist = metrics.hist_snapshot()["global"]["push_to_fold_ms"]
+        if hist["count"] != NET_PUSHES:
+            raise RuntimeError(f"push_to_fold_ms counted {hist['count']} pulls, not {NET_PUSHES}")
+        out[plane] = {"edges_per_s": n / secs, "s": secs, "push_to_fold_p50_ms": hist["p50_ms"],
+                      "push_to_fold_p99_ms": hist["p99_ms"], "push_to_fold_max_ms": hist["max_ms"],
+                      "progress_at_midpoint": mid, "union_kernel_launches": union_launches}
+        log(f"  {plane}: {len(recs)} windows equal to from_arrays on the card, union_kernel launched "
+            f"{union_launches} times; {n / secs:.6g} edges/s "
+            f"({secs:.3f} s), push-to-fold p50 {hist['p50_ms']} ms p99 {hist['p99_ms']} ms; progress() after "
+            f"push {NET_PUSHES // 2}: {mid}")
+    busy, wall, top = exact_profile(lambda: net_job(dev, {}, by_pair40, s, d), require=("union_kernel",))
+    out["idle_pct"] = idle_pct(busy, wall)
+    out["busy_ms"], out["profiled_wall_ms"], out["top"] = busy, wall, top
+    log(f"  sync run under torch.profiler: device busy {busy} ms of {wall:.1f} ms wall, idle "
+        f"{out['idle_pct']}%; top {top}")
+    # the first two windows against the port on the CPU
+    cpu_recs, _ = net_job(torch.device("cpu"), {}, by_pair40, s, d, pushes=NET_SHORT_PUSHES)
+    if not cc_records_equal(cpu_recs, ref[: len(cpu_recs)]) or len(cpu_recs) != 2:
+        raise RuntimeError("network source: the CPU run's two windows differ from the card's")
+    log("  the first 2 windows equal the port's run on device='cpu'")
+    # EF40 and BDV pushes, two windows
+    t0 = time.perf_counter()
+    short = {name: [wire.pack_edges_bdv(s[k * b : (k + 1) * b], d[k * b : (k + 1) * b], c) if name == "bdv"
+                     else wire.pack_edges(s[k * b : (k + 1) * b], d[k * b : (k + 1) * b], (wire.EF40, c))
+                     for k in range(NET_SHORT_PUSHES - 1)] for name in ("ef40", "bdv")}
+    log(f"  EF40 and BDV buffers for 2 windows packed in {time.perf_counter() - t0:.2f} s (untimed)")
+    for name, width in (("ef40", (wire.EF40, c)), ("bdv", (wire.BDV, c))):
+        recs, secs = net_job(dev, {}, lambda k, name=name, width=width: (short[name][k], width), s, d,
+                             pushes=NET_SHORT_PUSHES)
+        if not cc_records_equal(recs, ref[:2]):
+            raise RuntimeError(f"network source, {name}: the records differ from the from_arrays stream's")
+        out[name] = {"edges_per_s": NET_SHORT_PUSHES * b / secs, "bytes_per_edge":
+                     sum(x.nbytes for x in short[name]) / ((NET_SHORT_PUSHES - 1) * b)}
+        log(f"  {name}: 2 windows equal; {out[name]['edges_per_s']:.6g} edges/s, "
+            f"{out[name]['bytes_per_edge']:.3f} wire bytes an edge")
+    # crash after the 2nd snapshot, resume from the snapshot's cursor
+    ck_dir = tempfile.mkdtemp(prefix="net_ck_")
+    try:
+        path = os.path.join(ck_dir, "cc")
+        real_save, saves = checkpoint.save_state, []
+
+        def crashing_save(p, state):
+            real_save(p, state)
+            saves.append(p)
+            if len(saves) == NET_CRASH_SAVES:
+                raise InjectedCrash("after the 2nd snapshot")
+
+        checkpoint.save_state = crashing_save
+        try:
+            try:
+                net_job(dev, {}, by_pair40, s, d, checkpoint_path=path)
+            except InjectedCrash:
+                pass
+            else:
+                raise RuntimeError("the checkpointed run did not crash")
+        finally:
+            checkpoint.save_state = real_save
+        _, last, _ = ConnectedComponents()._restore_merge(cfg, dev, path, True)
+        cursor = (last + 1) * NET_WINDOW
+        probe = sources.NetworkEdgeSource(cfg, b, resume_edges=cursor, device=dev)
+        try:
+            probe.push_wire(pair40[0], wire.PAIR40, offset=0)
+            raise RuntimeError("a stale offset was accepted")
+        except sources.PushOutOfSync as e:
+            if e.expected != cursor or e.declared != 0:
+                raise RuntimeError(f"PushOutOfSync carries {e.expected}/{e.declared}, not {cursor}/0")
+        t0 = time.perf_counter()
+        resumed, _ = net_job(dev, {}, by_pair40, s, d, checkpoint_path=path, resume_edges=cursor)
+        resume_s = time.perf_counter() - t0
+        if not cc_records_equal(resumed, ref[len(ref) - len(resumed):]) or not resumed:
+            raise RuntimeError("the resumed run's records differ from the clean run's")
+        out["crash"] = {"cursor_edges": cursor, "snapshots_before_crash": len(saves), "resumed_records":
+                        len(resumed), "resume_s": resume_s}
+        log(f"  crashed after snapshot {len(saves)}: cursor {cursor} edges; a stale push refused PushOutOfSync "
+            f"(expected {cursor}); resumed from the cursor in {resume_s:.3f} s, {len(resumed)} records and the "
+            "final state equal to the clean run's")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def measurement_fields(out: dict) -> dict:
+    return {k: v for k, v in out.items() if not MEASURED_KEY.search(k)}
+
+
+def phase_measurements(dev, oracle_pool) -> dict:
+    """(b) every measurement program on the card, held against the port's
+    CPU run with the same arguments (the spanner against the oracle)."""
+    import contextlib
+    import io
+
+    from gelly_streaming_tpu_torch.examples import measurements
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    t_phase = time.perf_counter()
+    spanner_args = measurements.parser().parse_args(next(a for a in MEASURE_RUNS if a[0] == "spanner"))
+    rng = np.random.default_rng(spanner_args.seed)
+    sp_src = rng.integers(0, spanner_args.vertices, spanner_args.edges).astype(np.int32)
+    sp_dst = rng.integers(0, spanner_args.vertices, spanner_args.edges).astype(np.int32)
+    oracle = oracle_pool.apply_async(spanner_oracle, (sp_src, sp_dst, spanner_args.vertices,
+                                                      spanner_args.max_degree, spanner_args.k))
+    out, launches = {}, {}
+    for argv in MEASURE_RUNS:
+        mode = argv[0]
+        wd.reset_launches()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            measurements.main(argv)
+        secs = time.perf_counter() - t0
+        launches[mode] = dict(wd.LAUNCHES)
+        got = json.loads(text.getvalue().strip().splitlines()[-1])
+        log(f"  {' '.join(argv)} ({secs:.1f} s): {json.dumps(got)}")
+        if wd.TWIN_CALLS["wire_unpack"]:
+            raise RuntimeError(f"{mode}: the wire_unpack twin ran on the card")
+        if mode == "spanner":
+            ref = None
+        else:
+            t0 = time.perf_counter()
+            ref = measurements.run(argv + ["--device=cpu"])
+            if list(ref) != list(got) or measurement_fields(ref) != measurement_fields(got):
+                raise RuntimeError(f"{mode}: the card's fields differ from the CPU run's:\n {got}\n {ref}")
+            log(f"    the CPU run with the same arguments ({time.perf_counter() - t0:.1f} s) agrees on "
+                f"{sorted(measurement_fields(ref))}")
+        out[mode] = {"out": got, "s": secs}
+    deg, bip = out["degrees"]["out"], out["bipartiteness"]["out"]
+    batches = deg["edges_folded"] // measurements.parser().parse_args(MEASURE_RUNS[0]).batch
+    if deg["degree_total"] != 2 * deg["edges_folded"] or deg.get("flink_proxy_counts_ok") is not True:
+        raise RuntimeError(f"degrees: {deg}")
+    if deg["trace_records"] != 2 * deg["edges_folded"]:
+        raise RuntimeError(f"degrees --trace: {deg['trace_records']} records for {deg['edges_folded']} edges")
+    # the fold's batches, then the trace's two drains of the from_wire replay
+    want = {"degrees": 3 * batches, "bipartiteness": batches}
+    for mode, count in want.items():
+        if launches[mode]["wire_unpack"] != count:
+            raise RuntimeError(f"{mode}: wire_unpack launched {launches[mode]['wire_unpack']} times, not once a "
+                               f"batch ({count})")
+    log(f"  wire_unpack launches: degrees --trace {launches['degrees']['wire_unpack']} (the fold's {batches} "
+        f"batches and two get_degrees drains over from_wire, {batches} each), bipartiteness "
+        f"{launches['bipartiteness']['wire_unpack']}; the twin never")
+    table = oracle.get(timeout=600)
+    sp = out["spanner"]["out"]
+    if sp["spanner_edges"] != int((table >= 0).sum()) // 2 or sp["bodies_agree"] is not True:
+        raise RuntimeError(f"spanner: {sp['spanner_edges']} edges against the oracle's {int((table >= 0).sum()) // 2}")
+    log(f"  spanner: {sp['spanner_edges']} edges, equal to spanner_oracle's; both bodies agree")
+    busy, wall, top = exact_profile(lambda: measurements.run([a for a in MEASURE_RUNS[0] if a != "--trace"]),
+                                    require=("wire_unpack_kernel", "degree_fold_kernel"))
+    out["degrees_idle_pct"] = idle_pct(busy, wall)
+    log(f"  measurements degrees under torch.profiler: device busy {busy} ms of {wall:.1f} ms wall, idle "
+        f"{out['degrees_idle_pct']}%; top {top}")
+    out["launches"] = launches["degrees"]["wire_unpack"] + launches["bipartiteness"]["wire_unpack"]
+    out["bipartite"] = bip["bipartite"]
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def unpack_cases(rng):
+    """(wire buffer, n, width, src, dst): widths 3 and PAIR40 over UNPACK_NS,
+    ids 0 and C - 1, values across PAIR40's bit-19/20 seam."""
+    from gelly_streaming_tpu_torch.io import wire
+
+    for width, cap in ((3, 1 << 24), (wire.PAIR40, 1 << 20)):
+        for n in UNPACK_NS:
+            s = rng.integers(0, cap, n).astype(np.int32)
+            d = rng.integers(0, cap, n).astype(np.int32)
+            s[0], d[-1] = cap - 1, 0
+            if n > 4:
+                s[1:4] = (1 << 19) - 1, 1 << 19, (1 << 20) - 1
+                d[1:4] = 0, cap - 1, (1 << 19) + 1
+            yield wire.pack_edges(s, d, width), n, width, s, d
+
+
+def phase_unpack(dev, cpm) -> dict:
+    """(c) wire_unpack against its twin, then its times."""
+    import torch
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    rng = np.random.default_rng(20)
+    checked = 0
+    for buf, n, width, s, d in unpack_cases(rng):
+        big = torch.full((buf.nbytes + 48,), 0xA5, dtype=torch.uint8, device=dev)
+        for off in range(16):
+            view = big[off : off + buf.nbytes]
+            view.copy_(torch.from_numpy(buf))
+            got = wd.unpack_edges_fixed(view, n, width)
+            want = wd.unpack_edges_fixed_plain(view, n, width)
+            if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                    and np.array_equal(got[0].cpu().numpy(), s) and np.array_equal(got[1].cpu().numpy(), d)):
+                raise RuntimeError(f"wire_unpack differs from its twin: width {width}, n {n}, offset {off}")
+            checked += 1
+    log(f"  wire_unpack equal to its twin and to the packed ids on {checked} buffers (widths 3 and PAIR40, n in "
+        f"{list(UNPACK_NS)}, offsets 0-15 of a larger allocation, lengths no multiple of 16 among them)")
+    # get_degrees over a PAIR40 from_wire replay: once a batch
+    c, b, nb = 1 << 17, 1 << 16, 16
+    s = rng.integers(0, c, nb * b).astype(np.int32)
+    d = rng.integers(0, c, nb * b).astype(np.int32)
+    bufs, _ = wire.pack_stream(s, d, b, wire.PAIR40)
+    wd.reset_launches()
+    recs = EdgeStream.from_wire(bufs, b, wire.PAIR40, StreamConfig(vertex_capacity=c, batch_size=b),
+                                device=dev).get_degrees().collect()
+    if wd.LAUNCHES["wire_unpack"] != nb or wd.TWIN_CALLS["wire_unpack"] or len(recs) != 2 * nb * b:
+        raise RuntimeError(f"get_degrees over from_wire: {wd.LAUNCHES}, twins {wd.TWIN_CALLS}, {len(recs)} records")
+    log(f"  get_degrees over a PAIR40 from_wire replay of {nb} batches: wire_unpack launched {nb} times")
+    times = {}
+    for label, n, width in (("pair40_2^21", 1 << 21, wire.PAIR40), ("3_2^21", 1 << 21, 3),
+                            ("pair40_2^16", 1 << 16, wire.PAIR40)):
+        cap = 1 << 20
+        buf = to_dev((wire.pack_edges(rng.integers(0, cap, n).astype(np.int32),
+                                      rng.integers(0, cap, n).astype(np.int32), width),), dev)[0]
+        d_ms, h_us = device_ms(lambda: wd.unpack_edges_fixed(buf, n, width), UNPACK_REPS, cpm)
+        ev_ms = cuda_ms(lambda: wd.unpack_edges_fixed(buf, n, width), UNPACK_REPS)
+        twin_ms = cuda_ms(lambda: wd.unpack_edges_fixed_plain(buf, n, width), 20)
+        twin_dev_ms, _ = device_ms(lambda: wd.unpack_edges_fixed_plain(buf, n, width), 20, cpm)
+        bound = unpack_bound_ms(n, width)
+        times[label] = {"n": n, "width": width, "device_ms": d_ms, "host_us": h_us, "ms": ev_ms,
+                        "plain_ms": twin_ms, "plain_device_ms": twin_dev_ms, "bound_ms": bound,
+                        "ratio": d_ms / bound}
+        log(f"  wire_unpack {label}: device {d_ms:.5f} ms (bound {bound:.5f} ms, {d_ms / bound:.2f}x), host "
+            f"{h_us:.2f} us a call, back-to-back events {ev_ms:.5f} ms; the twin (the widening torch ops) {twin_ms:.5f} ms "
+            f"events, {twin_dev_ms:.5f} ms held")
+    # widths 2 and 4 keep their PyTorch ops (io/wire.unpack_edges): timed
+    # for the open item, no kernel
+    for width, cap in ((2, 1 << 16), (4, 1 << 20)):
+        n = 1 << 21
+        buf = to_dev((wire.pack_edges(rng.integers(0, cap, n).astype(np.int32),
+                                      rng.integers(0, cap, n).astype(np.int32), width),), dev)[0]
+        ops_dev_ms, ops_us = device_ms(lambda: wire.unpack_edges(buf, n, width), 20, cpm)
+        ops_ms = cuda_ms(lambda: wire.unpack_edges(buf, n, width), 20)
+        bound = unpack_bound_ms(n, width)
+        times[f"ops_{width}_2^21"] = {"n": n, "width": width, "device_ms": ops_dev_ms, "host_us": ops_us,
+                                      "ms": ops_ms, "bound_ms": bound, "ratio": ops_dev_ms / bound}
+        log(f"  width {width}'s torch ops, 2^21 edges: device {ops_dev_ms:.5f} ms (bound {bound:.5f} ms, "
+            f"{ops_dev_ms / bound:.2f}x), host {ops_us:.2f} us a call, back-to-back events {ops_ms:.5f} ms")
+    return {"checked": checked, "times": times}
+
+
+def phase_twenty(dev, cpm) -> dict:
+    """Phase 20: (a) the network source, (b) the measurement programs,
+    (c) wire_unpack; the spanner oracle runs in a process of its own."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        log("  (a) NetworkEdgeSource: windowed CC over stream() at C = 2^20, 8 windows of 2^21, pushes of 2^19")
+        net = phase_network(dev, cpm)
+        log("  (b) the measurement programs at the JAX program's defaults")
+        meas = phase_measurements(dev, pool)
+        log("  (c) wire_unpack against its twin, and its times")
+        unpack = phase_unpack(dev, cpm)
+    finally:
+        pool.terminate()
+        pool.join()
+    return {"network": net, "measurements": meas, "unpack": unpack}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -7683,6 +8105,9 @@ def main(argv=None) -> int:
                            else None, {} if split_failed else {part: load_baseline(path, PARENT_WIRE_SIGNATURES)
                                                                for part, path in bdv_split_cu.items()})
 
+    log("phase 20: the network edge source, the measurement programs and wire_unpack on the card")
+    tw = phase_twenty(dev, cpm)
+
     kernels = [
         {
             "name": "pane_adjacency",
@@ -7927,6 +8352,17 @@ def main(argv=None) -> int:
         "library_call": "none: no one PyTorch call computes the unpack",
         "timed": "phase 7's last batch of 2^21 edges over 2^20 ids as EF40, on a held stream",
         "ratio": cc["ef40"]["ratio"], "checked_buffers": ck["c"]["ef40_buffers"]})
+    un = tw["unpack"]["times"]
+    kernels.append({
+        **entry("wire_unpack", "wire_decode.cu", "gelly_streaming_tpu/io/wire.py:120",
+                {**un["pair40_2^21"], "launches": tw["measurements"]["launches"], "err": 0}),
+        "also_replaces": "gelly_streaming_tpu/io/wire.py:589 (unpack_edges at width 3)",
+        "library_call": "none: no one PyTorch call unpacks 20-bit pairs or 3-byte ints; plain_ms is the twin, the widening torch ops",
+        "timed": "a PAIR40 batch of 2^21 edges on a held stream; width_3 and measurement_default beside it",
+        "ratio": un["pair40_2^21"]["ratio"], "width_3": un["3_2^21"], "measurement_default": un["pair40_2^16"],
+        "widths_2_4_torch_ops": {k: v for k, v in un.items() if k.startswith("ops_")},
+        "checked_buffers": tw["unpack"]["checked"], "network_source": tw["network"],
+        "measurements": {k: v for k, v in tw["measurements"].items() if k != "launches"}})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

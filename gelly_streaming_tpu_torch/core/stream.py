@@ -46,7 +46,7 @@ from gelly_streaming_tpu_torch.core.output import NULL, OutputStream, RecordBloc
 from gelly_streaming_tpu_torch.core.types import EdgeBatch, EdgeDirection, tree_leaves
 from gelly_streaming_tpu_torch.device import DeviceLike, resolve_device
 from gelly_streaming_tpu_torch.io import wire as _wire
-from gelly_streaming_tpu_torch.io.prefetch import WirePrefetcher, prefetch_to_host
+from gelly_streaming_tpu_torch.io.prefetch import Prefetcher, prefetch_to_host
 from gelly_streaming_tpu_torch.ops import degrees, indexing, neighbors, segments
 
 
@@ -419,9 +419,10 @@ class EdgeStream:
         """Replay source: ``bufs`` are per-batch uint8 wire buffers
         (``io.wire.pack_stream`` makes them), each holding ``batch_size``
         edges at ``width``, plus an optional raw ``(src, dst)`` remainder.
-        ``aggregate()`` uploads them as they are and unpacks them on the
-        device; every other consumer sees ordinary EdgeBatches through the
-        host decode.  EF40/BDV buffers carry a sorted multiset, so only
+        ``aggregate()`` and the property streams (``get_degrees`` and the
+        rest) upload them as they are and unpack them on the device; only
+        ``batches()`` and other direct readers see ordinary EdgeBatches
+        through the host decode.  EF40/BDV buffers carry a sorted multiset, so only
         order-free aggregations take them.
 
         Guards: every buffer's size; for encodings that can express ids
@@ -591,7 +592,9 @@ class EdgeStream:
         """``_kernel_stream``'s device plane: yields per-batch device outs.
         An array-backed stream packs its batches at the fixed width of its
         capacity on the prefetcher's thread, uploads them and unpacks them
-        on the device (the remainder is one padded batch); any other source
+        on the device (the remainder is one padded batch); a ``from_wire``
+        replay uploads its buffers as they are and unpacks them on the
+        device (the host decode's edges, in its order); any other source
         is read as EdgeBatches."""
         cfg, dev = self.cfg, self.device
         states = self._init_stage_states()
@@ -602,22 +605,34 @@ class EdgeStream:
             op_state, outs = kernel(op_state, self._apply_stages(states, batch))
             return outs
 
-        if self._wire_arrays is None:
+        if self._wire_packed is not None:
+            items, bs, width, tail = self._wire_packed
+
+            def prepare(buf):
+                return None, (buf,)
+
+        elif self._wire_arrays is not None:
+            src, dst, batch_size = self._wire_arrays
+            bs = min(batch_size, max(len(src), 1))
+            n_full = len(src) // bs
+            width = _wire.width_for_capacity(cfg.vertex_capacity)
+            items = ((src[i * bs : (i + 1) * bs], dst[i * bs : (i + 1) * bs]) for i in range(n_full))
+
+            def prepare(item):
+                return None, (_wire.pack_edges(item[0], item[1], width),)
+
+            tail = (src[n_full * bs :], dst[n_full * bs :]) if len(src) > n_full * bs else None
+        else:
             for batch in self._source_factory():
                 yield step(batch)
             return
-        src, dst, batch_size = self._wire_arrays
-        bs = min(batch_size, max(len(src), 1))
-        n_full = len(src) // bs
-        width = _wire.width_for_capacity(cfg.vertex_capacity)
-        full = ((src[i * bs : (i + 1) * bs], dst[i * bs : (i + 1) * bs]) for i in range(n_full))
         ones = torch.ones((bs,), dtype=torch.bool, device=dev)
-        with WirePrefetcher(full, width, dev, depth=cfg.prefetch_depth) as pf:
-            for buf, _ in pf:
+        with Prefetcher(items, prepare, dev, depth=cfg.prefetch_depth) as pf:
+            for _, (buf,) in pf:
                 s, d = _wire.unpack_edges(buf, bs, width)
                 yield step(EdgeBatch(src=s, dst=d, mask=ones))
-        if len(src) > n_full * bs:
-            yield step(EdgeBatch.from_arrays(src[n_full * bs :], dst[n_full * bs :], pad_to=bs, device=dev))
+        if tail is not None:
+            yield step(EdgeBatch.from_arrays(tail[0], tail[1], pad_to=bs, device=dev))
 
     def collect_edges(self) -> List[tuple]:
         out: List[tuple] = []

@@ -2,8 +2,9 @@
 // parser (gelly_streaming_tpu/native_src/edge_parser.cpp) cut to the
 // exports that ingest needs: count_rows, count_rows_range, fill_edges,
 // fill_edges_range, pack_edges, pack_edges40, pack_edges_ef40,
-// sort_edges_dst_src, encode_edges_bdv, route_edges and decode_wire_into.
-// The bench baselines (cc_baseline, flink_proxy_*) and the serving
+// sort_edges_dst_src, encode_edges_bdv, route_edges and decode_wire_into,
+// and the degree measurement's Flink-shaped baseline, flink_proxy_degrees.
+// The other bench baselines (cc_baseline, flink_proxy_cc) and the serving
 // protocol's frame probe (gly1_probe_prefix) are left out.  Built by
 // ops/_cuda.host_library with the host C++ compiler and loaded with ctypes
 // (utils/native.py), whose calls release the GIL.
@@ -882,6 +883,135 @@ int64_t decode_wire_into(const uint8_t* buf, int64_t nbytes, int64_t n,
   }
   free(tmp);
   return rc;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Flink-shaped record-at-a-time degree baseline ("flink proxy"), the
+// measured denominator of the continuous degree aggregate.  It pays the
+// reference's per-record costs in optimized C++ (so it is an upper bound on
+// what the JVM stack could reach):
+//
+//   stage 1 (producer thread): record-at-a-time Tuple2<Integer, Integer>
+//     serialization as Flink's DataOutputView emits it (two big-endian
+//     4-byte fields appended to a 32 KiB network buffer), a per-record
+//     key-group channel selection (a hash finalizer on the key, keyBy's
+//     KeyGroupRangeAssignment step), the buffer flushed through an AF_UNIX
+//     socketpair: the loopback shuffle hop;
+//   stage 2 (consumer, this thread): reads the socket, deserializes record
+//     by record and bumps both endpoints' per-key HashMap degree counts,
+//     the reference's DegreeMapFunction state (SimpleEdgeStream.java:
+//     461-478).
+//
+// Returns the elapsed wall ns (serialize start to fold finish), -1 on a
+// failure; writes the final counts (0 for never-seen vertices) into
+// out_counts[capacity].
+
+#include <sys/socket.h>
+#include <unistd.h>
+
+#include <chrono>
+#include <thread>
+#include <unordered_map>
+
+namespace {
+
+constexpr size_t kNetBuf = 32 * 1024;  // Flink's default network buffer size
+
+// Per-record channel selection: Flink runs the key through murmur-style
+// mixing to pick a key group (KeyGroupRangeAssignment).
+inline uint32_t fp_keygroup(uint32_t k) {
+  k ^= k >> 16;
+  k *= 0x85ebca6bu;
+  k ^= k >> 13;
+  k *= 0xc2b2ae35u;
+  k ^= k >> 16;
+  return k & 127u;  // default maxParallelism 128
+}
+
+inline bool fp_write_all(int fd, const uint8_t* p, size_t len) {
+  while (len > 0) {
+    ssize_t w = write(fd, p, len);
+    if (w <= 0) return false;
+    p += w;
+    len -= static_cast<size_t>(w);
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+int64_t flink_proxy_degrees(const int32_t* src, const int32_t* dst, int64_t n, int64_t* out_counts,
+                            int32_t capacity) {
+  int fds[2];
+  if (socketpair(AF_UNIX, SOCK_STREAM, 0, fds) != 0) return -1;
+  auto t0 = std::chrono::steady_clock::now();
+  // volatile sink: the per-record keygroup hash must stay observable or -O3
+  // could drop it and the proxy would stop measuring the keyBy cost
+  static volatile uint32_t degree_sink;
+  std::thread producer([&] {
+    uint8_t buf[kNetBuf];
+    size_t fill = 0;
+    uint32_t sink = 0;
+    for (int64_t i = 0; i < n; ++i) {
+      uint32_t s = static_cast<uint32_t>(src[i]);
+      uint32_t d = static_cast<uint32_t>(dst[i]);
+      sink ^= fp_keygroup(s);
+      buf[fill++] = static_cast<uint8_t>(s >> 24);
+      buf[fill++] = static_cast<uint8_t>(s >> 16);
+      buf[fill++] = static_cast<uint8_t>(s >> 8);
+      buf[fill++] = static_cast<uint8_t>(s);
+      buf[fill++] = static_cast<uint8_t>(d >> 24);
+      buf[fill++] = static_cast<uint8_t>(d >> 16);
+      buf[fill++] = static_cast<uint8_t>(d >> 8);
+      buf[fill++] = static_cast<uint8_t>(d);
+      if (fill == kNetBuf) {
+        if (!fp_write_all(fds[0], buf, fill)) break;
+        fill = 0;
+      }
+    }
+    if (fill) fp_write_all(fds[0], buf, fill);
+    degree_sink = sink;
+    shutdown(fds[0], SHUT_WR);
+  });
+  std::unordered_map<int32_t, int64_t> counts;
+  uint8_t rbuf[kNetBuf];
+  size_t have = 0;
+  int64_t consumed = 0;
+  while (true) {
+    ssize_t r = read(fds[1], rbuf + have, kNetBuf - have);
+    if (r <= 0) break;
+    have += static_cast<size_t>(r);
+    size_t off = 0;
+    while (have - off >= 8) {
+      const uint8_t* p = rbuf + off;
+      int32_t s = static_cast<int32_t>((uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) |
+                                       uint32_t(p[3]));
+      int32_t d = static_cast<int32_t>((uint32_t(p[4]) << 24) | (uint32_t(p[5]) << 16) | (uint32_t(p[6]) << 8) |
+                                       uint32_t(p[7]));
+      off += 8;
+      ++counts[s];
+      ++counts[d];
+      ++consumed;
+    }
+    memmove(rbuf, rbuf + off, have - off);  // carry a split record
+    have -= off;
+  }
+  producer.join();
+  auto t1 = std::chrono::steady_clock::now();
+  close(fds[0]);
+  close(fds[1]);
+  if (out_counts) {
+    for (int32_t v = 0; v < capacity; ++v) {
+      auto it = counts.find(v);
+      out_counts[v] = (it == counts.end()) ? 0 : it->second;
+    }
+  }
+  if (consumed != n) return -1;
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count();
 }
 
 }  // extern "C"

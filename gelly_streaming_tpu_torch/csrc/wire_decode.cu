@@ -1,5 +1,6 @@
 // The wire decodes for the H100: the BDV group-varint batch and the EF40
-// multiset, each one cooperative launch that turns a wire buffer into int32
+// multiset, each one cooperative launch, and the fixed-width unpack at width
+// 3 and PAIR40, one ordinary launch, each turning a wire buffer into int32
 // src, dst (and val) columns.
 //
 // bdv_decode: port of gelly_streaming_tpu/ops/wire_decode.py (decode_varints,
@@ -41,6 +42,16 @@
 // piece at a time, scans the words' counts, writes each one bit's p - rank
 // into shared memory at its rank (a piece's ranks are contiguous) and copies
 // them out coalesced; the blocks then zero the ranks past the last one.
+//
+// wire_unpack: port of gelly_streaming_tpu/io/wire.py unpack_edges at width 3
+// and PAIR40 (_unpack_edges40), bit for bit.  Width 3: a src block of 3n
+// bytes, then a dst block, each id three little-endian bytes.  PAIR40: five
+// bytes an edge, src the low 20 bits of bytes 0-2, dst (b2 >> 4) | b3 << 4 |
+// b4 << 12.  One ordinary launch, a block a tile of 2,048 edges: the block
+// stages its tile's byte span (both spans at width 3) in shared memory by
+// 16-byte loads (the words that straddle the buffer's unaligned head or its
+// end byte by byte), then each thread decodes runs of 4 edges from shared
+// memory and writes them as one 16-byte store to src and one to dst.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -413,6 +424,74 @@ ef40_unpack_kernel(const uint8_t* __restrict__ buf, long long nb, int n, int cap
 }
 
 // ---------------------------------------------------------------------------
+// wire_unpack
+
+constexpr int kUnpackThreads = 256;
+constexpr int kUnpackRun = 4;                                          // edges a thread decodes a store
+constexpr int kUnpackTile = 2048;                                      // edges a block
+constexpr int kUnpackRuns = kUnpackTile / (kUnpackThreads * kUnpackRun);  // runs a thread
+constexpr int kSpan3 = 3 * kUnpackTile + 32;                           // a width-3 block's staged bytes
+static_assert(kUnpackRuns * kUnpackThreads * kUnpackRun == kUnpackTile, "a tile is whole runs");
+
+// kBytes: 3 (two blocks of 3-byte ids) or 5 (PAIR40)
+template <int kBytes>
+__global__ void __launch_bounds__(kUnpackThreads)
+wire_unpack_kernel(const uint8_t* __restrict__ buf, long long nb, int n, int* __restrict__ src,
+                   int* __restrict__ dst) {
+  // PAIR40: 5 * 2,048 + 32 bytes; width 3: two spans of 3 * 2,048 + 32
+  __shared__ uint4 smem4[(kBytes == 5 ? 5 * kUnpackTile + 32 : 2 * kSpan3) / 16];
+  uint8_t* staged = reinterpret_cast<uint8_t*>(smem4);
+  const long long e0 = static_cast<long long>(blockIdx.x) * kUnpackTile;
+  const long long rest = static_cast<long long>(n) - e0;
+  const int in_tile = rest < kUnpackTile ? static_cast<int>(rest) : kUnpackTile;
+  int lead_s, lead_d = 0;
+  if (kBytes == 5) {
+    lead_s = stage(staged, buf, nb, 5 * e0, 5LL * in_tile, kUnpackThreads);
+  } else {
+    lead_s = stage(staged, buf, nb, 3 * e0, 3LL * in_tile, kUnpackThreads);
+    lead_d = stage(staged + kSpan3, buf, nb, 3LL * n + 3 * e0, 3LL * in_tile, kUnpackThreads);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kUnpackRuns; ++r) {
+    const int i0 = (r * kUnpackThreads + threadIdx.x) * kUnpackRun;  // the run's first edge in the tile
+    if (i0 >= in_tile) break;
+    int s[kUnpackRun], d[kUnpackRun];
+#pragma unroll
+    for (int k = 0; k < kUnpackRun; ++k) {
+      const int i = i0 + k;
+      if (kBytes == 5) {
+        const uint8_t* q = staged + lead_s + 5 * i;
+        const uint32_t lo = static_cast<uint32_t>(q[0]) | static_cast<uint32_t>(q[1]) << 8 |
+                            static_cast<uint32_t>(q[2]) << 16;
+        s[k] = static_cast<int>(lo & 0xFFFFFu);
+        d[k] = static_cast<int>(static_cast<uint32_t>(q[2]) >> 4 | static_cast<uint32_t>(q[3]) << 4 |
+                                static_cast<uint32_t>(q[4]) << 12);
+      } else {
+        const uint8_t* qs = staged + lead_s + 3 * i;
+        const uint8_t* qd = staged + kSpan3 + lead_d + 3 * i;
+        s[k] = static_cast<int>(static_cast<uint32_t>(qs[0]) | static_cast<uint32_t>(qs[1]) << 8 |
+                                static_cast<uint32_t>(qs[2]) << 16);
+        d[k] = static_cast<int>(static_cast<uint32_t>(qd[0]) | static_cast<uint32_t>(qd[1]) << 8 |
+                                static_cast<uint32_t>(qd[2]) << 16);
+      }
+    }
+    const long long e = e0 + i0;  // a multiple of 4: 16-byte aligned on aligned outputs
+    if (i0 + kUnpackRun <= in_tile) {
+      *reinterpret_cast<int4*>(src + e) = make_int4(s[0], s[1], s[2], s[3]);
+      *reinterpret_cast<int4*>(dst + e) = make_int4(d[0], d[1], d[2], d[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kUnpackRun; ++k)
+        if (i0 + k < in_tile) {
+          src[e + k] = s[k];
+          dst[e + k] = d[k];
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 constexpr int kMaxDevices = 32;
@@ -523,6 +602,27 @@ int ef40_unpack_launch(const void* buf, long long nb, int n, int capacity, void*
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ef40_unpack_kernel), dim3(blocks),
                                      dim3(kBitThreads), args, static_cast<size_t>(kEfSmem),
                                      static_cast<cudaStream_t>(stream));
+}
+
+// buf: uint8[nb], nb >= 6n (width 3) or 5n (bytes_an_edge 5: PAIR40), at
+// any byte offset; src, dst: int32[n], 16-byte aligned; stream: the
+// caller's.  One launch of ceil(n / 2,048) blocks.
+int wire_unpack_launch(const void* buf, long long nb, int n, int bytes_an_edge, void* src, void* dst,
+                       void* stream) {
+  if (n < 0 || (bytes_an_edge != 3 && bytes_an_edge != 5)) return cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const long long need = (bytes_an_edge == 3 ? 6LL : 5LL) * n;
+  if (nb < need || misaligned(src) || misaligned(dst)) return cudaErrorInvalidValue;
+  const auto* b = static_cast<const uint8_t*>(buf);
+  int* s = static_cast<int*>(src);
+  int* d = static_cast<int*>(dst);
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + kUnpackTile - 1) / kUnpackTile);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bytes_an_edge == 5)
+    wire_unpack_kernel<5><<<blocks, kUnpackThreads, 0, st>>>(b, nb, n, s, d);
+  else
+    wire_unpack_kernel<3><<<blocks, kUnpackThreads, 0, st>>>(b, nb, n, s, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -32,3 +32,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU): where
+    the JAX package calls ``block_until_ready`` before reading a clock."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

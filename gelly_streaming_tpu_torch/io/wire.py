@@ -5,9 +5,10 @@ aggregation wire path uses.  The packers and the (dst, src) sorter call
 the port's native host library (``utils/native.py``, built from
 ``csrc/edge_parser.cpp``) when it loads, else the JAX package's numpy
 fallbacks: the same bytes either way.  The device unpack (``unpack_edges``)
-is PyTorch ops on the buffer's device for the fixed widths and PAIR40, and
-for EF40 and BDV the ``ef40_unpack`` and ``bdv_decode`` kernels
-(``ops/wire_decode.py``) on a CUDA buffer, their twins on a CPU one.
+is the ``wire_unpack`` kernel at width 3 and PAIR40, and for EF40 and BDV
+the ``ef40_unpack`` and ``bdv_decode`` kernels (``ops/wire_decode.py``) on
+a CUDA buffer, their twins on a CPU one; widths 2 and 4 are PyTorch ops on
+the buffer's device.
 ``resolve_binned_ingest`` and ``resolve_wire_compress`` resolve the binned
 and compressed ingest switches (config, then env); ``decode_wire_into`` is
 the native one-pass validate + decode (+ bin) of a wire buffer into
@@ -40,7 +41,7 @@ from gelly_streaming_tpu_torch.ops.wire_decode import unpack_edges_ef40  # noqa:
 from gelly_streaming_tpu_torch.utils import metrics, native
 from gelly_streaming_tpu_torch.utils.envswitch import resolve_switch
 
-PAIR40 = "pair40"  # 5-byte (src, dst) pair packing for capacities <= 2^20
+PAIR40 = wire_decode.PAIR40  # 5-byte (src, dst) pair packing for capacities <= 2^20
 EF40 = "ef40"  # sorted Elias-Fano multiset packing (order-free folds only)
 BDV = "bdv"  # destination-binned delta/varint packing (order-free folds only)
 
@@ -90,13 +91,11 @@ def width_for_capacity(capacity: int):
 
 def wire_nbytes(n: int, width) -> int:
     """Wire bytes for an n-edge batch (BDV: the worst-case bound)."""
-    if width == PAIR40:
-        return 5 * n
     if isinstance(width, tuple):
         if width[0] == BDV:
             return bdv_max_nbytes(n)
         return ef40_nbytes(n, width[1])
-    return 2 * n * width
+    return wire_decode.fixed_nbytes(n, width)
 
 
 def replay_width(capacity: int, batch: int, order_free: bool = True):
@@ -492,15 +491,9 @@ def unpack_edges(wire: torch.Tensor, n: int, width):
         if width[0] == BDV:
             return wire_decode.decode_bdv(wire, n)
         return wire_decode.unpack_edges_ef40(wire, n, width[1])
-    if width == PAIR40:
-        lo, hi = _pair40_fields(wire[: 5 * n].reshape(n, 5).to(torch.int64))
-        return lo.to(torch.int32), hi.to(torch.int32)
-    b = wire[: 2 * n * width].reshape(2, n, width).to(torch.int64)
-    v = b[..., 0]
-    for k in range(1, width):
-        v = v | (b[..., k] << (8 * k))
-    v = v.to(torch.int32)
-    return v[0], v[1]
+    if width in (3, PAIR40):
+        return wire_decode.unpack_edges_fixed(wire, n, width)
+    return wire_decode.unpack_edges_fixed_plain(wire, n, width)
 
 
 def unpack_edges_host(buf: np.ndarray, n: int, width):

@@ -242,6 +242,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # buf, nb, n, capacity, src, dst, scratch, scratch bytes, stream:
         # one cooperative launch
         "ef40_unpack_launch": [_P, _L, _I, _I, _P, _P, _P, _L, _P],
+        # buf, nb, n, bytes an edge (3: width 3, 5: PAIR40), src, dst,
+        # stream: one launch
+        "wire_unpack_launch": [_P, _L, _I, _I, _P, _P, _P],
     },
 }
 
@@ -277,6 +280,9 @@ HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "route_edges": ([_P, _P, _I64, _I32, _I32, _I64, _P, _P, _P], _I64),
         # buf, nbytes, n, width code, capacity, sort, out src, out dst
         "decode_wire_into": ([_P, _I64, _I64, _I32, _I32, _I32, _P, _P], _I64),
+        # src i32, dst i32, n, out counts i64[capacity], capacity: the
+        # Flink-shaped degree baseline's wall ns (-1: failed)
+        "flink_proxy_degrees": ([_P, _P, _I64, _P, _I32], _I64),
     },
 }
 HOST_CFLAGS = ("-O2", "-shared", "-fPIC")

@@ -21,6 +21,14 @@ tensors ``unpack_edges_ef40`` is one C call (``ef40_unpack_launch``: one
 cooperative launch, the ones counted and the pairs decoded, a grid-wide
 sync, the ranks scanned and written); on CPU tensors it runs
 ``unpack_edges_ef40_plain``.
+
+The fixed widths, port of ``unpack_edges`` and ``_unpack_edges40``
+(``gelly_streaming_tpu/io/wire.py``): at width 3 and PAIR40
+``unpack_edges_fixed`` is one C call on CUDA tensors
+(``wire_unpack_launch``: a block stages a tile's bytes in shared memory by
+16-byte loads and writes 16-byte runs of src and dst); on CPU tensors it
+runs ``unpack_edges_fixed_plain``, widening PyTorch ops, which
+``io/wire.unpack_edges`` also runs for widths 2 and 4 on any device.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ _SOURCE = "wire_decode.cu"
 
 # C calls since the last reset_launches() (CUDA tensors only), and the
 # wrapper's twin calls (CPU tensors only)
-LAUNCHES: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0}
-TWIN_CALLS: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0}
+LAUNCHES: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0, "wire_unpack": 0}
+TWIN_CALLS: Dict[str, int] = {"bdv_decode": 0, "ef40_unpack": 0, "wire_unpack": 0}
+
+PAIR40 = "pair40"  # io/wire.PAIR40: 5-byte (src, dst) pairs for capacities <= 2^20
 _scratch: Dict[tuple, torch.Tensor] = {}
 
 
@@ -197,4 +207,59 @@ def unpack_edges_ef40(wire: torch.Tensor, n: int, capacity: int):
                                  scratch.data_ptr(), scratch.numel(), stream)
     _cuda.check(err, "ef40_unpack_launch")
     LAUNCHES["ef40_unpack"] += 1
+    return src, dst
+
+
+# ---------------------------------------------------------------------------
+# the fixed widths
+
+
+def fixed_nbytes(n: int, width) -> int:
+    """Wire bytes of n edges at a fixed width (2, 3, 4 or PAIR40)."""
+    return 5 * n if width == PAIR40 else 2 * n * width
+
+
+def unpack_edges_fixed_plain(wire: torch.Tensor, n: int, width):
+    """The twin: fixed-width wire uint8 -> (src, dst) int32[n], by PyTorch
+    ops on the buffer's device (the buffer widened to int64, then shifts
+    and ORs)."""
+    if width == PAIR40:
+        lo, hi = pair40_fields(wire[: 5 * n].reshape(n, 5).to(torch.int64))
+        return lo.to(torch.int32), hi.to(torch.int32)
+    b = wire[: 2 * n * width].reshape(2, n, width).to(torch.int64)
+    v = b[..., 0]
+    for k in range(1, width):
+        v = v | (b[..., k] << (8 * k))
+    v = v.to(torch.int32)
+    return v[0], v[1]
+
+
+def unpack_edges_fixed(wire: torch.Tensor, n: int, width):
+    """Width-3 or PAIR40 wire buffer (uint8, 1-D, any byte offset) ->
+    (src, dst) int32[n], on the buffer's device."""
+    if width not in (3, PAIR40):
+        raise ValueError(f"unpack_edges_fixed takes width 3 or PAIR40, not {width!r}")
+    if wire.dim() != 1 or wire.dtype != torch.uint8:
+        raise ValueError("a wire buffer is a 1-D uint8 tensor")
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    need = fixed_nbytes(n, width)
+    if wire.shape[0] < need:
+        raise ValueError(f"a wire buffer of {n} edges at width {width} holds {need} bytes, got {wire.shape[0]}")
+    if wire.device.type == "cpu":
+        TWIN_CALLS["wire_unpack"] += 1
+        return unpack_edges_fixed_plain(wire, n, width)
+    if wire.device.type != "cuda":
+        raise ValueError(f"unpack_edges_fixed runs on CUDA or CPU tensors, not {wire.device.type}")
+    dev = wire.device
+    src = torch.empty((n,), dtype=torch.int32, device=dev)
+    dst = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return src, dst
+    lib = _cuda.library(_SOURCE)
+    b = wire.contiguous()
+    err = lib.wire_unpack_launch(b.data_ptr(), b.shape[0], n, 5 if width == PAIR40 else 3, src.data_ptr(),
+                                 dst.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "wire_unpack_launch")
+    LAUNCHES["wire_unpack"] += 1
     return src, dst

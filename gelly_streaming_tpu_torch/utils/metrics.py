@@ -5,11 +5,15 @@ Port of ``WindowLatencyRecorder``, the async pipeline's counters
 ``reset_pipeline_stats``), the masked-SpMV kernel core's counters
 (``SPMV_DENSITY_BINS``, ``spmv_add``, ``spmv_stats``, ``reset_spmv_stats``)
 and the wire path's (``wire_record_batch``, ``wire_high_water``,
-``wire_stats``, ``reset_wire_stats``) from
+``wire_stats``, ``reset_wire_stats``), ``ThroughputMeter`` and the named
+latency-histogram registry (``set_hist_job``, ``hist_record``,
+``hist_snapshot``, ``reset_histograms``) from
 ``gelly_streaming_tpu/utils/metrics.py``: close-to-emission samples in
 milliseconds with nearest-rank percentiles, the occupancy of
 ``core/async_exec``'s stages, the push/pull split of ``ops/spmv``'s
-fixpoints, and the bytes an edge the wire path ships.  The port's own
+fixpoints, the bytes an edge the wire path ships, edges a second over a
+run, and bounded histograms such as the network source's
+``push_to_fold_ms``.  The port's own
 snapshot counters (``checkpoint_record``, ``checkpoint_stats``) time the
 aggregation planes' checkpoint writes.
 """
@@ -19,6 +23,10 @@ from __future__ import annotations
 import collections
 import math
 import threading
+import time
+from typing import Optional
+
+from gelly_streaming_tpu_torch.utils.tracing import LatencyHistogram
 
 
 def nearest_rank(sorted_xs, p: float) -> float:
@@ -29,6 +37,47 @@ def nearest_rank(sorted_xs, p: float) -> float:
         return 0.0
     rank = max(1, math.ceil(p / 100.0 * n))
     return sorted_xs[min(rank, n) - 1]
+
+
+class ThroughputMeter:
+    """Edges a second over a processing run (count what the device saw).
+
+    ``record_batch`` may be driven from any pipeline stage's thread, so the
+    counters are lock-guarded (an unguarded ``+=`` loses updates under
+    contention)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.edges = 0  # guarded-by: _lock
+        self.batches = 0  # guarded-by: _lock
+        self._start: Optional[float] = None
+        self._stop: Optional[float] = None
+
+    def start(self) -> None:
+        self._start = time.perf_counter()
+
+    def record_batch(self, num_edges: int) -> None:
+        if self._start is None:
+            self.start()
+        with self._lock:
+            self.edges += int(num_edges)
+            self.batches += 1
+
+    def stop(self) -> None:
+        self._stop = time.perf_counter()
+
+    @property
+    def elapsed(self) -> float:
+        if self._start is None:
+            return 0.0
+        end = self._stop if self._stop is not None else time.perf_counter()
+        return end - self._start
+
+    @property
+    def edges_per_sec(self) -> float:
+        with self._lock:
+            edges = self.edges
+        return edges / self.elapsed if self.elapsed > 0 else 0.0
 
 
 class WindowLatencyRecorder:
@@ -272,3 +321,67 @@ def reset_checkpoint_stats() -> None:
     global _CKPT
     with _CKPT_LOCK:
         _CKPT = _checkpoint_zero()
+
+
+# ---------------------------------------------------------------------------
+# Bounded latency histograms (port of the JAX package's registry,
+# ``gelly_streaming_tpu/utils/metrics.py:818-930``): named log-bucketed
+# histograms per scope, process-global and per job.  A thread-local job tag
+# (``set_hist_job``) scopes the samples recorded on that thread, so code
+# deep inside a merge loop records into its job's rows without knowing the
+# job.  ``push_to_fold_ms`` is the network source's queue residency.
+
+_HIST_LOCK = threading.Lock()
+# (kind, scope id, histogram name) -> LatencyHistogram; kind in
+# {"global", "job"}, scope id "" for global
+_HISTS: dict = {}  # guarded-by: _HIST_LOCK
+
+_HIST_TL = threading.local()  # per-thread current-job tag (no lock needed)
+
+
+def set_hist_job(job_id: "str | None") -> "str | None":
+    """Tag this thread's later ``hist_record`` calls with a job scope (None
+    clears it); returns the previous tag so callers can restore it."""
+    old = getattr(_HIST_TL, "job", None)
+    _HIST_TL.job = job_id
+    return old
+
+
+def _hist(kind: str, scope: str, name: str) -> LatencyHistogram:
+    key = (kind, scope, name)
+    with _HIST_LOCK:
+        h = _HISTS.get(key)
+        if h is None:
+            h = _HISTS[key] = LatencyHistogram()
+        return h
+
+
+def hist_record(name: str, ms: float, job: "str | None" = None) -> None:
+    """Record one latency sample into the global histogram and into the job
+    scope (explicit, or this thread's ``set_hist_job`` tag)."""
+    _hist("global", "", name).record(ms)
+    job = job if job is not None else getattr(_HIST_TL, "job", None)
+    if job:
+        _hist("job", job, name).record(ms)
+
+
+def hist_snapshot() -> dict:
+    """Every registered histogram, grouped by scope: ``{"global": {name:
+    snap}, "jobs": {id: {name: snap}}}``, each snap with count, sum,
+    min/max, p50/p90/p99 and the non-empty buckets."""
+    with _HIST_LOCK:
+        items = list(_HISTS.items())
+    out: dict = {"global": {}, "jobs": {}}
+    for (kind, scope, name), h in items:
+        if kind == "global":
+            out["global"][name] = h.snapshot()
+        else:
+            out["jobs"].setdefault(scope, {})[name] = h.snapshot()
+    return out
+
+
+def reset_histograms() -> None:
+    """Drop every registered histogram (call before a measurement window,
+    read ``hist_snapshot`` after)."""
+    with _HIST_LOCK:
+        _HISTS.clear()

@@ -2843,6 +2843,63 @@ def test_ef40_unpack_reads_views_at_any_offset(cuda_device):
         wd.unpack_edges_ef40(big[: buf.nbytes - 1], n, cap)
 
 
+# ---------------------------------------------------------------------------
+# wire_unpack (csrc/wire_decode.cu): width 3 and PAIR40
+
+
+@pytest.mark.parametrize("width", [3, "pair40"], ids=["3", "pair40"])
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 2047, 2049, 1 << 16, (1 << 21) + 5])
+def test_wire_unpack_matches_twin_at_any_offset(cuda_device, width, n):
+    """Exact against the twin and the packed ids (0, C - 1, PAIR40's
+    bit-19/20 seam), for buffers starting at every byte of a 16-byte word
+    and lengths that are no multiple of 16; one launch a call."""
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    cap = 1 << 20 if width == wire.PAIR40 else 1 << 24
+    rng = np.random.default_rng(n)
+    s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+    s[0], d[-1] = cap - 1, 0
+    if n > 4:
+        s[1:4] = (1 << 19) - 1, 1 << 19, (1 << 20) - 1
+    buf = wire.pack_edges(s, d, width)
+    big = torch.full((buf.nbytes + 32,), 0xAB, dtype=torch.uint8, device=cuda_device)
+    for off in range(16):
+        view = big[off : off + buf.nbytes]
+        view.copy_(torch.from_numpy(buf))
+        before = dict(wd.LAUNCHES)
+        got = wd.unpack_edges_fixed(view, n, width)
+        assert wd.LAUNCHES == {**before, "wire_unpack": before["wire_unpack"] + 1}
+        want = wd.unpack_edges_fixed_plain(view, n, width)
+        assert all(g.dtype == torch.int32 and torch.equal(g, w) for g, w in zip(got, want)), off
+        assert np.array_equal(got[0].cpu().numpy(), s) and np.array_equal(got[1].cpu().numpy(), d), off
+    with pytest.raises(ValueError):
+        wd.unpack_edges_fixed(big[: buf.nbytes - 1], n, width)
+
+
+def test_wire_unpack_on_the_wire_paths(cuda_device):
+    """get_degrees over a PAIR40 from_wire replay and the degrees
+    measurement launch the kernel once a batch and never the twin."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.examples import measurements
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    rng = np.random.default_rng(2)
+    cap, batch, n = 1 << 17, 1 << 12, 1 << 15
+    s, d = rng.integers(0, cap, n).astype(np.int32), rng.integers(0, cap, n).astype(np.int32)
+    cfg = StreamConfig(vertex_capacity=cap, batch_size=batch)
+    bufs, _ = wire.pack_stream(s, d, batch, wire.PAIR40)
+    wd.reset_launches()
+    got = EdgeStream.from_wire(bufs, batch, wire.PAIR40, cfg, device=cuda_device).get_degrees().collect()
+    assert wd.LAUNCHES["wire_unpack"] == n // batch and wd.TWIN_CALLS["wire_unpack"] == 0
+    assert got == EdgeStream.from_arrays(s, d, cfg, batch_size=batch, device="cpu").get_degrees().collect()
+    wd.reset_launches()
+    out = measurements.run(["degrees", "--edges", str(n), "--batch", str(batch)])
+    assert wd.LAUNCHES["wire_unpack"] == n // batch and out["degree_total"] == 2 * n
+
+
 def test_checkpointed_compressed_wire_run_on_the_card_resumes(cuda_device, tmp_path):
     from gelly_streaming_tpu_torch.core.config import StreamConfig
     from gelly_streaming_tpu_torch.core.stream import EdgeStream

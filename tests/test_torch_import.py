@@ -33,9 +33,10 @@ def test_importing_the_whole_port_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "from gelly_streaming_tpu_torch.io.sources import NetworkEdgeSource, PushOutOfSync, SourceQuiesced\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'gelly_streaming_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 58, mods\n"
+        "assert len(mods) >= 61, mods\n"
         "for m in ('ops.degrees', 'library.degree_distribution', 'library.bipartiteness',\n"
         "          'summaries.candidates', 'examples.degree_distribution',\n"
         "          'examples.bipartiteness_check', 'ops.neighborhoods', 'ops.sage',\n"
@@ -48,7 +49,8 @@ def test_importing_the_whole_port_loads_no_jax():
         "          'examples.centralized_weighted_matching', 'examples.broadcast_triangle_count',\n"
         "          'examples.incidence_sampling_triangle_count', 'ops.sketches', 'summaries.sketches',\n"
         "          'library.sketches', 'ops.wire_decode', 'utils.checkpoint', 'utils.recovery',\n"
-        "          'utils.native', 'io.ingest'):\n"
+        "          'utils.native', 'io.ingest', 'utils.tracing', 'utils.ingest_bench',\n"
+        "          'examples.measurements'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

@@ -232,7 +232,7 @@ def test_ef40_wrapper_runs_the_twin_on_cpu_tensors_only_and_counts_it():
     buf = tw.pack_edges(src, dst, (tw.EF40, 1000))
     tdec.reset_launches()
     got = tw.unpack_edges(torch.from_numpy(buf), 1001, (tw.EF40, 1000))
-    assert tdec.TWIN_CALLS == {"bdv_decode": 0, "ef40_unpack": 1}
+    assert tdec.TWIN_CALLS == {"bdv_decode": 0, "ef40_unpack": 1, "wire_unpack": 0}
     assert not any(tdec.LAUNCHES.values())
     want = tdec.unpack_edges_ef40_plain(torch.from_numpy(buf), 1001, 1000)
     for a, b in zip(got, want):
@@ -257,6 +257,53 @@ def test_ef40_wrapper_runs_the_twin_on_cpu_tensors_only_and_counts_it():
 # the JAX decode as the JAX package dispatches it: traced into one cached
 # executable a shape (n and the layout static)
 _jax_decode_bdv = jax.jit(jdec.decode_bdv, static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("width,cap", [(3, 1 << 24), (tw.PAIR40, 1 << 20)], ids=["3", "pair40"])
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_fixed_unpack_wrapper_takes_the_twin_on_cpu_and_matches_jax(width, cap, n):
+    """``unpack_edges_fixed`` (the ``wire_unpack`` kernel's wrapper) on a
+    CPU tensor runs its twin, counts it, launches nothing, and decodes
+    JAX's values: ids 0 and C - 1, values across PAIR40's bit-19/20 seam,
+    buffers that start at an odd byte of a larger one."""
+    rng = np.random.default_rng(n)
+    src, dst = _edges(n, cap, n + 1)
+    src[0], dst[-1] = cap - 1, 0
+    if n > 4:
+        src[1:4] = [(1 << 19) - 1, 1 << 19, (1 << 20) - 1] if width == tw.PAIR40 else [(1 << 16) - 1, 1 << 16, 255]
+        dst[1:4] = src[1:4][::-1]
+    buf = tw.pack_edges(src, dst, width)
+    for off in (0, 1, 7, 15):
+        big = np.concatenate([rng.integers(0, 256, off).astype(np.uint8), buf, np.full(3, 0xFF, np.uint8)])
+        view = torch.from_numpy(big)[off : off + buf.nbytes]
+        before_l, before_t = dict(tdec.LAUNCHES), dict(tdec.TWIN_CALLS)
+        t_s, t_d = tdec.unpack_edges_fixed(view, n, width)
+        assert tdec.LAUNCHES == before_l
+        assert tdec.TWIN_CALLS == {**before_t, "wire_unpack": before_t["wire_unpack"] + 1}
+        j_s, j_d = jw.unpack_edges(jnp.asarray(buf), n, width)
+        assert t_s.dtype == t_d.dtype == torch.int32
+        np.testing.assert_array_equal(t_s.numpy(), np.asarray(j_s))
+        np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))
+        np.testing.assert_array_equal(t_s.numpy(), src)
+    # io/wire.unpack_edges routes these widths to the wrapper
+    before = tdec.TWIN_CALLS["wire_unpack"]
+    tw.unpack_edges(torch.from_numpy(buf), n, width)
+    assert tdec.TWIN_CALLS["wire_unpack"] == before + 1
+
+
+def test_fixed_unpack_wrapper_refuses_bad_buffers():
+    buf = torch.from_numpy(tw.pack_edges(*_edges(8, 1 << 20, 0), tw.PAIR40))
+    for bad, width in ((buf.to(torch.int32), tw.PAIR40), (buf.reshape(5, 8), tw.PAIR40), (buf[:-1], tw.PAIR40),
+                       (buf[: 6 * 8 - 1], 3), (buf, 2), (buf, 4)):
+        with pytest.raises(ValueError):
+            tdec.unpack_edges_fixed(bad, 8, width)
+    with pytest.raises(ValueError):
+        tdec.unpack_edges_fixed(buf, -1, 3)
+    # widths 2 and 4 keep their PyTorch ops, which the wrapper never counts
+    before = dict(tdec.TWIN_CALLS)
+    s2 = tw.pack_edges(*_edges(8, 1 << 16, 1), 2)
+    tw.unpack_edges(torch.from_numpy(s2), 8, 2)
+    assert tdec.TWIN_CALLS == before
 
 
 def _bdv_kinds(kind, n, cap, rng):
