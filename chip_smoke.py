@@ -370,6 +370,35 @@ phase_checkpoints(torch.device("cuda", 0), chip_smoke.sleep_cycles_per_ms(),
 chip_smoke.cc_bench_stream())`` after ``_cuda.build_all()`` (it computes
 scipy's labels itself when phase 7 did not).
 
+Phase 21 drives the mesh aggregation plane with its shards sharing the
+one card (so no multi-GPU speed is measured): (a) CC's mesh wire
+streaming fold over the CC bench's stream at batch 2^21, 4 shards with
+rows of 2^19, through ``MeshAggregationRunner(...).wire_records``: the
+owner-sharded plane from arrays (the dense exchange, ``slab_fold``, the
+regime the runner recorded checked) and
+from replayed rows, the replicated plane (the pmin fixed point) from the
+rows, each run's labels and ``seen`` equal to phase 7's bit for bit; then
+a run with a snapshot every 25 groups killed after group 37 and resumed
+(the snapshot says group 25; the resume folds groups 25-49 alone).  It
+prints edges/s, exchange rounds, host syncs, the comms counters, every
+kernel's launches and the device's idle share (torch.profiler).  (b) the
+windowed owner-sharded plane over 16 ingestion-count windows of 2^15
+edges on 2^20 ids (window 5 half on one hub): CC (round robin, the delta
+regime: ``owner_pack``, ``block_delta_fold``) and the degree summary
+(``route_key="src"`` with binned ingest, through
+``io/ingest.parallel_host_route``), every record equal to a
+single-partition run's, the exchanges counted by the regime each took
+(as the runner recorded it, with its delta capacity); the replicated
+bipartiteness check over a near-bipartite stream.  (c) ``measurements
+routing`` on an explicit 8-shard mesh of the card (2^20 edges a shard,
+alpha 1.3, seed 0, a capacity the plain router overflows), equal to the
+same call on the CPU.  (d) the three routing kernels against their twins
+(random inputs, every changed row in one owner with one slot, empty and
+all-DELTA_PAD buffers, 2^20 + 333 items for the scan carry's later
+passes, each op, S in {2, 4, 8}), then each checked against its twin
+again and timed on a held stream at (a)'s and (b)'s shapes beside its
+bound, twin and library call.
+
 It prints timings, a ``{"kernels": [...]}`` JSON line, the GPU's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero without that line; so does a machine without
@@ -1346,6 +1375,7 @@ def phase_cc_main(dev, cycles_per_ms: float, data: dict) -> dict:
     t0 = time.perf_counter()
     o_parent, o_seen = cc_oracle(src, dst, c)
     data["oracle"] = (o_parent, o_seen)  # phase 19 holds its runs against it
+    data["labels"] = (parent, seen)  # phase 21 holds the mesh plane's labels against them
     oracle_s = time.perf_counter() - t0
     if not (np.array_equal(parent, o_parent) and np.array_equal(seen, o_seen)):
         raise RuntimeError("final labels differ from scipy's connected components")
@@ -7697,6 +7727,493 @@ def phase_twenty(dev, cpm) -> dict:
     return {"network": net, "measurements": meas, "unpack": unpack}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the mesh aggregation plane, S shards sharing the card.  No
+# multi-GPU speed is measured here: every mesh number is S shards on one
+# H100, folding one after another on its stream.
+
+MESH_SHARDS = 4
+MESH_ROW = CC_BATCH // MESH_SHARDS  # (a): from_arrays at batch 2^21, a row of 2^19 a shard
+MESH_CKPT_ROWS = 100  # (a): a snapshot every 25 groups of 4 rows
+MESH_KILL_GROUP = 37  # (a): the crash after group 37 of 50; the snapshot says 25
+MESH_WIN_EDGES = 1 << 15  # (b): 16 tumbling (ingestion-count) windows of 2^15 edges
+MESH_WINDOWS = 16
+MESH_HUB_WINDOW = 5  # (b): half of this window's edges on one hub
+ROUTE_SHARDS, ROUTE_PER_SHARD, ROUTE_CAP = 8, 1 << 20, 1 << 18  # (c)
+
+
+class MeshCrash(RuntimeError):
+    """The crash phase 21 (a) injects into a checkpointed run."""
+
+
+def mesh_kernel_modules() -> tuple:
+    """The ops modules whose kernels the mesh plane's main path launches."""
+    from gelly_streaming_tpu_torch.ops import degrees as dg
+    from gelly_streaming_tpu_torch.ops import routing as rk
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.ops import wire_decode as wd
+
+    return rk, uf, wd, dg
+
+
+def mesh_reset() -> None:
+    """Zero every count the mesh plane's main path reads."""
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    for mod in mesh_kernel_modules():
+        mod.reset_launches()
+    pm.HOST_SYNCS["reads"] = 0
+    metrics.reset_comms_stats()
+
+
+def mesh_counts() -> dict:
+    """Each kernel's launches (the routing and union-find kernels always,
+    the others where they launched), the twins' calls, the host syncs and
+    the comms counters since ``mesh_reset``."""
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    rk, uf, wd, dg = mesh_kernel_modules()
+    launches = {**rk.LAUNCHES, **uf.LAUNCHES}
+    for mod in (wd, dg):
+        launches.update({k: v for k, v in mod.LAUNCHES.items() if v})
+    return {"launches": launches,
+            "twin_calls": sum(sum(getattr(mod, "TWIN_CALLS", {}).values()) for mod in mesh_kernel_modules()),
+            "host_syncs": pm.HOST_SYNCS["reads"], "comms": metrics.comms_stats()}
+
+
+def mesh_main(label: str, fn, need=(), profile: bool = False) -> tuple:
+    """(result, seconds, counts, device busy ms | None): one main-path run
+    from zeroed counts; raises unless every kernel in ``need`` launched and
+    no twin ran."""
+    import torch
+
+    mesh_reset()
+    torch.cuda.synchronize()
+    busy = None
+    t0 = time.perf_counter()
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = 0.0
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            total += (us if us is not None else getattr(evt, "self_cuda_time_total", 0)) or 0
+        busy = total / 1e3 if total else None
+    else:
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = mesh_counts()
+    missing = [k for k in need if not counts["launches"].get(k)]
+    if missing or counts["twin_calls"]:
+        raise RuntimeError(f"{label}: kernels not launched {missing} (or twins ran): {counts}")
+    return out, wall, counts, busy
+
+
+def same_labels(label: str, rec, want) -> None:
+    ds = rec[-1][0] if isinstance(rec, list) else rec
+    p, sn = ds.parent.cpu().numpy(), ds.seen.cpu().numpy()
+    if not (np.array_equal(p, want[0]) and np.array_equal(sn, want[1])):
+        raise RuntimeError(f"{label}: labels differ from phase 7's")
+
+
+def mesh_regimes(runner) -> dict:
+    """The exchanges of a run by the regime each took, as the runner
+    recorded them; the replicated plane exchanges nothing."""
+    return dict(runner.exchange_regimes) or {"replicated": 0}
+
+
+def mesh_log(label: str, edges: int, wall: float, counts: dict, busy=None) -> dict:
+    c = counts["comms"]
+    idle = idle_pct(busy, wall * 1e3)
+    log(f"    {label}: {edges / wall:.6g} edges/s ({wall:.3f} s), exchange rounds {c['comms_exchange_rounds']}, "
+        f"host syncs {counts['host_syncs']}, delta hwm {c['comms_delta_occupancy_hwm']}, spilled "
+        f"{c['comms_delta_spilled']}, comms {c}, launches {counts['launches']}"
+        + ("" if idle is None else f", device idle {idle:.1f}% (torch.profiler)"))
+    return {"edges_per_s": edges / wall, "s": wall, **counts, "idle_pct": idle}
+
+
+def phase_mesh_wire(dev, data: dict) -> dict:
+    """(a) the mesh wire streaming fold of CC at the bench shape, both
+    planes, and a checkpointed run killed mid-stream and resumed."""
+    from gelly_streaming_tpu_torch.core.aggregation import MeshAggregationRunner
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.io import wire
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+
+    c, batch = CC_VERTICES, CC_BATCH
+    src, dst, want = data["src"], data["dst"], data["labels"]
+    n = len(src)
+    mesh = pm.make_mesh(MESH_SHARDS, [dev] * MESH_SHARDS)
+    cfg = StreamConfig(vertex_capacity=c, batch_size=batch, num_shards=MESH_SHARDS, sharded_state=1)
+    need = ("union_kernel", "ef40_unpack", "slab_fold")
+    out = {}
+    groups = n // MESH_ROW // MESH_SHARDS
+    runner = MeshAggregationRunner(ConnectedComponents(), mesh)
+    stream = EdgeStream.from_arrays(src, dst, cfg, device=dev)
+    recs, wall, counts, busy = mesh_main("(a) sharded", lambda: list(runner.wire_records(stream)), need, True)
+    same_labels("(a) sharded from_arrays", recs, want)
+    regime = mesh_regimes(runner)
+    if not any(k.startswith("dense") for k in regime):
+        raise RuntimeError(f"(a): the bench shape's exchange must take the dense regime: {regime}")
+    if counts["launches"]["ef40_unpack"] != n // MESH_ROW:
+        raise RuntimeError(f"(a): ef40_unpack must launch once a row: {counts}")
+    out["sharded_from_arrays"] = {**mesh_log(f"sharded plane, from_arrays (rows packed on the pack thread), {regime}",
+                                             n, wall, counts, busy), "regime": regime}
+    log("    labels and seen equal phase 7's, bit for bit")
+
+    width = wire.replay_width(c, MESH_ROW)
+    t0 = time.perf_counter()
+    rows = pack_batches(src, dst, MESH_ROW, width)
+    log(f"    {len(rows)} rows of {MESH_ROW} packed at {width} for the replays in {time.perf_counter() - t0:.1f} s "
+        "(host threads, untimed)")
+    for plane, sh in (("sharded", 1), ("replicated", 0)):
+        rcfg = dataclasses.replace(cfg, sharded_state=sh)
+        rrunner = MeshAggregationRunner(ConnectedComponents(), mesh)
+        rstream = EdgeStream.from_wire(rows, MESH_ROW, width, rcfg, device=dev)
+        recs, wall, counts, busy = mesh_main(f"(a) {plane}", lambda: list(rrunner.wire_records(rstream)),
+                                             need, profile=plane == "replicated")
+        same_labels(f"(a) {plane} replay", recs, want)
+        out[f"{plane}_replay"] = {**mesh_log(f"{plane} plane, replay rows, {mesh_regimes(rrunner)}", n, wall,
+                                             counts, busy), "regime": mesh_regimes(rrunner)}
+
+    # the checkpointed run: a snapshot every 25 groups, a crash after
+    # group 37, a resume that folds groups 25..49 and nothing before
+    class Crashing(MeshAggregationRunner):
+        def __init__(self, *a):
+            super().__init__(*a)
+            self.steps = 0
+
+        def _wire_step(self, *a):
+            if self.steps == MESH_KILL_GROUP:
+                raise MeshCrash(f"injected after group {MESH_KILL_GROUP}")
+            self.steps += 1
+            super()._wire_step(*a)
+
+    ccfg = dataclasses.replace(cfg, wire_checkpoint_batches=MESH_CKPT_ROWS)
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        path = os.path.join(tmp, "mesh.npz")
+        crashing = Crashing(ConnectedComponents(), mesh)
+        try:
+            list(crashing.wire_records(EdgeStream.from_wire(rows, MESH_ROW, width, ccfg, device=dev), path))
+            raise RuntimeError("(a): the injected crash did not fire")
+        except MeshCrash:
+            pass
+        from gelly_streaming_tpu_torch.utils import checkpoint as ck
+
+        resumed = MeshAggregationRunner(ConnectedComponents(), mesh)
+        rstream = EdgeStream.from_wire(rows, MESH_ROW, width, ccfg, device=dev)
+        like = resumed._wire_sharded_checkpoint_like(rstream, resumed._sharded_spec(ccfg), MESH_ROW)
+        every = MESH_CKPT_ROWS // MESH_SHARDS
+        if int(ck.load_state(path, like)["next_group"]) != every:
+            raise RuntimeError(f"(a): the snapshot at the crash must say group {every}")
+        recs, wall, counts, _ = mesh_main("(a) resume", lambda: list(resumed.wire_records(rstream, path)), need)
+        same_labels("(a) resumed", recs, want)
+        refolded = counts["comms"]["comms_dispatches"]
+        if refolded != groups - every or counts["launches"]["ef40_unpack"] != (groups - every) * MESH_SHARDS:
+            raise RuntimeError(f"(a): the resume must fold groups {every}..{groups - 1} alone: {counts}")
+        out["checkpoint_resume"] = {**mesh_log(f"resume from the snapshot after group {every}", n, wall, counts),
+                                    "groups_folded": refolded, "crashed_after_group": MESH_KILL_GROUP}
+        log(f"    killed after group {MESH_KILL_GROUP}, resumed from the snapshot after group {every}: "
+            f"{refolded} groups folded, none before it; labels equal phase 7's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def mesh_window_stream(seed: int = 21):
+    """(b)'s stream: 16 windows of 2^15 uniform edges over 2^20 ids, half of
+    window 5's sources one hub."""
+    rng = np.random.default_rng(seed)
+    n = MESH_WINDOWS * MESH_WIN_EDGES
+    src = rng.integers(0, CC_VERTICES, n).astype(np.int32)
+    dst = rng.integers(0, CC_VERTICES, n).astype(np.int32)
+    h0 = MESH_HUB_WINDOW * MESH_WIN_EDGES
+    src[h0 : h0 + MESH_WIN_EDGES // 2] = 123457
+    return src, dst
+
+
+def records_equal(label: str, got, want) -> None:
+    import torch
+
+    if len(got) != len(want):
+        raise RuntimeError(f"{label}: {len(got)} records against {len(want)}")
+    for (g,), (w,) in zip(got, want):
+        for name in ("parent", "parent2", "seen"):
+            if hasattr(w, name) and not torch.equal(getattr(g, name).cpu(), getattr(w, name).cpu()):
+                raise RuntimeError(f"{label}: a record's {name} differs from the single-partition run's")
+        if isinstance(w, torch.Tensor) and not torch.equal(g.cpu(), w.cpu()):
+            raise RuntimeError(f"{label}: a record differs from the single-partition run's")
+
+
+def phase_mesh_windows(dev) -> dict:
+    """(b) the windowed owner-sharded plane (delta regime) and the
+    replicated bipartiteness check, against single-partition runs."""
+    from gelly_streaming_tpu_torch.core.aggregation import MeshAggregationRunner
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.bipartiteness import BipartitenessCheck
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.library.degree_distribution import DegreeDistributionSummary
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+
+    src, dst = mesh_window_stream()
+    n = len(src)
+    mesh = pm.make_mesh(MESH_SHARDS, [dev] * MESH_SHARDS)
+    base = StreamConfig(vertex_capacity=CC_VERTICES, batch_size=MESH_WIN_EDGES, num_shards=MESH_SHARDS,
+                        ingest_window_edges=MESH_WIN_EDGES)
+    out = {}
+    for name, make, kw, need in (
+            ("cc", ConnectedComponents, {}, ("owner_pack", "block_delta_fold", "union_kernel")),
+            ("degree", DegreeDistributionSummary, {"binned_ingest": 1}, ("owner_pack", "degree_fold"))):
+        cfg = dataclasses.replace(base, **kw)
+        single = EdgeStream.from_arrays(src, dst, dataclasses.replace(cfg, num_shards=1), device=dev)
+        want = single.aggregate(make()).collect()
+        runner = MeshAggregationRunner(make(), mesh)
+        stream = EdgeStream.from_arrays(src, dst, cfg, device=dev)
+        got, wall, counts, busy = mesh_main(f"(b) {name}", lambda: runner.run(stream).collect(), need,
+                                            profile=name == "cc")
+        records_equal(f"(b) {name}", got, want)
+        regimes = mesh_regimes(runner)
+        if not any(k.startswith("delta") for k in regimes):
+            raise RuntimeError(f"(b) {name}: no exchange took the delta regime: {regimes}")
+        out[name] = {**mesh_log(f"{name} owner-sharded, {len(got)} windows", n, wall, counts, busy),
+                     "regimes": regimes}
+        log(f"    {name}: every record equals the single-partition run's; exchanges by regime {regimes}")
+    # the replicated plane: bipartiteness over a near-bipartite stream
+    rng = np.random.default_rng(22)
+    bs = (rng.integers(0, CC_VERTICES // 2, n) * 2).astype(np.int32)
+    bd = (rng.integers(0, CC_VERTICES // 2, n) * 2 + 1).astype(np.int32)
+    odd = rng.choice(n, 5, replace=False)
+    bd[odd[odd >= 8 * MESH_WIN_EDGES]] = bs[odd[odd >= 8 * MESH_WIN_EDGES]] + 2  # even-even edges, later windows
+    bcfg = dataclasses.replace(base, sharded_state=0)
+    want = EdgeStream.from_arrays(bs, bd, dataclasses.replace(bcfg, num_shards=1), device=dev).aggregate(
+        BipartitenessCheck()).collect()
+    runner = MeshAggregationRunner(BipartitenessCheck(), mesh)
+    stream = EdgeStream.from_arrays(bs, bd, bcfg, device=dev)
+    got, wall, counts, _ = mesh_main("(b) bipartiteness", lambda: runner.run(stream).collect(),
+                                     ("parity_union_kernel", "slab_fold"))
+    records_equal("(b) bipartiteness", got, want)
+    verdicts = [bool(r[0].is_bipartite()) if hasattr(r[0], "is_bipartite") else None for r in got]
+    out["bipartite"] = {**mesh_log(f"bipartiteness replicated, {len(got)} windows", n, wall, counts),
+                        "bipartite_a_window": verdicts}
+    log(f"    bipartiteness: every record equals the single-partition run's; verdicts {verdicts}")
+    return out
+
+
+def phase_mesh_routing(dev) -> dict:
+    """(c) measurements routing on an explicit 8-shard shared mesh, against
+    the same call on the CPU."""
+    import torch
+
+    from gelly_streaming_tpu_torch.examples import measurements as meas
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+
+    args = argparse.Namespace(shards=ROUTE_SHARDS, batch=ROUTE_PER_SHARD, capacity=ROUTE_CAP,
+                              vertices=CC_VERTICES, alpha=1.3, seed=0, dev=dev)
+    card, wall, counts, _ = mesh_main("(c) routing", lambda: meas.measure_routing(
+        args, pm.make_mesh(ROUTE_SHARDS, [dev] * ROUTE_SHARDS)), ("owner_pack",))
+    t0 = time.perf_counter()
+    host = meas.measure_routing(args, pm.make_mesh(ROUTE_SHARDS, [torch.device("cpu")] * ROUTE_SHARDS))
+    host_s = time.perf_counter() - t0
+    if card != host:
+        raise RuntimeError(f"(c): the card's routing measurement differs from the CPU's: {card} vs {host}")
+    log(f"    {card}: equal to the CPU's ({host_s:.1f} s there); card {wall:.3f} s, launches {counts['launches']}")
+    return {"result": card, "s": wall, "cpu_s": host_s, **counts}
+
+
+def routing_cases(dev, rng) -> int:
+    """(d) each routing kernel against its twin on the card: random inputs,
+    every changed row in one owner with one slot, empty and all-DELTA_PAD
+    buffers, 2^20 + 333 items (4,097 scan chunks: the carry's later
+    passes and a partial chunk), each op, S in {2, 4, 8}.  Returns the
+    count of mismatches."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import routing as rk
+
+    bad = 0
+
+    def on(t):
+        return None if t is None else t.to(dev)
+
+    for s in (2, 4, 8):
+        for n, cap, kind in ((1 << 16, 1 << 10, "random"), (4096, 1, "one_owner"), (777, 16, "empty"),
+                             (1 << 14, 64, "owned"), ((1 << 20) + 333, 1 << 17, "owned")):
+            live = {"random": rng.random(n) < 0.3, "one_owner": np.arange(n) % s == s - 1,
+                    "empty": np.zeros(n, bool), "owned": rng.random(n) < 0.8}[kind]
+            owner = torch.from_numpy(rng.integers(-1, s + 1, n).astype(np.int32)) if kind == "owned" else None
+            a = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)) if kind == "owned" else None
+            b = torch.from_numpy(rng.integers(-9, 1 << 20, n).astype(np.int32))
+            acc_c, acc_g = torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32, device=dev)
+            want = rk.owner_pack(torch.from_numpy(live), owner, a, b, s, cap, -1, 5, True, True, True, acc_c)
+            got = rk.owner_pack(on(torch.from_numpy(live)), on(owner), on(a), on(b), s, cap, -1, 5, True, True,
+                                True, acc_g)
+            bad += sum(x is not None and not torch.equal(x, y.cpu()) for x, y in zip(want, got))
+            bad += not torch.equal(acc_c, acc_g.cpu())
+        rows_n, cap = 1 << 14, 512
+        for op in ("min", "max", "add"):
+            for pad_all in (False, True):
+                blk = torch.from_numpy(rng.integers(-100, 100, rows_n).astype(np.int32))
+                rr = [torch.from_numpy(np.full(cap, -1, np.int32) if pad_all else np.where(
+                    rng.random(cap) < 0.2, -1, rng.integers(-rows_n - 2, rows_n + 2, cap)).astype(np.int32))
+                      for _ in range(s)]
+                vv = [torch.from_numpy(rng.integers(-1000, 1000, cap).astype(np.int32)) for _ in range(s)]
+                want = rk.block_delta_fold(blk.clone(), rr, vv, op)
+                got = rk.block_delta_fold(blk.to(dev), [on(r) for r in rr], [on(v) for v in vv], op)
+                bad += not torch.equal(want, got.cpu())
+            blk = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, 5003).astype(np.int32))
+            slabs = [torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, 5003).astype(np.int32)) for _ in range(s)]
+            fc, fg = torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32, device=dev)
+            want = rk.slab_fold(blk.clone(), slabs, op, fc)
+            got = rk.slab_fold(blk.to(dev), [on(x) for x in slabs], op, fg)
+            bad += not torch.equal(want, got.cpu()) or (int(fc) > 0) != (int(fg) > 0)
+    return bad
+
+
+def phase_routing_kernels(dev, cpm) -> dict:
+    """(d) the three kernels against their twins, then each timed on a held
+    stream at (a)'s and (b)'s shapes beside its bound, its twin and the
+    library call."""
+    import torch
+
+    from gelly_streaming_tpu_torch.ops import routing as rk
+
+    rng = np.random.default_rng(23)
+    bad = routing_cases(dev, rng)
+    if bad:
+        raise RuntimeError(f"(d): {bad} routing kernel outputs differ from their twins")
+    log("    owner_pack, block_delta_fold and slab_fold equal their twins on every case (err 0)")
+    c, s = CC_VERTICES, MESH_SHARDS
+    r = c // s
+    out = {}
+
+    def same(x, y) -> bool:
+        """Two outputs equal: tensors, or tuples of tensors and Nones."""
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x.cpu(), y.cpu())
+        if len(x) != len(y):
+            return False
+        return all(a is None and b is None or a is not None and b is not None and same(a, b) for a, b in zip(x, y))
+
+    def timing(name, fn, twin, bound_ms, library=None, reps=20, checks=()):
+        """Each of ``checks`` (label, kernel call, twin call, both on fresh
+        copies of the timed inputs) must give equal outputs; then the
+        kernel, its twin and the library call are timed."""
+        for label, kern, plain in checks:
+            if not same(kern(), plain()):
+                raise RuntimeError(f"(d) {name}: {label}: the kernel differs from its twin at the timed shape")
+        d_ms, h_us = device_ms(fn, reps, cpm)
+        ms = cuda_ms(fn, reps)
+        plain = cuda_ms(twin, 2, 1)
+        lib = None if library is None else cuda_ms(library, reps)
+        row = {"device_ms": d_ms, "host_us": h_us, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+               "ratio": d_ms / bound_ms, "library_ms": lib, "checked_equal": [c[0] for c in checks]}
+        log(f"    {name}: device {d_ms:.5f} ms (host {h_us:.1f} us), events {ms:.5f} ms, twin {plain:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({d_ms / bound_ms:.2f}x)" + ("" if lib is None else f", library {lib:.5f} ms"))
+        return row
+
+    # owner_pack at (a): the dense exchange's count of changed rows (C rows,
+    # about half changed), no slots
+    live_a = torch.from_numpy(rng.random(c) < 0.5).to(dev)
+    acc = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    def pack_with_acc(pack, *args, **kw):
+        fresh = torch.zeros(3, dtype=torch.int32, device=dev)
+        return (*pack(*args, **kw, acc=fresh), fresh)
+
+    out["owner_pack_a"] = timing(
+        "owner_pack at (a): count of C rows by owner",
+        lambda: rk.owner_pack(live_a, None, None, None, s, 0, acc=acc),
+        lambda: rk.owner_pack_plain(live_a, None, None, None, s, 0, acc=acc),
+        c / HBM_BYTES_PER_S * 1e3,
+        checks=[("counts and acc over 4,096 scan chunks",
+                 lambda: pack_with_acc(rk.owner_pack, live_a, None, None, None, s, 0),
+                 lambda: pack_with_acc(rk.owner_pack_plain, live_a, None, None, None, s, 0))])
+    # owner_pack at (b): a pane's changed roots (2^15 of C) into [S, 2^16]
+    cap_b = 1 << 16
+    live_b = torch.zeros(c, dtype=torch.bool)
+    live_b[torch.from_numpy(rng.choice(c, MESH_WIN_EDGES, replace=False))] = True
+    live_b = live_b.to(dev)
+    vals = torch.from_numpy(rng.integers(0, c, c).astype(np.int32)).to(dev)
+    k = int(live_b.sum())
+    out["owner_pack_b"] = timing(
+        "owner_pack at (b): a pane's changed rows into [S, 2^16]",
+        lambda: rk.owner_pack(live_b, None, None, vals, s, cap_b, want_sent=True, acc=acc),
+        lambda: rk.owner_pack_plain(live_b, None, None, vals, s, cap_b, want_sent=True, acc=acc),
+        (c + 4 * k + 8 * s * cap_b + c) / HBM_BYTES_PER_S * 1e3,
+        checks=[("slots, sent, counts and acc",
+                 lambda: pack_with_acc(rk.owner_pack, live_b, None, None, vals, s, cap_b, want_sent=True),
+                 lambda: pack_with_acc(rk.owner_pack_plain, live_b, None, None, vals, s, cap_b, want_sent=True))])
+    # block_delta_fold at (b): S senders' [2^16] buffers, 2^13 live rows each
+    blk = torch.from_numpy(rng.integers(0, c, r).astype(np.int32)).to(dev)
+    live_slots = MESH_WIN_EDGES // s
+    rr, vv = [], []
+    for _ in range(s):
+        rows = np.full(cap_b, -1, np.int32)
+        rows[:live_slots] = np.sort(rng.choice(r, live_slots, replace=False))
+        rr.append(torch.from_numpy(rows).to(dev))
+        vv.append(torch.from_numpy(rng.integers(0, c, cap_b).astype(np.int32)).to(dev))
+    idx = torch.cat([x[:live_slots] for x in rr]).long()
+    vval = torch.cat([x[:live_slots] for x in vv])
+    out["block_delta_fold_b"] = timing(
+        "block_delta_fold at (b): 4 senders' [2^16] buffers into a [2^18] block",
+        lambda: rk.block_delta_fold(blk, rr, vv, "min"),
+        lambda: rk.block_delta_fold_plain(blk.clone(), rr, vv, "min"),
+        (8 * s * cap_b + 8 * s * live_slots) / HBM_BYTES_PER_S * 1e3,
+        library=lambda: blk.scatter_reduce_(0, idx, vval, "amin", include_self=True),
+        checks=[(f"op {op}", lambda op=op: rk.block_delta_fold(blk.clone(), rr, vv, op),
+                 lambda op=op: rk.block_delta_fold_plain(blk.clone(), rr, vv, op)) for op in rk.OPS])
+    # slab_fold at (a): 4 received [2^18] slabs min-folded into a block
+    sblk = torch.from_numpy(rng.integers(0, c, r).astype(np.int32)).to(dev)
+    slabs = [torch.from_numpy(rng.integers(0, c, r).astype(np.int32)).to(dev) for _ in range(s)]
+    recv = torch.stack(slabs)
+
+    def slab_pair(fold, op):
+        """(the folded block, whether the flag grew) from a fresh block."""
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        return fold(sblk.clone(), slabs, op, flag), (flag > 0)
+    out["slab_fold_a"] = timing(
+        "slab_fold at (a): 4 [2^18] slabs into a block",
+        lambda: rk.slab_fold(sblk, slabs, "min"),
+        lambda: rk.slab_fold_plain(sblk.clone(), slabs, "min"),
+        (s + 2) * r * 4 / HBM_BYTES_PER_S * 1e3,
+        library=lambda: torch.minimum(sblk, recv.amin(0)),
+        checks=[(f"op {op} (aligned rows: the int4 path) and its flag", lambda op=op: slab_pair(rk.slab_fold, op),
+                 lambda op=op: slab_pair(rk.slab_fold_plain, op)) for op in rk.OPS])
+    out["err"] = 0
+    return out
+
+
+def phase_mesh(dev, cpm, data: dict) -> dict:
+    """Phase 21: (a) the mesh wire fold, (b) the windowed owner-sharded
+    plane, (c) the routing measurement, (d) the kernels against their
+    twins and their times."""
+    t0 = time.perf_counter()
+    log(f"  (a) mesh wire streaming CC at the bench shape: {MESH_SHARDS} shards sharing the card, rows of {MESH_ROW}")
+    a = phase_mesh_wire(dev, data)
+    log(f"  (b) windowed owner-sharded plane: {MESH_WINDOWS} windows of {MESH_WIN_EDGES} edges over 2^20 ids, "
+        f"{MESH_SHARDS} shared shards, window {MESH_HUB_WINDOW} half on one hub")
+    b = phase_mesh_windows(dev)
+    log(f"  (c) measurements routing on {ROUTE_SHARDS} shared shards, {ROUTE_PER_SHARD} edges a shard, "
+        f"capacity {ROUTE_CAP}, alpha 1.3, seed 0")
+    c = phase_mesh_routing(dev)
+    log("  (d) owner_pack, block_delta_fold and slab_fold against their twins, and their times")
+    d = phase_routing_kernels(dev, cpm)
+    s = time.perf_counter() - t0
+    log(f"  phase 21: {s:.1f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "s": s}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-cu", default=None,
@@ -8107,6 +8624,8 @@ def main(argv=None) -> int:
 
     log("phase 20: the network edge source, the measurement programs and wire_unpack on the card")
     tw = phase_twenty(dev, cpm)
+    log("phase 21: the mesh aggregation plane, shards sharing the card (no multi-GPU speed is measured)")
+    mesh = phase_mesh(dev, cpm, data)
 
     kernels = [
         {
@@ -8363,6 +8882,35 @@ def main(argv=None) -> int:
         "widths_2_4_torch_ops": {k: v for k, v in un.items() if k.startswith("ops_")},
         "checked_buffers": tw["unpack"]["checked"], "network_source": tw["network"],
         "measurements": {k: v for k, v in tw["measurements"].items() if k != "launches"}})
+    runs = [*mesh["a"].values(), *mesh["b"].values(), mesh["c"]]
+
+    def mesh_launches(kernel):
+        return sum(r["launches"].get(kernel, 0) for r in runs)
+
+    for k in kernels:
+        if k["name"] in ("union_kernel", "compress_kernel", "ef40_unpack", "parity_union_kernel", "degree_fold"):
+            k["launches_phase_21"] = mesh_launches(k["name"])
+    md = mesh["d"]
+    for name, row, replaces, extra in (
+            ("owner_pack", md["owner_pack_b"], "gelly_streaming_tpu/parallel/routing.py:347",
+             {"also_replaces": "gelly_streaming_tpu/parallel/routing.py:138 (owner_rank + _exchange_by_owner)",
+              "library_call": "none: no one PyTorch call computes the stable capped per-owner compaction",
+              "timed": "(b)'s shape: 2^15 changed rows of C = 2^20 into [4, 2^16] slots, on a held stream",
+              "count_only_a": md["owner_pack_a"]}),
+            ("block_delta_fold", md["block_delta_fold_b"], "gelly_streaming_tpu/parallel/routing.py:426",
+             {"library_call": "Tensor.scatter_reduce_(0, rows, vals, 'amin', include_self=True) over the live slots",
+              "timed": "(b)'s shape: 4 senders' [2^16] buffers, 2^13 live slots each, into a [2^18] block"}),
+            ("slab_fold", md["slab_fold_a"], "gelly_streaming_tpu/library/connected_components.py:245",
+             {"also_replaces": "the elementwise reductions of lax.pmin / pmax / psum "
+                               "(gelly_streaming_tpu/library/connected_components.py:463, :367, :818)",
+              "library_call": "torch.minimum(block, recv.amin(0)) over the stacked slabs",
+              "timed": "(a)'s shape: 4 received [2^18] slabs min-folded into a block",
+              "mesh": {k: v for k, v in mesh.items() if k != "d"}})):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gelly_streaming_tpu_torch/csrc/routing.cu", "replaces": replaces,
+            "launches": mesh_launches(name), "max_abs_err": md["err"], "ms": row["ms"], "device_ms": row["device_ms"],
+            "host_us": row["host_us"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"], "ratio": row["ratio"], "shards_share_one_card": True, **extra})
     log(f"  total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

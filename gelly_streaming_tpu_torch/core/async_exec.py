@@ -251,6 +251,7 @@ def async_merge_loop(
     unwrap: bool = False,
     depth: int = 2,
     release: Optional[Callable] = None,
+    fold_is_running: bool = False,
 ) -> Iterator[tuple]:
     """The Merger with a non-blocking completion queue: the asynchronous
     form of ``SummaryAggregation._merge_loop`` (same restore, merge,
@@ -271,7 +272,9 @@ def async_merge_loop(
     ``release(payload)`` (optional) recycles a window's transfer arenas at
     drain, after ``wait_ready`` on the event recorded right after its fold
     (the fold output, not the record, is the wait target: the record may be
-    a host wrapper such as CC's DisjointSet)."""
+    a host wrapper such as CC's DisjointSet).  ``fold_is_running``: the
+    fold returns the running summary itself (the owner-sharded mesh plane),
+    so it is not combined into the last one."""
     running, start_after, global_done = restored
     # (window id, record, snapshot fetch or None, payload or None, the
     # fold's ready handle or None) in window order
@@ -312,7 +315,7 @@ def async_merge_loop(
             if pane_summary is None:
                 continue
             ready = record_ready(pane_summary) if release is not None else None
-            if running is None or agg.transient_state:
+            if running is None or agg.transient_state or fold_is_running:
                 running = pane_summary
             else:
                 running = agg.combine(running, pane_summary)

@@ -24,9 +24,12 @@ class StreamConfig:
         [0, C) and checked against it at the sources.
       max_degree: per-vertex neighbor-table capacity D (ops/neighbors.py).
       batch_size: edges per micro-batch (padded).
-      num_shards: partitions a window pane is folded in (round robin) before
-        the partials are combined; the port folds them one after another
-        on one device.
+      num_shards: number of mesh shards the vertex space is partitioned
+        over.  With that many local devices (``parallel/mesh.local_devices``:
+        the GPUs, or ``set_host_device_count`` CPU shards) the aggregation
+        runs the mesh plane (``core/aggregation.MeshAggregationRunner``);
+        otherwise a pane's round-robin partitions fold one after another on
+        one device and their partials are combined.
       window_ms: default tumbling-window length of an aggregation.
       tree_degree: fan-in of the tree combine (SummaryTreeAggregation).
       prefetch_depth: wire buffers kept in flight ahead of the device
@@ -57,6 +60,12 @@ class StreamConfig:
       async_windows: closed windows kept in flight by the asynchronous
         window pipeline.  0 = synchronous; the port's window_triangles
         does not implement > 0 yet.
+      sharded_state: owner-sharded summary state on the mesh plane
+        (``core/sharded_state.py``): O(C/S) owner blocks a shard, reconciled
+        by delta exchanges at emission and snapshot boundaries.  1 = on,
+        0 = off (the replicated combine, the equivalence oracle), -1 =
+        the GELLY_SHARDED_STATE env var when set, else on for descriptors
+        that supply a ``ShardedStateSpec``.
       binned_ingest / wire_compress: destination-binned and BDV-compressed
         ingest of array-backed streams and closed panes (order-free folds
         only); 1 forces on, 0 off, -1 (default) defers to the
@@ -86,6 +95,7 @@ class StreamConfig:
     superbatch: int = 0
     ingest_workers: int = 0
     async_windows: int = 0
+    sharded_state: int = -1
     binned_ingest: int = -1
     wire_compress: int = -1
     spmv_direction: str = ""
@@ -117,6 +127,8 @@ class StreamConfig:
             raise ValueError("ingest_workers must be >= 0")
         if self.async_windows < 0:
             raise ValueError("async_windows must be >= 0")
+        if self.sharded_state not in (-1, 0, 1):
+            raise ValueError("sharded_state must be -1 (auto), 0, or 1")
         if self.binned_ingest not in (-1, 0, 1):
             raise ValueError("binned_ingest must be -1 (auto), 0, or 1")
         if self.wire_compress not in (-1, 0, 1):

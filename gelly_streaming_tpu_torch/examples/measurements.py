@@ -15,6 +15,7 @@ JSON line of metrics, with the JAX program's keys and defaults.
   python -m gelly_streaming_tpu_torch.examples.measurements pagerank      [options]
   python -m gelly_streaming_tpu_torch.examples.measurements sssp          [options]
   python -m gelly_streaming_tpu_torch.examples.measurements kcore         [options]
+  python -m gelly_streaming_tpu_torch.examples.measurements routing       [options]
 
 Options: --edges N --vertices C --batch B --seed S, and --device=cuda|cpu
 (default cuda; without a GPU only --device=cpu runs).  degrees adds --trace
@@ -26,9 +27,12 @@ spanner --max-degree D --k K --body auto|balls|bfs|both; sage --features F
 steps, the parameters drawn from a seeded torch.Generator); pagerank
 --windows W --tol T; replay drives the wire-replay CC fold
 (EdgeStream.from_wire) and reports the replay and pack rates and the
-encoding's bytes an edge.  Timings synchronize the card.  The JAX program's
-``routing`` mode needs a device mesh, which the port does not have yet
-(queue A.7 of ROADMAP.md): it raises.
+encoding's bytes an edge; routing --shards S --batch B --capacity K --alpha
+A routes a zipf-keyed batch over an S-shard mesh of the local devices
+(``parallel/routing.device_route`` against ``device_route_salted``) and
+reports the drops and the per-shard receive imbalance, or ``skipped``
+with fewer than S local devices, as the JAX program does.  Timings
+synchronize the card.
 """
 
 from __future__ import annotations
@@ -43,9 +47,6 @@ import numpy as np
 import torch
 
 from gelly_streaming_tpu_torch.device import resolve_device, synchronize
-
-_ROUTING_MSG = "the routing measurement needs a device mesh, which is not ported yet (ROADMAP queue A, item 7)"
-
 
 def _stream_fold(args, make_fold, init_state):
     """Synthetic edge stream through the shared wire-ingest harness."""
@@ -579,9 +580,55 @@ def measure_kcore(args) -> dict:
     return _measure_windowed_algo(args, "kcore", core_numbers_windows, weighted=False)
 
 
-def measure_routing(args) -> dict:
-    """The keyBy plane's skew measurement: needs a device mesh."""
-    raise NotImplementedError(_ROUTING_MSG)
+def measure_routing(args, mesh=None) -> dict:
+    """Skew robustness of the device keyBy plane: a zipf-keyed batch routed
+    over the mesh by plain ``device_route`` and by ``device_route_salted``,
+    their drop counts and per-shard receive imbalance.  ``mesh``: the shard
+    mesh to route over (default: ``--shards`` of the local devices, or
+    ``skipped`` with fewer)."""
+    from gelly_streaming_tpu_torch.parallel import mesh as mesh_mod
+    from gelly_streaming_tpu_torch.parallel import routing
+
+    s_n = args.shards
+    if mesh is None:
+        devices = mesh_mod.local_devices(args.dev)
+        if len(devices) < s_n:
+            return {"skipped": f"need {s_n} devices, have {len(devices)}"}
+        mesh = mesh_mod.make_mesh(s_n, devices)
+    per_shard = args.batch
+    # the routers pow2-bucket their capacity: report the effective one
+    cap = routing.pow2_bucket(args.capacity)
+    rng = np.random.default_rng(args.seed)
+    # zipf keys clipped into the vertex space: a heavy head and a long tail
+    keys = np.minimum(rng.zipf(args.alpha, size=(s_n, per_shard)) - 1, args.vertices - 1).astype(np.int32)
+    dst = rng.integers(0, args.vertices, (s_n, per_shard)).astype(np.int32)
+    src_l = [torch.from_numpy(keys[s]).to(d) for s, d in enumerate(mesh.devices)]
+    dst_l = [torch.from_numpy(dst[s]).to(d) for s, d in enumerate(mesh.devices)]
+    mask_l = [torch.ones(per_shard, dtype=torch.bool, device=d) for d in mesh.devices]
+
+    def run(router):
+        out = router(mesh, src_l, dst_l, mask_l, s_n, cap)
+        recv = np.array([int(r.mask.sum()) for r in out])
+        return sum(int(r.dropped) for r in out), recv
+
+    plain_drop, plain_recv = run(routing.device_route)
+    salt_drop, salt_recv = run(routing.device_route_salted)
+
+    def imbalance(recv):
+        mean = recv.mean()
+        return float(recv.max() / mean) if mean else 0.0
+
+    return {
+        "metric": "zipf_routed_drops",
+        "shards": s_n,
+        "edges": int(s_n * per_shard),
+        "capacity_per_pair": cap,
+        "zipf_alpha": args.alpha,
+        "plain_dropped": plain_drop,
+        "salted_dropped": salt_drop,
+        "plain_recv_imbalance": round(imbalance(plain_recv), 2),
+        "salted_recv_imbalance": round(imbalance(salt_recv), 2),
+    }
 
 
 MEASURES = {

@@ -13,7 +13,10 @@ spanner's, the matching's and the samplers' states through
 ``sampler_state_from_numpy``, the samplers' key as the uint32 key data of
 ``jax.random.key_data``; the three sketch states through
 ``sketch_state_from_numpy``; a whole snapshot written by the JAX
-package's ``utils/checkpoint.save_state`` through ``snapshot_from_jax``).
+package's ``utils/checkpoint.save_state`` through ``snapshot_from_jax``,
+the owner-sharded mesh plane's ``[S, C/S]`` host blocks onto a mesh's
+shard devices through ``cc_blocks_from_numpy`` and
+``degree_blocks_from_numpy``).
 Packed
 pane words (``pack_pane``) and wire buffers (``io/wire.py``)
 are already a shared numpy format.  ``config_from_dict`` carries every
@@ -320,3 +323,28 @@ def snapshot_from_jax(path: str, like):
                 f"{checkpoint.dtype_name(l)}{want_shape}"
             )
     return checkpoint.unflatten_like(like, checkpoint.restore_leaves(stored, like_leaves))
+
+
+def _blocks(x, name: str, dtype, mesh) -> list:
+    a = np.asarray(x)
+    if a.ndim != 2 or a.shape[0] != mesh.size:
+        raise ValueError(f"{name} must be [S, C/S] blocks for {mesh.size} shards, got {list(a.shape)}")
+    return [torch.from_numpy(np.array(a[s], dtype=dtype)).to(d) for s, d in enumerate(mesh.devices)]
+
+
+def cc_blocks_from_numpy(label, seen, mesh) -> list:
+    """The JAX package's ``CCBlocks`` host arrays (``label`` int32[S, C/S],
+    ``seen`` bool[S, C/S]) as the port's per-shard ``CCBlocks`` on
+    ``mesh``'s shard devices (``parallel/mesh.Mesh``)."""
+    from gelly_streaming_tpu_torch.library.connected_components import CCBlocks
+
+    return [CCBlocks(lb, sn) for lb, sn in zip(_blocks(label, "label", np.int32, mesh),
+                                                _blocks(seen, "seen", bool, mesh))]
+
+
+def degree_blocks_from_numpy(deg, mesh) -> list:
+    """The JAX package's ``DegreeBlocks`` host array (int32[S, C/S]) as the
+    port's per-shard ``DegreeBlocks`` on ``mesh``'s shard devices."""
+    from gelly_streaming_tpu_torch.library.degree_distribution import DegreeBlocks
+
+    return [DegreeBlocks(d) for d in _blocks(deg, "deg", np.int32, mesh)]

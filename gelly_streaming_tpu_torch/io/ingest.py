@@ -18,9 +18,10 @@ the two CPU-bound ingest stages across cores:
   same for the compressed and the binned ingest.  The numpy fallbacks hold
   the GIL, so without the library the workers take turns.
 
-``parallel_host_route`` is the owner-shard bucketing (``host_route``, the
-port's copy of the JAX package's value-less ``parallel/routing.host_route``)
-across the pool.  Worker count resolution (``resolve_workers``): an
+``parallel_host_route`` is the owner-shard bucketing
+(``parallel/routing.host_route``) across the pool; the mesh runner's
+owner-sharded windowed plane calls it for a descriptor with a route key
+when binned ingest is on.  Worker count resolution (``resolve_workers``): an
 explicit config value wins, then the ``GELLY_INGEST_WORKERS`` env var, then
 the process's usable core count.
 """
@@ -30,10 +31,11 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from gelly_streaming_tpu_torch.parallel.routing import RoutedEdges, host_route, pow2_bucket
 from gelly_streaming_tpu_torch.utils import native
 
 _LOCK = threading.Lock()
@@ -393,60 +395,6 @@ def pack_binned_rows_into(
             one(j)
         return
     _run_parallel([lambda j=j: one(j) for j in range(group)], workers)
-
-
-def pow2_bucket(n: int) -> int:
-    """Smallest power of two >= max(n, 1)."""
-    return 1 << (max(int(n), 1) - 1).bit_length()
-
-
-class RoutedEdges(NamedTuple):
-    """Stacked per-shard edge arrays: leading axis = shard."""
-
-    src: np.ndarray  # [S, B]
-    dst: np.ndarray  # [S, B]
-    mask: np.ndarray  # [S, B]
-    val: Optional[object] = None
-
-
-def host_route(src: np.ndarray, dst: np.ndarray, num_shards: int, key: str = "src",
-               capacity: Optional[int] = None) -> RoutedEdges:
-    """Bucket value-less edges by owner shard (``key`` % num_shards) on the
-    host, each bucket padded to a common capacity (a power of two unless
-    given), arrival order kept within a shard.  Port of
-    ``gelly_streaming_tpu/parallel/routing.host_route`` for value-less
-    batches: int32 batches scatter through the native single-pass router
-    when the library is loaded, the rest take one boolean selection a
-    shard."""
-    if len(src) and src.dtype == np.int32 and dst.dtype == np.int32:
-        lib = native.load_ingest_lib()
-        if lib is not None:
-            cap = capacity or pow2_bucket(
-                int(np.bincount((src if key == "src" else dst) % num_shards, minlength=num_shards).max())
-            )
-            s = np.zeros((num_shards, cap), np.int32)
-            d = np.zeros((num_shards, cap), np.int32)
-            counts = np.zeros((num_shards,), np.int64)
-            src_c = np.ascontiguousarray(src)
-            dst_c = np.ascontiguousarray(dst)
-            wrote = lib.route_edges(src_c.ctypes.data, dst_c.ctypes.data, len(src), num_shards,
-                                    1 if key == "src" else 0, cap, s.ctypes.data, d.ctypes.data, counts.ctypes.data)
-            if wrote == len(src):  # no overflow: buckets are complete
-                m = np.arange(cap)[None, :] < counts[:, None]
-                return RoutedEdges(s, d, m, None)
-    owner = (src if key == "src" else dst) % num_shards
-    counts = np.bincount(owner, minlength=num_shards)
-    cap = capacity or (pow2_bucket(int(counts.max())) if len(src) else 1)
-    s = np.zeros((num_shards, cap), np.int32)
-    d = np.zeros((num_shards, cap), np.int32)
-    m = np.zeros((num_shards, cap), bool)
-    for shard in range(num_shards):
-        sel = owner == shard
-        n = min(int(sel.sum()), cap)
-        s[shard, :n] = src[sel][:n]
-        d[shard, :n] = dst[sel][:n]
-        m[shard, :n] = True
-    return RoutedEdges(s, d, m, None)
 
 
 def parallel_host_route(

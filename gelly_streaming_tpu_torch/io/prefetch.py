@@ -8,7 +8,10 @@ packing item k+1 overlaps uploading item k.  On CUDA the upload copies
 from pinned host memory with ``non_blocking=True`` on a side stream and
 records an event; the consumer's stream waits on that event when the item
 is handed over, and the tensors are marked as used by that stream so the
-caching allocator cannot recycle them early.  ``prefetch_to_host`` is the
+caching allocator cannot recycle them early.  Given a shard mesh
+(``parallel/mesh.Mesh``) instead of a device, every array's row s goes to
+shard s's device (one copy a device, a side stream and an event each) and
+the consumer gets a tuple of per-shard row lists.  ``prefetch_to_host`` is the
 mirror for the emission plane: device outputs go to pinned host buffers by
 non-blocking copies on a side stream, one event a batch, a bounded number
 of batches in flight.
@@ -63,10 +66,12 @@ class Prefetcher:
     ):
         self._prepare = prepare
         self._count_stalls = count_stalls
+        # a shard mesh (parallel/mesh.Mesh): each array's row s goes to
+        # shard s's device, a side stream and an event a device
+        self._mesh = device if hasattr(device, "groups") else None
         self._device = device
-        self._side = (
-            torch.cuda.Stream(device=device) if device.type == "cuda" else None
-        )
+        groups = self._mesh.groups if self._mesh is not None else ((device, ()),)
+        self._sides = {d: torch.cuda.Stream(device=d) for d, _ in groups if d.type == "cuda"}
         self._midq: "queue.Queue" = queue.Queue(maxsize=depth)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._error: Optional[BaseException] = None
@@ -124,18 +129,42 @@ class Prefetcher:
                 if got is self._SENTINEL:
                     return
                 meta, host = got
-                dev = upload(host, self._device, self._side)
-                ready = None
-                if self._side is not None and dev is not None:
-                    ready = torch.cuda.Event()
-                    ready.record(self._side)
-                if not self._put(self._q, (meta, dev, ready)):
+                if not self._put(self._q, (meta, *self._upload(host))):
                     return
         except BaseException as e:
             if self._error is None:
                 self._error = e
         finally:
             self._put(self._q, self._SENTINEL)
+
+    def _upload(self, host):
+        """(device arrays, [(device, event, tensors)]) of one prepared item:
+        on a mesh, a tuple over the arrays of per-shard rows."""
+        if host is None:
+            return None, []
+        if self._mesh is None:
+            side = self._sides.get(self._device)
+            dev = upload(host, self._device, side)
+            if side is None:
+                return dev, []
+            ready = torch.cuda.Event()
+            ready.record(side)
+            return dev, [(self._device, ready, dev)]
+        mesh = self._mesh
+        rows = [[None] * mesh.size for _ in host]
+        readies = []
+        for d, ix in mesh.groups:
+            part = tuple(a if len(ix) == mesh.size else np.ascontiguousarray(np.asarray(a)[list(ix)]) for a in host)
+            side = self._sides.get(d)
+            dev = upload(part, d, side)
+            for k, t in enumerate(dev):
+                for j, s in enumerate(ix):
+                    rows[k][s] = t[j]
+            if side is not None:
+                ready = torch.cuda.Event()
+                ready.record(side)
+                readies.append((d, ready, dev))
+        return tuple(rows), readies
 
     def close(self):
         """Stop the producers and drop queued buffers (idempotent).  Joins
@@ -164,11 +193,11 @@ class Prefetcher:
                     if self._error is not None:
                         raise self._error
                     return
-                meta, dev, ready = item
-                if ready is not None:
-                    consumer = torch.cuda.current_stream(self._device)
+                meta, dev, readies = item
+                for d, ready, tensors in readies:
+                    consumer = torch.cuda.current_stream(d)
                     consumer.wait_event(ready)
-                    for t in dev:
+                    for t in tensors:
                         t.record_stream(consumer)
                 yield meta, dev
         finally:

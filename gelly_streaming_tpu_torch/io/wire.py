@@ -214,6 +214,27 @@ def pack_edges_into(src: np.ndarray, dst: np.ndarray, width, out: np.ndarray) ->
     out[:] = pack_edges(src, dst, width)
 
 
+def pack_bucket_rows(src2d: np.ndarray, dst2d: np.ndarray, counts: np.ndarray, width) -> np.ndarray:
+    """Pack per-shard edge buckets (``[S, cap]``, ``counts[s]`` valid a row)
+    into ``uint8[S, wire_nbytes(cap, width)]`` rows whose pads keep the
+    count-prefix contract of the mesh's device steps: fixed widths keep
+    position (zero pads), EF40 sorts, so its pads are the maximal id pair
+    and sort to the end.  Port of ``gelly_streaming_tpu/io/wire.py``'s."""
+    n_rows, cap = src2d.shape
+    rows = np.zeros((n_rows, wire_nbytes(cap, width)), np.uint8)
+    pad_id = width[1] - 1 if isinstance(width, tuple) else 0
+    s = np.empty((cap,), np.int32)
+    d = np.empty((cap,), np.int32)
+    for r in range(n_rows):
+        k = int(counts[r])
+        s[:k] = src2d[r, :k]
+        d[:k] = dst2d[r, :k]
+        s[k:] = pad_id
+        d[k:] = pad_id
+        pack_edges_into(s, d, width, rows[r])
+    return rows
+
+
 def pack_stream(
     src: np.ndarray, dst: np.ndarray, batch: int, width
 ) -> Tuple[list, Optional[Tuple[np.ndarray, np.ndarray]]]:

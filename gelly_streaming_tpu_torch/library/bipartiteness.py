@@ -7,8 +7,9 @@ Candidates).  The summary is the parity union-find on the doubled vertex
 space (``ops/unionfind.py``): an odd cycle is exactly a vertex whose two
 side nodes share a component.  The fold is one ``uf_parity_union_launch``
 a batch on the GPU (``csrc/unionfind.cu``), the combine the union kernel's
-``merge_parents`` on the doubled space.  The mesh combine waits for
-``parallel/`` on NCCL.
+``merge_parents`` on the doubled space.  On the mesh plane the combine is
+CC's pmin-round fixed point on the doubled space
+(``mesh_combine_states``).
 """
 
 from __future__ import annotations
@@ -50,3 +51,17 @@ class BipartitenessCheck(SummaryBulkAggregation):
 
     def transform(self, state: BPState) -> Candidates:
         return Candidates(state.parent2, state.seen)
+
+    def mesh_combine_states(self, cfg: StreamConfig):
+        """The collective cross-shard combine on the doubled space: CC's
+        pmin-round fixed point (each shard's parent2 pointers are its local
+        parity constraints), the form of Candidates' partition merge
+        (BipartitenessCheck.java:128-130)."""
+        from gelly_streaming_tpu_torch.library.connected_components import collective_parent_seen_combine
+
+        def combine(mesh, states, has_data) -> BPState:
+            return BPState(*collective_parent_seen_combine(
+                mesh, [st.parent2 for st in states], [st.seen for st in states]
+            ))
+
+        return combine

@@ -18,11 +18,13 @@ Each ``update`` is one C call a batch on the GPU (``ops/sketches.py``):
 ``tri_fold`` with the edge registers, ``hll_degree_fold``,
 ``cm_degree_fold``.  ``update`` and ``combine`` change their first state in
 place; the runtime clones the running state before an emission.  Register
-shapes are functions of (eps, delta) alone.  Not ported yet (ROADMAP):
-the owner-sharded state (``SketchShardedState``, ``sharded_state_spec``),
-with the mesh runner; ``cache_token`` and ``emission_scratch``, whose
-consumers are the JAX runtime's executable cache, fused dispatch and
-admission pricing.  ``num_shards > 1`` folds round-robin partitions on one
+shapes are functions of (eps, delta) alone.  Not ported yet (ROADMAP queue
+A.7): the owner-sharded state (``SketchShardedState``), so on the mesh
+plane with ``sharded_state`` on ``sharded_state_spec`` raises
+``NotImplementedError`` (with ``sharded_state=0`` the replicated combine
+runs); and ``cache_token`` and ``emission_scratch``, whose consumers are
+the JAX runtime's executable cache, fused dispatch and admission pricing.
+Without a mesh, ``num_shards > 1`` folds round-robin partitions on one
 device and combines them, bit for bit the replicated result.
 """
 
@@ -73,6 +75,12 @@ class _SketchSummary(SummaryBulkAggregation):
     def error_contract(self) -> dict:
         """The declared (eps, delta) bound."""
         return {"kind": self.kind, "eps": self.eps, "delta": self.delta}
+
+    def sharded_state_spec(self, cfg: StreamConfig):
+        raise NotImplementedError(
+            "the sketches' owner-sharded state (SketchShardedState) is not ported yet (ROADMAP queue A.7); "
+            "set sharded_state=0 for the replicated mesh combine"
+        )
 
 
 class TriangleSketchState(NamedTuple):

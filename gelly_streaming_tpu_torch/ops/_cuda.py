@@ -13,12 +13,24 @@ all started together.
 compiles one with the host C compiler (``cc -O2``) or C++ compiler (``c++
 -O3 -std=c++17``) into the same directory, at first use, and loads it with
 ctypes (whose foreign calls release the GIL).
+
+A C entry point acts on the current CUDA device: a tensor's default
+stream handle is 0, the null stream of whichever device is current, and
+the occupancy, shared-memory attributes and ``cudaMemsetAsync`` calls
+inside a launch all follow the current device.  So every wrapper that
+calls an entry point is decorated with ``on_device_of`` (or calls it
+inside ``device_guard``), which makes its tensors' device current for the
+call: a mesh whose shards live on ``cuda:0`` .. ``cuda:S-1`` launches each
+shard's kernels on its own card and its own stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -246,6 +258,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream: one launch
         "wire_unpack_launch": [_P, _L, _I, _I, _P, _P, _P],
     },
+    "routing.cu": {
+        # n, S: the scratch bytes of one owner_pack_launch
+        "owner_pack_scratch_bytes": [_L, _I],
+        # live | None, owner | None, a | None, b | None, n, S, cap, fill_a,
+        # fill_b, out_a, out_b | None, ok | None, sent | None, slot | None,
+        # counts, acc | None, scratch, scratch bytes, stream: the count, scan
+        # and scatter kernels
+        "owner_pack_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+        # block, rows, row pointers [S], value pointers [S], S, cap, op,
+        # stream: one launch
+        "block_delta_fold_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+        # block, rows, slab pointers [S], S, op, flag | None, stream: one
+        # launch
+        "slab_fold_launch": [_P, _L, _P, _I, _I, _P, _P],
+    },
 }
 
 _C, _I32, _I64 = ctypes.c_char_p, ctypes.c_int32, ctypes.c_int64
@@ -296,7 +323,7 @@ RESTYPES: Dict[str, type] = {
     "kcore_fixpoint_scratch_bytes": _L, "spanner_scratch_bytes": _L, "sampler_scratch_bytes": _L,
     "matching_scratch_bytes": _L, "tri_fold_scratch_bytes": _L, "hll_scratch_bytes": _L,
     "tri_closures_scratch_bytes": _L, "bdv_decode_scratch_bytes": _L,
-    "ef40_unpack_scratch_bytes": _L,
+    "ef40_unpack_scratch_bytes": _L, "owner_pack_scratch_bytes": _L,
 }
 
 
@@ -414,3 +441,32 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def device_guard(t):
+    """A context in which the device of ``t`` (a tensor or a
+    ``torch.device``) is the current CUDA device; a no-op for anything not
+    on a CUDA device."""
+    import torch
+
+    dev = t if isinstance(t, torch.device) else getattr(t, "device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def on_device_of(arg: str):
+    """Decorate a kernel wrapper so that it runs inside ``device_guard`` of
+    its argument named ``arg``."""
+
+    def wrap(fn):
+        pos = list(inspect.signature(fn).parameters).index(arg)
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with device_guard(args[pos] if pos < len(args) else kwargs.get(arg)):
+                return fn(*args, **kwargs)
+
+        return run
+
+    return wrap

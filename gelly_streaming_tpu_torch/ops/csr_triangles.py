@@ -130,6 +130,7 @@ def scratch_bytes(k: int, e: int, num_vertices: int) -> int:
     return plan(k, e, num_vertices).scratch_bytes
 
 
+@_cuda.on_device_of("u")
 def csr_triangles(u, v, ok, num_vertices: int, max_deg: int) -> torch.Tensor:
     """Triangles of each of K panes: int64 [K].
 

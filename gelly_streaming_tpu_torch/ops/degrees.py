@@ -22,7 +22,7 @@ keys, a scan kernel and a pack kernel; ``degree_dist_scan`` three, the two
 scans each after a stable sort)
 and ``LAUNCHES`` counts it once; on CPU tensors they run the plain twins
 (``*_plain``: the same algorithm in PyTorch ops), which return new tensors
-and launch nothing.
+and launch nothing, and ``TWIN_CALLS`` counts those calls.
 """
 
 from __future__ import annotations
@@ -39,11 +39,14 @@ _MAX_KEY_CAPACITY = 1 << 30  # grouping keys 2 * v + 1 must fit int32
 
 # kernel launches since the last reset_launches() (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {"degree_trace": 0, "degree_fold": 0, "degree_dist_scan": 0, "degree_dist_scan_serial": 0}
+# the wrappers' twin calls on CPU tensors since the last reset_launches()
+TWIN_CALLS: Dict[str, int] = {"degree_trace": 0, "degree_fold": 0, "degree_dist_scan": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TWIN_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_vector(t: torch.Tensor, dtype: torch.dtype, name: str, like: torch.Tensor) -> None:
@@ -83,6 +86,7 @@ def degree_trace_plain(
     return counts, (v, emitted, m)
 
 
+@_cuda.on_device_of("counts")
 def degree_trace(counts: torch.Tensor, v: torch.Tensor, m: torch.Tensor, packed: bool) -> tuple:
     """The records of one batch of endpoint rows ``v`` (valid where ``m``)
     against the running ``counts``, which are updated in place; returns the
@@ -93,6 +97,7 @@ def degree_trace(counts: torch.Tensor, v: torch.Tensor, m: torch.Tensor, packed:
     if m.shape != v.shape:
         raise ValueError("v and m must have the same shape")
     if counts.device.type == "cpu":
+        TWIN_CALLS["degree_trace"] += 1
         new, outs = degree_trace_plain(counts, v, m, packed)
         counts.copy_(new)
         return outs
@@ -138,6 +143,7 @@ def degree_fold_plain(
     return indexing.scatter_add_(indexing.scatter_add_(deg.clone(), s, ones), d, ones)
 
 
+@_cuda.on_device_of("deg")
 def degree_fold(
     deg: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -150,6 +156,7 @@ def degree_fold(
     if src.shape != dst.shape or (mask is not None and mask.shape != src.shape):
         raise ValueError("src, dst and mask must have the same shape")
     if deg.device.type == "cpu":
+        TWIN_CALLS["degree_fold"] += 1
         return deg.copy_(degree_fold_plain(deg, src, dst, mask))
     _require_cuda(deg, "degree_fold")
     n = src.shape[0]
@@ -305,6 +312,7 @@ def _check_scan_args(deg, hist, src, dst, sign, mask) -> None:
         raise ValueError(f"degree_dist_scan takes fewer than {_MAX_SCAN_EVENTS} events a call")
 
 
+@_cuda.on_device_of("deg")
 def degree_dist_scan(
     deg: torch.Tensor,
     hist: torch.Tensor,
@@ -319,6 +327,7 @@ def degree_dist_scan(
     new degree, v old degree], each a (degree, count) record."""
     _check_scan_args(deg, hist, src, dst, sign, mask)
     if deg.device.type == "cpu":
+        TWIN_CALLS["degree_dist_scan"] += 1
         new_deg, new_hist, recs, rmask = degree_dist_scan_plain(deg, hist, src, dst, sign, mask)
         deg.copy_(new_deg)
         hist.copy_(new_hist)
@@ -352,6 +361,7 @@ def degree_dist_scan(
     return recs, rmask
 
 
+@_cuda.on_device_of("deg")
 def degree_dist_scan_serial(
     deg: torch.Tensor,
     hist: torch.Tensor,

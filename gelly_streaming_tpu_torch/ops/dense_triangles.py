@@ -159,6 +159,7 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"no {what} kernel for device {t.device}")
 
 
+@_cuda.on_device_of("words")
 def pane_adjacency(words: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
     """Packed pane words -> int32 [k, k/32] symmetric bitset adjacency.
 
@@ -189,6 +190,7 @@ def dense_triangles_plain(bits: torch.Tensor) -> torch.Tensor:
     return (a @ a * a).sum().to(torch.int64).reshape(1)
 
 
+@_cuda.on_device_of("bits")
 def dense_triangles(bits: torch.Tensor) -> torch.Tensor:
     """int32 [K, K/32] bitset of a symmetric zero-diagonal adjacency ->
     int64 [1] total sum(A * (A @ A)) (six times the triangle count)."""
@@ -213,6 +215,7 @@ def dense_triangles(bits: torch.Tensor) -> torch.Tensor:
     return total
 
 
+@_cuda.on_device_of("words")
 def pane_triangles(words: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
     """``dense_triangles(pane_adjacency(words, n, k))``: on CUDA one C call
     enqueues both kernels (and the clears of their outputs)."""

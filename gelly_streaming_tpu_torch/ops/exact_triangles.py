@@ -314,6 +314,7 @@ def _require_cuda(t: torch.Tensor, kernel: str) -> None:
         raise ValueError(f"no {kernel} kernel for device {t.device}")
 
 
+@_cuda.on_device_of("src")
 def triangle_update(
     state: TriangleCountState, src, dst, mask
 ) -> Tuple[TriangleCountState, torch.Tensor, torch.Tensor]:
@@ -339,6 +340,7 @@ def triangle_update(
     return state, local_trace, global_trace
 
 
+@_cuda.on_device_of("src")
 def triangle_update_block(state: TriangleCountState, src, dst, mask, chunk: int = 64) -> TriangleCountState:
     """Fold an edge batch in chunks of ``min(chunk, B)`` edges (the same
     final state as ``triangle_update`` while no row overflows); returns

@@ -261,6 +261,7 @@ def _call_buffers(dev: torch.device, capacity: int):
     return st, _scratch[key]
 
 
+@_cuda.on_device_of("partner")
 def matching_scan(
     partner: torch.Tensor,
     weight: torch.Tensor,

@@ -153,6 +153,7 @@ def sort_valid_rows_plain(src, dst, mask) -> Tuple[torch.Tensor, torch.Tensor, t
     return src[order], dst[order], order.to(torch.int32)
 
 
+@_cuda.on_device_of("src")
 def sort_valid_rows(src, dst, mask) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """(src, dst, arrival index, passes): the valid rows as the CUDA radix
     sort leaves them (a check of ``build_buckets``' sort; passes = the
@@ -181,6 +182,7 @@ def sort_valid_rows(src, dst, mask) -> Tuple[torch.Tensor, torch.Tensor, torch.T
     return out[0, :valid], out[1, :valid], out[2, :valid], passes
 
 
+@_cuda.on_device_of("src")
 def build_buckets(src, dst, val, mask) -> List[NeighborhoodBucket]:
     """Group a padded edge list by source key into degree buckets.
 

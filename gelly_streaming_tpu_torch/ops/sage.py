@@ -154,6 +154,7 @@ def sage_layer_plain(table, keys, nbrs, valid, w, bias) -> torch.Tensor:
     return torch.relu_(torch.addmm(bias.float(), xm.float(), w.float())).to(torch.bfloat16)
 
 
+@_cuda.on_device_of("table")
 def sage_layer(table, keys, nbrs, valid, w, bias, out: Optional[torch.Tensor] = None, row0: int = 0) -> torch.Tensor:
     """The bucket's embeddings, bf16 [K, F_out], written to
     ``out[row0 : row0 + K]`` when ``out`` is given (see the module)."""
@@ -189,6 +190,7 @@ def sage_layer_backward_plain(table, keys, nbrs, valid, z, dz, dw, db):
     return dw, db
 
 
+@_cuda.on_device_of("table")
 def sage_layer_backward(table, keys, nbrs, valid, z, dz, dw, db):
     """The layer's weight gradient over one bucket, added into the f32
     ``dw`` and ``db`` (see the module); returns (dw, db)."""

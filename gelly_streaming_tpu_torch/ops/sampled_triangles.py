@@ -256,6 +256,7 @@ class KeyChain:
 # the CUDA call
 
 
+@_cuda.on_device_of("src")
 def scan_launch(state: SamplerState, src: torch.Tensor, dst: torch.Tensor, mask, keys: torch.Tensor) -> SamplerState:
     """The C call over a batch whose step keys are already on the card
     (``keys`` int32 [n + 1, 2]: the key before each step, then after; a

@@ -549,6 +549,7 @@ def _hll_scratch(dev, banks: int, m: int) -> torch.Tensor:
     return buf
 
 
+@_cuda.on_device_of("regs")
 def hll_fold(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Fold hashed keys (int64 lanes of u32 hashes: ``hash_u32`` /
     ``hash_pair_u32``) into the int32 registers ``regs`` [m] in place;
@@ -572,6 +573,7 @@ def hll_fold(regs: torch.Tensor, keys: torch.Tensor, mask: Optional[torch.Tensor
     return regs
 
 
+@_cuda.on_device_of("verts")
 def hll_degree_fold(verts: torch.Tensor, edges: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """``HLLDegreeSummary.update`` in place: the src and dst vertex hashes
@@ -600,6 +602,7 @@ def hll_degree_fold(verts: torch.Tensor, edges: torch.Tensor, src: torch.Tensor,
     return verts, edges
 
 
+@_cuda.on_device_of("grid")
 def _cm_call(grid, d, w, keys_a, keys_b, counts, mask):
     if grid.dtype != torch.int32 or grid.dim() != 1 or not grid.is_contiguous() or grid.shape[0] != d * w:
         raise ValueError(f"grid must be a contiguous int32 [d * w] = [{d * w}] tensor")
@@ -668,6 +671,7 @@ def _check_sample(eh, elo, ehi) -> None:
     _log2(eh.shape[0], "the sample's rows")
 
 
+@_cuda.on_device_of("eh")
 def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
              mask: Optional[torch.Tensor], regs: Optional[torch.Tensor] = None):
     """Fold an edge batch into the R-row min-hash sample (eh int64, elo,
@@ -699,6 +703,7 @@ def tri_fold(eh: torch.Tensor, elo: torch.Tensor, ehi: torch.Tensor, src: torch.
     return eh, elo, ehi
 
 
+@_cuda.on_device_of("elo")
 def tri_sampled_closures(elo: torch.Tensor, ehi: torch.Tensor) -> torch.Tensor:
     """The closed wedges among the sampled rows // 2 (three times the
     fully sampled triangle count), an int32 0-d tensor on their device.

@@ -268,6 +268,7 @@ def _call_buffers(nbrs: torch.Tensor, n: int, k: int, cap: int, code: int):
     return buf, st
 
 
+@_cuda.on_device_of("nbrs")
 def spanner_admit(
     nbrs: torch.Tensor,
     deg: torch.Tensor,

@@ -356,6 +356,7 @@ def _plan_scratch(lib, op: PaneOperator) -> torch.Tensor:
     return torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=op.off.device)
 
 
+@_cuda.on_device_of("x")
 def _product_launch(sem: Semiring, op: PaneOperator, x: torch.Tensor, fm: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no spmv_product_launch kernel for device {x.device}")
@@ -483,6 +484,7 @@ def fixpoint_plain(sem: Semiring, op: PaneOperator, x0: torch.Tensor, fm0: torch
     return _Run(x, fm, it, push_i, pull_i, switches, hist)
 
 
+@_cuda.on_device_of("x0")
 def fixpoint_launch(sem: Semiring, op: PaneOperator, x0: torch.Tensor, fm0: torch.Tensor, thr: float,
                     max_iters: int):
     """Enqueue one ``spmv_fixpoint_launch`` with no host sync; returns
@@ -614,14 +616,15 @@ def pagerank_launch(op: PaneOperator, *, damping: float, tol: float, max_iters: 
     rs = torch.empty((2, c), dtype=torch.float32, device=dev)
     in_w = torch.empty((c,), dtype=torch.bool, device=dev)
     scratch = torch.empty(((nbytes + 3) // 4,), dtype=torch.int32, device=dev)
-    _cuda.check(
-        lib.pagerank_fixpoint_launch(
-            op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, op.e_pad, float(damping),
-            float(tol), int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(), scratch.numel() * 4,
-            _stream(rs),
-        ),
-        "pagerank_fixpoint_launch",
-    )
+    with _cuda.device_guard(dev):
+        _cuda.check(
+            lib.pagerank_fixpoint_launch(
+                op.off.data_ptr(), op.d_off.data_ptr(), op.d_src.data_ptr(), c, op.e_pad, float(damping),
+                float(tol), int(max_iters), rs.data_ptr(), in_w.data_ptr(), scratch.data_ptr(),
+                scratch.numel() * 4, _stream(rs),
+            ),
+            "pagerank_fixpoint_launch",
+        )
     LAUNCHES["pagerank_fixpoint"] += 1
     return rs, in_w, scratch
 
@@ -673,6 +676,7 @@ def kcore_round_plain(c: torch.Tensor, keys: torch.Tensor, nbrs: torch.Tensor, v
     return MIN_MIN.scatter(c, keys, h)
 
 
+@_cuda.on_device_of("c")
 def kcore_round(c: torch.Tensor, keys: torch.Tensor, nbrs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """One h-index round of a bucket ``(keys [K], nbrs [K, D], valid
     [K, D])``, D a power of two, into the estimates ``c`` IN PLACE;
@@ -744,6 +748,7 @@ def _kcore_table(buckets, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64).reshape(-1, 4).to(device)
 
 
+@_cuda.on_device_of("table")
 def _kcore_fixpoint_launch(c: torch.Tensor, table: torch.Tensor, max_rounds: int) -> torch.Tensor:
     """Enqueue one ``kcore_fixpoint_launch`` over a ``_kcore_table`` with no
     host sync; returns its header (int32: rounds run, converged, H or -1

@@ -183,6 +183,7 @@ def last_rounds() -> Dict[str, int]:
     return {"hook": hook, "doubling": doubling, "compress": comp}
 
 
+@_cuda.on_device_of("parent")
 def _launch(parent, seen, src, dst, mask, n: int, parity: bool = False) -> None:
     """One ``uf_union_launch`` (``uf_parity_union_launch`` with ``parity``)
     on the current stream: compress unless ``parent`` is known flat, then

@@ -106,6 +106,7 @@ def _scratch_for(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     return buf
 
 
+@_cuda.on_device_of("buf")
 def decode_bdv(buf: torch.Tensor, n: int, valued: bool = False):
     """BDV wire buffer (uint8[nb], 1-D) -> (src, dst[, val]) int32[n] in
     dst-sorted order, on the buffer's device."""
@@ -179,6 +180,7 @@ def unpack_edges_ef40_plain(wire: torch.Tensor, n: int, capacity: int):
     return src, dst
 
 
+@_cuda.on_device_of("wire")
 def unpack_edges_ef40(wire: torch.Tensor, n: int, capacity: int):
     """EF40 wire buffer (uint8, 1-D) -> src-grouped (src, dst) int32[n], on
     the buffer's device."""
@@ -234,6 +236,7 @@ def unpack_edges_fixed_plain(wire: torch.Tensor, n: int, width):
     return v[0], v[1]
 
 
+@_cuda.on_device_of("wire")
 def unpack_edges_fixed(wire: torch.Tensor, n: int, width):
     """Width-3 or PAIR40 wire buffer (uint8, 1-D, any byte offset) ->
     (src, dst) int32[n], on the buffer's device."""

@@ -12,8 +12,9 @@ latency-histogram registry (``set_hist_job``, ``hist_record``,
 milliseconds with nearest-rank percentiles, the occupancy of
 ``core/async_exec``'s stages, the push/pull split of ``ops/spmv``'s
 fixpoints, the bytes an edge the wire path ships, edges a second over a
-run, and bounded histograms such as the network source's
-``push_to_fold_ms``.  The port's own
+run, bounded histograms such as the network source's
+``push_to_fold_ms``, and the mesh plane's comms counters (``comms_add``,
+``comms_high_water``, ``comms_stats``, ``reset_comms_stats``).  The port's own
 snapshot counters (``checkpoint_record``, ``checkpoint_stats``) time the
 aggregation planes' checkpoint writes.
 """
@@ -281,6 +282,67 @@ def reset_wire_stats() -> None:
     global _WIRE
     with _WIRE_LOCK:
         _WIRE = _wire_zero()
+
+
+# ---------------------------------------------------------------------------
+# Mesh comms counters: the owner-sharded summary plane's exchanges and
+# gathers.  Byte figures are static per-call buffer sizes times the round
+# counts the exchanges report, so they measure what crossed the mesh.
+# The replicated plane (sharded_state=0) leaves every counter at zero.
+
+_COMMS_LOCK = threading.Lock()
+
+
+def _comms_zero() -> dict:
+    return {
+        # device dispatches that fed the mesh data plane
+        "comms_dispatches": 0,
+        # bytes shipped by delta/slab exchange passes
+        "comms_bytes_exchange": 0.0,
+        # bytes shipped reassembling the full view at emit/snapshot boundaries
+        "comms_bytes_gather": 0.0,
+        # exchange passes executed (spills and chains retry)
+        "comms_exchange_rounds": 0,
+        # max per-owner changed-row demand seen before capping
+        "comms_delta_occupancy_hwm": 0,
+        # delta rows deferred past a full buffer (retried, never dropped)
+        "comms_delta_spilled": 0,
+    }
+
+
+_COMMS = _comms_zero()  # guarded-by: _COMMS_LOCK
+
+
+def comms_add(key: str, amount: float) -> None:
+    """Accumulate a mesh-comms counter."""
+    with _COMMS_LOCK:
+        _COMMS[key] += amount
+
+
+def comms_high_water(key: str, value: float) -> None:
+    """Raise a mesh-comms high-water mark to ``value`` if it is higher."""
+    with _COMMS_LOCK:
+        if value > _COMMS[key]:
+            _COMMS[key] = value
+
+
+def comms_stats() -> dict:
+    """The mesh-comms counters, with the byte total and bytes a dispatch."""
+    with _COMMS_LOCK:
+        out = dict(_COMMS)
+    out["comms_bytes_total"] = round(out["comms_bytes_exchange"] + out["comms_bytes_gather"], 1)
+    out["comms_bytes_exchange"] = round(out["comms_bytes_exchange"], 1)
+    out["comms_bytes_gather"] = round(out["comms_bytes_gather"], 1)
+    n = max(out["comms_dispatches"], 1)
+    out["comms_bytes_per_dispatch"] = round(out["comms_bytes_total"] / n, 1)
+    return out
+
+
+def reset_comms_stats() -> None:
+    """Zero the mesh-comms counters."""
+    global _COMMS
+    with _COMMS_LOCK:
+        _COMMS = _comms_zero()
 
 
 # ---------------------------------------------------------------------------

@@ -2941,3 +2941,163 @@ def test_checkpointed_compressed_wire_run_on_the_card_resumes(cuda_device, tmp_p
         if kw:  # batches 0-10 before the crash (10 decoded, not folded), then 8-23 after the restore
             assert wd.LAUNCHES["bdv_decode"] == 11 + (nb - 8)
         os.remove(path + ".npz")
+
+
+# ---------------------------------------------------------------------------
+# the mesh plane's routing kernels (csrc/routing.cu)
+
+
+@pytest.mark.parametrize("n,s,cap,owned", [(0, 4, 8, False), (1000, 4, 64, False), (70000, 8, 1024, True),
+                                           (5000, 3, 1, True), (300, 8, 0, False), (1 << 18, 64, 32, True)])
+def test_owner_pack_matches_twin(cuda_device, n, s, cap, owned):
+    from gelly_streaming_tpu_torch.ops import routing as rk
+
+    rng = np.random.default_rng(n + s)
+    live = torch.from_numpy(rng.random(n) < 0.4)
+    owner = torch.from_numpy(rng.integers(-1, s + 1, n).astype(np.int32)) if owned else None
+    a = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)) if owned else None
+    b = torch.from_numpy(rng.integers(-5, 1 << 20, n).astype(np.int32))
+    acc_c = torch.zeros(3, dtype=torch.int32)
+    want = rk.owner_pack(live, owner, a, b, s, cap, -1, 7, True, True, True, acc_c)
+    acc_g = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    on = [None if t is None else t.to(cuda_device) for t in (live, owner, a, b)]
+    before = rk.LAUNCHES["owner_pack"]
+    got = rk.owner_pack(*on, s, cap, -1, 7, True, True, True, acc_g)
+    assert rk.LAUNCHES["owner_pack"] == before + 1
+    for x, y in zip(want, got):
+        assert torch.equal(x, y.cpu())
+    assert torch.equal(acc_c, acc_g.cpu())
+
+
+@pytest.mark.parametrize("op", ["min", "max", "add"])
+@pytest.mark.parametrize("rows,s,cap", [(1000, 4, 64), (1 << 18, 8, 4096), (17, 2, 5)])
+def test_block_delta_fold_matches_twin(cuda_device, op, rows, s, cap):
+    from gelly_streaming_tpu_torch.ops import routing as rk
+
+    rng = np.random.default_rng(rows + cap)
+    blk = torch.from_numpy(rng.integers(-100, 100, rows).astype(np.int32))
+    rr = [torch.from_numpy(np.where(rng.random(cap) < 0.3, -1, rng.integers(-rows - 3, rows + 3, cap)).astype(np.int32))
+          for _ in range(s)]
+    vv = [torch.from_numpy(rng.integers(-1000, 1000, cap).astype(np.int32)) for _ in range(s)]
+    want = rk.block_delta_fold(blk.clone(), rr, vv, op)
+    got = rk.block_delta_fold(blk.to(cuda_device), [r.to(cuda_device) for r in rr], [v.to(cuda_device) for v in vv], op)
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.parametrize("op", ["min", "max", "add"])
+@pytest.mark.parametrize("rows,s,offset", [(1000, 4, 0), (1 << 20, 8, 0), (13, 3, 0), (4096, 2, 1)])
+def test_slab_fold_matches_twin(cuda_device, op, rows, s, offset):
+    from gelly_streaming_tpu_torch.ops import routing as rk
+
+    rng = np.random.default_rng(rows + s)
+    blk = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, rows).astype(np.int32))
+    slabs = [torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, rows).astype(np.int32)) for _ in range(s)]
+    fc = torch.zeros(1, dtype=torch.int32)
+    want = rk.slab_fold(blk.clone(), slabs, op, fc)
+    on = torch.empty(rows + offset, dtype=torch.int32, device=cuda_device)[offset:]
+    on.copy_(blk.to(cuda_device))
+    fg = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = rk.slab_fold(on, [x.to(cuda_device) for x in slabs], op, fg)
+    assert torch.equal(want, got.cpu()) and (int(fg) > 0) == (int(fc) > 0)
+    ident = torch.zeros_like(got) if op == "add" else got.clone()
+    before = int(fg)
+    rk.slab_fold(got, [ident], op, fg)
+    assert int(fg) == before
+
+
+def test_mesh_exchange_on_shared_card_matches_cpu(cuda_device):
+    """The owner-sharded CC exchange, 4 shards sharing the card, in the delta
+    and the dense regime: the same blocks and counters as the CPU shards."""
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(0)
+    edges = [(int(a), int(b), 0.0, int(t)) for a, b, t in zip(rng.integers(0, 4096, 600), rng.integers(0, 4096, 600),
+                                                               np.sort(rng.integers(0, 3000, 600)))]
+    out = {}
+    for dev, devices in ((cuda_device, [cuda_device] * 4), (torch.device("cpu"), [torch.device("cpu")] * 4)):
+        from gelly_streaming_tpu_torch.core.aggregation import MeshAggregationRunner
+
+        metrics.reset_comms_stats()
+        cfg = StreamConfig(vertex_capacity=4096, num_shards=4)
+        stream = EdgeStream.from_collection(edges, cfg, 32, with_time=True, device=dev)
+        runner = MeshAggregationRunner(ConnectedComponents(window_ms=500), pm.make_mesh(4, devices))
+        recs = [r[0].parent.cpu() for r in runner.run(stream).collect()]
+        out[dev.type] = (recs, metrics.comms_stats())
+    assert len(out["cuda"][0]) == len(out["cpu"][0]) >= 5
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    assert out["cuda"][1] == out["cpu"][1]
+
+
+def _distinct_cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def test_wrappers_launch_on_a_card_that_is_not_current(cuda_device):
+    """Each mesh kernel handed tensors on the last card while card 0 is
+    current: the launch goes to the tensors' card (``ops/_cuda.on_device_of``)."""
+    from gelly_streaming_tpu_torch.ops import routing as rk
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    far = _distinct_cards()[-1]
+    rng = np.random.default_rng(5)
+    torch.cuda.set_device(0)
+    live = torch.from_numpy(rng.random(70000) < 0.4)
+    b = torch.from_numpy(rng.integers(0, 1 << 20, 70000).astype(np.int32))
+    want = rk.owner_pack(live, None, None, b, 4, 4096, want_sent=True)
+    got = rk.owner_pack(live.to(far), None, None, b.to(far), 4, 4096, want_sent=True)
+    assert all(x is None or torch.equal(x, y.cpu()) for x, y in zip(want, got))
+    blk = torch.from_numpy(rng.integers(0, 1000, 5000).astype(np.int32))
+    slabs = [torch.from_numpy(rng.integers(0, 1000, 5000).astype(np.int32)) for _ in range(3)]
+    assert torch.equal(rk.slab_fold(blk.clone(), slabs, "min"),
+                       rk.slab_fold(blk.to(far), [s.to(far) for s in slabs], "min").cpu())
+    rows = [torch.from_numpy(rng.integers(-1, 5000, 64).astype(np.int32)) for _ in range(3)]
+    vals = [s[:64] for s in slabs]
+    assert torch.equal(rk.block_delta_fold(blk.clone(), rows, vals, "add"),
+                       rk.block_delta_fold(blk.to(far), [r.to(far) for r in rows], [v.to(far) for v in vals],
+                                           "add").cpu())
+    parent = torch.arange(4096, dtype=torch.int32)
+    src = torch.from_numpy(rng.integers(0, 4096, 3000).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, 4096, 3000).astype(np.int32))
+    assert torch.equal(uf.union_edges(parent.clone(), src, dst),
+                       uf.union_edges(parent.to(far), src.to(far), dst.to(far)).cpu())
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("sharded", [0, 1])
+def test_mesh_on_distinct_cards_matches_cpu(cuda_device, sharded):
+    """CC on 4 shards spread over the visible cards (up to 4, one each),
+    both planes and both paths (windowed, wire): the same records and
+    counters as 4 CPU shards."""
+    from gelly_streaming_tpu_torch.core.aggregation import MeshAggregationRunner
+    from gelly_streaming_tpu_torch.core.config import StreamConfig
+    from gelly_streaming_tpu_torch.core.stream import EdgeStream
+    from gelly_streaming_tpu_torch.library.connected_components import ConnectedComponents
+    from gelly_streaming_tpu_torch.parallel import mesh as pm
+    from gelly_streaming_tpu_torch.utils import metrics
+
+    cards = _distinct_cards()
+    rng = np.random.default_rng(1)
+    n = 6000
+    src, dst = rng.integers(0, 1 << 14, n).astype(np.int32), rng.integers(0, 1 << 14, n).astype(np.int32)
+    edges = [(int(a), int(b), 0.0, int(t)) for a, b, t in zip(src, dst, np.sort(rng.integers(0, 3000, n)))]
+    out = {}
+    for name, devices in (("cuda", [cards[i % len(cards)] for i in range(4)]), ("cpu", [torch.device("cpu")] * 4)):
+        dev = devices[0]
+        cfg = StreamConfig(vertex_capacity=1 << 14, batch_size=1024, num_shards=4, sharded_state=sharded)
+        mesh = pm.make_mesh(4, devices)
+        metrics.reset_comms_stats()
+        windowed = MeshAggregationRunner(ConnectedComponents(window_ms=500), mesh).run(
+            EdgeStream.from_collection(edges, cfg, 256, with_time=True, device=dev)).collect()
+        wired = list(MeshAggregationRunner(ConnectedComponents(), mesh).wire_records(
+            EdgeStream.from_arrays(src, dst, cfg, device=dev)))
+        out[name] = ([r[0].parent.cpu() for r in windowed] + [wired[-1][0].parent.cpu()], metrics.comms_stats())
+    assert len(out["cuda"][0]) == len(out["cpu"][0]) >= 5
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    assert out["cuda"][1] == out["cpu"][1]

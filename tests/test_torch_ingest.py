@@ -18,6 +18,7 @@ from gelly_streaming_tpu_torch.core.config import StreamConfig as TConfig
 from gelly_streaming_tpu_torch.io import ingest as tingest
 from gelly_streaming_tpu_torch.io import sources as tsources
 from gelly_streaming_tpu_torch.io import wire as tw
+from gelly_streaming_tpu_torch.parallel import routing as trouting
 from gelly_streaming_tpu_torch.utils import native
 
 # the pool's threads
@@ -188,7 +189,7 @@ def test_parallel_host_route_matches_jax(n, shards, key, lib_mode):
     src = rng.integers(0, 4096, n).astype(np.int32)
     dst = ((4096 * rng.random(n) ** 3).astype(np.int64) % 4096).astype(np.int32)
     want = routing.host_route(src, dst, shards, key=key)
-    for got in (tingest.host_route(src, dst, shards, key=key),
+    for got in (trouting.host_route(src, dst, shards, key=key),
                 tingest.parallel_host_route(src, dst, shards, key=key, workers=2)):
         for a, b in zip(got[:3], want[:3]):
             np.testing.assert_array_equal(a, b)

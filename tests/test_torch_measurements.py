@@ -119,5 +119,7 @@ def test_device_defaults_to_cuda():
 
 
 def test_routing_is_not_faked():
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        tm.run(["routing", "--device=cpu"])
+    # one CPU shard unless a caller sets more: skipped, as the JAX program
+    # reports with fewer devices than shards (tests/test_torch_routing.py
+    # runs it on 8 CPU shards against the JAX program)
+    assert tm.run(["routing", "--device=cpu"]) == {"skipped": "need 8 devices, have 1"}
